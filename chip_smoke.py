@@ -10,9 +10,15 @@ Phases (any failure makes the script exit non-zero and print no result):
    from ``smg_tpu_torch/csrc`` (nvcc, sm_90a);
 2. hold each kernel against its plain PyTorch version on the card, in bf16,
    at the serving path's shapes (Llama-3-8B heads: 32 query / 8 KV heads,
-   head_dim 128, page size 16), and time kernel, plain version and one
-   PyTorch library call computing the same function (SDPA on gathered K/V,
-   a yardstick the port never calls) with CUDA events;
+   head_dim 128, page size 16) and at the edges of the decode split (split
+   boundaries, a window across two splits, a padded row alone), plus
+   head_dim 64 (G=1), 256 (G=2, Gemma-2-9B) and the padded 96 (G=1,
+   Phi-3-mini) and 80 (G=4); then time kernel, plain
+   version and one PyTorch library call computing the same function (SDPA
+   on gathered K/V, a yardstick the port never calls) at the timed shapes:
+   decode B=32 ragged, B=4 x ~1000 with n_extra 4 (the serving shape) and
+   B=1 x 8000; prefill T=512 over a 1000-token prefix and a cold grouped
+   prefill of 8 rows;
 3. serve requests through ``Engine.submit``/``step`` on Llama-3-8B at full
    width and depth (random bf16 weights from a fixed seed, bf16 KV): a
    chunked long prompt, a radix prefix hit, decode horizon 4.  Kernel launch
@@ -26,7 +32,12 @@ Phases (any failure makes the script exit non-zero and print no result):
    (``--phases kernels`` stops after phase 2 and prints neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
-Timings are medians of CUDA-event-timed repeats after warm-up.
+Timings are medians of 15 repeats after warm-up: device time between CUDA
+events, the L2 flushed before each repeat and the host's launch overhead
+kept out (``cuda_ms``); each is also timed issued from an idle queue
+(``call_ms``), host launch time included, as the port's first measurements
+were.  The whole script takes 75-120 s on an H100, the kernels' build
+included.
 """
 
 from __future__ import annotations
@@ -45,8 +56,11 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # bf16 outputs of the same f32 arithmetic summed in another order: at most a
-# couple of bf16 ulps (2^-7 relative) apart
-KERNEL_ATOL, KERNEL_RTOL = 2e-2, 1.6e-2
+# couple of bf16 ulps (2^-7 relative) apart, plus an absolute term of 5% of
+# the query row's rms (at most 2e-2).  An output over n keys has an rms near
+# sqrt(e / n): over thousands of keys a fixed 2e-2 would be as large as the
+# values, and would pass a decode split that was dropped or weighed wrong.
+KERNEL_RMS_ATOL, KERNEL_MAX_ATOL, KERNEL_RTOL = 0.05, 2e-2, 1.6e-2
 # first-token logits at full depth.  In float32 kernel and plain attention
 # differ only in summation order: held to 2e-3 absolute, and the greedy
 # streams must be identical.  In bf16 each run rounds its attention output
@@ -65,8 +79,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int = 3, reps: int = 15) -> float:
-    """Median CUDA-event time of one call, in milliseconds."""
+def call_ms(fn, warmup: int = 3, reps: int = 15) -> float:
+    """Median CUDA-event time of one call issued from an idle queue, in
+    milliseconds: the device time plus whatever host time the call spends
+    before its first kernel starts."""
     import torch
 
     for _ in range(warmup):
@@ -82,6 +98,42 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 15) -> float:
     return statistics.median(times)
 
 
+_L2_FLUSH = []  # a buffer larger than the H100's 50 MB L2
+
+
+def cuda_ms(fn, warmup: int = 3, reps: int = 15) -> float:
+    """Median device time of one call, in milliseconds, with a cold L2.
+
+    A spin kernel holds the stream while the host enqueues every repeat
+    (an L2 flush, a start event, the call, an end event), so each event
+    pair brackets device work only, not the host's launch overhead.  The
+    flush reads 128 MB, so it leaves clean lines and no write-back."""
+    import torch
+
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.ones(32 << 20, dtype=torch.float32, device="cuda"))
+    flush = _L2_FLUSH[0]
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush.sum()
+    fn()
+    host_s = time.perf_counter() - t0  # enqueue time of one repeat
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    # ~2e9 spin cycles a second; twice the host's enqueue time, and 2 ms more
+    torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 2e-3)))
+    for a, b in ev:
+        flush.sum()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
@@ -90,10 +142,17 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 # ---- phase 2: kernels against their plain versions ----
 
 H, K, D, PS = 32, 8, 128, 16  # Llama-3-8B attention shapes
-KD = K * D
+SHAPES = {  # (query heads, KV heads, head_dim) of the correctness-only cases
+    "llama3": (H, K, D),
+    "d64_g1": (12, 12, 64),  # multi-head attention at head_dim 64
+    "d256_g2": (16, 8, 256),  # Gemma-2-9B
+    # head dims the bf16 kernels pad to 128
+    "d96_g1": (32, 32, 96),  # Phi-3-mini
+    "d80_g4": (32, 8, 80),
+}
 
 
-def _cache(L: int, P: int, gen, dev):
+def _cache(L: int, P: int, KD: int, gen, dev):
     import torch
 
     k = torch.randn((L, P, PS, KD), generator=gen, device=dev).bfloat16()
@@ -101,72 +160,77 @@ def _cache(L: int, P: int, gen, dev):
     return k, v
 
 
-def decode_case(B, entries, N, n_extra, softcap, window, gen, dev, pad_row=False):
+def decode_case(B, entries, N, n_extra, softcap, window, gen, dev, pad_row=False,
+                shape=(H, K, D)):
     """Decode inputs: ragged entries, distinct pages per row; with
     ``pad_row`` the last row is decode-bucket padding (entry = mp*ps)."""
     import torch
 
+    h, k, d = shape
     mp = math.ceil(max(entries) / PS) + 1
     if pad_row:
         entries = list(entries[:-1]) + [mp * PS]
     P = B * mp + 1
-    kc, vc = _cache(2, P, gen, dev)
+    kc, vc = _cache(2, P, k * d, gen, dev)
     pt = (torch.randperm(P - 1, generator=gen, device=dev)[: B * mp] + 1).reshape(B, mp)
     return dict(
-        q=torch.randn((B, H, D), generator=gen, device=dev).bfloat16(),
+        q=torch.randn((B, h, d), generator=gen, device=dev).bfloat16(),
         k_cache=kc, v_cache=vc,
-        hk=torch.randn((B, N, KD), generator=gen, device=dev).bfloat16(),
-        hv=torch.randn((B, N, KD), generator=gen, device=dev).bfloat16(),
+        hk=torch.randn((B, N, k * d), generator=gen, device=dev).bfloat16(),
+        hv=torch.randn((B, N, k * d), generator=gen, device=dev).bfloat16(),
         n_extra=n_extra, layer=1, page_tables=pt.int().contiguous(),
         entry_positions=torch.tensor(entries, dtype=torch.int32, device=dev),
-        scale=1.0 / math.sqrt(D), softcap=softcap, window=window,
+        scale=1.0 / math.sqrt(d), softcap=softcap, window=window,
     )
 
 
 def decode_work(c) -> tuple[float, float]:
     """(bytes, flops) this run's data needs: each attended K/V row read once."""
     mp = c["page_tables"].shape[1]
+    B, h, d = c["q"].shape
+    kd = c["k_cache"].shape[-1]
     tokens = 0
-    B = c["q"].shape[0]
     for e in c["entry_positions"].tolist():
         end = 0 if e >= mp * PS else e
         qpos = e + c["n_extra"] - 1
         lo = max(qpos - c["window"] + 1, 0) if c["window"] else 0
         tokens += max(end - lo, 0) + sum(1 for r in range(c["n_extra"]) if e + r >= lo)
-    nbytes = tokens * KD * 2 * 2 + 2 * B * H * D * 2 + B * (mp + 1) * 4
-    return nbytes, 4.0 * tokens * (H // K) * K * D
+    nbytes = tokens * kd * 2 * 2 + 2 * B * h * d * 2 + B * (mp + 1) * 4
+    return nbytes, 4.0 * tokens * h * d
 
 
-def prefill_case(T, prefixes, t_reals, softcap, window, gen, dev):
+def prefill_case(T, prefixes, t_reals, softcap, window, gen, dev, shape=(H, K, D)):
     """Prefill inputs for len(prefixes) sequences; the chunk is scattered
     into the cache first, as the model does, so the plain version (which
     gathers the context from the cache) and the kernel see the same K/V."""
     import torch
 
+    h, k, d = shape
     Gs = len(prefixes)
     mp = math.ceil((max(prefixes) + T) / PS) + 1
     P = Gs * mp + 1
-    kc, vc = _cache(2, P, gen, dev)
+    kc, vc = _cache(2, P, k * d, gen, dev)
     pt = (torch.randperm(P - 1, generator=gen, device=dev)[: Gs * mp] + 1).reshape(Gs, mp)
-    ck = torch.randn((Gs, T, KD), generator=gen, device=dev).bfloat16()
-    cv = torch.randn((Gs, T, KD), generator=gen, device=dev).bfloat16()
+    ck = torch.randn((Gs, T, k * d), generator=gen, device=dev).bfloat16()
+    cv = torch.randn((Gs, T, k * d), generator=gen, device=dev).bfloat16()
     for g in range(Gs):
-        for t in range(t_reals[g]):
-            pos = prefixes[g] + t
-            page = int(pt[g, pos // PS])
-            kc[1, page, pos % PS] = ck[g, t]
-            vc[1, page, pos % PS] = cv[g, t]
+        pos = prefixes[g] + torch.arange(t_reals[g], device=dev)
+        pages = pt[g, pos // PS].long()
+        kc[1, pages, pos % PS] = ck[g, : t_reals[g]]
+        vc[1, pages, pos % PS] = cv[g, : t_reals[g]]
     return dict(
-        q=torch.randn((Gs, T, H, D), generator=gen, device=dev).bfloat16(),
+        q=torch.randn((Gs, T, h, d), generator=gen, device=dev).bfloat16(),
         chunk_k=ck, chunk_v=cv, k_cache=kc, v_cache=vc, layer=1,
         page_tables=pt.int().contiguous(),
         prefix_lens=torch.tensor(prefixes, dtype=torch.int32, device=dev),
         t_reals=torch.tensor(t_reals, dtype=torch.int32, device=dev),
-        scale=1.0 / math.sqrt(D), softcap=softcap, window=window,
+        scale=1.0 / math.sqrt(d), softcap=softcap, window=window,
     )
 
 
 def prefill_work(c) -> tuple[float, float]:
+    _, _, h, d = c["q"].shape
+    kd = c["k_cache"].shape[-1]
     keys = rows = prefix_rows = 0
     w = c["window"] or 0
     for p, tr in zip(c["prefix_lens"].tolist(), c["t_reals"].tolist()):
@@ -176,30 +240,33 @@ def prefill_work(c) -> tuple[float, float]:
         for t in range(tr):
             lo = max(p + t - w + 1, 0) if w > 0 else 0
             keys += (p - min(lo, p)) + (t + 1 - max(lo - p, 0))
-    nbytes = (prefix_rows + rows) * KD * 2 * 2 + 2 * rows * H * D * 2
-    return nbytes, 4.0 * keys * H * D
+    nbytes = (prefix_rows + rows) * kd * 2 * 2 + 2 * rows * h * d * 2
+    return nbytes, 4.0 * keys * h * d
 
 
-def _gathered(kc, vc, layer, pt):
+def _gathered(kc, vc, layer, pt, d):
     """[B, K, S, D] K/V gathered through the page tables (for SDPA)."""
     B, mp = pt.shape
+    k = kc.shape[-1] // d
     idx = pt.long()
-    k = kc[layer][idx].reshape(B, mp * PS, K, D).transpose(1, 2).contiguous()
-    v = vc[layer][idx].reshape(B, mp * PS, K, D).transpose(1, 2).contiguous()
-    return k, v
+    kg = kc[layer][idx].reshape(B, mp * PS, k, d).transpose(1, 2).contiguous()
+    vg = vc[layer][idx].reshape(B, mp * PS, k, d).transpose(1, 2).contiguous()
+    return kg, vg
 
 
 def decode_library(c):
     """One SDPA call on pre-gathered dense K/V computing the same function
-    (no softcap/window: the timed case has none)."""
+    (no softcap/window: the timed cases have none)."""
     import torch
     import torch.nn.functional as F
 
-    k, v = _gathered(c["k_cache"], c["v_cache"], c["layer"], c["page_tables"])
-    B, _, S, _ = k.shape
+    B, _, d = c["q"].shape
+    kv = c["k_cache"].shape[-1] // d
+    k, v = _gathered(c["k_cache"], c["v_cache"], c["layer"], c["page_tables"], d)
+    S = k.shape[2]
     n = c["n_extra"]
-    k = torch.cat([k, c["hk"][:, :n].reshape(B, n, K, D).transpose(1, 2)], 2)
-    v = torch.cat([v, c["hv"][:, :n].reshape(B, n, K, D).transpose(1, 2)], 2)
+    k = torch.cat([k, c["hk"][:, :n].reshape(B, n, kv, d).transpose(1, 2)], 2)
+    v = torch.cat([v, c["hv"][:, :n].reshape(B, n, kv, d).transpose(1, 2)], 2)
     j = torch.arange(S + n, device=k.device)
     e = c["entry_positions"].long()[:, None]
     mask = torch.where(j < S, j < e, torch.ones_like(j, dtype=torch.bool))
@@ -213,7 +280,8 @@ def prefill_library(c):
     import torch
     import torch.nn.functional as F
 
-    k, v = _gathered(c["k_cache"], c["v_cache"], c["layer"], c["page_tables"])
+    d = c["q"].shape[-1]
+    k, v = _gathered(c["k_cache"], c["v_cache"], c["layer"], c["page_tables"], d)
     S = k.shape[2]
     T = c["q"].shape[1]
     p = c["prefix_lens"].long()[:, None, None]
@@ -235,12 +303,36 @@ def check_close(name, got, want, rows=None):
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (g - w).abs()
-    ok = bool((err <= KERNEL_ATOL + KERNEL_RTOL * w.abs()).all())
+    # a row is one query: the last two axes are (heads, head_dim)
+    rms = w.pow(2).mean(dim=(-2, -1), keepdim=True).sqrt()
+    atol = (KERNEL_RMS_ATOL * rms).clamp(max=KERNEL_MAX_ATOL)
+    limit = atol + KERNEL_RTOL * w.abs()
+    ok = bool((err <= limit).all())
     mx = float(err.max())
-    print(f"  {name}: max_abs_err={mx:.3e} {'ok' if ok else 'FAIL'}")
+    print(f"  {name}: max_abs_err={mx:.3e} (largest share of its limit "
+          f"{float((err / limit.clamp(min=1e-30)).max()):.3f}, row rms {float(rms.min()):.3e}.."
+          f"{float(rms.max()):.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with the plain version ({mx:.3e})")
     return mx
+
+
+def time_case(label, kernel, plain, library, work) -> dict:
+    """Kernel, plain and library times of one case two ways: device time
+    with a cold L2 (``ms``, ``plain_ms``, ``library_ms``), and each call
+    issued from an idle queue, host launch time included (``call_ms``,
+    ``plain_call_ms``, ``library_call_ms``: the method of the port's first
+    measurements, so that older figures compare like for like); and the
+    case's bound."""
+    bms, by = bound_ms(*work)
+    r = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+             call_ms=call_ms(kernel), plain_call_ms=call_ms(plain),
+             library_call_ms=call_ms(library), bound_ms=bms, bound_by=by)
+    print(f"  {label}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"library {r['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); from an idle "
+          f"queue: kernel {r['call_ms']:.4f}, plain {r['plain_call_ms']:.4f}, "
+          f"library {r['library_call_ms']:.4f}")
+    return r
 
 
 def phase_kernels(dev) -> dict:
@@ -251,71 +343,91 @@ def phase_kernels(dev) -> dict:
     from smg_tpu_torch.ops.cuda import prefill_attention as pk
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    rng_entries = lambda B, hi: torch.randint(  # noqa: E731
-        1, hi, (B,), generator=gen, device=dev).tolist()
-    results = {}
+    rng_entries = lambda B, lo, hi: torch.randint(  # noqa: E731
+        lo, hi, (B,), generator=gen, device=dev).tolist()
 
-    # decode: (label, B, entries, n_extra, softcap, window, pad_row)
+    # decode: (label, B, entries, n_extra, softcap, window, pad_row, shape, timed).
+    # The random entries are drawn first, in list order, and new cases go
+    # after B32_ragged, so its entries (and bound) stay those of earlier
+    # measurements.
     dcases = [
-        ("B1_e4000", 1, [4000], 1, None, None, False),
-        ("B8_ragged_nx3_softcap", 8, rng_entries(8, 4096), 3, 50.0, None, False),
-        ("B32_ragged_window1000", 32, rng_entries(32, 4096), 1, None, 1000, False),
-        ("B8_window7_nx3", 8, rng_entries(8, 4096), 3, None, 7, False),
-        ("B8_padded_row_softcap_window24", 8, rng_entries(8, 4096), 1, 30.0, 24, True),
-        ("B32_ragged", 32, rng_entries(32, 4096), 1, None, None, False),  # timed
+        ("B1_e4000", 1, [4000], 1, None, None, False, "llama3", False),
+        ("B8_ragged_nx3_softcap", 8, rng_entries(8, 1, 4096), 3, 50.0, None, False,
+         "llama3", False),
+        ("B32_ragged_window1000", 32, rng_entries(32, 1, 4096), 1, None, 1000, False,
+         "llama3", False),
+        ("B8_window7_nx3", 8, rng_entries(8, 1, 4096), 3, None, 7, False, "llama3", False),
+        ("B8_padded_row_softcap_window24", 8, rng_entries(8, 1, 4096), 1, 30.0, 24, True,
+         "llama3", False),
+        ("B32_ragged", 32, rng_entries(32, 1, 4096), 1, None, None, False, "llama3", True),
+        # total keys (entry + n_extra) at split boundaries and one either side
+        ("B9_split_edges", 9, [62, 63, 64, 126, 127, 128, 254, 255, 256], 1, None, None,
+         False, "llama3", False),
+        ("B3_split_edges_1024", 3, [1022, 1023, 1024], 1, None, None, False, "llama3",
+         False),
+        ("B1_window100_two_splits", 1, [3000], 1, None, 100, False, "llama3", False),
+        ("B4_padded_row_nx4", 4, rng_entries(4, 900, 1100), 4, None, None, True, "llama3",
+         False),
+        ("B2_d256_g2_softcap", 2, [700, 3000], 2, 50.0, None, False, "d256_g2", False),
+        ("B2_d64_g1_window", 2, [700, 3000], 2, None, 500, False, "d64_g1", False),
+        ("B2_d96_g1", 2, [700, 3000], 2, None, None, False, "d96_g1", False),
+        ("B2_d80_g4_softcap", 2, [700, 3000], 2, 50.0, None, False, "d80_g4", False),
+        ("B4_e1000_nx4", 4, rng_entries(4, 950, 1050), 4, None, None, False, "llama3", True),
+        ("B1_e8000", 1, [8000], 1, None, None, False, "llama3", True),
     ]
-    d_err = 0.0
-    for label, B, entries, nx, cap, win, pad in dcases:
-        c = decode_case(B, entries, 4, nx, cap, win, gen, dev, pad_row=pad)
+    d_err, d_timed = 0.0, {}
+    for label, B, entries, nx, cap, win, pad, shape, timed in dcases:
+        c = decode_case(B, entries, 4, nx, cap, win, gen, dev, pad_row=pad,
+                        shape=SHAPES[shape])
         got = dk.paged_attention_decode_cached(**c)
         want = attention_decode_cached(**c)
         torch.cuda.synchronize()
         d_err = max(d_err, check_close(f"decode {label}", got, want))
-    nbytes, flops = decode_work(c)
-    bms, by = bound_ms(nbytes, flops)
-    results["decode_attention"] = dict(
-        max_abs_err=d_err,
-        ms=cuda_ms(lambda: dk.paged_attention_decode_cached(**c)),
-        plain_ms=cuda_ms(lambda: attention_decode_cached(**c)),
-        library_ms=cuda_ms(decode_library(c)),
-        bound_ms=bms, bound_by=by, timed_case="B32_ragged (entries < 4096, n_extra 1)",
-    )
+        if timed:
+            d_timed[label] = time_case(
+                f"decode {label}", lambda: dk.paged_attention_decode_cached(**c),  # noqa: B023
+                lambda: attention_decode_cached(**c), decode_library(c), decode_work(c))  # noqa: B023
 
-    # prefill: (label, T, prefixes, t_reals, softcap, window)
+    # prefill: (label, T, prefixes, t_reals, softcap, window, shape, timed)
     pcases = [
-        ("T128_cold", 128, [0], [128], None, None),
-        ("T128_prefix1000_softcap", 128, [1000], [128], 50.0, None),
-        ("T512_cold_window7", 512, [0], [500], None, 7),
-        ("T512_prefix1000_window300", 512, [1000], [512], 30.0, 300),
-        ("G3_T128_mixed", 128, [0, 1000, 37], [128, 100, 5], None, None),
-        ("T512_prefix1000", 512, [1000], [512], None, None),  # timed
+        ("T128_cold", 128, [0], [128], None, None, "llama3", False),
+        ("T128_prefix1000_softcap", 128, [1000], [128], 50.0, None, "llama3", False),
+        ("T512_cold_window7", 512, [0], [500], None, 7, "llama3", False),
+        ("T512_prefix1000_window300", 512, [1000], [512], 30.0, 300, "llama3", False),
+        ("G3_T128_mixed", 128, [0, 1000, 37], [128, 100, 5], None, None, "llama3", False),
+        ("T500_prefix1037", 500, [1037], [500], None, None, "llama3", False),
+        ("D64_G1_T256_prefix300", 256, [300], [250], None, None, "d64_g1", False),
+        ("D256_G2_T256_prefix300_softcap_window", 256, [300], [256], 50.0, 200, "d256_g2",
+         False),
+        ("D96_G1_T256_prefix300", 256, [300], [250], None, None, "d96_g1", False),
+        ("D80_G4_T256_prefix300_softcap", 256, [300], [256], 50.0, None, "d80_g4", False),
+        ("T512_prefix1000", 512, [1000], [512], None, None, "llama3", True),
+        ("Gs8_T512_cold", 512, [0] * 8, [512, 480, 400, 300, 200, 128, 90, 17], None, None,
+         "llama3", True),
     ]
-    p_err = 0.0
-    for label, T, pfx, trs, cap, win in pcases:
-        c = prefill_case(T, pfx, trs, cap, win, gen, dev)
+    p_err, p_timed = 0.0, {}
+    for label, T, pfx, trs, cap, win, shape, timed in pcases:
+        c = prefill_case(T, pfx, trs, cap, win, gen, dev, shape=SHAPES[shape])
+        plain = lambda: pk.plain_prefill_batched(  # noqa: E731
+            c["q"], c["k_cache"], c["v_cache"], c["layer"], c["page_tables"],  # noqa: B023
+            c["prefix_lens"], c["t_reals"], c["scale"], c["softcap"], c["window"])  # noqa: B023
         got = pk.paged_attention_prefill_batched(**c)
-        want = pk.plain_prefill_batched(
-            c["q"], c["k_cache"], c["v_cache"], c["layer"], c["page_tables"],
-            c["prefix_lens"], c["t_reals"], c["scale"], c["softcap"], c["window"])
+        want = plain()
         torch.cuda.synchronize()
         for g, tr in enumerate(trs):  # rows past t_real are padding
             p_err = max(p_err, check_close(f"prefill {label} row{g}", got[g, :tr], want[g, :tr]))
-    plain = lambda: pk.plain_prefill_batched(  # noqa: E731
-        c["q"], c["k_cache"], c["v_cache"], c["layer"], c["page_tables"],
-        c["prefix_lens"], c["t_reals"], c["scale"])
-    nbytes, flops = prefill_work(c)
-    bms, by = bound_ms(nbytes, flops)
-    results["prefill_attention"] = dict(
-        max_abs_err=p_err,
-        ms=cuda_ms(lambda: pk.paged_attention_prefill_batched(**c)),
-        plain_ms=cuda_ms(plain),
-        library_ms=cuda_ms(prefill_library(c)),
-        bound_ms=bms, bound_by=by, timed_case="T512_prefix1000 (one sequence)",
-    )
-    for name, r in results.items():
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}) at {r['timed_case']}")
+        if timed:
+            p_timed[label] = time_case(
+                f"prefill {label}", lambda: pk.paged_attention_prefill_batched(**c),  # noqa: B023
+                plain, prefill_library(c), prefill_work(c))
+
+    results = {}
+    for name, err, timed, main in (
+        ("decode_attention", d_err, d_timed, "B32_ragged"),
+        ("prefill_attention", p_err, p_timed, "T512_prefix1000"),
+    ):
+        results[name] = dict(timed[main], max_abs_err=err, timed_case=main,
+                             timed_cases=timed)
     return results
 
 
@@ -685,7 +797,9 @@ def main(argv=None) -> int:
             launches=engine["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            max_err=r["max_abs_err"], kernel_ms=r["ms"], timed_case=r["timed_case"],
+            max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],
+            plain_call_ms=r["plain_call_ms"], library_call_ms=r["library_call_ms"],
+            timed_case=r["timed_case"], timed_cases=r["timed_cases"],
         ))
     print(json.dumps({"engine": engine, "card": card}))
     print(json.dumps({"kernels": rows}))

@@ -98,9 +98,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     # pointers and the stream are c_void_p: passed as plain ints they would be
     # cut to 32 bits
     lib.smg_decode_attention.argtypes = (
-        [p] * 8 + [i] * 12 + [f, f, p]
+        [p] * 10 + [i] * 12 + [f, f, i, p]
     )
     lib.smg_decode_attention.restype = i
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    lib.smg_decode_scratch.argtypes = [i] * 6 + [ll, ll]
+    lib.smg_decode_scratch.restype = i
     lib.smg_prefill_attention.argtypes = (
         [p] * 9 + [i] * 11 + [f, f, p]
     )

@@ -2,9 +2,30 @@
 
 Port of ``smg_tpu/ops/pallas/decode_attention.py::paged_attention_decode_cached``.
 The plain version beside it is ``ops/attention.py::attention_decode_cached``.
+
+The kernel splits each sequence's context over several blocks
+(flash-decoding).  Who decides what:
+
+- this wrapper picks the split count S, an upper bound for every sequence,
+  from the batch, the KV heads and the table capacity (no device read: the
+  entries stay on the card);
+- the kernel cuts each sequence's actual keys into at most S splits of
+  whole warp tiles, and never into splits shorter than one tile per warp;
+- the library sizes the scratch for (dtype, B, H, K, D, S)
+  (``smg_decode_scratch``), since only the kernel knows its head groups.
+
+The f32 partials are allocated per call.  The arrival counters live in one
+buffer per (device, stream), zeroed once and left zeroed by every launch:
+launches on one stream run one after another, so they can share it.  The
+buffer is replaced by a larger one when B x H outgrows it, so a CUDA graph
+that captures a launch must be captured at the largest batch it will
+replay, with this module's buffer kept alive.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -17,8 +38,54 @@ from smg_tpu_torch.ops.cuda._checks import (
     require,
 )
 
-MAX_GROUP_DIM = 2048  # kernel bound: (H // K) * head_dim
+MAX_HEAD_DIM = 256  # kernel bound
+SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
+TARGET_BLOCKS = SM_COUNT  # a block per SM at least (two fit on each)
+MAX_SPLITS = 32  # kernel bound (MAX_SPLITS in csrc/decode_attention.cu)
+# a long context is cut this fine even when the batch alone fills the card,
+# so one long row of a ragged batch does not set the kernel's time
+KEYS_PER_SPLIT = 512
+# S is never so large that a table-filling context gets splits under 64
+# keys: below that a split's fixed cost (its merge, its page-table reads)
+# outweighs its share of the bytes.  This is the wrapper's rule alone; the
+# kernel's own floor for an actual context is one warp tile per warp (64
+# keys in bfloat16, 16-32 in float32).
+MIN_SPLIT_KEYS = 64
 launches = 0  # kernel launches in this process (reset by the caller)
+# arrival counters per (device, stream handle), zero between launches
+_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def num_splits(B: int, K: int, max_keys: int) -> int:
+    """Blocks per (sequence, KV head) along the context, for contexts of up
+    to ``max_keys`` keys: enough for ``TARGET_BLOCKS`` in all, or one per
+    ``KEYS_PER_SPLIT`` keys if that is more, at most ``MAX_SPLITS``, and
+    none shorter than ``MIN_SPLIT_KEYS``.  The kernel cuts each sequence's
+    actual keys into at most this many equal splits."""
+    want = max(-(-TARGET_BLOCKS // max(B * K, 1)), max_keys // KEYS_PER_SPLIT)
+    return max(1, min(want, max_keys // MIN_SPLIT_KEYS, MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch(dtype: int, B: int, H: int, K: int, D: int, S: int) -> tuple[int, int]:
+    """(partial floats, counter ints) a launch needs, from the library."""
+    floats, ints = ctypes.c_longlong(), ctypes.c_longlong()
+    err = build.load().smg_decode_scratch(dtype, B, H, K, D, S, ctypes.byref(floats),
+                                          ctypes.byref(ints))
+    raise_on_error(err, "decode_attention scratch")
+    return floats.value, ints.value
+
+
+def _counter_buffer(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed once and replaced by a larger one when the batch's head count
+    grows; the kernel's last block per (sequence, head group) resets its
+    slot, so no memset runs per call."""
+    buf = _counters.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        old = 0 if buf is None else buf.numel()
+        buf = torch.zeros(max(n, 2 * old), dtype=torch.int32, device=dev)
+        _counters[(dev, stream)] = buf
+    return buf
 
 
 def paged_attention_decode_cached(
@@ -45,10 +112,10 @@ def paged_attention_decode_cached(
     B, H, D = q.shape
     L, P, ps, KD = k_cache.shape
     N = hk.shape[1]
-    require(D % 8 == 0, f"head_dim {D} must be a multiple of 8")
+    require(D % 8 == 0 and D <= MAX_HEAD_DIM,
+            f"head_dim {D}: multiple of 8, <= {MAX_HEAD_DIM}")
     require(KD % D == 0 and H % (KD // D) == 0, f"H={H}, K*D={KD}, D={D}: bad GQA shape")
     K = KD // D
-    require((H // K) * D <= MAX_GROUP_DIM, f"(H/K)*D must be <= {MAX_GROUP_DIM}")
     require(v_cache.shape == k_cache.shape, "k_cache and v_cache shapes differ")
     require(tuple(hk.shape) == (B, N, KD) and hv.shape == hk.shape,
             f"side buffers must be [{B}, N, {KD}]")
@@ -61,14 +128,19 @@ def paged_attention_decode_cached(
     check_cuda({"page_tables": page_tables, "entry_positions": entry_positions},
                dtype=torch.int32)
     mp = page_tables.shape[1]
+    splits = num_splits(B, K, mp * ps + N)
+    dtype = dtype_code(q)
+    n_part, n_counters = _scratch(dtype, B, H, K, D, splits)
     out = torch.empty_like(q)
-    lib = build.load()
-    err = lib.smg_decode_attention(
+    part = torch.empty(n_part, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counter_buffer(q.device, stream, n_counters)
+    err = build.load().smg_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), hk.data_ptr(),
         hv.data_ptr(), page_tables.data_ptr(), entry_positions.data_ptr(),
-        out.data_ptr(), dtype_code(q), B, H, K, D, P, ps, mp, N, int(n_extra),
-        int(layer), int(window or 0), float(scale), float(softcap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(), dtype, B, H, K, D,
+        P, ps, mp, N, int(n_extra), int(layer), int(window or 0), float(scale),
+        float(softcap or 0.0), splits, stream,
     )
     raise_on_error(err, "decode_attention")
     global launches

@@ -5,9 +5,12 @@ NVIDIA GPU only — the CUDA kernels against their plain versions.
 
 Tolerance on the CPU: 2e-5 absolute and relative, float32 on both sides
 (summation order only).  On the card: float32 2e-5; bfloat16 outputs a
-couple of bf16 ulps apart (2e-2 + 1.6e-2 relative)."""
+couple of bf16 ulps apart (1.6e-2 relative, plus 5% of the query row's rms
+and at most 2e-2 absolute: see ``_close``)."""
 
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -145,11 +148,18 @@ def cuda_dev():
 
 
 def _close(got, want, dtype):
+    """float32: 2e-5.  bfloat16: 1.6e-2 x |plain| (two bf16 ulps) plus an
+    absolute term of 5% of the row's rms, at most 2e-2: an output over n
+    keys has an rms near sqrt(e / n), so over thousands of keys a fixed 2e-2
+    would be as large as the values and pass a split dropped or weighed
+    wrong.  A row is one query: the last two axes are (heads, head_dim)."""
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     else:
-        err = (got.float() - want.float()).abs()
-        assert bool((err <= 2e-2 + 1.6e-2 * want.float().abs()).all()), float(err.max())
+        g, w = got.float(), want.float()
+        err = (g - w).abs()
+        atol = (0.05 * w.pow(2).mean(dim=(-2, -1), keepdim=True).sqrt()).clamp(max=2e-2)
+        assert bool((err <= atol + 1.6e-2 * w.abs()).all()), float(err.max())
 
 
 @pytest.mark.cuda
@@ -206,3 +216,174 @@ def test_prefill_kernel_matches_plain(cuda_dev, dtype, T, H, D, K, prefix_len, t
     torch.cuda.synchronize()
     assert pk.launches == n0 + 1
     _close(got[:t_real], want[:t_real], dtype)
+
+
+# ---- the split-KV decode and tensor-core prefill, at the edges of their
+# tiling (card only, except the split-count rule) ----
+
+@pytest.mark.parametrize("B,K,max_keys", [(1, 8, 20), (1, 8, 8016), (4, 8, 4100),
+                                          (32, 8, 4116), (64, 8, 132_000), (4, 8, 64),
+                                          (1, 1, 63), (256, 8, 1_000_000)])
+def test_decode_split_count(B, K, max_keys):
+    s = dk.num_splits(B, K, max_keys)
+    assert 1 <= s <= dk.MAX_SPLITS  # every context gets at least one split
+    # no split shorter than the wrapper's floor, which is at least one tile
+    # per warp of either kernel
+    assert s == 1 or max_keys / s >= dk.MIN_SPLIT_KEYS
+
+
+def test_decode_split_cap_is_the_kernels_bound():
+    """The wrapper's cap on S is the bound the kernel checks."""
+    src = (Path(dk.__file__).parents[2] / "csrc" / "decode_attention.cu").read_text()
+    bound = re.search(r"constexpr int MAX_SPLITS = (\d+);", src)
+    assert bound and int(bound.group(1)) == dk.MAX_SPLITS
+
+
+def test_decode_splits_fill_the_card_at_batch_4():
+    """Llama-3-8B at batch 4 (8 KV heads) over a 4096-token table: enough
+    blocks for every SM."""
+    assert 4 * 8 * dk.num_splits(4, 8, 4096 + 4) >= dk.SM_COUNT
+
+
+def _dev_args(arrays, dev, dtype):
+    return [_t(a).to(dev, dtype) for a in arrays]
+
+
+def _decode_on_card(dev, dtype, B, H, D, K, entries, n_extra, softcap=None, window=None,
+                    pad_last=False):
+    mp = max(entries) // 16 + 2
+    if pad_last:
+        entries = list(entries[:-1]) + [mp * 16]
+    q, kc, vc, hk, hv, layer, pt, entry = decode_inputs(B, H, D, K, entries, mp=mp,
+                                                         P=B * mp + 1)
+    args = _dev_args((q, kc, vc, hk, hv), dev, dtype)
+    rest = (n_extra, layer, _t(pt).to(dev), _t(entry).to(dev), 1 / math.sqrt(D))
+    n0 = dk.launches
+    got = dk.paged_attention_decode_cached(*args, *rest, softcap=softcap, window=window)
+    want = tatt.attention_decode_cached(*args, *rest, softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    assert dk.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    _close(got, want, dtype)
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_extra", [1, 4])
+def test_decode_kernel_split_edges(cuda_dev, dtype, n_extra):
+    """Total keys (entry + n_extra) at multiples of the 64-key split floor
+    and one either side, and at a 1024-key context cut into 16 splits."""
+    edges = [e - n_extra for e in (63, 64, 65, 127, 128, 129, 255, 256, 257)]
+    _decode_on_card(cuda_dev, dtype, 9, 32, 128, 8, edges, n_extra)
+    _decode_on_card(cuda_dev, dtype, 3, 32, 128, 8, [1023 - n_extra, 1024 - n_extra,
+                                                     1025 - n_extra], n_extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_extra", [1, 4])
+def test_decode_kernel_long_context(cuda_dev, dtype, n_extra):
+    """B=1 at Llama-3-8B's 8192-token context, cut into many splits."""
+    _decode_on_card(cuda_dev, dtype, 1, 32, 128, 8, [8000], n_extra)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [100, 200])
+def test_decode_kernel_window_across_splits(cuda_dev, dtype, window):
+    _decode_on_card(cuda_dev, dtype, 2, 32, 128, 8, [3000, 5000], 2, softcap=30.0,
+                    window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [None, 2])
+def test_decode_kernel_empty_splits_and_padded_row(cuda_dev, dtype, window):
+    """A short row beside a long one leaves most of its splits empty; the
+    padded last row attends its side rows only (window 2 masks two of its
+    four), in a split of its own."""
+    _decode_on_card(cuda_dev, dtype, 3, 32, 128, 8, [6000, 5, 0], 4, window=window,
+                    pad_last=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,K,D", [(12, 12, 64), (16, 8, 256), (64, 8, 128), (32, 2, 128),
+                                   (32, 1, 64), (8, 2, 16), (32, 32, 96), (32, 8, 80),
+                                   (8, 8, 40)])
+def test_decode_kernel_head_shapes(cuda_dev, dtype, H, K, D):
+    """head_dim 16/64/128/256, the padded 40/80/96, and 1 to 32 query heads
+    per KV head (groups of 16 in bf16, of 8 in float32, beyond those), over
+    several splits."""
+    _decode_on_card(cuda_dev, dtype, 2, H, D, K, [1500, 700], 3, softcap=50.0)
+
+
+def _prefill_batch(T, H, D, K, prefixes, t_reals, seed=0):
+    """A cache holding each row's prefix with its chunk scattered after it
+    (as the models do), row g's pages distinct from the others'."""
+    rng = np.random.default_rng(seed)
+    Gs, L, layer, KD, ps = len(prefixes), 2, 1, K * D, 16
+    mp = (max(prefixes) + T) // ps + 2
+    P = Gs * mp + 1
+    kc = rng.standard_normal((L, P, ps, KD)).astype(np.float32)
+    vc = rng.standard_normal((L, P, ps, KD)).astype(np.float32)
+    pt = (rng.permutation(P - 1)[: Gs * mp] + 1).astype(np.int32).reshape(Gs, mp)
+    q = rng.standard_normal((Gs, T, H, D)).astype(np.float32)
+    ck = rng.standard_normal((Gs, T, KD)).astype(np.float32)
+    cv = rng.standard_normal((Gs, T, KD)).astype(np.float32)
+    for g in range(Gs):
+        pos = prefixes[g] + np.arange(t_reals[g])
+        kc[layer, pt[g, pos // ps], pos % ps] = ck[g, : t_reals[g]]
+        vc[layer, pt[g, pos // ps], pos % ps] = cv[g, : t_reals[g]]
+    return q, ck, cv, kc, vc, layer, pt
+
+
+def _prefill_on_card(dev, dtype, T, H, D, K, prefixes, t_reals, softcap=None, window=None):
+    q, ck, cv, kc, vc, layer, pt = _prefill_batch(T, H, D, K, prefixes, t_reals)
+    dv = _dev_args((q, ck, cv, kc, vc), dev, dtype)
+    pl = torch.tensor(prefixes, dtype=torch.int32, device=dev)
+    tr = torch.tensor(t_reals, dtype=torch.int32, device=dev)
+    ptd = _t(pt).to(dev)
+    n0 = pk.launches
+    got = pk.paged_attention_prefill_batched(*dv, layer, ptd, pl, tr, 1 / math.sqrt(D),
+                                             softcap=softcap, window=window)
+    want = pk.plain_prefill_batched(dv[0], dv[3], dv[4], layer, ptd, pl, tr,
+                                    1 / math.sqrt(D), softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    assert pk.launches == n0 + 1
+    for g, n in enumerate(t_reals):  # rows past t_real are padding
+        assert torch.isfinite(got[g, :n]).all()
+        _close(got[g, :n], want[g, :n], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefill_kernel_ragged_tiles(cuda_dev, dtype):
+    """T off the query tile (16 tokens at G=4), t_real < T, a prefix that
+    ends inside a key tile."""
+    _prefill_on_card(cuda_dev, dtype, 100, 32, 128, 8, [1037], [77])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefill_kernel_grouped_mixed_prefixes(cuda_dev, dtype):
+    """Gs=8 rows of one grouped prefill, each its own prefix and length."""
+    _prefill_on_card(cuda_dev, dtype, 64, 32, 128, 8, [0, 16, 37, 100, 1000, 5, 64, 300],
+                     [64, 30, 64, 1, 64, 50, 64, 10])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("softcap,window", [(None, None), (50.0, 100)])
+@pytest.mark.parametrize("H,K,D", [(8, 8, 64), (16, 8, 256), (32, 8, 128), (64, 8, 128),
+                                   (16, 8, 64), (8, 1, 128), (8, 8, 96), (32, 8, 96),
+                                   (8, 8, 80), (32, 8, 80), (8, 8, 40), (32, 8, 40)])
+def test_prefill_kernel_head_shapes(cuda_dev, dtype, softcap, window, H, K, D):
+    """head_dim 64/128/256 and G = 1, 2, 4, 8 query heads per KV head, and
+    head dims the bf16 kernel pads (40 to 64; 80 and 96 to 128) at G = 1
+    and 4, each over a cached prefix and on a cold row."""
+    _prefill_on_card(cuda_dev, dtype, 96, H, D, K, [300, 0], [96, 70], softcap=softcap,
+                     window=window)
