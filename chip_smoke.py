@@ -19,15 +19,23 @@ Phases (any failure makes the script exit non-zero and print no result):
    decode B=32 ragged, B=4 x ~1000 with n_extra 4 (the serving shape) and
    B=1 x 8000; prefill T=512 over a 1000-token prefix and a cold grouped
    prefill of 8 rows;
-3. serve requests through ``Engine.submit``/``step`` on Llama-3-8B at full
-   width and depth (random bf16 weights from a fixed seed, bf16 KV): a
-   chunked long prompt, a radix prefix hit, decode horizon 4.  Kernel launch
-   counts must equal what the schedule implies (32 layers x decode columns,
-   32 x prefill forward calls); the same requests are rerun with the plain
-   attention versions, then both again on the same weights widened to
-   float32 with float32 KV, where the greedy streams must be identical and
-   which is the reference the two bf16 runs' first-token logits are held
-   to;
+3. serve requests on Llama-3-8B at full width and depth (random bf16
+   weights from a fixed seed, bf16 KV): a chunked long prompt, a radix
+   prefix hit, decode horizon 4, submitted from the main thread with
+   ``on_output`` callbacks.  Three paths in turn: the serving path (decode
+   megasteps replayed from CUDA graphs, the overlap pipeline, the engine's
+   loop thread via ``engine.start()``), the eager synchronous path on the
+   same kernels (``decode_graphs=False``, ``overlap_schedule=False``,
+   stepped from the main thread), and the plain attention versions (eager,
+   synchronous).  Kernel launch counts must equal what the schedule
+   implies (32 layers x decode columns, counted through graph replays; 32
+   x prefill forward calls) and every run's ``audit()`` must be clean;
+   decode is profiled on 4 lanes per path.  All three again on the same
+   weights widened to float32 with float32 KV, where the greedy streams
+   must be identical and which is the reference the bf16 runs'
+   first-token logits are held to.  Then preemption: 4 layers, float32,
+   a page pool too small for four requests, streams equal to a roomy run
+   and no page leaked;
 4. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``
    (``--phases kernels`` stops after phase 2 and prints neither).
 
@@ -36,8 +44,8 @@ Timings are medians of 15 repeats after warm-up: device time between CUDA
 events, the L2 flushed before each repeat and the host's launch overhead
 kept out (``cuda_ms``); each is also timed issued from an idle queue
 (``call_ms``), host launch time included, as the port's first measurements
-were.  The whole script takes 75-120 s on an H100, the kernels' build
-included.
+were.  The whole script takes a few minutes on an H100, the kernels'
+build included.
 """
 
 from __future__ import annotations
@@ -449,9 +457,32 @@ def _requests(seed: int):
     return first, later
 
 
-def drive_engine(engine, max_new: int, record_logits: list):
-    """Submit the requests through Engine.submit/step; returns per-request
-    results, step times and the phase split."""
+# (label, attention, decode_graphs, overlap_schedule, background loop): the
+# serving path (CUDA graphs, the overlap pipeline, the loop thread), the
+# eager synchronous path on the same kernels, and the plain attention
+PATHS = (
+    ("graphs", "kernel", True, True, True),
+    ("eager", "kernel", False, False, False),
+    ("plain", "plain", False, False, False),
+)
+LOOP_WAIT_S = 300  # deadline of every wait on the engine's loop thread
+
+
+def wait_for(cond, what: str, timeout: float = LOOP_WAIT_S) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what}: not done within {timeout} s")
+        time.sleep(0.001)
+
+
+def drive_engine(engine, max_new: int, record_logits: list, loop: bool):
+    """Submit the requests from this thread with ``on_output`` callbacks.
+    With ``loop`` the engine's own thread steps (``engine.start()``);
+    otherwise this thread calls ``step()``.  Returns per-request results,
+    the wall time of every step, the phase split (synchronous paths only:
+    timing a pipelined call would need a sync that defeats the pipeline)
+    and the drive's wall time."""
     import torch
 
     from smg_tpu_torch.engine.engine import collect_result
@@ -469,43 +500,63 @@ def drive_engine(engine, max_new: int, record_logits: list):
 
     model.forward_prefill_batched = recording
     timers = {"prefill_s": 0.0, "decode_s": 0.0}
+    if not loop:
+        def timed(name, fn):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                timers[name] += time.perf_counter() - t0
+                return out
+            return wrapper
 
-    def timed(name, fn):
-        def wrapper(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            timers[name] += time.perf_counter() - t0
-            return out
-        return wrapper
+        runner.prefill_extend = timed("prefill_s", runner.prefill_extend)
+        runner.prefill_batched = timed("prefill_s", runner.prefill_batched)
+        runner.decode_multi_async = timed("decode_s", runner.decode_multi_async)
+        runner.decode_fetch = timed("decode_s", runner.decode_fetch)
+    step_ms = []
+    step = engine.step
 
-    runner.prefill_extend = timed("prefill_s", runner.prefill_extend)
-    runner.prefill_batched = timed("prefill_s", runner.prefill_batched)
-    runner.decode_multi = timed("decode_s", runner.decode_multi)
+    def timed_step():  # the loop thread calls engine.step
+        t0 = time.perf_counter()
+        out = step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
 
+    engine.step = timed_step
     first, later = _requests(7)
     chunks: dict[str, list] = {}
     sp = lambda: SamplingParams(temperature=0.0, max_new_tokens=max_new, ignore_eos=True)  # noqa: E731
-    for rid, ids in first:
-        chunks[rid] = []
-        engine.submit(ids, sp(), rid=rid, on_output=chunks[rid].append)
-    step_ms = []
-    pending_later = list(later)
-    while engine.has_work() or pending_later:
-        if pending_later and chunks["shared_a"] and chunks["shared_a"][-1].finished:
-            for rid, ids in pending_later:
-                chunks[rid] = []
-                engine.submit(ids, sp(), rid=rid, on_output=chunks[rid].append)
-            pending_later = []
-        t0 = time.perf_counter()
-        engine.step()
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        if len(step_ms) > 500:
-            raise RuntimeError("engine did not finish within 500 steps")
+
+    def submit(batch):
+        for rid, ids in batch:
+            chunks[rid] = []
+            engine.submit(ids, sp(), rid=rid, on_output=chunks[rid].append)
+
+    finished = lambda rid: bool(chunks[rid]) and chunks[rid][-1].finished  # noqa: E731
+    t0 = time.perf_counter()
+    if loop:
+        engine.start()
+        submit(first)
+        wait_for(lambda: finished("shared_a"), "shared_a")
+        submit(later)  # after shared_a finished: a radix hit
+        wait_for(lambda: all(finished(r) for r in chunks) and not engine.has_work(),
+                 "the five requests")
+        engine.stop()
+    else:
+        submit(first)
+        while engine.has_work() or later:
+            if later and finished("shared_a"):
+                submit(later)
+                later = []
+            engine.step()
+            if len(step_ms) > 500:
+                raise RuntimeError("engine did not finish within 500 steps")
+    wall_s = time.perf_counter() - t0
+    del engine.step
     results = {rid: collect_result(rid, c) for rid, c in chunks.items()}
     model.forward_prefill_batched = orig
-    return results, step_ms, timers
+    return results, step_ms, timers, wall_s
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device work in a trace
@@ -537,52 +588,91 @@ def device_time(prof) -> tuple[float, dict, int]:
     return busy / 1e3, by_name, len(spans)
 
 
-def profile_decode(engine, steps: int = 2) -> dict:
-    """Device time by kernel over ``steps`` decode megasteps (4 lanes with
-    1000-token prompts, horizon 4) under torch.profiler.  The busy share is
-    the device's busy time over the wall time of the same steps."""
+def profile_decode(engine, loop: bool, columns: int = 8) -> dict:
+    """Decode of 4 lanes with 1000-token prompts, horizon 4, under
+    torch.profiler: device time by kernel, device events and the busy share
+    (device busy time over the wall time of the same columns).  With
+    ``loop`` the engine's thread steps and the window closes once
+    ``columns`` more columns were launched; otherwise this thread steps.
+    For a graph path each decode launch is also timed alone with CUDA
+    events (``replay_ms``, a cold L2), whatever the profiler sees inside
+    graph replays."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from smg_tpu_torch.protocols.sampling import SamplingParams
 
-    sched = engine.scheduler
-    sp = SamplingParams(temperature=0.0, max_new_tokens=64, ignore_eos=True)
+    sched, runner = engine.scheduler, engine.runner
+    sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    outs: dict[str, list] = {}
     for i in range(4):
-        engine.submit(list(range(2000 + 1000 * i, 3000 + 1000 * i)), sp, rid=f"prof{i}")
-    while sched.waiting or any(r is not None and r.status.value == "prefilling"
-                               for r in sched.slots):
-        engine.step()
-    cols0 = engine.runner.stats["decode_columns"]
-    torch.cuda.synchronize()
+        outs[f"prof{i}"] = []
+        engine.submit(list(range(2000 + 1000 * i, 3000 + 1000 * i)), sp, rid=f"prof{i}",
+                      on_output=outs[f"prof{i}"].append)
+    if loop:
+        engine.start()
+        # every lane decoding and the queue empty: horizons are 4 wide
+        wait_for(lambda: all(len(o) >= 2 for o in outs.values()), "profile prefill")
+    else:
+        while sched.waiting or any(r is not None and r.status.value == "prefilling"
+                                   for r in sched.slots):
+            engine.step()
+    # hold the loop thread between two steps while the profiler starts (it
+    # takes longer than the lanes' remaining tokens); the window opens when
+    # the engine lock is let go
+    engine._lock.acquire()
+    torch.cuda.synchronize()  # nothing of before the window in the trace
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    cols = engine.runner.stats["decode_columns"] - cols0
+        cols0 = runner.stats["decode_columns"]
+        engine._lock.release()
+        if loop:
+            wait_for(lambda: runner.stats["decode_columns"] - cols0 >= columns, "profile")
+        else:
+            while runner.stats["decode_columns"] - cols0 < columns:
+                engine.step()
+        with engine._lock:  # never sync while the loop thread captures a graph
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    cols = runner.stats["decode_columns"] - cols0
     busy, by_kernel, n_events = device_time(prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    while engine.has_work():
-        engine.step()
-    out = dict(columns=cols, wall_ms_per_column=wall_ms / cols,
+    if loop:
+        wait_for(lambda: all(o and o[-1].finished for o in outs.values())
+                 and not engine.has_work(), "profile drain")
+        engine.stop()
+    else:
+        while engine.has_work():
+            engine.step()
+    out = dict(columns=cols, lanes=4, wall_ms_per_column=wall_ms / cols,
                device_ms_per_column=busy / cols, busy_share=busy / wall_ms,
                device_events_per_column=n_events / cols,
+               decode_tok_s=4 * cols / wall_ms * 1e3,
                top=[(name[:80], ms / cols) for name, ms in top])
+    graphs = [s for s in runner.graphs.steps.values() if s.graph is not None and s.K == 4]
+    if graphs:
+        st = max(graphs, key=lambda s: s.mp)  # the shape the window replayed
+        out["replay_ms"] = cuda_ms(st.graph.replay)
+        out["replay_ms_per_column"] = out["replay_ms"] / st.K
+        out["replay_shape"] = dict(B=st.B, mp=st.mp, K=st.K, E=st.E)
+        out["replay_busy_share"] = out["replay_ms_per_column"] / out["wall_ms_per_column"]
     print(f"  decode profile: {cols} columns, wall {out['wall_ms_per_column']:.2f} ms/column, "
           f"device busy {out['device_ms_per_column']:.2f} ms/column "
           f"(busy share {out['busy_share']:.3f}), "
-          f"{out['device_events_per_column']:.0f} device events/column")
+          f"{out['device_events_per_column']:.0f} device events/column, "
+          f"{out['decode_tok_s']:.2f} decode tokens/s"
+          + (f"; one replay alone {out['replay_ms']:.3f} ms = {out['replay_ms_per_column']:.3f}"
+             f" ms/column (busy share by it {out['replay_busy_share']:.3f})"
+             if graphs else ""))
     for name, ms in out["top"]:
         print(f"    {ms:8.3f} ms/column  {name}")
     return out
 
 
-def serve_pair(cfg, params, dev, max_new: int, with_profile: bool = False) -> dict:
-    """Serve the requests twice on one set of weights: attention through the
-    kernels, then through the plain versions.  Launch counters are zeroed
-    just before each measured run and read just after it."""
+def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False) -> dict:
+    """Serve the requests once per path of ``PATHS`` on one set of weights.
+    Launch counters are zeroed just before each measured run and read just
+    after it."""
     import gc
 
     import torch
@@ -593,72 +683,93 @@ def serve_pair(cfg, params, dev, max_new: int, with_profile: bool = False) -> di
     from smg_tpu_torch.ops.cuda import prefill_attention as pk
     from smg_tpu_torch.protocols.sampling import SamplingParams
 
-    econf = EngineConfig(
-        model=cfg,
-        cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False, dtype=cfg.dtype),
-        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096,
-                                  max_prefill_tokens=512, decode_horizon=4),
-    )
     runs = {}
-    for attention in ("kernel", "plain"):
+    for label, attention, graphs, overlap, loop in PATHS:
+        econf = EngineConfig(
+            model=cfg,
+            cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False, dtype=cfg.dtype),
+            scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096,
+                                      max_prefill_tokens=512, decode_horizon=4,
+                                      overlap_schedule=overlap),
+            decode_graphs=graphs,
+        )
         engine = Engine(econf, params=params, device=dev, attention=attention)
-        # warm-up request (cuBLAS handles, allocator); not counted
+        # warm-up request (cuBLAS handles, allocator, a first graph); not counted
         engine.generate(prompt_ids=list(range(1000, 1100)),
                         sampling=SamplingParams(temperature=0.0, max_new_tokens=4))
         for k in engine.runner.stats:
             engine.runner.stats[k] = 0
         engine.scheduler.num_decode_tokens = 0
+        torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved(dev)
         logits: list = []
         dk.launches = 0
         pk.launches = 0
-        results, step_ms, timers = drive_engine(engine, max_new, logits)
+        results, step_ms, timers, wall_s = drive_engine(engine, max_new, logits, loop)
+        torch.cuda.synchronize()
         launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
-        runs[attention] = dict(results=results, step_ms=step_ms, timers=timers,
-                               logits=logits, stats=dict(engine.runner.stats),
-                               launches=launches,
-                               decode_tokens=engine.scheduler.num_decode_tokens)
+        loads = engine.loads()
+        runs[label] = dict(results=results, step_ms=step_ms, timers=timers, wall_s=wall_s,
+                           logits=logits, stats=dict(engine.runner.stats),
+                           launches=launches, loads=loads,
+                           reserved_growth=torch.cuda.memory_reserved(dev) - reserved0,
+                           decode_tokens=engine.scheduler.num_decode_tokens)
+        if loads["audit"]["leaked_pages"] or not loads["audit"]["clean"]:
+            raise AssertionError(f"[{label}] audit not clean: {loads['audit']}")
         if with_profile:  # after the measured run: its counts are already read
-            runs[attention]["profile"] = profile_decode(engine)
+            runs[label]["profile"] = profile_decode(engine, loop)
         del engine
         gc.collect()  # drive_engine's timers hold the runner in a cycle
         torch.cuda.empty_cache()  # give the KV buffers back before the next engine
     return runs
 
 
-def check_pair(runs, L: int, max_new: int, label: str) -> tuple[float, float, int]:
-    """Counts, finishes and the radix hit of the kernel run; returns
-    (max |first-token logit difference| kernel vs plain, max |logit|,
-    requests whose greedy streams agree)."""
+def check_runs(runs, L: int, max_new: int, label: str) -> dict:
+    """Counts, finishes, the radix hit and the audit of every run; returns
+    first-token logit gaps and greedy-stream agreement of each path with
+    the plain run and of the graph path with the eager one."""
     import torch
 
-    kr, pr = runs["kernel"], runs["plain"]
-    for rid, r in kr["results"].items():
-        print(f"  [{label}] {rid}: prompt {r.prompt_tokens}, cached {r.cached_tokens}, "
-              f"output {r.output_tokens}, finish {r.finish_reason}")
-        if r.output_tokens != max_new or r.finish_reason != "length":
-            raise AssertionError(f"{rid}: expected {max_new} tokens, finish 'length'")
-    if kr["results"]["shared_b"].cached_tokens <= 0:
-        raise AssertionError("shared_b got no radix prefix hit")
-    st = kr["stats"]
-    expect = {"decode_attention": L * st["decode_columns"],
-              "prefill_attention": L * st["prefill_calls"]}
-    print(f"  [{label}] schedule: {st}; launches {kr['launches']}, expected {expect}")
-    if kr["launches"] != expect or min(kr["launches"].values()) <= 0:
-        raise AssertionError(f"launch counts {kr['launches']} != schedule {expect}")
-    if any(pr["launches"].values()):
-        raise AssertionError(f"plain run launched kernels: {pr['launches']}")
-    if len(kr["logits"]) != len(pr["logits"]):
-        raise AssertionError("kernel and plain runs ran different prefill schedules")
-    if not all(bool(torch.isfinite(a).all()) for a in kr["logits"]):
-        raise AssertionError("non-finite first-token logits")
-    diff = max(float((a - b).abs().max()) for a, b in zip(kr["logits"], pr["logits"]))
-    scale = max(float(b.abs().max()) for b in pr["logits"])
-    agree = sum(kr["results"][rid].token_ids == pr["results"][rid].token_ids
-                for rid in kr["results"])
-    print(f"  [{label}] first-token logits kernel vs plain: max_abs_diff={diff:.3e} "
-          f"(max |logit| {scale:.3f}); greedy streams equal for "
-          f"{agree}/{len(kr['results'])}")
-    return diff, scale, agree
+    for name, r in runs.items():
+        for rid, res in r["results"].items():
+            if res.output_tokens != max_new or res.finish_reason != "length":
+                raise AssertionError(f"[{label}/{name}] {rid}: expected {max_new} tokens, "
+                                     f"finish 'length'")
+        if r["results"]["shared_b"].cached_tokens <= 0:
+            raise AssertionError(f"[{label}/{name}] shared_b got no radix prefix hit")
+        st = r["stats"]
+        expect = ({"decode_attention": L * st["decode_columns"],
+                   "prefill_attention": L * st["prefill_calls"]}
+                  if name != "plain" else {"decode_attention": 0, "prefill_attention": 0})
+        print(f"  [{label}/{name}] schedule: {st}; launches {r['launches']}, expected {expect}")
+        if r["launches"] != expect or (name != "plain" and min(r["launches"].values()) <= 0):
+            raise AssertionError(f"[{label}/{name}] launch counts {r['launches']} != {expect}")
+    for rid, res in runs["graphs"]["results"].items():
+        print(f"  [{label}] {rid}: prompt {res.prompt_tokens}, cached {res.cached_tokens}, "
+              f"output {res.output_tokens}, finish {res.finish_reason}")
+    n_logits = {len(r["logits"]) for r in runs.values()}
+    if len(n_logits) != 1:
+        raise AssertionError(f"[{label}] the runs ran different prefill schedules")
+    if not all(bool(torch.isfinite(a).all()) for r in runs.values() for a in r["logits"]):
+        raise AssertionError(f"[{label}] non-finite first-token logits")
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(runs[a]["logits"],
+                                                                runs[b]["logits"]))
+
+    def agree(a, b):
+        return sum(runs[a]["results"][rid].token_ids == runs[b]["results"][rid].token_ids
+                   for rid in runs[a]["results"])
+
+    out = dict(logit_gap={f"{a}_vs_{b}": gap(a, b) for a, b in
+                          (("graphs", "eager"), ("eager", "plain"), ("graphs", "plain"))},
+               streams_equal={f"{a}_vs_{b}": agree(a, b) for a, b in
+                              (("graphs", "eager"), ("eager", "plain"), ("graphs", "plain"))},
+               max_abs_logit=max(float(b.abs().max()) for b in runs["plain"]["logits"]))
+    print(f"  [{label}] first-token logits: max_abs_diff {out['logit_gap']} "
+          f"(max |logit| {out['max_abs_logit']:.3f}); greedy streams equal (of "
+          f"{len(runs['plain']['results'])}): {out['streams_equal']}")
+    return out
 
 
 def _widen(params: dict) -> None:
@@ -667,6 +778,106 @@ def _widen(params: dict) -> None:
         for k, v in group.items():
             if k != "layers":
                 group[k] = v.float()
+
+
+def summarize(runs, card: str, label: str) -> dict:
+    out = {}
+    for name, r in runs.items():
+        s, loads = r["stats"], r["loads"]
+        row = dict(
+            wall_s=r["wall_s"],
+            tok_s=sum(res.output_tokens for res in r["results"].values()) / r["wall_s"],
+            steps=len(r["step_ms"]),
+            step_ms_median=statistics.median(r["step_ms"]),
+            step_ms_max=max(r["step_ms"]),
+            decode_columns=s["decode_columns"],
+            lookahead_kept=loads["lookahead_kept"],
+            lookahead_discarded=loads["lookahead_discarded"],
+            decode_graphs=loads["decode_graphs"],
+            graph_capture_s=loads["graph_capture_s"],
+            graph_capture_bytes=loads["graph_capture_bytes"],
+            reserved_growth_bytes=r["reserved_growth"],
+        )
+        if r["timers"]["decode_s"]:  # synchronous paths: the phase split
+            row.update(prefill_tok_s=s["prefill_tokens"] / r["timers"]["prefill_s"],
+                       decode_tok_s_drive=r["decode_tokens"] / r["timers"]["decode_s"],
+                       decode_ms_per_column=r["timers"]["decode_s"] * 1e3 / s["decode_columns"])
+        if "profile" in r:
+            p = r["profile"]
+            row.update({k: p[k] for k in ("decode_tok_s", "wall_ms_per_column",
+                                          "device_ms_per_column", "busy_share",
+                                          "device_events_per_column") if k in p})
+            row.update({k: p[k] for k in ("replay_ms_per_column", "replay_busy_share")
+                        if k in p})
+        out[name] = row
+        print(f"  [{card}] {label} {name}: " + ", ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
+    return out
+
+
+def phase_preempt(dev) -> dict:
+    """Preemption on the card: Llama-3-8B at full width, 4 layers, float32
+    weights and KV, the serving path (graphs, overlap, loop).  A pool of
+    21 pages cannot grow four 64-token prompts to 112 tokens each; the
+    greedy streams must equal a run with room to spare, with no page
+    leaked."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine, collect_result
+    from smg_tpu_torch.models.config import llama3_8b_config
+    from smg_tpu_torch.models.llama import init_params
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    cfg = dataclasses.replace(llama3_8b_config(), num_layers=4, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(3), dev)
+    rng = np.random.default_rng(11)
+    jobs = [(f"p{i}", rng.integers(1000, 120000, 64).tolist()) for i in range(4)]
+
+    def run(num_pages: int):
+        engine = Engine(EngineConfig(
+            model=cfg,
+            cache=CacheConfig(page_size=PS, num_pages=num_pages, auto_size=False,
+                              dtype="float32"),
+            scheduler=SchedulerConfig(max_batch_size=4, max_seq_len=512,
+                                      max_prefill_tokens=512, decode_horizon=4,
+                                      watermark_pages=1)), params=params, device=dev)
+        chunks = {rid: [] for rid, _ in jobs}
+        engine.start()
+        try:
+            for rid, ids in jobs:
+                engine.submit(ids, SamplingParams(temperature=0.0, max_new_tokens=48,
+                                                  ignore_eos=True),
+                              rid=rid, on_output=chunks[rid].append)
+            wait_for(lambda: all(c and c[-1].finished for c in chunks.values())
+                     and not engine.has_work(), "preemption run")
+        finally:
+            engine.stop()
+        loads = engine.loads()
+        streams = {rid: collect_result(rid, c).token_ids for rid, c in chunks.items()}
+        del engine
+        gc.collect()
+        return streams, loads
+
+    want, roomy = run(256)
+    got, tight = run(22)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    audit = tight["audit"]
+    out = dict(preemptions=tight["preemptions"], unpressured_preemptions=roomy["preemptions"],
+               streams_equal=sum(got[r] == want[r] for r in want), requests=len(want),
+               leaked_pages=audit["leaked_pages"], clean=audit["clean"],
+               decode_graphs=tight["decode_graphs"])
+    print(f"  preemption (4 layers, f32, 21 pages): {out}")
+    if out["preemptions"] <= 0 or out["streams_equal"] != len(want) or out["leaked_pages"] \
+            or not out["clean"]:
+        raise AssertionError(f"preemption check failed: {out}")
+    return out
 
 
 def phase_engine(dev, card: str) -> dict:
@@ -681,48 +892,38 @@ def phase_engine(dev, card: str) -> dict:
     L, max_new = cfg.num_layers, 32
     # the serving configuration: bf16 weights and KV
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    runs = serve_pair(cfg, params, dev, max_new, with_profile=True)
-    diff, scale, _ = check_pair(runs, L, max_new, "bf16")
-    out = {}
-    for name, r in runs.items():
-        s = r["stats"]
-        out[name] = dict(
-            prefill_tok_s=s["prefill_tokens"] / r["timers"]["prefill_s"],
-            decode_tok_s=r["decode_tokens"] / r["timers"]["decode_s"],
-            decode_ms_per_column=r["timers"]["decode_s"] * 1e3 / s["decode_columns"],
-            steps=len(r["step_ms"]),
-            step_ms_median=statistics.median(r["step_ms"]),
-            step_ms_max=max(r["step_ms"]),
-        )
-        print(f"  [{card}] bf16 attention={name}: " + ", ".join(
-            f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}" for k, v in out[name].items()))
+    runs = serve_paths(cfg, params, dev, max_new, with_profile=True)
+    agree = check_runs(runs, L, max_new, "bf16")
+    out = {"bf16": summarize(runs, card, "bf16"), "bf16_agreement": agree}
     out["decode_profile"] = {k: r["profile"] for k, r in runs.items()}
-    out["launches"] = runs["kernel"]["launches"]
-    out["schedule"] = runs["kernel"]["stats"]
-    out["bf16_logit_max_abs_diff"] = diff
-    out["bf16_logit_max_abs"] = scale
+    out["launches"] = runs["graphs"]["launches"]
+    out["schedule"] = runs["graphs"]["stats"]
     # the same requests on the same weights widened to float32, with float32
-    # KV: kernel and plain differ only in summation order, so the logits
+    # KV: the three paths differ only in summation order, so the logits
     # agree tightly and the greedy streams match
     _widen(params)
-    runs32 = serve_pair(dataclasses.replace(cfg, dtype="float32"), params, dev, max_new)
+    runs32 = serve_paths(dataclasses.replace(cfg, dtype="float32"), params, dev, max_new)
     del params
-    diff32, _, agree32 = check_pair(runs32, L, max_new, "f32")
-    if not diff32 <= F32_LOGIT_ATOL or agree32 != len(runs32["kernel"]["results"]):
-        raise AssertionError(f"f32 kernel vs plain: logits differ by {diff32}, "
-                             f"{agree32} greedy streams agree")
-    out["f32_logit_max_abs_diff"] = diff32
-    out["f32_streams_equal"] = agree32
-    # the float32 plain run is the reference for both bf16 runs
+    agree32 = check_runs(runs32, L, max_new, "f32")
+    out["f32"] = summarize(runs32, card, "f32")
+    out["f32_agreement"] = agree32
+    n = len(runs32["plain"]["results"])
+    if agree32["streams_equal"] != {k: n for k in agree32["streams_equal"]} or \
+            max(agree32["logit_gap"].values()) > F32_LOGIT_ATOL:
+        raise AssertionError(f"f32 paths disagree: {agree32}")
+    # the float32 plain run is the reference for the bf16 runs
     ref = runs32["plain"]["logits"]
     err = {name: max(float((a - b).abs().max()) for a, b in zip(runs[name]["logits"], ref))
-           for name in ("kernel", "plain")}
-    print(f"  [bf16] first-token logits against the f32 run: kernel max_abs_err="
-          f"{err['kernel']:.3e}, plain max_abs_err={err['plain']:.3e}")
-    if not err["kernel"] <= BF16_ERR_RATIO * err["plain"]:
-        raise AssertionError(f"bf16 kernel logits {err['kernel']} from the f32 run, more "
-                             f"than {BF16_ERR_RATIO} x the plain version's {err['plain']}")
+           for name in runs}
+    print(f"  [bf16] first-token logits against the f32 run: " + ", ".join(
+        f"{k} max_abs_err={v:.3e}" for k, v in err.items()))
+    if not max(err["graphs"], err["eager"]) <= BF16_ERR_RATIO * err["plain"]:
+        raise AssertionError(f"bf16 kernel logits {err} from the f32 run, more than "
+                             f"{BF16_ERR_RATIO} x the plain version's")
     out["bf16_logit_err_vs_f32"] = err
+    del runs, runs32
+    torch.cuda.empty_cache()
+    out["preemption"] = phase_preempt(dev)
     return out
 
 

@@ -34,6 +34,7 @@ class RadixCache:
         self.page_size = page_size
         self.root = RadixNode(key=(), page=-1, parent=None)
         self._size = 0  # pages held by the tree
+        self.evicted_pages = 0
         self._clock = itertools.count()
 
     @property
@@ -111,7 +112,18 @@ class RadixCache:
                 freed.append(node.page)
                 self._size -= 1
                 node = parent
+        self.evicted_pages += len(freed)
         return freed
+
+    def clear(self) -> list[int]:
+        """Drop all unpinned pages (flush_cache).  Returns freed pages."""
+        return self.evict(self._size)
+
+    def lock_stats(self) -> dict:
+        """Pins for the zero-leak audit: every pin belongs to a live
+        request's ``radix_node``, so both numbers are zero at quiescence."""
+        locked = [n.refcount for n in self._iter_nodes() if n.refcount]
+        return {"locked_nodes": len(locked), "lock_refcounts": sum(locked)}
 
     def _iter_nodes(self):
         stack = list(self.root.children.values())

@@ -4,10 +4,16 @@ of ``smg_tpu/engine/request.py`` (fields this engine uses)."""
 from __future__ import annotations
 
 import enum
+import time
 from dataclasses import dataclass, field
 from typing import Any
 
 from smg_tpu_torch.protocols.sampling import SamplingParams
+
+
+class QueueFullError(RuntimeError):
+    """Admission back-pressure: the bounded waiting queue (or a draining
+    engine) rejected a submit.  Retryable: load, not fault."""
 
 
 class RequestStatus(enum.Enum):
@@ -16,12 +22,14 @@ class RequestStatus(enum.Enum):
     # the cursor); not yet a decode lane
     PREFILLING = "prefilling"
     RUNNING = "running"
+    PREEMPTED = "preempted"  # pages taken back; queued again at the front
     FINISHED = "finished"
+    ABORTED = "aborted"
 
 
 @dataclass
 class FinishInfo:
-    reason: str  # "stop" | "length" | "error"
+    reason: str  # "stop" | "length" | "abort" | "error" | "timeout"
     matched_stop: str | int | None = None
     message: str | None = None
 
@@ -31,6 +39,10 @@ class EngineRequest:
     rid: str
     prompt_ids: list[int]
     sampling: SamplingParams
+    arrival_time: float = field(default_factory=time.monotonic)
+    # absolute time.monotonic() deadline (None = none): the scheduler
+    # finishes the request with reason "timeout" once it passes
+    deadline: float | None = None
 
     status: RequestStatus = RequestStatus.WAITING
     output_ids: list[int] = field(default_factory=list)
@@ -56,6 +68,10 @@ class EngineRequest:
     @property
     def all_token_ids(self) -> list[int]:
         return self.prompt_ids + self.output_ids
+
+    @property
+    def is_finished(self) -> bool:
+        return self.status in (RequestStatus.FINISHED, RequestStatus.ABORTED)
 
 
 @dataclass

@@ -1,24 +1,30 @@
-"""ModelRunner: owns the weights, the KV buffers and the sampler's generator
-(port of ``smg_tpu/engine/runner.py``'s serving path).
+"""ModelRunner: owns the weights, the KV buffers, the sampler's counter and
+the decode megasteps (port of ``smg_tpu/engine/runner.py``'s serving path).
 
 Entry points run on the card: ``device=None`` resolves to ``cuda`` and a
 machine without one raises; the CPU is used only when the caller asks for
-it (the tests do).  PyTorch runs eagerly, so the JAX runner's compile
-buckets, donation policy, sharding and program auditor have no counterpart;
-cache writes are in place.
+it (the tests do).  Prefill runs eagerly at its exact shapes.  Decode runs
+as megasteps at bucketed shapes; on the card each shape is replayed from a
+CUDA graph (``engine/graphs.py``) unless the configuration asks for eager
+launches (``EngineConfig.decode_graphs=False``); the CPU always runs them
+eagerly.  Cache writes are in place, so the JAX runner's donation policy,
+sharding and program auditor have no counterpart.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from smg_tpu_torch.engine.config import EngineConfig
+from smg_tpu_torch.engine.graphs import GraphCache, Megastep
 from smg_tpu_torch.engine.kv_cache import KvCacheSpec, create_kv_buffers, plan_cache
 from smg_tpu_torch.engine.sampling import sample_tokens
 from smg_tpu_torch.models.llama import LlamaModel, init_params
+from smg_tpu_torch.ops.cuda import decode_attention
 
 
 def resolve_device(device) -> torch.device:
@@ -32,6 +38,57 @@ def resolve_device(device) -> torch.device:
             )
         device = "cuda"
     return torch.device(device)
+
+
+class DecodeState:
+    """Host-side decode inputs of one batch composition (port of the JAX
+    runner's ``DecodeState``).  The scheduler rebuilds the sampling
+    parameters and stop state only when ``lane_sig`` (bucket, loop width,
+    stop-id width, lanes and their admission serials) changes, and the
+    page tables only when ``pt_sig`` does; each megastep shape copies them
+    into its persistent device buffers only when its own copy is older
+    (``graphs.Megastep.load``).  Steady-state launches upload positions and
+    the sampling counter, and chain their tokens on the device."""
+
+    __slots__ = ("lane_sig", "temps", "topks", "topps", "minps",
+                 "stop_ids", "limits", "live", "pt_sig", "page_tables")
+
+    def __init__(self):
+        self.lane_sig = self.pt_sig = None
+        self.temps = self.topks = self.topps = self.minps = None
+        # stop state ([B, E] ids -1 padded, [B] absolute total-length
+        # limits, [B] real-lane mask; padded rows start done), None at E=0
+        self.stop_ids = self.limits = self.live = None
+        self.page_tables = None
+
+    @classmethod
+    def of(cls, page_tables, temps, topks, topps, minps, stop_state=None) -> "DecodeState":
+        """A one-off state from raw arrays (a fresh signature each call)."""
+        ds = cls()
+        ds.lane_sig = ds.pt_sig = object()
+        ds.page_tables = np.ascontiguousarray(page_tables, np.int32)
+        ds.temps = np.asarray(temps, np.float32)
+        ds.topks = np.asarray(topks, np.int64)
+        ds.topps = np.asarray(topps, np.float32)
+        ds.minps = np.asarray(minps, np.float32)
+        if stop_state is not None:
+            ds.stop_ids = np.asarray(stop_state[0], np.int64)
+            ds.limits = np.asarray(stop_state[1], np.int64)
+            ds.live = np.asarray(stop_state[2], bool)
+        return ds
+
+
+@dataclass
+class DecodeLaunch:
+    """A dispatched megastep: host buffers its results land in, the event
+    that marks their arrival, and the last sampled column on the device (the
+    input a chained lookahead launch reads)."""
+
+    toks: torch.Tensor  # [B, K] int64, host (pinned on the card)
+    lps: torch.Tensor  # [B, K] float32, host
+    steps_run: torch.Tensor  # [1] int64, host
+    last_col: torch.Tensor  # [B] int64, device
+    event: "torch.cuda.Event | None"
 
 
 class ModelRunner:
@@ -53,12 +110,40 @@ class ModelRunner:
         self.k_cache, self.v_cache = create_kv_buffers(self.spec, self.device)
         self.max_pages_per_seq = math.ceil(
             config.scheduler.max_seq_len / config.cache.page_size)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            config.seed ^ 0x5EED)
+        # the sampler's noise is a function of (seed, counter, row): the
+        # counter advances once per sampling step, so a discarded launch
+        # rewinds it with integer arithmetic (rng_mark / rng_restore)
+        self.sample_seed = config.seed ^ 0x5EED
+        self._step = 0
+        self.graphs = GraphCache(self.device, config.decode_graphs)
+        self._counters = None  # decode kernel arrival counters (card, kernel path)
         # what the schedule asked of the device: forward calls, rows and
         # tokens of prefill; megastep launches and decode columns computed
         self.stats = dict(prefill_calls=0, prefill_rows=0, prefill_tokens=0,
                           decode_calls=0, decode_columns=0)
+
+    # ---- sampling counter ----
+
+    def rng_mark(self) -> int:
+        """The sampling counter before a launch; ``rng_restore`` rewinds to
+        it when the launch is discarded, so the replacement samples with the
+        counters the synchronous schedule would have used."""
+        return self._step
+
+    def rng_restore(self, mark: int) -> None:
+        self._step = mark
+
+    def _next_counter(self) -> int:
+        self._step += 1
+        return self._step
+
+    def _consume_folds(self, n: int) -> int:
+        """Advance the counter by ``n`` (one per megastep column: column j
+        samples with mark + 1 + j, the counter the single-step schedule uses
+        at that step); returns the mark before the advance."""
+        mark = self._step
+        self._step += n
+        return mark
 
     # ---- host -> device packing ----
 
@@ -74,11 +159,6 @@ class ModelRunner:
             raise ValueError(
                 f"prefill chunk overruns page table: prefix {prefix_len} + "
                 f"chunk {n} > {mp} pages * {ps}")
-
-    def _sample(self, logits, temps, topks, topps, minps):
-        toks, lps = sample_tokens(logits, self.generator, self._f32(temps),
-                                  self._i32(topks), self._f32(topps), self._f32(minps))
-        return toks, lps
 
     # ---- prefill ----
 
@@ -104,7 +184,8 @@ class ModelRunner:
                         ) -> tuple[np.ndarray, np.ndarray]:
         """Prefill several sequences' final chunks in one forward.  ``chunks``
         is a list of (token_ids, prefix_len, page_table_row); rows are padded
-        to the longest chunk.  Returns (tokens [G], logprobs [G])."""
+        to the longest chunk.  Returns (tokens [G], logprobs [G]).  One
+        sampling step for the call: row i's noise is row i's."""
         G = len(chunks)
         T = max(len(c[0]) for c in chunks)
         mp = len(chunks[0][2])
@@ -121,7 +202,9 @@ class ModelRunner:
         logits = self.model.forward_prefill_batched(
             self._i32(tokens), self._i32(prefix_lens), self._i32(t_reals),
             self.k_cache, self.v_cache, self._i32(page_tables))
-        toks, lps = self._sample(logits, temps, topks, topps, minps)
+        toks, lps = sample_tokens(logits, self.sample_seed, self._next_counter(),
+                                  self._f32(temps), self._i32(topks), self._f32(topps),
+                                  self._f32(minps))
         self._count_prefill(G, int(t_reals.sum()))
         return toks.cpu().numpy(), lps.cpu().numpy()  # the blocking fetch
 
@@ -132,73 +215,115 @@ class ModelRunner:
 
     # ---- decode megastep ----
 
+    def decode_multi_async(self, tokens, positions: np.ndarray, ds: DecodeState,
+                           num_steps: int) -> DecodeLaunch:
+        """Dispatch a ``num_steps``-column megastep and return without a host
+        sync.  ``tokens`` is a host [B] array or a device column (a lookahead
+        chaining from the previous launch); ``positions`` [B] are the cache
+        token counts at entry (padded rows: ``mp * page_size``, which lands
+        their KV on the garbage page).  The launch consumes ``num_steps``
+        sampling counters; all columns run (there is no device-side exit),
+        and ``steps_run`` says where the first live lane finished, as the
+        JAX megastep's loop exit does."""
+        B, mp = ds.page_tables.shape
+        E = ds.stop_ids.shape[1] if (num_steps > 1 and ds.stop_ids is not None) else 0
+        step = self.graphs.get(B, mp, num_steps, E)
+        step.load(ds, tokens, positions, self._consume_folds(num_steps))
+        if self._counters is None and self.device.type == "cuda" \
+                and self.model.attention == "kernel":
+            cfg = self.model_cfg
+            self._counters = torch.zeros(decode_attention.counter_ints(
+                self.k_cache.dtype, max(self.config.scheduler.decode_batch_buckets),
+                cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+                dtype=torch.int32, device=self.device)
+        toks, lps, steps_run = self.graphs.run(step, self._megastep)
+        self.stats["decode_calls"] += 1
+        self.stats["decode_columns"] += num_steps
+        last_col = toks[:, num_steps - 1].clone()
+        if self.device.type != "cuda":
+            return DecodeLaunch(toks, lps, steps_run, last_col, None)
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in (toks, lps, steps_run)]
+        for h, t in zip(host, (toks, lps, steps_run)):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return DecodeLaunch(*host, last_col, event)
+
+    def decode_fetch(self, launch: DecodeLaunch) -> tuple[np.ndarray, np.ndarray, int]:
+        """Wait for a launch's results: (tokens [B, K], logprobs [B, K],
+        steps_run) — the one blocking fetch of a step."""
+        if launch.event is not None:
+            launch.event.synchronize()
+        return launch.toks.numpy(), launch.lps.numpy(), int(launch.steps_run[0])
+
     def decode_multi(self, tokens: np.ndarray, positions: np.ndarray,
                      page_tables: np.ndarray, temps, topks, topps, minps,
                      num_steps: int, stop_state: tuple | None = None
                      ) -> tuple[np.ndarray, np.ndarray]:
-        """The decode megastep: ``num_steps`` columns for the batch with one
-        host round trip.  Returns (tokens [B, n], logprobs [B, n]) where n is
-        the reference's ``steps_run``: the first column at which any live lane
-        hits a stop id or its length limit, plus one (``num_steps`` if none).
+        """Launch plus fetch.  Returns (tokens [B, n], logprobs [B, n]) with n
+        the reference's ``steps_run``; ``stop_state`` = (stop_ids [B, E] -1
+        padded, limits [B] absolute total-length caps, live [B] real-lane
+        mask); None never stops early."""
+        ds = DecodeState.of(page_tables, temps, topks, topps, minps, stop_state)
+        toks, lps, n = self.decode_fetch(self.decode_multi_async(
+            tokens, positions, ds, num_steps))
+        return toks[:, :n], lps[:, :n]
 
-        Inside the horizon the cache is read-only: each column's K/V land in
-        per-layer side buffers ``[L, B, N, K*D]``, and one scatter at the end
-        lands the horizon.  PyTorch cannot leave a device loop on data
-        without a host sync, so all columns run and the host trims; KV of
-        columns past ``steps_run`` (and of positions past the table) goes to
-        the garbage page, as in the JAX megastep.
-
-        ``stop_state`` = (stop_ids [B, E] -1 padded, limits [B] absolute total
-        length caps, live [B] real-lane mask); None never stops early."""
+    def _megastep(self, st: Megastep) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The megastep on ``st``'s device inputs: K columns against the
+        frozen cache (each column's K/V land in per-layer side buffers
+        ``[L, B, K, K*D]``), the sampler and the device stop mask per column,
+        and one scatter that lands the horizon.  KV of columns past
+        ``steps_run``, and of positions past the table, goes to the garbage
+        page, as in the JAX megastep.  No host sync and no host tensor, so
+        a CUDA graph can capture it."""
         cfg = self.model_cfg
-        B, mp = page_tables.shape
-        N = num_steps
+        B, mp, N = st.B, st.mp, st.K
         L, KD = cfg.num_layers, cfg.num_kv_heads * cfg.head_dim
         ps = self.spec.page_size
         dev = self.device
-        entry = self._i32(positions)
-        pt = self._i32(page_tables)
-        temps, topks = self._f32(temps), self._i32(topks)
-        topps, minps = self._f32(topps), self._f32(minps)
+        entry = st.entry
         hk = torch.zeros((L, B, N, KD), dtype=self.k_cache.dtype, device=dev)
         hv = torch.zeros_like(hk)
-        toks_out = torch.zeros((B, N), dtype=torch.long, device=dev)
+        toks_out = torch.zeros((B, N), dtype=torch.int64, device=dev)
         lps_out = torch.zeros((B, N), dtype=torch.float32, device=dev)
-        steps_run = torch.full((), N, dtype=torch.long, device=dev)
-        if stop_state is not None:
-            stop_ids = torch.as_tensor(np.asarray(stop_state[0]), device=dev).long()
-            limits = self._i32(stop_state[1]).long()
-            live = torch.as_tensor(np.asarray(stop_state[2], bool), device=dev)
-            done = ~live  # padded lanes start done and never gate the exit
-        cur = self._i32(tokens)
+        steps_run = torch.full((1,), N, dtype=torch.int64, device=dev)
+        if st.E:
+            done = ~st.live  # padded lanes start done and never gate the exit
+        cur = st.tokens
         for j in range(N):
             logits = self.model.forward_decode_horizon(
-                cur, entry + j, entry, j, self.k_cache, self.v_cache, pt, hk, hv)
-            new, lps = sample_tokens(logits, self.generator, temps, topks, topps, minps)
+                cur, entry + j, entry, j, self.k_cache, self.v_cache, st.page_tables,
+                hk, hv, counters=self._counters)
+            new, lps = sample_tokens(logits, self.sample_seed, st.counter + (1 + j),
+                                     st.temps, st.topks, st.topps, st.minps)
             toks_out[:, j] = new
             lps_out[:, j] = lps
-            if stop_state is not None:
+            if st.E:
                 # length finish: total_len after accepting column j is
                 # entry + j + 2, so the lane is done once entry + j >= limit - 2
-                done = done | (new[:, None] == stop_ids).any(dim=1) | (
-                    entry.long() + j >= limits - 2)
-                first = (done & live).any() & (steps_run == N)
-                steps_run = torch.where(first, torch.full_like(steps_run, j + 1), steps_run)
+                done = done | (new[:, None] == st.stop_ids).any(dim=1) | (
+                    entry.long() + j >= st.limits - 2)
+                first = (done & st.live).any() & (steps_run == N)
+                steps_run = torch.where(first, j + 1, steps_run)
             cur = new
-        # land the horizon: uncomputed-in-the-reference columns (>= steps_run)
-        # and positions past the table go to the garbage page
-        pos = entry.long()[:, None] + torch.arange(N, device=dev)[None, :]
-        valid = (pos < mp * ps) & (torch.arange(N, device=dev)[None, :] < steps_run)
+        cols = torch.arange(N, device=dev)[None, :]
+        pos = entry.long()[:, None] + cols
+        valid = (pos < mp * ps) & (cols < steps_run)
         pos_c = pos.clamp(max=mp * ps - 1)
-        page = torch.gather(pt.long(), 1, pos_c // ps)
+        page = torch.gather(st.page_tables.long(), 1, pos_c // ps)
         dest = torch.where(valid, page * ps + pos_c % ps, 0).reshape(-1)
         P = self.k_cache.shape[1]
         self.k_cache.view(L, P * ps, KD).index_copy_(1, dest, hk.reshape(L, B * N, KD))
         self.v_cache.view(L, P * ps, KD).index_copy_(1, dest, hv.reshape(L, B * N, KD))
-        self.stats["decode_calls"] += 1
-        self.stats["decode_columns"] += N
-        n = int(steps_run)  # the blocking fetch
-        return toks_out[:, :n].cpu().numpy(), lps_out[:, :n].cpu().numpy()
+        return toks_out, lps_out, steps_run
+
+    def flush_cache_buffers(self) -> None:
+        """Zero the KV buffers in place (flush_cache, after the radix reset):
+        the captured graphs hold their addresses."""
+        self.k_cache.zero_()
+        self.v_cache.zero_()
 
 
 def _to_device(params: dict, device: torch.device) -> dict:

@@ -7,9 +7,14 @@ the filtered logits.  top-k is exact for ``top_k <= K_CAP``; top-p is exact
 whenever the nucleus fits in ``K_CAP`` candidates and otherwise keeps the
 whole distribution (wider, never narrower, than requested).
 
-The gumbel noise comes from an explicit ``torch.Generator``: it does not
-reproduce ``jax.random``'s bits, so tests compare distributions (and exact
-greedy tokens), not sampled streams.
+The gumbel noise is a pure function of (seed, counter, row, vocab index): a
+counter-based integer hash in plain int64 torch ops, identical on the CPU
+and on the card.  The counter plays the part of the JAX runner's folded key
+step (``runner._next_key``): a discarded launch rewinds it on the host with
+integer arithmetic, and a CUDA graph reads it from a device tensor that the
+host sets before each replay.  It does not reproduce ``jax.random``'s bits,
+so tests compare distributions (and exact greedy tokens), not sampled
+streams.
 """
 
 from __future__ import annotations
@@ -18,36 +23,68 @@ import torch
 
 NEG_INF = -1e30
 K_CAP = 64  # top-k candidates examined for thresholds
+_M32 = 0xFFFFFFFF
+# odd multipliers below 2**31: a 32-bit value times one stays under 2**63,
+# so the int64 products never overflow
+_C1, _C2 = 0x7FEB352D, 0x2C1B3C6D
+_GOLDEN = 0x9E3779B9
+
+
+def _mix32(x):
+    """A 32-bit integer finaliser (xorshift-multiply) on a Python int or an
+    int64 tensor of non-negative values."""
+    x = x & _M32
+    x = x ^ (x >> 16)
+    x = (x * _C1) & _M32
+    x = x ^ (x >> 15)
+    x = (x * _C2) & _M32
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seed: int, counter, B: int, V: int, device) -> torch.Tensor:
+    """[B, V] float32 gumbel noise for one sampling step.  ``counter`` is a
+    Python int or an int64 tensor of one element on ``device``; row r of
+    the result depends only on (seed, counter, r), not on B."""
+    if not torch.is_tensor(counter):
+        counter = torch.tensor([counter], dtype=torch.int64, device=device)
+    k1 = _mix32(counter ^ _mix32(seed & _M32))
+    k2 = _mix32(k1 + _GOLDEN)
+    idx = torch.arange(B * V, dtype=torch.int64, device=device).view(B, V)
+    h = _mix32(_mix32(idx ^ k1) + k2)
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))  # in (0, 1), never 0 or 1
+    return -torch.log(-torch.log(u))
 
 
 def sample_tokens(
     logits: torch.Tensor,  # [B, V] float32
-    generator: torch.Generator,
+    seed: int,
+    counter,  # int, or an int64 tensor of one element on the logits' device
     temperature: torch.Tensor,  # [B] (0 => greedy)
     top_k: torch.Tensor,  # [B] int (-1 => disabled)
     top_p: torch.Tensor,  # [B] (1.0 => disabled)
     min_p: torch.Tensor,  # [B] (0.0 => disabled)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens [B] int64, logprobs [B] float32 of the chosen token
-    under the unfiltered distribution — OpenAI logprob semantics)."""
+    under the unfiltered distribution — OpenAI logprob semantics).  Creates
+    no host tensor and reads nothing back, so it runs inside a CUDA graph
+    capture."""
     B, V = logits.shape
-    dev = logits.device
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = float("inf")
     greedy = temperature <= 0.0
-    safe_temp = torch.where(greedy, torch.ones_like(temperature), temperature)
+    safe_temp = torch.where(greedy, 1.0, temperature)
     z = (logits / safe_temp[:, None]).float()
 
     # top-K_CAP candidates give every threshold needed
     k_cap = min(K_CAP, V)
     top_vals = torch.topk(z, k_cap, dim=-1).values  # [B, k_cap] descending
     top_k = top_k.long()
-    k_eff = torch.where(top_k <= 0, torch.full_like(top_k, k_cap), top_k.clamp(max=k_cap))
+    k_eff = torch.where(top_k <= 0, k_cap, top_k.clamp(max=k_cap))
     kth = top_vals.gather(1, (k_eff - 1)[:, None])[:, 0]
     thresh_k = torch.where(top_k <= 0, -inf, kth)
 
     # top-p over the distribution AFTER top-k renormalization (sequential
     # filters): with top-k on, the candidates cover the whole filtered set
-    cand_idx = torch.arange(k_cap, device=dev)[None, :]
+    cand_idx = torch.arange(k_cap, device=logits.device)[None, :]
     in_topk = cand_idx < k_eff[:, None]
     masked_vals = torch.where(in_topk | (top_k[:, None] <= 0), top_vals, -inf)
     lse_full = torch.logsumexp(z, dim=-1, keepdim=True)
@@ -66,11 +103,8 @@ def sample_tokens(
         min_p > 0.0, top_vals[:, 0] + torch.log(min_p.clamp(min=1e-10)), -inf)
 
     thresh = torch.maximum(torch.maximum(thresh_k, thresh_p), thresh_m)
-    zf = torch.where(z >= thresh[:, None], z, torch.full_like(z, NEG_INF))
-
-    u = torch.rand(z.shape, generator=generator, device=dev, dtype=torch.float32)
-    g = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
-    sampled = torch.argmax(zf + g, dim=-1)
+    zf = torch.where(z >= thresh[:, None], z, NEG_INF)
+    sampled = torch.argmax(zf + gumbel_noise(seed, counter, B, V, logits.device), dim=-1)
     tokens = torch.where(greedy, torch.argmax(logits, dim=-1), sampled)
 
     lf = logits.float()

@@ -128,6 +128,12 @@ class LlamaModel(nn.Module):
         if not cfg.tie_word_embeddings and "lm_head" not in params:
             raise ValueError("untied model needs an lm_head")
         device = params["embed"].device
+        # Gemma scales embeddings by sqrt(hidden), rounded to the weights'
+        # dtype as the JAX package does; a Python float keeps every forward
+        # free of host tensors (CUDA graph capture)
+        self.embed_scale = (float(torch.tensor(math.sqrt(cfg.hidden_size),
+                                               dtype=params["embed"].dtype))
+                            if cfg.embed_scale else None)
         self.register_buffer("inv_freq", torch.from_numpy(
             rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(device),
             persistent=False)
@@ -139,8 +145,8 @@ class LlamaModel(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         h = self.embed[tokens.long()]
-        if self.cfg.embed_scale:  # Gemma: embeddings scaled by sqrt(hidden)
-            h = h * torch.tensor(math.sqrt(self.cfg.hidden_size), dtype=h.dtype)
+        if self.embed_scale is not None:
+            h = h * self.embed_scale
         return h
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
@@ -243,7 +249,8 @@ class LlamaModel(nn.Module):
         return self.unembed(last)
 
     def forward_decode_horizon(self, tokens, positions, entry_positions, step_idx: int,
-                               k_cache, v_cache, page_tables, hk_all, hv_all):
+                               k_cache, v_cache, page_tables, hk_all, hv_all,
+                               counters=None):
         """One decode column against the frozen cache + side buffers.
 
         ``tokens``/``positions`` [B] (positions = entry + step_idx),
@@ -251,7 +258,10 @@ class LlamaModel(nn.Module):
         ``hk_all``/``hv_all`` [L, B, N, K*D]: this column's K/V land in
         ``[:, :, step_idx]`` in place; the cache itself is read only (the
         runner scatters the whole horizon once at the end).  Returns logits
-        [B, V]."""
+        [B, V].  Reads nothing back to the host and creates no host tensor,
+        so a CUDA graph can capture it; ``counters`` are the decode kernel's
+        arrival counters (``ops/cuda/decode_attention.py``), preallocated
+        by the caller for the largest batch it captures."""
         cfg = self.cfg
         B = tokens.shape[0]
         KD = cfg.num_kv_heads * cfg.head_dim
@@ -267,7 +277,7 @@ class LlamaModel(nn.Module):
                     step_idx + 1, l, page_tables, entry_positions, self.scale)
             kw = dict(softcap=cfg.attn_logit_softcap, window=layer_window(cfg, l))
             if self.attention == "kernel":
-                attn = paged_attention_decode_cached(*args, **kw)
+                attn = paged_attention_decode_cached(*args, **kw, counters=counters)
             else:
                 attn = attention_decode_cached(*args, **kw)
             h = self._attn_residual(l, h, attn.to(h.dtype))

@@ -14,12 +14,19 @@ The kernel splits each sequence's context over several blocks
 - the library sizes the scratch for (dtype, B, H, K, D, S)
   (``smg_decode_scratch``), since only the kernel knows its head groups.
 
-The f32 partials are allocated per call.  The arrival counters live in one
-buffer per (device, stream), zeroed once and left zeroed by every launch:
-launches on one stream run one after another, so they can share it.  The
-buffer is replaced by a larger one when B x H outgrows it, so a CUDA graph
-that captures a launch must be captured at the largest batch it will
-replay, with this module's buffer kept alive.
+The f32 partials are allocated per call (inside a CUDA graph capture they
+come from the graph's pool, which is fine while graphs sharing a pool never
+run concurrently).  The arrival counters are zeroed once and left zeroed by
+every launch: launches on one stream run one after another, so they can
+share one buffer.  A caller that captures launches into CUDA graphs passes
+its own ``counters``, sized once for the largest batch it will run
+(``counter_ints``); otherwise the wrapper keeps one buffer per (device,
+stream) and replaces it by a larger one when B x H outgrows it, which would
+leave a graph captured earlier pointing at freed memory.
+
+``launches`` counts kernel launches.  A launch recorded into a CUDA graph
+runs only when the graph replays, so the code that captures and replays
+graphs keeps the count right (``engine/graphs.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 from smg_tpu_torch.ops.attention import attention_decode_cached
 from smg_tpu_torch.ops.cuda import build
 from smg_tpu_torch.ops.cuda._checks import (
+    DTYPE_CODES,
     check_cuda,
     dtype_code,
     raise_on_error,
@@ -76,6 +84,11 @@ def _scratch(dtype: int, B: int, H: int, K: int, D: int, S: int) -> tuple[int, i
     return floats.value, ints.value
 
 
+def counter_ints(dtype: torch.dtype, B: int, H: int, K: int, D: int) -> int:
+    """Arrival counters a launch at batch B needs (any split count)."""
+    return _scratch(DTYPE_CODES[dtype], B, H, K, D, 1)[1]
+
+
 def _counter_buffer(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     """Zeroed once and replaced by a larger one when the batch's head count
     grows; the kernel's last block per (sequence, head group) resets its
@@ -101,6 +114,7 @@ def paged_attention_decode_cached(
     scale: float,
     softcap: float | None = None,
     window: int | None = None,  # sliding window (None/<=0 = global)
+    counters: torch.Tensor | None = None,  # zeroed int32 arrival counters
 ) -> torch.Tensor:
     """Returns [B, H, D] in q's dtype.  CUDA tensors launch the kernel;
     CPU tensors get the plain PyTorch version."""
@@ -134,7 +148,10 @@ def paged_attention_decode_cached(
     out = torch.empty_like(q)
     part = torch.empty(n_part, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _counter_buffer(q.device, stream, n_counters)
+    if counters is None:
+        counters = _counter_buffer(q.device, stream, n_counters)
+    require(counters.dtype == torch.int32 and counters.numel() >= n_counters
+            and counters.device == q.device, f"counters: {n_counters} int32 on {q.device}")
     err = build.load().smg_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), hk.data_ptr(),
         hv.data_ptr(), page_tables.data_ptr(), entry_positions.data_ptr(),

@@ -160,8 +160,7 @@ def test_sampling_matches_threshold_distribution(temp, top_k, top_p, min_p, V):
     n = 20000
     logits = torch.from_numpy(np.tile(row, (n, 1)))
     full = lambda x, dt=torch.float32: torch.full((n,), x, dtype=dt)  # noqa: E731
-    gen = torch.Generator().manual_seed(0)
-    toks, lps = sample_tokens(logits, gen, full(temp), full(top_k, torch.int64),
+    toks, lps = sample_tokens(logits, 0, 1, full(temp), full(top_k, torch.int64),
                               full(top_p), full(min_p))
     freq = np.bincount(toks.numpy(), minlength=V) / n
     p = expected_probs(row, temp, top_k, top_p, min_p)
@@ -177,9 +176,8 @@ def test_sampling_matches_threshold_distribution(temp, top_k, top_p, min_p, V):
 def test_greedy_and_top_k_1_take_the_argmax():
     rng = np.random.default_rng(6)
     logits = torch.from_numpy(rng.standard_normal((8, 300)).astype(np.float32))
-    gen = torch.Generator().manual_seed(1)
     ones = torch.ones(8)
     for temp, k in ((0.0, -1), (0.9, 1)):
-        toks, _ = sample_tokens(logits, gen, ones * temp, torch.full((8,), k), ones,
+        toks, _ = sample_tokens(logits, 1, 1, ones * temp, torch.full((8,), k), ones,
                                 torch.zeros(8))
         torch.testing.assert_close(toks, logits.argmax(-1))
