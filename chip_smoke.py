@@ -36,7 +36,21 @@ Phases (any failure makes the script exit non-zero and print no result):
    first-token logits are held to.  Then preemption: 4 layers, float32,
    a page pool too small for four requests, streams equal to a roomy run
    and no page leaked;
-4. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``
+4. request semantics, on the same weights in bf16 and then in float32,
+   through the same three paths: six requests with a synthetic tokenizer
+   at the full vocabulary (``PieceTokenizer``): greedy with frequency and
+   presence penalties, greedy with a repetition penalty, sampled with a
+   frequency penalty, greedy with a stop string (the text of tokens 10-12
+   of the same prompt's unconstrained greedy run), greedy under a regex,
+   sampled under the JSON grammar.  Each must finish with its expected
+   count and reason, the stop request's text must end where its stop
+   string began, the regex and JSON texts must be valid (complete and
+   parsable when they stopped), launch counts and audits as in phase 3;
+   in float32 the greedy streams must be identical across the paths.
+   Readings on the graph path: host ms per grammar mask (each dtype); in
+   bf16 the penalty work alone, decode on 4 lanes with and without
+   penalties, and a window held at horizon 1 by a stop-string lane;
+5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``
    (``--phases kernels`` stops after phase 2 and prints neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
@@ -588,24 +602,27 @@ def device_time(prof) -> tuple[float, dict, int]:
     return busy / 1e3, by_name, len(spans)
 
 
-def profile_decode(engine, loop: bool, columns: int = 8) -> dict:
-    """Decode of 4 lanes with 1000-token prompts, horizon 4, under
-    torch.profiler: device time by kernel, device events and the busy share
-    (device busy time over the wall time of the same columns).  With
-    ``loop`` the engine's thread steps and the window closes once
-    ``columns`` more columns were launched; otherwise this thread steps.
-    For a graph path each decode launch is also timed alone with CUDA
-    events (``replay_ms``, a cold L2), whatever the profiler sees inside
-    graph replays."""
+def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
+                   label: str = "decode profile") -> dict:
+    """Decode of 4 lanes with 1000-token prompts, horizon 4 (greedy unless
+    ``sampling`` gives the 4 lanes' parameters), under torch.profiler:
+    device time by kernel, device events and the busy share (device busy
+    time over the wall time of the same columns).  With ``loop`` the
+    engine's thread steps and the window closes once ``columns`` more
+    columns were launched; otherwise this thread steps.  For a graph path
+    the window's megastep shape is also timed alone with CUDA events
+    (``replay_ms``, a cold L2), whatever the profiler sees inside graph
+    replays."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from smg_tpu_torch.protocols.sampling import SamplingParams
 
     sched, runner = engine.scheduler, engine.runner
-    sp = SamplingParams(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+    sampling = sampling or [SamplingParams(temperature=0.0, max_new_tokens=128,
+                                           ignore_eos=True)] * 4
     outs: dict[str, list] = {}
-    for i in range(4):
+    for i, sp in enumerate(sampling):
         outs[f"prof{i}"] = []
         engine.submit(list(range(2000 + 1000 * i, 3000 + 1000 * i)), sp, rid=f"prof{i}",
                       on_output=outs[f"prof{i}"].append)
@@ -617,24 +634,32 @@ def profile_decode(engine, loop: bool, columns: int = 8) -> dict:
         while sched.waiting or any(r is not None and r.status.value == "prefilling"
                                    for r in sched.slots):
             engine.step()
-    # hold the loop thread between two steps while the profiler starts (it
-    # takes longer than the lanes' remaining tokens); the window opens when
-    # the engine lock is let go
-    engine._lock.acquire()
-    torch.cuda.synchronize()  # nothing of before the window in the trace
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        cols0 = runner.stats["decode_columns"]
-        engine._lock.release()
-        if loop:
-            wait_for(lambda: runner.stats["decode_columns"] - cols0 >= columns, "profile")
-        else:
-            while runner.stats["decode_columns"] - cols0 < columns:
-                engine.step()
-        with engine._lock:  # never sync while the loop thread captures a graph
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+    for _attempt in range(3):
+        # hold the loop thread between two steps while the profiler starts
+        # (it takes longer than the lanes' remaining tokens); the window
+        # opens when the engine lock is let go
+        engine._lock.acquire()
+        torch.cuda.synchronize()  # nothing of before the window in the trace
+        capture0 = runner.graphs.capture_s
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cols0, calls0 = runner.stats["decode_columns"], runner.stats["decode_calls"]
+            engine._lock.release()
+            if loop:
+                wait_for(lambda: runner.stats["decode_columns"] - cols0 >= columns, "profile")
+            else:
+                while runner.stats["decode_columns"] - cols0 < columns:
+                    engine.step()
+            with engine._lock:  # never sync while the loop thread captures a graph
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        if runner.graphs.capture_s == capture0:
+            break
+        # the window's first launch of a new shape was captured in it: the
+        # capture is start-up work, not decode, so measure the next columns
+        print(f"  {label}: a graph was captured in the window; measuring again")
     cols = runner.stats["decode_columns"] - cols0
+    launches = runner.stats["decode_calls"] - calls0
     busy, by_kernel, n_events = device_time(prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     if loop:
@@ -644,19 +669,23 @@ def profile_decode(engine, loop: bool, columns: int = 8) -> dict:
     else:
         while engine.has_work():
             engine.step()
-    out = dict(columns=cols, lanes=4, wall_ms_per_column=wall_ms / cols,
+    out = dict(columns=cols, launches=launches, lanes=4, wall_ms_per_column=wall_ms / cols,
                device_ms_per_column=busy / cols, busy_share=busy / wall_ms,
                device_events_per_column=n_events / cols,
                decode_tok_s=4 * cols / wall_ms * 1e3,
                top=[(name[:80], ms / cols) for name, ms in top])
-    graphs = [s for s in runner.graphs.steps.values() if s.graph is not None and s.K == 4]
+    K = round(cols / launches)  # the window's horizon
+    pen = any(sp.has_penalties for sp in sampling)
+    graphs = [s for s in runner.graphs.steps.values()
+              if s.graph is not None and s.K == K and s.use_pen == pen and not s.use_mask]
     if graphs:
         st = max(graphs, key=lambda s: s.mp)  # the shape the window replayed
         out["replay_ms"] = cuda_ms(st.graph.replay)
         out["replay_ms_per_column"] = out["replay_ms"] / st.K
-        out["replay_shape"] = dict(B=st.B, mp=st.mp, K=st.K, E=st.E)
+        out["replay_shape"] = dict(B=st.B, mp=st.mp, K=st.K, E=st.E, use_pen=st.use_pen)
         out["replay_busy_share"] = out["replay_ms_per_column"] / out["wall_ms_per_column"]
-    print(f"  decode profile: {cols} columns, wall {out['wall_ms_per_column']:.2f} ms/column, "
+    print(f"  {label}: {cols} columns in {launches} launches, "
+          f"wall {out['wall_ms_per_column']:.2f} ms/column, "
           f"device busy {out['device_ms_per_column']:.2f} ms/column "
           f"(busy share {out['busy_share']:.3f}), "
           f"{out['device_events_per_column']:.0f} device events/column, "
@@ -724,6 +753,19 @@ def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False) -> d
     return runs
 
 
+def check_launches(r, L: int, label: str, plain: bool) -> None:
+    """A run's kernel launches equal its schedule: L per decode column
+    (graph replays included) and L per prefill call, and the plain path
+    launches none."""
+    st = r["stats"]
+    expect = ({"decode_attention": 0, "prefill_attention": 0} if plain else
+              {"decode_attention": L * st["decode_columns"],
+               "prefill_attention": L * st["prefill_calls"]})
+    print(f"  [{label}] schedule: {st}; launches {r['launches']}, expected {expect}")
+    if r["launches"] != expect or (not plain and min(r["launches"].values()) <= 0):
+        raise AssertionError(f"[{label}] launch counts {r['launches']} != {expect}")
+
+
 def check_runs(runs, L: int, max_new: int, label: str) -> dict:
     """Counts, finishes, the radix hit and the audit of every run; returns
     first-token logit gaps and greedy-stream agreement of each path with
@@ -737,13 +779,7 @@ def check_runs(runs, L: int, max_new: int, label: str) -> dict:
                                      f"finish 'length'")
         if r["results"]["shared_b"].cached_tokens <= 0:
             raise AssertionError(f"[{label}/{name}] shared_b got no radix prefix hit")
-        st = r["stats"]
-        expect = ({"decode_attention": L * st["decode_columns"],
-                   "prefill_attention": L * st["prefill_calls"]}
-                  if name != "plain" else {"decode_attention": 0, "prefill_attention": 0})
-        print(f"  [{label}/{name}] schedule: {st}; launches {r['launches']}, expected {expect}")
-        if r["launches"] != expect or (name != "plain" and min(r["launches"].values()) <= 0):
-            raise AssertionError(f"[{label}/{name}] launch counts {r['launches']} != {expect}")
+        check_launches(r, L, f"{label}/{name}", plain=name == "plain")
     for rid, res in runs["graphs"]["results"].items():
         print(f"  [{label}] {rid}: prompt {res.prompt_tokens}, cached {res.cached_tokens}, "
               f"output {res.output_tokens}, finish {res.finish_reason}")
@@ -880,6 +916,294 @@ def phase_preempt(dev) -> dict:
     return out
 
 
+# ---- phase 4: request semantics on Llama-3-8B ----
+
+PIECE_ALPHABET = '{}[]":,. 0123456789abcdefghijklmnopqrstuvwxyz'
+REGEX_E = r"[a-z]{2,6}(,[0-9]{1,3}){2}"
+NEVER_STOP = "~"  # outside the alphabet: a stop-string lane that never stops
+
+
+class PieceTokenizer:
+    """A synthetic tokenizer at Llama-3's vocabulary, a test harness and not
+    part of the port (no tokenizer file is in the repository).  The
+    config's BOS and EOS ids are special and decode to nothing; every other
+    id is a fixed piece of 1-3 characters over a JSON-capable alphabet,
+    drawn from a seed (the first ids after 1 hold each character alone);
+    ``decode`` concatenates the pieces.  With it the JSON, regex and
+    stop-string paths do their full work over all 128256 ids."""
+
+    def __init__(self, vocab_size: int, special_ids, seed: int = 0):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(1, 4, vocab_size).tolist()
+        chars = rng.integers(0, len(PIECE_ALPHABET), (vocab_size, 3)).tolist()
+        self.pieces = ["".join(PIECE_ALPHABET[c] for c in row[:n])
+                       for row, n in zip(chars, lens)]
+        self.pieces[2:2 + len(PIECE_ALPHABET)] = list(PIECE_ALPHABET)
+        for t in special_ids:
+            self.pieces[t] = ""
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return "".join(self.pieces[t] for t in ids)
+
+
+def _request_jobs(seed: int, stop_d: str | None):
+    """D's prompt and the six requests (D first: its 1100-token prompt
+    prefills alone in three chunks, as in the probe).  ``stop_d`` None
+    gives D's prompt only."""
+    import numpy as np
+
+    from smg_tpu_torch.protocols.sampling import SamplingParams as SP
+
+    rng = np.random.default_rng(seed)
+    tok = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    prompt_d = tok(1100)
+    if stop_d is None:
+        return prompt_d
+    greedy = dict(temperature=0.0, max_new_tokens=32, ignore_eos=True)
+    return [
+        ("D", prompt_d, SP(**greedy, stop=[stop_d])),
+        ("A", tok(80), SP(**greedy, frequency_penalty=0.5, presence_penalty=0.3)),
+        ("B", tok(80), SP(**greedy, repetition_penalty=1.3)),
+        ("C", tok(80), SP(temperature=0.8, max_new_tokens=32, ignore_eos=True,
+                          frequency_penalty=0.4)),
+        ("E", tok(40), SP(temperature=0.0, max_new_tokens=16, regex=REGEX_E)),
+        ("F", tok(40), SP(temperature=0.7, max_new_tokens=16, json_schema="{}")),
+    ]
+
+
+def drive_requests(engine, jobs, loop: bool, mask_ms: dict):
+    """Submit ``jobs`` with ``on_output`` callbacks, then step them to the
+    end on the engine's loop thread (``loop``) or from this thread.  Every
+    grammar mask the scheduler derives is timed on the host into
+    ``mask_ms`` by kind.  Returns (results, wall s)."""
+    from smg_tpu_torch.engine.engine import collect_result
+
+    sched = engine.scheduler
+    mask_for = sched._mask_for
+
+    def timed_mask(req):
+        t0 = time.perf_counter()
+        m = mask_for(req)
+        mask_ms["regex" if req.sampling.regex else "json"].append(
+            (time.perf_counter() - t0) * 1e3)
+        return m
+
+    sched._mask_for = timed_mask
+    chunks = {rid: [] for rid, _, _ in jobs}
+    for rid, prompt, sp in jobs:  # all queued before the first step
+        engine.submit(prompt, sp, rid=rid, on_output=chunks[rid].append)
+    t0 = time.perf_counter()
+    if loop:
+        engine.start()
+        wait_for(lambda: all(c and c[-1].finished for c in chunks.values())
+                 and not engine.has_work(), "the six requests")
+        engine.stop()
+    else:
+        for _ in range(1000):
+            if not engine.has_work():
+                break
+            engine.step()
+        else:
+            raise RuntimeError("requests did not finish within 1000 steps")
+    wall_s = time.perf_counter() - t0
+    del sched._mask_for
+    return {rid: collect_result(rid, c) for rid, c in chunks.items()}, wall_s
+
+
+def penalty_ops_ms(dev, V: int, B: int = 8, K: int = 4) -> float:
+    """Device ms per decode column of the penalty work a K-column megastep
+    adds at batch bucket B: the rows' gather, ``apply_penalties`` and the
+    count update per column, the write-back (``cuda_ms`` of one launch's
+    share, divided by K)."""
+    import torch
+
+    from smg_tpu_torch.engine.sampling import apply_penalties
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    counts_buf = torch.randint(0, 3, (B + 1, V), generator=gen, device=dev, dtype=torch.int32)
+    pmask_buf = torch.rand((B + 1, V), generator=gen, device=dev) < 0.01
+    slot_idx = torch.arange(B, device=dev)
+    logits = torch.randn((B, V), generator=gen, device=dev)
+    toks = torch.randint(0, V, (B, K), generator=gen, device=dev)
+    freqs, pres, reps = (torch.full((B,), x, device=dev) for x in (0.5, 0.3, 1.3))
+    one = torch.ones((B, 1), dtype=torch.int32, device=dev)
+
+    def launch():
+        counts = counts_buf.index_select(0, slot_idx)
+        pmask = pmask_buf.index_select(0, slot_idx)
+        for j in range(K):
+            apply_penalties(logits, counts, pmask, freqs, pres, reps)
+            counts.scatter_add_(1, toks[:, j:j + 1], one)
+        counts_buf.index_copy_(0, slot_idx, counts)
+
+    return cuda_ms(launch) / K
+
+
+def request_paths(cfg, params, dev, tok, label: str, filters: dict,
+                  with_profile: bool = False) -> dict:
+    """The six requests once per path of ``PATHS`` on one set of weights.
+    Each engine first runs D's prompt alone, greedy, at horizon 1 (a stop
+    string that never matches forces it) to take D's stop string from its
+    tokens 10-12, then flushes its prefix cache; launch counters are zeroed
+    just before the drive and read just after.  The three engines share
+    ``filters`` (the grammar filters and their text-keyed mask caches), so
+    the graph path, which runs first, pays for every mask it meets.  With
+    ``with_profile`` the graph path also profiles decode on 4 lanes without
+    and with penalties, and with a stop-string lane that forces horizon 1."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+    from smg_tpu_torch.protocols.sampling import SamplingParams as SP
+
+    prompt_d = _request_jobs(5, None)
+    runs = {}
+    for name, attention, graphs, overlap, loop in PATHS:
+        engine = Engine(EngineConfig(
+            model=cfg,
+            cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False, dtype=cfg.dtype),
+            scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096,
+                                      max_prefill_tokens=512, decode_horizon=4,
+                                      overlap_schedule=overlap),
+            decode_graphs=graphs), params=params, device=dev, attention=attention,
+            tokenizer=tok)
+        engine._grammar_filters = filters.setdefault("grammar", {})
+        engine._json_filter = filters.get("json")
+        probe = engine.generate(prompt_d, SP(temperature=0.0, max_new_tokens=13,
+                                             ignore_eos=True, stop=[NEVER_STOP]))
+        stop_d = tok.decode(probe.token_ids[10:13])
+        if not stop_d or not engine.flush_cache():
+            raise AssertionError(f"[{label}/{name}] probe: stop text {stop_d!r}")
+        for k in engine.runner.stats:
+            engine.runner.stats[k] = 0
+        torch.cuda.synchronize()
+        mask_ms = {"regex": [], "json": []}
+        dk.launches = 0
+        pk.launches = 0
+        results, wall_s = drive_requests(engine, _request_jobs(5, stop_d), loop, mask_ms)
+        torch.cuda.synchronize()
+        launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
+        filters["json"] = engine._json_filter
+        runs[name] = dict(results=results, wall_s=wall_s, launches=launches,
+                          stats=dict(engine.runner.stats), loads=engine.loads(),
+                          probe_text=probe.text, stop_d=stop_d, mask_ms=mask_ms)
+        if with_profile and name == "graphs":
+            runs[name]["penalty_ops_ms"] = penalty_ops_ms(dev, cfg.vocab_size)
+            greedy = SP(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+            pen = SP(temperature=0.0, max_new_tokens=128, ignore_eos=True,
+                     frequency_penalty=0.5, presence_penalty=0.3, repetition_penalty=1.3)
+            forced = SP(temperature=0.0, max_new_tokens=128, ignore_eos=True, stop=[NEVER_STOP])
+            runs[name]["profile"] = {
+                "no_penalties": profile_decode(engine, loop, sampling=[greedy] * 4,
+                                               label=f"[{label}] 4 lanes, no penalties"),
+                "penalties": profile_decode(engine, loop, sampling=[pen] * 4,
+                                            label=f"[{label}] 4 lanes, penalties"),
+                "forced_k1": profile_decode(engine, loop, sampling=[forced] + [greedy] * 3,
+                                            label=f"[{label}] 4 lanes, one stop-string lane"),
+            }
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def check_requests(runs, L: int, label: str, card: str, strict: bool) -> dict:
+    """Per-request checks on every path (counts, finishes, D cut at its
+    stop string, E and F valid), launch counts, audits; greedy streams of
+    A, B, D and E compared across paths (``strict``: all must be equal).
+    Returns the agreement and the readings."""
+    import re
+
+    from smg_tpu_torch.constrained import JsonMachine
+    from smg_tpu_torch.constrained.regex_fsm import RegexMachine
+
+    rx = RegexMachine(REGEX_E)
+    for name, r in runs.items():
+        tag = f"{label}/{name}"
+        res = r["results"]
+        check_launches(r, L, f"{tag} requests", plain=name == "plain")
+        audit = r["loads"]["audit"]
+        if audit["leaked_pages"] or not audit["clean"]:
+            raise AssertionError(f"[{tag}] audit not clean: {audit}")
+        for rid in "ABC":
+            if res[rid].output_tokens != 32 or res[rid].finish_reason != "length":
+                raise AssertionError(f"[{tag}] {rid}: {res[rid]}")
+        d, stop, probe = res["D"], r["stop_d"], r["probe_text"]
+        want = probe[:probe.find(stop)]
+        if (d.finish_reason != "stop" or d.matched_stop != stop or d.text != want
+                or d.output_tokens > 13):
+            raise AssertionError(f"[{tag}] D: stop {stop!r}, want text {want!r}, got {d}")
+        for rid, ok, whole in (("E", rx.accepts, lambda t: rx.complete(t)
+                                and re.fullmatch(REGEX_E, t) is not None),
+                               ("F", JsonMachine().accepts, _json_parses)):
+            x = res[rid]
+            if not ok(x.text) or (x.finish_reason == "stop" and not whole(x.text)) or (
+                    x.finish_reason != "stop" and (x.finish_reason, x.output_tokens)
+                    != ("length", 16)):
+                raise AssertionError(f"[{tag}] {rid}: invalid {x.text!r} ({x})")
+        print(f"  [{tag}] " + "; ".join(
+            f"{rid}: {x.output_tokens} tok, {x.finish_reason}, {x.text!r}"
+            for rid, x in res.items()))
+
+    def agree(a, b):
+        return sum(runs[a]["results"][rid].token_ids == runs[b]["results"][rid].token_ids
+                   for rid in "ABDE")
+
+    pairs = (("graphs", "eager"), ("eager", "plain"), ("graphs", "plain"))
+    out = dict(streams_equal={f"{a}_vs_{b}": agree(a, b) for a, b in pairs})
+    print(f"  [{label}] greedy streams A, B, D, E equal (of 4): {out['streams_equal']}")
+    if strict and set(out["streams_equal"].values()) != {4}:
+        raise AssertionError(f"[{label}] greedy request streams differ: {out}")
+    g = runs["graphs"]
+    for kind, ms in g["mask_ms"].items():
+        if not ms:
+            raise AssertionError(f"[{label}] no {kind} mask was derived")
+        out[f"mask_ms_{kind}"] = dict(n=len(ms), median=statistics.median(ms), max=max(ms),
+                                      total_s=sum(ms) / 1e3)
+    out["drive_wall_s"] = {name: r["wall_s"] for name, r in runs.items()}
+    out["launches"] = {name: r["launches"] for name, r in runs.items()}
+    out["mask_share_of_graph_drive"] = sum(map(sum, g["mask_ms"].values())) / 1e3 / g["wall_s"]
+    print(f"  [{card}] {label} host ms per masked token (graph path, V=128256): " + ", ".join(
+        f"{k[8:]} median {v['median']:.2f} max {v['max']:.2f} (n={v['n']})"
+        for k, v in out.items() if k.startswith("mask_ms_"))
+        + f"; masks {out['mask_share_of_graph_drive']:.3f} of the graph drive's "
+          f"{g['wall_s']:.2f} s")
+    if "profile" in g:
+        p = g["profile"]
+        out["profile"] = {k: {m: v[m] for m in ("device_ms_per_column", "wall_ms_per_column",
+                                                "busy_share", "decode_tok_s", "columns",
+                                                "launches", "replay_ms_per_column")
+                              if m in v} for k, v in p.items()}
+        a, b = p["no_penalties"], p["penalties"]
+        out["penalty_ops_ms_per_column"] = g["penalty_ops_ms"]
+        out["penalty_device_ms_per_column"] = (b["device_ms_per_column"]
+                                               - a["device_ms_per_column"])
+        out["forced_k1_host_share"] = 1.0 - p["forced_k1"]["busy_share"]
+        print(f"  [{card}] {label} penalty work alone (B=8, K=4): "
+              f"{g['penalty_ops_ms']:.4f} ms/column; penalties on 4 lanes: device "
+              f"{b['device_ms_per_column']:.3f} vs {a['device_ms_per_column']:.3f} ms/column "
+              f"({out['penalty_device_ms_per_column']:+.3f}), busy share "
+              f"{b['busy_share']:.3f} vs {a['busy_share']:.3f}, "
+              f"{b['decode_tok_s']:.2f} vs {a['decode_tok_s']:.2f} tokens/s; forced K=1: "
+              f"wall {p['forced_k1']['wall_ms_per_column']:.2f} ms/column, host share "
+              f"{out['forced_k1_host_share']:.3f}")
+    return out
+
+
+def _json_parses(text: str) -> bool:
+    try:
+        json.loads(text)
+        return True
+    except ValueError:
+        return False
+
+
 def phase_engine(dev, card: str) -> dict:
     import dataclasses
 
@@ -898,12 +1222,19 @@ def phase_engine(dev, card: str) -> dict:
     out["decode_profile"] = {k: r["profile"] for k, r in runs.items()}
     out["launches"] = runs["graphs"]["launches"]
     out["schedule"] = runs["graphs"]["stats"]
+    # phase 4 on the same weights: penalties, stop strings and grammars
+    # through every path, with the synthetic tokenizer at the full vocabulary
+    print("phase 4: request semantics, bf16")
+    tok = PieceTokenizer(cfg.vocab_size, (cfg.bos_token_id, *cfg.eos_token_ids))
+    rq = request_paths(cfg, params, dev, tok, "bf16", {}, with_profile=True)
+    out["requests_bf16"] = check_requests(rq, L, "bf16", card, strict=False)
+    del rq
     # the same requests on the same weights widened to float32, with float32
     # KV: the three paths differ only in summation order, so the logits
     # agree tightly and the greedy streams match
     _widen(params)
-    runs32 = serve_paths(dataclasses.replace(cfg, dtype="float32"), params, dev, max_new)
-    del params
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    runs32 = serve_paths(cfg32, params, dev, max_new)
     agree32 = check_runs(runs32, L, max_new, "f32")
     out["f32"] = summarize(runs32, card, "f32")
     out["f32_agreement"] = agree32
@@ -922,6 +1253,12 @@ def phase_engine(dev, card: str) -> dict:
                              f"{BF16_ERR_RATIO} x the plain version's")
     out["bf16_logit_err_vs_f32"] = err
     del runs, runs32
+    torch.cuda.empty_cache()
+    print("phase 4: request semantics, float32 (widened weights)")
+    rq32 = request_paths(cfg32, params, dev, tok, "f32", {})
+    del params
+    out["requests_f32"] = check_requests(rq32, L, "f32", card, strict=True)
+    del rq32
     torch.cuda.empty_cache()
     out["preemption"] = phase_preempt(dev)
     return out

@@ -1,12 +1,16 @@
-"""Engine facade: scheduler + streaming results + the background step loop
-(port of ``smg_tpu/engine/engine.py``: ``submit``, ``abort``, ``step``,
-``generate``, ``start``/``stop``, ``loads``, ``audit``, ``flush_cache``).
+"""Engine facade: scheduler + detokenisation + stop strings + streaming
+results + the background step loop (port of ``smg_tpu/engine/engine.py``:
+``submit``, ``abort``, ``step``, ``generate``, ``start``/``stop``,
+``loads``, ``audit``, ``flush_cache``).
 
 Entry points run on the card: ``device=None`` means CUDA, and a machine
 without one raises.  ``start()`` runs ``step()`` on a loop thread while
 there is work; output callbacks run on that thread, outside the engine
-lock.  Not ported yet: detokenisation (``text`` fields stay empty), string
-stops, the step watchdog, the flight recorder and metrics.
+lock.  With a ``tokenizer``, outputs carry text (``text_delta``, and
+``text`` in ``GenerationResult``), ``stop`` strings end a request at this
+layer (token stops live in the scheduler), and ``json_schema``/``regex``/
+``ebnf`` install a grammar vocab mask.  Not ported yet: the step watchdog,
+the flight recorder and metrics.
 """
 
 from __future__ import annotations
@@ -17,7 +21,9 @@ import time
 import uuid
 from dataclasses import dataclass, field
 
+from smg_tpu_torch.constrained import JsonMachine, TokenFilter
 from smg_tpu_torch.engine.config import EngineConfig
+from smg_tpu_torch.engine.detokenize import IncrementalDecoder, StopStringChecker
 from smg_tpu_torch.engine.request import EngineRequest, StepOutput
 from smg_tpu_torch.engine.runner import ModelRunner
 from smg_tpu_torch.engine.scheduler import Scheduler
@@ -59,11 +65,14 @@ class GenerationResult:
 
 class Engine:
     def __init__(self, config: EngineConfig, params: dict | None = None, device=None,
-                 attention: str = "kernel"):
+                 attention: str = "kernel", tokenizer=None):
         self.config = config
+        self.tokenizer = tokenizer
         self.runner = ModelRunner(config, params=params, device=device, attention=attention)
         self.scheduler = Scheduler(self.runner, config)
         self._callbacks: dict[str, object] = {}
+        self._json_filter = None  # shared TokenFilter (piece table + mask cache)
+        self._grammar_filters: dict = {}  # (kind, pattern) -> TokenFilter
         self._lock = threading.RLock()
         self._wakeup = threading.Condition(self._lock)
         self._thread: threading.Thread | None = None
@@ -83,12 +92,54 @@ class Engine:
         req = EngineRequest(rid=rid, prompt_ids=list(prompt_ids), sampling=sampling)
         if timeout_secs is not None:
             req.deadline = time.monotonic() + max(timeout_secs, 0.0)
+        if self.tokenizer is not None:
+            req.detok = IncrementalDecoder(
+                self.tokenizer, skip_special_tokens=sampling.skip_special_tokens)
+            if sampling.stop:
+                req.stop_checker = StopStringChecker(sampling.stop)
+        req.token_filter = self._build_token_filter(sampling)
         with self._wakeup:
             self.scheduler.add_request(req)
             if on_output is not None:
                 self._callbacks[rid] = on_output
             self._wakeup.notify_all()
         return rid
+
+    def _build_token_filter(self, sampling: SamplingParams):
+        """The grammar vocab-mask filter for structured output.
+        ``json_schema`` constrains generation to syntactically valid JSON
+        (``{}`` = any document; the schema's shape is not enforced).  One
+        filter per regex/EBNF pattern (at most 16 kept) and one shared JSON
+        filter: the piece table and the text-to-mask cache are per
+        tokenizer and pattern."""
+        if sampling.json_schema is None and not sampling.regex and not sampling.ebnf:
+            return None
+        if self.tokenizer is None:
+            logger.warning("grammar constraint ignored: engine has no tokenizer")
+            return None
+        eos = self.config.model.eos_token_ids
+        V = self.config.model.vocab_size
+        if sampling.regex or sampling.ebnf:
+            key = ("ebnf", sampling.ebnf) if sampling.ebnf else ("regex", sampling.regex)
+            cached = self._grammar_filters.get(key)
+            if cached is not None:
+                return cached
+            if sampling.ebnf:
+                from smg_tpu_torch.constrained.ebnf import EbnfMachine
+
+                machine = EbnfMachine(sampling.ebnf)
+            else:
+                from smg_tpu_torch.constrained.regex_fsm import RegexMachine
+
+                machine = RegexMachine(sampling.regex)
+            filt = TokenFilter(self.tokenizer, machine, V, eos_token_ids=eos)
+            if len(self._grammar_filters) >= 16:  # bound the pattern-keyed mask caches
+                self._grammar_filters.pop(next(iter(self._grammar_filters)))
+            self._grammar_filters[key] = filt
+            return filt
+        if self._json_filter is None:
+            self._json_filter = TokenFilter(self.tokenizer, JsonMachine(), V, eos_token_ids=eos)
+        return self._json_filter
 
     def abort(self, rid: str) -> bool:
         with self._lock:
@@ -150,8 +201,12 @@ class Engine:
                 self._callbacks.pop(out.rid, None)
 
     def _postprocess(self, so: StepOutput) -> RequestOutput:
+        """Detokenise a step's increment and scan it for stop strings token
+        by token: a match swallows the stop string, rolls back the tokens
+        after it and finishes the request here (``finish_request``); a match
+        completed only by the final flush still reports ``stop``."""
         req = so.request
-        return RequestOutput(
+        out = RequestOutput(
             rid=req.rid,
             new_token_ids=list(so.new_token_ids),
             finished=so.finished,
@@ -162,6 +217,50 @@ class Engine:
             cached_tokens=req.cached_tokens,
             logprobs=list(so.logprobs),
         )
+        if req.detok is None:
+            return out
+        if req.stop_checker is None:
+            text = req.detok.put(so.new_token_ids) if so.new_token_ids else ""
+            if so.finished:
+                text += req.detok.flush()
+            out.text_delta = text
+            return out
+        parts: list[str] = []
+        consumed = 0
+        stopped = False
+        for tok in so.new_token_ids:
+            piece, stopped = req.stop_checker.feed(req.detok.put([tok]))
+            consumed += 1
+            parts.append(piece)
+            if stopped:
+                break
+        if stopped and consumed < len(so.new_token_ids):
+            # roll back the tokens after the stop (their KV lies past
+            # seq_len, which never enters the radix cache)
+            cut = len(so.new_token_ids) - consumed
+            out.new_token_ids = out.new_token_ids[:consumed]
+            out.logprobs = out.logprobs[:consumed]
+            req.output_ids = req.output_ids[: len(req.output_ids) - cut]
+            req.logprobs = req.logprobs[: len(req.logprobs) - cut]
+            req.seq_len -= cut
+            out.output_tokens = len(req.output_ids)
+        if stopped:
+            matched = req.stop_checker.matched
+            if not so.finished:
+                self.scheduler.finish_request(req.rid, "stop", matched_stop=matched)
+            out.finished = True
+            out.finish_reason = "stop"
+            out.matched_stop = matched
+        elif so.finished:
+            piece, stopped_late = req.stop_checker.feed(req.detok.flush())
+            parts.append(piece)
+            if stopped_late:
+                out.finish_reason = "stop"
+                out.matched_stop = req.stop_checker.matched
+            else:
+                parts.append(req.stop_checker.flush())
+        out.text_delta = "".join(parts)
+        return out
 
     # ---- background loop ----
 
@@ -268,7 +367,7 @@ def collect_result(rid: str, chunks: list[RequestOutput]) -> GenerationResult:
     return GenerationResult(
         rid=rid,
         token_ids=token_ids,
-        text="",
+        text="".join(c.text_delta for c in chunks),
         finish_reason=last.finish_reason or "stop",
         matched_stop=last.matched_stop,
         prompt_tokens=last.prompt_tokens,

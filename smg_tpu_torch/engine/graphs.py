@@ -1,14 +1,17 @@
 """Decode megasteps replayed from CUDA graphs — the port's counterpart of
 the JAX runner's compiled decode programs (``smg_tpu/engine/runner.py``,
 ``_decode_multi_fn``: one jitted program per batch bucket, page-table
-bucket, loop width and stop-id width).
+bucket, loop width, stop-id width, penalties and vocab mask).
 
 One ``Megastep`` exists per (B bucket, page-table width ``mp``, horizon K,
-stop-id width E).  It owns the launch's persistent device inputs, which the
-runner refreshes only when the batch composition or the page tables change
-(``load``), and, on the card with graphs on, one CUDA graph of the whole
-megastep: every column's forward, the side-buffer writes, the sampler, the
-device stop mask and the final KV scatter.  The first launch of a shape
+stop-id width E, penalties on, vocab mask on).  It owns the launch's
+persistent device inputs, which the runner refreshes only when the batch
+composition or the page tables change (``load``), and, on the card with
+graphs on, one CUDA graph of the whole megastep: every column's forward,
+the side-buffer writes, the penalties and their count update, the sampler,
+the device stop mask and the final KV scatter.  The penalty count and
+prompt-mask buffers are the runner's, read and written in place; the
+vocab mask (grammar lanes, K=1 only) is uploaded at every launch.  The first launch of a shape
 runs eagerly on the capture stream (the warm-up: first launches of a kernel
 instantiation set its attributes, cuBLAS sets up its workspace), and its
 results are that launch's; the shape is then captured and every later
@@ -40,9 +43,11 @@ from smg_tpu_torch.ops.cuda import decode_attention
 class Megastep:
     """Persistent inputs, and the graph, of one decode megastep shape."""
 
-    def __init__(self, device: torch.device, B: int, mp: int, K: int, E: int):
+    def __init__(self, device: torch.device, B: int, mp: int, K: int, E: int,
+                 use_pen: bool = False, use_mask: bool = False, vocab: int = 0):
         i32, i64, f32 = torch.int32, torch.int64, torch.float32
         self.B, self.mp, self.K, self.E = B, mp, K, E
+        self.use_pen, self.use_mask = use_pen, use_mask
         self.tokens = torch.zeros(B, dtype=i64, device=device)
         self.entry = torch.zeros(B, dtype=i32, device=device)
         self.counter = torch.zeros(1, dtype=i64, device=device)  # sampling step before col 0
@@ -56,18 +61,29 @@ class Megastep:
             self.stop_ids = torch.full((B, E), -1, dtype=i64, device=device)
             self.limits = torch.ones(B, dtype=i64, device=device)
             self.live = torch.zeros(B, dtype=torch.bool, device=device)
+        # penalties: each row's slot in the runner's [S+1, V] buffers (S for
+        # padded rows) and its scalars; a neutral row changes nothing
+        self.slot_idx = self.freqs = self.pres = self.reps = None
+        if use_pen:
+            self.slot_idx = torch.zeros(B, dtype=i64, device=device)
+            self.freqs = torch.zeros(B, dtype=f32, device=device)
+            self.pres = torch.zeros(B, dtype=f32, device=device)
+            self.reps = torch.ones(B, dtype=f32, device=device)
+        self.mask = torch.ones((B, vocab), dtype=torch.bool, device=device) if use_mask else None
         self.lane_sig = None  # DecodeState signatures the buffers hold
         self.pt_sig = None
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: tuple | None = None  # the graph's static outputs
         self.replay_launches = 0  # decode-kernel launches one replay runs
 
-    def load(self, ds, tokens, positions: np.ndarray, counter: int) -> None:
-        """Bring the inputs up to date for one launch.  Sampling parameters
-        and stop state move only on a new lane signature, page tables only
-        on a new page-table signature; tokens (host numpy, or the device
-        column a lookahead chains from), positions and the sampling counter
-        every launch.  Host copies are enqueued without a sync."""
+    def load(self, ds, tokens, positions: np.ndarray, counter: int,
+             mask: np.ndarray | None = None) -> None:
+        """Bring the inputs up to date for one launch.  Sampling parameters,
+        penalty rows and stop state move only on a new lane signature, page
+        tables only on a new page-table signature; tokens (host numpy, or
+        the device column a lookahead chains from), positions, the sampling
+        counter and the vocab mask every launch.  Host copies are enqueued
+        without a sync."""
         if self.lane_sig != ds.lane_sig:
             for dst, src in ((self.temps, ds.temps), (self.topks, ds.topks),
                              (self.topps, ds.topps), (self.minps, ds.minps)):
@@ -76,6 +92,10 @@ class Megastep:
                 self.stop_ids.copy_(torch.from_numpy(ds.stop_ids), non_blocking=True)
                 self.limits.copy_(torch.from_numpy(ds.limits), non_blocking=True)
                 self.live.copy_(torch.from_numpy(ds.live), non_blocking=True)
+            if self.use_pen:
+                for dst, src in ((self.slot_idx, ds.slot_idx), (self.freqs, ds.freqs),
+                                 (self.pres, ds.pres), (self.reps, ds.reps)):
+                    dst.copy_(torch.from_numpy(src), non_blocking=True)
             self.lane_sig = ds.lane_sig
         if self.pt_sig != ds.pt_sig:
             self.page_tables.copy_(torch.from_numpy(ds.page_tables), non_blocking=True)
@@ -86,6 +106,8 @@ class Megastep:
             self.tokens.copy_(torch.from_numpy(np.asarray(tokens, np.int64)), non_blocking=True)
         self.entry.copy_(torch.from_numpy(np.asarray(positions, np.int32)), non_blocking=True)
         self.counter.fill_(counter)
+        if self.use_mask:
+            self.mask.copy_(torch.from_numpy(mask), non_blocking=True)
 
 
 class GraphCache:
@@ -109,11 +131,13 @@ class GraphCache:
         return {"decode_graphs": self.num_graphs, "graph_capture_s": self.capture_s,
                 "graph_capture_bytes": self.capture_bytes}
 
-    def get(self, B: int, mp: int, K: int, E: int) -> Megastep:
-        key = (B, mp, K, E)
+    def get(self, B: int, mp: int, K: int, E: int, use_pen: bool = False,
+            use_mask: bool = False, vocab: int = 0) -> Megastep:
+        key = (B, mp, K, E, use_pen, use_mask)
         step = self.steps.get(key)
         if step is None:
-            step = self.steps[key] = Megastep(self.device, B, mp, K, E)
+            step = self.steps[key] = Megastep(self.device, B, mp, K, E, use_pen, use_mask,
+                                              vocab)
         return step
 
     def run(self, step: Megastep, body) -> tuple:

@@ -55,6 +55,13 @@ class EngineRequest:
     radix_node: Any = None  # locked RadixNode for the shared prefix
     slot: int | None = None
     finish: FinishInfo | None = None
+    # filled by the engine layer (detokenisation, stop strings)
+    detok: Any = None
+    stop_checker: Any = None
+    # constrained decoding: the engine-installed TokenFilter (vocab masks)
+    token_filter: Any = None
+    # the runner's penalty row for this request's slot is current
+    penalty_synced: bool = False
     sched_serial: int = -1  # admission order; decode rows follow it
 
     @property

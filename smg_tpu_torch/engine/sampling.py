@@ -1,5 +1,7 @@
-"""Batched sampling: temperature / top-k / top-p / min-p with a greedy mix
-(port of ``smg_tpu/engine/sampling.py::sample_tokens``).
+"""Batched sampling: temperature / top-k / top-p / min-p with a greedy mix,
+a grammar vocab mask, and OpenAI/HF penalties (port of
+``smg_tpu/engine/sampling.py``: ``sample_tokens``, ``sample_tokens_exact``,
+``apply_penalties``).
 
 Same algorithm as the JAX package — no full-vocab sort: per-row probability
 thresholds come from the top ``K_CAP`` candidates, then a gumbel-argmax over
@@ -14,10 +16,14 @@ step (``runner._next_key``): a discarded launch rewinds it on the host with
 integer arithmetic, and a CUDA graph reads it from a device tensor that the
 host sets before each replay.  It does not reproduce ``jax.random``'s bits,
 so tests compare distributions (and exact greedy tokens), not sampled
-streams.
+streams.  ``sample_tokens_exact`` is the full-sort reference (exact for any
+top_k/top_p), with the same noise; ``SMG_EXACT_SAMPLING=1`` selects it as
+the JAX runner's ``_pick_sampler`` does.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -63,11 +69,18 @@ def sample_tokens(
     top_k: torch.Tensor,  # [B] int (-1 => disabled)
     top_p: torch.Tensor,  # [B] (1.0 => disabled)
     min_p: torch.Tensor,  # [B] (0.0 => disabled)
+    mask: torch.Tensor | None = None,  # [B, V] bool: sampleable vocabulary
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens [B] int64, logprobs [B] float32 of the chosen token
     under the unfiltered distribution — OpenAI logprob semantics).  Creates
     no host tensor and reads nothing back, so it runs inside a CUDA graph
-    capture."""
+    capture.
+
+    ``mask`` (grammar-constrained decoding) hard-excludes tokens before any
+    filtering; logprobs are then reported under the mask-renormalised
+    distribution, since the excluded tokens were never sampleable."""
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
     B, V = logits.shape
     inf = float("inf")
     greedy = temperature <= 0.0
@@ -110,3 +123,70 @@ def sample_tokens(
     lf = logits.float()
     chosen = lf.gather(1, tokens[:, None])[:, 0]
     return tokens, chosen - torch.logsumexp(lf, dim=-1)
+
+
+def sample_tokens_exact(
+    logits: torch.Tensor,
+    seed: int,
+    counter,
+    temperature: torch.Tensor,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    min_p: torch.Tensor,
+    mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sort reference (exact for any top_k/top_p): sequential top-k,
+    top-p and min-p filters over the sorted distribution, then the same
+    gumbel-argmax as ``sample_tokens``.  Graph-capturable too."""
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    B, V = logits.shape
+    greedy = temperature <= 0.0
+    safe_temp = torch.where(greedy, 1.0, temperature)
+    z = logits / safe_temp[:, None]
+
+    order = torch.argsort(-z, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1, stable=True)
+    top_k = top_k.long()
+    k_eff = torch.where(top_k <= 0, V, top_k)
+    z = torch.where(ranks < k_eff[:, None], z, NEG_INF)
+
+    probs = torch.softmax(z, dim=-1)
+    sorted_probs = probs.gather(1, order)
+    cum_excl = torch.cumsum(sorted_probs, dim=-1) - sorted_probs
+    keep = (cum_excl < top_p[:, None]).gather(1, ranks)
+    z = torch.where(keep, z, NEG_INF)
+
+    probs = torch.softmax(z, dim=-1)
+    max_prob = probs.max(dim=-1, keepdim=True).values
+    z = torch.where(probs >= min_p[:, None] * max_prob, z, NEG_INF)
+
+    sampled = torch.argmax(z + gumbel_noise(seed, counter, B, V, logits.device), dim=-1)
+    tokens = torch.where(greedy, torch.argmax(logits, dim=-1), sampled)
+    chosen = torch.log_softmax(logits.float(), dim=-1).gather(1, tokens[:, None])[:, 0]
+    return tokens, chosen
+
+
+def pick_sampler():
+    """``SMG_EXACT_SAMPLING=1`` selects the full-sort exact sampler (no
+    top-k cap), as the JAX runner's ``_pick_sampler`` does."""
+    return sample_tokens_exact if os.environ.get("SMG_EXACT_SAMPLING") == "1" else sample_tokens
+
+
+def apply_penalties(
+    logits: torch.Tensor,  # [B, V] float32
+    output_counts: torch.Tensor,  # [B, V] int32: count of each token in the output so far
+    prompt_mask: torch.Tensor,  # [B, V] bool: token appeared in the prompt
+    frequency_penalty: torch.Tensor,  # [B]
+    presence_penalty: torch.Tensor,  # [B]
+    repetition_penalty: torch.Tensor,  # [B]
+) -> torch.Tensor:
+    """OpenAI frequency/presence penalties + HF-style repetition penalty, on
+    float32 logits.  No host tensor and no sync: graph-capturable."""
+    logits = logits - frequency_penalty[:, None] * output_counts
+    seen_out = output_counts > 0
+    logits = logits - presence_penalty[:, None] * seen_out
+    seen = seen_out | prompt_mask
+    rp = repetition_penalty[:, None]
+    penalized = torch.where(logits > 0, logits / rp, logits * rp)
+    return torch.where(seen, penalized, logits)

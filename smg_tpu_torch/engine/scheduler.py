@@ -19,13 +19,17 @@ that keeps the reference's host logic for what it ports:
   are byte-identical to ``overlap_schedule=False`` at any temperature;
 - EOS, stop-id and ``max_new_tokens`` finishes, abort, deadlines (finish
   ``timeout``), drain, bounded queues and ``flush_cache``; ``audit`` checks
-  that no page and no radix pin leaks.
+  that no page and no radix pin leaks;
+- request semantics: penalties (per-slot device counts, re-derived from
+  the host after admission, preemption or a discarded launch), grammar
+  vocab masks (``TokenFilter``; forced K=1 and no lookahead), stop-string
+  lanes at K=1 (the engine finds the match and calls ``finish_request``).
 
-Not ported yet: speculation, penalties, grammar masks, stop strings,
-LoRA, multimodal, the flight recorder, metrics and failure isolation
-(quarantine of a failing request).  A request that cannot be admitted even
-with nothing else running (its prompt needs more pages than the pool can
-free) finishes with reason ``error`` naming ``OutOfPagesError``.
+Not ported yet: speculation, LoRA, multimodal, the flight recorder,
+metrics and failure isolation (quarantine of a failing request).  A
+request that cannot be admitted even with nothing else running (its prompt
+needs more pages than the pool can free) finishes with reason ``error``
+naming ``OutOfPagesError``.
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ class InFlightFrame:
     rng_mark: int
     lookahead: bool = False
     folds: int = 1
+    use_pen: bool = False
 
 
 class Scheduler:
@@ -353,12 +358,18 @@ class Scheduler:
 
     def _discard_frame(self, frame: InFlightFrame) -> None:
         """Drop a frame's results and rewind the sampling counter, unless
-        something else sampled since its launch."""
+        something else sampled since its launch.  The device penalty counts
+        the discarded horizon advanced are re-derived from the host before
+        the lanes' next launch."""
         if frame.lookahead:
             self.num_lookahead_discarded += 1
         if self.runner.rng_mark() == frame.rng_mark + frame.folds:
             self.runner.rng_restore(frame.rng_mark)
         self.num_wasted_decode_tokens += frame.B_real * frame.horizon
+        if frame.use_pen:
+            for _slot, req, _expected in frame.lanes:
+                if req.sampling.has_penalties and not req.is_finished:
+                    req.penalty_synced = False
 
     def _rewind_unused_folds(self, frame: InFlightFrame, used: int) -> None:
         """A finish trimmed a consumed megastep at column ``used - 1``: the
@@ -413,13 +424,17 @@ class Scheduler:
         when the next step is not predictable: a lane will finish on length
         inside the frame, or the extended horizon needs pages the free pool
         does not hold (eviction or preemption here would diverge from the
-        sync schedule's, which runs after finishes release pages)."""
+        sync schedule's, which runs after finishes release pages), or a lane
+        is grammar-constrained (its vocab mask derives from the token the
+        frame has not yet returned)."""
         H = frame.horizon
         lanes = [(s, r) for s, r, _ in frame.lanes]
         H2, _max_steps = self._pick_horizon(lanes)
         max_seq = self.sched.max_seq_len
         need = 0
         for _slot, req, expected in frame.lanes:
+            if req.token_filter is not None:
+                return None
             if len(req.output_ids) + H >= req.sampling.max_new_tokens:
                 return None
             if req.total_len + H >= max_seq:
@@ -438,14 +453,15 @@ class Scheduler:
             for _slot, _req, expected in frame.lanes))
         positions = frame.positions + np.int32(H)
         positions[frame.B_real:] = mp_b * self.ps  # padded rows -> garbage page
-        ds = self._refresh_decode_state(lanes, frame.B, mp_b, frame.lane_sig)
+        ds = self._refresh_decode_state(lanes, frame.B, mp_b, frame.lane_sig,
+                                        use_pen=frame.use_pen)
         mark = self.runner.rng_mark()
         launch = self.runner.decode_multi_async(frame.launch.last_col, positions, ds, H2)
         return InFlightFrame(
             lanes=[(s, r, e + H) for s, r, e in frame.lanes], launch=launch,
             horizon=H2, B=frame.B, B_real=frame.B_real, mp_b=mp_b,
             positions=positions, lane_sig=frame.lane_sig, rng_mark=mark,
-            lookahead=True, folds=H2)
+            lookahead=True, folds=H2, use_pen=frame.use_pen)
 
     # ---- prefill phase ----
 
@@ -577,9 +593,16 @@ class Scheduler:
         prompt = req.all_token_ids
         start = req.prefill_pos
         sp = req.sampling
+        pen = None
+        if sp.has_penalties:
+            counts, pmask = self._req_pen_state(req)
+            pen = (counts, pmask, sp.frequency_penalty, sp.presence_penalty,
+                   sp.repetition_penalty)
+        mask = self._mask_for(req) if req.token_filter is not None else None
         tok, lp = self.runner.prefill(
             prompt[start:], prefix_len=start, page_table=self.page_tables[req.slot],
-            temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p, min_p=sp.min_p)
+            temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p, min_p=sp.min_p,
+            pen=pen, mask=mask)
         self.num_prefill_tokens += len(prompt) - start
         req.prefill_pos = req.seq_len = len(prompt)
         req.status = RequestStatus.RUNNING
@@ -590,15 +613,61 @@ class Scheduler:
         chunks = [(r.all_token_ids[r.cached_tokens:], r.cached_tokens,
                    self.page_tables[r.slot]) for r in group]
         sps = [r.sampling for r in group]
+        pen = None
+        if any(s.has_penalties for s in sps):
+            counts, pmask = (np.stack(x) for x in zip(*map(self._req_pen_state, group)))
+            pen = (counts, pmask, *self._pen_scalars(group, len(group)))
         toks, lps = self.runner.prefill_batched(
             chunks, [s.temperature for s in sps], [s.top_k for s in sps],
-            [s.top_p for s in sps], [s.min_p for s in sps])
+            [s.top_p for s in sps], [s.min_p for s in sps], pen=pen,
+            mask=self._masks(group, len(group)))
         for i, req in enumerate(group):
             self.num_prefill_tokens += len(chunks[i][0])
             req.seq_len = req.prefill_pos = req.total_len
             req.status = RequestStatus.RUNNING
             self._accept_tokens(req, [int(toks[i])], [float(lps[i])], outputs,
                                 advance_seq=False)
+
+    def _mask_for(self, req: EngineRequest) -> np.ndarray:
+        """The grammar vocab mask for the request's next token.  A vocabulary
+        with no valid continuation (the tokenizer cannot spell the grammar)
+        degrades to EOS only, so generation terminates instead of sampling
+        over NEG_INF logits."""
+        f = req.token_filter
+        m = f.allowed_mask(f.text_of(req.output_ids))
+        if not m.any():
+            m = m.copy()
+            m[list(self.config.model.eos_token_ids)] = True
+        return m
+
+    def _masks(self, reqs: list[EngineRequest], n: int) -> np.ndarray | None:
+        """[n, V] grammar masks for ``n`` rows, the first ones ``reqs``'s:
+        all-true for a request without a grammar and for padded rows; None
+        when no request has a grammar."""
+        if all(r.token_filter is None for r in reqs):
+            return None
+        mask = np.ones((n, self.runner.model_cfg.vocab_size), bool)
+        for i, req in enumerate(reqs):
+            if req.token_filter is not None:
+                mask[i] = self._mask_for(req)
+        return mask
+
+    @staticmethod
+    def _pen_scalars(reqs: list[EngineRequest], n: int) -> tuple:
+        """(frequency, presence, repetition) penalties [n] float32 for ``n``
+        rows, the first ones ``reqs``'s: neutral (0, 0, 1) for a request
+        without penalties and for padded rows, which then change nothing."""
+        freqs, pres, reps = np.zeros(n, np.float32), np.zeros(n, np.float32), np.ones(n, np.float32)
+        for i, req in enumerate(reqs):
+            sp = req.sampling
+            if sp.has_penalties:
+                freqs[i], pres[i] = sp.frequency_penalty, sp.presence_penalty
+                reps[i] = sp.repetition_penalty
+        return freqs, pres, reps
+
+    def _req_pen_state(self, req: EngineRequest) -> tuple:
+        """Host-side (counts [V], prompt_mask [V]) snapshot for a prefill."""
+        return self.runner.penalty_state(req.prompt_ids, req.output_ids)
 
     def _ensure_free_pages(self, n: int) -> bool:
         if self.pool.free_count >= n:
@@ -623,11 +692,14 @@ class Scheduler:
                 self._rewind_unused_folds(frame, used)
 
     def _refresh_decode_state(self, active: list, B: int, mp_b: int, sig: tuple,
-                              stop_e: int = 0) -> DecodeState:
-        """Bring the decode inputs up to date: sampling parameters and stop
-        state (``stop_e`` > 0: per-lane stop ids, absolute length limits,
-        live-lane mask) only on a new composition ``sig``; page tables only
-        on a new composition, width or page-table change."""
+                              stop_e: int = 0, use_pen: bool = False) -> DecodeState:
+        """Bring the decode inputs up to date: sampling parameters, penalty
+        rows and stop state (``stop_e`` > 0: per-lane stop ids, absolute
+        length limits, live-lane mask) only on a new composition ``sig``;
+        page tables only on a new composition, width or page-table change.
+        With ``use_pen``, lanes whose device penalty row is stale (new
+        admission, preemption, a discarded launch) re-derive it from the
+        host whatever the signature."""
         ds = self._dstate
         if ds.lane_sig != sig:
             ds.temps = np.zeros(B, np.float32)
@@ -653,7 +725,18 @@ class Scheduler:
                     ds.limits[idx] = min(req.prompt_len + sp.max_new_tokens,
                                          self.sched.max_seq_len)
                     ds.live[idx] = True
+            ds.slot_idx = ds.freqs = ds.pres = ds.reps = None
+            if use_pen:
+                # padded rows read and write the garbage row S
+                ds.slot_idx = np.full(B, self.sched.max_batch_size, np.int64)
+                ds.slot_idx[: len(active)] = [slot for slot, _ in active]
+                ds.freqs, ds.pres, ds.reps = self._pen_scalars([r for _, r in active], B)
             ds.lane_sig = sig
+        if use_pen:
+            for slot, req in active:
+                if req.sampling.has_penalties and not req.penalty_synced:
+                    self.runner.sync_slot_penalty_state(slot, req.prompt_ids, req.output_ids)
+                    req.penalty_synced = True
         pt_sig = (sig, mp_b, self._pages_version)
         if ds.pt_sig != pt_sig:
             ds.page_tables = np.zeros((B, mp_b), np.int32)
@@ -674,10 +757,15 @@ class Scheduler:
         it exceeds the finish-gap EMA and clamped to the smallest remaining
         token budget; either way halved until growing every lane fits the
         free pages (a preemption forced by a wide horizon alone would
-        change the schedule)."""
+        change the schedule).
+
+        Grammar and stop-string lanes force ``(1, 1)``: a vocab mask derives
+        from the previous token on the host, and a stop string is found by
+        the engine after detokenisation, which the device cannot see."""
         sched = self.sched
         cap = sched.horizon_cap
-        if cap <= 1:
+        forced = any(r.token_filter is not None or r.sampling.stop for _, r in active)
+        if forced or cap <= 1:
             return 1, 1
         if self.waiting or any(r is not None and r.status is RequestStatus.PREFILLING
                                for r in self.slots):
@@ -730,19 +818,21 @@ class Scheduler:
             math.ceil(min(r.seq_len + horizon, self.sched.max_seq_len) / self.ps)
             for _, r in active))
         E = self._stop_id_width(active) if max_steps > 1 else 0
-        sig = (B, max_steps, E, tuple((i, r.sched_serial) for i, r in active))
-        ds = self._refresh_decode_state(active, B, mp_b, sig, stop_e=E)
+        use_pen = any(r.sampling.has_penalties for _, r in active)
+        sig = (B, use_pen, max_steps, E, tuple((i, r.sched_serial) for i, r in active))
+        ds = self._refresh_decode_state(active, B, mp_b, sig, stop_e=E, use_pen=use_pen)
         tokens = np.zeros(B, np.int64)
         positions = np.full(B, mp_b * self.ps, np.int32)  # padded rows -> garbage page
         for idx, (_slot, req) in enumerate(active):
             tokens[idx] = req.output_ids[-1]
             positions[idx] = req.seq_len
+        mask = self._masks([r for _, r in active], B)
         mark = self.runner.rng_mark()
-        launch = self.runner.decode_multi_async(tokens, positions, ds, horizon)
+        launch = self.runner.decode_multi_async(tokens, positions, ds, horizon, mask)
         return InFlightFrame(
             lanes=[(i, r, r.seq_len) for i, r in active], launch=launch,
             horizon=horizon, B=B, B_real=B_real, mp_b=mp_b, positions=positions,
-            lane_sig=sig, rng_mark=mark, folds=horizon)
+            lane_sig=sig, rng_mark=mark, folds=horizon, use_pen=use_pen)
 
     # ---- preemption ----
 
@@ -809,6 +899,7 @@ class Scheduler:
             self.radix.unlock(req.radix_node)
             req.radix_node = None
         req.seq_len = req.prefill_pos = req.cached_tokens = 0
+        req.penalty_synced = False  # re-derive the counts on readmission
         req.status = RequestStatus.PREEMPTED
         self.waiting.appendleft(req)
 
@@ -860,6 +951,15 @@ class Scheduler:
             self._release(req, finish)
         outputs.append(StepOutput(req, accepted, finish is not None, finish,
                                   logprobs=accepted_lps))
+
+    def finish_request(self, rid: str, reason: str, matched_stop=None) -> None:
+        """A finish found outside the scheduler (the engine matched a stop
+        string).  A frame in flight that holds the lane goes stale and is
+        discarded at the next step."""
+        req = self.requests.get(rid)
+        if req is None or req.is_finished or req.slot is None:
+            return
+        self._release(req, FinishInfo(reason=reason, matched_stop=matched_stop))
 
     def _finish_unadmitted(self, req: EngineRequest, finish: FinishInfo,
                            outputs: list[StepOutput]) -> None:

@@ -11,7 +11,11 @@ from a seed, float32 KV, the decode kernel on every column.
 - replay launch counts add up: L x K decode-kernel launches per launch,
   none at capture;
 - the engine with graphs and the overlap pipeline gives the eager
-  synchronous engine's streams.
+  synchronous engine's streams;
+- with penalties (the runner's per-slot count rows, read and written back
+  in place) and with a vocab mask, a replay equals the eager megastep
+  bitwise, the count rows included, and a re-sync of a slot's rows between
+  replays keeps the buffer's address (the graph reads the new rows).
 
 Run on a GPU: ``python -m pytest tests/test_torch_graphs.py -m cuda -q``."""
 
@@ -62,9 +66,10 @@ def runners(cuda_dev):
     return g, e
 
 
-def case(B_real: int, B: int, mp: int, K: int, seed: int):
+def case(B_real: int, B: int, mp: int, K: int, seed: int, pen=None):
     """Host inputs of one launch: distinct pages per row, ragged entries, a
-    mix of greedy and sampled rows, a stop state whose ids are met."""
+    mix of greedy and sampled rows, a stop state whose ids are met, and
+    ``pen`` = (slot_idx, freqs, pres, reps) when penalties are on."""
     rng = np.random.default_rng(seed)
     pt = np.zeros((B, mp), np.int32)
     pt[:B_real] = rng.permutation(np.arange(1, PAGES))[: B_real * mp].reshape(B_real, mp)
@@ -78,13 +83,38 @@ def case(B_real: int, B: int, mp: int, K: int, seed: int):
     if K > 1:
         stop = (rng.integers(2, 500, (B, 4)), np.full(B, 10_000, np.int64),
                 np.arange(B) < B_real)
-    ds = DecodeState.of(pt, temps, np.full(B, -1), np.ones(B), np.zeros(B), stop)
+    ds = DecodeState.of(pt, temps, np.full(B, -1), np.ones(B), np.zeros(B), stop, pen)
     return toks, pos, ds
 
 
-def launch(runner, toks, pos, ds, K):
+def launch(runner, toks, pos, ds, K, mask=None):
     runner.rng_restore(MARK)
-    return runner.decode_fetch(runner.decode_multi_async(toks, pos, ds, K))
+    return runner.decode_fetch(runner.decode_multi_async(toks, pos, ds, K, mask))
+
+
+def penalty_rows(runner, B_real: int, B: int, seed: int):
+    """Write the real lanes' count and prompt-mask rows (slots 0..B_real-1,
+    seeded prompts and outputs with repeats) and return the launch's
+    (slot_idx, freqs, pres, reps); padded rows use the garbage row S."""
+    rng = np.random.default_rng(seed)
+    S = runner.config.scheduler.max_batch_size
+    for slot in range(B_real):
+        outs = rng.integers(2, 60, 16).tolist()  # small ids: repeats
+        runner.sync_slot_penalty_state(slot, rng.integers(2, 500, 30).tolist(), outs)
+    slot_idx = np.full(B, S)
+    slot_idx[:B_real] = np.arange(B_real)
+    freqs, pres, reps = np.zeros(B), np.zeros(B), np.ones(B)
+    freqs[:B_real] = rng.uniform(0.0, 1.0, B_real)
+    pres[:B_real] = rng.uniform(0.0, 0.5, B_real)
+    reps[:B_real] = rng.uniform(1.0, 1.5, B_real)
+    return slot_idx, freqs, pres, reps
+
+
+def vocab_mask(B: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    mask = rng.random((B, tiny_test_config().vocab_size)) < 0.3
+    mask[:, 2] = True  # never an empty row
+    return mask
 
 
 def assert_same(a, b):
@@ -183,3 +213,59 @@ def test_engine_with_graphs_and_overlap_matches_eager_sync(cuda_dev):
         loads = eng.loads()
         assert loads["audit"]["clean"] and (loads["decode_graphs"] > 0) == graphs, loads
     assert results[True] == results[False]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pen,use_mask,K", [(True, False, 4), (True, False, 2),
+                                                (False, True, 1), (True, True, 1)])
+def test_replay_with_penalties_and_mask_equals_eager_bitwise(runners, use_pen, use_mask, K):
+    g, e = runners
+    B_real, B, mp = 5, 8, 16
+    S = g.config.scheduler.max_batch_size
+    pen = None
+    if use_pen:
+        pen = penalty_rows(g, B_real, B, seed=K)
+        assert penalty_rows(e, B_real, B, seed=K)[0].tolist() == pen[0].tolist()
+    mask = vocab_mask(B, seed=K) if use_mask else None
+    toks, pos, ds = case(B_real, B, mp, K, seed=40 + K, pen=pen)
+    k0, v0 = g.k_cache.clone(), g.v_cache.clone()
+    c0 = g._counts_buf.clone() if use_pen else None
+    launch(g, toks, pos, ds, K, mask)  # warm-up and capture
+    g.k_cache.copy_(k0)
+    g.v_cache.copy_(v0)
+    if use_pen:
+        g._counts_buf.copy_(c0)  # in place: the graph holds the address
+    replay = launch(g, toks, pos, ds, K, mask)
+    eager = launch(e, toks, pos, ds, K, mask)
+    assert g.graphs.num_graphs == 1
+    assert_same(replay, eager)
+    assert torch.equal(g.k_cache[:, 1:], e.k_cache[:, 1:])
+    assert torch.equal(g.v_cache[:, 1:], e.v_cache[:, 1:])
+    if use_mask:
+        assert mask[np.arange(B), replay[0][:, 0]].all()
+    if use_pen:
+        # row S is the padded rows' garbage row: which of them lands is not
+        # defined.  The real rows counted the accepted columns only.
+        assert torch.equal(g._counts_buf[:S], e._counts_buf[:S])
+        grown = (g._counts_buf[:B_real].sum(1) - c0[:B_real].sum(1)).tolist()
+        assert grown == [replay[2]] * B_real
+
+
+@pytest.mark.cuda
+def test_penalty_resync_between_replays_keeps_the_buffer(runners):
+    g, e = runners
+    B_real, B, mp, K = 3, 4, 8, 2
+    pen = penalty_rows(g, B_real, B, seed=5)
+    penalty_rows(e, B_real, B, seed=5)
+    toks, pos, ds = case(B_real, B, mp, K, seed=9, pen=pen)
+    k0, v0 = g.k_cache.clone(), g.v_cache.clone()
+    launch(g, toks, pos, ds, K)  # warm-up and capture
+    ptr = g._counts_buf.data_ptr()
+    for seed in (6, 7):  # re-derive the rows as a discard or preemption does
+        for r in (g, e):
+            r.k_cache.copy_(k0)
+            r.v_cache.copy_(v0)
+            penalty_rows(r, B_real, B, seed=seed)
+        assert_same(launch(g, toks, pos, ds, K), launch(e, toks, pos, ds, K))
+        assert torch.equal(g._counts_buf[:B_real], e._counts_buf[:B_real])
+    assert g._counts_buf.data_ptr() == ptr and g.graphs.num_graphs == 1
