@@ -50,8 +50,25 @@ Phases (any failure makes the script exit non-zero and print no result):
    Readings on the graph path: host ms per grammar mask (each dtype); in
    bf16 the penalty work alone, decode on 4 lanes with and without
    penalties, and a window held at horizon 1 by a stop-string lane;
-5. print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``
-   (``--phases kernels`` stops after phase 2 and prints neither).
+5. the serving entry, after phase 4 on each dtype's weights: the port's
+   gateway (``cache_aware``, one in-process worker over an engine with
+   phase 3's settings, graphs, overlap and the loop thread) on a free local
+   port, with ``MockTokenizer`` at the full vocabulary; every request sent
+   with ``urllib``: probes, a greedy 32-token chat and the same chat
+   streamed (deltas, finish, usage, ``[DONE]``), a 1400-token prompt
+   through ``/v1/completions`` and ``/generate`` (three prefill chunks), a
+   shared 600-token prefix (the second request's cached tokens), eight
+   concurrent streams (TTFT, gaps between SSE frames, the device's busy
+   share; ``/scheduler``'s audit after), a poisoned prefill among three
+   (finish ``error``) and a decode fault in a 4-lane batch (the newest lane
+   quarantined), the flight dump and ``/metrics``.  Each request is also
+   submitted to the engine directly: in float32 the HTTP path's tokens
+   must equal those, in bf16 the agreement is printed, with the direct
+   path's TTFT and gaps beside the HTTP ones.  Kernel launches through the
+   HTTP path must equal the schedule's;
+6. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
+   run) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``
+   stops after phase 2 and prints neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -65,6 +82,7 @@ build included.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import math
 import statistics
@@ -75,6 +93,7 @@ import traceback
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+HANG_S = 1080  # the whole script's deadline (a run may take 1200 s)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 # bf16 outputs of the same f32 arithmetic summed in another order: at most a
@@ -637,22 +656,26 @@ def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
     for _attempt in range(3):
         # hold the loop thread between two steps while the profiler starts
         # (it takes longer than the lanes' remaining tokens); the window
-        # opens when the engine lock is let go
+        # opens when the engine lock is let go.  The profiler starts and
+        # stops only under the lock, so never while the loop thread
+        # captures a graph, and the card is never synchronised then either.
         engine._lock.acquire()
         torch.cuda.synchronize()  # nothing of before the window in the trace
         capture0 = runner.graphs.capture_s
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            cols0, calls0 = runner.stats["decode_columns"], runner.stats["decode_calls"]
-            engine._lock.release()
-            if loop:
-                wait_for(lambda: runner.stats["decode_columns"] - cols0 >= columns, "profile")
-            else:
-                while runner.stats["decode_columns"] - cols0 < columns:
-                    engine.step()
-            with engine._lock:  # never sync while the loop thread captures a graph
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+        t0 = time.perf_counter()
+        cols0, calls0 = runner.stats["decode_columns"], runner.stats["decode_calls"]
+        engine._lock.release()
+        if loop:
+            wait_for(lambda: runner.stats["decode_columns"] - cols0 >= columns, "profile")
+        else:
+            while runner.stats["decode_columns"] - cols0 < columns:
+                engine.step()
+        with engine._lock:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.stop()
         if runner.graphs.capture_s == capture0:
             break
         # the window's first launch of a new shape was captured in it: the
@@ -1204,6 +1227,484 @@ def _json_parses(text: str) -> bool:
         return False
 
 
+# ---- phase 5: the serving entry, the port's gateway over HTTP ----
+
+SERVE_MODEL = "llama3-8b"
+SERVE_WORKER = "inproc-0"
+
+
+def _http(port: int, method: str, path: str, body=None, headers=None):
+    """One request with the standard library; returns (status, JSON body or
+    text)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=LOOP_WAIT_S) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    text = raw.decode()
+    try:
+        return status, json.loads(text)
+    except ValueError:
+        return status, text
+
+
+def _sse(port: int, path: str, body: dict) -> tuple[int, list]:
+    """A streamed request: (status, [(seconds since the request was sent,
+    payload)]) for every ``data:`` frame, ``[DONE]`` as the string."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="POST", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    frames = []
+    with urllib.request.urlopen(req, timeout=LOOP_WAIT_S) as resp:
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                data = line[len("data: "):]
+                frames.append((time.perf_counter() - t0,
+                               data if data == "[DONE]" else json.loads(data)))
+        return resp.status, frames
+
+
+def _words(ids) -> str:
+    return " ".join(f"w{i}" for i in ids)  # MockTokenizer: w<id> <-> id
+
+
+def _chat(ids, max_new: int, **kw) -> dict:
+    return {"model": SERVE_MODEL, "messages": [{"role": "user", "content": _words(ids)}],
+            "max_tokens": max_new, "temperature": 0, "ignore_eos": True, **kw}
+
+
+def _sse_text(frames) -> tuple[str, str | None, dict | None]:
+    """(content, finish reason, usage) of a chat stream's frames."""
+    text, finish, usage = "", None, None
+    for _t, f in frames:
+        if f == "[DONE]":
+            continue
+        for c in f["choices"]:
+            text += c["delta"].get("content") or ""
+            finish = c.get("finish_reason") or finish
+        usage = f.get("usage") or usage
+    return text, finish, usage
+
+
+def _serve_jobs(seed: int, tok) -> dict:
+    """Prompts of every phase-5 request, as token ids; ``chat`` entries are
+    the ids the gateway's chat template gives a message of those words."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    shared = ids(600)
+    return dict(
+        chat32=ids(40), comp1400=ids(1400), gen1400=ids(1400),
+        shared_a=shared + ids(40), shared_b=shared + ids(60),
+        conc=[ids(int(n)) for n in rng.integers(60, 300, 8)],
+        ok=[ids(80), ids(80)], poison=ids(80), dec=[ids(100) for _ in range(4)])
+
+
+def _chat_ids(tok, ids) -> list:
+    msg = [{"role": "user", "content": _words(ids)}]
+    return tok.encode(tok.apply_chat_template(msg, add_generation_prompt=True))
+
+
+def _direct(engine, jobs) -> dict:
+    """Submit ``jobs`` = [(rid, prompt ids, max_new)] to the engine's loop
+    together, greedy; returns rid -> (token ids, finish, cached tokens,
+    seconds to the first output, [(seconds between outputs, tokens)])."""
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    outs = {rid: [] for rid, _, _ in jobs}
+    t0 = {}
+    for rid, prompt, n in jobs:
+        t0[rid] = time.perf_counter()
+        engine.submit(prompt, SamplingParams(temperature=0.0, max_new_tokens=n,
+                                             ignore_eos=True), rid=rid,
+                      on_output=lambda o, rid=rid: outs[rid].append((time.perf_counter(), o)))
+    wait_for(lambda: all(c and c[-1][1].finished for c in outs.values()), "direct requests")
+    res = {}
+    for rid, c in outs.items():
+        times = [t for t, _o in c]
+        res[rid] = ([t for _t, o in c for t in o.new_token_ids], c[-1][1].finish_reason,
+                    c[0][1].cached_tokens, times[0] - t0[rid],
+                    [(b - a, len(o.new_token_ids)) for a, b, (_t, o)
+                     in zip(times, times[1:], c[1:])])
+    return res
+
+
+def _in_threads(fn, args_list) -> list:
+    """Run ``fn(*args)`` for every entry on its own thread; results in order."""
+    import threading
+
+    out = [None] * len(args_list)
+    errs = []
+
+    def run(i, args):
+        try:
+            out[i] = fn(*args)
+        except Exception as e:  # surfaced below, after every thread ended
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(args_list)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(LOOP_WAIT_S)
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent requests failed: {errs}")
+    return out
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
+
+
+def phase_serve(cfg, params, dev, card: str, label: str, strict: bool) -> dict:
+    """The serving entry on Llama-3-8B at full width and depth: the port's
+    gateway (``cache_aware``, one in-process worker over an ``Engine`` with
+    CUDA graphs, the overlap pipeline and the loop thread, phase 3's cache
+    and scheduler settings) served on a free local port, every request sent
+    with ``urllib``.  Each request is first submitted directly to the same
+    engine (prefix cache flushed before each group, as it is before the
+    same group over HTTP): with ``strict`` (float32) the HTTP path's tokens
+    must equal those, otherwise their agreement is printed.  Kernel launch
+    counters are zeroed just before the HTTP requests and read just after."""
+    import asyncio
+    import gc
+    import socket
+    import threading
+
+    import torch
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+    from smg_tpu_torch.faults import FAULTS
+    from smg_tpu_torch.gateway.launch import build_context, serve_context
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    engine = Engine(EngineConfig(
+        model=cfg,
+        cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False, dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096,
+                                  max_prefill_tokens=512, decode_horizon=4),
+        model_id=SERVE_MODEL), params=params, device=dev, tokenizer=tok)
+    ctx = build_context(engine, policy="cache_aware")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    held = {}
+
+    async def serve():
+        held["loop"], held["stop"] = asyncio.get_running_loop(), asyncio.Event()
+        await serve_context(ctx, "127.0.0.1", port, held["stop"])
+
+    server = threading.Thread(target=lambda: asyncio.run(serve()), name="gateway")
+    server.start()
+    out: dict = {}
+    try:
+        wait_for(lambda: "stop" in held, "gateway start", timeout=60)
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                if _http(port, "GET", "/health")[0] == 200:
+                    break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+            time.sleep(0.05)
+        out = _serve_checks(engine, tok, port, label, strict, card)
+    finally:
+        if "stop" in held:
+            held["loop"].call_soon_threadsafe(held["stop"].set)
+        server.join(LOOP_WAIT_S)
+        FAULTS.clear()
+    if server.is_alive():
+        raise AssertionError("the gateway did not shut down")
+    del engine, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_checks(engine, tok, port: int, label: str, strict: bool, card: str) -> dict:
+    """Phase 5's requests and checks against a served ``engine``; raises
+    after printing every failed check."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from smg_tpu_torch.faults import FAULTS
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    L = engine.config.model.num_layers
+    jobs = _serve_jobs(17, tok)
+    failures = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [{label}] CHECK FAILED: {what}")
+
+    def flush_direct():
+        if not engine.flush_cache():
+            raise AssertionError("flush_cache refused on an idle engine")
+
+    # warm-up (cuBLAS, the allocator, first graphs); not counted
+    engine.generate(list(range(1000, 1100)), SamplingParams(temperature=0.0, max_new_tokens=8))
+    # ---- direct references on the same engine ----
+    ref = {}
+    flush_direct()
+    ref.update(_direct(engine, [("chat32", _chat_ids(tok, jobs["chat32"]), 32)]))
+    flush_direct()
+    ref.update(_direct(engine, [("comp1400", tok.encode(_words(jobs["comp1400"])), 16)]))
+    flush_direct()
+    ref.update(_direct(engine, [("gen1400", jobs["gen1400"], 16)]))
+    flush_direct()
+    for rid in ("shared_a", "shared_b"):
+        ref.update(_direct(engine, [(rid, _chat_ids(tok, jobs[rid]), 16)]))
+    conc_ids = [_chat_ids(tok, p) for p in jobs["conc"]]
+    for i, ids in enumerate(conc_ids):  # each alone
+        flush_direct()
+        ref.update(_direct(engine, [(f"conc{i}", ids, 32)]))
+    flush_direct()
+    together = _direct(engine, [(f"tog{i}", ids, 32) for i, ids in enumerate(conc_ids)])
+    for i, p in enumerate(jobs["ok"]):
+        flush_direct()
+        ref.update(_direct(engine, [(f"ok{i}", _chat_ids(tok, p), 16)]))
+    for i, p in enumerate(jobs["dec"]):
+        flush_direct()
+        ref.update(_direct(engine, [(f"dec{i}", _chat_ids(tok, p), 32)]))
+    agree = {}
+
+    def same(name, got_ids_or_text, rid):
+        want = ref[rid][0]
+        ok = (got_ids_or_text == want if isinstance(got_ids_or_text, list)
+              else got_ids_or_text == tok.decode(want))
+        agree.setdefault(name, [0, 0])
+        agree[name][0] += int(ok)
+        agree[name][1] += 1
+        if strict:
+            expect(ok, f"{rid} over HTTP differs from the direct engine")
+
+    def flush_http():
+        st, body = _http(port, "POST", "/flush_cache")
+        if st != 200 or body["flushed"].get(SERVE_WORKER) is not True:
+            raise AssertionError(f"/flush_cache: {st} {body}")
+
+    # ---- the HTTP path: counters zeroed just before, read just after ----
+    for k in engine.runner.stats:
+        engine.runner.stats[k] = 0
+    torch.cuda.synchronize()
+    dk.launches = 0
+    pk.launches = 0
+    t_http = time.perf_counter()
+    # 1. probes
+    st, health = _http(port, "GET", "/health")
+    expect(st == 200 and health.get("status") == "ok", f"/health {st}")
+    st, models = _http(port, "GET", "/v1/models")
+    expect(st == 200 and SERVE_MODEL in [m["id"] for m in models["data"]], f"/v1/models {models}")
+    # 2. greedy chat, then the same chat streamed
+    flush_http()
+    st, chat = _http(port, "POST", "/v1/chat/completions", _chat(jobs["chat32"], 32))
+    expect(st == 200, f"chat status {st}")
+    content = chat["choices"][0]["message"]["content"]
+    same("chat", content, "chat32")
+    flush_http()
+    st, frames = _sse(port, "/v1/chat/completions", _chat(
+        jobs["chat32"], 32, stream=True, stream_options={"include_usage": True}))
+    text, finish, usage = _sse_text(frames)
+    expect(st == 200 and frames[-1][1] == "[DONE]", "stream did not end in [DONE]")
+    expect(finish == chat["choices"][0]["finish_reason"] == "length", f"finish {finish}")
+    expect(usage and all(usage[k] == chat["usage"][k] for k in
+                         ("prompt_tokens", "completion_tokens", "total_tokens")),
+           f"stream usage {usage} != {chat['usage']}")
+    agree["stream_vs_nonstream"] = [int(text == content), 1]
+    if strict:
+        expect(text == content, "streamed deltas differ from the non-streaming content")
+    ttft_alone = frames[0][0]
+    ttft = []
+    # 3. a 1400-token prompt through /v1/completions and /generate: three
+    # prefill chunks, so the prefill kernel runs with prefix_len > 0
+    flush_http()
+    st, comp = _http(port, "POST", "/v1/completions", {
+        "model": SERVE_MODEL, "prompt": _words(jobs["comp1400"]), "max_tokens": 16,
+        "temperature": 0, "ignore_eos": True})
+    expect(st == 200 and comp["usage"]["completion_tokens"] == 16, f"completions {st}")
+    same("completions", comp["choices"][0]["text"], "comp1400")
+    flush_http()
+    st, gen = _http(port, "POST", "/generate", {
+        "input_ids": jobs["gen1400"],
+        "sampling_params": {"max_new_tokens": 16, "temperature": 0, "ignore_eos": True}})
+    expect(st == 200 and len(gen["output_ids"]) == 16, f"/generate {st}")
+    same("generate", gen["output_ids"], "gen1400")
+    # 4. a shared 600-token prefix: the second request's radix hit
+    flush_http()
+    cached = []
+    for rid in ("shared_a", "shared_b"):
+        st, r = _http(port, "POST", "/v1/chat/completions", _chat(jobs[rid], 16))
+        expect(st == 200, f"{rid} status {st}")
+        same("shared_prefix", r["choices"][0]["message"]["content"], rid)
+        cached.append((r["usage"].get("prompt_tokens_details") or {}).get("cached_tokens", 0))
+    expect(cached[1] >= 592 and cached[1] == ref["shared_b"][2],
+           f"shared_b cached {cached[1]} (direct {ref['shared_b'][2]})")
+    # 5. eight concurrent streaming chats, under the profiler
+    flush_http()
+    # the profiler starts and stops under the engine lock: never while the
+    # loop thread captures a graph (as in profile_decode)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with engine._lock:
+        prof.start()
+    t0 = time.perf_counter()
+    streams = _in_threads(lambda p: _sse(port, "/v1/chat/completions", _chat(p, 32, stream=True)),
+                          [(p,) for p in jobs["conc"]])
+    with engine._lock:
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+        prof.stop()
+    busy_ms, _by_name, _n = device_time(prof)
+    alone_equal = 0
+    gaps, per_token = [], []
+    for i, (st, frames) in enumerate(streams):
+        text, finish, _u = _sse_text(frames)
+        expect(st == 200 and frames[-1][1] == "[DONE]" and finish == "length",
+               f"conc{i}: {st} {finish}")
+        expect(len(text.split()) <= 32 and text, f"conc{i} text")
+        alone_equal += int(text == tok.decode(ref[f"conc{i}"][0]))
+        ttft.append(frames[0][0])
+        body = [(t, f) for t, f in frames if f != "[DONE]" and f["choices"]]
+        for (a, _fa), (b, fb) in zip(body, body[1:]):
+            n = len((fb["choices"][0]["delta"].get("content") or "").split()) or 1
+            gaps.append((b - a) * 1e3)
+            per_token.append((b - a) * 1e3 / n)
+    st, sched = _http(port, "GET", "/scheduler")
+    audit = sched["engine"][SERVE_WORKER]["audit"]
+    expect(st == 200 and audit["clean"], f"audit after the concurrent streams: {audit}")
+    direct_gaps = [g * 1e3 for r in together.values() for g, _n in r[4]]
+    direct_per_token = [g * 1e3 / max(n, 1) for r in together.values() for g, n in r[4]]
+    direct_ttft = [r[3] for r in together.values()]
+    # 6. faults: a poisoned prefill among three, then a decode step in a
+    # 4-lane batch
+    flush_http()
+    poison_rid = f"poison-{label}"
+    FAULTS.arm("engine.prefill", match=poison_rid)
+    q0 = engine.scheduler.num_quarantined
+    res = _in_threads(lambda body, hdr: _http(port, "POST", "/v1/chat/completions", body, hdr),
+                      [(_chat(jobs["ok"][0], 16), None), (_chat(jobs["ok"][1], 16), None),
+                       (_chat(jobs["poison"], 16), {"X-Request-Id": poison_rid})])
+    FAULTS.clear()
+    for i in range(2):
+        expect(res[i][0] == 200 and res[i][1]["choices"][0]["finish_reason"] == "length",
+               f"ok{i} under a poisoned prefill: {res[i]}")
+        same("prefill_fault_survivors", res[i][1]["choices"][0]["message"]["content"], f"ok{i}")
+    expect(res[2][0] == 200 and res[2][1]["choices"][0]["finish_reason"] == "error",
+           f"poisoned request: {res[2]}")
+    flush_http()
+    dec_rids = [f"dec-{label}-{i}" for i in range(4)]
+    sched_reqs = engine.scheduler.requests
+    armed = {}
+
+    def arm_when_running():
+        wait_for(lambda: all(getattr(dict(sched_reqs).get(r), "status", None) is not None
+                             and dict(sched_reqs)[r].status.value == "running"
+                             for r in dec_rids), "the 4 decode lanes", timeout=60)
+        reqs = dict(sched_reqs)
+        armed["newest"] = max(dec_rids, key=lambda r: reqs[r].sched_serial)
+        FAULTS.arm("engine.decode_step", mode="once")
+
+    arm = threading.Thread(target=arm_when_running, name="arm-fault")
+    arm.start()
+    res = _in_threads(lambda body, hdr: _http(port, "POST", "/v1/chat/completions", body, hdr),
+                      [(_chat(p, 32), {"X-Request-Id": r}) for p, r in zip(jobs["dec"], dec_rids)])
+    arm.join(LOOP_WAIT_S)
+    FAULTS.clear()
+    finishes = {r: b["choices"][0]["finish_reason"] for r, (_s, b) in zip(dec_rids, res)}
+    expect(armed.get("newest") and finishes[armed["newest"]] == "error"
+           and sum(f == "error" for f in finishes.values()) == 1,
+           f"decode fault: finishes {finishes}, newest {armed.get('newest')}")
+    for i, r in enumerate(dec_rids):
+        if r != armed.get("newest"):
+            same("decode_fault_survivors", res[i][1]["choices"][0]["message"]["content"],
+                 f"dec{i}")
+    quarantined = engine.scheduler.num_quarantined - q0
+    expect(quarantined == 2, f"{quarantined} quarantines, expected 2")
+    st, _h = _http(port, "GET", "/health")
+    expect(st == 200, f"/health after the faults: {st}")
+    st, dump = _http(port, "GET", f"/debug/flight/{SERVE_WORKER}?reason=quarantine")
+    flags = {f for rec in dump["dump"]["ring"] for f in rec["faults"]} if st == 200 else set()
+    expect(st == 200 and {"prefill", "decode"} <= flags
+           and dump["dump"]["last_auto_dump"]["reason"] == "quarantine",
+           f"flight dump: {st}, fault flags {flags}")
+    # 7. /metrics: the engine's families beside the gateway's
+    st, metrics = _http(port, "GET", "/metrics")
+    expect(st == 200 and "smg_engine_quarantined_requests_total "
+           f"{float(engine.scheduler.num_quarantined)}" in metrics,
+           "quarantine counter on /metrics")
+    for fam in ("smg_engine_step_duration_seconds", "smg_engine_decode_tokens_total",
+                "smg_engine_kv_free_pages", 'smg_requests_total{route="/v1/chat/completions",status="200"}',
+                "smg_time_to_first_token_seconds", "smg_generated_tokens_total"):
+        expect(fam in metrics, f"/metrics lacks {fam}")
+    http_s = time.perf_counter() - t_http
+    # 8. launches through the HTTP path: exact
+    torch.cuda.synchronize()
+    launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
+    stats = dict(engine.runner.stats)
+    want = {"decode_attention": L * stats["decode_columns"],
+            "prefill_attention": L * stats["prefill_calls"]}
+    expect(launches == want and min(launches.values()) > 0,
+           f"launches {launches} != {want}")
+    out = dict(
+        launches=launches, schedule=stats, http_s=http_s, agreement=agree,
+        concurrent_equal_alone=[alone_equal, len(jobs["conc"])],
+        ttft_alone_ms=ttft_alone * 1e3,
+        ttft_ms={"median": statistics.median(ttft) * 1e3, "max": max(ttft) * 1e3},
+        frame_gap_ms={"median": statistics.median(gaps), "p95": _pct(gaps, 95)},
+        token_gap_ms={"median": statistics.median(per_token), "p95": _pct(per_token, 95)},
+        direct_ttft_ms={"median": statistics.median(direct_ttft) * 1e3,
+                        "max": max(direct_ttft) * 1e3},
+        direct_output_gap_ms={"median": statistics.median(direct_gaps),
+                              "p95": _pct(direct_gaps, 95)},
+        direct_token_gap_ms={"median": statistics.median(direct_per_token),
+                             "p95": _pct(direct_per_token, 95)},
+        busy_share=busy_ms / window_ms, window_ms=window_ms, quarantined=quarantined,
+        shared_b_cached=cached[1])
+    out["gateway_ms_per_token"] = (out["token_gap_ms"]["median"]
+                                   - out["direct_token_gap_ms"]["median"])
+    print(f"  [{card}] {label} HTTP path: TTFT of the chat alone {ttft_alone * 1e3:.2f} ms; "
+          f"of the 8 concurrent streams median {out['ttft_ms']['median']:.2f} ms, "
+          f"max {out['ttft_ms']['max']:.2f} ms; SSE frame gap median "
+          f"{out['frame_gap_ms']['median']:.2f} ms, p95 {out['frame_gap_ms']['p95']:.2f} ms; "
+          f"per token median {out['token_gap_ms']['median']:.3f} ms, p95 "
+          f"{out['token_gap_ms']['p95']:.3f} ms")
+    print(f"  [{card}] {label} direct Engine callbacks: TTFT median "
+          f"{out['direct_ttft_ms']['median']:.2f} ms, max {out['direct_ttft_ms']['max']:.2f} ms; "
+          f"output gap median {out['direct_output_gap_ms']['median']:.2f} ms, p95 "
+          f"{out['direct_output_gap_ms']['p95']:.2f} ms; per token median "
+          f"{out['direct_token_gap_ms']['median']:.3f} ms; gateway cost per token "
+          f"{out['gateway_ms_per_token']:.3f} ms")
+    print(f"  [{card}] {label} concurrent window {window_ms:.1f} ms, device busy share "
+          f"{out['busy_share']:.3f}; 8 streams equal alone: {alone_equal}/8; agreement "
+          f"with the direct engine: {agree}; launches {launches} (expected {want}); "
+          f"quarantines {quarantined}; shared_b cached {cached[1]}")
+    if failures:
+        raise AssertionError(f"[{label}] serving checks failed: {failures}")
+    return out
+
+
 def phase_engine(dev, card: str) -> dict:
     import dataclasses
 
@@ -1229,6 +1730,10 @@ def phase_engine(dev, card: str) -> dict:
     rq = request_paths(cfg, params, dev, tok, "bf16", {}, with_profile=True)
     out["requests_bf16"] = check_requests(rq, L, "bf16", card, strict=False)
     del rq
+    torch.cuda.empty_cache()
+    # phase 5 on the same weights: the serving entry over HTTP
+    print("phase 5: serving entry over HTTP, bf16")
+    out["serve_bf16"] = phase_serve(cfg, params, dev, card, "bf16", strict=False)
     # the same requests on the same weights widened to float32, with float32
     # KV: the three paths differ only in summation order, so the logits
     # agree tightly and the greedy streams match
@@ -1256,9 +1761,12 @@ def phase_engine(dev, card: str) -> dict:
     torch.cuda.empty_cache()
     print("phase 4: request semantics, float32 (widened weights)")
     rq32 = request_paths(cfg32, params, dev, tok, "f32", {})
-    del params
     out["requests_f32"] = check_requests(rq32, L, "f32", card, strict=True)
     del rq32
+    torch.cuda.empty_cache()
+    print("phase 5: serving entry over HTTP, float32 (widened weights)")
+    out["serve_f32"] = phase_serve(cfg32, params, dev, card, "f32", strict=True)
+    del params
     torch.cuda.empty_cache()
     out["preemption"] = phase_preempt(dev)
     return out
@@ -1281,6 +1789,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no smg_tpu_torch package beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    # a hang anywhere (the card, a lock, the profiler) ends the run with
+    # every thread's stack on stderr and a non-zero exit, inside the
+    # 1200 s a run may take
+    faulthandler.dump_traceback_later(HANG_S, exit=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1332,7 +1844,9 @@ def main(argv=None) -> int:
         src, rep = sources[name]
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=engine["launches"][name],
+            # the main path's first hop is the gateway: its HTTP run (bf16)
+            launches=engine["serve_bf16"]["launches"][name],
+            launches_engine=engine["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],

@@ -1,6 +1,7 @@
 """Engine configuration — the port's own copy of the parts of
 ``smg_tpu/engine/config.py`` this engine reads (cache layout, the
-continuous-batching scheduler knobs it implements, engine identity)."""
+continuous-batching scheduler knobs it implements, engine identity, failure
+isolation and the flight ring)."""
 
 from __future__ import annotations
 
@@ -88,3 +89,15 @@ class EngineConfig:
     # at first use per bucket); False launches every column eagerly.  The
     # CPU always runs eagerly.
     decode_graphs: bool = True
+    # serving identity (the model name the gateway lists)
+    model_id: str = "smg-tpu-model"
+    # ---- failure isolation (the reference's defaults) ----
+    # step watchdog: a thread that flags the engine unhealthy when no step
+    # completes for this many seconds while work is pending (a wedged
+    # device fetch, a runaway capture); 0 disables it
+    step_watchdog_secs: float = 0.0
+    # this many consecutive failed steps turn ``Engine.healthy`` false, so
+    # the gateway's health monitor and breakers route around the worker
+    max_consecutive_step_failures: int = 3
+    # the flight recorder's ring of per-step records
+    flight_ring_size: int = 256

@@ -1,21 +1,28 @@
 """Engine facade: scheduler + detokenisation + stop strings + streaming
 results + the background step loop (port of ``smg_tpu/engine/engine.py``:
 ``submit``, ``abort``, ``step``, ``generate``, ``start``/``stop``,
-``loads``, ``audit``, ``flush_cache``).
+``loads``, ``audit``, ``flush_cache``, ``healthy``, ``dump_flight``,
+``metrics`` and ``events``).
 
 Entry points run on the card: ``device=None`` means CUDA, and a machine
 without one raises.  ``start()`` runs ``step()`` on a loop thread while
-there is work; output callbacks run on that thread, outside the engine
-lock.  With a ``tokenizer``, outputs carry text (``text_delta``, and
-``text`` in ``GenerationResult``), ``stop`` strings end a request at this
-layer (token stops live in the scheduler), and ``json_schema``/``regex``/
-``ebnf`` install a grammar vocab mask.  Not ported yet: the step watchdog,
-the flight recorder and metrics.
+there is work, and the step watchdog when ``step_watchdog_secs`` > 0;
+output callbacks run on the loop thread, outside the engine lock.  With a
+``tokenizer``, outputs carry text (``text_delta``, and ``text`` in
+``GenerationResult``), ``stop`` strings end a request at this layer (token
+stops live in the scheduler), and ``json_schema``/``regex``/``ebnf``
+install a grammar vocab mask.
+
+A sticky CUDA error (an illegal address or a device-side assert inside a
+kernel) makes every later launch fail too.  The engine applies the
+reference's logic to it unchanged: the failing step blames its newest
+lane, the retry fails and condemns the batch, every later step fails
+again, so the consecutive-failure threshold turns ``healthy`` false and the
+gateway routes around the worker.  Such a worker must be restarted.
 """
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 import uuid
@@ -24,14 +31,15 @@ from dataclasses import dataclass, field
 from smg_tpu_torch.constrained import JsonMachine, TokenFilter
 from smg_tpu_torch.engine.config import EngineConfig
 from smg_tpu_torch.engine.detokenize import IncrementalDecoder, StopStringChecker
+from smg_tpu_torch.engine.events import KvEventPublisher
+from smg_tpu_torch.engine.metrics import EngineMetrics
 from smg_tpu_torch.engine.request import EngineRequest, StepOutput
 from smg_tpu_torch.engine.runner import ModelRunner
 from smg_tpu_torch.engine.scheduler import Scheduler
 from smg_tpu_torch.protocols.sampling import SamplingParams
+from smg_tpu_torch.utils import get_logger
 
-logger = logging.getLogger("smg_tpu_torch.engine")
-# consecutive loop-step failures after which ``healthy`` turns false
-MAX_CONSECUTIVE_STEP_FAILURES = 3
+logger = get_logger("engine")
 
 
 @dataclass
@@ -68,8 +76,14 @@ class Engine:
                  attention: str = "kernel", tokenizer=None):
         self.config = config
         self.tokenizer = tokenizer
+        self.events = KvEventPublisher()
         self.runner = ModelRunner(config, params=params, device=device, attention=attention)
-        self.scheduler = Scheduler(self.runner, config)
+        # the engine's own registry; the gateway also registers it into its
+        # registry, so /metrics is one scrape
+        self.metrics = EngineMetrics()
+        self.metrics.set_mesh_devices(1)
+        self.scheduler = Scheduler(self.runner, config, event_sink=self.events.publish,
+                                   metrics=self.metrics)
         self._callbacks: dict[str, object] = {}
         self._json_filter = None  # shared TokenFilter (piece table + mask cache)
         self._grammar_filters: dict = {}  # (kind, pattern) -> TokenFilter
@@ -77,19 +91,42 @@ class Engine:
         self._wakeup = threading.Condition(self._lock)
         self._thread: threading.Thread | None = None
         self._stopping = False
-        self.consec_step_failures = 0
+        self.start_time = time.monotonic()
+        # step watchdog: ``_last_progress`` is a bare float the step thread
+        # writes and the watchdog reads without the engine lock — the
+        # watchdog must never block on a lock a wedged step holds
+        self._watchdog: threading.Thread | None = None
+        self._last_progress = time.monotonic()
+        self._stalled = False
+        self.num_watchdog_stalls = 0
+
+    #: multimodal input is not ported yet (the gateway reads this)
+    supports_vision = False
 
     # ---- submission ----
 
     def submit(self, prompt_ids: list[int], sampling: SamplingParams,
                rid: str | None = None, on_output=None,
-               timeout_secs: float | None = None) -> str:
+               mm_embeds: tuple | None = None,
+               timeout_secs: float | None = None,
+               trace_id: str | None = None) -> str:
         """Queue a request; ``on_output`` receives its ``RequestOutput``s.
         ``timeout_secs`` is the request's budget: past it the scheduler ends
-        it with finish ``timeout``, queued or running.  Raises
-        ``QueueFullError`` under admission back-pressure or while draining."""
+        it with finish ``timeout``, queued or running.  ``trace_id`` links
+        the flight-recorder timeline to the caller's trace.  Raises
+        ``QueueFullError`` under admission back-pressure or while draining,
+        and ``ValueError`` for input this port does not take yet
+        (``mm_embeds``, a LoRA adapter)."""
+        if mm_embeds is not None:
+            raise ValueError("multimodal input (mm_embeds) is not ported to the "
+                             "PyTorch engine yet")
+        if sampling.lora_adapter:
+            # no adapter can be loaded until LoRA is ported: the reference's
+            # error for an adapter that is not loaded
+            raise ValueError(f"unknown LoRA adapter {sampling.lora_adapter!r}")
         rid = rid or f"req-{uuid.uuid4().hex[:16]}"
         req = EngineRequest(rid=rid, prompt_ids=list(prompt_ids), sampling=sampling)
+        req.trace_id = trace_id
         if timeout_secs is not None:
             req.deadline = time.monotonic() + max(timeout_secs, 0.0)
         if self.tokenizer is not None:
@@ -100,6 +137,9 @@ class Engine:
         req.token_filter = self._build_token_filter(sampling)
         with self._wakeup:
             self.scheduler.add_request(req)
+            # fresh work restarts the watchdog clock: a stall is measured from
+            # "work existed and no step completed", not from an idle engine
+            self._last_progress = time.monotonic()
             if on_output is not None:
                 self._callbacks[rid] = on_output
             self._wakeup.notify_all()
@@ -153,14 +193,19 @@ class Engine:
 
     @property
     def healthy(self) -> bool:
-        """False while the loop thread's steps keep failing."""
-        return self.consec_step_failures < MAX_CONSECUTIVE_STEP_FAILURES
+        """False while the step watchdog sees a stall, or after
+        ``max_consecutive_step_failures`` failed steps in a row; the
+        gateway's health monitor and breakers route around it."""
+        return (not self._stalled
+                and self.scheduler.consec_step_failures
+                < self.config.max_consecutive_step_failures)
 
     def loads(self) -> dict:
         with self._lock:
             out = self.scheduler.loads()
             out["audit"] = self._audit_locked()
         out["healthy"] = self.healthy
+        out["watchdog_stalls"] = self.num_watchdog_stalls
         return out
 
     def _audit_locked(self) -> dict:
@@ -174,6 +219,26 @@ class Engine:
         with self._lock:
             return self._audit_locked()
 
+    def dump_flight(self, reason: str = "manual") -> dict:
+        """Flight-recorder snapshot: the step ring, request timelines and
+        the index of auto-dumps.  Never takes the engine lock: a wedged step
+        thread (what a postmortem is for) holds it, and the recorder is
+        consistent under its own lock."""
+        fl = self.scheduler.flight
+        snap = fl.snapshot(reason)
+        snap["engine"] = {
+            "model_id": self.config.model_id,
+            "healthy": self.healthy,
+            "uptime_secs": time.monotonic() - self.start_time,
+            "watchdog_stalls": self.num_watchdog_stalls,
+            "consecutive_step_failures": self.scheduler.consec_step_failures,
+            "draining": self.scheduler.draining,
+        }
+        if fl.dumps:
+            # the newest auto-dump rides along in full
+            snap["last_auto_dump"] = fl.dumps[-1]
+        return snap
+
     def flush_cache(self) -> bool:
         with self._lock:
             return self.scheduler.flush_cache()
@@ -185,6 +250,14 @@ class Engine:
         callbacks run after the engine lock is released."""
         with self._lock:
             outputs = [self._postprocess(so) for so in self.scheduler.step()]
+            self.events.flush()
+            self.metrics.maybe_sample_devices([self.runner.device])
+        # watchdog progress mark: a step completed end to end, so a flagged
+        # stall has cleared
+        self._last_progress = time.monotonic()
+        if self._stalled:
+            self._stalled = False
+            logger.warning("engine step progress resumed; stall cleared")
         self._deliver(outputs)
         return outputs
 
@@ -268,15 +341,24 @@ class Engine:
         if self._thread is not None:
             return
         self._stopping = False
+        self._last_progress = time.monotonic()
         self._thread = threading.Thread(target=self._loop, name="smg-torch-engine",
                                         daemon=True)
         self._thread.start()
+        if self.config.step_watchdog_secs > 0 and self._watchdog is None:
+            self._watchdog = threading.Thread(target=self._watchdog_loop,
+                                              name="smg-torch-engine-watchdog",
+                                              daemon=True)
+            self._watchdog.start()
 
     def stop(self, drain: bool = False, timeout: float = 30.0) -> None:
         """Stop the loop.  ``drain=True`` first stops admission, ends every
         queued request with a terminal ``abort``, and waits up to ``timeout``
         seconds for the admitted requests to finish streaming."""
         if drain:
+            # the black box's "shut down on purpose" record, before the
+            # sweep changes the state
+            self.scheduler.flight.auto_dump("drain")
             with self._wakeup:
                 self.scheduler.draining = True
                 step_outs: list[StepOutput] = []
@@ -299,6 +381,45 @@ class Engine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        if self._watchdog is not None:
+            self._watchdog.join(timeout=5)
+            self._watchdog = None
+
+    def _watchdog_loop(self) -> None:
+        """Flags the engine unhealthy when no step completes for
+        ``step_watchdog_secs`` while work is pending.  Lock-free: a wedged
+        step thread usually holds the engine lock, so the watchdog only
+        reads scheduler state (racy, but enough for a threshold) and takes
+        the lock only if it is free, to drop the in-flight frame."""
+        T = self.config.step_watchdog_secs
+        poll = max(min(T / 4.0, 1.0), 0.01)
+        logger.info("engine step watchdog started (threshold %.1fs)", T)
+        while not self._stopping:
+            time.sleep(poll)
+            if self._stopping:
+                break
+            try:
+                has_work = self.scheduler.has_work()  # unlocked read, see above
+            except Exception:
+                continue
+            stalled_for = time.monotonic() - self._last_progress
+            if not has_work or stalled_for <= T:
+                continue
+            if not self._stalled:
+                self._stalled = True
+                self.num_watchdog_stalls += 1
+                self.metrics.watchdog_stalls.inc()
+                logger.error("engine wedged: no step progress for %.1fs with work "
+                             "pending; marking unhealthy", stalled_for)
+                # takes only the recorder's own lock
+                self.scheduler.flight.auto_dump("watchdog_stall")
+                # a blocking acquire would wait behind the very stall it reports
+                if self._lock.acquire(blocking=False):
+                    try:
+                        self.scheduler.drop_inflight()
+                    finally:
+                        self._lock.release()
+        logger.info("engine step watchdog stopped")
 
     def _loop(self) -> None:
         """Step while there is work.  With ``overlap_schedule`` each step
@@ -315,14 +436,18 @@ class Engine:
                     continue
             try:
                 self.step()
-                self.consec_step_failures = 0
                 # the lock is not fair: yield so a submit, abort or stop
                 # waiting on it gets in between two steps
                 time.sleep(0)
             except Exception:
-                self.consec_step_failures += 1
+                # last resort: the scheduler quarantines prefill and decode
+                # failures itself, so this one escaped blame.  It counts
+                # toward the unhealthy threshold and the loop lives on.
+                with self._lock:
+                    self.scheduler._count_step_failure("loop")
+                    self.scheduler.flush_pending_dumps()
                 logger.exception("engine step failed (%d consecutive)",
-                                 self.consec_step_failures)
+                                 self.scheduler.consec_step_failures)
                 time.sleep(0.1)
         with self._lock:
             self.scheduler.drop_inflight()

@@ -43,6 +43,8 @@ class EngineRequest:
     # absolute time.monotonic() deadline (None = none): the scheduler
     # finishes the request with reason "timeout" once it passes
     deadline: float | None = None
+    # the gateway's trace id, recorded in the flight timeline
+    trace_id: str | None = None
 
     status: RequestStatus = RequestStatus.WAITING
     output_ids: list[int] = field(default_factory=list)

@@ -37,14 +37,13 @@ from smg_tpu_torch.ops.cuda import decode_attention
 def resolve_device(device) -> torch.device:
     """``None`` means the card.  No silent CPU fallback: without CUDA the
     caller must ask for ``device="cpu"`` explicitly."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; smg_tpu_torch runs on the GPU by "
-                "default — pass device='cpu' explicitly to run on the CPU"
-            )
-        device = "cuda"
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; smg_tpu_torch runs on the GPU by "
+            "default — pass device='cpu' explicitly to run on the CPU"
+        )
+    return device
 
 
 class DecodeState:

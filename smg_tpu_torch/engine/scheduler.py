@@ -23,13 +23,21 @@ that keeps the reference's host logic for what it ports:
 - request semantics: penalties (per-slot device counts, re-derived from
   the host after admission, preemption or a discarded launch), grammar
   vocab masks (``TokenFilter``; forced K=1 and no lookahead), stop-string
-  lanes at K=1 (the engine finds the match and calls ``finish_request``).
+  lanes at K=1 (the engine finds the match and calls ``finish_request``);
+- failure isolation: a prefill that raises quarantines its request (a
+  grouped prefill retries its members solo first); a decode step that
+  raises blames the newest lane and retries the survivors once, and a
+  second failure condemns the batch.  A frame in flight when a step raised
+  is discarded with its sampling counters rewound, so survivors' streams
+  are byte-identical to a run without the fault.  Consecutive failed steps
+  are counted for ``Engine.healthy``;
+- the flight recorder's step ring and request timelines, the engine
+  metrics, and KV events from the radix cache.
 
-Not ported yet: speculation, LoRA, multimodal, the flight recorder,
-metrics and failure isolation (quarantine of a failing request).  A
-request that cannot be admitted even with nothing else running (its prompt
-needs more pages than the pool can free) finishes with reason ``error``
-naming ``OutOfPagesError``.
+Not ported yet: speculation, LoRA, multimodal.  A request that cannot be
+admitted even with nothing else running (its prompt needs more pages than
+the pool can free) finishes with reason ``error`` naming
+``OutOfPagesError``.
 """
 
 from __future__ import annotations
@@ -38,10 +46,12 @@ import math
 import time
 from collections import deque
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 
 from smg_tpu_torch.engine.config import EngineConfig
+from smg_tpu_torch.engine.flight_recorder import FlightRecorder
 from smg_tpu_torch.engine.kv_cache import OutOfPagesError, PagePool
 from smg_tpu_torch.engine.radix_cache import RadixCache
 from smg_tpu_torch.engine.request import (
@@ -52,6 +62,10 @@ from smg_tpu_torch.engine.request import (
     StepOutput,
 )
 from smg_tpu_torch.engine.runner import DecodeLaunch, DecodeState, ModelRunner
+from smg_tpu_torch.faults import FAULTS
+from smg_tpu_torch.utils import get_logger
+
+logger = get_logger("engine.scheduler")
 
 
 @dataclass
@@ -80,14 +94,18 @@ class InFlightFrame:
 
 
 class Scheduler:
-    def __init__(self, runner: ModelRunner, config: EngineConfig):
+    def __init__(self, runner: ModelRunner, config: EngineConfig,
+                 event_sink: Callable | None = None, metrics=None):
         self.runner = runner
         self.config = config
+        # EngineMetrics (engine/metrics.py); None leaves a bare scheduler
+        # without metrics, and every hook checks
+        self.metrics = metrics
         self.sched = config.scheduler
         self.ps = runner.spec.page_size
         self.mp = runner.max_pages_per_seq
         self.pool = PagePool(runner.spec.num_pages)
-        self.radix = RadixCache(self.ps)
+        self.radix = RadixCache(self.ps, event_sink)
         self.waiting: deque[EngineRequest] = deque()
         self.slots: list[EngineRequest | None] = [None] * self.sched.max_batch_size
         self.page_tables = np.zeros((self.sched.max_batch_size, self.mp), np.int32)
@@ -109,9 +127,37 @@ class Scheduler:
         self.num_queue_rejections = 0
         self.num_deadline_waiting = 0
         self.num_deadline_running = 0
+        # radix hit-rate accounting, once per admission (a back-pressured
+        # request re-probes every step)
+        self.num_cached_prompt_tokens = 0
+        self.num_computed_prompt_tokens = 0
+        self.num_radix_hit_pages = 0
+        self.num_radix_miss_pages = 0
         # adaptive horizon: EMA of decode columns between finishes
         self._finish_gap_ema = 0.0
         self._cols_since_finish = 0
+        # failure isolation: quarantines and the step-failure streak
+        # (``Engine.healthy`` reads ``consec_step_failures``)
+        self.num_quarantined = 0
+        self.num_step_failures = 0
+        self.consec_step_failures = 0  # reset by a step with no failure
+        self._step_had_failure = False
+        self.flight = FlightRecorder(ring_size=config.flight_ring_size)
+        self.flight.metrics = metrics
+        # step-scoped recorder state (reset at the top of every step)
+        self._step_fault_phases: list[str] = []
+        self._step_admissions = 0
+        self._step_outcome: str | None = None
+        self._step_fetch_s = 0.0
+        self._step_horizon = 0
+        # host seconds enqueueing decode launches vs blocked on their fetch:
+        # step-scoped for the metrics, cumulative for loads()
+        self._step_dispatch_s = 0.0
+        self.dispatch_enqueue_s_total = 0.0
+        self.fetch_wait_s_total = 0.0
+        # dump reasons raised mid-step (quarantine, health flip), fired
+        # after the step's own ring record lands so the dump holds it
+        self._pending_dumps: list[str] = []
 
     # ---- public API ----
 
@@ -126,6 +172,20 @@ class Scheduler:
         req.sched_serial = self._serial
         self.requests[req.rid] = req
         self.waiting.append(req)
+        self.flight.on_queued(req.rid, prompt_tokens=len(req.prompt_ids),
+                              trace_id=req.trace_id, meta=self._flight_meta(req),
+                              deadline_t=req.deadline)
+
+    def _flight_meta(self, req: EngineRequest) -> dict:
+        """Sampling metadata for the request's timeline (the reference's
+        keys; priorities are not ported, so ``priority`` is always 0)."""
+        sp = req.sampling
+        meta = {"temperature": sp.temperature, "top_p": sp.top_p,
+                "top_k": sp.top_k, "max_new_tokens": sp.max_new_tokens,
+                "priority": 0}
+        if req.token_filter is not None:
+            meta["constrained"] = True
+        return meta
 
     def _check_queue_capacity(self, req: EngineRequest) -> None:
         """Bounded waiting queue: only new submissions are bounded
@@ -138,6 +198,8 @@ class Scheduler:
             full = queued + len(req.prompt_ids) > sched.max_queued_tokens
         if full:
             self.num_queue_rejections += 1
+            if self.metrics is not None:
+                self.metrics.queue_rejections.inc()
             raise QueueFullError(f"engine waiting queue full ({len(self.waiting)} "
                                  "queued); retry on another worker or later")
 
@@ -150,6 +212,7 @@ class Scheduler:
                 self.waiting.remove(req)
             req.status = RequestStatus.ABORTED
             req.finish = FinishInfo(reason="abort")
+            self._count_finish(req, "abort")
             self.requests.pop(rid, None)
             return True
         self._release(req, FinishInfo(reason="abort"), aborted=True)
@@ -159,29 +222,66 @@ class Scheduler:
         return (bool(self.waiting) or any(s is not None for s in self.slots)
                 or self.inflight is not None)
 
+    def _note_dispatch(self, seconds: float) -> None:
+        """Account one decode launch's enqueue time."""
+        self._step_dispatch_s += seconds
+        self.dispatch_enqueue_s_total += seconds
+
+    def prefill_inflight_tokens(self) -> int:
+        """Un-prefilled prompt tokens of admitted, resumable prefills."""
+        return sum(len(r.all_token_ids) - r.prefill_pos for r in self.slots
+                   if r is not None and r.status is RequestStatus.PREFILLING)
+
     def loads(self) -> dict:
         live = [s for s in self.slots if s is not None]
-        return {
+        # token-load estimate: queued prompts and every admitted request's
+        # remaining generation budget and un-prefilled prompt
+        queued = sum(len(r.prompt_ids) + r.sampling.max_new_tokens for r in self.waiting)
+        for s in live:
+            queued += max(s.sampling.max_new_tokens - len(s.output_ids), 0)
+            if s.status is RequestStatus.PREFILLING:
+                queued += len(s.all_token_ids) - s.prefill_pos
+        prefill_inflight = self.prefill_inflight_tokens()
+        total_prompt = self.num_cached_prompt_tokens + self.num_computed_prompt_tokens
+        out = {
             "num_waiting": len(self.waiting),
             "num_running": len(live),
             "num_prefilling": sum(s.status is RequestStatus.PREFILLING for s in live),
+            "prefill_inflight_tokens": prefill_inflight,
+            "prefill_backlog_tokens": prefill_inflight + sum(
+                len(r.all_token_ids) for r in self.waiting),
             "free_pages": self.pool.free_count,
             "cached_pages": self.radix.num_cached_pages,
             "total_pages": self.runner.spec.num_pages,
+            "queued_tokens": queued,
             "prefill_tokens": self.num_prefill_tokens,
             "decode_tokens": self.num_decode_tokens,
+            "cached_prompt_tokens": self.num_cached_prompt_tokens,
+            "computed_prompt_tokens": self.num_computed_prompt_tokens,
+            "cache_hit_rate": (self.num_cached_prompt_tokens / total_prompt
+                               if total_prompt else 0.0),
             "preemptions": self.num_preemptions,
+            "radix_hit_pages": self.num_radix_hit_pages,
+            "radix_miss_pages": self.num_radix_miss_pages,
             "radix_evicted_pages": self.radix.evicted_pages,
             "lookahead_kept": self.num_lookahead_kept,
             "lookahead_discarded": self.num_lookahead_discarded,
             "wasted_decode_tokens": self.num_wasted_decode_tokens,
             "megastep_early_exits": self.num_megastep_early_exits,
+            "quarantined_requests": self.num_quarantined,
+            "step_failures": self.num_step_failures,
+            "consecutive_step_failures": self.consec_step_failures,
             "queue_rejections": self.num_queue_rejections,
             "deadline_expirations_waiting": self.num_deadline_waiting,
             "deadline_expirations_running": self.num_deadline_running,
             "draining": self.draining,
+            "dispatch_enqueue_seconds": self.dispatch_enqueue_s_total,
+            "fetch_wait_seconds": self.fetch_wait_s_total,
             **self.runner.graphs.stats(),
         }
+        if self.metrics is not None:
+            out["stats"] = self.metrics.window.snapshot()
+        return out
 
     def audit(self) -> dict:
         """Zero-leak audit: every allocatable page is free, radix-cached or
@@ -219,18 +319,185 @@ class Scheduler:
         return True
 
     def step(self) -> list[StepOutput]:
-        """One iteration: deadline sweep, the prefill phase under the token
-        budget, and decode — pipelined (the next megastep launched before
-        this one's tokens are fetched) or synchronous."""
+        """One iteration with failure isolation: prefill failures are
+        quarantined per request inside the prefill phase; anything that
+        escapes is a decode-phase failure, handled by blame and one retry
+        (``_recover_decode_failure``), so one poisoned batch never livelocks
+        the engine.  The flight ring's record lands in ``finally``, also for
+        a step whose exception escapes to the engine loop."""
         outputs: list[StepOutput] = []
+        self._step_had_failure = False
+        self._step_fault_phases = []
+        self._step_admissions = 0
+        self._step_outcome = None
+        self._step_fetch_s = 0.0
+        self._step_horizon = 0
+        self._step_dispatch_s = 0.0
+        pf0, dc0 = self.num_prefill_tokens, self.num_decode_tokens
+        we0, ee0 = self.num_wasted_decode_tokens, self.num_megastep_early_exits
+        t0 = time.perf_counter()
+        escaped = True  # past recovery: the engine loop counts it (phase=loop)
+        try:
+            try:
+                self._step_inner(outputs)
+            except Exception as e:  # noqa: BLE001 — isolation boundary
+                self._recover_decode_failure(outputs, e)
+            else:
+                if not self._step_had_failure:
+                    # only a step with no recorded failure resets the streak:
+                    # a worker failing every prefill must reach the threshold
+                    self.consec_step_failures = 0
+            escaped = False
+        finally:
+            self.flight.record_step(
+                step_s=time.perf_counter() - t0,
+                prefill_tokens=self.num_prefill_tokens - pf0,
+                decode_tokens=self.num_decode_tokens - dc0,
+                running=sum(1 for s in self.slots if s is not None),
+                waiting=len(self.waiting),
+                max_batch=self.sched.max_batch_size,
+                prefill_inflight_tokens=self.prefill_inflight_tokens(),
+                free_pages=self.pool.free_count,
+                admissions=self._step_admissions,
+                finishes=sum(1 for o in outputs if o.finished),
+                overlap=self._step_outcome,
+                fetch_wait_s=self._step_fetch_s,
+                faults=self._step_fault_phases + (["loop"] if escaped else []),
+                horizon=self._step_horizon,
+                early_exits=self.num_megastep_early_exits - ee0,
+                wasted_decode_tokens=self.num_wasted_decode_tokens - we0,
+            )
+            self.flush_pending_dumps()
+        return outputs
+
+    def flush_pending_dumps(self) -> None:
+        """Fire dump reasons raised mid-step (quarantine, health flip) now
+        that the step's ring record is in place.  The engine loop calls it
+        too, after counting an escaped failure."""
+        if not self._pending_dumps:
+            return
+        pending, self._pending_dumps = self._pending_dumps, []
+        for reason in pending:
+            self.flight.auto_dump(reason)
+
+    def _step_inner(self, outputs: list[StepOutput]) -> None:
+        """Deadline sweep, the prefill phase under the token budget, and
+        decode — pipelined (the next megastep launched before this one's
+        tokens are fetched) or synchronous."""
+        m = self.metrics
         self._expire_deadlines(outputs)
+        pf0, dc0 = self.num_prefill_tokens, self.num_decode_tokens
+        t0 = time.perf_counter()
         if self.sched.overlap_schedule:
-            self._step_overlap(outputs)
+            admit_s, fetch_s, outcome = self._step_overlap(outputs)
+            self._step_outcome = outcome
+            self._step_fetch_s += fetch_s
         else:
             self.drop_inflight()  # mode flip mid-run: never strand a frame
             self._admit_budgeted(outputs)
+            admit_s = time.perf_counter() - t0
             self._decode(outputs)
-        return outputs
+            fetch_s, outcome = 0.0, None
+        if m is None:
+            return
+        step_s = time.perf_counter() - t0
+        m.observe_step(
+            step_s=step_s, prefill_s=admit_s, decode_s=step_s - admit_s,
+            prefill_tokens=self.num_prefill_tokens - pf0,
+            decode_tokens=self.num_decode_tokens - dc0,
+            running=sum(1 for s in self.slots if s is not None),
+            waiting=len(self.waiting),
+            prefill_inflight_tokens=self.prefill_inflight_tokens(),
+            max_batch=self.sched.max_batch_size,
+            free_pages=self.pool.free_count,
+            total_pages=self.runner.spec.num_pages,
+            cached_pages=self.radix.num_cached_pages,
+            cumulative={
+                "preemptions": self.num_preemptions,
+                "radix_hit_pages": self.num_radix_hit_pages,
+                "radix_miss_pages": self.num_radix_miss_pages,
+                "radix_evicted_pages": self.radix.evicted_pages,
+                "cached_prompt_tokens": self.num_cached_prompt_tokens,
+                "wasted_decode_tokens": self.num_wasted_decode_tokens,
+                "megastep_early_exits": self.num_megastep_early_exits,
+            },
+            decode_horizon=self._step_horizon,
+        )
+        if outcome is not None:
+            m.observe_overlap(outcome=outcome, fetch_wait_s=fetch_s,
+                              host_s=max(step_s - fetch_s, 0.0))
+        if self._step_dispatch_s or self._step_fetch_s:
+            m.observe_dispatch(enqueue_s=self._step_dispatch_s, fetch_s=self._step_fetch_s)
+
+    # ---- failure isolation (poison-step quarantine) ----
+
+    def _fail_request(self, req: EngineRequest, message: str,
+                      outputs: list[StepOutput]) -> None:
+        """Quarantine one request: a terminal ``error`` output, its slot,
+        pages and radix pin released, and (through ``_release``'s error
+        path) its possibly poisoned KV kept out of the radix cache.
+        Surviving lanes are untouched."""
+        if req.is_finished:
+            return
+        logger.error("quarantining request %s: %s", req.rid, message)
+        self.num_quarantined += 1
+        if self.metrics is not None:
+            self.metrics.quarantined_requests.inc()
+        # the event lands before the finish moves the timeline to the
+        # finished ring, so the dump names the blamed request
+        self.flight.event(req.rid, "quarantine", message=message[:200])
+        self._pending_dumps.append("quarantine")
+        if req in self.waiting:
+            self.waiting.remove(req)
+        finish = FinishInfo(reason="error", message=message)
+        if req.slot is not None:
+            self._release(req, finish)
+        else:
+            req.finish = finish
+            req.status = RequestStatus.FINISHED
+            self._count_finish(req, "error", message)
+            self.requests.pop(req.rid, None)
+        outputs.append(StepOutput(req, [], True, finish))
+
+    def _count_step_failure(self, phase: str) -> None:
+        self.num_step_failures += 1
+        self.consec_step_failures += 1
+        self._step_had_failure = True
+        if self.metrics is not None:
+            self.metrics.step_failures.labels(phase=phase).inc()
+        self._step_fault_phases.append(phase)
+        if self.consec_step_failures == self.config.max_consecutive_step_failures:
+            # the streak just crossed the unhealthy threshold: capture the
+            # run-up
+            self._pending_dumps.append("health_flip")
+
+    def _recover_decode_failure(self, outputs: list[StepOutput], exc: Exception) -> None:
+        """Blame for a decode-phase failure.  A batch gives no per-row error,
+        so blame falls on the most recently admitted lane (the newest
+        schedule change); it is quarantined and the survivors get one
+        synchronous retry this step.  A second failure condemns the whole
+        batch.  A raising path leaves its frame on ``self.inflight``, so
+        ``drop_inflight`` rewinds its sampling counters before the retry
+        samples again."""
+        self.drop_inflight()
+        active = self._decode_active()
+        if not active:
+            # nothing to blame: the engine loop counts it once as "loop"
+            raise exc
+        self._count_step_failure("decode")
+        logger.exception("decode step failed; attributing blame")
+        newest = max(active, key=lambda t: t[1].sched_serial)[1]
+        self._fail_request(newest, f"decode step failed: {exc}", outputs)
+        if not self._decode_active():
+            return
+        try:
+            self._decode(outputs)
+        except Exception as e2:  # noqa: BLE001 — second strike: condemn the batch
+            self._count_step_failure("decode")
+            self.drop_inflight()
+            logger.exception("decode retry failed; quarantining the batch")
+            for _slot, req in self._decode_active():
+                self._fail_request(req, f"decode step failed after retry: {e2}", outputs)
 
     # ---- deadlines and drain ----
 
@@ -240,17 +507,26 @@ class Scheduler:
         abort (an in-flight frame holding them goes stale and is
         discarded)."""
         now = time.monotonic()
+        m = self.metrics
         for req in [r for r in self.waiting if r.deadline is not None and now > r.deadline]:
             self.waiting.remove(req)
             req.status = RequestStatus.FINISHED
             req.finish = FinishInfo(reason="timeout")
+            self.flight.event(req.rid, "deadline", state="waiting")
+            self._count_finish(req, "timeout")
             self.requests.pop(req.rid, None)
             self.num_deadline_waiting += 1
+            if m is not None:
+                m.deadline_expirations.labels(state="waiting").inc()
             outputs.append(StepOutput(req, [], True, req.finish))
         for req in list(self.slots):
-            if req is not None and req.deadline is not None and now > req.deadline:
+            if (req is not None and req.deadline is not None and now > req.deadline
+                    and not req.is_finished):
+                self.flight.event(req.rid, "deadline", state="running")
                 self._release(req, FinishInfo(reason="timeout"))
                 self.num_deadline_running += 1
+                if m is not None:
+                    m.deadline_expirations.labels(state="running").inc()
                 outputs.append(StepOutput(req, [], True, req.finish))
 
     def drain_waiting(self, outputs: list[StepOutput]) -> None:
@@ -260,6 +536,7 @@ class Scheduler:
             req = self.waiting.popleft()
             req.status = RequestStatus.ABORTED
             req.finish = FinishInfo(reason="abort", message="engine draining")
+            self._count_finish(req, "abort", "engine draining")
             self.requests.pop(req.rid, None)
             outputs.append(StepOutput(req, [], True, req.finish))
 
@@ -271,15 +548,19 @@ class Scheduler:
     # issues; a lookahead launch that turns out not to match it is
     # discarded and the counter rewound before relaunching.
 
-    def _step_overlap(self, outputs: list[StepOutput]) -> None:
+    def _step_overlap(self, outputs: list[StepOutput]) -> tuple[float, float, str]:
+        """One pipeline iteration; returns (admit_s, fetch_wait_s, outcome)."""
         frame = self.inflight
         self.inflight = None
+        fetch_s = 0.0
+        outcome = "sync"
         if frame is not None and self._frame_stale(frame):
             # the schedule changed while the frame was in flight (abort,
-            # deadline): its tokens never existed in the sync schedule.
-            # Discard before the prefill phase, while its counters are the
-            # newest.
+            # deadline, quarantine): its tokens never existed in the sync
+            # schedule.  Discard before the prefill phase, while its
+            # counters are the newest.
             self._discard_frame(frame)
+            outcome = "discarded" if frame.lookahead else "sync"
             frame = None
         look = None
         if frame is not None:
@@ -287,9 +568,19 @@ class Scheduler:
             # the frame's results are fetched; the sync step samples prefill
             # before decode, so it is only legal when this step's prefill
             # phase provably samples nothing
-            if self._prefill_phase_fold_free():
-                look = self._launch_lookahead(frame)
-            used = self._consume_frame(frame, outputs)
+            try:
+                if self._prefill_phase_fold_free():
+                    look = self._launch_lookahead(frame)
+                fetch_s, used = self._consume_frame(frame, outputs)
+            except Exception:
+                # quarantine path: rewind the newest counters first (the
+                # lookahead chained off this frame), then leave the frame on
+                # ``inflight`` so the step's handler discards it too before
+                # the blame and retry sample again
+                if look is not None:
+                    self._discard_frame(look)
+                self.inflight = frame
+                raise
             if used < frame.horizon:
                 # a finish trimmed the frame: the lane set changes there, so
                 # the lookahead no longer matches, and the frame's unused
@@ -297,19 +588,25 @@ class Scheduler:
                 if look is not None:
                     self._discard_frame(look)
                     look = None
+                    outcome = "discarded"
                 self._rewind_unused_folds(frame, used)
         # admission after the consume sees every slot and page the frame's
         # finishes freed, as the sync schedule's admission would
+        ta = time.perf_counter()
         disturbed = self._admit_budgeted(outputs)
+        admit_s = time.perf_counter() - ta
         if look is not None:
             if disturbed or self._frame_stale(look):
                 self._discard_frame(look)
+                outcome = "discarded"
             else:
                 self.inflight = look
+                outcome = "kept"
         if self.inflight is None:
             active = self._decode_active()
             if active:
                 self.inflight = self._launch_frame(active)
+        return admit_s, fetch_s, outcome
 
     def _mp_bucket(self, pages_needed: int) -> int:
         """Power-of-two page-table width (>= 8, capped at the full table):
@@ -385,12 +682,19 @@ class Scheduler:
             self._discard_frame(self.inflight)
             self.inflight = None
 
-    def _consume_frame(self, frame: InFlightFrame, outputs: list[StepOutput]) -> int:
-        """The deferred fetch and host-side acceptance; returns the columns
-        accepted.  Acceptance stops at the earliest finish column across the
-        batch: later columns belong to a batch the single-step schedule
-        would have recomposed."""
+    def _consume_frame(self, frame: InFlightFrame,
+                       outputs: list[StepOutput]) -> tuple[float, int]:
+        """The deferred fetch and host-side acceptance; returns (seconds
+        blocked on the device, columns accepted).  Acceptance stops at the
+        earliest finish column across the batch: later columns belong to a
+        batch the single-step schedule would have recomposed."""
+        FAULTS.fire("engine.device_fetch",
+                    rids=",".join(r.rid for _s, r, _e in frame.lanes))
+        t0 = time.perf_counter()
         toks, lps, sr = self.runner.decode_fetch(frame.launch)
+        fetch_s = time.perf_counter() - t0
+        self.fetch_wait_s_total += fetch_s
+        self._step_horizon = frame.horizon
         if frame.lookahead:
             self.num_lookahead_kept += 1
         used = min(frame.horizon, sr) if sr > 0 else frame.horizon
@@ -415,7 +719,7 @@ class Scheduler:
             self._finish_gap_ema = (gap if self._finish_gap_ema == 0.0
                                     else 0.7 * self._finish_gap_ema + 0.3 * gap)
             self._cols_since_finish = 0
-        return used
+        return fetch_s, used
 
     def _launch_lookahead(self, frame: InFlightFrame) -> InFlightFrame | None:
         """The launch for the step after ``frame``, dispatched before
@@ -427,6 +731,8 @@ class Scheduler:
         sync schedule's, which runs after finishes release pages), or a lane
         is grammar-constrained (its vocab mask derives from the token the
         frame has not yet returned)."""
+        FAULTS.fire("engine.decode_step",
+                    rids=",".join(r.rid for _s, r, _e in frame.lanes))
         H = frame.horizon
         lanes = [(s, r) for s, r, _ in frame.lanes]
         H2, _max_steps = self._pick_horizon(lanes)
@@ -456,7 +762,9 @@ class Scheduler:
         ds = self._refresh_decode_state(lanes, frame.B, mp_b, frame.lane_sig,
                                         use_pen=frame.use_pen)
         mark = self.runner.rng_mark()
+        t_dispatch = time.perf_counter()
         launch = self.runner.decode_multi_async(frame.launch.last_col, positions, ds, H2)
+        self._note_dispatch(time.perf_counter() - t_dispatch)
         return InFlightFrame(
             lanes=[(s, r, e + H) for s, r, e in frame.lanes], launch=launch,
             horizon=H2, B=frame.B, B_real=frame.B_real, mp_b=mp_b,
@@ -485,12 +793,22 @@ class Scheduler:
             remaining = len(req.all_token_ids) - req.prefill_pos
             if remaining <= budget:
                 budget -= remaining
-                self._prefill_final(req, outputs)
+                try:
+                    self._prefill_final(req, outputs)
+                except Exception as e:  # noqa: BLE001 — quarantine boundary
+                    self._count_step_failure("prefill")
+                    self._fail_request(req, f"prefill failed: {e}", outputs)
+                # disturbed either way: a failure may have sampled before it
+                # raised, and a wrongly kept lookahead would desync streams
                 disturbed = True
             else:
                 if budget < min(self.ps, sched.max_prefill_tokens):
                     break  # sub-page leftover: not worth a dispatch
-                self._prefill_chunk(req, budget)
+                try:
+                    self._prefill_chunk(req, budget)
+                except Exception as e:  # noqa: BLE001 — quarantine boundary
+                    self._count_step_failure("prefill")
+                    self._fail_request(req, f"prefill failed: {e}", outputs)
                 budget = 0
         group: list[EngineRequest] = []
         while budget > 0 and not self.draining and self.waiting:
@@ -505,16 +823,39 @@ class Scheduler:
                 budget -= remaining
                 group.append(req)
                 if len(group) >= sched.max_prefill_group:
-                    self._prefill_group(group, outputs)
+                    self._prefill_group_guarded(group, outputs)
                     disturbed = True
                     group = []
             else:
-                self._prefill_chunk(req, budget)  # first resumable chunk
+                try:
+                    self._prefill_chunk(req, budget)  # first resumable chunk
+                except Exception as e:  # noqa: BLE001 — quarantine boundary
+                    self._count_step_failure("prefill")
+                    self._fail_request(req, f"prefill failed: {e}", outputs)
                 budget = 0
         if group:
-            self._prefill_group(group, outputs)
+            self._prefill_group_guarded(group, outputs)
             disturbed = True
         return disturbed
+
+    def _prefill_group_guarded(self, group: list[EngineRequest],
+                               outputs: list[StepOutput]) -> None:
+        """Grouped prefill with per-request blame: when the batched call
+        fails, the members retry solo, so only the culprit is quarantined
+        and the others still promote this step."""
+        try:
+            self._prefill_group(group, outputs)
+            return
+        except Exception:  # noqa: BLE001 — quarantine boundary
+            self._count_step_failure("prefill")
+            logger.exception("grouped prefill failed; retrying %d members solo", len(group))
+        for req in group:
+            if req.is_finished:
+                continue
+            try:
+                self._prefill_final(req, outputs)
+            except Exception as e:  # noqa: BLE001 — the culprit
+                self._fail_request(req, f"prefill failed: {e}", outputs)
 
     def _try_admit_head(self, outputs: list[StepOutput], budget_left: int):
         """Admit the head of the waiting queue into a free slot: radix-match
@@ -559,6 +900,10 @@ class Scheduler:
                 return "consumed"
             return None  # back-pressure: running requests will release pages
         self.waiting.popleft()
+        self.num_cached_prompt_tokens += matched
+        self.num_computed_prompt_tokens += remaining
+        self.num_radix_hit_pages += len(shared_pages)
+        self.num_radix_miss_pages += need
         req.radix_node = node
         req.shared_pages = shared_pages
         req.cached_tokens = matched
@@ -574,11 +919,14 @@ class Scheduler:
         row[: len(all_pages)] = all_pages
         self._pages_version += 1
         self.slots[slot] = req
+        self._step_admissions += 1
+        self.flight.event(req.rid, "admitted", slot=slot, cached_tokens=matched)
         return req
 
     def _prefill_chunk(self, req: EngineRequest, take: int) -> None:
         """Advance a resumable prefill by one NON-final chunk (KV only,
         nothing sampled: a lookahead frame stays in flight across it)."""
+        FAULTS.fire("engine.prefill", rid=req.rid)
         start = req.prefill_pos
         chunk = req.all_token_ids[start : start + take]
         self.runner.prefill_extend(chunk, prefix_len=start,
@@ -586,10 +934,12 @@ class Scheduler:
         self.num_prefill_tokens += len(chunk)
         req.prefill_pos += len(chunk)
         req.seq_len = req.prefill_pos
+        self.flight.event(req.rid, "prefill_chunk", start=start, n=len(chunk), final=False)
 
     def _prefill_final(self, req: EngineRequest, outputs: list[StepOutput]) -> None:
         """Final chunk of a resumable prefill: sample the first token and
         promote the request to a decode lane."""
+        FAULTS.fire("engine.prefill", rid=req.rid)
         prompt = req.all_token_ids
         start = req.prefill_pos
         sp = req.sampling
@@ -606,10 +956,16 @@ class Scheduler:
         self.num_prefill_tokens += len(prompt) - start
         req.prefill_pos = req.seq_len = len(prompt)
         req.status = RequestStatus.RUNNING
+        self.flight.event(req.rid, "prefill_chunk", start=start, n=len(prompt) - start,
+                          final=True)
         self._accept_tokens(req, [tok], [lp], outputs, advance_seq=False)
 
     def _prefill_group(self, group: list[EngineRequest], outputs: list[StepOutput]) -> None:
         """One batched prefill for a group of single-chunk prompts."""
+        for req in group:
+            # per-member seam before any bookkeeping changes, so the guarded
+            # caller's solo retry finds every member untouched
+            FAULTS.fire("engine.prefill", rid=req.rid)
         chunks = [(r.all_token_ids[r.cached_tokens:], r.cached_tokens,
                    self.page_tables[r.slot]) for r in group]
         sps = [r.sampling for r in group]
@@ -625,6 +981,8 @@ class Scheduler:
             self.num_prefill_tokens += len(chunks[i][0])
             req.seq_len = req.prefill_pos = req.total_len
             req.status = RequestStatus.RUNNING
+            self.flight.event(req.rid, "prefill_chunk", start=chunks[i][1],
+                              n=len(chunks[i][0]), final=True, grouped=True)
             self._accept_tokens(req, [int(toks[i])], [float(lps[i])], outputs,
                                 advance_seq=False)
 
@@ -687,7 +1045,14 @@ class Scheduler:
             return
         frame = self._launch_frame(active)
         if frame is not None:
-            used = self._consume_frame(frame, outputs)
+            try:
+                fetch_s, used = self._consume_frame(frame, outputs)
+            except Exception:
+                # left for the quarantine handler's drop_inflight, which
+                # rewinds this frame's counters before any retry samples
+                self.inflight = frame
+                raise
+            self._step_fetch_s += fetch_s
             if used < frame.horizon:
                 self._rewind_unused_folds(frame, used)
 
@@ -805,6 +1170,7 @@ class Scheduler:
     def _launch_frame(self, active: list) -> InFlightFrame | None:
         """Plan and dispatch one decode megastep for ``active``; returns the
         in-flight frame, or None when page pressure preempted every lane."""
+        FAULTS.fire("engine.decode_step", rids=",".join(r.rid for _i, r in active))
         horizon, max_steps = self._pick_horizon(active)
         # pages for the whole horizon; may preempt (a lane already taken
         # as a peer's victim in this pass is refused)
@@ -828,7 +1194,9 @@ class Scheduler:
             positions[idx] = req.seq_len
         mask = self._masks([r for _, r in active], B)
         mark = self.runner.rng_mark()
+        t_dispatch = time.perf_counter()
         launch = self.runner.decode_multi_async(tokens, positions, ds, horizon, mask)
+        self._note_dispatch(time.perf_counter() - t_dispatch)
         return InFlightFrame(
             lanes=[(i, r, r.seq_len) for i, r in active], launch=launch,
             horizon=horizon, B=B, B_real=B_real, mp_b=mp_b, positions=positions,
@@ -875,7 +1243,9 @@ class Scheduler:
         A mid-prefill victim banks the full pages computed so far in the
         radix cache, so readmission resumes from a prefix hit (best effort:
         the banked pages are evictable like any cached prefix)."""
+        logger.warning("preempting request %s (out of KV pages)", req.rid)
         self.num_preemptions += 1
+        self.flight.event(req.rid, "preempt", at_tokens=req.seq_len, status=req.status.value)
         slot = req.slot
         self.slots[slot] = None
         self.page_tables[slot][:] = 0
@@ -934,6 +1304,7 @@ class Scheduler:
         """Accept sampled tokens in order until a stop condition; overshoot
         past the stop is discarded (its KV lies past seq_len, which never
         enters the radix cache)."""
+        had_output = bool(req.output_ids)
         accepted: list[int] = []
         accepted_lps: list[float] = []
         finish = None
@@ -947,6 +1318,9 @@ class Scheduler:
             finish = self._token_finish(req.sampling, tok, len(req.output_ids), req.total_len)
             if finish is not None:
                 break
+        if accepted:
+            # before _release, so the tokens precede the finish event
+            self.flight.on_tokens(req.rid, len(accepted), first=not had_output)
         if finish is not None:
             self._release(req, finish)
         outputs.append(StepOutput(req, accepted, finish is not None, finish,
@@ -965,12 +1339,21 @@ class Scheduler:
                            outputs: list[StepOutput]) -> None:
         req.status = RequestStatus.FINISHED
         req.finish = finish
+        self._count_finish(req, finish.reason, finish.message)
         self.requests.pop(req.rid, None)
         outputs.append(StepOutput(req, [], True, finish))
+
+    def _count_finish(self, req: EngineRequest, reason: str,
+                      message: str | None = None) -> None:
+        if self.metrics is not None:
+            self.metrics.on_finish(reason)
+        # the terminal event moves the timeline to the finished ring
+        self.flight.on_finish(req.rid, reason, message)
 
     def _release(self, req: EngineRequest, finish: FinishInfo, aborted: bool = False) -> None:
         req.finish = finish
         req.status = RequestStatus.ABORTED if aborted else RequestStatus.FINISHED
+        self._count_finish(req, finish.reason, finish.message)
         if req.slot is not None:
             self.page_tables[req.slot][:] = 0
             self._pages_version += 1

@@ -1,0 +1,525 @@
+"""Token-level request pipeline — the port's copy of
+``smg_tpu/gateway/router.py`` for text requests: preparation (chat template
++ tokenize) → worker selection (policy + load guard) → execution (streamed,
+with retries, backoff and failover on a full queue or a failed worker) →
+response processing (incremental detokenize → stop scan → OpenAI shapes).
+Stop *strings* are enforced here — workers only see token ids — by aborting
+the worker stream when a stop match lands.
+
+Not ported yet: reasoning and tool parsers (the model names this port
+serves select the reference's passthrough reasoning parser, so text is
+unchanged; a request with ``tools`` is refused), harmony, PD
+disaggregation, multimodal input, embeddings, rerank, classify, the
+Anthropic messages API, the request-timeout budget, SLO accounting and
+tracing spans.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+import uuid
+from dataclasses import dataclass, field
+
+from smg_tpu_torch.engine.detokenize import IncrementalDecoder, StopStringChecker
+from smg_tpu_torch.gateway.observability import current_route
+from smg_tpu_torch.gateway.worker_client import (
+    WorkerGenerateRequest,
+    WorkerQueueFullError,
+    WorkerStreamChunk,
+)
+from smg_tpu_torch.gateway.workers import Worker, WorkerRegistry
+from smg_tpu_torch.policies import PolicyRegistry, RequestContext
+from smg_tpu_torch.protocols.openai import (
+    ChatCompletionChoice,
+    ChatCompletionRequest,
+    ChatCompletionResponse,
+    ChatCompletionStreamChunk,
+    ChatMessage,
+    ChatStreamChoice,
+    ChatStreamDelta,
+    CompletionChoice,
+    CompletionRequest,
+    CompletionResponse,
+    UsageInfo,
+)
+from smg_tpu_torch.protocols.sampling import SamplingParams
+from smg_tpu_torch.tokenizer.registry import TokenizerRegistry
+from smg_tpu_torch.utils import get_logger
+
+logger = get_logger("gateway.router")
+
+
+class RouteError(Exception):
+    def __init__(self, status: int, message: str, err_type: str = "invalid_request_error"):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+        self.err_type = err_type
+
+
+@dataclass
+class RouterConfig:
+    default_max_tokens: int = 512
+    max_retries: int = 3
+    retry_backoff_base: float = 0.1
+    retry_backoff_max: float = 2.0
+
+
+@dataclass
+class StreamEvent:
+    """One increment of a routed generation, text-level."""
+
+    text_delta: str = ""
+    token_ids: list[int] = field(default_factory=list)
+    finished: bool = False
+    finish_reason: str | None = None
+    matched_stop: str | int | None = None
+    prompt_tokens: int = 0
+    output_tokens: int = 0
+    cached_tokens: int = 0
+
+
+class Router:
+    def __init__(
+        self,
+        registry: WorkerRegistry,
+        policies: PolicyRegistry,
+        tokenizers: TokenizerRegistry,
+        config: RouterConfig | None = None,
+        metrics=None,
+    ):
+        self.registry = registry
+        self.policies = policies
+        self.tokenizers = tokenizers
+        self.config = config or RouterConfig()
+        # gateway Metrics (observability.py): token/TTFT/retry counters are
+        # recorded here, at dispatch, where chunk usage originates from the
+        # scheduler's admission-time accounting
+        self.metrics = metrics
+
+    # ---- worker selection ----
+
+    def _candidate_workers(self, model_id: str | None) -> list[Worker]:
+        workers = self.registry.list(model_id=model_id) if model_id else []
+        if not workers:
+            workers = self.registry.list()  # single-model deployments ignore name
+        return workers
+
+    def _select_with_decision(self, ctx: RequestContext, exclude: set[str] = frozenset()):
+        """(worker, RouteDecision) from the model's policy."""
+        workers = [
+            w for w in self._candidate_workers(ctx.model_id)
+            if w.worker_id not in exclude
+        ]
+        if not workers:
+            raise RouteError(503, "no workers available", "service_unavailable")
+        policy = self.policies.policy_for(ctx.model_id)
+        worker, decision = policy.select(workers, ctx)
+        if worker is None:
+            raise RouteError(503, "no healthy workers available", "service_unavailable")
+        return worker, decision
+
+    # ---- core execution with retry ----
+
+    async def _execute(
+        self,
+        ctx: RequestContext,
+        input_ids: list[int],
+        sampling: SamplingParams,
+        rid: str,
+        tokenizer,
+    ):
+        """Async generator of StreamEvent with retry-on-dispatch-failure."""
+        if sampling.regex or sampling.ebnf:
+            # malformed patterns are a client error at the front door, not
+            # a retried 502 when a worker's submit raises
+            from smg_tpu_torch.constrained import validate_grammar
+
+            try:
+                validate_grammar(sampling.regex, sampling.ebnf)
+            except ValueError as e:
+                raise RouteError(400, f"invalid grammar: {e}")
+        # stop strings are enforced gateway-side; worker gets token-level params
+        worker_sampling = SamplingParams(**{**sampling.__dict__, "stop": []})
+        stop_checker = StopStringChecker(sampling.stop) if sampling.stop else None
+        detok = (
+            IncrementalDecoder(tokenizer, skip_special_tokens=sampling.skip_special_tokens)
+            if tokenizer is not None
+            else None
+        )
+        # one first-dispatch clock for TTFT, never reset on failover: a
+        # queue-full retry or a backoff sleep shows up in the TTFT
+        t_dispatch = time.perf_counter()
+        attempts = 0
+        exclude: set[str] = set()
+        saw_queue_full = False
+        while True:
+            try:
+                worker, _decision = self._select_with_decision(ctx, exclude=exclude)
+            except RouteError:
+                if saw_queue_full:
+                    # every candidate rejected with backpressure: the honest
+                    # front-door answer is 429 retry-later, not a 5xx
+                    raise RouteError(
+                        429, "all workers at capacity; retry later", "rate_limit_error",
+                    ) from None
+                raise
+            guard = worker.acquire()
+            got_first_chunk = False
+            finished_cleanly = False
+            last_output_tokens = 0
+            try:
+                wreq = WorkerGenerateRequest(rid=rid, input_ids=input_ids,
+                                             sampling=worker_sampling)
+                async for chunk in worker.client.generate(wreq):
+                    if not got_first_chunk and self.metrics is not None:
+                        self.metrics.ttft.labels(route=current_route.get()).observe(
+                            time.perf_counter() - t_dispatch
+                        )
+                        self.metrics.prompt_tokens.inc(chunk.prompt_tokens)
+                        if chunk.cached_tokens:
+                            self.metrics.cached_tokens.inc(chunk.cached_tokens)
+                    if self.metrics is not None and chunk.output_tokens > last_output_tokens:
+                        self.metrics.generated_tokens.inc(
+                            chunk.output_tokens - last_output_tokens
+                        )
+                    got_first_chunk = True
+                    last_output_tokens = chunk.output_tokens
+                    ev = self._chunk_to_event(chunk, detok, stop_checker)
+                    if ev is not None:
+                        yield ev
+                        if ev.finished and not chunk.finished:
+                            # gateway-side stop: cancel the worker stream
+                            await worker.client.abort(rid)
+                            finished_cleanly = True
+                            guard.release(success=True)
+                            return
+                    if chunk.finished:
+                        finished_cleanly = True
+                        guard.release(success=True)
+                        return
+                # stream ended without a finish marker
+                raise RuntimeError("worker stream ended unexpectedly")
+            except RouteError:
+                guard.release(success=False)
+                raise
+            except (GeneratorExit, asyncio.CancelledError):
+                # client disconnected / stream task cancelled: not a worker
+                # failure — release the load guard and stop the generation
+                guard.release(success=True)
+                try:
+                    await asyncio.shield(worker.client.abort(rid))
+                except Exception:
+                    pass
+                raise
+            except WorkerQueueFullError:
+                # admission backpressure: retry another worker WITHOUT
+                # penalizing this one's breaker (a full queue is load, not
+                # fault)
+                guard.release(success=None)
+                saw_queue_full = True
+                attempts += 1
+                exclude.add(worker.worker_id)
+                if attempts > max(self.config.max_retries, 1):
+                    raise RouteError(
+                        429, "all workers at capacity; retry later", "rate_limit_error",
+                    )
+                if self.metrics is not None:
+                    self.metrics.retries_total.inc()
+                logger.warning("worker %s rejected %s with queue-full; trying another",
+                               worker.worker_id, rid)
+            except Exception as e:
+                guard.release(success=False)
+                attempts += 1
+                exclude.add(worker.worker_id)
+                if got_first_chunk or attempts >= self.config.max_retries:
+                    logger.exception("request %s failed on %s", rid, worker.worker_id)
+                    raise RouteError(502, f"worker error: {e}", "worker_error")
+                if self.metrics is not None:
+                    self.metrics.retries_total.inc()
+                backoff = min(
+                    self.config.retry_backoff_base * (2 ** (attempts - 1)),
+                    self.config.retry_backoff_max,
+                )
+                logger.warning("retrying %s after failure on %s (attempt %d): %s",
+                               rid, worker.worker_id, attempts, e)
+                await asyncio.sleep(backoff)
+            finally:
+                if not finished_cleanly:
+                    guard.release(success=True)  # no-op if already released
+
+    def _chunk_to_event(
+        self,
+        chunk: WorkerStreamChunk,
+        detok: IncrementalDecoder | None,
+        stop_checker: StopStringChecker | None,
+    ) -> StreamEvent | None:
+        ev = StreamEvent(
+            token_ids=list(chunk.token_ids),
+            finished=chunk.finished,
+            finish_reason=chunk.finish_reason,
+            matched_stop=chunk.matched_stop,
+            prompt_tokens=chunk.prompt_tokens,
+            output_tokens=chunk.output_tokens,
+            cached_tokens=chunk.cached_tokens,
+        )
+        if detok is None:
+            return ev
+        text = detok.put(chunk.token_ids) if chunk.token_ids else ""
+        if chunk.finished:
+            text += detok.flush()
+        if stop_checker is not None:
+            emitted, stopped = stop_checker.feed(text)
+            if stopped and not chunk.finished:
+                ev.finished = True
+                ev.finish_reason = "stop"
+                ev.matched_stop = stop_checker.matched
+            elif chunk.finished:
+                emitted += stop_checker.flush()
+            ev.text_delta = emitted
+        else:
+            ev.text_delta = text
+        return ev
+
+    # ---- chat completions ----
+
+    def prepare_chat(self, req: ChatCompletionRequest):
+        """Returns (tokenizer, prompt_text, input_ids, sampling)."""
+        tokenizer = self.tokenizers.get(req.model or None)
+        if tokenizer is None:
+            raise RouteError(500, "no tokenizer registered for gateway-side processing")
+        messages = [m.model_dump(exclude_none=True) for m in req.messages]
+        if any(isinstance(m.get("content"), list)
+               and any(p.get("type") != "text" for p in m["content"]) for m in messages):
+            # the reference's answer when no worker has a vision tower
+            raise RouteError(
+                400, f"model {req.model or 'default'} does not support image input")
+        if req.tools:
+            raise RouteError(400, "tool calls are not ported to this gateway yet")
+        try:
+            prompt_text = tokenizer.apply_chat_template(messages, add_generation_prompt=True)
+        except Exception as e:
+            raise RouteError(400, f"chat template failed: {e}")
+        input_ids = self.tokenizers.encode_cached(req.model or None, prompt_text)
+        sampling = req.to_sampling_params(self.config.default_max_tokens)
+        return tokenizer, prompt_text, input_ids, sampling
+
+    async def chat(self, req: ChatCompletionRequest, request_id: str | None = None):
+        tokenizer, prompt_text, input_ids, sampling = self.prepare_chat(req)
+        rid = request_id or f"chatcmpl-{uuid.uuid4().hex[:24]}"
+        ctx = RequestContext(
+            text=prompt_text, token_ids=input_ids,
+            model_id=req.model or None, request_id=rid,
+        )
+
+        async def run_one(choice_idx: int) -> tuple[ChatCompletionChoice, StreamEvent]:
+            text_parts: list[str] = []
+            last: StreamEvent | None = None
+            sub_rid = rid if sampling.n == 1 else f"{rid}-{choice_idx}"
+            one_sampling = SamplingParams(**{**sampling.__dict__, "n": 1})
+            async for ev in self._execute(ctx, input_ids, one_sampling, sub_rid, tokenizer):
+                text_parts.append(ev.text_delta)
+                last = ev
+            if last is None:
+                raise RuntimeError(f"worker stream for {sub_rid} ended without output")
+            choice = ChatCompletionChoice(
+                index=choice_idx,
+                message=ChatMessage(role="assistant", content="".join(text_parts)),
+                finish_reason=last.finish_reason or "stop",
+            )
+            return choice, last
+
+        # n > 1 fan-out; the first failure cancels the siblings
+        try:
+            async with asyncio.TaskGroup() as tg:
+                tasks = [tg.create_task(run_one(i)) for i in range(sampling.n)]
+        except BaseExceptionGroup as eg:
+            route = next((e for e in eg.exceptions if isinstance(e, RouteError)), None)
+            raise route if route is not None else eg.exceptions[0]
+        # every task is done after the TaskGroup exits: result() does not wait
+        results = [t.result() for t in tasks]
+        choices = [c for c, _ in results]
+        usage = UsageInfo(
+            prompt_tokens=sum(last.prompt_tokens for _, last in results),
+            completion_tokens=sum(last.output_tokens for _, last in results),
+        )
+        usage.total_tokens = usage.prompt_tokens + usage.completion_tokens
+        cached = sum(last.cached_tokens for _, last in results)
+        if cached:
+            usage.prompt_tokens_details = {"cached_tokens": cached}
+        return ChatCompletionResponse(
+            id=rid, model=req.model or "default", choices=choices, usage=usage
+        )
+
+    async def chat_stream(self, req: ChatCompletionRequest, request_id: str | None = None):
+        """Async generator of ChatCompletionStreamChunk."""
+        tokenizer, prompt_text, input_ids, sampling = self.prepare_chat(req)
+        rid = request_id or f"chatcmpl-{uuid.uuid4().hex[:24]}"
+        created = int(time.time())
+        ctx = RequestContext(
+            text=prompt_text, token_ids=input_ids,
+            model_id=req.model or None, request_id=rid,
+        )
+        model = req.model or "default"
+        usage_totals = {"prompt": 0, "completion": 0, "cached": 0}
+
+        async def stream_choice(idx: int, out_q: asyncio.Queue):
+            sub_rid = rid if sampling.n == 1 else f"{rid}-{idx}"
+            one_sampling = SamplingParams(**{**sampling.__dict__, "n": 1})
+            first = True
+            try:
+                async for ev in self._execute(ctx, input_ids, one_sampling, sub_rid, tokenizer):
+                    text = ev.text_delta
+                    delta = ChatStreamDelta(
+                        role="assistant" if first else None,
+                        content=text if text else ("" if first else None),
+                    )
+                    first = False
+                    finish = (ev.finish_reason or "stop") if ev.finished else None
+                    if text or finish or delta.role:
+                        await out_q.put(
+                            ChatCompletionStreamChunk(
+                                id=rid, created=created, model=model,
+                                choices=[ChatStreamChoice(index=idx, delta=delta,
+                                                          finish_reason=finish)],
+                            )
+                        )
+                    if ev.finished:
+                        usage_totals["prompt"] += ev.prompt_tokens
+                        usage_totals["completion"] += ev.output_tokens
+                        usage_totals["cached"] += ev.cached_tokens
+                await out_q.put(None)  # clean end-of-choice sentinel
+            except (GeneratorExit, asyncio.CancelledError):
+                raise
+            except BaseException as e:  # propagate worker errors to the consumer
+                await out_q.put(e)
+
+        q: asyncio.Queue = asyncio.Queue()
+        tasks = [asyncio.create_task(stream_choice(i, q)) for i in range(sampling.n)]
+        done_streams = 0
+        try:
+            while done_streams < sampling.n:
+                item = await q.get()
+                if item is None:
+                    done_streams += 1
+                    continue
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            for t in tasks:
+                if not t.done():
+                    t.cancel()
+            for t in tasks:
+                try:
+                    await t
+                except BaseException:
+                    pass
+        if req.stream_options and req.stream_options.include_usage:
+            usage = UsageInfo(
+                prompt_tokens=usage_totals["prompt"],
+                completion_tokens=usage_totals["completion"],
+                total_tokens=usage_totals["prompt"] + usage_totals["completion"],
+            )
+            if usage_totals["cached"]:
+                usage.prompt_tokens_details = {"cached_tokens": usage_totals["cached"]}
+            yield ChatCompletionStreamChunk(
+                id=rid, created=created, model=model, choices=[], usage=usage
+            )
+
+    # ---- completions ----
+
+    def _prepare_completion(self, req: CompletionRequest):
+        tokenizer = self.tokenizers.get(req.model or None)
+        sampling = req.to_sampling_params(self.config.default_max_tokens)
+        prompts: list[tuple[str | None, list[int]]] = []
+        p = req.prompt
+        if isinstance(p, str):
+            prompts.append((p, self.tokenizers.encode_cached(req.model or None, p)))
+        elif isinstance(p, list) and p and isinstance(p[0], int):
+            prompts.append((None, list(p)))
+        elif isinstance(p, list) and p and isinstance(p[0], str):
+            for s in p:
+                prompts.append((s, self.tokenizers.encode_cached(req.model or None, s)))
+        elif isinstance(p, list) and p and isinstance(p[0], list):
+            for ids in p:
+                prompts.append((None, list(ids)))
+        else:
+            raise RouteError(400, "invalid prompt")
+        return tokenizer, prompts, sampling
+
+    async def completion(self, req: CompletionRequest, request_id: str | None = None):
+        tokenizer, prompts, sampling = self._prepare_completion(req)
+        rid = request_id or f"cmpl-{uuid.uuid4().hex[:24]}"
+        choices: list[CompletionChoice] = []
+        usage = UsageInfo()
+        idx = 0
+        for text_prompt, input_ids in prompts:
+            ctx = RequestContext(
+                text=text_prompt, token_ids=input_ids,
+                model_id=req.model or None, request_id=rid,
+            )
+            for _ in range(sampling.n):
+                parts: list[str] = []
+                last: StreamEvent | None = None
+                one = SamplingParams(**{**sampling.__dict__, "n": 1})
+                async for ev in self._execute(ctx, input_ids, one, f"{rid}-{idx}", tokenizer):
+                    parts.append(ev.text_delta)
+                    last = ev
+                text = "".join(parts)
+                if req.echo and text_prompt is not None:
+                    text = text_prompt + text
+                choices.append(
+                    CompletionChoice(index=idx, text=text,
+                                     finish_reason=last.finish_reason or "stop")
+                )
+                usage.prompt_tokens += last.prompt_tokens
+                usage.completion_tokens += last.output_tokens
+                idx += 1
+        usage.total_tokens = usage.prompt_tokens + usage.completion_tokens
+        return CompletionResponse(id=rid, model=req.model or "default", choices=choices,
+                                  usage=usage)
+
+    async def completion_stream(self, req: CompletionRequest, request_id: str | None = None):
+        tokenizer, prompts, sampling = self._prepare_completion(req)
+        rid = request_id or f"cmpl-{uuid.uuid4().hex[:24]}"
+        created = int(time.time())
+        model = req.model or "default"
+        idx = 0
+        totals = {"prompt": 0, "completion": 0}
+        for text_prompt, input_ids in prompts:
+            ctx = RequestContext(
+                text=text_prompt, token_ids=input_ids,
+                model_id=req.model or None, request_id=rid,
+            )
+            for _ in range(sampling.n):
+                one = SamplingParams(**{**sampling.__dict__, "n": 1})
+                if req.echo and text_prompt is not None:
+                    yield CompletionResponse(
+                        id=rid, created=created, model=model,
+                        choices=[CompletionChoice(index=idx, text=text_prompt)],
+                        usage=None,
+                    )
+                async for ev in self._execute(ctx, input_ids, one, f"{rid}-{idx}", tokenizer):
+                    finish = ev.finish_reason if ev.finished else None
+                    if ev.text_delta or finish:
+                        yield CompletionResponse(
+                            id=rid, created=created, model=model,
+                            choices=[CompletionChoice(index=idx, text=ev.text_delta,
+                                                      finish_reason=finish)],
+                            usage=None,
+                        )
+                    if ev.finished:
+                        totals["prompt"] += ev.prompt_tokens
+                        totals["completion"] += ev.output_tokens
+                idx += 1
+        if req.stream_options and req.stream_options.include_usage:
+            yield CompletionResponse(
+                id=rid, created=created, model=model, choices=[],
+                usage=UsageInfo(
+                    prompt_tokens=totals["prompt"],
+                    completion_tokens=totals["completion"],
+                    total_tokens=totals["prompt"] + totals["completion"],
+                ),
+            )

@@ -1,0 +1,198 @@
+"""Worker client abstraction: how the gateway talks to engine workers — the
+port's copy of ``smg_tpu/gateway/worker_client.py`` with its in-process
+transport.  ``InProcWorkerClient`` runs a port ``Engine`` in the gateway's
+process; the gRPC transport, PD transfer, embeddings, profiling and LoRA
+calls are not ported yet.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from dataclasses import dataclass, field
+from typing import AsyncIterator
+
+from smg_tpu_torch.protocols.sampling import SamplingParams
+
+
+class WorkerQueueFullError(RuntimeError):
+    """The worker rejected the request with admission backpressure (engine
+    bounded-queue ``QueueFullError``).  Retryable: the router tries another
+    worker without penalizing this one's circuit breaker, and answers 429
+    when every candidate is saturated."""
+
+
+@dataclass
+class WorkerGenerateRequest:
+    rid: str
+    input_ids: list[int]
+    sampling: SamplingParams
+    stream: bool = True
+    # multimodal splice (embeds, positions); the port's engine refuses it
+    mm_embeds: tuple | None = None
+    # remaining client budget in seconds: the engine expires the request in
+    # queue or aborts it mid-generation with finish_reason="timeout"
+    timeout_secs: float | None = None
+    # the caller's trace id, recorded in the engine's flight timeline
+    trace_id: str | None = None
+
+
+@dataclass
+class WorkerStreamChunk:
+    """Token-level increment from a worker (no text: the gateway detokenizes)."""
+
+    rid: str
+    token_ids: list[int] = field(default_factory=list)
+    logprobs: list[float] = field(default_factory=list)
+    finished: bool = False
+    finish_reason: str | None = None
+    matched_stop: str | int | None = None
+    prompt_tokens: int = 0
+    cached_tokens: int = 0
+    output_tokens: int = 0
+
+
+class WorkerClient:
+    """Transport-agnostic worker API (async)."""
+
+    async def generate(self, req: WorkerGenerateRequest) -> AsyncIterator[WorkerStreamChunk]:
+        raise NotImplementedError
+        yield  # pragma: no cover
+
+    async def abort(self, rid: str) -> bool:
+        raise NotImplementedError
+
+    async def health(self) -> bool:
+        raise NotImplementedError
+
+    async def dump_flight(self, reason: str = "manual") -> dict:
+        """Engine flight-recorder dump (the step ring and request timelines
+        as a schema-versioned JSON-able dict).  Gateway surface:
+        GET /debug/flight/{worker}."""
+        raise NotImplementedError("flight recorder unsupported by this worker")
+
+    async def get_loads(self) -> dict:
+        raise NotImplementedError
+
+    async def get_model_info(self) -> dict:
+        raise NotImplementedError
+
+    async def flush_cache(self) -> bool:
+        raise NotImplementedError
+
+    async def get_tokenizer(self):
+        return None
+
+    def subscribe_kv_events(self, callback) -> callable:
+        """Register a KV-event batch callback; returns unsubscribe fn."""
+        return lambda: None
+
+    @property
+    def engine_metrics(self):
+        """EngineMetrics of a colocated engine, or None; the gateway folds
+        its series into its /metrics registry."""
+        return None
+
+    async def close(self) -> None:
+        pass
+
+
+class InProcWorkerClient(WorkerClient):
+    """Engine in the same process.  The engine's background loop runs in its
+    own thread; outputs hop onto the event loop via call_soon_threadsafe."""
+
+    #: drain budget handed to ``engine.stop(drain=True)`` on close — long
+    #: enough for in-flight lanes to finish, short enough for prompt SIGTERM
+    drain_timeout_secs: float = 10.0
+
+    def __init__(self, engine):
+        self.engine = engine
+        engine.start()
+
+    async def generate(self, req: WorkerGenerateRequest) -> AsyncIterator[WorkerStreamChunk]:
+        from smg_tpu_torch.engine.request import QueueFullError
+        from smg_tpu_torch.faults import FAULTS
+
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+
+        def on_output(out) -> None:  # engine thread
+            chunk = WorkerStreamChunk(
+                rid=req.rid,
+                token_ids=list(out.new_token_ids),
+                logprobs=list(out.logprobs),
+                finished=out.finished,
+                finish_reason=out.finish_reason,
+                matched_stop=out.matched_stop,
+                prompt_tokens=out.prompt_tokens,
+                cached_tokens=out.cached_tokens,
+                output_tokens=out.output_tokens,
+            )
+            loop.call_soon_threadsafe(q.put_nowait, chunk)
+
+        try:
+            self.engine.submit(
+                req.input_ids, req.sampling, rid=req.rid, on_output=on_output,
+                mm_embeds=req.mm_embeds, timeout_secs=req.timeout_secs,
+                trace_id=req.trace_id,
+            )
+        except QueueFullError as e:
+            # transport-level shape of engine backpressure: the router
+            # retries another worker / answers 429, breaker untouched
+            raise WorkerQueueFullError(str(e)) from e
+        while True:
+            chunk = await q.get()
+            # fault point: simulated transport death mid-stream
+            FAULTS.fire("worker.stream", rid=req.rid)
+            yield chunk
+            if chunk.finished:
+                return
+
+    async def abort(self, rid: str) -> bool:
+        return self.engine.abort(rid)
+
+    async def health(self) -> bool:
+        # engine-level health, not liveness: a wedged device fetch or a run
+        # of consecutive step failures reports false here, so HealthMonitor
+        # and breakers route around the worker while it recovers
+        return bool(getattr(self.engine, "healthy", True))
+
+    async def dump_flight(self, reason: str = "manual") -> dict:
+        # takes only the recorder's own lock, but serialization is real
+        # work — off the loop
+        return await asyncio.to_thread(self.engine.dump_flight, reason)
+
+    async def get_loads(self) -> dict:
+        # loads() takes the engine lock — off the event loop, or a
+        # multi-second prefill step would stall every request
+        return await asyncio.to_thread(self.engine.loads)
+
+    @property
+    def engine_metrics(self):
+        return getattr(getattr(self, "engine", None), "metrics", None)
+
+    async def get_model_info(self) -> dict:
+        cfg = self.engine.config
+        return {
+            "model_id": cfg.model_id,
+            "max_seq_len": cfg.scheduler.max_seq_len,
+            "vocab_size": cfg.model.vocab_size,
+            "eos_token_ids": list(cfg.model.eos_token_ids),
+            "page_size": cfg.cache.page_size,
+            "supports_vision": self.engine.supports_vision,
+            "supports_kv_transfer": False,
+        }
+
+    async def flush_cache(self) -> bool:
+        return self.engine.flush_cache()
+
+    async def get_tokenizer(self):
+        return self.engine.tokenizer
+
+    def subscribe_kv_events(self, callback):
+        return self.engine.events.subscribe(callback)
+
+    async def close(self) -> None:
+        # graceful: admission stops, queued requests get terminal aborts,
+        # running lanes finish (bounded); off the event loop — the drain
+        # wait is seconds of blocking
+        await asyncio.to_thread(self.engine.stop, True, self.drain_timeout_secs)

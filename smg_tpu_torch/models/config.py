@@ -1,6 +1,7 @@
 """Model architecture config — the port's own copy of
-``smg_tpu/models/config.py``: the dense decoder fields and presets.  The
-vision tower and the HF ``config.json`` loader wait for checkpoint loading."""
+``smg_tpu/models/config.py``: the dense decoder fields and the presets this
+port serves (``PRESETS``, under the reference's names).  The vision tower and
+the HF ``config.json`` loader wait for checkpoint loading."""
 
 from __future__ import annotations
 
@@ -93,3 +94,13 @@ def tiny_gemma2_config(vocab_size: int = 512) -> ModelConfig:
         query_scale=1.0 / (32.0 ** 0.5), sliding_window=4096,
         tie_word_embeddings=True,
     )
+
+
+#: ``serve --model-preset`` names, the reference's for the configs this port has
+PRESETS = {
+    "tiny": tiny_test_config,
+    "tiny-gemma2": tiny_gemma2_config,
+    "llama3.2-1b": llama32_1b_config,
+    "llama3-8b": llama3_8b_config,
+    "llama3-70b": llama3_70b_config,
+}

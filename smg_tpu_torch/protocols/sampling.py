@@ -1,10 +1,12 @@
 """Canonical sampling parameters — the port's own copy of
-``smg_tpu/protocols/sampling.py``, holding the fields this engine honours:
-the sampling knobs, OpenAI frequency/presence and HF repetition penalties,
-stop token ids and stop strings, detokenisation, and grammar constraints
-(``json_schema``, ``regex``, ``ebnf``).  ``seed``, ``n``, ``logprobs``,
-``top_logprobs`` and ``lora_adapter`` come with the slices that port
-per-request seeds, parallel sampling, top logprobs and LoRA."""
+``smg_tpu/protocols/sampling.py``, with all of its fields: the sampling
+knobs, OpenAI frequency/presence and HF repetition penalties, stop token ids
+and stop strings, detokenisation, grammar constraints (``json_schema``,
+``regex``, ``ebnf``), and the request-level ``seed``, ``n``, ``logprobs``,
+``top_logprobs`` and ``lora_adapter``.  The engine ignores ``seed``,
+``logprobs`` and ``top_logprobs``, as the JAX engine does; the gateway fans
+``n`` out into single requests; the engine refuses ``lora_adapter`` until
+LoRA is ported."""
 
 from __future__ import annotations
 
@@ -27,10 +29,16 @@ class SamplingParams:
     stop_token_ids: list[int] = field(default_factory=list)
     ignore_eos: bool = False
     skip_special_tokens: bool = True
+    seed: int | None = None
+    n: int = 1
+    logprobs: bool = False
+    top_logprobs: int = 0
     # structured output (grammar-constrained decoding)
     json_schema: str | None = None
     regex: str | None = None
     ebnf: str | None = None
+    # LoRA adapter name (must be loaded on the worker)
+    lora_adapter: str | None = None
 
     def validate(self) -> None:
         if self.max_new_tokens < 0:
@@ -45,6 +53,12 @@ class SamplingParams:
             raise ValueError("min_p must be in [0, 1]")
         if self.repetition_penalty <= 0:
             raise ValueError("repetition_penalty must be > 0")
+        if self.n < 1:
+            raise ValueError("n must be >= 1")
+
+    @property
+    def is_greedy(self) -> bool:
+        return self.temperature == 0.0
 
     @property
     def has_penalties(self) -> bool:

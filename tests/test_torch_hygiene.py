@@ -1,8 +1,10 @@
 """Hygiene of the PyTorch port: it imports neither JAX nor the JAX package,
-its entry points never drop to the CPU on their own, and its kernel
-wrappers have no fallback that hides a failed build or launch."""
+nor any third-party package the H100 machine lacks; its entry points never
+drop to the CPU on their own, and its kernel wrappers have no fallback that
+hides a failed build or launch."""
 
 import ast
+import sys
 from pathlib import Path
 
 import pytest
@@ -11,6 +13,11 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "smg_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "smg_tpu")
+# third-party packages the port may import: each imports on the H100
+# machine (checked there by importing it).  Packages that machine lacks,
+# such as orjson, must stay out of the serving path; tokenizers and jinja2
+# are present there but the port does not need them yet.
+CARD_PACKAGES = ("torch", "numpy", "aiohttp", "prometheus_client", "pydantic")
 
 
 def _sources():
@@ -47,6 +54,15 @@ def test_port_imports_no_jax_and_no_jax_package(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_only_packages_the_card_has(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    tops = {m.split(".")[0] for m in _imported_modules(tree)}
+    bad = sorted(m for m in tops if m not in sys.stdlib_module_names
+                 and m != "smg_tpu_torch" and m not in CARD_PACKAGES)
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}, not known on the card"
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
@@ -73,6 +89,16 @@ def test_engine_defaults_to_cuda_and_refuses_the_cpu(no_cuda):
             build()
     # an explicit CPU request is honoured
     assert ModelRunner(_tiny_config(), device="cpu").k_cache.device.type == "cpu"
+
+
+def test_serve_defaults_to_cuda_and_refuses_the_cpu(no_cuda):
+    from smg_tpu_torch.cli import build_parser
+    from smg_tpu_torch.gateway.launch import build_engine_from_args
+
+    args = build_parser().parse_args(["serve", "--model-preset", "tiny"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine_from_args(args)
 
 
 @pytest.mark.parametrize("name", ["decode_attention.py", "prefill_attention.py", "build.py"])
