@@ -66,7 +66,30 @@ Phases (any failure makes the script exit non-zero and print no result):
    must equal those, in bf16 the agreement is printed, with the direct
    path's TTFT and gaps beside the HTTP ones.  Kernel launches through the
    HTTP path must equal the schedule's;
-6. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
+6. the request-policy layer over HTTP, after phase 5 on each dtype's
+   weights with phase 5's engine settings: one engine behind seven
+   gateways built from ``serve`` flags (bare; every layer on: an API key,
+   a rate limit, priority admission, a request timeout, CORS, SLO specs,
+   OTel export to an in-process collector; a burst-2 rate limit; one
+   priority slot; a 1 s timeout; ``--reasoning-parser qwen3``;
+   ``--harmony on``).  Checks: 401/403 without or with a wrong key and the
+   lone chat's tokens with it; one 429 of three concurrent chats and
+   nothing left in flight; a 200-token ``bulk`` chat preempted by a
+   ``system`` chat, aborted in the engine, rerun to its lone run's tokens
+   (exact in float32), the system chat first, ``audit()`` clean and every
+   page back; a 300-token decode cut at 1 s (408, and a streamed one cut
+   without ``[DONE]``), ended once each in the engine; a tool call,
+   ``reasoning_content`` and harmony channels through the engine with a
+   scripted tokenizer (``ScriptTokenizer``), streamed and not; the eight
+   concurrent streams through the bare and the full gateway in turns,
+   ``/debug/slo``'s TTFT and per-token ITL p50s within 5% of the client's
+   (TTFT from dispatch, as the SLO's runs: each request's own front door,
+   read from its spans, comes off the client's);
+   one SLO spec passing and one failing; the span tree of a chat sent with
+   a ``traceparent``; exact launches.  Readings: the gateway's cost per
+   token with every layer on against the bare gateway and direct
+   callbacks, the lone chat's added TTFT, the preemption latency;
+7. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``
    stops after phase 2 and prints neither).
 
@@ -1255,14 +1278,14 @@ def _http(port: int, method: str, path: str, body=None, headers=None):
         return status, text
 
 
-def _sse(port: int, path: str, body: dict) -> tuple[int, list]:
+def _sse(port: int, path: str, body: dict, headers=None) -> tuple[int, list]:
     """A streamed request: (status, [(seconds since the request was sent,
     payload)]) for every ``data:`` frame, ``[DONE]`` as the string."""
     import urllib.request
 
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", method="POST", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     t0 = time.perf_counter()
     frames = []
     with urllib.request.urlopen(req, timeout=LOOP_WAIT_S) as resp:
@@ -1432,6 +1455,9 @@ def phase_serve(cfg, params, dev, card: str, label: str, strict: bool) -> dict:
         FAULTS.clear()
     if server.is_alive():
         raise AssertionError("the gateway did not shut down")
+    # aiohttp keeps finished apps in a module-level cache, with their
+    # contexts: the worker goes, so the engine's weights and KV can
+    ctx.registry.remove(SERVE_WORKER)
     del engine, ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -1705,6 +1731,649 @@ def _serve_checks(engine, tok, port: int, label: str, strict: bool, card: str) -
     return out
 
 
+# ---- phase 6: the request-policy layer over HTTP ----
+
+API_KEY = "sk-smoke"
+PREEMPT_TOKENS = 200  # the bulk chat a system chat preempts
+TIMEOUT_TOKENS, TIMEOUT_S = 300, 1.0  # a decode the request timeout cuts
+SLO_TOLERANCE = 0.05  # /debug/slo p50s against the client's, TTFT from dispatch
+# scripted outputs: the i-th piece is what the i-th greedy token of the
+# request's prompt decodes to (``ScriptTokenizer``)
+TOOL_PIECES = ("<|python_tag|>", '{"name": "get_weather", ', '"parameters": {"city": ',
+               '"Paris", "unit": "c"}}')
+THINK_PIECES = ("<think>", "weigh the ", "options", "</think>", "The answer is 4.")
+HARMONY_PIECES = ("<|channel|>analysis<|message|>", "thinking hard", "<|end|>",
+                  "<|start|>assistant<|channel|>final<|message|>", "It is sunny.")
+WEATHER_TOOL = {"type": "function", "function": {
+    "name": "get_weather", "description": "Get the weather",
+    "parameters": {"type": "object", "required": ["city"], "properties": {
+        "city": {"type": "string"}, "unit": {"type": "string", "enum": ["c", "f"]}}}}}
+
+
+class ScriptTokenizer:
+    """The gateway's tokenizer for phase 6's parser checks, a test harness
+    and not part of the port: ``MockTokenizer``'s encoding and chat
+    template, and a decode that maps each id of ``script`` to its piece and
+    every other id to nothing (``script`` is set before each request)."""
+
+    def __init__(self, base):
+        self.base = base
+        self.eos_token_id = base.eos_token_id
+        self.script: dict[int, str] = {}
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> list:
+        return self.base.encode(text, add_special_tokens)
+
+    def apply_chat_template(self, messages, add_generation_prompt: bool = True, **kw) -> str:
+        return self.base.apply_chat_template(messages, add_generation_prompt, **kw)
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return "".join(self.script.get(int(t), "") for t in ids)
+
+
+class Collector:
+    """An in-process OTLP/HTTP collector: the spans every export carried."""
+
+    def __init__(self):
+        from aiohttp import web
+
+        self.spans: list = []
+        self.app = web.Application()
+        self.app.router.add_post("/v1/traces", self.handle)
+
+    async def handle(self, request):
+        from aiohttp import web
+
+        for rs in (await request.json())["resourceSpans"]:
+            for ss in rs["scopeSpans"]:
+                self.spans.extend(ss["spans"])
+        return web.json_response({})
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gateways(engine, specs: dict) -> dict:
+    """name -> ``AppContext`` over ``engine``, each built from ``serve``
+    flags the way ``python -m smg_tpu_torch.cli serve`` builds its own."""
+    from smg_tpu_torch.cli import build_parser
+    from smg_tpu_torch.gateway.launch import build_context, gateway_options
+
+    out = {}
+    for name, flags in specs.items():
+        args = build_parser().parse_args(["serve", "--model-preset", SERVE_MODEL, *flags])
+        out[name] = build_context(engine, **gateway_options(args))
+    return out
+
+
+def _policy_flags(slo_path: str, collector_port: int) -> dict:
+    return {
+        "bare": [],
+        # every layer on: auth, a (generous) rate limit, priority admission,
+        # the request timeout, CORS, SLO specs and OTel export
+        "full": ["--api-key", f"{API_KEY}:smoke", "--priority-scheduler-enabled",
+                 "--priority-slots", "64", "--rate-limit-tokens-per-second", "1000",
+                 "--rate-limit-burst", "1000", "--request-timeout-secs", "600",
+                 "--cors-allowed-origins", "https://app.example", "--slo-spec", slo_path,
+                 "--otel-endpoint", f"http://127.0.0.1:{collector_port}"],
+        "burst": ["--rate-limit-tokens-per-second", "1e-6", "--rate-limit-burst", "2",
+                  "--trust-tenant-header"],
+        "prio": ["--priority-scheduler-enabled", "--priority-slots", "1"],
+        "timeout": ["--request-timeout-secs", str(TIMEOUT_S)],
+        "parse": ["--reasoning-parser", "qwen3"],
+        "harmony": ["--harmony", "on"],
+    }
+
+
+def phase_policy(cfg, params, dev, card: str, label: str, strict: bool, bare: dict) -> dict:
+    """The request-policy layer over HTTP, after phase 5 on the same
+    weights with phase 5's engine settings: one ``Engine`` (graphs, the
+    overlap pipeline, the loop thread, horizon 4) behind seven gateways
+    built from ``serve`` flags and served on free local ports from one
+    event loop, and an in-process OTLP collector on a loop of its own.
+    ``bare`` is phase 5's result on this dtype, printed beside this
+    phase's readings."""
+    import asyncio
+    import gc
+    import tempfile
+    import threading
+
+    import torch
+    from aiohttp import web
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+    from smg_tpu_torch.gateway.server import build_app
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    engine = Engine(EngineConfig(
+        model=cfg,
+        cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False, dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096,
+                                  max_prefill_tokens=512, decode_horizon=4),
+        model_id=SERVE_MODEL), params=params, device=dev, tokenizer=tok)
+    collector = Collector()
+    col_port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        slo_path = str(Path(tmp) / "slo.json")
+        # one spec every run passes, one no run can (a TTFT p95 of 1 us)
+        Path(slo_path).write_text(json.dumps([
+            {"name": "lenient", "ttft_p95_s": 60.0, "itl_p95_s": 10.0, "min_requests": 8,
+             "hysteresis": 1},
+            {"name": "strict", "ttft_p95_s": 1e-6, "min_requests": 8, "hysteresis": 1}]))
+        ctxs = _gateways(engine, _policy_flags(slo_path, col_port))
+    script_tok = ScriptTokenizer(tok)
+    for name in ("parse", "harmony"):
+        ctxs[name].tokenizers.register(SERVE_MODEL, script_tok, default=True)
+    ports = {name: _free_port() for name in ctxs}
+    # the gateways on one event loop, the collector on a loop of its own, as
+    # a collector would be
+    loops = {"gateways": {}, "collector": {}}
+
+    async def serve(held: dict, apps: list):
+        held["loop"], held["stop"] = asyncio.get_running_loop(), asyncio.Event()
+        runners = []
+        try:
+            for app, port in apps:
+                runner = web.AppRunner(app)
+                await runner.setup()
+                runners.append(runner)
+                await web.TCPSite(runner, "127.0.0.1", port).start()
+            held["up"] = True
+            await held["stop"].wait()
+        finally:
+            for runner in reversed(runners):
+                await runner.cleanup()
+
+    apps = {"collector": [(collector.app, col_port)],
+            "gateways": [(build_app(ctxs[n]), ports[n]) for n in ctxs]}
+    servers = [threading.Thread(target=lambda n=n: asyncio.run(serve(loops[n], apps[n])), name=n)
+               for n in loops]
+    for t in servers:
+        t.start()
+    out: dict = {}
+    try:
+        wait_for(lambda: all("up" in h for h in loops.values())
+                 or not all(t.is_alive() for t in servers), "gateways start", timeout=60)
+        if not all("up" in h for h in loops.values()):
+            raise AssertionError("the gateways did not start")
+        out = _policy_checks(engine, tok, script_tok, ctxs, ports, collector,
+                             loops["gateways"]["loop"], label, strict, card, bare)
+    finally:
+        for h in loops.values():
+            if "stop" in h:
+                h["loop"].call_soon_threadsafe(h["stop"].set)
+        for t in servers:
+            t.join(LOOP_WAIT_S)
+        engine.stop(drain=True, timeout=30)
+    if any(t.is_alive() for t in servers):
+        raise AssertionError("the gateways did not shut down")
+    # aiohttp keeps finished apps in a module-level cache, with their
+    # contexts: the workers go, so the engine's weights and KV can
+    for ctx in ctxs.values():
+        ctx.registry.remove(SERVE_WORKER)
+    del engine, ctxs, apps, servers, loops
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _client_slo(frames) -> tuple[float, float]:
+    """(TTFT, per-token ITL) of one stream as the client saw it: the first
+    frame's time, and the span from the first frame to the last over the
+    tokens after the first frame (its words; the first carries at least
+    one token)."""
+    body = [(t, f) for t, f in frames if f != "[DONE]" and f["choices"]]
+    first = len((body[0][1]["choices"][0]["delta"].get("content") or "").split()) or 1
+    total = sum(len((f["choices"][0]["delta"].get("content") or "").split()) for _t, f in body)
+    return body[0][0], (body[-1][0] - body[0][0]) / max(total - first, 1)
+
+
+def _policy_checks(engine, tok, script_tok, ctxs, ports, collector, loop, label: str,
+                   strict: bool, card: str, bare: dict) -> dict:
+    """Phase 6's requests and checks; raises after printing every failed
+    check."""
+    import asyncio
+    import threading
+
+    import torch
+
+    from smg_tpu_torch.gateway.harmony import render_harmony_prompt
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    L = engine.config.model.num_layers
+    jobs = _serve_jobs(17, tok)  # phase 5's prompts
+    auth = {"Authorization": f"Bearer {API_KEY}"}
+    failures = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [{label}] CHECK FAILED: {what}")
+
+    def flush_direct():
+        if not engine.flush_cache():
+            raise AssertionError("flush_cache refused on an idle engine")
+
+    def settled_audit() -> dict:
+        # a client can hold its whole response before the engine thread has
+        # dropped the request's output callback; a leak outlasts the wait
+        try:
+            wait_for(lambda: engine.audit()["clean"], "a clean audit", timeout=10)
+        except TimeoutError:
+            pass
+        return engine.audit()
+
+    def aborts() -> tuple[float, float]:
+        fin = engine.metrics.requests_finished
+        return (fin.labels(reason="abort")._value.get(),
+                fin.labels(reason="timeout")._value.get())
+
+    engine.generate(list(range(1000, 1100)), SamplingParams(temperature=0.0, max_new_tokens=8))
+    # ---- direct references on the same engine ----
+    ref = {}
+    flush_direct()
+    ref.update(_direct(engine, [("chat32", _chat_ids(tok, jobs["chat32"]), 32)]))
+    bulk_ids = jobs["comp1400"][:120]
+    flush_direct()
+    # twice: the preempted run leaves the prompt's pages in the prefix cache,
+    # so its rerun is compared with a run that finds them there too
+    for rid in ("bulk_first", "bulk"):
+        ref.update(_direct(engine, [(rid, _chat_ids(tok, bulk_ids), PREEMPT_TOKENS)]))
+    conc_ids = [_chat_ids(tok, p) for p in jobs["conc"]]
+    flush_direct()
+    together = _direct(engine, [(f"tog{i}", ids, 32) for i, ids in enumerate(conc_ids)])
+    # prompts whose first k greedy ids are pairwise distinct, one per script
+    # (random weights can repeat an id, and a repeated id would decode to
+    # its piece twice)
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    scripts = {}
+    for name, pieces in (("tool", TOOL_PIECES), ("think", THINK_PIECES),
+                         ("harmony", HARMONY_PIECES)):
+        for attempt in range(8):
+            words = _words(rng.integers(1000, 120000, 24).tolist())
+            msgs = [{"role": "user", "content": words}]
+            if name == "harmony":
+                prompt = tok.encode(render_harmony_prompt(msgs, reasoning_effort="medium"))
+            else:
+                prompt = tok.encode(tok.apply_chat_template(msgs, add_generation_prompt=True))
+            flush_direct()
+            ids = _direct(engine, [(f"{name}{attempt}", prompt, len(pieces))])[
+                f"{name}{attempt}"][0]
+            if len(set(ids)) == len(pieces):
+                scripts[name] = (words, dict(zip(ids, pieces)))
+                break
+        else:
+            raise AssertionError(f"no prompt with {len(pieces)} distinct greedy ids for {name}")
+
+    def flush_http(name: str = "full"):
+        st, body = _http(ports[name], "POST", "/flush_cache", headers=auth)
+        if st != 200 or body["flushed"].get(SERVE_WORKER) is not True:
+            raise AssertionError(f"/flush_cache: {st} {body}")
+
+    # ---- the HTTP path: counters zeroed just before, read just after ----
+    for k in engine.runner.stats:
+        engine.runner.stats[k] = 0
+    torch.cuda.synchronize()
+    dk.launches = 0
+    pk.launches = 0
+    t_http = time.perf_counter()
+    full, chat = ports["full"], "/v1/chat/completions"
+    # 1. auth: no key 401, an unknown key 403 (the reference's answers),
+    # the key 200 with phase 5's lone-chat tokens
+    st_none = _http(full, "POST", chat, _chat(jobs["chat32"], 32))[0]
+    st_wrong = _http(full, "POST", chat, _chat(jobs["chat32"], 32),
+                     {"Authorization": "Bearer sk-wrong"})[0]
+    expect(st_none == 401 and st_wrong == 403, f"auth: no key {st_none}, wrong key {st_wrong}")
+    flush_http()
+    st, body = _http(full, "POST", chat, _chat(jobs["chat32"], 32), auth)
+    agree = {"auth_chat": int(st == 200 and body["choices"][0]["message"]["content"]
+                              == tok.decode(ref["chat32"][0]))}
+    expect(st == 200, f"chat with the key: {st}")
+    if strict:
+        expect(agree["auth_chat"], "the authenticated chat differs from the direct engine")
+    # 2. the added TTFT of the lone chat: streamed through the bare and the
+    # full gateway in turns, the prefix cache flushed before each
+    lone = {"bare": [], "full": []}
+    for name in ("bare", "full", "full", "bare") * 4:
+        flush_http()
+        st, frames = _sse(ports[name], chat, _chat(jobs["chat32"], 32, stream=True),
+                          auth if name == "full" else None)
+        expect(st == 200 and frames[-1][1] == "[DONE]", f"lone stream via {name}: {st}")
+        lone[name].append(frames[0][0] * 1e3)
+    # 3. rate limit: burst 2, near-zero refill, three concurrent chats of
+    # one tenant: exactly one 429
+    res = _in_threads(lambda: _http(ports["burst"], "POST", chat, _chat(jobs["ok"][0], 8),
+                                    {"X-Tenant-Id": "burst"}), [()] * 3)
+    codes = sorted(r[0] for r in res)
+    inflight = dict(ctxs["burst"].rate_limiter._inflight)
+    expect(codes == [200, 200, 429] and not any(inflight.values()),
+           f"rate limit: {codes}, in flight after {inflight}")
+    # 4. preemption: a bulk chat holds the only slot when a system chat
+    # arrives; the bulk run is aborted in the engine, requeued and rerun
+    flush_http()
+    free0 = engine.scheduler.pool.free_count
+    a0 = aborts()
+    bulk_rid = f"bulk-{label}"
+    got = {}
+
+    def run_bulk():
+        got["bulk"] = _http(ports["prio"], "POST", chat, _chat(bulk_ids, PREEMPT_TOKENS),
+                            {"X-SMG-Priority": "bulk", "X-Request-Id": bulk_rid})
+        got["bulk_done"] = time.perf_counter()
+
+    bulk_thread = threading.Thread(target=run_bulk, name="bulk")
+    bulk_thread.start()
+    reqs = engine.scheduler.requests
+    wait_for(lambda: len(getattr(dict(reqs).get(bulk_rid), "output_ids", ())) >= 16,
+             "the bulk chat decoding", timeout=60)
+    st, frames = _sse(ports["prio"], chat, _chat(jobs["ok"][1], 8, stream=True),
+                      {"X-SMG-Priority": "system"})
+    sys_done = time.perf_counter()
+    preempt_ms = frames[0][0] * 1e3
+    bulk_thread.join(LOOP_WAIT_S)
+    st_b, body_b = got.get("bulk", (None, None))
+    d_abort = aborts()[0] - a0[0]
+    stats = ctxs["prio"].priority.stats["bulk"]
+    expect(st == 200 and frames[-1][1] == "[DONE]" and st_b == 200,
+           f"preemption: system {st}, bulk {st_b}")
+    expect(sys_done < got.get("bulk_done", 0.0), "the system chat did not finish first")
+    expect(d_abort == 1 and stats["preempted"] == 1,
+           f"preemption: {d_abort} engine aborts, scheduler stats {stats}")
+    bulk_text = body_b["choices"][0]["message"]["content"] if st_b == 200 else None
+    agree["preempted_bulk"] = int(bulk_text == tok.decode(ref["bulk"][0]))
+    if strict:
+        expect(agree["preempted_bulk"], "the preempted bulk chat differs from its lone run")
+    audit = settled_audit()
+    flush_http()
+    free1 = engine.scheduler.pool.free_count
+    expect(audit["clean"] and free1 == free0,
+           f"after preemption: audit {audit}, free pages {free1} != {free0}")
+    # 5. the request timeout: a 300-token decode cut at TIMEOUT_S, not
+    # streamed (408 before any byte) and streamed (the stream is cut)
+    a0 = aborts()
+    t0 = time.perf_counter()
+    st_t, _b = _http(ports["timeout"], "POST", chat, _chat(jobs["ok"][0], TIMEOUT_TOKENS))
+    cut_s = time.perf_counter() - t0
+    cut_frames, cut_err = _sse_cut(ports["timeout"], _chat(jobs["ok"][1], TIMEOUT_TOKENS,
+                                                           stream=True))
+    wait_for(lambda: not engine.has_work(), "the timed-out requests to end", timeout=60)
+    a1 = aborts()
+    ended = (a1[0] - a0[0], a1[1] - a0[1])
+    audit = settled_audit()
+    flush_http()
+    expect(st_t == 408 and TIMEOUT_S <= cut_s < TIMEOUT_S + 2.0,
+           f"timeout: status {st_t} after {cut_s:.2f} s")
+    # cut: some frames came, then the connection ended without [DONE]
+    expect(cut_frames and "[DONE]" not in cut_frames,
+           f"timed-out stream: {len(cut_frames)} frames, error {cut_err}")
+    # the cancel aborts the request in the engine; the engine's own copy of
+    # the budget may end it first (finish "timeout"): either, once each
+    expect(sum(ended) == 2, f"timeouts ended {ended} (aborts, deadlines) in the engine")
+    expect(audit["clean"] and engine.scheduler.pool.free_count == free0,
+           f"after the timeouts: audit {audit}, free {engine.scheduler.pool.free_count}")
+    # 6. tool call, reasoning and harmony through the engine
+    parse = {}
+    for name, port, extra in (("tool", ports["parse"], {"tools": [WEATHER_TOOL]}),
+                              ("think", ports["parse"], {}),
+                              ("harmony", ports["harmony"], {})):
+        words, script = scripts[name]
+        script_tok.script = script
+        body = {"model": SERVE_MODEL, "messages": [{"role": "user", "content": words}],
+                "max_tokens": len(script), "temperature": 0, "ignore_eos": True, **extra}
+        flush_http()
+        st, r = _http(port, "POST", chat, body)
+        flush_http()
+        st_s, frames = _sse(port, chat, {**body, "stream": True})
+        script_tok.script = {}
+        msg = r["choices"][0]["message"] if st == 200 else {}
+        deltas = [f["choices"][0] for _t, f in frames if f != "[DONE]" and f["choices"]]
+        s_content = "".join(d["delta"].get("content") or "" for d in deltas)
+        s_reason = "".join(d["delta"].get("reasoning_content") or "" for d in deltas)
+        s_finish = next((d["finish_reason"] for d in deltas if d.get("finish_reason")), None)
+        s_calls = [c for d in deltas for c in d["delta"].get("tool_calls") or []]
+        parse[name] = dict(status=(st, st_s), message=msg, stream_content=s_content,
+                           stream_reasoning=s_reason, stream_finish=s_finish)
+        if name == "tool":
+            calls = msg.get("tool_calls") or []
+            args = "".join(c["function"].get("arguments") or "" for c in s_calls)
+            names = [c["function"]["name"] for c in s_calls if c["function"].get("name")]
+            ok = (st == st_s == 200 and r["choices"][0]["finish_reason"] == "tool_calls"
+                  and len(calls) == 1 and calls[0]["function"]["name"] == "get_weather"
+                  and json.loads(calls[0]["function"]["arguments"])
+                  == {"city": "Paris", "unit": "c"}
+                  and s_finish == "tool_calls" and names == ["get_weather"]
+                  and args == calls[0]["function"]["arguments"])
+            expect(ok, f"tool call: {r} / streamed {s_calls} {s_finish}")
+        elif name == "think":
+            ok = (st == st_s == 200 and msg.get("reasoning_content") == "weigh the options"
+                  and msg.get("content") == "The answer is 4."
+                  and s_reason == "weigh the options" and s_content == "The answer is 4.")
+            expect(ok, f"reasoning: {msg} / streamed {s_reason!r} {s_content!r}")
+        else:
+            ok = (st == st_s == 200 and msg.get("reasoning_content") == "thinking hard"
+                  and msg.get("content") == "It is sunny."
+                  and s_reason == "thinking hard" and s_content == "It is sunny.")
+            expect(ok, f"harmony: {msg} / streamed {s_reason!r} {s_content!r}")
+    # 7. the eight concurrent streams through the bare and the full gateway
+    # in turns, sent from a client process of their own (threads here would
+    # wait for this process's interpreter lock at every send and read); the
+    # full one's SLO records against the client's frames
+    conc = {"bare": [], "full": []}
+    sent_ns = {}
+    for turn, name in enumerate(("bare", "full", "full", "bare")):
+        flush_http()
+        hdrs = [dict(auth, **{"X-Request-Id": f"conc-{label}-{turn}-{i}"}) if name == "full"
+                else None for i in range(len(jobs["conc"]))]
+        streams = _sse_from_a_client_process(
+            ports[name], [_chat(p, 32, stream=True) for p in jobs["conc"]], hdrs)
+        per_token, client = [], {}
+        for i, (sent, st, frames) in enumerate(streams):
+            sent_ns[f"conc-{label}-{turn}-{i}"] = sent
+            text, finish, _u = _sse_text(frames)
+            expect(st == 200 and frames[-1][1] == "[DONE]" and finish == "length",
+                   f"{name} stream {i}: {st} {finish}")
+            body = [(t, f) for t, f in frames if f != "[DONE]" and f["choices"]]
+            for (a, _fa), (b, fb) in zip(body, body[1:]):
+                n = len((fb["choices"][0]["delta"].get("content") or "").split()) or 1
+                per_token.append((b - a) * 1e3 / n)
+            client[f"conc-{label}-{turn}-{i}"] = _client_slo(frames)
+        conc[name].append(dict(token_gap_ms=statistics.median(per_token), client=client))
+    # the front door of each of the full gateway's streams: the request
+    # span's start against the client's send (wall clocks of one host), and
+    # dispatch (the prefill span's start) against the request span
+    tracer = ctxs["full"].tracer
+    asyncio.run_coroutine_threadsafe(tracer.flush(), loop).result(60)
+    by_rid: dict = {}
+    for sp in collector.spans:
+        attrs = {a["key"]: next(iter(a["value"].values())) for a in sp["attributes"]}
+        rid = attrs.get("request.id") or attrs.get("rid")
+        if rid in sent_ns:
+            by_rid.setdefault(rid, {})[sp["name"]] = int(sp["startTimeUnixNano"])
+    front = {r: ((d[f"POST {chat}"] - sent_ns[r]) / 1e6,
+                 (d["engine.prefill"] - d[f"POST {chat}"]) / 1e6)
+             for r, d in by_rid.items() if f"POST {chat}" in d and "engine.prefill" in d}
+    front_ms = ({"send_to_request_span": statistics.median(a for a, _b in front.values()),
+                 "request_span_to_dispatch": statistics.median(b for _a, b in front.values()),
+                 "max_send_to_dispatch": max(a + b for a, b in front.values())}
+                if front else {})
+    st, slo = _http(full, "GET", "/debug/slo?recent=256", headers=auth)
+    records = {r["rid"]: r for r in slo["recent"]} if st == 200 else {}
+
+    def p50s(run):
+        # the SLO's TTFT runs from the first dispatch, as the reference's
+        # does; the client's from its send.  The client's TTFT from dispatch
+        # takes each request's own front door off its first frame's time
+        rids = sorted(run["client"])
+        srv = [records.get(r) for r in rids]
+        if any(r is None for r in srv) or any(r not in front for r in rids):
+            return None
+        return dict(client_ttft_ms=_pct([run["client"][r][0] for r in rids], 50) * 1e3,
+                    client_ttft_from_dispatch_ms=_pct(
+                        [run["client"][r][0] - sum(front[r]) / 1e3 for r in rids], 50) * 1e3,
+                    slo_ttft_ms=_pct([r["ttft_s"] for r in srv], 50) * 1e3,
+                    client_itl_ms=_pct([run["client"][r][1] for r in rids], 50) * 1e3,
+                    slo_itl_ms=_pct([r["itl_mean_s"] for r in srv], 50) * 1e3)
+
+    slo_check = [p50s(run) for run in conc["full"]]
+    for c in slo_check:
+        expect(c is not None and all(
+            abs(c[f"slo_{m}_ms"] - c[f"client_{k}_ms"]) <= SLO_TOLERANCE * c[f"client_{k}_ms"]
+            for m, k in (("ttft", "ttft_from_dispatch"), ("itl", "itl"))),
+            f"/debug/slo p50s against the client's: {c}")
+    st, verdicts = _http(full, "GET", "/debug/slo/verdicts", headers=auth)
+    v = {x["slo"]: x["verdict"] for x in verdicts.get("verdicts", [])} if st == 200 else {}
+    measured_p50 = min((c["slo_ttft_ms"] for c in slo_check if c), default=0.0) / 1e3
+    expect(v == {"lenient": "pass", "strict": "fail"} and measured_p50 > 1e-6,
+           f"SLO verdicts {v}")
+    # 8. one chat with a traceparent: the root span and its engine.* stage
+    # spans reach the collector, in that trace, under the right parents
+    upstream_trace, upstream_span = "ab" * 16, "cd" * 8
+    st, _r = _http(full, "POST", chat, _chat(jobs["ok"][0], 8),
+                   dict(auth, traceparent=f"00-{upstream_trace}-{upstream_span}-01"))
+    stages = {"engine.queue", "engine.tokenize", "engine.prefill", "engine.decode",
+              "engine.detokenize"}
+
+    def traced():
+        return [s for s in collector.spans if s["traceId"] == upstream_trace]
+
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and len(traced()) < 1 + len(stages):
+        asyncio.run_coroutine_threadsafe(tracer.flush(), loop).result(30)
+        time.sleep(0.05)
+    spans = traced()
+    roots = [s for s in spans if s["name"] == f"POST {chat}"]
+    root = roots[0] if len(roots) == 1 else {}
+    children = {s["name"]: s for s in spans if s is not root}
+    expect(st == 200 and root.get("parentSpanId") == upstream_span
+           and set(children) == stages
+           and all(c.get("parentSpanId") == root.get("spanId") for c in children.values()),
+           f"span tree: {[(s['name'], s.get('parentSpanId')) for s in spans]}")
+    http_s = time.perf_counter() - t_http
+    # 9. launches through the HTTP path: exact
+    torch.cuda.synchronize()
+    launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
+    stats = dict(engine.runner.stats)
+    want = {"decode_attention": L * stats["decode_columns"],
+            "prefill_attention": L * stats["prefill_calls"]}
+    expect(launches == want and min(launches.values()) > 0,
+           f"launches {launches} != {want}")
+    direct_per_token = statistics.median(
+        g * 1e3 / max(n, 1) for r in together.values() for g, n in r[4])
+    full_gap = statistics.median(c["token_gap_ms"] for c in conc["full"])
+    bare_gap = statistics.median(c["token_gap_ms"] for c in conc["bare"])
+    out = dict(
+        launches=launches, schedule=stats, http_s=http_s, agreement=agree,
+        lone_ttft_ms={k: statistics.median(v) for k, v in lone.items()},
+        lone_ttft_samples_ms=lone,
+        added_ttft_ms=statistics.median(lone["full"]) - statistics.median(lone["bare"]),
+        preemption_latency_ms=preempt_ms, timeout_cut_s=cut_s, timeout_ended=ended,
+        token_gap_ms={"full": full_gap, "bare": bare_gap, "direct": direct_per_token,
+                      "runs": {k: [c["token_gap_ms"] for c in v] for k, v in conc.items()}},
+        gateway_ms_per_token={"full": full_gap - direct_per_token,
+                              "bare": bare_gap - direct_per_token,
+                              "phase5_bare": bare.get("gateway_ms_per_token")},
+        slo=slo_check, front_door_ms=front_ms, verdicts=v,
+        parse={k: d["status"] for k, d in parse.items()},
+        spans=len(spans))
+    print(f"  [{card}] {label} policy layer: gateway cost per token with every layer on "
+          f"{out['gateway_ms_per_token']['full']:.3f} ms, bare "
+          f"{out['gateway_ms_per_token']['bare']:.3f} ms (phase 5 "
+          f"{bare.get('gateway_ms_per_token', float('nan')):.3f}); per-token gap full "
+          f"{full_gap:.3f} / bare {bare_gap:.3f} / direct {direct_per_token:.3f} ms")
+    print(f"  [{card}] {label} lone chat TTFT full {out['lone_ttft_ms']['full']:.2f} ms, bare "
+          f"{out['lone_ttft_ms']['bare']:.2f} ms (added {out['added_ttft_ms']:.2f} ms); "
+          f"preemption latency {preempt_ms:.2f} ms; timeout 408 after {cut_s:.3f} s, engine "
+          f"endings (aborts, deadlines) {ended}")
+    print(f"  [{card}] {label} /debug/slo vs client p50s: {slo_check}; front door of the "
+          f"eight streams (median ms) {front_ms}; verdicts {v}; "
+          f"agreement {agree}; {len(spans)} spans; launches {launches} (expected {want})")
+    if failures:
+        raise AssertionError(f"[{label}] policy checks failed: {failures}")
+    return out
+
+
+def _sse_burst(port: int, bodies: list, headers: list) -> list:
+    """The streamed chats ``bodies`` sent at once, one thread each, as a
+    client with a connection pool sends them: every connection is open and
+    every request built before a barrier, and each thread's clock starts
+    at its send.  [(wall-clock ns at the send, status, [(seconds since the
+    send, payload)])] in order."""
+    import http.client
+    import threading
+
+    conns = [http.client.HTTPConnection("127.0.0.1", port, timeout=LOOP_WAIT_S)
+             for _ in bodies]
+    for c in conns:
+        c.connect()
+    payloads = [json.dumps(b).encode() for b in bodies]
+    ready = threading.Barrier(len(bodies))
+
+    def one(conn, payload, hdr):
+        hdrs = {"Content-Type": "application/json", **(hdr or {})}
+        ready.wait()
+        sent, t0 = time.time_ns(), time.perf_counter()
+        conn.request("POST", "/v1/chat/completions", body=payload, headers=hdrs)
+        resp = conn.getresponse()
+        frames = []
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                data = line[len("data: "):]
+                frames.append((time.perf_counter() - t0,
+                               data if data == "[DONE]" else json.loads(data)))
+        conn.close()
+        return sent, resp.status, frames
+
+    return _in_threads(one, list(zip(conns, payloads, headers)))
+
+
+def _sse_from_a_client_process(port: int, bodies: list, headers: list) -> list:
+    """``_sse_burst`` run in a new Python process, so the client's threads
+    never wait for this process's interpreter lock."""
+    src = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke as c; "
+           "a = json.loads(sys.argv[2]); "
+           "print(json.dumps(c._sse_burst(a['port'], a['bodies'], a['headers'])))")
+    args = json.dumps({"port": port, "bodies": bodies, "headers": headers})
+    done = subprocess.run([sys.executable, "-c", src, str(REPO), args], capture_output=True,
+                          text=True, timeout=LOOP_WAIT_S)
+    if done.returncode != 0:
+        raise AssertionError(f"the client process failed: {done.stderr[-2000:]}")
+    return [(sent, st, [(t, f) for t, f in frames])
+            for sent, st, frames in json.loads(done.stdout)]
+
+
+def _sse_cut(port: int, body: dict) -> tuple[list, str | None]:
+    """A streamed request the server may cut: (payloads read, the error that
+    ended the read, or None after a clean end)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions", method="POST",
+        data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    frames = []
+    try:
+        with urllib.request.urlopen(req, timeout=LOOP_WAIT_S) as resp:
+            for line in resp:
+                line = line.decode().strip()
+                if line.startswith("data: "):
+                    frames.append(line[len("data: "):])
+    except Exception as e:  # the cut: IncompleteRead or a reset
+        return frames, f"{type(e).__name__}: {e}"
+    return frames, None
+
+
 def phase_engine(dev, card: str) -> dict:
     import dataclasses
 
@@ -1734,6 +2403,9 @@ def phase_engine(dev, card: str) -> dict:
     # phase 5 on the same weights: the serving entry over HTTP
     print("phase 5: serving entry over HTTP, bf16")
     out["serve_bf16"] = phase_serve(cfg, params, dev, card, "bf16", strict=False)
+    print("phase 6: the request-policy layer over HTTP, bf16")
+    out["policy_bf16"] = phase_policy(cfg, params, dev, card, "bf16", strict=False,
+                                      bare=out["serve_bf16"])
     # the same requests on the same weights widened to float32, with float32
     # KV: the three paths differ only in summation order, so the logits
     # agree tightly and the greedy streams match
@@ -1766,6 +2438,9 @@ def phase_engine(dev, card: str) -> dict:
     torch.cuda.empty_cache()
     print("phase 5: serving entry over HTTP, float32 (widened weights)")
     out["serve_f32"] = phase_serve(cfg32, params, dev, card, "f32", strict=True)
+    print("phase 6: the request-policy layer over HTTP, float32 (widened weights)")
+    out["policy_f32"] = phase_policy(cfg32, params, dev, card, "f32", strict=True,
+                                     bare=out["serve_f32"])
     del params
     torch.cuda.empty_cache()
     out["preemption"] = phase_preempt(dev)

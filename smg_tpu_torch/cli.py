@@ -2,9 +2,11 @@
 
 The port's copy of the ``serve`` subcommand of ``smg_tpu/cli.py``: one
 PyTorch engine in process behind the gateway.  Engines run on the card;
-``--device cpu`` is the only way onto the CPU.  ``launch``, ``worker``,
-gRPC, auth, rate limiting, priority, mesh, discovery, storage, MCP, plugins
-and tracing are not ported yet.
+``--device cpu`` is the only way onto the CPU.  The request-policy flags
+(auth, rate limits, priority admission, the request timeout, CORS, parsers,
+harmony, SLO specs and OTel export) carry the reference's names and
+defaults.  ``launch``, ``worker``, gRPC, mesh, discovery, storage, MCP and
+plugins are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,14 +26,64 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--policy", default="cache_aware",
                    help="routing policy (cache_aware, round_robin, random, "
                         "least_load, power_of_two, manual, bucket, passthrough)")
+    g.add_argument("--max-concurrent-requests", type=int, default=256)
+    g.add_argument("--otel-endpoint", default=None, dest="otel_endpoint",
+                   help="OTLP/HTTP collector base URL (e.g. "
+                        "http://127.0.0.1:4318); enables trace export")
+    g.add_argument("--otel-service-name", default="smg-tpu",
+                   dest="otel_service_name")
     g.add_argument("--log-level", default="INFO")
     g.add_argument("--log-json", action="store_true",
                    help="structured JSON log lines")
+    g.add_argument("--request-timeout-secs", type=float, default=1800.0,
+                   dest="request_timeout_secs")
+    g.add_argument("--cors-allowed-origins", action="append", default=[],
+                   dest="cors_allowed_origins",
+                   help="origin allowed for CORS (repeatable; unset = off)")
+    g.add_argument("--harmony", default=None, choices=["on", "off", "auto"],
+                   help="harmony (gpt-oss) pipeline: auto-detect by model "
+                        "name (default), or force on/off")
+    g.add_argument("--reasoning-parser", default=None, dest="reasoning_parser",
+                   help="force a reasoning parser family (default: by model)")
+    g.add_argument("--tool-call-parser", default=None, dest="tool_call_parser",
+                   help="force a tool-call parser dialect (default: by model)")
+    g.add_argument("--slo-spec", default=None, dest="slo_spec",
+                   help="JSON file of declarative SLO specs (a list of "
+                        "objects or {'slos': [...]}; fields: name, "
+                        "ttft_p95_s, itl_p95_s, e2e_p95_s, "
+                        "goodput_ratio_floor, deadline_miss_budget, "
+                        "fast/slow_window_s, fast/slow_burn, min_requests, "
+                        "hysteresis).  Verdicts at GET /debug/slo/verdicts")
     g.add_argument("--engine-drain-timeout-secs", type=float, default=10.0,
                    dest="engine_drain_timeout_secs",
                    help="SIGTERM drain budget for in-proc engines: queued "
                         "requests get terminal aborts, running lanes "
                         "finish within this bound before exit")
+
+    sched = serve.add_argument_group("Scheduling / limits")
+    sched.add_argument("--priority-scheduler-enabled", action="store_true")
+    sched.add_argument("--priority-slots", type=int, default=256,
+                       help="execution slots the priority scheduler manages")
+    sched.add_argument("--rate-limit-tokens-per-second", type=float, default=0.0,
+                       help="per-tenant sustained request rate (0 = off)")
+    sched.add_argument("--rate-limit-burst", type=float, default=256.0,
+                       help="per-tenant burst capacity")
+
+    auth = serve.add_argument_group("Auth")
+    auth.add_argument("--api-key", action="append", default=[], dest="api_keys",
+                      help="accepted API key, optionally KEY:TENANT[:ROLE] "
+                           "(repeatable; any key enables auth)")
+    auth.add_argument("--jwt-secret", default=None, dest="jwt_secret",
+                      help="HS256 bearer verification secret")
+    auth.add_argument("--jwt-jwks-uri", default=None, dest="jwt_jwks_uri",
+                      help="JWKS endpoint for RS256/OIDC bearer verification")
+    auth.add_argument("--jwt-issuer", default=None, dest="jwt_issuer")
+    auth.add_argument("--jwt-audience", default=None, dest="jwt_audience")
+    auth.add_argument("--trust-tenant-header", action="store_true",
+                      help="accept X-Tenant-Id (or --tenant-header-name) "
+                           "from clients without auth")
+    auth.add_argument("--tenant-header-name", default="X-Tenant-Id",
+                      dest="tenant_header_name")
 
     e = serve.add_argument_group("Engine")
     e.add_argument("--model-preset", required=True,

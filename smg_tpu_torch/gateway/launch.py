@@ -63,14 +63,94 @@ def build_engine_from_args(args):
     return Engine(cfg, tokenizer=tokenizer, device=args.device)
 
 
-def build_context(engine, policy: str = "cache_aware", drain_timeout_secs: float = 10.0):
+def gateway_options(args) -> dict:
+    """``AppContext`` keyword arguments from the parsed ``serve`` flags:
+    the router's parser, harmony and timeout settings, auth, rate limits,
+    priority admission, CORS, the tenant header, SLO specs and OTel export
+    (the reference's flag-to-config mapping)."""
+    from smg_tpu_torch.gateway.router import RouterConfig
+
+    router_config = RouterConfig(
+        reasoning_parser=args.reasoning_parser,
+        tool_parser=args.tool_call_parser,
+        harmony={None: None, "auto": None, "on": True, "off": False}[args.harmony],
+        # the remaining request budget rides every worker dispatch, so the
+        # engine expires abandoned work instead of decoding into the void
+        request_timeout_secs=args.request_timeout_secs,
+    )
+    auth_config = None
+    if args.api_keys or args.jwt_secret or args.jwt_jwks_uri:
+        from smg_tpu_torch.gateway.auth import AuthConfig, JwksVerifier, Principal
+
+        keys = {}
+        for spec in args.api_keys:
+            key, _, rest = spec.partition(":")
+            tenant, _, role = rest.partition(":")
+            keys[key] = Principal(id=f"key-{key[:6]}", tenant=tenant or "default",
+                                  roles=(role,) if role else ("user",))
+        jwks = None
+        if args.jwt_jwks_uri:
+            def _fetch_jwks(uri=args.jwt_jwks_uri):
+                import json
+                import urllib.request
+
+                with urllib.request.urlopen(uri, timeout=10) as r:
+                    return json.loads(r.read())
+
+            jwks = JwksVerifier(_fetch_jwks, issuer=args.jwt_issuer,
+                                audience=args.jwt_audience)
+        auth_config = AuthConfig(enabled=True, api_keys=keys,
+                                 jwt_secret=args.jwt_secret, jwks=jwks)
+    rate_limit_config = None
+    if args.rate_limit_tokens_per_second:
+        from smg_tpu_torch.gateway.rate_limit import RateLimitConfig
+
+        rate_limit_config = RateLimitConfig(
+            capacity=args.rate_limit_burst,
+            refill_per_sec=args.rate_limit_tokens_per_second,
+            max_concurrent=args.max_concurrent_requests,
+        )
+    priority_config = None
+    if args.priority_scheduler_enabled:
+        from smg_tpu_torch.gateway.priority import PriorityConfig
+
+        priority_config = PriorityConfig(slots=args.priority_slots)
+    slo_specs = None
+    if args.slo_spec:
+        from smg_tpu_torch.gateway.slo_enforcement import load_slo_specs
+
+        # a malformed spec fails startup loudly, not the first evaluation
+        slo_specs = load_slo_specs(args.slo_spec)
+        logger.info("SLO enforcement on: %s", [s.name for s in slo_specs])
+    return dict(
+        policy=args.policy,
+        router_config=router_config,
+        max_concurrent_requests=args.max_concurrent_requests,
+        auth_config=auth_config,
+        rate_limit_config=rate_limit_config,
+        priority_config=priority_config,
+        otel_endpoint=args.otel_endpoint,
+        otel_service_name=args.otel_service_name,
+        tenant_header=args.tenant_header_name,
+        # without auth the tenant header is all there is; with auth it must
+        # be trusted explicitly
+        trust_tenant_header=args.trust_tenant_header or auth_config is None,
+        request_timeout_secs=args.request_timeout_secs,
+        cors_allowed_origins=list(args.cors_allowed_origins),
+        slo_specs=slo_specs,
+    )
+
+
+def build_context(engine, policy: str = "cache_aware", drain_timeout_secs: float = 10.0,
+                  **options):
     """The gateway's ``AppContext`` with ``engine`` registered as one
-    in-process worker, its tokenizer as the default."""
+    in-process worker, its tokenizer as the default; ``options`` are
+    further ``AppContext`` arguments (``gateway_options``)."""
     from smg_tpu_torch.gateway.server import AppContext
     from smg_tpu_torch.gateway.worker_client import InProcWorkerClient
     from smg_tpu_torch.gateway.workers import Worker
 
-    ctx = AppContext(policy=policy)
+    ctx = AppContext(policy=policy, **options)
     ctx.tokenizers.register(engine.config.model_id, engine.tokenizer, default=True)
     client = InProcWorkerClient(engine)
     client.drain_timeout_secs = drain_timeout_secs
@@ -107,9 +187,10 @@ async def serve_context(ctx, host: str, port: int, stop: asyncio.Event) -> None:
 
 
 async def _run_serve(args) -> int:
+    options = gateway_options(args)
     engine = build_engine_from_args(args)
-    ctx = build_context(engine, policy=args.policy,
-                        drain_timeout_secs=args.engine_drain_timeout_secs)
+    ctx = build_context(engine, drain_timeout_secs=args.engine_drain_timeout_secs,
+                        **options)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     try:

@@ -4,14 +4,16 @@
 with retries, backoff and failover on a full queue or a failed worker) →
 response processing (incremental detokenize → stop scan → OpenAI shapes).
 Stop *strings* are enforced here — workers only see token ids — by aborting
-the worker stream when a stop match lands.
+the worker stream when a stop match lands.  Chat output goes through the
+reasoning and tool-call parsers (``smg_tpu_torch/parsers``) or, for harmony
+(gpt-oss) models, the harmony channel demux; tools render into the chat
+template.  Each dispatch feeds the SLO tracker (TTFT, per-token ITL,
+deadline, goodput) and opens the ``engine.*`` stage spans under the
+request's span; both read host clocks at chunk arrivals only.
 
-Not ported yet: reasoning and tool parsers (the model names this port
-serves select the reference's passthrough reasoning parser, so text is
-unchanged; a request with ``tools`` is refused), harmony, PD
-disaggregation, multimodal input, embeddings, rerank, classify, the
-Anthropic messages API, the request-timeout budget, SLO accounting and
-tracing spans.
+Not ported yet: PD disaggregation, multimodal input, DP-rank pinning, the
+routing decision ring (``route_observability``), embeddings, rerank,
+classify, the Anthropic messages API and the responses API.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from dataclasses import dataclass, field
 
 from smg_tpu_torch.engine.detokenize import IncrementalDecoder, StopStringChecker
 from smg_tpu_torch.gateway.observability import current_route
+from smg_tpu_torch.gateway.tracing import current_span, end_stage, stage, start_stage
 from smg_tpu_torch.gateway.worker_client import (
     WorkerGenerateRequest,
     WorkerQueueFullError,
@@ -41,6 +44,8 @@ from smg_tpu_torch.protocols.openai import (
     CompletionChoice,
     CompletionRequest,
     CompletionResponse,
+    FunctionCall,
+    ToolCall,
     UsageInfo,
 )
 from smg_tpu_torch.protocols.sampling import SamplingParams
@@ -64,6 +69,17 @@ class RouterConfig:
     max_retries: int = 3
     retry_backoff_base: float = 0.1
     retry_backoff_max: float = 2.0
+    # parser selection: None = auto by model name; "passthrough" disables
+    reasoning_parser: str | None = None
+    tool_parser: str | None = None
+    # harmony (gpt-oss) pipeline: None = auto-detect by model name; True/False
+    # force
+    harmony: bool | None = None
+    # gateway --request-timeout-secs: the REMAINING budget rides each worker
+    # dispatch (WorkerGenerateRequest.timeout_secs -> engine deadline), so a
+    # request the HTTP layer would abandon also stops consuming engine slots
+    # and pages, and a retry carries only what is left, not a fresh budget
+    request_timeout_secs: float | None = None
 
 
 @dataclass
@@ -148,106 +164,197 @@ class Router:
             if tokenizer is not None
             else None
         )
-        # one first-dispatch clock for TTFT, never reset on failover: a
-        # queue-full retry or a backoff sleep shows up in the TTFT
+        # one first-dispatch clock for TTFT and the SLO record, never reset
+        # on failover: a queue-full retry or a backoff sleep shows up in the
+        # TTFT
         t_dispatch = time.perf_counter()
+        srec = None
+        if self.metrics is not None:
+            span = current_span.get()
+            srec = self.metrics.slo.begin(
+                rid, route=current_route.get(),
+                deadline_secs=self.config.request_timeout_secs,
+                trace_id=span.trace_id if span is not None else None,
+                t_start=t_dispatch,
+            )
         attempts = 0
         exclude: set[str] = set()
         saw_queue_full = False
-        while True:
-            try:
-                worker, _decision = self._select_with_decision(ctx, exclude=exclude)
-            except RouteError:
-                if saw_queue_full:
-                    # every candidate rejected with backpressure: the honest
-                    # front-door answer is 429 retry-later, not a 5xx
-                    raise RouteError(
-                        429, "all workers at capacity; retry later", "rate_limit_error",
-                    ) from None
-                raise
-            guard = worker.acquire()
-            got_first_chunk = False
-            finished_cleanly = False
-            last_output_tokens = 0
-            try:
-                wreq = WorkerGenerateRequest(rid=rid, input_ids=input_ids,
-                                             sampling=worker_sampling)
-                async for chunk in worker.client.generate(wreq):
-                    if not got_first_chunk and self.metrics is not None:
-                        self.metrics.ttft.labels(route=current_route.get()).observe(
-                            time.perf_counter() - t_dispatch
-                        )
-                        self.metrics.prompt_tokens.inc(chunk.prompt_tokens)
-                        if chunk.cached_tokens:
-                            self.metrics.cached_tokens.inc(chunk.cached_tokens)
-                    if self.metrics is not None and chunk.output_tokens > last_output_tokens:
-                        self.metrics.generated_tokens.inc(
-                            chunk.output_tokens - last_output_tokens
-                        )
-                    got_first_chunk = True
-                    last_output_tokens = chunk.output_tokens
-                    ev = self._chunk_to_event(chunk, detok, stop_checker)
-                    if ev is not None:
-                        yield ev
-                        if ev.finished and not chunk.finished:
-                            # gateway-side stop: cancel the worker stream
-                            await worker.client.abort(rid)
+        # remaining-budget deadline for --request-timeout-secs: each
+        # (re)dispatch hands the engine only what is left
+        budget_deadline = (
+            time.monotonic() + self.config.request_timeout_secs
+            if self.config.request_timeout_secs
+            else None
+        )
+        try:
+            while True:
+                try:
+                    worker, _decision = self._select_with_decision(ctx, exclude=exclude)
+                except RouteError:
+                    if srec is not None:
+                        srec.fail("rate_limited" if saw_queue_full else "error")
+                    if saw_queue_full:
+                        # every candidate rejected with backpressure: the
+                        # honest front-door answer is 429 retry-later, not a
+                        # 5xx
+                        raise RouteError(
+                            429, "all workers at capacity; retry later", "rate_limit_error",
+                        ) from None
+                    raise
+                guard = worker.acquire()
+                got_first_chunk = False
+                finished_cleanly = False
+                # engine-stage child spans under the request's span: prefill =
+                # dispatch -> first chunk, decode = first chunk -> finish;
+                # None (no cost) without a configured tracer
+                prefill_span = start_stage(
+                    "engine.prefill", worker_id=worker.worker_id, rid=rid,
+                    prompt_tokens=len(input_ids),
+                )
+                decode_span = None
+                detok_busy_ns = 0
+                last_output_tokens = 0
+
+                def _close_spans(error: bool) -> None:
+                    nonlocal prefill_span, decode_span
+                    end_stage(prefill_span, error=error)
+                    end_stage(decode_span, error=error, output_tokens=last_output_tokens)
+                    if not error and decode_span is not None and detok_busy_ns:
+                        # detokenize work is smeared across chunks: report its
+                        # cumulative cost as one trailing stage span
+                        dspan = start_stage("engine.detokenize", rid=rid)
+                        if dspan is not None:
+                            dspan.start_ns = time.time_ns() - detok_busy_ns
+                            end_stage(dspan, busy_ns=detok_busy_ns)
+                    prefill_span = decode_span = None
+
+                try:
+                    wreq = WorkerGenerateRequest(
+                        rid=rid, input_ids=input_ids, sampling=worker_sampling,
+                        timeout_secs=(max(budget_deadline - time.monotonic(), 0.0)
+                                      if budget_deadline is not None else None),
+                    )
+                    async for chunk in worker.client.generate(wreq):
+                        if not got_first_chunk and prefill_span is not None:
+                            end_stage(prefill_span, cached_tokens=chunk.cached_tokens)
+                            prefill_span = None
+                            decode_span = start_stage(
+                                "engine.decode", worker_id=worker.worker_id, rid=rid,
+                            )
+                        if not got_first_chunk and self.metrics is not None:
+                            self.metrics.ttft.labels(route=current_route.get()).observe(
+                                time.perf_counter() - t_dispatch
+                            )
+                            self.metrics.prompt_tokens.inc(chunk.prompt_tokens)
+                            if chunk.cached_tokens:
+                                self.metrics.cached_tokens.inc(chunk.cached_tokens)
+                            if srec is not None:
+                                srec.first_token(chunk.prompt_tokens, chunk.cached_tokens)
+                        if self.metrics is not None and chunk.output_tokens > last_output_tokens:
+                            self.metrics.generated_tokens.inc(
+                                chunk.output_tokens - last_output_tokens
+                            )
+                            if srec is not None:
+                                srec.tokens(chunk.output_tokens - last_output_tokens)
+                        got_first_chunk = True
+                        last_output_tokens = chunk.output_tokens
+                        if decode_span is not None:
+                            dt0 = time.perf_counter_ns()
+                            ev = self._chunk_to_event(chunk, detok, stop_checker)
+                            detok_busy_ns += time.perf_counter_ns() - dt0
+                        else:
+                            ev = self._chunk_to_event(chunk, detok, stop_checker)
+                        if ev is not None:
+                            if srec is not None and ev.finished:
+                                # terminal SLO record BEFORE the yield: a
+                                # consumer that stops iterating at the final
+                                # event closes this generator at the yield
+                                srec.finish(ev.finish_reason)
+                            yield ev
+                            if ev.finished and not chunk.finished:
+                                # gateway-side stop: cancel the worker stream
+                                await worker.client.abort(rid)
+                                finished_cleanly = True
+                                guard.release(success=True)
+                                return
+                        if chunk.finished:
+                            if srec is not None:
+                                srec.finish(chunk.finish_reason)  # no-op if done
                             finished_cleanly = True
                             guard.release(success=True)
                             return
-                    if chunk.finished:
-                        finished_cleanly = True
-                        guard.release(success=True)
-                        return
-                # stream ended without a finish marker
-                raise RuntimeError("worker stream ended unexpectedly")
-            except RouteError:
-                guard.release(success=False)
-                raise
-            except (GeneratorExit, asyncio.CancelledError):
-                # client disconnected / stream task cancelled: not a worker
-                # failure — release the load guard and stop the generation
-                guard.release(success=True)
-                try:
-                    await asyncio.shield(worker.client.abort(rid))
-                except Exception:
-                    pass
-                raise
-            except WorkerQueueFullError:
-                # admission backpressure: retry another worker WITHOUT
-                # penalizing this one's breaker (a full queue is load, not
-                # fault)
-                guard.release(success=None)
-                saw_queue_full = True
-                attempts += 1
-                exclude.add(worker.worker_id)
-                if attempts > max(self.config.max_retries, 1):
-                    raise RouteError(
-                        429, "all workers at capacity; retry later", "rate_limit_error",
+                    # stream ended without a finish marker
+                    raise RuntimeError("worker stream ended unexpectedly")
+                except RouteError:
+                    guard.release(success=False)
+                    if srec is not None:
+                        srec.fail("error")
+                    raise
+                except (GeneratorExit, asyncio.CancelledError):
+                    # client disconnected, request timed out or preempted: not
+                    # a worker failure — release the load guard and stop the
+                    # generation in the engine
+                    guard.release(success=True)
+                    if srec is not None:
+                        srec.abandon("abort")
+                    try:
+                        await asyncio.shield(worker.client.abort(rid))
+                    except Exception:
+                        pass
+                    raise
+                except WorkerQueueFullError:
+                    # admission backpressure: retry another worker WITHOUT
+                    # penalizing this one's breaker (a full queue is load, not
+                    # fault)
+                    guard.release(success=None)
+                    saw_queue_full = True
+                    attempts += 1
+                    exclude.add(worker.worker_id)
+                    if attempts > max(self.config.max_retries, 1):
+                        if srec is not None:
+                            srec.fail("rate_limited")
+                        raise RouteError(
+                            429, "all workers at capacity; retry later", "rate_limit_error",
+                        )
+                    if self.metrics is not None:
+                        self.metrics.retries_total.inc()
+                    logger.warning("worker %s rejected %s with queue-full; trying another",
+                                   worker.worker_id, rid)
+                    _close_spans(error=True)
+                except Exception as e:
+                    guard.release(success=False)
+                    attempts += 1
+                    exclude.add(worker.worker_id)
+                    if got_first_chunk or attempts >= self.config.max_retries:
+                        logger.exception("request %s failed on %s", rid, worker.worker_id)
+                        if srec is not None:
+                            srec.fail("error")
+                        raise RouteError(502, f"worker error: {e}", "worker_error")
+                    if self.metrics is not None:
+                        self.metrics.retries_total.inc()
+                    backoff = min(
+                        self.config.retry_backoff_base * (2 ** (attempts - 1)),
+                        self.config.retry_backoff_max,
                     )
-                if self.metrics is not None:
-                    self.metrics.retries_total.inc()
-                logger.warning("worker %s rejected %s with queue-full; trying another",
-                               worker.worker_id, rid)
-            except Exception as e:
-                guard.release(success=False)
-                attempts += 1
-                exclude.add(worker.worker_id)
-                if got_first_chunk or attempts >= self.config.max_retries:
-                    logger.exception("request %s failed on %s", rid, worker.worker_id)
-                    raise RouteError(502, f"worker error: {e}", "worker_error")
-                if self.metrics is not None:
-                    self.metrics.retries_total.inc()
-                backoff = min(
-                    self.config.retry_backoff_base * (2 ** (attempts - 1)),
-                    self.config.retry_backoff_max,
-                )
-                logger.warning("retrying %s after failure on %s (attempt %d): %s",
-                               rid, worker.worker_id, attempts, e)
-                await asyncio.sleep(backoff)
-            finally:
-                if not finished_cleanly:
-                    guard.release(success=True)  # no-op if already released
+                    logger.warning("retrying %s after failure on %s (attempt %d): %s",
+                                   rid, worker.worker_id, attempts, e)
+                    # close the failed attempt's spans before the backoff sleep
+                    # so their duration is the attempt, not attempt + idle
+                    _close_spans(error=True)
+                    await asyncio.sleep(backoff)
+                finally:
+                    _close_spans(error=not finished_cleanly)
+                    if not finished_cleanly:
+                        guard.release(success=True)  # no-op if already released
+        finally:
+            # termination backstop of the SLO record: a cancel can land at
+            # seams the loop's handlers never see (between a queue-full
+            # failover and the next dispatch, inside the backoff sleep).
+            # Every deliberate exit already made its terminal call, so this
+            # records only otherwise untracked endings, as voluntary
+            if srec is not None:
+                srec.abandon("abort")
 
     def _chunk_to_event(
         self,
@@ -284,21 +391,55 @@ class Router:
 
     # ---- chat completions ----
 
-    def prepare_chat(self, req: ChatCompletionRequest):
-        """Returns (tokenizer, prompt_text, input_ids, sampling)."""
+    def _is_harmony(self, model: str | None) -> bool:
+        if self.config.harmony is not None:
+            return self.config.harmony
+        from smg_tpu_torch.gateway.harmony import is_harmony_model
+
+        return is_harmony_model(model)
+
+    async def prepare_chat(self, req: ChatCompletionRequest):
+        """Returns (tokenizer, prompt_text, input_ids, sampling), inside the
+        ``engine.tokenize`` stage span."""
+        with stage("engine.tokenize"):
+            return self._prepare_chat(req)
+
+    def _prepare_chat(self, req: ChatCompletionRequest):
         tokenizer = self.tokenizers.get(req.model or None)
         if tokenizer is None:
             raise RouteError(500, "no tokenizer registered for gateway-side processing")
         messages = [m.model_dump(exclude_none=True) for m in req.messages]
         if any(isinstance(m.get("content"), list)
                and any(p.get("type") != "text" for p in m["content"]) for m in messages):
+            if self._is_harmony(req.model):
+                # gpt-oss is text-only (the reference's builder rejects media)
+                raise RouteError(400, "harmony (gpt-oss) models accept text input only")
             # the reference's answer when no worker has a vision tower
             raise RouteError(
                 400, f"model {req.model or 'default'} does not support image input")
-        if req.tools:
-            raise RouteError(400, "tool calls are not ported to this gateway yet")
+        tools = [t.model_dump(exclude_none=True) for t in req.tools] if req.tools else None
+        if self._is_harmony(req.model):
+            # harmony models bypass the chat template: the gateway renders the
+            # channel-structured frame format itself and stops generation at
+            # end-of-response / end-of-tool-call markers
+            from smg_tpu_torch.gateway.harmony import HARMONY_STOPS, render_harmony_prompt
+
+            prompt_text = render_harmony_prompt(
+                messages, tools=tools,
+                reasoning_effort=getattr(req, "reasoning_effort", None) or "medium",
+            )
+            input_ids = self.tokenizers.encode_cached(req.model or None, prompt_text)
+            sampling = req.to_sampling_params(self.config.default_max_tokens)
+            stops = list(sampling.stop or [])
+            sampling.stop = stops + [s for s in HARMONY_STOPS if s not in stops]
+            # the channel markers are special tokens on real gpt-oss
+            # tokenizers: skip_special_tokens would strip them before the
+            # demux and the gateway-side stop checker see them
+            sampling.skip_special_tokens = False
+            return tokenizer, prompt_text, input_ids, sampling
         try:
-            prompt_text = tokenizer.apply_chat_template(messages, add_generation_prompt=True)
+            prompt_text = tokenizer.apply_chat_template(
+                messages, add_generation_prompt=True, tools=tools)
         except Exception as e:
             raise RouteError(400, f"chat template failed: {e}")
         input_ids = self.tokenizers.encode_cached(req.model or None, prompt_text)
@@ -306,7 +447,7 @@ class Router:
         return tokenizer, prompt_text, input_ids, sampling
 
     async def chat(self, req: ChatCompletionRequest, request_id: str | None = None):
-        tokenizer, prompt_text, input_ids, sampling = self.prepare_chat(req)
+        tokenizer, prompt_text, input_ids, sampling = await self.prepare_chat(req)
         rid = request_id or f"chatcmpl-{uuid.uuid4().hex[:24]}"
         ctx = RequestContext(
             text=prompt_text, token_ids=input_ids,
@@ -323,10 +464,53 @@ class Router:
                 last = ev
             if last is None:
                 raise RuntimeError(f"worker stream for {sub_rid} ended without output")
+            text = "".join(text_parts)
+
+            reasoning_content = None
+            tool_calls = None
+            finish = last.finish_reason or "stop"
+            if self._is_harmony(req.model):
+                # always demux: raw channel markup must never reach a client
+                from smg_tpu_torch.gateway.harmony import HarmonyStreamingProcessor
+
+                text, reasoning, calls = HarmonyStreamingProcessor().parse_full(text)
+                reasoning_content = (reasoning or None) if req.separate_reasoning else None
+                if calls:
+                    tool_calls = [
+                        ToolCall(id=c["id"], index=i,
+                                 function=FunctionCall(name=c["name"],
+                                                       arguments=c["arguments"]))
+                        for i, c in enumerate(calls)
+                    ]
+                    finish = "tool_calls"
+            else:
+                if req.separate_reasoning:
+                    from smg_tpu_torch.parsers import get_reasoning_parser
+
+                    rp = get_reasoning_parser(self.config.reasoning_parser or req.model)
+                    text, reasoning = rp.parse_full(text)
+                    reasoning_content = reasoning or None
+                if req.tools:
+                    from smg_tpu_torch.parsers import get_tool_parser
+
+                    tp = get_tool_parser(self.config.tool_parser or req.model)
+                    text, parsed = tp.parse_full(text)
+                    if parsed:
+                        tool_calls = [
+                            ToolCall(id=c.id, index=c.index,
+                                     function=FunctionCall(name=c.name, arguments=c.arguments))
+                            for c in parsed
+                        ]
+                        finish = "tool_calls"
             choice = ChatCompletionChoice(
                 index=choice_idx,
-                message=ChatMessage(role="assistant", content="".join(text_parts)),
-                finish_reason=last.finish_reason or "stop",
+                message=ChatMessage(
+                    role="assistant",
+                    content=text or (None if tool_calls else ""),
+                    tool_calls=tool_calls,
+                    reasoning_content=reasoning_content,
+                ),
+                finish_reason=finish,
             )
             return choice, last
 
@@ -354,7 +538,7 @@ class Router:
 
     async def chat_stream(self, req: ChatCompletionRequest, request_id: str | None = None):
         """Async generator of ChatCompletionStreamChunk."""
-        tokenizer, prompt_text, input_ids, sampling = self.prepare_chat(req)
+        tokenizer, prompt_text, input_ids, sampling = await self.prepare_chat(req)
         rid = request_id or f"chatcmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
         ctx = RequestContext(
@@ -368,16 +552,84 @@ class Router:
             sub_rid = rid if sampling.n == 1 else f"{rid}-{idx}"
             one_sampling = SamplingParams(**{**sampling.__dict__, "n": 1})
             first = True
+            rp = tp = hp = None
+            if self._is_harmony(req.model):
+                from smg_tpu_torch.gateway.harmony import HarmonyStreamingProcessor
+
+                hp = HarmonyStreamingProcessor()
+            else:
+                if req.separate_reasoning:
+                    from smg_tpu_torch.parsers import get_reasoning_parser
+
+                    rp = get_reasoning_parser(self.config.reasoning_parser or req.model)
+                if req.tools:
+                    from smg_tpu_torch.parsers import get_tool_parser
+
+                    tp = get_tool_parser(self.config.tool_parser or req.model)
+            saw_tool_calls = False
+
+            def make_delta(text: str, flush: bool = False):
+                nonlocal saw_tool_calls
+                reasoning = None
+                calls = None
+                if hp is not None:
+                    # harmony channel demux: analysis -> reasoning deltas,
+                    # commentary tool frames -> incremental argument deltas
+                    d = hp.feed(text)
+                    if flush:
+                        df = hp.flush()
+                        d.analysis += df.analysis
+                        d.final += df.final
+                        d.tool_deltas.extend(df.tool_deltas)
+                    text = d.final
+                    reasoning = (d.analysis or None) if req.separate_reasoning else None
+                    if d.tool_deltas:
+                        saw_tool_calls = True
+                        calls = [
+                            ToolCall(id=td.id, index=td.index,
+                                     function=FunctionCall(name=td.name,
+                                                           arguments=td.arguments))
+                            for td in d.tool_deltas
+                        ]
+                    return text, reasoning, calls
+                if rp is not None:
+                    d = rp.feed(text)
+                    if flush:
+                        df = rp.flush()
+                        d.content += df.content
+                        d.reasoning += df.reasoning
+                    text = d.content
+                    reasoning = d.reasoning or None
+                if tp is not None:
+                    d2 = tp.feed(text)
+                    if flush:
+                        df2 = tp.flush()
+                        d2.normal_text += df2.normal_text
+                        d2.calls.extend(df2.calls)
+                    text = d2.normal_text
+                    if d2.calls:
+                        saw_tool_calls = True
+                        calls = [
+                            ToolCall(id=c.id, index=c.index,
+                                     function=FunctionCall(name=c.name, arguments=c.arguments))
+                            for c in d2.calls
+                        ]
+                return text, reasoning, calls
+
             try:
                 async for ev in self._execute(ctx, input_ids, one_sampling, sub_rid, tokenizer):
-                    text = ev.text_delta
+                    text, reasoning, calls = make_delta(ev.text_delta, flush=ev.finished)
                     delta = ChatStreamDelta(
                         role="assistant" if first else None,
                         content=text if text else ("" if first else None),
+                        reasoning_content=reasoning,
+                        tool_calls=calls,
                     )
                     first = False
-                    finish = (ev.finish_reason or "stop") if ev.finished else None
-                    if text or finish or delta.role:
+                    finish = None
+                    if ev.finished:
+                        finish = "tool_calls" if saw_tool_calls else (ev.finish_reason or "stop")
+                    if text or reasoning or calls or finish or delta.role:
                         await out_q.put(
                             ChatCompletionStreamChunk(
                                 id=rid, created=created, model=model,
@@ -431,6 +683,10 @@ class Router:
     # ---- completions ----
 
     def _prepare_completion(self, req: CompletionRequest):
+        with stage("engine.tokenize"):
+            return self._prepare_completion_inner(req)
+
+    def _prepare_completion_inner(self, req: CompletionRequest):
         tokenizer = self.tokenizers.get(req.model or None)
         sampling = req.to_sampling_params(self.config.default_max_tokens)
         prompts: list[tuple[str | None, list[int]]] = []

@@ -3,28 +3,45 @@
 model listing, chat and text completions, ``/generate``, tokenize and
 detokenize, and the operational routes (``/metrics``, ``/scheduler``,
 ``/get_loads``, ``/flush_cache``, ``/debug/flight/{worker_id}``,
-``GET /workers``).  Each handler keeps the reference's status codes, JSON
-bodies and SSE framing (``data: …`` frames, ``data: [DONE]`` last).
+``GET /workers``), the parser-only routes (``/parse/function_call``,
+``/parse/reasoning``) and the SLO surfaces (``/debug/slo``,
+``/debug/slo/verdicts``).  Each handler keeps the reference's status codes,
+JSON bodies and SSE framing (``data: …`` frames, ``data: [DONE]`` last).
 
-Not ported yet: auth, rate limiting and priority admission, OTel spans,
-plugins, providers, the HTTP/PD proxy paths, embeddings, rerank, classify,
-the Anthropic, responses, conversations, realtime and transcription APIs,
-LoRA and profiling routes, worker registration over HTTP, jobs, workflows,
-the SLO and routing debug surfaces.
+The request-policy layer is the reference's middleware chain, in its order:
+request id, the OTel request span, errors, the request timeout and CORS,
+auth, then admission (per-tenant rate limit, the priority scheduler with
+cancel-and-requeue preemption of ``bulk`` work, request counters).
+
+Not ported yet: plugins, providers, the HTTP/PD proxy paths, embeddings,
+rerank, classify, the Anthropic, responses, conversations, realtime and
+transcription APIs, LoRA and profiling routes, worker registration over
+HTTP, jobs, workflows and the routing debug surfaces.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import time
 import uuid
 
 from aiohttp import web
 
+from smg_tpu_torch.gateway.auth import AuthConfig, Authenticator, AuthError
 from smg_tpu_torch.gateway.health import HealthMonitor
 from smg_tpu_torch.gateway.kv_events import KvEventMonitor
 from smg_tpu_torch.gateway.observability import Metrics
-from smg_tpu_torch.gateway.router import RouteError, Router
+from smg_tpu_torch.gateway.priority import AdmissionRejected, PriorityConfig, PriorityScheduler
+from smg_tpu_torch.gateway.rate_limit import RateLimitConfig, RateLimiter
+from smg_tpu_torch.gateway.router import RouteError, Router, RouterConfig
+from smg_tpu_torch.gateway.tracing import (
+    OtelTracer,
+    current_span,
+    current_tracer,
+    end_stage,
+    start_stage,
+)
 from smg_tpu_torch.gateway.workers import WorkerRegistry
 from smg_tpu_torch.policies import PolicyRegistry, RequestContext
 from smg_tpu_torch.protocols.generate import GenerateMetaInfo, GenerateRequest, GenerateResponse
@@ -52,24 +69,68 @@ INFERENCE_ROUTES = frozenset({"/v1/chat/completions", "/v1/completions", "/gener
 
 
 class AppContext:
-    """The gateway's shared state: workers, policies, tokenizers, metrics
-    and the router."""
+    """The gateway's shared state: workers, policies, tokenizers, metrics,
+    the router and the request-policy layer (auth, rate limits, the
+    priority scheduler, the request timeout, CORS, the tracer)."""
 
-    def __init__(self, policy: str = "cache_aware", policy_kwargs: dict | None = None):
+    def __init__(
+        self,
+        policy: str = "cache_aware",
+        router_config: RouterConfig | None = None,
+        max_concurrent_requests: int = 256,
+        policy_kwargs: dict | None = None,
+        auth_config: AuthConfig | None = None,
+        rate_limit_config: RateLimitConfig | None = None,
+        priority_config: PriorityConfig | None = None,
+        otel_endpoint: str | None = None,
+        otel_service_name: str = "smg-tpu",
+        tenant_header: str = "X-Tenant-Id",
+        trust_tenant_header: bool | None = None,
+        request_timeout_secs: float | None = None,
+        cors_allowed_origins: list | None = None,
+        slo_specs=None,
+    ):
         self.registry = WorkerRegistry()
         self.policies = PolicyRegistry(default=policy, **(policy_kwargs or {}))
         self.tokenizers = TokenizerRegistry()
         self.metrics = Metrics()
+        # declarative SLO enforcement (gateway/slo_enforcement.py): specs
+        # from --slo-spec evaluate over the SloTracker ring; verdicts at
+        # GET /debug/slo/verdicts
+        if slo_specs:
+            self.metrics.slo_enforcer.install(slo_specs)
         self.kv_monitor = KvEventMonitor(self.registry, self.policies)
         self.router = Router(self.registry, self.policies, self.tokenizers,
-                             metrics=self.metrics)
-        # the reference's --max-concurrent-requests default
-        self.semaphore = asyncio.Semaphore(256)
+                             router_config, metrics=self.metrics)
+        self.semaphore = asyncio.Semaphore(max_concurrent_requests)
         # unify engine metrics into the gateway registry as in-proc workers
         # register
         self._adopted_engine_metrics: set[int] = set()
         self.registry.on_change(self._maybe_adopt_worker_metrics)
         self.health_monitor = HealthMonitor(self.registry, metrics=self.metrics)
+        self.auth = Authenticator(auth_config or AuthConfig())
+        self.tenant_header = tenant_header
+        # None = trust exactly when no auth is configured
+        self.trust_tenant_header = (
+            trust_tenant_header
+            if trust_tenant_header is not None
+            else not self.auth.config.enabled
+        )
+        self.request_timeout_secs = request_timeout_secs
+        self.cors_allowed_origins = list(cors_allowed_origins or [])
+        self.rate_limiter = RateLimiter(
+            rate_limit_config
+            or RateLimitConfig(
+                capacity=float(max_concurrent_requests),
+                max_concurrent=max_concurrent_requests,
+            )
+        )
+        self.priority = PriorityScheduler(
+            priority_config or PriorityConfig(slots=max_concurrent_requests)
+        )
+        # OTel tracing: off unless an OTLP endpoint is configured
+        self.tracer = (OtelTracer(otel_endpoint, otel_service_name)
+                       if otel_endpoint else None)
 
     def adopt_engine_metrics(self, engine_metrics) -> bool:
         """Register an in-proc engine's metric set into the gateway registry
@@ -105,8 +166,8 @@ def _error(status: int, message: str, err_type: str = "invalid_request_error") -
     return web.json_response(body.model_dump(), status=status)
 
 
-def _sse_response() -> web.StreamResponse:
-    return web.StreamResponse(
+def _sse_response(request: web.Request) -> web.StreamResponse:
+    resp = web.StreamResponse(
         status=200,
         headers={
             "Content-Type": "text/event-stream",
@@ -115,6 +176,14 @@ def _sse_response() -> web.StreamResponse:
             "X-Accel-Buffering": "no",
         },
     )
+    # trace propagation must be attached before prepare() sends the headers:
+    # the otel middleware's post-handler setdefault is a no-op for streams
+    span = request.get("otel_span")
+    if span is not None:
+        resp.headers["traceparent"] = span.traceparent
+    # once prepared, bytes go out: a preempted request can no longer requeue
+    request["response_started"] = True
+    return resp
 
 
 @web.middleware
@@ -131,6 +200,43 @@ async def request_id_middleware(request: web.Request, handler):
 
 
 @web.middleware
+async def otel_middleware(request: web.Request, handler):
+    """One SERVER span per request, W3C traceparent in and out, correlated
+    with the request id.  No-op without a configured tracer."""
+    ctx: AppContext = request.app[CTX]
+    tracer = ctx.tracer
+    if tracer is None:
+        return await handler(request)
+    span = tracer.start_span(
+        f"{request.method} {request.path}",
+        traceparent=request.headers.get("traceparent"),
+    )
+    span.set("http.request.method", request.method)
+    span.set("url.path", request.path)
+    span.set("request.id", request.get("request_id", ""))
+    request["otel_span"] = span
+    # park span and tracer in contextvars so pipeline stages (queue,
+    # tokenize, prefill, decode, detokenize) anywhere down-stack open
+    # children of this request's span
+    span_token = current_span.set(span)
+    tracer_token = current_tracer.set(tracer)
+    try:
+        resp = await handler(request)
+        span.set("http.response.status_code", resp.status)
+        span.end(error=resp.status >= 500)
+        resp.headers.setdefault("traceparent", span.traceparent)
+        return resp
+    except Exception:
+        span.set("http.response.status_code", 500)
+        span.end(error=True)
+        raise
+    finally:
+        current_span.reset(span_token)
+        current_tracer.reset(tracer_token)
+        tracer.record(span)
+
+
+@web.middleware
 async def error_middleware(request: web.Request, handler):
     try:
         return await handler(request)
@@ -144,29 +250,161 @@ async def error_middleware(request: web.Request, handler):
 
 
 @web.middleware
-async def metrics_middleware(request: web.Request, handler):
-    """Request counters on the inference routes, with the real status."""
+async def auth_middleware(request: web.Request, handler):
+    ctx: AppContext = request.app[CTX]
+    try:
+        principal = ctx.auth.authenticate(request.path, request.headers)
+    except AuthError as e:
+        return _error(e.status, e.message, "authentication_error")
+    request["principal"] = principal
+    if principal:
+        request["tenant"] = principal.tenant
+    elif ctx.trust_tenant_header:
+        # --trust-tenant-header / --tenant-header-name
+        request["tenant"] = request.headers.get(ctx.tenant_header, "default")
+    else:
+        request["tenant"] = "default"
+    return await handler(request)
+
+
+@web.middleware
+async def limits_middleware(request: web.Request, handler):
+    """--request-timeout-secs and --cors-allowed-origins."""
+    ctx: AppContext = request.app[CTX]
+    origin = request.headers.get("Origin")
+    cors_ok = origin and (
+        origin in ctx.cors_allowed_origins or "*" in ctx.cors_allowed_origins
+    )
+    if request.method == "OPTIONS" and cors_ok:
+        return web.Response(status=204, headers={
+            "Access-Control-Allow-Origin": origin,
+            "Access-Control-Allow-Methods": "GET, POST, DELETE, OPTIONS",
+            "Access-Control-Allow-Headers": "authorization, content-type, x-api-key",
+            "Access-Control-Max-Age": "600",
+        })
+    if ctx.request_timeout_secs:
+        try:
+            resp = await asyncio.wait_for(handler(request), ctx.request_timeout_secs)
+        except TimeoutError:
+            if request.get("response_started"):
+                # bytes already out: end the connection, so the client sees
+                # a cut stream at once (the reference leaves it open and
+                # silent until the client gives up)
+                if request.transport is not None:
+                    request.transport.close()
+                raise
+            return _error(408, "request timed out", "timeout_error")
+    else:
+        resp = await handler(request)
+    if cors_ok:
+        resp.headers["Access-Control-Allow-Origin"] = origin
+    return resp
+
+
+@web.middleware
+async def admission_middleware(request: web.Request, handler):
+    """Per-tenant rate limit and priority-scheduler admission on the
+    inference routes, and their request counters with the real status."""
+    ctx: AppContext = request.app[CTX]
     if request.path not in INFERENCE_ROUTES:
         return await handler(request)
-    ctx: AppContext = request.app[CTX]
-    with ctx.metrics.track_request(request.path) as track:
-        resp = await handler(request)
-        track.status = str(getattr(resp, "status", 200))
-        return resp
+    tenant = request.get("tenant", "default")
+    if not ctx.rate_limiter.try_acquire(tenant):
+        ctx.metrics.rate_limited_total.inc()
+        return _error(429, f"rate limit exceeded for tenant {tenant!r}", "rate_limit_error")
+    priority = ctx.priority.classify(request.headers)
+    q_start = time.perf_counter()
+    q_span = start_stage("engine.queue", priority=priority)
+    try:
+        guard = await ctx.priority.admit(priority)
+    except AdmissionRejected as e:
+        end_stage(q_span, error=True)
+        ctx.rate_limiter.release(tenant)
+        return _error(503, str(e), "overloaded_error")
+    end_stage(q_span)
+    ctx.metrics.queue_wait.labels(priority=priority).observe(time.perf_counter() - q_start)
+    try:
+        with ctx.metrics.track_request(request.path) as track:
+            if priority not in ctx.priority.config.preemptable:
+                resp = await handler(request)
+            else:
+                resp = await _run_preemptable(ctx, request, handler, guard, priority)
+            # count the real status: handlers returning 4xx/5xx responses
+            # without raising must not be recorded as status="200"
+            track.status = str(getattr(resp, "status", 200))
+            return resp
+    finally:
+        guard.release()
+        ctx.rate_limiter.release(tenant)
+
+
+async def _run_preemptable(ctx: AppContext, request: web.Request, handler, guard,
+                           priority: str):
+    """Run a preemptable-class request so that a stalled high-priority
+    waiter can cancel it.  Cancel and requeue: if no response bytes have
+    gone out, the request queues again through admission and runs again;
+    a response already streaming cannot be replayed, so its connection
+    ends.  The cancel reaches the router, which aborts the request in the
+    engine before the rerun submits it again."""
+    # cache the whole body before the handler can be cancelled: aiohttp
+    # caches only a complete read, so a cancel inside request.json() would
+    # leave the rerun reading a half-consumed payload stream
+    await request.read()
+    requeues = 0
+    while True:
+        task = asyncio.ensure_future(handler(request))
+        if requeues == 0:
+            # a request that already paid one preemption runs to completion
+            # (no livelock under sustained system-class pressure)
+            guard.set_preempt_callback(task.cancel)
+        try:
+            return await task
+        except asyncio.CancelledError:
+            if not guard.preempted:
+                # client disconnect or shutdown: propagate into the handler
+                # so its work does not outlive the slot
+                task.cancel()
+                try:
+                    await task
+                except BaseException:
+                    pass
+                raise
+            if request.get("response_started"):
+                raise  # mid-stream: nothing to replay
+            # requeue: give the slot back, wait in our class queue, run again
+            guard.release()
+            try:
+                new_guard = await ctx.priority.admit(priority, count_stats=False)
+            except AdmissionRejected as e:
+                return _error(503, f"preempted and requeue failed: {e}", "overloaded_error")
+            # adopt the fresh slot into the caller's guard (slots are
+            # fungible counters: re-arm the old guard, disarm the new one)
+            guard._released = False
+            guard.preempted = False
+            guard._preempt_cb = None
+            new_guard._released = True
+            requeues += 1
 
 
 def build_app(ctx: AppContext) -> web.Application:
     app = web.Application(
-        middlewares=[request_id_middleware, error_middleware, metrics_middleware],
+        middlewares=[
+            request_id_middleware, otel_middleware, error_middleware,
+            limits_middleware, auth_middleware, admission_middleware,
+        ],
         client_max_size=256 * 2**20,  # the reference's request body cap
     )
     app[CTX] = ctx
 
     async def _start_background(app):
         ctx.health_monitor.start()
+        if ctx.tracer is not None:
+            await ctx.tracer.start()
 
     async def _stop_background(app):
         ctx.health_monitor.stop()
+        if ctx.tracer is not None:
+            await ctx.tracer.stop()
 
     app.on_startup.append(_start_background)
     app.on_cleanup.append(_stop_background)
@@ -174,6 +412,8 @@ def build_app(ctx: AppContext) -> web.Application:
     app.router.add_get("/metrics", h_metrics)
     app.router.add_get("/scheduler", h_scheduler_stats)
     app.router.add_get("/debug/flight/{worker_id}", h_debug_flight)
+    app.router.add_get("/debug/slo", h_debug_slo)
+    app.router.add_get("/debug/slo/verdicts", h_debug_slo_verdicts)
     app.router.add_get("/health", h_health)
     app.router.add_get("/liveness", h_health)
     app.router.add_get("/readiness", h_readiness)
@@ -183,6 +423,8 @@ def build_app(ctx: AppContext) -> web.Application:
     app.router.add_post("/v1/chat/completions", h_chat)
     app.router.add_post("/v1/completions", h_completions)
     app.router.add_post("/generate", h_generate)
+    app.router.add_post("/parse/function_call", h_parse_function_call)
+    app.router.add_post("/parse/reasoning", h_parse_reasoning)
     app.router.add_post("/v1/tokenize", h_tokenize)
     app.router.add_post("/v1/detokenize", h_detokenize)
     app.router.add_get("/get_loads", h_get_loads)
@@ -199,11 +441,11 @@ async def h_metrics(request: web.Request) -> web.Response:
 
 
 async def h_scheduler_stats(request: web.Request) -> web.Response:
-    """Per-worker engine step-loop stats (rolling p50/p95 step time,
-    tokens/s, cache hit rate and the zero-leak audit from loads()).  The
-    reference also reports its priority scheduler here, which is not
-    ported."""
+    """Priority-scheduler state plus per-worker engine step-loop stats
+    (rolling p50/p95 step time, tokens/s, cache hit rate and the zero-leak
+    audit from loads())."""
     ctx: AppContext = request.app[CTX]
+    body = ctx.priority.describe()
 
     async def _loads(w):
         # per-worker timeout: one wedged worker must not wedge the endpoint
@@ -213,7 +455,8 @@ async def h_scheduler_stats(request: web.Request) -> web.Response:
             return w.worker_id, {"error": str(e)}
 
     results = await asyncio.gather(*(_loads(w) for w in ctx.registry.list()))
-    return web.json_response({"engine": dict(results)})
+    body["engine"] = dict(results)
+    return web.json_response(body)
 
 
 async def h_debug_flight(request: web.Request) -> web.Response:
@@ -233,6 +476,29 @@ async def h_debug_flight(request: web.Request) -> web.Response:
     except Exception as e:
         return _error(502, f"flight dump from {wid} failed: {e}", "worker_error")
     return web.json_response({"worker_id": wid, "dump": dump})
+
+
+async def h_debug_slo(request: web.Request) -> web.Response:
+    """Rolling gateway-side SLO and goodput summary: TTFT, ITL and e2e
+    percentiles, deadline met/missed, goodput, and recent per-request
+    records with trace-id exemplars.  ``?recent=`` bounds the records
+    returned (default 32, capped at the ring size)."""
+    ctx: AppContext = request.app[CTX]
+    try:
+        recent = int(request.query.get("recent", 32))
+    except ValueError:
+        return _error(400, "recent must be an integer")
+    recent = max(0, min(recent, ctx.metrics.slo.keep))
+    return web.json_response(ctx.metrics.slo.summary(recent=recent))
+
+
+async def h_debug_slo_verdicts(request: web.Request) -> web.Response:
+    """Every installed ``SloSpec`` evaluated now over its fast and slow
+    windows of the completed-request ring: per-window stats, breaches, burn
+    rates and the hysteresis-damped verdict.  No specs answers
+    ``all_pass: true`` over zero verdicts."""
+    ctx: AppContext = request.app[CTX]
+    return web.json_response(ctx.metrics.slo_enforcer.evaluate())
 
 
 async def h_health(request: web.Request) -> web.Response:
@@ -286,7 +552,7 @@ async def h_server_info(request: web.Request) -> web.Response:
 async def _write_sse(request: web.Request, chunks) -> web.StreamResponse:
     """Stream pydantic chunks as ``data: {json}`` frames, then ``[DONE]``; a
     route error after the headers went out becomes an error frame."""
-    sse = _sse_response()
+    sse = _sse_response(request)
     await sse.prepare(request)
     try:
         async for chunk in chunks:
@@ -378,7 +644,7 @@ async def h_generate(request: web.Request) -> web.Response | web.StreamResponse:
                 ),
             )
             return web.json_response(resp.model_dump())
-        sse = _sse_response()
+        sse = _sse_response(request)
         await sse.prepare(request)
         acc_text = []
         acc_ids: list[int] = []
@@ -402,6 +668,36 @@ async def h_generate(request: web.Request) -> web.Response | web.StreamResponse:
         await sse.write(b"data: [DONE]\n\n")
         await sse.write_eof()
         return sse
+
+
+async def h_parse_function_call(request: web.Request) -> web.Response:
+    """Parser-only endpoint: tool calls in ``text`` by the dialect of
+    ``tool_call_parser`` (or of ``model``)."""
+    body = await request.json()
+    from smg_tpu_torch.parsers import get_tool_parser
+
+    parser = get_tool_parser(body.get("tool_call_parser") or body.get("model"))
+    normal, calls = parser.parse_full(body.get("text", ""))
+    return web.json_response(
+        {
+            "normal_text": normal,
+            "calls": [
+                {"name": c.name, "arguments": c.arguments, "id": c.id, "index": c.index}
+                for c in calls
+            ],
+        }
+    )
+
+
+async def h_parse_reasoning(request: web.Request) -> web.Response:
+    """Parser-only endpoint: reasoning split out of ``text`` by the family
+    of ``reasoning_parser`` (or of ``model``)."""
+    body = await request.json()
+    from smg_tpu_torch.parsers import get_reasoning_parser
+
+    parser = get_reasoning_parser(body.get("reasoning_parser") or body.get("model"))
+    content, reasoning = parser.parse_full(body.get("text", ""))
+    return web.json_response({"text": content, "reasoning_text": reasoning})
 
 
 async def h_tokenize(request: web.Request) -> web.Response:

@@ -8,6 +8,8 @@ calls are not ported yet.
 from __future__ import annotations
 
 import asyncio
+import functools
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import AsyncIterator
 
@@ -98,7 +100,16 @@ class WorkerClient:
 
 class InProcWorkerClient(WorkerClient):
     """Engine in the same process.  The engine's background loop runs in its
-    own thread; outputs hop onto the event loop via call_soon_threadsafe."""
+    own thread; outputs hop onto the event loop via call_soon_threadsafe.
+
+    Submits and aborts run on one worker thread of this client, in the
+    order they are called.  The engine holds its lock for a whole step
+    (tens of milliseconds of prefill on the card), so a submit made on the
+    event loop would stall every other request and stream for that long;
+    on the worker thread only the caller waits.  One thread in call order
+    keeps the engine's arrival order, and puts an abort after its own
+    request's submit even when the caller was cancelled while submitting.
+    (The reference submits on the event loop.)"""
 
     #: drain budget handed to ``engine.stop(drain=True)`` on close — long
     #: enough for in-flight lanes to finish, short enough for prompt SIGTERM
@@ -106,6 +117,7 @@ class InProcWorkerClient(WorkerClient):
 
     def __init__(self, engine):
         self.engine = engine
+        self._calls = ThreadPoolExecutor(max_workers=1, thread_name_prefix="inproc-submit")
         engine.start()
 
     async def generate(self, req: WorkerGenerateRequest) -> AsyncIterator[WorkerStreamChunk]:
@@ -129,12 +141,18 @@ class InProcWorkerClient(WorkerClient):
             )
             loop.call_soon_threadsafe(q.put_nowait, chunk)
 
+        # in-proc trace link: the ambient request span's trace id threads
+        # into the engine request, so the flight-recorder timeline links to
+        # the request's OTel trace
+        from smg_tpu_torch.gateway.tracing import ambient_trace_id
+
+        submit = functools.partial(
+            self.engine.submit, req.input_ids, req.sampling, rid=req.rid,
+            on_output=on_output, mm_embeds=req.mm_embeds, timeout_secs=req.timeout_secs,
+            trace_id=req.trace_id or ambient_trace_id(),
+        )
         try:
-            self.engine.submit(
-                req.input_ids, req.sampling, rid=req.rid, on_output=on_output,
-                mm_embeds=req.mm_embeds, timeout_secs=req.timeout_secs,
-                trace_id=req.trace_id,
-            )
+            await loop.run_in_executor(self._calls, submit)
         except QueueFullError as e:
             # transport-level shape of engine backpressure: the router
             # retries another worker / answers 429, breaker untouched
@@ -148,7 +166,9 @@ class InProcWorkerClient(WorkerClient):
                 return
 
     async def abort(self, rid: str) -> bool:
-        return self.engine.abort(rid)
+        # behind any submit still queued on the same thread
+        return await asyncio.get_running_loop().run_in_executor(
+            self._calls, self.engine.abort, rid)
 
     async def health(self) -> bool:
         # engine-level health, not liveness: a wedged device fetch or a run
@@ -196,3 +216,4 @@ class InProcWorkerClient(WorkerClient):
         # running lanes finish (bounded); off the event loop — the drain
         # wait is seconds of blocking
         await asyncio.to_thread(self.engine.stop, True, self.drain_timeout_secs)
+        self._calls.shutdown(wait=False)
