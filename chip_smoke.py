@@ -89,9 +89,36 @@ Phases (any failure makes the script exit non-zero and print no result):
    a ``traceparent``; exact launches.  Readings: the gateway's cost per
    token with every layer on against the bare gateway and direct
    callbacks, the lone chat's added TTFT, the preemption latency;
-7. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
-   run) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``
-   stops after phase 2 and prints neither).
+7. speculative decoding, after phase 6 on each dtype's weights, with
+   phase 3's engine settings plus ``speculative=True`` (8 drafts, a 9-wide
+   verify block): four concurrent 64-token requests (greedy on a
+   1000-token repeated prompt, greedy on a plain prompt, temperature 0.8
+   on a repeated prompt, a stop-string lane) through the n-gram tier on
+   the serving path, the same with overlap off, the eager synchronous path
+   and the serving path without speculation; then the same requests
+   through the draft tier on the serving path: a ``DraftRunner`` over the
+   target's own weights, and Llama-3.2-1B at random bf16 weights with
+   overlap on and off.  A model with random weights copies nothing from
+   its context, so the n-gram tier drafts only by chance there.  Checks:
+   every lane but the stop lane drafts in the draft tiers; in float32
+   every greedy stream equals the non-speculative run's and the graph and
+   eager streams agree, and the self-draft tier accepts at least 90% of
+   its greedy drafts; in both dtypes the sampled stream is identical with
+   overlap on and off, the stop-string lane never rides a verify block,
+   kernel launches equal the schedule (32 x rest-lane decode columns; 32 x
+   target prefill calls plus the draft's layers x its prefill calls) and
+   every audit is clean.  Readings: ms per emitted token and tokens/s per
+   tier against the non-speculative run, acceptance per tier, the verify
+   block's device ms at W = 9 against one decode column (and profiled by
+   kernel), and the verify graphs' capture seconds and bytes.  After the
+   bf16 run, ``python -m smg_tpu_torch.cli serve --speculative`` runs in a
+   process of its own (tiny preset, a tiny draft model): one completion,
+   drafts counted in ``/scheduler``, SIGTERM; ``--draft-model-path`` must
+   be refused;
+8. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
+   run, ``launches_spec`` from phase 7's bf16 serving path) and, last,
+   ``{"ok": true, "device": ...}`` (``--phases kernels`` stops after
+   phase 2 and prints neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -2374,6 +2401,361 @@ def _sse_cut(port: int, body: dict) -> tuple[list, str | None]:
     return frames, None
 
 
+# ---- phase 7: speculative decoding on Llama-3-8B ----
+
+SPEC_NEW = 64  # new tokens of every phase-7 request
+
+
+def _spec_jobs(seed: int):
+    """Phase 7's four requests and a warm-up prompt: ``rep``, greedy on a
+    50-token block repeated 20 times; ``plain``, greedy on 200 random
+    tokens; ``hot``, temperature 0.8 and top-k 50 on a 40-token block
+    repeated 25 times; ``stop``, a stop-string lane that never stops (it
+    must stay on the K=1 rest megastep)."""
+    import numpy as np
+
+    from smg_tpu_torch.protocols.sampling import SamplingParams as SP
+
+    rng = np.random.default_rng(seed)
+    tok = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    greedy = dict(temperature=0.0, max_new_tokens=SPEC_NEW, ignore_eos=True)
+    jobs = [("rep", tok(50) * 20, SP(**greedy)),
+            ("plain", tok(200), SP(**greedy)),
+            ("hot", tok(40) * 25, SP(temperature=0.8, top_k=50, max_new_tokens=SPEC_NEW,
+                                     ignore_eos=True)),
+            ("stop", tok(120), SP(**greedy, stop=[NEVER_STOP]))]
+    return jobs, tok(50) * 18
+
+
+# (label, speculative, decode_graphs, overlap_schedule, loop thread) of the
+# n-gram tier: the serving path, the same with overlap off, the eager
+# synchronous path, and the serving path without speculation
+SPEC_PATHS = (
+    ("graphs", True, True, True, True),
+    ("graphs_sync", True, True, False, False),
+    ("eager", True, False, False, False),
+    ("nospec", False, True, True, True),
+)
+
+
+def spec_drive(engine, jobs, loop: bool) -> tuple[dict, float, dict]:
+    """Submit every job before the first step (a schedule that does not
+    depend on timing), then step to the end on the loop thread or this
+    one.  Returns (results, wall s, rid -> [verify blocks, drafted,
+    accepted])."""
+    from smg_tpu_torch.engine.engine import collect_result
+
+    sched = engine.scheduler
+    consume = sched._consume_spec_frame
+    lanes = {rid: [0, 0, 0] for rid, _, _ in jobs}
+
+    def tallied(frame, outputs):
+        fetch_s = consume(frame, outputs)
+        for idx, (_slot, req, _e) in enumerate(frame.lanes):
+            drafted = frame.draft_ns[idx]
+            tally = lanes[req.rid]
+            tally[0] += 1
+            tally[1] += drafted
+            tally[2] += max(0, min(int(frame.launch.n_emit[idx]) - 1, drafted))
+        return fetch_s
+
+    sched._consume_spec_frame = tallied
+    chunks = {rid: [] for rid, _, _ in jobs}
+    for rid, prompt, sp in jobs:
+        engine.submit(prompt, sp, rid=rid, on_output=chunks[rid].append)
+    t0 = time.perf_counter()
+    if loop:
+        engine.start()
+        wait_for(lambda: all(c and c[-1].finished for c in chunks.values())
+                 and not engine.has_work(), "the speculative requests")
+        engine.stop()
+    else:
+        for _ in range(2000):
+            if not engine.has_work():
+                break
+            engine.step()
+        else:
+            raise RuntimeError("requests did not finish within 2000 steps")
+    wall_s = time.perf_counter() - t0
+    del sched._consume_spec_frame
+    return {rid: collect_result(rid, c) for rid, c in chunks.items()}, wall_s, lanes
+
+
+def spec_run(cfg, params, dev, tok, jobs, warm, speculative: bool, graphs: bool,
+             overlap: bool, loop: bool, draft=None, draft_params=None) -> dict:
+    """One engine with phase 3's settings (plus ``speculative`` and, for the
+    draft tier, ``draft`` = (draft ModelConfig, seed)): a warm-up request on
+    a prompt of the repeated request's shape, then the jobs, with the
+    kernel counters, the runner's schedule counts and the drafted and
+    accepted counts zeroed just before them and read just after."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    econf = EngineConfig(
+        model=cfg,
+        cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False, dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096, max_prefill_tokens=512,
+                                  decode_horizon=4, overlap_schedule=overlap,
+                                  speculative=speculative),
+        decode_graphs=graphs,
+        draft_model=None if draft is None else draft[0],
+        draft_seed=0 if draft is None else draft[1])
+    engine = Engine(econf, params=params, device=dev, tokenizer=tok,
+                    draft_params=draft_params)
+    engine.generate(warm, SamplingParams(temperature=0.0, max_new_tokens=24,
+                                         ignore_eos=True))
+    sched, runner = engine.scheduler, engine.runner
+    for stats in (runner.stats, *(() if sched.draft is None else (sched.draft.stats,))):
+        for k in stats:
+            stats[k] = 0
+    sched.num_spec_drafted = sched.num_spec_accepted = 0
+    torch.cuda.synchronize()
+    dk.launches = pk.launches = 0
+    results, wall_s, lanes = spec_drive(engine, jobs, loop)
+    torch.cuda.synchronize()
+    out = dict(results=results, wall_s=wall_s, lanes=lanes,
+               launches={"decode_attention": dk.launches, "prefill_attention": pk.launches},
+               stats=dict(runner.stats), draft_stats=None if sched.draft is None
+               else dict(sched.draft.stats),
+               drafted=sched.num_spec_drafted, accepted=sched.num_spec_accepted,
+               loads=engine.loads())
+    if runner.graphs.stats()["verify_graphs"]:
+        out["timing"] = _verify_timing(runner)
+    del engine, sched, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _verify_timing(runner) -> dict:
+    """Device ms of the widest verify graph the run captured (W = 9, the
+    batch bucket and page-table width of the run) against one decode
+    column of a megastep graph at the same (B, mp): each replayed alone
+    with a cold L2 (``cuda_ms``).  Replays rewrite KV in the run's pages;
+    the engine is dropped right after."""
+    ver = max((s for s in runner.graphs.verify.values() if s.graph is not None),
+              key=lambda s: (s.W, s.mp))
+    megas = [s for s in runner.graphs.steps.values() if s.graph is not None
+             and (s.B, s.mp) == (ver.B, ver.mp)]
+    out = dict(verify_shape=dict(B=ver.B, mp=ver.mp, W=ver.W),
+               verify_ms=cuda_ms(ver.graph.replay))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ver.graph.replay()
+        torch.cuda.synchronize()
+    busy, by_kernel, _n = device_time(prof)
+    out["verify_profile_ms"] = busy / 3
+    out["verify_top"] = [(name[:70], ms / 3) for name, ms in
+                         sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]]
+    if megas:
+        mega = max(megas, key=lambda s: s.K)
+        out.update(decode_shape=dict(B=mega.B, mp=mega.mp, K=mega.K),
+                   decode_ms_per_column=cuda_ms(mega.graph.replay) / mega.K)
+        out["verify_over_column"] = out["verify_ms"] / out["decode_ms_per_column"]
+    return out
+
+
+def check_spec_launches(r, L: int, L_draft: int, label: str) -> None:
+    """The run's kernel launches equal its schedule: L per rest-lane decode
+    column (graph replays included), L per target prefill call and L_draft
+    per draft prefill call; the verify block and the draft's compat decode
+    launch neither kernel."""
+    st, ds = r["stats"], r["draft_stats"] or {"prefill_calls": 0}
+    expect = {"decode_attention": L * st["decode_columns"],
+              "prefill_attention": L * st["prefill_calls"] + L_draft * ds["prefill_calls"]}
+    print(f"  [{label}] schedule: {st}, draft {r['draft_stats']}; launches {r['launches']}, "
+          f"expected {expect}")
+    if r["launches"] != expect or r["launches"]["prefill_attention"] <= 0:
+        raise AssertionError(f"[{label}] launch counts {r['launches']} != {expect}")
+
+
+def check_serve_speculative(device: str = "cuda") -> dict:
+    """``python -m smg_tpu_torch.cli serve --speculative`` in a process of
+    its own on the card (the tiny preset in float32, a tiny draft model
+    through ``--draft-model-preset``): one greedy completion on a repeated
+    prompt, the engine's drafted tokens from ``/scheduler``, then SIGTERM.
+    ``--draft-model-path`` must exit non-zero naming the checkpoint
+    loader.  Every process started here is stopped before it returns."""
+    import signal
+    import tempfile
+
+    port = _free_port()
+    base = [sys.executable, "-m", "smg_tpu_torch.cli", "serve", "--model-preset", "tiny",
+            "--dtype", "float32", "--speculative", "--max-batch-size", "8",
+            "--max-seq-len", "1024", "--host", "127.0.0.1", "--port", str(port),
+            "--device", device]
+    with tempfile.TemporaryFile() as log:
+        proc = subprocess.Popen(base + ["--draft-model-preset", "tiny"], cwd=REPO,
+                                stdout=log, stderr=log)
+        try:
+            deadline = time.monotonic() + LOOP_WAIT_S
+            while True:
+                try:
+                    if _http(port, "GET", "/health")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    log.seek(0)
+                    raise AssertionError("serve --speculative did not come up: "
+                                         + log.read().decode()[-2000:])
+                time.sleep(0.2)
+            status, body = _http(port, "POST", "/v1/completions", {
+                "model": "tiny", "prompt": "w5 w6 w7 w8 " * 8, "max_tokens": 24,
+                "temperature": 0})
+            loads = _http(port, "GET", "/scheduler")[1]["engine"]
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(10)
+    worker = next(iter(loads.values()))
+    out = dict(status=status, completion_tokens=body["usage"]["completion_tokens"]
+               if status == 200 else None, drafted=worker.get("spec_drafted"),
+               accepted=worker.get("spec_accepted"), exit_code=proc.returncode)
+    refused = subprocess.run(base + ["--draft-model-path", "/models/draft"], cwd=REPO,
+                             capture_output=True, text=True, timeout=LOOP_WAIT_S)
+    out["path_refused"] = refused.returncode != 0 and "checkpoint" in refused.stderr
+    print(f"  serve --speculative: {out}")
+    if not (status == 200 and out["completion_tokens"] == 24 and out["drafted"]
+            and out["path_refused"]):
+        raise AssertionError(f"serve --speculative: {out}")
+    return out
+
+
+def phase_spec(cfg, params, dev, card: str, label: str, strict: bool) -> dict:
+    """Speculative decoding on Llama-3-8B at full width and depth, phase 3's
+    engine settings plus ``speculative=True`` (8 drafts, a 9-wide verify
+    block).  The n-gram tier through ``SPEC_PATHS``, then the draft tier
+    on the serving path: a ``DraftRunner`` over the target's own weights
+    (``draft_params``), so drafts are the target's greedy picks, and
+    Llama-3.2-1B at random bf16 weights from ``draft_seed``, with overlap
+    on and off.  Every lane but the stop lane must draft in the draft
+    tiers.  With ``strict`` (float32) every greedy stream must equal the
+    non-speculative run's, the graph and eager streams must be identical,
+    the self-draft tier must accept at least 90% of its greedy drafts; in
+    both dtypes the sampled stream must be identical with overlap on and
+    off (n-gram and 1B tiers), the stop-string lane must never ride a
+    verify block, launches must match the schedule and every audit must
+    be clean."""
+    import dataclasses
+
+    from smg_tpu_torch.models.config import llama32_1b_config
+
+    tok = PieceTokenizer(cfg.vocab_size, (cfg.bos_token_id, *cfg.eos_token_ids))
+    L = cfg.num_layers
+    jobs, warm = _spec_jobs(23)
+    runs = {}
+    for name, spec, graphs, overlap, loop in SPEC_PATHS:
+        runs[name] = spec_run(cfg, params, dev, tok, jobs, warm, spec, graphs, overlap, loop)
+    draft_1b = dataclasses.replace(llama32_1b_config(), dtype="bfloat16")
+    runs["self_draft"] = spec_run(cfg, params, dev, tok, jobs, warm, True, True, True, True,
+                                  draft=(cfg, 0), draft_params=params)
+    for name, overlap in (("draft_1b", True), ("draft_1b_sync", False)):
+        runs[name] = spec_run(cfg, params, dev, tok, jobs, warm, True, True, overlap, overlap,
+                              draft=(draft_1b, 1))
+    failures = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [{label}] FAILED: {what}")
+
+    base = runs["nospec"]["results"]
+    out: dict = {"card": card}
+    for name, r in runs.items():
+        L_draft = L if name == "self_draft" else (
+            draft_1b.num_layers if name.startswith("draft_1b") else 0)
+        check_spec_launches(r, L, L_draft, f"{label}/{name}")
+        audit = r["loads"]["audit"]
+        expect(audit["clean"] and audit["leaked_pages"] == 0, f"{name}: audit {audit}")
+        for rid, res in r["results"].items():
+            expect(res.output_tokens == SPEC_NEW and res.finish_reason == "length",
+                   f"{name}/{rid}: {res.output_tokens} tokens, finish {res.finish_reason}")
+        expect(r["lanes"]["stop"][0] == 0, f"{name}: the stop-string lane rode a verify block")
+        if L_draft:  # a draft model always proposes
+            expect(all(r["lanes"][rid][1] > 0 for rid in ("rep", "plain", "hot")),
+                   f"{name}: a lane drafted nothing: {r['lanes']}")
+        emitted = sum(res.output_tokens for res in r["results"].values())
+        same = {rid: res.token_ids == base[rid].token_ids for rid, res in r["results"].items()
+                if rid != "hot"}
+        row = dict(wall_s=r["wall_s"], ms_per_token=r["wall_s"] * 1e3 / emitted,
+                   tok_s=emitted / r["wall_s"], drafted=r["drafted"], accepted=r["accepted"],
+                   acceptance=r["accepted"] / r["drafted"] if r["drafted"] else None,
+                   lanes=r["lanes"], verify_calls=r["stats"]["verify_calls"],
+                   decode_columns=r["stats"]["decode_columns"],
+                   greedy_equal_nospec=same, launches=r["launches"],
+                   verify_graphs=r["loads"]["verify_graphs"],
+                   verify_capture_s=r["loads"]["verify_capture_s"],
+                   verify_capture_bytes=r["loads"]["verify_capture_bytes"])
+        if "timing" in r:
+            row.update(r["timing"], name=name)
+        out[name] = row
+        if strict:
+            expect(all(same.values()), f"{name}: greedy streams differ from the "
+                                       f"non-speculative run: {same}")
+    for on, off in (("graphs", "graphs_sync"), ("draft_1b", "draft_1b_sync")):
+        expect(runs[on]["results"]["hot"].token_ids == runs[off]["results"]["hot"].token_ids,
+               f"the temperature-0.8 stream differs with overlap on and off ({on}, {off})")
+    out["hot_graphs_vs_eager_equal"] = (runs["graphs"]["results"]["hot"].token_ids
+                                        == runs["eager"]["results"]["hot"].token_ids)
+    if strict:
+        for rid in base:
+            if rid != "hot":
+                expect(runs["graphs"]["results"][rid].token_ids
+                       == runs["eager"]["results"][rid].token_ids,
+                       f"{rid}: graph and eager streams differ")
+        sd = [runs["self_draft"]["lanes"][rid] for rid in ("rep", "plain")]
+        drafted, accepted = sum(t[1] for t in sd), sum(t[2] for t in sd)
+        expect(accepted >= 0.9 * drafted,
+               f"self-draft tier accepted {accepted} of {drafted} greedy drafts")
+    nospec_ms = out["nospec"]["ms_per_token"]
+    for name in ("graphs", "self_draft", "draft_1b"):
+        row = out[name]
+        row["speedup_vs_nospec"] = nospec_ms / row["ms_per_token"]
+        print(f"  [{card}] {label} spec {name}: {row['ms_per_token']:.3f} ms/token, "
+              f"{row['tok_s']:.2f} tok/s (non-spec {nospec_ms:.3f} ms/token, "
+              f"{out['nospec']['tok_s']:.2f} tok/s; x{row['speedup_vs_nospec']:.3f}), "
+              f"acceptance {row['accepted']}/{row['drafted']}"
+              f" = {row['acceptance'] if row['acceptance'] is None else round(row['acceptance'], 4)}"
+              f", verify blocks {row['verify_calls']}, rest columns {row['decode_columns']}"
+              f"; per lane [blocks, drafted, accepted] {row['lanes']}")
+    # the n-gram tier may draft nothing on random weights (no graph then)
+    t = next((out[n] for n in ("graphs", "self_draft", "draft_1b") if "verify_ms" in out[n]),
+             {})
+    if t:
+        print(f"  [{label}] verify timing from the {t['name']} run")
+        print(f"  [{card}] {label} verify block {t['verify_shape']}: {t['verify_ms']:.3f} ms "
+              "device" + (f", one decode column {t['decode_shape']}: "
+                          f"{t['decode_ms_per_column']:.3f} ms (x{t['verify_over_column']:.3f})"
+                          if "decode_ms_per_column" in t else "")
+              + f"; verify graphs {t['verify_graphs']}, capture {t['verify_capture_s']:.3f} s, "
+                f"{t['verify_capture_bytes']} bytes; profiled {t['verify_profile_ms']:.3f} ms "
+                "a block, by kernel:")
+        for kname, ms in t["verify_top"]:
+            print(f"    {ms:8.3f} ms/block  {kname}")
+    for name, row in out.items():
+        if isinstance(row, dict) and "greedy_equal_nospec" in row:
+            print(f"  [{label}] {name}: greedy streams equal to non-spec "
+                  f"{row['greedy_equal_nospec']}")
+    if failures:
+        raise AssertionError(f"[{label}] speculation checks failed: {failures}")
+    return out
+
+
 def phase_engine(dev, card: str) -> dict:
     import dataclasses
 
@@ -2406,6 +2788,9 @@ def phase_engine(dev, card: str) -> dict:
     print("phase 6: the request-policy layer over HTTP, bf16")
     out["policy_bf16"] = phase_policy(cfg, params, dev, card, "bf16", strict=False,
                                       bare=out["serve_bf16"])
+    print("phase 7: speculative decoding, bf16")
+    out["spec_bf16"] = phase_spec(cfg, params, dev, card, "bf16", strict=False)
+    out["serve_speculative"] = check_serve_speculative()
     # the same requests on the same weights widened to float32, with float32
     # KV: the three paths differ only in summation order, so the logits
     # agree tightly and the greedy streams match
@@ -2441,6 +2826,8 @@ def phase_engine(dev, card: str) -> dict:
     print("phase 6: the request-policy layer over HTTP, float32 (widened weights)")
     out["policy_f32"] = phase_policy(cfg32, params, dev, card, "f32", strict=True,
                                      bare=out["serve_f32"])
+    print("phase 7: speculative decoding, float32 (widened weights)")
+    out["spec_f32"] = phase_spec(cfg32, params, dev, card, "f32", strict=True)
     del params
     torch.cuda.empty_cache()
     out["preemption"] = phase_preempt(dev)
@@ -2522,6 +2909,8 @@ def main(argv=None) -> int:
             # the main path's first hop is the gateway: its HTTP run (bf16)
             launches=engine["serve_bf16"]["launches"][name],
             launches_engine=engine["launches"][name],
+            # phase 7's serving path (the n-gram tier, bf16)
+            launches_spec=engine["spec_bf16"]["graphs"]["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],

@@ -4,8 +4,8 @@ The port's copy of the ``serve`` subcommand of ``smg_tpu/cli.py``: one
 PyTorch engine in process behind the gateway.  Engines run on the card;
 ``--device cpu`` is the only way onto the CPU.  The request-policy flags
 (auth, rate limits, priority admission, the request timeout, CORS, parsers,
-harmony, SLO specs and OTel export) carry the reference's names and
-defaults.  ``launch``, ``worker``, gRPC, mesh, discovery, storage, MCP and
+harmony, SLO specs and OTel export) and the speculation flags carry the
+reference's names and defaults.  ``launch``, ``worker``, gRPC, mesh, discovery, storage, MCP and
 plugins are not ported yet.
 """
 
@@ -106,6 +106,27 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--adaptive-horizon", default="off", choices=["on", "off"])
     e.add_argument("--decode-horizon-max", type=int, default=0)
     e.add_argument("--overlap-schedule", default="on", choices=["on", "off"])
+    e.add_argument("--speculative", action="store_true",
+                   help="speculative decoding: per-request n-gram prompt-lookup "
+                        "drafts (or a draft model via --draft-model-preset) "
+                        "verified as one fused batched device block per step; "
+                        "greedy output stays token-identical, sampling uses "
+                        "distribution-preserving rejection sampling")
+    e.add_argument("--speculative-tier", default="auto",
+                   choices=["auto", "ngram", "draft"], dest="speculative_tier",
+                   help="drafting tier: 'auto' = draft model when configured "
+                        "else n-gram lookup; 'ngram' pins the prompt-lookup "
+                        "tier; 'draft' requires a draft model")
+    e.add_argument("--spec-max-draft-tokens", "--spec-max-draft", type=int,
+                   default=8, dest="spec_max_draft",
+                   help="max drafted tokens verified per device block (the "
+                        "verify block is one wider)")
+    e.add_argument("--draft-model-path", default=None, dest="draft_model_path",
+                   help="HF-format dir of a draft model: refused until "
+                        "checkpoint loading is ported")
+    e.add_argument("--draft-model-preset", default=None, dest="draft_model_preset",
+                   help="named preset for the draft model (random weights "
+                        "from the draft seed)")
     e.add_argument("--max-queued-requests", type=int, default=0)
     e.add_argument("--max-queued-tokens", type=int, default=0)
     e.add_argument("--step-watchdog-secs", type=float, default=0.0,

@@ -1,7 +1,7 @@
 """Engine configuration — the port's own copy of the parts of
 ``smg_tpu/engine/config.py`` this engine reads (cache layout, the
-continuous-batching scheduler knobs it implements, engine identity, failure
-isolation and the flight ring)."""
+continuous-batching scheduler knobs it implements, speculative decoding,
+engine identity, failure isolation and the flight ring)."""
 
 from __future__ import annotations
 
@@ -56,6 +56,19 @@ class SchedulerConfig:
     # previous one's tokens are fetched; streams stay byte-identical to the
     # synchronous schedule
     overlap_schedule: bool = True
+    # speculative decoding (engine/speculative.py, engine/draft.py and the
+    # runner's verify block): eligible lanes draft up to spec_max_draft
+    # tokens on the host and verify them in one batched forward with the
+    # acceptance on the device — greedy chains at temperature 0, rejection
+    # sampling above it.  Steps where nothing drafts take the megastep.
+    speculative: bool = False
+    spec_max_draft: int = 8
+    spec_ngram_max: int = 3
+    spec_ngram_min: int = 1
+    # drafting tier: "auto" uses the draft model when one is configured
+    # (EngineConfig.draft_model) and n-grams otherwise; "ngram" pins the
+    # n-gram tier; "draft" requires a draft model
+    speculative_tier: str = "auto"
 
     def __post_init__(self) -> None:
         if self.max_batch_size < 1 or self.max_prefill_tokens < 1:
@@ -66,6 +79,11 @@ class SchedulerConfig:
             raise ValueError("decode_horizon must be >= 1")
         if self.decode_horizon_max and self.decode_horizon_max < self.decode_horizon:
             raise ValueError("decode_horizon_max must be 0 or >= decode_horizon")
+        if self.speculative_tier not in ("auto", "ngram", "draft"):
+            raise ValueError("speculative_tier must be 'auto', 'ngram', or 'draft', "
+                             f"got {self.speculative_tier!r}")
+        if self.spec_max_draft < 1:
+            raise ValueError("spec_max_draft must be >= 1")
 
     @property
     def horizon_cap(self) -> int:
@@ -89,6 +107,11 @@ class EngineConfig:
     # at first use per bucket); False launches every column eagerly.  The
     # CPU always runs eagerly.
     decode_graphs: bool = True
+    # speculative draft model (engine/draft.py): a smaller ModelConfig whose
+    # greedy proposals replace n-gram lookup, with random weights from
+    # draft_seed unless the engine is given draft_params; None = n-grams
+    draft_model: ModelConfig | None = None
+    draft_seed: int = 1
     # serving identity (the model name the gateway lists)
     model_id: str = "smg-tpu-model"
     # ---- failure isolation (the reference's defaults) ----

@@ -2,7 +2,8 @@
 results + the background step loop (port of ``smg_tpu/engine/engine.py``:
 ``submit``, ``abort``, ``step``, ``generate``, ``start``/``stop``,
 ``loads``, ``audit``, ``flush_cache``, ``healthy``, ``dump_flight``,
-``metrics`` and ``events``).
+``metrics`` and ``events``), with the draft-model proposer installed when
+``config.draft_model`` is set.
 
 Entry points run on the card: ``device=None`` means CUDA, and a machine
 without one raises.  ``start()`` runs ``step()`` on a loop thread while
@@ -28,14 +29,17 @@ import time
 import uuid
 from dataclasses import dataclass, field
 
+import torch
+
 from smg_tpu_torch.constrained import JsonMachine, TokenFilter
 from smg_tpu_torch.engine.config import EngineConfig
 from smg_tpu_torch.engine.detokenize import IncrementalDecoder, StopStringChecker
 from smg_tpu_torch.engine.events import KvEventPublisher
 from smg_tpu_torch.engine.metrics import EngineMetrics
 from smg_tpu_torch.engine.request import EngineRequest, StepOutput
-from smg_tpu_torch.engine.runner import ModelRunner
+from smg_tpu_torch.engine.runner import ModelRunner, resolve_device
 from smg_tpu_torch.engine.scheduler import Scheduler
+from smg_tpu_torch.models.llama import init_params
 from smg_tpu_torch.protocols.sampling import SamplingParams
 from smg_tpu_torch.utils import get_logger
 
@@ -73,10 +77,22 @@ class GenerationResult:
 
 class Engine:
     def __init__(self, config: EngineConfig, params: dict | None = None, device=None,
-                 attention: str = "kernel", tokenizer=None):
+                 attention: str = "kernel", tokenizer=None, draft_params: dict | None = None):
+        """``draft_params`` gives the draft model (``config.draft_model``)
+        its weights; without them they are random, from ``draft_seed``."""
+        if config.scheduler.speculative_tier == "draft" and config.draft_model is None:
+            raise ValueError("scheduler.speculative_tier 'draft' requires a configured "
+                             "draft model (EngineConfig.draft_model)")
         self.config = config
         self.tokenizer = tokenizer
         self.events = KvEventPublisher()
+        if config.draft_model is not None and draft_params is None:
+            # the draft's weights go on the device before the runner sizes
+            # the KV caches from the memory left
+            dev = resolve_device(device)
+            draft_params = init_params(
+                config.draft_model, torch.Generator(device=dev).manual_seed(config.draft_seed),
+                dev)
         self.runner = ModelRunner(config, params=params, device=device, attention=attention)
         # the engine's own registry; the gateway also registers it into its
         # registry, so /metrics is one scrape
@@ -84,6 +100,16 @@ class Engine:
         self.metrics.set_mesh_devices(1)
         self.scheduler = Scheduler(self.runner, config, event_sink=self.events.publish,
                                    metrics=self.metrics)
+        if config.draft_model is not None:
+            from smg_tpu_torch.engine.draft import DraftRunner
+
+            self.scheduler.draft = DraftRunner(
+                config.draft_model, num_pages=self.runner.spec.num_pages,
+                page_size=self.runner.spec.page_size,
+                dtype=config.cache.dtype,  # the draft cache follows the KV dtype
+                params=draft_params, device=self.runner.device,
+                max_prefill_tokens=config.scheduler.max_prefill_tokens,
+                attention=attention)
         self._callbacks: dict[str, object] = {}
         self._json_filter = None  # shared TokenFilter (piece table + mask cache)
         self._grammar_filters: dict = {}  # (kind, pattern) -> TokenFilter

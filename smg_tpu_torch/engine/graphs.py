@@ -26,6 +26,13 @@ compute cap columns for every K=1 launch that pending admissions force.
 Horizons are few: powers of two under the cap, plus the adaptive
 controller's clamps.
 
+Speculative verify blocks (``runner._verify_step``) get graphs of their own,
+one per (B bucket, ``mp``, block width W): a ``VerifyStep`` holds the
+block's inputs (tokens ``[B, W]``, per-lane draft counts, entries, page
+tables, the sampling counter and parameters), all loaded at every launch,
+since a verify frame is rebuilt from the drafts of its step.  Per-lane
+draft counts ride a device tensor, so one graph serves every draft count.
+
 A graph captured on the card never falls back to eager launches: a failed
 warm-up or capture raises.
 """
@@ -110,6 +117,37 @@ class Megastep:
             self.mask.copy_(torch.from_numpy(mask), non_blocking=True)
 
 
+class VerifyStep:
+    """Persistent inputs, and the graph, of one verify-block shape."""
+
+    def __init__(self, device: torch.device, B: int, mp: int, W: int):
+        i32, i64, f32 = torch.int32, torch.int64, torch.float32
+        self.B, self.mp, self.W = B, mp, W
+        self.tokens = torch.zeros((B, W), dtype=i64, device=device)
+        self.draft_n = torch.zeros(B, dtype=i64, device=device)
+        self.entry = torch.zeros(B, dtype=i32, device=device)
+        self.counter = torch.zeros(1, dtype=i64, device=device)  # the launch's counter
+        self.page_tables = torch.zeros((B, mp), dtype=i32, device=device)
+        self.temps = torch.zeros(B, dtype=f32, device=device)
+        self.topks = torch.full((B,), -1, dtype=i64, device=device)
+        self.topps = torch.ones(B, dtype=f32, device=device)
+        self.minps = torch.zeros(B, dtype=f32, device=device)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.outputs: tuple | None = None
+        self.replay_launches = 0  # decode-kernel launches one replay runs (none)
+
+    def load(self, tokens, draft_n, positions, page_tables, temps, topks, topps, minps,
+             counter: int) -> None:
+        """Copy one launch's host inputs in, enqueued without a sync."""
+        for dst, src, dt in ((self.tokens, tokens, np.int64), (self.draft_n, draft_n, np.int64),
+                             (self.entry, positions, np.int32),
+                             (self.page_tables, page_tables, np.int32),
+                             (self.temps, temps, np.float32), (self.topks, topks, np.int64),
+                             (self.topps, topps, np.float32), (self.minps, minps, np.float32)):
+            dst.copy_(torch.from_numpy(np.ascontiguousarray(src, dt)), non_blocking=True)
+        self.counter.fill_(counter)
+
+
 class GraphCache:
     """The runner's megasteps, keyed by shape, and their capture record."""
 
@@ -117,8 +155,11 @@ class GraphCache:
         self.device = device
         self.use_graphs = use_graphs and device.type == "cuda"
         self.steps: dict[tuple, Megastep] = {}
-        self.capture_s = 0.0
+        self.verify: dict[tuple, VerifyStep] = {}
+        self.capture_s = 0.0  # all graphs
         self.capture_bytes = 0  # memory_reserved growth over warm-ups + captures
+        self.verify_capture_s = 0.0  # verify graphs alone
+        self.verify_capture_bytes = 0
         if self.use_graphs:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(device)
@@ -129,7 +170,10 @@ class GraphCache:
 
     def stats(self) -> dict:
         return {"decode_graphs": self.num_graphs, "graph_capture_s": self.capture_s,
-                "graph_capture_bytes": self.capture_bytes}
+                "graph_capture_bytes": self.capture_bytes,
+                "verify_graphs": sum(1 for s in self.verify.values() if s.graph is not None),
+                "verify_capture_s": self.verify_capture_s,
+                "verify_capture_bytes": self.verify_capture_bytes}
 
     def get(self, B: int, mp: int, K: int, E: int, use_pen: bool = False,
             use_mask: bool = False, vocab: int = 0) -> Megastep:
@@ -140,9 +184,17 @@ class GraphCache:
                                               vocab)
         return step
 
-    def run(self, step: Megastep, body) -> tuple:
-        """One launch of ``step``: ``body(step)`` computes the megastep from
-        the step's inputs and returns its output tensors.  Replays the graph
+    def get_verify(self, B: int, mp: int, W: int) -> VerifyStep:
+        key = (B, mp, W)
+        step = self.verify.get(key)
+        if step is None:
+            step = self.verify[key] = VerifyStep(self.device, B, mp, W)
+        return step
+
+    def run(self, step, body) -> tuple:
+        """One launch of ``step`` (a ``Megastep`` or a ``VerifyStep``):
+        ``body(step)`` computes it from the step's inputs and returns its
+        output tensors.  Replays the graph
         when there is one; otherwise runs ``body`` eagerly (and, with graphs
         on, captures it right after)."""
         if step.graph is not None:
@@ -171,6 +223,11 @@ class GraphCache:
         step.replay_launches = decode_attention.launches - before
         decode_attention.launches = before
         step.graph, step.outputs = graph, outputs
-        self.capture_bytes += torch.cuda.memory_reserved(self.device) - reserved0
-        self.capture_s += time.perf_counter() - t0
+        grown = torch.cuda.memory_reserved(self.device) - reserved0
+        took = time.perf_counter() - t0
+        self.capture_bytes += grown
+        self.capture_s += took
+        if isinstance(step, VerifyStep):
+            self.verify_capture_bytes += grown
+            self.verify_capture_s += took
         return out

@@ -69,19 +69,28 @@ class KvCacheSpec:
 
 
 def plan_cache(model: ModelConfig, cache: CacheConfig,
-               free_bytes: int | None = None) -> KvCacheSpec:
+               free_bytes: int | None = None,
+               draft: ModelConfig | None = None) -> KvCacheSpec:
     """Decide num_pages.  With ``auto_size`` and a known free device-memory
-    figure (``torch.cuda.mem_get_info``, taken after the weights are
-    resident), give ``hbm_utilization`` of it to KV; otherwise use the
-    configured num_pages."""
+    figure (``torch.cuda.mem_get_info``, taken after the weights, the
+    draft model's included, are resident), give ``hbm_utilization`` of it
+    to KV; otherwise use the configured num_pages.  A ``draft`` model
+    (``engine/draft.py``) keeps a cache of its own with a page for every
+    page of the target's, so each page costs both."""
     spec = KvCacheSpec(
         num_layers=model.num_layers, num_pages=cache.num_pages,
         page_size=cache.page_size, num_kv_heads=model.num_kv_heads,
         head_dim=model.head_dim, dtype=cache.dtype,
     )
     if cache.auto_size and free_bytes is not None:
+        per_page = spec.bytes_per_page
+        if draft is not None:
+            per_page += KvCacheSpec(
+                num_layers=draft.num_layers, num_pages=0, page_size=cache.page_size,
+                num_kv_heads=draft.num_kv_heads, head_dim=draft.head_dim,
+                dtype=cache.dtype).bytes_per_page
         budget = int(free_bytes * cache.hbm_utilization)
-        spec.num_pages = int(max(budget // spec.bytes_per_page, 16))
+        spec.num_pages = int(max(budget // per_page, 16))
     return spec
 
 

@@ -1,7 +1,7 @@
 """Engine-deep metrics: step-loop telemetry below the HTTP layer — the
 port's copy of ``smg_tpu/engine/metrics.py``, with the same family names.
-The speculative-decoding families are kept for a reader who expects them;
-they stay at zero until speculation is ported.
+The speculative-decoding families count each verified lane by drafting
+tier (``observe_spec``, fed by the scheduler's verify consume).
 
 Reference: ``model_gateway/src/observability/`` — the reference gateway ships
 45 ``record_*`` metric functions and exports engine counters (batch occupancy,

@@ -64,6 +64,13 @@ class EngineRequest:
     token_filter: Any = None
     # the runner's penalty row for this request's slot is current
     penalty_synced: bool = False
+    # speculative decoding: consecutive zero-acceptance verifies (back-off)
+    # and the request's incremental n-gram index (engine/speculative.py)
+    spec_cold: int = 0
+    spec_index: Any = None
+    # draft-model proposer: committed tokens mirrored into the draft KV
+    # cache so far (engine/draft.py; reset on preemption)
+    draft_len: int = 0
     sched_serial: int = -1  # admission order; decode rows follow it
 
     @property

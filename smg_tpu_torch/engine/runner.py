@@ -16,6 +16,12 @@ garbage row of padded decode rows), created at the first penalised launch
 and written only in place, since CUDA graphs hold their addresses.  The
 megastep reads the rows of its lanes, penalises each column's float32
 logits and counts each sampled token, then writes the rows back.
+
+Speculative verify blocks (``decode_spec_async``, the reference's
+``_decode_spec_fn``) score every lane's drafts in one forward, accept on the
+device and land only the accepted columns' KV; on the card each (B, mp, W)
+shape is replayed from a CUDA graph of its own, under the same
+``decode_graphs`` switch.
 """
 
 from __future__ import annotations
@@ -27,9 +33,9 @@ import numpy as np
 import torch
 
 from smg_tpu_torch.engine.config import EngineConfig
-from smg_tpu_torch.engine.graphs import GraphCache, Megastep
+from smg_tpu_torch.engine.graphs import GraphCache, Megastep, VerifyStep
 from smg_tpu_torch.engine.kv_cache import KvCacheSpec, create_kv_buffers, plan_cache
-from smg_tpu_torch.engine.sampling import apply_penalties, pick_sampler
+from smg_tpu_torch.engine.sampling import apply_penalties, pick_sampler, spec_accept_sample
 from smg_tpu_torch.models.llama import LlamaModel, init_params
 from smg_tpu_torch.ops.cuda import decode_attention
 
@@ -110,6 +116,17 @@ class DecodeLaunch:
     event: "torch.cuda.Event | None"
 
 
+@dataclass
+class SpecLaunch:
+    """A dispatched verify block: host buffers its results land in and the
+    event that marks their arrival."""
+
+    toks: torch.Tensor  # [B, W] int64 emitted rows, host
+    lps: torch.Tensor  # [B, W] float32, host
+    n_emit: torch.Tensor  # [B] int64, host: lane b's tokens are toks[b, :n_emit[b]]
+    event: "torch.cuda.Event | None"
+
+
 class ModelRunner:
     def __init__(self, config: EngineConfig, params: dict | None = None,
                  device=None, attention: str = "kernel"):
@@ -125,7 +142,8 @@ class ModelRunner:
         free = None
         if self.device.type == "cuda":
             free = torch.cuda.mem_get_info(self.device)[0]  # weights already resident
-        self.spec: KvCacheSpec = plan_cache(self.model_cfg, config.cache, free)
+        self.spec: KvCacheSpec = plan_cache(self.model_cfg, config.cache, free,
+                                            draft=config.draft_model)
         self.k_cache, self.v_cache = create_kv_buffers(self.spec, self.device)
         self.max_pages_per_seq = math.ceil(
             config.scheduler.max_seq_len / config.cache.page_size)
@@ -142,9 +160,10 @@ class ModelRunner:
         self._counts_buf: torch.Tensor | None = None
         self._pmask_buf: torch.Tensor | None = None
         # what the schedule asked of the device: forward calls, rows and
-        # tokens of prefill; megastep launches and decode columns computed
+        # tokens of prefill; megastep launches and decode columns computed;
+        # verify blocks
         self.stats = dict(prefill_calls=0, prefill_rows=0, prefill_tokens=0,
-                          decode_calls=0, decode_columns=0)
+                          decode_calls=0, decode_columns=0, verify_calls=0)
 
     # ---- sampling counter ----
 
@@ -414,6 +433,89 @@ class ModelRunner:
             # write the garbage row S, the one row duplicates may share
             self._counts_buf.index_copy_(0, st.slot_idx, counts)
         return toks_out, lps_out, steps_run
+
+    # ---- speculative verify block ----
+
+    def decode_spec_async(self, tokens, draft_n, positions, page_tables, temps, topks,
+                          topps, minps) -> SpecLaunch:
+        """Dispatch one fused verify block and return without a host sync.
+        ``tokens`` [B, W] hold each lane's last committed token, its drafts
+        and padding; ``draft_n`` [B] the lane's draft count (0 for padded
+        rows); ``positions`` [B] the entries (padded rows: ``mp *
+        page_size``, which lands their KV on the garbage page).  Consumes
+        exactly one sampling counter, the one a K=1 launch would use at
+        this step, so a discarded frame rewinds it."""
+        B, W = np.shape(tokens)
+        mp = np.shape(page_tables)[1]
+        step = self.graphs.get_verify(B, mp, W)
+        step.load(tokens, draft_n, positions, page_tables, temps, topks, topps, minps,
+                  self._consume_folds(1))
+        toks, lps, n_emit = self.graphs.run(step, self._verify_step)
+        self.stats["verify_calls"] += 1
+        if self.device.type != "cuda":
+            return SpecLaunch(toks, lps, n_emit, None)
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in (toks, lps, n_emit)]
+        for h, t in zip(host, (toks, lps, n_emit)):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return SpecLaunch(*host, event)
+
+    def spec_fetch(self, launch: SpecLaunch) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Wait for a verify block: (emitted [B, W], logprobs [B, W],
+        n_emit [B])."""
+        if launch.event is not None:
+            launch.event.synchronize()
+        return launch.toks.numpy(), launch.lps.numpy(), launch.n_emit.numpy()
+
+    def _verify_step(self, st: VerifyStep) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The verify block on ``st``'s device inputs: one forward over the
+        block, then per lane a greedy chain at temperature 0 (accept drafted
+        column c + 1 while it equals the argmax after column c; the first
+        mismatch's argmax is the correction) and ``spec_accept_sample``
+        above it; the emitted row (accepted drafts, then the bonus or the
+        correction), ``n_emit`` and each emitted token's logprob under its
+        column's raw distribution.  KV discipline: column c's K/V lands in
+        its real slot only when that token is committed (c = 0, the
+        already-committed input, or an accepted draft) and its position
+        lies within the table; every other column goes to the garbage page,
+        so a rejected draft never poisons a slot.  No host sync and no host
+        tensor, so a CUDA graph can capture it."""
+        cfg = self.model_cfg
+        B, mp, W = st.B, st.mp, st.W
+        L, KD = cfg.num_layers, cfg.num_kv_heads * cfg.head_dim
+        ps = self.spec.page_size
+        dev = self.device
+        logits, bk, bv = self.model.forward_verify_block(
+            st.tokens, st.entry, self.k_cache, self.v_cache, st.page_tables)
+        props = st.tokens[:, 1:]  # [B, W-1] drafted columns
+        greedy = st.temps <= 0.0
+        g = torch.argmax(logits, dim=-1)  # [B, W]
+        cols = torch.arange(W - 1, device=dev)[None, :]
+        match = (props == g[:, :-1]) & (cols < st.draft_n[:, None])
+        n_acc_g = torch.cumprod(match.long(), dim=1).sum(dim=1)
+        final_g = g.gather(1, n_acc_g[:, None])[:, 0]
+        safe_t = torch.where(greedy, 1.0, st.temps)  # greedy rows' samples are discarded
+        final_s, n_acc_s = spec_accept_sample(
+            logits, props, st.draft_n, self.sample_seed, st.counter + 1, safe_t,
+            st.topks, st.topps, st.minps)
+        n_acc = torch.where(greedy, n_acc_g, n_acc_s)
+        final = torch.where(greedy, final_g, final_s)
+        c = torch.arange(W, device=dev)[None, :]
+        props_pad = torch.cat([props, torch.zeros_like(props[:, :1])], dim=1)
+        emitted = torch.where(c < n_acc[:, None], props_pad, 0)
+        emitted = torch.where(c == n_acc[:, None], final[:, None], emitted)
+        lps = torch.log_softmax(logits.float(), dim=-1).gather(-1, emitted[..., None])[..., 0]
+        pos = st.entry.long()[:, None] + c
+        valid = (c <= n_acc[:, None]) & (pos < mp * ps)
+        pos_c = pos.clamp(max=mp * ps - 1)
+        page = torch.gather(st.page_tables.long(), 1, pos_c // ps)
+        dest = torch.where(valid, page * ps + pos_c % ps, 0).reshape(-1)
+        P = self.k_cache.shape[1]
+        self.k_cache.view(L, P * ps, KD).index_copy_(1, dest, bk.reshape(L, B * W, KD))
+        self.v_cache.view(L, P * ps, KD).index_copy_(1, dest, bv.reshape(L, B * W, KD))
+        return emitted, lps, n_acc + 1
 
     def flush_cache_buffers(self) -> None:
         """Zero the KV buffers in place (flush_cache, after the radix reset):

@@ -1,7 +1,7 @@
 """Batched sampling: temperature / top-k / top-p / min-p with a greedy mix,
-a grammar vocab mask, and OpenAI/HF penalties (port of
-``smg_tpu/engine/sampling.py``: ``sample_tokens``, ``sample_tokens_exact``,
-``apply_penalties``).
+a grammar vocab mask, OpenAI/HF penalties, and speculative acceptance (port
+of ``smg_tpu/engine/sampling.py``: ``sample_tokens``, ``sample_tokens_exact``,
+``apply_penalties``, ``_filtered_probs``, ``spec_accept_sample``).
 
 Same algorithm as the JAX package — no full-vocab sort: per-row probability
 thresholds come from the top ``K_CAP`` candidates, then a gumbel-argmax over
@@ -47,18 +47,24 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def gumbel_noise(seed: int, counter, B: int, V: int, device) -> torch.Tensor:
-    """[B, V] float32 gumbel noise for one sampling step.  ``counter`` is a
-    Python int or an int64 tensor of one element on ``device``; row r of
-    the result depends only on (seed, counter, r), not on B."""
+def uniform_noise(seed: int, counter, B: int, V: int, device) -> torch.Tensor:
+    """[B, V] float32 uniforms in (0, 1), never 0 or 1, for one sampling
+    step.  ``counter`` is a Python int or an int64 tensor of one element on
+    ``device``; row r of the result depends only on (seed, counter, r), not
+    on B."""
     if not torch.is_tensor(counter):
         counter = torch.tensor([counter], dtype=torch.int64, device=device)
     k1 = _mix32(counter ^ _mix32(seed & _M32))
     k2 = _mix32(k1 + _GOLDEN)
     idx = torch.arange(B * V, dtype=torch.int64, device=device).view(B, V)
     h = _mix32(_mix32(idx ^ k1) + k2)
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))  # in (0, 1), never 0 or 1
-    return -torch.log(-torch.log(u))
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def gumbel_noise(seed: int, counter, B: int, V: int, device) -> torch.Tensor:
+    """[B, V] float32 gumbel noise for one sampling step (``uniform_noise``
+    through -log(-log u))."""
+    return -torch.log(-torch.log(uniform_noise(seed, counter, B, V, device)))
 
 
 def sample_tokens(
@@ -190,3 +196,87 @@ def apply_penalties(
     rp = repetition_penalty[:, None]
     penalized = torch.where(logits > 0, logits / rp, logits * rp)
     return torch.where(seen, penalized, logits)
+
+
+# salts of the speculative acceptance's two noise streams: the acceptance
+# uniforms and the gumbel draw of the final token, both keyed by the verify
+# launch's counter and the lane's row
+_SPEC_U_SALT, _SPEC_S_SALT = 0x5BEC0001, 0x5BEC0002
+
+
+def _filtered_probs(
+    logits: torch.Tensor,  # [..., T, V]
+    temperature: torch.Tensor,  # [...] (> 0)
+    top_k: torch.Tensor,  # [...] int (-1 => disabled)
+    top_p: torch.Tensor,  # [...] (1.0 => disabled)
+    min_p: torch.Tensor,  # [...] (0.0 => disabled)
+) -> torch.Tensor:
+    """Exact sequential temperature/top-k/top-p/min-p filtering shared by a
+    request's T rows -> renormalised probs [..., T, V] (the full-sort
+    ``sample_tokens_exact`` semantics).  The leading axes batch requests:
+    each parameter has one value per request."""
+    V = logits.shape[-1]
+
+    def per_row(x):
+        return torch.as_tensor(x, device=logits.device)[..., None, None]
+
+    z = logits.float() / per_row(temperature).float().clamp(min=1e-6)
+    order = torch.argsort(-z, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1, stable=True)
+    top_k = per_row(top_k).long()
+    k_eff = torch.where(top_k <= 0, V, top_k)
+    z = torch.where(ranks < k_eff, z, NEG_INF)
+    probs = torch.softmax(z, dim=-1)
+    sorted_probs = probs.gather(-1, order)
+    cum_excl = torch.cumsum(sorted_probs, dim=-1) - sorted_probs
+    keep = (cum_excl < per_row(top_p)).gather(-1, ranks)
+    z = torch.where(keep, z, NEG_INF)
+    probs = torch.softmax(z, dim=-1)
+    max_prob = probs.max(dim=-1, keepdim=True).values
+    z = torch.where(probs >= per_row(min_p) * max_prob, z, NEG_INF)
+    return torch.softmax(z, dim=-1)
+
+
+def spec_accept_sample(
+    logits: torch.Tensor,  # [B, T, V] verify logits (row i = dist after block[:i+1])
+    proposals: torch.Tensor,  # [B, K] drafted tokens (k_real valid per lane), K = T - 1
+    k_real: torch.Tensor,  # [B] drafts per lane
+    seed: int,
+    counter,  # int, or an int64 tensor of one element: the launch's counter
+    temperature: torch.Tensor,  # [B] (> 0)
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
+    min_p: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Distribution-preserving speculative acceptance (rejection sampling
+    specialised to a deterministic draft), per lane: accept x_i with
+    probability p_i(x_i); at the first rejection sample from the residual
+    (p_i with x_i zeroed, renormalised); with every draft accepted sample
+    the bonus token from p_K.  The emitted tokens' marginal equals sampling
+    from the target's filtered distribution.
+
+    The uniforms and the categorical draw (a gumbel argmax) come from the
+    counter-hash noise, keyed by ``counter`` and the lane's row, not from
+    ``jax.random``.  Returns (final [B], n_accepted [B]): lane b commits
+    ``proposals[b, :n_accepted[b]]`` then ``final[b]``.  No host tensor
+    and no sync: graph-capturable."""
+    B, K = proposals.shape
+    T, V = logits.shape[1], logits.shape[2]
+    dev = logits.device
+    probs = _filtered_probs(logits, temperature, top_k, top_p, min_p)  # [B, T, V]
+    rows = torch.arange(K, device=dev)[None, :]
+    prop = proposals.long().clamp(0, V - 1)
+    p_prop = probs[:, :K].gather(-1, prop[..., None])[..., 0]  # [B, K]
+    u = uniform_noise(seed ^ _SPEC_U_SALT, counter, B, K, dev)
+    accept = (u < p_prop) & (rows < k_real.long()[:, None])
+    n_acc = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # [B]
+    row = probs.gather(1, n_acc.clamp(max=T - 1)[:, None, None].expand(B, 1, V))[:, 0]
+    is_bonus = n_acc >= k_real.long()
+    rejected = prop.gather(1, n_acc.clamp(max=K - 1)[:, None])  # [B, 1]
+    resid = row.scatter(1, rejected, 0.0)
+    resid_sum = resid.sum(dim=1, keepdim=True)
+    dist = torch.where((is_bonus[:, None]) | (resid_sum <= 0.0), row,
+                       resid / resid_sum.clamp(min=1e-20))
+    g = gumbel_noise(seed ^ _SPEC_S_SALT, counter, B, V, dev)
+    final = torch.argmax(torch.log(dist.clamp(min=1e-38)) + g, dim=-1)
+    return final, n_acc

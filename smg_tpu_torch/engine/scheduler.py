@@ -24,6 +24,13 @@ that keeps the reference's host logic for what it ports:
   the host after admission, preemption or a discarded launch), grammar
   vocab masks (``TokenFilter``; forced K=1 and no lookahead), stop-string
   lanes at K=1 (the engine finds the match and calls ``finish_request``);
+- speculative decoding (``speculative=True`` or a draft model): eligible
+  lanes draft on the host (per-request n-gram index, or the draft model of
+  ``engine/draft.py``) and verify as one fused device block
+  (``runner.decode_spec_async``) after the rest lanes' megastep, with the
+  verify frame in flight across steps under the overlap schedule; the
+  acceptance-EMA depth, the ``spec_cold`` back-off and the drafted and
+  accepted counts are the reference's;
 - failure isolation: a prefill that raises quarantines its request (a
   grouped prefill retries its members solo first); a decode step that
   raises blames the newest lane and retries the survivors once, and a
@@ -34,7 +41,7 @@ that keeps the reference's host logic for what it ports:
 - the flight recorder's step ring and request timelines, the engine
   metrics, and KV events from the radix cache.
 
-Not ported yet: speculation, LoRA, multimodal.  A request that cannot be
+Not ported yet: LoRA, multimodal.  A request that cannot be
 admitted even with nothing else running (its prompt needs more pages than
 the pool can free) finishes with reason ``error`` naming
 ``OutOfPagesError``.
@@ -61,7 +68,8 @@ from smg_tpu_torch.engine.request import (
     RequestStatus,
     StepOutput,
 )
-from smg_tpu_torch.engine.runner import DecodeLaunch, DecodeState, ModelRunner
+from smg_tpu_torch.engine.runner import DecodeLaunch, DecodeState, ModelRunner, SpecLaunch
+from smg_tpu_torch.engine.speculative import NgramIndex, SpecConfig, propose_ngram
 from smg_tpu_torch.faults import FAULTS
 from smg_tpu_torch.utils import get_logger
 
@@ -77,10 +85,15 @@ class InFlightFrame:
     stale in flight (abort, deadline), and the frame is dropped — its KV
     landed past each request's final ``seq_len``, which never enters the
     radix cache.  ``rng_mark`` is the sampling counter before the launch,
-    which consumed ``folds`` (= horizon) counters."""
+    which consumed ``folds`` (= horizon) counters.
+
+    A speculative verify frame (``spec``) holds a ``SpecLaunch`` (emitted
+    rows [B, W], logprobs and ``n_emit`` per lane), the block width W as
+    its horizon and one fold; ``draft_ns`` and ``tiers`` are each lane's
+    drafted-token count and drafting tier, read at consume."""
 
     lanes: list  # [(slot, EngineRequest, expected_seq_len)]
-    launch: DecodeLaunch
+    launch: DecodeLaunch | SpecLaunch
     horizon: int
     B: int  # padded batch bucket
     B_real: int
@@ -91,6 +104,9 @@ class InFlightFrame:
     lookahead: bool = False
     folds: int = 1
     use_pen: bool = False
+    spec: bool = False
+    draft_ns: list | None = None
+    tiers: list | None = None
 
 
 class Scheduler:
@@ -114,6 +130,17 @@ class Scheduler:
         self._serial = 0
         self.inflight: InFlightFrame | None = None
         self._dstate = DecodeState()
+        # draft-model proposer (engine/draft.py); the engine installs one
+        # when config.draft_model is set
+        self.draft = None
+        # speculative decoding: drafted and accepted tokens, step-scoped
+        # copies for the flight ring, and the acceptance-length EMA the
+        # adaptive depth reads (_pick_spec_depth)
+        self.num_spec_drafted = 0
+        self.num_spec_accepted = 0
+        self._step_spec_drafted = 0
+        self._step_spec_accepted = 0
+        self._spec_accept_ema = 0.0
         self.draining = False  # stop(drain=True): no new admissions
         self.num_prefill_tokens = 0
         self.num_decode_tokens = 0  # accepted decode tokens
@@ -218,6 +245,12 @@ class Scheduler:
         self._release(req, FinishInfo(reason="abort"), aborted=True)
         return True
 
+    @property
+    def spec_mode(self) -> bool:
+        """Speculative decoding is on: asked for, or a draft model is
+        installed."""
+        return self.sched.speculative or self.draft is not None
+
     def has_work(self) -> bool:
         return (bool(self.waiting) or any(s is not None for s in self.slots)
                 or self.inflight is not None)
@@ -256,6 +289,8 @@ class Scheduler:
             "queued_tokens": queued,
             "prefill_tokens": self.num_prefill_tokens,
             "decode_tokens": self.num_decode_tokens,
+            "spec_drafted": self.num_spec_drafted,
+            "spec_accepted": self.num_spec_accepted,
             "cached_prompt_tokens": self.num_cached_prompt_tokens,
             "computed_prompt_tokens": self.num_computed_prompt_tokens,
             "cache_hit_rate": (self.num_cached_prompt_tokens / total_prompt
@@ -333,6 +368,8 @@ class Scheduler:
         self._step_fetch_s = 0.0
         self._step_horizon = 0
         self._step_dispatch_s = 0.0
+        self._step_spec_drafted = 0
+        self._step_spec_accepted = 0
         pf0, dc0 = self.num_prefill_tokens, self.num_decode_tokens
         we0, ee0 = self.num_wasted_decode_tokens, self.num_megastep_early_exits
         t0 = time.perf_counter()
@@ -366,6 +403,8 @@ class Scheduler:
                 horizon=self._step_horizon,
                 early_exits=self.num_megastep_early_exits - ee0,
                 wasted_decode_tokens=self.num_wasted_decode_tokens - we0,
+                spec_drafted=self._step_spec_drafted,
+                spec_accepted=self._step_spec_accepted,
             )
             self.flush_pending_dumps()
         return outputs
@@ -383,12 +422,19 @@ class Scheduler:
     def _step_inner(self, outputs: list[StepOutput]) -> None:
         """Deadline sweep, the prefill phase under the token budget, and
         decode — pipelined (the next megastep launched before this one's
-        tokens are fetched) or synchronous."""
+        tokens are fetched) or synchronous.  Speculative mode runs its own
+        pipelined schedule (``_step_spec``): drafting needs the last step's
+        accepted tokens on the host, so there is no chained lookahead, but
+        the verify frame stays in flight across steps."""
         m = self.metrics
         self._expire_deadlines(outputs)
         pf0, dc0 = self.num_prefill_tokens, self.num_decode_tokens
         t0 = time.perf_counter()
-        if self.sched.overlap_schedule:
+        if self.sched.overlap_schedule and self.spec_mode:
+            admit_s, fetch_s, outcome = self._step_spec(outputs)
+            self._step_outcome = outcome
+            self._step_fetch_s += fetch_s
+        elif self.sched.overlap_schedule:
             admit_s, fetch_s, outcome = self._step_overlap(outputs)
             self._step_outcome = outcome
             self._step_fetch_s += fetch_s
@@ -644,7 +690,10 @@ class Scheduler:
 
     def _frame_stale(self, frame: InFlightFrame) -> bool:
         """True when the frame no longer matches the sync schedule: a lane
-        was released or the decode lane set changed."""
+        was released or the decode lane set changed.  A verify frame never
+        belongs to this pipeline (an overlap-mode switch mid-run)."""
+        if frame.spec:
+            return True
         active = self._decode_active()
         if len(active) != len(frame.lanes):
             return True
@@ -1039,10 +1088,20 @@ class Scheduler:
 
     def _decode(self, outputs: list[StepOutput]) -> None:
         """Synchronous decode: launch one megastep and consume it in-step
-        (the pipeline calls the same halves with a frame between)."""
+        (the pipeline calls the same halves with a frame between).
+        Speculative mode runs the phase order of the pipelined
+        ``_step_spec`` (rest megastep, then the verify block) with the frame
+        consumed in-step, which keeps overlap on and off byte-identical."""
         active = self._decode_active()
         if not active:
             return
+        if self.spec_mode:
+            self._spec_phase(outputs, pipelined=False)
+            return
+        self._decode_batch(active, outputs)
+
+    def _decode_batch(self, active: list, outputs: list[StepOutput]) -> None:
+        """Launch one megastep for ``active`` and consume it in-step."""
         frame = self._launch_frame(active)
         if frame is not None:
             try:
@@ -1202,6 +1261,270 @@ class Scheduler:
             horizon=horizon, B=B, B_real=B_real, mp_b=mp_b, positions=positions,
             lane_sig=sig, rng_mark=mark, folds=horizon, use_pen=use_pen)
 
+    # ---- speculative decoding (two-tier drafting + fused batched verify) ----
+    #
+    # Eligible lanes draft on the host — the per-request n-gram index by
+    # default, the draft model when one is installed — and every lane that
+    # proposed verifies in one fused block (``runner.decode_spec_async``):
+    # all drafted positions scored in one forward, acceptance on the
+    # device, rejected columns' KV on the garbage page.  Under the overlap
+    # schedule the verify frame stays in flight across steps (launched at
+    # the end of step N, consumed at the top of step N+1) and rides the
+    # frame staleness and rewind machinery, so abort, deadline and
+    # quarantine discard it and rewind its sampling counter.  Lanes that
+    # propose nothing take the megastep at the controller's full horizon.
+
+    def _partition_spec(self, active: list) -> tuple[list, list]:
+        """Split decode lanes into (spec-eligible, rest).  Eligible means
+        unconstrained, penalty-free, no logprobs, no stop strings (an
+        engine-layer match would roll back a block's emissions; such lanes
+        stay on the K=1 megastep), with output.  The reference's LoRA and
+        pipeline-parallel exclusions have nothing to exclude here.
+        Membership is static per request."""
+        eligible, rest = [], []
+        for slot, req in active:
+            sp = req.sampling
+            ok = (req.token_filter is None and not sp.has_penalties and not sp.logprobs
+                  and not sp.stop and bool(req.output_ids))
+            (eligible if ok else rest).append((slot, req))
+        return eligible, rest
+
+    def _spec_tier(self) -> str:
+        """The drafting tier: the draft model when installed (unless the
+        configuration pins "ngram"), prompt-lookup n-grams otherwise."""
+        if self.draft is not None and self.sched.speculative_tier in ("auto", "draft"):
+            return "draft"
+        return "ngram"
+
+    def _pick_spec_depth(self, eligible: list) -> int:
+        """This launch's draft depth: capped at ``spec_max_draft``; in
+        adaptive mode one past the acceptance-length EMA (deep drafts on a
+        cold context waste verify columns); halved until growing every
+        eligible lane depth + 1 tokens fits the free pool (speculation never
+        forces an eviction cascade)."""
+        sched = self.sched
+        d = max(1, sched.spec_max_draft)
+        if sched.adaptive_horizon and self._spec_accept_ema > 0.0:
+            d = min(d, int(self._spec_accept_ema) + 2)
+        while d > 1:
+            need = 0
+            for _, r in eligible:
+                limit = min(r.seq_len + d + 1, sched.max_seq_len)
+                have = len(r.shared_pages) + len(r.owned_pages)
+                need += max(0, math.ceil(limit / self.ps) - have)
+            if need <= self.pool.free_count:
+                break
+            d //= 2
+        return d
+
+    def _collect_drafts(self, eligible: list) -> dict:
+        """Per-lane proposals: {slot: (proposals, tier)}.  The draft-model
+        tier ensures KV capacity before proposing (the draft writes through
+        the same page table); the n-gram tier is a host lookup.  Lanes in
+        acceptance back-off (``spec_cold``) or out of room propose nothing
+        and take the rest megastep."""
+        cfg = SpecConfig(enabled=True, max_draft=self.sched.spec_max_draft,
+                         ngram_max=self.sched.spec_ngram_max,
+                         ngram_min=self.sched.spec_ngram_min)
+        depth = self._pick_spec_depth(eligible)
+        tier = self._spec_tier()
+        room = min(self.sched.max_seq_len, self.mp * self.ps)
+        out: dict = {}
+        for slot, req in eligible:
+            if self.slots[slot] is not req:
+                continue  # preempted as a peer's victim
+            k = min(depth, max(0, room - req.seq_len - 1))
+            if k <= 0 or req.spec_cold >= 3:
+                out[slot] = ([], None)
+                continue
+            if tier == "draft":
+                if not self._ensure_seq_capacity(req, k + 1) or self.slots[slot] is not req:
+                    continue  # preempted
+                pt = self.page_tables[slot]
+                self.draft.ensure_context(req, pt)
+                proposals = self.draft.propose(req.output_ids[-1], req.seq_len, pt, k)
+            else:
+                index = req.spec_index if req.spec_index is not None \
+                    else self._new_spec_index(req, cfg)
+                proposals = propose_ngram(req.all_token_ids, cfg, index=index)[:k]
+            out[slot] = (proposals, tier if proposals else None)
+        return out
+
+    def _spec_phase(self, outputs: list[StepOutput], pipelined: bool) -> None:
+        """The decode phase in speculative mode, in the same order in both
+        schedules: draft (a capacity ensure may preempt), the rest lanes'
+        megastep, then the verify launch — left in flight when
+        ``pipelined``, consumed in-step otherwise."""
+        active = self._decode_active()
+        if not active:
+            return
+        eligible, rest = self._partition_spec(active)
+        drafts = self._collect_drafts(eligible) if eligible else {}
+        drafting = [(i, r) for i, r in eligible if drafts.get(i, ([], None))[0]]
+        rest += [(i, r) for i, r in eligible if not drafts.get(i, ([], None))[0]]
+        rest.sort(key=lambda t: t[1].sched_serial)  # rows follow admission order
+        rest = [(i, r) for i, r in rest
+                if self.slots[i] is r and r.status is RequestStatus.RUNNING]
+        if rest:
+            self._decode_batch(rest, outputs)
+        drafting = [(i, r) for i, r in drafting
+                    if self.slots[i] is r and r.status is RequestStatus.RUNNING
+                    and not r.is_finished]
+        if not drafting:
+            return
+        frame = self._launch_spec_frame(drafting, drafts, pipelined)
+        if frame is None:
+            return
+        if pipelined:
+            self.inflight = frame
+            return
+        try:
+            self._step_fetch_s += self._consume_spec_frame(frame, outputs)
+        except Exception:
+            # left for the quarantine handler's drop_inflight, which rewinds
+            # the launch's counter before any retry samples
+            self.inflight = frame
+            raise
+
+    def _launch_spec_frame(self, drafting: list, drafts: dict,
+                           pipelined: bool) -> InFlightFrame | None:
+        """Dispatch one verify block for the lanes that proposed: pages for
+        every lane's drafts and bonus first, then a re-filter (a later
+        lane's ensure may preempt an earlier one)."""
+        FAULTS.fire("engine.decode_step", rids=",".join(r.rid for _s, r in drafting))
+        survivors = []
+        for slot, req in drafting:
+            props, tier = drafts.get(slot, ([], None))
+            if self._ensure_seq_capacity(req, len(props) + 1):
+                survivors.append((slot, req, props, tier))
+        lanes = [(slot, req, props, tier) for slot, req, props, tier in survivors
+                 if self.slots[slot] is req and req.status is RequestStatus.RUNNING]
+        if not lanes:
+            return None
+        B_real = len(lanes)
+        B = self.sched.decode_bucket(B_real)
+        W = max(2, self.sched.spec_max_draft + 1)  # the block width
+        mp_b = self._mp_bucket(max(
+            math.ceil(min(r.seq_len + len(p) + 1, self.sched.max_seq_len) / self.ps)
+            for _s, r, p, _t in lanes))
+        tokens = np.zeros((B, W), np.int64)
+        draft_n = np.zeros(B, np.int64)
+        positions = np.full(B, mp_b * self.ps, np.int32)  # padded rows -> garbage page
+        temps = np.zeros(B, np.float32)
+        topks = np.full(B, -1, np.int64)
+        topps = np.ones(B, np.float32)
+        minps = np.zeros(B, np.float32)
+        page_tables = np.zeros((B, mp_b), np.int32)
+        for idx, (slot, req, props, _tier) in enumerate(lanes):
+            sp = req.sampling
+            tokens[idx, 0] = req.output_ids[-1]
+            tokens[idx, 1:1 + len(props)] = props
+            draft_n[idx] = len(props)
+            positions[idx] = req.seq_len
+            temps[idx], topks[idx], topps[idx], minps[idx] = (
+                sp.temperature, sp.top_k, sp.top_p, sp.min_p)
+            page_tables[idx] = self.page_tables[slot][:mp_b]
+        mark = self.runner.rng_mark()
+        t_dispatch = time.perf_counter()
+        launch = self.runner.decode_spec_async(tokens, draft_n, positions, page_tables,
+                                               temps, topks, topps, minps)
+        self._note_dispatch(time.perf_counter() - t_dispatch)
+        return InFlightFrame(
+            lanes=[(s, r, r.seq_len) for s, r, _p, _t in lanes], launch=launch,
+            horizon=W, B=B, B_real=B_real, mp_b=mp_b, positions=positions, lane_sig=(),
+            rng_mark=mark, lookahead=pipelined, folds=1, spec=True,
+            draft_ns=[len(p) for _s, _r, p, _t in lanes], tiers=[t for *_x, t in lanes])
+
+    def _spec_frame_stale(self, frame: InFlightFrame) -> bool:
+        """Per-lane staleness of an in-flight verify frame: a lane that
+        vanished or moved (deadline, abort, quarantine, preemption)
+        discards it.  Membership cannot grow between launch and consume,
+        since ``_step_spec`` consumes before the step's admissions."""
+        if not frame.spec:
+            return True
+        return any(self.slots[slot] is not req or req.status is not RequestStatus.RUNNING
+                   or req.is_finished or req.seq_len != expected
+                   for slot, req, expected in frame.lanes)
+
+    def _consume_spec_frame(self, frame: InFlightFrame, outputs: list[StepOutput]) -> float:
+        """The deferred fetch and per-lane acceptance of one verify block;
+        returns the seconds blocked on the device.  Each lane's emitted run
+        is its accepted drafts and the bonus or correction, and
+        ``_accept_tokens`` cuts it at that lane's own finish: a finish in
+        one lane never trims another's."""
+        FAULTS.fire("engine.device_fetch", rids=",".join(r.rid for _s, r, _e in frame.lanes))
+        t0 = time.perf_counter()
+        toks, lps, n_emit = self.runner.spec_fetch(frame.launch)
+        fetch_s = time.perf_counter() - t0
+        self.fetch_wait_s_total += fetch_s
+        if frame.lookahead:
+            self.num_lookahead_kept += 1
+        m = self.metrics
+        for idx, (_slot, req, expected) in enumerate(frame.lanes):
+            n = int(n_emit[idx])
+            drafted = frame.draft_ns[idx]
+            accepted = max(0, min(n - 1, drafted))
+            if drafted:
+                self.num_spec_drafted += drafted
+                self.num_spec_accepted += accepted
+                self._step_spec_drafted += drafted
+                self._step_spec_accepted += accepted
+                # rejected verify columns were computed but never emitted
+                self.num_wasted_decode_tokens += drafted - accepted
+                req.spec_cold = 0 if accepted else req.spec_cold + 1
+                self._spec_accept_ema = (float(accepted) if self._spec_accept_ema == 0.0
+                                         else 0.8 * self._spec_accept_ema + 0.2 * accepted)
+                if m is not None:
+                    m.observe_spec(frame.tiers[idx] or "ngram", drafted, accepted)
+            before = len(req.output_ids)
+            self._accept_tokens(req, [int(t) for t in toks[idx][:n]],
+                                [float(x) for x in lps[idx][:n]], outputs, advance_seq=True)
+            kept = len(req.output_ids) - before
+            self.num_decode_tokens += kept
+            # emitted past a finish inside the accepted run: computed, dropped
+            self.num_wasted_decode_tokens += n - kept
+            if drafted and self.draft is not None and not req.is_finished:
+                # the draft was fed [y0, drafts...] from the entry: its KV
+                # covers y0 and the accepted drafts, capped at the fed range
+                # and the committed length (wrong coverage only costs
+                # acceptance, never correctness)
+                req.draft_len = min(expected + 1 + accepted, expected + drafted, req.seq_len)
+        return fetch_s
+
+    def _step_spec(self, outputs: list[StepOutput]) -> tuple[float, float, str | None]:
+        """One pipelined speculative iteration; returns (admit_s, fetch_s,
+        outcome).  Consume the in-flight verify frame first (admission must
+        see the slots and pages its finishes freed), run the prefill phase,
+        then the spec decode phase leaves the next verify block in flight.
+        The counter order — prefill, rest megastep, verify launch — is the
+        synchronous schedule's, so streams are byte-identical to it."""
+        frame = self.inflight
+        self.inflight = None
+        fetch_s = 0.0
+        outcome = None
+        if frame is not None:
+            if self._spec_frame_stale(frame):
+                self._discard_frame(frame)
+                outcome = "discarded" if frame.lookahead else None
+            else:
+                try:
+                    fetch_s = self._consume_spec_frame(frame, outputs)
+                except Exception:
+                    # the step's handler discards it (rewinding its counter)
+                    # before the blame and retry sample again
+                    self.inflight = frame
+                    raise
+                outcome = "kept"
+        ta = time.perf_counter()
+        self._admit_budgeted(outputs)
+        admit_s = time.perf_counter() - ta
+        self._spec_phase(outputs, pipelined=True)
+        return admit_s, fetch_s, outcome
+
+    def _new_spec_index(self, req: EngineRequest, cfg: SpecConfig) -> NgramIndex:
+        req.spec_index = NgramIndex(cfg.ngram_min, cfg.ngram_max)
+        return req.spec_index
+
     # ---- preemption ----
 
     def _ensure_seq_capacity(self, req: EngineRequest, n_tokens: int) -> bool:
@@ -1270,6 +1593,7 @@ class Scheduler:
             req.radix_node = None
         req.seq_len = req.prefill_pos = req.cached_tokens = 0
         req.penalty_synced = False  # re-derive the counts on readmission
+        req.draft_len = 0  # the draft cache's rows went with the pages
         req.status = RequestStatus.PREEMPTED
         self.waiting.appendleft(req)
 

@@ -23,7 +23,9 @@ logger = get_logger("gateway.launch")
 
 def build_engine_from_args(args):
     """A port ``Engine`` from the parsed ``serve`` flags: random weights
-    from ``seed`` for the preset, on ``--device`` (the card by default)."""
+    from ``seed`` for the preset, on ``--device`` (the card by default).
+    A draft model comes from ``--draft-model-preset``; ``--draft-model-path``
+    is refused, as the port has no checkpoint loader yet."""
     from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
     from smg_tpu_torch.engine.engine import Engine
     from smg_tpu_torch.models.config import PRESETS
@@ -33,6 +35,19 @@ def build_engine_from_args(args):
         raise SystemExit(f"unknown --model-preset {args.model_preset!r}; "
                          f"known: {sorted(PRESETS)}")
     model = dataclasses.replace(PRESETS[args.model_preset](), dtype=args.dtype)
+    if args.draft_model_path:
+        raise SystemExit("--draft-model-path needs checkpoint loading, which is not "
+                         "ported yet (no checkpoint loader in smg_tpu_torch); use "
+                         "--draft-model-preset")
+    draft_model = None
+    if args.draft_model_preset:
+        if args.draft_model_preset not in PRESETS:
+            raise SystemExit(f"unknown --draft-model-preset {args.draft_model_preset!r}; "
+                             f"known: {sorted(PRESETS)}")
+        draft_model = dataclasses.replace(PRESETS[args.draft_model_preset](),
+                                          dtype=args.dtype)
+    if args.speculative_tier == "draft" and draft_model is None:
+        raise SystemExit("--speculative-tier draft needs --draft-model-preset")
     cfg = EngineConfig(
         model=model,
         cache=CacheConfig(
@@ -50,7 +65,11 @@ def build_engine_from_args(args):
             overlap_schedule=args.overlap_schedule != "off",
             max_queued_requests=args.max_queued_requests,
             max_queued_tokens=args.max_queued_tokens,
+            speculative=args.speculative,
+            spec_max_draft=args.spec_max_draft,
+            speculative_tier=args.speculative_tier,
         ),
+        draft_model=draft_model,
         model_id=args.model_preset,
         step_watchdog_secs=args.step_watchdog_secs,
         flight_ring_size=args.flight_ring_size,

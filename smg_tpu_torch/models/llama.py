@@ -12,7 +12,9 @@ through the prefill kernel and every decode column through the decode
 kernel (``ops/cuda/``; on CPU tensors their wrappers compute the plain
 version).  ``attention="plain"`` runs the plain PyTorch versions
 (``ops/attention.py``) on any device — the reference the card checks the
-kernels against end to end.
+kernels against end to end.  The speculative verify block and the compat
+decode of the draft proposer run torch attention ops in either mode: the
+reference computes them in XLA, with no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +26,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from smg_tpu_torch.models.config import ModelConfig
-from smg_tpu_torch.ops.attention import attention_decode_cached, scatter_kv_pages_full
+from smg_tpu_torch.ops.attention import (
+    attention_decode,
+    attention_decode_cached,
+    attention_verify_block,
+    scatter_kv_pages_full,
+)
 from smg_tpu_torch.ops.cuda.decode_attention import paged_attention_decode_cached
 from smg_tpu_torch.ops.cuda.prefill_attention import (
     paged_attention_prefill_batched,
@@ -280,6 +287,64 @@ class LlamaModel(nn.Module):
                 attn = paged_attention_decode_cached(*args, **kw, counters=counters)
             else:
                 attn = attention_decode_cached(*args, **kw)
+            h = self._attn_residual(l, h, attn.to(h.dtype))
+            h = self._mlp_residual(l, h)
+        return self.unembed(h)
+
+    def forward_verify_block(self, tokens, entry_positions, k_cache, v_cache, page_tables):
+        """Speculative verify block: score W tokens per lane in one forward.
+
+        ``tokens`` [B, W] (the last committed token, the drafts, padding)
+        sit at positions ``entry .. entry + W - 1``; ``entry_positions``
+        [B] int32, ``page_tables`` [B, mp] int32.  The block's K/V goes to
+        side buffers and the cache is read only: the caller scatters the
+        accepted columns once acceptance is known, so a rejected draft's KV
+        never lands in a real slot.  Returns (logits [B, W, V], bk, bv
+        [L, B, W, K*D]).  No host tensor and no sync: graph-capturable."""
+        cfg = self.cfg
+        B, W = tokens.shape
+        L, KD = cfg.num_layers, cfg.num_kv_heads * cfg.head_dim
+        pos = entry_positions.long()[:, None] + torch.arange(W, device=tokens.device)[None, :]
+        bk = torch.zeros((L, B, W, KD), dtype=k_cache.dtype, device=tokens.device)
+        bv = torch.zeros_like(bk)
+        h = self.embed_tokens(tokens)  # [B, W, E]
+        for l in range(L):
+            q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]))
+            q = apply_rope(q, pos, self.inv_freq)
+            k = apply_rope(k, pos, self.inv_freq)
+            bk[l] = k.reshape(B, W, KD).to(bk.dtype)
+            bv[l] = v.reshape(B, W, KD).to(bv.dtype)
+            attn = attention_verify_block(
+                q, k_cache, v_cache, bk[l], bv[l], l, page_tables, entry_positions,
+                self.scale, softcap=cfg.attn_logit_softcap, window=layer_window(cfg, l))
+            h = self._attn_residual(l, h, attn.to(h.dtype))
+            h = self._mlp_residual(l, h)
+        return self.unembed(h), bk, bv
+
+    def forward_decode(self, tokens, positions, k_cache, v_cache, page_tables):
+        """One decode step for the batch (the compat path the draft
+        proposer runs): ``tokens``/``positions`` [B] (position = the
+        token's own, ctx len - 1), ``page_tables`` [B, mp] int32.  Writes
+        each token's KV into the cache in place (positions past the table
+        go to the garbage page) and returns logits [B, V]."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        ps = k_cache.shape[2]
+        mp = page_tables.shape[1]
+        pos = positions.long()
+        valid = pos < mp * ps
+        pos_c = pos.clamp(max=mp * ps - 1)
+        page = torch.gather(page_tables.long(), 1, (pos_c // ps)[:, None])[:, 0]
+        dest = torch.where(valid, page * ps + pos_c % ps, 0)
+        h = self.embed_tokens(tokens)  # [B, E]
+        for l in range(cfg.num_layers):
+            q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]))
+            q = apply_rope(q[:, None], positions[:, None], self.inv_freq)[:, 0]
+            k = apply_rope(k[:, None], positions[:, None], self.inv_freq)[:, 0]
+            scatter_kv_pages_full(k_cache, v_cache, l, k, v, dest)
+            attn = attention_decode(
+                q, k_cache[l], v_cache[l], page_tables, positions, self.scale,
+                softcap=cfg.attn_logit_softcap, window=layer_window(cfg, l))
             h = self._attn_residual(l, h, attn.to(h.dtype))
             h = self._mlp_residual(l, h)
         return self.unembed(h)

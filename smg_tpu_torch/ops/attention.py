@@ -6,8 +6,11 @@ kv-head and head-dim axes fused into one trailing axis, exactly the JAX
 package's layout, so page tables, the radix cache and the tests compare like
 with like.  Page 0 is the garbage page: padded/inactive tokens scatter there.
 
-These functions are the correctness reference for the hand-written CUDA
-kernels in ``smg_tpu_torch/ops/cuda/`` and the path the CPU tests run.
+Most of these functions are the correctness reference for the hand-written
+CUDA kernels in ``smg_tpu_torch/ops/cuda/`` and the path the CPU tests run.
+Two are the port itself on every device, as they are XLA code with no
+Pallas kernel in the reference: ``attention_verify_block`` (speculative
+verify) and ``attention_decode`` (the draft model's compat decode).
 Scores are computed in f32 whatever the input dtype.
 """
 
@@ -163,4 +166,89 @@ def attention_decode_cached(
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_all.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def attention_verify_block(
+    q: torch.Tensor,  # [B, W, H, D] one verify block per lane, post-rope
+    k_cache: torch.Tensor,  # [L, P, ps, KD] read-only cache
+    v_cache: torch.Tensor,
+    bk: torch.Tensor,  # [B, W, KD] the block's own K/V (this layer)
+    bv: torch.Tensor,
+    layer: int,
+    page_tables: torch.Tensor,  # [B, mp]
+    entry_positions: torch.Tensor,  # [B] cache token count at block entry
+    scale: float,
+    softcap: float | None = None,
+    window=None,
+) -> torch.Tensor:
+    """Speculative verify attention: W query tokens per lane (the last
+    committed token and the drafted columns) against the lane's cache keys
+    below its entry plus the block's own rows, causal within the block, one
+    joint softmax.  The block's K/V lives in side buffers, not the cache:
+    the caller scatters only the accepted columns once acceptance is known.
+    The multi-query cousin of ``attention_decode_cached``, with the
+    reference's masks (a padded lane attends its all-garbage page table, as
+    in the reference; its output is discarded)."""
+    B, W, H, D = q.shape
+    L, P, ps, KD = k_cache.shape
+    K = KD // D
+    G = H // K
+    idx = page_tables.to(device=k_cache.device, dtype=torch.long)
+    kl = k_cache[layer][idx]  # [B, mp, ps, KD]
+    vl = v_cache[layer][idx]
+    S = kl.shape[1] * ps
+    k_all = torch.cat([kl.reshape(B, S, K, D), bk.reshape(B, W, K, D).to(kl.dtype)], 1)
+    v_all = torch.cat([vl.reshape(B, S, K, D), bv.reshape(B, W, K, D).to(vl.dtype)], 1)
+    qf = q.float().reshape(B, W, K, G, D)
+    scores = torch.einsum("bwkgd,bskd->bwkgs", qf, k_all.float()) * scale
+    scores = _softcap(scores, softcap)
+    entry = entry_positions.to(device=q.device, dtype=torch.long)[:, None, None]
+    j = torch.arange(S + W, device=q.device)[None, None, :]
+    w_idx = torch.arange(W, device=q.device)[None, :, None]
+    # cache key j is valid below the entry; block row i is visible to query
+    # column w iff i <= w
+    mask = torch.where(j < S, j < entry, (j - S) <= w_idx)  # [B, W, S+W]
+    if _window_on(window):
+        key_pos = torch.where(j < S, j, entry + (j - S))
+        mask = mask & (key_pos > entry + w_idx - int(window))
+    scores = torch.where(mask[:, :, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bwkgs,bskd->bwkgd", probs, v_all.float())
+    return out.reshape(B, W, H, D).to(q.dtype)
+
+
+def attention_decode(
+    q: torch.Tensor,  # [B, H, D] one new token per sequence, post-rope
+    k_pages: torch.Tensor,  # [P, ps, KD] one layer of the cache
+    v_pages: torch.Tensor,
+    page_tables: torch.Tensor,  # [B, mp]
+    positions: torch.Tensor,  # [B] position of the new token (= ctx len - 1)
+    scale: float,
+    softcap: float | None = None,
+    window=None,
+) -> torch.Tensor:
+    """Batched single-token attention over paged KV whose new token is
+    already in the cache (the compat decode the draft model's proposer
+    runs): keys at positions <= the token's own, GQA-aware."""
+    B, H, D = q.shape
+    P, ps, KD = k_pages.shape
+    K = KD // D
+    G = H // K
+    idx = page_tables.to(device=k_pages.device, dtype=torch.long)
+    k = k_pages[idx]  # [B, mp, ps, KD]
+    v = v_pages[idx]
+    S = k.shape[1] * ps
+    qf = q.float().reshape(B, K, G, D)
+    scores = torch.einsum("bkgd,bskd->bkgs", qf, k.reshape(B, S, K, D).float()) * scale
+    scores = _softcap(scores, softcap)
+    pos = positions.to(device=q.device, dtype=torch.long)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = j <= pos
+    if _window_on(window):
+        mask = mask & (j > pos - int(window))
+    scores = torch.where(mask[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.reshape(B, S, K, D).float())
     return out.reshape(B, H, D).to(q.dtype)

@@ -1,10 +1,12 @@
 """The engine gate on the port: ``benches/bench_engine.py`` scenarios 1-3
 driven through the port's ``Engine`` with the background loop
 (``start()``), output callbacks from the loop thread and ``flush_cache``,
-on weights bridged from the same JAX seed.  Scenario 3's stream is its
-non-speculative twin's (the bench asserts the two identical).  The digest
-of every generated token id must equal the bench's ``stream_fingerprint``
-on this tree."""
+on weights bridged from the same JAX seed.  Scenario 3 runs through a
+speculative engine (``speculative=True, spec_max_draft=6``) as the bench's
+does, then the bench's gate jobs: every stream equals its non-speculative
+twin's, and the drafted and accepted counts equal the bench's and lie in
+its band.  The digest of every generated token id must equal the bench's
+``stream_fingerprint`` on this tree."""
 
 import functools
 import hashlib
@@ -25,6 +27,9 @@ from smg_tpu_torch.protocols.sampling import SamplingParams
 torch.set_num_threads(2)
 # ``JAX_PLATFORMS=cpu python benches/bench_engine.py`` on this tree
 STREAM_FINGERPRINT = "86da56177bf83b94"
+# the bench's spec gate on this tree: drafted and accepted tokens over
+# scenario 3 and the gate jobs
+SPEC_DRAFTED, SPEC_ACCEPTED = 94, 46
 
 
 def gate_engine(params, **sched) -> Engine:
@@ -48,8 +53,10 @@ def test_engine_gate_reproduces_the_stream_fingerprint():
     params = params_from_jax(jax.tree.map(np.asarray, jparams))
     fingerprint = hashlib.blake2b(digest_size=8)
     eng = gate_engine(params, decode_horizon=4)
+    spec = gate_engine(params, speculative=True, spec_max_draft=6)
     twin = gate_engine(params)  # scenario 3's non-speculative twin
     eng.start()
+    spec.start()
     twin.start()
     try:
         # scenario 1: batched greedy decode
@@ -77,13 +84,24 @@ def test_engine_gate_reproduces_the_stream_fingerprint():
             r = eng.generate(p64, greedy(1), timeout_secs=120)
             assert r.cached_tokens == 0
         fingerprint.update(bytes(str(r.token_ids), "utf8"))
-        # scenario 3: the repetitive prompt, non-speculative
-        r = twin.generate([5, 6, 7, 8] * 8, greedy(24), timeout_secs=120)
+        # scenario 3: the repetitive prompt, speculative, and its twin
+        rep = [5, 6, 7, 8] * 8
+        r = spec.generate(rep, greedy(24), timeout_secs=120)
         fingerprint.update(bytes(str(r.token_ids), "utf8"))
+        assert r.token_ids == twin.generate(rep, greedy(24), timeout_secs=120).token_ids
+        # the bench's drafter-correctness jobs
+        for p in (rep, [9] * 8, list(range(40, 70)) + [5, 6, 7, 8] * 4):
+            rs = spec.generate(p, greedy(32), timeout_secs=120)
+            assert rs.token_ids == twin.generate(p, greedy(32), timeout_secs=120).token_ids
     finally:
         eng.stop()
+        spec.stop()
         twin.stop()
-    for e in (eng, twin):
+    drafted = spec.scheduler.num_spec_drafted
+    accepted = spec.scheduler.num_spec_accepted
+    assert (drafted, accepted) == (SPEC_DRAFTED, SPEC_ACCEPTED)
+    assert drafted >= 24 and 0.05 <= accepted / drafted <= 1.0  # the bench's band
+    for e in (eng, spec, twin):
         audit = e.audit()
         assert audit["clean"] and audit["quiescent"], audit
     assert fingerprint.hexdigest() == STREAM_FINGERPRINT

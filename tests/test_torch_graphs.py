@@ -15,9 +15,16 @@ from a seed, float32 KV, the decode kernel on every column.
 - with penalties (the runner's per-slot count rows, read and written back
   in place) and with a vocab mask, a replay equals the eager megastep
   bitwise, the count rows included, and a re-sync of a slot's rows between
-  replays keeps the buffer's address (the graph reads the new rows).
+  replays keeps the buffer's address (the graph reads the new rows);
+- a speculative verify block replayed from its own graph equals the eager
+  block bitwise (emitted rows, logprobs, ``n_emit`` and the accepted KV),
+  two frames in flight off one graph keep their own results, and a
+  speculative engine with graphs and overlap gives the eager synchronous
+  engine's streams and drafted and accepted counts.
 
 Run on a GPU: ``python -m pytest tests/test_torch_graphs.py -m cuda -q``."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -269,3 +276,96 @@ def test_penalty_resync_between_replays_keeps_the_buffer(runners):
         assert_same(launch(g, toks, pos, ds, K), launch(e, toks, pos, ds, K))
         assert torch.equal(g._counts_buf[:B_real], e._counts_buf[:B_real])
     assert g._counts_buf.data_ptr() == ptr and g.graphs.num_graphs == 1
+
+
+# ---- speculative verify blocks ----
+
+
+def verify_case(B_real: int, B: int, mp: int, W: int, seed: int):
+    """Host inputs of one verify launch: distinct pages per row, ragged
+    entries and draft counts (one real lane drafts nothing), greedy and
+    sampled lanes; padded rows at the garbage page with no drafts."""
+    rng = np.random.default_rng(seed)
+    pt = np.zeros((B, mp), np.int32)
+    pt[:B_real] = rng.permutation(np.arange(1, PAGES))[: B_real * mp].reshape(B_real, mp)
+    pos = np.full(B, mp * PS, np.int32)
+    pos[:B_real] = rng.integers(1, mp * PS - W, B_real)
+    toks = np.zeros((B, W), np.int64)
+    toks[:B_real] = rng.integers(2, 500, (B_real, W))
+    draft_n = np.zeros(B, np.int64)
+    draft_n[:B_real] = rng.integers(0, W, B_real)
+    draft_n[0] = 0
+    temps = np.zeros(B, np.float32)
+    temps[: B_real // 2] = 0.8
+    return (toks, draft_n, pos, pt, temps, np.full(B, -1), np.ones(B, np.float32),
+            np.zeros(B, np.float32))
+
+
+def verify(runner, args):
+    runner.rng_restore(MARK)
+    return runner.spec_fetch(runner.decode_spec_async(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_real,B,mp,W", [(3, 4, 8, 7), (8, 8, 16, 9), (2, 2, 8, 2)])
+def test_verify_replay_equals_eager_bitwise(runners, B_real, B, mp, W):
+    g, e = runners
+    args = verify_case(B_real, B, mp, W, seed=B * 10 + W)
+    k0, v0 = g.k_cache.clone(), g.v_cache.clone()
+    verify(g, args)  # warm-up and capture
+    g.k_cache.copy_(k0)
+    g.v_cache.copy_(v0)
+    replay, eager = verify(g, args), verify(e, args)
+    stats = g.graphs.stats()
+    assert stats["verify_graphs"] == 1 and stats["decode_graphs"] == 0
+    assert stats["verify_capture_s"] > 0 and e.graphs.stats()["verify_graphs"] == 0
+    for x, y in zip(replay, eager):
+        np.testing.assert_array_equal(x, y)
+    assert (replay[2] >= 1).all() and (replay[2] <= args[1] + 1).all()
+    assert torch.equal(g.k_cache[:, 1:], e.k_cache[:, 1:])
+    assert torch.equal(g.v_cache[:, 1:], e.v_cache[:, 1:])
+
+
+@pytest.mark.cuda
+def test_verify_frames_off_the_same_graph_keep_their_results(runners):
+    g, e = runners
+    a, b = verify_case(4, 4, 8, 5, seed=21), verify_case(4, 4, 8, 5, seed=22)
+    verify(g, a)  # capture: both frames below are replays
+    g.rng_restore(MARK)
+    first = g.decode_spec_async(*a)
+    second = g.decode_spec_async(*b)  # overwrites the graph's inputs and outputs
+    got1, got2 = g.spec_fetch(first), g.spec_fetch(second)
+    e.rng_restore(MARK)
+    want1 = e.spec_fetch(e.decode_spec_async(*a))
+    want2 = e.spec_fetch(e.decode_spec_async(*b))
+    for got, want in ((got1, want1), (got2, want2)):
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_speculative_engine_with_graphs_matches_eager_sync(cuda_dev):
+    params = init_params(tiny_test_config(), torch.Generator(device=cuda_dev).manual_seed(0),
+                         cuda_dev)
+    jobs = [("rep", [5, 6, 7, 8] * 8, 0.0), ("nines", [9] * 8, 0.0),
+            ("novel", list(range(40, 70)), 0.0), ("hot", [11, 12, 13] * 9, 0.8)]
+    results, drafted = {}, {}
+    for graphs in (True, False):
+        cfg = config(graphs, overlap=graphs, horizon=1)
+        cfg.scheduler = dataclasses.replace(cfg.scheduler, speculative=True, spec_max_draft=6)
+        engine = Engine(cfg, params=params, device=cuda_dev)
+        chunks = {rid: [] for rid, _, _ in jobs}
+        for rid, prompt, temp in jobs:
+            engine.submit(prompt, SamplingParams(temperature=temp, max_new_tokens=24,
+                                                 ignore_eos=True),
+                          rid=rid, on_output=chunks[rid].append)
+        while engine.has_work():
+            engine.step()
+        results[graphs] = {rid: (collect_result(rid, c).token_ids, collect_result(rid, c).logprobs)
+                           for rid, c in chunks.items()}
+        drafted[graphs] = (engine.scheduler.num_spec_drafted, engine.scheduler.num_spec_accepted)
+        assert engine.audit()["clean"]
+        if graphs:
+            assert engine.loads()["verify_graphs"] >= 1
+    assert results[True] == results[False]
+    assert drafted[True] == drafted[False] and drafted[True][1] > 0
