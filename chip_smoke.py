@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase, needs one CUDA card
     python3 chip_smoke.py --phases kernels   # build + kernel checks only
+    python3 chip_smoke.py --phases checkpoint   # build + kernels + phase 8 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -113,12 +114,39 @@ Phases (any failure makes the script exit non-zero and print no result):
    kernel), and the verify graphs' capture seconds and bytes.  After the
    bf16 run, ``python -m smg_tpu_torch.cli serve --speculative`` runs in a
    process of its own (tiny preset, a tiny draft model): one completion,
-   drafts counted in ``/scheduler``, SIGTERM; ``--draft-model-path`` must
-   be refused;
-8. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
-   run, ``launches_spec`` from phase 7's bf16 serving path) and, last,
-   ``{"ok": true, "device": ...}`` (``--phases kernels`` stops after
-   phase 2 and prints neither).
+   drafts counted in ``/scheduler``, SIGTERM;
+8. an HF checkpoint directory, after phase 7 on each dtype's weights.  In
+   a temporary directory the script writes phase 3's bf16 weights as a
+   Llama-3-8B HF checkpoint (``config.json`` with the published fields,
+   ``[out, in]`` linears in 4 safetensors files with an index; the depth is
+   cut only if the disk cannot hold it), a ``tokenizer.json`` built with
+   ``tokenizers`` (128256 ids, Llama-3's special-token names at
+   128000-128255) with a Llama-3-style chat template, two rank-16 PEFT
+   adapters on q/k/v/o and a tiny directory at the full vocabulary.  Then,
+   in bf16 and in float32 (the bf16 files widened as they load): (a)
+   ``serve --model-path`` (built as the command line builds it, the load
+   timed) behind the gateway: the loaded tensors equal phase 3's bitwise,
+   the gateway's prompt ids equal ``tokenizers``' encoding of the template
+   rendered by jinja2 alone, the chats (a short one, streamed too, and a
+   1400-token one) equal the preset engine's on the same weights (exact in
+   float32); (b) both adapters load through ``/load_lora_adapter`` and
+   ``/list_lora_adapters`` lists them; (d) unloading or replacing an
+   adapter with a live request is refused, then the unload succeeds and the
+   next load takes the freed slot; the gateway's tokenize of a 1400-token
+   chat with an L1 hit and a miss; (c) a batch of base, B, A and a chunked
+   1400-token A lane (the first three in one grouped prefill) through the
+   three paths of phase 3, with launches exact and audits clean: in float32
+   the streams are identical across the paths, the base lane equals a
+   base-only run (its logits bitwise, both dtypes), each adapter lane's
+   first-token logits are within ``MERGED_F32_ATOL`` of an engine with the
+   adapter merged into its weights (bf16: nearer those than the base
+   model's); in bf16, decode of 4 LoRA lanes against 4 base lanes profiled.
+   In float32, ``serve --speculative --model-path --draft-model-path`` on
+   the tiny directory serves in a process of its own;
+9. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
+   run, ``launches_spec`` from phase 7's and ``launches_ckpt`` from phase
+   8's bf16 serving paths) and, last, ``{"ok": true, "device": ...}``
+   (``--phases kernels`` stops after phase 2 and prints neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -135,9 +163,11 @@ import argparse
 import faulthandler
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -749,13 +779,16 @@ def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
                top=[(name[:80], ms / cols) for name, ms in top])
     K = round(cols / launches)  # the window's horizon
     pen = any(sp.has_penalties for sp in sampling)
+    lora = any(sp.lora_adapter for sp in sampling)
     graphs = [s for s in runner.graphs.steps.values()
-              if s.graph is not None and s.K == K and s.use_pen == pen and not s.use_mask]
+              if s.graph is not None and s.K == K and s.use_pen == pen and not s.use_mask
+              and s.use_lora == lora]
     if graphs:
         st = max(graphs, key=lambda s: s.mp)  # the shape the window replayed
         out["replay_ms"] = cuda_ms(st.graph.replay)
         out["replay_ms_per_column"] = out["replay_ms"] / st.K
-        out["replay_shape"] = dict(B=st.B, mp=st.mp, K=st.K, E=st.E, use_pen=st.use_pen)
+        out["replay_shape"] = dict(B=st.B, mp=st.mp, K=st.K, E=st.E, use_pen=st.use_pen,
+                                   use_lora=st.use_lora)
         out["replay_busy_share"] = out["replay_ms_per_column"] / out["wall_ms_per_column"]
     print(f"  {label}: {cols} columns in {launches} launches, "
           f"wall {out['wall_ms_per_column']:.2f} ms/column, "
@@ -2580,24 +2613,26 @@ def check_spec_launches(r, L: int, L_draft: int, label: str) -> None:
         raise AssertionError(f"[{label}] launch counts {r['launches']} != {expect}")
 
 
-def check_serve_speculative(device: str = "cuda") -> dict:
+def check_serve_speculative(device: str = "cuda", flags=("--model-preset", "tiny",
+                                                         "--draft-model-preset", "tiny"),
+                            model: str = "tiny", prompt: str = "w5 w6 w7 w8 " * 8) -> dict:
     """``python -m smg_tpu_torch.cli serve --speculative`` in a process of
-    its own on the card (the tiny preset in float32, a tiny draft model
-    through ``--draft-model-preset``): one greedy completion on a repeated
-    prompt, the engine's drafted tokens from ``/scheduler``, then SIGTERM.
-    ``--draft-model-path`` must exit non-zero naming the checkpoint
-    loader.  Every process started here is stopped before it returns."""
+    its own on the card, in float32, with ``flags`` naming the target and
+    the draft (by default the tiny preset and a tiny draft preset; phase 8
+    gives ``--model-path`` and ``--draft-model-path``): one greedy
+    24-token completion of ``prompt``, the engine's drafted tokens from
+    ``/scheduler``, then SIGTERM.  Every process started here is stopped
+    before it returns."""
     import signal
     import tempfile
 
     port = _free_port()
-    base = [sys.executable, "-m", "smg_tpu_torch.cli", "serve", "--model-preset", "tiny",
-            "--dtype", "float32", "--speculative", "--max-batch-size", "8",
-            "--max-seq-len", "1024", "--host", "127.0.0.1", "--port", str(port),
-            "--device", device]
+    cmd = [sys.executable, "-m", "smg_tpu_torch.cli", "serve", *flags,
+           "--dtype", "float32", "--speculative", "--max-batch-size", "8",
+           "--max-seq-len", "1024", "--host", "127.0.0.1", "--port", str(port),
+           "--device", device]
     with tempfile.TemporaryFile() as log:
-        proc = subprocess.Popen(base + ["--draft-model-preset", "tiny"], cwd=REPO,
-                                stdout=log, stderr=log)
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=log)
         try:
             deadline = time.monotonic() + LOOP_WAIT_S
             while True:
@@ -2612,8 +2647,8 @@ def check_serve_speculative(device: str = "cuda") -> dict:
                                          + log.read().decode()[-2000:])
                 time.sleep(0.2)
             status, body = _http(port, "POST", "/v1/completions", {
-                "model": "tiny", "prompt": "w5 w6 w7 w8 " * 8, "max_tokens": 24,
-                "temperature": 0})
+                "model": model, "prompt": prompt, "max_tokens": 24, "temperature": 0,
+                "ignore_eos": True})
             loads = _http(port, "GET", "/scheduler")[1]["engine"]
         finally:
             proc.send_signal(signal.SIGTERM)
@@ -2626,12 +2661,8 @@ def check_serve_speculative(device: str = "cuda") -> dict:
     out = dict(status=status, completion_tokens=body["usage"]["completion_tokens"]
                if status == 200 else None, drafted=worker.get("spec_drafted"),
                accepted=worker.get("spec_accepted"), exit_code=proc.returncode)
-    refused = subprocess.run(base + ["--draft-model-path", "/models/draft"], cwd=REPO,
-                             capture_output=True, text=True, timeout=LOOP_WAIT_S)
-    out["path_refused"] = refused.returncode != 0 and "checkpoint" in refused.stderr
-    print(f"  serve --speculative: {out}")
-    if not (status == 200 and out["completion_tokens"] == 24 and out["drafted"]
-            and out["path_refused"]):
+    print(f"  serve --speculative {' '.join(flags)}: {out}")
+    if not (status == 200 and out["completion_tokens"] == 24 and out["drafted"]):
         raise AssertionError(f"serve --speculative: {out}")
     return out
 
@@ -2756,6 +2787,731 @@ def phase_spec(cfg, params, dev, card: str, label: str, strict: bool) -> dict:
     return out
 
 
+# ---- phase 8: an HF checkpoint directory, its tokenizer, LoRA adapters ----
+
+CKPT_SHARDS = 4  # safetensors files of the written checkpoint, with an index
+CKPT_MODEL = "llama3-8b-hf"  # the directory's name: the served model id ends in it
+LORA_RANK, LORA_ALPHA = 16, 32  # the PEFT adapters (q/k/v/o), alpha/r = 2
+LORA_NEW = 32  # new tokens of every phase-8 lane
+# an adapter lane's first-token logits against an engine whose weights have
+# the adapter merged in: float32 differs in summation order only (held as
+# the kernel-vs-plain logits are); in bf16 the merged weights are rounded
+# once more, so the lane is held to be nearer the merged engine than the
+# base model is, by at least this factor
+MERGED_F32_ATOL = 2e-3
+MERGED_BF16_RATIO = 0.5
+LLAMA3_TEMPLATE = (
+    "{{- bos_token }}{%- for message in messages %}{{- '<|start_header_id|>' + "
+    "message['role'] + '<|end_header_id|>\\n\\n' + message['content'] | trim + "
+    "'<|eot_id|>' }}{%- endfor %}{%- if add_generation_prompt %}{{- "
+    "'<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}{%- endif %}")
+
+
+def llama3_special_tokens() -> list:
+    """Llama-3's names of ids 128000-128255, in order."""
+    named = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 4: "<|finetune_right_pad_id|>",
+             6: "<|start_header_id|>", 7: "<|end_header_id|>", 8: "<|eom_id|>",
+             9: "<|eot_id|>", 10: "<|python_tag|>"}
+    out, reserved = [], 0
+    for i in range(256):
+        if i in named:
+            out.append(named[i])
+        else:
+            out.append(f"<|reserved_special_token_{reserved}|>")
+            reserved += 1
+    return out
+
+
+def write_tokenizer(path: Path, vocab_size: int) -> None:
+    """A ``tokenizer.json`` built with ``tokenizers``: a word-level model
+    whose ids below ``vocab_size - 256`` are ``w<id>`` (the last four are
+    ``<unk>``, ``system``, ``user``, ``assistant``), split on whitespace,
+    and Llama-3's special tokens at the top 256 ids; a
+    ``tokenizer_config.json`` with a Llama-3-style chat template."""
+    from tokenizers import AddedToken, Tokenizer, models, pre_tokenizers
+
+    n = vocab_size - 256
+    vocab = {f"w{i}": i for i in range(n - 4)}
+    vocab.update({w: n - 4 + j for j, w in enumerate(("<unk>", "system", "user",
+                                                       "assistant"))})
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tok.add_special_tokens([AddedToken(s, special=True, normalized=False)
+                            for s in llama3_special_tokens()])
+    if tok.get_vocab_size() != vocab_size or tok.token_to_id("<|begin_of_text|>") != n:
+        raise AssertionError(f"tokenizer vocabulary {tok.get_vocab_size()} != {vocab_size}")
+    tok.save(str(path / "tokenizer.json"))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+        "chat_template": LLAMA3_TEMPLATE}))
+
+
+def hf_config(cfg) -> dict:
+    """The ``config.json`` of an HF Llama checkpoint with ``cfg``'s fields
+    (for Llama-3-8B: its published ones)."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+            "hidden_act": "silu", "rope_theta": cfg.rope_theta,
+            "rope_scaling": cfg.rope_scaling, "rms_norm_eps": cfg.rms_norm_eps,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "vocab_size": cfg.vocab_size, "bos_token_id": cfg.bos_token_id,
+            "eos_token_id": list(cfg.eos_token_ids),
+            "tie_word_embeddings": cfg.tie_word_embeddings, "torch_dtype": "bfloat16"}
+
+
+# port layer key -> (HF module name, stored as an [out, in] linear)
+HF_LAYER = {"attn_norm": ("input_layernorm", False), "wq": ("self_attn.q_proj", True),
+            "wk": ("self_attn.k_proj", True), "wv": ("self_attn.v_proj", True),
+            "wo": ("self_attn.o_proj", True), "mlp_norm": ("post_attention_layernorm", False),
+            "w_gate": ("mlp.gate_proj", True), "w_up": ("mlp.up_proj", True),
+            "w_down": ("mlp.down_proj", True)}
+
+
+def write_checkpoint(cfg, params, path: Path, shards: int) -> dict:
+    """``params`` (the port's layout, on the card) as an HF directory: the
+    config, ``shards`` safetensors files of whole layers in HF names and
+    layouts with ``model.safetensors.index.json``, the tokenizer.  One
+    shard is on the host at a time."""
+    from safetensors.torch import save_file
+
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(hf_config(cfg)))
+    L = cfg.num_layers
+    per = math.ceil(L / shards)
+    weight_map, nbytes = {}, 0
+    t0 = time.perf_counter()
+    for s in range(shards):
+        part = {}
+        if s == 0:
+            part["model.embed_tokens.weight"] = params["embed"].cpu()
+        for i in range(s * per, min(L, (s + 1) * per)):
+            for key, (name, linear) in HF_LAYER.items():
+                t = params["layers"][key][i]
+                part[f"model.layers.{i}.{name}.weight"] = (
+                    t.t() if linear else t).contiguous().cpu()
+        if s == shards - 1:
+            part["model.norm.weight"] = params["final_norm"].cpu()
+            part["lm_head.weight"] = params["lm_head"].t().contiguous().cpu()
+        fname = f"model-{s + 1:05d}-of-{shards:05d}.safetensors"
+        save_file(part, str(path / fname), metadata={"format": "pt"})
+        nbytes += sum(t.numel() * t.element_size() for t in part.values())
+        weight_map.update({k: fname for k in part})
+        del part
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": nbytes}, "weight_map": weight_map}))
+    write_tokenizer(path, cfg.vocab_size)
+    took = time.perf_counter() - t0
+    files = sum(f.stat().st_size for f in path.glob("*.safetensors"))
+    return dict(tensor_bytes=nbytes, file_bytes=files, write_s=took, files=shards)
+
+
+def write_peft(cfg, path: Path, seed: int) -> None:
+    """A PEFT adapter directory (rank ``LORA_RANK`` on q/k/v/o, bf16
+    safetensors) from a seeded generator, scaled so it moves greedy
+    streams of the random-weight model without swamping them."""
+    import torch
+    from safetensors.torch import save_file
+
+    gen = torch.Generator().manual_seed(seed)
+    E, H, K, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dims = {"q_proj": (E, H * D), "k_proj": (E, K * D), "v_proj": (E, K * D),
+            "o_proj": (H * D, E)}
+    tensors = {}
+    for layer in range(cfg.num_layers):
+        for proj, (fin, fout) in dims.items():
+            pre = f"base_model.model.model.layers.{layer}.self_attn.{proj}"
+            tensors[f"{pre}.lora_A.weight"] = (
+                torch.randn(LORA_RANK, fin, generator=gen) * 0.02).to(torch.bfloat16)
+            tensors[f"{pre}.lora_B.weight"] = (
+                torch.randn(fout, LORA_RANK, generator=gen) * 0.03).to(torch.bfloat16)
+    path.mkdir(parents=True)
+    save_file(tensors, str(path / "adapter_model.safetensors"))
+    (path / "adapter_config.json").write_text(json.dumps({
+        "peft_type": "LORA", "r": LORA_RANK, "lora_alpha": LORA_ALPHA,
+        "target_modules": list(dims)}))
+
+
+def write_tiny_dir(path: Path, vocab_size: int) -> None:
+    """A small Llama directory (2 layers, hidden 256) at the full
+    vocabulary with the same tokenizer, float32 weights from a seed: the
+    target and draft of ``serve --speculative --draft-model-path``."""
+    import dataclasses
+
+    import torch
+
+    from smg_tpu_torch.models.config import tiny_test_config
+    from smg_tpu_torch.models.llama import init_params
+
+    cfg = dataclasses.replace(tiny_test_config(vocab_size), hidden_size=256,
+                              intermediate_size=512, num_layers=2, num_heads=4,
+                              num_kv_heads=2, head_dim=64, bos_token_id=vocab_size - 256,
+                              eos_token_ids=(vocab_size - 255, vocab_size - 247))
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    write_checkpoint(cfg, params, path, shards=1)
+
+
+def _render_chat(messages) -> str:
+    """The Llama-3 template rendered with jinja2 alone (the check on the
+    gateway's own rendering)."""
+    import jinja2
+
+    env = jinja2.Environment(trim_blocks=True, lstrip_blocks=True)
+    return env.from_string(LLAMA3_TEMPLATE).render(
+        messages=messages, add_generation_prompt=True, bos_token="<|begin_of_text|>")
+
+
+def _ckpt_chats(seed: int) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    return {"short": [{"role": "user", "content": _words(ids(40))}],
+            "long": [{"role": "system", "content": _words(ids(1300))},
+                     {"role": "user", "content": _words(ids(90))}]}
+
+
+def _lora_jobs(seed: int) -> list:
+    """(rid, prompt ids, adapter): base, B, A, then a long A prompt.  The
+    first three fit one prefill budget (a grouped prefill with mixed slots),
+    the last is chunked; prompts are distinct, so no lane reuses another's
+    KV through the prefix cache (which is not keyed by adapter)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    return [("base", ids(120), None), ("b", ids(150), "b"), ("a", ids(100), "a"),
+            ("a_long", ids(1400), "a")]
+
+
+def lora_drive(engine, jobs, loop: bool, max_new: int | None = None
+               ) -> tuple[dict, dict, float]:
+    """Submit every job at once (so every path schedules the same batches),
+    then step on the engine's loop thread or this one.  Returns (rid ->
+    result, rid -> first-token logits, wall seconds)."""
+    from smg_tpu_torch.engine.engine import collect_result
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    model = engine.runner.model
+    orig = model.forward_prefill_batched
+    keys = {tuple(p[-8:]): rid for rid, p, _ in jobs}
+    logits = {}
+
+    def recording(tokens, prefix_lens, t_reals, *a, **kw):
+        out = orig(tokens, prefix_lens, t_reals, *a, **kw)
+        if out is not None:
+            tk, tr = tokens.cpu(), t_reals.cpu()
+            for i in range(tk.shape[0]):
+                rid = keys.get(tuple(tk[i, : int(tr[i])][-8:].tolist()))
+                if rid is not None:
+                    logits[rid] = out[i].float().cpu()
+        return out
+
+    model.forward_prefill_batched = recording
+    chunks: dict = {}
+    t0 = time.perf_counter()
+    try:
+        for rid, prompt, name in jobs:
+            chunks[rid] = []
+            engine.submit(prompt, SamplingParams(temperature=0.0,
+                                                 max_new_tokens=max_new or LORA_NEW,
+                                                 ignore_eos=True, lora_adapter=name),
+                          rid=rid, on_output=chunks[rid].append)
+        done = lambda: all(c and c[-1].finished for c in chunks.values())  # noqa: E731
+        if loop:
+            engine.start()
+            wait_for(lambda: done() and not engine.has_work(), "the LoRA lanes")
+            engine.stop()
+        else:
+            steps = 0
+            while engine.has_work():
+                engine.step()
+                steps += 1
+                if steps > 500:
+                    raise RuntimeError("engine did not finish within 500 steps")
+    finally:
+        model.forward_prefill_batched = orig
+    wall = time.perf_counter() - t0
+    return {rid: collect_result(rid, c) for rid, c in chunks.items()}, logits, wall
+
+
+def merged_params(params: dict, weights: dict) -> dict:
+    """``params`` with a canonical adapter merged into wq/wk/wv/wo (W +
+    a @ b in float32, then the weights' dtype); every other tensor shared."""
+    import torch
+
+    layers = dict(params["layers"])
+    for p in ("wq", "wk", "wv", "wo"):
+        w = params["layers"][p]
+        out = torch.empty_like(w)
+        for i in range(w.shape[0]):
+            a = torch.from_numpy(weights[f"{p}_a"][i]).to(w.device)
+            b = torch.from_numpy(weights[f"{p}_b"][i]).to(w.device)
+            out[i] = (w[i].float() + a @ b).to(w.dtype)
+        layers[p] = out
+    return {**params, "layers": layers}
+
+
+def _lora_engine(cfg, params, dev, attention, graphs, overlap):
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+
+    return Engine(EngineConfig(
+        model=cfg,
+        cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False, dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096, max_prefill_tokens=512,
+                                  decode_horizon=4, overlap_schedule=overlap),
+        decode_graphs=graphs), params=params, device=dev, attention=attention)
+
+
+def lora_paths(cfg, params, dev, adapters: dict, label: str, strict: bool,
+               with_profile: bool) -> dict:
+    """(c): the mixed batch (base, B, A, long A) through ``PATHS`` on
+    ``params``, adapters loaded from their PEFT directories; a base-only run
+    of the same prompts on the serving path; the LoRA lanes' first-token
+    logits against engines with each adapter merged in; launch counts
+    zeroed just before each measured drive and read just after, and every
+    audit clean.  With ``with_profile``, decode of 4 LoRA lanes against 4
+    base lanes on the serving path."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.models import lora as lora_mod
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    L = cfg.num_layers
+    jobs = _lora_jobs(31)
+    failures = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [{label}] FAILED: {what}")
+
+    runs, out = {}, {}
+    for name, attention, graphs, overlap, loop in PATHS:
+        engine = _lora_engine(cfg, params, dev, attention, graphs, overlap)
+        slots = {n: engine.load_lora_adapter(n, path=str(p)) for n, p in adapters.items()}
+        engine.generate(prompt_ids=list(range(1000, 1100)),  # warm-up, not counted
+                        sampling=SamplingParams(temperature=0.0, max_new_tokens=4,
+                                                lora_adapter="a"))
+        engine.flush_cache()
+        for k in engine.runner.stats:
+            engine.runner.stats[k] = 0
+        torch.cuda.synchronize()
+        dk.launches = 0
+        pk.launches = 0
+        results, logits, wall = lora_drive(engine, jobs, loop)
+        torch.cuda.synchronize()
+        r = dict(results=results, logits=logits, wall_s=wall, stats=dict(engine.runner.stats),
+                 launches={"decode_attention": dk.launches, "prefill_attention": pk.launches},
+                 loads=engine.loads(), slots=slots)
+        check_launches(r, L, f"{label}/lora/{name}", plain=name == "plain")
+        audit = r["loads"]["audit"]
+        expect(audit["clean"] and audit["leaked_pages"] == 0, f"{name}: audit {audit}")
+        for rid, res in results.items():
+            expect(res.output_tokens == LORA_NEW and res.finish_reason == "length",
+                   f"{name}/{rid}: {res.output_tokens} tokens, finish {res.finish_reason}")
+        expect(set(logits) == {rid for rid, _, _ in jobs}, f"{name}: first-token logits "
+                                                           f"of {sorted(logits)}")
+        if name == "graphs":
+            out["bank_bytes"] = engine.runner._lora_bank.nbytes
+            engine.flush_cache()
+            base_jobs = [(rid, p, None) for rid, p, _ in jobs]
+            base_res, base_logits, _ = lora_drive(engine, base_jobs, loop=True)
+            r["base_only"] = base_res
+            r["base_only_logits"] = base_logits
+            if with_profile:
+                engine.flush_cache()
+                greedy = dict(temperature=0.0, max_new_tokens=128, ignore_eos=True)
+                out["profile_lora"] = profile_decode(
+                    engine, loop=True, label="decode profile, 4 LoRA lanes",
+                    sampling=[SamplingParams(**greedy, lora_adapter="ab"[i % 2])
+                              for i in range(4)])
+                engine.flush_cache()
+                out["profile_base"] = profile_decode(
+                    engine, loop=True, label="decode profile, 4 base lanes",
+                    sampling=[SamplingParams(**greedy)] * 4)
+            out["decode_graphs"] = engine.loads()["decode_graphs"]
+        runs[name] = r
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    g = runs["graphs"]
+    lora_rids = [rid for rid, _, name in jobs if name]
+    # the streams: identical across the paths in float32; the base lane
+    # equal to the base-only run in both dtypes (slot 0 adds exact zeros)
+    agree = {f"{a}_vs_{b}": sum(runs[a]["results"][rid].token_ids
+                                == runs[b]["results"][rid].token_ids for rid, _, _ in jobs)
+             for a, b in (("graphs", "eager"), ("eager", "plain"), ("graphs", "plain"))}
+    out["streams_equal"] = agree
+    if strict:
+        expect(all(v == len(jobs) for v in agree.values()), f"streams differ: {agree}")
+    expect(g["results"]["base"].token_ids == g["base_only"]["base"].token_ids,
+           "the base lane differs from the base-only run")
+    expect(torch.equal(g["logits"]["base"], g["base_only_logits"]["base"]),
+           "the base lane's first-token logits differ from the base-only run's")
+    moved = {rid: g["results"][rid].token_ids != g["base_only"][rid].token_ids
+             for rid in lora_rids}
+    out["adapter_moved_stream"] = moved
+    expect(all(moved.values()), f"an adapter left its lane's stream unchanged: {moved}")
+    out["launches"] = g["launches"]
+    out["stats"] = g["stats"]
+    # first-token logits against the merged weights
+    gaps = {}
+    for n, p in adapters.items():
+        weights = lora_mod.load_peft_dir(str(p), cfg)
+        engine = _lora_engine(cfg, merged_params(params, weights), dev, "kernel", False, False)
+        mjobs = [(rid, prompt, None) for rid, prompt, name in jobs if name == n]
+        _res, mlogits, _ = lora_drive(engine, mjobs, loop=False, max_new=1)
+        for rid, _prompt, _n in mjobs:
+            lane = g["logits"][rid]
+            gaps[rid] = dict(lora_vs_merged=float((lane - mlogits[rid]).abs().max()),
+                             base_vs_merged=float((g["base_only_logits"][rid]
+                                                   - mlogits[rid]).abs().max()),
+                             max_abs_logit=float(mlogits[rid].abs().max()))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["merged"] = gaps
+    for rid, gp in gaps.items():
+        if strict:
+            expect(gp["lora_vs_merged"] <= MERGED_F32_ATOL,
+                   f"{rid}: first-token logits {gp['lora_vs_merged']:.3e} from the merged "
+                   f"engine's (limit {MERGED_F32_ATOL})")
+        else:
+            expect(gp["lora_vs_merged"] <= MERGED_BF16_RATIO * gp["base_vs_merged"],
+                   f"{rid}: the LoRA lane ({gp['lora_vs_merged']:.3e}) is not nearer the "
+                   f"merged engine than the base model ({gp['base_vs_merged']:.3e})")
+    out["wall_s"] = {name: r["wall_s"] for name, r in runs.items()}
+    print(f"  [{label}] LoRA lanes: streams equal across paths (of {len(jobs)}) {agree}; "
+          f"adapter moved its stream {moved}; first-token logits against merged weights "
+          + ", ".join(f"{rid} {gp['lora_vs_merged']:.3e} (base {gp['base_vs_merged']:.3e}, "
+                      f"max |logit| {gp['max_abs_logit']:.2f})" for rid, gp in gaps.items())
+          + f"; bank {out['bank_bytes']} bytes; launches {out['launches']}")
+    if failures:
+        raise AssertionError(f"[{label}] LoRA checks failed: {failures}")
+    return out
+
+
+def _tokenize_ms(registry, model_id: str, reps: int = 7) -> dict:
+    """The gateway's tokenize (``TokenizerRegistry.encode_cached``) of a
+    1400-token chat: an L1 miss (a new conversation), an L1 hit (the next
+    turn of a conversation whose first turn was seen), and an L0 hit (the
+    same text again); medians over ``reps`` distinct conversations."""
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    miss, hit, l0 = [], [], []
+    l1 = None
+    for _ in range(reps):
+        ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+        first = [{"role": "system", "content": _words(ids(1300))},
+                 {"role": "user", "content": _words(ids(90))}]
+        t1 = _render_chat(first)
+        t0 = time.perf_counter()
+        registry.encode_cached(model_id, t1)
+        miss.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        registry.encode_cached(model_id, t1)
+        l0.append((time.perf_counter() - t0) * 1e3)
+        second = first + [{"role": "assistant", "content": _words(ids(10))},
+                          {"role": "user", "content": _words(ids(8))}]
+        t2 = _render_chat(second)
+        l1 = registry._l1_for(registry.get(model_id))
+        before = l1.stats()["hits"]
+        t0 = time.perf_counter()
+        registry.encode_cached(model_id, t2)
+        hit.append((time.perf_counter() - t0) * 1e3)
+        if l1.stats()["hits"] != before + 1:
+            raise AssertionError("the next turn of a conversation missed the L1 cache")
+    return dict(miss_ms=statistics.median(miss), l1_hit_ms=statistics.median(hit),
+                l0_hit_ms=statistics.median(l0), l1=l1.stats(), tokens=len(
+                    registry.encode_cached(model_id, _render_chat(first))))
+
+
+def _serve_dir(path: Path, dtype: str, dev):
+    """``serve --model-path`` built in process as the command line builds
+    it (the loader timed), behind the gateway on a free local port;
+    returns (engine, context, port, held, load seconds)."""
+    import asyncio
+    import threading
+
+    from smg_tpu_torch.cli import build_parser
+    from smg_tpu_torch.gateway.launch import (
+        build_context,
+        build_engine_from_args,
+        gateway_options,
+        serve_context,
+    )
+    from smg_tpu_torch.models import weights
+
+    args = build_parser().parse_args([
+        "serve", "--model-path", str(path), "--dtype", dtype, "--max-batch-size", "8",
+        "--max-seq-len", "4096", "--max-prefill-tokens", "512", "--decode-horizon", "4",
+        "--host", "127.0.0.1", "--port", str(_free_port()), "--device", str(dev)])
+    timed = {}
+    orig = weights.load_params
+
+    def timed_load(*a, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        timed["load_s"] = time.perf_counter() - t0
+        return out
+
+    weights.load_params = timed_load
+    try:
+        engine = build_engine_from_args(args)
+    finally:
+        weights.load_params = orig
+    ctx = build_context(engine, drain_timeout_secs=args.engine_drain_timeout_secs,
+                        **gateway_options(args))
+    held = {}
+
+    async def serve():
+        held["loop"], held["stop"] = asyncio.get_running_loop(), asyncio.Event()
+        await serve_context(ctx, args.host, args.port, held["stop"])
+
+    held["thread"] = threading.Thread(target=lambda: asyncio.run(serve()), name="gateway")
+    held["thread"].start()
+    wait_for(lambda: "stop" in held, "gateway start", timeout=60)
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            if _http(args.port, "GET", "/health")[0] == 200:
+                break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+        time.sleep(0.05)
+    return engine, ctx, args.port, held, timed["load_s"]
+
+
+def phase_checkpoint(cfg, params, dev, card: str, label: str, strict: bool,
+                     ckpt: Path, adapters: dict, tiny: Path) -> dict:
+    """Phase 8 on ``params`` (phase 3's weights in this dtype), the
+    checkpoint ``ckpt`` written from their bf16 values: (a) ``serve
+    --model-path`` (in ``cfg``'s dtype: float32 widens the bf16 files as
+    they load) answers chats over HTTP with the HF tokenizer; (b) two PEFT
+    adapters load through ``/load_lora_adapter`` and list; (d) unloading a
+    busy adapter is refused, then succeeds and the slot is reused; the
+    gateway's tokenize with an L1 hit and a miss; then (c) the LoRA lanes
+    through every path (``lora_paths``) and, in float32, (e) ``serve
+    --speculative --draft-model-path``."""
+    import gc
+
+    import torch
+    from tokenizers import Tokenizer
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+    from smg_tpu_torch.models.config import ModelConfig
+    from smg_tpu_torch.tokenizer.hf import HFTokenizer
+
+    failures = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [{label}] FAILED: {what}")
+
+    out: dict = {"card": card}
+    expect(ModelConfig.from_pretrained(str(ckpt), dtype=cfg.dtype) == cfg,
+           "from_pretrained differs from the preset's config")
+    raw = Tokenizer.from_file(str(ckpt / "tokenizer.json"))
+    chats = _ckpt_chats(37)
+    want_ids = {k: raw.encode(_render_chat(m), add_special_tokens=False).ids
+                for k, m in chats.items()}
+    # the preset engine on the same weights: the streams HTTP must give
+    tok = HFTokenizer(str(ckpt))
+    preset = Engine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False,
+                                     dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096, max_prefill_tokens=512,
+                                  decode_horizon=4)), params=params, device=dev, tokenizer=tok)
+    preset.start()
+    ref = {}
+    for k, ids in want_ids.items():
+        preset.flush_cache()
+        ref.update(_direct(preset, [(k, ids, LORA_NEW)]))
+    preset.stop()
+    del preset
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(serve_checkpoint(cfg, params, dev, card, label, strict, ckpt, adapters,
+                                chats, want_ids, ref, tok, expect))
+    gc.collect()  # the served engine's weights and KV go before (c)'s engines come
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"[{label}] checkpoint checks failed: {failures}")
+    print(f"  [{label}] (c) LoRA lanes through the serving path, eager and plain")
+    out["lora"] = lora_paths(cfg, params, dev, adapters, label, strict,
+                             with_profile=not strict)
+    if not strict:
+        p, b = out["lora"]["profile_lora"], out["lora"]["profile_base"]
+        print(f"  [{card}] {label} decode, 4 LoRA lanes against 4 base lanes: device "
+              f"{p['device_ms_per_column']:.3f} / {b['device_ms_per_column']:.3f} ms a column "
+              f"(x{p['device_ms_per_column'] / b['device_ms_per_column']:.3f}), wall "
+              f"{p['wall_ms_per_column']:.3f} / {b['wall_ms_per_column']:.3f} ms a column, "
+              f"{4 / p['decode_tok_s'] * 1e3:.3f} / {4 / b['decode_tok_s'] * 1e3:.3f} ms a "
+              f"token a lane; replay alone {p.get('replay_ms_per_column', float('nan')):.3f}"
+              f" / {b.get('replay_ms_per_column', float('nan')):.3f} ms a column; bank "
+              f"{out['lora']['bank_bytes']} bytes")
+    if strict:
+        out["serve_speculative_path"] = check_serve_speculative(
+            device=dev.type, model=str(tiny),
+            flags=("--model-path", str(tiny), "--draft-model-path", str(tiny)))
+    return out
+
+
+def serve_checkpoint(cfg, params, dev, card: str, label: str, strict: bool, ckpt: Path,
+                     adapters: dict, chats: dict, want_ids: dict, ref: dict, tok,
+                     expect) -> dict:
+    """Phase 8's (a), (b), (d) and tokenize readings against ``serve
+    --model-path ckpt``; every reference to the served engine ends with
+    this call, so its memory can go before the next engines."""
+    import torch
+
+    out: dict = {}
+    engine, ctx, port, held, load_s = _serve_dir(ckpt, cfg.dtype, dev)
+    try:
+        files = sum(f.stat().st_size for f in ckpt.glob("*.safetensors"))
+        out["load"] = dict(seconds=load_s, file_bytes=files, gb_per_s=files / load_s / 1e9)
+        print(f"  [{card}] {label} checkpoint load: {files} bytes in {load_s:.3f} s = "
+              f"{files / load_s / 1e9:.3f} GB/s ({CKPT_SHARDS} files, page-cached)")
+        loaded = engine.runner.model
+        same = {k: torch.equal(getattr(loaded, k), params[k]) for k in params if k != "layers"}
+        same.update({f"layers/{k}": torch.equal(getattr(loaded.layers, k), v)
+                     for k, v in params["layers"].items()})
+        del loaded
+        out["weights_bitwise_equal"] = all(same.values())
+        expect(all(same.values()), f"loaded tensors differ from phase 3's: "
+                                   f"{[k for k, v in same.items() if not v]}")
+        model_id = engine.config.model_id
+        expect(model_id == str(ckpt), f"model id {model_id}")
+        seen = []
+        submit = engine.submit
+
+        def recording_submit(prompt_ids, sampling, *a, **kw):
+            seen.append(list(prompt_ids))
+            return submit(prompt_ids, sampling, *a, **kw)
+
+        engine.submit = recording_submit
+        http = {}
+        for k, msgs in chats.items():
+            _http(port, "POST", "/flush_cache")
+            st, body = _http(port, "POST", "/v1/chat/completions", {
+                "model": model_id, "messages": msgs, "max_tokens": LORA_NEW,
+                "temperature": 0, "ignore_eos": True})
+            expect(st == 200, f"chat {k}: {st} {body}")
+            http[k] = body["choices"][0]["message"]["content"] if st == 200 else None
+        _http(port, "POST", "/flush_cache")
+        st, frames = _sse(port, "/v1/chat/completions", {
+            "model": model_id, "messages": chats["short"], "max_tokens": LORA_NEW,
+            "temperature": 0, "ignore_eos": True, "stream": True})
+        streamed = _sse_text(frames)[0]
+        expect(st == 200 and frames[-1][1] == "[DONE]" and streamed == http["short"],
+               "the streamed chat differs from the non-streamed one")
+        del engine.submit, submit, recording_submit  # the class's method again
+        ids_ok = {k: want_ids[k] in seen for k in chats}
+        out["prompt_ids_equal_tokenizers"] = ids_ok
+        expect(all(ids_ok.values()), f"gateway prompt ids differ from tokenizers': {ids_ok}")
+        agree = {k: http[k] == tok.decode(ref[k][0]) for k in chats}
+        out["http_equal_preset"] = agree
+        print(f"  [{label}] serve --model-path: weights bitwise equal {all(same.values())}, "
+              f"prompt ids equal tokenizers' {ids_ok}, chats equal the preset engine's "
+              f"{agree} (prompts {[len(v) for v in want_ids.values()]} tokens)")
+        if strict:
+            expect(all(agree.values()), f"HTTP chats differ from the preset engine: {agree}")
+        # (b) two adapters through the admin routes
+        slots = {}
+        for n, p in adapters.items():
+            st, body = _http(port, "POST", "/load_lora_adapter",
+                             {"lora_name": n, "lora_path": str(p)})
+            expect(st == 200 and body["ok"], f"/load_lora_adapter {n}: {st} {body}")
+            slots[n] = body["workers"][SERVE_WORKER].get("slot")
+        st, listed = _http(port, "GET", "/list_lora_adapters")
+        expect(st == 200 and listed["workers"][SERVE_WORKER] == sorted(adapters),
+               f"/list_lora_adapters: {listed}")
+        out["bank_bytes"] = engine.runner._lora_bank.nbytes
+        _http(port, "POST", "/flush_cache")
+        st, adapted = _http(port, "POST", "/v1/chat/completions", {
+            "model": model_id, "messages": chats["short"], "max_tokens": LORA_NEW,
+            "temperature": 0, "ignore_eos": True, "lora_adapter": "a"})
+        expect(st == 200 and adapted["choices"][0]["message"]["content"] != http["short"],
+               f"a chat with lora_adapter a: {st}, unchanged text")
+        # (d) a busy adapter cannot be unloaded or replaced
+        result = {}
+        long_chat = threading_call(lambda: _http(port, "POST", "/v1/chat/completions", {
+            "model": model_id, "messages": chats["short"], "max_tokens": 400,
+            "temperature": 0, "ignore_eos": True, "lora_adapter": "a"}), result)
+        wait_for(lambda: engine._lora_slot_busy(slots["a"]) or "value" in result,
+                 "the adapter lane to start")
+        busy_unload = _http(port, "POST", "/unload_lora_adapter", {"lora_name": "a"})
+        busy_replace = _http(port, "POST", "/load_lora_adapter",
+                             {"lora_name": "a", "lora_path": str(adapters["b"])})
+        long_chat.join(LOOP_WAIT_S)
+        expect(result.get("value", (0,))[0] == 200, f"the long adapter chat: {result}")
+        for what, (st, body) in (("unload", busy_unload), ("replace", busy_replace)):
+            err = body["workers"][SERVE_WORKER]["error"] if isinstance(body, dict) else body
+            expect(st == 503 and "in-flight" in err, f"busy {what}: {st} {body}")
+        wait_for(lambda: not engine._lora_slot_busy(slots["a"]), "the adapter lane to end")
+        st_unload, _ = _http(port, "POST", "/unload_lora_adapter", {"lora_name": "a"})
+        st_c, body_c = _http(port, "POST", "/load_lora_adapter",
+                             {"lora_name": "c", "lora_path": str(adapters["a"])})
+        reused = st_c == 200 and body_c["workers"][SERVE_WORKER].get("slot") == slots["a"]
+        st, listed = _http(port, "GET", "/list_lora_adapters")
+        st_gone, _ = _http(port, "POST", "/v1/chat/completions", {
+            "model": model_id, "messages": chats["short"], "max_tokens": 4,
+            "temperature": 0, "lora_adapter": "a"})
+        out["unload"] = dict(busy_unload_status=busy_unload[0],
+                             busy_replace_status=busy_replace[0], unload_after=st_unload,
+                             slot_reused=reused, listed=listed["workers"][SERVE_WORKER],
+                             unloaded_adapter_status=st_gone)
+        expect(st_unload == 200 and reused and listed["workers"][SERVE_WORKER] == ["b", "c"]
+               and st_gone != 200, f"unload after the lane ended: {out['unload']}")
+        print(f"  [{label}] adapters: slots {slots}, {out['unload']}")
+        # the gateway's tokenize
+        out["tokenize"] = _tokenize_ms(ctx.tokenizers, model_id)
+        t = out["tokenize"]
+        print(f"  [{card}] {label} gateway tokenize of a {t['tokens']}-token chat: L1 miss "
+              f"{t['miss_ms']:.3f} ms, L1 hit {t['l1_hit_ms']:.3f} ms, L0 hit "
+              f"{t['l0_hit_ms']:.4f} ms; L1 {t['l1']}")
+        audit_deadline = time.monotonic() + 10
+        while not engine.audit()["clean"] and time.monotonic() < audit_deadline:
+            time.sleep(0.05)
+        expect(engine.audit()["clean"], f"audit after serving: {engine.audit()}")
+    finally:
+        held["loop"].call_soon_threadsafe(held["stop"].set)
+        held["thread"].join(LOOP_WAIT_S)
+    if held["thread"].is_alive():
+        raise AssertionError("the gateway did not shut down")
+    ctx.registry.remove(SERVE_WORKER)
+    return out
+
+
+
+
+def threading_call(fn, result: dict):
+    """Run ``fn`` on a thread of its own; its value lands in ``result``."""
+    import threading
+
+    def run():
+        result["value"] = fn()
+
+    t = threading.Thread(target=run)
+    t.start()
+    return t
+
+
 def phase_engine(dev, card: str) -> dict:
     import dataclasses
 
@@ -2791,9 +3547,64 @@ def phase_engine(dev, card: str) -> dict:
     print("phase 7: speculative decoding, bf16")
     out["spec_bf16"] = phase_spec(cfg, params, dev, card, "bf16", strict=False)
     out["serve_speculative"] = check_serve_speculative()
+    # phase 8: the same bf16 weights written as an HF checkpoint directory
+    root = Path(tempfile.mkdtemp(prefix="smg_ckpt_"))
+    try:
+        ckpt8, cfg8, params8 = prepare_checkpoint(cfg, params, root)
+        out["ckpt_files"] = ckpt8
+        print("phase 8: serve --model-path, the HF tokenizer and LoRA, bf16")
+        out["ckpt_bf16"] = phase_checkpoint(cfg8, params8, dev, card, "bf16", strict=False,
+                                            ckpt=root / CKPT_MODEL, adapters=ckpt8["adapters"],
+                                            tiny=root / "tiny")
+        del params8
+        torch.cuda.empty_cache()
+        out.update(_phases_f32(cfg, params, dev, card, runs, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def prepare_checkpoint(cfg, params, root: Path) -> tuple:
+    """Phase 8's files under ``root``: the checkpoint of ``params`` (bf16)
+    as ``CKPT_MODEL``, two PEFT adapters and the tiny directory.  A disk
+    that cannot hold every layer cuts the checkpoint's depth (never its
+    width); returns (what was written, the checkpoint's config, its
+    weights: ``params`` cut to that depth)."""
+    import dataclasses
+
+    free = shutil.disk_usage(root).free
+    per_layer = sum(t[0].numel() * t.element_size() for t in params["layers"].values())
+    other = sum(params[k].numel() * params[k].element_size() for k in params if k != "layers")
+    margin = 4 << 30  # the tiny directory, the adapters and headroom
+    layers = int(min(cfg.num_layers, max(1, (free - other - margin) // per_layer)))
+    cfg8 = dataclasses.replace(cfg, num_layers=layers)
+    params8 = {**params, "layers": {k: v[:layers] for k, v in params["layers"].items()}}
+    written = write_checkpoint(cfg8, params8, root / CKPT_MODEL, CKPT_SHARDS)
+    adapters = {}
+    for i, name in enumerate(("a", "b")):
+        write_peft(cfg8, root / f"adapter_{name}", seed=100 + i)
+        adapters[name] = str(root / f"adapter_{name}")
+    write_tiny_dir(root / "tiny", cfg.vocab_size)
+    written.update(disk_free_bytes=free, layers=layers, depth_cut=layers < cfg.num_layers,
+                   adapters=adapters)
+    print(f"  checkpoint: {written['file_bytes']} bytes in {CKPT_SHARDS} files, "
+          f"{layers} of {cfg.num_layers} layers (disk free {free} bytes), written in "
+          f"{written['write_s']:.1f} s; adapters {sorted(adapters)} (rank {LORA_RANK})")
+    return written, cfg8, params8
+
+
+def _phases_f32(cfg, params, dev, card: str, runs, root: Path) -> dict:
+    """Phases 3-8 again on the same weights widened to float32."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+    L, max_new = cfg.num_layers, 32
     # the same requests on the same weights widened to float32, with float32
     # KV: the three paths differ only in summation order, so the logits
     # agree tightly and the greedy streams match
+    tok = PieceTokenizer(cfg.vocab_size, (cfg.bos_token_id, *cfg.eos_token_ids))
     _widen(params)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     runs32 = serve_paths(cfg32, params, dev, max_new)
@@ -2828,15 +3639,60 @@ def phase_engine(dev, card: str) -> dict:
                                      bare=out["serve_f32"])
     print("phase 7: speculative decoding, float32 (widened weights)")
     out["spec_f32"] = phase_spec(cfg32, params, dev, card, "f32", strict=True)
-    del params
+    print("phase 8: serve --model-path, the HF tokenizer and LoRA, float32 (the bf16 "
+          "files widened as they load)")
+    layers = ckpt_layers(root)
+    cfg8 = dataclasses.replace(cfg32, num_layers=layers)
+    params8 = {**params, "layers": {k: v[:layers] for k, v in params["layers"].items()}}
+    out["ckpt_f32"] = phase_checkpoint(
+        cfg8, params8, dev, card, "f32", strict=True, ckpt=root / CKPT_MODEL,
+        adapters={n: str(root / f"adapter_{n}") for n in ("a", "b")}, tiny=root / "tiny")
+    del params8
+    params.clear()  # the last phase on these weights: give the card back
     torch.cuda.empty_cache()
     out["preemption"] = phase_preempt(dev)
     return out
 
 
+def phase_checkpoint_alone(dev, card: str) -> dict:
+    """Phase 8 without phases 3-7 (``--phases checkpoint``): phase 3's
+    weights, bf16 then widened to float32."""
+    import dataclasses
+
+    import torch
+
+    from smg_tpu_torch.models.config import llama3_8b_config
+    from smg_tpu_torch.models.llama import init_params
+
+    cfg = llama3_8b_config()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    root = Path(tempfile.mkdtemp(prefix="smg_ckpt_"))
+    out = {}
+    try:
+        written, cfg8, params8 = prepare_checkpoint(cfg, params, root)
+        out["bf16"] = phase_checkpoint(cfg8, params8, dev, card, "bf16", strict=False,
+                                       ckpt=root / CKPT_MODEL, adapters=written["adapters"],
+                                       tiny=root / "tiny")
+        del params8
+        _widen(params)
+        params8 = {**params, "layers": {k: v[:cfg8.num_layers]
+                                        for k, v in params["layers"].items()}}
+        out["f32"] = phase_checkpoint(dataclasses.replace(cfg8, dtype="float32"), params8,
+                                      dev, card, "f32", strict=True, ckpt=root / CKPT_MODEL,
+                                      adapters=written["adapters"], tiny=root / "tiny")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def ckpt_layers(root: Path) -> int:
+    """The depth of the checkpoint written under ``root``."""
+    return json.loads((root / CKPT_MODEL / "config.json").read_text())["num_hidden_layers"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", choices=("all", "kernels"), default="all")
+    ap.add_argument("--phases", choices=("all", "kernels", "checkpoint"), default="all")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -2881,18 +3737,21 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failed.append("kernels")
     engine = {}
-    if args.phases == "all" and not failed:
-        print("phase 3: engine on Llama-3-8B (full width, 32 layers)")
+    if args.phases != "kernels" and not failed:
+        print("phase 3: engine on Llama-3-8B (full width, 32 layers)"
+              if args.phases == "all" else "phase 8 alone, on Llama-3-8B")
         try:
-            engine = phase_engine(dev, card)
+            engine = (phase_engine if args.phases == "all" else phase_checkpoint_alone)(
+                dev, card)
         except Exception:
             traceback.print_exc()
             failed.append("engine")
     if failed:
         print(f"FAILED phases: {failed}")
         return 1
-    if args.phases == "kernels":
-        print("kernels checked; the main path did not run, so no result line")
+    if args.phases != "all":
+        print(f"phases '{args.phases}' checked; the main path did not run whole, so no "
+              "result line")
         return 0
 
     sources = {
@@ -2911,6 +3770,8 @@ def main(argv=None) -> int:
             launches_engine=engine["launches"][name],
             # phase 7's serving path (the n-gram tier, bf16)
             launches_spec=engine["spec_bf16"]["graphs"]["launches"][name],
+            # phase 8's serving path (the LoRA lanes, bf16)
+            launches_ckpt=engine["ckpt_bf16"]["lora"]["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],

@@ -86,13 +86,20 @@ def build_parser() -> argparse.ArgumentParser:
                       dest="tenant_header_name")
 
     e = serve.add_argument_group("Engine")
-    e.add_argument("--model-preset", required=True,
+    e.add_argument("--model-path", default=None,
+                   help="HF-format model dir (config.json, *.safetensors, "
+                        "tokenizer.json)")
+    e.add_argument("--model-preset", default=None,
                    help="named preset (tiny, tiny-gemma2, llama3.2-1b, llama3-8b, "
                         "llama3-70b); weights are random, made from a seed")
+    e.add_argument("--tokenizer-path", default=None,
+                   help="tokenizer dir (default: --model-path)")
     e.add_argument("--device", default="cuda",
                    help="torch device of the engine (cuda by default; the CPU "
                         "only when asked for)")
-    e.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    e.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
+                   help="weight and compute dtype (a bf16 checkpoint is widened "
+                        "as it loads)")
     e.add_argument("--kv-dtype", default=None, dest="kv_dtype",
                    choices=["bfloat16", "float32"],
                    help="KV cache dtype (default: --dtype)")
@@ -108,7 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--overlap-schedule", default="on", choices=["on", "off"])
     e.add_argument("--speculative", action="store_true",
                    help="speculative decoding: per-request n-gram prompt-lookup "
-                        "drafts (or a draft model via --draft-model-preset) "
+                        "drafts (or a draft model via --draft-model-path or "
+                        "--draft-model-preset) "
                         "verified as one fused batched device block per step; "
                         "greedy output stays token-identical, sampling uses "
                         "distribution-preserving rejection sampling")
@@ -122,8 +130,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max drafted tokens verified per device block (the "
                         "verify block is one wider)")
     e.add_argument("--draft-model-path", default=None, dest="draft_model_path",
-                   help="HF-format dir of a draft model: refused until "
-                        "checkpoint loading is ported")
+                   help="HF-format dir of a draft model (its weights are loaded)")
     e.add_argument("--draft-model-preset", default=None, dest="draft_model_preset",
                    help="named preset for the draft model (random weights "
                         "from the draft seed)")

@@ -1,7 +1,8 @@
 """Engine configuration — the port's own copy of the parts of
 ``smg_tpu/engine/config.py`` this engine reads (cache layout, the
 continuous-batching scheduler knobs it implements, speculative decoding,
-engine identity, failure isolation and the flight ring)."""
+engine identity and checkpoint paths, the LoRA bank, failure isolation and
+the flight ring)."""
 
 from __future__ import annotations
 
@@ -114,6 +115,12 @@ class EngineConfig:
     draft_seed: int = 1
     # serving identity (the model name the gateway lists)
     model_id: str = "smg-tpu-model"
+    # HF-format checkpoint directory (config.json + safetensors) and the
+    # tokenizer's directory; None for a preset with random weights
+    model_path: str | None = None
+    tokenizer_path: str | None = None
+    # LoRA adapter bank slots (models/lora.py); slot 0 = no adapter
+    max_loras: int = 4
     # ---- failure isolation (the reference's defaults) ----
     # step watchdog: a thread that flags the engine unhealthy when no step
     # completes for this many seconds while work is pending (a wedged

@@ -2,8 +2,8 @@
 results + the background step loop (port of ``smg_tpu/engine/engine.py``:
 ``submit``, ``abort``, ``step``, ``generate``, ``start``/``stop``,
 ``loads``, ``audit``, ``flush_cache``, ``healthy``, ``dump_flight``,
-``metrics`` and ``events``), with the draft-model proposer installed when
-``config.draft_model`` is set.
+``metrics``, ``events`` and the LoRA adapter calls), with the draft-model
+proposer installed when ``config.draft_model`` is set.
 
 Entry points run on the card: ``device=None`` means CUDA, and a machine
 without one raises.  ``start()`` runs ``step()`` on a loop thread while
@@ -141,15 +141,11 @@ class Engine:
         it with finish ``timeout``, queued or running.  ``trace_id`` links
         the flight-recorder timeline to the caller's trace.  Raises
         ``QueueFullError`` under admission back-pressure or while draining,
-        and ``ValueError`` for input this port does not take yet
-        (``mm_embeds``, a LoRA adapter)."""
+        and ``ValueError`` for an adapter that is not loaded and for input
+        this port does not take yet (``mm_embeds``)."""
         if mm_embeds is not None:
             raise ValueError("multimodal input (mm_embeds) is not ported to the "
                              "PyTorch engine yet")
-        if sampling.lora_adapter:
-            # no adapter can be loaded until LoRA is ported: the reference's
-            # error for an adapter that is not loaded
-            raise ValueError(f"unknown LoRA adapter {sampling.lora_adapter!r}")
         rid = rid or f"req-{uuid.uuid4().hex[:16]}"
         req = EngineRequest(rid=rid, prompt_ids=list(prompt_ids), sampling=sampling)
         req.trace_id = trace_id
@@ -161,6 +157,8 @@ class Engine:
             if sampling.stop:
                 req.stop_checker = StopStringChecker(sampling.stop)
         req.token_filter = self._build_token_filter(sampling)
+        if sampling.lora_adapter:
+            req.lora_idx = self.runner.lora_index(sampling.lora_adapter)
         with self._wakeup:
             self.scheduler.add_request(req)
             # fresh work restarts the watchdog clock: a stall is measured from
@@ -206,6 +204,53 @@ class Engine:
         if self._json_filter is None:
             self._json_filter = TokenFilter(self.tokenizer, JsonMachine(), V, eos_token_ids=eos)
         return self._json_filter
+
+    # ---- LoRA adapters (reference: Load/Unload/ListLoRAAdapter) ----
+
+    def load_lora_adapter(self, name: str, path: str | None = None,
+                          data: bytes | None = None) -> int:
+        """Install an adapter from a PEFT directory, an ``.npz`` path or
+        inline npz bytes; returns its bank slot.  The bank is written in
+        place: captured graphs stay valid, and running requests are not
+        touched (no row reads a slot until a request names its adapter).
+        Replacing an adapter that live requests use is refused."""
+        import os
+
+        from smg_tpu_torch.models import lora as lora_mod
+
+        if data is not None:
+            weights = lora_mod.load_npz(data)
+        elif path is None:
+            raise ValueError("need path or data")
+        elif os.path.isdir(path):
+            weights = lora_mod.load_peft_dir(path, self.config.model)
+        else:
+            weights = lora_mod.load_npz(path)
+        with self._lock:
+            names = self.runner._lora_names
+            if name in names and self._lora_slot_busy(names[name]):
+                raise ValueError(
+                    f"adapter {name!r} has in-flight requests; drain before replacing")
+            return self.runner.load_lora(name, weights)
+
+    def _lora_slot_busy(self, slot: int) -> bool:
+        """True when a live request is pinned to the bank slot: every launch
+        re-reads the bank, so swapping a busy slot would change a running
+        request's weights mid-generation."""
+        return any(r.lora_idx == slot and not r.is_finished
+                   for r in self.scheduler.requests.values())
+
+    def unload_lora_adapter(self, name: str) -> bool:
+        with self._lock:
+            idx = self.runner._lora_names.get(name)
+            if idx is not None and self._lora_slot_busy(idx):
+                raise ValueError(
+                    f"adapter {name!r} has in-flight requests; drain before unloading")
+            return self.runner.unload_lora(name)
+
+    def list_lora_adapters(self) -> list[str]:
+        with self._lock:
+            return self.runner.list_loras()
 
     def abort(self, rid: str) -> bool:
         with self._lock:

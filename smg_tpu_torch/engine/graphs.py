@@ -4,20 +4,21 @@ the JAX runner's compiled decode programs (``smg_tpu/engine/runner.py``,
 bucket, loop width, stop-id width, penalties and vocab mask).
 
 One ``Megastep`` exists per (B bucket, page-table width ``mp``, horizon K,
-stop-id width E, penalties on, vocab mask on).  It owns the launch's
-persistent device inputs, which the runner refreshes only when the batch
-composition or the page tables change (``load``), and, on the card with
-graphs on, one CUDA graph of the whole megastep: every column's forward,
-the side-buffer writes, the penalties and their count update, the sampler,
-the device stop mask and the final KV scatter.  The penalty count and
-prompt-mask buffers are the runner's, read and written in place; the
-vocab mask (grammar lanes, K=1 only) is uploaded at every launch.  The first launch of a shape
-runs eagerly on the capture stream (the warm-up: first launches of a kernel
-instantiation set its attributes, cuBLAS sets up its workspace), and its
-results are that launch's; the shape is then captured and every later
-launch replays it.  All graphs share one memory pool: a graph's
-intermediates are dead once it ends, and graphs replay one at a time on one
-stream.
+stop-id width E, penalties on, vocab mask on, LoRA on).  It owns the
+launch's persistent device inputs, which the runner refreshes only when the
+batch composition or the page tables change (``load``), and, on the card
+with graphs on, one CUDA graph of the whole megastep: every column's
+forward, the side-buffer writes, the penalties and their count update, the
+sampler, the device stop mask and the final KV scatter.  The penalty count
+and prompt-mask buffers are the runner's, read and written in place; so is
+the LoRA bank, whose per-row slot indices load with the lane composition;
+the vocab mask (grammar lanes, K=1 only) is uploaded at every launch.  The
+first launch of a shape runs eagerly on the capture stream (the warm-up:
+first launches of a kernel instantiation set its attributes, cuBLAS sets up
+its workspace), and its results are that launch's; the shape is then
+captured and every later launch replays it.  All graphs share one memory
+pool: a graph's intermediates are dead once it ends, and graphs replay one
+at a time on one stream.
 
 A graph per horizon rather than one at ``horizon_cap`` with a device-side
 column limit: a graph runs every column it captured (leaving a loop on
@@ -51,10 +52,13 @@ class Megastep:
     """Persistent inputs, and the graph, of one decode megastep shape."""
 
     def __init__(self, device: torch.device, B: int, mp: int, K: int, E: int,
-                 use_pen: bool = False, use_mask: bool = False, vocab: int = 0):
+                 use_pen: bool = False, use_mask: bool = False, vocab: int = 0,
+                 use_lora: bool = False):
         i32, i64, f32 = torch.int32, torch.int64, torch.float32
         self.B, self.mp, self.K, self.E = B, mp, K, E
-        self.use_pen, self.use_mask = use_pen, use_mask
+        self.use_pen, self.use_mask, self.use_lora = use_pen, use_mask, use_lora
+        # each row's adapter slot (0 = none, padded rows 0)
+        self.lora_idx = torch.zeros(B, dtype=i64, device=device) if use_lora else None
         self.tokens = torch.zeros(B, dtype=i64, device=device)
         self.entry = torch.zeros(B, dtype=i32, device=device)
         self.counter = torch.zeros(1, dtype=i64, device=device)  # sampling step before col 0
@@ -103,6 +107,8 @@ class Megastep:
                 for dst, src in ((self.slot_idx, ds.slot_idx), (self.freqs, ds.freqs),
                                  (self.pres, ds.pres), (self.reps, ds.reps)):
                     dst.copy_(torch.from_numpy(src), non_blocking=True)
+            if self.use_lora:
+                self.lora_idx.copy_(torch.from_numpy(ds.lora_idx), non_blocking=True)
             self.lane_sig = ds.lane_sig
         if self.pt_sig != ds.pt_sig:
             self.page_tables.copy_(torch.from_numpy(ds.page_tables), non_blocking=True)
@@ -176,12 +182,12 @@ class GraphCache:
                 "verify_capture_bytes": self.verify_capture_bytes}
 
     def get(self, B: int, mp: int, K: int, E: int, use_pen: bool = False,
-            use_mask: bool = False, vocab: int = 0) -> Megastep:
-        key = (B, mp, K, E, use_pen, use_mask)
+            use_mask: bool = False, vocab: int = 0, use_lora: bool = False) -> Megastep:
+        key = (B, mp, K, E, use_pen, use_mask, use_lora)
         step = self.steps.get(key)
         if step is None:
             step = self.steps[key] = Megastep(self.device, B, mp, K, E, use_pen, use_mask,
-                                              vocab)
+                                              vocab, use_lora)
         return step
 
     def get_verify(self, B: int, mp: int, W: int) -> VerifyStep:

@@ -64,6 +64,8 @@ class EngineRequest:
     token_filter: Any = None
     # the runner's penalty row for this request's slot is current
     penalty_synced: bool = False
+    # LoRA adapter bank slot (0 = base model)
+    lora_idx: int = 0
     # speculative decoding: consecutive zero-acceptance verifies (back-off)
     # and the request's incremental n-gram index (engine/speculative.py)
     spec_cold: int = 0

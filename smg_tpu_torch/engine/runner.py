@@ -22,6 +22,14 @@ Speculative verify blocks (``decode_spec_async``, the reference's
 device and land only the accepted columns' KV; on the card each (B, mp, W)
 shape is replayed from a CUDA graph of its own, under the same
 ``decode_graphs`` switch.
+
+LoRA (the reference's adapter bank, ``runner.py:471-537``): adapters live
+in one ``models/lora.py::LoraBank`` of ``max_loras + 1`` slots (slot 0 =
+no adapter), created at the first load with that adapter's rank and
+written in place by every load and unload, so graphs that read it stay
+valid.  A prefill or megastep with any adapter row takes the bank and a
+slot index per row; the megastep's key gains ``use_lora`` and its slot
+indices are a static input, loaded with the lane composition.
 """
 
 from __future__ import annotations
@@ -37,7 +45,11 @@ from smg_tpu_torch.engine.graphs import GraphCache, Megastep, VerifyStep
 from smg_tpu_torch.engine.kv_cache import KvCacheSpec, create_kv_buffers, plan_cache
 from smg_tpu_torch.engine.sampling import apply_penalties, pick_sampler, spec_accept_sample
 from smg_tpu_torch.models.llama import LlamaModel, init_params
+from smg_tpu_torch.models.lora import LoraBank, canonical_keys, validate_adapter
 from smg_tpu_torch.ops.cuda import decode_attention
+from smg_tpu_torch.utils import get_logger
+
+logger = get_logger("engine.runner")
 
 
 def resolve_device(device) -> torch.device:
@@ -64,7 +76,7 @@ class DecodeState:
 
     __slots__ = ("lane_sig", "temps", "topks", "topps", "minps",
                  "stop_ids", "limits", "live", "slot_idx", "freqs", "pres", "reps",
-                 "pt_sig", "page_tables")
+                 "lora_idx", "pt_sig", "page_tables")
 
     def __init__(self):
         self.lane_sig = self.pt_sig = None
@@ -75,6 +87,9 @@ class DecodeState:
         # penalties ([B] slot rows, S for padded rows; [B] scalars), None
         # when no lane of the composition has penalties
         self.slot_idx = self.freqs = self.pres = self.reps = None
+        # [B] adapter slot per row (0 = none, padded rows 0), None when no
+        # lane of the composition has an adapter
+        self.lora_idx = None
         self.page_tables = None
 
     @property
@@ -83,9 +98,9 @@ class DecodeState:
 
     @classmethod
     def of(cls, page_tables, temps, topks, topps, minps, stop_state=None,
-           pen=None) -> "DecodeState":
+           pen=None, lora_idx=None) -> "DecodeState":
         """A one-off state from raw arrays (a fresh signature each call);
-        ``pen`` = (slot_idx, freqs, pres, reps)."""
+        ``pen`` = (slot_idx, freqs, pres, reps); ``lora_idx`` [B]."""
         ds = cls()
         ds.lane_sig = ds.pt_sig = object()
         ds.page_tables = np.ascontiguousarray(page_tables, np.int32)
@@ -100,6 +115,8 @@ class DecodeState:
         if pen is not None:
             ds.slot_idx = np.asarray(pen[0], np.int64)
             ds.freqs, ds.pres, ds.reps = (np.asarray(x, np.float32) for x in pen[1:])
+        if lora_idx is not None:
+            ds.lora_idx = np.asarray(lora_idx, np.int64)
         return ds
 
 
@@ -159,6 +176,8 @@ class ModelRunner:
         # bool prompt masks; row S is the garbage row of padded decode rows
         self._counts_buf: torch.Tensor | None = None
         self._pmask_buf: torch.Tensor | None = None
+        self._lora_bank: LoraBank | None = None  # created at the first load
+        self._lora_names: dict[str, int] = {}
         # what the schedule asked of the device: forward calls, rows and
         # tokens of prefill; megastep launches and decode columns computed;
         # verify blocks
@@ -218,6 +237,62 @@ class ModelRunner:
         self._counts_buf[slot].copy_(torch.from_numpy(counts), non_blocking=True)
         self._pmask_buf[slot].copy_(torch.from_numpy(pmask), non_blocking=True)
 
+    # ---- LoRA bank (multi-adapter serving; see models/lora.py) ----
+
+    @property
+    def lora_slots(self) -> int:
+        return self.config.max_loras + 1  # slot 0 = no adapter
+
+    def lora_index(self, name: str) -> int:
+        try:
+            return self._lora_names[name]
+        except KeyError:
+            raise ValueError(f"unknown LoRA adapter {name!r}") from None
+
+    def list_loras(self) -> list[str]:
+        return sorted(self._lora_names)
+
+    def load_lora(self, name: str, weights: dict) -> int:
+        """Install (or replace) an adapter in the bank; returns its slot.
+        The first load creates the bank at its adapter's rank; a smaller
+        rank is zero-padded, a larger one refused."""
+        rank = validate_adapter(self.model_cfg, weights)
+        if self._lora_bank is None:
+            self._lora_bank = LoraBank(self.model_cfg, self.lora_slots, rank,
+                                       self.model.embed.dtype, self.device)
+        if rank > self._lora_bank.rank:
+            raise ValueError(
+                f"adapter rank {rank} exceeds bank rank {self._lora_bank.rank} "
+                f"(first-loaded adapter fixes the bank rank)")
+        idx = self._lora_names.get(name)
+        if idx is None:
+            used = set(self._lora_names.values())
+            free = [i for i in range(1, self.lora_slots) if i not in used]
+            if not free:
+                raise ValueError(f"LoRA bank full ({self.lora_slots - 1} slots)")
+            idx = free[0]
+        # canonical keys only; ignore npz extras
+        self._lora_bank.write(idx, {k: weights[k] for k in canonical_keys()})
+        self._lora_names[name] = idx
+        logger.info("lora adapter %r -> slot %d (rank %d)", name, idx, rank)
+        return idx
+
+    def unload_lora(self, name: str) -> bool:
+        idx = self._lora_names.pop(name, None)
+        if idx is None:
+            return False
+        self._lora_bank.write(idx, None)
+        return True
+
+    def _lora_args(self, lora_idx) -> dict:
+        """The forward's adapter arguments for per-row slots ``lora_idx``:
+        none when no row has an adapter (or nothing was ever loaded)."""
+        if self._lora_bank is None or lora_idx is None or not np.any(lora_idx):
+            return {}
+        return dict(lora=self._lora_bank,
+                    lora_idx=torch.as_tensor(np.asarray(lora_idx, np.int64),
+                                             device=self.device))
+
     # ---- host -> device packing ----
 
     def _i32(self, x) -> torch.Tensor:
@@ -237,37 +312,41 @@ class ModelRunner:
 
     def prefill(self, token_ids: list[int], prefix_len: int, page_table: np.ndarray,
                 temperature: float, top_k: int, top_p: float, min_p: float,
-                pen: tuple | None = None, mask: np.ndarray | None = None
-                ) -> tuple[int, float]:
+                pen: tuple | None = None, mask: np.ndarray | None = None,
+                lora_idx: int = 0) -> tuple[int, float]:
         """Run one (final) prefill chunk; returns (sampled_token, logprob).
         ``pen`` = (counts [V], prompt_mask [V], freq, pres, rep); ``mask``
-        [V] bool, the sampleable vocabulary."""
+        [V] bool, the sampleable vocabulary; ``lora_idx`` the adapter slot
+        (0 = none)."""
         if pen is not None:
             counts, pmask, freq, pres, rep = pen
             pen = (counts[None], pmask[None], [freq], [pres], [rep])
         toks, lps = self.prefill_batched(
             [(token_ids, prefix_len, page_table)], [temperature], [top_k],
-            [top_p], [min_p], pen=pen, mask=None if mask is None else mask[None])
+            [top_p], [min_p], pen=pen, mask=None if mask is None else mask[None],
+            lora_idx=[lora_idx])
         return int(toks[0]), float(lps[0])
 
     def prefill_extend(self, token_ids: list[int], prefix_len: int,
-                       page_table: np.ndarray) -> None:
+                       page_table: np.ndarray, lora_idx: int = 0) -> None:
         """Write one NON-final chunk's KV: nothing is sampled."""
         self._check_chunk(len(token_ids), prefix_len, len(page_table))
         self.model.forward_prefill(
             self._i32(token_ids), self._i32([prefix_len]), self._i32([len(token_ids)]),
-            self.k_cache, self.v_cache, self._i32(page_table), compute_logits=False)
+            self.k_cache, self.v_cache, self._i32(page_table), compute_logits=False,
+            **self._lora_args([lora_idx]))
         self._count_prefill(1, len(token_ids))
 
     def prefill_batched(self, chunks, temps, topks, topps, minps,
-                        pen: tuple | None = None, mask: np.ndarray | None = None
-                        ) -> tuple[np.ndarray, np.ndarray]:
+                        pen: tuple | None = None, mask: np.ndarray | None = None,
+                        lora_idx=None) -> tuple[np.ndarray, np.ndarray]:
         """Prefill several sequences' final chunks in one forward.  ``chunks``
         is a list of (token_ids, prefix_len, page_table_row); rows are padded
         to the longest chunk.  Returns (tokens [G], logprobs [G]).  One
         sampling step for the call: row i's noise is row i's.  ``pen`` =
         (counts [G, V], prompt_masks [G, V], freqs, pres, reps) penalises
-        the float32 logits; ``mask`` [G, V] bool restricts the vocabulary."""
+        the float32 logits; ``mask`` [G, V] bool restricts the vocabulary;
+        ``lora_idx`` [G] the rows' adapter slots (None: no adapter)."""
         G = len(chunks)
         T = max(len(c[0]) for c in chunks)
         mp = len(chunks[0][2])
@@ -283,7 +362,7 @@ class ModelRunner:
             page_tables[i] = row
         logits = self.model.forward_prefill_batched(
             self._i32(tokens), self._i32(prefix_lens), self._i32(t_reals),
-            self.k_cache, self.v_cache, self._i32(page_tables))
+            self.k_cache, self.v_cache, self._i32(page_tables), **self._lora_args(lora_idx))
         if pen is not None:
             counts, pmask, freqs, pres, reps = pen
             logits = apply_penalties(
@@ -316,13 +395,15 @@ class ModelRunner:
         and ``steps_run`` says where the first live lane finished, as the
         JAX megastep's loop exit does.  ``ds.slot_idx`` set turns penalties
         on (rows read from and written back to the runner's buffers);
+        ``ds.lora_idx`` set, with a bank loaded, adds each row's adapter;
         ``mask`` [B, V] bool restricts each row's vocabulary."""
         B, mp = ds.page_tables.shape
         E = ds.stop_ids.shape[1] if (num_steps > 1 and ds.stop_ids is not None) else 0
         if ds.use_pen:
             self._ensure_penalty_buffers()  # before any capture reads them
+        use_lora = ds.lora_idx is not None and self._lora_bank is not None
         step = self.graphs.get(B, mp, num_steps, E, ds.use_pen, mask is not None,
-                               self.model_cfg.vocab_size)
+                               self.model_cfg.vocab_size, use_lora)
         step.load(ds, tokens, positions, self._consume_folds(num_steps), mask)
         if self._counters is None and self.device.type == "cuda" \
                 and self.model.attention == "kernel":
@@ -355,14 +436,16 @@ class ModelRunner:
     def decode_multi(self, tokens: np.ndarray, positions: np.ndarray,
                      page_tables: np.ndarray, temps, topks, topps, minps,
                      num_steps: int, stop_state: tuple | None = None,
-                     pen: tuple | None = None, mask: np.ndarray | None = None
-                     ) -> tuple[np.ndarray, np.ndarray]:
+                     pen: tuple | None = None, mask: np.ndarray | None = None,
+                     lora_idx=None) -> tuple[np.ndarray, np.ndarray]:
         """Launch plus fetch.  Returns (tokens [B, n], logprobs [B, n]) with n
         the reference's ``steps_run``; ``stop_state`` = (stop_ids [B, E] -1
         padded, limits [B] absolute total-length caps, live [B] real-lane
         mask); None never stops early.  ``pen`` = (slot_idx [B], freqs [B],
-        pres [B], reps [B]) over the runner's penalty rows; ``mask`` [B, V]."""
-        ds = DecodeState.of(page_tables, temps, topks, topps, minps, stop_state, pen)
+        pres [B], reps [B]) over the runner's penalty rows; ``mask`` [B, V];
+        ``lora_idx`` [B] adapter slots."""
+        ds = DecodeState.of(page_tables, temps, topks, topps, minps, stop_state, pen,
+                            lora_idx)
         toks, lps, n = self.decode_fetch(self.decode_multi_async(
             tokens, positions, ds, num_steps, mask))
         return toks[:, :n], lps[:, :n]
@@ -395,11 +478,12 @@ class ModelRunner:
             counts = self._counts_buf.index_select(0, st.slot_idx)  # [B, V] int32
             pmask = self._pmask_buf.index_select(0, st.slot_idx)
         sampler = pick_sampler()
+        lora = dict(lora=self._lora_bank, lora_idx=st.lora_idx) if st.use_lora else {}
         cur = st.tokens
         for j in range(N):
             logits = self.model.forward_decode_horizon(
                 cur, entry + j, entry, j, self.k_cache, self.v_cache, st.page_tables,
-                hk, hv, counters=self._counters)
+                hk, hv, counters=self._counters, **lora)
             if st.use_pen:
                 logits = apply_penalties(logits, counts, pmask, st.freqs, st.pres, st.reps)
             new, lps = sampler(logits, self.sample_seed, st.counter + (1 + j),

@@ -104,6 +104,7 @@ class InFlightFrame:
     lookahead: bool = False
     folds: int = 1
     use_pen: bool = False
+    use_lora: bool = False
     spec: bool = False
     draft_ns: list | None = None
     tiers: list | None = None
@@ -210,6 +211,8 @@ class Scheduler:
         meta = {"temperature": sp.temperature, "top_p": sp.top_p,
                 "top_k": sp.top_k, "max_new_tokens": sp.max_new_tokens,
                 "priority": 0}
+        if sp.lora_adapter:
+            meta["lora"] = sp.lora_adapter
         if req.token_filter is not None:
             meta["constrained"] = True
         return meta
@@ -809,7 +812,7 @@ class Scheduler:
         positions = frame.positions + np.int32(H)
         positions[frame.B_real:] = mp_b * self.ps  # padded rows -> garbage page
         ds = self._refresh_decode_state(lanes, frame.B, mp_b, frame.lane_sig,
-                                        use_pen=frame.use_pen)
+                                        use_pen=frame.use_pen, use_lora=frame.use_lora)
         mark = self.runner.rng_mark()
         t_dispatch = time.perf_counter()
         launch = self.runner.decode_multi_async(frame.launch.last_col, positions, ds, H2)
@@ -818,7 +821,7 @@ class Scheduler:
             lanes=[(s, r, e + H) for s, r, e in frame.lanes], launch=launch,
             horizon=H2, B=frame.B, B_real=frame.B_real, mp_b=mp_b,
             positions=positions, lane_sig=frame.lane_sig, rng_mark=mark,
-            lookahead=True, folds=H2, use_pen=frame.use_pen)
+            lookahead=True, folds=H2, use_pen=frame.use_pen, use_lora=frame.use_lora)
 
     # ---- prefill phase ----
 
@@ -979,7 +982,8 @@ class Scheduler:
         start = req.prefill_pos
         chunk = req.all_token_ids[start : start + take]
         self.runner.prefill_extend(chunk, prefix_len=start,
-                                   page_table=self.page_tables[req.slot])
+                                   page_table=self.page_tables[req.slot],
+                                   lora_idx=req.lora_idx)
         self.num_prefill_tokens += len(chunk)
         req.prefill_pos += len(chunk)
         req.seq_len = req.prefill_pos
@@ -1001,7 +1005,7 @@ class Scheduler:
         tok, lp = self.runner.prefill(
             prompt[start:], prefix_len=start, page_table=self.page_tables[req.slot],
             temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p, min_p=sp.min_p,
-            pen=pen, mask=mask)
+            pen=pen, mask=mask, lora_idx=req.lora_idx)
         self.num_prefill_tokens += len(prompt) - start
         req.prefill_pos = req.seq_len = len(prompt)
         req.status = RequestStatus.RUNNING
@@ -1022,10 +1026,12 @@ class Scheduler:
         if any(s.has_penalties for s in sps):
             counts, pmask = (np.stack(x) for x in zip(*map(self._req_pen_state, group)))
             pen = (counts, pmask, *self._pen_scalars(group, len(group)))
+        use_lora = any(r.lora_idx for r in group)
         toks, lps = self.runner.prefill_batched(
             chunks, [s.temperature for s in sps], [s.top_k for s in sps],
             [s.top_p for s in sps], [s.min_p for s in sps], pen=pen,
-            mask=self._masks(group, len(group)))
+            mask=self._masks(group, len(group)),
+            lora_idx=[r.lora_idx for r in group] if use_lora else None)
         for i, req in enumerate(group):
             self.num_prefill_tokens += len(chunks[i][0])
             req.seq_len = req.prefill_pos = req.total_len
@@ -1116,10 +1122,12 @@ class Scheduler:
                 self._rewind_unused_folds(frame, used)
 
     def _refresh_decode_state(self, active: list, B: int, mp_b: int, sig: tuple,
-                              stop_e: int = 0, use_pen: bool = False) -> DecodeState:
+                              stop_e: int = 0, use_pen: bool = False,
+                              use_lora: bool = False) -> DecodeState:
         """Bring the decode inputs up to date: sampling parameters, penalty
-        rows and stop state (``stop_e`` > 0: per-lane stop ids, absolute
-        length limits, live-lane mask) only on a new composition ``sig``;
+        rows, adapter slots (``use_lora``) and stop state (``stop_e`` > 0:
+        per-lane stop ids, absolute length limits, live-lane mask) only on a
+        new composition ``sig``;
         page tables only on a new composition, width or page-table change.
         With ``use_pen``, lanes whose device penalty row is stale (new
         admission, preemption, a discarded launch) re-derive it from the
@@ -1155,6 +1163,10 @@ class Scheduler:
                 ds.slot_idx = np.full(B, self.sched.max_batch_size, np.int64)
                 ds.slot_idx[: len(active)] = [slot for slot, _ in active]
                 ds.freqs, ds.pres, ds.reps = self._pen_scalars([r for _, r in active], B)
+            ds.lora_idx = None
+            if use_lora:
+                ds.lora_idx = np.zeros(B, np.int64)  # padded rows: no adapter
+                ds.lora_idx[: len(active)] = [r.lora_idx for _, r in active]
             ds.lane_sig = sig
         if use_pen:
             for slot, req in active:
@@ -1244,8 +1256,11 @@ class Scheduler:
             for _, r in active))
         E = self._stop_id_width(active) if max_steps > 1 else 0
         use_pen = any(r.sampling.has_penalties for _, r in active)
-        sig = (B, use_pen, max_steps, E, tuple((i, r.sched_serial) for i, r in active))
-        ds = self._refresh_decode_state(active, B, mp_b, sig, stop_e=E, use_pen=use_pen)
+        use_lora = any(r.lora_idx for _, r in active)
+        sig = (B, use_pen, use_lora, max_steps, E,
+               tuple((i, r.sched_serial) for i, r in active))
+        ds = self._refresh_decode_state(active, B, mp_b, sig, stop_e=E, use_pen=use_pen,
+                                        use_lora=use_lora)
         tokens = np.zeros(B, np.int64)
         positions = np.full(B, mp_b * self.ps, np.int32)  # padded rows -> garbage page
         for idx, (_slot, req) in enumerate(active):
@@ -1259,7 +1274,7 @@ class Scheduler:
         return InFlightFrame(
             lanes=[(i, r, r.seq_len) for i, r in active], launch=launch,
             horizon=horizon, B=B, B_real=B_real, mp_b=mp_b, positions=positions,
-            lane_sig=sig, rng_mark=mark, folds=horizon, use_pen=use_pen)
+            lane_sig=sig, rng_mark=mark, folds=horizon, use_pen=use_pen, use_lora=use_lora)
 
     # ---- speculative decoding (two-tier drafting + fused batched verify) ----
     #
@@ -1276,16 +1291,17 @@ class Scheduler:
 
     def _partition_spec(self, active: list) -> tuple[list, list]:
         """Split decode lanes into (spec-eligible, rest).  Eligible means
-        unconstrained, penalty-free, no logprobs, no stop strings (an
+        unconstrained, penalty-free, no logprobs, no LoRA (the verify block
+        scores the base model's distributions only), no stop strings (an
         engine-layer match would roll back a block's emissions; such lanes
-        stay on the K=1 megastep), with output.  The reference's LoRA and
-        pipeline-parallel exclusions have nothing to exclude here.
+        stay on the K=1 megastep), with output.  The reference's
+        pipeline-parallel exclusion has nothing to exclude here.
         Membership is static per request."""
         eligible, rest = [], []
         for slot, req in active:
             sp = req.sampling
             ok = (req.token_filter is None and not sp.has_penalties and not sp.logprobs
-                  and not sp.stop and bool(req.output_ids))
+                  and not req.lora_idx and not sp.stop and bool(req.output_ids))
             (eligible if ok else rest).append((slot, req))
         return eligible, rest
 

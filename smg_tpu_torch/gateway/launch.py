@@ -1,7 +1,9 @@
 """Process assembly for ``python -m smg_tpu_torch.cli serve`` — the port's
 copy of the ``serve`` path of ``smg_tpu/gateway/launch.py``: build a port
-``Engine`` from a model preset, put it behind one ``InProcWorkerClient``,
-and serve the gateway until SIGTERM or SIGINT, which drains the engine.
+``Engine`` from an HF checkpoint directory (``--model-path``: its
+``config.json``, safetensors weights and tokenizer) or a model preset, put
+it behind one ``InProcWorkerClient``, and serve the gateway until SIGTERM or
+SIGINT, which drains the engine.
 
 Preset models have no tokenizer file, so the engine and the gateway share a
 vocabulary-matched ``MockTokenizer``.  (The JAX ``serve`` gives its gateway
@@ -22,34 +24,45 @@ logger = get_logger("gateway.launch")
 
 
 def build_engine_from_args(args):
-    """A port ``Engine`` from the parsed ``serve`` flags: random weights
-    from ``seed`` for the preset, on ``--device`` (the card by default).
-    A draft model comes from ``--draft-model-preset``; ``--draft-model-path``
-    is refused, as the port has no checkpoint loader yet."""
+    """A port ``Engine`` from the parsed ``serve`` flags, on ``--device``
+    (the card by default): the checkpoint of ``--model-path`` (weights in
+    ``--dtype``, its tokenizer, ``model_id`` = the path), or a preset with
+    random weights from ``seed``.  A draft model comes from
+    ``--draft-model-path`` (its checkpoint) or ``--draft-model-preset``."""
     from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
     from smg_tpu_torch.engine.engine import Engine
-    from smg_tpu_torch.models.config import PRESETS
+    from smg_tpu_torch.models.config import PRESETS, ModelConfig
+    from smg_tpu_torch.models.weights import load_params
     from smg_tpu_torch.tokenizer import MockTokenizer
 
-    if args.model_preset not in PRESETS:
-        raise SystemExit(f"unknown --model-preset {args.model_preset!r}; "
-                         f"known: {sorted(PRESETS)}")
-    model = dataclasses.replace(PRESETS[args.model_preset](), dtype=args.dtype)
+    if args.model_path:
+        model = ModelConfig.from_pretrained(args.model_path, dtype=args.dtype)
+    elif args.model_preset:
+        if args.model_preset not in PRESETS:
+            raise SystemExit(f"unknown --model-preset {args.model_preset!r}; "
+                             f"known: {sorted(PRESETS)}")
+        model = dataclasses.replace(PRESETS[args.model_preset](), dtype=args.dtype)
+    else:
+        raise SystemExit("need --model-path or --model-preset")
+    draft_model = draft_params = None
     if args.draft_model_path:
-        raise SystemExit("--draft-model-path needs checkpoint loading, which is not "
-                         "ported yet (no checkpoint loader in smg_tpu_torch); use "
-                         "--draft-model-preset")
-    draft_model = None
-    if args.draft_model_preset:
+        draft_model = ModelConfig.from_pretrained(args.draft_model_path, dtype=args.dtype)
+        draft_params = load_params(EngineConfig(model=draft_model,
+                                                model_path=args.draft_model_path),
+                                   device=args.device)
+    elif args.draft_model_preset:
         if args.draft_model_preset not in PRESETS:
             raise SystemExit(f"unknown --draft-model-preset {args.draft_model_preset!r}; "
                              f"known: {sorted(PRESETS)}")
         draft_model = dataclasses.replace(PRESETS[args.draft_model_preset](),
                                           dtype=args.dtype)
     if args.speculative_tier == "draft" and draft_model is None:
-        raise SystemExit("--speculative-tier draft needs --draft-model-preset")
+        raise SystemExit("--speculative-tier draft needs --draft-model-path or "
+                         "--draft-model-preset")
     cfg = EngineConfig(
         model=model,
+        model_path=args.model_path,
+        tokenizer_path=args.tokenizer_path or args.model_path,
         cache=CacheConfig(
             page_size=args.page_size,
             # KV follows the compute dtype unless the operator overrides
@@ -70,16 +83,29 @@ def build_engine_from_args(args):
             speculative_tier=args.speculative_tier,
         ),
         draft_model=draft_model,
-        model_id=args.model_preset,
+        model_id=args.model_path or args.model_preset,
         step_watchdog_secs=args.step_watchdog_secs,
         flight_ring_size=args.flight_ring_size,
     )
-    tokenizer = MockTokenizer(
-        vocab_size=model.vocab_size,
-        eos_token_id=(model.eos_token_ids or (0,))[0],
-        bos_token_id=model.bos_token_id,
-    )
-    return Engine(cfg, tokenizer=tokenizer, device=args.device)
+    params = load_params(cfg, device=args.device) if args.model_path else None
+    if cfg.tokenizer_path:
+        tokenizer = load_tokenizer(cfg.tokenizer_path)
+    else:
+        tokenizer = MockTokenizer(
+            vocab_size=model.vocab_size,
+            eos_token_id=(model.eos_token_ids or (0,))[0],
+            bos_token_id=model.bos_token_id,
+        )
+    return Engine(cfg, params=params, tokenizer=tokenizer, device=args.device,
+                  draft_params=draft_params)
+
+
+def load_tokenizer(path: str):
+    """The HF tokenizer of a directory (``tokenizer.json``, its config and
+    chat template)."""
+    from smg_tpu_torch.tokenizer.hf import HFTokenizer
+
+    return HFTokenizer(path)
 
 
 def gateway_options(args) -> dict:

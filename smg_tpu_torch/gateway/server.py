@@ -3,9 +3,10 @@
 model listing, chat and text completions, ``/generate``, tokenize and
 detokenize, and the operational routes (``/metrics``, ``/scheduler``,
 ``/get_loads``, ``/flush_cache``, ``/debug/flight/{worker_id}``,
-``GET /workers``), the parser-only routes (``/parse/function_call``,
-``/parse/reasoning``) and the SLO surfaces (``/debug/slo``,
-``/debug/slo/verdicts``).  Each handler keeps the reference's status codes,
+``GET /workers``), the LoRA admin routes (``/load_lora_adapter``,
+``/unload_lora_adapter``, ``/list_lora_adapters``), the parser-only
+routes (``/parse/function_call``, ``/parse/reasoning``) and the SLO
+surfaces (``/debug/slo``, ``/debug/slo/verdicts``).  Each handler keeps the reference's status codes,
 JSON bodies and SSE framing (``data: …`` frames, ``data: [DONE]`` last).
 
 The request-policy layer is the reference's middleware chain, in its order:
@@ -15,7 +16,7 @@ cancel-and-requeue preemption of ``bulk`` work, request counters).
 
 Not ported yet: plugins, providers, the HTTP/PD proxy paths, embeddings,
 rerank, classify, the Anthropic, responses, conversations, realtime and
-transcription APIs, LoRA and profiling routes, worker registration over
+transcription APIs, profiling routes, worker registration over
 HTTP, jobs, workflows and the routing debug surfaces.
 """
 
@@ -429,6 +430,9 @@ def build_app(ctx: AppContext) -> web.Application:
     app.router.add_post("/v1/detokenize", h_detokenize)
     app.router.add_get("/get_loads", h_get_loads)
     app.router.add_post("/flush_cache", h_flush_cache)
+    app.router.add_post("/load_lora_adapter", h_load_lora)
+    app.router.add_post("/unload_lora_adapter", h_unload_lora)
+    app.router.add_get("/list_lora_adapters", h_list_lora)
     app.router.add_get("/workers", h_workers_list)
     return app
 
@@ -746,6 +750,54 @@ async def h_flush_cache(request: web.Request) -> web.Response:
         except Exception as e:
             results[w.worker_id] = f"error: {e}"
     return web.json_response({"flushed": results})
+
+
+async def h_load_lora(request: web.Request) -> web.Response:
+    """Broadcast LoadLoRAAdapter to the workers (the reference's LoRA
+    admin surface)."""
+    ctx: AppContext = request.app[CTX]
+    try:
+        body = await request.json()
+        name = body["lora_name"]
+    except Exception as e:
+        return _error(400, f"invalid request: {e}")
+    path = body.get("lora_path")
+    results = {}
+    for w in ctx.registry.list():
+        try:
+            results[w.worker_id] = await w.client.load_lora_adapter(name, path=path)
+        except Exception as e:
+            results[w.worker_id] = {"ok": False, "error": str(e)}
+    ok = bool(results) and all(r.get("ok") for r in results.values())
+    return web.json_response({"ok": ok, "workers": results}, status=200 if ok else 503)
+
+
+async def h_unload_lora(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    try:
+        body = await request.json()
+        name = body["lora_name"]
+    except Exception as e:
+        return _error(400, f"invalid request: {e}")
+    results = {}
+    for w in ctx.registry.list():
+        try:
+            results[w.worker_id] = await w.client.unload_lora_adapter(name)
+        except Exception as e:
+            results[w.worker_id] = {"ok": False, "error": str(e)}
+    ok = bool(results) and all(r.get("ok") for r in results.values())
+    return web.json_response({"ok": ok, "workers": results}, status=200 if ok else 503)
+
+
+async def h_list_lora(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    results = {}
+    for w in ctx.registry.list():
+        try:
+            results[w.worker_id] = await w.client.list_lora_adapters()
+        except Exception as e:
+            results[w.worker_id] = f"error: {e}"
+    return web.json_response({"workers": results})
 
 
 async def h_workers_list(request: web.Request) -> web.Response:

@@ -81,6 +81,16 @@ class WorkerClient:
     async def flush_cache(self) -> bool:
         raise NotImplementedError
 
+    async def load_lora_adapter(self, name: str, path: str | None = None,
+                                data: bytes | None = None) -> dict:
+        return {"ok": False, "error": "LoRA unsupported by this worker"}
+
+    async def unload_lora_adapter(self, name: str) -> dict:
+        return {"ok": False, "error": "LoRA unsupported by this worker"}
+
+    async def list_lora_adapters(self) -> list[str]:
+        return []
+
     async def get_tokenizer(self):
         return None
 
@@ -204,6 +214,26 @@ class InProcWorkerClient(WorkerClient):
 
     async def flush_cache(self) -> bool:
         return self.engine.flush_cache()
+
+    async def load_lora_adapter(self, name: str, path: str | None = None,
+                                data: bytes | None = None) -> dict:
+        # on the client's own thread, ordered with submits and aborts
+        loop = asyncio.get_running_loop()
+        try:
+            slot = await loop.run_in_executor(
+                self._calls, lambda: self.engine.load_lora_adapter(name, path=path, data=data))
+            return {"ok": True, "error": "", "slot": slot}
+        except Exception as e:
+            return {"ok": False, "error": str(e)}
+
+    async def unload_lora_adapter(self, name: str) -> dict:
+        loop = asyncio.get_running_loop()
+        ok = await loop.run_in_executor(self._calls, self.engine.unload_lora_adapter, name)
+        return {"ok": ok, "error": "" if ok else f"adapter {name!r} not loaded"}
+
+    async def list_lora_adapters(self) -> list[str]:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(self._calls, self.engine.list_lora_adapters)
 
     async def get_tokenizer(self):
         return self.engine.tokenizer

@@ -1,11 +1,15 @@
 """Model architecture config — the port's own copy of
-``smg_tpu/models/config.py``: the dense decoder fields and the presets this
-port serves (``PRESETS``, under the reference's names).  The vision tower and
-the HF ``config.json`` loader wait for checkpoint loading."""
+``smg_tpu/models/config.py``: the dense decoder fields, the HF
+``config.json`` loader for the dense families this port serves (Llama,
+Mistral, Qwen2/Qwen3, Gemma-2) and the presets (``PRESETS``, under the
+reference's names).  A mixture-of-experts or vision-language config is
+refused rather than built as a dense model: those layers are not ported."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 
 
@@ -45,6 +49,67 @@ class ModelConfig:
     # the rest local; pattern <= 0 = every layer windowed (Mistral)
     sliding_window: int | None = None
     sliding_window_pattern: int = 2
+
+    @classmethod
+    def from_hf_config(cls, cfg: dict, dtype: str = "bfloat16") -> "ModelConfig":
+        """The reference's mapping of an HF ``config.json`` (its fields,
+        defaults and family switches), for dense text models only."""
+        name = (cfg.get("architectures") or ["LlamaForCausalLM"])[0].lower()
+        num_experts = cfg.get("num_experts", cfg.get("num_routed_experts", 0)) or 0
+        if num_experts > 0 or "qwen3moe" in name or "qwen2moe" in name:
+            raise NotImplementedError(
+                f"{name}: mixture-of-experts layers are not ported to the PyTorch "
+                "engine yet (ROADMAP Queue A item 8)")
+        if cfg.get("vision_config"):
+            raise NotImplementedError(
+                f"{name}: the vision tower is not ported to the PyTorch engine yet "
+                "(ROADMAP Queue A item 10)")
+        arch = "qwen" if "qwen" in name else "llama"  # Mistral: the llama family
+        eos = cfg.get("eos_token_id", 2)
+        num_heads = cfg["num_attention_heads"]
+        extra: dict = {}
+        if "mistral" in name and cfg.get("sliding_window"):
+            # Mistral v0.1-style: every layer windowed (pattern 0)
+            extra = dict(sliding_window=cfg["sliding_window"], sliding_window_pattern=0)
+        if "gemma2" in name or "gemma-2" in name:
+            q_scalar = cfg.get("query_pre_attn_scalar") or cfg.get("head_dim", 256)
+            extra = dict(
+                activation="gelu_tanh", rms_unit_offset=True, embed_scale=True,
+                post_norms=True,
+                attn_logit_softcap=cfg.get("attn_logit_softcapping", 50.0),
+                final_logit_softcap=cfg.get("final_logit_softcapping", 30.0),
+                query_scale=1.0 / (q_scalar ** 0.5),
+                sliding_window=cfg.get("sliding_window"),
+                tie_word_embeddings=cfg.get("tie_word_embeddings", True),
+            )
+        return cls(
+            arch=arch,
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg.get("intermediate_size", 4 * cfg["hidden_size"]),
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=num_heads,
+            num_kv_heads=cfg.get("num_key_value_heads", num_heads),
+            head_dim=cfg.get("head_dim") or cfg["hidden_size"] // num_heads,
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rope_scaling=cfg.get("rope_scaling"),
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            max_position_embeddings=cfg.get("max_position_embeddings", 8192),
+            tie_word_embeddings=extra.pop("tie_word_embeddings",
+                                          cfg.get("tie_word_embeddings", False)),
+            eos_token_ids=tuple(eos) if isinstance(eos, list) else (eos,),
+            bos_token_id=cfg.get("bos_token_id", 1),
+            dtype=dtype,
+            num_experts_per_tok=cfg.get("num_experts_per_tok", 0) or 0,
+            moe_intermediate_size=cfg.get("moe_intermediate_size", 0) or 0,
+            qk_norm="qwen3" in name,  # Qwen3: per-head q/k RMSNorm before rope
+            **extra,
+        )
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype: str = "bfloat16") -> "ModelConfig":
+        with open(os.path.join(path, "config.json")) as f:
+            return cls.from_hf_config(json.load(f), dtype=dtype)
 
 
 def tiny_test_config(vocab_size: int = 512) -> ModelConfig:

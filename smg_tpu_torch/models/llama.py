@@ -15,6 +15,13 @@ version).  ``attention="plain"`` runs the plain PyTorch versions
 kernels against end to end.  The speculative verify block and the compat
 decode of the draft proposer run torch attention ops in either mode: the
 reference computes them in XLA, with no Pallas kernel.
+
+LoRA: the serving forwards (prefill, grouped prefill, the decode column)
+take the runner's adapter bank and a slot index per row; every projection
+of q, k, v and o adds ``lora_delta`` over every bank slot, gated one-hot
+(slot 0 is all zeros: a base row adds exact zeros).  The verify block and
+the compat decode take no adapter: LoRA lanes are not speculated, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -115,6 +122,26 @@ def layer_window(cfg: ModelConfig, layer: int) -> int | None:
     return 0 if layer % p == p - 1 else cfg.sliding_window
 
 
+def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               gates: torch.Tensor) -> torch.Tensor:
+    """Per-row multi-adapter LoRA delta, dense one-hot dispatch (the
+    reference's ``_lora_delta``).  ``x`` [..., E_in]; ``a`` [E_in, N*r] and
+    ``b`` [N*r, E_out] hold slot n in rank columns ``n*r .. n*r + r - 1``
+    (alpha/r folded into ``b``); ``gates`` [..., N] one-hot in ``x``'s
+    dtype.  Every slot's rank-r projection is computed and all but the
+    row's own are zeroed before the second product, which is the
+    reference's sum over slots of gate x delta in two matrix products."""
+    t = torch.matmul(x, a)
+    t = (t.unflatten(-1, (gates.shape[-1], -1)) * gates[..., None]).flatten(-2)
+    return torch.matmul(t, b)
+
+
+def lora_gates(lora_idx: torch.Tensor, n_slots: int, dtype: torch.dtype) -> torch.Tensor:
+    """One-hot [..., N] rows from slot indices, without a host sync."""
+    return (lora_idx[..., None].long() == torch.arange(n_slots, device=lora_idx.device)
+            ).to(dtype)
+
+
 class LlamaModel(nn.Module):
     """The dense decoder.  Caches are ``[L, P, ps, K*D]`` (fused lanes,
     page 0 = garbage page) and are written in place."""
@@ -165,19 +192,30 @@ class LlamaModel(nn.Module):
             logits = c * torch.tanh(logits / c)
         return logits
 
-    def _qkv(self, l: int, h: torch.Tensor):
+    def _qkv(self, l: int, h: torch.Tensor, lora=None,
+             gates: torch.Tensor | None = None):
         cfg, ly = self.cfg, self.layers
         lead = h.shape[:-1]
-        q = torch.matmul(h, ly.wq[l]).reshape(*lead, cfg.num_heads, cfg.head_dim)
-        k = torch.matmul(h, ly.wk[l]).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
-        v = torch.matmul(h, ly.wv[l]).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
+        q, k, v = (torch.matmul(h, w[l]) for w in (ly.wq, ly.wk, ly.wv))
+        if lora is not None:
+            q = q + lora_delta(h, lora["wq_a"][l], lora["wq_b"][l], gates)
+            k = k + lora_delta(h, lora["wk_a"][l], lora["wk_b"][l], gates)
+            v = v + lora_delta(h, lora["wv_a"][l], lora["wv_b"][l], gates)
+        q = q.reshape(*lead, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
         if cfg.qk_norm:  # Qwen3: per-head RMSNorm over head_dim before rope
             q = rms_norm(q, ly.q_norm[l], cfg.rms_norm_eps)
             k = rms_norm(k, ly.k_norm[l], cfg.rms_norm_eps)
         return q, k, v
 
-    def _attn_residual(self, l: int, h: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
-        o = torch.matmul(attn.reshape(*attn.shape[:-2], -1), self.layers.wo[l])
+    def _attn_residual(self, l: int, h: torch.Tensor, attn: torch.Tensor,
+                       lora=None, gates: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+        flat = attn.reshape(*attn.shape[:-2], -1)
+        o = torch.matmul(flat, self.layers.wo[l])
+        if lora is not None:
+            o = o + lora_delta(flat, lora["wo_a"][l], lora["wo_b"][l], gates)
         if self.cfg.post_norms:
             o = self._norm(o, self.layers.post_attn_norm[l])
         return h + o
@@ -196,24 +234,36 @@ class LlamaModel(nn.Module):
             o = self._norm(o, ly.post_mlp_norm[l])
         return h + o
 
+    @staticmethod
+    def _gates(lora, lora_idx, dtype) -> torch.Tensor | None:
+        if lora is None:
+            return None
+        return lora_gates(lora_idx, lora.slots, dtype)
+
     # ---- serving forwards ----
 
     def forward_prefill(self, tokens, prefix_len, t_real, k_cache, v_cache, page_table,
-                        compute_logits: bool = True):
+                        compute_logits: bool = True, lora=None,
+                        lora_idx: torch.Tensor | None = None):
         """Prefill one sequence chunk (``tokens`` [T], ``prefix_len`` and
         ``t_real`` [1] int32, ``page_table`` [mp] int32, all on the cache's
         device); writes its KV and returns the last token's logits [V] (None
-        with ``compute_logits=False``: a non-final chunk)."""
+        with ``compute_logits=False``: a non-final chunk).  ``lora`` is the
+        adapter bank and ``lora_idx`` [1] the sequence's slot."""
         logits = self.forward_prefill_batched(
             tokens[None], prefix_len.reshape(1), t_real.reshape(1), k_cache, v_cache,
-            page_table[None], compute_logits=compute_logits)
+            page_table[None], compute_logits=compute_logits, lora=lora, lora_idx=lora_idx)
         return None if logits is None else logits[0]
 
     def forward_prefill_batched(self, tokens, prefix_lens, t_reals, k_cache, v_cache,
-                                page_tables, compute_logits: bool = True):
+                                page_tables, compute_logits: bool = True,
+                                lora=None,
+                                lora_idx: torch.Tensor | None = None):
         """Prefill several sequences in one call: ``tokens`` [G, T] (rows
         padded past ``t_reals``), ``prefix_lens``/``t_reals`` [G] int32,
-        ``page_tables`` [G, mp] int32.  Returns last-token logits [G, V]."""
+        ``page_tables`` [G, mp] int32, ``lora_idx`` [G] each row's adapter
+        slot in the bank ``lora`` (both None: no adapter).  Returns
+        last-token logits [G, V]."""
         cfg = self.cfg
         G_, T = tokens.shape
         K, D = cfg.num_kv_heads, cfg.head_dim
@@ -231,8 +281,11 @@ class LlamaModel(nn.Module):
         cd = k_cache.dtype
 
         h = self.embed_tokens(tokens)  # [G, T, E]
+        gates = self._gates(lora, lora_idx, h.dtype)
+        if gates is not None:
+            gates = gates[:, None, :]  # every token of a row takes its slot
         for l in range(cfg.num_layers):
-            q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]))
+            q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]), lora, gates)
             q = apply_rope(q, pos, self.inv_freq)
             k = apply_rope(k, pos, self.inv_freq)
             scatter_kv_pages_full(k_cache, v_cache, l, k.reshape(G_ * T, K, D),
@@ -248,7 +301,7 @@ class LlamaModel(nn.Module):
                 attn = plain_prefill_batched(
                     q, k_cache, v_cache, l, page_tables, prefix_lens, t_reals,
                     self.scale, softcap=cfg.attn_logit_softcap, window=window)
-            h = self._attn_residual(l, h, attn.to(h.dtype))
+            h = self._attn_residual(l, h, attn.to(h.dtype), lora, gates)
             h = self._mlp_residual(l, h)
         if not compute_logits:
             return None
@@ -257,7 +310,8 @@ class LlamaModel(nn.Module):
 
     def forward_decode_horizon(self, tokens, positions, entry_positions, step_idx: int,
                                k_cache, v_cache, page_tables, hk_all, hv_all,
-                               counters=None):
+                               counters=None, lora=None,
+                               lora_idx: torch.Tensor | None = None):
         """One decode column against the frozen cache + side buffers.
 
         ``tokens``/``positions`` [B] (positions = entry + step_idx),
@@ -268,14 +322,16 @@ class LlamaModel(nn.Module):
         [B, V].  Reads nothing back to the host and creates no host tensor,
         so a CUDA graph can capture it; ``counters`` are the decode kernel's
         arrival counters (``ops/cuda/decode_attention.py``), preallocated
-        by the caller for the largest batch it captures."""
+        by the caller for the largest batch it captures; ``lora_idx`` [B]
+        each row's slot in the adapter bank ``lora``."""
         cfg = self.cfg
         B = tokens.shape[0]
         KD = cfg.num_kv_heads * cfg.head_dim
         cd = k_cache.dtype
         h = self.embed_tokens(tokens)  # [B, E]
+        gates = self._gates(lora, lora_idx, h.dtype)
         for l in range(cfg.num_layers):
-            q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]))
+            q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]), lora, gates)
             q = apply_rope(q[:, None], positions[:, None], self.inv_freq)[:, 0]
             k = apply_rope(k[:, None], positions[:, None], self.inv_freq)[:, 0]
             hk_all[l, :, step_idx] = k.reshape(B, KD).to(hk_all.dtype)
@@ -287,7 +343,7 @@ class LlamaModel(nn.Module):
                 attn = paged_attention_decode_cached(*args, **kw, counters=counters)
             else:
                 attn = attention_decode_cached(*args, **kw)
-            h = self._attn_residual(l, h, attn.to(h.dtype))
+            h = self._attn_residual(l, h, attn.to(h.dtype), lora, gates)
             h = self._mlp_residual(l, h)
         return self.unembed(h)
 

@@ -1,0 +1,136 @@
+"""HF safetensors checkpoint -> the port's parameter dict (port of
+``smg_tpu/models/weights.py::load_params``).
+
+Every ``*.safetensors`` file of the directory is opened lazily (one file, or
+the shards a ``model.safetensors.index.json`` lists) through
+``safe_open(framework="pt")``, which reads bf16 tensors without numpy's
+help.  The stacked ``[L, ...]`` buffers are allocated on the target device
+first and filled one tensor at a time, so host memory holds about one
+layer's tensor, never the whole model.  The result has the layout and dtype
+``models/convert.py::params_from_jax`` gives the JAX loader's output: HF's
+``[out, in]`` linears transposed to ``[in, out]``, which is the JAX layout
+with its head axes folded.
+
+The vision tower (``load_vision_params``) waits for the multimodal port, and
+mixture-of-experts tensors for the MoE layers.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import glob
+import os
+
+import torch
+
+from smg_tpu_torch.models.llama import torch_dtype
+from smg_tpu_torch.utils import get_logger
+
+logger = get_logger("models.weights")
+
+# port key -> (HF tensor name, stored as an [out, in] linear)
+_GLOBAL_KEYS = {
+    "embed": ("model.embed_tokens.weight", False),
+    "final_norm": ("model.norm.weight", False),
+    "lm_head": ("lm_head.weight", True),
+}
+
+
+def _layer_keys(cfg) -> dict[str, tuple[str, bool]]:
+    """Port layer key -> (HF name template, linear): the reference's
+    ``_hf_key_map`` for dense layers."""
+    p = "model.layers.{i}."
+    m = {
+        "attn_norm": (p + "input_layernorm.weight", False),
+        "wq": (p + "self_attn.q_proj.weight", True),
+        "wk": (p + "self_attn.k_proj.weight", True),
+        "wv": (p + "self_attn.v_proj.weight", True),
+        "wo": (p + "self_attn.o_proj.weight", True),
+        "mlp_norm": (p + "post_attention_layernorm.weight", False),
+        "w_gate": (p + "mlp.gate_proj.weight", True),
+        "w_up": (p + "mlp.up_proj.weight", True),
+        "w_down": (p + "mlp.down_proj.weight", True),
+    }
+    if cfg.qk_norm:
+        m["q_norm"] = (p + "self_attn.q_norm.weight", False)
+        m["k_norm"] = (p + "self_attn.k_norm.weight", False)
+    if cfg.post_norms:
+        # Gemma-2 four-norm layers: HF's post_attention_layernorm is the
+        # POST-attention norm there, and the ffn pre-norm is its own key
+        m["mlp_norm"] = (p + "pre_feedforward_layernorm.weight", False)
+        m["post_attn_norm"] = (p + "post_attention_layernorm.weight", False)
+        m["post_mlp_norm"] = (p + "post_feedforward_layernorm.weight", False)
+    return m
+
+
+class Checkpoint(contextlib.ExitStack):
+    """Lazy handles over every ``*.safetensors`` file of a directory, open
+    until the ``with`` block ends."""
+
+    def __init__(self, path: str):
+        from safetensors import safe_open
+
+        super().__init__()
+        files = sorted(glob.glob(os.path.join(path, "*.safetensors")))
+        if not files:
+            raise FileNotFoundError(f"no safetensors under {path}")
+        handles = [self.enter_context(safe_open(f, framework="pt", device="cpu"))
+                   for f in files]
+        self._where = {name: h for h in handles for name in h.keys()}
+
+    def _handle(self, name: str):
+        h = self._where.get(name)
+        if h is None:
+            raise KeyError(f"tensor {name} not found in checkpoint")
+        return h
+
+    def get(self, name: str) -> torch.Tensor:
+        return self._handle(name).get_tensor(name)
+
+    def shape(self, name: str) -> list[int]:
+        return list(self._handle(name).get_slice(name).get_shape())
+
+
+def load_params(engine_cfg, device=None) -> dict:
+    """Weights of ``engine_cfg.model`` from the HF directory
+    ``engine_cfg.model_path``, in the model's dtype (a bf16 checkpoint is
+    widened exactly for ``dtype="float32"``), on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    from smg_tpu_torch.engine.runner import resolve_device
+
+    cfg = engine_cfg.model
+    if cfg.num_experts:
+        raise NotImplementedError("mixture-of-experts checkpoints are not ported to the "
+                                  "PyTorch engine yet (ROADMAP Queue A item 8)")
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    with Checkpoint(engine_cfg.model_path) as ckpt:
+        return _load(cfg, ckpt, device, dtype)
+
+
+def _load(cfg, ckpt: Checkpoint, device: torch.device, dtype: torch.dtype) -> dict:
+    def place(t: torch.Tensor, linear: bool, out: torch.Tensor) -> None:
+        t = t.to(device)
+        out.copy_(t.t() if linear else t)  # transpose and cast on the device
+
+    def one(name: str, linear: bool) -> torch.Tensor:
+        shape = ckpt.shape(name)
+        out = torch.empty(shape[::-1] if linear else shape, dtype=dtype, device=device)
+        place(ckpt.get(name), linear, out)
+        return out
+
+    params: dict = {"layers": {}}
+    for key, (tmpl, linear) in _layer_keys(cfg).items():
+        shape = ckpt.shape(tmpl.format(i=0))
+        out = torch.empty([cfg.num_layers] + (shape[::-1] if linear else shape),
+                          dtype=dtype, device=device)
+        for i in range(cfg.num_layers):
+            place(ckpt.get(tmpl.format(i=i)), linear, out[i])
+        params["layers"][key] = out
+        logger.info("loaded layers/%s %s", key, tuple(out.shape))
+    for key, (name, linear) in _GLOBAL_KEYS.items():
+        if key == "lm_head" and cfg.tie_word_embeddings:
+            continue
+        params[key] = one(name, linear)
+        logger.info("loaded %s %s", key, tuple(params[key].shape))
+    return params

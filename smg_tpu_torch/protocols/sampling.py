@@ -5,8 +5,8 @@ and stop strings, detokenisation, grammar constraints (``json_schema``,
 ``regex``, ``ebnf``), and the request-level ``seed``, ``n``, ``logprobs``,
 ``top_logprobs`` and ``lora_adapter``.  The engine ignores ``seed``,
 ``logprobs`` and ``top_logprobs``, as the JAX engine does; the gateway fans
-``n`` out into single requests; the engine refuses ``lora_adapter`` until
-LoRA is ported."""
+``n`` out into single requests; ``lora_adapter`` names an adapter loaded
+into the engine's bank."""
 
 from __future__ import annotations
 

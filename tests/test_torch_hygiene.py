@@ -15,9 +15,11 @@ PORT = REPO / "smg_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "smg_tpu")
 # third-party packages the port may import: each imports on the H100
 # machine (checked there by importing it).  Packages that machine lacks,
-# such as orjson, must stay out of the serving path; tokenizers and jinja2
-# are present there but the port does not need them yet.
-CARD_PACKAGES = ("torch", "numpy", "aiohttp", "prometheus_client", "pydantic")
+# such as orjson, must stay out of the serving path.  safetensors (the
+# checkpoint and PEFT loaders), tokenizers and jinja2 (the HF tokenizer and
+# its chat templates) and regex (the tiktoken pre-tokenizer) import there.
+CARD_PACKAGES = ("torch", "numpy", "aiohttp", "prometheus_client", "pydantic",
+                 "safetensors", "tokenizers", "jinja2", "regex")
 
 
 def _sources():

@@ -664,7 +664,8 @@ def test_serve_speculation_flags_reach_the_engine():
 
 
 def test_draft_model_path_and_a_draft_tier_without_a_draft_model_are_refused():
-    with pytest.raises(SystemExit, match="checkpoint load"):
+    # the draft's checkpoint is loaded now: a directory without one is refused
+    with pytest.raises(FileNotFoundError, match="config.json"):
         build_engine_from_args(_serve("--speculative", "--draft-model-path", "/models/d"))
     with pytest.raises(SystemExit, match="draft-model-preset"):
         build_engine_from_args(_serve("--speculative", "--speculative-tier", "draft"))
