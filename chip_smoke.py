@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase, needs one CUDA card
     python3 chip_smoke.py --phases kernels   # build + kernel checks only
     python3 chip_smoke.py --phases checkpoint   # build + kernels + phase 8 only
+    python3 chip_smoke.py --phases moe   # build + kernels + phase 9 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -14,12 +15,14 @@ Phases (any failure makes the script exit non-zero and print no result):
    head_dim 128, page size 16) and at the edges of the decode split (split
    boundaries, a window across two splits, a padded row alone), plus
    head_dim 64 (G=1), 256 (G=2, Gemma-2-9B) and the padded 96 (G=1,
-   Phi-3-mini) and 80 (G=4); then time kernel, plain
+   Phi-3-mini) and 80 (G=4), and Qwen3-30B-A3B's 32 query over 4 KV heads
+   (G=8, head_dim 128); then time kernel, plain
    version and one PyTorch library call computing the same function (SDPA
    on gathered K/V, a yardstick the port never calls) at the timed shapes:
    decode B=32 ragged, B=4 x ~1000 with n_extra 4 (the serving shape) and
    B=1 x 8000; prefill T=512 over a 1000-token prefix and a cold grouped
-   prefill of 8 rows;
+   prefill of 8 rows; the same decode B=32, B=4 and prefill cases again at
+   G=8;
 3. serve requests on Llama-3-8B at full width and depth (random bf16
    weights from a fixed seed, bf16 KV): a chunked long prompt, a radix
    prefix hit, decode horizon 4, submitted from the main thread with
@@ -143,10 +146,39 @@ Phases (any failure makes the script exit non-zero and print no result):
    model's); in bf16, decode of 4 LoRA lanes against 4 base lanes profiled.
    In float32, ``serve --speculative --model-path --draft-model-path`` on
    the tiny directory serves in a process of its own;
-9. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
-   run, ``launches_spec`` from phase 7's and ``launches_ckpt`` from phase
-   8's bf16 serving paths) and, last, ``{"ok": true, "device": ...}``
-   (``--phases kernels`` stops after phase 2 and prints neither).
+9. the Qwen-MoE family on Qwen3-30B-A3B (the published config: 48 layers,
+   128 experts, top 8, 32 query over 4 KV heads, ``qk_norm``), after every
+   earlier engine is released (at most ``MOE_LEFT_BYTES`` still
+   allocated): (a) the full model at full width and depth, random bf16
+   weights from seed 0 made on the card (61,064,245,248 bytes), KV
+   auto-sized after the expert layer's reserve (the pages printed), phase
+   3's five requests through phase 3's three paths, launches exact at 48 x
+   decode columns and 48 x prefill calls, audits clean; readings: init
+   seconds, the 1400-token prompt's TTFT and chunked prefill device ms
+   against dense dispatch's operations bound, the prefill's peak memory,
+   decode device ms a column on 4 lanes, its busy share and its op classes
+   (expert products, router and top-k, the combine, attention kernels, the
+   rest: from the eager path's trace, with the expert layer's steps in
+   profiler ranges) against two bounds (every expert's bytes; only the
+   experts that column routed to, counted on the device), tokens/s; (c) the
+   expert layer of one layer at T=512 and B=4 against a gathered per-token
+   top-8 computation in float32 (float32 and bf16), timed; (b) the first
+   ``MOE_F32_LAYERS`` layers (kept on the host while the full model goes)
+   through the three paths in bf16 and widened to float32: float32 streams
+   identical, logits within ``F32_LOGIT_ATOL``, bf16 first-token logits held
+   to float32's by mean row rms, the kernel paths at most
+   ``BF16_ERR_RATIO`` times as far as the plain one; (d) those weights'
+   first ``MOE_CKPT_LAYERS`` layers written as a Qwen3-MoE HF directory
+   (the published ``config.json`` at that depth, every expert's linears as
+   tensors of their own, a word-level ``tokenizer.json`` of 151936 ids with
+   Qwen's special tokens and a ChatML template) and served with ``serve
+   --model-path`` in bf16 and float32: loaded tensors bitwise the in-memory
+   ones, HTTP chats equal to a direct engine's tokens (exact in float32);
+10. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
+   run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's
+   and ``launches_moe`` from phase 9's bf16 serving paths) and, last,
+   ``{"ok": true, "device": ...}`` (``--phases kernels``, ``checkpoint``
+   and ``moe`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -160,6 +192,7 @@ build included.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import faulthandler
 import json
 import math
@@ -270,6 +303,7 @@ SHAPES = {  # (query heads, KV heads, head_dim) of the correctness-only cases
     # head dims the bf16 kernels pad to 128
     "d96_g1": (32, 32, 96),  # Phi-3-mini
     "d80_g4": (32, 8, 80),
+    "qwen3_moe": (32, 4, 128),  # Qwen3-30B-A3B: G=8, the decode kernel's full head group
 }
 
 
@@ -495,6 +529,15 @@ def phase_kernels(dev) -> dict:
         ("B2_d80_g4_softcap", 2, [700, 3000], 2, 50.0, None, False, "d80_g4", False),
         ("B4_e1000_nx4", 4, rng_entries(4, 950, 1050), 4, None, None, False, "llama3", True),
         ("B1_e8000", 1, [8000], 1, None, None, False, "llama3", True),
+        # Qwen3-30B-A3B's attention shape (G=8); drawn after every case above
+        ("B32_ragged_g8", 32, rng_entries(32, 1, 4096), 1, None, None, False, "qwen3_moe",
+         True),
+        ("B4_e1000_nx4_g8", 4, rng_entries(4, 950, 1050), 4, None, None, False, "qwen3_moe",
+         True),
+        ("B9_split_edges_g8", 9, [62, 63, 64, 126, 127, 128, 254, 255, 256], 1, None, None,
+         False, "qwen3_moe", False),
+        ("B4_padded_row_nx4_g8", 4, rng_entries(4, 900, 1100), 4, None, None, True,
+         "qwen3_moe", False),
     ]
     d_err, d_timed = 0.0, {}
     for label, B, entries, nx, cap, win, pad, shape, timed in dcases:
@@ -525,6 +568,11 @@ def phase_kernels(dev) -> dict:
         ("T512_prefix1000", 512, [1000], [512], None, None, "llama3", True),
         ("Gs8_T512_cold", 512, [0] * 8, [512, 480, 400, 300, 200, 128, 90, 17], None, None,
          "llama3", True),
+        ("G3_T128_mixed_g8", 128, [0, 1000, 37], [128, 100, 5], None, None, "qwen3_moe",
+         False),
+        ("T512_prefix1000_g8", 512, [1000], [512], None, None, "qwen3_moe", True),
+        ("Gs8_T512_cold_g8", 512, [0] * 8, [512, 480, 400, 300, 200, 128, 90, 17], None,
+         None, "qwen3_moe", True),
     ]
     p_err, p_timed = 0.0, {}
     for label, T, pfx, trs, cap, win, shape, timed in pcases:
@@ -675,12 +723,20 @@ def drive_engine(engine, max_new: int, record_logits: list, loop: bool):
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device work in a trace
 
 
-def device_time(prof) -> tuple[float, dict, int]:
+ATTENTION_KERNELS = ("decode_fma_kernel", "decode_tc_kernel", "prefill_fma_kernel",
+                     "prefill_tc_kernel", "prefill_wg_kernel")
+
+
+def device_time(prof, classes: dict | None = None) -> tuple[float, dict, int]:
     """(busy ms, ms by kernel name, number of device events) from the
     profiler's trace: device events only, busy time as the union of their
     intervals.  ``key_averages()`` would also count the operator
     annotations the trace places on the device timeline, which repeat the
-    time of the kernels under them."""
+    time of the kernels under them.  A ``classes`` dict is filled with the
+    device ms of each op class: the attention kernels by name, kernels that
+    start inside a ``moe_*`` annotation (``moe_annotations``) by its name,
+    and the rest."""
+    import bisect
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -688,11 +744,25 @@ def device_time(prof) -> tuple[float, dict, int]:
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
     spans, by_name = [], {}
+    notes = sorted((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]), ev["name"])
+                   for ev in events if ev.get("cat") == "gpu_user_annotation"
+                   and str(ev.get("name", "")).startswith("moe_") and ev.get("ph") == "X")
+    starts = [n[0] for n in notes]
     for ev in events:
         if ev.get("cat") in DEVICE_CATS and ev.get("ph") == "X":
             t0, dur = float(ev["ts"]), float(ev["dur"])
             spans.append((t0, t0 + dur))
             by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + dur / 1e3
+            if classes is None:
+                continue
+            cls = "rest"
+            if any(k in ev["name"] for k in ATTENTION_KERNELS):
+                cls = "attention_kernels"
+            else:
+                i = bisect.bisect_right(starts, t0) - 1
+                if i >= 0 and notes[i][0] <= t0 < notes[i][1]:
+                    cls = notes[i][2]
+            classes[cls] = classes.get(cls, 0.0) + dur / 1e3
     busy, end = 0.0, -math.inf
     for a, b in sorted(spans):
         if b > end:
@@ -763,7 +833,8 @@ def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
         print(f"  {label}: a graph was captured in the window; measuring again")
     cols = runner.stats["decode_columns"] - cols0
     launches = runner.stats["decode_calls"] - calls0
-    busy, by_kernel, n_events = device_time(prof)
+    classes: dict = {}
+    busy, by_kernel, n_events = device_time(prof, classes)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     if loop:
         wait_for(lambda: all(o and o[-1].finished for o in outs.values())
@@ -776,7 +847,8 @@ def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
                device_ms_per_column=busy / cols, busy_share=busy / wall_ms,
                device_events_per_column=n_events / cols,
                decode_tok_s=4 * cols / wall_ms * 1e3,
-               top=[(name[:80], ms / cols) for name, ms in top])
+               top=[(name[:80], ms / cols) for name, ms in top],
+               by_class_ms_per_column={k: ms / cols for k, ms in classes.items()})
     K = round(cols / launches)  # the window's horizon
     pen = any(sp.has_penalties for sp in sampling)
     lora = any(sp.lora_adapter for sp in sampling)
@@ -804,10 +876,14 @@ def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
     return out
 
 
-def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False) -> dict:
+def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False,
+                auto_size: bool = False, after=None) -> dict:
     """Serve the requests once per path of ``PATHS`` on one set of weights.
     Launch counters are zeroed just before each measured run and read just
-    after it."""
+    after it.  With ``auto_size`` each engine sizes its KV cache from the
+    card's free memory (the serving default) instead of 2048 pages.
+    ``after(label, engine)``, called once the run and its profile are read,
+    returns further readings of that engine (``runs[label]["after"]``)."""
     import gc
 
     import torch
@@ -822,13 +898,19 @@ def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False) -> d
     for label, attention, graphs, overlap, loop in PATHS:
         econf = EngineConfig(
             model=cfg,
-            cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False, dtype=cfg.dtype),
+            cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=auto_size,
+                              dtype=cfg.dtype),
             scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096,
                                       max_prefill_tokens=512, decode_horizon=4,
                                       overlap_schedule=overlap),
             decode_graphs=graphs,
         )
         engine = Engine(econf, params=params, device=dev, attention=attention)
+        if auto_size:
+            sp, rs = engine.runner.spec, engine.runner.reserve_bytes
+            print(f"  [{label}] auto-sized KV: {sp.num_pages} pages of {sp.bytes_per_page} "
+                  f"bytes ({sp.num_pages * sp.bytes_per_page} bytes) after a reserve of "
+                  f"{rs} bytes for the expert layer")
         # warm-up request (cuBLAS handles, allocator, a first graph); not counted
         engine.generate(prompt_ids=list(range(1000, 1100)),
                         sampling=SamplingParams(temperature=0.0, max_new_tokens=4))
@@ -846,6 +928,7 @@ def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False) -> d
         loads = engine.loads()
         runs[label] = dict(results=results, step_ms=step_ms, timers=timers, wall_s=wall_s,
                            logits=logits, stats=dict(engine.runner.stats),
+                           pages=engine.runner.spec.num_pages,
                            launches=launches, loads=loads,
                            reserved_growth=torch.cuda.memory_reserved(dev) - reserved0,
                            decode_tokens=engine.scheduler.num_decode_tokens)
@@ -853,6 +936,8 @@ def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False) -> d
             raise AssertionError(f"[{label}] audit not clean: {loads['audit']}")
         if with_profile:  # after the measured run: its counts are already read
             runs[label]["profile"] = profile_decode(engine, loop)
+        if after is not None:
+            runs[label]["after"] = after(label, engine)
         del engine
         gc.collect()  # drive_engine's timers hold the runner in a cycle
         torch.cuda.empty_cache()  # give the KV buffers back before the next engine
@@ -3500,6 +3585,659 @@ def serve_checkpoint(cfg, params, dev, card: str, label: str, strict: bool, ckpt
 
 
 
+# ---- phase 9: the Qwen-MoE family on Qwen3-30B-A3B ----
+
+# the published config.json of Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B)
+QWEN3_30B_A3B = {
+    "architectures": ["Qwen3MoeForCausalLM"], "model_type": "qwen3_moe",
+    "hidden_size": 2048, "intermediate_size": 6144, "moe_intermediate_size": 768,
+    "num_hidden_layers": 48, "num_attention_heads": 32, "num_key_value_heads": 4,
+    "head_dim": 128, "num_experts": 128, "num_experts_per_tok": 8, "norm_topk_prob": True,
+    "decoder_sparse_step": 1, "mlp_only_layers": [], "vocab_size": 151936,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-06, "max_position_embeddings": 40960,
+    "tie_word_embeddings": False, "bos_token_id": 151643, "eos_token_id": 151645,
+    "hidden_act": "silu", "attention_bias": False, "torch_dtype": "bfloat16",
+}
+MOE_WEIGHT_BYTES = 61_064_245_248  # 30,532,122,624 parameters in bf16
+MOE_LEFT_BYTES = 1 << 30  # what earlier phases may leave allocated before phase 9
+MOE_F32_LAYERS = 8  # float32 at 48 layers needs 122 GB: the depth of the float32 run
+MOE_CKPT_LAYERS = 4  # the written checkpoint's depth: spares the disk and the card
+MOE_CKPT = "qwen3-30b-a3b-hf"
+MOE_CHAT_NEW = 16  # new tokens of every phase-9 chat
+MOE_LANES = 4  # the decode profile's lanes (profile_decode)
+MOE_KV_TOKENS = 1000  # each profiled lane's context, at least (its prompt)
+# the expert layer against the gathered per-token computation: float32
+# differs in summation order only; bf16 rounds g, u, their product and y to
+# bf16 on the way (a few bf16 ulps), held as the kernels are
+MOE_F32_RTOL = 1e-4
+QWEN_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")  # ids 151643-151645
+CHATML_TEMPLATE = (
+    "{%- for message in messages %}{{- '<|im_start|>' + message['role'] + '\\n' + "
+    "message['content'] + '<|im_end|>' + '\\n' }}{%- endfor %}{%- if add_generation_prompt "
+    "%}{{- '<|im_start|>assistant\\n' }}{%- endif %}")
+MOE_SPANS = ("moe_route", "moe_experts", "moe_combine")
+
+
+@contextlib.contextmanager
+def moe_annotations():
+    """The expert layer's three steps (``models/llama.py``) inside profiler
+    ranges while the block runs, so an eager trace splits their kernels by
+    step (``device_time``'s classes).  A graph replay has no ranges: its
+    kernels count as the rest."""
+    from torch.profiler import record_function
+
+    from smg_tpu_torch.models import llama
+
+    orig = {name: getattr(llama, name) for name in MOE_SPANS}
+
+    def ranged(name, fn):
+        def inner(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return inner
+
+    for name, fn in orig.items():
+        setattr(llama, name, ranged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(llama, name, fn)
+
+
+def _nbytes(params: dict) -> int:
+    return sum(t.numel() * t.element_size() for group in (params, params["layers"])
+               for k, t in group.items() if k != "layers")
+
+
+def moe_work(cfg, params) -> dict:
+    """Bytes and operations of the MoE model: weight bytes by kind, and per
+    token the operations of dense dispatch (every expert) and of the k
+    routed experts alone (attention scores aside)."""
+    L, X, E = cfg.num_layers, cfg.num_experts, cfg.hidden_size
+    H, K, D, Fm = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.moe_intermediate_size
+    ly = params["layers"]
+    experts = sum(ly[k].numel() * ly[k].element_size() for k in ("w_gate", "w_up", "w_down"))
+    embed = params["embed"].numel() * params["embed"].element_size()
+    total = _nbytes(params)
+    attn_ops = 2 * E * (H + 2 * K) * D + 2 * H * D * E + 2 * E * X  # projections, router
+    expert_ops = 3 * 2 * E * Fm  # one expert on one token
+    return dict(total=total, experts=experts, per_expert=experts // (L * X),
+                embed=embed, non_expert=total - experts - embed,
+                dense_ops_per_token=L * (attn_ops + X * expert_ops),
+                active_ops_per_token=L * (attn_ops + cfg.num_experts_per_tok * expert_ops),
+                kv_bytes_per_token=L * 2 * K * D * 2)
+
+
+def moe_prefill_ops(cfg, work: dict, tokens: int, dense: bool = True) -> float:
+    """Operations of a cold prefill of ``tokens``: every token's layers and
+    its causal attention scores (QK and PV over its context)."""
+    per = work["dense_ops_per_token" if dense else "active_ops_per_token"]
+    scores = 4 * cfg.num_heads * cfg.head_dim * cfg.num_layers * tokens * (tokens + 1) / 2
+    return per * tokens + scores
+
+
+def distinct_experts(engine, cfg, lanes: int = MOE_LANES) -> dict:
+    """Distinct experts the ``lanes`` real rows of each decode column route
+    to, per layer, counted on the device: one eager megastep of 4 lanes
+    with ``moe_route`` recording its expert ids."""
+    import torch
+
+    from smg_tpu_torch.models import llama
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    sched = engine.scheduler
+    outs = {f"x{i}": [] for i in range(lanes)}
+    for i, rid in enumerate(outs):
+        engine.submit(list(range(3000 + 1000 * i, 3000 + 1000 * i + MOE_KV_TOKENS)),
+                      SamplingParams(temperature=0.0, max_new_tokens=16, ignore_eos=True),
+                      rid=rid, on_output=outs[rid].append)
+    while sched.waiting or any(r is not None and r.status.value == "prefilling"
+                               for r in sched.slots):
+        engine.step()
+    seen = []
+    route = llama.moe_route
+
+    def recording(x, router, k):
+        idx, probs = route(x, router, k)
+        seen.append(idx[:lanes])
+        return idx, probs
+
+    llama.moe_route = recording
+    try:
+        cols0 = engine.runner.stats["decode_columns"]
+        engine.step()
+        cols = engine.runner.stats["decode_columns"] - cols0
+    finally:
+        llama.moe_route = route
+    while engine.has_work():
+        engine.step()
+    L, X = cfg.num_layers, cfg.num_experts
+    idx = torch.stack(seen)  # [cols * L, lanes, k], column by column
+    hit = torch.zeros((idx.shape[0], X), dtype=torch.int32, device=idx.device)
+    hit.scatter_(1, idx.reshape(idx.shape[0], -1), 1)
+    per_layer = hit.sum(dim=1).reshape(-1, L)  # [cols, L] on the device
+    counts = per_layer.cpu()
+    return dict(columns=cols, per_column=counts.sum(dim=1).tolist(),
+                max_per_layer=int(counts.max()), min_per_layer=int(counts.min()),
+                mean_per_layer=float(counts.float().mean()))
+
+
+def moe_ttft(engine, dev, cfg, reps: int = 2) -> dict:
+    """The 1400-token prompt alone through the loop thread (a fresh prompt
+    each rep, so no radix hit): submit to first token, and the peak memory
+    the prefill allocated above what was resident before it; then its
+    chunked prefill forward (the engine's 512-token chunks) timed on the
+    device with a cold L2."""
+    import numpy as np
+    import torch
+
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    rng = np.random.default_rng(99)
+    times = []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    engine.start()
+    try:
+        for r in range(reps):
+            ids = rng.integers(1000, 120000, 1400).tolist()
+            got = {}
+
+            def cb(o, got=got):
+                if o.new_token_ids and "t" not in got:
+                    got["t"] = time.perf_counter()
+                if o.finished:
+                    got["done"] = True
+
+            t0 = time.perf_counter()
+            engine.submit(ids, SamplingParams(temperature=0.0, max_new_tokens=1,
+                                              ignore_eos=True), rid=f"ttft{r}", on_output=cb)
+            wait_for(lambda got=got: "done" in got and not engine.has_work(), "TTFT request")
+            times.append((got["t"] - t0) * 1e3)
+    finally:
+        engine.stop()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    runner, model = engine.runner, engine.runner.model
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    toks = i32(rng.integers(1000, 120000, 1400).tolist())
+    pt = torch.arange(1, runner.max_pages_per_seq + 1, dtype=torch.int32, device=dev)
+    step = runner.config.scheduler.max_prefill_tokens
+
+    def prefill():
+        for p in range(0, 1400, step):
+            n = min(step, 1400 - p)
+            model.forward_prefill(toks[p:p + n], i32([p]), i32([n]), runner.k_cache,
+                                  runner.v_cache, pt, compute_logits=p + n == 1400)
+
+    prefill_ms = cuda_ms(prefill, warmup=1, reps=3)
+    engine.flush_cache()  # the timed forward wrote over free pages
+    return dict(ttft_ms=statistics.median(times), ttft_ms_all=times,
+                prefill_peak_bytes=peak, prefill_device_ms=prefill_ms,
+                prefill_chunks=math.ceil(1400 / step))
+
+
+def moe_reference(x, router, wg, wu, wd, k: int):
+    """The expert layer computed another way, in float32: each token's top-k
+    (the reference's routing: logits in the input's dtype, then float32,
+    ``topk``, a softmax over the k), then for each routed expert only the
+    tokens routed to it, gathered, through that expert's float32 weights,
+    and added back with their gate weights.  Returns ([T, E] float32, the
+    expert ids [T, k])."""
+    import torch
+    import torch.nn.functional as F
+
+    logits = torch.matmul(x, router).float()
+    vals, idx = torch.topk(logits, k, dim=-1)
+    probs = torch.softmax(vals, dim=-1)
+    xf = x.float()
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    for e in idx.unique().tolist():
+        tok, slot = (idx == e).nonzero(as_tuple=True)
+        xs = xf[tok]
+        y = (F.silu(xs @ wg[e].float()) * (xs @ wu[e].float())) @ wd[e].float()
+        out.index_add_(0, tok, y * probs[tok, slot, None])
+    return out, idx
+
+
+def _hold(name: str, got, want, rms_atol: float, rtol: float) -> float:
+    """``got`` within rms_atol x its row's rms plus rtol x |want| of want."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    err = (g - w).abs()
+    rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    limit = rms_atol * rms + rtol * w.abs()
+    share = float((err / limit.clamp(min=1e-30)).max())
+    mx = float(err.max())
+    print(f"  {name}: max_abs_err={mx:.3e} (largest share of its limit {share:.3f}, "
+          f"row rms {float(rms.min()):.3e}..{float(rms.max()):.3e}) "
+          f"{'ok' if share <= 1 else 'FAIL'}")
+    if share > 1:
+        raise AssertionError(f"{name}: {mx:.3e} outside its limit")
+    return mx
+
+
+def check_expert_layer(cfg, params, dev, card: str, layer: int = 1) -> dict:
+    """Phase 9 (c): ``moe_mlp`` of one layer at T=512 and B=4 against
+    ``moe_reference``, in float32 (the layer widened) and in bf16; with
+    the bf16 layer's device time, its bounds (dense dispatch reads every
+    expert once; T=512 does 512 tokens' dense operations) and the distinct
+    experts 4 random tokens route to."""
+    import torch
+
+    from smg_tpu_torch.models.llama import moe_mlp
+
+    ly = params["layers"]
+    w16 = [ly[k][layer] for k in ("router", "w_gate", "w_up", "w_down")]
+    w32 = [t.float() for t in w16]
+    k = cfg.num_experts_per_tok
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for T in (512, 4):
+        x = torch.randn((T, cfg.hidden_size), generator=gen, device=dev).bfloat16()
+        want32, idx32 = moe_reference(x.float(), *w32, k)
+        got32 = moe_mlp(x.float(), *w32, k)
+        err32 = _hold(f"expert layer T={T} float32", got32, want32, MOE_F32_RTOL,
+                      MOE_F32_RTOL)
+        want16, idx16 = moe_reference(x, *w16, k)
+        got16 = moe_mlp(x, *w16, k)
+        err16 = _hold(f"expert layer T={T} bf16", got16, want16, KERNEL_RMS_ATOL,
+                      KERNEL_RTOL)
+        ms = cuda_ms(lambda x=x: moe_mlp(x, *w16, k))
+        nbytes = sum(t.numel() * t.element_size() for t in w16) + 2 * x.numel() * 2
+        ops = T * (2 * cfg.hidden_size * cfg.num_experts
+                   + cfg.num_experts * 6 * cfg.hidden_size * cfg.moe_intermediate_size)
+        bms, by = bound_ms(nbytes, ops)
+        out[f"T{T}"] = dict(max_abs_err_f32=err32, max_abs_err_bf16=err16, ms=ms,
+                            bound_ms=bms, bound_by=by,
+                            distinct_experts=int(idx16.unique().numel()))
+        print(f"  [{card}] expert layer T={T} (bf16, one layer): {ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}); {out[f'T{T}']['distinct_experts']} distinct experts "
+              f"routed")
+    del w32
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_readings(label: str, engine, cfg, dev, card: str, sink: dict):
+    """``serve_paths``' hook on phase 9's engines: the TTFT, prefill memory
+    and prefill device time on the serving path, the routed experts of a
+    4-lane decode column on the eager one."""
+    if label == "graphs":
+        r = moe_ttft(engine, dev, cfg)
+        print(f"  [{card}] 1400-token prompt alone: TTFT {r['ttft_ms']:.2f} ms "
+              f"({r['ttft_ms_all']}), prefill device {r['prefill_device_ms']:.2f} ms in "
+              f"{r['prefill_chunks']} chunks, prefill peak {r['prefill_peak_bytes']} bytes "
+              f"above the resident")
+        sink.update(r)
+    elif label == "eager":
+        r = distinct_experts(engine, cfg)
+        print(f"  [{card}] distinct experts a 4-lane decode column routes to: "
+              f"{r['per_column']} over {cfg.num_layers} layers (per layer "
+              f"{r['min_per_layer']}..{r['max_per_layer']}, mean {r['mean_per_layer']:.2f})")
+        sink["distinct"] = r
+    return None
+
+
+def moe_report(cfg, work: dict, runs, sink: dict, card: str) -> dict:
+    """Decode device ms a column and its op classes against the dense and
+    the touched bounds; the prompt's TTFT and prefill device ms against
+    dense dispatch's operations; tokens/s."""
+    g, e = runs["graphs"]["profile"], runs["eager"]["profile"]
+    kv = MOE_LANES * MOE_KV_TOKENS * work["kv_bytes_per_token"]
+    dense_bytes = work["non_expert"] + work["experts"] + kv
+    d = sink["distinct"]
+    touched_cols = [work["non_expert"] + n * work["per_expert"] + kv for n in d["per_column"]]
+    touched = max(touched_cols)
+    ops = moe_prefill_ops(cfg, work, 1400)
+    active = moe_prefill_ops(cfg, work, 1400, dense=False)
+    out = dict(
+        decode_device_ms_per_column=g["device_ms_per_column"],
+        decode_busy_share=g["busy_share"],
+        decode_replay_ms_per_column=g.get("replay_ms_per_column"),
+        decode_eager_device_ms_per_column=e["device_ms_per_column"],
+        decode_eager_by_class_ms=e["by_class_ms_per_column"],
+        decode_graph_by_class_ms=g["by_class_ms_per_column"],
+        dense_bytes_per_column=dense_bytes, dense_bound_ms=dense_bytes / HBM_BYTES_PER_S * 1e3,
+        touched_bytes_per_column=touched, touched_bound_ms=touched / HBM_BYTES_PER_S * 1e3,
+        kv_bytes_per_column=kv, distinct_experts=d,
+        ttft_ms=sink["ttft_ms"], prefill_device_ms=sink["prefill_device_ms"],
+        prefill_peak_bytes=sink["prefill_peak_bytes"],
+        prefill_dense_ops=ops, prefill_dense_bound_ms=ops / BF16_FLOPS * 1e3,
+        prefill_active_ops=active, prefill_active_bound_ms=active / BF16_FLOPS * 1e3,
+        decode_tok_s=g["decode_tok_s"],
+        serve_tok_s={k: sum(r.output_tokens for r in v["results"].values()) / v["wall_s"]
+                     for k, v in runs.items()},
+    )
+    print(f"  [{card}] MoE decode on {MOE_LANES} lanes: {out['decode_device_ms_per_column']:.3f}"
+          f" device ms/column (busy share {out['decode_busy_share']:.3f}); dense dispatch "
+          f"moves {dense_bytes} bytes a column, bound {out['dense_bound_ms']:.3f} ms; the "
+          f"routed experts alone {touched} bytes, bound {out['touched_bound_ms']:.3f} ms")
+    print(f"  [{card}] eager decode by op class (ms/column): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(out["decode_eager_by_class_ms"].items())))
+    print(f"  [{card}] 1400-token prompt: TTFT {out['ttft_ms']:.2f} ms, prefill device "
+          f"{out['prefill_device_ms']:.2f} ms against dense dispatch's {ops:.4e} operations "
+          f"({out['prefill_dense_bound_ms']:.2f} ms; the routed experts alone "
+          f"{out['prefill_active_bound_ms']:.2f} ms); serve tokens/s {out['serve_tok_s']}")
+    return out
+
+
+def write_qwen_tokenizer(path: Path, vocab_size: int) -> None:
+    """A word-level ``tokenizer.json`` of ``vocab_size`` ids: ``w<id>`` below
+    151643 (the last four ``<unk>``, ``system``, ``user``, ``assistant``),
+    Qwen's special tokens at 151643-151645 and reserved specials above; a
+    ``tokenizer_config.json`` with a ChatML template, no BOS and
+    ``<|im_end|>`` as EOS, as Qwen's."""
+    from tokenizers import AddedToken, Tokenizer, models, pre_tokenizers
+
+    n = QWEN3_30B_A3B["bos_token_id"]  # 151643: the first special
+    vocab = {f"w{i}": i for i in range(n - 4)}
+    vocab.update({w: n - 4 + j for j, w in enumerate(("<unk>", "system", "user",
+                                                       "assistant"))})
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    specials = list(QWEN_SPECIALS) + [f"<|reserved_{j}|>"
+                                      for j in range(vocab_size - n - len(QWEN_SPECIALS))]
+    tok.add_special_tokens([AddedToken(s, special=True, normalized=False) for s in specials])
+    if tok.get_vocab_size() != vocab_size or tok.token_to_id("<|im_end|>") != n + 2:
+        raise AssertionError(f"tokenizer vocabulary {tok.get_vocab_size()} != {vocab_size}")
+    tok.save(str(path / "tokenizer.json"))
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "bos_token": None, "eos_token": "<|im_end|>", "pad_token": "<|endoftext|>",
+        "chat_template": CHATML_TEMPLATE}))
+
+
+def write_moe_checkpoint(host: dict, path: Path, layers: int) -> dict:
+    """The first ``layers`` layers of ``host`` (the port's layout, bf16, on
+    the host) as a Qwen3-MoE HF directory: the published ``config.json``
+    at that depth, the linears as ``[out, in]``, each expert's three as
+    tensors of their own, in 2 safetensors files with an index, and the
+    tokenizer."""
+    from safetensors.torch import save_file
+
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(dict(QWEN3_30B_A3B,
+                                                      num_hidden_layers=layers)))
+    ly = host["layers"]
+    names = dict(HF_LAYER, q_norm=("self_attn.q_norm", False),
+                 k_norm=("self_attn.k_norm", False), router=("mlp.gate", True))
+    t0 = time.perf_counter()
+    weight_map, nbytes, tensors = {}, 0, 0
+    half = math.ceil(layers / 2)
+    for s, span in enumerate((range(half), range(half, layers))):
+        part = {}
+        if s == 0:
+            part["model.embed_tokens.weight"] = host["embed"]
+        for i in span:
+            for key, (name, linear) in names.items():
+                if key in ("w_gate", "w_up", "w_down"):
+                    continue
+                t = ly[key][i]
+                part[f"model.layers.{i}.{name}.weight"] = (t.t() if linear else t).contiguous()
+            for key, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                              ("w_down", "down_proj")):
+                for e in range(ly[key].shape[1]):
+                    part[f"model.layers.{i}.mlp.experts.{e}.{proj}.weight"] = \
+                        ly[key][i, e].t().contiguous()
+        if s == 1:
+            part["model.norm.weight"] = host["final_norm"]
+            part["lm_head.weight"] = host["lm_head"].t().contiguous()
+        fname = f"model-{s + 1:05d}-of-00002.safetensors"
+        save_file(part, str(path / fname), metadata={"format": "pt"})
+        nbytes += sum(t.numel() * t.element_size() for t in part.values())
+        tensors += len(part)
+        weight_map.update({k: fname for k in part})
+        del part
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": nbytes}, "weight_map": weight_map}))
+    write_qwen_tokenizer(path, QWEN3_30B_A3B["vocab_size"])
+    return dict(tensor_bytes=nbytes, tensors=tensors, layers=layers,
+                write_s=time.perf_counter() - t0,
+                file_bytes=sum(f.stat().st_size for f in path.glob("*.safetensors")))
+
+
+def _to_card(host: dict, dev, layers: int) -> dict:
+    out = {k: v.to(dev) for k, v in host.items() if k != "layers"}
+    out["layers"] = {k: v[:layers].to(dev) for k, v in host["layers"].items()}
+    return out
+
+
+def serve_moe_checkpoint(cfg, host: dict, path: Path, dev, card: str, dtype: str) -> dict:
+    """Phase 9 (d) in one dtype: the direct engine's greedy tokens for two
+    chats (a short one and a 1400-token one) on the in-memory weights, then
+    ``serve --model-path`` on the written directory: its tensors against
+    the in-memory ones (bitwise, a bf16 file widened exactly for float32)
+    and the HTTP chats' texts against the direct tokens (exact in
+    float32)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+    from smg_tpu_torch.models.config import ModelConfig
+    from smg_tpu_torch.tokenizer.hf import HFTokenizer
+
+    layers = MOE_CKPT_LAYERS
+    cfg_d = dataclasses.replace(cfg, num_layers=layers, dtype=dtype)
+    if ModelConfig.from_pretrained(str(path), dtype=dtype) != cfg_d:
+        raise AssertionError("the written config.json does not read back as the model's")
+    tok = HFTokenizer(str(path))
+    chats = _ckpt_chats(41)
+    ids = {k: tok.encode(tok.apply_chat_template(m)) for k, m in chats.items()}
+    params = _to_card(host, dev, layers)
+    if dtype == "float32":
+        _widen(params)
+    direct = Engine(EngineConfig(
+        model=cfg_d, cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=False,
+                                       dtype=dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096, max_prefill_tokens=512,
+                                  decode_horizon=4)), params=params, device=dev)
+    direct.start()
+    try:
+        ref = {}
+        for k, p in ids.items():
+            ref.update(_direct(direct, [(k, p, MOE_CHAT_NEW)]))
+    finally:
+        direct.stop()
+    del direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, ctx, port, held, load_s = _serve_dir(path, dtype, dev)
+    out = dict(load_s=load_s, pages=engine.runner.spec.num_pages)
+    try:
+        loaded = engine.runner.model
+        same = {k: torch.equal(getattr(loaded, k), v) for k, v in params.items()
+                if k != "layers"}
+        same.update({f"layers/{k}": torch.equal(getattr(loaded.layers, k), v)
+                     for k, v in params["layers"].items()})
+        del loaded
+        out["weights_bitwise_equal"] = all(same.values())
+        if not all(same.values()):
+            raise AssertionError(f"loaded tensors differ: {[k for k, v in same.items() if not v]}")
+        http = {}
+        for k, msgs in chats.items():
+            _http(port, "POST", "/flush_cache")
+            st, body = _http(port, "POST", "/v1/chat/completions", {
+                "model": engine.config.model_id, "messages": msgs,
+                "max_tokens": MOE_CHAT_NEW, "temperature": 0, "ignore_eos": True})
+            if st != 200:
+                raise AssertionError(f"chat {k}: {st} {body}")
+            http[k] = (body["choices"][0]["message"]["content"],
+                       body["usage"]["completion_tokens"], body["usage"]["prompt_tokens"])
+        agree = {k: http[k] == (tok.decode(ref[k][0]), MOE_CHAT_NEW, len(ids[k]))
+                 for k in chats}
+        out.update(http_equal_direct=agree, prompt_tokens={k: len(v) for k, v in ids.items()})
+        print(f"  [{card}] {dtype} serve --model-path ({layers} layers): load "
+              f"{load_s:.3f} s, {out['pages']} KV pages, weights bitwise equal "
+              f"{out['weights_bitwise_equal']}, HTTP chats equal the direct engine's {agree} "
+              f"(prompts {out['prompt_tokens']} tokens)")
+        if dtype == "float32" and not all(agree.values()):
+            raise AssertionError(f"float32 HTTP chats differ from the direct engine: {agree}")
+        deadline = time.monotonic() + 10
+        while not engine.audit()["clean"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if not engine.audit()["clean"]:
+            raise AssertionError(f"audit after serving: {engine.audit()}")
+    finally:
+        held["loop"].call_soon_threadsafe(held["stop"].set)
+        held["thread"].join(LOOP_WAIT_S)
+    if held["thread"].is_alive():
+        raise AssertionError("the gateway did not shut down")
+    ctx.registry.remove(SERVE_WORKER)
+    del engine, ctx, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _row_rms_err(runs, ref) -> dict:
+    """Each path's first-token logits against ``ref``: the mean over rows of
+    each row's rms error."""
+    return {name: statistics.mean(float((a - b).pow(2).mean().sqrt())
+                                  for a, b in zip(r["logits"], ref))
+            for name, r in runs.items()}
+
+
+def moe_depth_cut(cfg, host: dict, dev, card: str) -> dict:
+    """Phase 9 (b): the first ``MOE_F32_LAYERS`` layers through the three
+    paths in bf16 and then widened to float32.  Float32 streams identical
+    across the paths and logits within ``F32_LOGIT_ATOL``; bf16's
+    first-token logits held to the float32 run's (row rms), the kernel
+    paths at most ``BF16_ERR_RATIO`` times as far as the plain one."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    N, max_new = MOE_F32_LAYERS, 32
+    cfg_n = dataclasses.replace(cfg, num_layers=N)
+    params = _to_card(host, dev, N)
+    runs16 = serve_paths(cfg_n, params, dev, max_new, auto_size=True)
+    out = {"bf16_agreement": check_runs(runs16, N, max_new, f"moe bf16 {N} layers")}
+    _widen(params)
+    cfg32 = dataclasses.replace(cfg_n, dtype="float32")
+    runs32 = serve_paths(cfg32, params, dev, max_new, auto_size=True)
+    agree = check_runs(runs32, N, max_new, f"moe f32 {N} layers")
+    out["f32_agreement"] = agree
+    out["f32"] = summarize(runs32, card, f"moe f32 {N} layers")
+    n = len(runs32["plain"]["results"])
+    if agree["streams_equal"] != {k: n for k in agree["streams_equal"]} or \
+            max(agree["logit_gap"].values()) > F32_LOGIT_ATOL:
+        raise AssertionError(f"moe f32 paths disagree: {agree}")
+    err = _row_rms_err(runs16, runs32["plain"]["logits"])
+    out["bf16_row_rms_err_vs_f32"] = err
+    print(f"  [bf16, {N} layers] first-token logits against the f32 run (mean row rms): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items()))
+    if not max(err["graphs"], err["eager"]) <= BF16_ERR_RATIO * err["plain"]:
+        raise AssertionError(f"bf16 kernel logits {err} from the f32 run, more than "
+                             f"{BF16_ERR_RATIO} x the plain version's")
+    del runs16, runs32, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(dev, card: str) -> dict:
+    """Phase 9: Qwen3-30B-A3B at full width and depth (random bf16 weights
+    from seed 0, made on the card; auto-sized KV) through phase 3's three
+    paths; (c) the expert layer against a gathered computation; (b) the
+    depth-cut float32 run; (d) ``serve --model-path`` on a written
+    Qwen3-MoE directory."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.models.config import ModelConfig
+    from smg_tpu_torch.models.llama import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    # PyTorch keeps a cuBLAS workspace for every (handle, stream) pair that
+    # ran a product, never freed: each earlier engine's capture stream and
+    # loop thread added one
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)  # CUDA builds only
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    cleared = torch.cuda.memory_allocated(dev)
+    print(f"  allocated before phase 9: {left} bytes; {cleared} once the cuBLAS "
+          "workspaces are cleared")
+    if cleared > MOE_LEFT_BYTES:
+        live = sorted(((t.numel() * t.element_size(), tuple(t.shape), str(t.dtype))
+                       for t in gc.get_objects()
+                       if torch.is_tensor(t) and t.is_cuda), reverse=True)[:10]
+        raise AssertionError(f"earlier phases left {cleared} bytes on the card; the "
+                             f"largest live tensors: {live}")
+    cfg = ModelConfig.from_hf_config(QWEN3_30B_A3B, dtype="bfloat16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    work = moe_work(cfg, params)
+    out = dict(card=card, weight_bytes=work["total"], init_s=init_s, work=work,
+               free_after_weights=torch.cuda.mem_get_info(dev)[0])
+    print(f"  [{card}] Qwen3-30B-A3B: {work['total']} bytes of bf16 weights "
+          f"({work['experts']} in experts) made in {init_s:.2f} s; "
+          f"{out['free_after_weights']} bytes free")
+    if work["total"] != MOE_WEIGHT_BYTES:
+        raise AssertionError(f"weight bytes {work['total']} != {MOE_WEIGHT_BYTES}")
+    L, max_new = cfg.num_layers, 32
+    sink: dict = {}
+    secs = out["seconds"] = {}
+    t0 = time.perf_counter()
+    with moe_annotations():
+        runs = serve_paths(cfg, params, dev, max_new, with_profile=True, auto_size=True,
+                           after=lambda label, e: moe_readings(label, e, cfg, dev, card,
+                                                               sink))
+    out["agreement"] = check_runs(runs, L, max_new, "moe bf16")
+    out["paths"] = summarize(runs, card, "moe bf16")
+    out["pages"] = {k: r["pages"] for k, r in runs.items()}
+    out["launches"] = runs["graphs"]["launches"]
+    out["schedule"] = runs["graphs"]["stats"]
+    out["readings"] = moe_report(cfg, work, runs, sink, card)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    print("phase 9 (c): the expert layer against a gathered computation")
+    out["expert_layer"] = check_expert_layer(cfg, params, dev, card)
+    # the first layers stay on the host while the full model goes
+    keep = max(MOE_F32_LAYERS, MOE_CKPT_LAYERS)
+    host = {k: v.cpu() for k, v in params.items() if k != "layers"}
+    host["layers"] = {k: v[:keep].cpu() for k, v in params["layers"].items()}
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["c"], t0 = time.perf_counter() - t0, time.perf_counter()
+    print(f"phase 9 (b): the first {MOE_F32_LAYERS} layers, bf16 and float32")
+    out["depth_cut"] = moe_depth_cut(cfg, host, dev, card)
+    secs["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="smg_moe_"))
+    try:
+        print(f"phase 9 (d): serve --model-path on a {MOE_CKPT_LAYERS}-layer Qwen3-MoE "
+              "directory")
+        out["ckpt_files"] = write_moe_checkpoint(host, root / MOE_CKPT, MOE_CKPT_LAYERS)
+        f = out["ckpt_files"]
+        print(f"  checkpoint: {f['tensors']} tensors, {f['file_bytes']} bytes in 2 files, "
+              f"written in {f['write_s']:.1f} s")
+        out["ckpt"] = {dt: serve_moe_checkpoint(cfg, host, root / MOE_CKPT, dev, card, dt)
+                       for dt in ("bfloat16", "float32")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    secs["d"] = time.perf_counter() - t0
+    print(f"  phase 9 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return out
+
+
 def threading_call(fn, result: dict):
     """Run ``fn`` on a thread of its own; its value lands in ``result``."""
     import threading
@@ -3692,7 +4430,8 @@ def ckpt_layers(root: Path) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", choices=("all", "kernels", "checkpoint"), default="all")
+    ap.add_argument("--phases", choices=("all", "kernels", "checkpoint", "moe"),
+                    default="all")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3737,7 +4476,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failed.append("kernels")
     engine = {}
-    if args.phases != "kernels" and not failed:
+    if args.phases in ("all", "checkpoint") and not failed:
         print("phase 3: engine on Llama-3-8B (full width, 32 layers)"
               if args.phases == "all" else "phase 8 alone, on Llama-3-8B")
         try:
@@ -3746,6 +4485,14 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("engine")
+    moe = {}
+    if args.phases in ("all", "moe") and not failed:
+        print("phase 9: Qwen3-30B-A3B (full width, 48 layers, 128 experts)")
+        try:
+            moe = phase_moe(dev, card)
+        except Exception:
+            traceback.print_exc()
+            failed.append("moe")
     if failed:
         print(f"FAILED phases: {failed}")
         return 1
@@ -3772,13 +4519,15 @@ def main(argv=None) -> int:
             launches_spec=engine["spec_bf16"]["graphs"]["launches"][name],
             # phase 8's serving path (the LoRA lanes, bf16)
             launches_ckpt=engine["ckpt_bf16"]["lora"]["launches"][name],
+            # phase 9's serving path (Qwen3-30B-A3B, bf16)
+            launches_moe=moe["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],
             plain_call_ms=r["plain_call_ms"], library_call_ms=r["library_call_ms"],
             timed_case=r["timed_case"], timed_cases=r["timed_cases"],
         ))
-    print(json.dumps({"engine": engine, "card": card}))
+    print(json.dumps({"engine": engine, "moe": moe, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

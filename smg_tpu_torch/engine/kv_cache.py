@@ -12,9 +12,9 @@ from dataclasses import dataclass
 
 import torch
 
-from smg_tpu_torch.engine.config import CacheConfig
+from smg_tpu_torch.engine.config import CacheConfig, SchedulerConfig
 from smg_tpu_torch.models.config import ModelConfig
-from smg_tpu_torch.models.llama import torch_dtype
+from smg_tpu_torch.models.llama import moe_scratch_bytes, torch_dtype
 
 
 class OutOfPagesError(RuntimeError):
@@ -68,15 +68,31 @@ class KvCacheSpec:
                 * self.head_dim * itemsize)
 
 
+def moe_reserve_bytes(model: ModelConfig, sched: SchedulerConfig) -> int:
+    """Device memory the expert layer needs beside the KV cache: one
+    prefill tile's scratch (eager launches, the allocator's own pool) and
+    one decode or verify launch's (the CUDA graphs' pool, which keeps its
+    blocks between replays): the largest decode bucket times the widest
+    horizon or verify block, each capped at a tile.  0 for a dense model."""
+    widest = max(sched.horizon_cap, sched.spec_max_draft + 1 if sched.speculative else 1)
+    return (moe_scratch_bytes(model, sched.max_prefill_tokens)
+            + moe_scratch_bytes(model, max(sched.decode_batch_buckets) * widest))
+
+
 def plan_cache(model: ModelConfig, cache: CacheConfig,
                free_bytes: int | None = None,
-               draft: ModelConfig | None = None) -> KvCacheSpec:
+               draft: ModelConfig | None = None,
+               reserve_bytes: int = 0) -> KvCacheSpec:
     """Decide num_pages.  With ``auto_size`` and a known free device-memory
     figure (``torch.cuda.mem_get_info``, taken after the weights, the
     draft model's included, are resident), give ``hbm_utilization`` of it
-    to KV; otherwise use the configured num_pages.  A ``draft`` model
-    (``engine/draft.py``) keeps a cache of its own with a page for every
-    page of the target's, so each page costs both."""
+    to KV; otherwise use the configured num_pages.  ``reserve_bytes``
+    (``moe_reserve_bytes``) comes off the free figure first: at 61 GB of
+    Qwen3-30B-A3B weights on an 80 GB card, the tenth that the utilization
+    leaves is about 2 GB, less than a prefill chunk's expert scratch and a
+    graph pool together.  A ``draft`` model (``engine/draft.py``) keeps a
+    cache of its own with a page for every page of the target's, so each
+    page costs both."""
     spec = KvCacheSpec(
         num_layers=model.num_layers, num_pages=cache.num_pages,
         page_size=cache.page_size, num_kv_heads=model.num_kv_heads,
@@ -89,7 +105,7 @@ def plan_cache(model: ModelConfig, cache: CacheConfig,
                 num_layers=draft.num_layers, num_pages=0, page_size=cache.page_size,
                 num_kv_heads=draft.num_kv_heads, head_dim=draft.head_dim,
                 dtype=cache.dtype).bytes_per_page
-        budget = int(free_bytes * cache.hbm_utilization)
+        budget = int(max(free_bytes - reserve_bytes, 0) * cache.hbm_utilization)
         spec.num_pages = int(max(budget // per_page, 16))
     return spec
 

@@ -42,7 +42,12 @@ import torch
 
 from smg_tpu_torch.engine.config import EngineConfig
 from smg_tpu_torch.engine.graphs import GraphCache, Megastep, VerifyStep
-from smg_tpu_torch.engine.kv_cache import KvCacheSpec, create_kv_buffers, plan_cache
+from smg_tpu_torch.engine.kv_cache import (
+    KvCacheSpec,
+    create_kv_buffers,
+    moe_reserve_bytes,
+    plan_cache,
+)
 from smg_tpu_torch.engine.sampling import apply_penalties, pick_sampler, spec_accept_sample
 from smg_tpu_torch.models.llama import LlamaModel, init_params
 from smg_tpu_torch.models.lora import LoraBank, canonical_keys, validate_adapter
@@ -158,9 +163,15 @@ class ModelRunner:
         self.model = LlamaModel(self.model_cfg, params, attention=attention)
         free = None
         if self.device.type == "cuda":
-            free = torch.cuda.mem_get_info(self.device)[0]  # weights already resident
+            # weights already resident; blocks the allocator caches but no
+            # tensor holds (an earlier engine's, a widened dtype's) count as free
+            torch.cuda.empty_cache()
+            free = torch.cuda.mem_get_info(self.device)[0]
+        # the expert layer's scratch is set aside before KV is sized
+        self.reserve_bytes = moe_reserve_bytes(self.model_cfg, config.scheduler)
         self.spec: KvCacheSpec = plan_cache(self.model_cfg, config.cache, free,
-                                            draft=config.draft_model)
+                                            draft=config.draft_model,
+                                            reserve_bytes=self.reserve_bytes)
         self.k_cache, self.v_cache = create_kv_buffers(self.spec, self.device)
         self.max_pages_per_seq = math.ceil(
             config.scheduler.max_seq_len / config.cache.page_size)

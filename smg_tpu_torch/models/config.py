@@ -1,9 +1,15 @@
 """Model architecture config — the port's own copy of
-``smg_tpu/models/config.py``: the dense decoder fields, the HF
-``config.json`` loader for the dense families this port serves (Llama,
-Mistral, Qwen2/Qwen3, Gemma-2) and the presets (``PRESETS``, under the
-reference's names).  A mixture-of-experts or vision-language config is
-refused rather than built as a dense model: those layers are not ported."""
+``smg_tpu/models/config.py``: the decoder fields, the HF ``config.json``
+loader for the families this port serves (Llama, Mistral, Qwen2/Qwen3,
+Gemma-2 and the Qwen-MoE family) and the presets (``PRESETS``, under the
+reference's names).  A vision-language config is refused rather than built
+as a text model: the vision tower is not ported.
+
+Qwen-MoE configs are read exactly as the reference reads them: the expert
+count (``num_experts`` or ``num_routed_experts``), ``num_experts_per_tok``
+and ``moe_intermediate_size``.  Like the reference, the mapping has no field
+for Qwen2-MoE's shared expert or for ``norm_topk_prob: false``: the top-k
+softmax is always normalised (Qwen3-MoE's ``norm_topk_prob: true``)."""
 
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ class ModelConfig:
     eos_token_ids: tuple[int, ...] = (128001, 128009)
     bos_token_id: int = 128000
     dtype: str = "bfloat16"
-    # MoE (0 = dense); the port serves dense models only so far
+    # MoE (0 = dense): Qwen-MoE family, every layer's MLP is the expert layer
     num_experts: int = 0
     num_experts_per_tok: int = 0
     moe_intermediate_size: int = 0
@@ -53,18 +59,18 @@ class ModelConfig:
     @classmethod
     def from_hf_config(cls, cfg: dict, dtype: str = "bfloat16") -> "ModelConfig":
         """The reference's mapping of an HF ``config.json`` (its fields,
-        defaults and family switches), for dense text models only."""
+        defaults and family switches), for text models."""
         name = (cfg.get("architectures") or ["LlamaForCausalLM"])[0].lower()
-        num_experts = cfg.get("num_experts", cfg.get("num_routed_experts", 0)) or 0
-        if num_experts > 0 or "qwen3moe" in name or "qwen2moe" in name:
-            raise NotImplementedError(
-                f"{name}: mixture-of-experts layers are not ported to the PyTorch "
-                "engine yet (ROADMAP Queue A item 8)")
         if cfg.get("vision_config"):
             raise NotImplementedError(
                 f"{name}: the vision tower is not ported to the PyTorch engine yet "
                 "(ROADMAP Queue A item 10)")
-        arch = "qwen" if "qwen" in name else "llama"  # Mistral: the llama family
+        if "qwen3moe" in name or "qwen2moe" in name:
+            arch = "qwen_moe"
+        elif "qwen" in name:
+            arch = "qwen"
+        else:
+            arch = "llama"  # Mistral: the llama family
         eos = cfg.get("eos_token_id", 2)
         num_heads = cfg["num_attention_heads"]
         extra: dict = {}
@@ -100,9 +106,10 @@ class ModelConfig:
             eos_token_ids=tuple(eos) if isinstance(eos, list) else (eos,),
             bos_token_id=cfg.get("bos_token_id", 1),
             dtype=dtype,
+            num_experts=cfg.get("num_experts", cfg.get("num_routed_experts", 0)) or 0,
             num_experts_per_tok=cfg.get("num_experts_per_tok", 0) or 0,
             moe_intermediate_size=cfg.get("moe_intermediate_size", 0) or 0,
-            qk_norm="qwen3" in name,  # Qwen3: per-head q/k RMSNorm before rope
+            qk_norm="qwen3" in name,  # Qwen3 (dense and MoE): q/k RMSNorm before rope
             **extra,
         )
 
@@ -161,10 +168,19 @@ def tiny_gemma2_config(vocab_size: int = 512) -> ModelConfig:
     )
 
 
+def tiny_moe_config() -> ModelConfig:
+    """Tiny Qwen-MoE-style config for CPU tests: 4 experts, top-2."""
+    return dataclasses.replace(
+        tiny_test_config(), arch="qwen_moe", num_experts=4, num_experts_per_tok=2,
+        moe_intermediate_size=128,
+    )
+
+
 #: ``serve --model-preset`` names, the reference's for the configs this port has
 PRESETS = {
     "tiny": tiny_test_config,
     "tiny-gemma2": tiny_gemma2_config,
+    "tiny-moe": tiny_moe_config,
     "llama3.2-1b": llama32_1b_config,
     "llama3-8b": llama3_8b_config,
     "llama3-70b": llama3_70b_config,

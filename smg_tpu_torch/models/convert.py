@@ -3,7 +3,9 @@
 The JAX side is handed over as nested dicts of numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), so this module needs no JAX.  Layouts
 follow ``smg_tpu/models/llama.py::init_params``; the head axes are folded so
-each projection is one matmul in ``smg_tpu_torch/models/llama.py``.
+each projection is one matmul in ``smg_tpu_torch/models/llama.py``.  A
+Qwen-MoE tree's ``router`` and expert stacks (``w_gate``/``w_up``
+``[L, X, E, Fm]``, ``w_down [L, X, Fm, E]``) keep their layout.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ _FOLD = {
     "wv": lambda a: a.reshape(a.shape[0], a.shape[1], -1),
     "wo": lambda a: a.reshape(a.shape[0], -1, a.shape[-1]),  # [L,H,D,E] -> [L,H*D,E]
 }
-_DENSE_LAYER_KEYS = {
+_LAYER_KEYS = {
     "attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down",
-    "post_attn_norm", "post_mlp_norm", "q_norm", "k_norm",
+    "post_attn_norm", "post_mlp_norm", "q_norm", "k_norm", "router",
 }
 
 
@@ -36,7 +38,7 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu",
                     dtype: torch.dtype | None = None) -> dict:
     """JAX parameter tree (numpy leaves) -> the port's parameter dict."""
     layers_in = tree["layers"]
-    unknown = set(layers_in) - _DENSE_LAYER_KEYS
+    unknown = set(layers_in) - _LAYER_KEYS
     if unknown:
         raise NotImplementedError(f"layer weights not ported yet: {sorted(unknown)}")
     layers = {}

@@ -11,8 +11,13 @@ layer's tensor, never the whole model.  The result has the layout and dtype
 ``[out, in]`` linears transposed to ``[in, out]``, which is the JAX layout
 with its head axes folded.
 
-The vision tower (``load_vision_params``) waits for the multimodal port, and
-mixture-of-experts tensors for the MoE layers.
+A Qwen-MoE checkpoint holds a router per layer (``mlp.gate.weight``, read as
+``router [L, E, X]``) and every expert's three linears as tensors of their
+own (``mlp.experts.{e}.{gate,up,down}_proj.weight``, 18,432 of them in
+Qwen3-30B-A3B), each transposed into its slot of ``[L, X, ...]``.  As in the
+reference, Qwen2-MoE's shared expert has no key here and is not read.
+
+The vision tower (``load_vision_params``) waits for the multimodal port.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ _GLOBAL_KEYS = {
 
 def _layer_keys(cfg) -> dict[str, tuple[str, bool]]:
     """Port layer key -> (HF name template, linear): the reference's
-    ``_hf_key_map`` for dense layers."""
+    ``_hf_key_map``.  An ``{e}`` in a template is the expert index."""
     p = "model.layers.{i}."
     m = {
         "attn_norm": (p + "input_layernorm.weight", False),
@@ -60,6 +65,12 @@ def _layer_keys(cfg) -> dict[str, tuple[str, bool]]:
         m["mlp_norm"] = (p + "pre_feedforward_layernorm.weight", False)
         m["post_attn_norm"] = (p + "post_attention_layernorm.weight", False)
         m["post_mlp_norm"] = (p + "post_feedforward_layernorm.weight", False)
+    if cfg.num_experts:
+        # Qwen-MoE naming: router = mlp.gate, experts under mlp.experts.{e}
+        m["router"] = (p + "mlp.gate.weight", True)
+        for key, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                          ("w_down", "down_proj")):
+            m[key] = (p + "mlp.experts.{e}." + proj + ".weight", True)
     return m
 
 
@@ -99,9 +110,6 @@ def load_params(engine_cfg, device=None) -> dict:
     from smg_tpu_torch.engine.runner import resolve_device
 
     cfg = engine_cfg.model
-    if cfg.num_experts:
-        raise NotImplementedError("mixture-of-experts checkpoints are not ported to the "
-                                  "PyTorch engine yet (ROADMAP Queue A item 8)")
     device = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     with Checkpoint(engine_cfg.model_path) as ckpt:
@@ -121,11 +129,17 @@ def _load(cfg, ckpt: Checkpoint, device: torch.device, dtype: torch.dtype) -> di
 
     params: dict = {"layers": {}}
     for key, (tmpl, linear) in _layer_keys(cfg).items():
-        shape = ckpt.shape(tmpl.format(i=0))
-        out = torch.empty([cfg.num_layers] + (shape[::-1] if linear else shape),
+        experts = cfg.num_experts if "{e}" in tmpl else 0
+        shape = ckpt.shape(tmpl.format(i=0, e=0))
+        lead = [cfg.num_layers] + ([experts] if experts else [])
+        out = torch.empty(lead + (shape[::-1] if linear else shape),
                           dtype=dtype, device=device)
         for i in range(cfg.num_layers):
-            place(ckpt.get(tmpl.format(i=i)), linear, out[i])
+            if experts:  # one tensor at a time, into its [i, e] slot
+                for e in range(experts):
+                    place(ckpt.get(tmpl.format(i=i, e=e)), linear, out[i, e])
+            else:
+                place(ckpt.get(tmpl.format(i=i)), linear, out[i])
         params["layers"][key] = out
         logger.info("loaded layers/%s %s", key, tuple(out.shape))
     for key, (name, linear) in _GLOBAL_KEYS.items():

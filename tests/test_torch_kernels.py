@@ -147,6 +147,14 @@ def cuda_dev():
     return torch.device("cuda")
 
 
+# Qwen3-30B-A3B's attention shape: 32 query heads over 4 KV heads (G=8, the
+# decode kernel's full head group), head_dim 128
+G8_DECODE = [(3, 32, 128, 4, [190, 37, 5], 1, None, None),
+             (2, 32, 128, 4, [150, 60], 4, 50.0, 64)]
+G8_PREFILL = [(32, 32, 128, 4, 96, 32, None, None, 24, 64),
+              (16, 32, 128, 4, 597, 11, None, None, 40, 96)]
+
+
 def _close(got, want, dtype):
     """float32: 2e-5.  bfloat16: 1.6e-2 x |plain| (two bf16 ulps) plus an
     absolute term of 5% of the row's rms, at most 2e-2: an output over n
@@ -165,7 +173,8 @@ def _close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,D,K,entries,n_extra,softcap,window",
-                         DECODE_CASES + [(3, 8, 16, 2, [40, 5, 208], 2, None, 24)])
+                         DECODE_CASES + [(3, 8, 16, 2, [40, 5, 208], 2, None, 24)]
+                         + G8_DECODE)
 def test_decode_kernel_matches_plain(cuda_dev, dtype, B, H, D, K, entries, n_extra,
                                      softcap, window):
     q, kc, vc, hk, hv, layer, pt, entry = decode_inputs(B, H, D, K, entries)
@@ -199,7 +208,8 @@ def test_decode_kernel_skips_out_of_window_pages(cuda_dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,H,D,K,prefix_len,t_real,softcap,window,mp,P",
-                         PREFILL_CASES + [(40, 8, 16, 2, 21, 33, 50.0, 9, 24, 64)])
+                         PREFILL_CASES + [(40, 8, 16, 2, 21, 33, 50.0, 9, 24, 64)]
+                         + G8_PREFILL)
 def test_prefill_kernel_matches_plain(cuda_dev, dtype, T, H, D, K, prefix_len, t_real,
                                       softcap, window, mp, P):
     q, ck, cv, kc, vc, layer, pt = prefill_inputs(T, H, D, K, prefix_len, t_real,
