@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernels   # build + kernel checks only
     python3 chip_smoke.py --phases checkpoint   # build + kernels + phase 8 only
     python3 chip_smoke.py --phases moe   # build + kernels + phase 9 only
+    python3 chip_smoke.py --phases api   # build + kernels + phase 10 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -174,11 +175,40 @@ Phases (any failure makes the script exit non-zero and print no result):
    Qwen's special tokens and a ChatML template) and served with ``serve
    --model-path`` in bf16 and float32: loaded tensors bitwise the in-memory
    ones, HTTP chats equal to a direct engine's tokens (exact in float32);
-10. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
-   run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's
-   and ``launches_moe`` from phase 9's bf16 serving paths) and, last,
-   ``{"ok": true, "device": ...}`` (``--phases kernels``, ``checkpoint``
-   and ``moe`` print neither).
+10. the rest of ``serve``, embeddings, rerank and classify, on phase 3's
+   weights in bf16 (after phase 8) and widened to float32 (before phase 9
+   releases them): phase 3's five requests on the graph path under
+   ``prefill_mix_policy="throughput"`` and with the prefix cache off
+   (launches exact, audits clean, no prefix hit with the cache off, in
+   float32 the streams identical to stall-free's; readings: the 1400-token
+   prompt's TTFT and, in bf16, decode device ms a column on 4 lanes under
+   both policies); then two gateways built from ``serve`` flags over an
+   engine with graphs, overlap and the loop thread: ``/v1/embeddings`` of 8
+   texts of 200-1500 tokens and of two id lists (one at the 4096-token
+   cap), bitwise a direct ``engine.embed``, unit rows, within
+   ``EMBED_F32_ATOL`` of the forward in one tile in float32 and the bf16
+   rows held to the float32 ones by row rms (``EMBED_BF16_REL``); embed
+   device ms of the 8 rows and of the 4096-token row against their
+   operations bound and their peak memory above the resident (beside the
+   live KV cache); ``/v1/rerank`` with ``top_n`` and ``/v1/classify``
+   against direct cosines; ``/debug/router``'s shared-prefix decision
+   (reconciled, a prefix hit) and the request id from
+   ``--request-id-headers``; ``/debug/kv_index`` equal to the worker's
+   ``loads()``; ``/start_profile`` then ``/stop_profile`` writing a trace
+   with CUDA kernel events; on a round-robin gateway over two engines with
+   ``--cb-failure-threshold 1``, a stream that dies mid-decode opens one
+   breaker, later chats go around it, a probe after
+   ``--cb-timeout-duration-secs`` closes it, and a body over
+   ``--max-payload-size`` is refused.  In bf16 last: ``FAULT_ENGINES``
+   engines with graphs built, served and dropped in a row grow
+   ``memory_allocated`` by 0 bytes after the second, and an engine that
+   outlives another replays its graphs bitwise;
+11. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
+   run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
+   ``launches_moe`` from phase 9's and ``launches_throughput`` from phase
+   10's bf16 serving paths) and, last, ``{"ok": true, "device": ...}``
+   (``--phases kernels``, ``checkpoint``, ``moe`` and ``api`` print
+   neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -643,7 +673,11 @@ def drive_engine(engine, max_new: int, record_logits: list, loop: bool):
     otherwise this thread calls ``step()``.  Returns per-request results,
     the wall time of every step, the phase split (synchronous paths only:
     timing a pipelined call would need a sync that defeats the pipeline)
-    and the drive's wall time."""
+    with each request's ms from its submit to its first output
+    (``ttft_ms``) and the graph-capture ms inside that span
+    (``ttft_capture_ms``: a fresh engine captures a decode shape at its first
+    launch, in the step that delivers first tokens), and the drive's wall
+    time."""
     import torch
 
     from smg_tpu_torch.engine.engine import collect_result
@@ -660,7 +694,7 @@ def drive_engine(engine, max_new: int, record_logits: list, loop: bool):
         return out
 
     model.forward_prefill_batched = recording
-    timers = {"prefill_s": 0.0, "decode_s": 0.0}
+    timers = {"prefill_s": 0.0, "decode_s": 0.0, "ttft_ms": {}, "ttft_capture_ms": {}}
     if not loop:
         def timed(name, fn):
             def wrapper(*a, **kw):
@@ -692,7 +726,15 @@ def drive_engine(engine, max_new: int, record_logits: list, loop: bool):
     def submit(batch):
         for rid, ids in batch:
             chunks[rid] = []
-            engine.submit(ids, sp(), rid=rid, on_output=chunks[rid].append)
+            t_submit, cap0 = time.perf_counter(), runner.graphs.capture_s
+
+            def on_output(out, rid=rid, t_submit=t_submit, cap0=cap0):
+                if not chunks[rid]:
+                    timers["ttft_ms"][rid] = (time.perf_counter() - t_submit) * 1e3
+                    timers["ttft_capture_ms"][rid] = (runner.graphs.capture_s - cap0) * 1e3
+                chunks[rid].append(out)
+
+            engine.submit(ids, sp(), rid=rid, on_output=on_output)
 
     finished = lambda rid: bool(chunks[rid]) and chunks[rid][-1].finished  # noqa: E731
     t0 = time.perf_counter()
@@ -877,11 +919,12 @@ def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
 
 
 def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False,
-                auto_size: bool = False, after=None) -> dict:
-    """Serve the requests once per path of ``PATHS`` on one set of weights.
+                auto_size: bool = False, after=None, paths=PATHS, sched=None) -> dict:
+    """Serve the requests once per path of ``paths`` on one set of weights.
     Launch counters are zeroed just before each measured run and read just
     after it.  With ``auto_size`` each engine sizes its KV cache from the
     card's free memory (the serving default) instead of 2048 pages.
+    ``sched`` overrides ``SchedulerConfig`` fields of every engine.
     ``after(label, engine)``, called once the run and its profile are read,
     returns further readings of that engine (``runs[label]["after"]``)."""
     import gc
@@ -895,14 +938,14 @@ def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False,
     from smg_tpu_torch.protocols.sampling import SamplingParams
 
     runs = {}
-    for label, attention, graphs, overlap, loop in PATHS:
+    for label, attention, graphs, overlap, loop in paths:
         econf = EngineConfig(
             model=cfg,
             cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=auto_size,
                               dtype=cfg.dtype),
             scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096,
                                       max_prefill_tokens=512, decode_horizon=4,
-                                      overlap_schedule=overlap),
+                                      overlap_schedule=overlap, **(sched or {})),
             decode_graphs=graphs,
         )
         engine = Engine(econf, params=params, device=dev, attention=attention)
@@ -3585,6 +3628,507 @@ def serve_checkpoint(cfg, params, dev, card: str, label: str, strict: bool, ckpt
 
 
 
+# ---- phase 10: the rest of serve; embeddings, rerank and classify ----
+
+EMBED_CAP = 4096  # the largest prefill bucket: embeddings are cut there
+EMBED_TEXTS = 8  # texts of 200-1500 tokens in one /v1/embeddings request
+EMBED_F32_ATOL = 1e-4  # float32: the tiled forward against one tile
+# bf16 embeddings held to the float32 run's on the same (bf16-valued)
+# weights: the rms of a row's difference at most this share of the row's
+# rms (a unit row of 4096 has rms 1/64)
+EMBED_BF16_REL = 0.1
+F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+CB_TIMEOUT_S = 4.0  # phase 10's breaker cool-down (--cb-timeout-duration-secs)
+API_PAYLOAD = 1 << 16  # the breaker gateway's --max-payload-size
+KV_AUDIT_KEYS = ("cached_pages", "total_pages", "free_pages", "radix_hit_pages",
+                 "radix_miss_pages", "radix_evicted_pages", "cached_prompt_tokens",
+                 "computed_prompt_tokens", "cache_hit_rate")
+FAULT_ENGINES, FAULT_PAGES = 4, 256  # the workspace check: engines in a row, their KV
+TRACE_KERNEL_CAT = "kernel"  # a CUDA kernel's event category in torch.profiler's trace
+
+
+def _api_jobs(seed: int) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    texts = [_words(ids(int(n))) for n in rng.integers(200, 1501, EMBED_TEXTS)]
+    shared = ids(600)
+    return dict(texts=texts, id_lists=[ids(300), ids(EMBED_CAP)],
+                shared=[shared + ids(40), shared + ids(60)],
+                chats=[ids(100 + 10 * i) for i in range(8)])
+
+
+def embed_work(cfg, lengths) -> dict:
+    """Bytes and operations one ``forward_embed`` needs for rows of these
+    real lengths: every layer's weights read once (the embedding rows
+    gathered, the output written), the projections in the model's dtype,
+    the causal attention in float32 (as computed)."""
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    E, H, K, D, F, L = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                        cfg.intermediate_size, cfg.num_layers)
+    per_layer = E * H * D * 2 + 2 * E * K * D + 3 * E * F  # wq, wo, wk, wv, the MLP
+    tokens = sum(lengths)
+    proj = 2 * per_layer * L * tokens
+    attn = sum(2 * H * D * n * (n + 1) for n in lengths) * L  # QK^T and PV, causal
+    nbytes = per_layer * L * item + tokens * E * item + len(lengths) * E * 4
+    peak = BF16_FLOPS if cfg.dtype == "bfloat16" else F32_FLOPS
+    ms = max(nbytes / HBM_BYTES_PER_S, proj / peak + attn / F32_FLOPS) * 1e3
+    return dict(bytes=nbytes, proj_flops=proj, attn_flops=attn, bound_ms=ms,
+                bound_by="bytes" if nbytes / HBM_BYTES_PER_S * 1e3 >= ms else "operations")
+
+
+def _embed_timed(engine, batches, reps: int) -> dict:
+    """``engine.embed`` timed with CUDA events (the median of ``reps``,
+    after the calls before it warmed it) and its peak memory above what was
+    allocated before it."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        engine.embed(batches)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return dict(ms=statistics.median(times), peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+
+def _embed_plain(engine, batches):
+    """``engine.embed`` with the forward in one tile: every row and every
+    query at once (the reference's shape)."""
+    model = engine.runner.model
+    cls_fwd = type(model).forward_embed
+    model.forward_embed = lambda t, l: cls_fwd(model, t, l, token_tile=1 << 40, q_tile=1 << 40)
+    try:
+        return engine.embed(batches)
+    finally:
+        del model.forward_embed
+
+
+def _serve_apps(apps: list) -> tuple:
+    """Serve ``apps`` = [(aiohttp app, port)] on one event loop thread;
+    returns (held: its loop and stop event, the thread)."""
+    import asyncio
+    import threading
+
+    from aiohttp import web
+
+    held: dict = {}
+
+    async def serve():
+        held["loop"], held["stop"] = asyncio.get_running_loop(), asyncio.Event()
+        runners = []
+        try:
+            for app, port in apps:
+                runner = web.AppRunner(app)
+                await runner.setup()
+                runners.append(runner)
+                await web.TCPSite(runner, "127.0.0.1", port).start()
+            held["up"] = True
+            await held["stop"].wait()
+        finally:
+            for runner in reversed(runners):
+                await runner.cleanup()
+
+    t = threading.Thread(target=lambda: asyncio.run(serve()), name="api-gateways")
+    t.start()
+    wait_for(lambda: "up" in held or not t.is_alive(), "gateways start", timeout=60)
+    if "up" not in held:
+        raise AssertionError("the gateways did not start")
+    return held, t
+
+
+def mix_policy_runs(cfg, params, dev, label: str, strict: bool, stall_free: dict,
+                    with_profile: bool) -> dict:
+    """Phase 3's five requests on the graph path under
+    ``prefill_mix_policy="throughput"`` and with the prefix cache off,
+    against the stall-free graph run ``stall_free``: launches exact, audits
+    clean (``serve_paths``), no prefix hit with the cache off; with
+    ``strict`` (float32) the streams must be identical."""
+    L = cfg.num_layers
+    out = {}
+    for name, sched in (("throughput", dict(prefill_mix_policy="throughput")),
+                        ("prefix_off", dict(enable_prefix_cache=False))):
+        r = serve_paths(cfg, params, dev, 32, paths=PATHS[:1], sched=sched,
+                        with_profile=with_profile and name == "throughput")["graphs"]
+        check_launches(r, L, f"{label}/{name}", plain=False)
+        res = r["results"]
+        cached = {rid: x.cached_tokens for rid, x in res.items()}
+        if name == "prefix_off" and any(cached.values()):
+            raise AssertionError(f"[{label}/prefix_off] cached tokens with no prefix cache: "
+                                 f"{cached}")
+        if name == "throughput" and cached["shared_b"] <= 0:
+            raise AssertionError(f"[{label}/throughput] shared_b got no radix prefix hit")
+        equal = sum(res[rid].token_ids == stall_free["results"][rid].token_ids
+                    for rid in res)
+        if any(x.output_tokens != 32 or x.finish_reason != "length" for x in res.values()):
+            raise AssertionError(f"[{label}/{name}] wrong counts or finishes")
+        if strict and equal != len(res):
+            raise AssertionError(f"[{label}/{name}] streams differ from stall-free's "
+                                 f"({equal} of {len(res)} equal)")
+        loads = r["loads"]
+        if loads["audit"]["leaked_pages"]:
+            raise AssertionError(f"[{label}/{name}] leaked pages: {loads['audit']}")
+        out[name] = dict(streams_equal=equal, launches=r["launches"], stats=r["stats"],
+                         ttft_ms=r["timers"]["ttft_ms"],
+                         ttft_capture_ms=r["timers"]["ttft_capture_ms"],
+                         step_ms_max=max(r["step_ms"]), cached_tokens=cached,
+                         profile=r.get("profile"))
+        t, sf = r["timers"], stall_free["timers"]
+        print(f"  [{label}/{name}] streams equal to stall-free's: {equal} of {len(res)}; "
+              f"cached {cached}; the 1400-token prompt's TTFT "
+              f"{t['ttft_ms']['long_chunked']:.2f} ms, graph captures inside it "
+              f"{t['ttft_capture_ms']['long_chunked']:.2f} ms (stall-free "
+              f"{sf['ttft_ms']['long_chunked']:.2f}, captures "
+              f"{sf['ttft_capture_ms']['long_chunked']:.2f}); longest step "
+              f"{max(r['step_ms']):.2f} ms (stall-free {max(stall_free['step_ms']):.2f})")
+    return out
+
+
+def _api_engine(cfg, params, dev, tok, pages: int):
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+
+    return Engine(EngineConfig(
+        model=cfg,
+        cache=CacheConfig(page_size=PS, num_pages=pages, auto_size=False, dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=EMBED_CAP,
+                                  max_prefill_tokens=512, decode_horizon=4),
+        model_id=SERVE_MODEL), params=params, device=dev, tokenizer=tok)
+
+
+def phase_api(cfg, params, dev, card: str, label: str, strict: bool, stall_free: dict,
+              sink: dict) -> dict:
+    """Phase 10 on one dtype's weights: the mix policy and the prefix cache
+    (``mix_policy_runs``); embeddings, rerank and classify through a
+    gateway built from ``serve`` flags; ``/debug/router``,
+    ``/debug/kv_index`` and the profile routes; a breaker opened by a
+    stream that dies mid-decode; the cuBLAS workspaces of engines built in
+    a row (bf16 only).  ``sink`` carries the bf16 embeddings to the
+    float32 run, which holds them to its own."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.cli import build_parser
+    from smg_tpu_torch.faults import FAULTS
+    from smg_tpu_torch.gateway.launch import build_context, gateway_options
+    from smg_tpu_torch.gateway.server import build_app
+    from smg_tpu_torch.gateway.worker_client import InProcWorkerClient
+    from smg_tpu_torch.gateway.workers import Worker
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    t_phase = time.perf_counter()
+    out = {"mix": mix_policy_runs(cfg, params, dev, label, strict, stall_free,
+                                  with_profile=not strict)}
+    if not strict and stall_free.get("profile"):
+        prof = {"stall-free": stall_free["profile"]["device_ms_per_column"],
+                "throughput": out["mix"]["throughput"]["profile"]["device_ms_per_column"]}
+        out["decode_ms_per_column"] = prof
+        print(f"  [{label}] decode device ms a column on 4 lanes: {prof}")
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    jobs = _api_jobs(10)
+    engine = _api_engine(cfg, params, dev, tok, 2048)
+    spare = _api_engine(cfg, params, dev, tok, FAULT_PAGES)
+    parse = build_parser().parse_args
+    api_args = parse(["serve", "--model-preset", SERVE_MODEL, "--request-id-headers",
+                      "X-Smoke-Id"])
+    cb_args = parse(["serve", "--model-preset", SERVE_MODEL, "--policy", "round_robin",
+                     "--cb-failure-threshold", "1", "--cb-success-threshold", "1",
+                     "--cb-timeout-duration-secs", str(CB_TIMEOUT_S),
+                     "--retry-initial-backoff-ms", "1", "--max-payload-size", str(API_PAYLOAD)])
+    api = build_context(engine, **gateway_options(api_args))
+    cb = build_context(engine, **gateway_options(cb_args))
+    cb.registry.add(Worker(worker_id="inproc-1", client=InProcWorkerClient(spare),
+                           model_id=SERVE_MODEL, page_size=PS))
+    ports = {"api": _free_port(), "cb": _free_port()}
+    held, server = _serve_apps([
+        (build_app(api, client_max_size=api_args.max_payload_size), ports["api"]),
+        (build_app(cb, client_max_size=cb_args.max_payload_size), ports["cb"])])
+    prof_dir = Path(tempfile.mkdtemp(prefix="smg_profile_"))
+    try:
+        out.update(_api_checks(cfg, engine, spare, tok, jobs, ports, api, cb, label,
+                               strict, sink, prof_dir))
+    finally:
+        FAULTS.clear()
+        held["loop"].call_soon_threadsafe(held["stop"].set)
+        server.join(LOOP_WAIT_S)
+        engine.stop(drain=True, timeout=30)
+        spare.stop(drain=True, timeout=30)
+        shutil.rmtree(prof_dir, ignore_errors=True)
+    if server.is_alive():
+        raise AssertionError("the gateways did not shut down")
+    # aiohttp keeps finished apps, with their contexts: the workers go
+    for ctx in (api, cb):
+        for w in ctx.registry.list():
+            ctx.registry.remove(w.worker_id)
+    del engine, spare, api, cb
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not strict:
+        out["workspaces"] = check_workspaces(cfg, params, dev, tok, label)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  [{label}] phase 10 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
+def _api_checks(cfg, engine, spare, tok, jobs, ports, api, cb, label: str, strict: bool,
+                sink: dict, prof_dir: Path) -> dict:
+    import numpy as np
+
+    from smg_tpu_torch.faults import FAULTS
+
+    out = {}
+    port = ports["api"]
+    # (a) embeddings over HTTP against a direct engine.embed, bitwise
+    texts, id_lists = jobs["texts"], jobs["id_lists"]
+    text_ids = [tok.encode(t) for t in texts]
+    st, body = _http(port, "POST", "/v1/embeddings", {"model": SERVE_MODEL, "input": texts},
+                     headers={"X-Smoke-Id": f"emb-{label}"})
+    if st != 200:
+        raise AssertionError(f"[{label}] /v1/embeddings: {st} {body}")
+    http_texts = np.array([d["embedding"] for d in body["data"]], np.float32)
+    st2, body2 = _http(port, "POST", "/v1/embeddings", {"model": SERVE_MODEL, "input": id_lists})
+    if st2 != 200:
+        raise AssertionError(f"[{label}] /v1/embeddings (ids): {st2} {body2}")
+    http_ids = np.array([d["embedding"] for d in body2["data"]], np.float32)
+    direct_texts, direct_ids = engine.embed(text_ids), engine.embed(id_lists)
+    for name, a, b in (("texts", http_texts, direct_texts), ("ids", http_ids, direct_ids)):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"[{label}] HTTP {name} embeddings differ from a direct "
+                                 f"engine.embed (max {float(np.abs(a - b).max())})")
+        if not np.all(np.isfinite(a)) or np.abs(np.linalg.norm(a, axis=-1) - 1).max() > 1e-3:
+            raise AssertionError(f"[{label}] {name} embeddings not finite unit rows")
+    n_tokens = sum(map(len, text_ids))
+    if body["usage"]["prompt_tokens"] != n_tokens or \
+            body2["usage"]["prompt_tokens"] != sum(map(len, id_lists)):
+        raise AssertionError(f"[{label}] embedding usage {body['usage']} {body2['usage']}")
+    plain = {"texts": _embed_plain(engine, text_ids), "ids": _embed_plain(engine, id_lists)}
+    tiled_err = {"texts": float(np.abs(direct_texts - plain["texts"]).max()),
+                 "ids": float(np.abs(direct_ids - plain["ids"]).max())}
+    if strict and max(tiled_err.values()) > EMBED_F32_ATOL:
+        raise AssertionError(f"[{label}] tiled embeddings {tiled_err} from one tile")
+    out["embed"] = dict(lengths=[len(x) for x in text_ids], tiled_vs_plain=tiled_err,
+                        bitwise_http=True)
+    if strict and "embed_bf16" in sink:
+        rel = {}
+        for name, f32 in (("texts", direct_texts), ("ids", direct_ids)):
+            d = sink["embed_bf16"][name] - f32
+            rel[name] = float(np.max(np.sqrt((d * d).mean(-1))
+                                     / np.sqrt((f32 * f32).mean(-1))))
+        out["embed"]["bf16_row_rms_rel"] = rel
+        print(f"  [bf16 vs f32] embedding rows: rms of the difference / rms of the row, "
+              f"worst {rel}")
+        if max(rel.values()) > EMBED_BF16_REL:
+            raise AssertionError(f"bf16 embeddings {rel} from float32's, over {EMBED_BF16_REL}")
+    elif not strict:
+        sink["embed_bf16"] = {"texts": direct_texts, "ids": direct_ids}
+    # readings: device ms against the operations bound, peak above the resident
+    reps = 1 if strict else 3
+    for name, batches, lengths in (("rows8", text_ids, [len(x) for x in text_ids]),
+                                   ("row4096", [id_lists[1]], [EMBED_CAP])):
+        t = _embed_timed(engine, batches, reps)
+        w = embed_work(cfg, lengths)
+        out["embed"][name] = dict(**t, **w)
+        print(f"  [{label}] embed {name}: {t['ms']:.3f} ms device, bound "
+              f"{w['bound_ms']:.3f} ms ({w['bound_by']}; projections "
+              f"{w['proj_flops']:.4g} + attention {w['attn_flops']:.4g} operations), "
+              f"peak {t['peak_bytes']} bytes above the resident; tiled vs one tile "
+              f"max {tiled_err}")
+    # (b) rerank with top_n, and classify
+    docs = [texts[3], texts[4], texts[0], texts[5]]
+    st, rr = _http(port, "POST", "/v1/rerank", {"model": SERVE_MODEL, "query": texts[0],
+                                                "documents": docs, "top_n": 3})
+    scores = [r["relevance_score"] for r in rr.get("results", [])]
+    unit = direct_texts.astype(np.float64)
+    unit /= np.linalg.norm(unit, axis=-1, keepdims=True)
+    cos = {i: float(unit[[3, 4, 0, 5][i]] @ unit[0]) for i in range(4)}
+    if st != 200 or len(scores) != 3 or rr["results"][0]["index"] != 2 or \
+            scores != sorted(scores, reverse=True) or abs(scores[0] - 1) > 1e-6 or \
+            any(abs(r["relevance_score"] - cos[r["index"]]) > 1e-6 for r in rr["results"]):
+        raise AssertionError(f"[{label}] /v1/rerank: {st} {rr}; direct cosines {cos}")
+    st, cl = _http(port, "POST", "/v1/classify", {"model": SERVE_MODEL,
+                                                  "input": [texts[1], texts[2]],
+                                                  "labels": [texts[2], texts[1], texts[6]]})
+    if st != 200 or [d["label"] for d in cl["data"]] != [texts[1], texts[2]] or \
+            any(abs(sum(d["scores"].values()) - 1) > 1e-6 for d in cl["data"]):
+        raise AssertionError(f"[{label}] /v1/classify: {st} {cl}")
+    out["rerank_scores"], out["classify_ok"] = scores, True
+    # (c) the shared-prefix decision, the kv-index audit, the profile routes
+    for ids in jobs["shared"]:
+        st, _ = _http(port, "POST", "/v1/chat/completions", _chat(ids, 8))
+        if st != 200:
+            raise AssertionError(f"[{label}] shared-prefix chat: {st}")
+    st, router = _http(port, "GET", "/debug/router?limit=8")
+    decisions = router["models"][SERVE_MODEL]["decisions"]
+    last = decisions[-1]
+    if st != 200 or last["policy"] != "cache_aware" or last["outcome"] != "prefix_hit" or \
+            not last["reconciled"] or not last["predicted_match_tokens"] or \
+            not last["worker_cached_tokens"]:
+        raise AssertionError(f"[{label}] /debug/router's last decision: {st} {last}")
+    if not any(d["request_id"] == f"emb-{label}" for d in decisions):
+        raise AssertionError(f"[{label}] --request-id-headers: no decision of emb-{label}")
+    st, kv = _http(port, "GET", "/debug/kv_index")
+    loads = engine.loads()
+    want = {k: loads[k] for k in KV_AUDIT_KEYS}
+    if st != 200 or kv["workers"].get(SERVE_WORKER) != want:
+        raise AssertionError(f"[{label}] /debug/kv_index {kv.get('workers')} != loads {want}")
+    out["router_last"] = {k: last[k] for k in ("outcome", "predicted_match_tokens",
+                                               "worker_cached_tokens",
+                                               "prediction_error_tokens")}
+    st1, b1 = _http(port, "POST", "/start_profile", {"output_dir": str(prof_dir)})
+    st, _ = _http(port, "POST", "/v1/chat/completions", _chat(jobs["chats"][0], 8))
+    st2, b2 = _http(port, "POST", "/stop_profile")
+    traces = sorted(prof_dir.glob("trace-*.json"))
+    kernels = 0
+    if traces:
+        kernels = sum(1 for ev in json.loads(traces[0].read_text())["traceEvents"]
+                      if ev.get("cat") == TRACE_KERNEL_CAT)
+    if (st1, st2) != (200, 200) or not b1["ok"] or not b2["ok"] or len(traces) != 1 or \
+            kernels < 1:
+        raise AssertionError(f"[{label}] profile routes: {st1} {b1} {st2} {b2}; traces "
+                             f"{traces}, {kernels} kernel events")
+    out["profile_kernel_events"] = kernels
+    print(f"  [{label}] /debug/router last decision {out['router_last']}; /debug/kv_index "
+          f"= loads() {want}; profile trace {traces[0].stat().st_size} bytes, {kernels} "
+          "kernel events")
+    # (d) the breaker: a stream that dies after its first chunk, on the
+    # round-robin gateway over two workers
+    port = ports["cb"]
+    engines = {"inproc-0": engine, "inproc-1": spare}
+    calls = lambda: {w: e.runner.stats["prefill_calls"] for w, e in engines.items()}  # noqa: E731
+    state = lambda w: cb.registry.get(w).circuit.state.value  # noqa: E731
+    # a chat on each worker first: their decode graphs are captured before
+    # the cool-down's clock runs
+    for ids in jobs["chats"][6:8]:
+        if _http(port, "POST", "/v1/chat/completions", _chat(ids, 16))[0] != 200:
+            raise AssertionError(f"[{label}] a warm-up chat on the breaker gateway failed")
+    FAULTS.arm("worker.stream", mode="after", n=1, match=f"cb-poison-{label}")
+    st, _ = _http(port, "POST", "/v1/chat/completions", _chat(jobs["chats"][1], 16),
+                  headers={"X-Request-Id": f"cb-poison-{label}"})
+    t_open = time.perf_counter()
+    FAULTS.clear()
+    opened = [w for w in engines if state(w) == "open"]
+    if st != 502 or len(opened) != 1:
+        raise AssertionError(f"[{label}] poisoned decode: {st}, breakers "
+                             f"{ {w: state(w) for w in engines} }")
+    bad = opened[0]
+    c0 = calls()
+    for ids in jobs["chats"][2:5]:
+        if _http(port, "POST", "/v1/chat/completions", _chat(ids, 4))[0] != 200:
+            raise AssertionError(f"[{label}] a chat with {bad}'s breaker open failed")
+    c1 = calls()
+    around_s = time.perf_counter() - t_open
+    if around_s >= CB_TIMEOUT_S:
+        raise AssertionError(f"[{label}] the chats around the open breaker took {around_s:.2f} "
+                             f"s, past the {CB_TIMEOUT_S} s cool-down")
+    if c1[bad] != c0[bad]:
+        raise AssertionError(f"[{label}] {bad} served with its breaker open: {c0} -> {c1}")
+    time.sleep(max(CB_TIMEOUT_S - around_s, 0) + 0.2)
+    half = state(bad)
+    for ids in jobs["chats"][5:8]:
+        if _http(port, "POST", "/v1/chat/completions", _chat(ids + [7], 4))[0] != 200:
+            raise AssertionError(f"[{label}] a chat after the cool-down failed")
+        if state(bad) == "closed":
+            break
+    if half != "half_open" or state(bad) != "closed" or calls()[bad] == c1[bad]:
+        raise AssertionError(f"[{label}] {bad}'s breaker: {half} after the cool-down, "
+                             f"then {state(bad)}; prefill calls {c1} -> {calls()}")
+    st, big = _http(port, "POST", "/v1/chat/completions",
+                    {"model": SERVE_MODEL, "messages": [{"role": "user",
+                                                         "content": "w5 " * API_PAYLOAD}]})
+    if st != 400 or "Request Entity Too Large" not in str(big):
+        raise AssertionError(f"[{label}] a body over --max-payload-size: {st} {big}")
+    out["breaker"] = dict(worker=bad, opened=True, around_s=around_s, half_open=half,
+                          closed=True)
+    print(f"  [{label}] breaker of {bad}: opened by one failed decode, routed around "
+          f"for {around_s:.2f} s (prefill calls {c0} -> {c1}), half-open after "
+          f"{CB_TIMEOUT_S} s, closed by a "
+          "probe; a body over --max-payload-size refused (400)")
+    return out
+
+
+def check_workspaces(cfg, params, dev, tok, label: str) -> dict:
+    """``FAULT_ENGINES`` engines built, served and dropped in a row with
+    graphs on (each on its own loop thread): ``memory_allocated`` after the
+    last equals what it was after the second.  Then an engine that outlives
+    another replays its graphs to the same streams and logprobs, bitwise,
+    and to the eager path's tokens."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    def make(graphs: bool):
+        return Engine(EngineConfig(
+            model=cfg, cache=CacheConfig(page_size=PS, num_pages=FAULT_PAGES,
+                                         auto_size=False, dtype=cfg.dtype),
+            scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=1024,
+                                      max_prefill_tokens=512, decode_horizon=4,
+                                      overlap_schedule=graphs),
+            decode_graphs=graphs), params=params, device=dev, tokenizer=tok)
+
+    prompts = [list(range(2000 + 300 * i, 2100 + 300 * i)) for i in range(4)]
+
+    def serve(eng):
+        eng.start()
+        outs = {i: [] for i in range(len(prompts))}
+        for i, p in enumerate(prompts):
+            eng.submit(p, SamplingParams(temperature=0.0, max_new_tokens=12, ignore_eos=True),
+                       rid=f"ws{i}", on_output=outs[i].append)
+        wait_for(lambda: all(o and o[-1].finished for o in outs.values())
+                 and not eng.has_work(), "workspace check")
+        eng.stop()
+        return {i: ([t for x in o for t in x.new_token_ids], [x for y in o for x in y.logprobs])
+                for i, o in outs.items()}
+
+    allocated = []
+    for _ in range(FAULT_ENGINES):
+        eng = make(True)
+        serve(eng)
+        if not eng.loads()["decode_graphs"]:
+            raise AssertionError("the workspace check's engine captured no graph")
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated(dev))
+    print(f"  [{label}] memory_allocated after each of {FAULT_ENGINES} engines: {allocated}")
+    if allocated[-1] != allocated[1]:
+        raise AssertionError(f"engines in a row grew memory_allocated: {allocated}")
+    eager = make(False)
+    want = serve(eager)
+    del eager
+    keep = make(True)
+    before = serve(keep)
+    other = make(True)
+    serve(other)
+    del other
+    gc.collect()
+    keep.flush_cache()
+    after = serve(keep)
+    tokens_eager = all(after[i][0] == want[i][0] for i in want)
+    lps_eager = all(after[i][1] == want[i][1] for i in want)
+    if after != before or not tokens_eager:
+        raise AssertionError("a surviving engine's replays changed after another engine "
+                             f"ended (tokens equal to eager: {tokens_eager})")
+    print(f"  [{label}] a surviving engine replayed bitwise after another ended; tokens "
+          f"equal to the eager path's, logprobs bitwise equal too: {lps_eager}")
+    del keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(allocated=allocated, growth_after_second=allocated[-1] - allocated[1],
+                survivor_bitwise=True, logprobs_equal_eager=lps_eager)
+
+
 # ---- phase 9: the Qwen-MoE family on Qwen3-30B-A3B ----
 
 # the published config.json of Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B)
@@ -4159,17 +4703,10 @@ def phase_moe(dev, card: str) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    left = torch.cuda.memory_allocated(dev)
-    # PyTorch keeps a cuBLAS workspace for every (handle, stream) pair that
-    # ran a product, never freed: each earlier engine's capture stream and
-    # loop thread added one
-    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)  # CUDA builds only
-    if clear is not None:
-        clear()
-    torch.cuda.empty_cache()
     cleared = torch.cuda.memory_allocated(dev)
-    print(f"  allocated before phase 9: {left} bytes; {cleared} once the cuBLAS "
-          "workspaces are cleared")
+    # every earlier engine is gone, so the last of them released the cuBLAS
+    # workspaces its graphs read (engine/graphs.py): nothing is cleared here
+    print(f"  allocated before phase 9: {cleared} bytes")
     if cleared > MOE_LEFT_BYTES:
         live = sorted(((t.numel() * t.element_size(), tuple(t.shape), str(t.dtype))
                        for t in gc.get_objects()
@@ -4296,7 +4833,11 @@ def phase_engine(dev, card: str) -> dict:
                                             tiny=root / "tiny")
         del params8
         torch.cuda.empty_cache()
-        out.update(_phases_f32(cfg, params, dev, card, runs, root))
+        print("phase 10: the rest of serve; embeddings, rerank and classify, bf16")
+        sink: dict = {}
+        out["api_bf16"] = phase_api(cfg, params, dev, card, "bf16", strict=False,
+                                    stall_free=runs["graphs"], sink=sink)
+        out.update(_phases_f32(cfg, params, dev, card, runs, root, sink))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -4331,8 +4872,9 @@ def prepare_checkpoint(cfg, params, root: Path) -> tuple:
     return written, cfg8, params8
 
 
-def _phases_f32(cfg, params, dev, card: str, runs, root: Path) -> dict:
-    """Phases 3-8 again on the same weights widened to float32."""
+def _phases_f32(cfg, params, dev, card: str, runs, root: Path, sink: dict) -> dict:
+    """Phases 3-8 and 10 again on the same weights widened to float32;
+    ``sink`` holds phase 10's bf16 embeddings."""
     import dataclasses
 
     import torch
@@ -4363,6 +4905,7 @@ def _phases_f32(cfg, params, dev, card: str, runs, root: Path) -> dict:
         raise AssertionError(f"bf16 kernel logits {err} from the f32 run, more than "
                              f"{BF16_ERR_RATIO} x the plain version's")
     out["bf16_logit_err_vs_f32"] = err
+    stall32 = runs32["graphs"]
     del runs, runs32
     torch.cuda.empty_cache()
     print("phase 4: request semantics, float32 (widened weights)")
@@ -4386,6 +4929,11 @@ def _phases_f32(cfg, params, dev, card: str, runs, root: Path) -> dict:
         cfg8, params8, dev, card, "f32", strict=True, ckpt=root / CKPT_MODEL,
         adapters={n: str(root / f"adapter_{n}") for n in ("a", "b")}, tiny=root / "tiny")
     del params8
+    torch.cuda.empty_cache()
+    print("phase 10: the rest of serve; embeddings, rerank and classify, float32 "
+          "(widened weights)")
+    out["api_f32"] = phase_api(cfg32, params, dev, card, "f32", strict=True,
+                               stall_free=stall32, sink=sink)
     params.clear()  # the last phase on these weights: give the card back
     torch.cuda.empty_cache()
     out["preemption"] = phase_preempt(dev)
@@ -4423,6 +4971,33 @@ def phase_checkpoint_alone(dev, card: str) -> dict:
     return out
 
 
+def phase_api_alone(dev, card: str) -> dict:
+    """Phase 10 without phases 3-9 (``--phases api``): phase 3's weights,
+    its graph path under the stall-free policy as the reference, bf16 then
+    widened to float32."""
+    import dataclasses
+
+    import torch
+
+    from smg_tpu_torch.models.config import llama3_8b_config
+    from smg_tpu_torch.models.llama import init_params
+
+    cfg = llama3_8b_config()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    out, sink = {}, {}
+    for label in ("bf16", "f32"):
+        if label == "f32":
+            _widen(params)
+            cfg = dataclasses.replace(cfg, dtype="float32")
+        stall_free = serve_paths(cfg, params, dev, 32, paths=PATHS[:1],
+                                 with_profile=label == "bf16")["graphs"]
+        out[f"api_{label}"] = phase_api(cfg, params, dev, card, label, strict=label == "f32",
+                                        stall_free=stall_free, sink=sink)
+    params.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def ckpt_layers(root: Path) -> int:
     """The depth of the checkpoint written under ``root``."""
     return json.loads((root / CKPT_MODEL / "config.json").read_text())["num_hidden_layers"]
@@ -4430,7 +5005,7 @@ def ckpt_layers(root: Path) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", choices=("all", "kernels", "checkpoint", "moe"),
+    ap.add_argument("--phases", choices=("all", "kernels", "checkpoint", "moe", "api"),
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -4476,12 +5051,13 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failed.append("kernels")
     engine = {}
-    if args.phases in ("all", "checkpoint") and not failed:
-        print("phase 3: engine on Llama-3-8B (full width, 32 layers)"
-              if args.phases == "all" else "phase 8 alone, on Llama-3-8B")
+    if args.phases in ("all", "checkpoint", "api") and not failed:
+        print({"all": "phase 3: engine on Llama-3-8B (full width, 32 layers)",
+               "checkpoint": "phase 8 alone, on Llama-3-8B",
+               "api": "phase 10 alone, on Llama-3-8B"}[args.phases])
         try:
-            engine = (phase_engine if args.phases == "all" else phase_checkpoint_alone)(
-                dev, card)
+            engine = {"all": phase_engine, "checkpoint": phase_checkpoint_alone,
+                      "api": phase_api_alone}[args.phases](dev, card)
         except Exception:
             traceback.print_exc()
             failed.append("engine")
@@ -4521,6 +5097,8 @@ def main(argv=None) -> int:
             launches_ckpt=engine["ckpt_bf16"]["lora"]["launches"][name],
             # phase 9's serving path (Qwen3-30B-A3B, bf16)
             launches_moe=moe["launches"][name],
+            # phase 10's graph path under the throughput mix policy (bf16)
+            launches_throughput=engine["api_bf16"]["mix"]["throughput"]["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],

@@ -5,8 +5,12 @@ PyTorch engine in process behind the gateway.  Engines run on the card;
 ``--device cpu`` is the only way onto the CPU.  The request-policy flags
 (auth, rate limits, priority admission, the request timeout, CORS, parsers,
 harmony, SLO specs and OTel export) and the speculation flags carry the
-reference's names and defaults.  ``launch``, ``worker``, gRPC, mesh, discovery, storage, MCP and
-plugins are not ported yet.
+reference's names and defaults, as do the breaker, retry, health-check,
+cache-aware, flight-recorder and metric-window flags, ``--prefill-mix-policy``,
+``--request-id-headers``, ``--max-payload-size`` and ``--enable-igw``.
+``launch``, ``worker``, gRPC, PD, parallelism, mesh, discovery, storage, TLS,
+MCP, providers, plugins, multimodal transport and the separate probe and
+metrics listeners are not ported yet, and their flags are refused.
 """
 
 from __future__ import annotations
@@ -35,11 +39,17 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--log-level", default="INFO")
     g.add_argument("--log-json", action="store_true",
                    help="structured JSON log lines")
+    g.add_argument("--max-payload-size", type=int, default=256 * 2**20,
+                   dest="max_payload_size",
+                   help="request body cap in bytes (reference default 256MB)")
     g.add_argument("--request-timeout-secs", type=float, default=1800.0,
                    dest="request_timeout_secs")
     g.add_argument("--cors-allowed-origins", action="append", default=[],
                    dest="cors_allowed_origins",
                    help="origin allowed for CORS (repeatable; unset = off)")
+    g.add_argument("--request-id-headers", action="append", default=[],
+                   dest="request_id_headers",
+                   help="extra header names accepted as the request id")
     g.add_argument("--harmony", default=None, choices=["on", "off", "auto"],
                    help="harmony (gpt-oss) pipeline: auto-detect by model "
                         "name (default), or force on/off")
@@ -59,6 +69,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="SIGTERM drain budget for in-proc engines: queued "
                         "requests get terminal aborts, running lanes "
                         "finish within this bound before exit")
+
+    pol = serve.add_argument_group("Routing policy")
+    pol.add_argument("--cache-threshold", type=float, default=0.5,
+                     help="cache-aware: min prefix-match ratio for affinity")
+    pol.add_argument("--balance-abs-threshold", type=int, default=32,
+                     help="cache-aware: absolute load-imbalance trigger")
+    pol.add_argument("--balance-rel-threshold", type=float, default=1.5,
+                     help="cache-aware: relative load-imbalance trigger")
+    pol.add_argument("--max-tree-size", type=int, default=2**20,
+                     help="cache-aware: approximation tree node budget")
+    pol.add_argument("--block-size", type=int, default=16,
+                     help="KV block size for event-driven cache-aware routing")
+    pol.add_argument("--enable-igw", action="store_true",
+                     help="compat flag: multi-model (IGW) routing is always "
+                          "on in this gateway — accepted for reference CLI "
+                          "parity")
+
+    rl = serve.add_argument_group("Reliability")
+    rl.add_argument("--retry-max-retries", type=int, default=3)
+    rl.add_argument("--retry-initial-backoff-ms", type=int, default=100)
+    rl.add_argument("--retry-max-backoff-ms", type=int, default=2000)
+    rl.add_argument("--disable-retries", action="store_true")
+    rl.add_argument("--cb-failure-threshold", type=int, default=5,
+                    help="consecutive failures before the circuit opens")
+    rl.add_argument("--cb-success-threshold", type=int, default=2,
+                    help="half-open successes before the circuit closes")
+    rl.add_argument("--cb-timeout-duration-secs", type=float, default=30.0,
+                    help="open-state cooldown before half-open probes")
+    rl.add_argument("--disable-circuit-breaker", action="store_true")
+    rl.add_argument("--health-check-interval-secs", type=float, default=10.0)
+    rl.add_argument("--health-check-timeout-secs", type=float, default=5.0)
+    rl.add_argument("--health-failure-threshold", type=int, default=3)
+    rl.add_argument("--health-success-threshold", type=int, default=2)
+    rl.add_argument("--disable-health-check", action="store_true")
 
     sched = serve.add_argument_group("Scheduling / limits")
     sched.add_argument("--priority-scheduler-enabled", action="store_true")
@@ -108,6 +152,12 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--max-seq-len", type=int, default=8192)
     e.add_argument("--max-prefill-tokens", type=int, default=4096,
                    help="per-step prefill token budget (chunked prefill)")
+    e.add_argument("--prefill-mix-policy", default="stall-free",
+                   dest="prefill_mix_policy", choices=["stall-free", "throughput"],
+                   help="prefill scheduling: 'stall-free' meters prefill to "
+                        "the per-step budget (resumable chunks; decode runs "
+                        "every step), 'throughput' drains the waiting queue "
+                        "per step (long prompts stall decode)")
     e.add_argument("--decode-horizon", type=int, default=1,
                    help="decode columns per device round trip (megastep)")
     e.add_argument("--adaptive-horizon", default="off", choices=["on", "off"])
@@ -139,7 +189,28 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--step-watchdog-secs", type=float, default=0.0,
                    help="mark the engine unhealthy when no step completes "
                         "for this long with work pending (0 = off)")
+    e.add_argument("--metrics-window-secs", type=float, default=30.0,
+                   dest="metrics_window_secs",
+                   help="rolling-stats horizon for engine step telemetry "
+                        "(p50/p95 step time, tokens/s via /scheduler)")
+    e.add_argument("--device-metrics-interval-secs", type=float, default=10.0,
+                   dest="device_metrics_interval_secs",
+                   help="cadence of the device-memory gauges "
+                        "(0 disables device sampling)")
+    e.add_argument("--flight-recorder", default="on", choices=["on", "off"],
+                   dest="flight_recorder",
+                   help="engine flight recorder: bounded per-step ring + "
+                        "per-request timelines, auto-dumped on quarantine, "
+                        "watchdog, health flip and drain, fetchable via "
+                        "GET /debug/flight/{worker}; 'off' only to measure "
+                        "its cost")
     e.add_argument("--flight-ring-size", type=int, default=256)
+    e.add_argument("--flight-dump-dir", default=None, dest="flight_dump_dir",
+                   help="directory for reason-tagged flight-dump JSON files "
+                        "(default: keep the last dumps in memory only)")
+    e.add_argument("--flight-dump-min-interval-secs", type=float, default=5.0,
+                   dest="flight_dump_min_interval_secs",
+                   help="per-reason rate limit between automatic flight dumps")
     return p
 
 

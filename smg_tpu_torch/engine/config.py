@@ -33,12 +33,16 @@ class SchedulerConfig:
     megastep width (decode columns per device round trip).  Decode batches
     pad to ``decode_batch_buckets`` (one CUDA graph per bucket, page-table
     width, horizon and stop-id width); prefill runs eagerly at its exact
-    shapes."""
+    shapes.  ``prefill_token_buckets`` pads only the embedding forward's
+    sequence length (``runner.embed``) and caps it."""
 
     max_batch_size: int = 64
     max_seq_len: int = 8192
     max_prefill_tokens: int = 4096
+    prefill_token_buckets: tuple[int, ...] = (64, 128, 256, 512, 1024, 2048, 4096)
     decode_batch_buckets: tuple[int, ...] = (8, 16, 32, 64)
+    # False builds no radix cache: every prompt is computed whole
+    enable_prefix_cache: bool = True
     watermark_pages: int = 8  # keep this many pages free before admitting prefill
     decode_horizon: int = 1
     # adaptive horizon controller: K per launch from page headroom, the
@@ -49,6 +53,11 @@ class SchedulerConfig:
     # largest horizon a launch may take (0 = follow decode_horizon)
     decode_horizon_max: int = 0
     max_prefill_group: int = 8
+    # prefill scheduling: "stall-free" spends at most max_prefill_tokens a
+    # step (resumable chunks, decode every step); "throughput" drains the
+    # waiting queue every step, a long prompt's chunks back to back
+    # (the most prefill a step, decode stalls behind it)
+    prefill_mix_policy: str = "stall-free"
     # admission back-pressure on the waiting queue (0 = unbounded): a
     # submit over either bound raises QueueFullError
     max_queued_requests: int = 0
@@ -76,6 +85,11 @@ class SchedulerConfig:
             raise ValueError("max_batch_size and max_prefill_tokens must be >= 1")
         if self.max_batch_size > max(self.decode_batch_buckets):
             raise ValueError("max_batch_size must be <= largest decode batch bucket")
+        if self.max_prefill_tokens > max(self.prefill_token_buckets):
+            raise ValueError("max_prefill_tokens must be <= largest prefill bucket")
+        if self.prefill_mix_policy not in ("stall-free", "throughput"):
+            raise ValueError("prefill_mix_policy must be 'stall-free' or 'throughput', "
+                             f"got {self.prefill_mix_policy!r}")
         if self.decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
         if self.decode_horizon_max and self.decode_horizon_max < self.decode_horizon:
@@ -90,6 +104,12 @@ class SchedulerConfig:
     def horizon_cap(self) -> int:
         """The widest megastep a launch may take."""
         return max(self.decode_horizon_max, self.decode_horizon, 1)
+
+    def prefill_bucket(self, n_tokens: int) -> int:
+        for b in self.prefill_token_buckets:
+            if n_tokens <= b:
+                return b
+        return max(self.prefill_token_buckets)
 
     def decode_bucket(self, batch: int) -> int:
         for b in self.decode_batch_buckets:
@@ -129,5 +149,17 @@ class EngineConfig:
     # this many consecutive failed steps turn ``Engine.healthy`` false, so
     # the gateway's health monitor and breakers route around the worker
     max_consecutive_step_failures: int = 3
-    # the flight recorder's ring of per-step records
+    # ---- observability (engine/metrics.py, engine/flight_recorder.py) ----
+    # rolling step-stats horizon (loads()["stats"], /scheduler) and the
+    # cadence of the device-memory gauges (0 = never sampled)
+    metrics_window_secs: float = 30.0
+    device_metrics_interval_secs: float = 10.0
+    # the flight recorder: a ring of per-step records and request
+    # timelines, auto-dumped on quarantine, watchdog stall, health flip and
+    # drain; off only to measure what it costs
+    flight_recorder: bool = True
     flight_ring_size: int = 256
+    # a directory that auto-dumps are also written to (None: memory only)
+    # and the per-reason least interval between two auto-dumps
+    flight_dump_dir: str | None = None
+    flight_dump_min_interval_secs: float = 5.0

@@ -2,8 +2,9 @@
 results + the background step loop (port of ``smg_tpu/engine/engine.py``:
 ``submit``, ``abort``, ``step``, ``generate``, ``start``/``stop``,
 ``loads``, ``audit``, ``flush_cache``, ``healthy``, ``dump_flight``,
-``metrics``, ``events`` and the LoRA adapter calls), with the draft-model
-proposer installed when ``config.draft_model`` is set.
+``metrics``, ``events``, ``embed``, ``start_profile``/``stop_profile`` and
+the LoRA adapter calls), with the draft-model proposer installed when
+``config.draft_model`` is set.
 
 Entry points run on the card: ``device=None`` means CUDA, and a machine
 without one raises.  ``start()`` runs ``step()`` on a loop thread while
@@ -96,7 +97,9 @@ class Engine:
         self.runner = ModelRunner(config, params=params, device=device, attention=attention)
         # the engine's own registry; the gateway also registers it into its
         # registry, so /metrics is one scrape
-        self.metrics = EngineMetrics()
+        self.metrics = EngineMetrics(
+            window_secs=config.metrics_window_secs,
+            device_sample_interval_secs=config.device_metrics_interval_secs)
         self.metrics.set_mesh_devices(1)
         self.scheduler = Scheduler(self.runner, config, event_sink=self.events.publish,
                                    metrics=self.metrics)
@@ -125,6 +128,12 @@ class Engine:
         self._last_progress = time.monotonic()
         self._stalled = False
         self.num_watchdog_stalls = 0
+        # torch.profiler trace (start_profile): the profiler, its output
+        # directory and the steps left before it stops by itself (None:
+        # until stop_profile)
+        self._profiler = None
+        self._profile_dir: str | None = None
+        self._profile_steps_left: int | None = None
 
     #: multimodal input is not ported yet (the gateway reads this)
     supports_vision = False
@@ -296,6 +305,10 @@ class Engine:
         thread (what a postmortem is for) holds it, and the recorder is
         consistent under its own lock."""
         fl = self.scheduler.flight
+        if fl is None:
+            from smg_tpu_torch.engine.flight_recorder import SCHEMA_VERSION
+
+            return {"schema_version": SCHEMA_VERSION, "error": "flight recorder disabled"}
         snap = fl.snapshot(reason)
         snap["engine"] = {
             "model_id": self.config.model_id,
@@ -314,6 +327,61 @@ class Engine:
         with self._lock:
             return self.scheduler.flush_cache()
 
+    def embed(self, batches: list[list[int]]):
+        """Sequence embeddings ``[n, hidden]`` float32 (``runner.embed``).
+        Runs under the engine lock, so never inside a step or a graph
+        capture, and on the device's default stream, which the loop
+        thread's launches use too: it runs after the work they enqueued."""
+        with self._lock:
+            return self.runner.embed(batches)
+
+    # ---- profiling (the reference's /start_profile; here torch.profiler) ----
+
+    def start_profile(self, output_dir: str, host_tracer: bool = True,
+                      python_tracer: bool = False, num_steps: int = 0) -> str:
+        """Start a ``torch.profiler`` trace of the CPU and, on the card,
+        CUDA activity; returns ``output_dir``, where ``stop_profile`` writes
+        the Chrome trace.  ``host_tracer`` records the host's operators with
+        their shapes, ``python_tracer`` Python call stacks.  ``num_steps`` >
+        0 stops the trace after that many engine steps."""
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import ProfilerActivity, profile
+
+        with self._lock:
+            if self._profiler is not None:
+                raise RuntimeError("profiler already running")
+            activities = [ProfilerActivity.CPU]
+            if self.runner.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities, record_shapes=host_tracer,
+                           with_stack=python_tracer,
+                           experimental_config=_ExperimentalConfig(profile_all_threads=True))
+            prof.start()
+            self._profiler, self._profile_dir = prof, output_dir
+            self._profile_steps_left = num_steps if num_steps > 0 else None
+        logger.info("profiler started -> %s", output_dir)
+        return output_dir
+
+    def stop_profile(self) -> None:
+        with self._lock:
+            if self._profiler is None:
+                raise RuntimeError("profiler not running")
+            self._stop_profile_locked()
+        logger.info("profiler stopped")
+
+    def _stop_profile_locked(self) -> None:
+        """Stop the trace and write it as ``trace-<pid>-<ms>.json`` under its
+        output directory; the profiler state is cleared even when the write
+        fails (an unwritable directory)."""
+        import os
+
+        prof, out_dir = self._profiler, self._profile_dir
+        self._profiler = self._profile_dir = self._profile_steps_left = None
+        prof.stop()
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"trace-{os.getpid()}-{int(time.time() * 1e3)}.json")
+        prof.export_chrome_trace(path)
+
     # ---- stepping ----
 
     def step(self) -> list[RequestOutput]:
@@ -322,7 +390,16 @@ class Engine:
         with self._lock:
             outputs = [self._postprocess(so) for so in self.scheduler.step()]
             self.events.flush()
-            self.metrics.maybe_sample_devices([self.runner.device])
+            if self.config.device_metrics_interval_secs > 0:
+                self.metrics.maybe_sample_devices([self.runner.device])
+            if self._profile_steps_left is not None:
+                self._profile_steps_left -= 1
+                if self._profile_steps_left <= 0:
+                    try:
+                        self._stop_profile_locked()
+                        logger.info("profiler stopped (step budget reached)")
+                    except Exception:
+                        logger.exception("step-bounded profiler stop failed")
         # watchdog progress mark: a step completed end to end, so a flagged
         # stall has cleared
         self._last_progress = time.monotonic()
@@ -429,7 +506,8 @@ class Engine:
         if drain:
             # the black box's "shut down on purpose" record, before the
             # sweep changes the state
-            self.scheduler.flight.auto_dump("drain")
+            if self.scheduler.flight is not None:
+                self.scheduler.flight.auto_dump("drain")
             with self._wakeup:
                 self.scheduler.draining = True
                 step_outs: list[StepOutput] = []
@@ -483,7 +561,8 @@ class Engine:
                 logger.error("engine wedged: no step progress for %.1fs with work "
                              "pending; marking unhealthy", stalled_for)
                 # takes only the recorder's own lock
-                self.scheduler.flight.auto_dump("watchdog_stall")
+                if self.scheduler.flight is not None:
+                    self.scheduler.flight.auto_dump("watchdog_stall")
                 # a blocking acquire would wait behind the very stall it reports
                 if self._lock.acquire(blocking=False):
                     try:

@@ -36,11 +36,22 @@ draft counts ride a device tensor, so one graph serves every draft count.
 
 A graph captured on the card never falls back to eager launches: a failed
 warm-up or capture raises.
+
+Every ``GraphCache`` of a device captures on that device's one capture
+stream (``_DeviceCapture``).  PyTorch keeps a cuBLAS workspace for every
+(cuBLAS handle, stream) pair that ran a product and never frees it, so a
+stream per engine left 32 MiB on the card for every engine a process
+built.  A captured graph holds the workspace pointer of its pair, so the
+workspaces are released only when no ``GraphCache`` of the device holds a
+graph any more: the collection of the last holder (its engine dropped)
+clears them.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -154,6 +165,52 @@ class VerifyStep:
         self.counter.fill_(counter)
 
 
+class _DeviceCapture:
+    """One device's capture stream, shared by every ``GraphCache`` on it,
+    the lock that keeps two captures off the stream at once, and the count
+    of caches holding graphs (their replays read the cuBLAS workspaces of
+    the stream's pairs)."""
+
+    _by_device: dict[int, "_DeviceCapture"] = {}  # process-wide, as the workspaces are
+    _guard = threading.Lock()
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.lock = threading.Lock()
+        self.holders = 0
+
+    @classmethod
+    def of(cls, device: torch.device) -> "_DeviceCapture":
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        with cls._guard:
+            dc = cls._by_device.get(index)
+            if dc is None:
+                dc = cls._by_device[index] = cls(torch.device("cuda", index))
+            return dc
+
+    def hold(self) -> None:
+        with self._guard:
+            self.holders += 1
+
+    def let_go(self) -> None:
+        """One holder fewer; the last one releases the cuBLAS workspaces.
+        A cache holds before it takes the capture lock, so no capture runs
+        once the count is 0 under the lock."""
+        with self._guard:
+            self.holders -= 1
+            if self.holders:
+                return
+        with self.lock:
+            with self._guard:
+                if self.holders:  # a new holder since: its capture needs them
+                    return
+            torch.cuda.synchronize(self.device)  # no replay still reads one
+            clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)  # CUDA builds
+            if clear is not None:
+                clear()
+
+
 class GraphCache:
     """The runner's megasteps, keyed by shape, and their capture record."""
 
@@ -166,9 +223,11 @@ class GraphCache:
         self.capture_bytes = 0  # memory_reserved growth over warm-ups + captures
         self.verify_capture_s = 0.0  # verify graphs alone
         self.verify_capture_bytes = 0
+        self._held = None  # from the first capture: lets go of the device's count
         if self.use_graphs:
             self.pool = torch.cuda.graph_pool_handle()
-            self.stream = torch.cuda.Stream(device)
+            self.capture = _DeviceCapture.of(device)
+            self.stream = self.capture.stream
 
     @property
     def num_graphs(self) -> int:
@@ -213,17 +272,22 @@ class GraphCache:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved(self.device)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            out = body(step)  # warm-up: this launch's results
-        main.wait_stream(self.stream)
-        for t in out:
-            t.record_stream(main)
-        before = decode_attention.launches
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            outputs = body(step)
+        if self._held is None:
+            self.capture.hold()
+            self._held = weakref.finalize(self, self.capture.let_go)
+            self._held.atexit = False  # no CUDA calls while the process exits
+        with self.capture.lock:  # one capture at a time on the shared stream
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                out = body(step)  # warm-up: this launch's results
+            main.wait_stream(self.stream)
+            for t in out:
+                t.record_stream(main)
+            before = decode_attention.launches
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                outputs = body(step)
         # a capture records launches without running them: they count at
         # each replay instead
         step.replay_launches = decode_attention.launches - before

@@ -612,6 +612,33 @@ class ModelRunner:
         self.v_cache.view(L, P * ps, KD).index_copy_(1, dest, bv.reshape(L, B * W, KD))
         return emitted, lps, n_acc + 1
 
+    # ---- embeddings ----
+
+    def embed(self, batches: list[list[int]]) -> np.ndarray:
+        """Sequence embeddings of token-id lists: [n, hidden] float32 (the
+        reference's ``runner.embed``).  The batch pads to a power of two and
+        the length to its prefill bucket; each list is cut to the largest
+        bucket, and to the sliding window on a model with one (the embedding
+        forward attends without per-layer windows, and within the window
+        both agree).  Runs eagerly, with no CUDA graph."""
+        n = len(batches)
+        B = 1
+        while B < n:
+            B *= 2
+        sched = self.config.scheduler
+        cap = max(sched.prefill_token_buckets)
+        if self.model_cfg.sliding_window:
+            cap = min(cap, self.model_cfg.sliding_window)
+        batches = [b[:cap] for b in batches]
+        T = sched.prefill_bucket(max(len(b) for b in batches))
+        tokens = np.zeros((B, T), np.int32)
+        lengths = np.zeros(B, np.int32)
+        for i, ids in enumerate(batches):
+            tokens[i, : len(ids)] = ids
+            lengths[i] = len(ids)
+        out = self.model.forward_embed(self._i32(tokens), self._i32(lengths))
+        return out[:n].cpu().numpy()  # the blocking fetch
+
     def flush_cache_buffers(self) -> None:
         """Zero the KV buffers in place (flush_cache, after the radix reset):
         the captured graphs hold their addresses."""

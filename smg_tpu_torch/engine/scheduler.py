@@ -122,7 +122,9 @@ class Scheduler:
         self.ps = runner.spec.page_size
         self.mp = runner.max_pages_per_seq
         self.pool = PagePool(runner.spec.num_pages)
-        self.radix = RadixCache(self.ps, event_sink)
+        # None with enable_prefix_cache off: every prompt is computed whole
+        self.radix = (RadixCache(self.ps, event_sink) if self.sched.enable_prefix_cache
+                      else None)
         self.waiting: deque[EngineRequest] = deque()
         self.slots: list[EngineRequest | None] = [None] * self.sched.max_batch_size
         self.page_tables = np.zeros((self.sched.max_batch_size, self.mp), np.int32)
@@ -170,8 +172,12 @@ class Scheduler:
         self.num_step_failures = 0
         self.consec_step_failures = 0  # reset by a step with no failure
         self._step_had_failure = False
-        self.flight = FlightRecorder(ring_size=config.flight_ring_size)
-        self.flight.metrics = metrics
+        self.flight = None  # config.flight_recorder off
+        if config.flight_recorder:
+            self.flight = FlightRecorder(
+                ring_size=config.flight_ring_size, dump_dir=config.flight_dump_dir,
+                dump_min_interval_secs=config.flight_dump_min_interval_secs)
+            self.flight.metrics = metrics
         # step-scoped recorder state (reset at the top of every step)
         self._step_fault_phases: list[str] = []
         self._step_admissions = 0
@@ -200,9 +206,10 @@ class Scheduler:
         req.sched_serial = self._serial
         self.requests[req.rid] = req
         self.waiting.append(req)
-        self.flight.on_queued(req.rid, prompt_tokens=len(req.prompt_ids),
-                              trace_id=req.trace_id, meta=self._flight_meta(req),
-                              deadline_t=req.deadline)
+        if self.flight is not None:
+            self.flight.on_queued(req.rid, prompt_tokens=len(req.prompt_ids),
+                                  trace_id=req.trace_id, meta=self._flight_meta(req),
+                                  deadline_t=req.deadline)
 
     def _flight_meta(self, req: EngineRequest) -> dict:
         """Sampling metadata for the request's timeline (the reference's
@@ -287,7 +294,7 @@ class Scheduler:
             "prefill_backlog_tokens": prefill_inflight + sum(
                 len(r.all_token_ids) for r in self.waiting),
             "free_pages": self.pool.free_count,
-            "cached_pages": self.radix.num_cached_pages,
+            "cached_pages": self.radix.num_cached_pages if self.radix else 0,
             "total_pages": self.runner.spec.num_pages,
             "queued_tokens": queued,
             "prefill_tokens": self.num_prefill_tokens,
@@ -301,7 +308,7 @@ class Scheduler:
             "preemptions": self.num_preemptions,
             "radix_hit_pages": self.num_radix_hit_pages,
             "radix_miss_pages": self.num_radix_miss_pages,
-            "radix_evicted_pages": self.radix.evicted_pages,
+            "radix_evicted_pages": self.radix.evicted_pages if self.radix else 0,
             "lookahead_kept": self.num_lookahead_kept,
             "lookahead_discarded": self.num_lookahead_discarded,
             "wasted_decode_tokens": self.num_wasted_decode_tokens,
@@ -327,9 +334,10 @@ class Scheduler:
         quiescence no radix node is pinned."""
         live = [r for r in self.slots if r is not None]
         held = sum(len(r.owned_pages) for r in live)
-        cached = self.radix.num_cached_pages
+        cached = self.radix.num_cached_pages if self.radix else 0
         free = self.pool.free_count
-        locks = self.radix.lock_stats()
+        locks = (self.radix.lock_stats() if self.radix is not None
+                 else {"locked_nodes": 0, "lock_refcounts": 0})
         quiescent = not live and not self.waiting and self.inflight is None
         leaked = self.pool.num_pages - 1 - free - cached - held  # page 0: garbage
         return {
@@ -352,7 +360,8 @@ class Scheduler:
             return False
         # an idle scheduler can still hold a stale frame (its lanes finished)
         self.drop_inflight()
-        self.pool.free(self.radix.clear())
+        if self.radix is not None:
+            self.pool.free(self.radix.clear())
         self.runner.flush_cache_buffers()
         return True
 
@@ -389,26 +398,27 @@ class Scheduler:
                     self.consec_step_failures = 0
             escaped = False
         finally:
-            self.flight.record_step(
-                step_s=time.perf_counter() - t0,
-                prefill_tokens=self.num_prefill_tokens - pf0,
-                decode_tokens=self.num_decode_tokens - dc0,
-                running=sum(1 for s in self.slots if s is not None),
-                waiting=len(self.waiting),
-                max_batch=self.sched.max_batch_size,
-                prefill_inflight_tokens=self.prefill_inflight_tokens(),
-                free_pages=self.pool.free_count,
-                admissions=self._step_admissions,
-                finishes=sum(1 for o in outputs if o.finished),
-                overlap=self._step_outcome,
-                fetch_wait_s=self._step_fetch_s,
-                faults=self._step_fault_phases + (["loop"] if escaped else []),
-                horizon=self._step_horizon,
-                early_exits=self.num_megastep_early_exits - ee0,
-                wasted_decode_tokens=self.num_wasted_decode_tokens - we0,
-                spec_drafted=self._step_spec_drafted,
-                spec_accepted=self._step_spec_accepted,
-            )
+            if self.flight is not None:
+                self.flight.record_step(
+                    step_s=time.perf_counter() - t0,
+                    prefill_tokens=self.num_prefill_tokens - pf0,
+                    decode_tokens=self.num_decode_tokens - dc0,
+                    running=sum(1 for s in self.slots if s is not None),
+                    waiting=len(self.waiting),
+                    max_batch=self.sched.max_batch_size,
+                    prefill_inflight_tokens=self.prefill_inflight_tokens(),
+                    free_pages=self.pool.free_count,
+                    admissions=self._step_admissions,
+                    finishes=sum(1 for o in outputs if o.finished),
+                    overlap=self._step_outcome,
+                    fetch_wait_s=self._step_fetch_s,
+                    faults=self._step_fault_phases + (["loop"] if escaped else []),
+                    horizon=self._step_horizon,
+                    early_exits=self.num_megastep_early_exits - ee0,
+                    wasted_decode_tokens=self.num_wasted_decode_tokens - we0,
+                    spec_drafted=self._step_spec_drafted,
+                    spec_accepted=self._step_spec_accepted,
+                )
             self.flush_pending_dumps()
         return outputs
 
@@ -419,8 +429,9 @@ class Scheduler:
         if not self._pending_dumps:
             return
         pending, self._pending_dumps = self._pending_dumps, []
-        for reason in pending:
-            self.flight.auto_dump(reason)
+        if self.flight is not None:
+            for reason in pending:
+                self.flight.auto_dump(reason)
 
     def _step_inner(self, outputs: list[StepOutput]) -> None:
         """Deadline sweep, the prefill phase under the token budget, and
@@ -443,7 +454,7 @@ class Scheduler:
             self._step_fetch_s += fetch_s
         else:
             self.drop_inflight()  # mode flip mid-run: never strand a frame
-            self._admit_budgeted(outputs)
+            self._admit(outputs)
             admit_s = time.perf_counter() - t0
             self._decode(outputs)
             fetch_s, outcome = 0.0, None
@@ -460,12 +471,12 @@ class Scheduler:
             max_batch=self.sched.max_batch_size,
             free_pages=self.pool.free_count,
             total_pages=self.runner.spec.num_pages,
-            cached_pages=self.radix.num_cached_pages,
+            cached_pages=self.radix.num_cached_pages if self.radix else 0,
             cumulative={
                 "preemptions": self.num_preemptions,
                 "radix_hit_pages": self.num_radix_hit_pages,
                 "radix_miss_pages": self.num_radix_miss_pages,
-                "radix_evicted_pages": self.radix.evicted_pages,
+                "radix_evicted_pages": self.radix.evicted_pages if self.radix else 0,
                 "cached_prompt_tokens": self.num_cached_prompt_tokens,
                 "wasted_decode_tokens": self.num_wasted_decode_tokens,
                 "megastep_early_exits": self.num_megastep_early_exits,
@@ -494,7 +505,8 @@ class Scheduler:
             self.metrics.quarantined_requests.inc()
         # the event lands before the finish moves the timeline to the
         # finished ring, so the dump names the blamed request
-        self.flight.event(req.rid, "quarantine", message=message[:200])
+        if self.flight is not None:
+            self.flight.event(req.rid, "quarantine", message=message[:200])
         self._pending_dumps.append("quarantine")
         if req in self.waiting:
             self.waiting.remove(req)
@@ -561,7 +573,8 @@ class Scheduler:
             self.waiting.remove(req)
             req.status = RequestStatus.FINISHED
             req.finish = FinishInfo(reason="timeout")
-            self.flight.event(req.rid, "deadline", state="waiting")
+            if self.flight is not None:
+                self.flight.event(req.rid, "deadline", state="waiting")
             self._count_finish(req, "timeout")
             self.requests.pop(req.rid, None)
             self.num_deadline_waiting += 1
@@ -571,7 +584,8 @@ class Scheduler:
         for req in list(self.slots):
             if (req is not None and req.deadline is not None and now > req.deadline
                     and not req.is_finished):
-                self.flight.event(req.rid, "deadline", state="running")
+                if self.flight is not None:
+                    self.flight.event(req.rid, "deadline", state="running")
                 self._release(req, FinishInfo(reason="timeout"))
                 self.num_deadline_running += 1
                 if m is not None:
@@ -642,7 +656,7 @@ class Scheduler:
         # admission after the consume sees every slot and page the frame's
         # finishes freed, as the sync schedule's admission would
         ta = time.perf_counter()
-        disturbed = self._admit_budgeted(outputs)
+        disturbed = self._admit(outputs)
         admit_s = time.perf_counter() - ta
         if look is not None:
             if disturbed or self._frame_stale(look):
@@ -680,7 +694,10 @@ class Scheduler:
         step's prefill phase samples nothing: the oldest resumable prefill
         takes a non-final chunk that eats the whole budget, or nothing waits
         and nothing is mid-prefill.  May say False wrongly (one step runs
-        synchronously), never True wrongly."""
+        synchronously), never True wrongly.  Under ``throughput`` any
+        waiting request may admit and sample."""
+        if self.sched.prefill_mix_policy == "throughput":
+            return not self.waiting
         budget = self.sched.max_prefill_tokens
         cont = [r for r in self.slots
                 if r is not None and r.status is RequestStatus.PREFILLING]
@@ -825,6 +842,13 @@ class Scheduler:
 
     # ---- prefill phase ----
 
+    def _admit(self, outputs: list[StepOutput]) -> bool:
+        """This step's prefill phase under ``prefill_mix_policy``; True when
+        anything sampled."""
+        if self.sched.prefill_mix_policy == "throughput":
+            return self._admit_legacy(outputs)
+        return self._admit_budgeted(outputs)
+
     def _admit_budgeted(self, outputs: list[StepOutput]) -> bool:
         """Spend at most one ``max_prefill_tokens`` budget: resume
         ``PREFILLING`` slot-holders (oldest first), then admit waiting prompts
@@ -909,11 +933,44 @@ class Scheduler:
             except Exception as e:  # noqa: BLE001 — the culprit
                 self._fail_request(req, f"prefill failed: {e}", outputs)
 
-    def _try_admit_head(self, outputs: list[StepOutput], budget_left: int):
+    def _admit_legacy(self, outputs: list[StepOutput]) -> bool:
+        """Drain-the-queue admission (``prefill_mix_policy="throughput"``):
+        every admissible request prefills this step, a long prompt running
+        all its chunks back to back (``_prefill_solo``), the short ones in
+        groups; decode waits for the whole drain."""
+        disturbed = False
+        while not self.draining and self.waiting:
+            group: list[EngineRequest] = []
+            admitted_any = False
+            while self.waiting and len(group) < self.sched.max_prefill_group:
+                got = self._try_admit_head(outputs)
+                if got is None:
+                    break
+                if got == "consumed":
+                    continue
+                req = got
+                admitted_any = disturbed = True
+                if len(req.all_token_ids) - req.cached_tokens > self.sched.max_prefill_tokens:
+                    try:
+                        self._prefill_solo(req, outputs)
+                    except Exception as e:  # noqa: BLE001 — quarantine boundary
+                        self._count_step_failure("prefill")
+                        self._fail_request(req, f"prefill failed: {e}", outputs)
+                else:
+                    group.append(req)
+            if group:
+                self._prefill_group_guarded(group, outputs)
+            if not admitted_any:
+                return disturbed
+        return disturbed
+
+    def _try_admit_head(self, outputs: list[StepOutput], budget_left: int | None = None):
         """Admit the head of the waiting queue into a free slot: radix-match
         its prefix, allocate pages for the whole prompt, park it
         ``PREFILLING`` at the matched prefix.  Returns the request, None when
-        blocked, or ``"consumed"`` when the head finished without admission."""
+        blocked (no slot, no pages, or a leftover ``budget_left`` too small
+        for a chunk), or ``"consumed"`` when the head finished without
+        admission."""
         free_slots = [i for i, s in enumerate(self.slots) if s is None]
         if not free_slots:
             return None
@@ -931,17 +988,21 @@ class Scheduler:
             self._finish_unadmitted(req, FinishInfo(reason="length"), outputs)
             return "consumed"
         # never match the full prompt: one token must run to give logits
-        shared_pages, node = self.radix.match_prefix(prompt[:-1])
+        shared_pages, node = [], None
+        if self.radix is not None:
+            shared_pages, node = self.radix.match_prefix(prompt[:-1])
         matched = len(shared_pages) * self.ps
         remaining = len(prompt) - matched
-        if (remaining > budget_left
+        if (budget_left is not None and remaining > budget_left
                 and budget_left < min(self.ps, self.sched.max_prefill_tokens)):
             return None  # sliver: wait for next step's full budget
         need = math.ceil(len(prompt) / self.ps) - len(shared_pages)
         # pin the matched chain before the free-page check may evict
-        self.radix.lock(node)
+        if node is not None:
+            self.radix.lock(node)
         if not self._ensure_free_pages(need + self.sched.watermark_pages):
-            self.radix.unlock(node)
+            if node is not None:
+                self.radix.unlock(node)
             if not any(s is not None for s in self.slots) and self.inflight is None:
                 # nothing running will ever release a page
                 self.waiting.popleft()
@@ -972,7 +1033,8 @@ class Scheduler:
         self._pages_version += 1
         self.slots[slot] = req
         self._step_admissions += 1
-        self.flight.event(req.rid, "admitted", slot=slot, cached_tokens=matched)
+        if self.flight is not None:
+            self.flight.event(req.rid, "admitted", slot=slot, cached_tokens=matched)
         return req
 
     def _prefill_chunk(self, req: EngineRequest, take: int) -> None:
@@ -987,7 +1049,8 @@ class Scheduler:
         self.num_prefill_tokens += len(chunk)
         req.prefill_pos += len(chunk)
         req.seq_len = req.prefill_pos
-        self.flight.event(req.rid, "prefill_chunk", start=start, n=len(chunk), final=False)
+        if self.flight is not None:
+            self.flight.event(req.rid, "prefill_chunk", start=start, n=len(chunk), final=False)
 
     def _prefill_final(self, req: EngineRequest, outputs: list[StepOutput]) -> None:
         """Final chunk of a resumable prefill: sample the first token and
@@ -1009,9 +1072,17 @@ class Scheduler:
         self.num_prefill_tokens += len(prompt) - start
         req.prefill_pos = req.seq_len = len(prompt)
         req.status = RequestStatus.RUNNING
-        self.flight.event(req.rid, "prefill_chunk", start=start, n=len(prompt) - start,
-                          final=True)
+        if self.flight is not None:
+            self.flight.event(req.rid, "prefill_chunk", start=start, n=len(prompt) - start,
+                              final=True)
         self._accept_tokens(req, [tok], [lp], outputs, advance_seq=False)
+
+    def _prefill_solo(self, req: EngineRequest, outputs: list[StepOutput]) -> None:
+        """A long prompt's chunks back to back, at most ``max_prefill_tokens``
+        each: the non-final ones write KV only, the last samples."""
+        while len(req.all_token_ids) - req.prefill_pos > self.sched.max_prefill_tokens:
+            self._prefill_chunk(req, self.sched.max_prefill_tokens)
+        self._prefill_final(req, outputs)
 
     def _prefill_group(self, group: list[EngineRequest], outputs: list[StepOutput]) -> None:
         """One batched prefill for a group of single-chunk prompts."""
@@ -1036,8 +1107,9 @@ class Scheduler:
             self.num_prefill_tokens += len(chunks[i][0])
             req.seq_len = req.prefill_pos = req.total_len
             req.status = RequestStatus.RUNNING
-            self.flight.event(req.rid, "prefill_chunk", start=chunks[i][1],
-                              n=len(chunks[i][0]), final=True, grouped=True)
+            if self.flight is not None:
+                self.flight.event(req.rid, "prefill_chunk", start=chunks[i][1],
+                                  n=len(chunks[i][0]), final=True, grouped=True)
             self._accept_tokens(req, [int(toks[i])], [float(lps[i])], outputs,
                                 advance_seq=False)
 
@@ -1083,8 +1155,8 @@ class Scheduler:
         return self.runner.penalty_state(req.prompt_ids, req.output_ids)
 
     def _ensure_free_pages(self, n: int) -> bool:
-        if self.pool.free_count >= n:
-            return True
+        if self.pool.free_count >= n or self.radix is None:
+            return self.pool.free_count >= n
         freed = self.radix.evict(n - self.pool.free_count)
         if freed:
             self.pool.free(freed)
@@ -1532,7 +1604,7 @@ class Scheduler:
                     raise
                 outcome = "kept"
         ta = time.perf_counter()
-        self._admit_budgeted(outputs)
+        self._admit(outputs)
         admit_s = time.perf_counter() - ta
         self._spec_phase(outputs, pipelined=True)
         return admit_s, fetch_s, outcome
@@ -1584,13 +1656,15 @@ class Scheduler:
         the banked pages are evictable like any cached prefix)."""
         logger.warning("preempting request %s (out of KV pages)", req.rid)
         self.num_preemptions += 1
-        self.flight.event(req.rid, "preempt", at_tokens=req.seq_len, status=req.status.value)
+        if self.flight is not None:
+            self.flight.event(req.rid, "preempt", at_tokens=req.seq_len, status=req.status.value)
         slot = req.slot
         self.slots[slot] = None
         self.page_tables[slot][:] = 0
         self._pages_version += 1
         req.slot = None
-        if req.status is RequestStatus.PREFILLING and req.prefill_pos >= self.ps:
+        if (req.status is RequestStatus.PREFILLING and self.radix is not None
+                and req.prefill_pos >= self.ps):
             tokens = req.all_token_ids[: req.prefill_pos]
             full_pages = len(tokens) // self.ps
             all_pages = req.shared_pages + req.owned_pages
@@ -1660,7 +1734,8 @@ class Scheduler:
                 break
         if accepted:
             # before _release, so the tokens precede the finish event
-            self.flight.on_tokens(req.rid, len(accepted), first=not had_output)
+            if self.flight is not None:
+                self.flight.on_tokens(req.rid, len(accepted), first=not had_output)
         if finish is not None:
             self._release(req, finish)
         outputs.append(StepOutput(req, accepted, finish is not None, finish,
@@ -1688,7 +1763,8 @@ class Scheduler:
         if self.metrics is not None:
             self.metrics.on_finish(reason)
         # the terminal event moves the timeline to the finished ring
-        self.flight.on_finish(req.rid, reason, message)
+        if self.flight is not None:
+            self.flight.on_finish(req.rid, reason, message)
 
     def _release(self, req: EngineRequest, finish: FinishInfo, aborted: bool = False) -> None:
         req.finish = finish
@@ -1706,7 +1782,7 @@ class Scheduler:
         n_shared = len(req.shared_pages)
         all_pages = req.shared_pages + req.owned_pages
         to_free: list[int] = []
-        if finish.reason != "error":
+        if self.radix is not None and finish.reason != "error":
             dupes = self.radix.insert(tokens, all_pages[:full_pages])
             to_free.extend(page for idx, page in dupes if idx >= n_shared)
             to_free.extend(all_pages[full_pages:])  # partial tail pages

@@ -5,9 +5,11 @@ Reference: ``model_gateway/src/worker/kv_event_monitor.rs:1-11`` — on worker
 registration, subscribe to its KV-event stream and feed the positional
 indexer; unsubscribe + purge on removal (SURVEY.md §3.5).
 
-A failed subscribe or a page-size mismatch turns event-mode matching off
-for that worker; ``degraded`` lists those workers.  (The JAX gateway also
-meters them through its routing-plane observability, not ported yet.)
+Degraded modes are metered, not just logged: a failed subscribe or a
+page-size mismatch turns event-mode matching off for that worker —
+``smg_kv_event_subscribe_failures_total`` and
+``smg_kv_event_degraded_workers`` make that visible on ``/metrics``
+(``gateway/route_observability.py`` owns the families).
 """
 
 from __future__ import annotations
@@ -22,20 +24,29 @@ logger = get_logger("gateway.kv_events")
 
 
 class KvEventMonitor:
-    def __init__(self, registry: WorkerRegistry, policies: PolicyRegistry):
+    def __init__(self, registry: WorkerRegistry, policies: PolicyRegistry, metrics=None):
         self.registry = registry
         self.policies = policies
+        #: gateway Metrics (observability.py); the routing-plane families
+        #: live on metrics.route
+        self.metrics = metrics
         self._unsubs: dict[str, callable] = {}
         #: workers whose event feed is absent or unusable (subscribe failed
         #: / page-size mismatch) — event-mode matching misses for these
         self.degraded: set[str] = set()
         registry.on_change(self._on_change)
 
+    def _route_metrics(self):
+        return getattr(self.metrics, "route", None)
+
     def _set_degraded(self, worker_id: str, degraded: bool) -> None:
         if degraded:
             self.degraded.add(worker_id)
         else:
             self.degraded.discard(worker_id)
+        route = self._route_metrics()
+        if route is not None:
+            route.kv_degraded_workers.set(len(self.degraded))
 
     def _cache_policy(self, model_id: str) -> CacheAwarePolicy | None:
         policy = self.policies.policy_for(model_id)
@@ -79,6 +90,9 @@ class KvEventMonitor:
                 logger.info("kv-event subscription started for %s", worker.worker_id)
             except Exception:
                 self._set_degraded(worker.worker_id, True)
+                route = self._route_metrics()
+                if route is not None:
+                    route.kv_subscribe_failures.labels(worker_id=worker.worker_id).inc()
                 logger.exception("kv-event subscribe failed for %s", worker.worker_id)
         elif event == "removed":
             unsub = self._unsubs.pop(worker.worker_id, None)

@@ -72,6 +72,7 @@ def build_engine_from_args(args):
             max_batch_size=args.max_batch_size,
             max_seq_len=args.max_seq_len,
             max_prefill_tokens=args.max_prefill_tokens,
+            prefill_mix_policy=args.prefill_mix_policy,
             decode_horizon=args.decode_horizon,
             adaptive_horizon=args.adaptive_horizon == "on",
             decode_horizon_max=args.decode_horizon_max,
@@ -85,7 +86,12 @@ def build_engine_from_args(args):
         draft_model=draft_model,
         model_id=args.model_path or args.model_preset,
         step_watchdog_secs=args.step_watchdog_secs,
+        metrics_window_secs=args.metrics_window_secs,
+        device_metrics_interval_secs=args.device_metrics_interval_secs,
+        flight_recorder=args.flight_recorder != "off",
         flight_ring_size=args.flight_ring_size,
+        flight_dump_dir=args.flight_dump_dir,
+        flight_dump_min_interval_secs=args.flight_dump_min_interval_secs,
     )
     params = load_params(cfg, device=args.device) if args.model_path else None
     if cfg.tokenizer_path:
@@ -110,12 +116,17 @@ def load_tokenizer(path: str):
 
 def gateway_options(args) -> dict:
     """``AppContext`` keyword arguments from the parsed ``serve`` flags:
-    the router's parser, harmony and timeout settings, auth, rate limits,
-    priority admission, CORS, the tenant header, SLO specs and OTel export
-    (the reference's flag-to-config mapping)."""
+    the router's retries, parser, harmony and timeout settings, the
+    cache-aware knobs, auth, rate limits, priority admission, health checks,
+    breakers, CORS, the tenant and request-id headers, SLO specs and OTel
+    export (the reference's flag-to-config mapping)."""
+    from smg_tpu_torch.gateway.health import HealthConfig
     from smg_tpu_torch.gateway.router import RouterConfig
 
     router_config = RouterConfig(
+        max_retries=0 if args.disable_retries else args.retry_max_retries,
+        retry_backoff_base=args.retry_initial_backoff_ms / 1e3,
+        retry_backoff_max=args.retry_max_backoff_ms / 1e3,
         reasoning_parser=args.reasoning_parser,
         tool_parser=args.tool_call_parser,
         harmony={None: None, "auto": None, "on": True, "off": False}[args.harmony],
@@ -123,6 +134,15 @@ def gateway_options(args) -> dict:
         # engine expires abandoned work instead of decoding into the void
         request_timeout_secs=args.request_timeout_secs,
     )
+    policy_kwargs = {}
+    if args.policy == "cache_aware":
+        policy_kwargs = {
+            "match_threshold": args.cache_threshold,
+            "imbalance_abs": args.balance_abs_threshold,
+            "imbalance_rel": args.balance_rel_threshold,
+            "max_tree_size": args.max_tree_size,
+            "page_size": args.block_size,
+        }
     auth_config = None
     if args.api_keys or args.jwt_secret or args.jwt_jwks_uri:
         from smg_tpu_torch.gateway.auth import AuthConfig, JwksVerifier, Principal
@@ -160,6 +180,17 @@ def gateway_options(args) -> dict:
         from smg_tpu_torch.gateway.priority import PriorityConfig
 
         priority_config = PriorityConfig(slots=args.priority_slots)
+    # disable = an interval no deployment outlives (the monitor stays, so
+    # the health routes keep working)
+    health_config = HealthConfig(
+        interval_secs=1e9 if args.disable_health_check else args.health_check_interval_secs,
+        timeout_secs=args.health_check_timeout_secs,
+        failure_threshold=args.health_failure_threshold,
+        success_threshold=args.health_success_threshold,
+    )
+    # breaker knobs are per context: applied to workers as they register
+    cb_config = (10**9 if args.disable_circuit_breaker else args.cb_failure_threshold,
+                 args.cb_success_threshold, args.cb_timeout_duration_secs)
     slo_specs = None
     if args.slo_spec:
         from smg_tpu_torch.gateway.slo_enforcement import load_slo_specs
@@ -171,17 +202,21 @@ def gateway_options(args) -> dict:
         policy=args.policy,
         router_config=router_config,
         max_concurrent_requests=args.max_concurrent_requests,
+        policy_kwargs=policy_kwargs,
         auth_config=auth_config,
         rate_limit_config=rate_limit_config,
         priority_config=priority_config,
+        health_config=health_config,
         otel_endpoint=args.otel_endpoint,
         otel_service_name=args.otel_service_name,
+        request_id_headers=list(args.request_id_headers),
         tenant_header=args.tenant_header_name,
         # without auth the tenant header is all there is; with auth it must
         # be trusted explicitly
         trust_tenant_header=args.trust_tenant_header or auth_config is None,
         request_timeout_secs=args.request_timeout_secs,
         cors_allowed_origins=list(args.cors_allowed_origins),
+        circuit_breaker_config=cb_config,
         slo_specs=slo_specs,
     )
 
@@ -205,15 +240,17 @@ def build_context(engine, policy: str = "cache_aware", drain_timeout_secs: float
     return ctx
 
 
-async def serve_context(ctx, host: str, port: int, stop: asyncio.Event) -> None:
-    """Serve ``ctx`` on ``host:port`` until ``stop`` is set, then drain:
+async def serve_context(ctx, host: str, port: int, stop: asyncio.Event,
+                        client_max_size: int = 256 * 2**20) -> None:
+    """Serve ``ctx`` on ``host:port`` (request bodies capped at
+    ``client_max_size`` bytes) until ``stop`` is set, then drain:
     workers stop being selected, each worker client closes (for an in-proc
     engine that is ``stop(drain=True)``: queued requests get terminal
     aborts and running lanes finish within the drain budget), and the
     listener shuts."""
     from smg_tpu_torch.gateway.server import build_app
 
-    runner = web.AppRunner(build_app(ctx))
+    runner = web.AppRunner(build_app(ctx, client_max_size=client_max_size))
     await runner.setup()
     try:
         await web.TCPSite(runner, host, port).start()
@@ -245,7 +282,7 @@ async def _run_serve(args) -> int:
             loop.add_signal_handler(sig, stop.set)
     except (NotImplementedError, RuntimeError, ValueError):
         pass  # non-main thread / platform without signal support
-    await serve_context(ctx, args.host, args.port, stop)
+    await serve_context(ctx, args.host, args.port, stop, client_max_size=args.max_payload_size)
     return 0
 
 

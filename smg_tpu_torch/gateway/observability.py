@@ -1,12 +1,12 @@
-"""Gateway metrics — the port's copy of ``smg_tpu/gateway/observability.py``
-without its routing-plane half: the request, token, TTFT, retry, worker,
-rate-limit and queue-wait families under the reference's names, the
-``track_request`` context, and the SLO accounting (``SloRequest``,
-``SloTracker``, ``aggregate_slo_records``) behind the inter-token-latency,
-deadline and goodput families, ``/debug/slo`` and the SLO enforcer.
-In-proc engines' collectors are registered into the same registry
-(``AppContext.adopt_engine_metrics``), so ``/metrics`` is one scrape.  The
-routing decision ring (``route_observability``) is not ported yet.
+"""Gateway metrics — the port's copy of ``smg_tpu/gateway/observability.py``:
+the request, token, TTFT, retry, worker, rate-limit and queue-wait families
+under the reference's names, the ``track_request`` context, the SLO
+accounting (``SloRequest``, ``SloTracker``, ``aggregate_slo_records``)
+behind the inter-token-latency, deadline and goodput families,
+``/debug/slo`` and the SLO enforcer, and the routing plane (``route``:
+``gateway/route_observability.py``).  In-proc engines' collectors are
+registered into the same registry (``AppContext.adopt_engine_metrics``), so
+``/metrics`` is one scrape.
 
 The SLO hooks read ``time.perf_counter()`` only, at the router's chunk
 arrivals: nothing here waits on the card.
@@ -137,6 +137,13 @@ class Metrics:
         from smg_tpu_torch.gateway.slo_enforcement import SloEnforcer
 
         self.slo_enforcer = SloEnforcer(self)
+        #: routing-plane observability: per-model decision rings behind
+        #: /debug/router, predicted-vs-actual prefix-hit reconciliation,
+        #: cache-index gauges, KvEventMonitor health families
+        #: (gateway/route_observability.py)
+        from smg_tpu_torch.gateway.route_observability import RouteObservability
+
+        self.route = RouteObservability(self)
 
     def export(self) -> bytes:
         return generate_latest(self.registry)

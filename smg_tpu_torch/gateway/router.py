@@ -9,11 +9,14 @@ reasoning and tool-call parsers (``smg_tpu_torch/parsers``) or, for harmony
 (gpt-oss) models, the harmony channel demux; tools render into the chat
 template.  Each dispatch feeds the SLO tracker (TTFT, per-token ITL,
 deadline, goodput) and opens the ``engine.*`` stage spans under the
-request's span; both read host clocks at chunk arrivals only.
+request's span; both read host clocks at chunk arrivals only.  The policy's
+routing decision rides the dispatch, and the first chunk's
+``cached_tokens`` reconciles its predicted prefix match
+(``metrics.route``).  Embeddings, rerank and classify go through one
+guarded worker ``embed`` leg.
 
 Not ported yet: PD disaggregation, multimodal input, DP-rank pinning, the
-routing decision ring (``route_observability``), embeddings, rerank,
-classify, the Anthropic messages API and the responses API.
+Anthropic messages API and the responses API.
 """
 
 from __future__ import annotations
@@ -122,8 +125,14 @@ class Router:
             workers = self.registry.list()  # single-model deployments ignore name
         return workers
 
+    def select_worker(self, ctx: RequestContext, exclude: set[str] = frozenset()) -> Worker:
+        return self._select_with_decision(ctx, exclude=exclude)[0]
+
     def _select_with_decision(self, ctx: RequestContext, exclude: set[str] = frozenset()):
-        """(worker, RouteDecision) from the model's policy."""
+        """(worker, RouteDecision) from the model's policy: the policy's
+        sink records the decision in the ring, and the dispatch holds it so
+        the first chunk's ``cached_tokens`` can reconcile the predicted
+        prefix match."""
         workers = [
             w for w in self._candidate_workers(ctx.model_id)
             if w.worker_id not in exclude
@@ -190,7 +199,7 @@ class Router:
         try:
             while True:
                 try:
-                    worker, _decision = self._select_with_decision(ctx, exclude=exclude)
+                    worker, decision = self._select_with_decision(ctx, exclude=exclude)
                 except RouteError:
                     if srec is not None:
                         srec.fail("rate_limited" if saw_queue_full else "error")
@@ -251,6 +260,11 @@ class Router:
                                 self.metrics.cached_tokens.inc(chunk.cached_tokens)
                             if srec is not None:
                                 srec.first_token(chunk.prompt_tokens, chunk.cached_tokens)
+                            # predicted-vs-actual prefix-hit reconciliation:
+                            # the engine's admission-time cached_tokens rides
+                            # the first chunk
+                            self.metrics.route.reconcile(
+                                decision, worker.worker_id, chunk.cached_tokens)
                         if self.metrics is not None and chunk.output_tokens > last_output_tokens:
                             self.metrics.generated_tokens.inc(
                                 chunk.output_tokens - last_output_tokens
@@ -679,6 +693,123 @@ class Router:
             yield ChatCompletionStreamChunk(
                 id=rid, created=created, model=model, choices=[], usage=usage
             )
+
+    # ---- embeddings ----
+
+    async def embeddings(self, req, request_id: str | None = None):
+        from smg_tpu_torch.protocols.openai import EmbeddingData, EmbeddingResponse, UsageInfo
+
+        model_id = req.model or None
+        inputs = req.input
+        batches: list[list[int]] = []
+        if isinstance(inputs, str):
+            batches.append(self.tokenizers.encode_cached(model_id, inputs))
+        elif isinstance(inputs, list) and inputs and isinstance(inputs[0], int):
+            batches.append(list(inputs))
+        elif isinstance(inputs, list) and inputs and isinstance(inputs[0], str):
+            batches = [self.tokenizers.encode_cached(model_id, s) for s in inputs]
+        elif isinstance(inputs, list) and inputs and isinstance(inputs[0], list):
+            batches = [list(x) for x in inputs]
+        else:
+            raise RouteError(400, "invalid embeddings input")
+
+        vecs, total_tokens = await self._embed_batches(model_id, batches, request_id)
+        data = [EmbeddingData(index=i, embedding=v) for i, v in enumerate(vecs)]
+        usage = UsageInfo(prompt_tokens=total_tokens, total_tokens=total_tokens)
+        return EmbeddingResponse(data=data, model=req.model or "default", usage=usage)
+
+    async def _embed_batches(self, model_id, batches: list, request_id):
+        """Single guarded worker embed leg (shared by embeddings, rerank,
+        classify).  Returns (vectors, total_tokens)."""
+        ctx = RequestContext(model_id=model_id, request_id=request_id)
+        worker = self.select_worker(ctx)
+        guard = worker.acquire()
+        try:
+            vecs = await worker.client.embed(batches)
+            guard.release(success=True)
+        except Exception as e:
+            guard.release(success=False)
+            raise RouteError(502, f"worker embed error: {e}", "worker_error")
+        return vecs, sum(len(b) for b in batches)
+
+    async def _embed_texts(self, model_id: str | None, texts: list[str], request_id):
+        batches = [self.tokenizers.encode_cached(model_id, t) for t in texts]
+        return await self._embed_batches(model_id, batches, request_id)
+
+    @staticmethod
+    def _unit_rows(vecs) -> "object":
+        """Normalize embedding rows once; cosine becomes a plain dot."""
+        import numpy as np
+
+        arr = np.asarray(vecs, np.float64)
+        norms = np.linalg.norm(arr, axis=-1, keepdims=True)
+        return arr / np.where(norms == 0, 1.0, norms)
+
+    async def rerank(self, req, request_id: str | None = None):
+        """Query-document relevance scoring via the embedding path
+        (reference: /v1/rerank, server.rs:188-221)."""
+        from smg_tpu_torch.protocols.rerank import RerankResponse, RerankResult
+
+        if not req.documents:
+            raise RouteError(400, "documents must be non-empty")
+        vecs, total = await self._embed_texts(
+            req.model or None, [req.query] + req.documents, request_id
+        )
+        unit = self._unit_rows(vecs)
+        scores = unit[1:] @ unit[0]
+        results = [
+            RerankResult(
+                index=i,
+                relevance_score=float(s),
+                document=req.documents[i] if req.return_documents else None,
+            )
+            for i, s in enumerate(scores)
+        ]
+        results.sort(key=lambda r: r.relevance_score, reverse=True)
+        if req.top_n is not None:
+            results = results[: max(req.top_n, 0)]
+        return RerankResponse(
+            model=req.model or "default",
+            results=results,
+            usage=UsageInfo(prompt_tokens=total, total_tokens=total),
+        )
+
+    async def classify(self, req, request_id: str | None = None):
+        """Zero-shot classification over caller labels: softmax of
+        input-label embedding similarities (reference: /v1/classify,
+        server.rs:287-300)."""
+        import numpy as np
+
+        from smg_tpu_torch.protocols.rerank import ClassifyData, ClassifyResponse
+
+        if not req.labels:
+            raise RouteError(400, "labels must be non-empty")
+        if len(set(req.labels)) != len(req.labels):
+            raise RouteError(400, "labels must be unique")
+        inputs = [req.input] if isinstance(req.input, str) else list(req.input)
+        if not inputs:
+            raise RouteError(400, "input must be non-empty")
+        vecs, total = await self._embed_texts(
+            req.model or None, inputs + req.labels, request_id
+        )
+        unit = self._unit_rows(vecs)
+        in_vecs, label_vecs = unit[: len(inputs)], unit[len(inputs) :]
+        sims = in_vecs @ label_vecs.T  # [I, L]
+        exps = np.exp(sims - sims.max(axis=-1, keepdims=True))
+        probs = exps / exps.sum(axis=-1, keepdims=True)
+        data = []
+        for i, row in enumerate(probs):
+            best = int(np.argmax(row))
+            data.append(ClassifyData(
+                index=i,
+                label=req.labels[best],
+                scores={lab: float(p) for lab, p in zip(req.labels, row)},
+            ))
+        return ClassifyResponse(
+            model=req.model or "default",
+            data=data,
+            usage=UsageInfo(prompt_tokens=total, total_tokens=total),
+        )
 
     # ---- completions ----
 

@@ -3,10 +3,14 @@
 model listing, chat and text completions, ``/generate``, tokenize and
 detokenize, and the operational routes (``/metrics``, ``/scheduler``,
 ``/get_loads``, ``/flush_cache``, ``/debug/flight/{worker_id}``,
-``GET /workers``), the LoRA admin routes (``/load_lora_adapter``,
-``/unload_lora_adapter``, ``/list_lora_adapters``), the parser-only
-routes (``/parse/function_call``, ``/parse/reasoning``) and the SLO
-surfaces (``/debug/slo``, ``/debug/slo/verdicts``).  Each handler keeps the reference's status codes,
+``GET /workers``, ``/start_profile``, ``/stop_profile``), embeddings,
+rerank and classify (``/v1/embeddings``, ``/v1/rerank`` and its alias
+``/rerank``, ``/v1/classify``), the LoRA admin routes
+(``/load_lora_adapter``, ``/unload_lora_adapter``,
+``/list_lora_adapters``), the parser-only routes (``/parse/function_call``,
+``/parse/reasoning``), the SLO surfaces (``/debug/slo``,
+``/debug/slo/verdicts``) and the routing plane's (``/debug/router``,
+``/debug/kv_index``).  Each handler keeps the reference's status codes,
 JSON bodies and SSE framing (``data: …`` frames, ``data: [DONE]`` last).
 
 The request-policy layer is the reference's middleware chain, in its order:
@@ -14,23 +18,24 @@ request id, the OTel request span, errors, the request timeout and CORS,
 auth, then admission (per-tenant rate limit, the priority scheduler with
 cancel-and-requeue preemption of ``bulk`` work, request counters).
 
-Not ported yet: plugins, providers, the HTTP/PD proxy paths, embeddings,
-rerank, classify, the Anthropic, responses, conversations, realtime and
-transcription APIs, profiling routes, worker registration over
-HTTP, jobs, workflows and the routing debug surfaces.
+Not ported yet: plugins, providers, the HTTP/PD proxy paths, the
+Anthropic, responses, conversations, realtime and transcription APIs,
+worker registration over HTTP, jobs, workflows and per-model routers.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import os
+import tempfile
 import time
 import uuid
 
 from aiohttp import web
 
 from smg_tpu_torch.gateway.auth import AuthConfig, Authenticator, AuthError
-from smg_tpu_torch.gateway.health import HealthMonitor
+from smg_tpu_torch.gateway.health import HealthConfig, HealthMonitor
 from smg_tpu_torch.gateway.kv_events import KvEventMonitor
 from smg_tpu_torch.gateway.observability import Metrics
 from smg_tpu_torch.gateway.priority import AdmissionRejected, PriorityConfig, PriorityScheduler
@@ -66,13 +71,16 @@ logger = get_logger("gateway.server")
 CTX = web.AppKey("ctx", object)
 
 #: routes whose requests ``track_request`` counts
-INFERENCE_ROUTES = frozenset({"/v1/chat/completions", "/v1/completions", "/generate"})
+INFERENCE_ROUTES = frozenset({"/v1/chat/completions", "/v1/completions", "/generate",
+                              "/v1/embeddings", "/v1/rerank", "/rerank", "/v1/classify"})
 
 
 class AppContext:
-    """The gateway's shared state: workers, policies, tokenizers, metrics,
-    the router and the request-policy layer (auth, rate limits, the
-    priority scheduler, the request timeout, CORS, the tracer)."""
+    """The gateway's shared state: workers (with the breakers'
+    ``circuit_breaker_config`` = (failures, successes, open seconds)),
+    policies, tokenizers, metrics, health checks, the router and the
+    request-policy layer (auth, rate limits, the priority scheduler, the
+    request timeout, CORS, the tracer, extra request-id headers)."""
 
     def __init__(
         self,
@@ -83,15 +91,19 @@ class AppContext:
         auth_config: AuthConfig | None = None,
         rate_limit_config: RateLimitConfig | None = None,
         priority_config: PriorityConfig | None = None,
+        health_config: HealthConfig | None = None,
         otel_endpoint: str | None = None,
         otel_service_name: str = "smg-tpu",
+        request_id_headers: list | None = None,
         tenant_header: str = "X-Tenant-Id",
         trust_tenant_header: bool | None = None,
         request_timeout_secs: float | None = None,
         cors_allowed_origins: list | None = None,
+        circuit_breaker_config: tuple | None = None,
         slo_specs=None,
     ):
         self.registry = WorkerRegistry()
+        self.registry.circuit_breaker_config = circuit_breaker_config
         self.policies = PolicyRegistry(default=policy, **(policy_kwargs or {}))
         self.tokenizers = TokenizerRegistry()
         self.metrics = Metrics()
@@ -100,7 +112,10 @@ class AppContext:
         # GET /debug/slo/verdicts
         if slo_specs:
             self.metrics.slo_enforcer.install(slo_specs)
-        self.kv_monitor = KvEventMonitor(self.registry, self.policies)
+        # routing decision ring + reconciliation: every policy instance
+        # (existing and lazily created per model) gets the sink
+        self.metrics.route.watch(self.policies)
+        self.kv_monitor = KvEventMonitor(self.registry, self.policies, metrics=self.metrics)
         self.router = Router(self.registry, self.policies, self.tokenizers,
                              router_config, metrics=self.metrics)
         self.semaphore = asyncio.Semaphore(max_concurrent_requests)
@@ -108,8 +123,10 @@ class AppContext:
         # register
         self._adopted_engine_metrics: set[int] = set()
         self.registry.on_change(self._maybe_adopt_worker_metrics)
-        self.health_monitor = HealthMonitor(self.registry, metrics=self.metrics)
+        self.health_monitor = HealthMonitor(self.registry, health_config, self.metrics)
         self.auth = Authenticator(auth_config or AuthConfig())
+        # extra headers accepted as the request id (--request-id-headers)
+        self.request_id_headers = list(request_id_headers or [])
         self.tenant_header = tenant_header
         # None = trust exactly when no auth is configured
         self.trust_tenant_header = (
@@ -189,7 +206,14 @@ def _sse_response(request: web.Request) -> web.StreamResponse:
 
 @web.middleware
 async def request_id_middleware(request: web.Request, handler):
-    rid = request.headers.get("X-Request-Id") or f"req-{uuid.uuid4().hex[:16]}"
+    ctx: AppContext = request.app[CTX]
+    rid = request.headers.get("X-Request-Id")
+    if not rid:
+        for h in ctx.request_id_headers:
+            rid = request.headers.get(h)
+            if rid:
+                break
+    rid = rid or f"req-{uuid.uuid4().hex[:16]}"
     request["request_id"] = rid
     token = request_id_var.set(rid)
     try:
@@ -387,13 +411,15 @@ async def _run_preemptable(ctx: AppContext, request: web.Request, handler, guard
             requeues += 1
 
 
-def build_app(ctx: AppContext) -> web.Application:
+def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Application:
+    """The aiohttp app over ``ctx``; ``client_max_size`` caps a request
+    body in bytes (``--max-payload-size``)."""
     app = web.Application(
         middlewares=[
             request_id_middleware, otel_middleware, error_middleware,
             limits_middleware, auth_middleware, admission_middleware,
         ],
-        client_max_size=256 * 2**20,  # the reference's request body cap
+        client_max_size=client_max_size,
     )
     app[CTX] = ctx
 
@@ -415,6 +441,8 @@ def build_app(ctx: AppContext) -> web.Application:
     app.router.add_get("/debug/flight/{worker_id}", h_debug_flight)
     app.router.add_get("/debug/slo", h_debug_slo)
     app.router.add_get("/debug/slo/verdicts", h_debug_slo_verdicts)
+    app.router.add_get("/debug/router", h_debug_router)
+    app.router.add_get("/debug/kv_index", h_debug_kv_index)
     app.router.add_get("/health", h_health)
     app.router.add_get("/liveness", h_health)
     app.router.add_get("/readiness", h_readiness)
@@ -424,12 +452,18 @@ def build_app(ctx: AppContext) -> web.Application:
     app.router.add_post("/v1/chat/completions", h_chat)
     app.router.add_post("/v1/completions", h_completions)
     app.router.add_post("/generate", h_generate)
+    app.router.add_post("/v1/embeddings", h_embeddings)
+    app.router.add_post("/v1/rerank", h_rerank)
+    app.router.add_post("/rerank", h_rerank)  # the reference's alias
+    app.router.add_post("/v1/classify", h_classify)
     app.router.add_post("/parse/function_call", h_parse_function_call)
     app.router.add_post("/parse/reasoning", h_parse_reasoning)
     app.router.add_post("/v1/tokenize", h_tokenize)
     app.router.add_post("/v1/detokenize", h_detokenize)
     app.router.add_get("/get_loads", h_get_loads)
     app.router.add_post("/flush_cache", h_flush_cache)
+    app.router.add_post("/start_profile", h_start_profile)
+    app.router.add_post("/stop_profile", h_stop_profile)
     app.router.add_post("/load_lora_adapter", h_load_lora)
     app.router.add_post("/unload_lora_adapter", h_unload_lora)
     app.router.add_get("/list_lora_adapters", h_list_lora)
@@ -503,6 +537,113 @@ async def h_debug_slo_verdicts(request: web.Request) -> web.Response:
     ``all_pass: true`` over zero verdicts."""
     ctx: AppContext = request.app[CTX]
     return web.json_response(ctx.metrics.slo_enforcer.evaluate())
+
+
+async def h_debug_router(request: web.Request) -> web.Response:
+    """Routing decision ring + predicted-vs-actual reconciliation: bounded,
+    schema-stable per-model decision records (policy, candidates with
+    loads/breaker states, prefix matches, threshold/imbalance outcome,
+    tie-break, decision latency) and per-worker prediction-error aggregates
+    (``gateway/route_observability.py``).  ``?model=`` filters,
+    ``?limit=`` bounds records per model (default 64)."""
+    ctx: AppContext = request.app[CTX]
+    try:
+        limit = int(request.query.get("limit", 64))
+    except ValueError:
+        return _error(400, "limit must be an integer")
+    return web.json_response(
+        ctx.metrics.route.debug_router(
+            model=request.query.get("model"), limit=limit
+        )
+    )
+
+
+# radix-relevant subset of worker loads() used by the kv-index drift audit
+_KV_AUDIT_LOAD_KEYS = (
+    "cached_pages", "total_pages", "free_pages", "radix_hit_pages",
+    "radix_miss_pages", "radix_evicted_pages", "cached_prompt_tokens",
+    "computed_prompt_tokens", "cache_hit_rate",
+)
+
+
+async def h_debug_kv_index(request: web.Request) -> web.Response:
+    """KV-index drift audit: the gateway's cache-index state (RadixTree /
+    PositionalIndexer per model) side by side with each worker's
+    ``loads()``-reported radix stats, flagging event-mode divergence (the
+    gateway mirror claiming materially more or fewer blocks than the worker
+    actually caches).  ``?drift_ratio=`` (default 0.25) and ``?min_abs=``
+    (default 4 blocks) tune the flag thresholds."""
+    ctx: AppContext = request.app[CTX]
+    try:
+        drift_ratio = float(request.query.get("drift_ratio", 0.25))
+        min_abs = int(request.query.get("min_abs", 4))
+    except ValueError:
+        return _error(400, "drift_ratio/min_abs must be numeric")
+    gateway_view = ctx.metrics.route.kv_index_snapshot()
+
+    async def _loads(w):
+        # per-worker timeout (like /scheduler): one black-holed remote
+        # worker must not wedge the audit endpoint
+        try:
+            return w.worker_id, await asyncio.wait_for(w.client.get_loads(), 2.0)
+        except Exception as e:
+            return w.worker_id, {"error": str(e)}
+
+    all_workers = ctx.registry.list()
+    results = dict(await asyncio.gather(*(_loads(w) for w in all_workers)))
+    workers = {
+        wid: (
+            loads if "error" in loads
+            else {k: loads[k] for k in _KV_AUDIT_LOAD_KEYS if k in loads}
+        )
+        for wid, loads in results.items()
+    }
+
+    audit = []
+    for model_key, stats in gateway_view.items():
+        if "error" in stats:
+            continue
+        # scope each policy's audit to the workers that actually feed its
+        # index: KvEventMonitor subscribes a worker to policy_for(model_id),
+        # so a worker with its own model key never populates the __default__
+        # indexer — pairing them would flag phantom drift in multi-model
+        # deployments
+        pool = [
+            w for w in all_workers
+            if (w.model_id or "__default__") == model_key
+        ]
+        per_worker_blocks = (stats.get("indexer") or {}).get(
+            "per_worker_blocks", {}
+        )
+        for w in pool:
+            loads = workers.get(w.worker_id, {})
+            cached_pages = loads.get("cached_pages")
+            entry = {
+                "model": model_key,
+                "worker_id": w.worker_id,
+                "mode": stats.get("mode"),
+                "gateway_blocks": per_worker_blocks.get(w.worker_id, 0),
+                "worker_cached_pages": cached_pages,
+                "drift_blocks": None,
+                "drift_ratio": None,
+                "flagged": False,
+            }
+            if stats.get("mode") == "event" and cached_pages is not None:
+                gw_blocks = entry["gateway_blocks"]
+                drift = gw_blocks - cached_pages
+                ratio = abs(drift) / max(gw_blocks, cached_pages, 1)
+                entry["drift_blocks"] = drift
+                entry["drift_ratio"] = ratio
+                entry["flagged"] = ratio > drift_ratio and abs(drift) >= min_abs
+            audit.append(entry)
+
+    return web.json_response({
+        "schema_version": 1,
+        "gateway": gateway_view,
+        "workers": workers,
+        "audit": audit,
+        "thresholds": {"drift_ratio": drift_ratio, "min_abs": min_abs},
+    })
 
 
 async def h_health(request: web.Request) -> web.Response:
@@ -674,6 +815,51 @@ async def h_generate(request: web.Request) -> web.Response | web.StreamResponse:
         return sse
 
 
+async def h_embeddings(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    from smg_tpu_torch.protocols.openai import EmbeddingRequest
+
+    try:
+        req = EmbeddingRequest.model_validate(await request.json())
+    except Exception as e:
+        return _error(400, f"invalid request: {e}")
+    async with ctx.semaphore:
+        resp = await ctx.router.embeddings(req, request_id=request["request_id"])
+        return web.json_response(resp.model_dump())
+
+
+async def h_rerank(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    from smg_tpu_torch.protocols.rerank import RerankRequest
+
+    try:
+        req = RerankRequest.model_validate(await request.json())
+    except Exception as e:
+        return _error(400, f"invalid request: {e}")
+    async with ctx.semaphore:
+        try:
+            resp = await ctx.router.rerank(req, request_id=request["request_id"])
+        except RouteError as e:
+            return _error(e.status, e.message, e.err_type)
+        return web.json_response(resp.model_dump(exclude_none=True))
+
+
+async def h_classify(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    from smg_tpu_torch.protocols.rerank import ClassifyRequest
+
+    try:
+        req = ClassifyRequest.model_validate(await request.json())
+    except Exception as e:
+        return _error(400, f"invalid request: {e}")
+    async with ctx.semaphore:
+        try:
+            resp = await ctx.router.classify(req, request_id=request["request_id"])
+        except RouteError as e:
+            return _error(e.status, e.message, e.err_type)
+        return web.json_response(resp.model_dump())
+
+
 async def h_parse_function_call(request: web.Request) -> web.Response:
     """Parser-only endpoint: tool calls in ``text`` by the dialect of
     ``tool_call_parser`` (or of ``model``)."""
@@ -750,6 +936,56 @@ async def h_flush_cache(request: web.Request) -> web.Response:
         except Exception as e:
             results[w.worker_id] = f"error: {e}"
     return web.json_response({"flushed": results})
+
+
+async def h_start_profile(request: web.Request) -> web.Response:
+    """Proxy engine profilers (reference: server.rs:897-898 -> engine
+    StartProfile; here a torch.profiler trace on each worker, written to
+    ``output_dir``, by default ``smg_profile`` under the temporary
+    directory)."""
+    ctx: AppContext = request.app[CTX]
+    try:
+        body = await request.json() if request.can_read_body else {}
+    except Exception:
+        body = {}
+    output_dir = body.get("output_dir") or os.path.join(tempfile.gettempdir(), "smg_profile")
+    results = {}
+    started = []
+    for w in ctx.registry.list():
+        try:
+            r = await w.client.start_profile(
+                output_dir,
+                host_tracer=bool(body.get("host_tracer", True)),
+                python_tracer=bool(body.get("python_tracer", False)),
+                num_steps=int(body.get("num_steps", 0) or 0),
+            )
+        except Exception as e:
+            r = {"ok": False, "error": str(e)}
+        results[w.worker_id] = r
+        if r.get("ok"):
+            started.append(w)
+    ok = bool(results) and all(r.get("ok") for r in results.values())
+    if not ok and started:
+        # all-or-nothing: roll back partial starts so no worker is left with
+        # an asymmetric trace running
+        for w in started:
+            try:
+                await w.client.stop_profile()
+            except Exception:
+                pass
+    return web.json_response({"ok": ok, "workers": results}, status=200 if ok else 503)
+
+
+async def h_stop_profile(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    results = {}
+    for w in ctx.registry.list():
+        try:
+            results[w.worker_id] = await w.client.stop_profile()
+        except Exception as e:
+            results[w.worker_id] = {"ok": False, "error": str(e)}
+    ok = bool(results) and all(r.get("ok") for r in results.values())
+    return web.json_response({"ok": ok, "workers": results}, status=200 if ok else 503)
 
 
 async def h_load_lora(request: web.Request) -> web.Response:

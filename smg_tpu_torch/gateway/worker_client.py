@@ -1,8 +1,8 @@
 """Worker client abstraction: how the gateway talks to engine workers — the
 port's copy of ``smg_tpu/gateway/worker_client.py`` with its in-process
 transport.  ``InProcWorkerClient`` runs a port ``Engine`` in the gateway's
-process; the gRPC transport, PD transfer, embeddings, profiling and LoRA
-calls are not ported yet.
+process, with generation, embeddings, profiling and the LoRA calls; the
+gRPC transport, PD transfer and vision encode are not ported yet.
 """
 
 from __future__ import annotations
@@ -80,6 +80,17 @@ class WorkerClient:
 
     async def flush_cache(self) -> bool:
         raise NotImplementedError
+
+    async def embed(self, batches: list) -> list:
+        """batches: list[list[int]] -> list[list[float]]."""
+        raise NotImplementedError
+
+    async def start_profile(self, output_dir: str, host_tracer: bool = True,
+                            python_tracer: bool = False, num_steps: int = 0) -> dict:
+        return {"ok": False, "error": "profiling unsupported by this worker"}
+
+    async def stop_profile(self) -> dict:
+        return {"ok": False, "error": "profiling unsupported by this worker"}
 
     async def load_lora_adapter(self, name: str, path: str | None = None,
                                 data: bytes | None = None) -> dict:
@@ -214,6 +225,33 @@ class InProcWorkerClient(WorkerClient):
 
     async def flush_cache(self) -> bool:
         return self.engine.flush_cache()
+
+    # embed and the profiler calls take the engine lock: on the client's own
+    # thread, ordered with submits and aborts, never on the event loop
+
+    async def embed(self, batches: list) -> list:
+        vecs = await asyncio.get_running_loop().run_in_executor(
+            self._calls, self.engine.embed, [list(b) for b in batches])
+        return [v.tolist() for v in vecs]
+
+    async def start_profile(self, output_dir: str, host_tracer: bool = True,
+                            python_tracer: bool = False, num_steps: int = 0) -> dict:
+        loop = asyncio.get_running_loop()
+        try:
+            out = await loop.run_in_executor(self._calls, functools.partial(
+                self.engine.start_profile, output_dir, host_tracer=host_tracer,
+                python_tracer=python_tracer, num_steps=num_steps))
+            return {"ok": True, "error": "", "output_dir": out}
+        except Exception as e:
+            return {"ok": False, "error": str(e)}
+
+    async def stop_profile(self) -> dict:
+        loop = asyncio.get_running_loop()
+        try:
+            await loop.run_in_executor(self._calls, self.engine.stop_profile)
+            return {"ok": True, "error": ""}
+        except Exception as e:
+            return {"ok": False, "error": str(e)}
 
     async def load_lora_adapter(self, name: str, path: str | None = None,
                                 data: bytes | None = None) -> dict:

@@ -25,6 +25,14 @@ of q, k, v and o adds ``lora_delta`` over every bank slot, gated one-hot
 (slot 0 is all zeros: a base row adds exact zeros).  The verify block and
 the compat decode take no adapter: LoRA lanes are not speculated, as in the
 reference.
+
+Embeddings (``forward_embed``, the reference's XLA function of the same
+name) run dense causal attention in torch ops over right-padded rows, with
+no KV cache and no kernel.  The reference materialises float32 scores of
+every row, head and query pair at once; here rows go through in tiles of at
+most ``EMBED_TOKEN_TILE`` padded tokens and queries in tiles of
+``EMBED_QUERY_TILE``, every softmax row summed over its keys in one go, so
+the scratch is bounded by the tiles.
 """
 
 from __future__ import annotations
@@ -51,6 +59,8 @@ from smg_tpu_torch.ops.norms import rms_norm
 from smg_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 ATTENTION_IMPLS = ("kernel", "plain")
+EMBED_TOKEN_TILE = 4096  # padded tokens of one row tile of forward_embed
+EMBED_QUERY_TILE = 512  # queries of one attention tile of forward_embed
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
@@ -227,6 +237,37 @@ def moe_mlp(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
         del y  # gone before the next tile's products: one tile's scratch at a time
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out.reshape(*lead, x.shape[-1])
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, scale: float, softcap: float | None = None,
+                     q_tile: int = EMBED_QUERY_TILE) -> torch.Tensor:
+    """Dense causal attention of right-padded rows, in float32 as the
+    reference's ``forward_embed`` computes it: ``q`` [B, T, H, D],
+    ``k``/``v`` [B, T, K, D], ``lengths`` [B]; key j is seen by query i when
+    j <= i and j < the row's length.  Queries go through in tiles of
+    ``q_tile``; a tile reads only the keys up to its last query (the rest
+    are masked for all of its queries), each softmax row over those keys
+    at once.  Returns [B, T, H, D] in ``q``'s dtype."""
+    B, T, H, D = q.shape
+    K = k.shape[2]
+    dev = q.device
+    kf, vf = k.float(), v.float()
+    j = torch.arange(T, device=dev)
+    key_ok = j[None, :] < lengths.long()[:, None]  # [B, T]
+    out = torch.empty_like(q)
+    for s in range(0, T, q_tile):
+        e = min(s + q_tile, T)
+        qf = q[:, s:e].float().reshape(B, e - s, K, H // K, D)
+        scores = torch.einsum("btkgd,bskd->bkgts", qf, kf[:, :e]) * scale
+        if softcap:
+            scores = softcap * torch.tanh(scores / softcap)
+        seen = (j[None, :e] <= j[s:e, None])[None] & key_ok[:, None, :e]  # [B, tq, e]
+        scores = torch.where(seen[:, None, None], scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bkgts,bskd->btkgd", probs, vf[:, :e])
+        out[:, s:e] = o.reshape(B, e - s, H, D).to(q.dtype)
+    return out
 
 
 def moe_scratch_bytes(cfg: ModelConfig, tokens: int) -> int:
@@ -487,6 +528,38 @@ class LlamaModel(nn.Module):
             h = self._attn_residual(l, h, attn.to(h.dtype))
             h = self._mlp_residual(l, h)
         return self.unembed(h), bk, bv
+
+    def forward_embed(self, tokens, lengths, token_tile: int = EMBED_TOKEN_TILE,
+                      q_tile: int = EMBED_QUERY_TILE) -> torch.Tensor:
+        """Sequence embeddings (the reference's ``forward_embed``): the
+        final-norm hidden state of each row's last valid token,
+        L2-normalised, [B, E] float32.  ``tokens`` [B, T] right-padded,
+        ``lengths`` [B] (0 for a padded row).  Every layer attends densely
+        and causally, without per-layer windows (the runner bounds the
+        lengths).  Rows go through in tiles of ``token_tile`` // T (at least
+        one): a row's result depends on that row alone."""
+        B, T = tokens.shape
+        rows = max(1, token_tile // T)
+        return torch.cat([self._embed_rows(tokens[r:r + rows], lengths[r:r + rows], q_tile)
+                          for r in range(0, B, rows)])
+
+    def _embed_rows(self, tokens, lengths, q_tile: int) -> torch.Tensor:
+        cfg = self.cfg
+        B, T = tokens.shape
+        dev = tokens.device
+        pos = torch.arange(T, device=dev)[None].expand(B, T)
+        h = self.embed_tokens(tokens)
+        for l in range(cfg.num_layers):
+            q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]))
+            q = apply_rope(q, pos, self.inv_freq)
+            k = apply_rope(k, pos, self.inv_freq)
+            attn = causal_attention(q, k, v, lengths, self.scale,
+                                    softcap=cfg.attn_logit_softcap, q_tile=q_tile)
+            h = self._attn_residual(l, h, attn.to(h.dtype))
+            h = self._mlp_residual(l, h)
+        last = h[torch.arange(B, device=dev), (lengths.long() - 1).clamp(min=0)]
+        last = self._norm(last, self.final_norm).float()
+        return last / last.norm(dim=-1, keepdim=True).clamp(min=1e-12)
 
     def forward_decode(self, tokens, positions, k_cache, v_cache, page_tables):
         """One decode step for the batch (the compat path the draft

@@ -1,5 +1,5 @@
 """Policy trait + registry — the port's copy of ``smg_tpu/policies/base.py``
-(without the registry's mesh replication hooks and per-model overrides).
+(without the registry's per-model overrides).
 
 Reference: ``trait LoadBalancingPolicy::select_worker``
 (``model_gateway/src/policies/mod.rs:47-56``) and ``PolicyRegistry``
@@ -266,11 +266,28 @@ class PolicyRegistry:
         self._default_name = default
         self._default_kwargs = default_kwargs
         self._per_model: dict[str, Policy] = {}
+        # fired with (model_id, policy) whenever a policy instance is
+        # created: policies are created lazily per model, so the routing
+        # observability attaches its decision sink here
+        self._create_hooks: list = []
+
+    def add_create_hook(self, cb) -> None:
+        self._create_hooks.append(cb)
+        for key, policy in self._per_model.items():
+            cb(None if key == "__default__" else key, policy)
+
+    def _created(self, model_id: str | None, policy: Policy) -> None:
+        for cb in self._create_hooks:
+            try:
+                cb(model_id, policy)
+            except Exception:
+                pass
 
     def policy_for(self, model_id: str | None) -> Policy:
         key = model_id or "__default__"
         if key not in self._per_model:
             self._per_model[key] = get_policy(self._default_name, **self._default_kwargs)
+            self._created(model_id, self._per_model[key])
         return self._per_model[key]
 
     def on_worker_removed(self, worker_id: str) -> None:

@@ -54,6 +54,18 @@ class CacheAwarePolicy(Policy):
     def apply_kv_events(self, worker_id: str, batch) -> None:
         self.indexer.apply_batch(worker_id, batch)
 
+    def stats(self) -> dict:
+        """Gateway cache-index snapshot (decision-ring / /debug/kv_index /
+        metric-collector surface): tree size + eviction stats, positional
+        indexer block counts incl. per-worker."""
+        return {
+            "mode": self.mode,
+            "match_threshold": self.match_threshold,
+            "inserted_prefixes": self.num_inserted_prefixes,
+            "tree": self.tree.stats(),
+            "indexer": self.indexer.stats(),
+        }
+
     def on_worker_removed(self, worker_id: str) -> None:
         super().on_worker_removed(worker_id)
         self.tree.remove_worker(worker_id)

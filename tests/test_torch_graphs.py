@@ -20,7 +20,12 @@ from a seed, float32 KV, the decode kernel on every column.
   block bitwise (emitted rows, logprobs, ``n_emit`` and the accepted KV),
   two frames in flight off one graph keep their own results, and a
   speculative engine with graphs and overlap gives the eager synchronous
-  engine's streams and drafted and accepted counts.
+  engine's streams and drafted and accepted counts;
+- every engine of the card captures on one shared stream: four engines
+  built, served, stopped and dropped in a row leave ``memory_allocated``
+  where the second left it (the cuBLAS workspaces are not multiplied), and
+  an engine that survives another's end replays its graphs to the eager
+  streams bitwise.
 
 Run on a GPU: ``python -m pytest tests/test_torch_graphs.py -m cuda -q``."""
 
@@ -369,3 +374,59 @@ def test_speculative_engine_with_graphs_matches_eager_sync(cuda_dev):
             assert engine.loads()["verify_graphs"] >= 1
     assert results[True] == results[False]
     assert drafted[True] == drafted[False] and drafted[True][1] > 0
+
+
+def _serve(eng, jobs) -> dict:
+    chunks = {rid: [] for rid, _, _ in jobs}
+    for rid, prompt, n in jobs:
+        eng.submit(prompt, SamplingParams(temperature=0.0, max_new_tokens=n, ignore_eos=True),
+                   rid=rid, on_output=chunks[rid].append)
+    for _ in range(500):
+        if not eng.has_work():
+            break
+        eng.step()
+    return {rid: (collect_result(rid, c).token_ids, collect_result(rid, c).logprobs)
+            for rid, c in chunks.items()}
+
+
+JOBS = [(f"r{i}", list(range(5 + 9 * i, 60 + 9 * i)), 10 + 5 * i) for i in range(5)]
+
+
+@pytest.mark.cuda
+def test_engines_in_a_row_leave_no_workspace_behind(cuda_dev):
+    import gc
+
+    params = init_params(tiny_test_config(), torch.Generator(device=cuda_dev).manual_seed(0),
+                         cuda_dev)
+    allocated = []
+    for _ in range(4):
+        eng = Engine(config(True), params=params, device=cuda_dev)
+        eng.start()  # the loop thread takes a cuBLAS handle of its own
+        eng.generate(list(range(5, 60)), SamplingParams(temperature=0.0, max_new_tokens=12,
+                                                        ignore_eos=True))
+        eng.stop()
+        assert eng.loads()["decode_graphs"] > 0
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated(cuda_dev))
+    assert allocated[3] == allocated[1], allocated
+
+
+@pytest.mark.cuda
+def test_a_surviving_engine_replays_bitwise_after_another_ends(cuda_dev):
+    import gc
+
+    params = init_params(tiny_test_config(), torch.Generator(device=cuda_dev).manual_seed(0),
+                         cuda_dev)
+    eager = _serve(Engine(config(False, overlap=False), params=params, device=cuda_dev), JOBS)
+    keep = Engine(config(True), params=params, device=cuda_dev)
+    assert _serve(keep, JOBS) == eager
+    other = Engine(config(True), params=params, device=cuda_dev)
+    assert _serve(other, JOBS) == eager
+    del other
+    gc.collect()
+    keep.flush_cache()
+    graphs = keep.loads()["decode_graphs"]
+    assert _serve(keep, JOBS) == eager
+    assert keep.loads()["decode_graphs"] == graphs  # replayed, not captured again

@@ -9,8 +9,9 @@ gateway's.
   the clock): identical histogram and counter contents.
 - The span tree of one chat sent with a ``traceparent`` through both
   gateways, streamed and not: the same names, parentage, status, attribute
-  keys and values (ids, times, the detokenize busy time and the routing
-  ring's ``route.*`` attributes removed).  The test waits for the root span
+  keys and values, the routing decision's ``route.*`` attributes included
+  (ids and times removed; the detokenize busy time and the decision latency
+  kept as keys).  The test waits for the root span
   itself, not for the first export.
 - The trace id reaches the port engine's flight-recorder timeline.
 """
@@ -293,16 +294,15 @@ def _worker(wc):
 
 def _tree(spans: list) -> list:
     """(name, parent's name, status, attributes) per span, sorted; times and
-    ids dropped, the detokenize busy time kept as a key only."""
+    ids dropped, the detokenize busy time and the routing decision's latency
+    kept as keys only."""
     by_id = {s["spanId"]: s["name"] for s in spans}
     out = []
     for s in spans:
-        # route.* attributes come from the routing decision ring, which the
-        # port does not have yet
-        attrs = {a["key"]: a["value"] for a in s["attributes"]
-                 if not a["key"].startswith("route.")}
-        if "busy_ns" in attrs:
-            attrs["busy_ns"] = "<time>"
+        attrs = {a["key"]: a["value"] for a in s["attributes"]}
+        for key in ("busy_ns", "route.decision_us"):
+            if key in attrs:
+                attrs[key] = "<time>"
         out.append((s["name"], by_id.get(s.get("parentSpanId"), s.get("parentSpanId")),
                     s["status"], s["kind"], sorted(attrs.items())))
     return sorted(out)
@@ -357,6 +357,8 @@ def test_span_tree_matches_reference(stream):
                             "engine.prefill", "engine.decode", "engine.detokenize"])
     root = next(s for s in port if s["name"].startswith("POST "))
     assert root["parentSpanId"] == "34" * 8
+    assert {a["key"] for a in root["attributes"]} >= {"route.policy", "route.outcome",
+                                                      "route.worker", "route.decision_us"}
     for s in port:
         assert s["traceId"] == "12" * 16
         if s is not root:
