@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases checkpoint   # build + kernels + phase 8 only
     python3 chip_smoke.py --phases moe   # build + kernels + phase 9 only
     python3 chip_smoke.py --phases api   # build + kernels + phase 10 only
+    python3 chip_smoke.py --phases vision   # build + kernels + phase 12 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -16,14 +17,15 @@ Phases (any failure makes the script exit non-zero and print no result):
    head_dim 128, page size 16) and at the edges of the decode split (split
    boundaries, a window across two splits, a padded row alone), plus
    head_dim 64 (G=1), 256 (G=2, Gemma-2-9B) and the padded 96 (G=1,
-   Phi-3-mini) and 80 (G=4), and Qwen3-30B-A3B's 32 query over 4 KV heads
-   (G=8, head_dim 128); then time kernel, plain
+   Phi-3-mini) and 80 (G=4), Qwen3-30B-A3B's 32 query over 4 KV heads
+   (G=8, head_dim 128) and Qwen2-VL-7B's 28 over 4 (G=7: a group that
+   does not divide 64); then time kernel, plain
    version and one PyTorch library call computing the same function (SDPA
    on gathered K/V, a yardstick the port never calls) at the timed shapes:
    decode B=32 ragged, B=4 x ~1000 with n_extra 4 (the serving shape) and
    B=1 x 8000; prefill T=512 over a 1000-token prefix and a cold grouped
    prefill of 8 rows; the same decode B=32, B=4 and prefill cases again at
-   G=8;
+   G=8, and at G=7 with B=1 x 8000 too;
 3. serve requests on Llama-3-8B at full width and depth (random bf16
    weights from a fixed seed, bf16 KV): a chunked long prompt, a radix
    prefix hit, decode horizon 4, submitted from the main thread with
@@ -203,12 +205,30 @@ Phases (any failure makes the script exit non-zero and print no result):
    engines with graphs built, served and dropped in a row grow
    ``memory_allocated`` by 0 bytes after the second, and an engine that
    outlives another replays its graphs bitwise;
-11. print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
+12. Qwen2-VL-7B-Instruct (its published config by value; 28 layers at
+   width 3584, 28 query over 4 KV heads, M-RoPE sections [16, 24, 24], a
+   tower of 32 layers at width 1280; random bf16 weights from a seed, 16.6
+   GB) after phase 9: the tower in float32 at 2 layers on the card against
+   the CPU, and in bf16 at full depth timed against its operations bound
+   with its peak memory, for a 448 x 448 image (1024 patches, 256 tokens)
+   and one at the processor's ``max_pixels`` (5120 patches, 1280 tokens);
+   two image requests, one with two images and a text request in one batch
+   through the graph path at full depth (auto-sized KV after the vision
+   reserve, launches exact at 28 x decode columns and 28 x prefill calls,
+   audits clean), the same image again sharing KV and another image behind
+   the same ids sharing none, the decode column of 4 image lanes against 4
+   text lanes, the 1280-token image request's TTFT split into encode and
+   prefill, and one image chat over HTTP (a PNG data URI) equal to the same
+   pipeline driven directly; then the first 4 layers through the three
+   paths in float32 (greedy streams identical, the text request equal to
+   itself alone) and the graph and plain paths in bf16, held to the
+   float32 run as in phase 3;
+Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
-   ``launches_moe`` from phase 9's and ``launches_throughput`` from phase
-   10's bf16 serving paths) and, last, ``{"ok": true, "device": ...}``
-   (``--phases kernels``, ``checkpoint``, ``moe`` and ``api`` print
-   neither).
+   ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
+   10's and ``launches_vision`` from phase 12's bf16 serving paths) and,
+   last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
+   ``checkpoint``, ``moe``, ``api`` and ``vision`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -334,6 +354,10 @@ SHAPES = {  # (query heads, KV heads, head_dim) of the correctness-only cases
     "d96_g1": (32, 32, 96),  # Phi-3-mini
     "d80_g4": (32, 8, 80),
     "qwen3_moe": (32, 4, 128),  # Qwen3-30B-A3B: G=8, the decode kernel's full head group
+    # Qwen2-VL-7B: G=7, a group that does not divide 64 (the decode kernel
+    # masks the eighth head of its group; the prefill kernel packs 9 tokens
+    # a block, 63 live rows and one dead)
+    "qwen2_vl": (28, 4, 128),
 }
 
 
@@ -568,6 +592,16 @@ def phase_kernels(dev) -> dict:
          False, "qwen3_moe", False),
         ("B4_padded_row_nx4_g8", 4, rng_entries(4, 900, 1100), 4, None, None, True,
          "qwen3_moe", False),
+        # Qwen2-VL-7B's (G=7); drawn after every case above
+        ("B32_ragged_g7", 32, rng_entries(32, 1, 4096), 1, None, None, False, "qwen2_vl",
+         True),
+        ("B4_e1000_nx4_g7", 4, rng_entries(4, 950, 1050), 4, None, None, False, "qwen2_vl",
+         True),
+        ("B1_e8000_g7", 1, [8000], 1, None, None, False, "qwen2_vl", True),
+        ("B9_split_edges_g7", 9, [62, 63, 64, 126, 127, 128, 254, 255, 256], 1, None, None,
+         False, "qwen2_vl", False),
+        ("B4_padded_row_nx4_softcap_window_g7", 4, rng_entries(4, 900, 1100), 4, 50.0, 64,
+         True, "qwen2_vl", False),
     ]
     d_err, d_timed = 0.0, {}
     for label, B, entries, nx, cap, win, pad, shape, timed in dcases:
@@ -603,6 +637,12 @@ def phase_kernels(dev) -> dict:
         ("T512_prefix1000_g8", 512, [1000], [512], None, None, "qwen3_moe", True),
         ("Gs8_T512_cold_g8", 512, [0] * 8, [512, 480, 400, 300, 200, 128, 90, 17], None,
          None, "qwen3_moe", True),
+        ("G3_T128_mixed_g7", 128, [0, 1000, 37], [128, 100, 5], None, None, "qwen2_vl",
+         False),
+        ("T130_prefix37_softcap_window_g7", 130, [37], [121], 50.0, 40, "qwen2_vl", False),
+        ("T512_prefix1000_g7", 512, [1000], [512], None, None, "qwen2_vl", True),
+        ("Gs8_T512_cold_g7", 512, [0] * 8, [512, 480, 400, 300, 200, 128, 90, 17], None,
+         None, "qwen2_vl", True),
     ]
     p_err, p_timed = 0.0, {}
     for label, T, pfx, trs, cap, win, shape, timed in pcases:
@@ -667,8 +707,11 @@ def wait_for(cond, what: str, timeout: float = LOOP_WAIT_S) -> None:
         time.sleep(0.001)
 
 
-def drive_engine(engine, max_new: int, record_logits: list, loop: bool):
-    """Submit the requests from this thread with ``on_output`` callbacks.
+def drive_engine(engine, max_new: int, record_logits: list, loop: bool, requests=None):
+    """Submit the requests from this thread with ``on_output`` callbacks:
+    phase 3's (``_requests``), or ``requests(engine)`` = (first, later,
+    anchor), each request (rid, ids[, mm_embeds]), ``later`` submitted once
+    ``anchor`` finished.
     With ``loop`` the engine's own thread steps (``engine.start()``);
     otherwise this thread calls ``step()``.  Returns per-request results,
     the wall time of every step, the phase split (synchronous paths only:
@@ -719,12 +762,12 @@ def drive_engine(engine, max_new: int, record_logits: list, loop: bool):
         return out
 
     engine.step = timed_step
-    first, later = _requests(7)
+    first, later, anchor = requests(engine) if requests else (*_requests(7), "shared_a")
     chunks: dict[str, list] = {}
     sp = lambda: SamplingParams(temperature=0.0, max_new_tokens=max_new, ignore_eos=True)  # noqa: E731
 
     def submit(batch):
-        for rid, ids in batch:
+        for rid, ids, *mm in batch:
             chunks[rid] = []
             t_submit, cap0 = time.perf_counter(), runner.graphs.capture_s
 
@@ -734,22 +777,25 @@ def drive_engine(engine, max_new: int, record_logits: list, loop: bool):
                     timers["ttft_capture_ms"][rid] = (runner.graphs.capture_s - cap0) * 1e3
                 chunks[rid].append(out)
 
-            engine.submit(ids, sp(), rid=rid, on_output=on_output)
+            engine.submit(ids, sp(), rid=rid, on_output=on_output,
+                          mm_embeds=mm[0] if mm else None)
 
     finished = lambda rid: bool(chunks[rid]) and chunks[rid][-1].finished  # noqa: E731
     t0 = time.perf_counter()
     if loop:
         engine.start()
-        submit(first)
-        wait_for(lambda: finished("shared_a"), "shared_a")
-        submit(later)  # after shared_a finished: a radix hit
+        with engine._lock:  # a batch lands between two steps, as on the sync path
+            submit(first)
+        wait_for(lambda: finished(anchor), anchor)
+        with engine._lock:
+            submit(later)  # after the anchor finished: a radix hit
         wait_for(lambda: all(finished(r) for r in chunks) and not engine.has_work(),
-                 "the five requests")
+                 "every request")
         engine.stop()
     else:
         submit(first)
         while engine.has_work() or later:
-            if later and finished("shared_a"):
+            if later and finished(anchor):
                 submit(later)
                 later = []
             engine.step()
@@ -919,14 +965,17 @@ def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
 
 
 def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False,
-                auto_size: bool = False, after=None, paths=PATHS, sched=None) -> dict:
+                auto_size: bool = False, after=None, paths=PATHS, sched=None,
+                requests=None, engine_kw=None) -> dict:
     """Serve the requests once per path of ``paths`` on one set of weights.
     Launch counters are zeroed just before each measured run and read just
     after it.  With ``auto_size`` each engine sizes its KV cache from the
     card's free memory (the serving default) instead of 2048 pages.
     ``sched`` overrides ``SchedulerConfig`` fields of every engine.
     ``after(label, engine)``, called once the run and its profile are read,
-    returns further readings of that engine (``runs[label]["after"]``)."""
+    returns further readings of that engine (``runs[label]["after"]``).
+    ``requests`` replaces phase 3's requests (``drive_engine``);
+    ``engine_kw`` are further ``Engine`` arguments."""
     import gc
 
     import torch
@@ -948,12 +997,13 @@ def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False,
                                       overlap_schedule=overlap, **(sched or {})),
             decode_graphs=graphs,
         )
-        engine = Engine(econf, params=params, device=dev, attention=attention)
+        engine = Engine(econf, params=params, device=dev, attention=attention,
+                        **(engine_kw or {}))
         if auto_size:
             sp, rs = engine.runner.spec, engine.runner.reserve_bytes
             print(f"  [{label}] auto-sized KV: {sp.num_pages} pages of {sp.bytes_per_page} "
                   f"bytes ({sp.num_pages * sp.bytes_per_page} bytes) after a reserve of "
-                  f"{rs} bytes for the expert layer")
+                  f"{rs} bytes for the expert layer and the vision tower")
         # warm-up request (cuBLAS handles, allocator, a first graph); not counted
         engine.generate(prompt_ids=list(range(1000, 1100)),
                         sampling=SamplingParams(temperature=0.0, max_new_tokens=4))
@@ -965,7 +1015,8 @@ def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False,
         logits: list = []
         dk.launches = 0
         pk.launches = 0
-        results, step_ms, timers, wall_s = drive_engine(engine, max_new, logits, loop)
+        results, step_ms, timers, wall_s = drive_engine(engine, max_new, logits, loop,
+                                                        requests)
         torch.cuda.synchronize()
         launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
         loads = engine.loads()
@@ -1000,10 +1051,11 @@ def check_launches(r, L: int, label: str, plain: bool) -> None:
         raise AssertionError(f"[{label}] launch counts {r['launches']} != {expect}")
 
 
-def check_runs(runs, L: int, max_new: int, label: str) -> dict:
-    """Counts, finishes, the radix hit and the audit of every run; returns
-    first-token logit gaps and greedy-stream agreement of each path with
-    the plain run and of the graph path with the eager one."""
+def check_runs(runs, L: int, max_new: int, label: str, hit: str = "shared_b") -> dict:
+    """Counts, finishes, the radix hit (request ``hit``) and the audit of
+    every run; returns first-token logit gaps and greedy-stream agreement of
+    each path with the plain run and of the graph path with the eager one
+    (of the paths that ran)."""
     import torch
 
     for name, r in runs.items():
@@ -1011,8 +1063,8 @@ def check_runs(runs, L: int, max_new: int, label: str) -> dict:
             if res.output_tokens != max_new or res.finish_reason != "length":
                 raise AssertionError(f"[{label}/{name}] {rid}: expected {max_new} tokens, "
                                      f"finish 'length'")
-        if r["results"]["shared_b"].cached_tokens <= 0:
-            raise AssertionError(f"[{label}/{name}] shared_b got no radix prefix hit")
+        if r["results"][hit].cached_tokens <= 0:
+            raise AssertionError(f"[{label}/{name}] {hit} got no radix prefix hit")
         check_launches(r, L, f"{label}/{name}", plain=name == "plain")
     for rid, res in runs["graphs"]["results"].items():
         print(f"  [{label}] {rid}: prompt {res.prompt_tokens}, cached {res.cached_tokens}, "
@@ -1031,14 +1083,15 @@ def check_runs(runs, L: int, max_new: int, label: str) -> dict:
         return sum(runs[a]["results"][rid].token_ids == runs[b]["results"][rid].token_ids
                    for rid in runs[a]["results"])
 
-    out = dict(logit_gap={f"{a}_vs_{b}": gap(a, b) for a, b in
-                          (("graphs", "eager"), ("eager", "plain"), ("graphs", "plain"))},
-               streams_equal={f"{a}_vs_{b}": agree(a, b) for a, b in
-                              (("graphs", "eager"), ("eager", "plain"), ("graphs", "plain"))},
-               max_abs_logit=max(float(b.abs().max()) for b in runs["plain"]["logits"]))
+    pairs = [(a, b) for a, b in (("graphs", "eager"), ("eager", "plain"), ("graphs", "plain"))
+             if a in runs and b in runs]
+    some = next(iter(runs.values()))
+    out = dict(logit_gap={f"{a}_vs_{b}": gap(a, b) for a, b in pairs},
+               streams_equal={f"{a}_vs_{b}": agree(a, b) for a, b in pairs},
+               max_abs_logit=max(float(b.abs().max()) for b in some["logits"]))
     print(f"  [{label}] first-token logits: max_abs_diff {out['logit_gap']} "
           f"(max |logit| {out['max_abs_logit']:.3f}); greedy streams equal (of "
-          f"{len(runs['plain']['results'])}): {out['streams_equal']}")
+          f"{len(some['results'])}): {out['streams_equal']}")
     return out
 
 
@@ -4775,6 +4828,543 @@ def phase_moe(dev, card: str) -> dict:
     return out
 
 
+# ---- phase 12: Qwen2-VL-7B, the vision tower and image requests ----
+
+# Qwen2-VL-7B-Instruct's published config.json, copied by value:
+# https://huggingface.co/Qwen/Qwen2-VL-7B-Instruct/blob/main/config.json
+QWEN2_VL_7B = {
+    "architectures": ["Qwen2VLForConditionalGeneration"], "attention_dropout": 0.0,
+    "bos_token_id": 151643, "eos_token_id": 151645, "vision_start_token_id": 151652,
+    "vision_end_token_id": 151653, "vision_token_id": 151654, "image_token_id": 151655,
+    "video_token_id": 151656, "hidden_act": "silu", "hidden_size": 3584,
+    "initializer_range": 0.02, "intermediate_size": 18944, "max_position_embeddings": 32768,
+    "max_window_layers": 28, "model_type": "qwen2_vl", "num_attention_heads": 28,
+    "num_hidden_layers": 28, "num_key_value_heads": 4, "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0, "sliding_window": 32768, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "transformers_version": "4.41.2", "use_cache": True,
+    "use_sliding_window": False,
+    "vision_config": {"depth": 32, "embed_dim": 1280, "mlp_ratio": 4, "num_heads": 16,
+                      "in_chans": 3, "hidden_size": 3584, "patch_size": 14,
+                      "spatial_merge_size": 2, "spatial_patch_size": 14,
+                      "temporal_patch_size": 2},
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "vocab_size": 152064,
+}
+# (query heads, KV heads, head_dim, M-RoPE sections, tower width, tower depth)
+VL_SHAPE = (28, 4, 128, (16, 24, 24), 1280, 32)
+VL_IMAGE_TOKEN = 151655
+# raw images (height, width) made from a seed each: two at 448 x 448 (1024
+# patches, 256 tokens) and one at the processor's max_pixels (1120 x 896 =
+# 1,003,520 pixels: 5120 patches, 1280 tokens)
+VL_IMAGES = {"img448": (448, 448), "img448b": (448, 448), "imgmax": (1120, 896)}
+VL_DEPTH_CUT = 4  # LM layers of the float32 and bf16-against-float32 runs
+VL_TOWER_CHECK_LAYERS = 2  # tower layers of the card-against-CPU check
+VL_NEW = 32  # new tokens of every phase-12 request
+F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+# the tower in float32 on the card against the CPU: the same arithmetic
+# summed in another order (TF32 off), over up to 5120 keys and 32 layers
+VL_TOWER_RTOL, VL_TOWER_ATOL = 1e-4, 1e-4
+
+
+def vl_image(name: str):
+    import numpy as np
+
+    h, w = VL_IMAGES[name]
+    return np.random.default_rng(sorted(VL_IMAGES).index(name) + 12).integers(
+        0, 256, (h, w, 3), dtype=np.uint8)
+
+
+def png_bytes(arr) -> bytes:
+    """An RGB uint8 [H, W, 3] array as a PNG file (zlib and struct only)."""
+    import struct
+    import zlib
+
+    h, w, _ = arr.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + arr[r].tobytes() for r in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def vl_processed(dev) -> dict:
+    """name -> the gateway's Qwen2-VL processing of each image, on the card."""
+    from smg_tpu_torch.models.vit import MAX_PIXELS
+    from smg_tpu_torch.multimodal.processor import Qwen2VLImageProcessor
+
+    proc = Qwen2VLImageProcessor(device=dev)
+    out = {n: proc.process(vl_image(n)) for n in VL_IMAGES}
+    grids = {n: (p.grid, p.num_placeholder_tokens) for n, p in out.items()}
+    want = {"img448": ((32, 32), 256), "img448b": ((32, 32), 256),
+            "imgmax": ((80, 64), 1280)}
+    if grids != want or 1120 * 896 != MAX_PIXELS:
+        raise AssertionError(f"processed grids {grids} != {want}")
+    return out
+
+
+def vl_prompt(parts, embeds: dict, processed: dict):
+    """(ids, mm_embeds) of ``parts``: token-id lists and image names (each
+    its placeholder run of ``VL_IMAGE_TOKEN``)."""
+    import numpy as np
+
+    ids, rows, positions, grids = [], [], [], []
+    for p in parts:
+        if isinstance(p, str):
+            n = processed[p].num_placeholder_tokens
+            positions += range(len(ids), len(ids) + n)
+            rows.append(embeds[p])
+            grids.append(processed[p].llm_grid)
+            ids += [VL_IMAGE_TOKEN] * n
+        else:
+            ids += list(p)
+    if not rows:
+        return ids, None
+    return ids, (np.concatenate(rows), np.asarray(positions), grids)
+
+
+def _vl_text(n: int, seed: int) -> list:
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(1000, 120000, n).tolist()
+
+
+def vl_requests(engine, processed: dict):
+    """Phase 12's requests for ``drive_engine``, each image encoded by the
+    engine's own tower: the 1280-token image (3 chunks of 512 through its
+    run), a 256-token image, two images in one request, a text request; then,
+    once ``img448`` finished, the same image behind the same ids (a prefix
+    hit) and another image behind them (none: the first page holds image
+    rows)."""
+    embeds = {n: engine.encode_image(p.pixel_values, p.grid) for n, p in processed.items()}
+    req = lambda *parts: vl_prompt(parts, embeds, processed)  # noqa: E731
+    first = [("imgmax", *req(_vl_text(10, 1), "imgmax", _vl_text(20, 2))),
+             ("img448", *req(_vl_text(4, 3), "img448", _vl_text(30, 4))),
+             ("two", *req(_vl_text(8, 5), "img448", _vl_text(8, 6), "img448b", _vl_text(8, 7))),
+             ("text", _vl_text(300, 8))]
+    later = [("img448_same", *req(_vl_text(4, 3), "img448", _vl_text(30, 4))),
+             ("img448_other", *req(_vl_text(4, 3), "img448b", _vl_text(30, 4)))]
+    return first, later, "img448"
+
+
+def vl_tower_work(vcfg, n: int) -> dict:
+    """Operations of one ``forward_vision`` over ``n`` patches, by the type
+    they run in: the products in the tower's dtype (bf16), the attention's
+    two float32 products; and its weight bytes."""
+    H, I, P, m2 = vcfg.hidden_size, vcfg.intermediate_size, vcfg.patch_dim, vcfg.merge_size ** 2
+    L, nh, d = vcfg.num_layers, vcfg.num_heads, vcfg.head_dim
+    low = (2 * n * P * H + L * 2 * n * (3 * H * H + H * H + 2 * H * I)
+           + 2 * (n // m2) * (m2 * H) * (m2 * H + vcfg.out_hidden_size))
+    f32 = L * 2 * (2 * nh * n * n * d)
+    weights = 2 * (P * H + L * (4 * H * H + 2 * H * I) + (m2 * H) * (m2 * H + vcfg.out_hidden_size))
+    return dict(bf16_flops=low, f32_flops=f32, weight_bytes=weights,
+                pixel_bytes=n * P * 4, out_bytes=(n // m2) * vcfg.out_hidden_size * 2)
+
+
+def vl_tower(cfg, dev, card: str, processed: dict) -> dict:
+    """(a) The tower: float32 at ``VL_TOWER_CHECK_LAYERS`` layers on the card
+    against the CPU for both image sizes; bf16 at full depth timed for
+    both against its operations bound, and its peak memory above the
+    weights for the largest image against the planner's reserve."""
+    import dataclasses
+
+    import torch
+
+    from smg_tpu_torch.models.vit import forward_vision, init_vision_params, vision_peak_bytes
+
+    out = {}
+    v32 = dataclasses.replace(cfg.vision, num_layers=VL_TOWER_CHECK_LAYERS, dtype="float32")
+    p32 = init_vision_params(v32, torch.Generator(device=dev).manual_seed(5), dev)
+    host = _map_tree(p32, lambda t: t.cpu())
+    for name in ("img448", "imgmax"):
+        p = processed[name]
+        got = forward_vision(p32, v32, p.pixel_values, p.grid).cpu()
+        t0 = time.perf_counter()
+        want = forward_vision(host, v32, p.pixel_values.cpu(), p.grid)
+        cpu_s = time.perf_counter() - t0
+        err = float((got - want).abs().max())
+        ok = bool(((got - want).abs() <= VL_TOWER_ATOL + VL_TOWER_RTOL * want.abs()).all())
+        out[f"f32_{name}_max_abs_err"] = err
+        print(f"  tower float32, {VL_TOWER_CHECK_LAYERS} layers, {name} {tuple(p.grid)}: card "
+              f"against the CPU max_abs_err {err:.3e} (max |out| "
+              f"{float(want.abs().max()):.3f}; CPU {cpu_s:.1f} s) {'ok' if ok else 'FAIL'}")
+        if not ok or not torch.isfinite(got).all():
+            raise AssertionError(f"the tower on the card disagrees with the CPU ({err:.3e})")
+    del p32, host
+    vcfg = cfg.vision
+    tower = init_vision_params(vcfg, torch.Generator(device=dev).manual_seed(0 ^ 0x71510), dev)
+    for name in ("img448", "imgmax"):
+        p = processed[name]
+        n = p.grid[0] * p.grid[1]
+        run = lambda: forward_vision(tower, vcfg, p.pixel_values, p.grid)  # noqa: E731, B023
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        emb = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if emb.shape != (n // 4, cfg.hidden_size) or not torch.isfinite(emb).all():
+            raise AssertionError(f"tower output {tuple(emb.shape)} for {name}")
+        del emb
+        ms = cuda_ms(run, warmup=1, reps=5)
+        w = vl_tower_work(vcfg, n)
+        low_ms, f32_ms = w["bf16_flops"] / BF16_FLOPS * 1e3, w["f32_flops"] / F32_FLOPS * 1e3
+        bytes_ms = (w["weight_bytes"] + w["pixel_bytes"] + w["out_bytes"]) / HBM_BYTES_PER_S * 1e3
+        bound = max(low_ms + f32_ms, bytes_ms)
+        reserve = vision_peak_bytes(vcfg, n)
+        out[name] = dict(patches=n, tokens=n // 4, ms=ms, bound_ms=bound,
+                         bound_bf16_ms=low_ms, bound_f32_ms=f32_ms, bytes_ms=bytes_ms,
+                         peak_bytes=peak, reserve_bytes=reserve, **w)
+        print(f"  [{card}] tower bf16, {vcfg.num_layers} layers, {name}: {n} patches -> "
+              f"{n // 4} tokens in {ms:.3f} ms of device time; bound {bound:.3f} ms "
+              f"(products {w['bf16_flops'] / 1e12:.3f} TFLOP at the bf16 peak: {low_ms:.3f} ms, "
+              f"attention {w['f32_flops'] / 1e12:.3f} TFLOP at the float32 peak: {f32_ms:.3f} "
+              f"ms; bytes {bytes_ms:.3f} ms), {bound / ms:.3f} of it; peak {peak} bytes "
+              f"above the weights (planner's bound {reserve})")
+        if peak > reserve:
+            raise AssertionError(f"tower peak {peak} over the planner's reserve {reserve}")
+    out["tower_params"] = tower
+    return out
+
+
+def vl_image_column(engine, processed: dict, label: str) -> dict:
+    """Decode on 4 image lanes (each the 256-token image and text, 1000
+    tokens, an M-RoPE offset): the megastep graph with offsets replayed
+    alone with CUDA events (cold L2), beside phase 3's text-lane reading."""
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    runner = engine.runner
+    embeds = {"img448": engine.encode_image(processed["img448"].pixel_values,
+                                            processed["img448"].grid)}
+    outs = {}
+    engine.start()
+    for i in range(4):
+        ids, mm = vl_prompt([_vl_text(4, 40 + i), "img448", _vl_text(740, 50 + i)], embeds,
+                            processed)
+        outs[i] = []
+        engine.submit(ids, SamplingParams(temperature=0.0, max_new_tokens=64, ignore_eos=True),
+                      rid=f"imgcol{i}", on_output=outs[i].append, mm_embeds=mm)
+    wait_for(lambda: all(o and o[-1].finished for o in outs.values())
+             and not engine.has_work(), "image lanes")
+    engine.stop()
+    # the widest image-lane megastep the run captured, and the text-lane
+    # graph of the same shape (phase 3's profile captured it)
+    steps = [s for s in runner.graphs.steps.values()
+             if s.graph is not None and not s.use_pen and not s.use_lora]
+    image = [s for s in steps if s.use_mrope]
+    if not image:
+        raise AssertionError(f"[{label}] no captured megastep with M-RoPE offsets: "
+                             f"{sorted(runner.graphs.steps)}")
+    img = max(image, key=lambda s: (s.K, s.mp))
+    text = [s for s in steps if not s.use_mrope and (s.B, s.K) == (img.B, img.K)]
+    out = {}
+    for kind, s in (("image", img), ("text", max(text, key=lambda s: s.mp) if text else None)):
+        if s is not None:
+            out[kind] = dict(B=s.B, K=s.K, mp=s.mp,
+                             replay_ms_per_column=cuda_ms(s.graph.replay) / s.K)
+    print(f"  [{label}] decode column on 4 lanes, one graph replay alone: " + ", ".join(
+        f"{k} lanes {v['replay_ms_per_column']:.3f} ms (K {v['K']}, mp {v['mp']})"
+        for k, v in out.items()))
+    return out
+
+
+def vl_ttft(engine, processed: dict, label: str) -> dict:
+    """The 1280-token image request alone, prefix cache flushed: host ms of
+    its encode (synchronised) and from its submit to its first token."""
+    import torch
+
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    p = processed["imgmax"]
+    engine.flush_cache()
+    engine.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = engine.encode_image(p.pixel_values, p.grid)  # fetched to the host
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    ids, mm = vl_prompt([_vl_text(10, 1), "imgmax", _vl_text(20, 2)], {"imgmax": emb},
+                        processed)
+    got = []
+    t1 = time.perf_counter()
+    first = {}
+
+    def on_output(o):
+        if not got:
+            first["t"] = time.perf_counter()
+        got.append(o)
+
+    engine.submit(ids, SamplingParams(temperature=0.0, max_new_tokens=2, ignore_eos=True),
+                  rid="ttft", on_output=on_output, mm_embeds=mm)
+    wait_for(lambda: got and got[-1].finished and not engine.has_work(), "ttft request")
+    engine.stop()
+    out = dict(prompt_tokens=len(ids), encode_ms=enc_ms, prefill_ms=(first["t"] - t1) * 1e3)
+    out["ttft_ms"] = out["encode_ms"] + out["prefill_ms"]
+    print(f"  [{label}] TTFT of the {len(ids)}-token image request alone: "
+          f"{out['ttft_ms']:.2f} ms = encode {enc_ms:.2f} ms + submit to first token "
+          f"{out['prefill_ms']:.2f} ms")
+    return out
+
+
+def vl_http(engine, processed: dict, tok, label: str) -> dict:
+    """One image chat through the gateway ``serve`` runs (its context over
+    this engine on a free local port), the image a PNG data URI: the reply's
+    tokens equal the same pipeline driven directly (processor, encode, the
+    placeholder expanded, ``submit``), each alone with the prefix cache
+    flushed."""
+    import asyncio
+    import base64
+    import threading
+
+    from smg_tpu_torch.gateway.launch import build_context, serve_context
+    from smg_tpu_torch.multimodal.image import decode_image
+    from smg_tpu_torch.multimodal.ingest import expand_image_placeholders, flatten_content
+    from smg_tpu_torch.multimodal.processor import processor_for_worker
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    png = png_bytes(vl_image("img448"))
+    uri = "data:image/png;base64," + base64.b64encode(png).decode()
+    text_a, text_b = _words(_vl_text(6, 60)), _words(_vl_text(6, 61))
+    messages = [{"role": "user", "content": [
+        {"type": "text", "text": text_a}, {"type": "image_url", "image_url": {"url": uri}},
+        {"type": "text", "text": text_b}]}]
+    # the direct pipeline
+    model_id = engine.config.model_id
+    vcfg = engine.config.model.vision
+    proc = processor_for_worker(model_id, vcfg.patch_size, vcfg.merge_size,
+                                device=engine.runner.device)
+    p = proc.process(decode_image(png))
+    emb = engine.encode_image(p.pixel_values, p.grid)
+    flat = flatten_content(messages, tok.decode([VL_IMAGE_TOKEN], skip_special_tokens=False))
+    ids = tok.encode(tok.apply_chat_template(flat, add_generation_prompt=True))
+    ids, positions = expand_image_placeholders(ids, VL_IMAGE_TOKEN, [p.num_placeholder_tokens])
+    engine.flush_cache()
+    engine.start()
+    got = []
+    engine.submit(ids, SamplingParams(temperature=0.0, max_new_tokens=8, ignore_eos=True),
+                  rid="direct", on_output=got.append,
+                  mm_embeds=(emb, positions, [p.llm_grid]))
+    wait_for(lambda: got and got[-1].finished and not engine.has_work(), "direct image chat")
+    engine.stop()
+    direct = [t for o in got for t in o.new_token_ids]
+    engine.flush_cache()
+    ctx = build_context(engine, policy="cache_aware", drain_timeout_secs=5)
+    port = _free_port()
+    held = {}
+
+    async def serve():
+        held["loop"], held["stop"] = asyncio.get_running_loop(), asyncio.Event()
+        await serve_context(ctx, "127.0.0.1", port, held["stop"])
+
+    server = threading.Thread(target=lambda: asyncio.run(serve()), name="gateway")
+    server.start()
+    try:
+        wait_for(lambda: "stop" in held, "gateway start", timeout=60)
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                if _http(port, "GET", "/health")[0] == 200:
+                    break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        status, body = _http(port, "POST", "/v1/chat/completions", {
+            "model": model_id, "messages": messages, "max_tokens": 8, "temperature": 0,
+            "ignore_eos": True})
+        http_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if "stop" in held:
+            held["loop"].call_soon_threadsafe(held["stop"].set)
+        server.join(LOOP_WAIT_S)
+    if server.is_alive():
+        raise AssertionError("the gateway did not shut down")
+    ctx.registry.remove("inproc-0")
+    if status != 200:
+        raise AssertionError(f"[{label}] image chat over HTTP: {status} {body}")
+    reply = [int(w[1:]) for w in body["choices"][0]["message"]["content"].split()]
+    usage = body["usage"]
+    print(f"  [{label}] image chat over HTTP (a {len(png)}-byte PNG, {p.grid} patches): "
+          f"{status} in {http_ms:.1f} ms, prompt {usage['prompt_tokens']} tokens, "
+          f"completion {usage['completion_tokens']}; tokens equal the direct pipeline's: "
+          f"{reply == direct}")
+    if reply != direct or usage["prompt_tokens"] != len(ids):
+        raise AssertionError(f"[{label}] HTTP image chat {reply} ({usage}) != direct {direct} "
+                             f"({len(ids)} prompt tokens)")
+    return dict(status=status, http_ms=http_ms, png_bytes=len(png), prompt_tokens=len(ids),
+                tokens_equal=True)
+
+
+def vl_sharing(runs, label: str) -> dict:
+    """The same image behind the same ids shares KV; another image behind
+    them shares none."""
+    out = {}
+    for name, r in runs.items():
+        same, other = (r["results"][k].cached_tokens for k in ("img448_same", "img448_other"))
+        out[name] = dict(same=same, other=other)
+        if same <= 0 or other != 0:
+            raise AssertionError(f"[{label}/{name}] prefix sharing: same image {same} cached, "
+                                 f"another image {other}")
+    print(f"  [{label}] cached tokens, the same image again / another image behind the same "
+          f"ids: {out}")
+    return out
+
+
+def phase_vision(dev, card: str) -> dict:
+    """Phase 12: Qwen2-VL-7B at full width (random bf16 weights from seed
+    0, made on the card).  (a) the tower (``vl_tower``); (b) every request
+    of ``vl_requests`` at full depth through the graph path (auto-sized KV,
+    the vision reserve set aside), the decode profile, the image-lane
+    column, the image TTFT and one image chat over HTTP; (c) the first
+    ``VL_DEPTH_CUT`` layers through phase 3's three paths in float32 (the
+    greedy streams identical, the text request equal to itself alone) and
+    the graph and plain paths in bf16, held to the float32 run as phase 3
+    holds them."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.engine.kv_cache import plan_cache, vision_reserve_bytes
+    from smg_tpu_torch.models.config import ModelConfig
+    from smg_tpu_torch.models.llama import init_params
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  allocated before phase 12: {torch.cuda.memory_allocated(dev)} bytes")
+    cfg = ModelConfig.from_hf_config(QWEN2_VL_7B, dtype="bfloat16")
+    if (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.mrope_section,
+            cfg.vision.hidden_size, cfg.vision.num_layers) != VL_SHAPE:
+        raise AssertionError(f"Qwen2-VL-7B read as {cfg}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    lm_bytes = sum(t.numel() * t.element_size() for g in (params, params["layers"])
+                   for k, t in g.items() if k != "layers")
+    processed = vl_processed(dev)
+    out = dict(card=card, lm_weight_bytes=lm_bytes, init_s=time.perf_counter() - t0)
+    secs = out["seconds"] = {}
+    print("phase 12 (a): the vision tower")
+    t0 = time.perf_counter()
+    tower_out = vl_tower(cfg, dev, card, processed)
+    tower = tower_out.pop("tower_params")
+    out["tower"] = tower_out
+    tower_bytes = sum(t.numel() * t.element_size() for t in _tensors(tower))
+    print(f"  [{card}] Qwen2-VL-7B: {lm_bytes} bytes of bf16 LM weights and {tower_bytes} of "
+          f"tower weights")
+    secs["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    print("phase 12 (b): full width and depth, bf16, the graph path")
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    L = cfg.num_layers
+    sink = {}
+
+    def readings(label, engine):
+        runner = engine.runner
+        spec, free = runner.spec, runner.free_bytes
+        vres = vision_reserve_bytes(cfg)
+        without = plan_cache(cfg, engine.config.cache, free,
+                             reserve_bytes=runner.reserve_bytes - vres).num_pages
+        sink["pages"] = dict(with_reserve=spec.num_pages, without_reserve=without,
+                             vision_reserve_bytes=vres, free_bytes=free)
+        print(f"  [{label}] auto-sized pages: {spec.num_pages} with the vision reserve of "
+              f"{vres} bytes, {without} without it ({free} bytes free after the weights)")
+        sink["column"] = vl_image_column(engine, processed, label)
+        sink["ttft"] = vl_ttft(engine, processed, label)
+        sink["http"] = vl_http(engine, processed, tok, label)
+        return {}
+
+    runs = serve_paths(cfg, params, dev, VL_NEW, with_profile=True, auto_size=True,
+                       paths=PATHS[:1], requests=lambda e: vl_requests(e, processed),
+                       engine_kw=dict(tokenizer=tok, vision_params=tower), after=readings)
+    out["agreement"] = check_runs(runs, L, VL_NEW, "vl bf16", hit="img448_same")
+    out["sharing"] = vl_sharing(runs, "vl bf16")
+    out["paths"] = summarize(runs, card, "vl bf16")
+    out["launches"] = runs["graphs"]["launches"]
+    out["schedule"] = runs["graphs"]["stats"]
+    out["decode_profile_text"] = runs["graphs"]["profile"]
+    out.update(sink)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    print(f"phase 12 (c): the first {VL_DEPTH_CUT} layers, float32 and bf16")
+    cut = dataclasses.replace(cfg, num_layers=VL_DEPTH_CUT)
+    small = {k: v for k, v in params.items() if k != "layers"}
+    small["layers"] = {k: v[:VL_DEPTH_CUT].clone() for k, v in params["layers"].items()}
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs16 = serve_paths(cut, small, dev, VL_NEW, paths=(PATHS[0], PATHS[2]),
+                         requests=lambda e: vl_requests(e, processed),
+                         engine_kw=dict(tokenizer=tok, vision_params=tower))
+    check_runs(runs16, VL_DEPTH_CUT, VL_NEW, "vl bf16 cut", hit="img448_same")
+    vl_sharing(runs16, "vl bf16 cut")
+    _widen(small)
+    tower32 = _map_tree(tower, lambda t: t.float())
+    del tower
+    cut32 = dataclasses.replace(cut, dtype="float32",
+                                vision=dataclasses.replace(cut.vision, dtype="float32"))
+    alone = {}
+
+    def text_alone(label, engine):
+        engine.flush_cache()
+        alone[label] = engine.generate(prompt_ids=_vl_text(300, 8), sampling=SamplingParams(
+            temperature=0.0, max_new_tokens=VL_NEW, ignore_eos=True)).token_ids
+        return {}
+
+    runs32 = serve_paths(cut32, small, dev, VL_NEW, requests=lambda e: vl_requests(e, processed),
+                         engine_kw=dict(tokenizer=tok, vision_params=tower32), after=text_alone)
+    agree32 = check_runs(runs32, VL_DEPTH_CUT, VL_NEW, "vl f32 cut", hit="img448_same")
+    vl_sharing(runs32, "vl f32 cut")
+    n = len(runs32["plain"]["results"])
+    if agree32["streams_equal"] != {k: n for k in agree32["streams_equal"]} or \
+            max(agree32["logit_gap"].values()) > F32_LOGIT_ATOL:
+        raise AssertionError(f"vl f32 paths disagree: {agree32}")
+    for label, ids in alone.items():
+        if ids != runs32[label]["results"]["text"].token_ids:
+            raise AssertionError(f"[vl f32 cut/{label}] the text request alone "
+                                 f"{ids} != beside the images")
+    print(f"  [vl f32 cut] the text request alone equals its stream beside the images on "
+          f"every path: {sorted(alone)}")
+    ref = runs32["plain"]["logits"]
+    err = {name: max(float((a - b).abs().max()) for a, b in zip(runs16[name]["logits"], ref))
+           for name in runs16}
+    print(f"  [vl bf16 cut] first-token logits against the f32 run: " + ", ".join(
+        f"{k} max_abs_err={v:.3e}" for k, v in err.items()))
+    if not err["graphs"] <= BF16_ERR_RATIO * err["plain"]:
+        raise AssertionError(f"vl bf16 kernel logits {err} from the f32 run, more than "
+                             f"{BF16_ERR_RATIO} x the plain version's")
+    out["depth_cut"] = dict(f32_agreement=agree32, bf16_logit_err_vs_f32=err,
+                            f32=summarize(runs32, card, "vl f32 cut"),
+                            launches_f32=runs32["graphs"]["launches"])
+    del runs16, runs32, small, tower32
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["c"] = time.perf_counter() - t0
+    print(f"  phase 12 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def _map_tree(tree, fn):
+    """``fn`` over every tensor of a nested dict, in a new dict."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
 def threading_call(fn, result: dict):
     """Run ``fn`` on a thread of its own; its value lands in ``result``."""
     import threading
@@ -5005,7 +5595,8 @@ def ckpt_layers(root: Path) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", choices=("all", "kernels", "checkpoint", "moe", "api"),
+    ap.add_argument("--phases",
+                    choices=("all", "kernels", "checkpoint", "moe", "api", "vision"),
                     default="all")
     args = ap.parse_args(argv)
     try:
@@ -5069,6 +5660,14 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("moe")
+    vision = {}
+    if args.phases in ("all", "vision") and not failed:
+        print("phase 12: Qwen2-VL-7B (full width, 28 layers, a 32-layer vision tower)")
+        try:
+            vision = phase_vision(dev, card)
+        except Exception:
+            traceback.print_exc()
+            failed.append("vision")
     if failed:
         print(f"FAILED phases: {failed}")
         return 1
@@ -5099,13 +5698,15 @@ def main(argv=None) -> int:
             launches_moe=moe["launches"][name],
             # phase 10's graph path under the throughput mix policy (bf16)
             launches_throughput=engine["api_bf16"]["mix"]["throughput"]["launches"][name],
+            # phase 12's graph path (Qwen2-VL-7B image and text requests, bf16)
+            launches_vision=vision["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],
             plain_call_ms=r["plain_call_ms"], library_call_ms=r["library_call_ms"],
             timed_case=r["timed_case"], timed_cases=r["timed_cases"],
         ))
-    print(json.dumps({"engine": engine, "moe": moe, "card": card}))
+    print(json.dumps({"engine": engine, "moe": moe, "vision": vision, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 results + the background step loop (port of ``smg_tpu/engine/engine.py``:
 ``submit``, ``abort``, ``step``, ``generate``, ``start``/``stop``,
 ``loads``, ``audit``, ``flush_cache``, ``healthy``, ``dump_flight``,
-``metrics``, ``events``, ``embed``, ``start_profile``/``stop_profile`` and
-the LoRA adapter calls), with the draft-model proposer installed when
+``metrics``, ``events``, ``embed``, ``start_profile``/``stop_profile``,
+the LoRA adapter calls and, on a vision-language model, ``encode_image``
+and ``submit(mm_embeds=...)``), with the draft-model proposer installed when
 ``config.draft_model`` is set.
 
 Entry points run on the card: ``device=None`` means CUDA, and a machine
@@ -30,6 +31,7 @@ import time
 import uuid
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from smg_tpu_torch.constrained import JsonMachine, TokenFilter
@@ -78,9 +80,13 @@ class GenerationResult:
 
 class Engine:
     def __init__(self, config: EngineConfig, params: dict | None = None, device=None,
-                 attention: str = "kernel", tokenizer=None, draft_params: dict | None = None):
+                 attention: str = "kernel", tokenizer=None, draft_params: dict | None = None,
+                 vision_params: dict | None = None):
         """``draft_params`` gives the draft model (``config.draft_model``)
-        its weights; without them they are random, from ``draft_seed``."""
+        its weights; without them they are random, from ``draft_seed``.
+        ``vision_params`` gives a vision-language model's tower its weights
+        (``models.weights.load_vision_params``); without them they are
+        random, from the seed (the reference's ``seed ^ 0x71510``)."""
         if config.scheduler.speculative_tier == "draft" and config.draft_model is None:
             raise ValueError("scheduler.speculative_tier 'draft' requires a configured "
                              "draft model (EngineConfig.draft_model)")
@@ -94,6 +100,18 @@ class Engine:
             draft_params = init_params(
                 config.draft_model, torch.Generator(device=dev).manual_seed(config.draft_seed),
                 dev)
+        # the vision tower (VLM): resident before the runner sizes the KV
+        # caches, which also set its peak activations aside
+        self._vision_params = None
+        if config.model.vision is not None:
+            from smg_tpu_torch.models.vit import init_vision_params
+
+            dev = resolve_device(device)
+            if vision_params is None:
+                vision_params = init_vision_params(
+                    config.model.vision,
+                    torch.Generator(device=dev).manual_seed(config.seed ^ 0x71510), dev)
+            self._vision_params = _tree_to(vision_params, dev)
         self.runner = ModelRunner(config, params=params, device=device, attention=attention)
         # the engine's own registry; the gateway also registers it into its
         # registry, so /metrics is one scrape
@@ -135,8 +153,26 @@ class Engine:
         self._profile_dir: str | None = None
         self._profile_steps_left: int | None = None
 
-    #: multimodal input is not ported yet (the gateway reads this)
-    supports_vision = False
+    @property
+    def supports_vision(self) -> bool:
+        """The model has a vision tower (the gateway reads this)."""
+        return self._vision_params is not None
+
+    def encode_image(self, pixel_values, grid: tuple) -> np.ndarray:
+        """Vision-tower encode: pre-patchified pixels [N, patch_dim] (numpy
+        or a tensor) -> language-space embeddings [N / merge^2, hidden]
+        float32 on the host, the rows ``submit(mm_embeds=...)`` splices.
+        Runs eagerly on the engine's device under the engine lock, between
+        steps."""
+        from smg_tpu_torch.models.vit import forward_vision
+
+        if self._vision_params is None:
+            raise ValueError("model has no vision tower")
+        vcfg = self.config.model.vision
+        with self._lock, torch.inference_mode():
+            pv = torch.as_tensor(pixel_values, dtype=torch.float32).to(self.runner.device)
+            out = forward_vision(self._vision_params, vcfg, pv, (int(grid[0]), int(grid[1])))
+            return out.float().cpu().numpy()  # the blocking fetch
 
     # ---- submission ----
 
@@ -148,18 +184,36 @@ class Engine:
         """Queue a request; ``on_output`` receives its ``RequestOutput``s.
         ``timeout_secs`` is the request's budget: past it the scheduler ends
         it with finish ``timeout``, queued or running.  ``trace_id`` links
-        the flight-recorder timeline to the caller's trace.  Raises
-        ``QueueFullError`` under admission back-pressure or while draining,
-        and ``ValueError`` for an adapter that is not loaded and for input
-        this port does not take yet (``mm_embeds``)."""
-        if mm_embeds is not None:
-            raise ValueError("multimodal input (mm_embeds) is not ported to the "
-                             "PyTorch engine yet")
+        the flight-recorder timeline to the caller's trace.  ``mm_embeds``
+        = (embeds [M, E] float32, positions [M][, grids]) splices image
+        embeddings into the prompt at the placeholder positions; with the
+        per-image merged grids (gh, gw) and a model with an M-RoPE section,
+        the request takes M-RoPE position ids and its decode offset
+        (``engine/mrope.py``).  Raises ``QueueFullError`` under admission
+        back-pressure or while draining, and ``ValueError`` for an adapter
+        that is not loaded and for image input that does not fit the
+        prompt."""
         rid = rid or f"req-{uuid.uuid4().hex[:16]}"
         req = EngineRequest(rid=rid, prompt_ids=list(prompt_ids), sampling=sampling)
         req.trace_id = trace_id
         if timeout_secs is not None:
             req.deadline = time.monotonic() + max(timeout_secs, 0.0)
+        if mm_embeds is not None:
+            embeds, positions, *rest = mm_embeds
+            grids = rest[0] if rest else None  # per-image merged (gh, gw)
+            embeds = np.asarray(embeds, np.float32)
+            positions = np.asarray(positions, np.int64)
+            if positions.size and (positions.min() < 0
+                                   or positions.max() >= len(prompt_ids)):
+                raise ValueError("mm_embeds positions out of prompt range")
+            if embeds.shape[0] != positions.shape[0]:
+                raise ValueError("mm_embeds embeds/positions length mismatch")
+            req.mm_embeds = (embeds, positions)
+            if grids and self.config.model.mrope_section is not None:
+                from smg_tpu_torch.engine.mrope import image_runs_from_positions, mrope_positions
+
+                runs = image_runs_from_positions(positions, grids)
+                req.mrope_pos, req.mrope_delta = mrope_positions(len(prompt_ids), runs)
         if self.tokenizer is not None:
             req.detok = IncrementalDecoder(
                 self.tokenizer, skip_special_tokens=sampling.skip_special_tokens)
@@ -650,3 +704,10 @@ def collect_result(rid: str, chunks: list[RequestOutput]) -> GenerationResult:
         cached_tokens=chunks[0].cached_tokens if chunks else 0,
         logprobs=[x for c in chunks for x in c.logprobs],
     )
+
+
+def _tree_to(tree, device: torch.device):
+    """A nested dict of tensors moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

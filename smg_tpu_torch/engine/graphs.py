@@ -4,7 +4,7 @@ the JAX runner's compiled decode programs (``smg_tpu/engine/runner.py``,
 bucket, loop width, stop-id width, penalties and vocab mask).
 
 One ``Megastep`` exists per (B bucket, page-table width ``mp``, horizon K,
-stop-id width E, penalties on, vocab mask on, LoRA on).  It owns the
+stop-id width E, penalties on, vocab mask on, LoRA on, M-RoPE on).  It owns the
 launch's persistent device inputs, which the runner refreshes only when the
 batch composition or the page tables change (``load``), and, on the card
 with graphs on, one CUDA graph of the whole megastep: every column's
@@ -12,7 +12,11 @@ forward, the side-buffer writes, the penalties and their count update, the
 sampler, the device stop mask and the final KV scatter.  The penalty count
 and prompt-mask buffers are the runner's, read and written in place; so is
 the LoRA bank, whose per-row slot indices load with the lane composition;
-the vocab mask (grammar lanes, K=1 only) is uploaded at every launch.  The
+so do the per-row M-RoPE decode offsets (the graph is keyed by
+``use_mrope`` as the reference keys its program: a composition without an
+M-RoPE lane runs the graph it always ran, and one with such a lane reads
+its offsets, zero for text rows, from a buffer the graph captured, never a
+tensor made at launch, which a replay would not see); the vocab mask (grammar lanes, K=1 only) is uploaded at every launch.  The
 first launch of a shape runs eagerly on the capture stream (the warm-up:
 first launches of a kernel instantiation set its attributes, cuBLAS sets up
 its workspace), and its results are that launch's; the shape is then
@@ -28,9 +32,10 @@ Horizons are few: powers of two under the cap, plus the adaptive
 controller's clamps.
 
 Speculative verify blocks (``runner._verify_step``) get graphs of their own,
-one per (B bucket, ``mp``, block width W): a ``VerifyStep`` holds the
-block's inputs (tokens ``[B, W]``, per-lane draft counts, entries, page
-tables, the sampling counter and parameters), all loaded at every launch,
+one per (B bucket, ``mp``, block width W, M-RoPE on): a ``VerifyStep``
+holds the block's inputs (tokens ``[B, W]``, per-lane draft counts,
+entries, page tables, the sampling counter and parameters, the M-RoPE
+offsets), all loaded at every launch,
 since a verify frame is rebuilt from the drafts of its step.  Per-lane
 draft counts ride a device tensor, so one graph serves every draft count.
 
@@ -64,12 +69,15 @@ class Megastep:
 
     def __init__(self, device: torch.device, B: int, mp: int, K: int, E: int,
                  use_pen: bool = False, use_mask: bool = False, vocab: int = 0,
-                 use_lora: bool = False):
+                 use_lora: bool = False, use_mrope: bool = False):
         i32, i64, f32 = torch.int32, torch.int64, torch.float32
         self.B, self.mp, self.K, self.E = B, mp, K, E
         self.use_pen, self.use_mask, self.use_lora = use_pen, use_mask, use_lora
+        self.use_mrope = use_mrope
         # each row's adapter slot (0 = none, padded rows 0)
         self.lora_idx = torch.zeros(B, dtype=i64, device=device) if use_lora else None
+        # each row's M-RoPE decode offset (0 for text and padded rows)
+        self.rope_delta = torch.zeros(B, dtype=i32, device=device) if use_mrope else None
         self.tokens = torch.zeros(B, dtype=i64, device=device)
         self.entry = torch.zeros(B, dtype=i32, device=device)
         self.counter = torch.zeros(1, dtype=i64, device=device)  # sampling step before col 0
@@ -120,6 +128,8 @@ class Megastep:
                     dst.copy_(torch.from_numpy(src), non_blocking=True)
             if self.use_lora:
                 self.lora_idx.copy_(torch.from_numpy(ds.lora_idx), non_blocking=True)
+            if self.use_mrope:
+                self.rope_delta.copy_(torch.from_numpy(ds.rope_delta), non_blocking=True)
             self.lane_sig = ds.lane_sig
         if self.pt_sig != ds.pt_sig:
             self.page_tables.copy_(torch.from_numpy(ds.page_tables), non_blocking=True)
@@ -137,9 +147,12 @@ class Megastep:
 class VerifyStep:
     """Persistent inputs, and the graph, of one verify-block shape."""
 
-    def __init__(self, device: torch.device, B: int, mp: int, W: int):
+    def __init__(self, device: torch.device, B: int, mp: int, W: int,
+                 use_mrope: bool = False):
         i32, i64, f32 = torch.int32, torch.int64, torch.float32
         self.B, self.mp, self.W = B, mp, W
+        self.use_mrope = use_mrope
+        self.rope_delta = torch.zeros(B, dtype=i32, device=device) if use_mrope else None
         self.tokens = torch.zeros((B, W), dtype=i64, device=device)
         self.draft_n = torch.zeros(B, dtype=i64, device=device)
         self.entry = torch.zeros(B, dtype=i32, device=device)
@@ -154,8 +167,11 @@ class VerifyStep:
         self.replay_launches = 0  # decode-kernel launches one replay runs (none)
 
     def load(self, tokens, draft_n, positions, page_tables, temps, topks, topps, minps,
-             counter: int) -> None:
+             counter: int, rope_delta=None) -> None:
         """Copy one launch's host inputs in, enqueued without a sync."""
+        if self.use_mrope:
+            self.rope_delta.copy_(torch.from_numpy(np.ascontiguousarray(rope_delta, np.int32)),
+                                  non_blocking=True)
         for dst, src, dt in ((self.tokens, tokens, np.int64), (self.draft_n, draft_n, np.int64),
                              (self.entry, positions, np.int32),
                              (self.page_tables, page_tables, np.int32),
@@ -241,19 +257,20 @@ class GraphCache:
                 "verify_capture_bytes": self.verify_capture_bytes}
 
     def get(self, B: int, mp: int, K: int, E: int, use_pen: bool = False,
-            use_mask: bool = False, vocab: int = 0, use_lora: bool = False) -> Megastep:
-        key = (B, mp, K, E, use_pen, use_mask, use_lora)
+            use_mask: bool = False, vocab: int = 0, use_lora: bool = False,
+            use_mrope: bool = False) -> Megastep:
+        key = (B, mp, K, E, use_pen, use_mask, use_lora, use_mrope)
         step = self.steps.get(key)
         if step is None:
             step = self.steps[key] = Megastep(self.device, B, mp, K, E, use_pen, use_mask,
-                                              vocab, use_lora)
+                                              vocab, use_lora, use_mrope)
         return step
 
-    def get_verify(self, B: int, mp: int, W: int) -> VerifyStep:
-        key = (B, mp, W)
+    def get_verify(self, B: int, mp: int, W: int, use_mrope: bool = False) -> VerifyStep:
+        key = (B, mp, W, use_mrope)
         step = self.verify.get(key)
         if step is None:
-            step = self.verify[key] = VerifyStep(self.device, B, mp, W)
+            step = self.verify[key] = VerifyStep(self.device, B, mp, W, use_mrope)
         return step
 
     def run(self, step, body) -> tuple:

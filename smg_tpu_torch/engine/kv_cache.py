@@ -79,6 +79,19 @@ def moe_reserve_bytes(model: ModelConfig, sched: SchedulerConfig) -> int:
             + moe_scratch_bytes(model, max(sched.decode_batch_buckets) * widest))
 
 
+def vision_reserve_bytes(model: ModelConfig) -> int:
+    """Device memory the vision tower needs beside the KV cache: its peak
+    above the weights (``models/vit.py::vision_peak_bytes``) for the largest
+    image the gateway's processor emits (``max_pixels``: 5120 patches at
+    patch 14).  ``encode_image`` runs eagerly on the allocator's own pool,
+    between steps.  0 for a text model."""
+    if model.vision is None:
+        return 0
+    from smg_tpu_torch.models.vit import max_patches, vision_peak_bytes
+
+    return vision_peak_bytes(model.vision, max_patches(model.vision))
+
+
 def plan_cache(model: ModelConfig, cache: CacheConfig,
                free_bytes: int | None = None,
                draft: ModelConfig | None = None,
@@ -87,7 +100,8 @@ def plan_cache(model: ModelConfig, cache: CacheConfig,
     figure (``torch.cuda.mem_get_info``, taken after the weights, the
     draft model's included, are resident), give ``hbm_utilization`` of it
     to KV; otherwise use the configured num_pages.  ``reserve_bytes``
-    (``moe_reserve_bytes``) comes off the free figure first: at 61 GB of
+    (``moe_reserve_bytes`` and ``vision_reserve_bytes``) comes off the
+    free figure first: at 61 GB of
     Qwen3-30B-A3B weights on an 80 GB card, the tenth that the utilization
     leaves is about 2 GB, less than a prefill chunk's expert scratch and a
     graph pool together.  A ``draft`` model (``engine/draft.py``) keeps a

@@ -66,6 +66,16 @@ class EngineRequest:
     penalty_synced: bool = False
     # LoRA adapter bank slot (0 = base model)
     lora_idx: int = 0
+    # multimodal embeddings spliced into the prompt at placeholder
+    # positions: (embeds [M, E] float32, positions [M] int64), host arrays
+    mm_embeds: tuple | None = None
+    # radix-key salt cache: (n_tokens covered, per-page salts), computed by
+    # the scheduler (Scheduler._mm_extra_keys)
+    mm_extra_keys: "tuple | None" = None
+    # M-RoPE (Qwen2-VL): [3, prompt_len] position ids and the decode
+    # position delta (engine/mrope.py); None = standard rope
+    mrope_pos: Any = None
+    mrope_delta: int = 0
     # speculative decoding: consecutive zero-acceptance verifies (back-off)
     # and the request's incremental n-gram index (engine/speculative.py)
     spec_cold: int = 0

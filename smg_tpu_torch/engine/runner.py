@@ -30,6 +30,16 @@ written in place by every load and unload, so graphs that read it stay
 valid.  A prefill or megastep with any adapter row takes the bank and a
 slot index per row; the megastep's key gains ``use_lora`` and its slot
 indices are a static input, loaded with the lane composition.
+
+Multimodal (the reference's ``use_embeds``/``use_mrope`` programs): a
+prefill row may carry the vision tower's embeddings for its placeholder
+positions (``mm`` = (dense [t, E] float32, mask [t] bool)) and M-RoPE ids
+(``[3, t]``; a text row of the same call rotates by three copies of its
+sequential position, which is exactly standard rope).  A megastep or verify
+block with an M-RoPE lane takes a per-row decode offset: its key gains
+``use_mrope`` and the offsets are a static input buffer, zero for text
+rows, loaded with the lane composition (the verify block's at every
+launch), so a replayed graph reads the offsets of the lanes it runs.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from smg_tpu_torch.engine.kv_cache import (
     create_kv_buffers,
     moe_reserve_bytes,
     plan_cache,
+    vision_reserve_bytes,
 )
 from smg_tpu_torch.engine.sampling import apply_penalties, pick_sampler, spec_accept_sample
 from smg_tpu_torch.models.llama import LlamaModel, init_params
@@ -81,7 +92,7 @@ class DecodeState:
 
     __slots__ = ("lane_sig", "temps", "topks", "topps", "minps",
                  "stop_ids", "limits", "live", "slot_idx", "freqs", "pres", "reps",
-                 "lora_idx", "pt_sig", "page_tables")
+                 "lora_idx", "rope_delta", "pt_sig", "page_tables")
 
     def __init__(self):
         self.lane_sig = self.pt_sig = None
@@ -95,17 +106,25 @@ class DecodeState:
         # [B] adapter slot per row (0 = none, padded rows 0), None when no
         # lane of the composition has an adapter
         self.lora_idx = None
+        # [B] M-RoPE decode offset per row (text and padded rows 0), None
+        # when no lane of the composition has one
+        self.rope_delta = None
         self.page_tables = None
 
     @property
     def use_pen(self) -> bool:
         return self.slot_idx is not None
 
+    @property
+    def use_mrope(self) -> bool:
+        return self.rope_delta is not None
+
     @classmethod
     def of(cls, page_tables, temps, topks, topps, minps, stop_state=None,
-           pen=None, lora_idx=None) -> "DecodeState":
+           pen=None, lora_idx=None, rope_delta=None) -> "DecodeState":
         """A one-off state from raw arrays (a fresh signature each call);
-        ``pen`` = (slot_idx, freqs, pres, reps); ``lora_idx`` [B]."""
+        ``pen`` = (slot_idx, freqs, pres, reps); ``lora_idx`` and
+        ``rope_delta`` [B]."""
         ds = cls()
         ds.lane_sig = ds.pt_sig = object()
         ds.page_tables = np.ascontiguousarray(page_tables, np.int32)
@@ -122,6 +141,8 @@ class DecodeState:
             ds.freqs, ds.pres, ds.reps = (np.asarray(x, np.float32) for x in pen[1:])
         if lora_idx is not None:
             ds.lora_idx = np.asarray(lora_idx, np.int64)
+        if rope_delta is not None:
+            ds.rope_delta = np.asarray(rope_delta, np.int32)
         return ds
 
 
@@ -167,8 +188,11 @@ class ModelRunner:
             # tensor holds (an earlier engine's, a widened dtype's) count as free
             torch.cuda.empty_cache()
             free = torch.cuda.mem_get_info(self.device)[0]
-        # the expert layer's scratch is set aside before KV is sized
-        self.reserve_bytes = moe_reserve_bytes(self.model_cfg, config.scheduler)
+        self.free_bytes = free  # the free figure the KV plan read (None on the CPU)
+        # the expert layer's scratch and the vision tower's peak at the
+        # largest image are set aside before KV is sized
+        self.reserve_bytes = (moe_reserve_bytes(self.model_cfg, config.scheduler)
+                              + vision_reserve_bytes(self.model_cfg))
         self.spec: KvCacheSpec = plan_cache(self.model_cfg, config.cache, free,
                                             draft=config.draft_model,
                                             reserve_bytes=self.reserve_bytes)
@@ -324,40 +348,78 @@ class ModelRunner:
     def prefill(self, token_ids: list[int], prefix_len: int, page_table: np.ndarray,
                 temperature: float, top_k: int, top_p: float, min_p: float,
                 pen: tuple | None = None, mask: np.ndarray | None = None,
-                lora_idx: int = 0) -> tuple[int, float]:
+                lora_idx: int = 0, mm: tuple | None = None,
+                rope_pos: np.ndarray | None = None) -> tuple[int, float]:
         """Run one (final) prefill chunk; returns (sampled_token, logprob).
         ``pen`` = (counts [V], prompt_mask [V], freq, pres, rep); ``mask``
         [V] bool, the sampleable vocabulary; ``lora_idx`` the adapter slot
-        (0 = none)."""
+        (0 = none); ``mm`` = (embeds [t, E] float32, emask [t] bool), the
+        multimodal splice; ``rope_pos`` [3, t] M-RoPE position ids."""
         if pen is not None:
             counts, pmask, freq, pres, rep = pen
             pen = (counts[None], pmask[None], [freq], [pres], [rep])
         toks, lps = self.prefill_batched(
             [(token_ids, prefix_len, page_table)], [temperature], [top_k],
             [top_p], [min_p], pen=pen, mask=None if mask is None else mask[None],
-            lora_idx=[lora_idx])
+            lora_idx=[lora_idx], mm=None if mm is None else [mm],
+            rope=None if rope_pos is None else [rope_pos])
         return int(toks[0]), float(lps[0])
 
     def prefill_extend(self, token_ids: list[int], prefix_len: int,
-                       page_table: np.ndarray, lora_idx: int = 0) -> None:
+                       page_table: np.ndarray, lora_idx: int = 0, mm: tuple | None = None,
+                       rope_pos: np.ndarray | None = None) -> None:
         """Write one NON-final chunk's KV: nothing is sampled."""
         self._check_chunk(len(token_ids), prefix_len, len(page_table))
-        self.model.forward_prefill(
-            self._i32(token_ids), self._i32([prefix_len]), self._i32([len(token_ids)]),
-            self.k_cache, self.v_cache, self._i32(page_table), compute_logits=False,
-            **self._lora_args([lora_idx]))
+        self.model.forward_prefill_batched(
+            self._i32([token_ids]), self._i32([prefix_len]), self._i32([len(token_ids)]),
+            self.k_cache, self.v_cache, self._i32([page_table]), compute_logits=False,
+            **self._lora_args([lora_idx]),
+            **self._mm_args(None if mm is None else [mm],
+                            None if rope_pos is None else [rope_pos],
+                            np.array([prefix_len]), len(token_ids)))
         self._count_prefill(1, len(token_ids))
+
+    def _mm_args(self, mm, rope, prefix_lens: np.ndarray, T: int) -> dict:
+        """The forward's multimodal arguments for per-row ``mm`` = (dense
+        [t, E], mask [t]) and ``rope`` [3, t] (None entries: text rows),
+        padded to ``T``: the splice ``input_embeds`` [G, T, E] float32 and
+        ``embeds_mask`` [G, T], and ``rope_pos`` [G, 3, T] whose text rows
+        hold three copies of the sequential position."""
+        out = {}
+        G = len(prefix_lens)
+        if mm is not None and any(m is not None for m in mm):
+            E = next(m[0].shape[1] for m in mm if m is not None)
+            dense = np.zeros((G, T, E), np.float32)
+            emask = np.zeros((G, T), bool)
+            for i, m in enumerate(mm):
+                if m is not None:
+                    dense[i, : m[0].shape[0]] = m[0]
+                    emask[i, : m[1].shape[0]] = m[1]
+            out["input_embeds"] = torch.as_tensor(dense, device=self.device)
+            out["embeds_mask"] = torch.as_tensor(emask, device=self.device)
+        if rope is not None and any(r is not None for r in rope):
+            rp = np.broadcast_to(
+                (np.asarray(prefix_lens, np.int64)[:, None] + np.arange(T))[:, None, :],
+                (G, 3, T)).astype(np.int32)
+            for i, r in enumerate(rope):
+                if r is not None:
+                    rp[i, :, : r.shape[1]] = r
+            out["rope_pos"] = torch.as_tensor(rp, device=self.device)
+        return out
 
     def prefill_batched(self, chunks, temps, topks, topps, minps,
                         pen: tuple | None = None, mask: np.ndarray | None = None,
-                        lora_idx=None) -> tuple[np.ndarray, np.ndarray]:
+                        lora_idx=None, mm: list | None = None,
+                        rope: list | None = None) -> tuple[np.ndarray, np.ndarray]:
         """Prefill several sequences' final chunks in one forward.  ``chunks``
         is a list of (token_ids, prefix_len, page_table_row); rows are padded
         to the longest chunk.  Returns (tokens [G], logprobs [G]).  One
         sampling step for the call: row i's noise is row i's.  ``pen`` =
         (counts [G, V], prompt_masks [G, V], freqs, pres, reps) penalises
         the float32 logits; ``mask`` [G, V] bool restricts the vocabulary;
-        ``lora_idx`` [G] the rows' adapter slots (None: no adapter)."""
+        ``lora_idx`` [G] the rows' adapter slots (None: no adapter); ``mm``
+        and ``rope`` per row (dense [t, E], mask [t]) and [3, t] M-RoPE ids,
+        None for a text row (both None: no row has any)."""
         G = len(chunks)
         T = max(len(c[0]) for c in chunks)
         mp = len(chunks[0][2])
@@ -373,7 +435,8 @@ class ModelRunner:
             page_tables[i] = row
         logits = self.model.forward_prefill_batched(
             self._i32(tokens), self._i32(prefix_lens), self._i32(t_reals),
-            self.k_cache, self.v_cache, self._i32(page_tables), **self._lora_args(lora_idx))
+            self.k_cache, self.v_cache, self._i32(page_tables), **self._lora_args(lora_idx),
+            **self._mm_args(mm, rope, prefix_lens, T))
         if pen is not None:
             counts, pmask, freqs, pres, reps = pen
             logits = apply_penalties(
@@ -407,6 +470,7 @@ class ModelRunner:
         JAX megastep's loop exit does.  ``ds.slot_idx`` set turns penalties
         on (rows read from and written back to the runner's buffers);
         ``ds.lora_idx`` set, with a bank loaded, adds each row's adapter;
+        ``ds.rope_delta`` set offsets each row's rotary position (M-RoPE);
         ``mask`` [B, V] bool restricts each row's vocabulary."""
         B, mp = ds.page_tables.shape
         E = ds.stop_ids.shape[1] if (num_steps > 1 and ds.stop_ids is not None) else 0
@@ -414,7 +478,7 @@ class ModelRunner:
             self._ensure_penalty_buffers()  # before any capture reads them
         use_lora = ds.lora_idx is not None and self._lora_bank is not None
         step = self.graphs.get(B, mp, num_steps, E, ds.use_pen, mask is not None,
-                               self.model_cfg.vocab_size, use_lora)
+                               self.model_cfg.vocab_size, use_lora, ds.use_mrope)
         step.load(ds, tokens, positions, self._consume_folds(num_steps), mask)
         if self._counters is None and self.device.type == "cuda" \
                 and self.model.attention == "kernel":
@@ -448,15 +512,15 @@ class ModelRunner:
                      page_tables: np.ndarray, temps, topks, topps, minps,
                      num_steps: int, stop_state: tuple | None = None,
                      pen: tuple | None = None, mask: np.ndarray | None = None,
-                     lora_idx=None) -> tuple[np.ndarray, np.ndarray]:
+                     lora_idx=None, rope_delta=None) -> tuple[np.ndarray, np.ndarray]:
         """Launch plus fetch.  Returns (tokens [B, n], logprobs [B, n]) with n
         the reference's ``steps_run``; ``stop_state`` = (stop_ids [B, E] -1
         padded, limits [B] absolute total-length caps, live [B] real-lane
         mask); None never stops early.  ``pen`` = (slot_idx [B], freqs [B],
         pres [B], reps [B]) over the runner's penalty rows; ``mask`` [B, V];
-        ``lora_idx`` [B] adapter slots."""
+        ``lora_idx`` [B] adapter slots; ``rope_delta`` [B] M-RoPE offsets."""
         ds = DecodeState.of(page_tables, temps, topks, topps, minps, stop_state, pen,
-                            lora_idx)
+                            lora_idx, rope_delta)
         toks, lps, n = self.decode_fetch(self.decode_multi_async(
             tokens, positions, ds, num_steps, mask))
         return toks[:, :n], lps[:, :n]
@@ -494,7 +558,7 @@ class ModelRunner:
         for j in range(N):
             logits = self.model.forward_decode_horizon(
                 cur, entry + j, entry, j, self.k_cache, self.v_cache, st.page_tables,
-                hk, hv, counters=self._counters, **lora)
+                hk, hv, counters=self._counters, rope_delta=st.rope_delta, **lora)
             if st.use_pen:
                 logits = apply_penalties(logits, counts, pmask, st.freqs, st.pres, st.reps)
             new, lps = sampler(logits, self.sample_seed, st.counter + (1 + j),
@@ -532,19 +596,20 @@ class ModelRunner:
     # ---- speculative verify block ----
 
     def decode_spec_async(self, tokens, draft_n, positions, page_tables, temps, topks,
-                          topps, minps) -> SpecLaunch:
+                          topps, minps, rope_delta=None) -> SpecLaunch:
         """Dispatch one fused verify block and return without a host sync.
         ``tokens`` [B, W] hold each lane's last committed token, its drafts
         and padding; ``draft_n`` [B] the lane's draft count (0 for padded
         rows); ``positions`` [B] the entries (padded rows: ``mp *
-        page_size``, which lands their KV on the garbage page).  Consumes
-        exactly one sampling counter, the one a K=1 launch would use at
-        this step, so a discarded frame rewinds it."""
+        page_size``, which lands their KV on the garbage page);
+        ``rope_delta`` [B] the lanes' M-RoPE offsets (None: no M-RoPE lane).
+        Consumes exactly one sampling counter, the one a K=1 launch would
+        use at this step, so a discarded frame rewinds it."""
         B, W = np.shape(tokens)
         mp = np.shape(page_tables)[1]
-        step = self.graphs.get_verify(B, mp, W)
+        step = self.graphs.get_verify(B, mp, W, rope_delta is not None)
         step.load(tokens, draft_n, positions, page_tables, temps, topks, topps, minps,
-                  self._consume_folds(1))
+                  self._consume_folds(1), rope_delta)
         toks, lps, n_emit = self.graphs.run(step, self._verify_step)
         self.stats["verify_calls"] += 1
         if self.device.type != "cuda":
@@ -583,7 +648,8 @@ class ModelRunner:
         ps = self.spec.page_size
         dev = self.device
         logits, bk, bv = self.model.forward_verify_block(
-            st.tokens, st.entry, self.k_cache, self.v_cache, st.page_tables)
+            st.tokens, st.entry, self.k_cache, self.v_cache, st.page_tables,
+            rope_delta=st.rope_delta)
         props = st.tokens[:, 1:]  # [B, W-1] drafted columns
         greedy = st.temps <= 0.0
         g = torch.argmax(logits, dim=-1)  # [B, W]

@@ -39,9 +39,17 @@ that keeps the reference's host logic for what it ports:
   are byte-identical to a run without the fault.  Consecutive failed steps
   are counted for ``Engine.healthy``;
 - the flight recorder's step ring and request timelines, the engine
-  metrics, and KV events from the radix cache.
+  metrics, and KV events from the radix cache;
+- LoRA lanes (a slot index per row) and multimodal requests: every prefill
+  path (budgeted chunks, ``_prefill_solo``, grouped prefill) splices the
+  request's image embeddings into its placeholder rows (``_mm_chunk``) and
+  rotates by its M-RoPE ids (``_mrope_chunk``); decode lanes, lookahead
+  and speculative lanes carry the request's M-RoPE offset; the radix cache
+  keys pages by their image content (``_mm_extra_keys``), so two images
+  behind the same placeholder ids never share KV, while the same image
+  does.
 
-Not ported yet: LoRA, multimodal.  A request that cannot be
+A request that cannot be
 admitted even with nothing else running (its prompt needs more pages than
 the pool can free) finishes with reason ``error`` naming
 ``OutOfPagesError``.
@@ -105,6 +113,7 @@ class InFlightFrame:
     folds: int = 1
     use_pen: bool = False
     use_lora: bool = False
+    use_mrope: bool = False
     spec: bool = False
     draft_ns: list | None = None
     tiers: list | None = None
@@ -829,7 +838,8 @@ class Scheduler:
         positions = frame.positions + np.int32(H)
         positions[frame.B_real:] = mp_b * self.ps  # padded rows -> garbage page
         ds = self._refresh_decode_state(lanes, frame.B, mp_b, frame.lane_sig,
-                                        use_pen=frame.use_pen, use_lora=frame.use_lora)
+                                        use_pen=frame.use_pen, use_lora=frame.use_lora,
+                                        use_mrope=frame.use_mrope)
         mark = self.runner.rng_mark()
         t_dispatch = time.perf_counter()
         launch = self.runner.decode_multi_async(frame.launch.last_col, positions, ds, H2)
@@ -838,7 +848,8 @@ class Scheduler:
             lanes=[(s, r, e + H) for s, r, e in frame.lanes], launch=launch,
             horizon=H2, B=frame.B, B_real=frame.B_real, mp_b=mp_b,
             positions=positions, lane_sig=frame.lane_sig, rng_mark=mark,
-            lookahead=True, folds=H2, use_pen=frame.use_pen, use_lora=frame.use_lora)
+            lookahead=True, folds=H2, use_pen=frame.use_pen, use_lora=frame.use_lora,
+            use_mrope=frame.use_mrope)
 
     # ---- prefill phase ----
 
@@ -987,10 +998,13 @@ class Scheduler:
             self.waiting.popleft()
             self._finish_unadmitted(req, FinishInfo(reason="length"), outputs)
             return "consumed"
-        # never match the full prompt: one token must run to give logits
+        # never match the full prompt: one token must run to give logits.
+        # Image requests match through per-page content salts: the same
+        # placeholder ids with other pixels hash to other chains
         shared_pages, node = [], None
         if self.radix is not None:
-            shared_pages, node = self.radix.match_prefix(prompt[:-1])
+            shared_pages, node = self.radix.match_prefix(
+                prompt[:-1], extra_keys=self._mm_extra_keys(req, len(prompt)))
         matched = len(shared_pages) * self.ps
         remaining = len(prompt) - matched
         if (budget_left is not None and remaining > budget_left
@@ -1045,7 +1059,9 @@ class Scheduler:
         chunk = req.all_token_ids[start : start + take]
         self.runner.prefill_extend(chunk, prefix_len=start,
                                    page_table=self.page_tables[req.slot],
-                                   lora_idx=req.lora_idx)
+                                   lora_idx=req.lora_idx,
+                                   mm=self._mm_chunk(req, start, len(chunk)),
+                                   rope_pos=self._mrope_chunk(req, start, len(chunk)))
         self.num_prefill_tokens += len(chunk)
         req.prefill_pos += len(chunk)
         req.seq_len = req.prefill_pos
@@ -1065,10 +1081,12 @@ class Scheduler:
             pen = (counts, pmask, sp.frequency_penalty, sp.presence_penalty,
                    sp.repetition_penalty)
         mask = self._mask_for(req) if req.token_filter is not None else None
+        n = len(prompt) - start
         tok, lp = self.runner.prefill(
             prompt[start:], prefix_len=start, page_table=self.page_tables[req.slot],
             temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p, min_p=sp.min_p,
-            pen=pen, mask=mask, lora_idx=req.lora_idx)
+            pen=pen, mask=mask, lora_idx=req.lora_idx, mm=self._mm_chunk(req, start, n),
+            rope_pos=self._mrope_chunk(req, start, n))
         self.num_prefill_tokens += len(prompt) - start
         req.prefill_pos = req.seq_len = len(prompt)
         req.status = RequestStatus.RUNNING
@@ -1084,6 +1102,80 @@ class Scheduler:
             self._prefill_chunk(req, self.sched.max_prefill_tokens)
         self._prefill_final(req, outputs)
 
+    def _mrope_chunk(self, req: EngineRequest, start: int, n: int):
+        """[3, n] M-RoPE ids for one prefill chunk, None for a request
+        without them.  Positions past the prompt (a re-prefill after
+        preemption re-runs generated tokens) are text: all three axes =
+        sequence position + delta."""
+        if req.mrope_pos is None:
+            return None
+        idx = np.arange(start, start + n)
+        out = np.broadcast_to((idx + req.mrope_delta)[None, :], (3, n)).astype(np.int32)
+        pl = req.mrope_pos.shape[1]
+        within = idx < pl
+        if within.any():
+            out[:, within] = req.mrope_pos[:, idx[within]]
+        return out
+
+    def _mm_extra_keys(self, req: EngineRequest, n_tokens: int | None = None
+                       ) -> "list[int] | None":
+        """Per-page content salts for radix keying (the reference's extra
+        keys mixed into the chain hashes): page p's salt digests the
+        embedding rows and in-page offsets of every placeholder position it
+        covers, and, under M-RoPE, its position ids wherever they leave the
+        sequential arange (the image pages and everything after them:
+        generated positions carry the delta); 0 = a page with neither.
+        ``n_tokens`` extends coverage past the prompt, for the insert at
+        finish."""
+        if req.mm_embeds is None:
+            return None
+        if n_tokens is None:
+            n_tokens = len(req.prompt_ids)
+        cached = req.mm_extra_keys
+        if cached is not None and cached[0] == n_tokens:
+            return cached[1]
+        import hashlib
+
+        embeds, positions = req.mm_embeds
+        n_pages = math.ceil(n_tokens / self.ps)
+        keys = [0] * n_pages
+        order = np.argsort(positions)
+        for p in range(n_pages):
+            lo, hi = p * self.ps, (p + 1) * self.ps
+            sel = order[(positions[order] >= lo) & (positions[order] < hi)]
+            mr = None
+            if req.mrope_pos is not None:
+                mslice = self._mrope_chunk(req, lo, min(hi, n_tokens) - lo)
+                seq = np.arange(lo, lo + mslice.shape[1], dtype=mslice.dtype)
+                if not (mslice == seq[None, :]).all():
+                    mr = mslice
+            if sel.size == 0 and mr is None:
+                continue
+            h = hashlib.blake2b(digest_size=8)
+            h.update(np.ascontiguousarray(positions[sel] - lo).tobytes())
+            h.update(np.ascontiguousarray(embeds[sel], np.float32).tobytes())
+            if mr is not None:
+                h.update(b"mrope")
+                h.update(np.ascontiguousarray(mr).tobytes())
+            keys[p] = int.from_bytes(h.digest(), "little") or 1
+        req.mm_extra_keys = (n_tokens, keys)
+        return keys
+
+    def _mm_chunk(self, req: EngineRequest, start: int, chunk_len: int):
+        """The request's image embeddings for one prefill chunk: a dense
+        [chunk_len, E] float32 buffer and the bool mask of its placeholder
+        rows; None for a request without images."""
+        if req.mm_embeds is None:
+            return None
+        embeds, positions = req.mm_embeds
+        sel = (positions >= start) & (positions < start + chunk_len)
+        out = np.zeros((chunk_len, embeds.shape[1]), np.float32)
+        m = np.zeros(chunk_len, bool)
+        idx = positions[sel] - start
+        out[idx] = embeds[sel]
+        m[idx] = True
+        return out, m
+
     def _prefill_group(self, group: list[EngineRequest], outputs: list[StepOutput]) -> None:
         """One batched prefill for a group of single-chunk prompts."""
         for req in group:
@@ -1098,11 +1190,16 @@ class Scheduler:
             counts, pmask = (np.stack(x) for x in zip(*map(self._req_pen_state, group)))
             pen = (counts, pmask, *self._pen_scalars(group, len(group)))
         use_lora = any(r.lora_idx for r in group)
+        mm = [self._mm_chunk(r, r.cached_tokens, len(c[0])) for r, c in zip(group, chunks)]
+        rope = [self._mrope_chunk(r, r.cached_tokens, len(c[0]))
+                for r, c in zip(group, chunks)]
         toks, lps = self.runner.prefill_batched(
             chunks, [s.temperature for s in sps], [s.top_k for s in sps],
             [s.top_p for s in sps], [s.min_p for s in sps], pen=pen,
             mask=self._masks(group, len(group)),
-            lora_idx=[r.lora_idx for r in group] if use_lora else None)
+            lora_idx=[r.lora_idx for r in group] if use_lora else None,
+            mm=mm if any(m is not None for m in mm) else None,
+            rope=rope if any(r is not None for r in rope) else None)
         for i, req in enumerate(group):
             self.num_prefill_tokens += len(chunks[i][0])
             req.seq_len = req.prefill_pos = req.total_len
@@ -1195,9 +1292,11 @@ class Scheduler:
 
     def _refresh_decode_state(self, active: list, B: int, mp_b: int, sig: tuple,
                               stop_e: int = 0, use_pen: bool = False,
-                              use_lora: bool = False) -> DecodeState:
+                              use_lora: bool = False,
+                              use_mrope: bool = False) -> DecodeState:
         """Bring the decode inputs up to date: sampling parameters, penalty
-        rows, adapter slots (``use_lora``) and stop state (``stop_e`` > 0:
+        rows, adapter slots (``use_lora``), M-RoPE offsets (``use_mrope``)
+        and stop state (``stop_e`` > 0:
         per-lane stop ids, absolute length limits, live-lane mask) only on a
         new composition ``sig``;
         page tables only on a new composition, width or page-table change.
@@ -1239,6 +1338,10 @@ class Scheduler:
             if use_lora:
                 ds.lora_idx = np.zeros(B, np.int64)  # padded rows: no adapter
                 ds.lora_idx[: len(active)] = [r.lora_idx for _, r in active]
+            ds.rope_delta = None
+            if use_mrope:
+                ds.rope_delta = np.zeros(B, np.int32)  # text and padded rows: 0
+                ds.rope_delta[: len(active)] = [r.mrope_delta for _, r in active]
             ds.lane_sig = sig
         if use_pen:
             for slot, req in active:
@@ -1329,10 +1432,11 @@ class Scheduler:
         E = self._stop_id_width(active) if max_steps > 1 else 0
         use_pen = any(r.sampling.has_penalties for _, r in active)
         use_lora = any(r.lora_idx for _, r in active)
-        sig = (B, use_pen, use_lora, max_steps, E,
+        use_mrope = any(r.mrope_delta for _, r in active)
+        sig = (B, use_pen, use_lora, use_mrope, max_steps, E,
                tuple((i, r.sched_serial) for i, r in active))
         ds = self._refresh_decode_state(active, B, mp_b, sig, stop_e=E, use_pen=use_pen,
-                                        use_lora=use_lora)
+                                        use_lora=use_lora, use_mrope=use_mrope)
         tokens = np.zeros(B, np.int64)
         positions = np.full(B, mp_b * self.ps, np.int32)  # padded rows -> garbage page
         for idx, (_slot, req) in enumerate(active):
@@ -1346,7 +1450,8 @@ class Scheduler:
         return InFlightFrame(
             lanes=[(i, r, r.seq_len) for i, r in active], launch=launch,
             horizon=horizon, B=B, B_real=B_real, mp_b=mp_b, positions=positions,
-            lane_sig=sig, rng_mark=mark, folds=horizon, use_pen=use_pen, use_lora=use_lora)
+            lane_sig=sig, rng_mark=mark, folds=horizon, use_pen=use_pen, use_lora=use_lora,
+            use_mrope=use_mrope)
 
     # ---- speculative decoding (two-tier drafting + fused batched verify) ----
     #
@@ -1503,6 +1608,8 @@ class Scheduler:
         topps = np.ones(B, np.float32)
         minps = np.zeros(B, np.float32)
         page_tables = np.zeros((B, mp_b), np.int32)
+        use_mrope = any(r.mrope_delta for _s, r, _p, _t in lanes)
+        rope_delta = np.zeros(B, np.int32) if use_mrope else None
         for idx, (slot, req, props, _tier) in enumerate(lanes):
             sp = req.sampling
             tokens[idx, 0] = req.output_ids[-1]
@@ -1512,10 +1619,13 @@ class Scheduler:
             temps[idx], topks[idx], topps[idx], minps[idx] = (
                 sp.temperature, sp.top_k, sp.top_p, sp.min_p)
             page_tables[idx] = self.page_tables[slot][:mp_b]
+            if use_mrope:
+                rope_delta[idx] = req.mrope_delta
         mark = self.runner.rng_mark()
         t_dispatch = time.perf_counter()
         launch = self.runner.decode_spec_async(tokens, draft_n, positions, page_tables,
-                                               temps, topks, topps, minps)
+                                               temps, topks, topps, minps,
+                                               rope_delta=rope_delta)
         self._note_dispatch(time.perf_counter() - t_dispatch)
         return InFlightFrame(
             lanes=[(s, r, r.seq_len) for s, r, _p, _t in lanes], launch=launch,
@@ -1669,7 +1779,8 @@ class Scheduler:
             full_pages = len(tokens) // self.ps
             all_pages = req.shared_pages + req.owned_pages
             n_shared = len(req.shared_pages)
-            dupes = self.radix.insert(tokens, all_pages[:full_pages])
+            dupes = self.radix.insert(tokens, all_pages[:full_pages],
+                                      extra_keys=self._mm_extra_keys(req, len(tokens)))
             to_free = [page for idx, page in dupes if idx >= n_shared]
             to_free.extend(all_pages[full_pages:])
             if to_free:
@@ -1783,7 +1894,9 @@ class Scheduler:
         all_pages = req.shared_pages + req.owned_pages
         to_free: list[int] = []
         if self.radix is not None and finish.reason != "error":
-            dupes = self.radix.insert(tokens, all_pages[:full_pages])
+            # image pages insert with their content salts
+            dupes = self.radix.insert(tokens, all_pages[:full_pages],
+                                      extra_keys=self._mm_extra_keys(req, len(tokens)))
             to_free.extend(page for idx, page in dupes if idx >= n_shared)
             to_free.extend(all_pages[full_pages:])  # partial tail pages
         else:

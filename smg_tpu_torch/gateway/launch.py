@@ -27,12 +27,13 @@ def build_engine_from_args(args):
     """A port ``Engine`` from the parsed ``serve`` flags, on ``--device``
     (the card by default): the checkpoint of ``--model-path`` (weights in
     ``--dtype``, its tokenizer, ``model_id`` = the path), or a preset with
-    random weights from ``seed``.  A draft model comes from
+    random weights from ``seed``; a vision-language checkpoint's tower loads
+    from the same directory.  A draft model comes from
     ``--draft-model-path`` (its checkpoint) or ``--draft-model-preset``."""
     from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
     from smg_tpu_torch.engine.engine import Engine
     from smg_tpu_torch.models.config import PRESETS, ModelConfig
-    from smg_tpu_torch.models.weights import load_params
+    from smg_tpu_torch.models.weights import load_params, load_vision_params
     from smg_tpu_torch.tokenizer import MockTokenizer
 
     if args.model_path:
@@ -42,6 +43,9 @@ def build_engine_from_args(args):
             raise SystemExit(f"unknown --model-preset {args.model_preset!r}; "
                              f"known: {sorted(PRESETS)}")
         model = dataclasses.replace(PRESETS[args.model_preset](), dtype=args.dtype)
+        if model.vision is not None:  # the tower computes in the same dtype
+            model = dataclasses.replace(
+                model, vision=dataclasses.replace(model.vision, dtype=args.dtype))
     else:
         raise SystemExit("need --model-path or --model-preset")
     draft_model = draft_params = None
@@ -93,7 +97,11 @@ def build_engine_from_args(args):
         flight_dump_dir=args.flight_dump_dir,
         flight_dump_min_interval_secs=args.flight_dump_min_interval_secs,
     )
-    params = load_params(cfg, device=args.device) if args.model_path else None
+    params = vision_params = None
+    if args.model_path:
+        params = load_params(cfg, device=args.device)
+        if model.vision is not None:
+            vision_params = load_vision_params(cfg, device=args.device)
     if cfg.tokenizer_path:
         tokenizer = load_tokenizer(cfg.tokenizer_path)
     else:
@@ -103,7 +111,7 @@ def build_engine_from_args(args):
             bos_token_id=model.bos_token_id,
         )
     return Engine(cfg, params=params, tokenizer=tokenizer, device=args.device,
-                  draft_params=draft_params)
+                  draft_params=draft_params, vision_params=vision_params)
 
 
 def load_tokenizer(path: str):

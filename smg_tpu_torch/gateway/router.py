@@ -34,7 +34,7 @@ from smg_tpu_torch.gateway.worker_client import (
     WorkerQueueFullError,
     WorkerStreamChunk,
 )
-from smg_tpu_torch.gateway.workers import Worker, WorkerRegistry
+from smg_tpu_torch.gateway.workers import Worker, WorkerRegistry, WorkerType
 from smg_tpu_torch.policies import PolicyRegistry, RequestContext
 from smg_tpu_torch.protocols.openai import (
     ChatCompletionChoice,
@@ -154,8 +154,11 @@ class Router:
         sampling: SamplingParams,
         rid: str,
         tokenizer,
+        mm: tuple | None = None,
     ):
-        """Async generator of StreamEvent with retry-on-dispatch-failure."""
+        """Async generator of StreamEvent with retry-on-dispatch-failure;
+        ``mm`` = (embeds, positions[, grids]), the image splice riding the
+        dispatch."""
         if sampling.regex or sampling.ebnf:
             # malformed patterns are a client error at the front door, not
             # a retried 502 when a worker's submit raises
@@ -241,6 +244,7 @@ class Router:
                 try:
                     wreq = WorkerGenerateRequest(
                         rid=rid, input_ids=input_ids, sampling=worker_sampling,
+                        mm_embeds=mm,
                         timeout_secs=(max(budget_deadline - time.monotonic(), 0.0)
                                       if budget_deadline is not None else None),
                     )
@@ -412,25 +416,186 @@ class Router:
 
         return is_harmony_model(model)
 
+    async def worker_info(self, worker: Worker) -> dict:
+        """Worker model info, cached after the first fetch (static per
+        process: model identity, vision caps, page size)."""
+        info = getattr(worker, "_model_info", None)
+        if info is None:
+            info = await worker.client.get_model_info()
+            worker._model_info = info
+        return info
+
+    async def _vision_worker(self, model_id: str | None) -> tuple[Worker, dict]:
+        """Pick a worker for the encode leg (the reference's EncodeStage):
+        dedicated ENCODE workers first, then any vision-capable worker."""
+        candidates = [w for w in self._candidate_workers(model_id)
+                      if not getattr(w.client, "proxy_mode", False)]
+        encode_pool = [w for w in candidates if w.worker_type == WorkerType.ENCODE]
+        saw_vision_capable = saw_unknown = False
+        # an unavailable encode pool must not mask capable regular workers
+        for w in encode_pool + [w for w in candidates if w not in encode_pool]:
+            try:
+                info = await self.worker_info(w)
+            except Exception:  # noqa: BLE001 — unreachable: capability undetermined
+                saw_unknown = True
+                continue
+            if not info.get("supports_vision"):
+                continue
+            saw_vision_capable = True
+            if w.is_available():
+                return w, info
+        if saw_vision_capable or saw_unknown:
+            # the capability exists (or cannot be ruled out): availability is
+            # the transient problem, a 503 and not a permanent-looking 400
+            raise RouteError(503, "no vision-capable workers available",
+                             "service_unavailable")
+        raise RouteError(400, f"model {model_id or 'default'} does not support image input")
+
     async def prepare_chat(self, req: ChatCompletionRequest):
-        """Returns (tokenizer, prompt_text, input_ids, sampling), inside the
-        ``engine.tokenize`` stage span."""
+        """Chat preparation, the multimodal encode leg included, inside one
+        ``engine.tokenize`` stage span.  Returns (tokenizer, prompt_text,
+        input_ids, sampling, mm): ``mm`` is None for a text-only request,
+        else (embeds [M, E] f32, positions [M][, grids])."""
         with stage("engine.tokenize"):
-            return self._prepare_chat(req)
+            return await self._prepare_chat_any(req)
+
+    async def _prepare_chat_any(self, req: ChatCompletionRequest):
+        """The image pipeline (the reference's EncodeStage): image content
+        parts -> decode -> the worker's processor (resize, normalize,
+        patchify) -> the worker's encode -> the placeholder token expanded
+        by each image's token count -> splice positions."""
+        import numpy as np
+
+        from smg_tpu_torch.multimodal.ingest import (
+            ImageIngestError,
+            expand_image_placeholders,
+            extract_image_parts,
+            fetch_image,
+            flatten_content,
+        )
+        from smg_tpu_torch.multimodal.pixel_cache import (
+            get_pixel_cache,
+            image_source_hash,
+            processor_fingerprint,
+        )
+        from smg_tpu_torch.multimodal.processor import processor_for_worker
+
+        messages = [m.model_dump(exclude_none=True) for m in req.messages]
+        parts = extract_image_parts(messages)
+        if not parts:
+            return (*self._prepare_chat(req), None)
+        if self._is_harmony(req.model):
+            # gpt-oss is text-only (the reference's builder rejects media)
+            raise RouteError(400, "harmony (gpt-oss) models accept text input only")
+        tokenizer = self.tokenizers.get(req.model or None)
+        if tokenizer is None:
+            raise RouteError(500, "no tokenizer registered for gateway-side processing")
+        worker, info = await self._vision_worker(req.model or None)
+        image_token_id = int(info.get("image_token_id") or 0)
+        placeholder = tokenizer.decode([image_token_id], skip_special_tokens=False)
+        try:
+            proc = processor_for_worker(
+                req.model or info.get("model_id") or "",
+                patch_size=info.get("vision_patch_size"),
+                merge_size=info.get("vision_merge_size"), device=info.get("device"))
+        except NotImplementedError as e:
+            raise RouteError(400, str(e))
+        loop = asyncio.get_running_loop()
+        pixel_cache = get_pixel_cache()
+        proc_fp = processor_fingerprint(proc) if pixel_cache is not None else ""
+
+        async def encode(pv, grid, n_tok):
+            e = await worker.client.encode_image(pv, grid)
+            if e.shape[0] != n_tok:
+                raise RouteError(502, f"encode returned {e.shape[0]} embeddings for "
+                                      f"{n_tok} placeholder tokens", "worker_error")
+            return np.asarray(e, np.float32)
+
+        async def one_image(part, session):
+            cache_key = None
+            if pixel_cache is not None:
+                cache_key = (image_source_hash(part), proc_fp)
+                hit = pixel_cache.get(cache_key)
+                if hit is not None:
+                    # fetch, decode and preprocessing skipped; the encode
+                    # still runs (embeddings are worker-side state)
+                    pv, grid, n_tok, llm_grid = hit
+                    return await encode(pv, grid, n_tok), n_tok, llm_grid
+            img = await fetch_image(part, http_session=session)
+            # preprocessing is device work: keep it off the event loop
+            pimg = await loop.run_in_executor(None, proc.process, img)
+            if cache_key is not None:
+                pixel_cache.put(cache_key, (
+                    pimg.pixel_values.cpu().numpy(), pimg.grid,
+                    pimg.num_placeholder_tokens, pimg.llm_grid))
+            e = await encode(pimg.pixel_values, pimg.grid, pimg.num_placeholder_tokens)
+            # the processor owns the geometry: llm_grid is set only when the
+            # placeholder run is a planar grid (M-RoPE input)
+            return e, pimg.num_placeholder_tokens, pimg.llm_grid
+
+        session = None
+        try:
+            needs_http = any(
+                str((p.get("image_url") or {}).get("url", "")
+                    if isinstance(p.get("image_url"), dict) else p.get("image_url") or "")
+                .startswith(("http://", "https://"))
+                or (p.get("source") or {}).get("type") == "url"
+                for p in parts)
+            if needs_http:
+                import aiohttp
+
+                session = aiohttp.ClientSession()  # one pool for all fetches
+            # fetch -> preprocess -> encode run concurrently per image, in
+            # prompt order; on the first failure the siblings are cancelled
+            # and drained, so nothing touches the session after it closes
+            tasks = [asyncio.ensure_future(one_image(p, session)) for p in parts]
+            try:
+                results = await asyncio.gather(*tasks)
+            except BaseException:
+                for t in tasks:
+                    t.cancel()
+                await asyncio.gather(*tasks, return_exceptions=True)
+                raise
+        except ImageIngestError as e:
+            raise RouteError(400, str(e))
+        except RouteError:
+            raise
+        except Exception as e:  # noqa: BLE001 — the encode leg's boundary
+            logger.exception("image encode failed")
+            raise RouteError(502, f"image encode failed: {e}", "worker_error")
+        finally:
+            if session is not None:
+                await session.close()
+        embeds = [e for e, _, _ in results]
+        counts = [c for _, c, _ in results]
+        grids = [g for _, _, g in results]
+
+        flat = flatten_content(messages, placeholder)
+        tools = [t.model_dump(exclude_none=True) for t in req.tools] if req.tools else None
+        try:
+            prompt_text = tokenizer.apply_chat_template(flat, add_generation_prompt=True,
+                                                        tools=tools)
+        except Exception as e:
+            raise RouteError(400, f"chat template failed: {e}")
+        # deliberately uncached encode: image prompts are dominated by unique
+        # image payloads, not repeated text
+        input_ids = tokenizer.encode(prompt_text)
+        try:
+            input_ids, positions = expand_image_placeholders(input_ids, image_token_id, counts)
+        except ImageIngestError as e:
+            raise RouteError(400, str(e))
+        sampling = req.to_sampling_params(self.config.default_max_tokens)
+        mm = (np.concatenate(embeds, axis=0), np.asarray(positions, np.int64))
+        if all(g is not None for g in grids):
+            # merged grids ride along for M-RoPE-capable workers
+            mm = mm + (grids,)
+        return tokenizer, prompt_text, input_ids, sampling, mm
 
     def _prepare_chat(self, req: ChatCompletionRequest):
         tokenizer = self.tokenizers.get(req.model or None)
         if tokenizer is None:
             raise RouteError(500, "no tokenizer registered for gateway-side processing")
         messages = [m.model_dump(exclude_none=True) for m in req.messages]
-        if any(isinstance(m.get("content"), list)
-               and any(p.get("type") != "text" for p in m["content"]) for m in messages):
-            if self._is_harmony(req.model):
-                # gpt-oss is text-only (the reference's builder rejects media)
-                raise RouteError(400, "harmony (gpt-oss) models accept text input only")
-            # the reference's answer when no worker has a vision tower
-            raise RouteError(
-                400, f"model {req.model or 'default'} does not support image input")
         tools = [t.model_dump(exclude_none=True) for t in req.tools] if req.tools else None
         if self._is_harmony(req.model):
             # harmony models bypass the chat template: the gateway renders the
@@ -461,7 +626,7 @@ class Router:
         return tokenizer, prompt_text, input_ids, sampling
 
     async def chat(self, req: ChatCompletionRequest, request_id: str | None = None):
-        tokenizer, prompt_text, input_ids, sampling = await self.prepare_chat(req)
+        tokenizer, prompt_text, input_ids, sampling, mm = await self.prepare_chat(req)
         rid = request_id or f"chatcmpl-{uuid.uuid4().hex[:24]}"
         ctx = RequestContext(
             text=prompt_text, token_ids=input_ids,
@@ -473,7 +638,8 @@ class Router:
             last: StreamEvent | None = None
             sub_rid = rid if sampling.n == 1 else f"{rid}-{choice_idx}"
             one_sampling = SamplingParams(**{**sampling.__dict__, "n": 1})
-            async for ev in self._execute(ctx, input_ids, one_sampling, sub_rid, tokenizer):
+            async for ev in self._execute(ctx, input_ids, one_sampling, sub_rid, tokenizer,
+                                          mm=mm):
                 text_parts.append(ev.text_delta)
                 last = ev
             if last is None:
@@ -552,7 +718,7 @@ class Router:
 
     async def chat_stream(self, req: ChatCompletionRequest, request_id: str | None = None):
         """Async generator of ChatCompletionStreamChunk."""
-        tokenizer, prompt_text, input_ids, sampling = await self.prepare_chat(req)
+        tokenizer, prompt_text, input_ids, sampling, mm = await self.prepare_chat(req)
         rid = request_id or f"chatcmpl-{uuid.uuid4().hex[:24]}"
         created = int(time.time())
         ctx = RequestContext(
@@ -631,7 +797,8 @@ class Router:
                 return text, reasoning, calls
 
             try:
-                async for ev in self._execute(ctx, input_ids, one_sampling, sub_rid, tokenizer):
+                async for ev in self._execute(ctx, input_ids, one_sampling, sub_rid, tokenizer,
+                                              mm=mm):
                     text, reasoning, calls = make_delta(ev.text_delta, flush=ev.finished)
                     delta = ChatStreamDelta(
                         role="assistant" if first else None,

@@ -1,8 +1,8 @@
 """Worker client abstraction: how the gateway talks to engine workers — the
 port's copy of ``smg_tpu/gateway/worker_client.py`` with its in-process
 transport.  ``InProcWorkerClient`` runs a port ``Engine`` in the gateway's
-process, with generation, embeddings, profiling and the LoRA calls; the
-gRPC transport, PD transfer and vision encode are not ported yet.
+process, with generation, embeddings, the vision encode, profiling and the
+LoRA calls; the gRPC transport and PD transfer are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ class WorkerGenerateRequest:
     input_ids: list[int]
     sampling: SamplingParams
     stream: bool = True
-    # multimodal splice (embeds, positions); the port's engine refuses it
+    # multimodal splice (embeds, positions[, grids])
     mm_embeds: tuple | None = None
     # remaining client budget in seconds: the engine expires the request in
     # queue or aborts it mid-generation with finish_reason="timeout"
@@ -84,6 +84,11 @@ class WorkerClient:
     async def embed(self, batches: list) -> list:
         """batches: list[list[int]] -> list[list[float]]."""
         raise NotImplementedError
+
+    async def encode_image(self, pixel_values, grid: tuple) -> "object":
+        """Vision-tower encode (the EPD encode leg): pre-patchified pixels
+        [N, patch_dim] f32 -> np.float32 [N/merge^2, lm_hidden]."""
+        raise NotImplementedError("worker has no vision tower")
 
     async def start_profile(self, output_dir: str, host_tracer: bool = True,
                             python_tracer: bool = False, num_steps: int = 0) -> dict:
@@ -212,8 +217,11 @@ class InProcWorkerClient(WorkerClient):
         return getattr(getattr(self, "engine", None), "metrics", None)
 
     async def get_model_info(self) -> dict:
+        """The reference's fields; ``device`` (the engine's, where the
+        gateway's image processor runs for an in-process worker) is the
+        port's own."""
         cfg = self.engine.config
-        return {
+        info = {
             "model_id": cfg.model_id,
             "max_seq_len": cfg.scheduler.max_seq_len,
             "vocab_size": cfg.model.vocab_size,
@@ -221,7 +229,15 @@ class InProcWorkerClient(WorkerClient):
             "page_size": cfg.cache.page_size,
             "supports_vision": self.engine.supports_vision,
             "supports_kv_transfer": False,
+            "device": str(self.engine.runner.device),
         }
+        if self.engine.supports_vision:
+            info.update(
+                image_token_id=cfg.model.image_token_id,
+                vision_patch_size=cfg.model.vision.patch_size,
+                vision_merge_size=cfg.model.vision.merge_size,
+            )
+        return info
 
     async def flush_cache(self) -> bool:
         return self.engine.flush_cache()
@@ -233,6 +249,10 @@ class InProcWorkerClient(WorkerClient):
         vecs = await asyncio.get_running_loop().run_in_executor(
             self._calls, self.engine.embed, [list(b) for b in batches])
         return [v.tolist() for v in vecs]
+
+    async def encode_image(self, pixel_values, grid: tuple) -> "object":
+        return await asyncio.get_running_loop().run_in_executor(
+            self._calls, self.engine.encode_image, pixel_values, grid)
 
     async def start_profile(self, output_dir: str, host_tracer: bool = True,
                             python_tracer: bool = False, num_steps: int = 0) -> dict:

@@ -1,9 +1,15 @@
 """Model architecture config — the port's own copy of
 ``smg_tpu/models/config.py``: the decoder fields, the HF ``config.json``
 loader for the families this port serves (Llama, Mistral, Qwen2/Qwen3,
-Gemma-2 and the Qwen-MoE family) and the presets (``PRESETS``, under the
-reference's names).  A vision-language config is refused rather than built
-as a text model: the vision tower is not ported.
+Gemma-2, the Qwen-MoE family and Qwen2-VL) and the presets (``PRESETS``,
+under the reference's names).
+
+A vision-language config is read as the reference reads it: a
+``vision_config`` builds a tower (``models/vit.py::VisionConfig``) only when
+the architecture's name has "vl" in it, and ``rope_scaling.mrope_section``
+turns on M-RoPE.  Like the reference, the mapping has no field for Qwen2's
+q/k/v projection biases, so a Qwen2-VL language model is served without
+them.
 
 Qwen-MoE configs are read exactly as the reference reads them: the expert
 count (``num_experts`` or ``num_routed_experts``), ``num_experts_per_tok``
@@ -55,16 +61,25 @@ class ModelConfig:
     # the rest local; pattern <= 0 = every layer windowed (Mistral)
     sliding_window: int | None = None
     sliding_window_pattern: int = 2
+    # vision tower (VLM; None = text-only).  ``image_token_id`` is the
+    # placeholder the gateway expands per image (Qwen2-VL <|image_pad|>)
+    vision: "object | None" = None  # models.vit.VisionConfig
+    image_token_id: int | None = None
+
+    @property
+    def mrope_section(self) -> "tuple[int, ...] | None":
+        """Qwen2-VL M-RoPE frequency split (t, h, w) from rope_scaling; None
+        = standard rope (engine/mrope.py)."""
+        if not self.rope_scaling:
+            return None
+        sec = self.rope_scaling.get("mrope_section")
+        return tuple(sec) if sec else None
 
     @classmethod
     def from_hf_config(cls, cfg: dict, dtype: str = "bfloat16") -> "ModelConfig":
         """The reference's mapping of an HF ``config.json`` (its fields,
-        defaults and family switches), for text models."""
+        defaults and family switches)."""
         name = (cfg.get("architectures") or ["LlamaForCausalLM"])[0].lower()
-        if cfg.get("vision_config"):
-            raise NotImplementedError(
-                f"{name}: the vision tower is not ported to the PyTorch engine yet "
-                "(ROADMAP Queue A item 10)")
         if "qwen3moe" in name or "qwen2moe" in name:
             arch = "qwen_moe"
         elif "qwen" in name:
@@ -88,6 +103,23 @@ class ModelConfig:
                 sliding_window=cfg.get("sliding_window"),
                 tie_word_embeddings=cfg.get("tie_word_embeddings", True),
             )
+        vision = None
+        vc = cfg.get("vision_config")
+        if vc and "vl" in name:
+            from smg_tpu_torch.models.vit import VisionConfig
+
+            vh = vc.get("embed_dim") or vc.get("hidden_size", 1280)
+            vision = VisionConfig(
+                hidden_size=vh,
+                intermediate_size=vc.get("intermediate_size") or vh * 4,
+                num_layers=vc.get("depth") or vc.get("num_hidden_layers", 32),
+                num_heads=vc.get("num_heads") or vc.get("num_attention_heads", 16),
+                patch_size=vc.get("patch_size", 14),
+                merge_size=vc.get("spatial_merge_size", 2),
+                in_channels=vc.get("in_channels", vc.get("in_chans", 3)),
+                out_hidden_size=cfg["hidden_size"],
+                dtype=dtype,
+            )
         return cls(
             arch=arch,
             vocab_size=cfg["vocab_size"],
@@ -109,6 +141,8 @@ class ModelConfig:
             num_experts=cfg.get("num_experts", cfg.get("num_routed_experts", 0)) or 0,
             num_experts_per_tok=cfg.get("num_experts_per_tok", 0) or 0,
             moe_intermediate_size=cfg.get("moe_intermediate_size", 0) or 0,
+            vision=vision,
+            image_token_id=cfg.get("image_token_id"),
             qk_norm="qwen3" in name,  # Qwen3 (dense and MoE): q/k RMSNorm before rope
             **extra,
         )
@@ -176,11 +210,30 @@ def tiny_moe_config() -> ModelConfig:
     )
 
 
+def tiny_vlm_config() -> ModelConfig:
+    """Tiny Qwen2-VL-style VLM for CPU tests: the tiny LLM and the tiny
+    vision tower.  Token 500 plays <|image_pad|>."""
+    from smg_tpu_torch.models.vit import tiny_vision_config
+
+    base = tiny_test_config()
+    return dataclasses.replace(
+        base, vision=tiny_vision_config(out_hidden_size=base.hidden_size),
+        image_token_id=500)
+
+
+def tiny_vlm_mrope_config() -> ModelConfig:
+    """Tiny VLM with Qwen2-VL M-RoPE on (head_dim 16 -> D/2 = 8 = 2+3+3
+    frequency sections)."""
+    return dataclasses.replace(
+        tiny_vlm_config(), rope_scaling={"type": "mrope", "mrope_section": [2, 3, 3]})
+
+
 #: ``serve --model-preset`` names, the reference's for the configs this port has
 PRESETS = {
     "tiny": tiny_test_config,
     "tiny-gemma2": tiny_gemma2_config,
     "tiny-moe": tiny_moe_config,
+    "tiny-vlm": tiny_vlm_config,
     "llama3.2-1b": llama32_1b_config,
     "llama3-8b": llama3_8b_config,
     "llama3-70b": llama3_70b_config,

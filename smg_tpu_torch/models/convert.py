@@ -5,7 +5,9 @@ The JAX side is handed over as nested dicts of numpy arrays (for example
 follow ``smg_tpu/models/llama.py::init_params``; the head axes are folded so
 each projection is one matmul in ``smg_tpu_torch/models/llama.py``.  A
 Qwen-MoE tree's ``router`` and expert stacks (``w_gate``/``w_up``
-``[L, X, E, Fm]``, ``w_down [L, X, Fm, E]``) keep their layout.
+``[L, X, E, Fm]``, ``w_down [L, X, Fm, E]``) keep their layout.  The
+vision tower's tree (``smg_tpu/models/vit.py::init_vision_params``) bridges
+through ``vision_params_from_jax`` with its nesting and layouts unchanged.
 """
 
 from __future__ import annotations
@@ -50,3 +52,13 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu",
         if key in tree:
             out[key] = _tensor(tree[key], device, dtype)
     return out
+
+
+def vision_params_from_jax(tree: dict, device: torch.device | str = "cpu",
+                           dtype: torch.dtype | None = None) -> dict:
+    """JAX vision-tower tree (numpy leaves) -> the port's tower parameters:
+    the same nested dicts (``patch_embed``, stacked ``layers``, ``merger``),
+    every leaf a tensor of the same shape."""
+    if isinstance(tree, dict):
+        return {k: vision_params_from_jax(v, device, dtype) for k, v in tree.items()}
+    return _tensor(tree, device, dtype)

@@ -26,6 +26,15 @@ of q, k, v and o adds ``lora_delta`` over every bank slot, gated one-hot
 the compat decode take no adapter: LoRA lanes are not speculated, as in the
 reference.
 
+Multimodal (Qwen2-VL): the prefill forwards splice the vision tower's
+embeddings into the placeholder rows (``input_embeds`` under
+``embeds_mask``) and, given ``rope_pos`` [3, T] a row, rotate q and k by
+M-RoPE; masking and cache destinations keep the sequential position.  The
+decode column, the verify block and the compat decode take a per-row
+``rope_delta``: rope uses ``position + delta``, cache slots use
+``position``.  The attention calls are unchanged, so an image prompt goes
+through the prefill kernel and an image lane through the decode kernel.
+
 Embeddings (``forward_embed``, the reference's XLA function of the same
 name) run dense causal attention in torch ops over right-padded rows, with
 no KV cache and no kernel.  The reference materialises float32 scores of
@@ -56,7 +65,7 @@ from smg_tpu_torch.ops.cuda.prefill_attention import (
     plain_prefill_batched,
 )
 from smg_tpu_torch.ops.norms import rms_norm
-from smg_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from smg_tpu_torch.ops.rope import _rotate_half, apply_rope, mrope_angles, rope_frequencies
 
 ATTENTION_IMPLS = ("kernel", "plain")
 EMBED_TOKEN_TILE = 4096  # padded tokens of one row tile of forward_embed
@@ -396,26 +405,40 @@ class LlamaModel(nn.Module):
 
     def forward_prefill(self, tokens, prefix_len, t_real, k_cache, v_cache, page_table,
                         compute_logits: bool = True, lora=None,
-                        lora_idx: torch.Tensor | None = None):
+                        lora_idx: torch.Tensor | None = None,
+                        input_embeds: torch.Tensor | None = None,
+                        embeds_mask: torch.Tensor | None = None,
+                        rope_pos: torch.Tensor | None = None):
         """Prefill one sequence chunk (``tokens`` [T], ``prefix_len`` and
         ``t_real`` [1] int32, ``page_table`` [mp] int32, all on the cache's
         device); writes its KV and returns the last token's logits [V] (None
         with ``compute_logits=False``: a non-final chunk).  ``lora`` is the
-        adapter bank and ``lora_idx`` [1] the sequence's slot."""
+        adapter bank and ``lora_idx`` [1] the sequence's slot;
+        ``input_embeds`` [T, E] and ``embeds_mask`` [T] bool the multimodal
+        splice, ``rope_pos`` [3, T] the M-RoPE position ids."""
         logits = self.forward_prefill_batched(
             tokens[None], prefix_len.reshape(1), t_real.reshape(1), k_cache, v_cache,
-            page_table[None], compute_logits=compute_logits, lora=lora, lora_idx=lora_idx)
+            page_table[None], compute_logits=compute_logits, lora=lora, lora_idx=lora_idx,
+            input_embeds=None if input_embeds is None else input_embeds[None],
+            embeds_mask=None if embeds_mask is None else embeds_mask[None],
+            rope_pos=None if rope_pos is None else rope_pos[None])
         return None if logits is None else logits[0]
 
     def forward_prefill_batched(self, tokens, prefix_lens, t_reals, k_cache, v_cache,
                                 page_tables, compute_logits: bool = True,
                                 lora=None,
-                                lora_idx: torch.Tensor | None = None):
+                                lora_idx: torch.Tensor | None = None,
+                                input_embeds: torch.Tensor | None = None,
+                                embeds_mask: torch.Tensor | None = None,
+                                rope_pos: torch.Tensor | None = None):
         """Prefill several sequences in one call: ``tokens`` [G, T] (rows
         padded past ``t_reals``), ``prefix_lens``/``t_reals`` [G] int32,
         ``page_tables`` [G, mp] int32, ``lora_idx`` [G] each row's adapter
-        slot in the bank ``lora`` (both None: no adapter).  Returns
-        last-token logits [G, V]."""
+        slot in the bank ``lora`` (both None: no adapter).  ``input_embeds``
+        [G, T, E] replace the token embeddings where ``embeds_mask`` [G, T]
+        is set (the multimodal splice); ``rope_pos`` [G, 3, T] are M-RoPE
+        position ids (text rows: three copies of the sequential position).
+        Returns last-token logits [G, V]."""
         cfg = self.cfg
         G_, T = tokens.shape
         K, D = cfg.num_kv_heads, cfg.head_dim
@@ -433,13 +456,25 @@ class LlamaModel(nn.Module):
         cd = k_cache.dtype
 
         h = self.embed_tokens(tokens)  # [G, T, E]
+        if input_embeds is not None:
+            # multimodal splice: placeholder rows take the vision tower's output
+            h = torch.where(embeds_mask[..., None], input_embeds.to(h.dtype), h)
         gates = self._gates(lora, lora_idx, h.dtype)
         if gates is not None:
             gates = gates[:, None, :]  # every token of a row takes its slot
+        # M-RoPE: 3-axis ids rotate sectioned frequencies (``apply_mrope``,
+        # its angles taken once for every layer); masking and cache
+        # destinations keep the sequential ``pos``
+        angles = (None if rope_pos is None
+                  else mrope_angles(rope_pos, self.inv_freq, cfg.mrope_section))
         for l in range(cfg.num_layers):
             q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]), lora, gates)
-            q = apply_rope(q, pos, self.inv_freq)
-            k = apply_rope(k, pos, self.inv_freq)
+            if angles is not None:
+                q = _rotate_half(q, angles)
+                k = _rotate_half(k, angles)
+            else:
+                q = apply_rope(q, pos, self.inv_freq)
+                k = apply_rope(k, pos, self.inv_freq)
             scatter_kv_pages_full(k_cache, v_cache, l, k.reshape(G_ * T, K, D),
                                   v.reshape(G_ * T, K, D), dest)
             window = layer_window(cfg, l)
@@ -463,7 +498,8 @@ class LlamaModel(nn.Module):
     def forward_decode_horizon(self, tokens, positions, entry_positions, step_idx: int,
                                k_cache, v_cache, page_tables, hk_all, hv_all,
                                counters=None, lora=None,
-                               lora_idx: torch.Tensor | None = None):
+                               lora_idx: torch.Tensor | None = None,
+                               rope_delta: torch.Tensor | None = None):
         """One decode column against the frozen cache + side buffers.
 
         ``tokens``/``positions`` [B] (positions = entry + step_idx),
@@ -475,17 +511,20 @@ class LlamaModel(nn.Module):
         so a CUDA graph can capture it; ``counters`` are the decode kernel's
         arrival counters (``ops/cuda/decode_attention.py``), preallocated
         by the caller for the largest batch it captures; ``lora_idx`` [B]
-        each row's slot in the adapter bank ``lora``."""
+        each row's slot in the adapter bank ``lora``; ``rope_delta`` [B] each
+        row's M-RoPE decode offset (generated tokens are text: the three
+        axes are equal, so rope takes ``positions + rope_delta``)."""
         cfg = self.cfg
         B = tokens.shape[0]
         KD = cfg.num_kv_heads * cfg.head_dim
         cd = k_cache.dtype
+        rope_positions = positions if rope_delta is None else positions + rope_delta
         h = self.embed_tokens(tokens)  # [B, E]
         gates = self._gates(lora, lora_idx, h.dtype)
         for l in range(cfg.num_layers):
             q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]), lora, gates)
-            q = apply_rope(q[:, None], positions[:, None], self.inv_freq)[:, 0]
-            k = apply_rope(k[:, None], positions[:, None], self.inv_freq)[:, 0]
+            q = apply_rope(q[:, None], rope_positions[:, None], self.inv_freq)[:, 0]
+            k = apply_rope(k[:, None], rope_positions[:, None], self.inv_freq)[:, 0]
             hk_all[l, :, step_idx] = k.reshape(B, KD).to(hk_all.dtype)
             hv_all[l, :, step_idx] = v.reshape(B, KD).to(hv_all.dtype)
             args = (q.to(cd).contiguous(), k_cache, v_cache, hk_all[l], hv_all[l],
@@ -499,7 +538,8 @@ class LlamaModel(nn.Module):
             h = self._mlp_residual(l, h)
         return self.unembed(h)
 
-    def forward_verify_block(self, tokens, entry_positions, k_cache, v_cache, page_tables):
+    def forward_verify_block(self, tokens, entry_positions, k_cache, v_cache, page_tables,
+                             rope_delta: torch.Tensor | None = None):
         """Speculative verify block: score W tokens per lane in one forward.
 
         ``tokens`` [B, W] (the last committed token, the drafts, padding)
@@ -507,12 +547,15 @@ class LlamaModel(nn.Module):
         [B] int32, ``page_tables`` [B, mp] int32.  The block's K/V goes to
         side buffers and the cache is read only: the caller scatters the
         accepted columns once acceptance is known, so a rejected draft's KV
-        never lands in a real slot.  Returns (logits [B, W, V], bk, bv
+        never lands in a real slot.  ``rope_delta`` [B] each lane's M-RoPE
+        decode offset (rope only).  Returns (logits [B, W, V], bk, bv
         [L, B, W, K*D]).  No host tensor and no sync: graph-capturable."""
         cfg = self.cfg
         B, W = tokens.shape
         L, KD = cfg.num_layers, cfg.num_kv_heads * cfg.head_dim
         pos = entry_positions.long()[:, None] + torch.arange(W, device=tokens.device)[None, :]
+        if rope_delta is not None:
+            pos = pos + rope_delta.long()[:, None]
         bk = torch.zeros((L, B, W, KD), dtype=k_cache.dtype, device=tokens.device)
         bv = torch.zeros_like(bk)
         h = self.embed_tokens(tokens)  # [B, W, E]
@@ -561,12 +604,14 @@ class LlamaModel(nn.Module):
         last = self._norm(last, self.final_norm).float()
         return last / last.norm(dim=-1, keepdim=True).clamp(min=1e-12)
 
-    def forward_decode(self, tokens, positions, k_cache, v_cache, page_tables):
+    def forward_decode(self, tokens, positions, k_cache, v_cache, page_tables,
+                       rope_delta: torch.Tensor | None = None):
         """One decode step for the batch (the compat path the draft
         proposer runs): ``tokens``/``positions`` [B] (position = the
         token's own, ctx len - 1), ``page_tables`` [B, mp] int32.  Writes
         each token's KV into the cache in place (positions past the table
-        go to the garbage page) and returns logits [B, V]."""
+        go to the garbage page) and returns logits [B, V].  ``rope_delta``
+        [B]: rope takes ``positions + rope_delta``, the cache ``positions``."""
         cfg = self.cfg
         B = tokens.shape[0]
         ps = k_cache.shape[2]
@@ -576,11 +621,12 @@ class LlamaModel(nn.Module):
         pos_c = pos.clamp(max=mp * ps - 1)
         page = torch.gather(page_tables.long(), 1, (pos_c // ps)[:, None])[:, 0]
         dest = torch.where(valid, page * ps + pos_c % ps, 0)
+        rope_positions = positions if rope_delta is None else positions + rope_delta
         h = self.embed_tokens(tokens)  # [B, E]
         for l in range(cfg.num_layers):
             q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]))
-            q = apply_rope(q[:, None], positions[:, None], self.inv_freq)[:, 0]
-            k = apply_rope(k[:, None], positions[:, None], self.inv_freq)[:, 0]
+            q = apply_rope(q[:, None], rope_positions[:, None], self.inv_freq)[:, 0]
+            k = apply_rope(k[:, None], rope_positions[:, None], self.inv_freq)[:, 0]
             scatter_kv_pages_full(k_cache, v_cache, l, k, v, dest)
             attn = attention_decode(
                 q, k_cache[l], v_cache[l], page_tables, positions, self.scale,

@@ -17,7 +17,9 @@ own (``mlp.experts.{e}.{gate,up,down}_proj.weight``, 18,432 of them in
 Qwen3-30B-A3B), each transposed into its slot of ``[L, X, ...]``.  As in the
 reference, Qwen2-MoE's shared expert has no key here and is not read.
 
-The vision tower (``load_vision_params``) waits for the multimodal port.
+The vision tower of a Qwen2-VL checkpoint (``visual.*``) loads through
+``load_vision_params`` the same way, into the tree
+``models/vit.py::init_vision_params`` gives.
 """
 
 from __future__ import annotations
@@ -147,4 +149,83 @@ def _load(cfg, ckpt: Checkpoint, device: torch.device, dtype: torch.dtype) -> di
             continue
         params[key] = one(name, linear)
         logger.info("loaded %s %s", key, tuple(params[key].shape))
+    return params
+
+
+def load_vision_params(engine_cfg, device=None) -> dict:
+    """The vision tower of ``engine_cfg.model`` from the Qwen2-VL-style HF
+    directory ``engine_cfg.model_path`` (``visual.*`` keys, through
+    ``models.vit.HF_VISION_MAPPING``), in the tower's dtype, on ``device``
+    (the card unless the caller asks for the CPU).  The reference's layout
+    transforms:
+
+    - the patch-embed conv ``[H, C, (T,) ps, ps]`` -> ``[patch_dim, H]``.  A
+      temporal axis (Qwen2-VL's Conv3d, T=2 frames) is summed away: for a
+      single image the temporal patch is the same frame repeated, and a conv
+      over a repeated frame is the conv with the summed kernel.  Elements go
+      in (ps, ps, C) order, ``multimodal.image.patchify``'s flatten;
+    - linears ``[out, in]`` -> ``[in, out]``;
+    - layer norms -> ``{"scale", "bias"}`` from ``.weight`` and ``.bias``.
+    """
+    from smg_tpu_torch.engine.runner import resolve_device
+    from smg_tpu_torch.models.vit import HF_VISION_MAPPING
+
+    vcfg = engine_cfg.model.vision
+    if vcfg is None:
+        raise ValueError("model config has no vision tower")
+    device = resolve_device(device)
+    dtype = torch_dtype(vcfg.dtype)
+    L = vcfg.num_layers
+
+    def conv_to_matrix(w: torch.Tensor) -> torch.Tensor:
+        if w.ndim == 5:  # [H, C, T, ps, ps] Conv3d: the temporal axis summed
+            w = w.sum(dim=2)
+        H, C, ph, pw = w.shape
+        return w.permute(2, 3, 1, 0).reshape(ph * pw * C, H)
+
+    with Checkpoint(engine_cfg.model_path) as ckpt:
+        def one(name: str, linear: bool = False) -> torch.Tensor:
+            t = ckpt.get(name).to(device)
+            return (t.t() if linear else t).to(dtype).contiguous()
+
+        def norm(prefix: str, lead=()) -> dict:
+            if not lead:
+                return {"scale": one(prefix + ".weight"), "bias": one(prefix + ".bias")}
+            return {"scale": stacked(prefix + ".weight"), "bias": stacked(prefix + ".bias")}
+
+        def stacked(tmpl: str, linear: bool = False) -> torch.Tensor:
+            out = None
+            for i in range(L):  # one tensor at a time, into its layer's slot
+                t = ckpt.get(tmpl.format(i=i)).to(device)
+                t = t.t() if linear else t
+                if out is None:
+                    out = torch.empty((L, *t.shape), dtype=dtype, device=device)
+                out[i].copy_(t)
+            return out
+
+        def key(k: str) -> str:
+            return HF_VISION_MAPPING[k]
+
+        layers = {
+            "ln1": norm(key("layers.{i}.ln1"), (L,)),
+            "ln2": norm(key("layers.{i}.ln2"), (L,)),
+        }
+        for name in ("qkv_w", "proj_w", "fc1_w", "fc2_w"):
+            layers[name] = stacked(key(f"layers.{{i}}.{name}"), linear=True)
+        for name in ("qkv_b", "proj_b", "fc1_b", "fc2_b"):
+            layers[name] = stacked(key(f"layers.{{i}}.{name}"))
+        params = {
+            "patch_embed": conv_to_matrix(
+                ckpt.get(key("patch_embed")).to(device)).to(dtype).contiguous(),
+            "layers": layers,
+            "merger": {
+                "ln_q": norm(key("merger.ln_q")),
+                "mlp0_w": one(key("merger.mlp0_w"), linear=True),
+                "mlp0_b": one(key("merger.mlp0_b")),
+                "mlp2_w": one(key("merger.mlp2_w"), linear=True),
+                "mlp2_b": one(key("merger.mlp2_b")),
+            },
+        }
+    logger.info("loaded vision tower: %d layers, patch_embed %s", L,
+                tuple(params["patch_embed"].shape))
     return params

@@ -1,5 +1,5 @@
-"""Rotary position embeddings with Llama-3 frequency scaling (port of
-``smg_tpu/ops/rope.py``; M-RoPE is not ported yet)."""
+"""Rotary position embeddings with Llama-3 frequency scaling and Qwen2-VL's
+multimodal rotary scheme (port of ``smg_tpu/ops/rope.py``)."""
 
 from __future__ import annotations
 
@@ -33,8 +33,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x: [..., T, H, D]; positions broadcastable to [..., T]; inv_freq [D/2].
     """
     angles = positions[..., None].float() * inv_freq  # [..., T, D/2]
+    return _rotate_half(x, angles)
+
+
+def _rotate_half(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """The rotate-half application both schemes share: x [..., T, H, D],
+    angles [..., T, D/2]; computed in f32, returned in x's dtype."""
     cos = torch.cos(angles)[..., None, :]  # [..., T, 1, D/2]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_angles(positions: torch.Tensor, inv_freq: torch.Tensor,
+                 section: tuple) -> torch.Tensor:
+    """Rotary angles [..., T, D/2] of M-RoPE position ids [..., 3, T]: the
+    D/2 frequency slots split into ``section = (t, h, w)`` (static per
+    config), each section reading the matching row of ``positions``."""
+    # [D/2]: the position row (temporal, height, width) each frequency reads
+    sel = torch.from_numpy(np.repeat(np.arange(3), np.asarray(section, np.int64)))
+    pos_f = positions.float().transpose(-2, -1).index_select(-1, sel.to(positions.device))
+    return pos_f * inv_freq
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
+                section: tuple) -> torch.Tensor:
+    """Multimodal rotary embedding (Qwen2-VL M-RoPE): x [..., T, H, D],
+    positions [..., 3, T] (leading dims broadcast with x's, e.g. the
+    grouped-prefill batch).  Text tokens carry three equal ids, which makes
+    this exactly ``apply_rope`` for them, bit for bit."""
+    return _rotate_half(x, mrope_angles(positions, inv_freq, section))

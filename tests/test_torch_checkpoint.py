@@ -184,18 +184,21 @@ def test_a_missing_tensor_raises_the_reference_key_error(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # MoE configs are accepted now (tests/test_torch_moe.py); the vision
-    # case keeps the id it had beside them
+    # MoE configs are accepted now (tests/test_torch_moe.py), and so is a
+    # vision-language config (tests/test_torch_vision.py); the vision case
+    # keeps the id it had beside them
     pytest.param({"architectures": ["Qwen2VLForConditionalGeneration"],
                   "vision_config": {"embed_dim": 32, "depth": 2}}, "item 10",
                  id="extra2-item 10"),
 ])
 def test_moe_and_vision_configs_are_refused(tmp_path, extra, item):
     """Never a text model built from a config whose vision tower is not
-    ported."""
+    ported: the Qwen2-VL tower is ported, so its config now builds the
+    tower, field for field as the reference does, and is refused no more."""
     hf = dict(_BASE, **extra)
-    with pytest.raises(NotImplementedError, match=item):
-        ModelConfig.from_hf_config(hf)
     (tmp_path / "config.json").write_text(json.dumps(hf))
-    with pytest.raises(NotImplementedError, match=item):
-        ModelConfig.from_pretrained(str(tmp_path))
+    want = JModelConfig.from_hf_config(hf)
+    for got in (ModelConfig.from_hf_config(hf), ModelConfig.from_pretrained(str(tmp_path))):
+        assert got.vision is not None and want.vision is not None
+        assert dataclasses.asdict(got.vision) == dataclasses.asdict(want.vision)
+        assert got.arch == want.arch == "qwen"

@@ -430,3 +430,74 @@ def test_a_surviving_engine_replays_bitwise_after_another_ends(cuda_dev):
     graphs = keep.loads()["decode_graphs"]
     assert _serve(keep, JOBS) == eager
     assert keep.loads()["decode_graphs"] == graphs  # replayed, not captured again
+
+
+# ---- M-RoPE offsets (image lanes) under graphs ----
+
+
+def _with_delta(ds: DecodeState, delta) -> DecodeState:
+    """``ds``'s inputs with per-row M-RoPE offsets, as a fresh composition."""
+    out = DecodeState.of(ds.page_tables, ds.temps, ds.topks, ds.topps, ds.minps,
+                         None if ds.stop_ids is None else (ds.stop_ids, ds.limits, ds.live),
+                         rope_delta=delta)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B_real,B,mp,K", [(3, 4, 8, 1), (5, 8, 16, 4)])
+def test_image_lane_megastep_replay_equals_eager_bitwise(runners, B_real, B, mp, K):
+    """A megastep with image lanes (negative offsets) beside text lanes
+    (offset 0): the replay equals the eager megastep bit for bit, a second
+    composition's offsets reach the captured graph (the buffer is loaded,
+    not baked in), and the text lanes' tokens and logprobs equal those of
+    the graph without offsets."""
+    g, e = runners
+    toks, pos, ds = case(B_real, B, mp, K, seed=B * 1000 + K)
+    delta = np.zeros(B, np.int32)
+    delta[: B_real: 2] = [-(5 + 7 * i) for i in range(len(delta[: B_real: 2]))]
+    k0, v0 = g.k_cache.clone(), g.v_cache.clone()
+
+    def fresh():
+        for r in (g, e):
+            r.k_cache.copy_(k0)
+            r.v_cache.copy_(v0)
+
+    launch(g, toks, pos, _with_delta(ds, delta), K)  # warm-up and capture
+    for d in (delta, delta * 3):
+        fresh()
+        replay = launch(g, toks, pos, _with_delta(ds, d), K)
+        eager = launch(e, toks, pos, _with_delta(ds, d), K)
+        assert_same(replay, eager)
+        assert torch.equal(g.k_cache[:, 1:], e.k_cache[:, 1:])
+    assert g.graphs.num_graphs == 1
+    fresh()
+    plain = launch(g, toks, pos, ds, K)  # the graph keyed without offsets
+    fresh()
+    mixed = launch(g, toks, pos, _with_delta(ds, delta), K)
+    assert g.graphs.num_graphs == 2
+    text = [i for i in range(B_real) if delta[i] == 0]
+    for x, y in zip(mixed[:2], plain[:2]):
+        np.testing.assert_array_equal(x[text], y[text])
+    assert not np.array_equal(mixed[1][0], plain[1][0])  # the offset moved lane 0
+
+
+@pytest.mark.cuda
+def test_image_lane_verify_replay_equals_eager_bitwise(runners):
+    g, e = runners
+    args = verify_case(5, 8, 16, 9, seed=97)
+    delta = np.array([-12, 0, -3, 0, -40, 0, 0, 0], np.int32)
+    k0, v0 = g.k_cache.clone(), g.v_cache.clone()
+    verify(g, (*args, delta))  # warm-up and capture
+    g.k_cache.copy_(k0)
+    g.v_cache.copy_(v0)
+    replay, eager = verify(g, (*args, delta)), verify(e, (*args, delta))
+    assert g.graphs.stats()["verify_graphs"] == 1
+    for x, y in zip(replay, eager):
+        np.testing.assert_array_equal(x, y)
+    assert torch.equal(g.k_cache[:, 1:], e.k_cache[:, 1:])
+    e.k_cache.copy_(k0)
+    e.v_cache.copy_(v0)
+    plain = verify(e, args)
+    text = [1, 3]
+    for x, y in zip(replay, plain):
+        np.testing.assert_array_equal(x[text], y[text])

@@ -17,9 +17,10 @@ FORBIDDEN = ("jax", "jaxlib", "smg_tpu")
 # machine (checked there by importing it).  Packages that machine lacks,
 # such as orjson, must stay out of the serving path.  safetensors (the
 # checkpoint and PEFT loaders), tokenizers and jinja2 (the HF tokenizer and
-# its chat templates) and regex (the tiktoken pre-tokenizer) import there.
+# its chat templates), regex (the tiktoken pre-tokenizer) and PIL (image
+# decoding, PIL 12.2.0) import there.
 CARD_PACKAGES = ("torch", "numpy", "aiohttp", "prometheus_client", "pydantic",
-                 "safetensors", "tokenizers", "jinja2", "regex")
+                 "safetensors", "tokenizers", "jinja2", "regex", "PIL")
 
 
 def _sources():

@@ -153,6 +153,14 @@ G8_DECODE = [(3, 32, 128, 4, [190, 37, 5], 1, None, None),
              (2, 32, 128, 4, [150, 60], 4, 50.0, 64)]
 G8_PREFILL = [(32, 32, 128, 4, 96, 32, None, None, 24, 64),
               (16, 32, 128, 4, 597, 11, None, None, 40, 96)]
+# Qwen2-VL-7B's: 28 query heads over 4 KV heads (G=7, a group that does not
+# divide 64: the decode kernel masks the eighth head of its group, the
+# prefill kernel packs 9 tokens a block with one dead row), head_dim 128
+G7_DECODE = [(3, 28, 128, 4, [190, 37, 5], 1, None, None),
+             (2, 28, 128, 4, [150, 60], 4, 50.0, 64)]
+G7_PREFILL = [(32, 28, 128, 4, 96, 32, None, None, 24, 64),
+              (16, 28, 128, 4, 597, 11, None, None, 40, 96),
+              (40, 28, 128, 4, 0, 37, None, None, 8, 16)]
 
 
 def _close(got, want, dtype):
@@ -174,7 +182,7 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,D,K,entries,n_extra,softcap,window",
                          DECODE_CASES + [(3, 8, 16, 2, [40, 5, 208], 2, None, 24)]
-                         + G8_DECODE)
+                         + G8_DECODE + G7_DECODE)
 def test_decode_kernel_matches_plain(cuda_dev, dtype, B, H, D, K, entries, n_extra,
                                      softcap, window):
     q, kc, vc, hk, hv, layer, pt, entry = decode_inputs(B, H, D, K, entries)
@@ -209,7 +217,7 @@ def test_decode_kernel_skips_out_of_window_pages(cuda_dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,H,D,K,prefix_len,t_real,softcap,window,mp,P",
                          PREFILL_CASES + [(40, 8, 16, 2, 21, 33, 50.0, 9, 24, 64)]
-                         + G8_PREFILL)
+                         + G8_PREFILL + G7_PREFILL)
 def test_prefill_kernel_matches_plain(cuda_dev, dtype, T, H, D, K, prefix_len, t_real,
                                       softcap, window, mp, P):
     q, ck, cv, kc, vc, layer, pt = prefill_inputs(T, H, D, K, prefix_len, t_real,
