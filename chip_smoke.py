@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases moe   # build + kernels + phase 9 only
     python3 chip_smoke.py --phases api   # build + kernels + phase 10 only
     python3 chip_smoke.py --phases vision   # build + kernels + phase 12 only
+    python3 chip_smoke.py --phases pd   # build + kernels + phase 13 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -223,12 +224,41 @@ Phases (any failure makes the script exit non-zero and print no result):
    paths in float32 (greedy streams identical, the text request equal to
    itself alone) and the graph and plain paths in bf16, held to the
    float32 run as in phase 3;
+13. PD disaggregation, after phase 10 on phase 3's bf16 weights: a PREFILL
+   and a DECODE engine behind the port's gateway (``--kv-connector auto``
+   and ``host``, two gateways over the same engines) against a co-located
+   engine behind its own, every engine's KV sized by hand (two or three
+   engines share the card).  (a) The first ``PD_LAYERS`` layers widened
+   to float32: the 1400-token chat's export on each connector (the device
+   payload a CUDA tensor on the card, the host one in host memory, every
+   prefill page back), imported by the decode engine into graphs it
+   captured before the import (no new capture) and by an eager engine:
+   tokens equal the co-located engine's, logprobs within 1e-4; through the
+   gateways the lone chat and 8 concurrent chats equal the co-located
+   gateway's, ``auto`` imports on the card and ``host`` through the host,
+   the decode engine prefills nothing, while the decode engine captures
+   its new batch shapes as the prefill engine exports (both loop threads
+   live, the capture stream shared); audits clean after the drain.  (b)
+   bf16 at full depth: the lone chat equal on both connectors; the PD
+   path's kernel launches exact (32 x prefill calls on the prefill engine,
+   32 x decode columns on the decode engine); readings: the 1400-token
+   handoff (88 pages) per connector against its bytes bound (device: CUDA
+   events; host: wall time, bounded by the pinned copy rates measured
+   here), TTFT through the gateway PD against co-located, the decode
+   engine's device ms a column on 4 lanes adopted through PD against phase
+   3's.  (c) Two processes (this script with ``--pd-worker``) each serve a
+   4-layer float32 engine with ``rpc.server.serve_worker``, behind the
+   gateway through ``GrpcWorkerClient`` as PREFILL and DECODE: the lone and
+   the 8 concurrent chats equal the in-process ``host`` PD's, the gRPC legs
+   timed; then ``python -m smg_tpu_torch.cli worker`` (tiny preset) answers
+   ``HealthCheck`` and exits 0 on SIGTERM;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
-   10's and ``launches_vision`` from phase 12's bf16 serving paths) and,
-   last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
-   ``checkpoint``, ``moe``, ``api`` and ``vision`` print neither).
+   10's, ``launches_vision`` from phase 12's bf16 serving paths and
+   ``launches_pd`` from phase 13's bf16 PD path) and, last, ``{"ok":
+   true, "device": ...}`` (``--phases kernels``, ``checkpoint``, ``moe``,
+   ``api``, ``vision`` and ``pd`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -860,9 +890,11 @@ def device_time(prof, classes: dict | None = None) -> tuple[float, dict, int]:
 
 
 def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
-                   label: str = "decode profile") -> dict:
+                   label: str = "decode profile", submit=None) -> dict:
     """Decode of 4 lanes with 1000-token prompts, horizon 4 (greedy unless
-    ``sampling`` gives the 4 lanes' parameters), under torch.profiler:
+    ``sampling`` gives the 4 lanes' parameters; ``submit(rid, prompt, sp,
+    on_output)`` puts a lane on the engine in place of ``engine.submit``,
+    as phase 13 adopts them from a prefill engine), under torch.profiler:
     device time by kernel, device events and the busy share (device busy
     time over the wall time of the same columns).  With ``loop`` the
     engine's thread steps and the window closes once ``columns`` more
@@ -881,8 +913,10 @@ def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
     outs: dict[str, list] = {}
     for i, sp in enumerate(sampling):
         outs[f"prof{i}"] = []
-        engine.submit(list(range(2000 + 1000 * i, 3000 + 1000 * i)), sp, rid=f"prof{i}",
-                      on_output=outs[f"prof{i}"].append)
+        (submit or (lambda rid, prompt, sp, cb: engine.submit(prompt, sp, rid=rid,
+                                                              on_output=cb)))(
+            f"prof{i}", list(range(2000 + 1000 * i, 3000 + 1000 * i)), sp,
+            outs[f"prof{i}"].append)
     if loop:
         engine.start()
         # every lane decoding and the queue empty: horizons are 4 wide
@@ -5377,6 +5411,611 @@ def threading_call(fn, result: dict):
     return t
 
 
+PD_LAYERS = 4  # phase 13's float32 depth
+PD_PAGES = 2048  # KV pages of each bf16 engine of phase 13: 4.29 GB at Llama-3-8B
+PD_F32_PAGES = 1024  # KV pages of each 4-layer float32 engine: 0.54 GB
+PD_GRPC_PAGES = 512  # KV pages of each gRPC worker process
+PD_NEW = 32  # new tokens of the lone chats
+PD_CONC_NEW = 16  # new tokens of each of the 8 concurrent chats
+PD_REPS = 3  # TTFT repeats and host-handoff repeats (medians)
+PD_WORKERS = ("prefill-0", "decode-0")
+
+
+def _pd_jobs(seed: int) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    return dict(lone=ids(1400), warm=ids(1400),
+                conc=[ids(int(n)) for n in rng.integers(100, 600, 8)])
+
+
+def _pd_engine(cfg, params, dev, tok, pages: int, graphs: bool = True, overlap: bool = True):
+    """An engine with phase 5's scheduler settings and ``pages`` KV pages
+    sized by hand: two engines share one card, and auto-sizing would give
+    the first one nearly all of it."""
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+
+    return Engine(EngineConfig(
+        model=cfg,
+        cache=CacheConfig(page_size=PS, num_pages=pages, auto_size=False, dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096, max_prefill_tokens=512,
+                                  decode_horizon=4, overlap_schedule=overlap),
+        decode_graphs=graphs, model_id=SERVE_MODEL), params=params, device=dev, tokenizer=tok)
+
+
+def _pd_context(clients, connector: str, tok):
+    """A gateway built from ``serve --kv-connector connector`` with the two
+    clients registered as the PREFILL and the DECODE worker, as
+    ``tests/test_pd.py`` registers them."""
+    from smg_tpu_torch.cli import build_parser
+    from smg_tpu_torch.gateway.launch import gateway_options
+    from smg_tpu_torch.gateway.server import AppContext
+    from smg_tpu_torch.gateway.workers import Worker, WorkerType
+
+    args = build_parser().parse_args(["serve", "--model-preset", SERVE_MODEL,
+                                      "--kv-connector", connector])
+    ctx = AppContext(**gateway_options(args))
+    ctx.tokenizers.register(SERVE_MODEL, tok, default=True)
+    for wid, wtype, client in zip(PD_WORKERS, (WorkerType.PREFILL, WorkerType.DECODE),
+                                  clients):
+        ctx.registry.add(Worker(worker_id=wid, client=client, model_id=SERVE_MODEL,
+                                page_size=PS, worker_type=wtype))
+    return ctx
+
+
+def _prefilled(engine, prompt, export, sp, rid: str) -> tuple:
+    """``submit_prefilled`` on ``engine``, stepped here when no loop thread
+    runs; (tokens, logprobs)."""
+    outs = []
+    engine.submit_prefilled(prompt, export["first_token"], export["k"], export["v"], sp,
+                            rid=rid, on_output=outs.append)
+    if engine._thread is None:
+        while not (outs and outs[-1].finished):
+            engine.step()
+    else:
+        wait_for(lambda: outs and outs[-1].finished, f"PD decode of {rid}")
+    return [t for o in outs for t in o.new_token_ids], [x for o in outs for x in o.logprobs]
+
+
+def _chat_text(port: int, body: dict) -> tuple:
+    st, resp = _http(port, "POST", "/v1/chat/completions", body)
+    if st != 200:
+        return st, None
+    return st, resp["choices"][0]["message"]["content"]
+
+
+def _spans(obj, name: str, when=None) -> tuple:
+    """Wrap ``obj.name`` to record the (start, end) host times of its calls
+    (those where ``when(*args)`` holds); returns (the list, an undo)."""
+    spans = []
+    orig = getattr(obj, name)
+
+    def timed(*a, **kw):
+        keep = when is None or when(*a, **kw)
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            if keep:
+                spans.append((t0, time.perf_counter()))
+
+    setattr(obj, name, timed)
+    return spans, lambda: delattr(obj, name)
+
+
+def _stop_gateways(held, server, contexts) -> None:
+    held["loop"].call_soon_threadsafe(held["stop"].set)
+    server.join(LOOP_WAIT_S)
+    if server.is_alive():
+        raise AssertionError("the gateways did not shut down")
+    # aiohttp keeps finished apps, with their contexts: the workers go
+    for ctx in contexts:
+        for w in ctx.registry.list():
+            ctx.registry.remove(w.worker_id)
+
+
+def phase_pd(cfg, params, dev, card: str, phase3_decode_ms: float | None = None) -> dict:
+    """Phase 13, PD disaggregation on Llama-3-8B: (a) float32 at
+    ``PD_LAYERS`` layers: a PREFILL and a DECODE engine behind the port's
+    gateway (connectors ``auto`` and ``host``) against a co-located engine;
+    (b) bf16 at full depth, the same engines on phase 3's weights, with the
+    handoff, TTFT and decode readings; (c) the gRPC worker: two processes
+    serving 4-layer float32 engines behind the gateway, and the ``worker``
+    subcommand."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    t_phase = time.perf_counter()
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    jobs = _pd_jobs(13)
+    failures: list = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [pd] CHECK FAILED: {what}")
+
+    out = {}
+    cfg4 = dataclasses.replace(cfg, num_layers=PD_LAYERS, dtype="float32")
+    p4 = {**{k: v.float() for k, v in params.items() if k != "layers"},
+          "layers": {k: v[:PD_LAYERS].float() for k, v in params["layers"].items()}}
+    out["f32"] = _pd_run(cfg4, p4, dev, tok, jobs, "f32", PD_F32_PAGES, expect)
+    del p4
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["bf16"] = _pd_run(cfg, params, dev, tok, jobs, "bf16", PD_PAGES, expect,
+                          phase3_decode_ms=phase3_decode_ms)
+    out["launches"] = out["bf16"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["grpc"] = pd_grpc(cfg, dev, tok, jobs, out["f32"]["host_texts"], expect)
+    out["worker_cli"] = check_worker_cli(dev.type)
+    expect(out["worker_cli"]["health"] and out["worker_cli"]["exit_code"] == 0,
+           f"worker subcommand: {out['worker_cli']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 13 took {out['seconds']:.1f} s ({card})")
+    if failures:
+        raise AssertionError(f"phase 13: {len(failures)} checks failed: {failures}")
+    return out
+
+
+def _pd_run(cfg, params, dev, tok, jobs, label: str, pages: int, expect,
+            phase3_decode_ms: float | None = None) -> dict:
+    """One dtype of phase 13 (a) or (b): engines P (prefill), D (decode,
+    graphs), C (co-located) and, in float32, E (eager and synchronous)."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.gateway.launch import build_context
+    from smg_tpu_torch.gateway.server import build_app
+    from smg_tpu_torch.gateway.worker_client import InProcWorkerClient
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    f32 = label == "f32"
+    L = cfg.num_layers
+    out = {}
+    P = _pd_engine(cfg, params, dev, tok, pages)
+    D = _pd_engine(cfg, params, dev, tok, pages)
+    C = _pd_engine(cfg, params, dev, tok, pages)
+    E = _pd_engine(cfg, params, dev, tok, pages, graphs=False, overlap=False) if f32 else None
+    print(f"  [{label}] engines P, D, C{', E' if f32 else ''}: {L} layers, {pages} KV pages "
+          f"each; memory allocated {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    lone = _chat_ids(tok, jobs["lone"])
+    sp = SamplingParams(temperature=0.0, max_new_tokens=PD_NEW, ignore_eos=True)
+    # ---- engine-level: the legs, the payload, a graph captured before an import
+    want = C.generate(lone, sp)
+    C.flush_cache()
+    warm = P.prefill_export(_chat_ids(tok, jobs["warm"]), sp, connector="device")
+    _prefilled(D, _chat_ids(tok, jobs["warm"]), warm, sp, "warm")  # captures D's shapes
+    graphs0 = D.runner.graphs.num_graphs
+    legs = {}
+    for connector in ("device", "host"):
+        exp = P.prefill_export(lone, sp, connector=connector)
+        where = {"device": P.runner.k_cache.device, "host": torch.device("cpu")}[connector]
+        expect(exp["connector"] == connector and exp["k"].device == exp["v"].device == where,
+               f"[{label}] {connector} payload on {exp['k'].device}, want {where}")
+        expect(tuple(exp["k"].shape) == (L, math.ceil(len(lone) / PS), PS,
+                                         cfg.num_kv_heads * cfg.head_dim),
+               f"[{label}] payload shape {tuple(exp['k'].shape)}")
+        toks, lps = _prefilled(D, lone, exp, sp, f"lone-{connector}")
+        legs[connector] = toks
+        expect(toks == want.token_ids, f"[{label}] PD over {connector}: tokens differ from "
+                                       f"the co-located engine's")
+        if f32:
+            gap = max(abs(a - b) for a, b in zip(lps[1:], want.logprobs[1:]))
+            expect(gap <= 1e-4, f"[{label}] PD over {connector}: logprobs {gap:.2e} from "
+                                f"the co-located engine's")
+            etoks, elps = _prefilled(E, lone, exp, sp, f"eager-{connector}")
+            gap = max(abs(a - b) for a, b in zip(lps, elps))
+            expect(etoks == toks and gap <= 1e-4,
+                   f"[{label}] graph replay over imported pages vs eager: tokens "
+                   f"{etoks == toks}, logprobs {gap:.2e}")
+        expect(P.scheduler.pool.free_count == pages - 1,
+               f"[{label}] prefill engine keeps {pages - 1 - P.scheduler.pool.free_count} pages")
+    expect(D.runner.graphs.num_graphs == graphs0,
+           f"[{label}] the decode engine captured {D.runner.graphs.num_graphs - graphs0} "
+           "graphs for the imported lanes (want replays of graphs captured before)")
+    hand = dict(D.runner.kv_handoffs)
+    expect(hand["import_device"] == 2 and hand["import_host"] == 1,  # warm, device | host
+           f"[{label}] decode engine imports {hand}")
+    out["engine_level"] = dict(tokens_equal={k: v == want.token_ids for k, v in legs.items()},
+                               handoffs={"P": dict(P.runner.kv_handoffs), "D": hand},
+                               graphs_before_import=graphs0)
+    if not f32:
+        out["handoff"] = pd_handoff_readings(P, D, len(lone), cfg)
+    # ---- through the gateway: PD on both connectors, and co-located
+    ctxs = {c: _pd_context([InProcWorkerClient(P), InProcWorkerClient(D)], c, tok)
+            for c in ("auto", "host")}
+    ctxs["colocated"] = build_context(C, policy="cache_aware")
+    ports = {name: _free_port() for name in ctxs}
+    held, server = _serve_apps([(build_app(ctx), ports[name]) for name, ctx in ctxs.items()])
+    try:
+        texts = {}
+        st, texts["colocated"] = _chat_text(ports["colocated"], _chat(jobs["lone"], PD_NEW))
+        C.flush_cache()
+        quiet = lambda: not (P.has_work() or D.has_work())  # noqa: E731
+        wait_for(quiet, "PD engines idle")
+        torch.cuda.synchronize()
+        d_prefill = D.scheduler.num_prefill_tokens
+        h0 = dict(D.runner.kv_handoffs)
+        stats0 = {n: dict(e.runner.stats) for n, e in (("P", P), ("D", D))}
+        dk.launches = pk.launches = 0  # the PD path's run starts here
+        for c in ("auto", "host"):
+            st, texts[c] = _chat_text(ports[c], _chat(jobs["lone"], PD_NEW))
+            expect(st == 200 and texts[c] == texts["colocated"],
+                   f"[{label}] lone chat over {c}: {st}, equal {texts[c] == texts['colocated']}")
+        wait_for(quiet, "PD engines idle")
+        torch.cuda.synchronize()
+        launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
+        sched = {n: {k: e.runner.stats[k] - stats0[n][k] for k in stats0[n]}
+                 for n, e in (("P", P), ("D", D))}
+        want_l = {"decode_attention": L * sched["D"]["decode_columns"],
+                  "prefill_attention": L * sched["P"]["prefill_calls"]}
+        print(f"  [{label}] PD path launches {launches}, schedule P {sched['P']}, "
+              f"D {sched['D']}")
+        expect(launches == want_l and min(launches.values()) > 0,
+               f"[{label}] PD launches {launches} != {want_l}")
+        expect(sched["D"]["prefill_calls"] == 0 and sched["P"]["decode_calls"] == 0,
+               f"[{label}] legs crossed: {sched}")
+        out["launches"], out["schedule"] = launches, sched
+        h1 = {k: D.runner.kv_handoffs[k] - h0[k] for k in h0}
+        expect(h1["import_device"] == 1 and h1["import_host"] == 1,
+               f"[{label}] gateway imports {h1}: auto must stay on the card")
+        # eight concurrent chats per connector: D captures the new batch
+        # shapes while P exports, both loop threads live
+        conc = [_chat(p, PD_CONC_NEW) for p in jobs["conc"]]
+        ref_conc = _in_threads(lambda b: _chat_text(ports["colocated"], b), [(b,) for b in conc])
+        caps, undo_caps = _spans(D.runner.graphs, "run",
+                                 lambda step, body: step.graph is None
+                                 and D.runner.graphs.use_graphs)
+        exps, undo_exps = _spans(P, "prefill_export")
+        try:
+            runs = {c: _in_threads(lambda b, c=c: _chat_text(ports[c], b), [(b,) for b in conc])
+                    for c in ("auto", "host")}
+        finally:
+            undo_caps()
+            undo_exps()
+        overlap = sum(any(a0 < b1 and b0 < a1 for b0, b1 in exps) for a0, a1 in caps)
+        equal = {}
+        for c, res in runs.items():
+            # bf16 batches of other compositions round otherwise: counted,
+            # held to the co-located streams in float32 only
+            equal[c] = sum(r == w for r, w in zip(res, ref_conc))
+            expect(all(r[0] == 200 for r in res) and (equal[c] == len(conc) or not f32),
+                   f"[{label}] 8 concurrent over {c}: {[r[0] for r in res]}, "
+                   f"{equal[c]}/{len(conc)} equal to co-located")
+        out["concurrent"] = dict(captures=len(caps), captures_during_exports=overlap,
+                                 exports=len(exps), equal_to_colocated=equal)
+        print(f"  [{label}] concurrent: D captured {len(caps)} graphs, {overlap} of them "
+              f"while P exported ({len(exps)} exports)")
+        if f32:
+            out["host_texts"] = dict(lone=texts["host"], conc=[r[1] for r in runs["host"]])
+        else:
+            out["ttft_ms"] = pd_ttft(ports, C, jobs["lone"])
+            out["decode"] = profile_decode(
+                D, loop=True, label=f"[{label}] decode engine, 4 adopted lanes",
+                submit=lambda rid, prompt, sp4, cb: _adopt(P, D, prompt, sp4, rid, cb))
+            dms = out["decode"]["device_ms_per_column"]
+            print(f"  [{label}] decode engine: {dms:.3f} device ms a column on 4 adopted "
+                  f"lanes (phase 3's engine: {phase3_decode_ms or 'not measured here'})")
+        expect(D.scheduler.num_prefill_tokens == d_prefill == 0,
+               f"[{label}] the decode engine prefilled {D.scheduler.num_prefill_tokens} tokens")
+    finally:
+        _stop_gateways(held, server, ctxs.values())
+        for e in (P, D, C, E):
+            if e is not None:
+                e.stop(drain=True, timeout=30)
+    for e, name in ((P, "P"), (D, "D"), (C, "C")):
+        audit = e.audit()
+        expect(audit["clean"], f"[{label}] {name} audit after the drain: {audit}")
+    expect(P.scheduler.pool.free_count == pages - 1, f"[{label}] P's pages after the drain")
+    out["d_num_prefill_tokens"] = D.scheduler.num_prefill_tokens
+    del P, D, C, E
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _adopt(P, D, prompt, sp, rid, cb) -> None:
+    """A lane on D through PD: exported by P (on the card), adopted by D."""
+    exp = P.prefill_export(prompt, sp, connector="device")
+    D.submit_prefilled(prompt, exp["first_token"], exp["k"], exp["v"], sp, rid=rid,
+                       on_output=cb)
+
+
+def pd_ttft(ports: dict, C, lone_ids) -> dict:
+    """Median time to the first content frame of the lone chat (8 new
+    tokens, streamed), through the co-located gateway (the prefix cache
+    flushed before each) and the two PD gateways, in turns."""
+    ttft = {name: [] for name in ports}
+    for _rep in range(PD_REPS):
+        for name, port in ports.items():
+            if name == "colocated":
+                C.flush_cache()
+            st, frames = _sse(port, "/v1/chat/completions", _chat(lone_ids, 8, stream=True))
+            first = next(t for t, f in frames if f != "[DONE]" and f["choices"]
+                         and f["choices"][0]["delta"].get("content"))
+            ttft[name].append(first * 1e3)
+    med = {name: statistics.median(v) for name, v in ttft.items()}
+    print(f"  [bf16] TTFT of the {len(lone_ids)}-word chat, median of {PD_REPS} (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in med.items()))
+    return dict(median=med, all=ttft)
+
+
+def pd_handoff_readings(P, D, n_tokens: int, cfg) -> dict:
+    """The handoff of an ``n_tokens`` prompt's pages, P's cache to D's:
+    device export and import (CUDA events, cold L2), host export and
+    import (wall time with the blocking copies), and the pinned copy rates
+    the host bounds come from.  Bounds from bytes: each leg reads and
+    writes the payload once in device memory; the host legs also cross
+    PCIe once each way."""
+    import torch
+
+    n_pages = math.ceil(n_tokens / PS)
+    p_pages = P.scheduler.pool.alloc(n_pages)
+    d_pages = D.scheduler.pool.alloc(n_pages)
+    try:
+        k, v = P.runner.export_pages_device(p_pages)
+        payload = 2 * k.numel() * k.element_size()
+        dev_export = cuda_ms(lambda: P.runner.export_pages_device(p_pages))
+        dev_import = cuda_ms(lambda: D.runner.import_pages_device(d_pages, k, v))
+
+        def wall(fn) -> float:
+            times = []
+            for _ in range(PD_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        hk, hv = P.runner.export_pages(p_pages)
+        host_export = wall(lambda: P.runner.export_pages(p_pages))
+        host_import = wall(lambda: D.runner.import_pages(d_pages, hk, hv))
+        pinned = torch.empty(k.shape, dtype=k.dtype, pin_memory=k.is_cuda)
+        d2h = cuda_ms(lambda: pinned.copy_(k, non_blocking=True))
+        h2d = cuda_ms(lambda: k.copy_(pinned, non_blocking=True))
+    finally:
+        P.scheduler.release_pages(p_pages)
+        D.scheduler.release_pages(d_pages)
+    half = payload / 2  # K alone: one copy of each rate's measure
+    d2h_rate, h2d_rate = half / (d2h * 1e-3), half / (h2d * 1e-3)
+    leg = 2 * payload / HBM_BYTES_PER_S * 1e3  # read and write the payload once
+    out = dict(
+        tokens=n_tokens, pages=n_pages, payload_bytes=payload,
+        device=dict(export_ms=dev_export, import_ms=dev_import, bound_ms_each=leg,
+                    bound_ms=2 * leg),
+        host=dict(export_ms=host_export, import_ms=host_import,
+                  export_bound_ms=leg / 2 + payload / d2h_rate * 1e3,
+                  import_bound_ms=leg / 2 + payload / h2d_rate * 1e3),
+        pinned_rates_gb_s=dict(d2h=d2h_rate / 1e9, h2d=h2d_rate / 1e9))
+    print(f"  [bf16] handoff of {n_tokens} tokens ({n_pages} pages, {payload} bytes of K and "
+          f"V): device export {dev_export:.3f} ms + import {dev_import:.3f} ms (bound "
+          f"{leg:.3f} ms each, bytes); host export {host_export:.2f} ms + import "
+          f"{host_import:.2f} ms (bounds {out['host']['export_bound_ms']:.2f} and "
+          f"{out['host']['import_bound_ms']:.2f} ms at the measured pinned rates "
+          f"D2H {d2h_rate / 1e9:.1f} and H2D {h2d_rate / 1e9:.1f} GB/s)")
+    return out
+
+
+def pd_worker_main(spec: dict) -> int:
+    """One gRPC worker of phase 13 (c), in a process of its own: phase 3's
+    weights made from the seed, cut to ``spec["layers"]`` layers and
+    widened to float32, ``spec["pages"]`` KV pages, served with
+    ``rpc.server.serve_worker`` until SIGTERM."""
+    import dataclasses
+
+    import torch
+
+    from smg_tpu_torch.models.config import ModelConfig
+    from smg_tpu_torch.models.llama import init_params
+    from smg_tpu_torch.ops.cuda import build
+    from smg_tpu_torch.rpc.server import serve_worker
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    dev = torch.device(spec["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if dev.type == "cuda":
+        build.load()
+    cfg = ModelConfig(**spec["config"])
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n = spec["layers"]
+    params = {**{k: v.float() for k, v in full.items() if k != "layers"},
+              "layers": {k: v[:n].float() for k, v in full["layers"].items()}}
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg4 = dataclasses.replace(cfg, num_layers=n, dtype="float32")
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    engine = _pd_engine(cfg4, params, dev, tok, spec["pages"])
+    engine.start()
+    return serve_worker(engine, port=spec["port"], host="127.0.0.1")
+
+
+def pd_grpc(cfg, dev, tok, jobs, host_texts: dict, expect) -> dict:
+    """Phase 13 (c): two worker processes (``pd_worker_main``) behind the
+    gateway as PREFILL and DECODE through ``GrpcWorkerClient``; the lone
+    chat and the 8 concurrent ones give the in-process host PD's texts;
+    the gRPC legs of the lone prompt timed (wall)."""
+    import asyncio
+    import dataclasses
+    import signal
+    import threading
+
+    import torch
+    from aiohttp import web
+
+    from smg_tpu_torch.gateway.server import build_app
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+    from smg_tpu_torch.rpc.client import GrpcWorkerClient
+
+    free = torch.cuda.mem_get_info(dev)[0]
+    ports = [_free_port(), _free_port()]
+    spec = dict(config=dataclasses.asdict(cfg), layers=PD_LAYERS, pages=PD_GRPC_PAGES,
+                device=str(dev))
+    logs = [tempfile.TemporaryFile() for _ in ports]
+    procs = []
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="pd-grpc-gateway")
+    thread.start()
+
+    def run(coro, timeout=LOOP_WAIT_S):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    held = {}
+    out = {"free_bytes_at_start": free}
+    t0 = time.perf_counter()
+    try:
+        for port, log in zip(ports, logs):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--pd-worker",
+                 json.dumps({**spec, "port": port})], cwd=REPO, stdout=log, stderr=log))
+
+        async def up():
+            held["clients"] = [GrpcWorkerClient(f"127.0.0.1:{p}") for p in ports]
+            deadline = time.monotonic() + LOOP_WAIT_S
+            for proc, client in zip(procs, held["clients"]):
+                while not await client.health():
+                    if proc.poll() is not None or time.monotonic() > deadline:
+                        raise AssertionError("a gRPC worker did not come up")
+                    await asyncio.sleep(0.25)
+            ctx = _pd_context(held["clients"], "auto", tok)
+            held["ctx"] = ctx
+            held["runner"] = web.AppRunner(build_app(ctx))
+            await held["runner"].setup()
+            held["port"] = _free_port()
+            await web.TCPSite(held["runner"], "127.0.0.1", held["port"]).start()
+
+        try:
+            run(up())
+        except Exception:
+            for log in logs:
+                log.seek(0)
+                print(log.read().decode()[-3000:])
+            raise
+        out["workers_up_s"] = time.perf_counter() - t0
+        port = held["port"]
+        st, lone = _chat_text(port, _chat(jobs["lone"], PD_NEW))
+        expect(st == 200 and lone == host_texts["lone"],
+               f"[grpc] lone chat: {st}, equal to in-process host PD {lone == host_texts['lone']}")
+        res = _in_threads(lambda b: _chat_text(port, b),
+                          [(_chat(p, PD_CONC_NEW),) for p in jobs["conc"]])
+        equal = sum(r == (200, w) for r, w in zip(res, host_texts["conc"]))
+        expect(equal == len(res), f"[grpc] 8 concurrent: {equal}/{len(res)} equal to the "
+                                  "in-process host PD's")
+        # the legs alone, timed on the wall clock
+        ids = _chat_ids(tok, jobs["lone"])
+        sp = SamplingParams(temperature=0.0, max_new_tokens=2, ignore_eos=True)
+
+        async def legs():
+            from smg_tpu_torch.gateway.worker_client import WorkerGenerateRequest
+
+            p_client, d_client = held["clients"]
+            ta = time.perf_counter()
+            exp = await p_client.prefill_export(ids, sp)
+            tb = time.perf_counter()
+            first = None
+            async for c in d_client.generate_prefilled(
+                    WorkerGenerateRequest(rid="grpc-legs", input_ids=ids, sampling=sp),
+                    exp["first_token"], exp["k"], exp["v"]):
+                if first is None:
+                    first = time.perf_counter()
+            return dict(export_ms=(tb - ta) * 1e3, import_to_first_chunk_ms=(first - tb) * 1e3,
+                        payload_bytes=2 * exp["k"].numel() * exp["k"].element_size())
+
+        out["legs"] = [run(legs()) for _ in range(PD_REPS)]
+        loads = run(held["clients"][1].get_loads())
+        expect(loads["num_running"] == 0, f"[grpc] decode worker loads after: {loads}")
+        legs_med = {k: statistics.median(r[k] for r in out["legs"]) for k in out["legs"][0]}
+        out["legs_median"] = legs_med
+        print(f"  [grpc] 2 worker processes up in {out['workers_up_s']:.1f} s; lone and 8 "
+              f"concurrent chats equal to in-process host PD; legs of the lone prompt "
+              f"({legs_med['payload_bytes']:.0f} bytes, float32, {PD_LAYERS} layers): export "
+              f"{legs_med['export_ms']:.1f} ms, import to first chunk "
+              f"{legs_med['import_to_first_chunk_ms']:.1f} ms (wall, medians of {PD_REPS})")
+    finally:
+        async def down():
+            if "runner" in held:
+                await held["runner"].cleanup()
+            for c in held.get("clients", []):
+                await c.close()
+
+        try:
+            run(down(), timeout=60)
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(30)
+            for proc in procs:
+                proc.send_signal(signal.SIGTERM)
+            for proc in procs:
+                try:
+                    proc.wait(60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(10)
+            out["exit_codes"] = [p.returncode for p in procs]
+            for log in logs:
+                log.close()
+    expect(out["exit_codes"] == [0, 0], f"[grpc] worker exit codes {out['exit_codes']}")
+    return out
+
+
+def check_worker_cli(device: str = "cuda") -> dict:
+    """``python -m smg_tpu_torch.cli worker`` in a process of its own on the
+    card (tiny preset, float32): ``HealthCheck`` answers, then SIGTERM."""
+    import asyncio
+    import signal
+
+    from smg_tpu_torch.rpc.client import GrpcWorkerClient
+
+    port = _free_port()
+    cmd = [sys.executable, "-m", "smg_tpu_torch.cli", "worker", "--model-preset", "tiny",
+           "--dtype", "float32", "--max-seq-len", "1024", "--grpc-port", str(port),
+           "--device", device]
+
+    async def probe(proc):
+        client = GrpcWorkerClient(f"127.0.0.1:{port}")
+        try:
+            deadline = time.monotonic() + LOOP_WAIT_S
+            while proc.poll() is None and time.monotonic() < deadline:
+                if await client.health():
+                    return True, (await client.get_model_info())["model_id"]
+                await asyncio.sleep(0.2)
+            return False, None
+        finally:
+            await client.close()
+
+    with tempfile.TemporaryFile() as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=log)
+        try:
+            health, model = asyncio.run(probe(proc))
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(10)
+        if not health:
+            log.seek(0)
+            print(log.read().decode()[-2000:])
+    out = dict(health=health, model_id=model, exit_code=proc.returncode)
+    print(f"  worker --model-preset tiny --device {device}: {out}")
+    return out
+
+
 def phase_engine(dev, card: str) -> dict:
     import dataclasses
 
@@ -5427,6 +6066,11 @@ def phase_engine(dev, card: str) -> dict:
         sink: dict = {}
         out["api_bf16"] = phase_api(cfg, params, dev, card, "bf16", strict=False,
                                     stall_free=runs["graphs"], sink=sink)
+        print("phase 13: PD disaggregation (float32 at 4 layers, bf16 at full depth, gRPC "
+              "workers)")
+        out["pd"] = phase_pd(cfg, params, dev, card,
+                             phase3_decode_ms=out["decode_profile"]["graphs"].get(
+                                 "device_ms_per_column"))
         out.update(_phases_f32(cfg, params, dev, card, runs, root, sink))
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5588,6 +6232,22 @@ def phase_api_alone(dev, card: str) -> dict:
     return out
 
 
+def phase_pd_alone(dev, card: str) -> dict:
+    """Phase 13 without phases 3-12 (``--phases pd``): phase 3's weights in
+    bf16."""
+    import torch
+
+    from smg_tpu_torch.models.config import llama3_8b_config
+    from smg_tpu_torch.models.llama import init_params
+
+    cfg = llama3_8b_config()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    out = {"pd": phase_pd(cfg, params, dev, card)}
+    params.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def ckpt_layers(root: Path) -> int:
     """The depth of the checkpoint written under ``root``."""
     return json.loads((root / CKPT_MODEL / "config.json").read_text())["num_hidden_layers"]
@@ -5596,14 +6256,19 @@ def ckpt_layers(root: Path) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    choices=("all", "kernels", "checkpoint", "moe", "api", "vision"),
+                    choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd"),
                     default="all")
+    # phase 13's gRPC worker processes: this script started by itself
+    ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    if args.pd_worker is not None:  # its device is in the spec
+        sys.path.insert(0, str(REPO))
+        return pd_worker_main(json.loads(args.pd_worker))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on the GPU",
               file=sys.stderr)
@@ -5642,13 +6307,14 @@ def main(argv=None) -> int:
         traceback.print_exc()
         failed.append("kernels")
     engine = {}
-    if args.phases in ("all", "checkpoint", "api") and not failed:
+    if args.phases in ("all", "checkpoint", "api", "pd") and not failed:
         print({"all": "phase 3: engine on Llama-3-8B (full width, 32 layers)",
                "checkpoint": "phase 8 alone, on Llama-3-8B",
-               "api": "phase 10 alone, on Llama-3-8B"}[args.phases])
+               "api": "phase 10 alone, on Llama-3-8B",
+               "pd": "phase 13 alone, on Llama-3-8B"}[args.phases])
         try:
             engine = {"all": phase_engine, "checkpoint": phase_checkpoint_alone,
-                      "api": phase_api_alone}[args.phases](dev, card)
+                      "api": phase_api_alone, "pd": phase_pd_alone}[args.phases](dev, card)
         except Exception:
             traceback.print_exc()
             failed.append("engine")
@@ -5700,6 +6366,9 @@ def main(argv=None) -> int:
             launches_throughput=engine["api_bf16"]["mix"]["throughput"]["launches"][name],
             # phase 12's graph path (Qwen2-VL-7B image and text requests, bf16)
             launches_vision=vision["launches"][name],
+            # phase 13's PD path (bf16): prefill on the prefill engine,
+            # decode on the decode engine
+            launches_pd=engine["pd"]["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],

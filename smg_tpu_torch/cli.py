@@ -1,16 +1,20 @@
-"""CLI entry point of the port: ``python -m smg_tpu_torch.cli serve``.
+"""CLI entry point of the port: ``python -m smg_tpu_torch.cli serve|worker``.
 
-The port's copy of the ``serve`` subcommand of ``smg_tpu/cli.py``: one
-PyTorch engine in process behind the gateway.  Engines run on the card;
+The port's copy of the ``serve`` and ``worker`` subcommands of
+``smg_tpu/cli.py``.  ``serve`` runs one PyTorch engine in process behind the
+gateway; ``worker`` runs a bare engine behind the gRPC scheduler protocol
+(``--grpc-port``), with serve's engine flags.  Engines run on the card;
 ``--device cpu`` is the only way onto the CPU.  The request-policy flags
 (auth, rate limits, priority admission, the request timeout, CORS, parsers,
 harmony, SLO specs and OTel export) and the speculation flags carry the
 reference's names and defaults, as do the breaker, retry, health-check,
 cache-aware, flight-recorder and metric-window flags, ``--prefill-mix-policy``,
-``--request-id-headers``, ``--max-payload-size`` and ``--enable-igw``.
-``launch``, ``worker``, gRPC, PD, parallelism, mesh, discovery, storage, TLS,
-MCP, providers, plugins, multimodal transport and the separate probe and
-metrics listeners are not ported yet, and their flags are refused.
+``--request-id-headers``, ``--max-payload-size``, ``--enable-igw`` and
+``--kv-connector`` (the PD KV handoff; ``transfer`` is not offered).
+``launch``, worker URLs (``--worker``, ``--prefill-worker``,
+``--decode-worker``), parallelism, mesh, discovery, storage, TLS, MCP,
+providers, plugins, multimodal transport and the separate probe and metrics
+listeners are not ported yet, and their flags are refused.
 """
 
 from __future__ import annotations
@@ -64,6 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "goodput_ratio_floor, deadline_miss_budget, "
                         "fast/slow_window_s, fast/slow_burn, min_requests, "
                         "hysteresis).  Verdicts at GET /debug/slo/verdicts")
+    g.add_argument("--kv-connector", default="auto", choices=["auto", "host", "device"],
+                   help="PD KV handoff: on the card (device) or host bytes; auto "
+                        "takes device when both legs keep KV on the card")
     g.add_argument("--engine-drain-timeout-secs", type=float, default=10.0,
                    dest="engine_drain_timeout_secs",
                    help="SIGTERM drain budget for in-proc engines: queued "
@@ -129,7 +136,16 @@ def build_parser() -> argparse.ArgumentParser:
     auth.add_argument("--tenant-header-name", default="X-Tenant-Id",
                       dest="tenant_header_name")
 
-    e = serve.add_argument_group("Engine")
+    _add_engine_args(serve)
+
+    worker = sub.add_parser("worker", help="start a bare PyTorch engine worker (gRPC)")
+    _add_engine_args(worker)
+    worker.add_argument("--grpc-port", type=int, default=30001)
+    return p
+
+
+def _add_engine_args(p: argparse.ArgumentParser) -> None:
+    e = p.add_argument_group("Engine")
     e.add_argument("--model-path", default=None,
                    help="HF-format model dir (config.json, *.safetensors, "
                         "tokenizer.json)")
@@ -211,14 +227,14 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--flight-dump-min-interval-secs", type=float, default=5.0,
                    dest="flight_dump_min_interval_secs",
                    help="per-reason rate limit between automatic flight dumps")
-    return p
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     from smg_tpu_torch.utils.logging import configure
 
-    configure(level=args.log_level, json_logs=args.log_json or None)
+    configure(level=getattr(args, "log_level", "INFO"),
+              json_logs=getattr(args, "log_json", False) or None)
     from smg_tpu_torch.gateway.launch import run_command
 
     return run_command(args)

@@ -3,8 +3,9 @@ results + the background step loop (port of ``smg_tpu/engine/engine.py``:
 ``submit``, ``abort``, ``step``, ``generate``, ``start``/``stop``,
 ``loads``, ``audit``, ``flush_cache``, ``healthy``, ``dump_flight``,
 ``metrics``, ``events``, ``embed``, ``start_profile``/``stop_profile``,
-the LoRA adapter calls and, on a vision-language model, ``encode_image``
-and ``submit(mm_embeds=...)``), with the draft-model proposer installed when
+the LoRA adapter calls, the PD legs ``prefill_export`` and
+``submit_prefilled`` and, on a vision-language model, ``encode_image`` and
+``submit(mm_embeds=...)``), with the draft-model proposer installed when
 ``config.draft_model`` is set.
 
 Entry points run on the card: ``device=None`` means CUDA, and a machine
@@ -435,6 +436,82 @@ class Engine:
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"trace-{os.getpid()}-{int(time.time() * 1e3)}.json")
         prof.export_chrome_trace(path)
+
+    # ---- PD disaggregation legs ----
+
+    def prefill_export(self, prompt_ids: list[int], sampling: SamplingParams,
+                       connector: str = "host") -> dict:
+        """The prefill leg: compute the prompt's KV, export its pages through
+        ``connector`` and free them.  Returns {first_token, k, v, seq_len,
+        connector}; k and v are ``[L, n, ps, KD]``, CPU tensors for
+        ``host`` and tensors on this engine's device for ``device``.  Runs
+        under the engine lock, between two steps of the loop thread (an
+        overlap frame may be in flight: see ``Scheduler.prefill_only``)."""
+        from smg_tpu_torch.engine.kv_connector import get_connector
+
+        conn = get_connector(connector)
+        with self._lock:
+            tok, pages, seq_len = self.scheduler.prefill_only(
+                prompt_ids, sampling, token_filter=self._build_token_filter(sampling))
+            try:
+                k, v = conn.export(self.runner, pages)
+            finally:
+                self.scheduler.release_pages(pages)
+        return {"first_token": tok, "k": k, "v": v, "seq_len": seq_len,
+                "connector": conn.name}
+
+    def submit_prefilled(self, prompt_ids: list[int], first_token: int, k, v,
+                         sampling: SamplingParams, rid: str | None = None,
+                         on_output=None, trace_id: str | None = None) -> str:
+        """The decode leg: import the prompt's KV (``k``, ``v``: [L, n, ps,
+        KD]) by the connector its payload needs (``resolve_for_payload``),
+        adopt the request into a decode lane and accept ``first_token``.
+        With no slot or page free, or a failed import, the request is
+        submitted normally and its prompt prefilled here, as the reference
+        does: that keeps it alive under pressure (a warning is logged)."""
+        from smg_tpu_torch.engine.kv_connector import resolve_for_payload
+
+        rid = rid or f"req-{uuid.uuid4().hex[:16]}"
+        req = EngineRequest(rid=rid, prompt_ids=list(prompt_ids), sampling=sampling)
+        req.trace_id = trace_id
+        if self.tokenizer is not None:
+            req.detok = IncrementalDecoder(
+                self.tokenizer, skip_special_tokens=sampling.skip_special_tokens)
+            if sampling.stop:
+                req.stop_checker = StopStringChecker(sampling.stop)
+        req.token_filter = self._build_token_filter(sampling)
+        if sampling.lora_adapter:
+            req.lora_idx = self.runner.lora_index(sampling.lora_adapter)
+        with self._wakeup:
+            pages = None
+            try:
+                pages = self.scheduler.alloc_import_pages(len(prompt_ids))
+                resolve_for_payload(k).import_(self.runner, pages, k, v)
+                adopted = self.scheduler.adopt_prefilled(req, pages, first_token)
+            except Exception:
+                logger.exception("KV import failed for %s", rid)
+                adopted = False
+            if not adopted and pages is not None:
+                self.scheduler.release_pages(pages)
+            if on_output is not None:
+                self._callbacks[rid] = on_output
+            if adopted:
+                step_outs: list[StepOutput] = []
+                self.scheduler._accept_tokens(req, [int(first_token)], [0.0], step_outs,
+                                              advance_seq=False)
+                outputs = [self._postprocess(so) for so in step_outs]
+            else:
+                logger.warning("PD adopt failed for %s; falling back to local prefill", rid)
+                try:
+                    self.scheduler.add_request(req)
+                except Exception:
+                    self._callbacks.pop(rid, None)
+                    raise
+                outputs = []
+            self._last_progress = time.monotonic()
+            self._wakeup.notify_all()
+        self._deliver(outputs)
+        return rid
 
     # ---- stepping ----
 

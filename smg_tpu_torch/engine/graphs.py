@@ -287,13 +287,16 @@ class GraphCache:
             return body(step)
         main = torch.cuda.current_stream(self.device)
         t0 = time.perf_counter()
-        torch.cuda.empty_cache()
-        reserved0 = torch.cuda.memory_reserved(self.device)
         if self._held is None:
             self.capture.hold()
             self._held = weakref.finalize(self, self.capture.let_go)
             self._held.atexit = False  # no CUDA calls while the process exits
         with self.capture.lock:  # one capture at a time on the shared stream
+            # under the lock: the allocator asserts that no capture is
+            # underway when it empties its cache, and another engine's
+            # thread may be capturing on this stream
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved(self.device)
             self.stream.wait_stream(main)
             with torch.cuda.stream(self.stream):
                 out = body(step)  # warm-up: this launch's results

@@ -218,6 +218,9 @@ class ModelRunner:
         # verify blocks
         self.stats = dict(prefill_calls=0, prefill_rows=0, prefill_tokens=0,
                           decode_calls=0, decode_columns=0, verify_calls=0)
+        # PD handoffs by leg and route (export_pages*/import_pages*)
+        self.kv_handoffs = dict(export_host=0, export_device=0, import_host=0,
+                                import_device=0)
 
     # ---- sampling counter ----
 
@@ -704,6 +707,85 @@ class ModelRunner:
             lengths[i] = len(ids)
         out = self.model.forward_embed(self._i32(tokens), self._i32(lengths))
         return out[:n].cpu().numpy()  # the blocking fetch
+
+    # ---- PD disaggregation: the KV handoff legs ----
+
+    def export_pages_device(self, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Gather KV pages into fresh tensors on this engine's device:
+        ([L, n, ps, KD] k, v).  Runs on the calling thread's current stream
+        (the device's default stream: the engine launches nothing on side
+        streams outside graph captures).  The gather copies, so the caller
+        may free the pages at once: a later write to them on this stream is
+        ordered after it.  On the card an event recorded after the gather
+        rides each tensor (``ready``), for an import on another stream."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        k = self.k_cache.index_select(1, idx)
+        v = self.v_cache.index_select(1, idx)
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+            k.ready = v.ready = ready
+        self.kv_handoffs["export_device"] += 1
+        return k, v
+
+    def export_pages(self, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Gather KV pages to host memory: ([L, n, ps, KD] k, v) CPU tensors
+        in the cache's dtype (pinned on the card; the copy blocks).  bf16
+        has no numpy dtype, so the host payload is a torch tensor where the
+        reference's is a numpy array; its bytes are the same."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        out = []
+        for cache in (self.k_cache, self.v_cache):
+            gathered = cache.index_select(1, idx)
+            if self.device.type == "cuda":
+                host = torch.empty(gathered.shape, dtype=gathered.dtype, pin_memory=True)
+                host.copy_(gathered)
+                gathered = host
+            out.append(gathered)
+        self.kv_handoffs["export_host"] += 1
+        return out[0], out[1]
+
+    def import_pages(self, pages: list[int], k, v) -> None:
+        """Scatter a host payload (CPU tensors) into the cache at ``pages``;
+        the copy to the device runs on the calling thread's current
+        stream."""
+        dev = self.k_cache.device
+        self._scatter_pages(pages, torch.as_tensor(k).to(dev), torch.as_tensor(v).to(dev))
+        self.kv_handoffs["import_host"] += 1
+
+    def import_pages_device(self, pages: list[int], k: torch.Tensor, v: torch.Tensor) -> None:
+        """Scatter a device payload into the cache at ``pages``: a device-to-
+        device copy on the calling thread's current stream.  The payload must
+        lie on this engine's own device.  It was made on the exporting
+        thread's stream: this stream waits for its ``ready`` event, and
+        ``record_stream`` keeps its memory from being handed out on the
+        exporting stream before this scatter has read it."""
+        dev = self.k_cache.device
+        for t in (k, v):
+            if not isinstance(t, torch.Tensor) or t.device != dev:
+                where = t.device if isinstance(t, torch.Tensor) else type(t).__name__
+                raise ValueError(f"device KV payload on {where}, not on this engine's {dev}")
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            for t in (k, v):
+                ready = getattr(t, "ready", None)
+                if ready is not None:
+                    stream.wait_event(ready)
+                t.record_stream(stream)
+        self._scatter_pages(pages, k, v)
+        self.kv_handoffs["import_device"] += 1
+
+    def _scatter_pages(self, pages: list[int], k: torch.Tensor, v: torch.Tensor) -> None:
+        """In place (``index_copy_`` on the page dim): captured megastep and
+        verify graphs read the cache at the addresses they captured, so the
+        import must never rebind it, as the reference's ``.at[].set`` does."""
+        n = len(pages)
+        want = (self.k_cache.shape[0], n, *self.k_cache.shape[2:])
+        if tuple(k.shape) != want or tuple(v.shape) != want:
+            raise ValueError(f"KV payload of shape {tuple(k.shape)}, want {want}")
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.k_cache.device)
+        self.k_cache.index_copy_(1, idx, k.to(self.k_cache.dtype))
+        self.v_cache.index_copy_(1, idx, v.to(self.v_cache.dtype))
 
     def flush_cache_buffers(self) -> None:
         """Zero the KV buffers in place (flush_cache, after the radix reset):

@@ -47,7 +47,10 @@ that keeps the reference's host logic for what it ports:
   and speculative lanes carry the request's M-RoPE offset; the radix cache
   keys pages by their image content (``_mm_extra_keys``), so two images
   behind the same placeholder ids never share KV, while the same image
-  does.
+  does;
+- PD disaggregation: ``prefill_only`` prefills a prompt into pages outside
+  any slot for export, ``alloc_import_pages`` and ``adopt_prefilled`` take
+  an imported prompt straight into a decode lane.
 
 A request that cannot be
 admitted even with nothing else running (its prompt needs more pages than
@@ -1851,6 +1854,94 @@ class Scheduler:
             self._release(req, finish)
         outputs.append(StepOutput(req, accepted, finish is not None, finish,
                                   logprobs=accepted_lps))
+
+    # ---- PD disaggregation ----
+
+    def prefill_only(self, prompt_ids: list[int], sampling,
+                     token_filter=None) -> tuple[int, list[int], int]:
+        """The prefill leg: prefill a prompt into freshly allocated pages
+        outside any decode slot and return (first_token, pages, seq_len);
+        the caller exports the pages and must ``release_pages`` them.  The
+        radix cache is neither read nor written.  Penalties and the grammar
+        mask apply to the first token as in the co-located prefill.  Every
+        chunk samples, as the reference's does, so the sampling counter
+        advances once a chunk; a frame in flight then keeps its counters
+        (``_discard_frame`` rewinds only while they are the newest)."""
+        n_pages = math.ceil(len(prompt_ids) / self.ps)
+        if not self._ensure_free_pages(n_pages):
+            raise RuntimeError("out of KV pages for prefill-only request")
+        pages = self.pool.alloc(n_pages)
+        row = np.zeros(self.mp, np.int32)
+        row[: len(pages)] = pages
+        pen = None
+        if sampling.has_penalties:
+            counts, pmask = self.runner.penalty_state(prompt_ids, [])
+            pen = (counts, pmask, sampling.frequency_penalty, sampling.presence_penalty,
+                   sampling.repetition_penalty)
+        mask = None
+        if token_filter is not None:
+            mask = token_filter.allowed_mask("")
+            if not mask.any():
+                mask = mask.copy()
+                mask[list(self.config.model.eos_token_ids)] = True
+        start, tok = 0, None
+        try:
+            while start < len(prompt_ids):
+                chunk = prompt_ids[start : start + self.sched.max_prefill_tokens]
+                tok, _ = self.runner.prefill(
+                    chunk, prefix_len=start, page_table=row,
+                    temperature=sampling.temperature, top_k=sampling.top_k,
+                    top_p=sampling.top_p, min_p=sampling.min_p, pen=pen, mask=mask)
+                self.num_prefill_tokens += len(chunk)
+                start += len(chunk)
+        except BaseException:
+            self.pool.free(pages)
+            raise
+        return tok, pages, len(prompt_ids)
+
+    def release_pages(self, pages: list[int]) -> None:
+        self.pool.free(pages)
+
+    def alloc_import_pages(self, n_tokens: int) -> list[int]:
+        """Pages for an imported prompt of ``n_tokens``."""
+        n_pages = math.ceil(n_tokens / self.ps)
+        if not self._ensure_free_pages(n_pages):
+            raise RuntimeError("out of KV pages for import")
+        return self.pool.alloc(n_pages)
+
+    def adopt_prefilled(self, req: EngineRequest, pages: list[int], first_token: int) -> bool:
+        """The decode leg: adopt a request whose prompt KV was imported into
+        ``pages``, which it then owns.  False when no slot is free.  The
+        page-table upload keys off ``_pages_version``; the lane's penalty
+        row is filled by the lazy sync before its first launch
+        (``penalty_synced`` stays false).  The caller accepts
+        ``first_token``."""
+        free_slots = [i for i, s in enumerate(self.slots) if s is None]
+        if not free_slots:
+            return False
+        if req.rid in self.requests:
+            raise ValueError(f"duplicate request id {req.rid}")
+        self._serial += 1
+        req.sched_serial = self._serial  # lane signatures key off it
+        self.requests[req.rid] = req
+        req.owned_pages = list(pages)
+        req.seq_len = req.prefill_pos = req.prompt_len  # prompt KV imported
+        req.status = RequestStatus.RUNNING
+        slot = free_slots[0]
+        req.slot = slot
+        row = self.page_tables[slot]
+        row[:] = 0
+        row[: len(pages)] = pages
+        self.slots[slot] = req
+        self._pages_version += 1
+        if self.flight is not None:
+            # queued and admitted collapse into one adoption instant: the
+            # prompt ran on the other leg's worker
+            self.flight.on_queued(req.rid, prompt_tokens=req.prompt_len,
+                                  trace_id=req.trace_id, meta=self._flight_meta(req))
+            self.flight.event(req.rid, "adopted", slot=slot)
+        del first_token
+        return True
 
     def finish_request(self, rid: str, reason: str, matched_stop=None) -> None:
         """A finish found outside the scheduler (the engine matched a stop

@@ -1,9 +1,10 @@
-"""Process assembly for ``python -m smg_tpu_torch.cli serve`` — the port's
-copy of the ``serve`` path of ``smg_tpu/gateway/launch.py``: build a port
-``Engine`` from an HF checkpoint directory (``--model-path``: its
-``config.json``, safetensors weights and tokenizer) or a model preset, put
-it behind one ``InProcWorkerClient``, and serve the gateway until SIGTERM or
-SIGINT, which drains the engine.
+"""Process assembly for ``python -m smg_tpu_torch.cli serve|worker`` — the
+port's copy of the ``serve`` and ``worker`` paths of
+``smg_tpu/gateway/launch.py``: build a port ``Engine`` from an HF checkpoint
+directory (``--model-path``: its ``config.json``, safetensors weights and
+tokenizer) or a model preset; ``serve`` puts it behind one
+``InProcWorkerClient`` and serves the gateway until SIGTERM or SIGINT, which
+drains the engine; ``worker`` serves it over gRPC (``rpc/server.py``).
 
 Preset models have no tokenizer file, so the engine and the gateway share a
 vocabulary-matched ``MockTokenizer``.  (The JAX ``serve`` gives its gateway
@@ -141,6 +142,7 @@ def gateway_options(args) -> dict:
         # the remaining request budget rides every worker dispatch, so the
         # engine expires abandoned work instead of decoding into the void
         request_timeout_secs=args.request_timeout_secs,
+        kv_connector=args.kv_connector,
     )
     policy_kwargs = {}
     if args.policy == "cache_aware":
@@ -294,5 +296,17 @@ async def _run_serve(args) -> int:
     return 0
 
 
+def run_worker(args) -> int:
+    """``worker``: one engine behind the gRPC scheduler protocol until
+    SIGTERM or SIGINT."""
+    from smg_tpu_torch.rpc.server import serve_worker
+
+    engine = build_engine_from_args(args)
+    engine.start()
+    return serve_worker(engine, port=args.grpc_port)
+
+
 def run_command(args) -> int:
+    if args.command == "worker":
+        return run_worker(args)
     return asyncio.run(_run_serve(args))

@@ -15,8 +15,16 @@ routing decision rides the dispatch, and the first chunk's
 (``metrics.route``).  Embeddings, rerank and classify go through one
 guarded worker ``embed`` leg.
 
-Not ported yet: PD disaggregation, multimodal input, DP-rank pinning, the
-Anthropic messages API and the responses API.
+PD disaggregation: when the model has PREFILL and DECODE workers, a text
+request runs its prompt on a prefill worker (``prefill_export``), hands the
+KV over through the configured connector (``RouterConfig.kv_connector``:
+``auto`` takes ``device`` when every leg keeps KV on the card, else
+``host``) and streams from a decode worker that imports it
+(``generate_prefilled``).  An image request bypasses PD onto a worker that
+is neither DECODE nor ENCODE.
+
+Not ported yet: PD over HTTP workers, DP-rank pinning, the Anthropic
+messages API and the responses API.
 """
 
 from __future__ import annotations
@@ -69,6 +77,9 @@ class RouteError(Exception):
 @dataclass
 class RouterConfig:
     default_max_tokens: int = 512
+    # PD KV handoff: "auto" = on the card whenever both legs support it,
+    # else host bytes ("host" | "device" force a connector)
+    kv_connector: str = "auto"
     max_retries: int = 3
     retry_backoff_base: float = 0.1
     retry_backoff_max: float = 2.0
@@ -145,6 +156,13 @@ class Router:
             raise RouteError(503, "no healthy workers available", "service_unavailable")
         return worker, decision
 
+    def _pd_pools(self, model_id: str | None) -> tuple[list[Worker], list[Worker]]:
+        """(prefill pool, decode pool): both non-empty means PD mode."""
+        candidates = self._candidate_workers(model_id)
+        prefill = [w for w in candidates if w.worker_type == WorkerType.PREFILL]
+        decode = [w for w in candidates if w.worker_type == WorkerType.DECODE]
+        return prefill, decode
+
     # ---- core execution with retry ----
 
     async def _execute(
@@ -176,9 +194,10 @@ class Router:
             if tokenizer is not None
             else None
         )
-        # one first-dispatch clock for TTFT and the SLO record, never reset
-        # on failover: a queue-full retry or a backoff sleep shows up in the
-        # TTFT
+        prefill_pool, decode_pool = self._pd_pools(ctx.model_id)
+        # one first-dispatch clock for TTFT and the SLO record, shared by the
+        # regular and the PD path and never reset on failover: a queue-full
+        # retry or a backoff sleep shows up in the TTFT
         t_dispatch = time.perf_counter()
         srec = None
         if self.metrics is not None:
@@ -189,8 +208,41 @@ class Router:
                 trace_id=span.trace_id if span is not None else None,
                 t_start=t_dispatch,
             )
-        attempts = 0
         exclude: set[str] = set()
+        if mm is not None and prefill_pool and decode_pool:
+            # the prefill export does not carry the image splice: image
+            # requests take the regular path, never onto a DECODE or ENCODE
+            # worker
+            candidates = self._candidate_workers(ctx.model_id)
+            typed = [w for w in candidates
+                     if w.worker_type in (WorkerType.DECODE, WorkerType.ENCODE)]
+            if len(typed) == len(candidates):
+                if srec is not None:
+                    srec.fail("error")
+                raise RouteError(
+                    503, "image input needs a prefill-capable worker; this PD "
+                    "deployment has only decode/encode workers", "service_unavailable")
+            exclude = {w.worker_id for w in typed}
+            logger.warning("request %s has image input; bypassing PD disaggregation", rid)
+        elif prefill_pool and decode_pool:
+            try:
+                async for ev in self._execute_pd(ctx, input_ids, worker_sampling, rid, detok,
+                                                 stop_checker, prefill_pool, decode_pool,
+                                                 t_dispatch=t_dispatch, srec=srec):
+                    yield ev
+            except (GeneratorExit, asyncio.CancelledError):
+                if srec is not None:
+                    srec.abandon("abort")
+                raise
+            except BaseException:
+                # failures before the stream (no prefill worker, a failed
+                # export, decode selection) land in the SLO record too; the
+                # PD path's own terminal calls came first
+                if srec is not None:
+                    srec.fail("error")
+                raise
+            return
+        attempts = 0
         saw_queue_full = False
         # remaining-budget deadline for --request-timeout-secs: each
         # (re)dispatch hands the engine only what is left
@@ -373,6 +425,120 @@ class Router:
             # records only otherwise untracked endings, as voluntary
             if srec is not None:
                 srec.abandon("abort")
+
+    async def _execute_pd(self, ctx, input_ids, worker_sampling, rid, detok, stop_checker,
+                          prefill_pool, decode_pool, t_dispatch: float, srec=None):
+        """PD-disaggregated execution: the prefill leg computes and exports
+        the prompt's KV, the decode leg imports it and streams tokens.
+        ``t_dispatch`` and ``srec`` are ``_execute``'s first-dispatch clock
+        and SLO record.  Either leg's failure answers 502; a stop string or
+        a disconnect aborts the decode leg."""
+        policy = self.policies.policy_for(ctx.model_id)
+        p_worker = policy.select(prefill_pool, ctx)[0]
+        if p_worker is None:
+            raise RouteError(503, "no healthy prefill workers", "service_unavailable")
+        # a capability check only: the decode worker is chosen after the
+        # prefill, so load changes during a long prefill get a fresh choice
+        connector = self.config.kv_connector
+        if connector == "auto":
+            on_card = (p_worker.client.supports_device_kv
+                       and all(w.client.supports_device_kv for w in decode_pool))
+            connector = "device" if on_card else "host"
+
+        p_guard = p_worker.acquire()
+        p_span = start_stage("engine.prefill", worker_id=p_worker.worker_id, rid=rid,
+                             prompt_tokens=len(input_ids), pd_leg="prefill")
+        try:
+            export = await p_worker.client.prefill_export(input_ids, worker_sampling,
+                                                          connector=connector)
+            p_guard.release(success=True)
+            end_stage(p_span)
+        except Exception as e:
+            p_guard.release(success=False)
+            end_stage(p_span, error=True)
+            raise RouteError(502, f"prefill worker error: {e}", "worker_error")
+
+        d_worker, d_decision = policy.select(decode_pool, ctx)
+        if d_worker is None:
+            raise RouteError(503, "no healthy decode workers", "service_unavailable")
+        if export.get("connector") == "device" and not d_worker.client.supports_device_kv:
+            # a host-only decode worker joined mid-flight: the payload comes
+            # to the host, off the event loop (tens of MB)
+            from smg_tpu_torch.engine.kv_connector import to_host
+
+            loop = asyncio.get_running_loop()
+            export["k"], export["v"] = await loop.run_in_executor(
+                None, lambda: (to_host(export["k"]), to_host(export["v"])))
+            export["connector"] = "host"
+        d_guard = d_worker.acquire()
+        finished_cleanly = False
+        got_first_chunk = False
+        last_output_tokens = 0
+        d_span = start_stage("engine.decode", worker_id=d_worker.worker_id, rid=rid,
+                             pd_leg="decode")
+        try:
+            wreq = WorkerGenerateRequest(rid=rid, input_ids=input_ids, sampling=worker_sampling)
+            async for chunk in d_worker.client.generate_prefilled(
+                    wreq, export["first_token"], export["k"], export["v"]):
+                if not got_first_chunk and self.metrics is not None:
+                    self.metrics.ttft.labels(route=current_route.get()).observe(
+                        time.perf_counter() - t_dispatch)
+                    self.metrics.prompt_tokens.inc(chunk.prompt_tokens)
+                    if chunk.cached_tokens:
+                        self.metrics.cached_tokens.inc(chunk.cached_tokens)
+                    if srec is not None:
+                        srec.first_token(chunk.prompt_tokens, chunk.cached_tokens)
+                    # the decode leg imports the prompt without its prefix
+                    # cache, so it reports 0 cached tokens: a cache-aware
+                    # prediction lands as "over", as it should for PD
+                    self.metrics.route.reconcile(d_decision, d_worker.worker_id,
+                                                 chunk.cached_tokens)
+                got_first_chunk = True
+                if self.metrics is not None and chunk.output_tokens > last_output_tokens:
+                    self.metrics.generated_tokens.inc(chunk.output_tokens - last_output_tokens)
+                    if srec is not None:
+                        srec.tokens(chunk.output_tokens - last_output_tokens)
+                last_output_tokens = chunk.output_tokens
+                ev = self._chunk_to_event(chunk, detok, stop_checker)
+                if ev is not None:
+                    if srec is not None and ev.finished:
+                        srec.finish(ev.finish_reason)
+                    yield ev
+                    if ev.finished and not chunk.finished:
+                        await d_worker.client.abort(rid)
+                        finished_cleanly = True
+                        d_guard.release(success=True)
+                        return
+                if chunk.finished:
+                    if srec is not None:
+                        srec.finish(chunk.finish_reason)
+                    finished_cleanly = True
+                    d_guard.release(success=True)
+                    return
+            raise RuntimeError("decode stream ended unexpectedly")
+        except (GeneratorExit, asyncio.CancelledError):
+            d_guard.release(success=True)
+            if srec is not None:
+                srec.abandon("abort")
+            try:
+                await asyncio.shield(d_worker.client.abort(rid))
+            except Exception:
+                pass
+            raise
+        except RouteError:
+            d_guard.release(success=False)
+            if srec is not None:
+                srec.fail("error")
+            raise
+        except Exception as e:
+            d_guard.release(success=False)
+            if srec is not None:
+                srec.fail("error")
+            raise RouteError(502, f"decode worker error: {e}", "worker_error")
+        finally:
+            end_stage(d_span, error=not finished_cleanly, output_tokens=last_output_tokens)
+            if not finished_cleanly:
+                d_guard.release(success=True)
 
     def _chunk_to_event(
         self,

@@ -1,8 +1,15 @@
 """Worker client abstraction: how the gateway talks to engine workers — the
-port's copy of ``smg_tpu/gateway/worker_client.py`` with its in-process
-transport.  ``InProcWorkerClient`` runs a port ``Engine`` in the gateway's
-process, with generation, embeddings, the vision encode, profiling and the
-LoRA calls; the gRPC transport and PD transfer are not ported yet.
+port's copy of ``smg_tpu/gateway/worker_client.py``.  Two transports:
+
+- ``InProcWorkerClient``: a port ``Engine`` in the gateway's process, with
+  generation, the PD legs (``prefill_export``, ``generate_prefilled``; the
+  KV may stay on the card: ``supports_device_kv``), embeddings, the vision
+  encode, profiling and the LoRA calls;
+- ``GrpcWorkerClient`` (``smg_tpu_torch/rpc/client.py``): remote workers
+  over gRPC, the KV as bytes on the wire.
+
+The reference's ``transfer`` KV connector (``release_kv_offer``) is not
+ported.
 """
 
 from __future__ import annotations
@@ -56,11 +63,23 @@ class WorkerStreamChunk:
 class WorkerClient:
     """Transport-agnostic worker API (async)."""
 
+    #: True when this client can hand KV over as tensors on the card (an
+    #: in-process engine: the ``device`` kv connector)
+    supports_device_kv = False
+
     async def generate(self, req: WorkerGenerateRequest) -> AsyncIterator[WorkerStreamChunk]:
         raise NotImplementedError
         yield  # pragma: no cover
 
     async def abort(self, rid: str) -> bool:
+        raise NotImplementedError
+
+    async def prefill_export(self, input_ids: list, sampling, connector: str = "host") -> dict:
+        """PD prefill leg: {first_token, k, v, seq_len, connector}."""
+        raise NotImplementedError
+
+    def generate_prefilled(self, req, first_token: int, k, v):
+        """PD decode leg: async iterator of WorkerStreamChunk."""
         raise NotImplementedError
 
     async def health(self) -> bool:
@@ -135,7 +154,10 @@ class InProcWorkerClient(WorkerClient):
     on the worker thread only the caller waits.  One thread in call order
     keeps the engine's arrival order, and puts an abort after its own
     request's submit even when the caller was cancelled while submitting.
-    (The reference submits on the event loop.)"""
+    (The reference submits on the event loop.)  The PD legs run there too:
+    an export holds the engine lock for the prompt's prefill."""
+
+    supports_device_kv = True
 
     #: drain budget handed to ``engine.stop(drain=True)`` on close — long
     #: enough for in-flight lanes to finish, short enough for prompt SIGTERM
@@ -152,20 +174,7 @@ class InProcWorkerClient(WorkerClient):
 
         loop = asyncio.get_running_loop()
         q: asyncio.Queue = asyncio.Queue()
-
-        def on_output(out) -> None:  # engine thread
-            chunk = WorkerStreamChunk(
-                rid=req.rid,
-                token_ids=list(out.new_token_ids),
-                logprobs=list(out.logprobs),
-                finished=out.finished,
-                finish_reason=out.finish_reason,
-                matched_stop=out.matched_stop,
-                prompt_tokens=out.prompt_tokens,
-                cached_tokens=out.cached_tokens,
-                output_tokens=out.output_tokens,
-            )
-            loop.call_soon_threadsafe(q.put_nowait, chunk)
+        on_output = _chunk_sink(req.rid, loop, q)
 
         # in-proc trace link: the ambient request span's trace id threads
         # into the engine request, so the flight-recorder timeline links to
@@ -195,6 +204,27 @@ class InProcWorkerClient(WorkerClient):
         # behind any submit still queued on the same thread
         return await asyncio.get_running_loop().run_in_executor(
             self._calls, self.engine.abort, rid)
+
+    async def prefill_export(self, input_ids: list, sampling, connector: str = "host") -> dict:
+        return await asyncio.get_running_loop().run_in_executor(
+            self._calls, functools.partial(self.engine.prefill_export, list(input_ids),
+                                           sampling, connector=connector))
+
+    async def generate_prefilled(self, req, first_token: int, k, v):
+        from smg_tpu_torch.gateway.tracing import ambient_trace_id
+
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+        submit = functools.partial(
+            self.engine.submit_prefilled, req.input_ids, first_token, k, v, req.sampling,
+            rid=req.rid, on_output=_chunk_sink(req.rid, loop, q),
+            trace_id=req.trace_id or ambient_trace_id())
+        await loop.run_in_executor(self._calls, submit)
+        while True:
+            chunk = await q.get()
+            yield chunk
+            if chunk.finished:
+                return
 
     async def health(self) -> bool:
         # engine-level health, not liveness: a wedged device fetch or a run
@@ -305,3 +335,24 @@ class InProcWorkerClient(WorkerClient):
         # wait is seconds of blocking
         await asyncio.to_thread(self.engine.stop, True, self.drain_timeout_secs)
         self._calls.shutdown(wait=False)
+
+
+def _chunk_sink(rid: str, loop, q: asyncio.Queue):
+    """An engine ``on_output`` callback (engine thread) that hops each
+    output onto ``loop`` as a ``WorkerStreamChunk`` in ``q``."""
+
+    def on_output(out) -> None:
+        chunk = WorkerStreamChunk(
+            rid=rid,
+            token_ids=list(out.new_token_ids),
+            logprobs=list(out.logprobs),
+            finished=out.finished,
+            finish_reason=out.finish_reason,
+            matched_stop=out.matched_stop,
+            prompt_tokens=out.prompt_tokens,
+            cached_tokens=out.cached_tokens,
+            output_tokens=out.output_tokens,
+        )
+        loop.call_soon_threadsafe(q.put_nowait, chunk)
+
+    return on_output

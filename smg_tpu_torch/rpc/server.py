@@ -1,0 +1,460 @@
+"""Worker-side gRPC servicer: one port ``Engine`` over the scheduler
+protocol — the port's copy of ``smg_tpu/rpc/server.py``, on the same wire
+format (``rpc/scheduler_pb2.py``), so the reference's client drives it and
+the port's client drives the reference's server.
+
+Every RPC of the reference: ``Generate``, ``Embed``, ``EmbedBatch``,
+``Encode``, ``PrefillExport``, ``GeneratePrefilled``, ``DumpFlight``,
+``Abort``, ``HealthCheck``, ``GetLoads``, ``GetModelInfo``, ``FlushCache``,
+the three LoRA RPCs, ``GetTokenizer``, ``StartProfile``/``StopProfile``
+(a ``torch.profiler`` trace) and ``SubscribeKvEvents``.  Divergences:
+
+- one engine per worker: data-parallel replicas are not ported, so a
+  ``data_parallel_rank`` other than -1 or 0 gets the reference's
+  out-of-range error;
+- the PD legs move the KV as host bytes (``PrefillExport`` sends them,
+  ``GeneratePrefilled`` imports them); the reference's ``transfer``
+  connector is not ported, so ``ReleaseKvOffer`` answers as the reference
+  does for an offer it does not hold (``ok=False``);
+- submits and aborts run on one worker thread, in call order, as the
+  in-process client's do: the engine lock is held for a whole step, and the
+  server's event loop must not wait on it.
+
+Messages are capped at 512 MiB each way, as the reference's are.  A PD
+export of more KV than that fails its prefill leg (the router answers 502):
+at Llama-3-8B in bf16 a token's K and V take 131,072 bytes, so 4,080 tokens
+(255 pages of 16) fit and 4,096 do not.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import functools
+import os
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+
+import grpc
+import grpc.aio
+
+from smg_tpu_torch.rpc import SERVICE
+from smg_tpu_torch.rpc import scheduler_pb2 as pb
+from smg_tpu_torch.rpc.convert import (
+    kv_batch_to_proto,
+    kv_from_wire,
+    kv_to_wire,
+    mm_embeds_from_proto,
+    sampling_from_proto,
+)
+from smg_tpu_torch.utils import get_logger
+
+logger = get_logger("rpc.server")
+
+MAX_MESSAGE_BYTES = 512 * 1024 * 1024
+
+
+def _chunk(rid: str, out) -> pb.GenerateChunk:
+    return pb.GenerateChunk(
+        rid=rid,
+        token_ids=out.new_token_ids,
+        logprobs=out.logprobs,
+        finished=out.finished,
+        finish_reason=out.finish_reason or "",
+        matched_stop_token=out.matched_stop if isinstance(out.matched_stop, int) else -1,
+        prompt_tokens=out.prompt_tokens,
+        cached_tokens=out.cached_tokens,
+        output_tokens=out.output_tokens,
+    )
+
+
+class SchedulerServicer:
+    """One worker = one port engine; ``tracer`` (an ``OtelTracer``) opens
+    a ``worker.generate`` span under the gateway's propagated traceparent."""
+
+    def __init__(self, engine, tracer=None):
+        if engine is None:
+            raise ValueError("need an engine")
+        self.engine = engine
+        self.tracer = tracer
+        self._calls = ThreadPoolExecutor(max_workers=1, thread_name_prefix="rpc-submit")
+
+    @staticmethod
+    def _traceparent(context) -> "str | None":
+        """W3C traceparent from the request metadata."""
+        try:
+            for key, value in context.invocation_metadata() or ():
+                if key == "traceparent":
+                    return value
+        except Exception:
+            return None
+        return None
+
+    def _trace_id(self, context) -> "str | None":
+        from smg_tpu_torch.gateway.tracing import parse_traceparent
+
+        ctx = parse_traceparent(self._traceparent(context))
+        return ctx[0] if ctx else None
+
+    def _check_rank(self, rank: int) -> None:
+        if rank >= 1:
+            raise ValueError(f"data_parallel_rank {rank} out of range (dp_size 1)")
+
+    def _end_span(self, span, error: bool = False) -> None:
+        if span is None or self.tracer is None:
+            return
+        span.end(error=error)
+        self.tracer.record(span)
+
+    async def _stream(self, rid: str, q: asyncio.Queue):
+        """Yield the request's outputs as chunks until it finishes; a client
+        that goes away mid-stream aborts it in the engine (queued behind the
+        submit on the worker thread)."""
+        try:
+            while True:
+                out = await q.get()
+                yield _chunk(rid, out)
+                if out.finished:
+                    return
+        finally:
+            self._calls.submit(self.engine.abort, rid)
+
+    async def Generate(self, request: pb.GenerateRequestProto, context):
+        from smg_tpu_torch.engine.request import QueueFullError
+        from smg_tpu_torch.faults import FAULTS
+
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+        sampling = sampling_from_proto(request.sampling)
+        rid = request.rid
+        # worker-side failure before any engine state is touched
+        FAULTS.fire("rpc.generate", rid=rid)
+        traceparent = self._traceparent(context)
+        span = None
+        if self.tracer is not None:
+            span = self.tracer.start_span("worker.generate", traceparent=traceparent)
+            span.set("rid", rid)
+        try:
+            self._check_rank(request.data_parallel_rank)
+            await loop.run_in_executor(self._calls, functools.partial(
+                self.engine.submit, list(request.input_ids), sampling, rid=rid,
+                on_output=lambda out: loop.call_soon_threadsafe(q.put_nowait, out),
+                mm_embeds=mm_embeds_from_proto(request.mm_embeds),
+                timeout_secs=request.timeout_secs or None,
+                trace_id=self._trace_id(context)))
+        except QueueFullError as e:
+            # admission back-pressure is retryable: the client maps it to
+            # try-another-worker / HTTP 429
+            self._end_span(span, error=True)
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(e))
+        except ValueError as e:
+            # an invalid request (an unknown adapter, a bad pattern, a rank):
+            # one terminal chunk
+            self._end_span(span, error=True)
+            yield pb.GenerateChunk(rid=rid, finished=True, finish_reason="error",
+                                   error=str(e), matched_stop_token=-1)
+            return
+        except BaseException:
+            self._end_span(span, error=True)
+            raise
+        finished = False
+        try:
+            async for chunk in self._stream(rid, q):
+                yield chunk
+            finished = True
+        finally:
+            self._end_span(span, error=not finished)
+
+    async def Embed(self, request: pb.EmbedRequestProto, context):
+        loop = asyncio.get_running_loop()
+        try:
+            vec = await loop.run_in_executor(self._calls, self.engine.embed,
+                                             [list(request.input_ids)])
+            return pb.EmbedResponseProto(embedding=vec[0].tolist(),
+                                         prompt_tokens=len(request.input_ids))
+        except Exception as e:
+            logger.exception("embed failed")
+            return pb.EmbedResponseProto(error=str(e))
+
+    async def EmbedBatch(self, request: pb.EmbedBatchRequestProto, context):
+        loop = asyncio.get_running_loop()
+        try:
+            batches = [list(t.ids) for t in request.inputs]
+            vecs = await loop.run_in_executor(self._calls, self.engine.embed, batches)
+            resp = pb.EmbedBatchResponseProto(prompt_tokens=sum(len(b) for b in batches))
+            for v in vecs:
+                resp.embeddings.add(values=v.tolist())
+            return resp
+        except Exception as e:
+            logger.exception("embed batch failed")
+            return pb.EmbedBatchResponseProto(error=str(e))
+
+    async def Encode(self, request: pb.EncodeRequestProto, context):
+        """The EPD encode leg: the vision tower on pre-patchified pixels,
+        inline or through a same-host shared-memory segment."""
+        import numpy as np
+
+        loop = asyncio.get_running_loop()
+        try:
+            n = request.n_patches * request.patch_dim
+            if request.shm_name:
+                from multiprocessing import resource_tracker, shared_memory
+
+                try:
+                    shm = shared_memory.SharedMemory(name=request.shm_name)
+                except (FileNotFoundError, OSError) as e:
+                    # the client retries inline
+                    return pb.EncodeResponseProto(error=f"shm_unavailable: {e}")
+                try:
+                    # attached, not created: the creator unlinks
+                    try:
+                        resource_tracker.unregister(shm._name, "shared_memory")
+                    except Exception:
+                        pass
+                    pixels = np.frombuffer(shm.buf[: n * 4], dtype=np.float32).reshape(
+                        request.n_patches, request.patch_dim).copy()
+                finally:
+                    shm.close()
+            else:
+                pixels = np.frombuffer(request.pixel_values, dtype=np.float32).reshape(
+                    request.n_patches, request.patch_dim)
+            out = await loop.run_in_executor(self._calls, self.engine.encode_image, pixels,
+                                             (request.grid_h, request.grid_w))
+            return pb.EncodeResponseProto(
+                embeds=np.ascontiguousarray(out, np.float32).tobytes(),
+                rows=out.shape[0], cols=out.shape[1])
+        except Exception as e:
+            logger.exception("encode failed")
+            return pb.EncodeResponseProto(error=str(e))
+
+    async def PrefillExport(self, request: pb.PrefillExportRequestProto, context):
+        """The PD prefill leg: the prompt's KV as host bytes (a gRPC leg
+        never exports to the card)."""
+        loop = asyncio.get_running_loop()
+        try:
+            sampling = sampling_from_proto(request.sampling)
+            result = await loop.run_in_executor(self._calls, functools.partial(
+                self.engine.prefill_export, list(request.input_ids), sampling,
+                connector="host"))
+            k, shape, dtype = kv_to_wire(result["k"])
+            v, _, _ = kv_to_wire(result["v"])
+            return pb.PrefillExportResponseProto(
+                first_token=result["first_token"], seq_len=result["seq_len"],
+                k=k, v=v, kv_shape=shape, kv_dtype=dtype)
+        except Exception as e:
+            logger.exception("prefill export failed")
+            return pb.PrefillExportResponseProto(error=str(e))
+
+    async def GeneratePrefilled(self, request: pb.GeneratePrefilledRequestProto, context):
+        """The PD decode leg: import the KV bytes and stream from them."""
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+        base = request.base
+        sampling = sampling_from_proto(base.sampling)
+        if request.transfer_address:
+            yield pb.GenerateChunk(rid=base.rid, finished=True, finish_reason="error",
+                                   error="kv connector 'transfer' is not supported by "
+                                         "this worker", matched_stop_token=-1)
+            return
+        k = kv_from_wire(request.k, request.kv_shape, request.kv_dtype)
+        v = kv_from_wire(request.v, request.kv_shape, request.kv_dtype)
+        rid = base.rid
+        await loop.run_in_executor(self._calls, functools.partial(
+            self.engine.submit_prefilled, list(base.input_ids), request.first_token, k, v,
+            sampling, rid=rid,
+            on_output=lambda out: loop.call_soon_threadsafe(q.put_nowait, out),
+            trace_id=self._trace_id(context)))
+        async for chunk in self._stream(rid, q):
+            yield chunk
+
+    async def ReleaseKvOffer(self, request: pb.KvOfferProto, context):
+        """No transfer offers are ever made: nothing to release."""
+        return pb.AbortResponseProto(ok=False)
+
+    async def DumpFlight(self, request: pb.FlightDumpRequestProto, context):
+        """The flight recorder's dump as JSON, off the event loop and
+        without the engine lock (a wedged worker still answers)."""
+        import json
+
+        try:
+            payload = await asyncio.to_thread(self.engine.dump_flight,
+                                              request.reason or "manual")
+            return pb.FlightDumpResponseProto(json=json.dumps(payload))
+        except Exception as e:
+            logger.exception("flight dump failed")
+            return pb.FlightDumpResponseProto(error=str(e))
+
+    async def Abort(self, request: pb.AbortRequestProto, context):
+        ok = await asyncio.get_running_loop().run_in_executor(
+            self._calls, self.engine.abort, request.rid)
+        return pb.AbortResponseProto(ok=ok)
+
+    async def HealthCheck(self, request: pb.EmptyProto, context):
+        # engine health, not process liveness
+        return pb.HealthResponseProto(ok=bool(getattr(self.engine, "healthy", True)))
+
+    async def GetLoads(self, request: pb.EmptyProto, context):
+        loads = await asyncio.to_thread(self.engine.loads)
+        return pb.LoadsProto(
+            num_waiting=loads["num_waiting"], num_running=loads["num_running"],
+            free_pages=loads["free_pages"], cached_pages=loads["cached_pages"],
+            total_pages=loads["total_pages"], dp_queued_tokens=[loads["queued_tokens"]])
+
+    async def GetModelInfo(self, request: pb.EmptyProto, context):
+        cfg = self.engine.config
+        msg = pb.ModelInfoProto(
+            model_id=cfg.model_id, max_seq_len=cfg.scheduler.max_seq_len,
+            vocab_size=cfg.model.vocab_size, eos_token_ids=list(cfg.model.eos_token_ids),
+            page_size=cfg.cache.page_size, dp_size=1)
+        if self.engine.supports_vision:
+            msg.supports_vision = True
+            msg.image_token_id = cfg.model.image_token_id or 0
+            msg.vision_patch_size = cfg.model.vision.patch_size
+            msg.vision_merge_size = cfg.model.vision.merge_size
+        msg.supports_kv_transfer = False
+        return msg
+
+    async def FlushCache(self, request: pb.EmptyProto, context):
+        ok = await asyncio.to_thread(self.engine.flush_cache)
+        return pb.FlushResponseProto(ok=ok)
+
+    async def LoadLoRAAdapter(self, request: pb.LoadLoraRequestProto, context):
+        loop = asyncio.get_running_loop()
+        try:
+            slot = await loop.run_in_executor(self._calls, functools.partial(
+                self.engine.load_lora_adapter, request.name, path=request.path or None,
+                data=request.npz or None))
+            return pb.LoraOpResponseProto(ok=True, slot=slot)
+        except Exception as e:
+            return pb.LoraOpResponseProto(ok=False, error=str(e))
+
+    async def UnloadLoRAAdapter(self, request: pb.LoadLoraRequestProto, context):
+        loop = asyncio.get_running_loop()
+        try:
+            ok = await loop.run_in_executor(self._calls, self.engine.unload_lora_adapter,
+                                            request.name)
+            err = "" if ok else f"adapter {request.name!r} not loaded"
+            return pb.LoraOpResponseProto(ok=ok, error=err)
+        except Exception as e:
+            return pb.LoraOpResponseProto(ok=False, error=str(e))
+
+    async def ListLoRAAdapters(self, request: pb.EmptyProto, context):
+        return pb.LoraListProto(names=self.engine.list_lora_adapters())
+
+    async def GetTokenizer(self, request: pb.EmptyProto, context):
+        from smg_tpu_torch.tokenizer.bundle import make_bundle
+
+        if self.engine.tokenizer is None:
+            yield pb.TokenizerChunkProto(last=True, format="none")
+            return
+        data, fmt, sha = await asyncio.to_thread(make_bundle, self.engine.tokenizer)
+        chunk_size = 1 << 20
+        for off in range(0, max(len(data), 1), chunk_size):
+            last = off + chunk_size >= len(data)
+            yield pb.TokenizerChunkProto(data=data[off : off + chunk_size], last=last,
+                                         sha256=sha if last else "",
+                                         format=fmt if last else "")
+
+    async def StartProfile(self, request: pb.StartProfileRequestProto, context):
+        loop = asyncio.get_running_loop()
+        out_dir = request.output_dir or os.path.join(tempfile.gettempdir(), "smg_profile")
+        try:
+            out = await loop.run_in_executor(self._calls, functools.partial(
+                self.engine.start_profile, out_dir, host_tracer=request.host_tracer,
+                python_tracer=request.python_tracer, num_steps=request.num_steps))
+            return pb.ProfileResponseProto(ok=True, output_dir=out)
+        except Exception as e:
+            return pb.ProfileResponseProto(ok=False, error=str(e))
+
+    async def StopProfile(self, request: pb.EmptyProto, context):
+        loop = asyncio.get_running_loop()
+        try:
+            await loop.run_in_executor(self._calls, self.engine.stop_profile)
+            return pb.ProfileResponseProto(ok=True)
+        except Exception as e:
+            return pb.ProfileResponseProto(ok=False, error=str(e))
+
+    async def SubscribeKvEvents(self, request: pb.KvEventsRequestProto, context):
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+        unsub = self.engine.events.subscribe(
+            lambda batch: loop.call_soon_threadsafe(q.put_nowait, batch),
+            start_sequence_number=request.start_sequence_number)
+        try:
+            while True:
+                yield kv_batch_to_proto(await q.get())
+        finally:
+            unsub()
+
+
+#: RPC name -> (handler kind, request message, response message)
+RPCS = {
+    "Generate": ("unary_stream", pb.GenerateRequestProto, pb.GenerateChunk),
+    "Embed": ("unary_unary", pb.EmbedRequestProto, pb.EmbedResponseProto),
+    "Encode": ("unary_unary", pb.EncodeRequestProto, pb.EncodeResponseProto),
+    "PrefillExport": ("unary_unary", pb.PrefillExportRequestProto,
+                      pb.PrefillExportResponseProto),
+    "GeneratePrefilled": ("unary_stream", pb.GeneratePrefilledRequestProto, pb.GenerateChunk),
+    "EmbedBatch": ("unary_unary", pb.EmbedBatchRequestProto, pb.EmbedBatchResponseProto),
+    "ReleaseKvOffer": ("unary_unary", pb.KvOfferProto, pb.AbortResponseProto),
+    "DumpFlight": ("unary_unary", pb.FlightDumpRequestProto, pb.FlightDumpResponseProto),
+    "Abort": ("unary_unary", pb.AbortRequestProto, pb.AbortResponseProto),
+    "HealthCheck": ("unary_unary", pb.EmptyProto, pb.HealthResponseProto),
+    "GetLoads": ("unary_unary", pb.EmptyProto, pb.LoadsProto),
+    "GetModelInfo": ("unary_unary", pb.EmptyProto, pb.ModelInfoProto),
+    "LoadLoRAAdapter": ("unary_unary", pb.LoadLoraRequestProto, pb.LoraOpResponseProto),
+    "UnloadLoRAAdapter": ("unary_unary", pb.LoadLoraRequestProto, pb.LoraOpResponseProto),
+    "ListLoRAAdapters": ("unary_unary", pb.EmptyProto, pb.LoraListProto),
+    "GetTokenizer": ("unary_stream", pb.EmptyProto, pb.TokenizerChunkProto),
+    "StartProfile": ("unary_unary", pb.StartProfileRequestProto, pb.ProfileResponseProto),
+    "StopProfile": ("unary_unary", pb.EmptyProto, pb.ProfileResponseProto),
+    "FlushCache": ("unary_unary", pb.EmptyProto, pb.FlushResponseProto),
+    "SubscribeKvEvents": ("unary_stream", pb.KvEventsRequestProto, pb.KvEventBatchProto),
+}
+
+
+def _handlers(servicer: SchedulerServicer) -> grpc.GenericRpcHandler:
+    make = {"unary_unary": grpc.unary_unary_rpc_method_handler,
+            "unary_stream": grpc.unary_stream_rpc_method_handler}
+    return grpc.method_handlers_generic_handler(SERVICE, {
+        name: make[kind](getattr(servicer, name), request_deserializer=req.FromString,
+                         response_serializer=resp.SerializeToString)
+        for name, (kind, req, resp) in RPCS.items()})
+
+
+async def serve_worker_async(engine, port: int, host: str = "0.0.0.0",
+                             tracer=None) -> grpc.aio.Server:
+    """Start serving ``engine`` on ``host:port`` (0 picks a free port, read
+    back as ``server._bound_port``)."""
+    server = grpc.aio.server(options=[
+        ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
+        ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
+    ])
+    server.add_generic_rpc_handlers((_handlers(SchedulerServicer(engine, tracer=tracer)),))
+    bound = server.add_insecure_port(f"{host}:{port}")
+    await server.start()
+    logger.info("worker gRPC listening on %s:%d", host, bound)
+    server._bound_port = bound
+    return server
+
+
+def serve_worker(engine, port: int, host: str = "0.0.0.0") -> int:
+    """Serve until SIGTERM or SIGINT, then stop the engine."""
+    async def _main():
+        server = await serve_worker_async(engine, port, host)
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        try:
+            import signal
+
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                loop.add_signal_handler(sig, stop.set)
+        except (NotImplementedError, RuntimeError, ValueError):
+            pass  # not the main thread
+        await stop.wait()
+        await server.stop(grace=1.0)
+
+    try:
+        asyncio.run(_main())
+    finally:
+        engine.stop()
+    return 0

@@ -17,10 +17,12 @@ FORBIDDEN = ("jax", "jaxlib", "smg_tpu")
 # machine (checked there by importing it).  Packages that machine lacks,
 # such as orjson, must stay out of the serving path.  safetensors (the
 # checkpoint and PEFT loaders), tokenizers and jinja2 (the HF tokenizer and
-# its chat templates), regex (the tiktoken pre-tokenizer) and PIL (image
-# decoding, PIL 12.2.0) import there.
+# its chat templates), regex (the tiktoken pre-tokenizer), PIL (image
+# decoding, PIL 12.2.0), grpc and google.protobuf (the gRPC worker, grpc
+# 1.80.0 and protobuf 6.33.6) import there.
 CARD_PACKAGES = ("torch", "numpy", "aiohttp", "prometheus_client", "pydantic",
-                 "safetensors", "tokenizers", "jinja2", "regex", "PIL")
+                 "safetensors", "tokenizers", "jinja2", "regex", "PIL", "grpc",
+                 "google.protobuf")
 
 
 def _sources():
@@ -60,9 +62,10 @@ def test_port_imports_no_jax_and_no_jax_package(path):
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_only_packages_the_card_has(path):
     tree = ast.parse(path.read_text(), filename=str(path))
-    tops = {m.split(".")[0] for m in _imported_modules(tree)}
-    bad = sorted(m for m in tops if m not in sys.stdlib_module_names
-                 and m != "smg_tpu_torch" and m not in CARD_PACKAGES)
+    bad = sorted({m for m in _imported_modules(tree)
+                  if m.split(".")[0] not in sys.stdlib_module_names
+                  and m.split(".")[0] != "smg_tpu_torch"
+                  and not any(m == p or m.startswith(p + ".") for p in CARD_PACKAGES)})
     assert not bad, f"{path.relative_to(REPO)} imports {bad}, not known on the card"
 
 

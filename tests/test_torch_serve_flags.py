@@ -88,14 +88,13 @@ NEW_FLAGS = [
     ("--disable-health-check", None), ("--prefill-mix-policy", "throughput"),
     ("--metrics-window-secs", "12"), ("--device-metrics-interval-secs", "0"),
     ("--flight-recorder", "off"), ("--flight-dump-dir", "dumps"),
-    ("--flight-dump-min-interval-secs", "1.5"),
+    ("--flight-dump-min-interval-secs", "1.5"), ("--kv-connector", "host"),
 ]
 #: flags of modules not ported yet (ROADMAP Queue A lists them by item)
 REFUSED = [["--worker", "http://w"], ["--prefill-worker", "x"], ["--decode-worker", "x"],
            ["--tp", "2"], ["--dp", "2"], ["--mesh-shape", "tp=2"],
            ["--plugins", "p.py"], ["--mcp-config-path", "m.json"],
-           ["--storage", "memory"], ["--tls-cert-path", "c"], ["--kv-connector", "host"],
-           ["--mm-transport", "shm"], ["--prefix-token-count", "8"], ["--no-dp-aware"],
+           ["--storage", "memory"], ["--tls-cert-path", "c"], ["--mm-transport", "shm"], ["--prefix-token-count", "8"], ["--no-dp-aware"],
            ["--selector", "a=b"], ["--service-discovery"], ["--prometheus-port", "9"]]
 BASE = ["serve", "--model-preset", "tiny"]
 
@@ -142,10 +141,11 @@ def test_flags_reach_the_gateway_and_the_engine():
         "--balance-abs-threshold", "7", "--max-tree-size", "1000", "--block-size", "32",
         "--request-id-headers", "X-Trace-Id", "--prefill-mix-policy", "throughput",
         "--metrics-window-secs", "12", "--device-metrics-interval-secs", "0",
-        "--flight-recorder", "off", "--max-batch-size", "4"])
+        "--flight-recorder", "off", "--max-batch-size", "4", "--kv-connector", "device"])
     ctx = tserver.AppContext(**gateway_options(args))
     rc = ctx.router.config
     assert (rc.max_retries, rc.retry_backoff_base, rc.retry_backoff_max) == (5, 0.05, 0.9)
+    assert rc.kv_connector == "device"
     assert ctx.registry.circuit_breaker_config == (1, 3, 0.5)
     hc = ctx.health_monitor.config
     assert (hc.interval_secs, hc.failure_threshold) == (2.5, 4)
@@ -158,6 +158,7 @@ def test_flags_reach_the_gateway_and_the_engine():
                                                  "--disable-health-check"])
     ctx = tserver.AppContext(**gateway_options(off))
     assert ctx.router.config.max_retries == 0
+    assert ctx.router.config.kv_connector == "auto"
     assert ctx.registry.circuit_breaker_config[0] == 10**9
     assert ctx.health_monitor.config.interval_secs == 1e9
     engine = build_engine_from_args(args)
