@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases api   # build + kernels + phase 10 only
     python3 chip_smoke.py --phases vision   # build + kernels + phase 12 only
     python3 chip_smoke.py --phases pd   # build + kernels + phase 13 only
+    python3 chip_smoke.py --phases launch   # build + kernels + phase 14 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -252,13 +253,42 @@ Phases (any failure makes the script exit non-zero and print no result):
    the 8 concurrent chats equal the in-process ``host`` PD's, the gRPC legs
    timed; then ``python -m smg_tpu_torch.cli worker`` (tiny preset) answers
    ``HealthCheck`` and exits 0 on SIGTERM;
+14. ``launch``, after phase 12, with the command line's own processes
+   (``python -m smg_tpu_torch.cli launch|serve|worker``); full-depth
+   processes run one at a time, each sizing its KV to most of the card.
+   (a) ``worker --model-preset llama3-8b`` (full width and depth, random
+   bf16 weights from seed 0, phase 5's engine settings) behind ``launch
+   --worker 127.0.0.1:P`` with no tokenizer flag: ``/workers`` lists it
+   with its model id, ``/workflows/{id}`` reports the startup registration
+   completed with the tokenizer fetched, the gateway's ids are the
+   worker's, and the lone 1400-word chat, streamed and not, gives the
+   tokens and text of ``serve``'s engine from the same flags in this
+   process; readings against that in-process gateway: the seconds from the
+   worker's spawn to its registration, the lone chat's TTFT and gap per
+   token, the median TTFT of 8 concurrent streams.  (b) a ``serve``
+   process behind ``launch --worker http://127.0.0.1:S``: chat and
+   completions, streamed and not, through ``launch`` give the bodies and
+   SSE frames of the same requests sent straight to ``serve`` (ids and
+   times removed); reading: the TTFT the proxy hop adds.  (c) two of this
+   script's own worker processes (``--pd-worker``: 4 layers, float32, KV
+   pages sized by hand) behind a bare ``launch``: ``POST /workers``
+   synchronous and ``"async": true`` (202, then the job), a registration
+   against a port nothing listens on yet that fails and resumes once the
+   worker is up there, ``DELETE /workers/{id}?drain=10`` during a stream
+   (the stream finishes, a chat during the drain goes to the other
+   worker), SIGTERM exiting 0; then ``launch --prefill-worker A
+   --decode-worker B``: the lone and 8 concurrent chats equal the
+   in-process PD's, each prompt's legs straight at the workers its tokens
+   with logprobs within 1e-4; each worker reports its kernel launches at
+   exit, equal to 4 x its decode columns and 4 x its prefill calls;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
-   10's, ``launches_vision`` from phase 12's bf16 serving paths and
-   ``launches_pd`` from phase 13's bf16 PD path) and, last, ``{"ok":
-   true, "device": ...}`` (``--phases kernels``, ``checkpoint``, ``moe``,
-   ``api``, ``vision`` and ``pd`` print neither).
+   10's, ``launches_vision`` from phase 12's bf16 serving paths,
+   ``launches_pd`` from phase 13's bf16 PD path and ``launches_launch``
+   from phase 14's worker processes) and, last, ``{"ok": true, "device":
+   ...}`` (``--phases kernels``, ``checkpoint``, ``moe``, ``api``,
+   ``vision``, ``pd`` and ``launch`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -5810,10 +5840,12 @@ def pd_handoff_readings(P, D, n_tokens: int, cfg) -> dict:
 
 
 def pd_worker_main(spec: dict) -> int:
-    """One gRPC worker of phase 13 (c), in a process of its own: phase 3's
-    weights made from the seed, cut to ``spec["layers"]`` layers and
-    widened to float32, ``spec["pages"]`` KV pages, served with
-    ``rpc.server.serve_worker`` until SIGTERM."""
+    """One gRPC worker of phase 13 (c) or 14 (c), in a process of its own:
+    phase 3's weights made from the seed, cut to ``spec["layers"]`` layers
+    and widened to float32, ``spec["pages"]`` KV pages, served with
+    ``rpc.server.serve_worker`` until SIGTERM; then, given
+    ``spec["report"]``, its kernel launches and the runner's schedule
+    counts written there as JSON."""
     import dataclasses
 
     import torch
@@ -5841,7 +5873,15 @@ def pd_worker_main(spec: dict) -> int:
                         bos_token_id=cfg.bos_token_id)
     engine = _pd_engine(cfg4, params, dev, tok, spec["pages"])
     engine.start()
-    return serve_worker(engine, port=spec["port"], host="127.0.0.1")
+    code = serve_worker(engine, port=spec["port"], host="127.0.0.1")
+    if spec.get("report"):  # phase 14: this process's kernel launches and schedule
+        from smg_tpu_torch.ops.cuda import decode_attention, prefill_attention
+
+        Path(spec["report"]).write_text(json.dumps(dict(
+            launches={"decode_attention": decode_attention.launches,
+                      "prefill_attention": prefill_attention.launches},
+            stats=engine.runner.stats, layers=n)))
+    return code
 
 
 def pd_grpc(cfg, dev, tok, jobs, host_texts: dict, expect) -> dict:
@@ -6013,6 +6053,671 @@ def check_worker_cli(device: str = "cuda") -> dict:
             print(log.read().decode()[-2000:])
     out = dict(health=health, model_id=model, exit_code=proc.returncode)
     print(f"  worker --model-preset tiny --device {device}: {out}")
+    return out
+
+
+LAUNCH_NEW = 32  # new tokens of the lone chats of phase 14
+LAUNCH_CONC_NEW = 16  # new tokens of each of the 8 concurrent streams
+LAUNCH_TTFT_NEW = 8  # new tokens of each timed stream
+LAUNCH_REPS = 3  # timed repeats (medians), in turns
+LAUNCH_DRAIN_NEW = 512  # new tokens of the stream a drain waits for
+# phase 5's engine settings as serve and worker flags; the KV is auto-sized
+LAUNCH_ENGINE = ("--max-batch-size", "8", "--max-seq-len", "4096", "--max-prefill-tokens",
+                 "512", "--decode-horizon", "4")
+CLI = (sys.executable, "-m", "smg_tpu_torch.cli")
+
+
+class Child:
+    """A process this script started, its output in a temporary file."""
+
+    def __init__(self, name: str, cmd: list):
+        self.name, self.cmd = name, [str(c) for c in cmd]
+        self.log = tempfile.TemporaryFile()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(self.cmd, cwd=REPO, stdout=self.log, stderr=self.log)
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def tail(self, n: int = 3000) -> str:
+        self.log.seek(0)
+        return self.log.read().decode(errors="replace")[-n:]
+
+    def stop(self, timeout: float = 120) -> int:
+        """SIGTERM, then the exit code (killed after ``timeout`` s)."""
+        import signal
+
+        if self.alive():
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(10)
+        if self.proc.returncode != 0:
+            print(f"  [{self.name}] exit {self.proc.returncode}; its log ends:\n{self.tail()}")
+        self.log.close()
+        return self.proc.returncode
+
+
+def _wait_http_up(port: int, child: Child | None, what: str, timeout: float = LOOP_WAIT_S
+                  ) -> float:
+    """Seconds until ``GET /health`` on ``port`` answers 200."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            if _http(port, "GET", "/health")[0] == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if child is not None and not child.alive():
+            raise AssertionError(f"{what} exited: {child.tail()}")
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what} did not come up in {timeout} s")
+        time.sleep(0.05)
+
+
+def _grpc_up(port: int, child: Child, what: str, timeout: float = LOOP_WAIT_S) -> float:
+    """Seconds from ``child``'s start until its gRPC ``HealthCheck`` answers."""
+    import asyncio
+
+    from smg_tpu_torch.rpc.client import GrpcWorkerClient
+
+    async def poll():
+        # a channel per attempt: one channel would wait out gRPC's reconnect
+        # backoff after each refused connection
+        while True:
+            client = GrpcWorkerClient(f"127.0.0.1:{port}")
+            try:
+                if await client.health():
+                    return
+            finally:
+                await client.close()
+            if not child.alive() or time.perf_counter() - child.t0 > timeout:
+                raise AssertionError(f"{what} did not come up: {child.tail()}")
+            await asyncio.sleep(0.1)
+
+    asyncio.run(poll())
+    return time.perf_counter() - child.t0
+
+
+def _timed_in_thread(fn):
+    """Start ``fn()`` on a thread; returns a function that joins it and
+    gives its result (raising what it raised)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["value"] = fn()
+        except Exception as e:  # raised by the joining function
+            box["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+
+    def result():
+        t.join(LOOP_WAIT_S)
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    return result
+
+
+def _registration(port: int) -> dict:
+    """The gateway's one ``worker_registration`` workflow, via /workflows."""
+    st, body = _http(port, "GET", "/workflows?type=worker_registration")
+    if st != 200 or len(body["workflows"]) != 1:
+        raise AssertionError(f"/workflows: {st} {body}")
+    return body["workflows"][0]
+
+
+def _register_up(gw_port: int, gw: Child, worker_port: int, worker: Child, t_spawn: float,
+                 what: str, expect, grpc: bool = True) -> dict:
+    """Wait for a ``launch`` gateway that registers one worker at startup;
+    when the worker came up after the registration's retry budget, resume
+    the failed registration once the worker answers.  Returns the readings:
+    seconds from the worker's spawn to its registration, the workflow."""
+    _wait_http_up(gw_port, gw, what)
+    up_s = time.perf_counter() - t_spawn
+    wf = _registration(gw_port)
+    resumed = False
+    if wf["status"] != "completed":
+        print(f"  [{what}] startup registration {wf['status']} ({wf['error']}); resuming "
+              "once the worker answers")
+        if grpc:
+            _grpc_up(worker_port, worker, what)
+        else:
+            _wait_http_up(worker_port, worker, what)
+        st, wf = _http(gw_port, "POST", f"/workflows/{wf['instance_id']}/resume")
+        expect(st == 200, f"[{what}] resume: {st} {wf}")
+        up_s, resumed = time.perf_counter() - t_spawn, True
+    expect(wf["status"] == "completed" and wf["steps"]["tokenizer"]["status"] == "succeeded",
+           f"[{what}] registration: {wf}")
+    st2, one = _http(gw_port, "GET", f"/workflows/{wf['instance_id']}")
+    expect(st2 == 200 and one["status"] == "completed", f"[{what}] /workflows/id: {one}")
+    return dict(registered_s=up_s, resumed=resumed, workflow=wf,
+                model_info_attempts=wf["steps"]["model_info"]["attempts"])
+
+
+def _first_content(frames) -> float:
+    return next(t for t, f in frames if f != "[DONE]" and f.get("choices")
+                and (f["choices"][0].get("delta", {}).get("content")
+                     or f["choices"][0].get("text")))
+
+
+def _stream_timing(port: int, ids) -> tuple:
+    """(TTFT ms, ms per token after the first) of the lone chat streamed
+    with ``LAUNCH_NEW`` new tokens, the prefix cache flushed first."""
+    _http(port, "POST", "/flush_cache")
+    st, frames = _sse(port, "/v1/chat/completions", _chat(ids, LAUNCH_NEW, stream=True))
+    if st != 200:
+        raise AssertionError(f"a timed stream on port {port}: {st}")
+    content = [t for t, f in frames if f != "[DONE]" and f.get("choices")
+               and f["choices"][0]["delta"].get("content")]
+    # ignore_eos: every stream has LAUNCH_NEW tokens
+    return content[0] * 1e3, (content[-1] - content[0]) * 1e3 / (LAUNCH_NEW - 1)
+
+
+def _gateway_readings(port: int, jobs: dict, label: str) -> dict:
+    """The lone chat (not streamed and streamed, ``LAUNCH_NEW`` tokens), its
+    TTFT and gap per token (medians of ``LAUNCH_REPS``), and the median
+    TTFT of the 8 concurrent streams, through the gateway on ``port``."""
+    _http(port, "POST", "/flush_cache")
+    st, body = _http(port, "POST", "/v1/chat/completions", _chat(jobs["lone"], LAUNCH_NEW))
+    if st != 200:
+        raise AssertionError(f"[{label}] lone chat: {st} {body}")
+    _http(port, "POST", "/flush_cache")
+    st, frames = _sse(port, "/v1/chat/completions", _chat(
+        jobs["lone"], LAUNCH_NEW, stream=True, stream_options={"include_usage": True}))
+    text, finish, usage = _sse_text(frames)
+    timed = [_stream_timing(port, jobs["lone"]) for _ in range(LAUNCH_REPS)]
+    _http(port, "POST", "/flush_cache")
+    conc = _in_threads(lambda b: _sse(port, "/v1/chat/completions", b),
+                       [(_chat(p, LAUNCH_CONC_NEW, stream=True),) for p in jobs["conc"]])
+    out = dict(text=body["choices"][0]["message"]["content"], usage=body["usage"],
+               stream_text=text, stream_finish=finish, stream_usage=usage,
+               ttft_ms=statistics.median(t for t, _g in timed),
+               gap_ms_per_token=statistics.median(g for _t, g in timed),
+               conc_ttft_ms=statistics.median(_first_content(f) * 1e3 for _s, f in conc),
+               conc_texts=[_sse_text(f)[0] for _s, f in conc])
+    print(f"  [{label}] lone chat TTFT {out['ttft_ms']:.2f} ms, {out['gap_ms_per_token']:.3f} "
+          f"ms per token after it; 8 concurrent streams' median TTFT "
+          f"{out['conc_ttft_ms']:.2f} ms (medians of {LAUNCH_REPS})")
+    return out
+
+
+def _serve_in_process(flags: list, dev) -> dict:
+    """``serve``'s engine from ``flags``, behind the port's gateway in this
+    process on a free port: {engine, ctx, port, held, thread}."""
+    from smg_tpu_torch.cli import build_parser
+    from smg_tpu_torch.gateway.launch import build_context, build_engine_from_args
+    from smg_tpu_torch.gateway.server import build_app
+
+    args = build_parser().parse_args(["serve", *flags, "--device", str(dev)])
+    engine = build_engine_from_args(args)
+    engine.start()
+    ctx = build_context(engine, policy=args.policy)
+    port = _free_port()
+    held, thread = _serve_apps([(build_app(ctx), port)])
+    return dict(engine=engine, ctx=ctx, port=port, held=held, thread=thread)
+
+
+def _drop_in_process(inproc: dict, dev) -> None:
+    """Stop what ``_serve_in_process`` started and give its memory back:
+    the next process sizes its KV to what is free."""
+    import gc
+
+    import torch
+
+    _stop_gateways(inproc.pop("held"), inproc.pop("thread"), [inproc["ctx"]])
+    inproc.pop("engine").stop()
+    inproc.clear()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        print(f"  free after the in-process engine: {free} of {total} bytes "
+              f"({torch.cuda.memory_allocated(dev)} still allocated here)")
+
+
+def launch_grpc(preset: str, dev, card: str, jobs: dict, expect) -> dict:
+    """Phase 14 (a): ``worker --model-preset`` at full width and depth behind
+    ``launch --worker 127.0.0.1:P`` (no tokenizer flag: the gateway takes
+    the worker's bundle), against ``serve``'s engine from the same flags in
+    this process."""
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    flags = ["--model-preset", preset, *LAUNCH_ENGINE]
+    inproc = _serve_in_process(flags, dev)
+    cfg = inproc["engine"].config.model
+    try:
+        ref = _gateway_readings(inproc["port"], jobs, "in-process serve")
+    finally:
+        _drop_in_process(inproc, dev)
+    out = {"in_process": ref}
+    wport, gport = _free_port(), _free_port()
+    t_spawn = time.perf_counter()
+    worker = Child("worker", [*CLI, "worker", *flags, "--device", str(dev),
+                              "--grpc-port", wport])
+    gw = Child("launch", [*CLI, "launch", "--host", "127.0.0.1", "--port", gport,
+                          "--worker", f"127.0.0.1:{wport}"])
+    up = _timed_in_thread(lambda: _grpc_up(wport, worker, "worker"))
+    try:
+        reg = _register_up(gport, gw, wport, worker, t_spawn, "launch/grpc", expect)
+        out.update(reg, worker_up_s=up())
+        st, workers = _http(gport, "GET", "/workers")
+        expect(st == 200 and [(w["url"], w["model_id"]) for w in workers["workers"]]
+               == [(f"127.0.0.1:{wport}", preset)], f"[launch/grpc] /workers: {workers}")
+        want = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                             bos_token_id=cfg.bos_token_id).encode("w5 w99999",
+                                                                  add_special_tokens=True)
+        st, tokd = _http(gport, "POST", "/v1/tokenize", {"text": "w5 w99999",
+                                                         "add_special_tokens": True})
+        expect(tokd.get("tokens") == want,
+               f"[launch/grpc] the gateway's ids {tokd} are not the worker's {want}")
+        got = _gateway_readings(gport, jobs, "launch/grpc")
+        out["launch"] = got
+        for key in ("text", "usage", "stream_text", "stream_finish", "stream_usage"):
+            expect(got[key] == ref[key], f"[launch/grpc] {key} differs from in-process serve")
+        expect(got["text"] == got["stream_text"], "[launch/grpc] streamed text differs")
+        print(f"  [launch/grpc] worker answered {out['worker_up_s']:.1f} s after its spawn, "
+              f"registered after {reg['registered_s']:.1f} s (model_info attempts "
+              f"{reg['model_info_attempts']}, resumed {reg['resumed']}); the lone chat's "
+              f"tokens and text equal in-process serve's, streamed and not ({card})")
+    finally:
+        out["exit_codes"] = [gw.stop(), worker.stop()]
+    expect(out["exit_codes"] == [0, 0], f"[launch/grpc] exit codes {out['exit_codes']}")
+    return out
+
+
+def _scrub_ids(obj):
+    """A body or frame without its ids and times."""
+    if isinstance(obj, dict):
+        return {k: _scrub_ids(v) for k, v in obj.items() if k not in ("id", "created")}
+    if isinstance(obj, list):
+        return [_scrub_ids(v) for v in obj]
+    return obj
+
+
+def launch_http(preset: str, dev, card: str, jobs: dict, expect) -> dict:
+    """Phase 14 (b): a ``serve`` process at full width and depth behind
+    ``launch --worker http://127.0.0.1:S``: chat and completions, streamed
+    and not, through ``launch`` give the bodies and SSE frames of the same
+    requests sent straight to ``serve`` (ids and times removed; its prefix
+    cache flushed before each); the TTFT the proxy hop adds."""
+    sport, gport = _free_port(), _free_port()
+    t_spawn = time.perf_counter()
+    serve = Child("serve", [*CLI, "serve", "--model-preset", preset, *LAUNCH_ENGINE,
+                            "--device", str(dev), "--host", "127.0.0.1", "--port", sport])
+    gw = Child("launch", [*CLI, "launch", "--host", "127.0.0.1", "--port", gport,
+                          "--worker", f"http://127.0.0.1:{sport}"])
+    up = _timed_in_thread(lambda: _wait_http_up(sport, serve, "serve"))
+    out = {}
+    try:
+        out.update(_register_up(gport, gw, sport, serve, t_spawn, "launch/http", expect,
+                                grpc=False), serve_up_s=up())
+        lone = jobs["lone"]
+        requests = [("/v1/chat/completions", _chat(lone, LAUNCH_NEW)),
+                    ("/v1/chat/completions", _chat(lone, LAUNCH_NEW, stream=True)),
+                    ("/v1/completions", {"model": preset, "prompt": _words(lone),
+                                         "max_tokens": LAUNCH_NEW, "temperature": 0,
+                                         "ignore_eos": True}),
+                    ("/v1/completions", {"model": preset, "prompt": _words(lone),
+                                         "max_tokens": LAUNCH_NEW, "temperature": 0,
+                                         "ignore_eos": True, "stream": True})]
+        equal = []
+        for path, body in requests:
+            got = {}
+            for name, port in (("direct", sport), ("launch", gport)):
+                _http(sport, "POST", "/flush_cache")
+                if body.get("stream"):
+                    st, frames = _sse(port, path, body)
+                    got[name] = (st, [f if f == "[DONE]" else _scrub_ids(f)
+                                      for _t, f in frames])
+                else:
+                    st, resp = _http(port, "POST", path, body)
+                    got[name] = (st, _scrub_ids(resp))
+            same = got["direct"] == got["launch"] and got["direct"][0] == 200
+            equal.append(same)
+            expect(same, f"[launch/http] {path} stream={bool(body.get('stream'))}: "
+                         f"{str(got['launch'])[:300]} != {str(got['direct'])[:300]}")
+        ttft = {"direct": [], "launch": []}
+        for _rep in range(LAUNCH_REPS):
+            for name, port in (("direct", sport), ("launch", gport)):
+                _http(sport, "POST", "/flush_cache")
+                st, frames = _sse(port, "/v1/chat/completions",
+                                  _chat(lone, LAUNCH_TTFT_NEW, stream=True))
+                ttft[name].append(_first_content(frames) * 1e3)
+        med = {k: statistics.median(v) for k, v in ttft.items()}
+        out.update(bodies_equal=equal, ttft_ms=med, ttft_all=ttft,
+                   proxy_added_ms=med["launch"] - med["direct"])
+        print(f"  [launch/http] serve registered {out['registered_s']:.1f} s after its "
+              f"spawn; {sum(equal)}/{len(equal)} bodies and frame lists equal to direct; "
+              f"TTFT direct {med['direct']:.2f} ms, through launch {med['launch']:.2f} ms "
+              f"(the proxy hop adds {out['proxy_added_ms']:.2f} ms; medians of "
+              f"{LAUNCH_REPS}) ({card})")
+    finally:
+        out["exit_codes"] = [gw.stop(), serve.stop()]
+    expect(out["exit_codes"] == [0, 0], f"[launch/http] exit codes {out['exit_codes']}")
+    return out
+
+
+def _pd_reference(cfg, params, dev, tok, jobs) -> dict:
+    """The in-process PD of phase 13 (host connector) on ``params``: the
+    lone and the 8 concurrent chats' texts through its gateway, and each
+    prompt's PD legs driven directly (tokens, logprobs)."""
+    from smg_tpu_torch.gateway.server import build_app
+    from smg_tpu_torch.gateway.worker_client import InProcWorkerClient
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    P = _pd_engine(cfg, params, dev, tok, PD_GRPC_PAGES)
+    D = _pd_engine(cfg, params, dev, tok, PD_GRPC_PAGES)
+    P.start()
+    D.start()
+    ctx = _pd_context([InProcWorkerClient(P), InProcWorkerClient(D)], "host", tok)
+    port = _free_port()
+    held, thread = _serve_apps([(build_app(ctx), port)])
+    try:
+        st, lone = _chat_text(port, _chat(jobs["lone"], PD_NEW))
+        conc = _in_threads(lambda b: _chat_text(port, b),
+                           [(_chat(p, PD_CONC_NEW),) for p in jobs["conc"]])
+        if st != 200 or any(s != 200 for s, _t in conc):
+            raise AssertionError(f"in-process PD chats: {st}, {[s for s, _t in conc]}")
+        legs = []
+        for i, (prompt, n) in enumerate([(jobs["lone"], PD_NEW)]
+                                        + [(p, PD_CONC_NEW) for p in jobs["conc"]]):
+            ids = _chat_ids(tok, prompt)
+            sp = SamplingParams(temperature=0.0, max_new_tokens=n, ignore_eos=True)
+            exp = P.prefill_export(ids, sp, connector="host")
+            legs.append(_prefilled(D, ids, exp, sp, f"ref-legs-{i}"))
+    finally:
+        _stop_gateways(held, thread, [ctx])
+        P.stop()
+        D.stop()
+    return dict(lone=lone, conc=[t for _s, t in conc], legs=legs)
+
+
+def _worker_legs(ports, tok, jobs) -> list:
+    """Each prompt's PD legs driven straight at the worker processes over
+    gRPC (prefill on the first, decode on the second): (tokens, logprobs)."""
+    import asyncio
+
+    from smg_tpu_torch.gateway.worker_client import WorkerGenerateRequest
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+    from smg_tpu_torch.rpc.client import GrpcWorkerClient
+
+    async def go():
+        p, d = (GrpcWorkerClient(f"127.0.0.1:{port}") for port in ports)
+        try:
+            out = []
+            for i, (prompt, n) in enumerate([(jobs["lone"], PD_NEW)]
+                                            + [(q, PD_CONC_NEW) for q in jobs["conc"]]):
+                ids = _chat_ids(tok, prompt)
+                sp = SamplingParams(temperature=0.0, max_new_tokens=n, ignore_eos=True)
+                exp = await p.prefill_export(ids, sp)
+                toks, lps = [], []
+                async for c in d.generate_prefilled(
+                        WorkerGenerateRequest(rid=f"legs-{i}", input_ids=ids, sampling=sp),
+                        exp["first_token"], exp["k"], exp["v"]):
+                    toks += c.token_ids
+                    lps += c.logprobs
+                out.append((toks, lps))
+            return out
+        finally:
+            await p.close()
+            await d.close()
+
+    return asyncio.run(go())
+
+
+def _job_result(port: int, job_id: str, timeout: float = LOOP_WAIT_S) -> dict:
+    deadline = time.monotonic() + timeout
+    while True:
+        st, job = _http(port, "GET", f"/jobs/{job_id}")
+        if st != 200:
+            raise AssertionError(f"/jobs/{job_id}: {st} {job}")
+        if job["status"] in ("succeeded", "failed", "cancelled"):
+            return job
+        if time.monotonic() > deadline:
+            raise AssertionError(f"job {job_id} still {job['status']}")
+        time.sleep(0.1)
+
+
+def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
+    """Phase 14 (c): two of this script's own worker processes
+    (``pd_worker_main``: the first ``PD_LAYERS`` layers widened to float32,
+    ``PD_GRPC_PAGES`` pages each), each reporting its kernel launches and
+    schedule when it exits.  ``POST /workers`` on a bare ``launch``: one
+    registration against a port nothing listens on yet (async: 202, the job
+    ends with the workflow failed), one synchronous (A); then B comes up on
+    that port and ``POST /workflows/{id}/resume`` registers it; a drain
+    during a stream; a removed worker added back as a job.  Then ``launch
+    --prefill-worker A --decode-worker B``: the lone and the 8 concurrent
+    chats give the in-process PD's texts, and each prompt's legs straight
+    at the workers its tokens, logprobs within 1e-4."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.models.llama import init_params
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    out = {}
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    ports = {"a": _free_port(), "b": _free_port()}
+    reports = {k: Path(tempfile.mkdtemp(prefix="smg_launch_")) / f"{k}.json" for k in ports}
+    spec = dict(config=dataclasses.asdict(cfg), layers=PD_LAYERS, pages=PD_GRPC_PAGES,
+                device=str(dev))
+
+    def spawn(name):
+        return Child(name, [sys.executable, REPO / "chip_smoke.py", "--pd-worker", json.dumps(
+            {**spec, "port": ports[name], "report": str(reports[name])})])
+
+    g1port = _free_port()
+    children = {"a": spawn("a"),
+                "g1": Child("launch", [*CLI, "launch", "--host", "127.0.0.1",
+                                       "--port", g1port])}
+    urls = {k: f"127.0.0.1:{p}" for k, p in ports.items()}
+    try:
+        _wait_http_up(g1port, children["g1"], "bare launch")
+        # B's port is not listening yet: the registration retries, then fails
+        st, late = _http(g1port, "POST", "/workers", {"url": urls["b"], "worker_id": "b",
+                                                      "async": True})
+        expect(st == 202 and late.get("status") == "queued", f"async POST /workers: {late}")
+        t_late = time.perf_counter()
+        # the reference run in this process while both wait
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        p4 = {**{k: v.float() for k, v in full.items() if k != "layers"},
+              "layers": {k: v[:PD_LAYERS].float() for k, v in full["layers"].items()}}
+        del full
+        cfg4 = dataclasses.replace(cfg, num_layers=PD_LAYERS, dtype="float32")
+        ref = _pd_reference(cfg4, p4, dev, tok, jobs)
+        del p4
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["a_up_s"] = _grpc_up(ports["a"], children["a"], "worker a")
+        st, added = _http(g1port, "POST", "/workers", {"url": urls["a"], "worker_id": "a"})
+        expect(st == 200 and added["added"]["worker_id"] == "a"
+               and added["workflow"]["status"] == "completed", f"sync POST /workers: {added}")
+        job = _job_result(g1port, late["job_id"])
+        out["late_failed_after_s"] = time.perf_counter() - t_late
+        wf = job.get("result") or {}
+        expect(job["status"] == "succeeded" and wf.get("status") == "failed"
+               and wf["steps"]["model_info"]["status"] == "failed",
+               f"the registration against a closed port: {job}")
+        expect(_http(g1port, "GET", f"/workflows/{wf.get('instance_id')}")[1].get("status")
+               == "failed", "the failed workflow is not listed as failed")
+        children["b"] = spawn("b")
+        out["b_up_s"] = _grpc_up(ports["b"], children["b"], "worker b")
+        st, resumed = _http(g1port, "POST", f"/workflows/{wf['instance_id']}/resume")
+        expect(st == 200 and resumed["status"] == "completed",
+               f"resume after B came up: {st} {resumed}")
+        listed = sorted(w["worker_id"] for w in _http(g1port, "GET", "/workers")[1]["workers"])
+        expect(listed == ["a", "b"], f"/workers after the resume: {listed}")
+        st, _text = _chat_text(g1port, _chat(jobs["conc"][0], PD_CONC_NEW))
+        expect(st == 200, f"a chat after the resume: {st}")
+        out["drain"] = _drain_check(g1port, jobs, expect)
+        # the drained worker back, as a job
+        gone = out["drain"]["drained"]
+        st, again = _http(g1port, "POST", "/workers", {"url": urls[gone], "worker_id": gone,
+                                                       "async": True})
+        job = _job_result(g1port, again["job_id"]) if st == 202 else {}
+        expect(st == 202 and job.get("status") == "succeeded"
+               and job["result"]["status"] == "completed", f"async re-add: {st} {job}")
+        out["g1_exit"] = children.pop("g1").stop()
+        expect(out["g1_exit"] == 0, f"bare launch exit code {out['g1_exit']} after SIGTERM")
+        # PD through launch
+        g2port = _free_port()
+        children["g2"] = Child("launch-pd", [
+            *CLI, "launch", "--host", "127.0.0.1", "--port", g2port,
+            "--prefill-worker", urls["a"], "--decode-worker", urls["b"]])
+        _wait_http_up(g2port, children["g2"], "PD launch")
+        types = {w["worker_id"]: w["type"]
+                 for w in _http(g2port, "GET", "/workers")[1]["workers"]}
+        expect(types == {urls["a"]: "prefill", urls["b"]: "decode"}, f"PD workers: {types}")
+        st, lone = _chat_text(g2port, _chat(jobs["lone"], PD_NEW))
+        expect(st == 200 and lone == ref["lone"],
+               f"[launch/pd] lone chat: {st}, equal to in-process PD {lone == ref['lone']}")
+        res = _in_threads(lambda b: _chat_text(g2port, b),
+                          [(_chat(p, PD_CONC_NEW),) for p in jobs["conc"]])
+        equal = sum(r == (200, w) for r, w in zip(res, ref["conc"]))
+        expect(equal == len(res), f"[launch/pd] 8 concurrent: {equal}/{len(res)} equal")
+        legs = _worker_legs((ports["a"], ports["b"]), tok, jobs)
+        toks_equal = sum(a[0] == b[0] for a, b in zip(legs, ref["legs"]))
+        lp_err = max(abs(x - y) for a, b in zip(legs, ref["legs"])
+                     for x, y in zip(a[1], b[1]))
+        expect(toks_equal == len(legs) and lp_err <= 1e-4,
+               f"[launch/pd] legs: {toks_equal}/{len(legs)} token streams equal, logprob "
+               f"max abs err {lp_err:.2e}")
+        out.update(pd_lone_equal=lone == ref["lone"], pd_conc_equal=equal,
+                   legs_tokens_equal=toks_equal, legs_logprob_max_abs_err=lp_err)
+        out["g2_exit"] = children.pop("g2").stop()
+        expect(out["g2_exit"] == 0, f"PD launch exit code {out['g2_exit']}")
+    finally:
+        for name in list(children):
+            code = children.pop(name).stop()
+            out[f"{name}_exit"] = code
+    expect(out.get("a_exit") == 0 and out.get("b_exit") == 0,
+           f"worker exit codes {out.get('a_exit')}, {out.get('b_exit')}")
+    launches = {"decode_attention": 0, "prefill_attention": 0}
+    for name, path in reports.items():
+        rep = json.loads(path.read_text()) if path.exists() else None
+        shutil.rmtree(path.parent, ignore_errors=True)
+        if rep is None:
+            expect(False, f"worker {name} wrote no report")
+            continue
+        st = rep["stats"]
+        want = {"decode_attention": PD_LAYERS * st["decode_columns"],
+                "prefill_attention": PD_LAYERS * st["prefill_calls"]}
+        expect(rep["launches"] == want, f"worker {name}: launches {rep['launches']} != {want}")
+        out[f"{name}_report"] = rep
+        for k in launches:
+            launches[k] += rep["launches"][k]
+    expect(min(launches.values()) > 0 and out.get("b_report", {}).get("stats", {}).get(
+        "decode_columns", 0) > 0, f"launches in the workers {launches}")
+    out["launches"] = launches
+    print(f"  [launch/pd] A up in {out.get('a_up_s', 0):.1f} s, the registration against a "
+          f"closed port failed after {out.get('late_failed_after_s', 0):.1f} s and resumed "
+          f"once B was up ({out.get('b_up_s', 0):.1f} s); PD through launch: lone and "
+          f"{out.get('pd_conc_equal')}/8 chats equal to in-process PD, legs' logprobs within "
+          f"{out.get('legs_logprob_max_abs_err', float('nan')):.2e}; launches in the "
+          f"workers {launches} ({card})")
+    return out
+
+
+def _drain_check(port: int, jobs: dict, expect) -> dict:
+    """``DELETE /workers/{id}?drain=10`` while that worker streams
+    ``LAUNCH_DRAIN_NEW`` tokens: the stream ends whole, and a chat sent
+    during the drain goes to the other worker."""
+    import threading
+
+    def workers():
+        return {w["worker_id"]: w for w in _http(port, "GET", "/workers")[1]["workers"]}
+
+    result = {}
+    stream = threading.Thread(target=lambda: result.update(stream=_sse(
+        port, "/v1/chat/completions", _chat(jobs["conc"][1], LAUNCH_DRAIN_NEW, stream=True,
+                                            stream_options={"include_usage": True}))))
+    stream.start()
+    busy = None
+    deadline = time.monotonic() + 30
+    while busy is None and time.monotonic() < deadline and stream.is_alive():
+        busy = next((wid for wid, w in workers().items() if w["load"] > 0), None)
+        time.sleep(0.005)
+    if busy is None:
+        stream.join(LOOP_WAIT_S)
+        raise AssertionError("the drain stream ended before a worker showed its load")
+    before = workers()
+    removal = threading.Thread(target=lambda: result.update(
+        removed=_http(port, "DELETE", f"/workers/{busy}?drain=10")))
+    removal.start()
+    time.sleep(0.05)
+    st, _text = _chat_text(port, _chat(jobs["conc"][2], PD_CONC_NEW))
+    during = workers()
+    removal.join(LOOP_WAIT_S)
+    stream.join(LOOP_WAIT_S)
+    other = next(w for w in before if w != busy)
+    sst, frames = result["stream"]
+    n_content = sum(1 for _t, f in frames if f != "[DONE]" and f.get("choices")
+                    and f["choices"][0]["delta"].get("content"))
+    # the draining worker is gone from the registry once its stream ended
+    busy_after = during.get(busy, before[busy])["total_requests"]
+    ok = (st == 200 and busy_after == before[busy]["total_requests"]
+          and during[other]["total_requests"] == before[other]["total_requests"] + 1
+          and result["removed"][0] == 200 and result["removed"][1]["drained"] is True
+          and sst == 200 and frames[-1][1] == "[DONE]" and n_content > 0
+          and busy not in workers())
+    expect(ok, f"drain: chat {st}; requests before {before} during {during}; removal "
+               f"{result.get('removed')}; stream {sst}, {n_content} content frames")
+    return dict(drained=busy, removal=result["removed"][1], stream_frames=n_content)
+
+
+def phase_launch(dev, card: str, preset: str = SERVE_MODEL) -> dict:
+    """Phase 14, ``launch``: (a) ``worker`` and ``launch`` processes over
+    gRPC at full width and depth, (b) ``serve`` behind ``launch`` over
+    HTTP, (c) registration, drain, resume and PD through ``launch`` over
+    two 4-layer float32 worker processes of this script.  Full-depth
+    processes run one at a time: each sizes its KV to most of the card."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.models.config import PRESETS
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        print(f"  free before phase 14: {free} of {total} bytes")
+    cfg = PRESETS[preset]()
+    jobs = _pd_jobs(14)
+    failures: list = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [launch] CHECK FAILED: {what}")
+
+    out = {}
+    for name, fn in (("grpc", lambda: launch_grpc(preset, dev, card, jobs, expect)),
+                     ("http", lambda: launch_http(preset, dev, card, jobs, expect)),
+                     ("pd", lambda: launch_pd(cfg, dev, card, jobs, expect))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"  phase 14 ({name}) took {out[name]['seconds']:.1f} s")
+    out["launches"] = out["pd"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 14 took {out['seconds']:.1f} s ({card})")
+    if failures:
+        raise AssertionError(f"phase 14: {len(failures)} checks failed: {failures}")
     return out
 
 
@@ -6256,9 +6961,10 @@ def ckpt_layers(root: Path) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd"),
+                    choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd",
+                             "launch"),
                     default="all")
-    # phase 13's gRPC worker processes: this script started by itself
+    # the gRPC worker processes of phases 13 and 14: this script started by itself
     ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
@@ -6334,6 +7040,15 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("vision")
+    launch = {}
+    if args.phases in ("all", "launch") and not failed:
+        print("phase 14: launch in front of out-of-process workers (Llama-3-8B workers at "
+              "full width, gRPC and HTTP; registration, drain and PD at 4 layers)")
+        try:
+            launch = phase_launch(dev, card)
+        except Exception:
+            traceback.print_exc()
+            failed.append("launch")
     if failed:
         print(f"FAILED phases: {failed}")
         return 1
@@ -6369,13 +7084,17 @@ def main(argv=None) -> int:
             # phase 13's PD path (bf16): prefill on the prefill engine,
             # decode on the decode engine
             launches_pd=engine["pd"]["launches"][name],
+            # phase 14's two worker processes behind launch (float32, 4 layers),
+            # counted in each process over its life and reported at exit
+            launches_launch=launch["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],
             plain_call_ms=r["plain_call_ms"], library_call_ms=r["library_call_ms"],
             timed_case=r["timed_case"], timed_cases=r["timed_cases"],
         ))
-    print(json.dumps({"engine": engine, "moe": moe, "vision": vision, "card": card}))
+    print(json.dumps({"engine": engine, "moe": moe, "vision": vision, "launch": launch,
+                      "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,20 @@
-"""CLI entry point of the port: ``python -m smg_tpu_torch.cli serve|worker``.
+"""CLI entry point of the port: ``python -m smg_tpu_torch.cli
+launch|serve|worker``.
 
-The port's copy of the ``serve`` and ``worker`` subcommands of
-``smg_tpu/cli.py``.  ``serve`` runs one PyTorch engine in process behind the
-gateway; ``worker`` runs a bare engine behind the gRPC scheduler protocol
-(``--grpc-port``), with serve's engine flags.  Engines run on the card;
-``--device cpu`` is the only way onto the CPU.  The request-policy flags
-(auth, rate limits, priority admission, the request timeout, CORS, parsers,
-harmony, SLO specs and OTel export) and the speculation flags carry the
-reference's names and defaults, as do the breaker, retry, health-check,
-cache-aware, flight-recorder and metric-window flags, ``--prefill-mix-policy``,
-``--request-id-headers``, ``--max-payload-size``, ``--enable-igw`` and
-``--kv-connector`` (the PD KV handoff; ``transfer`` is not offered).
-``launch``, worker URLs (``--worker``, ``--prefill-worker``,
-``--decode-worker``), parallelism, mesh, discovery, storage, TLS, MCP,
-providers, plugins, multimodal transport and the separate probe and metrics
-listeners are not ported yet, and their flags are refused.
+The port's copy of ``smg_tpu/cli.py``.  ``launch`` runs the gateway alone,
+in front of workers it registers by URL (``--worker``, ``--prefill-worker``,
+``--decode-worker``: ``http(s)://`` for an OpenAI-wire worker such as the
+port's ``serve``, bare ``host:port`` for the gRPC ``worker``) or finds with
+``--service-discovery``; ``serve`` runs one PyTorch engine in process
+behind the gateway and takes the same worker flags; ``worker`` runs a bare
+engine behind the gRPC scheduler protocol (``--grpc-port``), with serve's
+engine flags.  Engines run on the card; ``--device cpu`` is the only way
+onto the CPU.  Every command line is validated (``config/validation.py``)
+before anything binds a port or touches a device.  The flags carry the
+reference's names, dests, defaults and types (``--kv-connector`` offers no
+``transfer``).  Parallelism and the HA mesh, storage, MCP, providers,
+plugins, ``--prefix-token-count`` and ``--dp-aware`` are not ported yet,
+and their flags are refused.
 """
 
 from __future__ import annotations
@@ -26,11 +26,28 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="smg-tpu-torch", description=__doc__)
     sub = p.add_subparsers(dest="command", required=True)
+    launch = sub.add_parser("launch", help="start the routing gateway")
+    _add_gateway_args(launch)
     serve = sub.add_parser("serve", help="start a PyTorch engine + the gateway")
+    _add_gateway_args(serve)
+    _add_engine_args(serve)
+    worker = sub.add_parser("worker", help="start a bare PyTorch engine worker (gRPC)")
+    _add_engine_args(worker)
+    worker.add_argument("--grpc-port", type=int, default=30001)
+    return p
 
-    g = serve.add_argument_group("Gateway")
+
+def _add_gateway_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group("Gateway")
     g.add_argument("--host", default="0.0.0.0")
     g.add_argument("--port", type=int, default=30000)
+    g.add_argument("--worker", action="append", default=[], dest="workers",
+                   help="worker URL (repeatable): http(s):// for an OpenAI-wire "
+                        "worker, bare host:port for a gRPC worker")
+    g.add_argument("--prefill-worker", action="append", default=[], dest="prefill_workers",
+                   help="prefill-role worker URL (PD disaggregation; repeatable)")
+    g.add_argument("--decode-worker", action="append", default=[], dest="decode_workers",
+                   help="decode-role worker URL (PD disaggregation; repeatable)")
     g.add_argument("--policy", default="cache_aware",
                    help="routing policy (cache_aware, round_robin, random, "
                         "least_load, power_of_two, manual, bucket, passthrough)")
@@ -40,9 +57,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "http://127.0.0.1:4318); enables trace export")
     g.add_argument("--otel-service-name", default="smg-tpu",
                    dest="otel_service_name")
+    g.add_argument("--mm-transport", default="auto", dest="mm_transport",
+                   choices=["inline", "shm", "auto"],
+                   help="pixel transport to gRPC encode workers: inline bytes, "
+                        "same-host shared memory, or auto (shm for loopback "
+                        "workers above the size threshold)")
+    g.add_argument("--mm-shm-min-bytes", type=int, default=1 << 20,
+                   dest="mm_shm_min_bytes")
+    g.add_argument("--kv-connector", default="auto", choices=["auto", "host", "device"],
+                   help="PD KV handoff: on the card (device) or host bytes; auto "
+                        "takes device when both legs keep KV on the card")
+    g.add_argument("--gateway-tokenizer-path", default=None, dest="gateway_tokenizer_path",
+                   help="tokenizer for gateway-side text processing (launch mode; "
+                        "default: the first worker's tokenizer bundle)")
     g.add_argument("--log-level", default="INFO")
     g.add_argument("--log-json", action="store_true",
                    help="structured JSON log lines")
+    g.add_argument("--prometheus-port", type=int, default=None,
+                   help="a metrics-only listener (/metrics) on this port")
+    g.add_argument("--prometheus-host", default="0.0.0.0")
+    g.add_argument("--health-check-port", type=int, default=None,
+                   dest="health_check_port",
+                   help="dedicated probe listener (liveness/readiness/health "
+                        "served on their own port so a saturated gateway "
+                        "cannot starve the probes)")
+    g.add_argument("--tls-cert-path", default=None, dest="tls_cert_path",
+                   help="serve HTTPS with this certificate")
+    g.add_argument("--tls-key-path", default=None, dest="tls_key_path")
     g.add_argument("--max-payload-size", type=int, default=256 * 2**20,
                    dest="max_payload_size",
                    help="request body cap in bytes (reference default 256MB)")
@@ -68,16 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "goodput_ratio_floor, deadline_miss_budget, "
                         "fast/slow_window_s, fast/slow_burn, min_requests, "
                         "hysteresis).  Verdicts at GET /debug/slo/verdicts")
-    g.add_argument("--kv-connector", default="auto", choices=["auto", "host", "device"],
-                   help="PD KV handoff: on the card (device) or host bytes; auto "
-                        "takes device when both legs keep KV on the card")
-    g.add_argument("--engine-drain-timeout-secs", type=float, default=10.0,
-                   dest="engine_drain_timeout_secs",
-                   help="SIGTERM drain budget for in-proc engines: queued "
-                        "requests get terminal aborts, running lanes "
-                        "finish within this bound before exit")
 
-    pol = serve.add_argument_group("Routing policy")
+    pol = p.add_argument_group("Routing policy")
     pol.add_argument("--cache-threshold", type=float, default=0.5,
                      help="cache-aware: min prefix-match ratio for affinity")
     pol.add_argument("--balance-abs-threshold", type=int, default=32,
@@ -93,7 +126,7 @@ def build_parser() -> argparse.ArgumentParser:
                           "on in this gateway — accepted for reference CLI "
                           "parity")
 
-    rl = serve.add_argument_group("Reliability")
+    rl = p.add_argument_group("Reliability")
     rl.add_argument("--retry-max-retries", type=int, default=3)
     rl.add_argument("--retry-initial-backoff-ms", type=int, default=100)
     rl.add_argument("--retry-max-backoff-ms", type=int, default=2000)
@@ -110,8 +143,21 @@ def build_parser() -> argparse.ArgumentParser:
     rl.add_argument("--health-failure-threshold", type=int, default=3)
     rl.add_argument("--health-success-threshold", type=int, default=2)
     rl.add_argument("--disable-health-check", action="store_true")
+    rl.add_argument("--worker-startup-timeout-secs", type=float, default=75.0,
+                    help="budget for startup worker registration workflows")
+    rl.add_argument("--worker-stream-idle-timeout-secs", type=float,
+                    default=None, dest="worker_stream_idle_timeout_secs",
+                    help="per-chunk idle bound on gRPC worker generate "
+                         "streams: no token for N secs counts as a worker "
+                         "failure (retry/breaker engage); 0 disables "
+                         "(default: 120, the client's built-in)")
+    rl.add_argument("--engine-drain-timeout-secs", type=float, default=10.0,
+                    dest="engine_drain_timeout_secs",
+                    help="SIGTERM drain budget for in-proc engines: queued "
+                         "requests get terminal aborts, running lanes "
+                         "finish within this bound before exit")
 
-    sched = serve.add_argument_group("Scheduling / limits")
+    sched = p.add_argument_group("Scheduling / limits")
     sched.add_argument("--priority-scheduler-enabled", action="store_true")
     sched.add_argument("--priority-slots", type=int, default=256,
                        help="execution slots the priority scheduler manages")
@@ -120,7 +166,7 @@ def build_parser() -> argparse.ArgumentParser:
     sched.add_argument("--rate-limit-burst", type=float, default=256.0,
                        help="per-tenant burst capacity")
 
-    auth = serve.add_argument_group("Auth")
+    auth = p.add_argument_group("Auth")
     auth.add_argument("--api-key", action="append", default=[], dest="api_keys",
                       help="accepted API key, optionally KEY:TENANT[:ROLE] "
                            "(repeatable; any key enables auth)")
@@ -136,12 +182,20 @@ def build_parser() -> argparse.ArgumentParser:
     auth.add_argument("--tenant-header-name", default="X-Tenant-Id",
                       dest="tenant_header_name")
 
-    _add_engine_args(serve)
-
-    worker = sub.add_parser("worker", help="start a bare PyTorch engine worker (gRPC)")
-    _add_engine_args(worker)
-    worker.add_argument("--grpc-port", type=int, default=30001)
-    return p
+    disc = p.add_argument_group("Service discovery")
+    disc.add_argument("--service-discovery", action="store_true",
+                      help="watch Kubernetes pods and (de)register workers")
+    disc.add_argument("--service-discovery-namespace", default=None,
+                      dest="service_discovery_namespace")
+    disc.add_argument("--selector", action="append", default=[], dest="selectors",
+                      help="pod label selector key=value (repeatable)")
+    disc.add_argument("--prefill-selector", action="append", default=[],
+                      dest="prefill_selectors")
+    disc.add_argument("--decode-selector", action="append", default=[],
+                      dest="decode_selectors")
+    disc.add_argument("--service-discovery-port", type=int, default=30001,
+                      dest="service_discovery_port",
+                      help="worker port discovered pods serve on")
 
 
 def _add_engine_args(p: argparse.ArgumentParser) -> None:
@@ -235,6 +289,13 @@ def main(argv: list[str] | None = None) -> int:
 
     configure(level=getattr(args, "log_level", "INFO"),
               json_logs=getattr(args, "log_json", False) or None)
+    # validate before any port binds or device is touched (reference:
+    # ConfigValidator at startup); the gateway-only rules pass over a
+    # worker's absent fields
+    from smg_tpu_torch.config.validation import raise_on_errors, validate_cli_args
+    from smg_tpu_torch.utils import get_logger
+
+    raise_on_errors(validate_cli_args(args), logger=get_logger("config"))
     from smg_tpu_torch.gateway.launch import run_command
 
     return run_command(args)

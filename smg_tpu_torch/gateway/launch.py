@@ -1,15 +1,24 @@
-"""Process assembly for ``python -m smg_tpu_torch.cli serve|worker`` — the
-port's copy of the ``serve`` and ``worker`` paths of
-``smg_tpu/gateway/launch.py``: build a port ``Engine`` from an HF checkpoint
-directory (``--model-path``: its ``config.json``, safetensors weights and
-tokenizer) or a model preset; ``serve`` puts it behind one
-``InProcWorkerClient`` and serves the gateway until SIGTERM or SIGINT, which
-drains the engine; ``worker`` serves it over gRPC (``rpc/server.py``).
+"""Process assembly for ``python -m smg_tpu_torch.cli launch|serve|worker``
+— the port's copy of ``smg_tpu/gateway/launch.py``: build a port ``Engine``
+from an HF checkpoint directory (``--model-path``: its ``config.json``,
+safetensors weights and tokenizer) or a model preset; ``worker`` serves it
+over gRPC (``rpc/server.py``); ``serve`` puts it behind the gateway as one
+``InProcWorkerClient``; ``launch`` runs the gateway alone.  Both gateway
+commands register the workers named by URL (``--worker``,
+``--prefill-worker``, ``--decode-worker``) through the registration
+workflow before the listener binds, watch Kubernetes pods with
+``--service-discovery``, take TLS and the probe-only and metrics-only
+listeners, and on SIGTERM or SIGINT stop selecting every worker, close
+every client (an in-process engine drains) and shut every listener.
 
 Preset models have no tokenizer file, so the engine and the gateway share a
 vocabulary-matched ``MockTokenizer``.  (The JAX ``serve`` gives its gateway
 ``MockTokenizer()`` at its default 512-word vocabulary; the port's gateway
-uses the engine's, so a prompt's words map to the ids the model sees.)
+uses the engine's, so a prompt's words map to the ids the model sees.)  A
+``launch`` gateway takes ``--gateway-tokenizer-path``, else the first
+worker's tokenizer bundle, else ``MockTokenizer()`` marked
+``_smg_fallback``, which a worker's bundle registered later replaces as
+the default.
 """
 
 from __future__ import annotations
@@ -251,22 +260,52 @@ def build_context(engine, policy: str = "cache_aware", drain_timeout_secs: float
 
 
 async def serve_context(ctx, host: str, port: int, stop: asyncio.Event,
-                        client_max_size: int = 256 * 2**20) -> None:
+                        client_max_size: int = 256 * 2**20, ssl_context=None,
+                        probe_port: int | None = None,
+                        metrics_listener: "tuple[str, int] | None" = None,
+                        discoveries=()) -> None:
     """Serve ``ctx`` on ``host:port`` (request bodies capped at
-    ``client_max_size`` bytes) until ``stop`` is set, then drain:
-    workers stop being selected, each worker client closes (for an in-proc
-    engine that is ``stop(drain=True)``: queued requests get terminal
-    aborts and running lanes finish within the drain budget), and the
-    listener shuts."""
-    from smg_tpu_torch.gateway.server import build_app
+    ``client_max_size`` bytes; HTTPS with ``ssl_context``), with a
+    probe-only listener on ``probe_port`` and a metrics-only one on
+    ``metrics_listener`` = (host, port) when given, until ``stop`` is set;
+    then drain: the ``discoveries`` stop, workers stop being selected, each
+    worker client closes (for an in-proc engine that is
+    ``stop(drain=True)``: queued requests get terminal aborts and running
+    lanes finish within the drain budget), and the listeners shut."""
+    from smg_tpu_torch.gateway.server import CTX, build_app, h_health, h_metrics, h_readiness
 
-    runner = web.AppRunner(build_app(ctx, client_max_size=client_max_size))
-    await runner.setup()
+    runners = [web.AppRunner(build_app(ctx, client_max_size=client_max_size))]
     try:
-        await web.TCPSite(runner, host, port).start()
-        logger.info("gateway listening on %s:%d", host, port)
+        await runners[0].setup()
+        await web.TCPSite(runners[0], host, port, ssl_context=ssl_context).start()
+        logger.info("gateway listening on %s:%d%s", host, port,
+                    " (TLS)" if ssl_context else "")
+        if probe_port:
+            # /health, /liveness and /readiness stay reachable when the main
+            # port saturates; only the probes: the API must not leak onto a
+            # plaintext, unauthenticated port
+            papp = web.Application()
+            papp[CTX] = ctx
+            papp.router.add_get("/health", h_health)
+            papp.router.add_get("/liveness", h_health)
+            papp.router.add_get("/readiness", h_readiness)
+            runners.append(web.AppRunner(papp))
+            await runners[-1].setup()
+            await web.TCPSite(runners[-1], host, probe_port).start()
+            logger.info("probe listener on %s:%d", host, probe_port)
+        if metrics_listener:
+            # scrapers reach /metrics and nothing else
+            mapp = web.Application()
+            mapp[CTX] = ctx
+            mapp.router.add_get("/metrics", h_metrics)
+            runners.append(web.AppRunner(mapp))
+            await runners[-1].setup()
+            await web.TCPSite(runners[-1], *metrics_listener).start()
+            logger.info("prometheus exporter on %s:%d", *metrics_listener)
         await stop.wait()
         logger.info("shutdown signal received; draining workers")
+        for d in discoveries:
+            await d.aclose()
         for w in ctx.registry.list():
             w.draining = True  # no new selections while streams settle
         for w in ctx.registry.list():
@@ -275,24 +314,126 @@ async def serve_context(ctx, host: str, port: int, stop: asyncio.Event,
             except Exception:
                 logger.exception("worker %s close failed during shutdown", w.worker_id)
     finally:
-        await runner.cleanup()
+        for r in reversed(runners):
+            await r.cleanup()
 
 
-async def _run_serve(args) -> int:
-    options = gateway_options(args)
-    engine = build_engine_from_args(args)
-    ctx = build_context(engine, drain_timeout_secs=args.engine_drain_timeout_secs,
-                        **options)
-    stop = asyncio.Event()
-    loop = asyncio.get_running_loop()
-    try:
-        import signal
+def configure_grpc_clients(args) -> None:
+    """``--mm-transport``, ``--mm-shm-min-bytes`` and
+    ``--worker-stream-idle-timeout-secs`` as process-wide class attributes
+    of every gRPC worker client (0 turns the idle bound off)."""
+    from smg_tpu_torch.rpc.client import GrpcWorkerClient
 
-        for sig in (signal.SIGTERM, signal.SIGINT):
-            loop.add_signal_handler(sig, stop.set)
-    except (NotImplementedError, RuntimeError, ValueError):
-        pass  # non-main thread / platform without signal support
-    await serve_context(ctx, args.host, args.port, stop, client_max_size=args.max_payload_size)
+    GrpcWorkerClient.mm_transport = args.mm_transport
+    GrpcWorkerClient.mm_shm_min_bytes = args.mm_shm_min_bytes
+    if args.worker_stream_idle_timeout_secs is not None:
+        GrpcWorkerClient.idle_timeout_secs = args.worker_stream_idle_timeout_secs or None
+
+
+async def register_worker(ctx, url: str, worker_type, fetch_bundle: bool,
+                          timeout: float) -> None:
+    """Register one worker through the registration workflow (reference:
+    registration rides the job queue and the workflow engine,
+    server.rs:1107-1135): model_info retries with backoff, so a worker
+    still starting neither kills nor serializes the gateway, and a failed
+    registration stays resumable via POST /workflows/{id}/resume."""
+    from smg_tpu_torch.gateway.registration import WORKER_REGISTRATION
+
+    iid = await ctx.workflows.start(WORKER_REGISTRATION, {
+        "url": url, "worker_type": worker_type.value, "skip_tokenizer": not fetch_bundle,
+    })
+    inst = await ctx.workflows.wait(iid, timeout=timeout)
+    if inst.status.value != "completed":
+        logger.error("worker %s registration %s at startup (%s); resumable as %s",
+                     url, inst.status.value, inst.error, iid)
+
+
+def start_discovery(ctx, args) -> list:
+    """One Kubernetes pod watcher per role selector group: pods a role's
+    selector matches default to that role without a role label."""
+    from smg_tpu_torch.gateway.discovery import DiscoveryConfig, ServiceDiscovery
+
+    ns = args.service_discovery_namespace or "default"
+    groups = [(",".join(args.selectors) or "app=smg-worker", "regular")]
+    if args.prefill_selectors:
+        groups.append((",".join(args.prefill_selectors), "prefill"))
+    if args.decode_selectors:
+        groups.append((",".join(args.decode_selectors), "decode"))
+    out = []
+    for selector, role in groups:
+        d = ServiceDiscovery(ctx.registry, DiscoveryConfig(
+            namespace=ns, selector=selector, default_port=args.service_discovery_port,
+            default_role=role))
+        d.start()
+        out.append(d)
+        logger.info("k8s service discovery on (selector %s, role %s)", selector, role)
+    return out
+
+
+async def _run_gateway(args, stop: asyncio.Event | None = None) -> int:
+    """``launch`` (the gateway alone) and ``serve`` (with an in-process
+    engine) until SIGTERM or SIGINT, or until ``stop`` is set: the
+    reference's ``_run_gateway`` for the flags the port takes."""
+    from smg_tpu_torch.gateway.server import AppContext
+    from smg_tpu_torch.gateway.workers import WorkerType
+
+    if stop is None:
+        stop = asyncio.Event()
+        try:
+            import signal
+
+            loop = asyncio.get_running_loop()
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                loop.add_signal_handler(sig, stop.set)
+        except (NotImplementedError, RuntimeError, ValueError):
+            pass  # non-main thread / platform without signal support
+    # the SLO spec file is read off the serving loop
+    options = await asyncio.to_thread(gateway_options, args)
+    if args.command == "serve":
+        engine = build_engine_from_args(args)
+        ctx = build_context(engine, drain_timeout_secs=args.engine_drain_timeout_secs,
+                            **options)
+    else:
+        ctx = AppContext(**options)
+    configure_grpc_clients(args)
+    explicit_tok = args.gateway_tokenizer_path or getattr(args, "tokenizer_path", None)
+    if args.command == "launch" and explicit_tok:
+        tok = await asyncio.to_thread(load_tokenizer, explicit_tok)
+        ctx.tokenizers.register("default", tok, default=True)
+    role_urls = ([(u, WorkerType.REGULAR) for u in args.workers]
+                 + [(u, WorkerType.PREFILL) for u in args.prefill_workers]
+                 + [(u, WorkerType.DECODE) for u in args.decode_workers])
+    if role_urls:
+        # every worker at once; the wait outlasts the workflow's model_info
+        # retry budget, or a late success would race the mock fallback
+        # below (an operator-configured tokenizer wins over worker bundles)
+        await asyncio.gather(*(
+            register_worker(ctx, url, wtype, fetch_bundle=not explicit_tok,
+                            timeout=args.worker_startup_timeout_secs)
+            for url, wtype in role_urls))
+    discoveries = start_discovery(ctx, args) if args.service_discovery else []
+    if args.command == "launch" and ctx.tokenizers.get(None) is None:
+        # nothing explicit and no worker handed one over; marked, so a
+        # worker's tokenizer arriving later takes the default over it
+        from smg_tpu_torch.tokenizer import MockTokenizer
+
+        logger.warning("no tokenizer from the command line or a worker; using MockTokenizer")
+        fallback = MockTokenizer()
+        fallback._smg_fallback = True
+        ctx.tokenizers.register("default", fallback, default=True)
+    ssl_context = None
+    if args.tls_cert_path:
+        import ssl
+
+        ssl_context = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        await asyncio.to_thread(ssl_context.load_cert_chain, args.tls_cert_path,
+                                args.tls_key_path)
+    await serve_context(
+        ctx, args.host, args.port, stop, client_max_size=args.max_payload_size,
+        ssl_context=ssl_context, probe_port=args.health_check_port,
+        metrics_listener=((args.prometheus_host, args.prometheus_port)
+                          if args.prometheus_port else None),
+        discoveries=discoveries)
     return 0
 
 
@@ -309,4 +450,4 @@ def run_worker(args) -> int:
 def run_command(args) -> int:
     if args.command == "worker":
         return run_worker(args)
-    return asyncio.run(_run_serve(args))
+    return asyncio.run(_run_gateway(args))

@@ -23,8 +23,12 @@ KV over through the configured connector (``RouterConfig.kv_connector``:
 (``generate_prefilled``).  An image request bypasses PD onto a worker that
 is neither DECODE nor ENCODE.
 
-Not ported yet: PD over HTTP workers, DP-rank pinning, the Anthropic
-messages API and the responses API.
+HTTP workers (``gateway/http_worker.py``, ``proxy_mode``) never serve the
+token-level path: ``select_proxy_worker`` and ``select_pd_http_pair`` pick
+them for the server's text-level proxy, PD over HTTP included.
+
+Not ported yet: DP-rank pinning, the Anthropic messages API and the
+responses API.
 """
 
 from __future__ import annotations
@@ -147,6 +151,8 @@ class Router:
         workers = [
             w for w in self._candidate_workers(ctx.model_id)
             if w.worker_id not in exclude
+            # text-level proxy workers cannot serve the token-level path
+            and not getattr(w.client, "proxy_mode", False)
         ]
         if not workers:
             raise RouteError(503, "no workers available", "service_unavailable")
@@ -155,6 +161,41 @@ class Router:
         if worker is None:
             raise RouteError(503, "no healthy workers available", "service_unavailable")
         return worker, decision
+
+    def select_proxy_worker(self, model_id: str | None,
+                            ctx: RequestContext | None = None) -> Worker | None:
+        """Policy-select among HTTP proxy-mode workers for ``model_id``
+        (reference: the HTTP router path, ``routers/http/router.rs``).
+        None when the model has no proxy workers: the token-level path
+        applies."""
+        workers = [w for w in self._candidate_workers(model_id)
+                   if getattr(w.client, "proxy_mode", False)]
+        if not workers:
+            return None
+        policy = self.policies.policy_for(model_id)
+        return policy.select(workers, ctx or RequestContext(model_id=model_id))[0]
+
+    def select_pd_http_pair(self, model_id: str | None, ctx: RequestContext | None = None
+                            ) -> "tuple[Worker, Worker] | None":
+        """(prefill, decode) pair among HTTP proxy-mode workers: non-None
+        means PD-over-HTTP dual dispatch (reference:
+        ``routers/http/pd_router.rs``: bootstrap injection and a dual
+        send)."""
+        http = [w for w in self._candidate_workers(model_id)
+                if getattr(w.client, "proxy_mode", False)]
+        prefills = [w for w in http if w.worker_type is WorkerType.PREFILL]
+        decodes = [w for w in http if w.worker_type is WorkerType.DECODE]
+        if not prefills or not decodes:
+            return None
+        policy = self.policies.policy_for(model_id)
+        rc = ctx or RequestContext(model_id=model_id)
+        p = policy.select(prefills, rc)[0]
+        d = policy.select(decodes, rc)[0]
+        if p is None or d is None:
+            # a pool exists but nothing in it is selectable right now
+            # (circuit open, draining): fall through to the other paths
+            return None
+        return p, d
 
     def _pd_pools(self, model_id: str | None) -> tuple[list[Worker], list[Worker]]:
         """(prefill pool, decode pool): both non-empty means PD mode."""

@@ -18,9 +18,19 @@ request id, the OTel request span, errors, the request timeout and CORS,
 auth, then admission (per-tenant rate limit, the priority scheduler with
 cancel-and-requeue preemption of ``bulk`` work, request counters).
 
-Not ported yet: plugins, providers, the HTTP/PD proxy paths, the
-Anthropic, responses, conversations, realtime and transcription APIs,
-worker registration over HTTP, jobs, workflows and per-model routers.
+Workers register by URL (``POST /workers``, synchronous or as a job;
+``DELETE /workers/{worker_id}`` drains first) through the
+``worker_registration`` workflow (``gateway/registration.py``), and
+``/jobs`` and ``/workflows`` show and resume that work.  Chat, completions
+and ``/generate`` go, in the reference's order, to a PREFILL and DECODE
+pair of HTTP workers (PD over HTTP: bootstrap metadata injected into both
+legs, the decode leg's answer returned), else to an HTTP worker (a
+text-level proxy that re-streams its SSE frames as they come), else
+through the token-level router.  In a Kubernetes pod the gateway watches
+its namespace's worker pods (``gateway/discovery.py``).
+
+Not ported yet: plugins, providers, the Anthropic, responses,
+conversations, realtime and transcription APIs and per-model routers.
 """
 
 from __future__ import annotations
@@ -35,11 +45,14 @@ import uuid
 from aiohttp import web
 
 from smg_tpu_torch.gateway.auth import AuthConfig, Authenticator, AuthError
+from smg_tpu_torch.gateway.discovery import KubeApi, ServiceDiscovery
 from smg_tpu_torch.gateway.health import HealthConfig, HealthMonitor
+from smg_tpu_torch.gateway.http_worker import HttpWorkerError
 from smg_tpu_torch.gateway.kv_events import KvEventMonitor
 from smg_tpu_torch.gateway.observability import Metrics
 from smg_tpu_torch.gateway.priority import AdmissionRejected, PriorityConfig, PriorityScheduler
 from smg_tpu_torch.gateway.rate_limit import RateLimitConfig, RateLimiter
+from smg_tpu_torch.gateway.registration import WORKER_REGISTRATION, build_worker_registration
 from smg_tpu_torch.gateway.router import RouteError, Router, RouterConfig
 from smg_tpu_torch.gateway.tracing import (
     OtelTracer,
@@ -64,6 +77,7 @@ from smg_tpu_torch.tokenizer.registry import TokenizerRegistry
 from smg_tpu_torch.utils import get_logger
 from smg_tpu_torch.utils.logging import request_id_var
 from smg_tpu_torch.version import __version__
+from smg_tpu_torch.workflow import JobQueue, LoggingSubscriber, StepStatus, WorkflowEngine
 
 logger = get_logger("gateway.server")
 
@@ -149,6 +163,18 @@ class AppContext:
         # OTel tracing: off unless an OTLP endpoint is configured
         self.tracer = (OtelTracer(otel_endpoint, otel_service_name)
                        if otel_endpoint else None)
+        self.discovery = None  # attached by build_app when running in a pod
+        # worker registration rides typed workflows; the job queue is made
+        # lazily because it starts tasks on the running loop
+        self.workflows = WorkflowEngine()
+        self.workflows.bus.subscribe(LoggingSubscriber)
+        self.workflows.register(build_worker_registration(self))
+        self.jobs = None
+
+    def ensure_jobs(self):
+        if self.jobs is None:
+            self.jobs = JobQueue()
+        return self.jobs
 
     def adopt_engine_metrics(self, engine_metrics) -> bool:
         """Register an in-proc engine's metric set into the gateway registry
@@ -427,11 +453,21 @@ def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Applic
         ctx.health_monitor.start()
         if ctx.tracer is not None:
             await ctx.tracer.start()
+        if ctx.discovery is None:
+            api = KubeApi()  # namespace from the service-account mount
+            if api.available:
+                ctx.discovery = ServiceDiscovery(ctx.registry, api=api)
+        if ctx.discovery is not None:
+            ctx.discovery.start()
 
     async def _stop_background(app):
         ctx.health_monitor.stop()
         if ctx.tracer is not None:
             await ctx.tracer.stop()
+        if ctx.jobs is not None:
+            await ctx.jobs.close()
+        if ctx.discovery is not None:
+            await ctx.discovery.aclose()
 
     app.on_startup.append(_start_background)
     app.on_cleanup.append(_stop_background)
@@ -468,6 +504,13 @@ def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Applic
     app.router.add_post("/unload_lora_adapter", h_unload_lora)
     app.router.add_get("/list_lora_adapters", h_list_lora)
     app.router.add_get("/workers", h_workers_list)
+    app.router.add_post("/workers", h_workers_add)
+    app.router.add_delete("/workers/{worker_id}", h_workers_remove)
+    app.router.add_get("/jobs", h_jobs_list)
+    app.router.add_get("/jobs/{job_id}", h_job_get)
+    app.router.add_get("/workflows", h_workflows_list)
+    app.router.add_get("/workflows/{instance_id}", h_workflow_get)
+    app.router.add_post("/workflows/{instance_id}/resume", h_workflow_resume)
     return app
 
 
@@ -718,11 +761,178 @@ async def h_chat(request: web.Request) -> web.Response | web.StreamResponse:
     except Exception as e:
         return _error(400, f"invalid request: {e}")
     rid = request["request_id"]
+    pd_pair = ctx.router.select_pd_http_pair(req.model)
+    if pd_pair is not None:
+        body = req.model_dump(exclude_none=True, exclude_unset=True)
+        return await _proxy_pd_via_http(request, ctx, pd_pair, body,
+                                        "/v1/chat/completions", req.stream)
+    proxy_worker = ctx.router.select_proxy_worker(req.model)
+    if proxy_worker is not None:
+        return await _proxy_via_http_worker(request, ctx, proxy_worker, req,
+                                            "/v1/chat/completions")
     async with ctx.semaphore:
         if not req.stream:
             resp = await ctx.router.chat(req, request_id=rid)
             return web.json_response(resp.model_dump(exclude_none=True))
         return await _write_sse(request, ctx.router.chat_stream(req, request_id=rid))
+
+
+def _client_gone(request: web.Request) -> bool:
+    """The client hung up (its connection is closing): what failed then is
+    not the worker, and the breakers are not fed."""
+    return request.transport is None or request.transport.is_closing()
+
+
+async def _proxy_via_http_worker(request, ctx, worker, req, path: str
+                                 ) -> web.Response | web.StreamResponse:
+    """HTTP worker proxy path (reference: ``routers/http/router.rs``):
+    text-level passthrough to an OpenAI-compatible worker, with registry
+    citizenship: load guard, breaker feedback, worker counters."""
+    body = req.model_dump(exclude_none=True, exclude_unset=True)
+    return await _proxy_raw_via_http_worker(request, ctx, worker, body, path,
+                                            bool(req.stream))
+
+
+def _inject_bootstrap(body: dict, prefill_worker) -> dict:
+    """PD-over-HTTP bootstrap metadata (reference: ``pd_router.rs``
+    ``inject_bootstrap_into_value``): both legs get the PREFILL worker's
+    rendezvous address and one shared random room id; the engines transfer
+    the KV between themselves.  Batch requests (list text or input_ids on
+    /generate) get lists, one entry a prompt."""
+    import random
+    from urllib.parse import urlparse
+
+    parsed = urlparse(prefill_worker.url if "//" in prefill_worker.url
+                      else "http://" + prefill_worker.url)
+    host = prefill_worker.bootstrap_host or parsed.hostname or prefill_worker.url
+    # a PREFILL worker registered without a bootstrap port rendezvouses on
+    # its serving port
+    port = prefill_worker.bootstrap_port
+    if port is None:
+        port = parsed.port
+    n = 1
+    for key in ("text", "input_ids", "prompt"):
+        v = body.get(key)
+        if isinstance(v, list) and v and isinstance(v[0], (str, list)):
+            n = len(v)
+            break
+    if n > 1:
+        body["bootstrap_host"] = [host] * n
+        body["bootstrap_port"] = [port] * n
+        body["bootstrap_room"] = [random.getrandbits(63) for _ in range(n)]
+    else:
+        body["bootstrap_host"] = host
+        body["bootstrap_port"] = port
+        body["bootstrap_room"] = random.getrandbits(63)
+    return body
+
+
+async def _proxy_pd_via_http(request, ctx, pair, body: dict, path: str, stream: bool
+                             ) -> web.Response | web.StreamResponse:
+    """PD-over-HTTP dual dispatch (reference: ``routers/http/pd_router.rs``
+    ``execute_dual_dispatch``): inject the bootstrap metadata, send the
+    request to BOTH the prefill and the decode worker, return the decode
+    worker's response (the prefill leg's is drained and only checked for
+    errors: its job is the KV the decode leg pulls)."""
+    prefill_w, decode_w = pair
+    body = _inject_bootstrap(dict(body), prefill_w)
+    prefill_body = {**body, "stream": False}
+    async with ctx.semaphore:
+        pguard = prefill_w.acquire()
+        dguard = decode_w.acquire()
+        p_ok = d_ok = False
+        prefill_task = asyncio.create_task(prefill_w.client.post_json(path, prefill_body))
+        try:
+            if not stream:
+                decode_task = asyncio.create_task(decode_w.client.post_json(path, body))
+                p_res, d_res = await asyncio.gather(prefill_task, decode_task,
+                                                    return_exceptions=True)
+                if isinstance(p_res, BaseException):
+                    logger.warning("pd-http prefill leg failed: %s", p_res)
+                else:
+                    p_ok = True
+                if isinstance(d_res, BaseException):
+                    msg = getattr(d_res, "message", str(d_res))
+                    status = getattr(d_res, "status", 502)
+                    return _error(502 if status >= 500 else status, f"worker error: {msg}",
+                                  "worker_error")
+                d_ok = True
+                return web.json_response(d_res)
+            sse = _sse_response(request)
+            await sse.prepare(request)
+            try:
+                async for chunk in decode_w.client.stream_sse(path, body):
+                    await sse.write(f"data: {json.dumps(chunk)}\n\n".encode())
+                await sse.write(b"data: [DONE]\n\n")
+                d_ok = True
+            except (ConnectionResetError, asyncio.CancelledError):
+                # the client hung up mid-stream: not a worker failure, so
+                # the breakers are not fed (the token-level path's rule)
+                p_ok = d_ok = True
+                raise
+            except Exception as e:
+                msg = getattr(e, "message", str(e))
+                err = ErrorResponse(error=ErrorInfo(message=msg, type="worker_error"))
+                try:
+                    await sse.write(f"data: {json.dumps(err.model_dump())}\n\n".encode())
+                except ConnectionResetError:
+                    p_ok = d_ok = True
+            try:
+                await prefill_task
+                p_ok = True
+            except Exception as e:
+                logger.warning("pd-http prefill leg failed: %s", e)
+            await sse.write_eof()
+            return sse
+        finally:
+            if not prefill_task.done():
+                prefill_task.cancel()
+            pguard.release(success=p_ok)
+            dguard.release(success=d_ok)
+
+
+async def _proxy_raw_via_http_worker(request, ctx, worker, body: dict, path: str,
+                                     stream: bool) -> web.Response | web.StreamResponse:
+    """Raw-dict variant of ``_proxy_via_http_worker`` for native engine
+    endpoints (``/generate``) whose body is not an OpenAI model object.
+    The worker's SSE frames are re-streamed as they come; an upstream 4xx
+    keeps its status, a 5xx or an unreachable worker is a 502, both as
+    ``worker_error`` bodies."""
+    async with ctx.semaphore:
+        guard = worker.acquire()
+        ok = False
+        try:
+            if not stream:
+                try:
+                    data = await worker.client.post_json(path, body)
+                except HttpWorkerError as e:
+                    return _error(502 if e.status >= 500 else e.status,
+                                  f"worker error: {e.message}", "worker_error")
+                except Exception as e:
+                    return _error(502, f"worker unreachable: {e}", "worker_error")
+                ok = True
+                return web.json_response(data)
+            sse = _sse_response(request)
+            await sse.prepare(request)
+            try:
+                async for chunk in worker.client.stream_sse(path, body):
+                    await sse.write(f"data: {json.dumps(chunk)}\n\n".encode())
+                await sse.write(b"data: [DONE]\n\n")
+                ok = True
+            except asyncio.CancelledError:
+                ok = True  # cancelled from the client's side
+                raise
+            except Exception as e:
+                if _client_gone(request):
+                    ok = True
+                    raise
+                msg = getattr(e, "message", str(e))
+                err = ErrorResponse(error=ErrorInfo(message=msg, type="worker_error"))
+                await sse.write(f"data: {json.dumps(err.model_dump())}\n\n".encode())
+            await sse.write_eof()
+            return sse
+        finally:
+            guard.release(success=ok)
 
 
 async def h_completions(request: web.Request) -> web.Response | web.StreamResponse:
@@ -732,6 +942,15 @@ async def h_completions(request: web.Request) -> web.Response | web.StreamRespon
     except Exception as e:
         return _error(400, f"invalid request: {e}")
     rid = request["request_id"]
+    pd_pair = ctx.router.select_pd_http_pair(req.model)
+    if pd_pair is not None:
+        body = req.model_dump(exclude_none=True, exclude_unset=True)
+        return await _proxy_pd_via_http(request, ctx, pd_pair, body, "/v1/completions",
+                                        bool(req.stream))
+    proxy_worker = ctx.router.select_proxy_worker(req.model)
+    if proxy_worker is not None:
+        return await _proxy_via_http_worker(request, ctx, proxy_worker, req,
+                                            "/v1/completions")
     async with ctx.semaphore:
         if not req.stream:
             resp = await ctx.router.completion(req, request_id=rid)
@@ -743,10 +962,21 @@ async def h_generate(request: web.Request) -> web.Response | web.StreamResponse:
     """SGLang-compatible native generate endpoint."""
     ctx: AppContext = request.app[CTX]
     try:
-        req = GenerateRequest.model_validate(await request.json())
+        raw_body = await request.json()
+        req = GenerateRequest.model_validate(raw_body)
     except Exception as e:
         return _error(400, f"invalid request: {e}")
     rid = req.rid or request["request_id"]
+    # HTTP workers own /generate natively: raw passthrough (dual dispatch
+    # when prefill and decode pools exist)
+    pd_pair = ctx.router.select_pd_http_pair(None)
+    if pd_pair is not None:
+        return await _proxy_pd_via_http(request, ctx, pd_pair, dict(raw_body), "/generate",
+                                        bool(req.stream))
+    proxy_worker = ctx.router.select_proxy_worker(None)
+    if proxy_worker is not None:
+        return await _proxy_raw_via_http_worker(request, ctx, proxy_worker, dict(raw_body),
+                                                "/generate", bool(req.stream))
     sampling = req.to_sampling_params(ctx.router.config.default_max_tokens)
 
     if isinstance(req.text, list) or (req.input_ids and isinstance(req.input_ids[0], list)):
@@ -1039,3 +1269,132 @@ async def h_list_lora(request: web.Request) -> web.Response:
 async def h_workers_list(request: web.Request) -> web.Response:
     ctx: AppContext = request.app[CTX]
     return web.json_response({"workers": [w.describe() for w in ctx.registry.list()]})
+
+
+async def h_workers_add(request: web.Request) -> web.Response:
+    """Register a remote worker by URL.  Registration runs as a workflow
+    (connect -> model_info with retry -> register -> tokenizer; reference:
+    registration rides the job queue and the workflow engine,
+    server.rs:1107-1135).  ``"async": true`` enqueues it and answers 202
+    with a job id to poll at /jobs/{id}; the default waits inline.  The
+    transport goes by scheme: http(s):// = OpenAI-wire proxy worker, bare
+    host:port = token-level gRPC."""
+    ctx: AppContext = request.app[CTX]
+    body = await request.json()
+    url = body.get("url")
+    if not url:
+        return _error(400, "missing url")
+    data = {
+        "url": url,
+        "worker_id": body.get("worker_id"),
+        "model_id": body.get("model_id"),
+        "api_key": body.get("api_key", ""),
+        "worker_type": body.get("worker_type"),
+        "bootstrap_host": body.get("bootstrap_host"),
+        "bootstrap_port": body.get("bootstrap_port"),
+        "skip_tokenizer": bool(body.get("skip_tokenizer")),
+    }
+
+    async def run_registration(timeout: float = 120.0) -> dict:
+        iid = await ctx.workflows.start(WORKER_REGISTRATION, data)
+        inst = await ctx.workflows.wait(iid, timeout=timeout)
+        if inst.status.value == "running":
+            # the caller timed out: leave no registration running behind
+            await ctx.workflows.cancel(iid)
+            inst = await ctx.workflows.wait(iid, timeout=5.0)
+        if inst.status.value != "completed":
+            # a failed or cancelled registration leaves nothing routable: a
+            # worker the register step added goes, the client closes, and
+            # connect and register are reset so a later
+            # POST /workflows/{id}/resume dials again
+            if data.get("registered") and data.get("worker_id"):
+                ctx.registry.remove(data["worker_id"])
+                data["registered"] = False
+            client = data.pop("client", None)
+            if client is not None:
+                await client.close()
+            for name in ("connect", "register"):
+                if inst.steps[name].status == StepStatus.SUCCEEDED:
+                    inst.steps[name].status = StepStatus.PENDING
+            await ctx.workflows.store.save(inst)
+        return inst.describe()
+
+    if body.get("async"):
+        job = ctx.ensure_jobs().submit(run_registration, name=f"register {url}")
+        return web.json_response({"job_id": job.job_id, "status": job.status}, status=202)
+    desc = await run_registration()
+    if desc["status"] != "completed":
+        return _error(502, f"worker registration failed: {desc.get('error')}", "worker_error")
+    worker = ctx.registry.get(data["worker_id"])
+    return web.json_response({"added": worker.describe(), "workflow": desc})
+
+
+async def h_workers_remove(request: web.Request) -> web.Response:
+    """Remove a worker, draining in-flight requests first (reference:
+    ``--drain-settle-secs``, main.rs:550-556).  ``?drain=SECS`` bounds the
+    wait (default 10, 0 = at once); the worker stops being selected the
+    moment draining starts."""
+    ctx: AppContext = request.app[CTX]
+    wid = request.match_info["worker_id"]
+    worker = ctx.registry.get(wid)
+    if worker is None:
+        return _error(404, f"no such worker {wid}")
+    try:
+        drain_secs = float(request.query.get("drain", "10"))
+    except ValueError:
+        return _error(400, "invalid drain seconds")
+    if not (0.0 <= drain_secs <= 300.0):
+        return _error(400, "drain seconds must be in [0, 300]")
+    if worker.draining:
+        return _error(409, f"worker {wid} is already draining")
+    worker.draining = True
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + drain_secs
+    while worker.load > 0 and loop.time() < deadline:
+        await asyncio.sleep(0.05)
+    drained = worker.load == 0
+    ctx.registry.remove(wid)
+    await worker.client.close()
+    return web.json_response(
+        {"removed": wid, "drained": drained, "in_flight_at_removal": worker.load})
+
+
+# ---- job queue and workflow introspection ----
+
+async def h_jobs_list(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    jobs = ctx.jobs.list() if ctx.jobs is not None else []
+    return web.json_response({"jobs": [j.describe() for j in jobs]})
+
+
+async def h_job_get(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    job = ctx.jobs.get(request.match_info["job_id"]) if ctx.jobs else None
+    if job is None:
+        return _error(404, f"no such job {request.match_info['job_id']}")
+    return web.json_response(job.describe())
+
+
+async def h_workflows_list(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    instances = await ctx.workflows.store.list(request.query.get("type") or None)
+    return web.json_response({"workflows": [i.describe() for i in instances]})
+
+
+async def h_workflow_get(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    inst = await ctx.workflows.store.load(request.match_info["instance_id"])
+    if inst is None:
+        return _error(404, f"no such workflow {request.match_info['instance_id']}")
+    return web.json_response(inst.describe())
+
+
+async def h_workflow_resume(request: web.Request) -> web.Response:
+    """Resume a failed registration (or any resumable workflow) from its
+    first incomplete step (reference: resume-on-failure)."""
+    ctx: AppContext = request.app[CTX]
+    iid = request.match_info["instance_id"]
+    if not await ctx.workflows.resume(iid):
+        return _error(409, f"workflow {iid} is not resumable")
+    inst = await ctx.workflows.wait(iid, timeout=120.0)
+    return web.json_response(inst.describe())

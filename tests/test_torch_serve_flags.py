@@ -89,13 +89,16 @@ NEW_FLAGS = [
     ("--metrics-window-secs", "12"), ("--device-metrics-interval-secs", "0"),
     ("--flight-recorder", "off"), ("--flight-dump-dir", "dumps"),
     ("--flight-dump-min-interval-secs", "1.5"), ("--kv-connector", "host"),
+    # the worker URLs, TLS, multimodal transport, discovery and the metrics
+    # listener, taken since ``launch`` came
+    ("--worker", "http://w"), ("--prefill-worker", "x"), ("--decode-worker", "x"),
+    ("--tls-cert-path", "c"), ("--mm-transport", "shm"), ("--selector", "a=b"),
+    ("--service-discovery", None), ("--prometheus-port", "9"),
 ]
 #: flags of modules not ported yet (ROADMAP Queue A lists them by item)
-REFUSED = [["--worker", "http://w"], ["--prefill-worker", "x"], ["--decode-worker", "x"],
-           ["--tp", "2"], ["--dp", "2"], ["--mesh-shape", "tp=2"],
+REFUSED = [["--tp", "2"], ["--dp", "2"], ["--mesh-shape", "tp=2"],
            ["--plugins", "p.py"], ["--mcp-config-path", "m.json"],
-           ["--storage", "memory"], ["--tls-cert-path", "c"], ["--mm-transport", "shm"], ["--prefix-token-count", "8"], ["--no-dp-aware"],
-           ["--selector", "a=b"], ["--service-discovery"], ["--prometheus-port", "9"]]
+           ["--storage", "memory"], ["--prefix-token-count", "8"], ["--no-dp-aware"]]
 BASE = ["serve", "--model-preset", "tiny"]
 
 
