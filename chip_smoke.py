@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases vision   # build + kernels + phase 12 only
     python3 chip_smoke.py --phases pd   # build + kernels + phase 13 only
     python3 chip_smoke.py --phases launch   # build + kernels + phase 14 only
+    python3 chip_smoke.py --phases responses   # build + kernels + phase 15 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -39,12 +40,16 @@ Phases (any failure makes the script exit non-zero and print no result):
    synchronous).  Kernel launch counts must equal what the schedule
    implies (32 layers x decode columns, counted through graph replays; 32
    x prefill forward calls) and every run's ``audit()`` must be clean;
-   decode is profiled on 4 lanes per path.  All three again on the same
-   weights widened to float32 with float32 KV, where the greedy streams
-   must be identical and which is the reference the bf16 runs'
-   first-token logits are held to.  Then preemption: 4 layers, float32,
-   a page pool too small for four requests, streams equal to a roomy run
-   and no page leaked;
+   decode is profiled on 4 lanes per path.  All three again on the first
+   ``F32_LAYERS`` (8) layers of the same weights, full width, widened to
+   float32 with float32 KV, where the greedy streams must be identical and
+   which is the reference the bf16 runs of that depth's first-token logits
+   are held to (the float32 repeats of phases 4, 5, 7, 8 and 10 on these
+   weights run at that depth too: their checks are exact at any depth,
+   and the depth keeps the script inside its deadline; phase 6's runs
+   last, on all 32 layers widened in place).  Then preemption: 4 layers,
+   float32, a page pool too small for four requests, streams equal to a
+   roomy run and no page leaked;
 4. request semantics, on the same weights in bf16 and then in float32,
    through the same three paths: six requests with a synthetic tokenizer
    at the full vocabulary (``PieceTokenizer``): greedy with frequency and
@@ -75,8 +80,11 @@ Phases (any failure makes the script exit non-zero and print no result):
    must equal those, in bf16 the agreement is printed, with the direct
    path's TTFT and gaps beside the HTTP ones.  Kernel launches through the
    HTTP path must equal the schedule's;
-6. the request-policy layer over HTTP, after phase 5 on each dtype's
-   weights with phase 5's engine settings: one engine behind seven
+6. the request-policy layer over HTTP, after phase 5 in bf16 and after
+   phase 10 in float32, always at full depth (its ``/debug/slo`` check is
+   relative, and a shallow model's short TTFT leaves host latencies of a
+   few ms too large a share of it), with phase 5's engine settings: one
+   engine behind seven
    gateways built from ``serve`` flags (bare; every layer on: an API key,
    a rate limit, priority admission, a request timeout, CORS, SLO specs,
    OTel export to an in-process collector; a burst-2 rate limit; one
@@ -86,21 +94,22 @@ Phases (any failure makes the script exit non-zero and print no result):
    nothing left in flight; a 200-token ``bulk`` chat preempted by a
    ``system`` chat, aborted in the engine, rerun to its lone run's tokens
    (exact in float32), the system chat first, ``audit()`` clean and every
-   page back; a 300-token decode cut at 1 s (408, and a streamed one cut
+   page back; a 1000-token decode cut at 1 s (408, and a streamed one cut
    without ``[DONE]``), ended once each in the engine; a tool call,
    ``reasoning_content`` and harmony channels through the engine with a
    scripted tokenizer (``ScriptTokenizer``), streamed and not; the eight
    concurrent streams through the bare and the full gateway in turns,
    ``/debug/slo``'s TTFT and per-token ITL p50s within 5% of the client's
    (TTFT from dispatch, as the SLO's runs: each request's own front door,
-   read from its spans, comes off the client's);
+   read from its spans, comes off the client's; the back door, from the
+   router's first chunk to the client's first frame, is printed beside);
    one SLO spec passing and one failing; the span tree of a chat sent with
    a ``traceparent``; exact launches.  Readings: the gateway's cost per
    token with every layer on against the bare gateway and direct
    callbacks, the lone chat's added TTFT, the preemption latency;
 7. speculative decoding, after phase 6 on each dtype's weights, with
    phase 3's engine settings plus ``speculative=True`` (8 drafts, a 9-wide
-   verify block): four concurrent 64-token requests (greedy on a
+   verify block): four concurrent 32-token requests (greedy on a
    1000-token repeated prompt, greedy on a plain prompt, temperature 0.8
    on a repeated prompt, a stop-string lane) through the n-gram tier on
    the serving path, the same with overlap off, the eager synchronous path
@@ -157,7 +166,8 @@ Phases (any failure makes the script exit non-zero and print no result):
    allocated): (a) the full model at full width and depth, random bf16
    weights from seed 0 made on the card (61,064,245,248 bytes), KV
    auto-sized after the expert layer's reserve (the pages printed), phase
-   3's five requests through phase 3's three paths, launches exact at 48 x
+   3's five requests through the serving and the eager path (the plain one
+   runs in (b), where its logits are the reference), launches exact at 48 x
    decode columns and 48 x prefill calls, audits clean; readings: init
    seconds, the 1400-token prompt's TTFT and chunked prefill device ms
    against dense dispatch's operations bound, the prefill's peak memory,
@@ -281,14 +291,43 @@ Phases (any failure makes the script exit non-zero and print no result):
    in-process PD's, each prompt's legs straight at the workers its tokens
    with logprobs within 1e-4; each worker reports its kernel launches at
    exit, equal to 4 x its decode columns and 4 x its prefill calls;
+15. the Responses API, after phase 14: one in-process ``serve`` built by the
+   command line's own ``_run_gateway`` (``--model-preset llama3-8b``: full
+   width and depth, random bf16 weights from seed 0, phase 5's engine
+   flags, the KV auto-sized; ``--storage sqlite:<tmp>/conv.db``;
+   ``--mcp-config-path`` naming a small JSON-RPC MCP server this script runs
+   on 127.0.0.1 with one tool, ``lookup``, that counts its calls).  (a)
+   ``/v1/conversations``: create with items, get, list and add items,
+   update the metadata, delete, a second delete 404.  (b) three greedy
+   32-token turns chained by ``previous_response_id``, three times: each
+   turn's text equals a direct chat of the same messages and tools (the
+   radix cache flushed before every call), turn 3's usage equals its chat
+   call's, the stored turn reads back and deletes.  (c) the same three
+   turns through a ``conversation`` with the cache warm: the stored items
+   are the inputs and outputs in order, kernel launches equal 32 x decode
+   columns and 32 x prefill calls over exactly those turns, and turn 3's
+   chat decision on ``/debug/router`` reports the prefix it reused.  (d) a
+   streamed turn: the event names ``create_stream`` defines, in order, the
+   deltas joining to the non-streamed text.  (e) an ``mcp_approval_request``
+   item posted into a conversation and answered: approving runs the tool
+   once on the script's server, the output holds its ``mcp_call`` and the
+   model's turn equals a chat with the tool's answer; denying runs nothing
+   and yields "approval denied by user"; an unknown key 404s.  (f)
+   ``--storage nosuch://x`` fails startup with the reference's
+   ``ValueError`` before any weights load, and a request-level ``mcp`` tool
+   whose label collides with the configured server gets the reference's
+   400.  Readings: wall ms per turn of ``/v1/responses`` against the direct
+   chat (medians of 3, cold radix), turn 3's prompt and cached tokens, the
+   MCP call's ms from the handler's call to the tool's answer;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
    10's, ``launches_vision`` from phase 12's bf16 serving paths,
-   ``launches_pd`` from phase 13's bf16 PD path and ``launches_launch``
-   from phase 14's worker processes) and, last, ``{"ok": true, "device":
-   ...}`` (``--phases kernels``, ``checkpoint``, ``moe``, ``api``,
-   ``vision``, ``pd`` and ``launch`` print neither).
+   ``launches_pd`` from phase 13's bf16 PD path, ``launches_launch``
+   from phase 14's worker processes and ``launches_responses`` from phase
+   15's conversation turns) and, last, ``{"ok": true, "device": ...}``
+   (``--phases kernels``, ``checkpoint``, ``moe``, ``api``, ``vision``,
+   ``pd``, ``launch`` and ``responses`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -2040,7 +2079,8 @@ def _serve_checks(engine, tok, port: int, label: str, strict: bool, card: str) -
 
 API_KEY = "sk-smoke"
 PREEMPT_TOKENS = 200  # the bulk chat a system chat preempts
-TIMEOUT_TOKENS, TIMEOUT_S = 300, 1.0  # a decode the request timeout cuts
+# a decode the request timeout cuts: long enough to outlast TIMEOUT_S at any depth
+TIMEOUT_TOKENS, TIMEOUT_S = 1000, 1.0
 SLO_TOLERANCE = 0.05  # /debug/slo p50s against the client's, TTFT from dispatch
 # scripted outputs: the i-th piece is what the i-th greedy token of the
 # request's prompt decodes to (``ScriptTokenizer``)
@@ -2405,7 +2445,7 @@ def _policy_checks(engine, tok, script_tok, ctxs, ports, collector, loop, label:
     free1 = engine.scheduler.pool.free_count
     expect(audit["clean"] and free1 == free0,
            f"after preemption: audit {audit}, free pages {free1} != {free0}")
-    # 5. the request timeout: a 300-token decode cut at TIMEOUT_S, not
+    # 5. the request timeout: a TIMEOUT_TOKENS decode cut at TIMEOUT_S, not
     # streamed (408 before any byte) and streamed (the stream is cut)
     a0 = aborts()
     t0 = time.perf_counter()
@@ -2497,15 +2537,19 @@ def _policy_checks(engine, tok, script_tok, ctxs, ports, collector, loop, label:
         conc[name].append(dict(token_gap_ms=statistics.median(per_token), client=client))
     # the front door of each of the full gateway's streams: the request
     # span's start against the client's send (wall clocks of one host), and
-    # dispatch (the prefill span's start) against the request span
+    # dispatch (the prefill span's start) against the request span; the
+    # prefill span ends where the router takes the first chunk
     tracer = ctxs["full"].tracer
     asyncio.run_coroutine_threadsafe(tracer.flush(), loop).result(60)
     by_rid: dict = {}
+    prefill_end: dict = {}
     for sp in collector.spans:
         attrs = {a["key"]: next(iter(a["value"].values())) for a in sp["attributes"]}
         rid = attrs.get("request.id") or attrs.get("rid")
         if rid in sent_ns:
             by_rid.setdefault(rid, {})[sp["name"]] = int(sp["startTimeUnixNano"])
+            if sp["name"] == "engine.prefill":
+                prefill_end[rid] = int(sp["endTimeUnixNano"])
     front = {r: ((d[f"POST {chat}"] - sent_ns[r]) / 1e6,
                  (d["engine.prefill"] - d[f"POST {chat}"]) / 1e6)
              for r, d in by_rid.items() if f"POST {chat}" in d and "engine.prefill" in d}
@@ -2529,7 +2573,12 @@ def _policy_checks(engine, tok, script_tok, ctxs, ports, collector, loop, label:
                         [run["client"][r][0] - sum(front[r]) / 1e3 for r in rids], 50) * 1e3,
                     slo_ttft_ms=_pct([r["ttft_s"] for r in srv], 50) * 1e3,
                     client_itl_ms=_pct([run["client"][r][1] for r in rids], 50) * 1e3,
-                    slo_itl_ms=_pct([r["itl_mean_s"] for r in srv], 50) * 1e3)
+                    slo_itl_ms=_pct([r["itl_mean_s"] for r in srv], 50) * 1e3,
+                    # not held to anything: the router's first chunk to the
+                    # client's first frame, which neither TTFT above sees
+                    back_door_ms=_pct([(sent_ns[r] + run["client"][r][0] * 1e9
+                                        - prefill_end[r]) / 1e6
+                                       for r in rids if r in prefill_end], 50))
 
     slo_check = [p50s(run) for run in conc["full"]]
     for c in slo_check:
@@ -2681,7 +2730,7 @@ def _sse_cut(port: int, body: dict) -> tuple[list, str | None]:
 
 # ---- phase 7: speculative decoding on Llama-3-8B ----
 
-SPEC_NEW = 64  # new tokens of every phase-7 request
+SPEC_NEW = 32  # new tokens of every phase-7 request
 
 
 def _spec_jobs(seed: int):
@@ -4848,8 +4897,11 @@ def phase_moe(dev, card: str) -> dict:
     sink: dict = {}
     secs = out["seconds"] = {}
     t0 = time.perf_counter()
+    # the plain path runs at MOE_F32_LAYERS in (b), where its logits are the
+    # reference; at full depth it would only repeat that
     with moe_annotations():
         runs = serve_paths(cfg, params, dev, max_new, with_profile=True, auto_size=True,
+                           paths=PATHS[:2],
                            after=lambda label, e: moe_readings(label, e, cfg, dev, card,
                                                                sink))
     out["agreement"] = check_runs(runs, L, max_new, "moe bf16")
@@ -6721,6 +6773,487 @@ def phase_launch(dev, card: str, preset: str = SERVE_MODEL) -> dict:
     return out
 
 
+RESP_NEW = 32  # output tokens of every phase-15 turn
+RESP_REPS = 3  # chains of (b), for the medians of the per-turn wall times
+RESP_WORDS = (120, 160, 200)  # words of each turn's user input
+MCP_LABEL, MCP_TOOL = "tools", "lookup"
+
+
+class SmokeMcpServer:
+    """A small MCP server (JSON-RPC 2.0 over aiohttp on 127.0.0.1, its own
+    loop thread): ``initialize``, ``tools/list`` and ``tools/call`` of one
+    tool, ``lookup``, whose answer is a few words; it counts the calls."""
+
+    def __init__(self):
+        import asyncio
+        import threading
+
+        self.calls: list = []
+        self.port = _free_port()
+        self.loop = asyncio.new_event_loop()
+        self._ready = threading.Event()
+        self.thread = threading.Thread(target=self._run, name="mcp-server", daemon=True)
+        self.thread.start()
+        if not self._ready.wait(30):
+            raise AssertionError("the MCP server did not start")
+
+    def _run(self) -> None:
+        import asyncio
+
+        from aiohttp import web
+
+        async def handle(request):
+            body = await request.json()
+            method, params = body["method"], body.get("params") or {}
+            if method == "initialize":
+                result = {"protocolVersion": params.get("protocolVersion"),
+                          "capabilities": {"tools": {}},
+                          "serverInfo": {"name": "chip-smoke", "version": "1"}}
+            elif method == "tools/list":
+                result = {"tools": [{"name": MCP_TOOL, "description": "look a word up",
+                                     "inputSchema": {"type": "object", "properties": {
+                                         "q": {"type": "string"}}}}]}
+            elif method == "tools/call" and params.get("name") == MCP_TOOL:
+                q = params.get("arguments", {}).get("q", "")
+                self.calls.append(q)
+                result = {"content": [{"type": "text", "text": f"w4242 w4343 w4444 {q}"}]}
+            else:
+                return web.json_response({"jsonrpc": "2.0", "id": body.get("id"),
+                                          "error": {"code": -32601, "message": method}})
+            return web.json_response({"jsonrpc": "2.0", "id": body.get("id"), "result": result})
+
+        async def serve():
+            app = web.Application()
+            app.router.add_post("/mcp", handle)
+            self.runner = web.AppRunner(app)
+            await self.runner.setup()
+            await web.TCPSite(self.runner, "127.0.0.1", self.port).start()
+            self._ready.set()
+
+        asyncio.set_event_loop(self.loop)
+        self.loop.run_until_complete(serve())
+        self.loop.run_forever()
+
+    def stop(self) -> None:
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.runner.cleanup(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+
+
+def _sse_events(port: int, body: dict) -> tuple:
+    """A streamed ``/v1/responses``: (status, [(event name, payload)])."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/responses", method="POST",
+        data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=LOOP_WAIT_S) as resp:
+        raw = resp.read().decode()
+        status = resp.status
+    events = []
+    for block in raw.strip().split("\n\n"):
+        lines = dict(line.split(": ", 1) for line in block.split("\n"))
+        events.append((lines["event"], json.loads(lines["data"])))
+    return status, events
+
+
+def _stream_events_of(output: list) -> list:
+    """The event names ``ResponsesHandler.create_stream`` gives ``output``."""
+    names = ["response.created"]
+    for item in output:
+        names.append("response.output_item.added")
+        kinds = {"message": ("output_text", "response.output_text.delta"),
+                 "reasoning": ("reasoning_text", "response.reasoning_text.delta")}
+        if item.get("type") in kinds:
+            part, event = kinds[item["type"]]
+            names += [event for c in item.get("content", [])
+                      if c.get("type") == part and c.get("text")]
+        names.append("response.output_item.done")
+    return names + ["response.completed"]
+
+
+def _output_text(body: dict) -> str:
+    return "".join(c.get("text", "") for o in body["output"] if o.get("type") == "message"
+                   for c in o.get("content", []) if c.get("type") == "output_text")
+
+
+def _timed_http(port: int, method: str, path: str, body=None, headers=None) -> tuple:
+    t0 = time.perf_counter()
+    st, out = _http(port, method, path, body, headers)
+    return st, out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_responses(dev, card: str, preset: str = SERVE_MODEL) -> dict:
+    """Phase 15, the Responses API: one in-process ``serve`` from the command
+    line's own assembly (``_run_gateway``) at full width and depth with
+    ``--storage sqlite:`` and ``--mcp-config-path`` naming this script's MCP
+    server; checks (a)-(f) and the readings (module docstring)."""
+    import asyncio
+    import gc
+    import threading
+
+    import torch
+
+    from smg_tpu_torch.cli import build_parser
+    from smg_tpu_torch.config.validation import raise_on_errors, validate_cli_args
+    from smg_tpu_torch.gateway import launch
+    from smg_tpu_torch.mcp import sessions as mcp_sessions
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        print(f"  free before phase 15: {free} of {total} bytes")
+    failures: list = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [responses] CHECK FAILED: {what}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="smg_resp_"))
+    mcp = SmokeMcpServer()
+    (tmp / "mcp.json").write_text(json.dumps(
+        [{"name": MCP_LABEL, "url": f"http://127.0.0.1:{mcp.port}/mcp"}]))
+    # (f) an unknown storage scheme: startup fails with the reference's
+    # error before the engine loads (the card's memory is untouched)
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    bad = build_parser().parse_args(["serve", "--model-preset", preset, "--device", str(dev),
+                                     "--port", str(_free_port()), "--storage", "nosuch://x"])
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(launch._run_gateway(bad, stop=asyncio.Event()))
+        expect(False, "--storage nosuch://x started")
+    except ValueError as e:
+        expect(str(e) == "unknown storage spec 'nosuch://x'", f"--storage nosuch://x: {e!r}")
+    bad_s = time.perf_counter() - t0
+    expect((torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0) == before,
+           "an engine loaded before the storage spec was refused")
+    # the gateway: serve's own assembly on a loop thread; the context is
+    # taken from serve_context on its way in (for the engine's schedule)
+    port = _free_port()
+    args = build_parser().parse_args([
+        "serve", "--model-preset", preset, *LAUNCH_ENGINE, "--device", str(dev),
+        "--host", "127.0.0.1", "--port", str(port),
+        "--storage", f"sqlite:{tmp / 'conv.db'}", "--mcp-config-path", str(tmp / "mcp.json")])
+    raise_on_errors(validate_cli_args(args))
+    held: dict = {}
+    real_serve_context = launch.serve_context
+
+    async def serve_context(ctx, *a, **kw):
+        held["ctx"] = ctx
+        return await real_serve_context(ctx, *a, **kw)
+
+    async def run_gateway():
+        held["loop"], held["stop"] = asyncio.get_running_loop(), asyncio.Event()
+        await launch._run_gateway(args, stop=held["stop"])
+
+    def gateway_thread():
+        try:
+            asyncio.run(run_gateway())
+        except BaseException as e:  # reported by the waiting side
+            held["error"] = e
+
+    # the handler's own steps, timed where it calls them: (name, ms) in order
+    spans: list = []
+
+    def timed(name, fn):
+        async def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return await fn(*a, **kw)
+            finally:
+                spans.append((name, (time.perf_counter() - t) * 1e3))
+        return run
+
+    real_session = {k: getattr(mcp_sessions.McpSession, k) for k in ("call_tool", "tools")}
+    launch.serve_context = serve_context
+    for k, fn in real_session.items():
+        setattr(mcp_sessions.McpSession, k, timed(k, fn))
+    t_start = time.perf_counter()
+    server = threading.Thread(target=gateway_thread, name="responses-gateway")
+    server.start()
+    out: dict = {}
+    try:
+        deadline = time.monotonic() + LOOP_WAIT_S
+        while True:
+            try:
+                if _http(port, "GET", "/health")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if "error" in held or not server.is_alive():
+                raise AssertionError(f"serve did not start: {held.get('error')!r}")
+            if time.monotonic() > deadline:
+                raise AssertionError("serve did not come up")
+            time.sleep(0.1)
+        out["startup_s"] = time.perf_counter() - t_start
+        engine = held["ctx"].registry.get(SERVE_WORKER).client.engine
+        L = engine.config.model.num_layers
+        print(f"  serve --storage sqlite: --mcp-config-path came up in {out['startup_s']:.1f} s "
+              f"({engine.runner.spec.num_pages} pages); --storage nosuch://x refused in "
+              f"{bad_s:.2f} s")
+        storage = held["ctx"].responses.storage
+        for k in ("response_chain", "list_items", "store_response", "add_items"):
+            setattr(storage, k, timed(k, getattr(storage, k)))
+        out.update(_responses_checks(port, engine, preset, mcp, spans, L, expect, dev, card))
+    finally:
+        launch.serve_context = real_serve_context
+        for k, fn in real_session.items():
+            setattr(mcp_sessions.McpSession, k, fn)
+        if "stop" in held:
+            held["loop"].call_soon_threadsafe(held["stop"].set)
+        server.join(LOOP_WAIT_S)
+        mcp.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if server.is_alive():
+        raise AssertionError("the gateway did not shut down")
+    if "ctx" in held:  # aiohttp keeps finished apps, with their contexts
+        for w in held["ctx"].registry.list():
+            held["ctx"].registry.remove(w.worker_id)
+    held.clear()
+    engine = None
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 15 took {out['seconds']:.1f} s ({card})")
+    if failures:
+        raise AssertionError(f"phase 15: {len(failures)} checks failed: {failures}")
+    return out
+
+
+def _responses_checks(port, engine, model, mcp, spans, L, expect, dev, card) -> dict:
+    """Phase 15's checks (a)-(f) and readings against the engine served on
+    ``port`` under the model id ``model``; ``spans`` collects (step, ms) of
+    the handler's storage and MCP calls as they happen."""
+    import numpy as np
+    import torch
+
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+
+    rng = np.random.default_rng(15)
+    words = lambda n: _words(rng.integers(1000, 120000, n).tolist())  # noqa: E731
+    out: dict = {}
+
+    def flush():
+        st, body = _http(port, "POST", "/flush_cache")
+        if st != 200 or body["flushed"].get(SERVE_WORKER) is not True:
+            raise AssertionError(f"/flush_cache: {st} {body}")
+
+    def responses(body, headers=None):
+        return _timed_http(port, "POST", "/v1/responses",
+                           {"model": model, "max_output_tokens": RESP_NEW,
+                            "temperature": 0, **body}, headers)
+
+    # the chat requests the handler makes carry the configured MCP tool
+    st, listed = _http(port, "POST", "/v1/responses", {
+        "model": model, "input": words(8), "max_output_tokens": 1, "temperature": 0})
+    tools = [{"type": "function", "function": {"name": t["name"], "description": t["description"],
+                                               "parameters": t["input_schema"]}}
+             for o in listed["output"] if o["type"] == "mcp_list_tools" for t in o["tools"]]
+    expect(st == 200 and [t["function"]["name"] for t in tools] == [MCP_TOOL],
+           f"the configured MCP server's tools: {st} {listed}")
+
+    def chat(messages):
+        return _timed_http(port, "POST", "/v1/chat/completions", {
+            "model": model, "messages": messages, "max_tokens": RESP_NEW,
+            "temperature": 0, "tools": tools})
+
+    # (a) conversations and their items
+    items = [{"type": "message", "role": "user", "content": words(5)},
+             {"type": "message", "role": "assistant",
+              "content": [{"type": "output_text", "text": words(3)}]}]
+    st, conv = _http(port, "POST", "/v1/conversations", {"metadata": {"k": "v"}, "items": items})
+    expect(st == 200 and conv["object"] == "conversation", f"(a) create: {st} {conv}")
+    cid = conv["id"]
+    st, got = _http(port, "GET", f"/v1/conversations/{cid}")
+    expect(st == 200 and got["metadata"] == {"k": "v"}, f"(a) get: {st} {got}")
+    st, listed = _http(port, "GET", f"/v1/conversations/{cid}/items")
+    expect(st == 200 and [i["content"] for i in listed["data"]] == items, f"(a) items: {listed}")
+    more = [{"type": "message", "role": "user", "content": words(4)}]
+    st, added = _http(port, "POST", f"/v1/conversations/{cid}/items", {"items": more})
+    st2, listed = _http(port, "GET", f"/v1/conversations/{cid}/items")
+    expect(st == st2 == 200 and len(added["data"]) == 1
+           and [i["content"] for i in listed["data"]] == items + more, f"(a) add: {listed}")
+    st, upd = _http(port, "POST", f"/v1/conversations/{cid}", {"metadata": {"u": 1}})
+    expect(st == 200 and upd["metadata"] == {"k": "v", "u": 1}, f"(a) update: {st} {upd}")
+    st, _ = _http(port, "DELETE", f"/v1/conversations/{cid}")
+    st2, gone = _http(port, "DELETE", f"/v1/conversations/{cid}")
+    expect(st == 200 and st2 == 404, f"(a) delete: {st} then {st2} {gone}")
+
+    # (b) three greedy turns chained by previous_response_id, each against
+    # a direct chat of the same messages; the radix cache flushed before
+    # every call (bf16 over a cached prefix rounds otherwise)
+    inputs = [[words(n) for n in RESP_WORDS] for _ in range(RESP_REPS)]
+    wall = {"responses": [[], [], []], "chat": [[], [], []]}
+    steps: list = [[], [], []]  # per turn: {handler step: ms} of each rep
+    last = None
+    for rep in range(RESP_REPS):
+        prev, messages = None, []
+        for turn, text in enumerate(inputs[rep]):
+            flush()
+            n_spans = len(spans)
+            st, body, ms = responses({"input": text, **(
+                {"previous_response_id": prev} if prev else {})})
+            mine: dict = {}
+            for name, step_ms in spans[n_spans:]:
+                mine[name] = mine.get(name, 0.0) + step_ms
+            steps[turn].append(mine)
+            expect(st == 200 and body["status"] == "completed", f"(b) turn {turn}: {st} {body}")
+            messages.append({"role": "user", "content": text})
+            flush()
+            st, direct, cms = chat(messages)
+            expect(st == 200, f"(b) direct chat {turn}: {st}")
+            got_text, want = _output_text(body), direct["choices"][0]["message"]["content"]
+            expect(got_text == want, f"(b) rep {rep} turn {turn}: {got_text!r} != chat {want!r}")
+            expect(body["usage"]["output_tokens"] <= RESP_NEW, f"(b) usage {body['usage']}")
+            if turn == 2:
+                u, c = body["usage"], direct["usage"]
+                expect((u["input_tokens"], u["output_tokens"]) ==
+                       (c["prompt_tokens"], c["completion_tokens"]),
+                       f"(b) turn 3 usage {u} != its chat call's {c}")
+            messages.append({"role": "assistant", "content": want})
+            wall["responses"][turn].append(ms)
+            wall["chat"][turn].append(cms)
+            prev, last = body["id"], body
+    st, stored = _http(port, "GET", f"/v1/responses/{last['id']}")
+    expect(st == 200 and all(stored[k] == last[k] for k in
+                             ("id", "status", "model", "output", "previous_response_id",
+                              "usage")), f"(b) GET the stored turn: {st} {stored}")
+    st, _ = _http(port, "DELETE", f"/v1/responses/{last['id']}")
+    st2, _ = _http(port, "GET", f"/v1/responses/{last['id']}")
+    expect(st == 200 and st2 == 404, f"(b) DELETE then GET: {st} {st2}")
+    out["wall_ms"] = {k: [statistics.median(v) for v in per] for k, per in wall.items()}
+    out["handler_ms"] = [r - c for r, c in zip(out["wall_ms"]["responses"],
+                                               out["wall_ms"]["chat"])]
+    out["step_ms"] = [{k: statistics.median(s.get(k, 0.0) for s in per)
+                       for k in sorted({k for s in per for k in s})} for per in steps]
+    print(f"  (b) wall ms per turn (medians of {RESP_REPS}, cold radix): /v1/responses "
+          + ", ".join(f"{x:.2f}" for x in out["wall_ms"]["responses"]) + "; direct chat "
+          + ", ".join(f"{x:.2f}" for x in out["wall_ms"]["chat"]) + "; handler "
+          + ", ".join(f"{x:+.2f}" for x in out["handler_ms"]) + f" ({card})")
+    print("  (b) the handler's storage and MCP steps per turn (medians, ms): " + "; ".join(
+        ", ".join(f"{k} {v:.2f}" for k, v in s.items()) for s in out["step_ms"]))
+
+    # (c) the same three turns through a conversation, the radix cache warm
+    # between them; kernel launches counted over exactly these turns
+    st, conv = _http(port, "POST", "/v1/conversations", {})
+    cid = conv["id"]
+    flush()
+    for k in engine.runner.stats:
+        engine.runner.stats[k] = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dk.launches = pk.launches = 0
+    outputs = []
+    for turn, text in enumerate(inputs[0]):
+        st, body, _ms = responses({"input": text, "conversation": cid},
+                                  headers={"X-Request-Id": f"conv-turn-{turn}"})
+        expect(st == 200 and body["conversation"] == {"id": cid}, f"(c) turn {turn}: {st}")
+        outputs.append(body["output"])
+    turn3 = body
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
+    sched = {k: engine.runner.stats[k] for k in ("decode_columns", "prefill_calls")}
+    want = {"decode_attention": L * sched["decode_columns"],
+            "prefill_attention": L * sched["prefill_calls"]}
+    expect(launches == want and min(launches.values()) > 0,
+           f"(c) launches {launches} != {want} ({sched})")
+    out["launches"], out["schedule"] = launches, sched
+    st, listed = _http(port, "GET", f"/v1/conversations/{cid}/items")
+    want_items = []
+    for text, output in zip(inputs[0], outputs):
+        want_items += [{"role": "user", "content": text}, *output]
+    expect(st == 200 and [i["content"] for i in listed["data"]] == want_items,
+           f"(c) stored items != inputs + outputs ({len(listed['data'])} vs {len(want_items)})")
+    st, router = _http(port, "GET", "/debug/router?limit=64")
+    dec = [d for d in router["models"][model]["decisions"]
+           if d["request_id"] == "conv-turn-2-0"]
+    expect(st == 200 and len(dec) == 1 and dec[0]["reconciled"], f"(c) turn 3's decision: {dec}")
+    out["turn3"] = dict(prompt_tokens=turn3["usage"]["input_tokens"],
+                        cached_tokens=dec[0]["worker_cached_tokens"] if dec else None,
+                        predicted_match_tokens=dec[0]["predicted_match_tokens"] if dec else None)
+    expect(out["turn3"]["cached_tokens"], f"(c) turn 3 reused no prefix: {out['turn3']}")
+    print(f"  (c) launches over the three conversation turns {launches} = {L} x {sched}; "
+          f"turn 3: {out['turn3']['prompt_tokens']} prompt tokens, "
+          f"{out['turn3']['cached_tokens']} cached (predicted "
+          f"{out['turn3']['predicted_match_tokens']})")
+
+    # (d) streaming: the events create_stream defines, deltas joining to the
+    # non-streamed text
+    text = words(150)
+    flush()
+    st, whole, _ms = responses({"input": text})
+    flush()
+    st2, events = _sse_events(port, {"model": model, "input": text, "stream": True,
+                                     "max_output_tokens": RESP_NEW, "temperature": 0})
+    done = events[-1][1].get("response", {}) if events else {}
+    expect(st == st2 == 200 and [n for n, _ in events] == _stream_events_of(done.get("output", [])),
+           f"(d) events {[n for n, _ in events]}")
+    expect([p["sequence_number"] for _, p in events] == list(range(1, len(events) + 1)),
+           "(d) sequence numbers")
+    deltas = "".join(p["delta"] for n, p in events if n == "response.output_text.delta")
+    expect(deltas == _output_text(whole), f"(d) deltas {deltas!r} != {_output_text(whole)!r}")
+
+    # (e) the MCP round trip through an approval
+    def approval_conv(key):
+        st, conv = _http(port, "POST", "/v1/conversations", {"items": [{
+            "type": "mcp_approval_request", "id": key, "server_label": MCP_LABEL,
+            "name": MCP_TOOL, "arguments": json.dumps({"q": words(1)})}]})
+        if st != 200:
+            raise AssertionError(f"(e) conversation: {st} {conv}")
+        return conv["id"]
+
+    answer = lambda key, yes: [{"type": "mcp_approval_response",  # noqa: E731
+                                "approval_request_id": key, "approve": yes}]
+    n0 = len(mcp.calls)
+    cid = approval_conv("mcpr_smoke_yes")
+    flush()
+    st, body, e_ms = responses({"conversation": cid, "input": answer("mcpr_smoke_yes", True)})
+    kinds = [o["type"] for o in body.get("output", [])]
+    call = next((o for o in body.get("output", []) if o["type"] == "mcp_call"), {})
+    expect(st == 200 and kinds == ["mcp_list_tools", "mcp_call", "message"], f"(e) {st} {kinds}")
+    expect(len(mcp.calls) == n0 + 1, f"(e) the tool ran {len(mcp.calls) - n0} times")
+    expect(call.get("error") is None and (call.get("output") or "").startswith("w4242"),
+           f"(e) mcp_call {call}")
+    # the model's turn saw the tool's answer: it equals a direct chat of it
+    flush()
+    st, direct, _ = chat([
+        {"role": "assistant", "content": None, "tool_calls": [{
+            "id": "mcpr_smoke_yes", "type": "function",
+            "function": {"name": MCP_TOOL, "arguments": call.get("arguments", "{}")}}]},
+        {"role": "tool", "content": call.get("output"), "tool_call_id": "mcpr_smoke_yes"}])
+    expect(st == 200 and _output_text(body) == direct["choices"][0]["message"]["content"]
+           and body["usage"]["input_tokens"] == direct["usage"]["prompt_tokens"],
+           f"(e) the turn after the tool != a chat with its answer: {body['usage']} "
+           f"{direct.get('usage')}")
+    out["mcp_call_ms"] = next((ms for k, ms in reversed(spans) if k == "call_tool"), None)
+    out["approval_turn_ms"] = e_ms
+    cid_no = approval_conv("mcpr_smoke_no")
+    st, body, _ = responses({"conversation": cid_no, "input": answer("mcpr_smoke_no", False)})
+    call = next((o for o in body.get("output", []) if o["type"] == "mcp_call"), {})
+    expect(st == 200 and call.get("error") == "approval denied by user"
+           and len(mcp.calls) == n0 + 1, f"(e) denied: {st} {call} calls {len(mcp.calls) - n0}")
+    st, body, _ = responses({"conversation": cid, "input": answer("mcpr_nope", True)})
+    expect(st == 404 and "not found" in body["error"]["message"], f"(e) unknown key: {st} {body}")
+    print(f"  (e) the approved MCP call took {out['mcp_call_ms']:.2f} ms from the handler's "
+          f"call to the tool's answer; the approval turn {e_ms:.2f} ms ({card})")
+
+    # (f) a request-level server whose label collides with a configured one
+    st, body, _ = responses({"input": words(4), "tools": [{
+        "type": "mcp", "server_label": MCP_LABEL, "server_url": "http://127.0.0.1:9/mcp"}]})
+    expect(st == 400 and body["error"]["message"] ==
+           f"mcp server_label {MCP_LABEL!r} collides with a gateway-configured server",
+           f"(f) label collision: {st} {body}")
+    return out
+
+
 def phase_engine(dev, card: str) -> dict:
     import dataclasses
 
@@ -6768,17 +7301,20 @@ def phase_engine(dev, card: str) -> dict:
         del params8
         torch.cuda.empty_cache()
         print("phase 10: the rest of serve; embeddings, rerank and classify, bf16")
-        sink: dict = {}
         out["api_bf16"] = phase_api(cfg, params, dev, card, "bf16", strict=False,
-                                    stall_free=runs["graphs"], sink=sink)
+                                    stall_free=runs["graphs"], sink={})
+        del runs
         print("phase 13: PD disaggregation (float32 at 4 layers, bf16 at full depth, gRPC "
               "workers)")
         out["pd"] = phase_pd(cfg, params, dev, card,
                              phase3_decode_ms=out["decode_profile"]["graphs"].get(
                                  "device_ms_per_column"))
-        out.update(_phases_f32(cfg, params, dev, card, runs, root, sink))
+        out.update(_phases_f32(cfg, params, dev, card, root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    params.clear()  # the last phase on these weights: give the card back
+    torch.cuda.empty_cache()
+    out["preemption"] = phase_preempt(dev)
     return out
 
 
@@ -6811,71 +7347,105 @@ def prepare_checkpoint(cfg, params, root: Path) -> tuple:
     return written, cfg8, params8
 
 
-def _phases_f32(cfg, params, dev, card: str, runs, root: Path, sink: dict) -> dict:
-    """Phases 3-8 and 10 again on the same weights widened to float32;
-    ``sink`` holds phase 10's bf16 embeddings."""
+F32_LAYERS = 8  # the float32 repeat's depth: its checks are exact at any depth
+
+
+def _phases_f32(cfg, params, dev, card: str, root: Path) -> dict:
+    """Phases 3-5, 7, 8 and 10 again on the first ``F32_LAYERS`` layers
+    of the same weights widened to float32 (the width stays whole): the
+    three paths there differ only in summation order, so their streams
+    must be identical.  The bf16 references of the two checks across
+    dtypes are made at the same depth first: phase 3's three paths
+    (first-token logits) and phase 10's embeddings; phase 8 serves a
+    checkpoint of that depth written under ``root``.  Then phase 6 on all
+    of ``params``, widened in place (phase 5's bare gateway reading beside
+    it is the 8-layer one)."""
     import dataclasses
 
     import torch
 
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
     out = {}
-    L, max_new = cfg.num_layers, 32
+    N, max_new = F32_LAYERS, 32
+    cfg_n = dataclasses.replace(cfg, num_layers=N)
+    cut = {**params, "layers": {k: v[:N] for k, v in params["layers"].items()}}
+    print(f"phase 3: the first {N} layers in bf16, the reference of the float32 repeat")
+    runs16 = serve_paths(cfg_n, cut, dev, max_new)
+    out["bf16_cut_agreement"] = check_runs(runs16, N, max_new, f"bf16 {N} layers")
+    jobs = _api_jobs(10)
+    mock = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                         bos_token_id=cfg.bos_token_id)
+    engine = _api_engine(cfg_n, cut, dev, mock, 2048)
+    sink = {"embed_bf16": {"texts": engine.embed([mock.encode(t) for t in jobs["texts"]]),
+                           "ids": engine.embed(jobs["id_lists"])}}
+    engine.stop()
+    del engine
+    f32_root = root / "f32"
+    write_checkpoint(cfg_n, cut, f32_root / CKPT_MODEL, CKPT_SHARDS)
+    adapters = {}
+    for i, name in enumerate(("a", "b")):
+        write_peft(cfg_n, f32_root / f"adapter_{name}", seed=100 + i)
+        adapters[name] = str(f32_root / f"adapter_{name}")
     # the same requests on the same weights widened to float32, with float32
     # KV: the three paths differ only in summation order, so the logits
     # agree tightly and the greedy streams match
     tok = PieceTokenizer(cfg.vocab_size, (cfg.bos_token_id, *cfg.eos_token_ids))
-    _widen(params)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    runs32 = serve_paths(cfg32, params, dev, max_new)
-    agree32 = check_runs(runs32, L, max_new, "f32")
+    params32 = {**cut, "layers": dict(cut["layers"])}
+    _widen(params32)
+    cfg32 = dataclasses.replace(cfg_n, dtype="float32")
+    runs32 = serve_paths(cfg32, params32, dev, max_new)
+    agree32 = check_runs(runs32, N, max_new, "f32")
     out["f32"] = summarize(runs32, card, "f32")
     out["f32_agreement"] = agree32
     n = len(runs32["plain"]["results"])
     if agree32["streams_equal"] != {k: n for k in agree32["streams_equal"]} or \
             max(agree32["logit_gap"].values()) > F32_LOGIT_ATOL:
         raise AssertionError(f"f32 paths disagree: {agree32}")
-    # the float32 plain run is the reference for the bf16 runs
+    # the float32 plain run is the reference for the bf16 runs of its depth
     ref = runs32["plain"]["logits"]
-    err = {name: max(float((a - b).abs().max()) for a, b in zip(runs[name]["logits"], ref))
-           for name in runs}
-    print(f"  [bf16] first-token logits against the f32 run: " + ", ".join(
+    err = {name: max(float((a - b).abs().max()) for a, b in zip(runs16[name]["logits"], ref))
+           for name in runs16}
+    print(f"  [bf16, {N} layers] first-token logits against the f32 run: " + ", ".join(
         f"{k} max_abs_err={v:.3e}" for k, v in err.items()))
     if not max(err["graphs"], err["eager"]) <= BF16_ERR_RATIO * err["plain"]:
         raise AssertionError(f"bf16 kernel logits {err} from the f32 run, more than "
                              f"{BF16_ERR_RATIO} x the plain version's")
     out["bf16_logit_err_vs_f32"] = err
     stall32 = runs32["graphs"]
-    del runs, runs32
+    del runs16, runs32
     torch.cuda.empty_cache()
     print("phase 4: request semantics, float32 (widened weights)")
-    rq32 = request_paths(cfg32, params, dev, tok, "f32", {})
-    out["requests_f32"] = check_requests(rq32, L, "f32", card, strict=True)
+    rq32 = request_paths(cfg32, params32, dev, tok, "f32", {})
+    out["requests_f32"] = check_requests(rq32, N, "f32", card, strict=True)
     del rq32
     torch.cuda.empty_cache()
     print("phase 5: serving entry over HTTP, float32 (widened weights)")
-    out["serve_f32"] = phase_serve(cfg32, params, dev, card, "f32", strict=True)
-    print("phase 6: the request-policy layer over HTTP, float32 (widened weights)")
-    out["policy_f32"] = phase_policy(cfg32, params, dev, card, "f32", strict=True,
-                                     bare=out["serve_f32"])
+    out["serve_f32"] = phase_serve(cfg32, params32, dev, card, "f32", strict=True)
     print("phase 7: speculative decoding, float32 (widened weights)")
-    out["spec_f32"] = phase_spec(cfg32, params, dev, card, "f32", strict=True)
+    out["spec_f32"] = phase_spec(cfg32, params32, dev, card, "f32", strict=True)
     print("phase 8: serve --model-path, the HF tokenizer and LoRA, float32 (the bf16 "
           "files widened as they load)")
-    layers = ckpt_layers(root)
-    cfg8 = dataclasses.replace(cfg32, num_layers=layers)
-    params8 = {**params, "layers": {k: v[:layers] for k, v in params["layers"].items()}}
-    out["ckpt_f32"] = phase_checkpoint(
-        cfg8, params8, dev, card, "f32", strict=True, ckpt=root / CKPT_MODEL,
-        adapters={n: str(root / f"adapter_{n}") for n in ("a", "b")}, tiny=root / "tiny")
-    del params8
+    out["ckpt_f32"] = phase_checkpoint(cfg32, params32, dev, card, "f32", strict=True,
+                                       ckpt=f32_root / CKPT_MODEL, adapters=adapters,
+                                       tiny=root / "tiny")
     torch.cuda.empty_cache()
     print("phase 10: the rest of serve; embeddings, rerank and classify, float32 "
           "(widened weights)")
-    out["api_f32"] = phase_api(cfg32, params, dev, card, "f32", strict=True,
+    out["api_f32"] = phase_api(cfg32, params32, dev, card, "f32", strict=True,
                                stall_free=stall32, sink=sink)
-    params.clear()  # the last phase on these weights: give the card back
+    params32.clear()
+    del cut, stall32
     torch.cuda.empty_cache()
-    out["preemption"] = phase_preempt(dev)
+    # phase 6 at full depth: its /debug/slo p50s are held to the client's
+    # within SLO_TOLERANCE, and at 8 layers the short TTFT left a few ms of
+    # host latency too large a share of it.  ``params`` is widened in place:
+    # no phase runs on its bf16 weights after this one
+    print(f"phase 6: the request-policy layer over HTTP, float32 (all {cfg.num_layers} "
+          "layers, widened weights)")
+    _widen(params)
+    out["policy_f32"] = phase_policy(dataclasses.replace(cfg, dtype="float32"), params, dev,
+                                     card, "f32", strict=True, bare=out["serve_f32"])
     return out
 
 
@@ -6953,16 +7523,11 @@ def phase_pd_alone(dev, card: str) -> dict:
     return out
 
 
-def ckpt_layers(root: Path) -> int:
-    """The depth of the checkpoint written under ``root``."""
-    return json.loads((root / CKPT_MODEL / "config.json").read_text())["num_hidden_layers"]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd",
-                             "launch"),
+                             "launch", "responses"),
                     default="all")
     # the gRPC worker processes of phases 13 and 14: this script started by itself
     ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
@@ -7049,6 +7614,15 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("launch")
+    responses = {}
+    if args.phases in ("all", "responses") and not failed:
+        print("phase 15: the Responses API on Llama-3-8B (full width, 32 layers; SQLite "
+              "storage, an MCP server, approvals)")
+        try:
+            responses = phase_responses(dev, card)
+        except Exception:
+            traceback.print_exc()
+            failed.append("responses")
     if failed:
         print(f"FAILED phases: {failed}")
         return 1
@@ -7087,6 +7661,8 @@ def main(argv=None) -> int:
             # phase 14's two worker processes behind launch (float32, 4 layers),
             # counted in each process over its life and reported at exit
             launches_launch=launch["launches"][name],
+            # phase 15's three conversation turns through /v1/responses (bf16)
+            launches_responses=responses["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],
@@ -7094,7 +7670,7 @@ def main(argv=None) -> int:
             timed_case=r["timed_case"], timed_cases=r["timed_cases"],
         ))
     print(json.dumps({"engine": engine, "moe": moe, "vision": vision, "launch": launch,
-                      "card": card}))
+                      "responses": responses, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,9 +12,10 @@ engine flags.  Engines run on the card; ``--device cpu`` is the only way
 onto the CPU.  Every command line is validated (``config/validation.py``)
 before anything binds a port or touches a device.  The flags carry the
 reference's names, dests, defaults and types (``--kv-connector`` offers no
-``transfer``).  Parallelism and the HA mesh, storage, MCP, providers,
-plugins, ``--prefix-token-count`` and ``--dp-aware`` are not ported yet,
-and their flags are refused.
+``transfer``).  ``--storage`` picks the Responses API's conversation
+storage and ``--mcp-config-path`` names its gateway-level MCP servers.
+Parallelism and the HA mesh, providers, plugins, ``--prefix-token-count``
+and ``--dp-aware`` are not ported yet, and their flags are refused.
 """
 
 from __future__ import annotations
@@ -52,6 +53,9 @@ def _add_gateway_args(p: argparse.ArgumentParser) -> None:
                    help="routing policy (cache_aware, round_robin, random, "
                         "least_load, power_of_two, manual, bucket, passthrough)")
     g.add_argument("--max-concurrent-requests", type=int, default=256)
+    g.add_argument("--storage", default=None,
+                   help="conversation storage backend: memory (default), "
+                        "sqlite:PATH, redis://..., postgres://...")
     g.add_argument("--otel-endpoint", default=None, dest="otel_endpoint",
                    help="OTLP/HTTP collector base URL (e.g. "
                         "http://127.0.0.1:4318); enables trace export")
@@ -102,6 +106,9 @@ def _add_gateway_args(p: argparse.ArgumentParser) -> None:
                    help="force a reasoning parser family (default: by model)")
     g.add_argument("--tool-call-parser", default=None, dest="tool_call_parser",
                    help="force a tool-call parser dialect (default: by model)")
+    g.add_argument("--mcp-config-path", default=None, dest="mcp_config_path",
+                   help="JSON file of MCP servers: "
+                        '[{"name": ..., "url": ..., "headers": {...}}]')
     g.add_argument("--slo-spec", default=None, dest="slo_spec",
                    help="JSON file of declarative SLO specs (a list of "
                         "objects or {'slos': [...]}; fields: name, "

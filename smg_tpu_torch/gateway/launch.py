@@ -4,12 +4,14 @@ from an HF checkpoint directory (``--model-path``: its ``config.json``,
 safetensors weights and tokenizer) or a model preset; ``worker`` serves it
 over gRPC (``rpc/server.py``); ``serve`` puts it behind the gateway as one
 ``InProcWorkerClient``; ``launch`` runs the gateway alone.  Both gateway
-commands register the workers named by URL (``--worker``,
-``--prefill-worker``, ``--decode-worker``) through the registration
-workflow before the listener binds, watch Kubernetes pods with
-``--service-discovery``, take TLS and the probe-only and metrics-only
-listeners, and on SIGTERM or SIGINT stop selecting every worker, close
-every client (an in-process engine drains) and shut every listener.
+commands open the conversation storage (``--storage``) and the MCP
+servers of ``--mcp-config-path`` before an engine loads, register the
+workers named by URL (``--worker``, ``--prefill-worker``,
+``--decode-worker``) through the registration workflow before the listener
+binds, watch Kubernetes pods with ``--service-discovery``, take TLS and the
+probe-only and metrics-only listeners, and on SIGTERM or SIGINT stop
+selecting every worker, close every client (an in-process engine drains)
+and shut every listener.
 
 Preset models have no tokenizer file, so the engine and the gateway share a
 vocabulary-matched ``MockTokenizer``.  (The JAX ``serve`` gives its gateway
@@ -136,8 +138,9 @@ def gateway_options(args) -> dict:
     """``AppContext`` keyword arguments from the parsed ``serve`` flags:
     the router's retries, parser, harmony and timeout settings, the
     cache-aware knobs, auth, rate limits, priority admission, health checks,
-    breakers, CORS, the tenant and request-id headers, SLO specs and OTel
-    export (the reference's flag-to-config mapping)."""
+    breakers, CORS, the tenant and request-id headers, SLO specs, the
+    conversation storage spec and OTel export (the reference's
+    flag-to-config mapping)."""
     from smg_tpu_torch.gateway.health import HealthConfig
     from smg_tpu_torch.gateway.router import RouterConfig
 
@@ -226,6 +229,7 @@ def gateway_options(args) -> dict:
         rate_limit_config=rate_limit_config,
         priority_config=priority_config,
         health_config=health_config,
+        storage=args.storage,
         otel_endpoint=args.otel_endpoint,
         otel_service_name=args.otel_service_name,
         request_id_headers=list(args.request_id_headers),
@@ -246,17 +250,39 @@ def build_context(engine, policy: str = "cache_aware", drain_timeout_secs: float
     in-process worker, its tokenizer as the default; ``options`` are
     further ``AppContext`` arguments (``gateway_options``)."""
     from smg_tpu_torch.gateway.server import AppContext
+
+    ctx = AppContext(policy=policy, **options)
+    add_engine_worker(ctx, engine, drain_timeout_secs)
+    return ctx
+
+
+def add_engine_worker(ctx, engine, drain_timeout_secs: float = 10.0) -> None:
+    """Register ``engine`` in ``ctx`` as the in-process worker
+    ``inproc-0``, its tokenizer as the default."""
     from smg_tpu_torch.gateway.worker_client import InProcWorkerClient
     from smg_tpu_torch.gateway.workers import Worker
 
-    ctx = AppContext(policy=policy, **options)
     ctx.tokenizers.register(engine.config.model_id, engine.tokenizer, default=True)
     client = InProcWorkerClient(engine)
     client.drain_timeout_secs = drain_timeout_secs
     ctx.registry.add(Worker(worker_id="inproc-0", client=client,
                             model_id=engine.config.model_id,
                             page_size=engine.config.cache.page_size))
-    return ctx
+
+
+async def load_mcp_config(ctx, path: str) -> None:
+    """One ``HttpMcpServer`` in ``ctx.mcp`` per entry of the JSON file at
+    ``path`` (``[{"name", "url", "headers"}]``; the name defaults to the
+    URL).  The file is read on a thread: startup runs on the serving loop."""
+    import json
+    from pathlib import Path
+
+    from smg_tpu_torch.mcp import HttpMcpServer
+
+    raw = await asyncio.to_thread(Path(path).read_text)
+    for spec in json.loads(raw):
+        ctx.mcp.add(HttpMcpServer(name=spec.get("name", spec["url"]), url=spec["url"],
+                                  headers=spec.get("headers")))
 
 
 async def serve_context(ctx, host: str, port: int, stop: asyncio.Event,
@@ -387,14 +413,16 @@ async def _run_gateway(args, stop: asyncio.Event | None = None) -> int:
                 loop.add_signal_handler(sig, stop.set)
         except (NotImplementedError, RuntimeError, ValueError):
             pass  # non-main thread / platform without signal support
-    # the SLO spec file is read off the serving loop
+    # the SLO spec file is read off the serving loop; the storage and the
+    # MCP servers come before the engine, so a bad --storage or MCP file
+    # fails startup before any weights load
     options = await asyncio.to_thread(gateway_options, args)
+    ctx = AppContext(**options)
+    if args.mcp_config_path:
+        await load_mcp_config(ctx, args.mcp_config_path)
     if args.command == "serve":
-        engine = build_engine_from_args(args)
-        ctx = build_context(engine, drain_timeout_secs=args.engine_drain_timeout_secs,
-                            **options)
-    else:
-        ctx = AppContext(**options)
+        add_engine_worker(ctx, build_engine_from_args(args),
+                          drain_timeout_secs=args.engine_drain_timeout_secs)
     configure_grpc_clients(args)
     explicit_tok = args.gateway_tokenizer_path or getattr(args, "tokenizer_path", None)
     if args.command == "launch" and explicit_tok:

@@ -29,8 +29,17 @@ text-level proxy that re-streams its SSE frames as they come), else
 through the token-level router.  In a Kubernetes pod the gateway watches
 its namespace's worker pods (``gateway/discovery.py``).
 
-Not ported yet: plugins, providers, the Anthropic, responses,
-conversations, realtime and transcription APIs and per-model routers.
+The Responses API (``/v1/responses`` create, get and delete, streamed as
+``event: <name>`` SSE frames) runs the agentic tool loop of
+``gateway/responses.py`` over the router: MCP tools run on the server
+between model turns, approvals pause and resume the loop, and history comes
+from a conversation or a ``previous_response_id`` chain kept in the
+conversation storage (``storage/``: memory, SQLite, Redis, Postgres,
+Oracle), which ``/v1/conversations`` and its items expose.  Every model
+resolves to local workers: third-party providers are not ported.
+
+Not ported yet: plugins, providers, the Anthropic, realtime, interactions
+and transcription APIs and per-model routers.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from smg_tpu_torch.gateway.observability import Metrics
 from smg_tpu_torch.gateway.priority import AdmissionRejected, PriorityConfig, PriorityScheduler
 from smg_tpu_torch.gateway.rate_limit import RateLimitConfig, RateLimiter
 from smg_tpu_torch.gateway.registration import WORKER_REGISTRATION, build_worker_registration
+from smg_tpu_torch.gateway.responses import ResponsesHandler
 from smg_tpu_torch.gateway.router import RouteError, Router, RouterConfig
 from smg_tpu_torch.gateway.tracing import (
     OtelTracer,
@@ -62,6 +72,7 @@ from smg_tpu_torch.gateway.tracing import (
     start_stage,
 )
 from smg_tpu_torch.gateway.workers import WorkerRegistry
+from smg_tpu_torch.mcp import McpRegistry
 from smg_tpu_torch.policies import PolicyRegistry, RequestContext
 from smg_tpu_torch.protocols.generate import GenerateMetaInfo, GenerateRequest, GenerateResponse
 from smg_tpu_torch.protocols.openai import (
@@ -72,7 +83,9 @@ from smg_tpu_torch.protocols.openai import (
     ModelCard,
     ModelList,
 )
+from smg_tpu_torch.protocols.responses import ResponsesRequest
 from smg_tpu_torch.protocols.sampling import SamplingParams
+from smg_tpu_torch.storage import ConversationItem, make_storage
 from smg_tpu_torch.tokenizer.registry import TokenizerRegistry
 from smg_tpu_torch.utils import get_logger
 from smg_tpu_torch.utils.logging import request_id_var
@@ -94,7 +107,9 @@ class AppContext:
     ``circuit_breaker_config`` = (failures, successes, open seconds)),
     policies, tokenizers, metrics, health checks, the router and the
     request-policy layer (auth, rate limits, the priority scheduler, the
-    request timeout, CORS, the tracer, extra request-id headers)."""
+    request timeout, CORS, the tracer, extra request-id headers), and the
+    Responses API's conversation storage (``storage``: a ``make_storage``
+    spec), gateway-level MCP servers and handler."""
 
     def __init__(
         self,
@@ -106,6 +121,7 @@ class AppContext:
         rate_limit_config: RateLimitConfig | None = None,
         priority_config: PriorityConfig | None = None,
         health_config: HealthConfig | None = None,
+        storage: str | None = None,
         otel_endpoint: str | None = None,
         otel_service_name: str = "smg-tpu",
         request_id_headers: list | None = None,
@@ -160,6 +176,9 @@ class AppContext:
         self.priority = PriorityScheduler(
             priority_config or PriorityConfig(slots=max_concurrent_requests)
         )
+        self.storage = make_storage(storage)
+        self.mcp = McpRegistry()
+        self.responses = ResponsesHandler(self.router, self.storage, self.mcp)
         # OTel tracing: off unless an OTLP endpoint is configured
         self.tracer = (OtelTracer(otel_endpoint, otel_service_name)
                        if otel_endpoint else None)
@@ -468,6 +487,10 @@ def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Applic
             await ctx.jobs.close()
         if ctx.discovery is not None:
             await ctx.discovery.aclose()
+        # MCP sessions keep request-scoped servers until their TTL, and each
+        # HTTP server holds an aiohttp session: none outlives the app
+        await ctx.responses.sessions.close()
+        await ctx.mcp.close()
 
     app.on_startup.append(_start_background)
     app.on_cleanup.append(_stop_background)
@@ -496,6 +519,15 @@ def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Applic
     app.router.add_post("/parse/reasoning", h_parse_reasoning)
     app.router.add_post("/v1/tokenize", h_tokenize)
     app.router.add_post("/v1/detokenize", h_detokenize)
+    app.router.add_post("/v1/responses", h_responses_create)
+    app.router.add_get("/v1/responses/{response_id}", h_responses_get)
+    app.router.add_delete("/v1/responses/{response_id}", h_responses_delete)
+    app.router.add_post("/v1/conversations", h_conv_create)
+    app.router.add_get("/v1/conversations/{conv_id}", h_conv_get)
+    app.router.add_post("/v1/conversations/{conv_id}", h_conv_update)
+    app.router.add_delete("/v1/conversations/{conv_id}", h_conv_delete)
+    app.router.add_get("/v1/conversations/{conv_id}/items", h_conv_items_list)
+    app.router.add_post("/v1/conversations/{conv_id}/items", h_conv_items_add)
     app.router.add_get("/get_loads", h_get_loads)
     app.router.add_post("/flush_cache", h_flush_cache)
     app.router.add_post("/start_profile", h_start_profile)
@@ -1140,6 +1172,139 @@ async def h_detokenize(request: web.Request) -> web.Response:
     ids = body.get("tokens") or []
     text = tok.decode(ids, skip_special_tokens=body.get("skip_special_tokens", True))
     return web.json_response({"text": text})
+
+
+# ---- responses / conversations ----
+
+async def h_responses_create(request: web.Request) -> web.Response | web.StreamResponse:
+    ctx: AppContext = request.app[CTX]
+    try:
+        req = ResponsesRequest.model_validate(await request.json())
+    except Exception as e:
+        return _error(400, f"invalid request: {e}")
+    rid = request["request_id"]
+    tenant = request.get("tenant")
+    async with ctx.semaphore:
+        if not req.stream:
+            resp = await ctx.responses.create(req, request_id=rid, tenant=tenant)
+            return web.json_response(resp.model_dump(exclude_none=True))
+        sse = _sse_response(request)
+        await sse.prepare(request)
+        try:
+            async for name, payload in ctx.responses.create_stream(
+                req, request_id=rid, tenant=tenant
+            ):
+                await sse.write(f"event: {name}\ndata: {json.dumps(payload)}\n\n".encode())
+        except RouteError as e:
+            err = {"type": "error", "error": {"message": e.message, "type": e.err_type}}
+            await sse.write(f"event: error\ndata: {json.dumps(err)}\n\n".encode())
+        await sse.write_eof()
+        return sse
+
+
+async def h_responses_get(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    stored = await ctx.storage.get_response(request.match_info["response_id"])
+    if stored is None:
+        return _error(404, "response not found")
+    return web.json_response(
+        {
+            "id": stored.id,
+            "object": "response",
+            "created_at": int(stored.created_at),
+            "status": stored.status,
+            "model": stored.model,
+            "output": stored.output,
+            "previous_response_id": stored.previous_response_id,
+            "usage": stored.usage,
+            "metadata": stored.metadata,
+        }
+    )
+
+
+async def h_responses_delete(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    rid = request.match_info["response_id"]
+    if not await ctx.storage.delete_response(rid):
+        return _error(404, "response not found")
+    return web.json_response({"id": rid, "object": "response", "deleted": True})
+
+
+def _conv_json(conv) -> dict:
+    return {
+        "id": conv.id, "object": "conversation",
+        "created_at": int(conv.created_at), "metadata": conv.metadata,
+    }
+
+
+def _conv_items(raw: list) -> list:
+    return [ConversationItem(type=i.get("type", "message"), role=i.get("role"), content=i)
+            for i in raw]
+
+
+async def h_conv_create(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    body = await request.json() if request.can_read_body else {}
+    conv = await ctx.storage.create_conversation(body.get("metadata") or {})
+    if body.get("items"):
+        await ctx.storage.add_items(conv.id, _conv_items(body["items"]))
+    return web.json_response(_conv_json(conv))
+
+
+async def h_conv_get(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    conv = await ctx.storage.get_conversation(request.match_info["conv_id"])
+    if conv is None:
+        return _error(404, "conversation not found")
+    return web.json_response(_conv_json(conv))
+
+
+async def h_conv_update(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    body = await request.json()
+    conv = await ctx.storage.update_conversation(
+        request.match_info["conv_id"], body.get("metadata") or {}
+    )
+    if conv is None:
+        return _error(404, "conversation not found")
+    return web.json_response(_conv_json(conv))
+
+
+async def h_conv_delete(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    cid = request.match_info["conv_id"]
+    if not await ctx.storage.delete_conversation(cid):
+        return _error(404, "conversation not found")
+    return web.json_response({"id": cid, "object": "conversation.deleted", "deleted": True})
+
+
+async def h_conv_items_list(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    cid = request.match_info["conv_id"]
+    if await ctx.storage.get_conversation(cid) is None:
+        return _error(404, "conversation not found")
+    items = await ctx.storage.list_items(cid)
+    return web.json_response(
+        {
+            "object": "list",
+            "data": [
+                {"id": i.id, "type": i.type, "role": i.role, "content": i.content,
+                 "created_at": int(i.created_at)}
+                for i in items
+            ],
+        }
+    )
+
+
+async def h_conv_items_add(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    cid = request.match_info["conv_id"]
+    if await ctx.storage.get_conversation(cid) is None:
+        return _error(404, "conversation not found")
+    body = await request.json()
+    items = _conv_items(body.get("items", []))
+    await ctx.storage.add_items(cid, items)
+    return web.json_response({"object": "list", "data": [{"id": i.id} for i in items]})
 
 
 # ---- operations ----

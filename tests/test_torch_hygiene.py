@@ -1,7 +1,8 @@
 """Hygiene of the PyTorch port: it imports neither JAX nor the JAX package,
-nor any third-party package the H100 machine lacks; its entry points never
-drop to the CPU on their own, and its kernel wrappers have no fallback that
-hides a failed build or launch."""
+nor any third-party package the H100 machine lacks (an optional storage
+driver only inside the function that needs it, failing loudly when it is
+missing); its entry points never drop to the CPU on their own, and its
+kernel wrappers have no fallback that hides a failed build or launch."""
 
 import ast
 import sys
@@ -23,6 +24,10 @@ FORBIDDEN = ("jax", "jaxlib", "smg_tpu")
 CARD_PACKAGES = ("torch", "numpy", "aiohttp", "prometheus_client", "pydantic",
                  "safetensors", "tokenizers", "jinja2", "regex", "PIL", "grpc",
                  "google.protobuf")
+# drivers a deployment installs only for the storage backend it picks, which
+# the card does not have: each may be imported only inside a function body,
+# in a ``try`` whose ``except ImportError`` raises (``connect_oracle``)
+OPTIONAL_DRIVERS = ("oracledb",)
 
 
 def _sources():
@@ -38,6 +43,48 @@ def _imported_modules(tree: ast.AST):
                 yield a.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module
+
+
+def _is_driver(module: str) -> bool:
+    return any(module == d or module.startswith(d + ".") for d in OPTIONAL_DRIVERS)
+
+
+def _misplaced_driver_imports(tree: ast.AST) -> list:
+    """Line numbers of imports of an ``OPTIONAL_DRIVERS`` package that are
+    not inside a function body, in the body of a ``try`` with an ``except
+    ImportError`` handler that raises."""
+    bad = []
+
+    def raises_on_import_error(try_node: ast.Try) -> bool:
+        for h in try_node.handlers:
+            names = h.type.elts if isinstance(h.type, ast.Tuple) else [h.type]
+            if (any(isinstance(n, ast.Name) and n.id in ("ImportError", "ModuleNotFoundError")
+                    for n in names)
+                    and any(isinstance(s, ast.Raise) for s in ast.walk(h))):
+                return True
+        return False
+
+    def visit(node, in_function: bool, guard: "ast.Try | None"):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                    else [node.module or ""] if node.level == 0 else [])
+            if any(_is_driver(m) for m in mods) and not (
+                    in_function and guard is not None and raises_on_import_error(guard)):
+                bad.append(node.lineno)
+            return
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            in_function, guard = True, None  # the body runs later, unguarded
+        if isinstance(node, ast.Try):
+            for stmt in node.body:
+                visit(stmt, in_function, node)
+            for part in (*node.handlers, *node.orelse, *node.finalbody):
+                visit(part, in_function, None)
+            return
+        for child in ast.iter_child_nodes(node):
+            visit(child, in_function, guard)
+
+    visit(tree, False, None)
+    return sorted(bad)
 
 
 def _forbidden(module: str) -> bool:
@@ -65,8 +112,30 @@ def test_port_imports_only_packages_the_card_has(path):
     bad = sorted({m for m in _imported_modules(tree)
                   if m.split(".")[0] not in sys.stdlib_module_names
                   and m.split(".")[0] != "smg_tpu_torch"
+                  and not _is_driver(m)
                   and not any(m == p or m.startswith(p + ".") for p in CARD_PACKAGES)})
     assert not bad, f"{path.relative_to(REPO)} imports {bad}, not known on the card"
+    lines = _misplaced_driver_imports(tree)
+    assert not lines, (f"{path.relative_to(REPO)} imports an optional driver at lines "
+                       f"{lines} outside a function's try whose except ImportError raises")
+
+
+@pytest.mark.parametrize("source,bad", [
+    ("import oracledb\n", [1]),
+    ("from oracledb import connect\n", [1]),
+    ("try:\n    import oracledb\nexcept ImportError as e:\n    raise RuntimeError() from e\n",
+     [2]),
+    ("def f():\n    import oracledb\n", [2]),
+    ("def f():\n    try:\n        import oracledb\n    except ImportError:\n"
+     "        oracledb = None\n", [3]),
+    ("def f():\n    try:\n        pass\n    except ImportError:\n        import oracledb\n"
+     "        raise\n", [5]),
+    ("def f():\n    try:\n        import oracledb\n    except ImportError as e:\n"
+     "        raise RuntimeError('needs oracledb') from e\n", []),
+], ids=["module-level", "module-level-from", "module-level-try", "function-no-try",
+        "except-swallows", "import-in-handler", "allowed"])
+def test_optional_driver_only_in_a_raising_try_inside_a_function(source, bad):
+    assert _misplaced_driver_imports(ast.parse(source)) == bad
 
 
 @pytest.fixture

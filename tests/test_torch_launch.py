@@ -1,8 +1,9 @@
 """``launch`` on the port, held against the JAX package on the CPU.
 
 - (a) every ``launch`` flag the port takes has the dest, default, type and
-  choices of ``smg_tpu.cli.build_parser()``'s; the flags of modules still
-  unported are refused;
+  choices of ``smg_tpu.cli.build_parser()``'s (``--storage`` and
+  ``--mcp-config-path`` their help too, on ``serve`` as well); the flags of
+  modules still unported are refused;
 - (b) startup validation: every case of ``tests/test_config_cli.py`` (and
   the engine-flag cases of the megastep and speculation tests) through the
   port's ``validate_cli_args`` gives the reference's issues, severities and
@@ -14,7 +15,9 @@
   the gateway tokenizing with the worker's bundle, TLS, the probe-only and
   metrics-only listeners; with the worker not up yet, the mock fallback
   until the late registration's bundle takes the default over it; ``serve``
-  with ``--worker``;
+  with ``--worker``; ``--mcp-config-path`` read into ``HttpMcpServer``s and
+  an unknown ``--storage`` refused with the reference's error before an
+  engine loads or a port binds;
 - (d) ``worker --device cpu`` and ``launch`` as processes of their own: a
   chat through them, streamed and not, equals the same chat through an
   in-process gateway over the same engine, the worker process's tokens
@@ -84,8 +87,7 @@ def test_launch_flag_has_the_reference_dest_default_and_type(flag):
 
 #: the reference's ``launch`` flags the port leaves out, each with the
 #: module it waits for (ROADMAP Queue A)
-REFUSED = [["--storage", "memory"], ["--mcp-config-path", "m.json"],
-           ["--provider-config", "p.json"], ["--plugins", "p.py"], ["--plugin-fail-closed"],
+REFUSED = [["--provider-config", "p.json"], ["--plugins", "p.py"], ["--plugin-fail-closed"],
            ["--mesh-port", "7946"], ["--mesh-seed", "h:1"], ["--mesh-tls-cert", "c"],
            ["--mesh-tls-key", "k"], ["--mesh-tls-ca", "a"], ["--prefix-token-count", "8"],
            ["--dp-aware"], ["--no-dp-aware"]]
@@ -102,6 +104,15 @@ def test_launch_flags_of_unported_modules_are_refused(argv):
     jcli.build_parser().parse_args(["launch", *argv])  # the reference takes it
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(["launch", *argv])
+
+
+@pytest.mark.parametrize("command", ["serve", "launch"])
+@pytest.mark.parametrize("flag", ["--storage", "--mcp-config-path"])
+def test_storage_and_mcp_flags_are_the_reference_ones(command, flag):
+    port = _options(tcli.build_parser(), command)[flag]
+    ref = _options(jcli.build_parser(), command)[flag]
+    fields = ("dest", "default", "type", "help", "nargs", "required")
+    assert {f: getattr(port, f) for f in fields} == {f: getattr(ref, f) for f in fields}
 
 
 # ---- (b) startup validation ----
@@ -461,6 +472,46 @@ def test_grpc_client_settings_are_process_wide(monkeypatch):
         "launch", "--mm-transport", "shm", "--mm-shm-min-bytes", "4096",
         "--worker-stream-idle-timeout-secs", "0"]))
     assert (C.mm_transport, C.mm_shm_min_bytes, C.idle_timeout_secs) == ("shm", 4096, None)
+
+
+def test_mcp_config_file_becomes_http_mcp_servers(tmp_path):
+    from smg_tpu.mcp import HttpMcpServer as JaxHttpMcpServer
+    from smg_tpu_torch.gateway.server import AppContext
+    from smg_tpu_torch.mcp import HttpMcpServer
+
+    specs = [{"name": "docs", "url": "http://127.0.0.1:1/mcp", "headers": {"X-Key": "k"}},
+             {"url": "http://127.0.0.1:2/mcp"}]
+    path = tmp_path / "mcp.json"
+    path.write_text(json.dumps(specs))
+    ctx = AppContext()
+    asyncio.run(launch.load_mcp_config(ctx, str(path)))
+    servers = [ctx.mcp._servers[n] for n in ctx.mcp.servers]
+    assert all(type(s) is HttpMcpServer for s in servers)
+    # the reference's _run_gateway builds each entry's server so
+    ref = {s.name: s for s in (JaxHttpMcpServer(name=sp.get("name", sp["url"]), url=sp["url"],
+                                                headers=sp.get("headers")) for sp in specs)}
+    assert ctx.mcp.servers == sorted(ref)
+    for s in servers:
+        assert (s.url, s.headers) == (ref[s.name].url, ref[s.name].headers)
+
+
+@pytest.mark.parametrize("command", ["launch", "serve"])
+def test_unknown_storage_fails_startup_before_the_engine(command, monkeypatch):
+    from smg_tpu.storage import make_storage as jax_make_storage
+
+    monkeypatch.setattr(launch, "build_engine_from_args",
+                        lambda args: pytest.fail("the engine loaded first"))
+    port = _free_port()
+    device = ["--device", "cpu"] if command == "serve" else []
+    gw = Gateway([command, *BASE[command], *device, "--port", str(port),
+                  "--storage", "nosuch://x"])
+    with pytest.raises(ValueError) as got:
+        gw.close()
+    with pytest.raises(ValueError) as want:
+        jax_make_storage("nosuch://x")
+    assert str(got.value) == str(want.value) == "unknown storage spec 'nosuch://x'"
+    with socket.socket() as s:  # nothing bound the gateway's port
+        s.bind(("127.0.0.1", port))
 
 
 # ---- (d) worker and launch as processes ----

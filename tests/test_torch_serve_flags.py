@@ -94,11 +94,12 @@ NEW_FLAGS = [
     ("--worker", "http://w"), ("--prefill-worker", "x"), ("--decode-worker", "x"),
     ("--tls-cert-path", "c"), ("--mm-transport", "shm"), ("--selector", "a=b"),
     ("--service-discovery", None), ("--prometheus-port", "9"),
+    # the Responses API's conversation storage and MCP servers
+    ("--storage", "sqlite:conv.db"), ("--mcp-config-path", "m.json"),
 ]
 #: flags of modules not ported yet (ROADMAP Queue A lists them by item)
 REFUSED = [["--tp", "2"], ["--dp", "2"], ["--mesh-shape", "tp=2"],
-           ["--plugins", "p.py"], ["--mcp-config-path", "m.json"],
-           ["--storage", "memory"], ["--prefix-token-count", "8"], ["--no-dp-aware"]]
+           ["--plugins", "p.py"], ["--prefix-token-count", "8"], ["--no-dp-aware"]]
 BASE = ["serve", "--model-preset", "tiny"]
 
 
