@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases vision   # build + kernels + phase 12 only
     python3 chip_smoke.py --phases pd   # build + kernels + phase 13 only
     python3 chip_smoke.py --phases launch   # build + kernels + phase 14 only
+    python3 chip_smoke.py --phases routing   # build + kernels + phase 14 (c) only
     python3 chip_smoke.py --phases responses   # build + kernels + phase 15 only
 
 Phases (any failure makes the script exit non-zero and print no result):
@@ -40,7 +41,15 @@ Phases (any failure makes the script exit non-zero and print no result):
    synchronous).  Kernel launch counts must equal what the schedule
    implies (32 layers x decode columns, counted through graph replays; 32
    x prefill forward calls) and every run's ``audit()`` must be clean;
-   decode is profiled on 4 lanes per path.  All three again on the first
+   decode is profiled on 4 lanes per path.  Every engine is built under
+   the lock-order sentinel, which must record no inversion.  On the
+   serving path, after its profile, 4 new lanes decode past their
+   64-page table's end, the graph auditor is armed, and 16 megasteps run
+   unguarded, then 16 inside ``steady_state_guard`` (the sync debug mode
+   "error", process-wide): no capture, no kernel build, no step failure
+   (a host sync on the loop thread), ``program_audit`` clean, and
+   ``.item()`` on a device tensor under the guard raises; both windows'
+   ms per decode column are printed beside the profiled window's.  All three again on the first
    ``F32_LAYERS`` (8) layers of the same weights, full width, widened to
    float32 with float32 KV, where the greedy streams must be identical and
    which is the reference the bf16 runs of that depth's first-token logits
@@ -75,7 +84,10 @@ Phases (any failure makes the script exit non-zero and print no result):
    concurrent streams (TTFT, gaps between SSE frames, the device's busy
    share; ``/scheduler``'s audit after), a poisoned prefill among three
    (finish ``error``) and a decode fault in a 4-lane batch (the newest lane
-   quarantined), the flight dump and ``/metrics``.  Each request is also
+   quarantined), the flight dump and ``/metrics``; the engine and the
+   gateway are built and served under the lock-order sentinel (no
+   inversion), and ``cache_aware`` must route over the native radix tree
+   (a failed build of the index fails the phase).  Each request is also
    submitted to the engine directly: in float32 the HTTP path's tokens
    must equal those, in bf16 the agreement is printed, with the direct
    path's TTFT and gaps beside the HTTP ones.  Kernel launches through the
@@ -289,8 +301,18 @@ Phases (any failure makes the script exit non-zero and print no result):
    worker), SIGTERM exiting 0; then ``launch --prefill-worker A
    --decode-worker B``: the lone and 8 concurrent chats equal the
    in-process PD's, each prompt's legs straight at the workers its tokens
-   with logprobs within 1e-4; each worker reports its kernel launches at
-   exit, equal to 4 x its decode columns and 4 x its prefill calls;
+   with logprobs within 1e-4; then one ``launch`` per routing policy over
+   the same two workers: ``--policy prefix_hash --prefix-token-count 64``
+   (8 chats in 2 families of a 300-token prefix: one worker per family,
+   each family's later chats cached), ``--policy consistent_hashing`` (12
+   prompts twice on the same workers; after one worker is drained only its
+   prompts move), ``--policy cache_aware`` (``/debug/kv_index`` shows the
+   native tree; a shared-prefix chat goes to the worker holding the
+   prefix) and ``--dp-aware`` (each worker reports ``dp_size`` 1); each
+   worker reports its kernel launches at exit, equal to 4 x its decode
+   columns and 4 x its prefill calls, and the ``data_parallel_rank`` of
+   every generate it received: all -1.  ``--phases routing`` runs (c)
+   alone;
 15. the Responses API, after phase 14: one in-process ``serve`` built by the
    command line's own ``_run_gateway`` (``--model-preset llama3-8b``: full
    width and depth, random bf16 weights from seed 0, phase 5's engine
@@ -327,7 +349,7 @@ Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    from phase 14's worker processes and ``launches_responses`` from phase
    15's conversation turns) and, last, ``{"ok": true, "device": ...}``
    (``--phases kernels``, ``checkpoint``, ``moe``, ``api``, ``vision``,
-   ``pd``, ``launch`` and ``responses`` print neither).
+   ``pd``, ``launch``, ``routing`` and ``responses`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -1141,6 +1163,95 @@ def serve_paths(cfg, params, dev, max_new: int, with_profile: bool = False,
     return runs
 
 
+GUARD_MEGASTEPS = 16  # decode megasteps of each of phase 3's two windows
+GUARD_WARM_TOKENS = 40  # tokens each lane decodes before the windows
+
+
+def guarded_decode(engine, dev, card: str, megasteps: int = GUARD_MEGASTEPS) -> dict:
+    """Phase 3's guarded window, on the serving path (graphs, the overlap
+    pipeline, the loop thread) after its run and profile: 4 greedy lanes of
+    1000-token prompts decode ``GUARD_WARM_TOKENS`` tokens (past their
+    64-page table's end, so the 128-page shape is captured before any
+    window), the auditor is armed, ``megasteps`` megasteps run unguarded,
+    then as many inside ``steady_state_guard``: no capture or kernel build,
+    no flagged sync (the sync debug mode is process-wide: a sync the loop
+    thread hits raises inside its step, which the scheduler counts as a
+    step failure), ``program_audit`` clean.  Inside the guard, ``.item()``
+    on a device tensor on this thread must raise.  No request is admitted
+    while either window is open.  Returns both windows' wall ms per decode
+    column (from one megastep launch to the launch ``megasteps`` later)."""
+    import torch
+
+    from smg_tpu_torch.analysis import steady_state_guard
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    sched, runner = engine.scheduler, engine.runner
+    K = engine.config.scheduler.decode_horizon
+    n_new = GUARD_WARM_TOKENS + 2 * (megasteps + 2) * K
+    sp = SamplingParams(temperature=0.0, max_new_tokens=n_new, ignore_eos=True)
+    outs = {f"guard{i}": [] for i in range(4)}
+    for i, (rid, sink) in enumerate(outs.items()):
+        engine.submit(list(range(2000 + 1000 * i, 3000 + 1000 * i)), sp, rid=rid,
+                      on_output=sink.append)
+    engine.start()
+    tokens = lambda rid: sum(len(o.new_token_ids) for o in outs[rid])  # noqa: E731
+    wait_for(lambda: all(tokens(r) >= GUARD_WARM_TOKENS for r in outs), "guard warm-up")
+    runner._programs.arm()
+
+    def window() -> tuple:
+        start = runner.stats["decode_calls"]
+        wait_for(lambda: runner.stats["decode_calls"] > start, "a megastep launch")
+        calls0, cols0 = runner.stats["decode_calls"], runner.stats["decode_columns"]
+        t0 = time.perf_counter()
+        wait_for(lambda: runner.stats["decode_calls"] - calls0 >= megasteps, "decode window")
+        ms = (time.perf_counter() - t0) * 1e3
+        cols = runner.stats["decode_columns"] - cols0
+        return ms / cols, cols
+
+    unguarded_ms, _cols = window()
+    failures0 = sched.num_step_failures + sched.num_quarantined
+    item_error = None
+    with steady_state_guard(device=dev) as cc:
+        guarded_ms, cols = window()
+        try:
+            torch.ones(1, device=dev).item()
+        except RuntimeError as e:  # the guard is live: a host sync raises
+            item_error = str(e).splitlines()[0]
+    flagged = sched.num_step_failures + sched.num_quarantined - failures0
+    audit = engine.program_audit()
+    wait_for(lambda: all(o and o[-1].finished for o in outs.values())
+             and not engine.has_work(), "guard drain")
+    engine.stop()
+    finished = {rid: (tokens(rid), o[-1].finish_reason) for rid, o in outs.items()}
+    out = dict(megasteps=megasteps, columns=cols, unguarded_ms_per_column=unguarded_ms,
+               guarded_ms_per_column=guarded_ms, captures=cc.count, flagged_syncs=flagged,
+               sync_debug_mode=cc.report["sync_debug_mode"], item_raised=item_error,
+               audit_clean=audit["clean"], audit_recompiles=audit["recompiles"],
+               audited_programs=sum(1 for p in audit["programs"] if p["audited"]),
+               off_device_inputs=audit["off_device_inputs"],
+               storage_moves=audit["storage_moves"],
+               unexplained_captures=audit["unexplained_captures"])
+    print(f"  [graphs] guarded window: {megasteps} megasteps, {cols} columns, "
+          f"{guarded_ms:.3f} ms/column guarded against {unguarded_ms:.3f} unguarded just "
+          f"before; {cc.count} captures, {flagged} flagged syncs, sync debug mode "
+          f"{cc.report['sync_debug_mode']!r}; .item() under the guard raised: "
+          f"{item_error!r}; program_audit clean {audit['clean']} over "
+          f"{out['audited_programs']} audited shapes ({card})")
+    bad = []
+    if cc.report["sync_debug_mode"] != "error" or item_error is None:
+        bad.append(f"the sync guard is not live: {cc.report}, .item() raised {item_error!r}")
+    if flagged:
+        bad.append(f"{flagged} step failures or quarantines in the guarded window (a "
+                   "flagged host sync on the loop thread)")
+    if not audit["clean"]:
+        bad.append(f"program_audit not clean: {audit}")
+    if any(v != (n_new, "length") for v in finished.values()):
+        bad.append(f"guarded lanes did not finish whole: {finished}")
+    if bad:
+        raise AssertionError(f"phase 3 guarded window: {bad}")
+    return out
+
+
 def check_launches(r, L: int, label: str, plain: bool) -> None:
     """A run's kernel launches equal its schedule: L per decode column
     (graph replays included) and L per prefill call, and the plain path
@@ -1737,6 +1848,20 @@ def _pct(xs, q: float) -> float:
 
 
 def phase_serve(cfg, params, dev, card: str, label: str, strict: bool) -> dict:
+    """Phase 5 (``_phase_serve``) with its engine and gateway built, and
+    every request served, under the lock-order sentinel: the engine, flight
+    recorder, breaker, worker, registry, SLO and route-observability locks
+    are watched, and the sentinel's exit raises on any inversion."""
+    from smg_tpu_torch.analysis import lock_order_sentinel
+
+    with lock_order_sentinel() as sentinel:
+        out = _phase_serve(cfg, params, dev, card, label, strict)
+    out["lock_inversions"] = len(sentinel.inversions)
+    print(f"  [{label}] phase 5: {out['lock_inversions']} lock-order inversions")
+    return out
+
+
+def _phase_serve(cfg, params, dev, card: str, label: str, strict: bool) -> dict:
     """The serving entry on Llama-3-8B at full width and depth: the port's
     gateway (``cache_aware``, one in-process worker over an ``Engine`` with
     CUDA graphs, the overlap pipeline and the loop thread, phase 3's cache
@@ -1792,6 +1917,13 @@ def phase_serve(cfg, params, dev, card: str, label: str, strict: bool) -> dict:
                     raise
             time.sleep(0.05)
         out = _serve_checks(engine, tok, port, label, strict, card)
+        # the cache-aware policy routed over the native radix tree: a failed
+        # build of the index on this host fails the phase
+        tree = type(ctx.policies.policy_for(SERVE_MODEL).tree).__name__
+        out["radix_tree"] = tree
+        if tree != "NativeRadixTree":
+            raise AssertionError(f"[{label}] cache_aware routes over {tree}, not the native "
+                                 "tree: the index did not build or load on this host")
     finally:
         if "stop" in held:
             held["loop"].call_soon_threadsafe(held["stop"].set)
@@ -5905,7 +6037,7 @@ def pd_worker_main(spec: dict) -> int:
     from smg_tpu_torch.models.config import ModelConfig
     from smg_tpu_torch.models.llama import init_params
     from smg_tpu_torch.ops.cuda import build
-    from smg_tpu_torch.rpc.server import serve_worker
+    from smg_tpu_torch.rpc.server import SchedulerServicer, serve_worker
     from smg_tpu_torch.tokenizer import MockTokenizer
 
     dev = torch.device(spec["device"])
@@ -5925,6 +6057,15 @@ def pd_worker_main(spec: dict) -> int:
                         bos_token_id=cfg.bos_token_id)
     engine = _pd_engine(cfg4, params, dev, tok, spec["pages"])
     engine.start()
+    # the data_parallel_rank of every generate this worker receives
+    ranks: dict = {}
+    check_rank = SchedulerServicer._check_rank
+
+    def recording(self, rank):
+        ranks[str(rank)] = ranks.get(str(rank), 0) + 1
+        return check_rank(self, rank)
+
+    SchedulerServicer._check_rank = recording
     code = serve_worker(engine, port=spec["port"], host="127.0.0.1")
     if spec.get("report"):  # phase 14: this process's kernel launches and schedule
         from smg_tpu_torch.ops.cuda import decode_attention, prefill_attention
@@ -5932,7 +6073,7 @@ def pd_worker_main(spec: dict) -> int:
         Path(spec["report"]).write_text(json.dumps(dict(
             launches={"decode_attention": decode_attention.launches,
                       "prefill_attention": prefill_attention.launches},
-            stats=engine.runner.stats, layers=n)))
+            stats=engine.runner.stats, layers=n, ranks=ranks)))
     return code
 
 
@@ -6127,20 +6268,28 @@ class Child:
         self.log = tempfile.TemporaryFile()
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(self.cmd, cwd=REPO, stdout=self.log, stderr=self.log)
+        self.signalled = False
 
     def alive(self) -> bool:
         return self.proc.poll() is None
+
+    def terminate(self) -> None:
+        """SIGTERM, once: the gateway's handler goes with its event loop, so
+        a second SIGTERM landing while the process exits kills it (-15)."""
+        import signal
+
+        if self.alive() and not self.signalled:
+            self.proc.send_signal(signal.SIGTERM)
+            self.signalled = True
 
     def tail(self, n: int = 3000) -> str:
         self.log.seek(0)
         return self.log.read().decode(errors="replace")[-n:]
 
     def stop(self, timeout: float = 120) -> int:
-        """SIGTERM, then the exit code (killed after ``timeout`` s)."""
-        import signal
-
-        if self.alive():
-            self.proc.send_signal(signal.SIGTERM)
+        """SIGTERM (unless sent already), then the exit code (killed after
+        ``timeout`` s)."""
+        self.terminate()
         try:
             self.proc.wait(timeout)
         except subprocess.TimeoutExpired:
@@ -6651,6 +6800,8 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
                    legs_tokens_equal=toks_equal, legs_logprob_max_abs_err=lp_err)
         out["g2_exit"] = children.pop("g2").stop()
         expect(out["g2_exit"] == 0, f"PD launch exit code {out['g2_exit']}")
+        # the routing policies, over the same two workers
+        out["routing"] = launch_routing(urls, ports, expect)
     finally:
         for name in list(children):
             code = children.pop(name).stop()
@@ -6668,6 +6819,10 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
         want = {"decode_attention": PD_LAYERS * st["decode_columns"],
                 "prefill_attention": PD_LAYERS * st["prefill_calls"]}
         expect(rep["launches"] == want, f"worker {name}: launches {rep['launches']} != {want}")
+        # every generate arrived with rank -1: the workers have one replica
+        # each, so no gateway pinned one (--dp-aware included)
+        expect(set(rep["ranks"]) == {"-1"} and rep["ranks"]["-1"] > 0,
+               f"worker {name}: data_parallel_rank on the wire {rep['ranks']}")
         out[f"{name}_report"] = rep
         for k in launches:
             launches[k] += rep["launches"][k]
@@ -6680,6 +6835,151 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
           f"{out.get('pd_conc_equal')}/8 chats equal to in-process PD, legs' logprobs within "
           f"{out.get('legs_logprob_max_abs_err', float('nan')):.2e}; launches in the "
           f"workers {launches} ({card})")
+    return out
+
+
+ROUTE_NEW = 4  # new tokens of every routing request of phase 14 (c)
+ROUTE_PREFIX_TOKENS = 64  # prefix_hash's --prefix-token-count there
+
+
+def _route_gateway(name: str, urls: dict, *flags) -> tuple:
+    """A ``launch`` process in front of both workers with ``flags``, started
+    (it registers both before it binds); returns (child, port)."""
+    port = _free_port()
+    child = Child(name, [*CLI, "launch", "--host", "127.0.0.1", "--port", port,
+                         "--worker", urls["a"], "--worker", urls["b"], *flags])
+    return child, port
+
+
+def _routed_chat(port: int, ids) -> tuple:
+    """(status, the decision, cached prompt tokens) of one chat: the
+    decision is the newest of ``/debug/router``."""
+    st, r = _http(port, "POST", "/v1/chat/completions", _chat(ids, ROUTE_NEW))
+    cached = ((r.get("usage") or {}).get("prompt_tokens_details") or {}).get(
+        "cached_tokens", 0) if st == 200 else None
+    _st, router = _http(port, "GET", "/debug/router?limit=1")
+    return st, router["models"][SERVE_MODEL]["decisions"][-1], cached
+
+
+def launch_routing(urls: dict, ports: dict, expect) -> dict:
+    """Phase 14 (c)'s routing policies over the two live worker processes,
+    one ``launch`` process each, all four started together (their start-up
+    is host work that overlaps), then checked in turn: ``prefix_hash`` (8
+    chats in 2 families of a 300-token prefix: one worker per family, a
+    family's later chats cached), ``consistent_hashing`` (12 prompts twice:
+    the same worker each time; after ``DELETE /workers/{id}?drain`` of one
+    worker, only its prompts move), ``cache_aware`` (``/debug/kv_index``
+    shows the native tree, whose nodes the C++ index does not count; a
+    shared-prefix chat goes to the worker holding the prefix) and
+    ``--dp-aware`` (each worker reports ``dp_size`` 1; the ranks the workers
+    received are checked at their exit: all -1).  Every gateway exits 0 on
+    SIGTERM."""
+    import asyncio
+
+    import numpy as np
+
+    from smg_tpu_torch.rpc.client import GrpcWorkerClient
+
+    rng = np.random.default_rng(1416)
+    ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    out: dict = {}
+    t_start = time.perf_counter()
+    gateways = {
+        "prefix_hash": _route_gateway("launch-prefix-hash", urls, "--policy", "prefix_hash",
+                                      "--prefix-token-count", ROUTE_PREFIX_TOKENS),
+        "consistent_hashing": _route_gateway("launch-consistent-hashing", urls,
+                                             "--policy", "consistent_hashing"),
+        "cache_aware": _route_gateway("launch-cache-aware", urls, "--policy", "cache_aware"),
+        "dp_aware": _route_gateway("launch-dp-aware", urls, "--dp-aware"),
+    }
+    try:
+        for name, (child, port) in gateways.items():
+            _wait_http_up(port, child, name)
+        out["startup_s"] = time.perf_counter() - t_start
+        # prefix_hash: a family's chats share their first 64 ids
+        t0 = time.perf_counter()
+        port = gateways["prefix_hash"][1]
+        families = [ids(300), ids(300)]
+        picks = {0: [], 1: []}
+        for i in range(8):
+            fam = i % 2
+            st, d, cached = _routed_chat(port, families[fam] + ids(30))
+            expect(st == 200 and d["policy"] == "prefix_hash",
+                   f"[routing/prefix_hash] chat {i}: {st} {d}")
+            picks[fam].append((d["chosen"], cached))
+        for fam, got in picks.items():
+            expect(len({w for w, _ in got}) == 1 and all(c > 0 for _, c in got[1:]),
+                   f"[routing/prefix_hash] family {fam}: workers and cached tokens {got}")
+        out["prefix_hash"] = {f"family{f}": got for f, got in picks.items()}
+        out["prefix_hash_s"] = time.perf_counter() - t0
+        # consistent_hashing: stable keys; a drained worker's keys alone move
+        t0 = time.perf_counter()
+        port = gateways["consistent_hashing"][1]
+        prompts = [ids(40) for _ in range(12)]
+        first = [_routed_chat(port, q)[1]["chosen"] for q in prompts]
+        again = [_routed_chat(port, q)[1]["chosen"] for q in prompts]
+        gone = first[0]
+        st, removed = _http(port, "DELETE", f"/workers/{gone}?drain=5")
+        after = [_routed_chat(port, q)[1]["chosen"] for q in prompts]
+        moved = [i for i in range(len(prompts)) if after[i] != first[i]]
+        expect(first == again and len(set(first)) == 2 and st == 200
+               and moved == [i for i, w in enumerate(first) if w == gone],
+               f"[routing/consistent_hashing] first {first}, again {again}, removal {st} "
+               f"{removed}, after {after}")
+        out["consistent_hashing"] = dict(first=first, after=after, drained=gone, moved=moved)
+        out["consistent_hashing_s"] = time.perf_counter() - t0
+        # cache_aware over the native tree
+        t0 = time.perf_counter()
+        port = gateways["cache_aware"][1]
+        shared = ids(600)
+        st_a, da, _ = _routed_chat(port, shared + ids(20))
+        st_b, db, cached_b = _routed_chat(port, shared + ids(20))
+        _st, kv = _http(port, "GET", "/debug/kv_index")
+        trees = {k: g["tree"] for k, g in kv["gateway"].items() if "tree" in g}
+        tree = trees.get(SERVE_MODEL, {})
+        expect((st_a, st_b) == (200, 200) and db["chosen"] == da["chosen"]
+               and db["outcome"] == "prefix_hit" and cached_b > 0,
+               f"[routing/cache_aware] shared prefix: {da} then {db}, cached {cached_b}")
+        expect(tree.get("elements", 0) > 0 and all(t["nodes"] is None for t in trees.values()),
+               f"[routing/cache_aware] /debug/kv_index trees {trees}: not the native tree")
+        out["cache_aware"] = dict(chosen=[da["chosen"], db["chosen"]], outcome=db["outcome"],
+                                  cached=cached_b, tree=tree)
+        out["cache_aware_s"] = time.perf_counter() - t0
+        # --dp-aware: one replica per worker, so the router pins none
+        t0 = time.perf_counter()
+        port = gateways["dp_aware"][1]
+
+        async def dp_sizes():
+            sizes = {}
+            for name, p in ports.items():
+                client = GrpcWorkerClient(f"127.0.0.1:{p}")
+                try:
+                    sizes[name] = (await client.get_model_info())["dp_size"]
+                finally:
+                    await client.close()
+            return sizes
+
+        sizes = asyncio.run(dp_sizes())
+        dp_chats = [_routed_chat(port, q)[0] for q in prompts[:4]]
+        expect(sizes == {"a": 1, "b": 1} and dp_chats == [200] * 4,
+               f"[routing/dp-aware] dp_size {sizes}, chats {dp_chats}")
+        out["dp_aware"] = dict(dp_size=sizes)
+        out["dp_aware_s"] = time.perf_counter() - t0
+    finally:
+        for child, _port in gateways.values():
+            child.terminate()  # SIGTERM to all, then wait for each
+        for name, (child, _port) in gateways.items():
+            out[f"{name}_exit"] = child.stop()
+    for name in gateways:
+        expect(out.get(f"{name}_exit") == 0,
+               f"[routing/{name}] gateway exit {out.get(f'{name}_exit')}")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  [launch/routing] prefix_hash {out.get('prefix_hash')}; consistent_hashing "
+          f"moved {out.get('consistent_hashing', {}).get('moved')} after draining "
+          f"{out.get('consistent_hashing', {}).get('drained')}; cache_aware "
+          f"{out.get('cache_aware')}; dp_size {out.get('dp_aware')}; four launch "
+          f"processes up in {out.get('startup_s', float('nan')):.1f} s, "
+          f"{out['seconds']:.1f} s in all")
     return out
 
 
@@ -6730,12 +7030,14 @@ def _drain_check(port: int, jobs: dict, expect) -> dict:
     return dict(drained=busy, removal=result["removed"][1], stream_frames=n_content)
 
 
-def phase_launch(dev, card: str, preset: str = SERVE_MODEL) -> dict:
+def phase_launch(dev, card: str, preset: str = SERVE_MODEL,
+                 parts: tuple = ("grpc", "http", "pd")) -> dict:
     """Phase 14, ``launch``: (a) ``worker`` and ``launch`` processes over
     gRPC at full width and depth, (b) ``serve`` behind ``launch`` over
-    HTTP, (c) registration, drain, resume and PD through ``launch`` over
-    two 4-layer float32 worker processes of this script.  Full-depth
-    processes run one at a time: each sizes its KV to most of the card."""
+    HTTP, (c) registration, drain, resume, PD and the routing policies
+    through ``launch`` over two 4-layer float32 worker processes of this
+    script; ``parts`` names which of (a)-(c) run.  Full-depth processes run
+    one at a time: each sizes its KV to most of the card."""
     import gc
 
     import torch
@@ -6761,6 +7063,8 @@ def phase_launch(dev, card: str, preset: str = SERVE_MODEL) -> dict:
     for name, fn in (("grpc", lambda: launch_grpc(preset, dev, card, jobs, expect)),
                      ("http", lambda: launch_http(preset, dev, card, jobs, expect)),
                      ("pd", lambda: launch_pd(cfg, dev, card, jobs, expect))):
+        if name not in parts:
+            continue
         t0 = time.perf_counter()
         out[name] = fn()
         out[name]["seconds"] = time.perf_counter() - t0
@@ -7262,14 +7566,29 @@ def phase_engine(dev, card: str) -> dict:
     from smg_tpu_torch.models.config import llama3_8b_config
     from smg_tpu_torch.models.llama import init_params
 
+    from smg_tpu_torch.analysis import lock_order_sentinel
+
     cfg = llama3_8b_config()
     L, max_new = cfg.num_layers, 32
-    # the serving configuration: bf16 weights and KV
+    # the serving configuration: bf16 weights and KV.  Every engine of phase
+    # 3 is built under the lock-order sentinel (its exit raises on any
+    # inversion); the serving path's engine also runs the guarded window
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    runs = serve_paths(cfg, params, dev, max_new, with_profile=True)
+    with lock_order_sentinel() as sentinel:
+        runs = serve_paths(cfg, params, dev, max_new, with_profile=True,
+                           after=lambda label, eng: (guarded_decode(eng, dev, card)
+                                                     if label == "graphs" else None))
+    print(f"  phase 3: {len(sentinel.inversions)} lock-order inversions over its engines")
     agree = check_runs(runs, L, max_new, "bf16")
     out = {"bf16": summarize(runs, card, "bf16"), "bf16_agreement": agree}
     out["decode_profile"] = {k: r["profile"] for k, r in runs.items()}
+    out["guarded"] = runs["graphs"]["after"]
+    out["guarded"]["profile_wall_ms_per_column"] = runs["graphs"]["profile"][
+        "wall_ms_per_column"]
+    out["lock_inversions_phase3"] = len(sentinel.inversions)
+    print(f"  phase 3 decode: guarded window {out['guarded']['guarded_ms_per_column']:.3f} "
+          f"ms/column, unguarded {out['guarded']['unguarded_ms_per_column']:.3f}, the "
+          f"profiled window {out['guarded']['profile_wall_ms_per_column']:.3f} ({card})")
     out["launches"] = runs["graphs"]["launches"]
     out["schedule"] = runs["graphs"]["stats"]
     # phase 4 on the same weights: penalties, stop strings and grammars
@@ -7527,7 +7846,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd",
-                             "launch", "responses"),
+                             "launch", "routing", "responses"),
                     default="all")
     # the gRPC worker processes of phases 13 and 14: this script started by itself
     ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
@@ -7556,6 +7875,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     failed = []
+    t_run = time.perf_counter()
     card = card_line()
     print(card)
     try:
@@ -7606,11 +7926,14 @@ def main(argv=None) -> int:
             traceback.print_exc()
             failed.append("vision")
     launch = {}
-    if args.phases in ("all", "launch") and not failed:
+    if args.phases in ("all", "launch", "routing") and not failed:
         print("phase 14: launch in front of out-of-process workers (Llama-3-8B workers at "
-              "full width, gRPC and HTTP; registration, drain and PD at 4 layers)")
+              "full width, gRPC and HTTP; registration, drain, PD and the routing policies "
+              "at 4 layers)" if args.phases != "routing" else
+              "phase 14 (c) alone: registration, drain, PD and the routing policies")
         try:
-            launch = phase_launch(dev, card)
+            launch = phase_launch(dev, card, parts=("pd",) if args.phases == "routing"
+                                  else ("grpc", "http", "pd"))
         except Exception:
             traceback.print_exc()
             failed.append("launch")
@@ -7671,6 +7994,7 @@ def main(argv=None) -> int:
         ))
     print(json.dumps({"engine": engine, "moe": moe, "vision": vision, "launch": launch,
                       "responses": responses, "card": card}))
+    print(f"the whole run took {time.perf_counter() - t_run:.1f} s ({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,11 @@ onto the CPU.  Every command line is validated (``config/validation.py``)
 before anything binds a port or touches a device.  The flags carry the
 reference's names, dests, defaults and types (``--kv-connector`` offers no
 ``transfer``).  ``--storage`` picks the Responses API's conversation
-storage and ``--mcp-config-path`` names its gateway-level MCP servers.
-Parallelism and the HA mesh, providers, plugins, ``--prefix-token-count``
-and ``--dp-aware`` are not ported yet, and their flags are refused.
+storage and ``--mcp-config-path`` names its gateway-level MCP servers;
+``--policy`` takes every policy of the reference, ``--prefix-token-count``
+sizes ``prefix_hash``'s key and ``--dp-aware``/``--no-dp-aware`` pick the
+router's DP-rank stage.  Parallelism and the HA mesh, providers and plugins
+are not ported yet, and their flags are refused.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def _add_gateway_args(p: argparse.ArgumentParser) -> None:
                    help="decode-role worker URL (PD disaggregation; repeatable)")
     g.add_argument("--policy", default="cache_aware",
                    help="routing policy (cache_aware, round_robin, random, "
-                        "least_load, power_of_two, manual, bucket, passthrough)")
+                        "least_load, power_of_two, prefix_hash, consistent_hashing, "
+                        "manual, bucket, passthrough)")
     g.add_argument("--max-concurrent-requests", type=int, default=256)
     g.add_argument("--storage", default=None,
                    help="conversation storage backend: memory (default), "
@@ -128,6 +131,13 @@ def _add_gateway_args(p: argparse.ArgumentParser) -> None:
                      help="cache-aware: approximation tree node budget")
     pol.add_argument("--block-size", type=int, default=16,
                      help="KV block size for event-driven cache-aware routing")
+    pol.add_argument("--prefix-token-count", type=int, default=256,
+                     help="prefix_hash: tokens hashed for placement")
+    pol.add_argument("--dp-aware", action=argparse.BooleanOptionalAction,
+                     default=True,
+                     help="pin requests to DP engine replicas by min-token "
+                          "load (default on; --no-dp-aware lets the worker "
+                          "balance locally)")
     pol.add_argument("--enable-igw", action="store_true",
                      help="compat flag: multi-model (IGW) routing is always "
                           "on in this gateway — accepted for reference CLI "

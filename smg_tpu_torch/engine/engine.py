@@ -11,7 +11,11 @@ the LoRA adapter calls, the PD legs ``prefill_export`` and
 Entry points run on the card: ``device=None`` means CUDA, and a machine
 without one raises.  ``start()`` runs ``step()`` on a loop thread while
 there is work, and the step watchdog when ``step_watchdog_secs`` > 0;
-output callbacks run on the loop thread, outside the engine lock.  With a
+output callbacks run on the loop thread, outside the engine lock (the
+callback map itself is read and written under it).  The engine lock comes
+from ``make_lock("engine", reentrant=True)``, so the lock-order sentinel
+sees it; ``loads()["programs"]`` and ``program_audit()`` report the
+runner's graph families (``analysis/runtime_guards.py``).  With a
 ``tokenizer``, outputs carry text (``text_delta``, and ``text`` in
 ``GenerationResult``), ``stop`` strings end a request at this layer (token
 stops live in the scheduler), and ``json_schema``/``regex``/``ebnf``
@@ -35,6 +39,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from smg_tpu_torch.analysis.runtime_guards import make_lock
 from smg_tpu_torch.constrained import JsonMachine, TokenFilter
 from smg_tpu_torch.engine.config import EngineConfig
 from smg_tpu_torch.engine.detokenize import IncrementalDecoder, StopStringChecker
@@ -135,7 +140,7 @@ class Engine:
         self._callbacks: dict[str, object] = {}
         self._json_filter = None  # shared TokenFilter (piece table + mask cache)
         self._grammar_filters: dict = {}  # (kind, pattern) -> TokenFilter
-        self._lock = threading.RLock()
+        self._lock = make_lock("engine", reentrant=True)
         self._wakeup = threading.Condition(self._lock)
         self._thread: threading.Thread | None = None
         self._stopping = False
@@ -339,9 +344,20 @@ class Engine:
         with self._lock:
             out = self.scheduler.loads()
             out["audit"] = self._audit_locked()
+            # the graph families' launch and capture counts (a cheap
+            # snapshot; the full pass is program_audit())
+            out["programs"] = self.runner._programs.snapshot()
         out["healthy"] = self.healthy
         out["watchdog_stalls"] = self.num_watchdog_stalls
         return out
+
+    def program_audit(self) -> dict:
+        """The graph-family audit (``runtime_guards.ProgramAuditor``): arm
+        ``self.runner._programs`` after warmup, run steady-state traffic,
+        then call this.  Every input on this engine's device, the KV cache
+        and every graph's static buffers in their storage across replays,
+        and provenance for every capture while armed."""
+        return self.runner.program_audit()
 
     def _audit_locked(self) -> dict:
         out = self.scheduler.audit()
@@ -541,16 +557,27 @@ class Engine:
         return outputs
 
     def _deliver(self, outputs: list[RequestOutput]) -> None:
-        for out in outputs:
-            cb = self._callbacks.get(out.rid)
-            if cb is None:
-                continue
+        """Run the outputs' callbacks in order, outside the engine lock: the
+        callback map is read, and a finished request's entry popped, under
+        it (``abort`` and ``submit`` write the map from other threads), and
+        no callback runs under it, so the locks a callback takes (the
+        gateway's) never nest inside the engine's."""
+        if not outputs:
+            return
+        calls = []
+        with self._lock:
+            for out in outputs:
+                cb = self._callbacks.get(out.rid)
+                if cb is None:
+                    continue
+                if out.finished:
+                    self._callbacks.pop(out.rid, None)
+                calls.append((cb, out))
+        for cb, out in calls:
             try:
                 cb(out)
             except Exception:
                 logger.exception("output callback failed for %s", out.rid)
-            if out.finished:
-                self._callbacks.pop(out.rid, None)
 
     def _postprocess(self, so: StepOutput) -> RequestOutput:
         """Detokenise a step's increment and scan it for stop strings token

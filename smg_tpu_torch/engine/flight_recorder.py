@@ -46,10 +46,10 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from collections import deque
 
+from smg_tpu_torch.analysis.runtime_guards import make_lock
 from smg_tpu_torch.faults import FAULTS
 from smg_tpu_torch.utils import get_logger, percentile
 
@@ -169,7 +169,7 @@ class FlightRecorder:
         self.events_per_timeline = events_per_timeline
         self.dump_dir = dump_dir
         self.dump_min_interval_secs = dump_min_interval_secs
-        self._lock = threading.Lock()
+        self._lock = make_lock("flight_recorder")
         self._ring: deque = deque(maxlen=ring_size)
         self._live: dict[str, RequestTimeline] = {}
         self._finished: deque = deque(maxlen=timeline_keep)

@@ -42,6 +42,15 @@ draft counts ride a device tensor, so one graph serves every draft count.
 A graph captured on the card never falls back to eager launches: a failed
 warm-up or capture raises.
 
+Every shape is registered with the runner's ``ProgramAuditor``
+(``analysis/runtime_guards.py``) under its family and key (``("decode", B,
+mp, K, E, use_pen, use_mask, use_lora, use_mrope)``, ``("verify", B, mp, W,
+use_mrope)``): the runner launches a shape through ``step.launch``, which
+the auditor records once armed, and ``drop`` returns the keys of the shapes
+it lets go so the runner forgets their records.  Each capture counts in the
+process capture counter (``runtime_guards.note_capture``), which the
+steady-state guard reads.
+
 Every ``GraphCache`` of a device captures on that device's one capture
 stream (``_DeviceCapture``).  PyTorch keeps a cuBLAS workspace for every
 (cuBLAS handle, stream) pair that ran a product and never frees it, so a
@@ -61,7 +70,12 @@ import weakref
 import numpy as np
 import torch
 
+from smg_tpu_torch.analysis.runtime_guards import ProgramAuditor, note_capture
 from smg_tpu_torch.ops.cuda import decode_attention
+
+#: the key fields of each family after its name (``ProgramAuditor`` provenance)
+DECODE_FIELDS = ("B", "mp", "K", "E", "use_pen", "use_mask", "use_lora", "use_mrope")
+VERIFY_FIELDS = ("B", "mp", "W", "use_mrope")
 
 
 class Megastep:
@@ -105,6 +119,9 @@ class Megastep:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: tuple | None = None  # the graph's static outputs
         self.replay_launches = 0  # decode-kernel launches one replay runs
+        # the persistent inputs by name (a graph reads them at their addresses)
+        self.buffers = {k: v for k, v in vars(self).items() if isinstance(v, torch.Tensor)}
+        self.launch = None  # the auditor's wrapper of GraphCache.run (GraphCache.get)
 
     def load(self, ds, tokens, positions: np.ndarray, counter: int,
              mask: np.ndarray | None = None) -> None:
@@ -165,6 +182,8 @@ class VerifyStep:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs: tuple | None = None
         self.replay_launches = 0  # decode-kernel launches one replay runs (none)
+        self.buffers = {k: v for k, v in vars(self).items() if isinstance(v, torch.Tensor)}
+        self.launch = None
 
     def load(self, tokens, draft_n, positions, page_tables, temps, topks, topps, minps,
              counter: int, rope_delta=None) -> None:
@@ -230,9 +249,10 @@ class _DeviceCapture:
 class GraphCache:
     """The runner's megasteps, keyed by shape, and their capture record."""
 
-    def __init__(self, device: torch.device, use_graphs: bool):
+    def __init__(self, device: torch.device, use_graphs: bool, programs: ProgramAuditor):
         self.device = device
         self.use_graphs = use_graphs and device.type == "cuda"
+        self.programs = programs  # the runner's auditor: every shape registers there
         self.steps: dict[tuple, Megastep] = {}
         self.verify: dict[tuple, VerifyStep] = {}
         self.capture_s = 0.0  # all graphs
@@ -264,6 +284,9 @@ class GraphCache:
         if step is None:
             step = self.steps[key] = Megastep(self.device, B, mp, K, E, use_pen, use_mask,
                                               vocab, use_lora, use_mrope)
+            donate = ("k_cache", "v_cache") + (("counts",) if use_pen else ())
+            step.launch = self.programs.wrap(("decode", *key), self._launcher(step),
+                                             fields=DECODE_FIELDS, donate=donate)
         return step
 
     def get_verify(self, B: int, mp: int, W: int, use_mrope: bool = False) -> VerifyStep:
@@ -271,7 +294,31 @@ class GraphCache:
         step = self.verify.get(key)
         if step is None:
             step = self.verify[key] = VerifyStep(self.device, B, mp, W, use_mrope)
+            step.launch = self.programs.wrap(("verify", *key), self._launcher(step),
+                                             fields=VERIFY_FIELDS, donate=("k_cache", "v_cache"))
         return step
+
+    def _launcher(self, step):
+        """``run`` for ``step``, looked up at each launch (a caller may wrap
+        the cache's ``run`` to time it); the launch's named inputs are the
+        auditor's record alone."""
+        return lambda body, inputs: self.run(step, body)
+
+    def drop(self, kind: str | None = None) -> list:
+        """Let go of every shape (``kind`` None) or of one family's
+        (``"decode"``, ``"verify"``); returns the dropped keys, family
+        first, as the auditor knows them.  Later captures go to a fresh
+        memory pool: the allocator retires a pool once no graph holds it,
+        and a capture into a retired pool fails; the old pool's memory
+        returns once the graphs still holding it go."""
+        dropped = []
+        for family, steps in (("decode", self.steps), ("verify", self.verify)):
+            if kind in (None, family):
+                dropped += [(family, *k) for k in steps]
+                steps.clear()
+        if dropped and self.use_graphs:
+            self.pool = torch.cuda.graph_pool_handle()
+        return dropped
 
     def run(self, step, body) -> tuple:
         """One launch of ``step`` (a ``Megastep`` or a ``VerifyStep``):
@@ -313,6 +360,7 @@ class GraphCache:
         step.replay_launches = decode_attention.launches - before
         decode_attention.launches = before
         step.graph, step.outputs = graph, outputs
+        note_capture()
         grown = torch.cuda.memory_reserved(self.device) - reserved0
         took = time.perf_counter() - t0
         self.capture_bytes += grown

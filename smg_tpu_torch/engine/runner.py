@@ -7,8 +7,14 @@ it (the tests do).  Prefill runs eagerly at its exact shapes.  Decode runs
 as megasteps at bucketed shapes; on the card each shape is replayed from a
 CUDA graph (``engine/graphs.py``) unless the configuration asks for eager
 launches (``EngineConfig.decode_graphs=False``); the CPU always runs them
-eagerly.  Cache writes are in place, so the JAX runner's donation policy,
-sharding and program auditor have no counterpart.
+eagerly.  Cache writes are in place, so the JAX runner's donation policy
+and sharding have no counterpart.  Its program auditor does: every graph
+family registers with ``self._programs`` (``analysis/runtime_guards.py``
+``ProgramAuditor``), which, armed after warmup, records each launch's
+inputs (the graph's static buffers and the KV cache) and audits device
+placement, storage kept across replays and capture provenance
+(``program_audit``); ``invalidate_graphs`` drops shapes and forgets their
+records.
 
 Penalties keep per-slot state on the device, as the JAX runner does: a
 ``[S+1, V]`` int32 count buffer and a bool prompt-mask buffer (row S is the
@@ -50,6 +56,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from smg_tpu_torch.analysis.runtime_guards import ProgramAuditor
 from smg_tpu_torch.engine.config import EngineConfig
 from smg_tpu_torch.engine.graphs import GraphCache, Megastep, VerifyStep
 from smg_tpu_torch.engine.kv_cache import (
@@ -204,7 +211,9 @@ class ModelRunner:
         # rewinds it with integer arithmetic (rng_mark / rng_restore)
         self.sample_seed = config.seed ^ 0x5EED
         self._step = 0
-        self.graphs = GraphCache(self.device, config.decode_graphs)
+        # every graph family's launches, once armed (program_audit)
+        self._programs = ProgramAuditor(self.device, shared=("k_cache", "v_cache"))
+        self.graphs = GraphCache(self.device, config.decode_graphs, programs=self._programs)
         self._counters = None  # decode kernel arrival counters (card, kernel path)
         # penalty slot state, created at the first penalised launch (most
         # workloads never set a penalty): [S+1, V] int32 output counts and
@@ -221,6 +230,29 @@ class ModelRunner:
         # PD handoffs by leg and route (export_pages*/import_pages*)
         self.kv_handoffs = dict(export_host=0, export_device=0, import_host=0,
                                 import_device=0)
+
+    # ---- graph families: audit and invalidation ----
+
+    def _graph_inputs(self, step) -> dict:
+        """What a launch of ``step`` reads at fixed addresses: its static
+        buffers, the KV cache and, with penalties, the slot rows."""
+        inputs = dict(step.buffers, k_cache=self.k_cache, v_cache=self.v_cache)
+        if getattr(step, "use_pen", False):
+            inputs.update(counts=self._counts_buf, prompt_mask=self._pmask_buf)
+        return inputs
+
+    def invalidate_graphs(self, kind: str | None = None) -> None:
+        """Drop graph shapes (all, or the ``"decode"`` or ``"verify"``
+        family) and forget their audit records; the next launch of a shape
+        captures it again."""
+        self._programs.forget(self.graphs.drop(kind))
+
+    def program_audit(self) -> dict:
+        """Audit every recorded graph family (``ProgramAuditor.audit``): arm
+        ``self._programs`` after warmup, run steady-state traffic, then call
+        this; ``report["clean"]`` asserts every input on this device, no
+        storage moved between launches and every capture explained."""
+        return self._programs.audit()
 
     # ---- sampling counter ----
 
@@ -490,7 +522,7 @@ class ModelRunner:
                 self.k_cache.dtype, max(self.config.scheduler.decode_batch_buckets),
                 cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
                 dtype=torch.int32, device=self.device)
-        toks, lps, steps_run = self.graphs.run(step, self._megastep)
+        toks, lps, steps_run = step.launch(self._megastep, self._graph_inputs(step))
         self.stats["decode_calls"] += 1
         self.stats["decode_columns"] += num_steps
         last_col = toks[:, num_steps - 1].clone()
@@ -613,7 +645,7 @@ class ModelRunner:
         step = self.graphs.get_verify(B, mp, W, rope_delta is not None)
         step.load(tokens, draft_n, positions, page_tables, temps, topks, topps, minps,
                   self._consume_folds(1), rope_delta)
-        toks, lps, n_emit = self.graphs.run(step, self._verify_step)
+        toks, lps, n_emit = step.launch(self._verify_step, self._graph_inputs(step))
         self.stats["verify_calls"] += 1
         if self.device.type != "cuda":
             return SpecLaunch(toks, lps, n_emit, None)

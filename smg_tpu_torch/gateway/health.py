@@ -1,5 +1,5 @@
 """Background worker health monitoring — the port's copy of
-``smg_tpu/gateway/health.py`` (without the DP-rank load seeding).
+``smg_tpu/gateway/health.py`` (with the DP-rank load seeding).
 
 Reference: ``model_gateway/src/worker/manager.rs`` — periodic health checks
 with consecutive fail/success thresholds (``main.rs:521-556``), and the
@@ -28,10 +28,13 @@ class HealthConfig:
 
 class HealthMonitor:
     def __init__(self, registry: WorkerRegistry, config: HealthConfig | None = None,
-                 metrics=None):
+                 metrics=None, dp_loads=None):
         self.registry = registry
         self.config = config or HealthConfig()
         self.metrics = metrics
+        # DpLoadManager to seed with worker-reported per-rank queued tokens
+        # (keeps gateway estimates honest against externally-submitted work)
+        self.dp_loads = dp_loads
         self._task: asyncio.Task | None = None
         self._fails: dict[str, int] = {}
         self._succs: dict[str, int] = {}
@@ -90,6 +93,16 @@ class HealthMonitor:
         except Exception:
             ok = False
         wid = worker.worker_id
+        if ok and self.dp_loads is not None and getattr(worker, "dp_size", 1) > 1:
+            try:
+                loads = await asyncio.wait_for(
+                    worker.client.get_loads(), timeout=self.config.timeout_secs
+                )
+                ranks = loads.get("dp_queued_tokens") or []
+                if ranks:
+                    self.dp_loads.seed(wid, ranks)
+            except Exception:
+                pass  # health result stands; dp seeding is best-effort
         if ok:
             self._fails[wid] = 0
             self._succs[wid] = self._succs.get(wid, 0) + 1

@@ -136,9 +136,9 @@ def load_tokenizer(path: str):
 
 def gateway_options(args) -> dict:
     """``AppContext`` keyword arguments from the parsed ``serve`` flags:
-    the router's retries, parser, harmony and timeout settings, the
-    cache-aware knobs, auth, rate limits, priority admission, health checks,
-    breakers, CORS, the tenant and request-id headers, SLO specs, the
+    the router's retries, parser, harmony, timeout and DP-rank settings,
+    the cache-aware and prefix-hash knobs, auth, rate limits, priority
+    admission, health checks, breakers, CORS, the tenant and request-id headers, SLO specs, the
     conversation storage spec and OTel export (the reference's
     flag-to-config mapping)."""
     from smg_tpu_torch.gateway.health import HealthConfig
@@ -155,6 +155,9 @@ def gateway_options(args) -> dict:
         # engine expires abandoned work instead of decoding into the void
         request_timeout_secs=args.request_timeout_secs,
         kv_connector=args.kv_connector,
+        # min-token replica pinning is the default; --no-dp-aware lets the
+        # worker balance its replicas
+        dp_rank_policy="dp_min_token" if args.dp_aware else "dp_passthrough",
     )
     policy_kwargs = {}
     if args.policy == "cache_aware":
@@ -165,6 +168,8 @@ def gateway_options(args) -> dict:
             "max_tree_size": args.max_tree_size,
             "page_size": args.block_size,
         }
+    elif args.policy == "prefix_hash":
+        policy_kwargs = {"prefix_tokens": args.prefix_token_count}
     auth_config = None
     if args.api_keys or args.jwt_secret or args.jwt_jwks_uri:
         from smg_tpu_torch.gateway.auth import AuthConfig, JwksVerifier, Principal

@@ -15,7 +15,6 @@ arrivals: nothing here waits on the card.
 from __future__ import annotations
 
 import contextvars
-import threading
 import time
 from collections import deque
 from contextlib import contextmanager
@@ -28,6 +27,7 @@ from prometheus_client import (
     generate_latest,
 )
 
+from smg_tpu_torch.analysis.runtime_guards import make_lock
 from smg_tpu_torch.utils import percentile
 
 LATENCY_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
@@ -309,7 +309,7 @@ class SloTracker:
     def __init__(self, metrics: "Metrics | None" = None, keep: int = 256):
         self.metrics = metrics
         self.keep = keep
-        self._lock = threading.Lock()
+        self._lock = make_lock("slo_tracker")
         self._done: deque = deque(maxlen=keep)
         self.num_requests = 0
 

@@ -1,7 +1,7 @@
 """Routing decision observability: the gateway-side twin of the engine
 flight recorder, for the routing plane — the port's copy of
-``smg_tpu/gateway/route_observability.py`` (plain ``threading`` locks in
-place of the reference's lock-order sentinel).
+``smg_tpu/gateway/route_observability.py`` (its lock from ``make_lock``,
+as the reference's).
 
 Reference posture: the reference's cache-aware routing
 (``model_gateway/src/policies/cache_aware.rs``) is its flagship value-add,
@@ -33,7 +33,6 @@ routing plane accountable:
 from __future__ import annotations
 
 import itertools
-import threading
 import time
 from bisect import bisect_left
 from collections import deque
@@ -45,6 +44,7 @@ from prometheus_client.core import (
     HistogramMetricFamily,
 )
 
+from smg_tpu_torch.analysis.runtime_guards import make_lock
 from smg_tpu_torch.gateway.tracing import current_span
 from smg_tpu_torch.policies.base import DECISION_SCHEMA_VERSION, RouteDecision
 from smg_tpu_torch.utils import get_logger
@@ -218,7 +218,7 @@ class RouteObservability:
         )
         r.register(_CacheIndexCollector(self))
 
-        self._lock = threading.Lock()
+        self._lock = make_lock("route_observability")
         self._serial = itertools.count(1)
         self._rings: dict[str, deque] = {}
         self.num_decisions = 0
@@ -267,7 +267,7 @@ class RouteObservability:
         # lock-free dict probe on purpose: this rides EVERY select_worker
         # call inside the ≤2% overhead budget; dict.get is GIL-atomic and a
         # miss falls through to the locked setdefault below
-        ring = self._rings.get(key)
+        ring = self._rings.get(key)  # smglint: disable=GUARDED hot-path probe; locked setdefault on miss
         if ring is None:
             with self._lock:
                 ring = self._rings.setdefault(

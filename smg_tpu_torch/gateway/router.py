@@ -27,8 +27,12 @@ HTTP workers (``gateway/http_worker.py``, ``proxy_mode``) never serve the
 token-level path: ``select_proxy_worker`` and ``select_pd_http_pair`` pick
 them for the server's text-level proxy, PD over HTTP included.
 
-Not ported yet: DP-rank pinning, the Anthropic messages API and the
-responses API.
+DP-rank pinning: after the policy picks a worker with data-parallel
+replicas (``dp_size`` > 1), ``RouterConfig.dp_rank_policy`` picks the
+replica (``policies/dp.py``: ``dp_min_token`` charges the request's prompt
+plus generation budget to the least-loaded rank and releases it when the
+stream ends; ``dp_passthrough`` lets the worker balance, as the wire's -1
+does).  Not ported yet: the Anthropic messages API.
 """
 
 from __future__ import annotations
@@ -98,6 +102,10 @@ class RouterConfig:
     # request the HTTP layer would abandon also stops consuming engine slots
     # and pages, and a retry carries only what is left, not a fresh budget
     request_timeout_secs: float | None = None
+    # DP-rank stage for dp_size>1 workers: "dp_min_token" pins each request to
+    # the replica with the fewest outstanding tokens; "dp_passthrough" lets
+    # the worker balance locally (reference: dp_min_token.rs:24-31)
+    dp_rank_policy: str = "dp_min_token"
 
 
 @dataclass
@@ -131,6 +139,20 @@ class Router:
         # recorded here, at dispatch, where chunk usage originates from the
         # scheduler's admission-time accounting
         self.metrics = metrics
+        from smg_tpu_torch.policies.dp import MinimumTokensPolicy, PassthroughDpPolicy
+
+        self.dp_policy = (
+            PassthroughDpPolicy()
+            if self.config.dp_rank_policy == "dp_passthrough"
+            else MinimumTokensPolicy()
+        )
+        manager = getattr(self.dp_policy, "manager", None)
+        if manager is not None:
+            registry.on_change(
+                lambda ev, w: manager.on_worker_removed(w.worker_id)
+                if ev == "removed"
+                else None
+            )
 
     # ---- worker selection ----
 
@@ -285,6 +307,8 @@ class Router:
             return
         attempts = 0
         saw_queue_full = False
+        # dp-rank cost estimate: prompt + generation budget (released on exit)
+        dp_cost = len(input_ids) + (worker_sampling.max_new_tokens or 0)
         # remaining-budget deadline for --request-timeout-secs: each
         # (re)dispatch hands the engine only what is left
         budget_deadline = (
@@ -310,6 +334,7 @@ class Router:
                 guard = worker.acquire()
                 got_first_chunk = False
                 finished_cleanly = False
+                dp_rank = self.dp_policy.select_dp_rank(worker, dp_cost)
                 # engine-stage child spans under the request's span: prefill =
                 # dispatch -> first chunk, decode = first chunk -> finish;
                 # None (no cost) without a configured tracer
@@ -338,6 +363,7 @@ class Router:
                     wreq = WorkerGenerateRequest(
                         rid=rid, input_ids=input_ids, sampling=worker_sampling,
                         mm_embeds=mm,
+                        data_parallel_rank=-1 if dp_rank is None else dp_rank,
                         timeout_secs=(max(budget_deadline - time.monotonic(), 0.0)
                                       if budget_deadline is not None else None),
                     )
@@ -456,6 +482,8 @@ class Router:
                     await asyncio.sleep(backoff)
                 finally:
                     _close_spans(error=not finished_cleanly)
+                    if dp_rank is not None:
+                        self.dp_policy.release(worker, dp_rank, dp_cost)
                     if not finished_cleanly:
                         guard.release(success=True)  # no-op if already released
         finally:
@@ -909,6 +937,7 @@ class Router:
             route = next((e for e in eg.exceptions if isinstance(e, RouteError)), None)
             raise route if route is not None else eg.exceptions[0]
         # every task is done after the TaskGroup exits: result() does not wait
+        # smglint: disable-next=ASYNCBLOCK tasks are done after TaskGroup exit
         results = [t.result() for t in tasks]
         choices = [c for c, _ in results]
         usage = UsageInfo(

@@ -153,7 +153,10 @@ class AppContext:
         # register
         self._adopted_engine_metrics: set[int] = set()
         self.registry.on_change(self._maybe_adopt_worker_metrics)
-        self.health_monitor = HealthMonitor(self.registry, health_config, self.metrics)
+        self.health_monitor = HealthMonitor(
+            self.registry, health_config, self.metrics,
+            dp_loads=getattr(self.router.dp_policy, "manager", None),
+        )
         self.auth = Authenticator(auth_config or AuthConfig())
         # extra headers accepted as the request id (--request-id-headers)
         self.request_id_headers = list(request_id_headers or [])

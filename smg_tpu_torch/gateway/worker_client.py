@@ -36,6 +36,9 @@ class WorkerGenerateRequest:
     input_ids: list[int]
     sampling: SamplingParams
     stream: bool = True
+    # external DP dispatch: pin to one of the worker's engine replicas (-1 =
+    # the worker chooses)
+    data_parallel_rank: int = -1
     # multimodal splice (embeds, positions[, grids])
     mm_embeds: tuple | None = None
     # remaining client budget in seconds: the engine expires the request in

@@ -1,5 +1,6 @@
 """Worker abstraction, registry, circuit breaker, load guards — the port's
-copy of ``smg_tpu/gateway/workers.py`` (plain ``threading`` locks).
+copy of ``smg_tpu/gateway/workers.py`` (locks from ``make_lock``, as the
+reference's).
 
 Reference: ``model_gateway/src/worker/`` (SURVEY.md §2.1): ``trait Worker``
 (url/type/status/load/circuit-breaker, ``worker.rs:193-390``),
@@ -10,10 +11,10 @@ Reference: ``model_gateway/src/worker/`` (SURVEY.md §2.1): ``trait Worker``
 from __future__ import annotations
 
 import enum
-import threading
 import time
 from typing import Callable
 
+from smg_tpu_torch.analysis.runtime_guards import make_lock
 from smg_tpu_torch.gateway.worker_client import WorkerClient
 from smg_tpu_torch.utils import get_logger
 
@@ -65,7 +66,7 @@ class CircuitBreaker:
         # would starve real probes.  The timestamp self-heals a probe whose
         # outcome never lands (client vanished before record_*).
         self._probe_started: float | None = None
-        self._lock = threading.Lock()
+        self._lock = make_lock("breaker")
 
     def _state_locked(self) -> CircuitState:
         if (
@@ -174,7 +175,7 @@ class Worker:
         self.healthy = True
         self.draining = False  # drain-before-remove: no new selections
         self._load = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("worker")
         self.registered_at = time.time()
         self.total_requests = 0
         self.total_failures = 0
@@ -184,7 +185,7 @@ class Worker:
         # lock-free on purpose: routing policies read every candidate's load
         # per decision (~µs budget), and a torn read is impossible for a
         # GIL-atomic int — worst case the policy sees a load one request old
-        return self._load
+        return self._load  # smglint: disable=GUARDED hot-path snapshot read; GIL-atomic int
 
     def is_available(self) -> bool:
         return self.healthy and not self.draining and self.circuit.allow()
@@ -267,7 +268,7 @@ class WorkerRegistry:
 
     def __init__(self):
         self._workers: dict[str, Worker] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("worker_registry")
         self._listeners: list[Callable[[str, Worker], None]] = []
         # per-REGISTRY breaker defaults (CLI --cb-*): applied as workers
         # register, so two gateways in one process keep their own settings

@@ -5,7 +5,8 @@ One shared library with a plain C interface, compiled by ``nvcc`` for Hopper
 build, where an extension that includes PyTorch's headers takes minutes.
 The library lands in ``smg_tpu_torch/_build/`` (git-ignored), named by a
 hash of the sources and flags, so an edited source rebuilds and an
-unchanged one is reused.
+unchanged one is reused.  A build counts in the process capture counter
+(``analysis/runtime_guards.py``): steady-state decode must build nothing.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+from smg_tpu_torch.analysis.runtime_guards import note_capture
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -90,6 +93,7 @@ def build(verbose: bool = False) -> Path:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
         os.replace(staged, lib_path)  # atomic: a concurrent build sees whole files
+    note_capture()
     return lib_path
 
 

@@ -1,5 +1,6 @@
 """Cache-aware routing — the port's copy of
-``smg_tpu/policies/cache_aware.py`` (over the Python radix tree only).
+``smg_tpu/policies/cache_aware.py`` (the native radix tree of
+``kv_index/native.py`` where it builds, the Python tree otherwise).
 
 Reference: ``model_gateway/src/policies/cache_aware.rs:1-41`` (2,366 LoC) —
 the flagship policy, three cache-state modes:
@@ -20,7 +21,6 @@ from __future__ import annotations
 import random as _random
 
 from smg_tpu_torch.kv_index.positional import PositionalIndexer
-from smg_tpu_torch.kv_index.radix_tree import RadixTree
 from smg_tpu_torch.policies.base import Policy, RequestContext, register_policy
 
 
@@ -44,8 +44,10 @@ class CacheAwarePolicy(Policy):
         self.match_threshold = match_threshold
         self.imbalance_abs = imbalance_abs
         self.imbalance_rel = imbalance_rel
-        # the Python tree (the JAX package's native C++ tree is not ported)
-        self.tree = RadixTree(max_tree_size)
+        # native C++ tree when the toolchain built it; Python tree otherwise
+        from smg_tpu_torch.kv_index.native import make_radix_tree
+
+        self.tree = make_radix_tree(max_tree_size)
         self.indexer = PositionalIndexer(page_size=page_size)
         self._rng = _random.Random(seed)
         self.num_inserted_prefixes = 0  # local + remote tree inserts

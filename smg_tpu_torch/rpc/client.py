@@ -4,8 +4,8 @@ scheduler protocol (channel reuse, abort-on-drop, KV-event subscription,
 the remaining deadline on the proto, ``RESOURCE_EXHAUSTED`` as queue-full),
 with grpc.aio and hand-wired method stubs.  The PD legs move the KV as host
 bytes (``rpc/convert.py``); the reference's ``transfer`` connector and its
-``release_kv_offer`` are not ported, and every request lets the worker
-pick its replica (``data_parallel_rank`` -1).
+``release_kv_offer`` are not ported.  A request carries the replica the
+router's DP policy pinned (``data_parallel_rank``), -1 when it pinned none.
 """
 
 from __future__ import annotations
@@ -223,7 +223,7 @@ class GrpcWorkerClient(WorkerClient):
         msg = pb.GenerateRequestProto(
             rid=req.rid, input_ids=req.input_ids,
             sampling=sampling_to_proto(req.sampling),
-            data_parallel_rank=-1,
+            data_parallel_rank=req.data_parallel_rank,
             timeout_secs=0.0 if budget is None else max(budget, 1e-3),
         )
         mm = mm_embeds_to_proto(getattr(req, "mm_embeds", None))

@@ -89,8 +89,7 @@ def test_launch_flag_has_the_reference_dest_default_and_type(flag):
 #: module it waits for (ROADMAP Queue A)
 REFUSED = [["--provider-config", "p.json"], ["--plugins", "p.py"], ["--plugin-fail-closed"],
            ["--mesh-port", "7946"], ["--mesh-seed", "h:1"], ["--mesh-tls-cert", "c"],
-           ["--mesh-tls-key", "k"], ["--mesh-tls-ca", "a"], ["--prefix-token-count", "8"],
-           ["--dp-aware"], ["--no-dp-aware"]]
+           ["--mesh-tls-key", "k"], ["--mesh-tls-ca", "a"]]
 
 
 def test_every_reference_launch_flag_is_taken_or_refused():
@@ -104,6 +103,30 @@ def test_launch_flags_of_unported_modules_are_refused(argv):
     jcli.build_parser().parse_args(["launch", *argv])  # the reference takes it
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(["launch", *argv])
+
+
+#: the routing flags the hashing and DP-rank policies brought (they left
+#: ``REFUSED``): the argv, then the policy, its ``prefix_tokens`` and the
+#: router's DP-rank policy they must give
+ROUTING_FLAGS = [
+    (["--policy", "prefix_hash", "--prefix-token-count", "8"], ("prefix_hash", 8, "dp_min_token")),
+    (["--dp-aware"], ("cache_aware", None, "dp_min_token")),
+    (["--no-dp-aware"], ("cache_aware", None, "dp_passthrough")),
+]
+
+
+@pytest.mark.parametrize("argv,want", ROUTING_FLAGS, ids=[a[-1] if a[-1].startswith("--")
+                                                         else a[-2] for a, _ in ROUTING_FLAGS])
+def test_routing_flag_parses_as_the_reference_and_reaches_the_router(argv, want):
+    from smg_tpu_torch.gateway.server import AppContext
+
+    ref, port = (vars(m.build_parser().parse_args(["launch", *argv])) for m in (jcli, tcli))
+    ref0, port0 = (vars(m.build_parser().parse_args(["launch"])) for m in (jcli, tcli))
+    for dest in ("policy", "prefix_token_count", "dp_aware"):
+        assert (port[dest], port0[dest]) == (ref[dest], ref0[dest]), dest
+    ctx = AppContext(**launch.gateway_options(tcli.build_parser().parse_args(["launch", *argv])))
+    pol = ctx.policies.policy_for(None)
+    assert (pol.name, getattr(pol, "prefix_tokens", None), ctx.router.dp_policy.name) == want
 
 
 @pytest.mark.parametrize("command", ["serve", "launch"])
@@ -187,15 +210,19 @@ def test_raise_on_errors_collects_all_and_warns():
 
 def test_gateway_config_rules():
     """``validate_gateway_config``'s cases (``tests/test_aux.py``); an
-    unknown policy names the policies the port has."""
+    unknown policy names the reference's policies, every one of which the
+    port has."""
     for kw in (dict(policy="round_robin", workers=["h:1"]), dict(prefill_workers=["h:1"]),
                dict(workers=["ftp://x"]), dict(workers=["http://x:8000"]),
                dict(kv_connector="transfer"), dict(mesh_port=0), dict(mesh_port=65536)):
         assert ([tuple(vars(i).values()) for i in tval.validate_gateway_config(**kw)]
                 == [tuple(vars(i).values()) for i in jval.validate_gateway_config(**kw)])
     [issue] = tval.validate_gateway_config(policy="nope")
+    [ref] = jval.validate_gateway_config(policy="nope")
     assert (issue.severity, issue.field) == ("error", "policy")
-    assert "'round_robin'" in issue.message and "'prefix_hash'" not in issue.message
+    assert issue.message == ref.message and "'prefix_hash'" in issue.message
+    for name in ("prefix_hash", "consistent_hashing"):
+        assert tval.validate_gateway_config(policy=name) == []
 
 
 @pytest.mark.parametrize("argv", [
