@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases launch   # build + kernels + phase 14 only
     python3 chip_smoke.py --phases routing   # build + kernels + phase 14 (c) only
     python3 chip_smoke.py --phases responses   # build + kernels + phase 15 only
+    python3 chip_smoke.py --phases messages   # build + kernels + phase 15's gateway, phase 16
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -243,7 +244,10 @@ Phases (any failure makes the script exit non-zero and print no result):
    the same ids sharing none, the decode column of 4 image lanes against 4
    text lanes, the 1280-token image request's TTFT split into encode and
    prefill, and one image chat over HTTP (a PNG data URI) equal to the same
-   pipeline driven directly; then the first 4 layers through the three
+   pipeline driven directly, and the same message through ``/v1/messages``
+   with the image as an Anthropic base64 ``source`` block: its greedy text
+   equal to the chat's, stop reason ``max_tokens``, the same prompt tokens;
+   then the first 4 layers through the three
    paths in float32 (greedy streams identical, the text request equal to
    itself alone) and the graph and plain paths in bf16, held to the
    float32 run as in phase 3;
@@ -341,15 +345,44 @@ Phases (any failure makes the script exit non-zero and print no result):
    400.  Readings: wall ms per turn of ``/v1/responses`` against the direct
    chat (medians of 3, cold radix), turn 3's prompt and cached tokens, the
    MCP call's ms from the handler's call to the tool's answer;
+16. the Anthropic Messages API, third-party providers and per-model
+   routers, over phase 15's gateway and engine (no second load), every
+   request greedy from a cold prefix cache and its kernel launches counted
+   over the whole phase (32 x decode columns, 32 x prefill calls).  (a)
+   ``/v1/messages`` with a system prompt and user, assistant and user turns
+   (32 tokens at temperature 0), unstreamed and streamed: the text of
+   ``/v1/chat/completions`` on the same messages exactly, ``usage`` equal
+   to the chat's, stop reason ``max_tokens``, the events in the bridge's
+   grammar (``message_start``, ``content_block_start``,
+   ``content_block_delta``..., ``content_block_stop``, ``message_delta``,
+   ``message_stop``) with the text deltas joining to the text.  (b) a
+   ``launch --provider-config`` process with no worker, started before
+   phase 15's engine loads, with three providers (``openai``,
+   ``anthropic``, ``xai``) all pointing at phase 15's gateway: its
+   ``/v1/models`` lists them; chat through each, streamed and not, and
+   ``/v1/messages`` over ``openai`` (the bridge), streamed and not, give
+   (a)'s text (the ``anthropic`` provider posting to the gateway's own
+   ``/v1/messages``); ``/v1/responses`` over ``xai`` (upstream, where the
+   handler adds the MCP tool) equals a chat with that tool, and over
+   ``openai`` (the chat adapter) a chat without it.  (c) ``POST
+   /models/<model>/router`` with an unknown field is a 400 that leaves
+   ``/routers`` as it was; with ``default_max_tokens`` 16 the chat gives
+   (a)'s text and a chat with no budget 16 tokens; ``/routers`` shows the
+   dedicated router, ``DELETE`` restores the default.  (d) readings, not
+   claims: lone TTFT and wall ms (16 tokens, medians of 5) of the direct
+   chat, ``/v1/messages``, chat through each provider hop and
+   ``/v1/messages`` through the ``openai`` hop; the host ms the bridge
+   spends per ``/v1/messages`` request; the phase's seconds;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
    10's, ``launches_vision`` from phase 12's bf16 serving paths,
    ``launches_pd`` from phase 13's bf16 PD path, ``launches_launch``
-   from phase 14's worker processes and ``launches_responses`` from phase
-   15's conversation turns) and, last, ``{"ok": true, "device": ...}``
-   (``--phases kernels``, ``checkpoint``, ``moe``, ``api``, ``vision``,
-   ``pd``, ``launch``, ``routing`` and ``responses`` print neither).
+   from phase 14's worker processes, ``launches_responses`` from phase
+   15's conversation turns and ``launches_messages`` from phase 16) and,
+   last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
+   ``checkpoint``, ``moe``, ``api``, ``vision``, ``pd``, ``launch``,
+   ``routing``, ``responses`` and ``messages`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -5360,7 +5393,8 @@ def vl_http(engine, processed: dict, tok, label: str) -> dict:
     this engine on a free local port), the image a PNG data URI: the reply's
     tokens equal the same pipeline driven directly (processor, encode, the
     placeholder expanded, ``submit``), each alone with the prefix cache
-    flushed."""
+    flushed; then the same message through ``/v1/messages`` with the image
+    as an Anthropic base64 ``source`` block gives the chat's text."""
     import asyncio
     import base64
     import threading
@@ -5423,6 +5457,16 @@ def vl_http(engine, processed: dict, tok, label: str) -> dict:
             "model": model_id, "messages": messages, "max_tokens": 8, "temperature": 0,
             "ignore_eos": True})
         http_ms = (time.perf_counter() - t0) * 1e3
+        # the same message through /v1/messages, the image an Anthropic
+        # base64 source block, from a cold prefix cache as the chat ran
+        anth = [{"role": "user", "content": [
+            {"type": "text", "text": text_a},
+            {"type": "image", "source": {"type": "base64", "media_type": "image/png",
+                                         "data": base64.b64encode(png).decode()}},
+            {"type": "text", "text": text_b}]}]
+        _http(port, "POST", "/flush_cache")
+        m_status, m_body = _http(port, "POST", "/v1/messages", {
+            "model": model_id, "messages": anth, "max_tokens": 8, "temperature": 0})
     finally:
         if "stop" in held:
             held["loop"].call_soon_threadsafe(held["stop"].set)
@@ -5441,8 +5485,18 @@ def vl_http(engine, processed: dict, tok, label: str) -> dict:
     if reply != direct or usage["prompt_tokens"] != len(ids):
         raise AssertionError(f"[{label}] HTTP image chat {reply} ({usage}) != direct {direct} "
                              f"({len(ids)} prompt tokens)")
+    m_body = m_body if isinstance(m_body, dict) else {"error": m_body}
+    m_text = "".join(b.get("text") or "" for b in m_body.get("content", [])
+                     if b.get("type") == "text") if m_status == 200 else None
+    print(f"  [{label}] the same image message through /v1/messages (a base64 source block): "
+          f"{m_status}, stop {m_body.get('stop_reason')}, text equal to the chat's: "
+          f"{m_text == body['choices'][0]['message']['content']}")
+    if (m_status != 200 or m_text != body["choices"][0]["message"]["content"]
+            or m_body["stop_reason"] != "max_tokens"
+            or m_body["usage"]["input_tokens"] != usage["prompt_tokens"]):
+        raise AssertionError(f"[{label}] /v1/messages image: {m_status} {m_body} != chat {body}")
     return dict(status=status, http_ms=http_ms, png_bytes=len(png), prompt_tokens=len(ids),
-                tokens_equal=True)
+                tokens_equal=True, messages_text_equal=True)
 
 
 def vl_sharing(runs, label: str) -> dict:
@@ -7189,11 +7243,16 @@ def _timed_http(port: int, method: str, path: str, body=None, headers=None) -> t
     return st, out, (time.perf_counter() - t0) * 1e3
 
 
-def phase_responses(dev, card: str, preset: str = SERVE_MODEL) -> dict:
+def phase_responses(dev, card: str, preset: str = SERVE_MODEL,
+                    parts: tuple = ("responses", "messages")) -> dict:
     """Phase 15, the Responses API: one in-process ``serve`` from the command
     line's own assembly (``_run_gateway``) at full width and depth with
     ``--storage sqlite:`` and ``--mcp-config-path`` naming this script's MCP
-    server; checks (a)-(f) and the readings (module docstring)."""
+    server; checks (a)-(f) and the readings (module docstring).  Then, over
+    the same gateway and engine, phase 16 (``"messages"`` in ``parts``): the
+    Anthropic Messages API, a ``launch --provider-config`` front in a process
+    of its own (started first, so its start-up overlaps the engine's), and a
+    dedicated router."""
     import asyncio
     import gc
     import threading
@@ -7219,6 +7278,7 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL) -> dict:
             print(f"  [responses] CHECK FAILED: {what}")
 
     tmp = Path(tempfile.mkdtemp(prefix="smg_resp_"))
+    port = _free_port()
     mcp = SmokeMcpServer()
     (tmp / "mcp.json").write_text(json.dumps(
         [{"name": MCP_LABEL, "url": f"http://127.0.0.1:{mcp.port}/mcp"}]))
@@ -7238,7 +7298,6 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL) -> dict:
            "an engine loaded before the storage spec was refused")
     # the gateway: serve's own assembly on a loop thread; the context is
     # taken from serve_context on its way in (for the engine's schedule)
-    port = _free_port()
     args = build_parser().parse_args([
         "serve", "--model-preset", preset, *LAUNCH_ENGINE, "--device", str(dev),
         "--host", "127.0.0.1", "--port", str(port),
@@ -7278,6 +7337,7 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL) -> dict:
     for k, fn in real_session.items():
         setattr(mcp_sessions.McpSession, k, timed(k, fn))
     t_start = time.perf_counter()
+    front = _provider_front(tmp, port, preset) if "messages" in parts else None
     server = threading.Thread(target=gateway_thread, name="responses-gateway")
     server.start()
     out: dict = {}
@@ -7303,8 +7363,16 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL) -> dict:
         storage = held["ctx"].responses.storage
         for k in ("response_chain", "list_items", "store_response", "add_items"):
             setattr(storage, k, timed(k, getattr(storage, k)))
-        out.update(_responses_checks(port, engine, preset, mcp, spans, L, expect, dev, card))
+        if "responses" in parts:
+            out.update(_responses_checks(port, engine, preset, mcp, spans, L, expect, dev,
+                                         card))
+        if "messages" in parts:
+            out["messages"] = _messages_checks(port, engine, preset, front, L, expect, dev,
+                                               card)
     finally:
+        if front is not None:
+            code = front[0].stop()
+            expect(code == 0, f"the provider front exited {code}")
         launch.serve_context = real_serve_context
         for k, fn in real_session.items():
             setattr(mcp_sessions.McpSession, k, fn)
@@ -7324,7 +7392,8 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
-    print(f"  phase 15 took {out['seconds']:.1f} s ({card})")
+    print(f"  phase 15{' and 16' if 'messages' in parts else ''} took "
+          f"{out['seconds']:.1f} s ({card})")
     if failures:
         raise AssertionError(f"phase 15: {len(failures)} checks failed: {failures}")
     return out
@@ -7555,6 +7624,342 @@ def _responses_checks(port, engine, model, mcp, spans, L, expect, dev, card) -> 
     expect(st == 400 and body["error"]["message"] ==
            f"mcp server_label {MCP_LABEL!r} collides with a gateway-configured server",
            f"(f) label collision: {st} {body}")
+    return out
+
+
+# ---- phase 16: the Anthropic Messages API, providers and per-model routers ----
+
+MSG_NEW = 32  # output tokens of every phase-16 check request
+MSG_TIMED_NEW = 16  # output tokens of every timed stream of (d)
+MSG_REPS = 5  # timed repeats of (d), for the medians
+FRONT_PROVIDERS = ("openai", "anthropic", "xai")  # the front's providers, by kind
+
+
+def _provider_front(tmp: Path, upstream_port: int, model: str) -> tuple:
+    """Phase 16 (b)'s front: a ``launch`` process with no worker and a
+    ``--provider-config`` of three providers (one of each kind in
+    ``FRONT_PROVIDERS``, named after it) that all point at the gateway on
+    ``upstream_port``; returns (child, port, the configured model ids)."""
+    base = f"http://127.0.0.1:{upstream_port}/v1"
+    models = [f"{kind}/{model}" for kind in FRONT_PROVIDERS]
+    (tmp / "providers.json").write_text(json.dumps([
+        {"name": kind, "kind": kind, "base_url": base, "models": [m]}
+        for kind, m in zip(FRONT_PROVIDERS, models)]))
+    port = _free_port()
+    child = Child("provider-front", [*CLI, "launch", "--host", "127.0.0.1", "--port", port,
+                                     "--provider-config", tmp / "providers.json"])
+    return child, port, models
+
+
+def _sse_named(port: int, path: str, body: dict) -> tuple[int, list]:
+    """A streamed request: (status, [(seconds since the send, event name or
+    None, payload)]) for every ``data:`` frame, ``[DONE]`` as the string."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="POST", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    frames, name = [], None
+    with urllib.request.urlopen(req, timeout=LOOP_WAIT_S) as resp:
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("event: "):
+                name = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = line[len("data: "):]
+                frames.append((time.perf_counter() - t0, name,
+                               data if data == "[DONE]" else json.loads(data)))
+                name = None
+        return resp.status, frames
+
+
+def _chat_frames_text(frames) -> str:
+    return "".join(c["delta"].get("content") or "" for _t, _n, f in frames if f != "[DONE]"
+                   for c in f.get("choices", []))
+
+
+def _messages_text(body: dict) -> str:
+    return "".join(b.get("text") or "" for b in body.get("content", []) if b["type"] == "text")
+
+
+def _is_chat_content(name, payload) -> bool:
+    return payload != "[DONE]" and any(c["delta"].get("content")
+                                       for c in payload.get("choices", []))
+
+
+def _is_text_delta(name, payload) -> bool:
+    return name == "content_block_delta"
+
+
+def _grammar_ok(names: list) -> bool:
+    """The bridge's event grammar for one text block."""
+    n = len(names) - 5
+    return n > 0 and names == (["message_start", "content_block_start"]
+                               + ["content_block_delta"] * n
+                               + ["content_block_stop", "message_delta", "message_stop"])
+
+
+def _bridge_timer(router_mod) -> tuple:
+    """Wrap the bridge's three functions where the router calls them: each
+    request's host ms inside them (a stream's own time between chunks, the
+    chunks' wait taken out) lands in the returned list; the second value
+    undoes the wrapping."""
+    real = {k: getattr(router_mod, k) for k in (
+        "anthropic_to_openai_request", "openai_to_anthropic_response",
+        "openai_chunks_to_anthropic_events")}
+    per_request: list = []
+    pending = [0.0]
+
+    def timed(fn, last: bool):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                pending[0] += (time.perf_counter() - t) * 1e3
+                if last:
+                    per_request.append(pending[0])
+                    pending[0] = 0.0
+        return run
+
+    async def events(chunks, model):
+        inner = [0.0]
+
+        async def counted():
+            it = chunks.__aiter__()
+            while True:
+                t = time.perf_counter()
+                try:
+                    c = await it.__anext__()
+                except StopAsyncIteration:
+                    inner[0] += time.perf_counter() - t
+                    return
+                inner[0] += time.perf_counter() - t
+                yield c
+
+        gen = real["openai_chunks_to_anthropic_events"](counted(), model)
+        total = 0.0
+        while True:
+            t = time.perf_counter()
+            try:
+                item = await gen.__anext__()
+            except StopAsyncIteration:
+                total += time.perf_counter() - t
+                break
+            total += time.perf_counter() - t
+            yield item
+        per_request.append(pending[0] + (total - inner[0]) * 1e3)
+        pending[0] = 0.0
+
+    router_mod.anthropic_to_openai_request = timed(real["anthropic_to_openai_request"], False)
+    router_mod.openai_to_anthropic_response = timed(real["openai_to_anthropic_response"], True)
+    router_mod.openai_chunks_to_anthropic_events = events
+
+    def undo():
+        for k, fn in real.items():
+            setattr(router_mod, k, fn)
+
+    return per_request, undo
+
+
+def _messages_checks(port, engine, model, front, L, expect, dev, card) -> dict:
+    """Phase 16's checks (a)-(c) and readings (d) against the engine served
+    on ``port`` (phase 15's gateway) under the model id ``model``, and the
+    provider front ``front`` = (child, port, its model ids) in front of it;
+    kernel launches counted over the whole phase."""
+    import numpy as np
+    import torch
+
+    from smg_tpu_torch.gateway import router as router_mod
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    words = lambda n: _words(rng.integers(1000, 120000, n).tolist())  # noqa: E731
+    child, fport, fmodels = front
+    by_kind = dict(zip(FRONT_PROVIDERS, fmodels))
+    out: dict = {}
+
+    def flush():
+        st, body = _http(port, "POST", "/flush_cache")
+        if st != 200 or body["flushed"].get(SERVE_WORKER) is not True:
+            raise AssertionError(f"/flush_cache: {st} {body}")
+
+    def post(p, path, body):
+        flush()  # every request from a cold radix cache (bf16 over a prefix rounds otherwise)
+        return _http(p, "POST", path, body)
+
+    def stream(p, path, body):
+        flush()
+        return _sse_named(p, path, body)
+
+    system, turns = words(12), [words(60), words(20), words(40)]
+    msgs = [{"role": r, "content": t} for r, t in zip(("user", "assistant", "user"), turns)]
+    chat_msgs = [{"role": "system", "content": system}, *msgs]
+    anth = {"model": model, "system": system, "messages": msgs, "max_tokens": MSG_NEW,
+            "temperature": 0}
+
+    def chat_body(m, messages=chat_msgs, **kw):
+        return {"model": m, "messages": messages, "max_tokens": MSG_NEW, "temperature": 0, **kw}
+
+    bridge_ms, undo = _bridge_timer(router_mod)
+    for k in engine.runner.stats:
+        engine.runner.stats[k] = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dk.launches = pk.launches = 0
+    try:
+        # (a) /v1/messages against chat on the same messages
+        st, chat = post(port, "/v1/chat/completions", chat_body(model))
+        expect(st == 200, f"(a) chat: {st} {chat}")
+        want = chat["choices"][0]["message"]["content"]
+        st, m = post(port, "/v1/messages", anth)
+        expect(st == 200 and _messages_text(m) == want,
+               f"(a) /v1/messages {st}: {_messages_text(m)!r} != chat {want!r}")
+        expect(m.get("stop_reason") == "max_tokens"
+               and m["usage"]["input_tokens"] == chat["usage"]["prompt_tokens"]
+               and m["usage"]["output_tokens"] == chat["usage"]["completion_tokens"],
+               f"(a) stop reason and usage: {m.get('stop_reason')} {m.get('usage')} "
+               f"vs chat {chat['usage']}")
+        st, ev = stream(port, "/v1/messages", {**anth, "stream": True})
+        names = [n for _t, n, _p in ev]
+        expect(st == 200 and _grammar_ok(names) and all(p["type"] == n for _t, n, p in ev),
+               f"(a) the event grammar: {names}")
+        joined = "".join(p["delta"]["text"] for _t, n, p in ev if n == "content_block_delta")
+        expect(joined == want, f"(a) the text deltas {joined!r} != {want!r}")
+        last = ev[-2][2] if len(ev) > 1 else {}
+        expect(last.get("delta", {}).get("stop_reason") == "max_tokens"
+               and last.get("usage") == {"input_tokens": chat["usage"]["prompt_tokens"],
+                                         "output_tokens": chat["usage"]["completion_tokens"]},
+               f"(a) message_delta {last}")
+        print(f"  (a) /v1/messages equals the chat ({chat['usage']['prompt_tokens']} prompt "
+              f"tokens, {len(ev)} events streamed)")
+
+        # (b) the provider front, up since phase 15 began
+        _wait_http_up(fport, child, "the provider front")
+        st, listed = _http(fport, "GET", "/v1/models")
+        expect(st == 200 and [d["id"] for d in listed["data"]] == fmodels,
+               f"(b) the front's /v1/models: {st} {listed}")
+        for kind, fm in by_kind.items():
+            st, body = post(fport, "/v1/chat/completions", chat_body(fm))
+            got = body["choices"][0]["message"]["content"] if st == 200 else body
+            expect(st == 200 and got == want and body["model"] == fm,
+                   f"(b) {kind} chat {st}: {got!r} != {want!r}")
+            st, frames = stream(fport, "/v1/chat/completions", chat_body(fm, stream=True))
+            n_content = sum(_is_chat_content(n, p) for _t, n, p in frames)
+            expect(st == 200 and _chat_frames_text(frames) == want and n_content > 1
+                   and frames[-1][2] == "[DONE]",
+                   f"(b) {kind} chat streamed {st}: {_chat_frames_text(frames)!r} in "
+                   f"{n_content} content frames")
+        st, m = post(fport, "/v1/messages", {**anth, "model": by_kind["openai"]})
+        expect(st == 200 and _messages_text(m) == want and m.get("stop_reason") == "max_tokens"
+               and m["usage"]["input_tokens"] == chat["usage"]["prompt_tokens"],
+               f"(b) /v1/messages over the openai provider {st}: {m}")
+        st, ev = stream(fport, "/v1/messages", {**anth, "model": by_kind["openai"],
+                                                "stream": True})
+        joined = "".join(p["delta"]["text"] for _t, n, p in ev if n == "content_block_delta")
+        expect(st == 200 and _grammar_ok([n for _t, n, _p in ev]) and joined == want
+               and ev[-2][2]["usage"]["input_tokens"] == chat["usage"]["prompt_tokens"],
+               f"(b) /v1/messages streamed over the openai provider: {joined!r} "
+               f"{[n for _t, n, _p in ev]}")
+        # /v1/responses: upstream through xai (the handler there adds the
+        # configured MCP tool to its chat), over openai's chat without tools
+        text_r = words(50)
+        st, listed = post(port, "/v1/responses", {"model": model, "input": words(8),
+                                                   "max_output_tokens": 1, "temperature": 0})
+        tools = [{"type": "function", "function": {
+            "name": t["name"], "description": t["description"], "parameters": t["input_schema"]}}
+            for o in listed.get("output", []) if o["type"] == "mcp_list_tools" for t in o["tools"]]
+        user = [{"role": "user", "content": text_r}]
+        st, plain = post(port, "/v1/chat/completions", chat_body(model, user))
+        st2, tooled = post(port, "/v1/chat/completions", chat_body(model, user, tools=tools))
+        expect(st == st2 == 200 and tools, f"(b) the responses references: {st} {st2} {tools}")
+        for kind, ref in (("xai", tooled), ("openai", plain)):
+            st, body = post(fport, "/v1/responses", {
+                "model": by_kind[kind], "input": text_r, "max_output_tokens": MSG_NEW,
+                "temperature": 0})
+            got = _output_text(body) if st == 200 else body
+            ref_text = ref["choices"][0]["message"]["content"]
+            expect(st == 200 and body["status"] == "completed" and got == ref_text,
+                   f"(b) /v1/responses over {kind} {st}: {got!r} != {ref_text!r}")
+        print(f"  (b) the front's three providers give the direct chat's text: chat and its "
+              f"stream each, /v1/messages over the bridge, /v1/responses over xai and openai")
+
+        # (c) a dedicated router for the model, then the default again
+        st, before = _http(port, "GET", "/routers")
+        st2, bad = _http(port, "POST", f"/models/{model}/router", {"config": {"no_such": 1}})
+        st3, after = _http(port, "GET", "/routers")
+        expect(st == st3 == 200 and st2 == 400 and "no_such" in str(bad) and after == before,
+               f"(c) an unknown field: {st2} {bad}; /routers changed: {after != before}")
+        st, desc = _http(port, "POST", f"/models/{model}/router",
+                         {"config": {"default_max_tokens": MSG_NEW // 2}})
+        expect(st == 200 and desc["dedicated_router"] and desc["workers"] == [SERVE_WORKER],
+               f"(c) configure: {st} {desc}")
+        st, body = post(port, "/v1/chat/completions", chat_body(model))
+        got = body["choices"][0]["message"]["content"] if st == 200 else body
+        expect(st == 200 and got == want, f"(c) the dedicated router's chat {got!r} != {want!r}")
+        no_budget = {k: v for k, v in chat_body(model).items() if k != "max_tokens"}
+        st, body = post(port, "/v1/chat/completions", {**no_budget, "ignore_eos": True})
+        expect(st == 200 and body["usage"]["completion_tokens"] == MSG_NEW // 2,
+               f"(c) the dedicated router's default budget: {st} {body.get('usage')}")
+        st, listing = _http(port, "GET", "/routers")
+        mine = [d for d in listing.get("models", []) if d["model_id"] == model]
+        expect(st == 200 and mine and mine[0]["dedicated_router"], f"(c) /routers: {listing}")
+        st, reset = _http(port, "DELETE", f"/models/{model}/router")
+        st2, listing = _http(port, "GET", "/routers")
+        mine = [d for d in listing.get("models", []) if d["model_id"] == model]
+        expect(st == st2 == 200 and reset == {"model_id": model, "reset": True} and mine
+               and not mine[0]["dedicated_router"], f"(c) DELETE: {reset} {listing}")
+        print("  (c) a dedicated router served the same text and its own default budget; "
+              "DELETE restored the default; an unknown field was a 400 that changed nothing")
+
+        # (d) readings: lone TTFT and wall ms, medians of MSG_REPS, cold radix
+        timed_chat = chat_body(model, stream=True, max_tokens=MSG_TIMED_NEW)
+        timed_msgs = {**anth, "stream": True, "max_tokens": MSG_TIMED_NEW}
+        routes = [("direct chat", port, "/v1/chat/completions", timed_chat, _is_chat_content),
+                  ("/v1/messages", port, "/v1/messages", timed_msgs, _is_text_delta)]
+        routes += [(f"{kind} hop, chat", fport, "/v1/chat/completions",
+                    {**timed_chat, "model": fm}, _is_chat_content) for kind, fm in by_kind.items()]
+        routes.append(("openai hop, /v1/messages", fport, "/v1/messages",
+                       {**timed_msgs, "model": by_kind["openai"]}, _is_text_delta))
+        n_bridge = len(bridge_ms)
+        samples = {name: ([], []) for name, *_ in routes}
+        for _rep in range(MSG_REPS):
+            for name, p, path, body, first in routes:
+                st, frames = stream(p, path, body)
+                t_first = next((t for t, n, f in frames if first(n, f)), None)
+                expect(st == 200 and t_first is not None, f"(d) {name}: {st}")
+                samples[name][0].append((t_first or 0.0) * 1e3)
+                samples[name][1].append(frames[-1][0] * 1e3 if frames else 0.0)
+        out["ttft_ms"] = {k: statistics.median(v[0]) for k, v in samples.items()}
+        out["wall_ms"] = {k: statistics.median(v[1]) for k, v in samples.items()}
+        out["bridge_ms"] = statistics.median(bridge_ms) if bridge_ms else None
+        out["bridge_ms_streamed"] = (statistics.median(bridge_ms[n_bridge:])
+                                     if len(bridge_ms) > n_bridge else None)
+        out["ttft_ms_all"] = {k: v[0] for k, v in samples.items()}
+        print(f"  (d) lone TTFT / wall ms, {MSG_TIMED_NEW} new tokens, medians of {MSG_REPS} "
+              f"(the TTFTs' range) ({card}): " + "; ".join(
+                  f"{k} {out['ttft_ms'][k]:.2f} ({min(v[0]):.2f}-{max(v[0]):.2f}) / "
+                  f"{out['wall_ms'][k]:.2f}" for k, v in samples.items()))
+        print(f"  (d) the bridge's host ms per /v1/messages request on the engine's gateway "
+              f"(median of {len(bridge_ms)}): {out['bridge_ms']:.3f}; streamed requests alone "
+              f"{out['bridge_ms_streamed']:.3f}")
+    finally:
+        undo()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
+    sched = {k: engine.runner.stats[k] for k in ("decode_columns", "prefill_calls")}
+    want_l = {"decode_attention": L * sched["decode_columns"],
+              "prefill_attention": L * sched["prefill_calls"]}
+    expect(launches == want_l and min(launches.values()) > 0,
+           f"phase 16 launches {launches} != {want_l} ({sched})")
+    out["launches"], out["schedule"] = launches, sched
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 16: launches {launches} = {L} x {sched}; its checks took "
+          f"{out['seconds']:.1f} s ({card})")
     return out
 
 
@@ -7846,7 +8251,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd",
-                             "launch", "routing", "responses"),
+                             "launch", "routing", "responses", "messages"),
                     default="all")
     # the gRPC worker processes of phases 13 and 14: this script started by itself
     ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
@@ -7938,11 +8343,19 @@ def main(argv=None) -> int:
             traceback.print_exc()
             failed.append("launch")
     responses = {}
-    if args.phases in ("all", "responses") and not failed:
-        print("phase 15: the Responses API on Llama-3-8B (full width, 32 layers; SQLite "
-              "storage, an MCP server, approvals)")
+    if args.phases in ("all", "responses", "messages") and not failed:
+        print({"all": "phases 15 and 16: the Responses API (SQLite storage, an MCP server, "
+                      "approvals), then the Anthropic Messages API, a provider front and a "
+                      "dedicated router, on Llama-3-8B (full width, 32 layers)",
+               "responses": "phase 15 alone: the Responses API on Llama-3-8B (full width, "
+                            "32 layers; SQLite storage, an MCP server, approvals)",
+               "messages": "phase 16 alone: the Anthropic Messages API, a provider front and "
+                           "a dedicated router on Llama-3-8B (full width, 32 layers)"
+               }[args.phases])
         try:
-            responses = phase_responses(dev, card)
+            responses = phase_responses(dev, card, parts={
+                "all": ("responses", "messages"), "responses": ("responses",),
+                "messages": ("messages",)}[args.phases])
         except Exception:
             traceback.print_exc()
             failed.append("responses")
@@ -7986,6 +8399,9 @@ def main(argv=None) -> int:
             launches_launch=launch["launches"][name],
             # phase 15's three conversation turns through /v1/responses (bf16)
             launches_responses=responses["launches"][name],
+            # phase 16's requests: /v1/messages, the provider front's hops and
+            # the dedicated router's chats, on phase 15's engine (bf16)
+            launches_messages=responses["messages"]["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],

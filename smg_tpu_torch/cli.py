@@ -16,8 +16,11 @@ reference's names, dests, defaults and types (``--kv-connector`` offers no
 storage and ``--mcp-config-path`` names its gateway-level MCP servers;
 ``--policy`` takes every policy of the reference, ``--prefix-token-count``
 sizes ``prefix_hash``'s key and ``--dp-aware``/``--no-dp-aware`` pick the
-router's DP-rank stage.  Parallelism and the HA mesh, providers and plugins
-are not ported yet, and their flags are refused.
+router's DP-rank stage.  ``--provider-config`` names a JSON file of
+third-party provider backends (OpenAI, xAI, Anthropic, Gemini, Bedrock)
+that take their models' chat, ``/v1/messages`` and ``/v1/responses``
+requests before any worker does.  Parallelism, the HA mesh and plugins are
+not ported yet, and their flags are refused.
 """
 
 from __future__ import annotations
@@ -74,6 +77,11 @@ def _add_gateway_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--kv-connector", default="auto", choices=["auto", "host", "device"],
                    help="PD KV handoff: on the card (device) or host bytes; auto "
                         "takes device when both legs keep KV on the card")
+    g.add_argument("--provider-config", default=None,
+                   help="JSON file of third-party provider backends: a list of "
+                        '{"name", "kind" (openai, xai, anthropic, gemini, bedrock), '
+                        '"base_url", "api_key" or "api_key_env", "models", '
+                        '"model_map", "timeout_s"}')
     g.add_argument("--gateway-tokenizer-path", default=None, dest="gateway_tokenizer_path",
                    help="tokenizer for gateway-side text processing (launch mode; "
                         "default: the first worker's tokenizer bundle)")

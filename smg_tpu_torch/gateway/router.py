@@ -32,7 +32,11 @@ replicas (``dp_size`` > 1), ``RouterConfig.dp_rank_policy`` picks the
 replica (``policies/dp.py``: ``dp_min_token`` charges the request's prompt
 plus generation budget to the least-loaded rank and releases it when the
 stream ends; ``dp_passthrough`` lets the worker balance, as the wire's -1
-does).  Not ported yet: the Anthropic messages API.
+does).
+
+The Anthropic Messages API (``anthropic_messages``,
+``anthropic_messages_stream``) runs over ``chat`` and ``chat_stream``
+through the shared format bridge (``gateway/openai_bridge.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +48,11 @@ from dataclasses import dataclass, field
 
 from smg_tpu_torch.engine.detokenize import IncrementalDecoder, StopStringChecker
 from smg_tpu_torch.gateway.observability import current_route
+from smg_tpu_torch.gateway.openai_bridge import (
+    anthropic_to_openai_request,
+    openai_chunks_to_anthropic_events,
+    openai_to_anthropic_response,
+)
 from smg_tpu_torch.gateway.tracing import current_span, end_stage, stage, start_stage
 from smg_tpu_torch.gateway.worker_client import (
     WorkerGenerateRequest,
@@ -64,6 +73,7 @@ from smg_tpu_torch.protocols.openai import (
     CompletionRequest,
     CompletionResponse,
     FunctionCall,
+    StreamOptions,
     ToolCall,
     UsageInfo,
 )
@@ -1213,6 +1223,28 @@ class Router:
             data=data,
             usage=UsageInfo(prompt_tokens=total, total_tokens=total),
         )
+
+    # ---- Anthropic Messages ----
+
+    async def anthropic_messages(self, req, request_id: str | None = None):
+        """Non-streaming Anthropic /v1/messages (reference: anthropic
+        router).  Format translation lives in ``gateway/openai_bridge.py``
+        — shared with the 3rd-party provider path."""
+        chat_req = anthropic_to_openai_request(req)
+        resp = await self.chat(chat_req, request_id=request_id)
+        return openai_to_anthropic_response(resp, req.model)
+
+    async def anthropic_messages_stream(self, req, request_id: str | None = None):
+        """Anthropic streaming events via the shared bridge grammar:
+        message_start, content_block_start, content_block_delta
+        (text_delta | input_json_delta), content_block_stop, message_delta,
+        message_stop."""
+        chat_req = anthropic_to_openai_request(req)
+        chat_req.stream = True
+        chat_req.stream_options = StreamOptions(include_usage=True)
+        chunks = self.chat_stream(chat_req, request_id=request_id)
+        async for name, payload in openai_chunks_to_anthropic_events(chunks, req.model):
+            yield name, payload
 
     # ---- completions ----
 

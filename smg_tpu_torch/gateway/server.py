@@ -35,11 +35,21 @@ The Responses API (``/v1/responses`` create, get and delete, streamed as
 between model turns, approvals pause and resume the loop, and history comes
 from a conversation or a ``previous_response_id`` chain kept in the
 conversation storage (``storage/``: memory, SQLite, Redis, Postgres,
-Oracle), which ``/v1/conversations`` and its items expose.  Every model
-resolves to local workers: third-party providers are not ported.
+Oracle), which ``/v1/conversations`` and its items expose.
 
-Not ported yet: plugins, providers, the Anthropic, realtime, interactions
-and transcription APIs and per-model routers.
+The Anthropic Messages API (``/v1/messages``, streamed as ``event: <name>``
+SSE frames) runs over the chat path through the format bridge
+(``gateway/openai_bridge.py``).  Third-party providers
+(``gateway/providers/``: OpenAI, xAI, Anthropic, Gemini, Bedrock, from
+``--provider-config``) take a model before any local worker does: chat,
+``/v1/messages`` (the bridge in front of the provider's chat) and
+``/v1/responses`` (upstream for xAI, over the provider's chat otherwise)
+resolve the model's provider first, and ``/v1/models`` lists its models.
+Each model may have a router of its own (``gateway/router_manager.py``;
+``/routers`` and ``/models/{model_id}/router`` show, set and reset it);
+``ctx.router`` is the default one.
+
+Not ported yet: plugins, the realtime, interactions and transcription APIs.
 """
 
 from __future__ import annotations
@@ -59,11 +69,18 @@ from smg_tpu_torch.gateway.health import HealthConfig, HealthMonitor
 from smg_tpu_torch.gateway.http_worker import HttpWorkerError
 from smg_tpu_torch.gateway.kv_events import KvEventMonitor
 from smg_tpu_torch.gateway.observability import Metrics
+from smg_tpu_torch.gateway.openai_bridge import (
+    anthropic_to_openai_request,
+    openai_chunks_to_anthropic_events,
+    openai_to_anthropic_response,
+)
 from smg_tpu_torch.gateway.priority import AdmissionRejected, PriorityConfig, PriorityScheduler
+from smg_tpu_torch.gateway.providers import ProviderError, ProviderRegistry
 from smg_tpu_torch.gateway.rate_limit import RateLimitConfig, RateLimiter
 from smg_tpu_torch.gateway.registration import WORKER_REGISTRATION, build_worker_registration
 from smg_tpu_torch.gateway.responses import ResponsesHandler
 from smg_tpu_torch.gateway.router import RouteError, Router, RouterConfig
+from smg_tpu_torch.gateway.router_manager import RouterManager
 from smg_tpu_torch.gateway.tracing import (
     OtelTracer,
     current_span,
@@ -74,16 +91,21 @@ from smg_tpu_torch.gateway.tracing import (
 from smg_tpu_torch.gateway.workers import WorkerRegistry
 from smg_tpu_torch.mcp import McpRegistry
 from smg_tpu_torch.policies import PolicyRegistry, RequestContext
+from smg_tpu_torch.protocols.anthropic import AnthropicMessagesRequest
 from smg_tpu_torch.protocols.generate import GenerateMetaInfo, GenerateRequest, GenerateResponse
 from smg_tpu_torch.protocols.openai import (
     ChatCompletionRequest,
+    ChatCompletionResponse,
+    ChatCompletionStreamChunk,
+    ChatMessage,
     CompletionRequest,
     ErrorInfo,
     ErrorResponse,
     ModelCard,
     ModelList,
+    StreamOptions,
 )
-from smg_tpu_torch.protocols.responses import ResponsesRequest
+from smg_tpu_torch.protocols.responses import ResponsesRequest, ResponsesResponse, ResponseUsage
 from smg_tpu_torch.protocols.sampling import SamplingParams
 from smg_tpu_torch.storage import ConversationItem, make_storage
 from smg_tpu_torch.tokenizer.registry import TokenizerRegistry
@@ -99,17 +121,20 @@ CTX = web.AppKey("ctx", object)
 
 #: routes whose requests ``track_request`` counts
 INFERENCE_ROUTES = frozenset({"/v1/chat/completions", "/v1/completions", "/generate",
-                              "/v1/embeddings", "/v1/rerank", "/rerank", "/v1/classify"})
+                              "/v1/messages", "/v1/embeddings", "/v1/rerank", "/rerank",
+                              "/v1/classify"})
 
 
 class AppContext:
     """The gateway's shared state: workers (with the breakers'
     ``circuit_breaker_config`` = (failures, successes, open seconds)),
-    policies, tokenizers, metrics, health checks, the router and the
-    request-policy layer (auth, rate limits, the priority scheduler, the
-    request timeout, CORS, the tracer, extra request-id headers), and the
-    Responses API's conversation storage (``storage``: a ``make_storage``
-    spec), gateway-level MCP servers and handler."""
+    policies, tokenizers, metrics, health checks, the per-model routers
+    (``routers``; ``router`` is the default one), the third-party providers
+    (``providers``), the request-policy layer (auth, rate limits, the
+    priority scheduler, the request timeout, CORS, the tracer, extra
+    request-id headers), and the Responses API's conversation storage
+    (``storage``: a ``make_storage`` spec), gateway-level MCP servers and
+    handler."""
 
     def __init__(
         self,
@@ -135,6 +160,7 @@ class AppContext:
         self.registry = WorkerRegistry()
         self.registry.circuit_breaker_config = circuit_breaker_config
         self.policies = PolicyRegistry(default=policy, **(policy_kwargs or {}))
+        self.providers = ProviderRegistry()
         self.tokenizers = TokenizerRegistry()
         self.metrics = Metrics()
         # declarative SLO enforcement (gateway/slo_enforcement.py): specs
@@ -146,8 +172,11 @@ class AppContext:
         # (existing and lazily created per model) gets the sink
         self.metrics.route.watch(self.policies)
         self.kv_monitor = KvEventMonitor(self.registry, self.policies, metrics=self.metrics)
-        self.router = Router(self.registry, self.policies, self.tokenizers,
-                             router_config, metrics=self.metrics)
+        # per-model routers over the shared registries; ``self.router`` is
+        # the default instance, which single-model deployments use alone
+        self.routers = RouterManager(self.registry, self.policies, self.tokenizers,
+                                     router_config, metrics=self.metrics)
+        self.router = self.routers.default
         self.semaphore = asyncio.Semaphore(max_concurrent_requests)
         # unify engine metrics into the gateway registry as in-proc workers
         # register
@@ -197,6 +226,10 @@ class AppContext:
         if self.jobs is None:
             self.jobs = JobQueue()
         return self.jobs
+
+    def router_for(self, model_id: str | None) -> Router:
+        """Model-keyed router dispatch (IGW mode)."""
+        return self.routers.router_for(model_id)
 
     def adopt_engine_metrics(self, engine_metrics) -> bool:
         """Register an in-proc engine's metric set into the gateway registry
@@ -494,6 +527,7 @@ def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Applic
         # HTTP server holds an aiohttp session: none outlives the app
         await ctx.responses.sessions.close()
         await ctx.mcp.close()
+        await ctx.providers.close()
 
     app.on_startup.append(_start_background)
     app.on_cleanup.append(_stop_background)
@@ -518,6 +552,7 @@ def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Applic
     app.router.add_post("/v1/rerank", h_rerank)
     app.router.add_post("/rerank", h_rerank)  # the reference's alias
     app.router.add_post("/v1/classify", h_classify)
+    app.router.add_post("/v1/messages", h_anthropic_messages)
     app.router.add_post("/parse/function_call", h_parse_function_call)
     app.router.add_post("/parse/reasoning", h_parse_reasoning)
     app.router.add_post("/v1/tokenize", h_tokenize)
@@ -546,6 +581,10 @@ def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Applic
     app.router.add_get("/workflows", h_workflows_list)
     app.router.add_get("/workflows/{instance_id}", h_workflow_get)
     app.router.add_post("/workflows/{instance_id}/resume", h_workflow_resume)
+    app.router.add_get("/routers", h_routers_list)
+    app.router.add_get("/models/{model_id}/router", h_model_router_get)
+    app.router.add_post("/models/{model_id}/router", h_model_router_set)
+    app.router.add_delete("/models/{model_id}/router", h_model_router_reset)
     return app
 
 
@@ -759,7 +798,8 @@ async def h_health_generate(request: web.Request) -> web.Response:
 
 async def h_models(request: web.Request) -> web.Response:
     ctx: AppContext = request.app[CTX]
-    ids = list(ctx.registry.model_ids()) or ["default"]
+    ids = list(ctx.registry.model_ids()) + ctx.providers.list_models()
+    ids = ids or ["default"]
     return web.json_response(ModelList(data=[ModelCard(id=i) for i in ids]).model_dump())
 
 
@@ -796,20 +836,58 @@ async def h_chat(request: web.Request) -> web.Response | web.StreamResponse:
     except Exception as e:
         return _error(400, f"invalid request: {e}")
     rid = request["request_id"]
-    pd_pair = ctx.router.select_pd_http_pair(req.model)
+    adapter = ctx.providers.resolve(req.model)
+    if adapter is not None:
+        return await _chat_via_provider(request, ctx, adapter, req)
+    router = ctx.router_for(req.model)
+    pd_pair = router.select_pd_http_pair(req.model)
     if pd_pair is not None:
         body = req.model_dump(exclude_none=True, exclude_unset=True)
         return await _proxy_pd_via_http(request, ctx, pd_pair, body,
                                         "/v1/chat/completions", req.stream)
-    proxy_worker = ctx.router.select_proxy_worker(req.model)
+    proxy_worker = router.select_proxy_worker(req.model)
     if proxy_worker is not None:
         return await _proxy_via_http_worker(request, ctx, proxy_worker, req,
                                             "/v1/chat/completions")
     async with ctx.semaphore:
         if not req.stream:
-            resp = await ctx.router.chat(req, request_id=rid)
+            resp = await router.chat(req, request_id=rid)
             return web.json_response(resp.model_dump(exclude_none=True))
-        return await _write_sse(request, ctx.router.chat_stream(req, request_id=rid))
+        return await _write_sse(request, router.chat_stream(req, request_id=rid))
+
+
+def _provider_error(e: Exception) -> web.Response:
+    """A provider's failure before any bytes went out: its 4xx keeps its
+    status, a 5xx is a 502, an unreachable provider a 502."""
+    if isinstance(e, ProviderError):
+        return _error(502 if e.status >= 500 else e.status, f"provider error: {e.message}",
+                      "provider_error")
+    return _error(502, f"provider unreachable: {e}", "provider_error")
+
+
+async def _chat_via_provider(request, ctx, adapter, req) -> web.Response | web.StreamResponse:
+    """Third-party provider path (reference: ``routers/openai/`` provider
+    routing): no gateway-side tokenization, the upstream owns templating
+    and parsing.  Each upstream chunk is written as it comes."""
+    async with ctx.semaphore:
+        if not req.stream:
+            try:
+                data = await adapter.chat(req)
+            except Exception as e:
+                return _provider_error(e)
+            return web.json_response(data)
+        sse = _sse_response(request)
+        await sse.prepare(request)
+        try:
+            async for chunk in adapter.chat_stream(req):
+                await sse.write(f"data: {json.dumps(chunk)}\n\n".encode())
+            await sse.write(b"data: [DONE]\n\n")
+        except Exception as e:
+            msg = e.message if isinstance(e, ProviderError) else str(e)
+            err = ErrorResponse(error=ErrorInfo(message=msg, type="provider_error"))
+            await sse.write(f"data: {json.dumps(err.model_dump())}\n\n".encode())
+        await sse.write_eof()
+        return sse
 
 
 def _client_gone(request: web.Request) -> bool:
@@ -977,20 +1055,21 @@ async def h_completions(request: web.Request) -> web.Response | web.StreamRespon
     except Exception as e:
         return _error(400, f"invalid request: {e}")
     rid = request["request_id"]
-    pd_pair = ctx.router.select_pd_http_pair(req.model)
+    router = ctx.router_for(req.model)
+    pd_pair = router.select_pd_http_pair(req.model)
     if pd_pair is not None:
         body = req.model_dump(exclude_none=True, exclude_unset=True)
         return await _proxy_pd_via_http(request, ctx, pd_pair, body, "/v1/completions",
                                         bool(req.stream))
-    proxy_worker = ctx.router.select_proxy_worker(req.model)
+    proxy_worker = router.select_proxy_worker(req.model)
     if proxy_worker is not None:
         return await _proxy_via_http_worker(request, ctx, proxy_worker, req,
                                             "/v1/completions")
     async with ctx.semaphore:
         if not req.stream:
-            resp = await ctx.router.completion(req, request_id=rid)
+            resp = await router.completion(req, request_id=rid)
             return web.json_response(resp.model_dump(exclude_none=True))
-        return await _write_sse(request, ctx.router.completion_stream(req, request_id=rid))
+        return await _write_sse(request, router.completion_stream(req, request_id=rid))
 
 
 async def h_generate(request: web.Request) -> web.Response | web.StreamResponse:
@@ -1004,11 +1083,12 @@ async def h_generate(request: web.Request) -> web.Response | web.StreamResponse:
     rid = req.rid or request["request_id"]
     # HTTP workers own /generate natively: raw passthrough (dual dispatch
     # when prefill and decode pools exist)
-    pd_pair = ctx.router.select_pd_http_pair(None)
+    router0 = ctx.router_for(None)
+    pd_pair = router0.select_pd_http_pair(None)
     if pd_pair is not None:
         return await _proxy_pd_via_http(request, ctx, pd_pair, dict(raw_body), "/generate",
                                         bool(req.stream))
-    proxy_worker = ctx.router.select_proxy_worker(None)
+    proxy_worker = router0.select_proxy_worker(None)
     if proxy_worker is not None:
         return await _proxy_raw_via_http_worker(request, ctx, proxy_worker, dict(raw_body),
                                                 "/generate", bool(req.stream))
@@ -1089,7 +1169,8 @@ async def h_embeddings(request: web.Request) -> web.Response:
     except Exception as e:
         return _error(400, f"invalid request: {e}")
     async with ctx.semaphore:
-        resp = await ctx.router.embeddings(req, request_id=request["request_id"])
+        resp = await ctx.router_for(req.model).embeddings(req,
+                                                          request_id=request["request_id"])
         return web.json_response(resp.model_dump())
 
 
@@ -1103,7 +1184,8 @@ async def h_rerank(request: web.Request) -> web.Response:
         return _error(400, f"invalid request: {e}")
     async with ctx.semaphore:
         try:
-            resp = await ctx.router.rerank(req, request_id=request["request_id"])
+            resp = await ctx.router_for(req.model).rerank(req,
+                                                          request_id=request["request_id"])
         except RouteError as e:
             return _error(e.status, e.message, e.err_type)
         return web.json_response(resp.model_dump(exclude_none=True))
@@ -1119,10 +1201,83 @@ async def h_classify(request: web.Request) -> web.Response:
         return _error(400, f"invalid request: {e}")
     async with ctx.semaphore:
         try:
-            resp = await ctx.router.classify(req, request_id=request["request_id"])
+            resp = await ctx.router_for(req.model).classify(req,
+                                                            request_id=request["request_id"])
         except RouteError as e:
             return _error(e.status, e.message, e.err_type)
         return web.json_response(resp.model_dump())
+
+
+async def _write_events(request: web.Request, events, err_type: str | None = None
+                        ) -> web.StreamResponse:
+    """Stream (name, payload) pairs as ``event: <name>`` SSE frames.  A
+    route error after the headers went out becomes an ``error`` event; so
+    does any failure when ``err_type`` names the type to report it as (the
+    provider paths)."""
+    sse = _sse_response(request)
+    await sse.prepare(request)
+    try:
+        async for name, payload in events:
+            await sse.write(f"event: {name}\ndata: {json.dumps(payload)}\n\n".encode())
+    except Exception as e:
+        if err_type is None and not isinstance(e, RouteError):
+            raise
+        if err_type is None:
+            info = {"type": e.err_type, "message": e.message}
+        else:
+            info = {"type": err_type,
+                    "message": e.message if isinstance(e, ProviderError) else str(e)}
+        err = {"type": "error", "error": info}
+        await sse.write(f"event: error\ndata: {json.dumps(err)}\n\n".encode())
+    await sse.write_eof()
+    return sse
+
+
+async def h_anthropic_messages(request: web.Request) -> web.Response | web.StreamResponse:
+    """The Anthropic Messages API: a provider's model through the bridge in
+    front of its chat, else the model's router."""
+    ctx: AppContext = request.app[CTX]
+    try:
+        req = AnthropicMessagesRequest.model_validate(await request.json())
+    except Exception as e:
+        return _error(400, f"invalid request: {e}")
+    rid = request["request_id"]
+    adapter = ctx.providers.resolve(req.model)
+    if adapter is not None:
+        return await _messages_via_provider(request, ctx, adapter, req)
+    router = ctx.router_for(req.model)
+    async with ctx.semaphore:
+        if not req.stream:
+            resp = await router.anthropic_messages(req, request_id=rid)
+            return web.json_response(resp.model_dump(exclude_none=True))
+        return await _write_events(request, router.anthropic_messages_stream(req,
+                                                                             request_id=rid))
+
+
+async def _messages_via_provider(request, ctx, adapter, req) -> web.Response | web.StreamResponse:
+    """Anthropic /v1/messages served by an OpenAI-format provider backend
+    through the shared bridge."""
+    chat_req = anthropic_to_openai_request(req)
+    if req.stream:
+        # OpenAI-format upstreams send the usage frame only when asked:
+        # without it message_delta would meter zero tokens
+        chat_req.stream_options = StreamOptions(include_usage=True)
+    async with ctx.semaphore:
+        if not req.stream:
+            try:
+                data = await adapter.chat(chat_req)
+            except Exception as e:
+                return _provider_error(e)
+            resp = openai_to_anthropic_response(ChatCompletionResponse.model_validate(data),
+                                                req.model)
+            return web.json_response(resp.model_dump(exclude_none=True))
+
+        async def chunks():
+            async for raw in adapter.chat_stream(chat_req):
+                yield ChatCompletionStreamChunk.model_validate(raw)
+
+        return await _write_events(
+            request, openai_chunks_to_anthropic_events(chunks(), req.model), "provider_error")
 
 
 async def h_parse_function_call(request: web.Request) -> web.Response:
@@ -1187,6 +1342,15 @@ async def h_responses_create(request: web.Request) -> web.Response | web.StreamR
         return _error(400, f"invalid request: {e}")
     rid = request["request_id"]
     tenant = request.get("tenant")
+    adapter = ctx.providers.resolve(req.model)
+    if adapter is not None:
+        if hasattr(adapter, "responses"):
+            # Responses-capable providers (xAI) take the request upstream
+            # with their input rewrite
+            return await _responses_via_provider(request, ctx, adapter, req)
+        # chat-only providers: the Responses result made over the adapter's
+        # chat (the local loop has no worker for them)
+        return await _responses_via_chat_adapter(ctx, adapter, req)
     async with ctx.semaphore:
         if not req.stream:
             resp = await ctx.responses.create(req, request_id=rid, tenant=tenant)
@@ -1203,6 +1367,71 @@ async def h_responses_create(request: web.Request) -> web.Response | web.StreamR
             await sse.write(f"event: error\ndata: {json.dumps(err)}\n\n".encode())
         await sse.write_eof()
         return sse
+
+
+async def _responses_via_provider(request, ctx, adapter, req
+                                  ) -> web.Response | web.StreamResponse:
+    body = req.model_dump(exclude_none=True, exclude_unset=True)
+    async with ctx.semaphore:
+        if not req.stream:
+            try:
+                data = await adapter.responses(body)
+            except Exception as e:
+                return _provider_error(e)
+            return web.json_response(data)
+        sse = _sse_response(request)
+        await sse.prepare(request)
+        try:
+            async for name, payload in adapter.responses_stream(body):
+                await sse.write(f"event: {name}\ndata: {json.dumps(payload)}\n\n".encode())
+        except Exception as e:
+            msg = e.message if isinstance(e, ProviderError) else str(e)
+            err = {"type": "error", "error": {"message": msg, "type": "provider_error"}}
+            await sse.write(f"event: error\ndata: {json.dumps(err)}\n\n".encode())
+        await sse.write_eof()
+        return sse
+
+
+async def _responses_via_chat_adapter(ctx, adapter, req) -> web.Response:
+    """A Responses result over a chat-only provider: the input becomes chat
+    messages, the chat answer becomes message and function_call output
+    items.  Tool execution loops stay on the local handler: provider models
+    get the single-shot surface (streamed or not, one JSON body)."""
+    messages = []
+    if req.instructions:
+        messages.append(ChatMessage(role="system", content=req.instructions))
+    if isinstance(req.input, str):
+        messages.append(ChatMessage(role="user", content=req.input))
+    else:
+        for item in req.input:
+            messages.extend(ctx.responses._item_to_messages(
+                item.get("type", "message"), item.get("role"), item))
+    chat_req = ChatCompletionRequest(
+        model=req.model, messages=messages, temperature=req.temperature, top_p=req.top_p,
+        max_tokens=req.max_output_tokens,
+        tools=[t for t in (req.tools or []) if t.get("type") == "function"] or None,
+    )
+    async with ctx.semaphore:
+        try:
+            data = await adapter.chat(chat_req)
+        except Exception as e:
+            return _provider_error(e)
+    resp = ChatCompletionResponse.model_validate(data)
+    choice = resp.choices[0]
+    output = []
+    if choice.message.content:
+        output.append({"type": "message", "role": "assistant",
+                       "content": [{"type": "output_text", "text": choice.message.content}]})
+    for tc in choice.message.tool_calls or []:
+        output.append({"type": "function_call", "call_id": tc.id or "call_0",
+                       "name": tc.function.name or "",
+                       "arguments": tc.function.arguments or "{}"})
+    usage = ResponseUsage(input_tokens=resp.usage.prompt_tokens,
+                          output_tokens=resp.usage.completion_tokens,
+                          total_tokens=resp.usage.total_tokens)
+    out = ResponsesResponse(model=req.model or "default", status="completed", output=output,
+                            usage=usage, metadata=req.metadata or {})
+    return web.json_response(out.model_dump(exclude_none=True))
 
 
 async def h_responses_get(request: web.Request) -> web.Response:
@@ -1525,6 +1754,45 @@ async def h_workers_remove(request: web.Request) -> web.Response:
     await worker.client.close()
     return web.json_response(
         {"removed": wid, "drained": drained, "in_flight_at_removal": worker.load})
+
+
+# ---- per-model routers ----
+
+async def h_routers_list(request: web.Request) -> web.Response:
+    """Every model's routing state: dedicated routers, policies, workers."""
+    ctx: AppContext = request.app[CTX]
+    return web.json_response(ctx.routers.describe())
+
+
+async def h_model_router_get(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    return web.json_response(ctx.routers.describe_model(request.match_info["model_id"]))
+
+
+async def h_model_router_set(request: web.Request) -> web.Response:
+    """Configure a model's routing: ``{"policy": name, "policy_args":
+    {...}, "config": {RouterConfig overrides}}``, any subset.  A 400
+    changes nothing."""
+    ctx: AppContext = request.app[CTX]
+    model_id = request.match_info["model_id"]
+    try:
+        body = await request.json()
+    except Exception:
+        return _error(400, "invalid JSON body")
+    try:
+        desc = ctx.routers.configure_model(model_id, policy=body.get("policy"),
+                                           policy_args=body.get("policy_args"),
+                                           config=body.get("config"))
+    except (ValueError, KeyError) as e:
+        return _error(400, str(e))
+    return web.json_response(desc)
+
+
+async def h_model_router_reset(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    model_id = request.match_info["model_id"]
+    return web.json_response({"model_id": model_id,
+                              "reset": ctx.routers.reset_model(model_id)})
 
 
 # ---- job queue and workflow introspection ----

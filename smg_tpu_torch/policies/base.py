@@ -283,12 +283,20 @@ class PolicyRegistry:
             except Exception:
                 pass
 
+    def has_policy(self, model_id: str | None) -> bool:
+        return (model_id or "__default__") in self._per_model
+
     def policy_for(self, model_id: str | None) -> Policy:
         key = model_id or "__default__"
         if key not in self._per_model:
             self._per_model[key] = get_policy(self._default_name, **self._default_kwargs)
             self._created(model_id, self._per_model[key])
         return self._per_model[key]
+
+    def set_policy(self, model_id: str, name: str, **kwargs) -> None:
+        """Give ``model_id`` its own policy (``POST /models/{id}/router``)."""
+        self._per_model[model_id] = get_policy(name, **kwargs)
+        self._created(model_id, self._per_model[model_id])
 
     def on_worker_removed(self, worker_id: str) -> None:
         for p in self._per_model.values():

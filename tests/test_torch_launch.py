@@ -29,6 +29,7 @@
 
 import argparse
 import asyncio
+import dataclasses
 import datetime
 import json
 import os
@@ -87,7 +88,7 @@ def test_launch_flag_has_the_reference_dest_default_and_type(flag):
 
 #: the reference's ``launch`` flags the port leaves out, each with the
 #: module it waits for (ROADMAP Queue A)
-REFUSED = [["--provider-config", "p.json"], ["--plugins", "p.py"], ["--plugin-fail-closed"],
+REFUSED = [["--plugins", "p.py"], ["--plugin-fail-closed"],
            ["--mesh-port", "7946"], ["--mesh-seed", "h:1"], ["--mesh-tls-cert", "c"],
            ["--mesh-tls-key", "k"], ["--mesh-tls-ca", "a"]]
 
@@ -127,6 +128,83 @@ def test_routing_flag_parses_as_the_reference_and_reaches_the_router(argv, want)
     ctx = AppContext(**launch.gateway_options(tcli.build_parser().parse_args(["launch", *argv])))
     pol = ctx.policies.policy_for(None)
     assert (pol.name, getattr(pol, "prefix_tokens", None), ctx.router.dp_policy.name) == want
+
+
+PROVIDERS = [
+    {"name": "oai", "kind": "openai", "base_url": "http://127.0.0.1:9/v1/",
+     "api_key_env": "SMG_TEST_PROVIDER_KEY", "models": ["gpt-x"],
+     "model_map": {"gpt-x": "gpt-x-2024"}},
+    {"kind": "anthropic", "base_url": "http://127.0.0.1:9/v1", "api_key": "sk-a",
+     "timeout_s": 30},
+    {"name": "grok", "kind": "xai", "base_url": "http://127.0.0.1:9", "models": ["grok-4"]},
+    {"kind": "gemini", "base_url": "http://127.0.0.1:9", "api_key_env": "SMG_TEST_UNSET_KEY",
+     "api_key": "fallback"},
+    {"kind": "bedrock", "base_url": "https://bedrock-runtime.us-west-2.amazonaws.com",
+     "api_key": "AKID:SECRET"},
+]
+
+
+async def _context_of(args, monkeypatch):
+    """The ``AppContext`` ``_run_gateway`` builds from ``args``, taken on its
+    way into ``serve_context`` (no engine is built and nothing binds)."""
+    held = {}
+
+    async def serve_context(ctx, *a, **kw):
+        held["ctx"] = ctx
+
+    monkeypatch.setattr(launch, "serve_context", serve_context)
+    monkeypatch.setattr(launch, "build_engine_from_args", lambda args: None)
+    monkeypatch.setattr(launch, "add_engine_worker", lambda ctx, engine, **kw: None)
+    await launch._run_gateway(args, stop=asyncio.Event())
+    return held["ctx"]
+
+
+@pytest.mark.parametrize("command", ["serve", "launch"])
+def test_provider_config_parses_as_the_reference_and_reaches_the_providers(
+        command, tmp_path, monkeypatch):
+    from smg_tpu.gateway.providers import ProviderRegistry as JaxProviders
+
+    port, ref = (_options(m.build_parser(), command)["--provider-config"] for m in (tcli, jcli))
+    fields = ("dest", "default", "type", "nargs", "required")
+    assert {f: getattr(port, f) for f in fields} == {f: getattr(ref, f) for f in fields}
+    path = tmp_path / "providers.json"
+    path.write_text(json.dumps(PROVIDERS))
+    monkeypatch.setenv("SMG_TEST_PROVIDER_KEY", "sk-from-env")
+    monkeypatch.delenv("SMG_TEST_UNSET_KEY", raising=False)
+    argv = [command, *BASE[command], "--provider-config", str(path)]
+    ns = tcli.build_parser().parse_args(argv + ["--device", "cpu"] * (command == "serve"))
+    assert ns.provider_config == jcli.build_parser().parse_args(argv).provider_config
+    ctx = asyncio.run(_context_of(ns, monkeypatch))
+    ref = JaxProviders()
+    ref.load_config(str(path))
+
+    def specs(reg):
+        return [(type(a).__name__, dataclasses.asdict(a.spec)) for a in reg._adapters]
+
+    assert specs(ctx.providers) == specs(ref)
+    assert ctx.providers._adapters[0].spec.api_key == "sk-from-env"
+    assert ctx.providers._adapters[3].spec.api_key == "fallback"
+    assert ctx.providers.list_models() == ref.list_models() == ["gpt-x", "grok-4"]
+    for model in ("gpt-x", "anthropic/claude", "grok-4", "grok/grok-3", "bedrock/m", "nope"):
+        got, want = ctx.providers.resolve(model), ref.resolve(model)
+        assert (got and got.spec.name) == (want and want.spec.name), model
+
+
+def test_an_unknown_provider_kind_fails_startup_with_the_reference_error(tmp_path, monkeypatch):
+    from smg_tpu.gateway.providers import ProviderRegistry as JaxProviders
+
+    path = tmp_path / "providers.json"
+    path.write_text(json.dumps([{"kind": "nope", "base_url": "http://x"}]))
+    with pytest.raises(ValueError) as want:
+        JaxProviders().load_config(str(path))
+    built = []
+    monkeypatch.setattr(launch, "build_engine_from_args", lambda args: built.append(args))
+    ns = tcli.build_parser().parse_args(["serve", "--model-preset", "tiny", "--device", "cpu",
+                                         "--provider-config", str(path)])
+    with pytest.raises(ValueError) as got:
+        asyncio.run(launch._run_gateway(ns, stop=asyncio.Event()))
+    assert str(got.value) == str(want.value)
+    assert built == []  # refused before an engine is built
 
 
 @pytest.mark.parametrize("command", ["serve", "launch"])
