@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases routing   # build + kernels + phase 14 (c) only
     python3 chip_smoke.py --phases responses   # build + kernels + phase 15 only
     python3 chip_smoke.py --phases messages   # build + kernels + phase 15's gateway, phase 16
+    python3 chip_smoke.py --phases realtime   # build + kernels + phase 15's gateway, phase 17
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -373,16 +374,50 @@ Phases (any failure makes the script exit non-zero and print no result):
    chat, ``/v1/messages``, chat through each provider hop and
    ``/v1/messages`` through the ``openai`` hop; the host ms the bridge
    spends per ``/v1/messages`` request; the phase's seconds;
+17. the Realtime, Interactions and transcription APIs and plugins, over
+   phase 15's gateway and engine (no second load; phase 15's ``serve``
+   carries ``--plugins`` with this script's plugin, phase 16's front
+   ``--plugins ... --plugin-fail-closed``), every turn 16 greedy tokens
+   from a cold prefix cache, kernel launches counted over the whole phase
+   (32 x decode columns, 32 x prefill calls).  (a) a ``/v1/realtime``
+   session: ``session.update`` (temperature 0), two turns of
+   ``conversation.item.create`` + ``response.create`` in the reference's
+   event order, the deltas joining to ``response.done``'s text, each turn's
+   text the direct chat's on the same history exactly; an unknown event
+   gets the ``error`` event and the session goes on.  (b) a loopback ASR
+   server (a thread of this process) registered through ``POST /workers``:
+   three base64 PCM16 frames appended and committed reach it as
+   ``pcm16_to_wav`` of the frames (SHA-256), the transcript event carries
+   its transcript and the response on it equals the direct chat on it;
+   ``/v1/audio/transcriptions`` with two ``timestamp_granularities[]``
+   parts reaches it in ``json`` (its hash echoed) and ``text``.  (c) an
+   extra in-process gateway over the same engine with an API key and
+   ``--request-timeout-secs 1``: a handshake with no credential gets the
+   ``authentication_error`` event, minting needs the key, a session over
+   ``?client_secret=`` outlives the timeout and answers (a)'s first turn,
+   relay legs exchange a text and a 64 KiB binary frame byte for byte past
+   it, and a long chat still gets its 408.  (d) ``/v1/interactions``: a
+   stored turn and a ``previous_interaction_id`` turn equal the direct
+   chats, the chained turn streamed joins its ``content_delta``s to its
+   text, ``GET``, ``DELETE``, 404 after, and a ``/v1/responses`` id is 404
+   there.  (e) the plugin (``x-smoke-plugin`` header): ``reject`` a 451
+   ``plugin_rejected`` on both, ``tag`` a response header with the same
+   text, ``fault`` answered fail-open by ``serve`` and 500 by the
+   fail-closed front; no header, no change.  Readings: realtime TTFT to the
+   first delta against the direct chat's, an interactions turn's wall ms
+   against its chat's (medians of 5), the plugin host's ms per request for
+   both hooks, the phase's seconds;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
    10's, ``launches_vision`` from phase 12's bf16 serving paths,
    ``launches_pd`` from phase 13's bf16 PD path, ``launches_launch``
    from phase 14's worker processes, ``launches_responses`` from phase
-   15's conversation turns and ``launches_messages`` from phase 16) and,
-   last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
-   ``checkpoint``, ``moe``, ``api``, ``vision``, ``pd``, ``launch``,
-   ``routing``, ``responses`` and ``messages`` print neither).
+   15's conversation turns, ``launches_messages`` from phase 16 and
+   ``launches_realtime`` from phase 17) and, last, ``{"ok": true,
+   "device": ...}`` (``--phases kernels``, ``checkpoint``, ``moe``,
+   ``api``, ``vision``, ``pd``, ``launch``, ``routing``, ``responses``,
+   ``messages`` and ``realtime`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -7137,52 +7172,34 @@ RESP_WORDS = (120, 160, 200)  # words of each turn's user input
 MCP_LABEL, MCP_TOOL = "tools", "lookup"
 
 
-class SmokeMcpServer:
-    """A small MCP server (JSON-RPC 2.0 over aiohttp on 127.0.0.1, its own
-    loop thread): ``initialize``, ``tools/list`` and ``tools/call`` of one
-    tool, ``lookup``, whose answer is a few words; it counts the calls."""
+class LoopServer:
+    """An aiohttp app on 127.0.0.1 served from a loop thread of its own;
+    a subclass lists its ``routes()`` as (method, path, handler)."""
 
     def __init__(self):
         import asyncio
         import threading
 
-        self.calls: list = []
         self.port = _free_port()
         self.loop = asyncio.new_event_loop()
         self._ready = threading.Event()
-        self.thread = threading.Thread(target=self._run, name="mcp-server", daemon=True)
+        self.thread = threading.Thread(target=self._run, name=type(self).__name__, daemon=True)
         self.thread.start()
         if not self._ready.wait(30):
-            raise AssertionError("the MCP server did not start")
+            raise AssertionError(f"{type(self).__name__} did not start")
+
+    def routes(self) -> list:
+        raise NotImplementedError
 
     def _run(self) -> None:
         import asyncio
 
         from aiohttp import web
 
-        async def handle(request):
-            body = await request.json()
-            method, params = body["method"], body.get("params") or {}
-            if method == "initialize":
-                result = {"protocolVersion": params.get("protocolVersion"),
-                          "capabilities": {"tools": {}},
-                          "serverInfo": {"name": "chip-smoke", "version": "1"}}
-            elif method == "tools/list":
-                result = {"tools": [{"name": MCP_TOOL, "description": "look a word up",
-                                     "inputSchema": {"type": "object", "properties": {
-                                         "q": {"type": "string"}}}}]}
-            elif method == "tools/call" and params.get("name") == MCP_TOOL:
-                q = params.get("arguments", {}).get("q", "")
-                self.calls.append(q)
-                result = {"content": [{"type": "text", "text": f"w4242 w4343 w4444 {q}"}]}
-            else:
-                return web.json_response({"jsonrpc": "2.0", "id": body.get("id"),
-                                          "error": {"code": -32601, "message": method}})
-            return web.json_response({"jsonrpc": "2.0", "id": body.get("id"), "result": result})
-
         async def serve():
             app = web.Application()
-            app.router.add_post("/mcp", handle)
+            for method, path, handler in self.routes():
+                app.router.add_route(method, path, handler)
             self.runner = web.AppRunner(app)
             await self.runner.setup()
             await web.TCPSite(self.runner, "127.0.0.1", self.port).start()
@@ -7198,6 +7215,41 @@ class SmokeMcpServer:
         asyncio.run_coroutine_threadsafe(self.runner.cleanup(), self.loop).result(30)
         self.loop.call_soon_threadsafe(self.loop.stop)
         self.thread.join(30)
+
+
+class SmokeMcpServer(LoopServer):
+    """A small MCP server (JSON-RPC 2.0 on 127.0.0.1): ``initialize``,
+    ``tools/list`` and ``tools/call`` of one tool, ``lookup``, whose answer
+    is a few words; it counts the calls."""
+
+    def __init__(self):
+        self.calls: list = []
+        super().__init__()
+
+    def routes(self) -> list:
+        return [("POST", "/mcp", self.handle)]
+
+    async def handle(self, request):
+        from aiohttp import web
+
+        body = await request.json()
+        method, params = body["method"], body.get("params") or {}
+        if method == "initialize":
+            result = {"protocolVersion": params.get("protocolVersion"),
+                      "capabilities": {"tools": {}},
+                      "serverInfo": {"name": "chip-smoke", "version": "1"}}
+        elif method == "tools/list":
+            result = {"tools": [{"name": MCP_TOOL, "description": "look a word up",
+                                 "inputSchema": {"type": "object", "properties": {
+                                     "q": {"type": "string"}}}}]}
+        elif method == "tools/call" and params.get("name") == MCP_TOOL:
+            q = params.get("arguments", {}).get("q", "")
+            self.calls.append(q)
+            result = {"content": [{"type": "text", "text": f"w4242 w4343 w4444 {q}"}]}
+        else:
+            return web.json_response({"jsonrpc": "2.0", "id": body.get("id"),
+                                      "error": {"code": -32601, "message": method}})
+        return web.json_response({"jsonrpc": "2.0", "id": body.get("id"), "result": result})
 
 
 def _sse_events(port: int, body: dict) -> tuple:
@@ -7244,15 +7296,17 @@ def _timed_http(port: int, method: str, path: str, body=None, headers=None) -> t
 
 
 def phase_responses(dev, card: str, preset: str = SERVE_MODEL,
-                    parts: tuple = ("responses", "messages")) -> dict:
+                    parts: tuple = ("responses", "messages", "realtime")) -> dict:
     """Phase 15, the Responses API: one in-process ``serve`` from the command
     line's own assembly (``_run_gateway``) at full width and depth with
-    ``--storage sqlite:`` and ``--mcp-config-path`` naming this script's MCP
-    server; checks (a)-(f) and the readings (module docstring).  Then, over
-    the same gateway and engine, phase 16 (``"messages"`` in ``parts``): the
-    Anthropic Messages API, a ``launch --provider-config`` front in a process
-    of its own (started first, so its start-up overlaps the engine's), and a
-    dedicated router."""
+    ``--storage sqlite:``, ``--mcp-config-path`` naming this script's MCP
+    server and ``--plugins`` loading phase 17's plugin; checks (a)-(f) and
+    the readings (module docstring).  Then, over the same gateway and
+    engine, phase 16 (``"messages"`` in ``parts``): the Anthropic Messages
+    API, a ``launch --provider-config`` front in a process of its own
+    (started first, so its start-up overlaps the engine's), and a dedicated
+    router; then phase 17 (``"realtime"``): the Realtime, Interactions and
+    transcription APIs and the plugin on the gateway and the front."""
     import asyncio
     import gc
     import threading
@@ -7279,6 +7333,7 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL,
 
     tmp = Path(tempfile.mkdtemp(prefix="smg_resp_"))
     port = _free_port()
+    plugin = _smoke_plugin(tmp)
     mcp = SmokeMcpServer()
     (tmp / "mcp.json").write_text(json.dumps(
         [{"name": MCP_LABEL, "url": f"http://127.0.0.1:{mcp.port}/mcp"}]))
@@ -7301,7 +7356,8 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL,
     args = build_parser().parse_args([
         "serve", "--model-preset", preset, *LAUNCH_ENGINE, "--device", str(dev),
         "--host", "127.0.0.1", "--port", str(port),
-        "--storage", f"sqlite:{tmp / 'conv.db'}", "--mcp-config-path", str(tmp / "mcp.json")])
+        "--storage", f"sqlite:{tmp / 'conv.db'}", "--mcp-config-path", str(tmp / "mcp.json"),
+        "--plugins", str(plugin)])
     raise_on_errors(validate_cli_args(args))
     held: dict = {}
     real_serve_context = launch.serve_context
@@ -7337,7 +7393,8 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL,
     for k, fn in real_session.items():
         setattr(mcp_sessions.McpSession, k, timed(k, fn))
     t_start = time.perf_counter()
-    front = _provider_front(tmp, port, preset) if "messages" in parts else None
+    front = (_provider_front(tmp, port, preset, plugin)
+             if {"messages", "realtime"} & set(parts) else None)
     server = threading.Thread(target=gateway_thread, name="responses-gateway")
     server.start()
     out: dict = {}
@@ -7369,6 +7426,8 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL,
         if "messages" in parts:
             out["messages"] = _messages_checks(port, engine, preset, front, L, expect, dev,
                                                card)
+        if "realtime" in parts:
+            out["realtime"] = _realtime_checks(port, held, preset, front, L, expect, dev, card)
     finally:
         if front is not None:
             code = front[0].stop()
@@ -7392,8 +7451,8 @@ def phase_responses(dev, card: str, preset: str = SERVE_MODEL,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
-    print(f"  phase 15{' and 16' if 'messages' in parts else ''} took "
-          f"{out['seconds']:.1f} s ({card})")
+    later = [n for n, part in (("16", "messages"), ("17", "realtime")) if part in parts]
+    print(f"  phase 15{''.join(f', {n}' for n in later)} took {out['seconds']:.1f} s ({card})")
     if failures:
         raise AssertionError(f"phase 15: {len(failures)} checks failed: {failures}")
     return out
@@ -7635,11 +7694,12 @@ MSG_REPS = 5  # timed repeats of (d), for the medians
 FRONT_PROVIDERS = ("openai", "anthropic", "xai")  # the front's providers, by kind
 
 
-def _provider_front(tmp: Path, upstream_port: int, model: str) -> tuple:
+def _provider_front(tmp: Path, upstream_port: int, model: str, plugin: Path) -> tuple:
     """Phase 16 (b)'s front: a ``launch`` process with no worker and a
     ``--provider-config`` of three providers (one of each kind in
     ``FRONT_PROVIDERS``, named after it) that all point at the gateway on
-    ``upstream_port``; returns (child, port, the configured model ids)."""
+    ``upstream_port``, and phase 17 (e)'s ``plugin`` loaded fail-closed;
+    returns (child, port, the configured model ids)."""
     base = f"http://127.0.0.1:{upstream_port}/v1"
     models = [f"{kind}/{model}" for kind in FRONT_PROVIDERS]
     (tmp / "providers.json").write_text(json.dumps([
@@ -7647,7 +7707,8 @@ def _provider_front(tmp: Path, upstream_port: int, model: str) -> tuple:
         for kind, m in zip(FRONT_PROVIDERS, models)]))
     port = _free_port()
     child = Child("provider-front", [*CLI, "launch", "--host", "127.0.0.1", "--port", port,
-                                     "--provider-config", tmp / "providers.json"])
+                                     "--provider-config", tmp / "providers.json",
+                                     "--plugins", plugin, "--plugin-fail-closed"])
     return child, port, models
 
 
@@ -7963,6 +8024,536 @@ def _messages_checks(port, engine, model, front, L, expect, dev, card) -> dict:
     return out
 
 
+# ---- phase 17: the Realtime, Interactions and transcription APIs, plugins ----
+
+RT_NEW = 16  # output tokens of every phase-17 turn and of its direct chat
+RT_REPS = 5  # timed repeats of the readings, for the medians
+RT_TIMEOUT_S = 1.0  # (c)'s --request-timeout-secs, shorter than its session
+ASR_MODEL, ASR_WORKER = "whisper-smoke", "asr-smoke"
+PLUGIN_HEADER = "x-smoke-plugin"
+PLUGIN_NAME = "smoke_plugin"
+# (e)'s plugin, written into a file phase 15's serve and phase 16's front
+# load: it acts only on requests that carry PLUGIN_HEADER
+SMOKE_PLUGIN = f'''"""The smoke plugin: ``{PLUGIN_HEADER}: reject`` is a 451, ``fault``
+raises inside the hook, ``tag`` adds ``{PLUGIN_HEADER}-tag`` to the whole
+response; a request without the header passes untouched."""
+
+from smg_tpu_torch.plugins import Continue, Modify, Reject
+from smg_tpu_torch.utils.logging import request_id_var
+
+TAGGED = set()
+
+
+async def on_request(req):
+    what = req.headers.get("{PLUGIN_HEADER}")
+    if what == "reject":
+        return Reject(451, "rejected by the smoke plugin")
+    if what == "fault":
+        raise RuntimeError("the smoke plugin's fault")
+    if what == "tag":
+        TAGGED.add(req.request_id)
+    return Continue()
+
+
+async def on_response(resp):
+    rid = request_id_var.get()  # the gateway sets it for every request
+    if rid in TAGGED:
+        TAGGED.discard(rid)
+        return Modify(headers_set={{"{PLUGIN_HEADER}-tag": rid}})
+    return Continue()
+'''
+
+
+def _smoke_plugin(tmp: Path) -> Path:
+    path = tmp / f"{PLUGIN_NAME}.py"
+    path.write_text(SMOKE_PLUGIN)
+    return path
+
+
+class AsrServer(LoopServer):
+    """A loopback OpenAI-compatible audio worker: ``/v1/models``,
+    ``/health`` and ``/v1/audio/transcriptions``, which answers
+    ``transcript`` (plain text for ``response_format=text``, else JSON with
+    the SHA-256 of the audio it received) and records each form's fields and
+    its audio's SHA-256."""
+
+    def __init__(self, transcript: str):
+        self.transcript, self.forms = transcript, []
+        super().__init__()
+
+    def routes(self) -> list:
+        return [("GET", "/v1/models", self.models), ("GET", "/health", self.models),
+                ("POST", "/v1/audio/transcriptions", self.transcribe)]
+
+    async def models(self, request):
+        from aiohttp import web
+
+        return web.json_response({"object": "list", "data": [{"id": ASR_MODEL}]})
+
+    async def transcribe(self, request):
+        import hashlib
+
+        from aiohttp import web
+
+        fields, digest = {}, None
+        async for part in await request.multipart():
+            if part.name == "file":
+                digest = hashlib.sha256(await part.read(decode=False)).hexdigest()
+            elif part.name:
+                fields.setdefault(part.name, []).append((await part.read(decode=False)).decode())
+        self.forms.append((fields, digest))
+        if fields.get("response_format") == ["text"]:
+            return web.Response(text=self.transcript, content_type="text/plain")
+        return web.json_response({"text": self.transcript, "sha256": digest})
+
+
+RT_UPDATE = {"type": "session.update", "session": {"temperature": 0, "max_output_tokens": RT_NEW}}
+
+
+def _rt_item(text: str) -> dict:
+    return {"type": "conversation.item.create",
+            "item": {"role": "user", "content": [{"type": "input_text", "text": text}]}}
+
+
+async def _rt_until(ws, last: tuple, t0: float | None = None) -> tuple[list, float | None]:
+    """Events from ``ws`` up to one whose type is in ``last``, and the
+    seconds from ``t0`` (default: the call) to the first
+    ``response.output_text.delta``."""
+    t0, first, out = time.perf_counter() if t0 is None else t0, None, []
+    while True:
+        ev = await ws.receive_json(timeout=LOOP_WAIT_S)
+        if first is None and ev["type"] == "response.output_text.delta":
+            first = time.perf_counter() - t0
+        out.append(ev)
+        if ev["type"] in last:
+            return out, first
+
+
+async def _rt_response(ws) -> tuple:
+    """``response.create`` on ``ws``: (the text, the event types, the seconds
+    to the first delta); the text is None unless the events are the
+    reference's (``response.created``, deltas, ``response.done``) and the
+    deltas join to ``response.done``'s text."""
+    t0 = time.perf_counter()
+    await ws.send_json({"type": "response.create"})
+    events, first = await _rt_until(ws, ("response.done", "error"), t0)
+    types = [e["type"] for e in events]
+    deltas = [e["delta"] for e in events if e["type"] == "response.output_text.delta"]
+    text = events[-1].get("response", {}).get("output_text")
+    ok = (types[0] == "response.created" and types[-1] == "response.done" and deltas
+          and set(types[1:-1]) == {"response.output_text.delta"} and "".join(deltas) == text)
+    return (text if ok else None), types, first
+
+
+async def _rt_open(http, url: str) -> tuple:
+    """A realtime session on ``url`` with ``RT_UPDATE`` applied: (the
+    websocket, ``session.created``, ``session.updated``)."""
+    ws = await http.ws_connect(url)
+    created = await ws.receive_json(timeout=LOOP_WAIT_S)
+    await ws.send_json(RT_UPDATE)
+    return ws, created, await ws.receive_json(timeout=LOOP_WAIT_S)
+
+
+def _realtime_checks(port, held, model, front, L, expect, dev, card) -> dict:
+    """Phase 17's checks (a)-(e) and readings against the engine served on
+    ``port`` (phase 15's gateway: its context ``held["ctx"]``, served on the
+    loop ``held["loop"]``) under the model id ``model``, and phase 16's
+    provider front ``front`` = (child, port, its model ids); kernel launches
+    counted over the whole phase."""
+    import asyncio
+
+    import torch
+
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+
+    t_phase = time.perf_counter()
+    engine = held["ctx"].registry.get(SERVE_WORKER).client.engine
+    host = held["ctx"].plugins
+    expect(host is not None and [p.name for p in host.plugins] == [PLUGIN_NAME]
+           and host.fail_open, f"(e) serve --plugins: {host and host.plugins}")
+    hook_ms: dict = {"on_request": [], "on_response": []}
+
+    def timed_hook(name, fn):
+        async def run(arg):
+            t = time.perf_counter()
+            try:
+                return await fn(arg)
+            finally:
+                hook_ms[name].append((time.perf_counter() - t) * 1e3)
+        return run
+
+    for k in hook_ms:
+        setattr(host, k, timed_hook(k, getattr(host, k)))
+    for k in engine.runner.stats:
+        engine.runner.stats[k] = 0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dk.launches = pk.launches = 0
+    asr = AsrServer(_words(range(2000, 2012)))
+    try:
+        out = asyncio.run(_realtime_drive(port, held, engine, model, front, asr, expect, card))
+    finally:
+        for k in hook_ms:
+            delattr(host, k)  # the instance's wrapper goes; the class's method is back
+        asr.stop()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
+    sched = {k: engine.runner.stats[k] for k in ("decode_columns", "prefill_calls")}
+    want_l = {"decode_attention": L * sched["decode_columns"],
+              "prefill_attention": L * sched["prefill_calls"]}
+    expect(launches == want_l and min(launches.values()) > 0,
+           f"phase 17 launches {launches} != {want_l} ({sched})")
+    out["launches"], out["schedule"] = launches, sched
+    out["plugin_ms"] = {k: statistics.median(v) if v else None for k, v in hook_ms.items()}
+    out["plugin_calls"] = {k: len(v) for k, v in hook_ms.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  (e) the plugin host's ms per request on the engine's gateway (medians of "
+          f"{out['plugin_calls']} calls) ({card}): on_request {out['plugin_ms']['on_request']:.3f},"
+          f" on_response {out['plugin_ms']['on_response']:.3f}")
+    print(f"  phase 17: launches {launches} = {L} x {sched}; it took {out['seconds']:.1f} s "
+          f"({card})")
+    return out
+
+
+async def _realtime_drive(port, held, engine, model, front, asr, expect, card) -> dict:
+    """Phase 17's requests, from one aiohttp client session on this loop."""
+    import asyncio
+    import base64
+    import hashlib
+
+    import aiohttp
+    import numpy as np
+    from aiohttp import web
+
+    from smg_tpu_torch.cli import build_parser
+    from smg_tpu_torch.gateway.launch import build_context, gateway_options
+    from smg_tpu_torch.gateway.realtime import pcm16_to_wav
+    from smg_tpu_torch.gateway.server import build_app
+
+    rng = np.random.default_rng(17)
+    words = lambda n: _words(rng.integers(1000, 120000, n).tolist())  # noqa: E731
+    url = f"http://127.0.0.1:{port}"
+    rt_url = f"ws://127.0.0.1:{port}/v1/realtime"
+    out: dict = {}
+
+    def flush():
+        st, body = _http(port, "POST", "/flush_cache")
+        if st != 200 or body["flushed"].get(SERVE_WORKER) is not True:
+            raise AssertionError(f"/flush_cache: {st} {body}")
+
+    def chat_body(messages, m=model, **kw):
+        return {"model": m, "messages": messages, "max_tokens": RT_NEW, "temperature": 0, **kw}
+
+    def chat_text(messages) -> str | None:
+        flush()  # every request from a cold radix cache (bf16 over a prefix rounds otherwise)
+        st, body = _http(port, "POST", "/v1/chat/completions", chat_body(messages))
+        expect(st == 200, f"the direct chat: {st} {body}")
+        return body["choices"][0]["message"]["content"] if st == 200 else None
+
+    async with aiohttp.ClientSession() as http:
+        # (a) two text turns over the engine, an unknown event between them
+        ws, created, updated = await _rt_open(http, f"{rt_url}?model={model}")
+        expect(created["type"] == "session.created" and updated["type"] == "session.updated"
+               and updated["session"]["temperature"] == 0
+               and updated["session"]["max_output_tokens"] == RT_NEW,
+               f"(a) the session: {created} {updated}")
+        history, texts = [], []
+        for turn, user in enumerate((words(40), words(20))):
+            await ws.send_json(_rt_item(user))
+            item = await ws.receive_json(timeout=LOOP_WAIT_S)
+            expect(item["type"] == "conversation.item.created" and item["item"]["role"] == "user",
+                   f"(a) turn {turn + 1}'s item: {item}")
+            history.append({"role": "user", "content": user})
+            flush()
+            text, types, _first = await _rt_response(ws)
+            expect(text is not None, f"(a) turn {turn + 1}'s events: {types}")
+            want = chat_text(history)
+            expect(text == want, f"(a) turn {turn + 1}: realtime {text!r} != chat {want!r}")
+            texts.append(text)
+            history.append({"role": "assistant", "content": text or ""})
+            if turn == 0:
+                await ws.send_json({"type": "smoke.no_such_event"})
+                err = await ws.receive_json(timeout=LOOP_WAIT_S)
+                expect(err == {"type": "error", "error": {
+                    "message": "unknown event type 'smoke.no_such_event'"}},
+                    f"(a) an unknown event: {err}")
+        await ws.close()
+        print(f"  (a) two realtime turns equal the direct chats on the same history "
+              f"({len(history[0]['content'].split())}-word first turn, {RT_NEW} tokens each); "
+              "an unknown event got the error event and the session went on")
+
+        # (b) audio: PCM16 frames through the transcription leg, then
+        # /v1/audio/transcriptions, both to a loopback ASR worker
+        st, reg = _http(port, "POST", "/workers", {
+            "url": f"http://127.0.0.1:{asr.port}", "model_id": ASR_MODEL,
+            "worker_id": ASR_WORKER})
+        expect(st == 200 and reg["added"]["worker_id"] == ASR_WORKER,
+               f"(b) POST /workers: {st} {reg}")
+        frames = [rng.integers(-8000, 8000, 1600).astype("<i2").tobytes() for _ in range(3)]
+        wav = pcm16_to_wav(b"".join(frames))
+        digest = hashlib.sha256(wav).hexdigest()
+        # the default model: the transcription leg finds the ASR worker among
+        # all workers, the response the engine (the only token-level worker)
+        ws, _created, _updated = await _rt_open(http, rt_url)
+        appended = []
+        for f in frames:
+            await ws.send_json({"type": "input_audio_buffer.append",
+                                "audio": base64.b64encode(f).decode()})
+            appended.append(await ws.receive_json(timeout=LOOP_WAIT_S))
+        n_forms = len(asr.forms)
+        await ws.send_json({"type": "input_audio_buffer.commit"})
+        events, _ = await _rt_until(ws, ("conversation.item.input_audio_transcription.completed",
+                                         "error"))
+        expect([e.get("bytes") for e in appended] == [3200, 6400, 9600]
+               and [e["type"] for e in events] == [
+                   "input_audio_buffer.committed",
+                   "conversation.item.input_audio_transcription.completed"]
+               and events[-1]["transcript"] == asr.transcript,
+               f"(b) append and commit: {appended} {events}")
+        expect(asr.forms[n_forms:] == [({"model": ["default"]}, digest)],
+               f"(b) the ASR worker got {asr.forms[n_forms:]}, not the frames' WAV {digest}")
+        flush()
+        text, types, _first = await _rt_response(ws)
+        want = chat_text([{"role": "user", "content": asr.transcript}])
+        expect(text is not None and text == want,
+               f"(b) the response on the transcript {text!r} ({types}) != chat {want!r}")
+        await ws.close()
+        transcriptions = []
+        for fmt in ("json", "text"):
+            form = aiohttp.FormData()
+            for name, value in (("model", ASR_MODEL), ("response_format", fmt),
+                                ("timestamp_granularities[]", "word"),
+                                ("timestamp_granularities[]", "segment")):
+                form.add_field(name, value)
+            form.add_field("file", wav, filename="smoke.wav", content_type="audio/wav")
+            async with http.post(f"{url}/v1/audio/transcriptions", data=form) as r:
+                transcriptions.append((r.status, r.content_type, await r.text()))
+        sent = [f for f, _d in asr.forms[-2:]]
+        expect(transcriptions[0][:2] == (200, "application/json")
+               and json.loads(transcriptions[0][2]) == {"text": asr.transcript, "sha256": digest}
+               and transcriptions[1] == (200, "text/plain", asr.transcript)
+               and all(f["timestamp_granularities[]"] == ["word", "segment"] for f in sent)
+               and [d for _f, d in asr.forms[-2:]] == [digest, digest],
+               f"(b) /v1/audio/transcriptions: {transcriptions} {sent}")
+        st, gone = _http(port, "DELETE", f"/workers/{ASR_WORKER}?drain=0")
+        expect(st == 200, f"(b) DELETE /workers/{ASR_WORKER}: {st} {gone}")
+        print(f"  (b) {len(frames)} PCM16 frames reached the ASR worker as one WAV (sha256 "
+              f"{digest[:12]}); the response on its transcript equals the chat; "
+              "/v1/audio/transcriptions json and text with two granularities")
+
+        # (c) client secrets, the relay and the timeout exemption on an extra
+        # gateway over the same engine, with an API key and a short timeout
+        args = build_parser().parse_args([
+            "serve", "--model-preset", model, "--api-key", f"{API_KEY}:smoke",
+            "--request-timeout-secs", str(RT_TIMEOUT_S)])
+        ctx2 = build_context(engine, **gateway_options(args))
+        port2 = _free_port()
+        auth = {"Authorization": f"Bearer {API_KEY}"}
+
+        async def start():
+            runner = web.AppRunner(build_app(ctx2))
+            await runner.setup()
+            await web.TCPSite(runner, "127.0.0.1", port2).start()
+            return runner
+
+        runner2 = await asyncio.wrap_future(
+            asyncio.run_coroutine_threadsafe(start(), held["loop"]))
+        try:
+            rt2 = f"ws://127.0.0.1:{port2}/v1/realtime"
+            ws = await http.ws_connect(f"{rt2}?model={model}")
+            denied = await ws.receive_json(timeout=LOOP_WAIT_S)
+            await ws.close()
+            async with http.post(f"http://127.0.0.1:{port2}/v1/realtime/client_secrets") as r:
+                unauth = r.status
+            async with http.post(f"http://127.0.0.1:{port2}/v1/realtime/client_secrets",
+                                 headers=auth) as r:
+                minted = (r.status, await r.json())
+            expect(denied["type"] == "error"
+                   and denied["error"]["type"] == "authentication_error" and unauth == 401
+                   and minted[0] == 200 and minted[1]["client_secret"]["value"].startswith("eph_"),
+                   f"(c) the handshake without a credential {denied}, minting {unauth} {minted}")
+            secret = minted[1]["client_secret"]["value"]
+            payload = rng.bytes(64 * 1024)
+            offer = json.dumps({"type": "offer", "sdp": words(8)})
+
+            async def session():
+                t0 = time.perf_counter()
+                ws, created, _ = await _rt_open(http, f"{rt2}?model={model}&client_secret={secret}")
+                await asyncio.sleep(1.5 * RT_TIMEOUT_S)
+                await ws.send_json(_rt_item(history[0]["content"]))
+                await ws.receive_json(timeout=LOOP_WAIT_S)
+                flush()
+                text, types, _first = await _rt_response(ws)
+                await ws.close()
+                return created["type"], text, types, time.perf_counter() - t0
+
+            async def relay():
+                leg = f"ws://127.0.0.1:{port2}/v1/realtime/relay/smoke17?client_secret={secret}"
+                a = await http.ws_connect(f"{leg}&leg=a")
+                joined = [await a.receive_json(timeout=LOOP_WAIT_S)]
+                b = await http.ws_connect(f"{leg}&leg=b")
+                joined += [await b.receive_json(timeout=LOOP_WAIT_S),
+                           await a.receive_json(timeout=LOOP_WAIT_S)]
+                await asyncio.sleep(1.5 * RT_TIMEOUT_S)
+                await a.send_str(offer)
+                got_text = await b.receive_str(timeout=LOOP_WAIT_S)
+                await b.send_bytes(payload)
+                got_bin = await a.receive(timeout=LOOP_WAIT_S)
+                await b.close()
+                joined.append(await a.receive_json(timeout=LOOP_WAIT_S))
+                await a.close()
+                return joined, got_text, got_bin
+
+            (created, text_c, types_c, secs), (joined, got_text, got_bin) = \
+                await asyncio.gather(session(), relay())
+            expect(created == "session.created" and text_c == texts[0] and secs > RT_TIMEOUT_S,
+                   f"(c) the session over ?client_secret= for {secs:.2f} s (timeout "
+                   f"{RT_TIMEOUT_S} s): {text_c!r} ({types_c}) != (a)'s {texts[0]!r}")
+            expect([j["type"] for j in joined] == ["relay.joined", "relay.joined",
+                                                   "relay.peer_connected",
+                                                   "relay.peer_disconnected"]
+                   and got_text == offer and got_bin.type == aiohttp.WSMsgType.BINARY
+                   and got_bin.data == payload,
+                   f"(c) the relay: {joined}, text equal {got_text == offer}, binary "
+                   f"{got_bin.type} equal {got_bin.data == payload}")
+            t0 = time.perf_counter()
+            st, body = _http(port2, "POST", "/v1/chat/completions", chat_body(
+                [{"role": "user", "content": words(20)}], max_tokens=1024, ignore_eos=True),
+                headers=auth)
+            cut_s = time.perf_counter() - t0
+            expect(st == 408 and RT_TIMEOUT_S <= cut_s < RT_TIMEOUT_S + 2.0,
+                   f"(c) a chat past the timeout: {st} after {cut_s:.2f} s: {body}")
+            deadline = time.monotonic() + 60
+            while engine.has_work() and time.monotonic() < deadline:
+                await asyncio.sleep(0.05)
+            expect(not engine.has_work(), "(c) the timed-out chat still runs in the engine")
+        finally:
+            await asyncio.wrap_future(
+                asyncio.run_coroutine_threadsafe(runner2.cleanup(), held["loop"]))
+            for w in ctx2.registry.list():  # the engine stays: its client is not closed
+                ctx2.registry.remove(w.worker_id)
+        print(f"  (c) a minted client secret opened a session that outlived the "
+              f"{RT_TIMEOUT_S} s timeout ({secs:.2f} s) and answered (a)'s first turn; the "
+              f"relay legs exchanged a text and a 64 KiB binary frame byte for byte; a chat "
+              f"got its 408 after {cut_s:.2f} s")
+
+        # (d) interactions: a stored turn, a chained turn, the chained turn
+        # streamed, get, delete, and a Responses id that is not one
+        system, i_user1, i_user2 = words(8), words(40), words(20)
+        gen = {"temperature": 0, "max_output_tokens": RT_NEW}
+        first = {"model": model, "input": i_user1, "system_instruction": system,
+                 "generation_config": gen}
+        flush()
+        st, i1 = _http(port, "POST", "/v1/interactions", first)
+        m1 = [{"role": "system", "content": system}, {"role": "user", "content": i_user1}]
+        t1 = _interaction_text(i1) if st == 200 else None
+        want = chat_text(m1)
+        expect(st == 200 and t1 == want, f"(d) turn 1 {st}: {t1!r} != chat {want!r}")
+        second = {"model": model, "input": i_user2, "previous_interaction_id": i1.get("id"),
+                  "generation_config": gen}
+        flush()
+        st, i2 = _http(port, "POST", "/v1/interactions", second)
+        t2 = _interaction_text(i2) if st == 200 else None
+        want = chat_text(m1 + [{"role": "assistant", "content": t1 or ""},
+                               {"role": "user", "content": i_user2}])
+        expect(st == 200 and t2 == want and i2.get("previous_interaction_id") == i1.get("id"),
+               f"(d) the chained turn {st}: {t2!r} != chat {want!r}")
+        flush()
+        st, frames = _sse_named(port, "/v1/interactions", {**second, "stream": True})
+        payloads = [p for _t, _n, p in frames]
+        deltas = "".join(p["delta"]["text"] for p in payloads[:-1] if p["type"] == "content_delta")
+        done = [p for p in payloads[:-1] if p["type"] == "interaction_complete"]
+        expect(st == 200 and payloads[-1] == "[DONE]" and deltas == t2 and done
+               and _interaction_text(done[0]["interaction"]) == t2,
+               f"(d) the streamed turn {st}: {deltas!r} != {t2!r}")
+        st_get, got = _http(port, "GET", f"/v1/interactions/{i2.get('id')}")
+        st_del, deleted = _http(port, "DELETE", f"/v1/interactions/{i2.get('id')}")
+        st_gone, _gone = _http(port, "GET", f"/v1/interactions/{i2.get('id')}")
+        st_r, resp = _http(port, "POST", "/v1/responses", {
+            "model": model, "input": words(8), "max_output_tokens": 1, "temperature": 0})
+        st_not, _not = _http(port, "GET", f"/v1/interactions/{resp.get('id')}")
+        expect(st_get == 200 and got["id"] == i2["id"] and got["outputs"] == i2["outputs"]
+               and (st_del, deleted) == (200, {"deleted": i2["id"]}) and st_gone == 404
+               and st_r == 200 and st_not == 404,
+               f"(d) get {st_get}, delete {st_del} {deleted}, get after {st_gone}, a "
+               f"/v1/responses id {st_r} -> {st_not}")
+        print("  (d) a stored and a chained interaction equal the direct chats, the "
+              "streamed chained turn's deltas join to its text; get, delete, 404 after, "
+              "and a /v1/responses id is 404")
+
+        # (e) the plugin on phase 15's gateway (fail-open) and the front's
+        # (fail-closed); without the header the phases before saw no change
+        child, fport, fmodels = front
+        _wait_http_up(fport, child, "the provider front")
+        plain = [{"role": "user", "content": words(30)}]
+        want = chat_text(plain)
+        seen = {}
+        for where, p, m in (("serve", port, model), ("front", fport, fmodels[0])):
+            for what in ("reject", "tag", "fault", None):
+                flush()
+                headers = {PLUGIN_HEADER: what} if what else {}
+                async with http.post(f"http://127.0.0.1:{p}/v1/chat/completions",
+                                     json=chat_body(plain, m), headers=headers) as r:
+                    seen[where, what] = (r.status, r.headers.get(f"{PLUGIN_HEADER}-tag"),
+                                         await r.json())
+        for (where, what), (st, tag, body) in seen.items():
+            text = body["choices"][0]["message"]["content"] if st == 200 else None
+            err = body.get("error", {})
+            if what == "reject":
+                ok = (st == 451 and err.get("type") == "plugin_rejected"
+                      and err.get("message") == "rejected by the smoke plugin")
+            elif what == "fault" and where == "front":
+                ok = (st == 500 and err.get("type") == "plugin_rejected"
+                      and err.get("message") == f"plugin {PLUGIN_NAME} failed")
+            else:
+                ok = st == 200 and text == want and (tag is not None) == (what == "tag")
+            expect(ok, f"(e) {where} with {what}: {st} tag {tag} {body}")
+        print("  (e) the plugin: reject 451 on both, tag's header back with the same text, "
+              "fault served fail-open by serve and 500 by the fail-closed front; no header, "
+              "no change")
+
+        # readings: realtime TTFT against the direct chat's, an interactions
+        # turn's wall time against its chat's; medians of RT_REPS, cold radix
+        user = words(40)
+        samples: dict = {k: [] for k in ("rt_ttft", "chat_ttft", "int_wall", "chat_wall")}
+        for _rep in range(RT_REPS):
+            ws, _c, _u = await _rt_open(http, f"{rt_url}?model={model}")
+            await ws.send_json(_rt_item(user))
+            await ws.receive_json(timeout=LOOP_WAIT_S)
+            flush()
+            text, _types, first_s = await _rt_response(ws)
+            await ws.close()
+            flush()
+            st, frames = _sse_named(port, "/v1/chat/completions",
+                                    chat_body([{"role": "user", "content": user}], stream=True))
+            t_first = next((t for t, n, f in frames if _is_chat_content(n, f)), None)
+            expect(text is not None and first_s is not None and st == 200 and t_first,
+                   f"(readings) realtime {text!r}, chat {st}")
+            samples["rt_ttft"].append((first_s or 0.0) * 1e3)
+            samples["chat_ttft"].append((t_first or 0.0) * 1e3)
+            flush()
+            st, _b, ms = _timed_http(port, "POST", "/v1/interactions", {**first, "store": False})
+            flush()
+            st2, _b2, ms2 = _timed_http(port, "POST", "/v1/chat/completions", chat_body(m1))
+            expect(st == st2 == 200, f"(readings) interactions {st}, chat {st2}")
+            samples["int_wall"].append(ms)
+            samples["chat_wall"].append(ms2)
+    out.update({k: statistics.median(v) for k, v in samples.items()})
+    out["samples"] = samples
+    print(f"  readings, medians of {RT_REPS} ({card}): realtime TTFT {out['rt_ttft']:.2f} ms "
+          f"(range {min(samples['rt_ttft']):.2f}-{max(samples['rt_ttft']):.2f}) against the "
+          f"direct chat's {out['chat_ttft']:.2f} ms; an interactions turn {out['int_wall']:.2f} "
+          f"ms wall against its chat's {out['chat_wall']:.2f} ms ({RT_NEW} tokens)")
+    return out
+
+
+def _interaction_text(body: dict) -> str:
+    return "".join(p.get("text") or "" for o in body.get("outputs", [])
+                   for p in o.get("parts", []) if isinstance(p, dict))
+
+
 def phase_engine(dev, card: str) -> dict:
     import dataclasses
 
@@ -8251,7 +8842,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd",
-                             "launch", "routing", "responses", "messages"),
+                             "launch", "routing", "responses", "messages", "realtime"),
                     default="all")
     # the gRPC worker processes of phases 13 and 14: this script started by itself
     ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
@@ -8343,19 +8934,22 @@ def main(argv=None) -> int:
             traceback.print_exc()
             failed.append("launch")
     responses = {}
-    if args.phases in ("all", "responses", "messages") and not failed:
-        print({"all": "phases 15 and 16: the Responses API (SQLite storage, an MCP server, "
+    if args.phases in ("all", "responses", "messages", "realtime") and not failed:
+        print({"all": "phases 15-17: the Responses API (SQLite storage, an MCP server, "
                       "approvals), then the Anthropic Messages API, a provider front and a "
-                      "dedicated router, on Llama-3-8B (full width, 32 layers)",
+                      "dedicated router, then the Realtime, Interactions and transcription "
+                      "APIs and a plugin, on Llama-3-8B (full width, 32 layers)",
                "responses": "phase 15 alone: the Responses API on Llama-3-8B (full width, "
                             "32 layers; SQLite storage, an MCP server, approvals)",
                "messages": "phase 16 alone: the Anthropic Messages API, a provider front and "
-                           "a dedicated router on Llama-3-8B (full width, 32 layers)"
+                           "a dedicated router on Llama-3-8B (full width, 32 layers)",
+               "realtime": "phase 17 alone: the Realtime, Interactions and transcription APIs "
+                           "and a plugin on Llama-3-8B (full width, 32 layers)"
                }[args.phases])
         try:
             responses = phase_responses(dev, card, parts={
-                "all": ("responses", "messages"), "responses": ("responses",),
-                "messages": ("messages",)}[args.phases])
+                "all": ("responses", "messages", "realtime"), "responses": ("responses",),
+                "messages": ("messages",), "realtime": ("realtime",)}[args.phases])
         except Exception:
             traceback.print_exc()
             failed.append("responses")
@@ -8402,6 +8996,9 @@ def main(argv=None) -> int:
             # phase 16's requests: /v1/messages, the provider front's hops and
             # the dedicated router's chats, on phase 15's engine (bf16)
             launches_messages=responses["messages"]["launches"][name],
+            # phase 17's realtime sessions, interactions and plugin chats, on
+            # phase 15's engine (bf16)
+            launches_realtime=responses["realtime"]["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],

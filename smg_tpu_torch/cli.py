@@ -19,8 +19,11 @@ sizes ``prefix_hash``'s key and ``--dp-aware``/``--no-dp-aware`` pick the
 router's DP-rank stage.  ``--provider-config`` names a JSON file of
 third-party provider backends (OpenAI, xAI, Anthropic, Gemini, Bedrock)
 that take their models' chat, ``/v1/messages`` and ``/v1/responses``
-requests before any worker does.  Parallelism, the HA mesh and plugins are
-not ported yet, and their flags are refused.
+requests before any worker does.  ``--plugins`` loads middleware plugins
+(a file path or a dotted module, repeatable) whose hooks see every request
+and response; a hook that fails lets the request through unless
+``--plugin-fail-closed``.  Parallelism and the HA mesh are not ported yet,
+and their flags are refused.
 """
 
 from __future__ import annotations
@@ -85,6 +88,12 @@ def _add_gateway_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--gateway-tokenizer-path", default=None, dest="gateway_tokenizer_path",
                    help="tokenizer for gateway-side text processing (launch mode; "
                         "default: the first worker's tokenizer bundle)")
+    g.add_argument("--plugins", action="append", default=[],
+                   help="middleware plugin: /path/plug.py or dotted module "
+                        "(repeatable; reference: the WASM component host)")
+    g.add_argument("--plugin-fail-closed", action="store_true",
+                   help="reject requests when a plugin hook faults "
+                        "(default: fail-open, log and continue)")
     g.add_argument("--log-level", default="INFO")
     g.add_argument("--log-json", action="store_true",
                    help="structured JSON log lines")

@@ -5,8 +5,9 @@ safetensors weights and tokenizer) or a model preset; ``worker`` serves it
 over gRPC (``rpc/server.py``); ``serve`` puts it behind the gateway as one
 ``InProcWorkerClient``; ``launch`` runs the gateway alone.  Both gateway
 commands open the conversation storage (``--storage``), the MCP servers
-of ``--mcp-config-path`` and the third-party providers of
-``--provider-config`` before an engine loads, register the
+of ``--mcp-config-path``, the third-party providers of
+``--provider-config`` and the middleware plugins of ``--plugins`` before an
+engine loads, register the
 workers named by URL (``--worker``, ``--prefill-worker``,
 ``--decode-worker``) through the registration workflow before the listener
 binds, watch Kubernetes pods with ``--service-discovery``, take TLS and the
@@ -420,14 +421,17 @@ async def _run_gateway(args, stop: asyncio.Event | None = None) -> int:
         except (NotImplementedError, RuntimeError, ValueError):
             pass  # non-main thread / platform without signal support
     # the SLO spec file is read off the serving loop; the storage, the MCP
-    # servers and the providers come before the engine, so a bad --storage,
-    # MCP or provider file fails startup before any weights load
+    # servers, the providers and the plugins come before the engine, so a
+    # bad --storage, MCP, provider or plugin file fails startup before any
+    # weights load
     options = await asyncio.to_thread(gateway_options, args)
     ctx = AppContext(**options)
     if args.mcp_config_path:
         await load_mcp_config(ctx, args.mcp_config_path)
     if args.provider_config:
         await asyncio.to_thread(ctx.providers.load_config, args.provider_config)
+    if args.plugins:
+        ctx.load_plugins(args.plugins, fail_open=not args.plugin_fail_closed)
     if args.command == "serve":
         add_engine_worker(ctx, build_engine_from_args(args),
                           drain_timeout_secs=args.engine_drain_timeout_secs)

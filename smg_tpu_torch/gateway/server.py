@@ -14,9 +14,12 @@ rerank and classify (``/v1/embeddings``, ``/v1/rerank`` and its alias
 JSON bodies and SSE framing (``data: …`` frames, ``data: [DONE]`` last).
 
 The request-policy layer is the reference's middleware chain, in its order:
-request id, the OTel request span, errors, the request timeout and CORS,
-auth, then admission (per-tenant rate limit, the priority scheduler with
-cancel-and-requeue preemption of ``bulk`` work, request counters).
+request id, the OTel request span, errors, the request timeout and CORS
+(websocket sessions exempt from the timeout), the plugin stage (``--plugins``:
+``plugins/``' hooks on every request and response, which may reject or
+modify it), auth, then admission (per-tenant rate limit, the priority
+scheduler with cancel-and-requeue preemption of ``bulk`` work, request
+counters).
 
 Workers register by URL (``POST /workers``, synchronous or as a job;
 ``DELETE /workers/{worker_id}`` drains first) through the
@@ -49,7 +52,14 @@ Each model may have a router of its own (``gateway/router_manager.py``;
 ``/routers`` and ``/models/{model_id}/router`` show, set and reset it);
 ``ctx.router`` is the default one.
 
-Not ported yet: plugins, the realtime, interactions and transcription APIs.
+The Realtime API (``gateway/realtime.py``: the ``/v1/realtime`` websocket,
+``/v1/realtime/client_secrets``, the ``/v1/realtime/relay/{session_id}``
+legs) runs its responses over the default router and its audio through the
+transcription leg; ``/v1/audio/transcriptions`` forwards its multipart form
+to an HTTP audio worker (501 without one); ``/v1/interactions`` (create,
+get, delete) runs chat turns chained by ``previous_interaction_id`` over the
+conversation storage, streamed as ``content_delta`` and
+``interaction_complete`` frames.
 """
 
 from __future__ import annotations
@@ -90,9 +100,17 @@ from smg_tpu_torch.gateway.tracing import (
 )
 from smg_tpu_torch.gateway.workers import WorkerRegistry
 from smg_tpu_torch.mcp import McpRegistry
+from smg_tpu_torch.plugins import PluginHost, PluginResponse, Reject
 from smg_tpu_torch.policies import PolicyRegistry, RequestContext
 from smg_tpu_torch.protocols.anthropic import AnthropicMessagesRequest
 from smg_tpu_torch.protocols.generate import GenerateMetaInfo, GenerateRequest, GenerateResponse
+from smg_tpu_torch.protocols.interactions import (
+    Interaction,
+    InteractionsRequest,
+    InteractionsUsage,
+    interaction_metadata,
+    text_output,
+)
 from smg_tpu_torch.protocols.openai import (
     ChatCompletionRequest,
     ChatCompletionResponse,
@@ -107,7 +125,8 @@ from smg_tpu_torch.protocols.openai import (
 )
 from smg_tpu_torch.protocols.responses import ResponsesRequest, ResponsesResponse, ResponseUsage
 from smg_tpu_torch.protocols.sampling import SamplingParams
-from smg_tpu_torch.storage import ConversationItem, make_storage
+from smg_tpu_torch.protocols.transcription import TranscriptionRequest
+from smg_tpu_torch.storage import ConversationItem, StoredResponse, make_storage
 from smg_tpu_torch.tokenizer.registry import TokenizerRegistry
 from smg_tpu_torch.utils import get_logger
 from smg_tpu_torch.utils.logging import request_id_var
@@ -132,9 +151,10 @@ class AppContext:
     (``routers``; ``router`` is the default one), the third-party providers
     (``providers``), the request-policy layer (auth, rate limits, the
     priority scheduler, the request timeout, CORS, the tracer, extra
-    request-id headers), and the Responses API's conversation storage
+    request-id headers), the Responses API's conversation storage
     (``storage``: a ``make_storage`` spec), gateway-level MCP servers and
-    handler."""
+    handler, and the plugin host (``plugins``: None until
+    ``load_plugins``)."""
 
     def __init__(
         self,
@@ -215,6 +235,9 @@ class AppContext:
         self.tracer = (OtelTracer(otel_endpoint, otel_service_name)
                        if otel_endpoint else None)
         self.discovery = None  # attached by build_app when running in a pod
+        # the plugin host: None until --plugins loads modules; the plugin
+        # middleware does nothing without it
+        self.plugins = None
         # worker registration rides typed workflows; the job queue is made
         # lazily because it starts tasks on the running loop
         self.workflows = WorkflowEngine()
@@ -230,6 +253,21 @@ class AppContext:
     def router_for(self, model_id: str | None) -> Router:
         """Model-keyed router dispatch (IGW mode)."""
         return self.routers.router_for(model_id)
+
+    def load_plugins(self, specs, fail_open: bool | None = None) -> PluginHost:
+        """Load middleware plugins (file paths or dotted modules).
+
+        ``fail_open=None`` keeps the existing host's setting: a later call
+        that states no preference must not turn a ``--plugin-fail-closed``
+        gateway fail-open."""
+        if self.plugins is None:
+            self.plugins = PluginHost(fail_open=True if fail_open is None else fail_open)
+        elif fail_open is not None:
+            # fail-closed is a security setting: an explicit choice wins
+            self.plugins.fail_open = fail_open
+        for spec in specs:
+            self.plugins.load(spec)
+        return self.plugins
 
     def adopt_engine_metrics(self, engine_metrics) -> bool:
         """Register an in-proc engine's metric set into the gateway registry
@@ -356,6 +394,42 @@ async def error_middleware(request: web.Request, handler):
 
 
 @web.middleware
+async def plugin_middleware(request: web.Request, handler):
+    """The plugin hooks (reference: the WASM component host,
+    ``crates/wasm/src/interface/spec.wit``): ``on_request`` before the
+    handler, ``on_response`` on a whole (not streamed) response; each may
+    continue, reject or modify.  No-op unless plugins are loaded."""
+    ctx: AppContext = request.app[CTX]
+    host = ctx.plugins
+    if host is None or not host.plugins:
+        return await handler(request)
+    preq = host.make_request(request, request.get("request_id", ""))
+    action = await host.on_request(preq)
+    if isinstance(action, Reject):
+        return _error(action.status, action.message or "rejected by plugin", "plugin_rejected")
+    # header modifications visible to downstream handlers
+    request["plugin_headers"] = preq.headers
+    resp = await handler(request)
+    if isinstance(resp, web.Response) and resp.body is not None:
+        presp = PluginResponse(
+            status=resp.status,
+            headers={k.lower(): v for k, v in resp.headers.items()},
+            body=bytes(resp.body) if resp.body else b"",
+        )
+        action = await host.on_response(presp)
+        if isinstance(action, Reject):
+            return _error(action.status, action.message or "rejected by plugin",
+                          "plugin_rejected")
+        if presp.status != resp.status or presp.body != (resp.body or b""):
+            return web.Response(status=presp.status, body=presp.body,
+                                content_type=resp.content_type)
+        for k, v in presp.headers.items():
+            if k not in ("content-type", "content-length"):
+                resp.headers[k] = v
+    return resp
+
+
+@web.middleware
 async def auth_middleware(request: web.Request, handler):
     ctx: AppContext = request.app[CTX]
     try:
@@ -388,7 +462,10 @@ async def limits_middleware(request: web.Request, handler):
             "Access-Control-Allow-Headers": "authorization, content-type, x-api-key",
             "Access-Control-Max-Age": "600",
         })
-    if ctx.request_timeout_secs:
+    is_ws = request.headers.get("Upgrade", "").lower() == "websocket"
+    if ctx.request_timeout_secs and not is_ws:
+        # websocket sessions (realtime and relay) are long-lived by design:
+        # the timeout governs HTTP request and response cycles only
         try:
             resp = await asyncio.wait_for(handler(request), ctx.request_timeout_secs)
         except TimeoutError:
@@ -498,7 +575,8 @@ def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Applic
     app = web.Application(
         middlewares=[
             request_id_middleware, otel_middleware, error_middleware,
-            limits_middleware, auth_middleware, admission_middleware,
+            limits_middleware, plugin_middleware, auth_middleware,
+            admission_middleware,
         ],
         client_max_size=client_max_size,
     )
@@ -553,10 +631,24 @@ def build_app(ctx: AppContext, client_max_size: int = 256 * 2**20) -> web.Applic
     app.router.add_post("/rerank", h_rerank)  # the reference's alias
     app.router.add_post("/v1/classify", h_classify)
     app.router.add_post("/v1/messages", h_anthropic_messages)
+    app.router.add_post("/v1/audio/transcriptions", h_audio_transcriptions)
+    app.router.add_post("/v1/interactions", h_interactions)
+    app.router.add_get("/v1/interactions/{interaction_id}", h_interaction_get)
+    app.router.add_delete("/v1/interactions/{interaction_id}", h_interaction_delete)
     app.router.add_post("/parse/function_call", h_parse_function_call)
     app.router.add_post("/parse/reasoning", h_parse_reasoning)
     app.router.add_post("/v1/tokenize", h_tokenize)
     app.router.add_post("/v1/detokenize", h_detokenize)
+    # realtime.py imports this module for CTX: imported here, once both exist
+    from smg_tpu_torch.gateway.realtime import (
+        h_realtime_client_secrets,
+        handle_realtime,
+        handle_realtime_relay,
+    )
+
+    app.router.add_get("/v1/realtime", handle_realtime)
+    app.router.add_post("/v1/realtime/client_secrets", h_realtime_client_secrets)
+    app.router.add_get("/v1/realtime/relay/{session_id}", handle_realtime_relay)
     app.router.add_post("/v1/responses", h_responses_create)
     app.router.add_get("/v1/responses/{response_id}", h_responses_get)
     app.router.add_delete("/v1/responses/{response_id}", h_responses_delete)
@@ -1834,3 +1926,193 @@ async def h_workflow_resume(request: web.Request) -> web.Response:
         return _error(409, f"workflow {iid} is not resumable")
     inst = await ctx.workflows.wait(iid, timeout=120.0)
     return web.json_response(inst.describe())
+
+
+# ---- audio transcriptions and interactions (reference: server.rs:238-311) ----
+
+async def h_audio_transcriptions(request: web.Request) -> web.Response:
+    """OpenAI-compatible ``/v1/audio/transcriptions`` (multipart/form-data).
+
+    ASR runs on the worker: the gateway parses the form and forwards it to
+    an OpenAI-compatible audio worker (the HTTP proxy path).  Without one,
+    the request fails with an explicit 501 rather than a silent wrong
+    answer."""
+    ctx: AppContext = request.app[CTX]
+    if not (request.content_type or "").startswith("multipart/"):
+        return _error(400, "expected multipart/form-data with a 'file' part")
+    fields: dict = {}
+    granularities: list[str] = []
+    file_bytes = None
+    filename = "audio.wav"
+    file_ctype = "application/octet-stream"
+    reader = await request.multipart()
+    async for part in reader:
+        if part.name == "file":
+            file_bytes = await part.read(decode=False)
+            filename = part.filename or filename
+            file_ctype = part.headers.get("Content-Type") or file_ctype
+        elif part.name in ("timestamp_granularities[]", "timestamp_granularities"):
+            # repeated form parts accumulate (word and segment)
+            granularities.append((await part.read(decode=False)).decode())
+        elif part.name:
+            fields[part.name] = (await part.read(decode=False)).decode()
+    if file_bytes is None:
+        return _error(400, "missing 'file' part")
+    try:
+        req = TranscriptionRequest.model_validate(
+            {**fields, "timestamp_granularities": granularities or None})
+    except Exception as e:
+        return _error(400, f"invalid request: {e}")
+    router = ctx.router_for(req.model or None)
+    worker = router.select_proxy_worker(req.model or None)
+    if worker is None:
+        return _error(
+            501,
+            "no transcription-capable worker for this model; register an "
+            "OpenAI-compatible audio worker (POST /workers with an http:// url)",
+            "not_implemented",
+        )
+    async with ctx.semaphore:
+        guard = worker.acquire()
+        ok = False
+        try:
+            forward = dict(fields)
+            if granularities:
+                forward["timestamp_granularities[]"] = granularities
+            data = await worker.client.post_multipart(
+                "/v1/audio/transcriptions", forward, file_bytes, filename=filename,
+                content_type=file_ctype)
+            ok = True
+        except Exception as e:
+            status = getattr(e, "status", 502)
+            return _error(502 if status >= 500 else status,
+                          f"transcription worker error: {e}", "worker_error")
+        finally:
+            guard.release(success=ok)
+    if isinstance(data, str):
+        return web.Response(text=data, content_type="text/plain")
+    return web.json_response(data)
+
+
+async def h_interactions(request: web.Request) -> web.Response | web.StreamResponse:
+    """The Interactions API: a stateful chat-like surface with
+    ``previous_interaction_id`` chaining over the conversation storage
+    (reference: interactions.rs and server.rs:238-250), served on the
+    token-level path."""
+    ctx: AppContext = request.app[CTX]
+    try:
+        req = InteractionsRequest.model_validate(await request.json())
+    except Exception as e:
+        return _error(400, f"invalid request: {e}")
+    model_id = req.model or req.agent
+    prior: list = []
+    if req.previous_interaction_id:
+        stored = await ctx.storage.get_response(req.previous_interaction_id)
+        if stored is None:
+            return _error(404, f"no interaction {req.previous_interaction_id}")
+        prior = stored.metadata.get("messages", [])
+    messages = req.to_messages(prior)
+    gen = req.generation_config
+    chat_req = ChatCompletionRequest(
+        model=model_id,
+        messages=messages,
+        temperature=gen.temperature if gen else None,
+        top_p=gen.top_p if gen else None,
+        top_k=gen.top_k if gen else None,
+        max_tokens=gen.max_output_tokens if gen else None,
+        stop=gen.stop_sequences if gen else None,
+        stream=req.stream,
+        # the last stream chunk carries usage, so a streamed interaction
+        # stores real token counts, as the blocking path does
+        stream_options={"include_usage": True} if req.stream else None,
+    )
+    router = ctx.router_for(model_id)
+    rid = Interaction.new_id()
+
+    async def persist(text: str, usage: InteractionsUsage) -> None:
+        if not req.store:
+            return
+        await ctx.storage.store_response(StoredResponse(
+            id=rid,
+            previous_response_id=req.previous_interaction_id,
+            model=model_id or "",
+            output=[text_output(text)],
+            usage=usage.model_dump(),
+            metadata=interaction_metadata(req, messages, text),
+        ))
+
+    def interaction(text: str, usage: InteractionsUsage) -> dict:
+        return Interaction(
+            id=rid, model=req.model, agent=req.agent, created=Interaction.now_iso(),
+            outputs=[text_output(text)], usage=usage,
+            previous_interaction_id=req.previous_interaction_id,
+        ).model_dump(exclude_none=True)
+
+    def usage_of(u) -> InteractionsUsage:
+        return InteractionsUsage(total_input_tokens=u.prompt_tokens,
+                                 total_output_tokens=u.completion_tokens,
+                                 total_tokens=u.total_tokens)
+
+    async with ctx.semaphore:
+        if not req.stream:
+            resp = await router.chat(chat_req, request_id=rid)
+            text = resp.choices[0].message.content or ""
+            usage = usage_of(resp.usage)
+            await persist(text, usage)
+            return web.json_response(interaction(text, usage))
+        sse = _sse_response(request)
+        await sse.prepare(request)
+        parts: list[str] = []
+        usage = InteractionsUsage()
+        try:
+            async for chunk in router.chat_stream(chat_req, request_id=rid):
+                if chunk.usage is not None:
+                    usage = usage_of(chunk.usage)
+                delta = chunk.choices[0].delta.content if chunk.choices else None
+                if delta:
+                    parts.append(delta)
+                    ev = {"type": "content_delta", "interaction_id": rid,
+                          "delta": {"type": "text", "text": delta}}
+                    await sse.write(f"data: {json.dumps(ev)}\n\n".encode())
+            text = "".join(parts)
+            await persist(text, usage)
+            done = {"type": "interaction_complete", "interaction": interaction(text, usage)}
+            await sse.write(f"data: {json.dumps(done)}\n\n".encode())
+            await sse.write(b"data: [DONE]\n\n")
+        except RouteError as e:
+            err = {"type": "error", "error": {"message": e.message}}
+            await sse.write(f"data: {json.dumps(err)}\n\n".encode())
+        await sse.write_eof()
+        return sse
+
+
+async def _stored_interaction(ctx: AppContext, iid: str):
+    """The stored interaction ``iid``, or None: a stored Responses-API object
+    is not an interaction (``metadata.kind`` says which)."""
+    stored = await ctx.storage.get_response(iid)
+    if stored is None or stored.metadata.get("kind") != "interaction":
+        return None
+    return stored
+
+
+async def h_interaction_get(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    iid = request.match_info["interaction_id"]
+    stored = await _stored_interaction(ctx, iid)
+    if stored is None:
+        return _error(404, f"no interaction {iid}")
+    return web.json_response(Interaction(
+        id=stored.id, model=stored.model or None, status=stored.status,
+        outputs=stored.output,
+        usage=InteractionsUsage(**stored.usage) if stored.usage else None,
+        previous_interaction_id=stored.previous_response_id,
+    ).model_dump(exclude_none=True))
+
+
+async def h_interaction_delete(request: web.Request) -> web.Response:
+    ctx: AppContext = request.app[CTX]
+    iid = request.match_info["interaction_id"]
+    if await _stored_interaction(ctx, iid) is None:
+        return _error(404, f"no interaction {iid}")
+    await ctx.storage.delete_response(iid)
+    return web.json_response({"deleted": iid})

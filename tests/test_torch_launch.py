@@ -3,7 +3,9 @@
 - (a) every ``launch`` flag the port takes has the dest, default, type and
   choices of ``smg_tpu.cli.build_parser()``'s (``--storage`` and
   ``--mcp-config-path`` their help too, on ``serve`` as well); the flags of
-  modules still unported are refused;
+  modules still unported are refused; ``--plugins`` and
+  ``--plugin-fail-closed`` reach the plugin host as the reference wires
+  them;
 - (b) startup validation: every case of ``tests/test_config_cli.py`` (and
   the engine-flag cases of the megastep and speculation tests) through the
   port's ``validate_cli_args`` gives the reference's issues, severities and
@@ -88,8 +90,7 @@ def test_launch_flag_has_the_reference_dest_default_and_type(flag):
 
 #: the reference's ``launch`` flags the port leaves out, each with the
 #: module it waits for (ROADMAP Queue A)
-REFUSED = [["--plugins", "p.py"], ["--plugin-fail-closed"],
-           ["--mesh-port", "7946"], ["--mesh-seed", "h:1"], ["--mesh-tls-cert", "c"],
+REFUSED = [["--mesh-port", "7946"], ["--mesh-seed", "h:1"], ["--mesh-tls-cert", "c"],
            ["--mesh-tls-key", "k"], ["--mesh-tls-ca", "a"]]
 
 
@@ -128,6 +129,52 @@ def test_routing_flag_parses_as_the_reference_and_reaches_the_router(argv, want)
     ctx = AppContext(**launch.gateway_options(tcli.build_parser().parse_args(["launch", *argv])))
     pol = ctx.policies.policy_for(None)
     assert (pol.name, getattr(pol, "prefix_tokens", None), ctx.router.dp_policy.name) == want
+
+
+#: the plugin flags (they left ``REFUSED`` with the plugin host): the argv,
+#: then the plugin files loaded, in order, and the host's ``fail_open``
+#: (None: no host)
+PLUGIN_FLAGS = [
+    (["--plugins", "{a}"], (["a"], True)),
+    (["--plugins", "{a}", "--plugin-fail-closed"], (["a"], False)),
+    (["--plugins", "{a}", "--plugins", "{b}"], (["a", "b"], True)),
+    (["--plugin-fail-closed"], ([], None)),
+]
+
+
+@pytest.mark.parametrize("command", ["serve", "launch"])
+@pytest.mark.parametrize("argv,want", PLUGIN_FLAGS, ids=["one", "fail_closed", "two", "no_file"])
+def test_plugin_flags_parse_as_the_reference_and_reach_the_plugin_host(
+        command, argv, want, tmp_path, monkeypatch):
+    """The flags parse to the reference's values; ``_run_gateway`` loads the
+    files in order into ``ctx.plugins`` with the ``fail_open`` the
+    reference's wiring (``smg_tpu/gateway/launch.py``: ``load_plugins(args.
+    plugins, fail_open=not args.plugin_fail_closed)`` when any are given)
+    sets on its own ``AppContext``."""
+    from smg_tpu.gateway.server import AppContext as JaxContext
+
+    files = {name: tmp_path / f"{name}.py" for name in "ab"}
+    for path in files.values():
+        path.write_text("from smg_tpu_torch.plugins import Continue\n"
+                        "def on_request(req):\n    return Continue()\n")
+    argv = [a.format(**files) for a in argv]
+    extra = ["--device", "cpu"] * (command == "serve")
+    ref, port = (vars(m.build_parser().parse_args([command, *BASE[command], *argv]))
+                 for m in (jcli, tcli))
+    for dest in ("plugins", "plugin_fail_closed"):
+        assert port[dest] == ref[dest], dest
+    ctx = asyncio.run(_context_of(tcli.build_parser().parse_args(
+        [command, *BASE[command], *argv, *extra]), monkeypatch))
+    names, fail_open = want
+    if fail_open is None:
+        assert ctx.plugins is None
+    else:
+        assert [p.name for p in ctx.plugins.plugins] == names
+        assert ctx.plugins.fail_open is fail_open
+    jctx = JaxContext()
+    if ref["plugins"]:
+        jctx.load_plugins(ref["plugins"], fail_open=not ref["plugin_fail_closed"])
+    assert (None if jctx.plugins is None else jctx.plugins.fail_open) == fail_open
 
 
 PROVIDERS = [

@@ -98,10 +98,11 @@ NEW_FLAGS = [
     ("--storage", "sqlite:conv.db"), ("--mcp-config-path", "m.json"),
     # the hashing and DP-rank routing policies
     ("--prefix-token-count", "8"), ("--no-dp-aware", None),
+    # the plugin host
+    ("--plugins", "p.py"), ("--plugin-fail-closed", None),
 ]
 #: flags of modules not ported yet (ROADMAP Queue A lists them by item)
-REFUSED = [["--tp", "2"], ["--dp", "2"], ["--mesh-shape", "tp=2"],
-           ["--plugins", "p.py"]]
+REFUSED = [["--tp", "2"], ["--dp", "2"], ["--mesh-shape", "tp=2"]]
 BASE = ["serve", "--model-preset", "tiny"]
 
 
