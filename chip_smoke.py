@@ -8,8 +8,10 @@
     python3 chip_smoke.py --phases api   # build + kernels + phase 10 only
     python3 chip_smoke.py --phases vision   # build + kernels + phase 12 only
     python3 chip_smoke.py --phases pd   # build + kernels + phase 13 only
+    python3 chip_smoke.py --phases transfer   # build + kernels + phase 13 (c) only
     python3 chip_smoke.py --phases launch   # build + kernels + phase 14 only
-    python3 chip_smoke.py --phases routing   # build + kernels + phase 14 (c) only
+    python3 chip_smoke.py --phases routing   # build + kernels + phase 14 (c) and (d) only
+    python3 chip_smoke.py --phases mesh   # build + kernels + phase 14 (d) only
     python3 chip_smoke.py --phases responses   # build + kernels + phase 15 only
     python3 chip_smoke.py --phases messages   # build + kernels + phase 15's gateway, phase 16
     python3 chip_smoke.py --phases realtime   # build + kernels + phase 15's gateway, phase 17
@@ -52,7 +54,7 @@ Phases (any failure makes the script exit non-zero and print no result):
    (a host sync on the loop thread), ``program_audit`` clean, and
    ``.item()`` on a device tensor under the guard raises; both windows'
    ms per decode column are printed beside the profiled window's.  All three again on the first
-   ``F32_LAYERS`` (8) layers of the same weights, full width, widened to
+   ``F32_LAYERS`` (4) layers of the same weights, full width, widened to
    float32 with float32 KV, where the greedy streams must be identical and
    which is the reference the bf16 runs of that depth's first-token logits
    are held to (the float32 repeats of phases 4, 5, 7, 8 and 10 on these
@@ -142,10 +144,7 @@ Phases (any failure makes the script exit non-zero and print no result):
    every audit is clean.  Readings: ms per emitted token and tokens/s per
    tier against the non-speculative run, acceptance per tier, the verify
    block's device ms at W = 9 against one decode column (and profiled by
-   kernel), and the verify graphs' capture seconds and bytes.  After the
-   bf16 run, ``python -m smg_tpu_torch.cli serve --speculative`` runs in a
-   process of its own (tiny preset, a tiny draft model): one completion,
-   drafts counted in ``/scheduler``, SIGTERM;
+   kernel), and the verify graphs' capture seconds and bytes;
 8. an HF checkpoint directory, after phase 7 on each dtype's weights.  In
    a temporary directory the script writes phase 3's bf16 weights as a
    Llama-3-8B HF checkpoint (``config.json`` with the published fields,
@@ -275,11 +274,19 @@ Phases (any failure makes the script exit non-zero and print no result):
    here), TTFT through the gateway PD against co-located, the decode
    engine's device ms a column on 4 lanes adopted through PD against phase
    3's.  (c) Two processes (this script with ``--pd-worker``) each serve a
-   4-layer float32 engine with ``rpc.server.serve_worker``, behind the
-   gateway through ``GrpcWorkerClient`` as PREFILL and DECODE: the lone and
-   the 8 concurrent chats equal the in-process ``host`` PD's, the gRPC legs
-   timed; then ``python -m smg_tpu_torch.cli worker`` (tiny preset) answers
-   ``HealthCheck`` and exits 0 on SIGTERM;
+   4-layer float32 engine at full width with ``rpc.server.serve_worker``,
+   behind two gateways through ``GrpcWorkerClient`` as PREFILL and DECODE:
+   ``auto``, which picks ``transfer`` (the decode worker pulls the KV from
+   the prefill worker's offer device to device, CUDA IPC), and ``host``;
+   on both the lone and the 8 concurrent chats equal the in-process
+   ``host`` PD's; this process pulls an offer of the lone prompt by
+   (address, uuid), bitwise the ``host`` export of the same prompt;
+   readings: the transfer and the host leg (wall) and the pull alone, each
+   beside its bytes bound; at exit each worker reports its kernel launches
+   (4 x decode columns, 4 x prefill calls) and its transfer counts (every
+   offer served or pulled, none pending or reclaimed); then ``python -m
+   smg_tpu_torch.cli worker`` (tiny preset) answers ``HealthCheck`` and
+   exits 0 on SIGTERM.  ``--phases transfer`` runs (c) alone;
 14. ``launch``, after phase 12, with the command line's own processes
    (``python -m smg_tpu_torch.cli launch|serve|worker``); full-depth
    processes run one at a time, each sizing its KV to most of the card.
@@ -301,7 +308,9 @@ Phases (any failure makes the script exit non-zero and print no result):
    pages sized by hand) behind a bare ``launch``: ``POST /workers``
    synchronous and ``"async": true`` (202, then the job), a registration
    against a port nothing listens on yet that fails and resumes once the
-   worker is up there, ``DELETE /workers/{id}?drain=10`` during a stream
+   worker, loaded meanwhile, takes that port (the PD ``launch`` and the
+   gateways of the routing policies and of (d) start while it fails and
+   register that worker then), ``DELETE /workers/{id}?drain=10`` during a stream
    (the stream finishes, a chat during the drain goes to the other
    worker), SIGTERM exiting 0; then ``launch --prefill-worker A
    --decode-worker B``: the lone and 8 concurrent chats equal the
@@ -316,8 +325,20 @@ Phases (any failure makes the script exit non-zero and print no result):
    prefix) and ``--dp-aware`` (each worker reports ``dp_size`` 1); each
    worker reports its kernel launches at exit, equal to 4 x its decode
    columns and 4 x its prefill calls, and the ``data_parallel_rank`` of
-   every generate it received: all -1.  ``--phases routing`` runs (c)
-   alone;
+   every generate it received: all -1.  (d) The HA mesh, started with
+   (c)'s four routing gateways: three ``launch --mesh-port`` processes
+   (mutual TLS where the host has ``openssl``), G1 holding both workers,
+   G2 and G3 seeded from G1 holding none: G2 and G3 list G1's workers, a
+   chat through each gives G1's greedy text, 4 families of a 300-token
+   prefix routed by ``cache_aware`` through G1 raise G2's
+   ``smg_cache_inserted_prefixes`` by 4 and go to G1's workers through G2,
+   a ``POST /workers`` on G2 reaches G1 and a removal on G1 leaves G2;
+   after one SIGTERM to G3, G1 and G2 each log it dead within 20 gossip
+   rounds (``gossip peer … marked dead`` where the gateway dialled it in
+   vain, else the partition detector's ``unreachable=1`` where it heard of
+   the death from its peer); every gateway exits 0.  ``--phases routing``
+   runs (c) and (d) alone, ``--phases mesh`` (d) over its own two
+   workers;
 15. the Responses API, after phase 14: one in-process ``serve`` built by the
    command line's own ``_run_gateway`` (``--model-preset llama3-8b``: full
    width and depth, random bf16 weights from seed 0, phase 5's engine
@@ -411,13 +432,14 @@ Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
    10's, ``launches_vision`` from phase 12's bf16 serving paths,
-   ``launches_pd`` from phase 13's bf16 PD path, ``launches_launch``
-   from phase 14's worker processes, ``launches_responses`` from phase
+   ``launches_pd`` from phase 13's bf16 PD path, ``launches_transfer``
+   from phase 13 (c)'s worker processes, ``launches_launch`` from phase
+   14's worker processes, ``launches_responses`` from phase
    15's conversation turns, ``launches_messages`` from phase 16 and
    ``launches_realtime`` from phase 17) and, last, ``{"ok": true,
    "device": ...}`` (``--phases kernels``, ``checkpoint``, ``moe``,
-   ``api``, ``vision``, ``pd``, ``launch``, ``routing``, ``responses``,
-   ``messages`` and ``realtime`` print neither).
+   ``api``, ``vision``, ``pd``, ``transfer``, ``launch``, ``routing``,
+   ``mesh``, ``responses``, ``messages`` and ``realtime`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -3107,13 +3129,11 @@ def check_spec_launches(r, L: int, L_draft: int, label: str) -> None:
         raise AssertionError(f"[{label}] launch counts {r['launches']} != {expect}")
 
 
-def check_serve_speculative(device: str = "cuda", flags=("--model-preset", "tiny",
-                                                         "--draft-model-preset", "tiny"),
-                            model: str = "tiny", prompt: str = "w5 w6 w7 w8 " * 8) -> dict:
+def check_serve_speculative(device: str, flags: tuple, model: str,
+                            prompt: str = "w5 w6 w7 w8 " * 8) -> dict:
     """``python -m smg_tpu_torch.cli serve --speculative`` in a process of
     its own on the card, in float32, with ``flags`` naming the target and
-    the draft (by default the tiny preset and a tiny draft preset; phase 8
-    gives ``--model-path`` and ``--draft-model-path``): one greedy
+    the draft (phase 8: ``--model-path`` and ``--draft-model-path``): one greedy
     24-token completion of ``prompt``, the engine's drafted tokens from
     ``/scheduler``, then SIGTERM.  Every process started here is stopped
     before it returns."""
@@ -4511,7 +4531,7 @@ QWEN3_30B_A3B = {
 MOE_WEIGHT_BYTES = 61_064_245_248  # 30,532,122,624 parameters in bf16
 MOE_LEFT_BYTES = 1 << 30  # what earlier phases may leave allocated before phase 9
 MOE_F32_LAYERS = 8  # float32 at 48 layers needs 122 GB: the depth of the float32 run
-MOE_CKPT_LAYERS = 4  # the written checkpoint's depth: spares the disk and the card
+MOE_CKPT_LAYERS = 2  # the written checkpoint's depth: spares the disk and the card
 MOE_CKPT = "qwen3-30b-a3b-hf"
 MOE_CHAT_NEW = 16  # new tokens of every phase-9 chat
 MOE_LANES = 4  # the decode profile's lanes (profile_decode)
@@ -6117,8 +6137,9 @@ def pd_worker_main(spec: dict) -> int:
     phase 3's weights made from the seed, cut to ``spec["layers"]`` layers
     and widened to float32, ``spec["pages"]`` KV pages, served with
     ``rpc.server.serve_worker`` until SIGTERM; then, given
-    ``spec["report"]``, its kernel launches and the runner's schedule
-    counts written there as JSON."""
+    ``spec["report"]``, its kernel launches, the runner's schedule counts
+    and its KV transfer counts (offers made, served, pulled, reclaimed,
+    still pending) written there as JSON."""
     import dataclasses
 
     import torch
@@ -6155,40 +6176,56 @@ def pd_worker_main(spec: dict) -> int:
         return check_rank(self, rank)
 
     SchedulerServicer._check_rank = recording
+    if spec.get("hold"):  # take the port only once this file exists
+        hold, deadline = Path(spec["hold"]), time.monotonic() + LOOP_WAIT_S
+        while not hold.exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{hold} did not appear in {LOOP_WAIT_S} s")
+            time.sleep(0.02)
     code = serve_worker(engine, port=spec["port"], host="127.0.0.1")
-    if spec.get("report"):  # phase 14: this process's kernel launches and schedule
+    if spec.get("report"):  # this process's kernel launches, schedule and KV offers
         from smg_tpu_torch.ops.cuda import decode_attention, prefill_attention
 
+        kv = getattr(engine.runner, "_kv_transfer", None)
         Path(spec["report"]).write_text(json.dumps(dict(
             launches={"decode_attention": decode_attention.launches,
                       "prefill_attention": prefill_attention.launches},
-            stats=engine.runner.stats, layers=n, ranks=ranks)))
+            stats=engine.runner.stats, layers=n, ranks=ranks,
+            kv_transfer=None if kv is None else dict(
+                kv.counts, pending=len(kv._offers), offers=len(kv.held())))))
     return code
 
 
 def pd_grpc(cfg, dev, tok, jobs, host_texts: dict, expect) -> dict:
-    """Phase 13 (c): two worker processes (``pd_worker_main``) behind the
-    gateway as PREFILL and DECODE through ``GrpcWorkerClient``; the lone
-    chat and the 8 concurrent ones give the in-process host PD's texts;
-    the gRPC legs of the lone prompt timed (wall)."""
+    """Phase 13 (c): two worker processes (``pd_worker_main``) behind two
+    gateways as PREFILL and DECODE through ``GrpcWorkerClient``: one with
+    ``auto``, which picks ``transfer`` (the decode worker pulls the KV from
+    the prefill worker device to device, CUDA IPC), one with ``host``.  On
+    both the lone chat and the 8 concurrent ones give the in-process host
+    PD's texts.  This process pulls one offer of the lone prompt by
+    (address, uuid) and holds it bitwise to a ``host`` export of the same
+    prompt from the same worker.  Timed: the transfer and the host leg of
+    the lone prompt (wall: export, then import to the first chunk) and the
+    pull alone, each beside its bytes bound.  Each worker reports its
+    transfer counts at exit: no offer left pending."""
     import asyncio
     import dataclasses
-    import signal
     import threading
 
     import torch
     from aiohttp import web
 
+    from smg_tpu_torch.engine.kv_transfer import TransferManager
     from smg_tpu_torch.gateway.server import build_app
     from smg_tpu_torch.protocols.sampling import SamplingParams
     from smg_tpu_torch.rpc.client import GrpcWorkerClient
 
     free = torch.cuda.mem_get_info(dev)[0]
     ports = [_free_port(), _free_port()]
+    reports = [Path(tempfile.mkdtemp(prefix="smg_pd_grpc_")) / f"{i}.json" for i in range(2)]
     spec = dict(config=dataclasses.asdict(cfg), layers=PD_LAYERS, pages=PD_GRPC_PAGES,
                 device=str(dev))
-    logs = [tempfile.TemporaryFile() for _ in ports]
-    procs = []
+    children = []
     loop = asyncio.new_event_loop()
     thread = threading.Thread(target=loop.run_forever, name="pd-grpc-gateway")
     thread.start()
@@ -6196,81 +6233,128 @@ def pd_grpc(cfg, dev, tok, jobs, host_texts: dict, expect) -> dict:
     def run(coro, timeout=LOOP_WAIT_S):
         return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
 
-    held = {}
+    held = {"runners": []}
     out = {"free_bytes_at_start": free}
     t0 = time.perf_counter()
     try:
-        for port, log in zip(ports, logs):
-            procs.append(subprocess.Popen(
-                [sys.executable, str(REPO / "chip_smoke.py"), "--pd-worker",
-                 json.dumps({**spec, "port": port})], cwd=REPO, stdout=log, stderr=log))
+        for i, port in enumerate(ports):
+            children.append(Child(f"pd-worker-{i}", [
+                sys.executable, REPO / "chip_smoke.py", "--pd-worker",
+                json.dumps({**spec, "port": port, "report": str(reports[i])})]))
 
         async def up():
             held["clients"] = [GrpcWorkerClient(f"127.0.0.1:{p}") for p in ports]
             deadline = time.monotonic() + LOOP_WAIT_S
-            for proc, client in zip(procs, held["clients"]):
+            for child, client in zip(children, held["clients"]):
                 while not await client.health():
-                    if proc.poll() is not None or time.monotonic() > deadline:
-                        raise AssertionError("a gRPC worker did not come up")
+                    if not child.alive() or time.monotonic() > deadline:
+                        raise AssertionError(f"a gRPC worker did not come up: {child.tail()}")
                     await asyncio.sleep(0.25)
-            ctx = _pd_context(held["clients"], "auto", tok)
-            held["ctx"] = ctx
-            held["runner"] = web.AppRunner(build_app(ctx))
-            await held["runner"].setup()
-            held["port"] = _free_port()
-            await web.TCPSite(held["runner"], "127.0.0.1", held["port"]).start()
+            held["ports"] = {}
+            for connector in ("auto", "host"):
+                runner = web.AppRunner(build_app(_pd_context(held["clients"], connector, tok)))
+                held["runners"].append(runner)
+                await runner.setup()
+                held["ports"][connector] = _free_port()
+                await web.TCPSite(runner, "127.0.0.1", held["ports"][connector]).start()
 
-        try:
-            run(up())
-        except Exception:
-            for log in logs:
-                log.seek(0)
-                print(log.read().decode()[-3000:])
-            raise
+        run(up())
         out["workers_up_s"] = time.perf_counter() - t0
-        port = held["port"]
-        st, lone = _chat_text(port, _chat(jobs["lone"], PD_NEW))
-        expect(st == 200 and lone == host_texts["lone"],
-               f"[grpc] lone chat: {st}, equal to in-process host PD {lone == host_texts['lone']}")
-        res = _in_threads(lambda b: _chat_text(port, b),
-                          [(_chat(p, PD_CONC_NEW),) for p in jobs["conc"]])
-        equal = sum(r == (200, w) for r, w in zip(res, host_texts["conc"]))
-        expect(equal == len(res), f"[grpc] 8 concurrent: {equal}/{len(res)} equal to the "
-                                  "in-process host PD's")
-        # the legs alone, timed on the wall clock
+        info = [run(c.get_model_info()) for c in held["clients"]]
+        expect(all(i["supports_kv_transfer"] for i in info),
+               f"[grpc] supports_kv_transfer {[i['supports_kv_transfer'] for i in info]}")
+        conc = [_chat(p, PD_CONC_NEW) for p in jobs["conc"]]
+        for connector, port in held["ports"].items():
+            st, lone = _chat_text(port, _chat(jobs["lone"], PD_NEW))
+            expect(st == 200 and lone == host_texts["lone"],
+                   f"[grpc/{connector}] lone chat: {st}, equal to in-process host PD "
+                   f"{lone == host_texts['lone']}")
+            res = _in_threads(lambda b, port=port: _chat_text(port, b), [(b,) for b in conc])
+            equal = sum(r == (200, w) for r, w in zip(res, host_texts["conc"]))
+            expect(equal == len(res), f"[grpc/{connector}] 8 concurrent: {equal}/{len(res)} "
+                                      "equal to the in-process host PD's")
         ids = _chat_ids(tok, jobs["lone"])
         sp = SamplingParams(temperature=0.0, max_new_tokens=2, ignore_eos=True)
+        p_client, d_client = held["clients"]
 
-        async def legs():
+        async def leg(connector: str) -> dict:
+            """The legs alone, on the wall clock: the export, then the
+            import up to the decode leg's first chunk."""
             from smg_tpu_torch.gateway.worker_client import WorkerGenerateRequest
 
-            p_client, d_client = held["clients"]
             ta = time.perf_counter()
-            exp = await p_client.prefill_export(ids, sp)
+            exp = await p_client.prefill_export(ids, sp, connector=connector)
             tb = time.perf_counter()
             first = None
-            async for c in d_client.generate_prefilled(
-                    WorkerGenerateRequest(rid="grpc-legs", input_ids=ids, sampling=sp),
+            async for _c in d_client.generate_prefilled(
+                    WorkerGenerateRequest(rid=f"grpc-legs-{connector}", input_ids=ids,
+                                          sampling=sp),
                     exp["first_token"], exp["k"], exp["v"]):
                 if first is None:
                     first = time.perf_counter()
-            return dict(export_ms=(tb - ta) * 1e3, import_to_first_chunk_ms=(first - tb) * 1e3,
-                        payload_bytes=2 * exp["k"].numel() * exp["k"].element_size())
+            if exp["connector"] == "transfer":
+                await p_client.release_kv_offer(exp["k"]["transfer_uuid"], True)
+            return dict(connector=exp["connector"], export_ms=(tb - ta) * 1e3,
+                        import_to_first_chunk_ms=(first - tb) * 1e3,
+                        leg_ms=(first - ta) * 1e3)
 
-        out["legs"] = [run(legs()) for _ in range(PD_REPS)]
-        loads = run(held["clients"][1].get_loads())
+        out["legs"] = {c: [] for c in ("transfer", "host")}
+        for _ in range(PD_REPS):  # in turns
+            for c in ("transfer", "host"):
+                out["legs"][c].append(run(leg(c)))
+        expect([r["connector"] for r in out["legs"]["transfer"]] == ["transfer"] * PD_REPS,
+               f"[grpc] transfer legs went by {[r['connector'] for r in out['legs']['transfer']]}")
+        # this process pulls offers of the lone prompt by (address, uuid)
+        puller = TransferManager(dev)
+        pulls = []
+        for _ in range(PD_REPS):
+            exp = run(p_client.prefill_export(ids, sp, connector="transfer"))
+            desc = exp["k"]
+            torch.cuda.synchronize(dev)
+            ta = time.perf_counter()
+            k, v = puller.pull(desc["transfer_address"], desc["transfer_uuid"],
+                               [(desc["kv_shape"], desc["kv_dtype"])] * 2)
+            pulls.append((time.perf_counter() - ta) * 1e3)
+            expect(run(p_client.release_kv_offer(desc["transfer_uuid"], True)),
+                   "[grpc] ReleaseKvOffer of the pulled offer answered not ok")
+        host = run(p_client.prefill_export(ids, sp, connector="host"))
+        same = (k.device == dev and torch.equal(k.cpu(), host["k"])
+                and torch.equal(v.cpu(), host["v"]))
+        payload = 2 * k.numel() * k.element_size()
+        expect(same and exp["first_token"] == host["first_token"],
+               f"[grpc] the pulled offer ({k.device}, {tuple(k.shape)}) is not bitwise the "
+               "host export of the same prompt")
+        del k, v, host
+        # bounds: the pull copies the payload once on the card (read +
+        # write); the host leg copies it to the host and back at the
+        # pinned rates measured here
+        rates = _pinned_rates(dev, payload // 2)
+        copy_bound = 2 * payload / HBM_BYTES_PER_S * 1e3
+        host_bound = payload / rates["d2h"] * 1e3 + payload / rates["h2d"] * 1e3
+        med = {c: {k: statistics.median(r[k] for r in rs) for k in rs[0] if k != "connector"}
+               for c, rs in out["legs"].items()}
+        out.update(legs_median=med, pull_ms=pulls, pull_median_ms=statistics.median(pulls),
+                   pull_bound_ms=copy_bound, host_leg_bound_ms=host_bound,
+                   payload_bytes=payload, pinned_rates_gb_s={k: r / 1e9 for k, r in rates.items()},
+                   pulled_bitwise_equal_host=same)
+        loads = run(d_client.get_loads())
         expect(loads["num_running"] == 0, f"[grpc] decode worker loads after: {loads}")
-        legs_med = {k: statistics.median(r[k] for r in out["legs"]) for k in out["legs"][0]}
-        out["legs_median"] = legs_med
         print(f"  [grpc] 2 worker processes up in {out['workers_up_s']:.1f} s; lone and 8 "
-              f"concurrent chats equal to in-process host PD; legs of the lone prompt "
-              f"({legs_med['payload_bytes']:.0f} bytes, float32, {PD_LAYERS} layers): export "
-              f"{legs_med['export_ms']:.1f} ms, import to first chunk "
-              f"{legs_med['import_to_first_chunk_ms']:.1f} ms (wall, medians of {PD_REPS})")
+              f"concurrent chats by transfer (auto) and host equal to in-process host PD; "
+              f"the lone prompt ({payload} bytes of K and V, float32, {PD_LAYERS} layers), "
+              f"wall medians of {PD_REPS}: transfer leg {med['transfer']['leg_ms']:.1f} ms "
+              f"(export {med['transfer']['export_ms']:.1f} + import to first chunk "
+              f"{med['transfer']['import_to_first_chunk_ms']:.1f}), host leg "
+              f"{med['host']['leg_ms']:.1f} ms (export {med['host']['export_ms']:.1f} + "
+              f"import to first chunk {med['host']['import_to_first_chunk_ms']:.1f}; its "
+              f"copies bounded at {host_bound:.2f} ms by the pinned rates D2H "
+              f"{rates['d2h'] / 1e9:.1f}, H2D {rates['h2d'] / 1e9:.1f} GB/s); this process's "
+              f"pull {out['pull_median_ms']:.2f} ms (bound {copy_bound:.3f} ms, bytes), "
+              f"bitwise the host export {same}")
     finally:
         async def down():
-            if "runner" in held:
-                await held["runner"].cleanup()
+            for r in held["runners"]:
+                await r.cleanup()
             for c in held.get("clients", []):
                 await c.close()
 
@@ -6279,19 +6363,46 @@ def pd_grpc(cfg, dev, tok, jobs, host_texts: dict, expect) -> dict:
         finally:
             loop.call_soon_threadsafe(loop.stop)
             thread.join(30)
-            for proc in procs:
-                proc.send_signal(signal.SIGTERM)
-            for proc in procs:
-                try:
-                    proc.wait(60)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    proc.wait(10)
-            out["exit_codes"] = [p.returncode for p in procs]
-            for log in logs:
-                log.close()
+            for child in children:
+                child.terminate()
+            out["exit_codes"] = [child.stop() for child in children]
     expect(out["exit_codes"] == [0, 0], f"[grpc] worker exit codes {out['exit_codes']}")
+    reps = []
+    for path in reports:
+        reps.append(json.loads(path.read_text()) if path.exists() else {})
+        shutil.rmtree(path.parent, ignore_errors=True)
+    out["transfer_counts"] = [r.get("kv_transfer") for r in reps]
+    p_kv, d_kv = out["transfer_counts"]
+    # every transfer request of the gateway (9) and the legs: pulled by the
+    # decode worker; this process's pulls served by the prefill worker too
+    n_gateway = 1 + len(jobs["conc"])
+    expect(p_kv is not None and p_kv["pending"] == 0 and p_kv["offers"] == 0
+           and p_kv["served"] == n_gateway + 2 * PD_REPS and d_kv is not None
+           and d_kv["pulled"] == n_gateway + PD_REPS and p_kv["reclaimed"] == 0,
+           f"[grpc] transfer counts at exit: prefill {p_kv}, decode {d_kv}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 13 (c) took {out['seconds']:.1f} s")
+    # the kernels of both worker processes, counted over their lives
+    names = ("decode_attention", "prefill_attention")
+    out["launches"] = {k: sum(r.get("launches", {}).get(k, 0) for r in reps) for k in names}
+    want = {"decode_attention": sum(PD_LAYERS * r["stats"]["decode_columns"]
+                                    for r in reps if r),
+            "prefill_attention": sum(PD_LAYERS * r["stats"]["prefill_calls"]
+                                     for r in reps if r)}
+    expect(out["launches"] == want and min(out["launches"].values()) > 0,
+           f"[grpc] worker launches {out['launches']} != {want}")
     return out
+
+
+def _pinned_rates(dev, nbytes: int) -> dict:
+    """Device-to-host and host-to-device copy rates (bytes/s) of ``nbytes``
+    between the card and pinned memory (``cuda_ms``, as phase 13 (b)'s)."""
+    import torch
+
+    src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    return {"d2h": nbytes / (cuda_ms(lambda: host.copy_(src, non_blocking=True)) * 1e-3),
+            "h2d": nbytes / (cuda_ms(lambda: src.copy_(host, non_blocking=True)) * 1e-3)}
 
 
 def check_worker_cli(device: str = "cuda") -> dict:
@@ -6782,8 +6893,10 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
     ``PD_GRPC_PAGES`` pages each), each reporting its kernel launches and
     schedule when it exits.  ``POST /workers`` on a bare ``launch``: one
     registration against a port nothing listens on yet (async: 202, the job
-    ends with the workflow failed), one synchronous (A); then B comes up on
-    that port and ``POST /workflows/{id}/resume`` registers it; a drain
+    ends with the workflow failed), one synchronous (A); B, loaded
+    meanwhile, then takes that port and ``POST /workflows/{id}/resume``
+    registers it (the PD ``launch`` and ``_start_routing``'s gateways,
+    started while that registration failed, register B then); a drain
     during a stream; a removed worker added back as a job.  Then ``launch
     --prefill-worker A --decode-worker B``: the lone and the 8 concurrent
     chats give the in-process PD's texts, and each prompt's legs straight
@@ -6804,15 +6917,17 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
     spec = dict(config=dataclasses.asdict(cfg), layers=PD_LAYERS, pages=PD_GRPC_PAGES,
                 device=str(dev))
 
-    def spawn(name):
+    def spawn(name, **extra):
         return Child(name, [sys.executable, REPO / "chip_smoke.py", "--pd-worker", json.dumps(
-            {**spec, "port": ports[name], "report": str(reports[name])})])
+            {**spec, "port": ports[name], "report": str(reports[name]), **extra})])
 
     g1port = _free_port()
     children = {"a": spawn("a"),
                 "g1": Child("launch", [*CLI, "launch", "--host", "127.0.0.1",
                                        "--port", g1port])}
     urls = {k: f"127.0.0.1:{p}" for k, p in ports.items()}
+    hold = reports["b"].parent / "listen"
+    routing = None
     try:
         _wait_http_up(g1port, children["g1"], "bare launch")
         # B's port is not listening yet: the registration retries, then fails
@@ -6820,7 +6935,9 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
                                                       "async": True})
         expect(st == 202 and late.get("status") == "queued", f"async POST /workers: {late}")
         t_late = time.perf_counter()
-        # the reference run in this process while both wait
+        # B loads now and takes its port once that registration has failed
+        children["b"] = spawn("b", hold=str(hold))
+        # the reference run in this process while they wait
         full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
         p4 = {**{k: v.float() for k, v in full.items() if k != "layers"},
               "layers": {k: v[:PD_LAYERS].float() for k, v in full["layers"].items()}}
@@ -6831,6 +6948,15 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        # every later gateway starts now: each registers both workers before
+        # it binds, retrying B (8 attempts over 35.5 s from its first, which
+        # comes after its start-up) until B takes its port below, so its
+        # start-up runs while this waits and not beside the drain
+        g2port = _free_port()
+        children["g2"] = Child("launch-pd", [
+            *CLI, "launch", "--host", "127.0.0.1", "--port", g2port,
+            "--prefill-worker", urls["a"], "--decode-worker", urls["b"]])
+        routing = _start_routing(urls)
         out["a_up_s"] = _grpc_up(ports["a"], children["a"], "worker a")
         st, added = _http(g1port, "POST", "/workers", {"url": urls["a"], "worker_id": "a"})
         expect(st == 200 and added["added"]["worker_id"] == "a"
@@ -6843,8 +6969,10 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
                f"the registration against a closed port: {job}")
         expect(_http(g1port, "GET", f"/workflows/{wf.get('instance_id')}")[1].get("status")
                == "failed", "the failed workflow is not listed as failed")
-        children["b"] = spawn("b")
-        out["b_up_s"] = _grpc_up(ports["b"], children["b"], "worker b")
+        hold.touch()
+        t_go = time.perf_counter()
+        _grpc_up(ports["b"], children["b"], "worker b")
+        out["b_up_s"] = time.perf_counter() - t_go
         st, resumed = _http(g1port, "POST", f"/workflows/{wf['instance_id']}/resume")
         expect(st == 200 and resumed["status"] == "completed",
                f"resume after B came up: {st} {resumed}")
@@ -6863,10 +6991,6 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
         out["g1_exit"] = children.pop("g1").stop()
         expect(out["g1_exit"] == 0, f"bare launch exit code {out['g1_exit']} after SIGTERM")
         # PD through launch
-        g2port = _free_port()
-        children["g2"] = Child("launch-pd", [
-            *CLI, "launch", "--host", "127.0.0.1", "--port", g2port,
-            "--prefill-worker", urls["a"], "--decode-worker", urls["b"]])
         _wait_http_up(g2port, children["g2"], "PD launch")
         types = {w["worker_id"]: w["type"]
                  for w in _http(g2port, "GET", "/workers")[1]["workers"]}
@@ -6890,8 +7014,11 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
         out["g2_exit"] = children.pop("g2").stop()
         expect(out["g2_exit"] == 0, f"PD launch exit code {out['g2_exit']}")
         # the routing policies, over the same two workers
-        out["routing"] = launch_routing(urls, ports, expect)
+        started, routing = routing, None
+        out["routing"] = launch_routing(urls, ports, expect, started=started)
     finally:
+        if routing is not None:  # started, never handed over
+            _stop_all({}, routing["gateways"], routing["tmp"])
         for name in list(children):
             code = children.pop(name).stop()
             out[f"{name}_exit"] = code
@@ -6920,7 +7047,7 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
     out["launches"] = launches
     print(f"  [launch/pd] A up in {out.get('a_up_s', 0):.1f} s, the registration against a "
           f"closed port failed after {out.get('late_failed_after_s', 0):.1f} s and resumed "
-          f"once B was up ({out.get('b_up_s', 0):.1f} s); PD through launch: lone and "
+          f"once B, loaded meanwhile, took its port ({out.get('b_up_s', 0):.1f} s); PD through launch: lone and "
           f"{out.get('pd_conc_equal')}/8 chats equal to in-process PD, legs' logprobs within "
           f"{out.get('legs_logprob_max_abs_err', float('nan')):.2e}; launches in the "
           f"workers {launches} ({card})")
@@ -6950,7 +7077,34 @@ def _routed_chat(port: int, ids) -> tuple:
     return st, router["models"][SERVE_MODEL]["decisions"][-1], cached
 
 
-def launch_routing(urls: dict, ports: dict, expect) -> dict:
+def _start_routing(urls: dict, parts: tuple = ("routing", "mesh")) -> dict:
+    """Phase 14 (c)'s routing gateways and (d)'s mesh gateways, started and
+    not waited for: {"t_start", "tmp", "gateways": {name: (child, port)},
+    "mesh_gw"}.  Whatever started is stopped if a start fails."""
+    started = dict(t_start=time.perf_counter(), tmp=Path(tempfile.mkdtemp(prefix="smg_mesh_")),
+                   gateways={}, mesh_gw={})
+    gateways = started["gateways"]
+    try:
+        if "mesh" in parts:
+            started["mesh_gw"] = _mesh_gateways(urls, started["tmp"])
+            gateways.update({f"mesh_{g}": started["mesh_gw"][g] for g in ("g1", "g2", "g3")})
+        if "routing" in parts:
+            for name, flags in (
+                    ("prefix_hash", ("--policy", "prefix_hash", "--prefix-token-count",
+                                     ROUTE_PREFIX_TOKENS)),
+                    ("consistent_hashing", ("--policy", "consistent_hashing")),
+                    ("cache_aware", ("--policy", "cache_aware")),
+                    ("dp_aware", ("--dp-aware",))):
+                gateways[name] = _route_gateway(f"launch-{name.replace('_', '-')}", urls,
+                                                *flags)
+    except BaseException:
+        _stop_all({}, gateways, started["tmp"])
+        raise
+    return started
+
+
+def launch_routing(urls: dict, ports: dict, expect,
+                   parts: tuple = ("routing", "mesh"), started: dict | None = None) -> dict:
     """Phase 14 (c)'s routing policies over the two live worker processes,
     one ``launch`` process each, all four started together (their start-up
     is host work that overlaps), then checked in turn: ``prefix_hash`` (8
@@ -6962,7 +7116,10 @@ def launch_routing(urls: dict, ports: dict, expect) -> dict:
     shared-prefix chat goes to the worker holding the prefix) and
     ``--dp-aware`` (each worker reports ``dp_size`` 1; the ranks the workers
     received are checked at their exit: all -1).  Every gateway exits 0 on
-    SIGTERM."""
+    SIGTERM.  With ``mesh``, phase 14 (d)'s three mesh gateways start with
+    the four and are checked first (``launch_mesh``); G3's death is read
+    after the routing checks.  ``started`` (``_start_routing``) hands over
+    gateways already started; they are stopped here as the others are."""
     import asyncio
 
     import numpy as np
@@ -6971,20 +7128,22 @@ def launch_routing(urls: dict, ports: dict, expect) -> dict:
 
     rng = np.random.default_rng(1416)
     ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
-    out: dict = {}
-    t_start = time.perf_counter()
-    gateways = {
-        "prefix_hash": _route_gateway("launch-prefix-hash", urls, "--policy", "prefix_hash",
-                                      "--prefix-token-count", ROUTE_PREFIX_TOKENS),
-        "consistent_hashing": _route_gateway("launch-consistent-hashing", urls,
-                                             "--policy", "consistent_hashing"),
-        "cache_aware": _route_gateway("launch-cache-aware", urls, "--policy", "cache_aware"),
-        "dp_aware": _route_gateway("launch-dp-aware", urls, "--dp-aware"),
-    }
+    out: dict = {"started_early": started is not None}
+    started = started or _start_routing(urls, parts)
+    t_start, tmp, gateways, mesh_gw = (started[k] for k in ("t_start", "tmp", "gateways",
+                                                            "mesh_gw"))
     try:
         for name, (child, port) in gateways.items():
             _wait_http_up(port, child, name)
         out["startup_s"] = time.perf_counter() - t_start
+        if mesh_gw:
+            t0 = time.perf_counter()
+            out["mesh"] = launch_mesh(mesh_gw, urls, ids, expect)
+            out["mesh_s"] = time.perf_counter() - t0
+            print(f"  phase 14 (d)'s checks took {out['mesh_s']:.1f} s (G3's death is read "
+                  "after the routing checks)")
+        if "routing" not in parts:
+            return _routing_end(out, gateways, t_start, tmp, expect)
         # prefix_hash: a family's chats share their first 64 ids
         t0 = time.perf_counter()
         port = gateways["prefix_hash"][1]
@@ -7054,21 +7213,223 @@ def launch_routing(urls: dict, ports: dict, expect) -> dict:
                f"[routing/dp-aware] dp_size {sizes}, chats {dp_chats}")
         out["dp_aware"] = dict(dp_size=sizes)
         out["dp_aware_s"] = time.perf_counter() - t0
-    finally:
-        for child, _port in gateways.values():
-            child.terminate()  # SIGTERM to all, then wait for each
-        for name, (child, _port) in gateways.items():
-            out[f"{name}_exit"] = child.stop()
+    except BaseException:
+        if "exit_read" not in out:
+            _stop_all(out, gateways, tmp)
+        raise
+    # G3's death is read before the gateways stop: their logs close then
+    return _routing_end(out, gateways, t_start, tmp, expect)
+
+
+def _stop_all(out: dict, gateways: dict, tmp: Path) -> None:
+    """SIGTERM every gateway once (G3 has had its one), then each exit
+    code."""
+    for child, _port in gateways.values():
+        child.terminate()
+    for name, (child, _port) in gateways.items():
+        out[f"{name}_exit"] = child.stop()
+    out["exit_read"] = True
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _routing_end(out: dict, gateways: dict, t_start: float, tmp: Path, expect) -> dict:
+    """The end of phase 14 (c)'s routing and (d)'s mesh: G3's death as G1
+    and G2 saw it, every gateway stopped and its exit code checked, the
+    readings printed."""
+    mesh = out.get("mesh")
+    if mesh is not None:
+        died = mesh.pop("death_watch")()
+        mesh["dead_after_s"] = died
+        bound = MESH_DEATH_ROUNDS * MESH_INTERVAL_S
+        expect(set(died) == {"g1", "g2"} and max(t for t, _how in died.values()) <= bound + 2,
+               f"[mesh] G1 and G2 marked the stopped G3 dead after {died} s (bound "
+               f"{MESH_DEATH_ROUNDS} rounds of {MESH_INTERVAL_S} s)")
+        print(f"  [mesh] G3 stopped: G1 and G2 hold it dead after {died} (s, and whether "
+              f"the gateway dialled it {MESH_SUSPECT_AFTER} times in vain or heard it from "
+              f"its peer; rounds of {MESH_INTERVAL_S} s)")
+    if "exit_read" not in out:
+        _stop_all(out, gateways, tmp)
     for name in gateways:
         expect(out.get(f"{name}_exit") == 0,
                f"[routing/{name}] gateway exit {out.get(f'{name}_exit')}")
     out["seconds"] = time.perf_counter() - t_start
+    if "prefix_hash" not in gateways:
+        return out
     print(f"  [launch/routing] prefix_hash {out.get('prefix_hash')}; consistent_hashing "
           f"moved {out.get('consistent_hashing', {}).get('moved')} after draining "
           f"{out.get('consistent_hashing', {}).get('drained')}; cache_aware "
-          f"{out.get('cache_aware')}; dp_size {out.get('dp_aware')}; four launch "
-          f"processes up in {out.get('startup_s', float('nan')):.1f} s, "
-          f"{out['seconds']:.1f} s in all")
+          f"{out.get('cache_aware')}; dp_size {out.get('dp_aware')}; {len(gateways)} launch "
+          f"processes up {out.get('startup_s', float('nan')):.1f} s after their start"
+          f"{' (during the failing registration: they wait for B)' if out['started_early'] else ''}"
+          f", {out['seconds']:.1f} s in all")
+    return out
+
+
+MESH_WAIT_S = 30.0  # the longest a mesh change may take to reach a peer
+MESH_INTERVAL_S = 1.0  # launch's gossip interval (not a flag)
+MESH_SUSPECT_AFTER = 3  # launch's missed rounds before a peer is dead (not a flag)
+# gossip rounds G1 and G2 get to mark a stopped G3 dead: each round dials one
+# live peer at random (two here), so 3 misses take 6 rounds on average, and
+# fewer than 3 in 20 has a chance of 2e-4 per gateway
+MESH_DEATH_ROUNDS = 20
+MESH_FAMILIES = 4  # 300-token prefix families routed through G1, then G2
+
+
+def _mesh_certs(tmp: Path) -> list:
+    """``--mesh-tls-*`` flags of a CA and one node certificate it signed,
+    made with the ``openssl`` CLI in ``tmp``, as the reference's mTLS test
+    makes them; [] (plaintext gossip) where the host has no ``openssl``."""
+    if shutil.which("openssl") is None:
+        return []
+
+    def run(*args):
+        subprocess.run(args, check=True, capture_output=True, cwd=tmp)
+
+    run("openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout", "ca.key",
+        "-out", "ca.crt", "-days", "1", "-subj", "/CN=mesh-ca")
+    run("openssl", "req", "-newkey", "rsa:2048", "-nodes", "-keyout", "node.key", "-out",
+        "node.csr", "-subj", "/CN=mesh-node")
+    run("openssl", "x509", "-req", "-in", "node.csr", "-CA", "ca.crt", "-CAkey", "ca.key",
+        "-CAcreateserial", "-out", "node.crt", "-days", "1")
+    return ["--mesh-tls-cert", tmp / "node.crt", "--mesh-tls-key", tmp / "node.key",
+            "--mesh-tls-ca", tmp / "ca.crt"]
+
+
+def _mesh_gateways(urls: dict, tmp: Path) -> dict:
+    """Phase 14 (d)'s three ``launch --mesh-port`` processes, started: G1
+    with both workers, G2 and G3 seeded from G1 with none; all with one
+    word-level ``--gateway-tokenizer-path`` (a mesh-born worker brings no
+    tokenizer bundle) and, where the host has ``openssl``, mutual TLS.
+    Returns {"g1": (child, port), ..., "tls": bool}."""
+    from smg_tpu_torch.models.config import PRESETS
+
+    write_tokenizer(tmp, PRESETS[SERVE_MODEL]().vocab_size)
+    tls = _mesh_certs(tmp)
+    mesh_ports = {g: _free_port() for g in ("g1", "g2", "g3")}
+    out = {"tls": bool(tls)}
+    for g, mport in mesh_ports.items():
+        flags = (["--worker", urls["a"], "--worker", urls["b"]] if g == "g1"
+                 else ["--mesh-seed", f"127.0.0.1:{mesh_ports['g1']}"])
+        port = _free_port()
+        out[g] = (Child(f"mesh-{g}", [*CLI, "launch", "--host", "127.0.0.1", "--port", port,
+                                      "--mesh-port", mport, "--gateway-tokenizer-path", tmp,
+                                      *tls, *flags]), port)
+    return out
+
+
+def _inserted_prefixes(port: int) -> float:
+    """The gateway's ``smg_cache_inserted_prefixes`` (every model summed)."""
+    _st, text = _http(port, "GET", "/metrics")
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith("smg_cache_inserted_prefixes{"))
+
+
+def _until(cond, what: str, timeout: float = MESH_WAIT_S) -> float:
+    """Seconds until ``cond()`` holds (polled every 20 ms)."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def launch_mesh(mesh: dict, urls: dict, ids, expect) -> dict:
+    """Phase 14 (d)'s checks over the running mesh gateways: G2 and G3 list
+    G1's workers; a chat through G2 and G3 gives G1's greedy text; prefixes
+    of ``MESH_FAMILIES`` 300-token families routed by ``cache_aware``
+    through G1 raise G2's ``smg_cache_inserted_prefixes`` by as many and go
+    to the same workers through G2; a ``POST /workers`` on G2 appears on G1
+    and ``DELETE /workers/{id}`` on G1 leaves G2.  Last, G3 gets one
+    SIGTERM; a thread then watches G1's and G2's logs for ``gossip peer
+    <G3> marked dead`` (``mesh_death``'s result, read after the routing
+    checks).  Returns (readings, the thread's join function)."""
+    (c1, g1), (c2, g2), (c3, g3) = mesh["g1"], mesh["g2"], mesh["g3"]
+    out: dict = {"tls": mesh["tls"]}
+    want = sorted(urls.values())
+
+    def listed(port):
+        return sorted(w["url"] for w in _http(port, "GET", "/workers")[1]["workers"])
+
+    expect(listed(g1) == want, f"[mesh] G1 lists {listed(g1)}, want {want}")
+    out["workers_converged_s"] = _until(lambda: listed(g2) == listed(g3) == want,
+                                        "[mesh] G2 and G3 list G1's workers")
+    # one chat through each: G1's greedy text; each creates the gateway's
+    # cache_aware policy, whose inserts the others replicate
+    prompt = ids(200)
+    texts = [_chat_text(p, _chat(prompt, ROUTE_NEW * 4)) for p in (g1, g2, g3)]
+    expect(texts[0][0] == 200 and texts[1] == texts[2] == texts[0],
+           f"[mesh] one chat through G1, G2, G3: {[t[0] for t in texts]}, texts equal "
+           f"{texts[1] == texts[0]}, {texts[2] == texts[0]}")
+    # every gateway's insert replicated to G2: its own and the two others
+    _until(lambda: _inserted_prefixes(g2) == 3, "[mesh] G2 holds the 3 chats' prefixes")
+    families = [ids(300) for _ in range(MESH_FAMILIES)]
+    picks = []
+    for fam in families:
+        st, d, _cached = _routed_chat(g1, fam + ids(30))
+        expect(st == 200 and d["policy"] == "cache_aware", f"[mesh] G1 family chat: {st} {d}")
+        picks.append(d["chosen"])
+    t0 = time.perf_counter()
+    _until(lambda: _inserted_prefixes(g2) == 3 + MESH_FAMILIES,
+           f"[mesh] G2's inserted prefixes rise by {MESH_FAMILIES}")
+    out["tree_replicated_s"] = time.perf_counter() - t0
+    via_g2 = []
+    for fam in families:
+        st, d, _cached = _routed_chat(g2, fam + ids(30))
+        via_g2.append((st, d["chosen"], d["outcome"]))
+    expect(all(st == 200 and w == p and o == "prefix_hit"
+               for (st, w, o), p in zip(via_g2, picks)),
+           f"[mesh] families through G2 {via_g2}, G1 chose {picks}")
+    out["families"] = dict(g1=picks, g2=via_g2)
+    # a worker registered on G2 reaches G1; one G1 removes leaves G2
+    st, added = _http(g2, "POST", "/workers", {"url": urls["b"], "worker_id": "mesh-b"})
+    expect(st == 200, f"[mesh] POST /workers on G2: {st} {added}")
+    t0 = time.perf_counter()
+    _until(lambda: "mesh-b" in {w["worker_id"] for w in _http(g1, "GET", "/workers")[1][
+        "workers"]}, "[mesh] G2's new worker on G1")
+    out["add_replicated_s"] = time.perf_counter() - t0
+    gone = urls["a"]
+    st, removed = _http(g1, "DELETE", f"/workers/{gone}")
+    expect(st == 200, f"[mesh] DELETE /workers/{gone} on G1: {st} {removed}")
+    t0 = time.perf_counter()
+    _until(lambda: gone not in listed(g2), "[mesh] G1's removal on G2")
+    out["remove_replicated_s"] = time.perf_counter() - t0
+    # G3 stops; G1 and G2 must mark it dead
+    import re
+
+    m = re.search(r"gossip node (\S+) listening on", c3.tail(10**7))
+    g3_id = m.group(1) if m else None
+    expect(g3_id is not None, "[mesh] G3 logged no node id")
+    # a node that dials G3 in vain logs "gossip peer <G3> marked dead"; one
+    # that first hears of the death from its peer takes it silently (death
+    # wins at an equal incarnation), and either way its partition detector
+    # then logs G3 unreachable at its next round
+    lines = (f"gossip peer {g3_id} marked dead",
+             "-> partitioned_with_quorum (reachable=2 unreachable=1)")
+    logs = {"g1": c1, "g2": c2}
+    start = {name: len(child.tail(10**7)) for name, child in logs.items()}
+    c3.terminate()
+    t_term = time.perf_counter()
+    seen: dict = {}
+
+    def watch():
+        deadline = t_term + MESH_DEATH_ROUNDS * MESH_INTERVAL_S + 5
+        while len(seen) < 2 and time.perf_counter() < deadline:
+            for name, child in logs.items():
+                new = child.tail(10**7)[start[name]:]
+                if name not in seen and any(line in new for line in lines):
+                    seen[name] = (time.perf_counter() - t_term,
+                                  "dialled" if lines[0] in new else "heard")
+            time.sleep(0.05)
+        return dict(seen)
+
+    out["death_watch"] = _timed_in_thread(watch)
+    print(f"  [mesh] {'mTLS' if mesh['tls'] else 'plaintext'} gossip: G2 and G3 listed G1's "
+          f"workers {out['workers_converged_s']:.2f} s after all were up; chats through G1, "
+          f"G2, G3 equal; {MESH_FAMILIES} families replicated to G2 in "
+          f"{out['tree_replicated_s']:.2f} s and routed there as on G1; an add on G2 reached "
+          f"G1 in {out['add_replicated_s']:.2f} s, a removal on G1 left G2 in "
+          f"{out['remove_replicated_s']:.2f} s")
     return out
 
 
@@ -8603,7 +8964,6 @@ def phase_engine(dev, card: str) -> dict:
                                       bare=out["serve_bf16"])
     print("phase 7: speculative decoding, bf16")
     out["spec_bf16"] = phase_spec(cfg, params, dev, card, "bf16", strict=False)
-    out["serve_speculative"] = check_serve_speculative()
     # phase 8: the same bf16 weights written as an HF checkpoint directory
     root = Path(tempfile.mkdtemp(prefix="smg_ckpt_"))
     try:
@@ -8662,7 +9022,7 @@ def prepare_checkpoint(cfg, params, root: Path) -> tuple:
     return written, cfg8, params8
 
 
-F32_LAYERS = 8  # the float32 repeat's depth: its checks are exact at any depth
+F32_LAYERS = 4  # the float32 repeat's depth: its checks are exact at any depth
 
 
 def _phases_f32(cfg, params, dev, card: str, root: Path) -> dict:
@@ -8674,7 +9034,7 @@ def _phases_f32(cfg, params, dev, card: str, root: Path) -> dict:
     (first-token logits) and phase 10's embeddings; phase 8 serves a
     checkpoint of that depth written under ``root``.  Then phase 6 on all
     of ``params``, widened in place (phase 5's bare gateway reading beside
-    it is the 8-layer one)."""
+    it is the ``F32_LAYERS``-layer one)."""
     import dataclasses
 
     import torch
@@ -8838,11 +9198,93 @@ def phase_pd_alone(dev, card: str) -> dict:
     return out
 
 
+def phase_transfer_alone(dev, card: str) -> dict:
+    """Phase 13 (c) without phases 3-12 (``--phases transfer``): the
+    in-process host PD's texts on the first ``PD_LAYERS`` layers of phase
+    3's weights, widened to float32 (``_pd_reference``), then the two gRPC
+    worker processes by ``transfer`` and by ``host``."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.models.config import llama3_8b_config
+    from smg_tpu_torch.models.llama import init_params
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    t0 = time.perf_counter()
+    cfg = llama3_8b_config()
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    jobs = _pd_jobs(13)
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    p4 = {**{k: v.float() for k, v in full.items() if k != "layers"},
+          "layers": {k: v[:PD_LAYERS].float() for k, v in full["layers"].items()}}
+    del full
+    ref = _pd_reference(dataclasses.replace(cfg, num_layers=PD_LAYERS, dtype="float32"), p4,
+                        dev, tok, jobs)
+    del p4
+    gc.collect()
+    torch.cuda.empty_cache()
+    failures: list = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [pd] CHECK FAILED: {what}")
+
+    out = {"grpc": pd_grpc(cfg, dev, tok, jobs, ref, expect)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 13 (c) took {out['seconds']:.1f} s ({card})")
+    if failures:
+        raise AssertionError(f"phase 13 (c): {len(failures)} checks failed: {failures}")
+    return out
+
+
+def phase_mesh_alone(dev, card: str) -> dict:
+    """Phase 14 (d) without the rest of phase 14 (``--phases mesh``): two of
+    this script's worker processes (``pd_worker_main``, as phase 14 (c)
+    runs them) behind the three mesh gateways."""
+    import dataclasses
+
+    from smg_tpu_torch.models.config import PRESETS
+
+    t0 = time.perf_counter()
+    cfg = PRESETS[SERVE_MODEL]()
+    ports = {"a": _free_port(), "b": _free_port()}
+    spec = dict(config=dataclasses.asdict(cfg), layers=PD_LAYERS, pages=PD_GRPC_PAGES,
+                device=str(dev))
+    children = {k: Child(f"worker-{k}", [sys.executable, REPO / "chip_smoke.py", "--pd-worker",
+                                         json.dumps({**spec, "port": p})])
+                for k, p in ports.items()}
+    failures: list = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [launch] CHECK FAILED: {what}")
+
+    try:
+        for k, p in ports.items():
+            _grpc_up(p, children[k], f"worker {k}")
+        urls = {k: f"127.0.0.1:{p}" for k, p in ports.items()}
+        out = {"mesh": launch_routing(urls, ports, expect, parts=("mesh",))}
+    finally:
+        codes = {k: c.stop() for k, c in children.items()}
+    expect(codes == {"a": 0, "b": 0}, f"worker exit codes {codes}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 14 (d) took {out['seconds']:.1f} s ({card})")
+    if failures:
+        raise AssertionError(f"phase 14 (d): {len(failures)} checks failed: {failures}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd",
-                             "launch", "routing", "responses", "messages", "realtime"),
+                             "transfer", "launch", "routing", "mesh", "responses", "messages",
+                             "realtime"),
                     default="all")
     # the gRPC worker processes of phases 13 and 14: this script started by itself
     ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
@@ -8926,13 +9368,25 @@ def main(argv=None) -> int:
         print("phase 14: launch in front of out-of-process workers (Llama-3-8B workers at "
               "full width, gRPC and HTTP; registration, drain, PD and the routing policies "
               "at 4 layers)" if args.phases != "routing" else
-              "phase 14 (c) alone: registration, drain, PD and the routing policies")
+              "phase 14 (c) and (d) alone: registration, drain, PD, the routing policies "
+              "and the HA mesh")
         try:
             launch = phase_launch(dev, card, parts=("pd",) if args.phases == "routing"
                                   else ("grpc", "http", "pd"))
         except Exception:
             traceback.print_exc()
             failed.append("launch")
+    if args.phases in ("transfer", "mesh") and not failed:
+        print({"transfer": "phase 13 (c) alone: PD between two gRPC worker processes by "
+                           "transfer and by host (Llama-3-8B at full width, 4 layers, float32)",
+               "mesh": "phase 14 (d) alone: three launch --mesh-port gateways over two gRPC "
+                       "worker processes (Llama-3-8B at full width, 4 layers, float32)"
+               }[args.phases])
+        try:
+            {"transfer": phase_transfer_alone, "mesh": phase_mesh_alone}[args.phases](dev, card)
+        except Exception:
+            traceback.print_exc()
+            failed.append(args.phases)
     responses = {}
     if args.phases in ("all", "responses", "messages", "realtime") and not failed:
         print({"all": "phases 15-17: the Responses API (SQLite storage, an MCP server, "
@@ -8988,8 +9442,12 @@ def main(argv=None) -> int:
             # phase 13's PD path (bf16): prefill on the prefill engine,
             # decode on the decode engine
             launches_pd=engine["pd"]["launches"][name],
-            # phase 14's two worker processes behind launch (float32, 4 layers),
-            # counted in each process over its life and reported at exit
+            # phase 13 (c)'s two gRPC worker processes (PD by transfer and by
+            # host; float32, 4 layers), counted over their lives
+            launches_transfer=engine["pd"]["grpc"]["launches"][name],
+            # phase 14's two worker processes behind launch and the mesh
+            # gateways (float32, 4 layers), counted in each process over its
+            # life and reported at exit
             launches_launch=launch["launches"][name],
             # phase 15's three conversation turns through /v1/responses (bf16)
             launches_responses=responses["launches"][name],

@@ -11,8 +11,9 @@ engine behind the gRPC scheduler protocol (``--grpc-port``), with serve's
 engine flags.  Engines run on the card; ``--device cpu`` is the only way
 onto the CPU.  Every command line is validated (``config/validation.py``)
 before anything binds a port or touches a device.  The flags carry the
-reference's names, dests, defaults and types (``--kv-connector`` offers no
-``transfer``).  ``--storage`` picks the Responses API's conversation
+reference's names, dests, defaults and types (``--kv-connector`` offers
+``auto|host|device``, as the reference's does: ``transfer`` is reached through
+``auto``).  ``--storage`` picks the Responses API's conversation
 storage and ``--mcp-config-path`` names its gateway-level MCP servers;
 ``--policy`` takes every policy of the reference, ``--prefix-token-count``
 sizes ``prefix_hash``'s key and ``--dp-aware``/``--no-dp-aware`` pick the
@@ -22,8 +23,10 @@ that take their models' chat, ``/v1/messages`` and ``/v1/responses``
 requests before any worker does.  ``--plugins`` loads middleware plugins
 (a file path or a dotted module, repeatable) whose hooks see every request
 and response; a hook that fails lets the request through unless
-``--plugin-fail-closed``.  Parallelism and the HA mesh are not ported yet,
-and their flags are refused.
+``--plugin-fail-closed``.  ``--mesh-port`` (with ``--mesh-seed`` and the
+three ``--mesh-tls-*`` files for mutual TLS) joins the gateway to an HA mesh
+of peer gateways that gossip their workers and cache-aware prefix trees.
+Parallelism is not ported yet, and ``--mesh-shape`` is refused.
 """
 
 from __future__ import annotations
@@ -79,7 +82,8 @@ def _add_gateway_args(p: argparse.ArgumentParser) -> None:
                    dest="mm_shm_min_bytes")
     g.add_argument("--kv-connector", default="auto", choices=["auto", "host", "device"],
                    help="PD KV handoff: on the card (device) or host bytes; auto "
-                        "takes device when both legs keep KV on the card")
+                        "takes device when both legs keep KV on the card, else "
+                        "transfer (a same-host pull) when both legs support it")
     g.add_argument("--provider-config", default=None,
                    help="JSON file of third-party provider backends: a list of "
                         '{"name", "kind" (openai, xai, anthropic, gemini, bedrock), '
@@ -88,6 +92,15 @@ def _add_gateway_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--gateway-tokenizer-path", default=None, dest="gateway_tokenizer_path",
                    help="tokenizer for gateway-side text processing (launch mode; "
                         "default: the first worker's tokenizer bundle)")
+    g.add_argument("--mesh-port", type=int, default=None,
+                   help="enable HA mesh gossip on this port (binds 0.0.0.0)")
+    g.add_argument("--mesh-tls-cert", default=None, dest="mesh_tls_cert",
+                   help="node certificate for mesh mTLS")
+    g.add_argument("--mesh-tls-key", default=None, dest="mesh_tls_key")
+    g.add_argument("--mesh-tls-ca", default=None, dest="mesh_tls_ca",
+                   help="CA bundle peers must be signed by")
+    g.add_argument("--mesh-seed", action="append", default=[], dest="mesh_seeds",
+                   help="mesh seed peer host:port (repeatable)")
     g.add_argument("--plugins", action="append", default=[],
                    help="middleware plugin: /path/plug.py or dotted module "
                         "(repeatable; reference: the WASM component host)")

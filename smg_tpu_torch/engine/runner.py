@@ -742,6 +742,22 @@ class ModelRunner:
 
     # ---- PD disaggregation: the KV handoff legs ----
 
+    @property
+    def kv_transfer(self):
+        """Lazy per-runner TransferManager (KV pulls between processes)."""
+        if getattr(self, "_kv_transfer", None) is None:
+            from smg_tpu_torch.engine.kv_transfer import TransferManager
+
+            self._kv_transfer = TransferManager(self.device)
+        return self._kv_transfer
+
+    @property
+    def supports_kv_transfer(self) -> bool:
+        """True when this engine can serve and accept KV pulls: every port
+        engine is single-device (CUDA IPC on the card, shared memory on the
+        CPU)."""
+        return self.device.type in ("cuda", "cpu")
+
     def export_pages_device(self, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
         """Gather KV pages into fresh tensors on this engine's device:
         ([L, n, ps, KD] k, v).  Runs on the calling thread's current stream

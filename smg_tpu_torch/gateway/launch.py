@@ -10,7 +10,9 @@ of ``--mcp-config-path``, the third-party providers of
 engine loads, register the
 workers named by URL (``--worker``, ``--prefill-worker``,
 ``--decode-worker``) through the registration workflow before the listener
-binds, watch Kubernetes pods with ``--service-discovery``, take TLS and the
+binds, watch Kubernetes pods with ``--service-discovery``, gossip workers
+and cache-aware prefix trees with peer gateways with ``--mesh-port``
+(``start_mesh``), take TLS and the
 probe-only and metrics-only listeners, and on SIGTERM or SIGINT stop
 selecting every worker, close every client (an in-process engine drains)
 and shut every listener.
@@ -296,12 +298,13 @@ async def serve_context(ctx, host: str, port: int, stop: asyncio.Event,
                         client_max_size: int = 256 * 2**20, ssl_context=None,
                         probe_port: int | None = None,
                         metrics_listener: "tuple[str, int] | None" = None,
-                        discoveries=()) -> None:
+                        discoveries=(), mesh_node=None) -> None:
     """Serve ``ctx`` on ``host:port`` (request bodies capped at
     ``client_max_size`` bytes; HTTPS with ``ssl_context``), with a
     probe-only listener on ``probe_port`` and a metrics-only one on
     ``metrics_listener`` = (host, port) when given, until ``stop`` is set;
-    then drain: the ``discoveries`` stop, workers stop being selected, each
+    then drain: the ``discoveries`` and the ``mesh_node`` stop, workers stop
+    being selected, each
     worker client closes (for an in-proc engine that is
     ``stop(drain=True)``: queued requests get terminal aborts and running
     lanes finish within the drain budget), and the listeners shut."""
@@ -339,6 +342,8 @@ async def serve_context(ctx, host: str, port: int, stop: asyncio.Event,
         logger.info("shutdown signal received; draining workers")
         for d in discoveries:
             await d.aclose()
+        if mesh_node is not None:
+            await mesh_node.stop()
         for w in ctx.registry.list():
             w.draining = True  # no new selections while streams settle
         for w in ctx.registry.list():
@@ -347,6 +352,8 @@ async def serve_context(ctx, host: str, port: int, stop: asyncio.Event,
             except Exception:
                 logger.exception("worker %s close failed during shutdown", w.worker_id)
     finally:
+        if mesh_node is not None:
+            await mesh_node.stop()  # idempotent: covers a failed startup
         for r in reversed(runners):
             await r.cleanup()
 
@@ -401,6 +408,25 @@ def start_discovery(ctx, args) -> list:
         out.append(d)
         logger.info("k8s service discovery on (selector %s, role %s)", selector, role)
     return out
+
+
+async def start_mesh(ctx, args):
+    """``--mesh-port``: a gossip node on 0.0.0.0 (seeded by ``--mesh-seed``,
+    mutual TLS with the three ``--mesh-tls-*`` files) whose CRDT state the
+    worker and tree adapters sync with this gateway's registry and
+    cache-aware policies."""
+    from smg_tpu_torch.mesh import GossipConfig, GossipNode
+    from smg_tpu_torch.mesh.adapters import TreeSyncAdapter, WorkerSyncAdapter
+
+    node = GossipNode(GossipConfig(
+        host="0.0.0.0", port=args.mesh_port, seeds=list(args.mesh_seeds),
+        tls_cert_file=args.mesh_tls_cert, tls_key_file=args.mesh_tls_key,
+        tls_ca_file=args.mesh_tls_ca))
+    await node.start()
+    WorkerSyncAdapter(ctx.registry, node.state)
+    TreeSyncAdapter(ctx.policies, node.state)
+    logger.info("HA mesh enabled on port %d", args.mesh_port)
+    return node
 
 
 async def _run_gateway(args, stop: asyncio.Event | None = None) -> int:
@@ -461,6 +487,7 @@ async def _run_gateway(args, stop: asyncio.Event | None = None) -> int:
         fallback = MockTokenizer()
         fallback._smg_fallback = True
         ctx.tokenizers.register("default", fallback, default=True)
+    mesh_node = await start_mesh(ctx, args) if args.mesh_port is not None else None
     ssl_context = None
     if args.tls_cert_path:
         import ssl
@@ -473,7 +500,7 @@ async def _run_gateway(args, stop: asyncio.Event | None = None) -> int:
         ssl_context=ssl_context, probe_port=args.health_check_port,
         metrics_listener=((args.prometheus_host, args.prometheus_port)
                           if args.prometheus_port else None),
-        discoveries=discoveries)
+        discoveries=discoveries, mesh_node=mesh_node)
     return 0
 
 

@@ -19,8 +19,11 @@ PD disaggregation: when the model has PREFILL and DECODE workers, a text
 request runs its prompt on a prefill worker (``prefill_export``), hands the
 KV over through the configured connector (``RouterConfig.kv_connector``:
 ``auto`` takes ``device`` when every leg keeps KV on the card, else
-``host``) and streams from a decode worker that imports it
-(``generate_prefilled``).  An image request bypasses PD onto a worker that
+``transfer`` when every leg's worker pulls KV between processes and every
+leg's URL names one host, else ``host``) and streams from a decode worker that imports it
+(``generate_prefilled``).  A ``transfer`` offer is released on the prefill
+worker once the decode leg streams, and reclaimed on any failure after the
+prefill leg.  An image request bypasses PD onto a worker that
 is neither DECODE nor ENCODE.
 
 HTTP workers (``gateway/http_worker.py``, ``proxy_mode``) never serve the
@@ -42,9 +45,11 @@ through the shared format bridge (``gateway/openai_bridge.py``).
 from __future__ import annotations
 
 import asyncio
+import ipaddress
 import time
 import uuid
 from dataclasses import dataclass, field
+from urllib.parse import urlsplit
 
 from smg_tpu_torch.engine.detokenize import IncrementalDecoder, StopStringChecker
 from smg_tpu_torch.gateway.observability import current_route
@@ -84,6 +89,20 @@ from smg_tpu_torch.utils import get_logger
 logger = get_logger("gateway.router")
 
 
+def _worker_host(worker: Worker) -> str:
+    """The host a worker's engine runs on, as the address its client dials
+    names it (``loopback`` for this gateway's own host)."""
+    if worker.client.supports_device_kv:  # an engine in this process
+        return "loopback"
+    url = getattr(worker.client, "url", None) or worker.url
+    host = urlsplit("//" + url.split("://", 1)[-1]).hostname or url
+    try:
+        loopback = ipaddress.ip_address(host).is_loopback
+    except ValueError:
+        loopback = host == "localhost"
+    return "loopback" if loopback else host
+
+
 class RouteError(Exception):
     def __init__(self, status: int, message: str, err_type: str = "invalid_request_error"):
         super().__init__(message)
@@ -96,7 +115,8 @@ class RouteError(Exception):
 class RouterConfig:
     default_max_tokens: int = 512
     # PD KV handoff: "auto" = on the card whenever both legs support it,
-    # else host bytes ("host" | "device" force a connector)
+    # else a device pull ("transfer") when every leg does and all run on
+    # one host, else host bytes ("host" | "device" force a connector)
     kv_connector: str = "auto"
     max_retries: int = 3
     retry_backoff_base: float = 0.1
@@ -520,9 +540,22 @@ class Router:
         # prefill, so load changes during a long prefill get a fresh choice
         connector = self.config.kv_connector
         if connector == "auto":
-            on_card = (p_worker.client.supports_device_kv
-                       and all(w.client.supports_device_kv for w in decode_pool))
-            connector = "device" if on_card else "host"
+            if (p_worker.client.supports_device_kv and decode_pool
+                    and all(w.client.supports_device_kv for w in decode_pool)):
+                connector = "device"  # one process, one card
+            else:
+                # worker processes: a device pull when every leg runs a pull
+                # server on one host (CUDA IPC and shared memory reach no
+                # further), else host bytes
+                connector = "host"
+                if len({_worker_host(w) for w in [p_worker, *decode_pool]}) == 1:
+                    try:
+                        infos = [await self.worker_info(p_worker)] + [
+                            await self.worker_info(w) for w in decode_pool]
+                        if all(i.get("supports_kv_transfer") for i in infos):
+                            connector = "transfer"
+                    except Exception:
+                        pass
 
         p_guard = p_worker.acquire()
         p_span = start_stage("engine.prefill", worker_id=p_worker.worker_id, rid=rid,
@@ -537,18 +570,40 @@ class Router:
             end_stage(p_span, error=True)
             raise RouteError(502, f"prefill worker error: {e}", "worker_error")
 
-        d_worker, d_decision = policy.select(decode_pool, ctx)
-        if d_worker is None:
-            raise RouteError(503, "no healthy decode workers", "service_unavailable")
-        if export.get("connector") == "device" and not d_worker.client.supports_device_kv:
-            # a host-only decode worker joined mid-flight: the payload comes
-            # to the host, off the event loop (tens of MB)
-            from smg_tpu_torch.engine.kv_connector import to_host
+        # transfer: the prefill worker's offer holds its KV until the decode
+        # leg pulls it; signal the outcome, so success stops the tracking and
+        # any failure from here on (decode-worker selection included)
+        # reclaims the offer (engine/kv_transfer.py)
+        offer_uuid = (export["k"].get("transfer_uuid")
+                      if export.get("connector") == "transfer" else None)
+        signalled = False
 
-            loop = asyncio.get_running_loop()
-            export["k"], export["v"] = await loop.run_in_executor(
-                None, lambda: (to_host(export["k"]), to_host(export["v"])))
-            export["connector"] = "host"
+        async def _signal(consumed: bool):
+            nonlocal signalled
+            if offer_uuid is None or signalled:
+                return
+            signalled = True
+            try:
+                await asyncio.shield(p_worker.client.release_kv_offer(offer_uuid, consumed))
+            except Exception:
+                logger.warning("kv offer %s signal failed", offer_uuid)
+
+        try:
+            d_worker, d_decision = policy.select(decode_pool, ctx)
+            if d_worker is None:
+                raise RouteError(503, "no healthy decode workers", "service_unavailable")
+            if export.get("connector") == "device" and not d_worker.client.supports_device_kv:
+                # a host-only decode worker joined mid-flight: the payload
+                # comes to the host, off the event loop (tens of MB)
+                from smg_tpu_torch.engine.kv_connector import to_host
+
+                loop = asyncio.get_running_loop()
+                export["k"], export["v"] = await loop.run_in_executor(
+                    None, lambda: (to_host(export["k"]), to_host(export["v"])))
+                export["connector"] = "host"
+        except BaseException:
+            await _signal(consumed=False)
+            raise
         d_guard = d_worker.acquire()
         finished_cleanly = False
         got_first_chunk = False
@@ -559,6 +614,7 @@ class Router:
             wreq = WorkerGenerateRequest(rid=rid, input_ids=input_ids, sampling=worker_sampling)
             async for chunk in d_worker.client.generate_prefilled(
                     wreq, export["first_token"], export["k"], export["v"]):
+                await _signal(consumed=True)  # the decode leg is live: KV pulled
                 if not got_first_chunk and self.metrics is not None:
                     self.metrics.ttft.labels(route=current_route.get()).observe(
                         time.perf_counter() - t_dispatch)
@@ -616,6 +672,8 @@ class Router:
             raise RouteError(502, f"decode worker error: {e}", "worker_error")
         finally:
             end_stage(d_span, error=not finished_cleanly, output_tokens=last_output_tokens)
+            # no chunk ever arrived: the offer was never pulled — reclaim
+            await _signal(consumed=False)
             if not finished_cleanly:
                 d_guard.release(success=True)
 

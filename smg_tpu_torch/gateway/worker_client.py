@@ -6,10 +6,9 @@ port's copy of ``smg_tpu/gateway/worker_client.py``.  Two transports:
   KV may stay on the card: ``supports_device_kv``), embeddings, the vision
   encode, profiling and the LoRA calls;
 - ``GrpcWorkerClient`` (``smg_tpu_torch/rpc/client.py``): remote workers
-  over gRPC, the KV as bytes on the wire.
-
-The reference's ``transfer`` KV connector (``release_kv_offer``) is not
-ported.
+  over gRPC, the KV as bytes on the wire or, with the ``transfer``
+  connector, a pull descriptor (``release_kv_offer`` signals the offer's
+  outcome back to the prefill worker).
 """
 
 from __future__ import annotations
@@ -80,6 +79,10 @@ class WorkerClient:
     async def prefill_export(self, input_ids: list, sampling, connector: str = "host") -> dict:
         """PD prefill leg: {first_token, k, v, seq_len, connector}."""
         raise NotImplementedError
+
+    async def release_kv_offer(self, uuid: int, consumed: bool) -> bool:
+        """PD transfer lifecycle signal (no-op for non-transfer workers)."""
+        return False
 
     def generate_prefilled(self, req, first_token: int, k, v):
         """PD decode leg: async iterator of WorkerStreamChunk."""
@@ -213,6 +216,10 @@ class InProcWorkerClient(WorkerClient):
             self._calls, functools.partial(self.engine.prefill_export, list(input_ids),
                                            sampling, connector=connector))
 
+    async def release_kv_offer(self, uuid: int, consumed: bool) -> bool:
+        mgr = self.engine.runner.kv_transfer
+        return mgr.mark_consumed(uuid) if consumed else mgr.reclaim(uuid)
+
     async def generate_prefilled(self, req, first_token: int, k, v):
         from smg_tpu_torch.gateway.tracing import ambient_trace_id
 
@@ -261,7 +268,7 @@ class InProcWorkerClient(WorkerClient):
             "eos_token_ids": list(cfg.model.eos_token_ids),
             "page_size": cfg.cache.page_size,
             "supports_vision": self.engine.supports_vision,
-            "supports_kv_transfer": False,
+            "supports_kv_transfer": self.engine.runner.supports_kv_transfer,
             "device": str(self.engine.runner.device),
         }
         if self.engine.supports_vision:

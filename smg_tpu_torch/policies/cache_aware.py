@@ -49,6 +49,9 @@ class CacheAwarePolicy(Policy):
 
         self.tree = make_radix_tree(max_tree_size)
         self.indexer = PositionalIndexer(page_size=page_size)
+        # mesh replication hooks (tree_sync): fired on local routed-prefix
+        # inserts so peers can mirror them; remote applies bypass the hooks
+        self._insert_hooks: list = []
         self._rng = _random.Random(seed)
         self.num_inserted_prefixes = 0  # local + remote tree inserts
 
@@ -138,6 +141,11 @@ class CacheAwarePolicy(Policy):
         if self.mode != "event" and seq is not None and seq_len > 0:
             self.tree.insert(seq, chosen.worker_id)
             self.num_inserted_prefixes += 1
+            for hook in self._insert_hooks:
+                try:
+                    hook(seq, chosen.worker_id)
+                except Exception:  # replication must never fail routing
+                    pass
         if decision is not None:
             decision.mode = self.mode
             decision.match_threshold = self.match_threshold
@@ -158,3 +166,14 @@ class CacheAwarePolicy(Policy):
                 else self._predicted_tokens(match_at_chosen, seq_len, ctx)
             )
         return chosen
+
+    # ---- mesh tree_sync surface (reference: mesh/adapters/tree_sync.rs) ----
+
+    def add_insert_hook(self, cb) -> None:
+        self._insert_hooks.append(cb)
+
+    def apply_remote_insert(self, seq, worker_id: str) -> None:
+        """Insert a peer-routed prefix without re-firing replication hooks."""
+        if self.mode != "event" and seq is not None and len(seq) > 0:
+            self.tree.insert(seq, worker_id)
+            self.num_inserted_prefixes += 1

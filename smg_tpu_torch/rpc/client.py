@@ -3,8 +3,9 @@
 scheduler protocol (channel reuse, abort-on-drop, KV-event subscription,
 the remaining deadline on the proto, ``RESOURCE_EXHAUSTED`` as queue-full),
 with grpc.aio and hand-wired method stubs.  The PD legs move the KV as host
-bytes (``rpc/convert.py``); the reference's ``transfer`` connector and its
-``release_kv_offer`` are not ported.  A request carries the replica the
+bytes (``rpc/convert.py``) or, with the ``transfer`` connector, as a pull
+descriptor the decode worker fetches device to device; ``release_kv_offer``
+signals an offer's outcome to the prefill worker.  A request carries the replica the
 router's DP policy pinned (``data_parallel_rank``), -1 when it pinned none.
 """
 
@@ -182,6 +183,11 @@ class GrpcWorkerClient(WorkerClient):
             request_serializer=pb.FlightDumpRequestProto.SerializeToString,
             response_deserializer=pb.FlightDumpResponseProto.FromString,
         )
+        self._release_kv_offer = c.unary_unary(
+            method("ReleaseKvOffer"),
+            request_serializer=pb.KvOfferProto.SerializeToString,
+            response_deserializer=pb.AbortResponseProto.FromString,
+        )
         self._abort = c.unary_unary(
             method("Abort"),
             request_serializer=pb.AbortRequestProto.SerializeToString,
@@ -265,19 +271,30 @@ class GrpcWorkerClient(WorkerClient):
 
     async def prefill_export(self, input_ids: list, sampling, connector: str = "host") -> dict:
         """The PD prefill leg over gRPC: the KV comes back as host bytes,
-        rebuilt as CPU tensors (a gRPC leg cannot keep it on a card)."""
-        if connector != "host":
-            logger.warning("kv connector %r requested but %s is a gRPC transport; "
-                           "staging KV via host bytes", connector, self.url)
+        rebuilt as CPU tensors, or with ``transfer`` as a pull descriptor
+        the decode worker fetches device to device."""
+        if connector == "device":
+            logger.warning("kv connector 'device' requested but %s is a gRPC transport; "
+                           "staging KV via host bytes", self.url)
+            connector = "host"
         resp = await self._prefill_export(
             pb.PrefillExportRequestProto(
                 rid="prefill", input_ids=input_ids,
-                sampling=sampling_to_proto(sampling), connector="host",
+                sampling=sampling_to_proto(sampling), connector=connector,
             ),
             timeout=self.bulk_timeout_secs,
         )
         if resp.error:
             raise RuntimeError(f"prefill export error: {resp.error}")
+        if resp.transfer_address:
+            desc = {
+                "transfer_address": resp.transfer_address,
+                "transfer_uuid": resp.transfer_uuid,
+                "kv_shape": tuple(resp.kv_shape),
+                "kv_dtype": resp.kv_dtype,
+            }
+            return {"first_token": resp.first_token, "seq_len": resp.seq_len,
+                    "k": desc, "v": desc, "connector": "transfer"}
         return {
             "first_token": resp.first_token,
             "seq_len": resp.seq_len,
@@ -294,9 +311,15 @@ class GrpcWorkerClient(WorkerClient):
             ),
             first_token=first_token,
         )
-        msg.k, shape, msg.kv_dtype = kv_to_wire(k)
-        msg.v = kv_to_wire(v)[0]
-        msg.kv_shape.extend(shape)
+        if isinstance(k, dict) and "transfer_address" in k:
+            msg.transfer_address = k["transfer_address"]
+            msg.transfer_uuid = int(k["transfer_uuid"])
+            msg.kv_shape.extend(list(k["kv_shape"]))
+            msg.kv_dtype = k["kv_dtype"]
+        else:
+            msg.k, shape, msg.kv_dtype = kv_to_wire(k)
+            msg.v = kv_to_wire(v)[0]
+            msg.kv_shape.extend(shape)
         # same trace propagation as generate(): the PD decode leg's timeline
         # must link to the request's trace too
         call = self._generate_prefilled(msg, metadata=self._trace_metadata())
@@ -397,6 +420,16 @@ class GrpcWorkerClient(WorkerClient):
         return np.frombuffer(resp.embeds, dtype=np.float32).reshape(
             resp.rows, resp.cols
         )
+
+    async def release_kv_offer(self, uuid: int, consumed: bool) -> bool:
+        try:
+            resp = await self._release_kv_offer(
+                pb.KvOfferProto(uuid=int(uuid), consumed=consumed),
+                timeout=self.setup_timeout_secs,
+            )
+            return resp.ok
+        except grpc.aio.AioRpcError:
+            return False
 
     async def dump_flight(self, reason: str = "manual") -> dict:
         """Fetch the worker's flight-recorder dump (postmortem black box).

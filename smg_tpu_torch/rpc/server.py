@@ -13,9 +13,11 @@ the three LoRA RPCs, ``GetTokenizer``, ``StartProfile``/``StopProfile``
   ``data_parallel_rank`` other than -1 or 0 gets the reference's
   out-of-range error;
 - the PD legs move the KV as host bytes (``PrefillExport`` sends them,
-  ``GeneratePrefilled`` imports them); the reference's ``transfer``
-  connector is not ported, so ``ReleaseKvOffer`` answers as the reference
-  does for an offer it does not hold (``ok=False``);
+  ``GeneratePrefilled`` imports them) or, with the ``transfer`` connector,
+  as a pull descriptor: the decode worker pulls the bulk bytes from the
+  prefill worker's pull server (``engine/kv_transfer.py``: CUDA IPC, so
+  both workers run on one host), and ``ReleaseKvOffer`` signals the offer's
+  outcome;
 - submits and aborts run on one worker thread, in call order, as the
   in-process client's do: the engine lock is held for a whole step, and the
   server's event loop must not wait on it.
@@ -227,14 +229,25 @@ class SchedulerServicer:
             return pb.EncodeResponseProto(error=str(e))
 
     async def PrefillExport(self, request: pb.PrefillExportRequestProto, context):
-        """The PD prefill leg: the prompt's KV as host bytes (a gRPC leg
-        never exports to the card)."""
+        """The PD prefill leg: the prompt's KV as host bytes, or offered for
+        a pull (``transfer``: only the descriptor goes back).  A gRPC leg
+        never exports by ``device``."""
         loop = asyncio.get_running_loop()
         try:
             sampling = sampling_from_proto(request.sampling)
+            connector = request.connector or "host"
+            if connector not in ("host", "transfer"):
+                connector = "host"  # gRPC legs: bytes or pull, never local device
             result = await loop.run_in_executor(self._calls, functools.partial(
                 self.engine.prefill_export, list(request.input_ids), sampling,
-                connector="host"))
+                connector=connector))
+            if result.get("connector") == "transfer":
+                desc = result["k"]
+                return pb.PrefillExportResponseProto(
+                    first_token=result["first_token"], seq_len=result["seq_len"],
+                    kv_shape=list(desc["kv_shape"]), kv_dtype=desc["kv_dtype"],
+                    transfer_address=desc["transfer_address"],
+                    transfer_uuid=desc["transfer_uuid"])
             k, shape, dtype = kv_to_wire(result["k"])
             v, _, _ = kv_to_wire(result["v"])
             return pb.PrefillExportResponseProto(
@@ -245,18 +258,23 @@ class SchedulerServicer:
             return pb.PrefillExportResponseProto(error=str(e))
 
     async def GeneratePrefilled(self, request: pb.GeneratePrefilledRequestProto, context):
-        """The PD decode leg: import the KV bytes and stream from them."""
+        """The PD decode leg: import the KV (its bytes, or a pull descriptor
+        the engine's ``transfer`` connector fetches device to device) and
+        stream from it."""
         loop = asyncio.get_running_loop()
         q: asyncio.Queue = asyncio.Queue()
         base = request.base
         sampling = sampling_from_proto(base.sampling)
         if request.transfer_address:
-            yield pb.GenerateChunk(rid=base.rid, finished=True, finish_reason="error",
-                                   error="kv connector 'transfer' is not supported by "
-                                         "this worker", matched_stop_token=-1)
-            return
-        k = kv_from_wire(request.k, request.kv_shape, request.kv_dtype)
-        v = kv_from_wire(request.v, request.kv_shape, request.kv_dtype)
+            k = v = {
+                "transfer_address": request.transfer_address,
+                "transfer_uuid": request.transfer_uuid,
+                "kv_shape": tuple(request.kv_shape),
+                "kv_dtype": request.kv_dtype,
+            }
+        else:
+            k = kv_from_wire(request.k, request.kv_shape, request.kv_dtype)
+            v = kv_from_wire(request.v, request.kv_shape, request.kv_dtype)
         rid = base.rid
         await loop.run_in_executor(self._calls, functools.partial(
             self.engine.submit_prefilled, list(base.input_ids), request.first_token, k, v,
@@ -267,8 +285,14 @@ class SchedulerServicer:
             yield chunk
 
     async def ReleaseKvOffer(self, request: pb.KvOfferProto, context):
-        """No transfer offers are ever made: nothing to release."""
-        return pb.AbortResponseProto(ok=False)
+        """PD transfer lifecycle: consumed offers stop being tracked;
+        abandoned ones are dropped (engine/kv_transfer.py)."""
+        mgr = self.engine.runner.kv_transfer
+        if request.consumed:
+            ok = mgr.mark_consumed(request.uuid)
+        else:
+            ok = mgr.reclaim(request.uuid)
+        return pb.AbortResponseProto(ok=ok)
 
     async def DumpFlight(self, request: pb.FlightDumpRequestProto, context):
         """The flight recorder's dump as JSON, off the event loop and
@@ -310,7 +334,7 @@ class SchedulerServicer:
             msg.image_token_id = cfg.model.image_token_id or 0
             msg.vision_patch_size = cfg.model.vision.patch_size
             msg.vision_merge_size = cfg.model.vision.merge_size
-        msg.supports_kv_transfer = False
+        msg.supports_kv_transfer = self.engine.runner.supports_kv_transfer
         return msg
 
     async def FlushCache(self, request: pb.EmptyProto, context):

@@ -2,8 +2,8 @@
 
 - (a) every ``launch`` flag the port takes has the dest, default, type and
   choices of ``smg_tpu.cli.build_parser()``'s (``--storage`` and
-  ``--mcp-config-path`` their help too, on ``serve`` as well); the flags of
-  modules still unported are refused; ``--plugins`` and
+  ``--mcp-config-path`` their help too, on ``serve`` as well), the HA
+  mesh's ``--mesh-*`` among them; ``--plugins`` and
   ``--plugin-fail-closed`` reach the plugin host as the reference wires
   them;
 - (b) startup validation: every case of ``tests/test_config_cli.py`` (and
@@ -89,9 +89,8 @@ def test_launch_flag_has_the_reference_dest_default_and_type(flag):
 
 
 #: the reference's ``launch`` flags the port leaves out, each with the
-#: module it waits for (ROADMAP Queue A)
-REFUSED = [["--mesh-port", "7946"], ["--mesh-seed", "h:1"], ["--mesh-tls-cert", "c"],
-           ["--mesh-tls-key", "k"], ["--mesh-tls-ca", "a"]]
+#: module it waits for (ROADMAP Queue A): none since the HA mesh came
+REFUSED: list = []
 
 
 def test_every_reference_launch_flag_is_taken_or_refused():
@@ -100,11 +99,17 @@ def test_every_reference_launch_flag_is_taken_or_refused():
     assert not refused & set(PORT_LAUNCH)
 
 
-@pytest.mark.parametrize("argv", REFUSED, ids=[a[0] for a in REFUSED])
-def test_launch_flags_of_unported_modules_are_refused(argv):
-    jcli.build_parser().parse_args(["launch", *argv])  # the reference takes it
-    with pytest.raises(SystemExit):
-        tcli.build_parser().parse_args(["launch", *argv])
+#: the HA mesh flags (they left ``REFUSED`` with ``smg_tpu_torch/mesh``)
+MESH_FLAGS = [["--mesh-port", "7946"], ["--mesh-seed", "h:1", "--mesh-seed", "h:2"],
+              ["--mesh-tls-cert", "c"], ["--mesh-tls-key", "k"], ["--mesh-tls-ca", "a"]]
+
+
+@pytest.mark.parametrize("argv", MESH_FLAGS, ids=[a[0] for a in MESH_FLAGS])
+def test_mesh_flag_parses_as_the_reference(argv):
+    for command in ("launch", "serve"):
+        ref, port = (vars(m.build_parser().parse_args([command, *argv])) for m in (jcli, tcli))
+        for dest in ("mesh_port", "mesh_seeds", "mesh_tls_cert", "mesh_tls_key", "mesh_tls_ca"):
+            assert port[dest] == ref[dest], (command, dest)
 
 
 #: the routing flags the hashing and DP-rank policies brought (they left
@@ -314,8 +319,8 @@ def test_validation_issues_are_the_reference_ones(command, argv):
     assert _issues(tval, ref_ns) == want
     try:
         port_ns = tcli.build_parser().parse_args(full)
-    except SystemExit:  # a flag the port refuses
-        assert any(a.startswith("--mesh") for a in argv), argv
+    except SystemExit:  # a flag the port refuses (parallelism's --mesh-shape)
+        assert "--mesh-shape" in argv, argv
         return
     assert _issues(tval, port_ns) == want
 

@@ -18,8 +18,8 @@ package on the CPU (the reference's ``tests/test_pd.py``).
   flight, the Qwen-MoE family (``tiny-moe``) and the router's image
   bypass.
 
-The reference's transfer-connector tests are not ported: the port has no
-``transfer`` connector.  Float32, the tiny models with weights bridged from
+The ``transfer`` connector's tests are in ``tests/test_torch_kv_transfer.py``.
+Float32, the tiny models with weights bridged from
 the JAX ``init_params``."""
 
 import asyncio
@@ -138,11 +138,18 @@ def logprobs_of(outs) -> list:
 
 
 def test_connectors_by_name_and_by_payload():
-    assert get_connector("host").name == "host"
-    assert get_connector("device").name == "device"
-    with pytest.raises(ValueError, match=r"unknown kv connector 'transfer'; have "
-                                         r"\['device', 'host'\]"):
-        get_connector("transfer")
+    """The port's connectors are the reference's, by name and by payload."""
+    from smg_tpu.engine import kv_connector as jkv
+
+    for name in ("host", "device", "transfer"):
+        assert get_connector(name).name == jkv.get_connector(name).name == name
+    with pytest.raises(ValueError) as port_err:
+        get_connector("nope")
+    with pytest.raises(ValueError) as ref_err:
+        jkv.get_connector("nope")
+    assert str(port_err.value) == str(ref_err.value)
+    desc = {"transfer_address": "smgkv://127.0.0.1:1", "transfer_uuid": 1}
+    assert resolve_for_payload(desc).name == jkv.resolve_for_payload(desc).name == "transfer"
     assert resolve_for_payload(torch.zeros(2)).name == "host"
     assert resolve_for_payload(np.zeros(2)).name == "host"
 

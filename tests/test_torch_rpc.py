@@ -169,9 +169,7 @@ def test_model_info_and_health(pair):
         return await client.get_model_info(), await client.health()
 
     out = pair.both(go)
-    # the one divergence: the port has no transfer connector
-    assert out["ref-client/port-server"][0].pop("supports_kv_transfer") is False
-    out["port-client/ref-server"][0].pop("supports_kv_transfer")
+    assert out["ref-client/port-server"][0]["supports_kv_transfer"] is True
     assert_same(out)
     info, ok = out["ref-client/port-server"]
     assert info["model_id"] == MODEL and info["page_size"] == 16 and ok is True

@@ -100,6 +100,9 @@ NEW_FLAGS = [
     ("--prefix-token-count", "8"), ("--no-dp-aware", None),
     # the plugin host
     ("--plugins", "p.py"), ("--plugin-fail-closed", None),
+    # the HA mesh
+    ("--mesh-port", "7946"), ("--mesh-seed", "h:1"), ("--mesh-tls-cert", "c"),
+    ("--mesh-tls-key", "k"), ("--mesh-tls-ca", "a"),
 ]
 #: flags of modules not ported yet (ROADMAP Queue A lists them by item)
 REFUSED = [["--tp", "2"], ["--dp", "2"], ["--mesh-shape", "tp=2"]]
