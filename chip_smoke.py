@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases responses   # build + kernels + phase 15 only
     python3 chip_smoke.py --phases messages   # build + kernels + phase 15's gateway, phase 16
     python3 chip_smoke.py --phases realtime   # build + kernels + phase 15's gateway, phase 17
+    python3 chip_smoke.py --phases train   # build + kernels + phase 18 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -428,6 +429,28 @@ Phases (any failure makes the script exit non-zero and print no result):
    first delta against the direct chat's, an interactions turn's wall ms
    against its chat's (medians of 5), the plugin host's ms per request for
    both hooks, the phase's seconds;
+18. the training step, after phase 17, in a process of its own (this
+   script with ``--train-worker``) started once this one has given the card
+   back, on phase 3's weights made again from seed 0.  (b) Their first
+   ``F32_LAYERS`` layers widened to float32 with float32 KV: a prompt
+   sharing a 600-token prefix with an earlier request, served greedily
+   with phase 3's engine settings (decode graphs, overlap, horizon 4):
+   a radix hit, then two prefill chunks, 16 tokens; ``forward_train`` over
+   the prompt and the stream gives the prefill's last logits within
+   ``F32_LOGIT_ATOL``, every greedy token, and every logprob the engine
+   reports within 1e-4; launches exact (4 x decode columns, 4 x prefill
+   calls), audit clean.  (a) ``make_train_step`` on all 32 layers in bf16
+   (the deepest that fits the card's free memory, by a printed reckoning,
+   if not all do): 8 AdamW steps on one batch of B=1, T=512; loss and
+   ``grad_norm`` finite at every step, the last loss below the first,
+   ``state.step`` 8.  Readings: ms a step (median of steps 2-7, split at
+   the optimizer by CUDA events), tokens/s, peak ``max_memory_allocated``,
+   against the step's bound (operations at the bf16 peak plus AdamW's and
+   the norm's bytes at the HBM rate); step 8 under ``torch.profiler``: the
+   device's busy ms by kernel class against the step's ms.  (c) 3 float32 steps of the tiny
+   config on the card and on the CPU from the same weights: loss and
+   ``grad_norm`` within 1e-5 relative, parameters as in
+   ``tests/test_torch_train.py``;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
@@ -436,10 +459,11 @@ Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    from phase 13 (c)'s worker processes, ``launches_launch`` from phase
    14's worker processes, ``launches_responses`` from phase
    15's conversation turns, ``launches_messages`` from phase 16 and
-   ``launches_realtime`` from phase 17) and, last, ``{"ok": true,
-   "device": ...}`` (``--phases kernels``, ``checkpoint``, ``moe``,
-   ``api``, ``vision``, ``pd``, ``transfer``, ``launch``, ``routing``,
-   ``mesh``, ``responses``, ``messages`` and ``realtime`` print neither).
+   ``launches_realtime`` from phase 17, ``launches_train`` from phase 18
+   (b)) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
+   ``checkpoint``, ``moe``, ``api``, ``vision``, ``pd``, ``transfer``,
+   ``launch``, ``routing``, ``mesh``, ``responses``, ``messages``,
+   ``realtime`` and ``train`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -9279,15 +9303,401 @@ def phase_mesh_alone(dev, card: str) -> dict:
     return out
 
 
+# ---- phase 18: the training step ----
+
+TRAIN_T = 512  # tokens of the full-width step's one sequence (B=1)
+TRAIN_STEPS = 8  # steps of (a), all on one batch
+TRAIN_SEED = 18  # the batches' and prompts' numpy seed
+TRAIN_MARGIN = 3 << 30  # (a)'s headroom above the reckoning: allocator blocks, cuBLAS
+TRAIN_NEW = 16  # greedy tokens of (b)'s stream
+TRAIN_PAGES = 256  # KV pages of (b)'s float32 engine: 4096 tokens
+TRAIN_LOGPROB_ATOL = 1e-4  # (b): the engine's logprobs against forward_train's
+TRAIN_TINY_STEPS = 3  # (c)
+TRAIN_WAIT_S = 300  # the phase's process, start to exit
+# (a)'s device time by kernel class, by substrings of the kernels' names:
+# fused AdamW's multi-tensor kernel, cuBLAS products, reductions (the norms,
+# softmax, the loss), the rest elementwise
+TRAIN_KERNEL_CLASSES = {"adamw": ("multi_tensor_apply", "fused_adam"),
+                        "gemm": ("gemm", "nvjet", "xmma", "cutlass", "splitK"),
+                        "reduce": ("reduce_kernel", "softmax", "norm")}
+
+
+def train_step_work(cfg, params: dict, B: int, T: int) -> dict:
+    """What one AdamW step of ``params`` on [B, T] tokens must do, and the
+    memory it needs.  Operations: 6 per matmul weight and token (forward 2,
+    backward 4; the embedding table is a lookup, not a product) plus dense
+    float32 attention over every query and key pair, as the reference
+    computes it (4 x B x H x D x T^2 a layer forward, twice that backward).
+    Bytes: fused AdamW reads weight, gradient and both moments and writes
+    weight and moments (7 x the weights' bytes), the gradient norm reads the
+    gradients once more.  Memory (``train_need``): the activations autograd
+    keeps, per layer its float32 attention scores and probabilities, its
+    four MLP products and about a dozen float32 [B, T, E] tensors (norms,
+    rope, residuals), plus the float32 logits, their log-softmax and
+    gradient."""
+    L, E, H, D = cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    F_, V = cfg.intermediate_size, cfg.vocab_size
+    item = next(iter(params["layers"].values())).element_size()
+    n_all = sum(t.numel() for t in _tensors(params))
+    n_matmul = n_all - params["embed"].numel() - params["final_norm"].numel() - sum(
+        params["layers"][k].numel() for k in params["layers"] if k.endswith("norm"))
+    if cfg.tie_word_embeddings:  # the table is also the unembedding product
+        n_matmul += params["embed"].numel()
+    flops = 6 * n_matmul * B * T + L * 12 * B * H * D * T * T
+    nbytes = (7 + 1) * n_all * item
+    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    layer_bytes = sum(t[0].numel() for t in params["layers"].values()) * item
+    return dict(params=n_all, matmul_params=n_matmul, flops=flops, bytes=nbytes,
+                bound_ms=t_ops + t_bytes, bound_parts_ms={"operations": t_ops,
+                                                          "bytes": t_bytes},
+                weight_bytes=n_all * item, layer_bytes=layer_bytes,
+                act_layer_bytes=2 * B * H * T * T * 4 + 4 * B * T * F_ * item
+                + 12 * B * T * E * 4,
+                logits_bytes=3 * B * T * V * 4)
+
+
+def train_need(work: dict, layers: int, full: int) -> int:
+    """Peak bytes of a step at ``layers`` of ``full`` layers: weights and
+    both moments, plus the larger of the gradients (all present once
+    backward ends, when the activations are gone) and the activations with
+    the logits (all present once forward ends, before any gradient): during
+    backward one shrinks as the other grows."""
+    w = work["weight_bytes"] - (full - layers) * work["layer_bytes"]
+    act = layers * work["act_layer_bytes"] + work["logits_bytes"]
+    return 3 * w + max(w, act)
+
+
+def train_depth(work: dict, full: int, room: int) -> int:
+    """The deepest stack (every layer, when it fits) whose ``train_need``
+    leaves ``TRAIN_MARGIN`` of ``room`` bytes."""
+    return max((n for n in range(1, full + 1)
+                if train_need(work, n, full) + TRAIN_MARGIN <= room), default=1)
+
+
+def train_vs_serving(cfg, params: dict, dev, card: str) -> dict:
+    """Phase 18 (b): the first ``F32_LAYERS`` layers of ``params`` widened
+    to float32 with float32 KV.  A prompt sharing a 600-token prefix with an
+    earlier request is served greedily with phase 3's engine settings
+    (decode graphs, overlap, horizon 4; stepped inline): a radix hit, then
+    its last 748 tokens in two prefill chunks; ``forward_train`` over the
+    prompt and the stream is held to it: its last prompt position's logits
+    to the prefill's, its argmax to every token, its log-softmax to every
+    reported logprob."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+    from smg_tpu_torch.models.llama import LlamaModel
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    N = F32_LAYERS
+    cfg32 = dataclasses.replace(cfg, num_layers=N, dtype="float32")
+    p32 = {**{k: v.float() for k, v in params.items() if k != "layers"},
+           "layers": {k: v[:N].float() for k, v in params["layers"].items()}}
+    rng = np.random.default_rng(TRAIN_SEED)
+    ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    shared = ids(600)
+    first, prompt = shared + ids(40), shared + ids(740)
+    engine = Engine(EngineConfig(
+        model=cfg32,
+        cache=CacheConfig(page_size=PS, num_pages=TRAIN_PAGES, auto_size=False,
+                          dtype="float32"),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096, max_prefill_tokens=512,
+                                  decode_horizon=4, overlap_schedule=True),
+        decode_graphs=True), params=p32, device=dev)
+    sp = SamplingParams(temperature=0.0, max_new_tokens=TRAIN_NEW, ignore_eos=True)
+    engine.generate(first, sp)  # the shared prefix goes into the radix cache
+    runner = engine.runner
+    recorded: list = []
+    orig = runner.model.forward_prefill_batched
+
+    def recording(*a, **kw):
+        out = orig(*a, **kw)
+        if out is not None:
+            recorded.append(out.float())
+        return out
+
+    runner.model.forward_prefill_batched = recording
+    for k in runner.stats:
+        runner.stats[k] = 0
+    torch.cuda.synchronize()
+    dk.launches = pk.launches = 0
+    res = engine.generate(prompt, sp)
+    torch.cuda.synchronize()
+    launches = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
+    runner.model.forward_prefill_batched = orig
+    stats = dict(runner.stats)
+    audit = engine.loads()["audit"]
+    engine.stop()
+    del engine, runner
+    check_launches({"stats": stats, "launches": launches}, N, "train (b)", plain=False)
+    with torch.no_grad():
+        dense = LlamaModel(cfg32, p32).forward_train(torch.tensor(
+            [prompt + res.token_ids[:-1]], device=dev))[0, len(prompt) - 1:]
+    del p32
+    logp = torch.log_softmax(dense, dim=-1)
+    greedy = dense.argmax(-1).tolist()
+    ref_lp = logp.gather(-1, torch.tensor(res.token_ids, device=dev)[:, None])[:, 0]
+    out = dict(
+        prompt_tokens=res.prompt_tokens, cached_tokens=res.cached_tokens,
+        prefill_calls=stats["prefill_calls"], decode_columns=stats["decode_columns"],
+        launches=launches, audit_clean=audit["clean"] and not audit["leaked_pages"],
+        prefill_logit_gap=float((dense[0] - recorded[-1]).abs().max()) if recorded else None,
+        tokens_equal=greedy == res.token_ids,
+        logprob_gap=float((ref_lp.cpu() - torch.tensor(res.logprobs)).abs().max()),
+        max_abs_logit=float(dense[0].abs().max()))
+    print(f"  [train (b), {N} layers f32] prompt {out['prompt_tokens']} (cached "
+          f"{out['cached_tokens']}, {out['prefill_calls']} prefill calls), {TRAIN_NEW} greedy "
+          f"tokens: prefill logits against forward_train max_abs_err "
+          f"{out['prefill_logit_gap']:.3e} (max |logit| {out['max_abs_logit']:.3f}; atol "
+          f"{F32_LOGIT_ATOL}), logprobs max_abs_err {out['logprob_gap']:.3e} (atol "
+          f"{TRAIN_LOGPROB_ATOL}), tokens equal: {out['tokens_equal']}; launches {launches}")
+    problems = []
+    if out["cached_tokens"] <= 0 or out["prefill_calls"] != 2:
+        problems.append("the prompt was not two chunks over a radix prefix")
+    if len(recorded) != 1 or not out["prefill_logit_gap"] <= F32_LOGIT_ATOL:
+        problems.append("prefill logits")
+    if not out["tokens_equal"] or len(res.token_ids) != TRAIN_NEW:
+        problems.append(f"greedy tokens {res.token_ids} != forward_train's {greedy}")
+    if not out["logprob_gap"] <= TRAIN_LOGPROB_ATOL:
+        problems.append("logprobs")
+    if not out["audit_clean"]:
+        problems.append(f"audit {audit}")
+    if problems:
+        raise AssertionError(f"phase 18 (b): {problems}")
+    return out
+
+
+def train_full(cfg, params: dict, dev, card: str) -> dict:
+    """Phase 18 (a): ``TRAIN_STEPS`` AdamW steps of ``params`` (trained in
+    place) through ``make_train_step`` on one batch of ``TRAIN_T`` tokens,
+    at full depth unless the card's free memory says otherwise (then the
+    deepest that fits, the cut printed).  Each step is timed from the host
+    with the card drained before and after, and split by CUDA events at the
+    optimizer's call."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from smg_tpu_torch.train.step import make_train_step
+
+    gc.collect()  # (b)'s engine holds its float32 weights in a reference cycle
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    work = train_step_work(cfg, params, 1, TRAIN_T)
+    full_depth = cfg.num_layers
+    room = free + work["weight_bytes"]  # the weights are already in
+    layers = train_depth(work, full_depth, room)
+    print(f"  [train (a)] reckoning: {work['params']} parameters, {work['weight_bytes']} "
+          f"bytes of {cfg.dtype} weights; 3 x that (weights, both moments) plus the larger "
+          f"of the gradients and the activations (~{work['act_layer_bytes']} a layer, "
+          f"logits {work['logits_bytes']}): {train_need(work, full_depth, full_depth)} bytes "
+          f"at full depth; the card has {free} free of {total} beside the weights, "
+          f"{TRAIN_MARGIN} kept spare: depth {layers} of {full_depth}")
+    if layers < full_depth:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cut = {k: v[:layers].clone() for k, v in params["layers"].items()}
+        params["layers"] = cut
+        torch.cuda.empty_cache()
+        work = train_step_work(cfg, params, 1, TRAIN_T)
+    rng = np.random.default_rng(TRAIN_SEED)
+    seq = rng.integers(1000, 120000, (1, TRAIN_T + 1))
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    mask = np.ones((1, TRAIN_T), np.int32)
+    init, step = make_train_step(cfg, device=dev)
+    state = init(params=params)
+    events = []
+    orig = torch.optim.AdamW.step
+
+    def timed(self, *a, **kw):  # events at the optimizer's call
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = orig(self, *a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    torch.optim.AdamW.step = timed
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    try:
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            with prof if i == TRAIN_STEPS - 1 else contextlib.nullcontext():
+                state, m = step(state, tokens, targets, mask)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            opt_a, opt_b = events[-1]
+            rows.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                             wall_ms=wall, fwd_bwd_ms=start.elapsed_time(opt_a),
+                             adamw_ms=opt_a.elapsed_time(opt_b)))
+    finally:
+        torch.optim.AdamW.step = orig
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the first step loads the backward's kernels and grows the allocator;
+    # the last runs under the profiler
+    timed_rows = rows[1:-1]
+    ms = statistics.median(r["wall_ms"] for r in timed_rows)
+    busy, by_name, _n = device_time(prof)
+    by_class = {}
+    for name, t in by_name.items():
+        cls = next((c for c, keys in TRAIN_KERNEL_CLASSES.items()
+                    if any(k in name for k in keys)), "rest")
+        by_class[cls] = by_class.get(cls, 0.0) + t
+    out = dict(layers=cfg.num_layers, depth_cut=cfg.num_layers < full_depth, B=1, T=TRAIN_T,
+               steps=rows, state_step=state.step, ms_per_step=ms,
+               tokens_per_s=TRAIN_T / ms * 1e3,
+               fwd_bwd_ms=statistics.median(r["fwd_bwd_ms"] for r in timed_rows),
+               adamw_ms=statistics.median(r["adamw_ms"] for r in timed_rows),
+               device_busy_ms=busy, busy_share=busy / ms, device_ms_by_class=by_class,
+               peak_bytes=peak, free_before=free, work=work,
+               share_of_bound=work["bound_ms"] / ms)
+    for i, r in enumerate(rows):
+        print(f"  [train (a)] step {i + 1}: loss {r['loss']:.4f}, grad_norm "
+              f"{r['grad_norm']:.4f}, {r['wall_ms']:.2f} ms (forward+backward+norm "
+              f"{r['fwd_bwd_ms']:.2f}, AdamW {r['adamw_ms']:.2f})")
+    print(f"  [{card}] train (a) Llama-3-8B {cfg.num_layers} layers {cfg.dtype}, B=1 "
+          f"T={TRAIN_T}: "
+          f"{ms:.2f} ms a step (median of {len(timed_rows)}), {out['tokens_per_s']:.1f} "
+          f"tokens/s, peak {peak} bytes allocated; bound {work['bound_ms']:.2f} ms "
+          f"({work['flops']:.4e} operations at bf16 peak {work['bound_parts_ms']['operations']:.2f}"
+          f" + {work['bytes']} bytes {work['bound_parts_ms']['bytes']:.2f}): "
+          f"{out['share_of_bound']:.3f} of it; the profiled step's device busy "
+          f"{busy:.2f} ms ({out['busy_share']:.3f} of a step): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])))
+    problems = []
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows):
+        problems.append("a non-finite loss or grad_norm")
+    if not rows[-1]["loss"] < rows[0]["loss"]:
+        problems.append(f"loss did not fall: {rows[0]['loss']} -> {rows[-1]['loss']}")
+    if state.step != TRAIN_STEPS:
+        problems.append(f"state.step {state.step} after {TRAIN_STEPS} steps")
+    if problems:
+        raise AssertionError(f"phase 18 (a): {problems}")
+    return out
+
+
+def train_tiny(dev) -> dict:
+    """Phase 18 (c): ``TRAIN_TINY_STEPS`` float32 steps of the tiny config
+    on the card and on the CPU from the same weights and batches.  The loss
+    and ``grad_norm`` of every step agree to 1e-5 relative, and after the
+    last step every parameter to one learning rate (a step's move) with
+    99.9% of each tensor's elements within 1e-3 of it plus 8 float32 ulps
+    (``tests/test_torch_train.py`` says why Adam needs the first)."""
+    import numpy as np
+    import torch
+
+    from smg_tpu_torch.models.config import tiny_test_config
+    from smg_tpu_torch.train.step import make_train_step
+
+    cfg = tiny_test_config()
+    lr = 1e-4
+    init_c, step_c = make_train_step(cfg, device="cpu", learning_rate=lr)
+    init_d, step_d = make_train_step(cfg, device=dev, learning_rate=lr)
+    cpu = init_c(seed=0)
+    card = init_d(params=_map_tree(cpu.params, torch.clone))
+    rng = np.random.default_rng(TRAIN_SEED)
+    metrics = []
+    for _ in range(TRAIN_TINY_STEPS):
+        seq = rng.integers(0, cfg.vocab_size, (2, 33))
+        batch = (seq[:, :-1], seq[:, 1:], (rng.random((2, 32)) > 0.25).astype(np.int32))
+        cpu, mc = step_c(cpu, *batch)
+        card, md = step_d(card, *batch)
+        metrics.append({k: (float(mc[k]), float(md[k])) for k in ("loss", "grad_norm")})
+    worst, fine = 0.0, 1.0
+    ulps = 8 * float(np.finfo(np.float32).eps)
+    for a, b in zip(_tensors(cpu.params), _tensors(card.params), strict=True):
+        d = (a - b.cpu()).abs()
+        worst = max(worst, float(d.max()))
+        fine = min(fine, float((d <= 1e-3 * lr + ulps * a.abs()).float().mean()))
+    rel = max(abs(c - d) / abs(c) for m in metrics for c, d in m.values())
+    out = dict(metrics=metrics, metric_rel_err=rel, param_max_abs_err=worst,
+               param_fine_share=fine, lr=lr)
+    print(f"  [train (c)] tiny float32, {TRAIN_TINY_STEPS} steps card against CPU: loss and "
+          f"grad_norm max rel err {rel:.3e} (rtol 1e-5), params max_abs_err {worst:.3e} "
+          f"(atol {lr}), {fine:.5f} of each tensor within 1e-3 x lr (at least 0.999)")
+    if not (rel <= 1e-5 and worst <= lr and fine >= 0.999):
+        raise AssertionError(f"phase 18 (c): the card's step differs from the CPU's: {out}")
+    return out
+
+
+def train_worker_main(spec: dict) -> int:
+    """Phase 18 in a process of its own (``--train-worker``), so it starts on
+    an empty card: phase 3's weights made from the seed, (b), then (a) on
+    the same weights, then (c); its readings written to ``spec["report"]``
+    as JSON."""
+    import torch
+
+    from smg_tpu_torch.models.config import llama3_8b_config
+    from smg_tpu_torch.models.llama import init_params
+    from smg_tpu_torch.ops.cuda import build
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load()
+    t0 = time.perf_counter()
+    cfg = llama3_8b_config()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    out = {"init_s": time.perf_counter() - t0}
+    out["serving"] = train_vs_serving(cfg, params, dev, spec["card"])
+    out["step"] = train_full(cfg, params, dev, spec["card"])
+    params.clear()
+    out["tiny"] = train_tiny(dev)
+    Path(spec["report"]).write_text(json.dumps(out))
+    return 0
+
+
+def phase_train(dev, card: str) -> dict:
+    """Phase 18: ``train_worker_main`` in a child process, once this one has
+    given the card back; its report read."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"  free before phase 18: {free} of {total} bytes "
+          f"({torch.cuda.memory_allocated(dev)} still allocated here)")
+    with tempfile.TemporaryDirectory(prefix="smg_train_") as tmp:
+        report = Path(tmp) / "report.json"
+        sys.stdout.flush()
+        code = subprocess.run([sys.executable, "-u", REPO / "chip_smoke.py", "--train-worker",
+                               json.dumps({"report": str(report), "card": card})],
+                              cwd=REPO, timeout=TRAIN_WAIT_S).returncode
+        if code != 0 or not report.exists():
+            raise AssertionError(f"phase 18's process exited {code}")
+        out = json.loads(report.read_text())
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd",
                              "transfer", "launch", "routing", "mesh", "responses", "messages",
-                             "realtime"),
+                             "realtime", "train"),
                     default="all")
-    # the gRPC worker processes of phases 13 and 14: this script started by itself
+    # the gRPC worker processes of phases 13 and 14, and phase 18's process:
+    # this script started by itself
     ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--train-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -9305,6 +9715,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: no smg_tpu_torch package beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if args.train_worker is not None:
+        return train_worker_main(json.loads(args.train_worker))
     # a hang anywhere (the card, a lock, the profiler) ends the run with
     # every thread's stack on stderr and a non-zero exit, inside the
     # 1200 s a run may take
@@ -9407,6 +9819,16 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("responses")
+    train = {}
+    if args.phases in ("all", "train") and not failed:
+        print("phase 18: the training step in a process of its own (Llama-3-8B at full width: "
+              "AdamW steps in bf16, forward_train against the serving kernels in float32 at "
+              f"{F32_LAYERS} layers, a tiny step on the card against the CPU)")
+        try:
+            train = phase_train(dev, card)
+        except Exception:
+            traceback.print_exc()
+            failed.append("train")
     if failed:
         print(f"FAILED phases: {failed}")
         return 1
@@ -9457,6 +9879,9 @@ def main(argv=None) -> int:
             # phase 17's realtime sessions, interactions and plugin chats, on
             # phase 15's engine (bf16)
             launches_realtime=responses["realtime"]["launches"][name],
+            # phase 18 (b)'s greedy stream that forward_train is held to
+            # (float32, 4 layers), in phase 18's own process
+            launches_train=train["serving"]["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],
@@ -9464,7 +9889,7 @@ def main(argv=None) -> int:
             timed_case=r["timed_case"], timed_cases=r["timed_cases"],
         ))
     print(json.dumps({"engine": engine, "moe": moe, "vision": vision, "launch": launch,
-                      "responses": responses, "card": card}))
+                      "responses": responses, "train": train, "card": card}))
     print(f"the whole run took {time.perf_counter() - t_run:.1f} s ({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,12 +8,16 @@ Qwen-MoE tree's ``router`` and expert stacks (``w_gate``/``w_up``
 ``[L, X, E, Fm]``, ``w_down [L, X, Fm, E]``) keep their layout.  The
 vision tower's tree (``smg_tpu/models/vit.py::init_vision_params``) bridges
 through ``vision_params_from_jax`` with its nesting and layouts unchanged.
+A training state (``smg_tpu/train/step.py::TrainState``) bridges through
+``train_state_from_jax``: the params and optax's AdamW moments folded alike.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from smg_tpu_torch.train.step import AdamWState, TrainState
 
 # JAX key -> how its trailing axes fold: wq [L,E,H,D] -> [L,E,H*D], ...
 _FOLD = {
@@ -62,3 +66,20 @@ def vision_params_from_jax(tree: dict, device: torch.device | str = "cpu",
     if isinstance(tree, dict):
         return {k: vision_params_from_jax(v, device, dtype) for k, v in tree.items()}
     return _tensor(tree, device, dtype)
+
+
+def train_state_from_jax(state, device: torch.device | str = "cpu",
+                         dtype: torch.dtype | None = None) -> TrainState:
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) -> the port's (``smg_tpu_torch/train/step.py``): the params as
+    ``params_from_jax`` folds them, the ``mu`` and ``nu`` of optax.adamw's
+    ``ScaleByAdamState`` (the one entry of its chain state that has them)
+    folded exactly as the params are, its ``count``, and the step.  The
+    port's step then continues the JAX run: the same next update."""
+    adam = next(s for s in state.opt_state if hasattr(s, "mu"))
+    return TrainState(
+        params=params_from_jax(state.params, device, dtype),
+        opt_state=AdamWState(mu=params_from_jax(adam.mu, device, dtype),
+                             nu=params_from_jax(adam.nu, device, dtype),
+                             count=int(np.asarray(adam.count))),
+        step=int(np.asarray(state.step)))

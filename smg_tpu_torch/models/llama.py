@@ -42,6 +42,13 @@ every row, head and query pair at once; here rows go through in tiles of at
 most ``EMBED_TOKEN_TILE`` padded tokens and queries in tiles of
 ``EMBED_QUERY_TILE``, every softmax row summed over its keys in one go, so
 the scratch is bounded by the tiles.
+
+Training (``forward_train``, the reference's dense causal forward of the
+same name) runs the same layer as the embeddings, ``decoder_layer_train``,
+over unpadded rows, differentiably: ``train/step.py`` builds the model over
+one leaf tensor a layer (``params["layers"]`` values given as sequences of
+L tensors), so each layer's gradient lands in its own tensor instead of a
+zero-filled copy of the whole stack.
 """
 
 from __future__ import annotations
@@ -204,7 +211,10 @@ def moe_experts(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     dtype."""
     xb = x.unsqueeze(0).expand(w_gate.shape[0], *x.shape)
     g = torch.bmm(xb, w_gate)  # [X, T, Fm]
-    act = F.silu(g, inplace=True).mul_(torch.bmm(xb, w_up))
+    if g.requires_grad:  # training: autograd keeps g and the up product intact
+        act = F.silu(g) * torch.bmm(xb, w_up)
+    else:
+        act = F.silu(g, inplace=True).mul_(torch.bmm(xb, w_up))
     return torch.bmm(act, w_down)
 
 
@@ -300,7 +310,9 @@ def moe_scratch_bytes(cfg: ModelConfig, tokens: int) -> int:
 
 class LlamaModel(nn.Module):
     """The decoder.  Caches are ``[L, P, ps, K*D]`` (fused lanes,
-    page 0 = garbage page) and are written in place."""
+    page 0 = garbage page) and are written in place.  Each value of
+    ``params["layers"]`` is a stacked ``[L, ...]`` tensor, or (training) a
+    sequence of L per-layer tensors that require grad."""
 
     def __init__(self, cfg: ModelConfig, params: dict, attention: str = "kernel"):
         super().__init__()
@@ -309,10 +321,13 @@ class LlamaModel(nn.Module):
         self.cfg = cfg
         self.attention = attention
         self.scale = cfg.query_scale or 1.0 / math.sqrt(cfg.head_dim)
-        self.layers = nn.Module()  # stacked [L, ...] weights, one buffer each
+        self.layers = nn.Module()  # the layer weights, one buffer (or sequence) each
         self.moe = "router" in params["layers"]
         for name, t in params["layers"].items():
-            self.layers.register_buffer(name, t, persistent=False)
+            if isinstance(t, torch.Tensor):
+                self.layers.register_buffer(name, t, persistent=False)
+            else:  # training leaves: ``w[l]`` indexes the sequence as it does the stack
+                setattr(self.layers, name, tuple(t))
         for name in ("embed", "final_norm", "lm_head"):
             if name in params:
                 self.register_buffer(name, params[name], persistent=False)
@@ -587,22 +602,48 @@ class LlamaModel(nn.Module):
                           for r in range(0, B, rows)])
 
     def _embed_rows(self, tokens, lengths, q_tile: int) -> torch.Tensor:
-        cfg = self.cfg
-        B, T = tokens.shape
+        B = tokens.shape[0]
         dev = tokens.device
-        pos = torch.arange(T, device=dev)[None].expand(B, T)
         h = self.embed_tokens(tokens)
-        for l in range(cfg.num_layers):
-            q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]))
-            q = apply_rope(q, pos, self.inv_freq)
-            k = apply_rope(k, pos, self.inv_freq)
-            attn = causal_attention(q, k, v, lengths, self.scale,
-                                    softcap=cfg.attn_logit_softcap, q_tile=q_tile)
-            h = self._attn_residual(l, h, attn.to(h.dtype))
-            h = self._mlp_residual(l, h)
+        for l in range(self.cfg.num_layers):
+            h = self.decoder_layer_train(l, h, lengths, q_tile)
         last = h[torch.arange(B, device=dev), (lengths.long() - 1).clamp(min=0)]
         last = self._norm(last, self.final_norm).float()
         return last / last.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+
+    def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Dense causal forward for training and eval logprobs (the
+        reference's ``forward_train``): ``tokens`` [B, T] -> float32 logits
+        [B, T, V].  No KV cache, no kernel and no per-layer window: a
+        windowed model refuses a T past its window, as the reference does."""
+        cfg = self.cfg
+        B, T = tokens.shape
+        if cfg.sliding_window and T > cfg.sliding_window:
+            raise ValueError(
+                f"training supports contexts <= sliding_window "
+                f"({cfg.sliding_window}); got {T}"
+            )
+        lengths = torch.full((B,), T, device=tokens.device)
+        h = self.embed_tokens(tokens)
+        for l in range(cfg.num_layers):
+            h = self.decoder_layer_train(l, h, lengths)
+        return self.unembed(h)
+
+    def decoder_layer_train(self, l: int, h: torch.Tensor, lengths: torch.Tensor,
+                            q_tile: int = EMBED_QUERY_TILE) -> torch.Tensor:
+        """Layer ``l`` over ``h`` [B, T, E], dense and causal in float32
+        (``causal_attention``: keys past a row's ``lengths`` unseen), rope at
+        positions 0..T-1: the reference's ``decoder_layer_train`` and the
+        layer of its ``forward_embed``."""
+        B, T = h.shape[:2]
+        pos = torch.arange(T, device=h.device)[None].expand(B, T)
+        q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]))
+        q = apply_rope(q, pos, self.inv_freq)
+        k = apply_rope(k, pos, self.inv_freq)
+        attn = causal_attention(q, k, v, lengths, self.scale,
+                                softcap=self.cfg.attn_logit_softcap, q_tile=q_tile)
+        h = self._attn_residual(l, h, attn.to(h.dtype))
+        return self._mlp_residual(l, h)
 
     def forward_decode(self, tokens, positions, k_cache, v_cache, page_tables,
                        rope_delta: torch.Tensor | None = None):

@@ -158,8 +158,10 @@ def _tiny_config():
 def test_engine_defaults_to_cuda_and_refuses_the_cpu(no_cuda):
     from smg_tpu_torch.engine.engine import Engine
     from smg_tpu_torch.engine.runner import ModelRunner
+    from smg_tpu_torch.train.step import make_train_step
 
-    for build in (lambda: ModelRunner(_tiny_config()), lambda: Engine(_tiny_config())):
+    for build in (lambda: ModelRunner(_tiny_config()), lambda: Engine(_tiny_config()),
+                  lambda: make_train_step(_tiny_config().model)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     # an explicit CPU request is honoured
