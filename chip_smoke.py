@@ -16,6 +16,8 @@
     python3 chip_smoke.py --phases messages   # build + kernels + phase 15's gateway, phase 16
     python3 chip_smoke.py --phases realtime   # build + kernels + phase 15's gateway, phase 17
     python3 chip_smoke.py --phases train   # build + kernels + phase 18 only
+    python3 chip_smoke.py --phases breadth   # build + kernels + phase 12 (d) only
+    python3 chip_smoke.py --phases dp   # build + kernels + phase 19 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -64,7 +66,8 @@ Phases (any failure makes the script exit non-zero and print no result):
    last, on all 32 layers widened in place).  Then preemption: 4 layers,
    float32, a page pool too small for four requests, streams equal to a
    roomy run and no page leaked;
-4. request semantics, on the same weights in bf16 and then in float32,
+4. request semantics, on the first ``BF16_REPEAT_LAYERS`` (8) layers of the
+   same weights in bf16 and then in float32,
    through the same three paths: six requests with a synthetic tokenizer
    at the full vocabulary (``PieceTokenizer``): greedy with frequency and
    presence penalties, greedy with a repetition penalty, sampled with a
@@ -124,7 +127,8 @@ Phases (any failure makes the script exit non-zero and print no result):
    a ``traceparent``; exact launches.  Readings: the gateway's cost per
    token with every layer on against the bare gateway and direct
    callbacks, the lone chat's added TTFT, the preemption latency;
-7. speculative decoding, after phase 6 on each dtype's weights, with
+7. speculative decoding, after phase 6 on each dtype's weights (in bf16 the
+   first ``BF16_REPEAT_LAYERS`` layers, as phase 4), with
    phase 3's engine settings plus ``speculative=True`` (8 drafts, a 9-wide
    verify block): four concurrent 32-token requests (greedy on a
    1000-token repeated prompt, greedy on a plain prompt, temperature 0.8
@@ -140,8 +144,9 @@ Phases (any failure makes the script exit non-zero and print no result):
    eager streams agree, and the self-draft tier accepts at least 90% of
    its greedy drafts; in both dtypes the sampled stream is identical with
    overlap on and off, the stop-string lane never rides a verify block,
-   kernel launches equal the schedule (32 x rest-lane decode columns; 32 x
-   target prefill calls plus the draft's layers x its prefill calls) and
+   kernel launches equal the schedule (layers x rest-lane decode columns;
+   layers x target prefill calls plus the draft's layers x its prefill
+   calls) and
    every audit is clean.  Readings: ms per emitted token and tokens/s per
    tier against the non-speculative run, acceptance per tier, the verify
    block's device ms at W = 9 against one decode column (and profiled by
@@ -251,7 +256,16 @@ Phases (any failure makes the script exit non-zero and print no result):
    then the first 4 layers through the three
    paths in float32 (greedy streams identical, the text request equal to
    itself alone) and the graph and plain paths in bf16, held to the
-   float32 run as in phase 3;
+   float32 run as in phase 3.  (d), on (b)'s engine before its chat: the
+   ten image processors with the worker's geometry on the card against
+   the CPU over seeded 768 x 1024, 900 x 200 and 64 x 64 images (geometry
+   exact, pixels within ``BREADTH_PIXEL_ATOL``, card ms printed); an image
+   chat for InternVL, Gemma 3, Phi-3-vision, Kimi-K2.5 and Qwen3-Omni model
+   names (the engine registered under each) returning 200 with the
+   encode's rows equal to the placeholders and ``prompt_tokens`` the
+   text's plus the placeholders (encode ms and TTFT printed); LLaVA,
+   Pixtral and Llama 4 names getting the reference's 502 text; an 8-frame
+   GIF through ``VideoProcessor`` on the card against the CPU;
 13. PD disaggregation, after phase 10 on phase 3's bf16 weights: a PREFILL
    and a DECODE engine behind the port's gateway (``--kv-connector auto``
    and ``host``, two gateways over the same engines) against a co-located
@@ -451,6 +465,19 @@ Phases (any failure makes the script exit non-zero and print no result):
    config on the card and on the CPU from the same weights: loss and
    ``grad_norm`` within 1e-5 relative, parameters as in
    ``tests/test_torch_train.py``;
+19. data-parallel replicas, in a process of its own: phase 13 (c)'s
+   worker weights (4 layers, float32) shared by two engines served by one
+   ``serve_worker_async(engines=[e0, e1])`` and a third served alone, each
+   KV pool 2048 pages by hand.  ``dp_size`` 2; greedy streams pinned to
+   ranks 0 and 1 equal the one-engine worker's, each admitted on its own
+   replica (read on the replicas' prompt counters); beside a long stream
+   on rank 0 a -1 request lands on rank 1 and ``GetLoads`` gives two
+   ``dp_queued_tokens``, the busy one queued; rank 2 gets the reference's
+   error text; an abort of a rank-1 stream leaves no page held there; four
+   concurrent streams through an in-process ``launch --dp-aware`` reach
+   ranks 0 and 1, through ``--no-dp-aware`` all -1; every page back on
+   every engine and launches exact.  Readings: each replica's decode
+   column on 4 lanes alone and with the other decoding;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
@@ -460,10 +487,11 @@ Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    14's worker processes, ``launches_responses`` from phase
    15's conversation turns, ``launches_messages`` from phase 16 and
    ``launches_realtime`` from phase 17, ``launches_train`` from phase 18
-   (b)) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
+   (b), ``launches_breadth`` from phase 12 (d)'s family chats,
+   ``launches_dp`` from phase 19's process) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
    ``checkpoint``, ``moe``, ``api``, ``vision``, ``pd``, ``transfer``,
    ``launch``, ``routing``, ``mesh``, ``responses``, ``messages``,
-   ``realtime`` and ``train`` print neither).
+   ``realtime``, ``train``, ``breadth`` and ``dp`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -477,6 +505,7 @@ build included.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import faulthandler
 import json
@@ -5474,11 +5503,7 @@ def vl_http(engine, processed: dict, tok, label: str) -> dict:
     placeholder expanded, ``submit``), each alone with the prefix cache
     flushed; then the same message through ``/v1/messages`` with the image
     as an Anthropic base64 ``source`` block gives the chat's text."""
-    import asyncio
-    import base64
-    import threading
-
-    from smg_tpu_torch.gateway.launch import build_context, serve_context
+    from smg_tpu_torch.gateway.launch import build_context
     from smg_tpu_torch.multimodal.image import decode_image
     from smg_tpu_torch.multimodal.ingest import expand_image_placeholders, flatten_content
     from smg_tpu_torch.multimodal.processor import processor_for_worker
@@ -5511,26 +5536,7 @@ def vl_http(engine, processed: dict, tok, label: str) -> dict:
     direct = [t for o in got for t in o.new_token_ids]
     engine.flush_cache()
     ctx = build_context(engine, policy="cache_aware", drain_timeout_secs=5)
-    port = _free_port()
-    held = {}
-
-    async def serve():
-        held["loop"], held["stop"] = asyncio.get_running_loop(), asyncio.Event()
-        await serve_context(ctx, "127.0.0.1", port, held["stop"])
-
-    server = threading.Thread(target=lambda: asyncio.run(serve()), name="gateway")
-    server.start()
-    try:
-        wait_for(lambda: "stop" in held, "gateway start", timeout=60)
-        deadline = time.monotonic() + 60
-        while True:
-            try:
-                if _http(port, "GET", "/health")[0] == 200:
-                    break
-            except OSError:
-                if time.monotonic() > deadline:
-                    raise
-            time.sleep(0.05)
+    with _gateway_thread(ctx) as port:
         t0 = time.perf_counter()
         status, body = _http(port, "POST", "/v1/chat/completions", {
             "model": model_id, "messages": messages, "max_tokens": 8, "temperature": 0,
@@ -5546,12 +5552,6 @@ def vl_http(engine, processed: dict, tok, label: str) -> dict:
         _http(port, "POST", "/flush_cache")
         m_status, m_body = _http(port, "POST", "/v1/messages", {
             "model": model_id, "messages": anth, "max_tokens": 8, "temperature": 0})
-    finally:
-        if "stop" in held:
-            held["loop"].call_soon_threadsafe(held["stop"].set)
-        server.join(LOOP_WAIT_S)
-    if server.is_alive():
-        raise AssertionError("the gateway did not shut down")
     ctx.registry.remove("inproc-0")
     if status != 200:
         raise AssertionError(f"[{label}] image chat over HTTP: {status} {body}")
@@ -5576,6 +5576,288 @@ def vl_http(engine, processed: dict, tok, label: str) -> dict:
         raise AssertionError(f"[{label}] /v1/messages image: {m_status} {m_body} != chat {body}")
     return dict(status=status, http_ms=http_ms, png_bytes=len(png), prompt_tokens=len(ids),
                 tokens_equal=True, messages_text_equal=True)
+
+
+# phase 12 (d): the nine other image families, video and the families' chats
+# (height, width) of the seeded RGB images every processor runs on, card
+# against CPU: InternVL's area gate and Llama 4's ties, Kimi-K2.5's padding
+# (none of the three is a multiple of 28), Pixtral's cap at its edge
+BREADTH_IMAGES = {"landscape": (768, 1024), "tall": (900, 200), "tiny": (64, 64)}
+# one model name of each family the gateway keys a processor by
+BREADTH_MODELS = {
+    "qwen2_vl": "Qwen/Qwen2-VL-7B-Instruct", "llava": "llava-hf/llava-1.5-7b-hf",
+    "internvl": "OpenGVLab/InternVL2-8B", "pixtral": "mistralai/Pixtral-12B-2409",
+    "gemma3": "google/gemma-3-12b-it", "phi3_v": "microsoft/Phi-3.5-vision-instruct",
+    "llama4": "meta-llama/Llama-4-Scout-17B-16E-Instruct",
+    "phi4_v": "microsoft/Phi-4-multimodal-instruct", "kimi_k25": "moonshotai/Kimi-K2.5",
+    "qwen3_omni": "Qwen/Qwen3-Omni-30B-A3B-Instruct",
+}
+# families whose placeholder run is the 2x2-merging tower's rows (200), and
+# those giving one placeholder a patch, whose encode the reference gateway
+# answers with its 502.  Phi-4's count adds 17 + 16 x rows separators the
+# tower does not return (a 502 in both gateways, tests/
+# test_torch_multimodal_breadth.py); its fewest views are 27 x 1024 patches,
+# five times the tower's planned reserve, so its chat runs only on the CPU.
+BREADTH_OK = ("internvl", "gemma3", "phi3_v", "kimi_k25", "qwen3_omni")
+BREADTH_502 = ("llava", "pixtral", "llama4")
+BREADTH_NEW = 8  # new tokens of every family chat
+# the processors' pixels on the card against the CPU, in units of the 0-255
+# input over the processor's smallest std: float32 resize products summed in
+# another order (TF32 off), as test_torch_vision holds the CPU to the reference
+BREADTH_PIXEL_ATOL = 1e-3
+VIDEO_FRAMES = 8
+
+
+def _gif_bytes(n: int, h: int, w: int, seed: int) -> bytes:
+    """``n`` seeded RGB frames as an animated GIF (PIL)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    frames = [Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+              for _ in range(n)]
+    buf = io.BytesIO()
+    frames[0].save(buf, format="GIF", save_all=True, append_images=frames[1:], duration=40)
+    return buf.getvalue()
+
+
+def _pixel_std(proc) -> float:
+    from smg_tpu_torch.multimodal.image import DEFAULT_STD
+
+    return 0.5 if proc.name in ("llama4", "phi4_v", "kimi_k25") else min(DEFAULT_STD)
+
+
+def _same_processed(label: str, got, want, proc, dev) -> float:
+    """The processing on ``dev`` against the CPU's: geometry exact, pixels
+    within ``BREADTH_PIXEL_ATOL``; the largest pixel error."""
+    import torch
+
+    geo = lambda p: (tuple(p.grid), p.num_placeholder_tokens,  # noqa: E731
+                     None if p.llm_grid is None else tuple(p.llm_grid))
+    if geo(got) != geo(want) or got.pixel_values.device.type != dev.type:
+        raise AssertionError(f"[{label}] card {geo(got)} on {got.pixel_values.device} != CPU "
+                             f"{geo(want)}")
+    err = float((got.pixel_values.cpu() - want.pixel_values).abs().max())
+    if not err <= BREADTH_PIXEL_ATOL / 255.0 / _pixel_std(proc) or \
+            not torch.isfinite(got.pixel_values).all():
+        raise AssertionError(f"[{label}] pixels {err:.3e} off the CPU's")
+    return err
+
+
+@contextlib.contextmanager
+def _gateway_thread(ctx, name: str = "gateway"):
+    """``ctx`` served on a free local port by a thread of its own; yields the
+    port and stops the gateway on exit."""
+    import asyncio
+    import threading
+
+    from smg_tpu_torch.gateway.launch import serve_context
+
+    port = _free_port()
+    held = {}
+
+    async def serve():
+        held["loop"], held["stop"] = asyncio.get_running_loop(), asyncio.Event()
+        await serve_context(ctx, "127.0.0.1", port, held["stop"])
+
+    server = threading.Thread(target=lambda: asyncio.run(serve()), name=name)
+    server.start()
+    try:
+        wait_for(lambda: "stop" in held or not server.is_alive(), f"{name} start", timeout=60)
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                if _http(port, "GET", "/health")[0] == 200:
+                    break
+            except OSError:
+                if time.monotonic() > deadline or not server.is_alive():
+                    raise
+            time.sleep(0.05)
+        yield port
+    finally:
+        if "stop" in held:
+            held["loop"].call_soon_threadsafe(held["stop"].set)
+        server.join(LOOP_WAIT_S)
+    if server.is_alive():
+        raise AssertionError(f"the {name} did not shut down")
+
+
+def vl_breadth(engine, tok, label: str, card: str) -> dict:
+    """Phase 12 (d) on phase 12's engine: (1) each of the ten image
+    processors (the gateway's geometry, patch 14 and merge 2 from the
+    worker) on the card against the CPU over ``BREADTH_IMAGES``; (2) one
+    image chat per ``BREADTH_OK`` family through the port's gateway with the
+    engine registered under that family's model name: 200, the encode's
+    rows equal to the placeholders, ``prompt_tokens`` the text's plus the
+    placeholders, streamed (TTFT; encode ms read on the engine); (3) the
+    ``BREADTH_502`` names: the reference's 502 text; (4) ``VideoProcessor``
+    over an 8-frame GIF on the card against the CPU.  The kernels' launches
+    of (2) and (3) are counted."""
+    import numpy as np
+    import torch
+
+    from smg_tpu_torch.gateway.server import AppContext
+    from smg_tpu_torch.gateway.worker_client import InProcWorkerClient
+    from smg_tpu_torch.gateway.workers import Worker
+    from smg_tpu_torch.multimodal.ingest import flatten_content
+    from smg_tpu_torch.multimodal.processor import processor_for_worker
+    from smg_tpu_torch.multimodal.video import VideoProcessor
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+
+    t0 = time.perf_counter()
+    dev = engine.runner.device
+    vcfg = engine.config.model.vision
+    ps, ms = vcfg.patch_size, vcfg.merge_size
+    out = {"processors": {}}
+    print(f"phase 12 (d): the ten image processors on the card against the CPU, the "
+          f"families' chats, video")
+    imgs = {n: np.random.default_rng(70 + i).integers(0, 256, (*hw, 3), dtype=np.uint8)
+            for i, (n, hw) in enumerate(BREADTH_IMAGES.items())}
+    for family, model in BREADTH_MODELS.items():
+        card_p = processor_for_worker(model, ps, ms, device=dev)
+        cpu_p = processor_for_worker(model, ps, ms, device="cpu")
+        if card_p.name != family:
+            raise AssertionError(f"[{label}] {model} took the {card_p.name} processor")
+        row = out["processors"][family] = {}
+        for name, img in imgs.items():
+            card_p.process(img)  # warm: the first call allocates
+            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            got = card_p.process(img)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - ta) * 1e3
+            want = cpu_p.process(img)
+            err = _same_processed(f"{label}/{family}/{name}", got, want, card_p, dev)
+            row[name] = dict(grid=list(got.grid), tokens=got.num_placeholder_tokens,
+                             card_ms=card_ms, max_abs_err=err)
+        print(f"  [{card}] {family:10s} card ms " + ", ".join(
+            f"{n} {tuple(BREADTH_IMAGES[n])} {r['card_ms']:.2f} ({r['tokens']} tokens, "
+            f"err {r['max_abs_err']:.1e})" for n, r in row.items()))
+    # the families' chats: one worker a family name, all on this engine
+    png = png_bytes(vl_image("img448"))
+    uri = "data:image/png;base64," + base64.b64encode(png).decode()
+    image = vl_image("img448")
+    text_a, text_b = _words(_vl_text(6, 80)), _words(_vl_text(6, 81))
+    messages = [{"role": "user", "content": [
+        {"type": "text", "text": text_a}, {"type": "image_url", "image_url": {"url": uri}},
+        {"type": "text", "text": text_b}]}]
+    placeholder = tok.decode([VL_IMAGE_TOKEN], skip_special_tokens=False)
+    text_ids = tok.encode(tok.apply_chat_template(flatten_content(messages, placeholder),
+                                                  add_generation_prompt=True))
+    ctx = AppContext(policy="round_robin")
+    clients = []
+    for family in BREADTH_OK + BREADTH_502:
+        clients.append(InProcWorkerClient(engine))
+        ctx.tokenizers.register(BREADTH_MODELS[family], tok)
+        ctx.registry.add(Worker(worker_id=f"family-{family}", client=clients[-1],
+                                model_id=BREADTH_MODELS[family], page_size=PS))
+    encodes = []
+    encode = engine.encode_image
+
+    def timed_encode(pixel_values, grid):
+        ta = time.perf_counter()
+        emb = encode(pixel_values, grid)  # ends in the blocking fetch
+        encodes.append(dict(ms=(time.perf_counter() - ta) * 1e3, rows=int(emb.shape[0])))
+        return emb
+
+    engine.encode_image = timed_encode
+    chats = out["chats"] = {}
+    try:
+        with _gateway_thread(ctx, "breadth-gateway") as port:
+            dk.launches = 0
+            pk.launches = 0
+            for family in BREADTH_OK + BREADTH_502:
+                model = BREADTH_MODELS[family]
+                proc = processor_for_worker(model, ps, ms, device="cpu")
+                p = proc.process(image)
+                rows = p.grid[0] * p.grid[1] // (ms * ms)
+                encodes.clear()
+                _http(port, "POST", "/flush_cache")
+                body = {"model": model, "messages": messages, "max_tokens": BREADTH_NEW,
+                        "temperature": 0, "ignore_eos": True}
+                if family in BREADTH_OK:
+                    # the first chat (its shapes' first graph captures
+                    # included) is checked; the same chat again, streamed,
+                    # is timed
+                    ta = time.perf_counter()
+                    st, resp = _http(port, "POST", "/v1/chat/completions", body)
+                    first_ms = (time.perf_counter() - ta) * 1e3
+                    usage = resp.get("usage") or {} if isinstance(resp, dict) else {}
+                    want_prompt = len(text_ids) - 1 + p.num_placeholder_tokens
+                    chats[family] = r = dict(
+                        status=st, placeholders=p.num_placeholder_tokens,
+                        encode_rows=[e["rows"] for e in encodes], first_ms=first_ms,
+                        prompt_tokens=usage.get("prompt_tokens"))
+                    if (st != 200 or r["encode_rows"] != [p.num_placeholder_tokens]
+                            or r["prompt_tokens"] != want_prompt
+                            or usage.get("completion_tokens") != BREADTH_NEW):
+                        raise AssertionError(f"[{label}/{family}] chat {r} {resp}, prompt "
+                                             f"tokens wanted {want_prompt}")
+                    encodes.clear()
+                    _http(port, "POST", "/flush_cache")
+                    st, frames = _sse(port, "/v1/chat/completions", {**body, "stream": True})
+                    text, finish, _ = _sse_text(frames)
+                    r.update(encode_ms=encodes[0]["ms"] if encodes else None,
+                             ttft_ms=_first_content(frames) * 1e3 if st == 200 else None)
+                    if st != 200 or text != resp["choices"][0]["message"]["content"]:
+                        raise AssertionError(f"[{label}/{family}] the streamed chat: {st}, "
+                                             f"{text!r} != {resp['choices'][0]['message']}")
+                    print(f"  [{card}] {family} chat ({model}): 200, {p.num_placeholder_tokens} "
+                          f"placeholders = the encode's rows, prompt {r['prompt_tokens']} "
+                          f"tokens; streamed again: encode {r['encode_ms']:.2f} ms, TTFT "
+                          f"{r['ttft_ms']:.2f} ms (the first chat {first_ms:.2f} ms whole)")
+                else:
+                    st, resp = _http(port, "POST", "/v1/chat/completions", body)
+                    msg = (resp.get("error") or {}).get("message") if isinstance(resp, dict) \
+                        else resp
+                    want = (f"encode returned {rows} embeddings for "
+                            f"{p.num_placeholder_tokens} placeholder tokens")
+                    chats[family] = dict(status=st, message=msg)
+                    if st != 502 or msg != want:
+                        raise AssertionError(f"[{label}/{family}] {st} {resp}; wanted the "
+                                             f"reference's 502 {want!r}")
+                    print(f"  [{card}] {family} chat ({model}): 502 \"{msg}\"")
+            out["launches"] = {"decode_attention": dk.launches,
+                               "prefill_attention": pk.launches}
+            # out of the registry before the gateway stops: its shutdown
+            # would close the clients, and a closed client drains the engine
+            for family in BREADTH_OK + BREADTH_502:
+                ctx.registry.remove(f"family-{family}")
+    finally:
+        del engine.encode_image
+        for c in clients:
+            c._calls.shutdown(wait=False)
+    if min(out["launches"].values()) <= 0:
+        raise AssertionError(f"[{label}] the family chats launched {out['launches']}")
+    # video: an 8-frame GIF through the Qwen2-VL processor, card against CPU
+    gif = _gif_bytes(VIDEO_FRAMES, 224, 336, seed=90)
+    vp_card = VideoProcessor(processor_for_worker("qwen2-vl", ps, ms, device=dev),
+                             num_frames=VIDEO_FRAMES)
+    vp_cpu = VideoProcessor(processor_for_worker("qwen2-vl", ps, ms, device="cpu"),
+                            num_frames=VIDEO_FRAMES)
+    torch.cuda.synchronize()
+    ta = time.perf_counter()
+    got = vp_card.process_bytes(gif)
+    torch.cuda.synchronize()
+    video_ms = (time.perf_counter() - ta) * 1e3
+    want = vp_cpu.process_bytes(gif)
+    err = float((got.pixel_values.cpu() - want.pixel_values).abs().max())
+    if ((got.num_frames, got.frame_grids, got.num_placeholder_tokens)
+            != (want.num_frames, want.frame_grids, want.num_placeholder_tokens)
+            or got.num_frames != VIDEO_FRAMES or got.pixel_values.device.type != dev.type
+            or not err <= BREADTH_PIXEL_ATOL / 255.0 / _pixel_std(vp_card.image_processor)):
+        raise AssertionError(f"[{label}] video on the card {got.frame_grids} "
+                             f"{got.num_placeholder_tokens} ({err:.3e}) != CPU")
+    out["video"] = dict(frames=got.num_frames, tokens=got.num_placeholder_tokens,
+                        card_ms=video_ms, max_abs_err=err)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  [{card}] video: {got.num_frames} GIF frames -> {got.num_placeholder_tokens} "
+          f"tokens in {video_ms:.2f} ms on the card, pixels {err:.1e} off the CPU's; "
+          f"launches {out['launches']}; phase 12 (d) took {out['seconds']:.1f} s")
+    return out
 
 
 def vl_sharing(runs, label: str) -> dict:
@@ -5656,6 +5938,8 @@ def phase_vision(dev, card: str) -> dict:
               f"{vres} bytes, {without} without it ({free} bytes free after the weights)")
         sink["column"] = vl_image_column(engine, processed, label)
         sink["ttft"] = vl_ttft(engine, processed, label)
+        # before vl_http: its gateway's shutdown drains the engine
+        sink["breadth"] = vl_breadth(engine, tok, label, card)
         sink["http"] = vl_http(engine, processed, tok, label)
         return {}
 
@@ -6193,13 +6477,13 @@ def pd_worker_main(spec: dict) -> int:
     engine.start()
     # the data_parallel_rank of every generate this worker receives
     ranks: dict = {}
-    check_rank = SchedulerServicer._check_rank
+    engine_for = SchedulerServicer._engine_for
 
     def recording(self, rank):
         ranks[str(rank)] = ranks.get(str(rank), 0) + 1
-        return check_rank(self, rank)
+        return engine_for(self, rank)
 
-    SchedulerServicer._check_rank = recording
+    SchedulerServicer._engine_for = recording
     if spec.get("hold"):  # take the port only once this file exists
         hold, deadline = Path(spec["hold"]), time.monotonic() + LOOP_WAIT_S
         while not hold.exists():
@@ -8972,12 +9256,17 @@ def phase_engine(dev, card: str) -> dict:
           f"profiled window {out['guarded']['profile_wall_ms_per_column']:.3f} ({card})")
     out["launches"] = runs["graphs"]["launches"]
     out["schedule"] = runs["graphs"]["stats"]
-    # phase 4 on the same weights: penalties, stop strings and grammars
-    # through every path, with the synthetic tokenizer at the full vocabulary
-    print("phase 4: request semantics, bf16")
+    # phases 4 and 7 in bf16 on the first BF16_REPEAT_LAYERS layers of the
+    # same weights: their checks hold at any depth
+    n = BF16_REPEAT_LAYERS
+    cfg_n = dataclasses.replace(cfg, num_layers=n)
+    cut = {**params, "layers": {k: v[:n] for k, v in params["layers"].items()}}
+    # phase 4: penalties, stop strings and grammars through every path, with
+    # the synthetic tokenizer at the full vocabulary
+    print(f"phase 4: request semantics, bf16 (the first {n} layers)")
     tok = PieceTokenizer(cfg.vocab_size, (cfg.bos_token_id, *cfg.eos_token_ids))
-    rq = request_paths(cfg, params, dev, tok, "bf16", {}, with_profile=True)
-    out["requests_bf16"] = check_requests(rq, L, "bf16", card, strict=False)
+    rq = request_paths(cfg_n, cut, dev, tok, "bf16", {}, with_profile=True)
+    out["requests_bf16"] = check_requests(rq, n, "bf16", card, strict=False)
     del rq
     torch.cuda.empty_cache()
     # phase 5 on the same weights: the serving entry over HTTP
@@ -8986,8 +9275,9 @@ def phase_engine(dev, card: str) -> dict:
     print("phase 6: the request-policy layer over HTTP, bf16")
     out["policy_bf16"] = phase_policy(cfg, params, dev, card, "bf16", strict=False,
                                       bare=out["serve_bf16"])
-    print("phase 7: speculative decoding, bf16")
-    out["spec_bf16"] = phase_spec(cfg, params, dev, card, "bf16", strict=False)
+    print(f"phase 7: speculative decoding, bf16 (the first {n} layers)")
+    out["spec_bf16"] = phase_spec(cfg_n, cut, dev, card, "bf16", strict=False)
+    del cut
     # phase 8: the same bf16 weights written as an HF checkpoint directory
     root = Path(tempfile.mkdtemp(prefix="smg_ckpt_"))
     try:
@@ -9047,6 +9337,11 @@ def prepare_checkpoint(cfg, params, root: Path) -> tuple:
 
 
 F32_LAYERS = 4  # the float32 repeat's depth: its checks are exact at any depth
+# the bf16 depth of phases 4 and 7, whose checks (finishes, stop text,
+# grammars, drafting, launches, audits) hold at any depth: at all 32 layers
+# they took 43 and 58 s of a 914 s run (H100 80GB HBM3, 700 W), time the
+# deadline needs on slower card hosts
+BF16_REPEAT_LAYERS = 8
 
 
 def _phases_f32(cfg, params, dev, card: str, root: Path) -> dict:
@@ -9220,6 +9515,40 @@ def phase_pd_alone(dev, card: str) -> dict:
     params.clear()
     torch.cuda.empty_cache()
     return out
+
+
+def phase_breadth_alone(dev, card: str) -> dict:
+    """Phase 12 (d) without the rest of phase 12 (``--phases breadth``):
+    Qwen2-VL-7B's weights and tower made from phase 12's seeds, one engine
+    on the graph path with phase 12 (b)'s settings, then ``vl_breadth``."""
+    import torch
+
+    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    from smg_tpu_torch.engine.engine import Engine
+    from smg_tpu_torch.models.config import ModelConfig
+    from smg_tpu_torch.models.llama import init_params
+    from smg_tpu_torch.models.vit import init_vision_params
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    cfg = ModelConfig.from_hf_config(QWEN2_VL_7B, dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tower = init_vision_params(cfg.vision, torch.Generator(device=dev).manual_seed(0 ^ 0x71510),
+                               dev)
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    engine = Engine(EngineConfig(
+        model=cfg, cache=CacheConfig(page_size=PS, num_pages=2048, auto_size=True,
+                                     dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096, max_prefill_tokens=512,
+                                  decode_horizon=4)),
+        params=params, device=dev, tokenizer=tok, vision_params=tower)
+    engine.generate(prompt_ids=list(range(1000, 1100)),
+                    sampling=SamplingParams(temperature=0.0, max_new_tokens=4))
+    try:
+        return {"breadth": vl_breadth(engine, tok, "vl bf16", card)}
+    finally:
+        engine.stop()
 
 
 def phase_transfer_alone(dev, card: str) -> dict:
@@ -9687,17 +10016,375 @@ def phase_train(dev, card: str) -> dict:
     return out
 
 
+# phase 19: data-parallel replicas in one gRPC worker
+DP_PAGES = 2048  # KV pages of each replica (num_pages; auto-sizing would give
+#                  the first replica nearly all of the card: runner.py sizes after
+#                  its own weights)
+DP_NEW = 32  # new tokens of the pinned greedy streams
+DP_LONG_NEW = 1024  # a stream still running while the next requests come
+DP_GATEWAY_STREAMS = 4  # concurrent streams through each launch gateway
+DP_COLUMN_LANES = 4  # lanes of each replica's timed decode
+DP_COLUMN_NEW = 128  # new tokens of each timed lane
+DP_WAIT_S = 300  # the phase's process, start to exit
+
+
+def _admitted(engines) -> list:
+    """Each replica's prompt tokens admitted so far, cached and computed."""
+    out = []
+    for e in engines:
+        loads = e.loads(include_audit=False)
+        out.append(loads["cached_prompt_tokens"] + loads["computed_prompt_tokens"])
+    return out
+
+
+def _quiescent(engines, what: str) -> list:
+    """Wait until no replica has work; their audits."""
+    wait_for(lambda: not any(e.has_work() for e in engines), what, timeout=DP_WAIT_S)
+    return [e.audit() for e in engines]
+
+
+def dp_columns(lanes: dict, new: int) -> dict:
+    """Decode ms a column of each engine in ``lanes`` (engine -> prompts),
+    all submitted at once: from the moment every lane of an engine has its
+    first token to the moment its last lane finishes, over the decode
+    columns its runner ran in between (read on its loop thread)."""
+    import threading
+
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+
+    marks = {}
+    done = threading.Event()
+    lock = threading.Lock()
+    sp = SamplingParams(temperature=0.0, max_new_tokens=new, ignore_eos=True)
+    for n, (engine, prompts) in enumerate(lanes.items()):
+        m = marks[engine] = dict(started=set(), finished=0, lanes=len(prompts))
+
+        def on_output(out, engine=engine, m=m):
+            with lock:
+                if out.output_tokens and not out.finished and out.rid not in m["started"]:
+                    m["started"].add(out.rid)
+                    if len(m["started"]) == m["lanes"]:
+                        m["t0"] = time.perf_counter()
+                        m["c0"] = engine.runner.stats["decode_columns"]
+                if out.finished:
+                    m["finished"] += 1
+                    if m["finished"] == m["lanes"]:
+                        m["t1"] = time.perf_counter()
+                        m["c1"] = engine.runner.stats["decode_columns"]
+                        if all(x["finished"] == x["lanes"] for x in marks.values()):
+                            done.set()
+
+        for i, ids in enumerate(prompts):
+            engine.submit(ids, sp, rid=f"col-{n}-{i}-{time.monotonic_ns()}",
+                          on_output=on_output)
+    if not done.wait(DP_WAIT_S):
+        raise AssertionError(f"timed decode lanes did not finish: {list(marks.values())}")
+    out = []
+    for m in marks.values():
+        if "t0" not in m or m["c1"] <= m["c0"]:
+            raise AssertionError(f"a timed decode window is empty: {m}")
+        m.pop("started")
+        out.append(dict(ms_per_column=(m["t1"] - m["t0"]) * 1e3 / (m["c1"] - m["c0"]),
+                        columns=m["c1"] - m["c0"]))
+    return out
+
+
+def dp_worker_main(spec: dict) -> int:
+    """Phase 19 in a process of its own (``--dp-worker``): phase 13 (c)'s
+    worker weights (phase 3's seed, the first ``PD_LAYERS`` layers widened
+    to float32) shared by two replica engines served by one
+    ``serve_worker_async(engines=[e0, e1])`` and a third engine served
+    alone; the checks through ``GrpcWorkerClient`` and through two
+    ``launch`` gateways (``--dp-aware``, ``--no-dp-aware``) run in this
+    process; each replica's decode column alone and beside the other's;
+    the kernels' launches of the phase.  Readings to ``spec["report"]``."""
+    import asyncio
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    from smg_tpu_torch import cli
+    from smg_tpu_torch.gateway.launch import _run_gateway
+    from smg_tpu_torch.gateway.worker_client import WorkerGenerateRequest
+    from smg_tpu_torch.models.config import ModelConfig
+    from smg_tpu_torch.models.llama import init_params
+    from smg_tpu_torch.ops.cuda import build
+    from smg_tpu_torch.ops.cuda import decode_attention as dk
+    from smg_tpu_torch.ops.cuda import prefill_attention as pk
+    from smg_tpu_torch.protocols.sampling import SamplingParams
+    from smg_tpu_torch.rpc import server as rpc_server
+    from smg_tpu_torch.rpc.client import GrpcWorkerClient
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    t_start = time.perf_counter()
+    card = spec["card"]
+    dev = torch.device(spec["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == "cuda":
+        build.load()
+    cfg = ModelConfig(**spec["config"])
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = {**{k: v.float() for k, v in full.items() if k != "layers"},
+              "layers": {k: v[:PD_LAYERS].float() for k, v in full["layers"].items()}}
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg4 = dataclasses.replace(cfg, num_layers=PD_LAYERS, dtype="float32")
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    engines = [_pd_engine(cfg4, params, dev, tok, DP_PAGES) for _ in range(2)]
+    solo = _pd_engine(cfg4, params, dev, tok, DP_PAGES)
+    every = [*engines, solo]
+    for e in every:  # cuBLAS handles, the allocator, a first graph; not counted
+        e.generate(prompt_ids=list(range(1000, 1100)),
+                   sampling=SamplingParams(temperature=0.0, max_new_tokens=4))
+    out = dict(card=card, pages=[e.runner.spec.num_pages for e in every],
+               setup_s=time.perf_counter() - t_start)
+    failures = []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [dp] CHECK FAILED: {what}")
+
+    ranks: list = []
+    engine_for = rpc_server.SchedulerServicer._engine_for
+
+    def recording(self, rank):
+        ranks.append(rank)
+        return engine_for(self, rank)
+
+    rpc_server.SchedulerServicer._engine_for = recording
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="dp-grpc", daemon=True)
+    thread.start()
+
+    def run(coro, timeout=DP_WAIT_S):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    rng = np.random.default_rng(19)
+    ids = lambda n: rng.integers(1000, 120000, n).tolist()  # noqa: E731
+    servers, clients, gateways = {}, {}, {}
+    try:
+        for e in every:
+            e.start()
+        servers["dp"] = run(rpc_server.serve_worker_async(None, 0, "127.0.0.1",
+                                                          engines=engines))
+        servers["solo"] = run(rpc_server.serve_worker_async(solo, 0, "127.0.0.1"))
+        urls = {k: f"127.0.0.1:{s._bound_port}" for k, s in servers.items()}
+
+        async def dial():
+            return {k: GrpcWorkerClient(u) for k, u in urls.items()}
+
+        clients.update(run(dial()))
+        client = clients["dp"]
+        for e in every:
+            for k in e.runner.stats:
+                e.runner.stats[k] = 0
+        dk.launches = 0
+        pk.launches = 0
+
+        def req(rank, prompt, new, rid):
+            return WorkerGenerateRequest(
+                rid=rid, input_ids=prompt, data_parallel_rank=rank,
+                sampling=SamplingParams(temperature=0.0, max_new_tokens=new, ignore_eos=True))
+
+        async def tokens(c, rank, prompt, new, rid):
+            return [t async for ch in c.generate(req(rank, prompt, new, rid))
+                    for t in ch.token_ids]
+
+        info = run(client.get_model_info())
+        out["dp_size"] = info["dp_size"]
+        expect(info["dp_size"] == 2, f"ModelInfo.dp_size {info['dp_size']}")
+        # pinned ranks against the one-engine worker
+        prompt = ids(300)
+        streams, moved = {}, {}
+        for rank in (0, 1):
+            before = _admitted(engines)
+            streams[rank] = run(tokens(client, rank, prompt, DP_NEW, f"pin-{rank}"))
+            moved[rank] = [a - b for a, b in zip(_admitted(engines), before)]
+        streams["solo"] = run(tokens(clients["solo"], -1, prompt, DP_NEW, "solo"))
+        out["streams_equal"] = streams[0] == streams[1] == streams["solo"]
+        expect(out["streams_equal"] and len(streams[0]) == DP_NEW,
+               f"greedy streams rank 0 {streams[0]}, rank 1 {streams[1]}, "
+               f"one engine {streams['solo']}")
+        expect(moved == {0: [len(prompt), 0], 1: [0, len(prompt)]},
+               f"pinned ranks admitted on {moved}")
+
+        # -1 beside a busy replica; GetLoads; rank 2
+        async def busy_pick():
+            long = client.generate(req(0, ids(200), DP_LONG_NEW, "long-0"))
+            await long.__anext__()
+            loads = await client.get_loads()
+            before = _admitted(engines)
+            short = ids(120)
+            got = await tokens(client, -1, short, 8, "pick")
+            after = _admitted(engines)
+            ok = await client.abort("long-0")
+            await long.aclose()
+            return loads, [a - b for a, b in zip(after, before)], len(short), len(got), ok
+
+        loads, pick_moved, n_short, n_got, ok = run(busy_pick())
+        out.update(busy_loads=loads, pick_moved=pick_moved)
+        expect(pick_moved == [0, n_short] and n_got == 8 and ok,
+               f"-1 beside a stream on rank 0 admitted on {pick_moved} ({n_got} tokens, "
+               f"abort {ok})")
+        expect(len(loads["dp_queued_tokens"]) == 2 and loads["dp_queued_tokens"][0] > 0
+               and loads["dp_queued_tokens"][1] == 0 and loads["num_running"] == 1,
+               f"GetLoads beside the stream: {loads}")
+        try:
+            run(tokens(client, 2, ids(20), 2, "rank-2"))
+            out["rank2_error"] = None
+        except RuntimeError as e:
+            out["rank2_error"] = str(e)
+        expect("data_parallel_rank 2 out of range (dp_size 2)" in (out["rank2_error"] or ""),
+               f"rank 2: {out['rank2_error']}")
+        _quiescent(engines, "the replicas after the busy pick")
+
+        # an abort of a rank-1 stream frees its pages there
+        async def abort_rank1():
+            it = client.generate(req(1, ids(400), DP_LONG_NEW, "long-1"))
+            await it.__anext__()
+            held = engines[1].audit()["held_pages"]
+            ok = await client.abort("long-1")
+            await it.aclose()
+            return held, ok
+
+        held, ok = run(abort_rank1())
+        audit1 = _quiescent(engines, "replica 1 after its abort")[1]
+        out["abort_rank1"] = dict(held_before=held, ok=ok, held_after=audit1["held_pages"],
+                                  free_after=audit1["free_pages"])
+        expect(ok and held > 0 and audit1["held_pages"] == 0 and audit1["clean"],
+               f"abort on rank 1: {out['abort_rank1']}")
+
+        # the two launch gateways in front of the two-replica worker, on the
+        # server's loop (grpc.aio wants one loop a process)
+        for name, flag in (("dp_aware", "--dp-aware"), ("no_dp_aware", "--no-dp-aware")):
+            port = _free_port()
+            args = cli.build_parser().parse_args([
+                "launch", "--host", "127.0.0.1", "--port", str(port), "--worker", urls["dp"],
+                flag])
+            stop = asyncio.Event()
+            fut = asyncio.run_coroutine_threadsafe(_run_gateway(args, stop=stop), loop)
+            gateways[name] = (port, stop, fut)
+        out["gateways"] = {}
+        for name in ("dp_aware", "no_dp_aware"):
+            port = gateways[name][0]
+            _wait_http_up(port, None, f"launch {name}")
+            wf = _registration(port)
+            expect(wf["status"] == "completed", f"[{name}] registration {wf}")
+            ranks.clear()
+            res = _in_threads(lambda p: _sse(port, "/v1/chat/completions",  # noqa: B023
+                                             _chat(p, 16, stream=True)),
+                              [(ids(150),) for _ in range(DP_GATEWAY_STREAMS)])
+            out["gateways"][name] = dict(statuses=[st for st, _ in res], ranks=list(ranks))
+            _quiescent(engines, f"the replicas after {name}'s streams")
+        dp_r, no_r = (out["gateways"][k]["ranks"] for k in ("dp_aware", "no_dp_aware"))
+        expect(all(st == 200 for g in out["gateways"].values() for st in g["statuses"])
+               and len(dp_r) == DP_GATEWAY_STREAMS and set(dp_r) == {0, 1},
+               f"launch --dp-aware: {out['gateways']['dp_aware']}")
+        expect(no_r == [-1] * DP_GATEWAY_STREAMS,
+               f"launch --no-dp-aware: {out['gateways']['no_dp_aware']}")
+
+        # each replica's decode column alone, then beside the other's
+        lanes = lambda: [ids(200) for _ in range(DP_COLUMN_LANES)]  # noqa: E731
+        dp_columns({e: lanes() for e in engines}, 16)  # warm: both captures
+        alone = [dp_columns({e: lanes()}, DP_COLUMN_NEW)[0] for e in engines]
+        both = dp_columns({e: lanes() for e in engines}, DP_COLUMN_NEW)
+        out["columns"] = dict(alone=alone, both=both)
+        print(f"  [{card}] decode column of {DP_COLUMN_LANES} lanes (float32, {PD_LAYERS} "
+              f"layers): replica 0 alone {alone[0]['ms_per_column']:.3f} ms, replica 1 alone "
+              f"{alone[1]['ms_per_column']:.3f} ms; both decoding: "
+              f"{both[0]['ms_per_column']:.3f} and {both[1]['ms_per_column']:.3f} ms")
+        audits = _quiescent(every, "every engine at the end")
+        out["audits"] = [dict(held=a["held_pages"], clean=a["clean"]) for a in audits]
+        expect(all(a["held_pages"] == 0 and a["clean"] and a["quiescent"] for a in audits),
+               f"pages at the end: {audits}")
+        stats = [dict(e.runner.stats) for e in every]
+        out["launches"] = {"decode_attention": dk.launches, "prefill_attention": pk.launches}
+        want = {"decode_attention": PD_LAYERS * sum(s["decode_columns"] for s in stats),
+                "prefill_attention": PD_LAYERS * sum(s["prefill_calls"] for s in stats)}
+        expect(out["launches"] == want and min(want.values()) > 0,
+               f"launches {out['launches']} != {want}")
+    finally:
+        for port, stop, fut in gateways.values():
+            loop.call_soon_threadsafe(stop.set)
+            try:
+                fut.result(60)
+            except Exception as e:  # a gateway that did not stop is a failure
+                failures.append(f"the launch gateway on {port} stopped with {e!r}")
+
+        async def down():
+            for c in clients.values():
+                await c.close()
+            for s in servers.values():
+                await s.stop(grace=None)
+
+        try:
+            run(down(), timeout=60)
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(30)
+            rpc_server.SchedulerServicer._engine_for = engine_for
+            for e in every:
+                e.stop()
+    out["failures"] = failures
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  [{card}] dp_size {out['dp_size']}; pinned streams equal the one-engine "
+          f"worker's: {out['streams_equal']}; -1 beside a stream on rank 0 admitted on "
+          f"{out['pick_moved']}; GetLoads dp_queued_tokens {out['busy_loads']['dp_queued_tokens']}; "
+          f"rank 2: {out['rank2_error']!r}; abort on rank 1 {out['abort_rank1']}; ranks through "
+          f"launch --dp-aware {out['gateways']['dp_aware']['ranks']}, --no-dp-aware "
+          f"{out['gateways']['no_dp_aware']['ranks']}; launches {out['launches']}; "
+          f"phase 19's process {out['seconds']:.1f} s (setup {out['setup_s']:.1f})")
+    Path(spec["report"]).write_text(json.dumps(out))
+    return 1 if failures else 0
+
+
+def phase_dp(dev, card: str) -> dict:
+    """Phase 19: ``dp_worker_main`` in a child process on ``dev`` (Llama-3-8B,
+    phase 3's config), once this one has given the card back; its report
+    read."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.models.config import llama3_8b_config
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = dict(card=card, device=str(dev), config=dataclasses.asdict(llama3_8b_config()))
+    with tempfile.TemporaryDirectory(prefix="smg_dp_") as tmp:
+        report = Path(tmp) / "report.json"
+        sys.stdout.flush()
+        code = subprocess.run([sys.executable, "-u", REPO / "chip_smoke.py", "--dp-worker",
+                               json.dumps({**spec, "report": str(report)})],
+                              cwd=REPO, timeout=DP_WAIT_S).returncode
+        out = json.loads(report.read_text()) if report.exists() else {}
+    if code != 0 or not out or out["failures"]:
+        raise AssertionError(f"phase 19's process exited {code}: {out.get('failures')}")
+    out["seconds_with_start"] = time.perf_counter() - t0
+    print(f"  phase 19 took {out['seconds_with_start']:.1f} s ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd",
                              "transfer", "launch", "routing", "mesh", "responses", "messages",
-                             "realtime", "train"),
+                             "realtime", "train", "breadth", "dp"),
                     default="all")
     # the gRPC worker processes of phases 13 and 14, and phase 18's process:
     # this script started by itself
     ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--train-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -9717,6 +10404,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
     if args.train_worker is not None:
         return train_worker_main(json.loads(args.train_worker))
+    if args.dp_worker is not None:
+        return dp_worker_main(json.loads(args.dp_worker))
     # a hang anywhere (the card, a lock, the profiler) ends the run with
     # every thread's stack on stderr and a non-zero exit, inside the
     # 1200 s a run may take
@@ -9768,10 +10457,14 @@ def main(argv=None) -> int:
             traceback.print_exc()
             failed.append("moe")
     vision = {}
-    if args.phases in ("all", "vision") and not failed:
-        print("phase 12: Qwen2-VL-7B (full width, 28 layers, a 32-layer vision tower)")
+    if args.phases in ("all", "vision", "breadth") and not failed:
+        print("phase 12: Qwen2-VL-7B (full width, 28 layers, a 32-layer vision tower)"
+              if args.phases != "breadth" else
+              "phase 12 (d) alone: the image families, video and the families' chats on "
+              "Qwen2-VL-7B (full width, 28 layers, a 32-layer vision tower)")
         try:
-            vision = phase_vision(dev, card)
+            vision = (phase_breadth_alone if args.phases == "breadth" else phase_vision)(
+                dev, card)
         except Exception:
             traceback.print_exc()
             failed.append("vision")
@@ -9829,6 +10522,16 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("train")
+    dp = {}
+    if args.phases in ("all", "dp") and not failed:
+        print("phase 19: data-parallel replicas in one gRPC worker, in a process of its own "
+              f"(two Llama-3-8B engines at full width, {PD_LAYERS} layers, float32, behind "
+              "launch --dp-aware and --no-dp-aware)")
+        try:
+            dp = phase_dp(dev, card)
+        except Exception:
+            traceback.print_exc()
+            failed.append("dp")
     if failed:
         print(f"FAILED phases: {failed}")
         return 1
@@ -9882,6 +10585,11 @@ def main(argv=None) -> int:
             # phase 18 (b)'s greedy stream that forward_train is held to
             # (float32, 4 layers), in phase 18's own process
             launches_train=train["serving"]["launches"][name],
+            # phase 12 (d)'s family chats over HTTP (Qwen2-VL-7B, bf16)
+            launches_breadth=vision["breadth"]["launches"][name],
+            # phase 19's three engines (two replicas and a lone one; float32,
+            # 4 layers), in phase 19's own process
+            launches_dp=dp["launches"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],
@@ -9889,7 +10597,7 @@ def main(argv=None) -> int:
             timed_case=r["timed_case"], timed_cases=r["timed_cases"],
         ))
     print(json.dumps({"engine": engine, "moe": moe, "vision": vision, "launch": launch,
-                      "responses": responses, "train": train, "card": card}))
+                      "responses": responses, "train": train, "dp": dp, "card": card}))
     print(f"the whole run took {time.perf_counter() - t_run:.1f} s ({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -340,13 +340,18 @@ class Engine:
                 and self.scheduler.consec_step_failures
                 < self.config.max_consecutive_step_failures)
 
-    def loads(self) -> dict:
+    def loads(self, include_audit: bool = True) -> dict:
+        """The scheduler's load counters, health and watchdog stalls;
+        ``include_audit=False`` leaves out the audit (its radix lock walk)
+        and the graph families' snapshot, for per-dispatch callers such as
+        the gRPC worker's replica pick."""
         with self._lock:
             out = self.scheduler.loads()
-            out["audit"] = self._audit_locked()
-            # the graph families' launch and capture counts (a cheap
-            # snapshot; the full pass is program_audit())
-            out["programs"] = self.runner._programs.snapshot()
+            if include_audit:
+                out["audit"] = self._audit_locked()
+                # the graph families' launch and capture counts (a cheap
+                # snapshot; the full pass is program_audit())
+                out["programs"] = self.runner._programs.snapshot()
         out["healthy"] = self.healthy
         out["watchdog_stalls"] = self.num_watchdog_stalls
         return out

@@ -328,7 +328,7 @@ class GraphCache:
         on, captures it right after)."""
         if step.graph is not None:
             step.graph.replay()
-            decode_attention.launches += step.replay_launches
+            decode_attention.count_launches(step.replay_launches)
             return step.outputs
         if not self.use_graphs:
             return body(step)
@@ -350,15 +350,16 @@ class GraphCache:
             main.wait_stream(self.stream)
             for t in out:
                 t.record_stream(main)
-            before = decode_attention.launches
+            before = decode_attention.thread_launches()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
                                   capture_error_mode="thread_local"):
                 outputs = body(step)
         # a capture records launches without running them: they count at
-        # each replay instead
-        step.replay_launches = decode_attention.launches - before
-        decode_attention.launches = before
+        # each replay instead.  This thread's tally: another engine's thread
+        # may launch or replay during the capture
+        step.replay_launches = decode_attention.thread_launches() - before
+        decode_attention.count_launches(-step.replay_launches)
         step.graph, step.outputs = graph, outputs
         note_capture()
         grown = torch.cuda.memory_reserved(self.device) - reserved0

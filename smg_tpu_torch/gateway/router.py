@@ -796,13 +796,10 @@ class Router:
         worker, info = await self._vision_worker(req.model or None)
         image_token_id = int(info.get("image_token_id") or 0)
         placeholder = tokenizer.decode([image_token_id], skip_special_tokens=False)
-        try:
-            proc = processor_for_worker(
-                req.model or info.get("model_id") or "",
-                patch_size=info.get("vision_patch_size"),
-                merge_size=info.get("vision_merge_size"), device=info.get("device"))
-        except NotImplementedError as e:
-            raise RouteError(400, str(e))
+        proc = processor_for_worker(
+            req.model or info.get("model_id") or "",
+            patch_size=info.get("vision_patch_size"),
+            merge_size=info.get("vision_merge_size"), device=info.get("device"))
         loop = asyncio.get_running_loop()
         pixel_cache = get_pixel_cache()
         proc_fp = processor_fingerprint(proc) if pixel_cache is not None else ""

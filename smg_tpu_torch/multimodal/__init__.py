@@ -1,8 +1,8 @@
-"""Multimodal preprocessing on the port: the Qwen2-VL image pipeline (port of
-``smg_tpu/multimodal``).  Resize, normalize and patchify run as torch ops on
-an explicit device, the card by default; decoding (PNG/JPEG) uses PIL when
-it is installed.  The reference's other processors, ``video.py`` and
-``audio.py`` are not ported (ROADMAP Queue A item 4).
+"""Multimodal preprocessing on the port (port of ``smg_tpu/multimodal``):
+every image processor of the reference, video frame sampling and the audio
+front-end.  Resize, normalize, pad and patchify run as torch ops on an
+explicit device, the card by default; decoding (PNG/JPEG, GIF frames) uses
+PIL when it is installed; the audio front-end is numpy on the host.
 """
 
 from smg_tpu_torch.multimodal.image import normalize_image, patchify, resize_image, smart_resize

@@ -35,9 +35,11 @@ def image_source_hash(part: dict) -> str:
 
 def processor_fingerprint(proc) -> str:
     """Identity+geometry of a processor instance (same bytes, different
-    config => different cache entry)."""
+    config => different cache entry).  The device the processor runs on is
+    not part of it: the fingerprint is the reference's, whatever the
+    device."""
     cfg = {k: v for k, v in sorted(vars(proc).items())
-           if isinstance(v, (int, float, str, bool, tuple))}
+           if k != "device" and isinstance(v, (int, float, str, bool, tuple))}
     return f"{type(proc).__name__}:{cfg}"
 
 

@@ -26,13 +26,17 @@ leave a graph captured earlier pointing at freed memory.
 
 ``launches`` counts kernel launches.  A launch recorded into a CUDA graph
 runs only when the graph replays, so the code that captures and replays
-graphs keeps the count right (``engine/graphs.py``).
+graphs keeps the count right (``engine/graphs.py``) through
+``count_launches``; a capture reads its own thread's tally
+(``thread_launches``), since another engine's thread may launch or replay
+while it captures.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -60,8 +64,24 @@ KEYS_PER_SPLIT = 512
 # keys in bfloat16, 16-32 in float32).
 MIN_SPLIT_KEYS = 64
 launches = 0  # kernel launches in this process (reset by the caller)
+_launches_lock = threading.Lock()  # engines on several threads launch
+_this_thread = threading.local()
 # arrival counters per (device, stream handle), zero between launches
 _counters: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def count_launches(n: int = 1) -> None:
+    """Add ``n`` launches to ``launches`` and to the calling thread's
+    tally."""
+    global launches
+    with _launches_lock:
+        launches += n
+    _this_thread.launches = thread_launches() + n
+
+
+def thread_launches() -> int:
+    """The calling thread's launches so far."""
+    return getattr(_this_thread, "launches", 0)
 
 
 def num_splits(B: int, K: int, max_keys: int) -> int:
@@ -160,6 +180,5 @@ def paged_attention_decode_cached(
         float(softcap or 0.0), splits, stream,
     )
     raise_on_error(err, "decode_attention")
-    global launches
-    launches += 1
+    count_launches()
     return out

@@ -9,6 +9,8 @@ callers scatter the chunk before attention, as the models do.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from smg_tpu_torch.ops.attention import attention_prefill_batched
@@ -23,6 +25,7 @@ from smg_tpu_torch.ops.cuda._checks import (
 MAX_GROUP = 64  # kernel bound: query heads per KV head
 MAX_HEAD_DIM = 256
 launches = 0  # kernel launches in this process (reset by the caller)
+_launches_lock = threading.Lock()  # engines on several threads launch
 
 
 def plain_prefill_batched(q, k_cache, v_cache, layer, page_tables, prefix_lens,
@@ -91,7 +94,8 @@ def paged_attention_prefill_batched(
     )
     raise_on_error(err, "prefill_attention")
     global launches
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out
 
 

@@ -1,17 +1,23 @@
-"""Worker-side gRPC servicer: one port ``Engine`` over the scheduler
-protocol — the port's copy of ``smg_tpu/rpc/server.py``, on the same wire
-format (``rpc/scheduler_pb2.py``), so the reference's client drives it and
-the port's client drives the reference's server.
+"""Worker-side gRPC servicer: one or more port ``Engine`` replicas over the
+scheduler protocol — the port's copy of ``smg_tpu/rpc/server.py``, on the
+same wire format (``rpc/scheduler_pb2.py``), so the reference's client
+drives it and the port's client drives the reference's server.
 
 Every RPC of the reference: ``Generate``, ``Embed``, ``EmbedBatch``,
 ``Encode``, ``PrefillExport``, ``GeneratePrefilled``, ``DumpFlight``,
 ``Abort``, ``HealthCheck``, ``GetLoads``, ``GetModelInfo``, ``FlushCache``,
 the three LoRA RPCs, ``GetTokenizer``, ``StartProfile``/``StopProfile``
-(a ``torch.profiler`` trace) and ``SubscribeKvEvents``.  Divergences:
+(a ``torch.profiler`` trace) and ``SubscribeKvEvents``.
 
-- one engine per worker: data-parallel replicas are not ported, so a
-  ``data_parallel_rank`` other than -1 or 0 gets the reference's
-  out-of-range error;
+Data-parallel replicas as in the reference: ``engines=[e0, e1, ...]``
+serves one replica per ``data_parallel_rank``; -1 takes the replica with
+the fewest queued tokens.  ``Abort`` tries every replica, ``HealthCheck``
+is the AND of theirs, ``GetLoads`` sums their counters and gives each
+rank's queued tokens, ``FlushCache`` and ``DumpFlight`` cover all of them;
+every other RPC addresses replica 0 (replicas are homogeneous).  The
+replicas share the process, and on the card its one CUDA context.
+Divergences:
+
 - the PD legs move the KV as host bytes (``PrefillExport`` sends them,
   ``GeneratePrefilled`` imports them) or, with the ``transfer`` connector,
   as a pull descriptor: the decode worker pulls the bulk bytes from the
@@ -20,7 +26,9 @@ the three LoRA RPCs, ``GetTokenizer``, ``StartProfile``/``StopProfile``
   outcome;
 - submits and aborts run on one worker thread, in call order, as the
   in-process client's do: the engine lock is held for a whole step, and the
-  server's event loop must not wait on it.
+  server's event loop must not wait on it.  The replica pick of a -1 rank
+  reads every replica's load under its lock, so it runs there too, just
+  before the submit.
 
 Messages are capped at 512 MiB each way, as the reference's are.  A PD
 export of more KV than that fails its prefill leg (the router answers 502):
@@ -70,13 +78,18 @@ def _chunk(rid: str, out) -> pb.GenerateChunk:
 
 
 class SchedulerServicer:
-    """One worker = one port engine; ``tracer`` (an ``OtelTracer``) opens
-    a ``worker.generate`` span under the gateway's propagated traceparent."""
+    """One worker = one or more data-parallel port engine replicas
+    (``engines``; ``engine`` alone is one replica); ``tracer`` (an
+    ``OtelTracer``) opens a ``worker.generate`` span under the gateway's
+    propagated traceparent."""
 
-    def __init__(self, engine, tracer=None):
-        if engine is None:
-            raise ValueError("need an engine")
-        self.engine = engine
+    def __init__(self, engine=None, engines: "list | None" = None, tracer=None):
+        if engines is None:
+            engines = [engine]
+        if not engines or any(e is None for e in engines):
+            raise ValueError("need at least one engine")
+        self.engines = list(engines)
+        self.engine = self.engines[0]
         self.tracer = tracer
         self._calls = ThreadPoolExecutor(max_workers=1, thread_name_prefix="rpc-submit")
 
@@ -97,9 +110,24 @@ class SchedulerServicer:
         ctx = parse_traceparent(self._traceparent(context))
         return ctx[0] if ctx else None
 
-    def _check_rank(self, rank: int) -> None:
-        if rank >= 1:
-            raise ValueError(f"data_parallel_rank {rank} out of range (dp_size 1)")
+    def _engine_for(self, rank: int):
+        """The replica of ``rank``; -1 picks the one with the fewest queued
+        tokens (its counters only: no audit, no radix lock walk).  Raises
+        ``ValueError`` for a rank past the last replica."""
+        if rank >= len(self.engines):
+            raise ValueError(
+                f"data_parallel_rank {rank} out of range (dp_size {len(self.engines)})")
+        if rank >= 0:
+            return self.engines[rank]
+        if len(self.engines) == 1:
+            return self.engine
+        return min(self.engines, key=lambda e: e.loads(include_audit=False)["queued_tokens"])
+
+    def _submit(self, rank: int, *args, **kwargs):
+        """Pick the replica and submit to it (on the worker thread)."""
+        engine = self._engine_for(rank)
+        engine.submit(*args, **kwargs)
+        return engine
 
     def _end_span(self, span, error: bool = False) -> None:
         if span is None or self.tracer is None:
@@ -107,10 +135,10 @@ class SchedulerServicer:
         span.end(error=error)
         self.tracer.record(span)
 
-    async def _stream(self, rid: str, q: asyncio.Queue):
+    async def _stream(self, engine, rid: str, q: asyncio.Queue):
         """Yield the request's outputs as chunks until it finishes; a client
-        that goes away mid-stream aborts it in the engine (queued behind the
-        submit on the worker thread)."""
+        that goes away mid-stream aborts it in the replica that holds it
+        (queued behind the submit on the worker thread)."""
         try:
             while True:
                 out = await q.get()
@@ -118,7 +146,7 @@ class SchedulerServicer:
                 if out.finished:
                     return
         finally:
-            self._calls.submit(self.engine.abort, rid)
+            self._calls.submit(engine.abort, rid)
 
     async def Generate(self, request: pb.GenerateRequestProto, context):
         from smg_tpu_torch.engine.request import QueueFullError
@@ -136,9 +164,9 @@ class SchedulerServicer:
             span = self.tracer.start_span("worker.generate", traceparent=traceparent)
             span.set("rid", rid)
         try:
-            self._check_rank(request.data_parallel_rank)
-            await loop.run_in_executor(self._calls, functools.partial(
-                self.engine.submit, list(request.input_ids), sampling, rid=rid,
+            engine = await loop.run_in_executor(self._calls, functools.partial(
+                self._submit, request.data_parallel_rank, list(request.input_ids), sampling,
+                rid=rid,
                 on_output=lambda out: loop.call_soon_threadsafe(q.put_nowait, out),
                 mm_embeds=mm_embeds_from_proto(request.mm_embeds),
                 timeout_secs=request.timeout_secs or None,
@@ -160,7 +188,7 @@ class SchedulerServicer:
             raise
         finished = False
         try:
-            async for chunk in self._stream(rid, q):
+            async for chunk in self._stream(engine, rid, q):
                 yield chunk
             finished = True
         finally:
@@ -281,7 +309,7 @@ class SchedulerServicer:
             sampling, rid=rid,
             on_output=lambda out: loop.call_soon_threadsafe(q.put_nowait, out),
             trace_id=self._trace_id(context)))
-        async for chunk in self._stream(rid, q):
+        async for chunk in self._stream(self.engine, rid, q):
             yield chunk
 
     async def ReleaseKvOffer(self, request: pb.KvOfferProto, context):
@@ -296,39 +324,50 @@ class SchedulerServicer:
 
     async def DumpFlight(self, request: pb.FlightDumpRequestProto, context):
         """The flight recorder's dump as JSON, off the event loop and
-        without the engine lock (a wedged worker still answers)."""
+        without the engine lock (a wedged worker still answers).  With
+        replicas, one dump each under ``engines``, beside ``dp_size`` and
+        the top-level ``schema_version``."""
         import json
 
+        from smg_tpu_torch.engine.flight_recorder import SCHEMA_VERSION
+
+        reason = request.reason or "manual"
         try:
-            payload = await asyncio.to_thread(self.engine.dump_flight,
-                                              request.reason or "manual")
+            dumps = await asyncio.to_thread(lambda: [e.dump_flight(reason)
+                                                     for e in self.engines])
+            payload = dumps[0] if len(dumps) == 1 else {
+                "schema_version": SCHEMA_VERSION, "dp_size": len(dumps), "engines": dumps}
             return pb.FlightDumpResponseProto(json=json.dumps(payload))
         except Exception as e:
             logger.exception("flight dump failed")
             return pb.FlightDumpResponseProto(error=str(e))
 
     async def Abort(self, request: pb.AbortRequestProto, context):
+        # the rid lives on one replica: try each, as the reference does
         ok = await asyncio.get_running_loop().run_in_executor(
-            self._calls, self.engine.abort, request.rid)
+            self._calls, lambda: any(e.abort(request.rid) for e in self.engines))
         return pb.AbortResponseProto(ok=ok)
 
     async def HealthCheck(self, request: pb.EmptyProto, context):
         # engine health, not process liveness
-        return pb.HealthResponseProto(ok=bool(getattr(self.engine, "healthy", True)))
+        return pb.HealthResponseProto(
+            ok=all(getattr(e, "healthy", True) for e in self.engines))
 
     async def GetLoads(self, request: pb.EmptyProto, context):
-        loads = await asyncio.to_thread(self.engine.loads)
+        # the message carries fixed counters only: no audit
+        per_rank = await asyncio.to_thread(
+            lambda: [e.loads(include_audit=False) for e in self.engines])
         return pb.LoadsProto(
-            num_waiting=loads["num_waiting"], num_running=loads["num_running"],
-            free_pages=loads["free_pages"], cached_pages=loads["cached_pages"],
-            total_pages=loads["total_pages"], dp_queued_tokens=[loads["queued_tokens"]])
+            **{k: sum(r[k] for r in per_rank) for k in (
+                "num_waiting", "num_running", "free_pages", "cached_pages", "total_pages")},
+            dp_queued_tokens=[r["queued_tokens"] for r in per_rank])
 
     async def GetModelInfo(self, request: pb.EmptyProto, context):
         cfg = self.engine.config
         msg = pb.ModelInfoProto(
             model_id=cfg.model_id, max_seq_len=cfg.scheduler.max_seq_len,
             vocab_size=cfg.model.vocab_size, eos_token_ids=list(cfg.model.eos_token_ids),
-            page_size=cfg.cache.page_size, dp_size=1)
+            page_size=cfg.cache.page_size, dp_size=len(self.engines))
         if self.engine.supports_vision:
             msg.supports_vision = True
             msg.image_token_id = cfg.model.image_token_id or 0
@@ -338,7 +377,7 @@ class SchedulerServicer:
         return msg
 
     async def FlushCache(self, request: pb.EmptyProto, context):
-        ok = await asyncio.to_thread(self.engine.flush_cache)
+        ok = await asyncio.to_thread(lambda: all(e.flush_cache() for e in self.engines))
         return pb.FlushResponseProto(ok=ok)
 
     async def LoadLoRAAdapter(self, request: pb.LoadLoraRequestProto, context):
@@ -446,14 +485,16 @@ def _handlers(servicer: SchedulerServicer) -> grpc.GenericRpcHandler:
 
 
 async def serve_worker_async(engine, port: int, host: str = "0.0.0.0",
-                             tracer=None) -> grpc.aio.Server:
-    """Start serving ``engine`` on ``host:port`` (0 picks a free port, read
-    back as ``server._bound_port``)."""
+                             engines: "list | None" = None, tracer=None) -> grpc.aio.Server:
+    """Start serving ``engine``, or the replicas ``engines``, on
+    ``host:port`` (0 picks a free port, read back as
+    ``server._bound_port``)."""
     server = grpc.aio.server(options=[
         ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
         ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
     ])
-    server.add_generic_rpc_handlers((_handlers(SchedulerServicer(engine, tracer=tracer)),))
+    server.add_generic_rpc_handlers(
+        (_handlers(SchedulerServicer(engine, engines=engines, tracer=tracer)),))
     bound = server.add_insecure_port(f"{host}:{port}")
     await server.start()
     logger.info("worker gRPC listening on %s:%d", host, bound)

@@ -10,7 +10,8 @@ KV events and the tokenizer bundle must come out identical (logprobs to
 decode leg on the other give a co-located run's tokens; the KV's bytes and
 ``kv_dtype`` on the wire equal the reference's numpy encoding for float32
 and bf16.  Last, ``python -m smg_tpu_torch.cli worker --device cpu``
-answers ``HealthCheck``.  The DP cases wait for data-parallel replicas.
+answers ``HealthCheck``.  The DP cases, over two replicas a worker, are in
+``test_torch_dp.py``.
 
 Float32 on the CPU, the tiny model with weights bridged from the JAX
 ``init_params``."""
@@ -373,7 +374,7 @@ def test_health_reflects_engine_health(pair):
 
 
 def test_dp_rank_other_than_zero_gets_the_reference_error(pair):
-    """One engine per worker: a pinned rank past 0 is out of range, with the
+    """A one-engine worker: a pinned rank past 0 is out of range, with the
     reference's message, on both servers."""
     errors = {}
     for side in SIDES:
