@@ -18,6 +18,7 @@
     python3 chip_smoke.py --phases train   # build + kernels + phase 18 only
     python3 chip_smoke.py --phases breadth   # build + kernels + phase 12 (d) only
     python3 chip_smoke.py --phases dp   # build + kernels + phase 19 only
+    python3 chip_smoke.py --phases tp   # build + kernels + phase 20 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -478,6 +479,19 @@ Phases (any failure makes the script exit non-zero and print no result):
    ranks 0 and 1, through ``--no-dp-aware`` all -1; every page back on
    every engine and launches exact.  Readings: each replica's decode
    column on 4 lanes alone and with the other decoding;
+20. tensor parallelism, in a process of its own: first a probe of
+   whether NCCL accepts two ranks on ``cuda:0`` (printed; refused, the
+   ranks share the card over gloo collectives and decode eagerly).  (a)
+   Llama-3-8B at full width, ``F32_LAYERS`` layers, float32, weights from
+   one seed: a tp=2 engine's greedy streams (phase 3's requests: a chunked
+   long prompt, a radix hit, horizon 4, the loop thread with overlap) equal
+   a tp=1 engine's and its first-token logits are within
+   ``F32_LOGIT_ATOL``; (b) all 32 layers in bf16, 4 lanes of 16 tokens
+   through the tp=2 engine: each rank's kernel launches equal 32 x its
+   decode columns and 32 x its prefill calls, audit clean.  Readings: ms a
+   decode column beside a tp=1 engine's on the same eager path, bytes
+   resident per rank.  (c) ``serve --tp 2`` with no device list exits
+   non-zero with "needs 2 devices, found 1"; (d) no rank process is left;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
@@ -488,10 +502,11 @@ Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    15's conversation turns, ``launches_messages`` from phase 16 and
    ``launches_realtime`` from phase 17, ``launches_train`` from phase 18
    (b), ``launches_breadth`` from phase 12 (d)'s family chats,
-   ``launches_dp`` from phase 19's process) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
+   ``launches_dp`` from phase 19's process, ``launches_tp`` from phase
+   20 (b)'s two rank processes, summed) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
    ``checkpoint``, ``moe``, ``api``, ``vision``, ``pd``, ``transfer``,
    ``launch``, ``routing``, ``mesh``, ``responses``, ``messages``,
-   ``realtime``, ``train``, ``breadth`` and ``dp`` print neither).
+   ``realtime``, ``train``, ``breadth``, ``dp`` and ``tp`` print neither).
 
 TF32 is off for matmuls and cuDNN, so float32 references stay float32.
 Timings are medians of 15 repeats after warm-up: device time between CUDA
@@ -515,6 +530,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -623,6 +639,17 @@ SHAPES = {  # (query heads, KV heads, head_dim) of the correctness-only cases
     # a block, 63 live rows and one dead)
     "qwen2_vl": (28, 4, 128),
 }
+
+
+def rank_shape() -> tuple:
+    """(query heads, KV heads, head_dim) of one rank of phase 20's tp
+    engine: Llama-3-8B over ``TP_SIZE`` ranks (16 over 4 at tp=2: G=4,
+    ``K*D`` = 512)."""
+    from smg_tpu_torch.models.config import llama3_8b_config
+    from smg_tpu_torch.parallel.sharding import rank_config
+
+    rc = rank_config(llama3_8b_config(), TP_SIZE)
+    return rc.num_heads, rc.num_kv_heads, rc.head_dim
 
 
 def _cache(L: int, P: int, KD: int, gen, dev):
@@ -816,8 +843,13 @@ def phase_kernels(dev) -> dict:
     from smg_tpu_torch.ops.cuda import prefill_attention as pk
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    rng_entries = lambda B, lo, hi: torch.randint(  # noqa: E731
-        lo, hi, (B,), generator=gen, device=dev).tolist()
+    rng_entries = lambda B, lo, hi, g=gen: torch.randint(  # noqa: E731
+        lo, hi, (B,), generator=g, device=dev).tolist()
+    # phase 20's rank shape draws from a generator of its own, so every other
+    # case keeps the inputs of earlier measurements
+    shapes = dict(SHAPES, tp_rank=rank_shape())
+    gen_tp = torch.Generator(device=dev).manual_seed(2234)
+    tp = f"tp{TP_SIZE}"
 
     # decode: (label, B, entries, n_extra, softcap, window, pad_row, shape, timed).
     # The random entries are drawn first, in list order, and new cases go
@@ -866,11 +898,20 @@ def phase_kernels(dev) -> dict:
          False, "qwen2_vl", False),
         ("B4_padded_row_nx4_softcap_window_g7", 4, rng_entries(4, 900, 1100), 4, 50.0, 64,
          True, "qwen2_vl", False),
+        # one rank of phase 20's tp engine (G=4 over K*D = 512 lanes)
+        (f"B32_ragged_{tp}", 32, rng_entries(32, 1, 4096, gen_tp), 1, None, None, False,
+         "tp_rank", True),
+        (f"B4_e1000_nx4_{tp}", 4, rng_entries(4, 950, 1050, gen_tp), 4, None, None, False,
+         "tp_rank", True),
+        (f"B9_split_edges_{tp}", 9, [62, 63, 64, 126, 127, 128, 254, 255, 256], 1, None, None,
+         False, "tp_rank", False),
+        (f"B4_padded_row_nx4_softcap_window_{tp}", 4, rng_entries(4, 900, 1100, gen_tp), 4,
+         50.0, 64, True, "tp_rank", False),
     ]
     d_err, d_timed = 0.0, {}
     for label, B, entries, nx, cap, win, pad, shape, timed in dcases:
-        c = decode_case(B, entries, 4, nx, cap, win, gen, dev, pad_row=pad,
-                        shape=SHAPES[shape])
+        c = decode_case(B, entries, 4, nx, cap, win, gen_tp if shape == "tp_rank" else gen,
+                        dev, pad_row=pad, shape=shapes[shape])
         got = dk.paged_attention_decode_cached(**c)
         want = attention_decode_cached(**c)
         torch.cuda.synchronize()
@@ -907,10 +948,16 @@ def phase_kernels(dev) -> dict:
         ("T512_prefix1000_g7", 512, [1000], [512], None, None, "qwen2_vl", True),
         ("Gs8_T512_cold_g7", 512, [0] * 8, [512, 480, 400, 300, 200, 128, 90, 17], None,
          None, "qwen2_vl", True),
+        (f"G3_T128_mixed_{tp}", 128, [0, 1000, 37], [128, 100, 5], None, None, "tp_rank",
+         False),
+        (f"T512_prefix1000_{tp}", 512, [1000], [512], None, None, "tp_rank", True),
+        (f"Gs8_T512_cold_{tp}", 512, [0] * 8, [512, 480, 400, 300, 200, 128, 90, 17], None,
+         None, "tp_rank", True),
     ]
     p_err, p_timed = 0.0, {}
     for label, T, pfx, trs, cap, win, shape, timed in pcases:
-        c = prefill_case(T, pfx, trs, cap, win, gen, dev, shape=SHAPES[shape])
+        c = prefill_case(T, pfx, trs, cap, win, gen_tp if shape == "tp_rank" else gen, dev,
+                         shape=shapes[shape])
         plain = lambda: pk.plain_prefill_batched(  # noqa: E731
             c["q"], c["k_cache"], c["v_cache"], c["layer"], c["page_tables"],  # noqa: B023
             c["prefix_lens"], c["t_reals"], c["scale"], c["softcap"], c["window"])  # noqa: B023
@@ -1192,9 +1239,12 @@ def profile_decode(engine, loop: bool, columns: int = 8, sampling=None,
     classes: dict = {}
     busy, by_kernel, n_events = device_time(prof, classes)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    # the window is read: the lanes' remaining tokens are aborted, not
+    # decoded (on a slow path that was 10-15 s of a profile)
+    for rid in outs:
+        engine.abort(rid)
     if loop:
-        wait_for(lambda: all(o and o[-1].finished for o in outs.values())
-                 and not engine.has_work(), "profile drain")
+        wait_for(lambda: not engine.has_work(), "profile drain")
         engine.stop()
     else:
         while engine.has_work():
@@ -4984,6 +5034,14 @@ def write_moe_checkpoint(host: dict, path: Path, layers: int) -> dict:
                 file_bytes=sum(f.stat().st_size for f in path.glob("*.safetensors")))
 
 
+def write_moe_from_card(params: dict, path: str, layers: int) -> dict:
+    """``write_moe_checkpoint`` of ``params`` (the first ``layers`` layers,
+    on the card) after copying them to the host here."""
+    host = {k: v.cpu() for k, v in params.items() if k != "layers"}
+    host["layers"] = {k: v[:layers].cpu() for k, v in params["layers"].items()}
+    return write_moe_checkpoint(host, Path(path), layers)
+
+
 def _to_card(host: dict, dev, layers: int) -> dict:
     out = {k: v.to(dev) for k, v in host.items() if k != "layers"}
     out["layers"] = {k: v[:layers].to(dev) for k, v in host["layers"].items()}
@@ -5127,12 +5185,12 @@ def moe_depth_cut(cfg, host: dict, dev, card: str) -> dict:
     return out
 
 
-def phase_moe(dev, card: str) -> dict:
+def phase_moe(dev, card: str, side: "SideWorker") -> dict:
     """Phase 9: Qwen3-30B-A3B at full width and depth (random bf16 weights
     from seed 0, made on the card; auto-sized KV) through phase 3's three
     paths; (c) the expert layer against a gathered computation; (b) the
     depth-cut float32 run; (d) ``serve --model-path`` on a written
-    Qwen3-MoE directory."""
+    Qwen3-MoE directory, written by ``side`` beside (a)-(c)."""
     import gc
 
     import torch
@@ -5170,6 +5228,30 @@ def phase_moe(dev, card: str) -> dict:
     sink: dict = {}
     secs = out["seconds"] = {}
     t0 = time.perf_counter()
+    # (d)'s directory is written by a process of its own beside (a)-(c),
+    # started before (a) sizes its KV from the free memory
+    root = Path(tempfile.mkdtemp(prefix="smg_moe_"))
+    first = {**{k: v for k, v in params.items() if k != "layers"},
+             "layers": {k: v[:MOE_CKPT_LAYERS] for k, v in params["layers"].items()}}
+    writer = side.submit(write_moe_from_card, first, str(root / MOE_CKPT), MOE_CKPT_LAYERS)
+    del first
+    try:
+        _moe_abc(cfg, params, dev, card, out, sink, secs, t0, writer, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 9 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
+    return out
+
+
+def _moe_abc(cfg, params, dev, card: str, out: dict, sink: dict, secs: dict, t0: float,
+             writer, root: Path) -> None:
+    """Phase 9's (a), (c), (b) and (d) on ``params`` (cleared after (c)),
+    their readings into ``out``; (d)'s directory from ``writer``."""
+    import gc
+
+    import torch
+
+    L, max_new = cfg.num_layers, 32
     # the plain path runs at MOE_F32_LAYERS in (b), where its logits are the
     # reference; at full depth it would only repeat that
     with moe_annotations():
@@ -5182,7 +5264,7 @@ def phase_moe(dev, card: str) -> dict:
     out["pages"] = {k: r["pages"] for k, r in runs.items()}
     out["launches"] = runs["graphs"]["launches"]
     out["schedule"] = runs["graphs"]["stats"]
-    out["readings"] = moe_report(cfg, work, runs, sink, card)
+    out["readings"] = moe_report(cfg, out["work"], runs, sink, card)
     del runs
     gc.collect()
     torch.cuda.empty_cache()
@@ -5193,6 +5275,9 @@ def phase_moe(dev, card: str) -> dict:
     keep = max(MOE_F32_LAYERS, MOE_CKPT_LAYERS)
     host = {k: v.cpu() for k, v in params.items() if k != "layers"}
     host["layers"] = {k: v[:keep].cpu() for k, v in params["layers"].items()}
+    # the writer is done with the weights it shares before they go
+    ckpt_files = writer.result()
+    torch.cuda.ipc_collect()
     params.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5200,21 +5285,14 @@ def phase_moe(dev, card: str) -> dict:
     print(f"phase 9 (b): the first {MOE_F32_LAYERS} layers, bf16 and float32")
     out["depth_cut"] = moe_depth_cut(cfg, host, dev, card)
     secs["b"], t0 = time.perf_counter() - t0, time.perf_counter()
-    root = Path(tempfile.mkdtemp(prefix="smg_moe_"))
-    try:
-        print(f"phase 9 (d): serve --model-path on a {MOE_CKPT_LAYERS}-layer Qwen3-MoE "
-              "directory")
-        out["ckpt_files"] = write_moe_checkpoint(host, root / MOE_CKPT, MOE_CKPT_LAYERS)
-        f = out["ckpt_files"]
-        print(f"  checkpoint: {f['tensors']} tensors, {f['file_bytes']} bytes in 2 files, "
-              f"written in {f['write_s']:.1f} s")
-        out["ckpt"] = {dt: serve_moe_checkpoint(cfg, host, root / MOE_CKPT, dev, card, dt)
-                       for dt in ("bfloat16", "float32")}
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 9 (d): serve --model-path on a {MOE_CKPT_LAYERS}-layer Qwen3-MoE "
+          "directory")
+    out["ckpt_files"] = f = ckpt_files
+    print(f"  checkpoint: {f['tensors']} tensors, {f['file_bytes']} bytes in 2 files, "
+          f"written in {f['write_s']:.1f} s beside (a)-(c)")
+    out["ckpt"] = {dt: serve_moe_checkpoint(cfg, host, root / MOE_CKPT, dev, card, dt)
+                   for dt in ("bfloat16", "float32")}
     secs["d"] = time.perf_counter() - t0
-    print(f"  phase 9 seconds: " + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items()))
-    return out
 
 
 # ---- phase 12: Qwen2-VL-7B, the vision tower and image requests ----
@@ -6147,7 +6225,8 @@ def _stop_gateways(held, server, contexts) -> None:
             ctx.registry.remove(w.worker_id)
 
 
-def phase_pd(cfg, params, dev, card: str, phase3_decode_ms: float | None = None) -> dict:
+def phase_pd(cfg, params, dev, card: str, phase3_decode_ms: float | None = None,
+             worker_cli: dict | None = None) -> dict:
     """Phase 13, PD disaggregation on Llama-3-8B: (a) float32 at
     ``PD_LAYERS`` layers: a PREFILL and a DECODE engine behind the port's
     gateway (connectors ``auto`` and ``host``) against a co-located engine;
@@ -6187,7 +6266,9 @@ def phase_pd(cfg, params, dev, card: str, phase3_decode_ms: float | None = None)
     gc.collect()
     torch.cuda.empty_cache()
     out["grpc"] = pd_grpc(cfg, dev, tok, jobs, out["f32"]["host_texts"], expect)
-    out["worker_cli"] = check_worker_cli(dev.type)
+    # the worker CLI check, unless it ran beside the kernels' build (``main``:
+    # the card is empty then, and its KV sizing takes nothing from a phase)
+    out["worker_cli"] = worker_cli or check_worker_cli(dev.type)
     expect(out["worker_cli"]["health"] and out["worker_cli"]["exit_code"] == 0,
            f"worker subcommand: {out['worker_cli']}")
     out["seconds"] = time.perf_counter() - t_phase
@@ -7195,7 +7276,35 @@ def _job_result(port: int, job_id: str, timeout: float = LOOP_WAIT_S) -> dict:
         time.sleep(0.1)
 
 
-def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
+def pd_early_registration() -> dict:
+    """Phase 14 (c)'s bare ``launch`` and its async ``POST /workers`` against
+    B's port, which nothing listens on yet, started when phase 14 starts:
+    the registration's retry budget (8 attempts over 35.5 s) then runs out
+    under (a) and (b) instead of on (c)'s path.  Returns the gateway
+    (``child``, ``port``), the workers' ports, the queued job and its
+    answer (posted on a thread of its own, which ``launch_pd`` joins)."""
+    import threading
+
+    ports = {"a": _free_port(), "b": _free_port()}
+    port = _free_port()
+    held = dict(ports=ports, port=port,
+                child=Child("launch", [*CLI, "launch", "--host", "127.0.0.1", "--port", port]))
+
+    def post():  # on a thread of its own: (a) starts meanwhile
+        try:
+            _wait_http_up(port, held["child"], "bare launch")
+            held["status"], held["late"] = _http(port, "POST", "/workers", {
+                "url": f"127.0.0.1:{ports['b']}", "worker_id": "b", "async": True})
+            held["t_late"] = time.perf_counter()
+        except Exception as e:
+            held["error"] = repr(e)
+
+    held["thread"] = threading.Thread(target=post, name="pd-early-registration")
+    held["thread"].start()
+    return held
+
+
+def launch_pd(cfg, dev, card: str, jobs: dict, expect, early: dict) -> dict:
     """Phase 14 (c): two of this script's own worker processes
     (``pd_worker_main``: the first ``PD_LAYERS`` layers widened to float32,
     ``PD_GRPC_PAGES`` pages each), each reporting its kernel launches and
@@ -7220,7 +7329,11 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
     out = {}
     tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
                         bos_token_id=cfg.bos_token_id)
-    ports = {"a": _free_port(), "b": _free_port()}
+    early["thread"].join(LOOP_WAIT_S)
+    if "late" not in early:
+        early["child"].stop()
+        raise AssertionError(f"the bare launch's registration: {early.get('error')}")
+    ports = early["ports"]
     reports = {k: Path(tempfile.mkdtemp(prefix="smg_launch_")) / f"{k}.json" for k in ports}
     spec = dict(config=dataclasses.asdict(cfg), layers=PD_LAYERS, pages=PD_GRPC_PAGES,
                 device=str(dev))
@@ -7229,20 +7342,17 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
         return Child(name, [sys.executable, REPO / "chip_smoke.py", "--pd-worker", json.dumps(
             {**spec, "port": ports[name], "report": str(reports[name]), **extra})])
 
-    g1port = _free_port()
-    children = {"a": spawn("a"),
-                "g1": Child("launch", [*CLI, "launch", "--host", "127.0.0.1",
-                                       "--port", g1port])}
+    g1port = early["port"]
+    children = {"g1": early["child"]}
     urls = {k: f"127.0.0.1:{p}" for k, p in ports.items()}
     hold = reports["b"].parent / "listen"
     routing = None
     try:
-        _wait_http_up(g1port, children["g1"], "bare launch")
-        # B's port is not listening yet: the registration retries, then fails
-        st, late = _http(g1port, "POST", "/workers", {"url": urls["b"], "worker_id": "b",
-                                                      "async": True})
+        children["a"] = spawn("a")
+        # B's port was not listening when the registration was posted: it
+        # retries, then fails
+        st, late, t_late = early["status"], early["late"], early["t_late"]
         expect(st == 202 and late.get("status") == "queued", f"async POST /workers: {late}")
-        t_late = time.perf_counter()
         # B loads now and takes its port once that registration has failed
         children["b"] = spawn("b", hold=str(hold))
         # the reference run in this process while they wait
@@ -7288,6 +7398,12 @@ def launch_pd(cfg, dev, card: str, jobs: dict, expect) -> dict:
         expect(listed == ["a", "b"], f"/workers after the resume: {listed}")
         st, _text = _chat_text(g1port, _chat(jobs["conc"][0], PD_CONC_NEW))
         expect(st == 200, f"a chat after the resume: {st}")
+        # the gateways started above bind once they registered B: their
+        # start-up is over before the drain, whose stream has a window
+        t_up = time.perf_counter()
+        for child, port in [(children["g2"], g2port), *routing["gateways"].values()]:
+            _wait_http_up(port, child, child.name)
+        out["gateways_up_after_b_s"] = time.perf_counter() - t_up
         out["drain"] = _drain_check(g1port, jobs, expect)
         # the drained worker back, as a job
         gone = out["drain"]["drained"]
@@ -7818,15 +7934,22 @@ def phase_launch(dev, card: str, preset: str = SERVE_MODEL,
             print(f"  [launch] CHECK FAILED: {what}")
 
     out = {}
-    for name, fn in (("grpc", lambda: launch_grpc(preset, dev, card, jobs, expect)),
-                     ("http", lambda: launch_http(preset, dev, card, jobs, expect)),
-                     ("pd", lambda: launch_pd(cfg, dev, card, jobs, expect))):
-        if name not in parts:
-            continue
-        t0 = time.perf_counter()
-        out[name] = fn()
-        out[name]["seconds"] = time.perf_counter() - t0
-        print(f"  phase 14 ({name}) took {out[name]['seconds']:.1f} s")
+    # (c)'s registration against a closed port runs out its retries under (a)
+    # and (b)
+    early = pd_early_registration() if "pd" in parts else None
+    try:
+        for name, fn in (("grpc", lambda: launch_grpc(preset, dev, card, jobs, expect)),
+                         ("http", lambda: launch_http(preset, dev, card, jobs, expect)),
+                         ("pd", lambda: launch_pd(cfg, dev, card, jobs, expect, early))):
+            if name not in parts:
+                continue
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out[name]["seconds"] = time.perf_counter() - t0
+            print(f"  phase 14 ({name}) took {out[name]['seconds']:.1f} s")
+    finally:
+        if early is not None and "pd" not in out and early["child"].alive():
+            early["child"].stop()  # (c) never took it over
     out["launches"] = out["pd"]["launches"]
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 14 took {out['seconds']:.1f} s ({card})")
@@ -9223,7 +9346,10 @@ def _interaction_text(body: dict) -> str:
                    for p in o.get("parts", []) if isinstance(p, dict))
 
 
-def phase_engine(dev, card: str) -> dict:
+def phase_engine(dev, card: str, side: "SideWorker", worker_cli: dict | None = None) -> dict:
+    """Phases 3-8, 10, 13, the float32 repeat and the preemption check on
+    Llama-3-8B; ``side`` writes phase 8's files meanwhile, ``worker_cli``
+    is phase 13's CLI check if it ran already."""
     import dataclasses
 
     import torch
@@ -9239,49 +9365,59 @@ def phase_engine(dev, card: str) -> dict:
     # 3 is built under the lock-order sentinel (its exit raises on any
     # inversion); the serving path's engine also runs the guarded window
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    with lock_order_sentinel() as sentinel:
-        runs = serve_paths(cfg, params, dev, max_new, with_profile=True,
-                           after=lambda label, eng: (guarded_decode(eng, dev, card)
-                                                     if label == "graphs" else None))
-    print(f"  phase 3: {len(sentinel.inversions)} lock-order inversions over its engines")
-    agree = check_runs(runs, L, max_new, "bf16")
-    out = {"bf16": summarize(runs, card, "bf16"), "bf16_agreement": agree}
-    out["decode_profile"] = {k: r["profile"] for k, r in runs.items()}
-    out["guarded"] = runs["graphs"]["after"]
-    out["guarded"]["profile_wall_ms_per_column"] = runs["graphs"]["profile"][
-        "wall_ms_per_column"]
-    out["lock_inversions_phase3"] = len(sentinel.inversions)
-    print(f"  phase 3 decode: guarded window {out['guarded']['guarded_ms_per_column']:.3f} "
-          f"ms/column, unguarded {out['guarded']['unguarded_ms_per_column']:.3f}, the "
-          f"profiled window {out['guarded']['profile_wall_ms_per_column']:.3f} ({card})")
-    out["launches"] = runs["graphs"]["launches"]
-    out["schedule"] = runs["graphs"]["stats"]
-    # phases 4 and 7 in bf16 on the first BF16_REPEAT_LAYERS layers of the
-    # same weights: their checks hold at any depth
-    n = BF16_REPEAT_LAYERS
-    cfg_n = dataclasses.replace(cfg, num_layers=n)
-    cut = {**params, "layers": {k: v[:n] for k, v in params["layers"].items()}}
-    # phase 4: penalties, stop strings and grammars through every path, with
-    # the synthetic tokenizer at the full vocabulary
-    print(f"phase 4: request semantics, bf16 (the first {n} layers)")
-    tok = PieceTokenizer(cfg.vocab_size, (cfg.bos_token_id, *cfg.eos_token_ids))
-    rq = request_paths(cfg_n, cut, dev, tok, "bf16", {}, with_profile=True)
-    out["requests_bf16"] = check_requests(rq, n, "bf16", card, strict=False)
-    del rq
-    torch.cuda.empty_cache()
-    # phase 5 on the same weights: the serving entry over HTTP
-    print("phase 5: serving entry over HTTP, bf16")
-    out["serve_bf16"] = phase_serve(cfg, params, dev, card, "bf16", strict=False)
-    print("phase 6: the request-policy layer over HTTP, bf16")
-    out["policy_bf16"] = phase_policy(cfg, params, dev, card, "bf16", strict=False,
-                                      bare=out["serve_bf16"])
-    print(f"phase 7: speculative decoding, bf16 (the first {n} layers)")
-    out["spec_bf16"] = phase_spec(cfg_n, cut, dev, card, "bf16", strict=False)
-    del cut
-    # phase 8: the same bf16 weights written as an HF checkpoint directory
+    # phase 8's files (the checkpoint of these weights, its adapters, the
+    # float32 repeat's) are written by a process of their own meanwhile
     root = Path(tempfile.mkdtemp(prefix="smg_ckpt_"))
+    writer = side.submit(write_ckpt_files, dataclasses.asdict(cfg), params, str(root))
     try:
-        ckpt8, cfg8, params8 = prepare_checkpoint(cfg, params, root)
+        with lock_order_sentinel() as sentinel:
+            runs = serve_paths(cfg, params, dev, max_new, with_profile=True,
+                               after=lambda label, eng: (
+                                   guarded_decode(eng, dev, card) if label == "graphs"
+                                   else None))
+        print(f"  phase 3: {len(sentinel.inversions)} lock-order inversions over its engines")
+        agree = check_runs(runs, L, max_new, "bf16")
+        out = {"bf16": summarize(runs, card, "bf16"), "bf16_agreement": agree}
+        out["decode_profile"] = {k: r["profile"] for k, r in runs.items()}
+        out["guarded"] = runs["graphs"]["after"]
+        out["guarded"]["profile_wall_ms_per_column"] = runs["graphs"]["profile"][
+            "wall_ms_per_column"]
+        out["lock_inversions_phase3"] = len(sentinel.inversions)
+        print(f"  phase 3 decode: guarded window {out['guarded']['guarded_ms_per_column']:.3f} "
+              f"ms/column, unguarded {out['guarded']['unguarded_ms_per_column']:.3f}, the "
+              f"profiled window {out['guarded']['profile_wall_ms_per_column']:.3f} ({card})")
+        out["launches"] = runs["graphs"]["launches"]
+        out["schedule"] = runs["graphs"]["stats"]
+        # phases 4 and 7 in bf16 on the first BF16_REPEAT_LAYERS layers of the
+        # same weights: their checks hold at any depth
+        n = BF16_REPEAT_LAYERS
+        cfg_n = dataclasses.replace(cfg, num_layers=n)
+        cut = {**params, "layers": {k: v[:n] for k, v in params["layers"].items()}}
+        # phase 4: penalties, stop strings and grammars through every path, with
+        # the synthetic tokenizer at the full vocabulary
+        print(f"phase 4: request semantics, bf16 (the first {n} layers)")
+        tok = PieceTokenizer(cfg.vocab_size, (cfg.bos_token_id, *cfg.eos_token_ids))
+        rq = request_paths(cfg_n, cut, dev, tok, "bf16", {}, with_profile=True)
+        out["requests_bf16"] = check_requests(rq, n, "bf16", card, strict=False)
+        del rq
+        torch.cuda.empty_cache()
+        # phase 5 on the same weights: the serving entry over HTTP
+        print("phase 5: serving entry over HTTP, bf16")
+        out["serve_bf16"] = phase_serve(cfg, params, dev, card, "bf16", strict=False)
+        print("phase 6: the request-policy layer over HTTP, bf16")
+        out["policy_bf16"] = phase_policy(cfg, params, dev, card, "bf16", strict=False,
+                                          bare=out["serve_bf16"])
+        print(f"phase 7: speculative decoding, bf16 (the first {n} layers)")
+        out["spec_bf16"] = phase_spec(cfg_n, cut, dev, card, "bf16", strict=False)
+        del cut
+        # phase 8: the same bf16 weights written as an HF checkpoint directory
+        ckpt8 = writer.result()
+        torch.cuda.ipc_collect()
+        cfg8 = dataclasses.replace(cfg, num_layers=ckpt8["layers"])
+        params8 = {**params, "layers": {k: v[:ckpt8["layers"]]
+                                        for k, v in params["layers"].items()}}
+        print(f"  phase 8's files were written beside phases 3-7 (the result read "
+              f"{writer.waited_s:.1f} s after the writer started)")
         out["ckpt_files"] = ckpt8
         print("phase 8: serve --model-path, the HF tokenizer and LoRA, bf16")
         out["ckpt_bf16"] = phase_checkpoint(cfg8, params8, dev, card, "bf16", strict=False,
@@ -9297,8 +9433,9 @@ def phase_engine(dev, card: str) -> dict:
               "workers)")
         out["pd"] = phase_pd(cfg, params, dev, card,
                              phase3_decode_ms=out["decode_profile"]["graphs"].get(
-                                 "device_ms_per_column"))
-        out.update(_phases_f32(cfg, params, dev, card, root))
+                                 "device_ms_per_column"), worker_cli=worker_cli)
+        out.update(_phases_f32(cfg, params, dev, card, root,
+                               adapters=ckpt8["f32_adapters"]))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     params.clear()  # the last phase on these weights: give the card back
@@ -9336,6 +9473,102 @@ def prepare_checkpoint(cfg, params, root: Path) -> tuple:
     return written, cfg8, params8
 
 
+def write_f32_files(cfg, params, f32_root: Path) -> dict:
+    """The float32 repeat's phase-8 files: the checkpoint of the first
+    ``F32_LAYERS`` layers of ``params`` (bf16, widened as they load) and its
+    two adapters; returns the adapters' paths."""
+    import dataclasses
+
+    cut = {**params, "layers": {k: v[:F32_LAYERS] for k, v in params["layers"].items()}}
+    cfg_n = dataclasses.replace(cfg, num_layers=F32_LAYERS)
+    write_checkpoint(cfg_n, cut, f32_root / CKPT_MODEL, CKPT_SHARDS)
+    adapters = {}
+    for i, name in enumerate(("a", "b")):
+        write_peft(cfg_n, f32_root / f"adapter_{name}", seed=100 + i)
+        adapters[name] = str(f32_root / f"adapter_{name}")
+    return adapters
+
+
+def write_ckpt_files(config: dict, params: dict, root: str) -> dict:
+    """Phase 8's files for both dtypes (``prepare_checkpoint``,
+    ``write_f32_files``) under ``root``, from ``params`` (bf16)."""
+    from smg_tpu_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(**config)
+    written, _cfg8, _params8 = prepare_checkpoint(cfg, params, Path(root))
+    written["f32_adapters"] = write_f32_files(cfg, params, Path(root) / "f32")
+    return written
+
+
+def _side_main(tasks, results) -> None:
+    """The side worker's loop: run each ``(fn, args)`` from ``tasks``, put
+    ``("ok", value)`` or ``("error", traceback)`` on ``results``."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.zeros(1, device="cuda")  # its CUDA context, before any phase sizes KV
+    while True:
+        task = tasks.get()
+        if task is None:
+            return
+        fn, args = task
+        try:
+            results.put(("ok", fn(*args)))
+        except BaseException:
+            results.put(("error", traceback.format_exc()))
+        del task, fn, args  # the shared tensors go back to their owner
+
+
+class SideWorker:
+    """A process of its own (``spawn``), started with the script, that runs
+    tasks beside the phases: it writes the checkpoints phases 8 and 9 (d)
+    serve while the phases before them run (phase 8's 16 GB took 23.4 s of
+    a 930 s run when phase 8 waited for it; NVIDIA H100 80GB HBM3, 700 W).
+    CUDA tensors in a task's arguments are shared with it on the card (CUDA
+    IPC: nothing is copied there; the owner keeps them alive until the
+    task's ``result``).  Its CUDA context exists before any phase sizes a KV
+    cache from the free memory.  One task at a time."""
+
+    def __init__(self):
+        import torch.multiprocessing as tmp
+
+        ctx = tmp.get_context("spawn")
+        self.tasks, self.results = ctx.SimpleQueue(), ctx.SimpleQueue()
+        self.proc = ctx.Process(target=_side_main, args=(self.tasks, self.results),
+                                name="side-worker", daemon=True)
+        self.proc.start()
+        self.name, self.t0, self.waited_s = None, 0.0, 0.0
+
+    def submit(self, fn, *args) -> "SideWorker":
+        self.name, self.t0 = fn.__name__, time.perf_counter()
+        self.tasks.put((fn, args))
+        return self
+
+    def result(self, timeout: float = LOOP_WAIT_S):
+        """The task's value (waiting for it); raises if it failed."""
+        deadline = time.monotonic() + timeout
+        while self.results.empty():
+            if not self.proc.is_alive():
+                raise AssertionError(f"the side worker exited {self.proc.exitcode} in "
+                                     f"{self.name}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{self.name} took over {timeout} s")
+            time.sleep(0.1)
+        status, value = self.results.get()
+        self.waited_s = time.perf_counter() - self.t0
+        if status != "ok":
+            raise AssertionError(f"{self.name} failed:\n{value}")
+        return value
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self.tasks.put(None)
+            self.proc.join(30)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(10)
+
+
 F32_LAYERS = 4  # the float32 repeat's depth: its checks are exact at any depth
 # the bf16 depth of phases 4 and 7, whose checks (finishes, stop text,
 # grammars, drafting, launches, audits) hold at any depth: at all 32 layers
@@ -9344,14 +9577,15 @@ F32_LAYERS = 4  # the float32 repeat's depth: its checks are exact at any depth
 BF16_REPEAT_LAYERS = 8
 
 
-def _phases_f32(cfg, params, dev, card: str, root: Path) -> dict:
+def _phases_f32(cfg, params, dev, card: str, root: Path, adapters: dict) -> dict:
     """Phases 3-5, 7, 8 and 10 again on the first ``F32_LAYERS`` layers
     of the same weights widened to float32 (the width stays whole): the
     three paths there differ only in summation order, so their streams
     must be identical.  The bf16 references of the two checks across
     dtypes are made at the same depth first: phase 3's three paths
     (first-token logits) and phase 10's embeddings; phase 8 serves a
-    checkpoint of that depth written under ``root``.  Then phase 6 on all
+    checkpoint of that depth written under ``root`` beside the earlier
+    phases, with ``adapters``, its adapters' paths.  Then phase 6 on all
     of ``params``, widened in place (phase 5's bare gateway reading beside
     it is the ``F32_LAYERS``-layer one)."""
     import dataclasses
@@ -9376,11 +9610,6 @@ def _phases_f32(cfg, params, dev, card: str, root: Path) -> dict:
     engine.stop()
     del engine
     f32_root = root / "f32"
-    write_checkpoint(cfg_n, cut, f32_root / CKPT_MODEL, CKPT_SHARDS)
-    adapters = {}
-    for i, name in enumerate(("a", "b")):
-        write_peft(cfg_n, f32_root / f"adapter_{name}", seed=100 + i)
-        adapters[name] = str(f32_root / f"adapter_{name}")
     # the same requests on the same weights widened to float32, with float32
     # KV: the three paths differ only in summation order, so the logits
     # agree tightly and the greedy streams match
@@ -9501,7 +9730,7 @@ def phase_api_alone(dev, card: str) -> dict:
     return out
 
 
-def phase_pd_alone(dev, card: str) -> dict:
+def phase_pd_alone(dev, card: str, worker_cli: dict | None = None) -> dict:
     """Phase 13 without phases 3-12 (``--phases pd``): phase 3's weights in
     bf16."""
     import torch
@@ -9511,7 +9740,7 @@ def phase_pd_alone(dev, card: str) -> dict:
 
     cfg = llama3_8b_config()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    out = {"pd": phase_pd(cfg, params, dev, card)}
+    out = {"pd": phase_pd(cfg, params, dev, card, worker_cli=worker_cli)}
     params.clear()
     torch.cuda.empty_cache()
     return out
@@ -9972,7 +10201,10 @@ def train_worker_main(spec: dict) -> int:
     from smg_tpu_torch.models.config import llama3_8b_config
     from smg_tpu_torch.models.llama import init_params
     from smg_tpu_torch.ops.cuda import build
+    from smg_tpu_torch.train import step  # noqa: F401 - imported before the wait
 
+    if not await_go(spec):  # the card is not ours yet
+        return 3
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -9989,9 +10221,9 @@ def train_worker_main(spec: dict) -> int:
     return 0
 
 
-def phase_train(dev, card: str) -> dict:
-    """Phase 18: ``train_worker_main`` in a child process, once this one has
-    given the card back; its report read."""
+def phase_train(dev, card: str, early: EarlyChild) -> dict:
+    """Phase 18: ``train_worker_main`` in ``early``, let go once this
+    process has given the card back; its report read."""
     import gc
 
     import torch
@@ -10002,15 +10234,9 @@ def phase_train(dev, card: str) -> dict:
     free, total = torch.cuda.mem_get_info(dev)
     print(f"  free before phase 18: {free} of {total} bytes "
           f"({torch.cuda.memory_allocated(dev)} still allocated here)")
-    with tempfile.TemporaryDirectory(prefix="smg_train_") as tmp:
-        report = Path(tmp) / "report.json"
-        sys.stdout.flush()
-        code = subprocess.run([sys.executable, "-u", REPO / "chip_smoke.py", "--train-worker",
-                               json.dumps({"report": str(report), "card": card})],
-                              cwd=REPO, timeout=TRAIN_WAIT_S).returncode
-        if code != 0 or not report.exists():
-            raise AssertionError(f"phase 18's process exited {code}")
-        out = json.loads(report.read_text())
+    code, out = early.run(TRAIN_WAIT_S)
+    if code != 0 or not out:
+        raise AssertionError(f"phase 18's process exited {code}")
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 18 took {out['seconds']:.1f} s ({card})")
     return out
@@ -10373,18 +10599,434 @@ def phase_dp(dev, card: str) -> dict:
     return out
 
 
+TP_SIZE = 2  # ranks of phase 20's engines, both on the one card
+TP_PAGES = 512  # KV pages of (a)'s float32 engines (each rank's, pinned)
+TP_BF16_PAGES = 1024  # KV pages of (b)'s bf16 engines
+TP_NEW = 16  # new tokens of each of (a)'s requests and (b)'s lanes
+TP_LANES = 4  # (b)'s lanes
+TP_PROBE_S = 90  # the NCCL probe's processes, start to exit
+TP_WAIT_S = 420  # the phase's process, start to exit
+TP_REFUSAL = f"needs {TP_SIZE} devices, found 1"
+TP_DEVICE = "cuda:0"  # the one card every rank of phase 20 shares
+
+
+def nccl_probe_rank(rank: int, port: int, queue) -> None:
+    """One rank of the NCCL probe: join a two-rank NCCL group on ``cuda:0``
+    through the store at ``port`` and all-reduce one tensor."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        store = dist.TCPStore("127.0.0.1", port, 2, False,
+                              timeout=datetime.timedelta(seconds=60))
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = datetime.timedelta(seconds=60)
+        pg = dist.ProcessGroupNCCL(dist.PrefixStore("probe", store), rank, 2, opts)
+        x = torch.full((4,), float(rank + 1), device="cuda:0")
+        pg.allreduce([x]).wait()
+        torch.cuda.synchronize()
+        queue.put((rank, "ok", x.tolist()))
+    except Exception as e:  # the refusal is the expected answer
+        queue.put((rank, "error", f"{type(e).__name__}: {e}"[:600]))
+
+
+def nccl_probe() -> dict:
+    """Does NCCL accept two ranks on one card?  Two spawned processes try;
+    whatever they say (or a hang past ``TP_PROBE_S``) is the answer, and
+    both are gone before this returns."""
+    import datetime
+    import multiprocessing
+    import queue as queues
+
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, 2, True, timeout=datetime.timedelta(seconds=60),
+                          wait_for_workers=False)
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=nccl_probe_rank, args=(r, store.port, q), daemon=True)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    answers = {}
+    deadline = time.monotonic() + TP_PROBE_S
+    while len(answers) < 2 and time.monotonic() < deadline:
+        try:
+            rank, status, detail = q.get(timeout=1.0)
+            answers[rank] = (status, detail)
+        except queues.Empty:
+            if all(p.exitcode is not None for p in procs):
+                break
+    for p in procs:
+        p.join(5)
+        if p.is_alive():
+            p.kill()
+            p.join(5)
+    accepted = len(answers) == 2 and all(s == "ok" for s, _ in answers.values())
+    errors = sorted({d for s, d in answers.values() if s != "ok"})
+    return dict(accepted=accepted, answers={str(k): v for k, v in answers.items()},
+                error=errors[0] if errors else (None if accepted else "no answer"),
+                exit_codes=[p.exitcode for p in procs], seconds=time.perf_counter() - t0)
+
+
+def _tp_engine(cfg, tp: int, pages: int, graphs: bool, tok, overlap: bool = True):
+    """Phase 20's engine: phase 5's scheduler settings, ``pages`` KV pages
+    a rank, weights from seed 0 (a tp rank draws them whole and keeps its
+    slice); tp > 1 on ``cuda:0`` repeated (gloo collectives).  ``overlap``
+    off: the eager synchronous path of phase 3's ``eager`` engine."""
+    import dataclasses
+
+    from smg_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        ParallelConfig,
+        SchedulerConfig,
+    )
+    from smg_tpu_torch.engine.engine import Engine
+
+    ecfg = EngineConfig(
+        model=cfg, parallel=ParallelConfig(tp=tp),
+        cache=CacheConfig(page_size=PS, num_pages=pages, auto_size=False, dtype=cfg.dtype),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096, max_prefill_tokens=512,
+                                  decode_horizon=4, overlap_schedule=overlap),
+        decode_graphs=graphs, model_id=SERVE_MODEL)
+    if tp == 1:
+        return Engine(ecfg, device=TP_DEVICE, tokenizer=tok)
+    return Engine(ecfg, devices=[TP_DEVICE] * tp, tokenizer=tok)
+
+
+def _lanes_requests(seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    first = [(f"lane{i}", rng.integers(1000, 120000, 200 + 40 * i).tolist())
+             for i in range(TP_LANES)]
+    return lambda engine: (first, [], first[0][0])
+
+
+def tp1_column_ms(engine) -> float:
+    """ms a decode column of phase 20 (b)'s lanes on a tp=1 engine of the same
+    weights on the eager synchronous path (``drive_engine`` times each launch
+    and fetch with a sync), the reading beside (b)'s tp=2 one."""
+    stats = engine.runner.stats
+    cols0 = stats["decode_columns"]
+    _res, _steps, timers, _wall = drive_engine(engine, TP_NEW, [], loop=False,
+                                               requests=_lanes_requests(20))
+    return timers["decode_s"] * 1e3 / max(stats["decode_columns"] - cols0, 1)
+
+
+def _gone(pid: int) -> bool:
+    """No such process, or only its zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+def tp_worker_main(spec: dict) -> int:
+    """Phase 20 in a process of its own (``--tp-worker``): the NCCL probe,
+    (a) float32 parity of a tp=2 engine with a tp=1 engine at full width and
+    ``F32_LAYERS`` layers, (b) a full-depth bf16 tp=2 engine serving
+    ``TP_LANES`` lanes with per-rank launch counts held to the schedule,
+    beside a tp=1 engine's reading, (c) ``serve --tp 2`` refused without a
+    device list, (d) no rank process left.  Readings to ``spec["report"]``."""
+    import dataclasses
+    import gc
+    import multiprocessing
+    import threading
+
+    import torch
+
+    from smg_tpu_torch.models.config import ModelConfig
+    from smg_tpu_torch.ops.cuda import build
+    from smg_tpu_torch.tokenizer import MockTokenizer
+
+    from smg_tpu_torch.engine.engine import Engine  # noqa: F401 - imported before the wait
+
+    card = spec["card"]
+    if not await_go(spec):  # the card is not ours yet
+        return 3
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.cuda.is_available():
+        build.load()
+    cfg = ModelConfig(**spec["config"])
+    tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
+                        bos_token_id=cfg.bos_token_id)
+    failures, out, pids = [], dict(card=card), []
+
+    def expect(cond, what):
+        if not cond:
+            failures.append(what)
+            print(f"  [tp] CHECK FAILED: {what}")
+
+    # (c) beside the rest: serve --tp 2 with no device list, on a one-card host
+    refusal = {}
+
+    def refuse():
+        t0 = time.perf_counter()
+        r = subprocess.run([*CLI, "serve", "--model-preset", SERVE_MODEL, "--tp", str(TP_SIZE),
+                            "--host", "127.0.0.1", "--port", str(_free_port())],
+                           cwd=REPO, capture_output=True, text=True, timeout=180)
+        refusal.update(code=r.returncode, stderr_tail=r.stderr[-600:],
+                       seconds=time.perf_counter() - t0)
+
+    refuser = threading.Thread(target=refuse, name="tp-refusal")
+    refuser.start()
+    # the probe beside (a)'s tp=1 run.  Ranks that share a card take gloo
+    # (parallel/group.py's rule) whatever it says; were NCCL to accept them,
+    # that rule's sharing branch would have to go, which this phase reports
+    probe = {}
+    prober = threading.Thread(target=lambda: probe.update(nccl_probe()), name="tp-probe")
+    prober.start()
+    engines, backend = [], "gloo"
+    out["backend"] = backend
+
+    def build(key, *args, **kwargs):
+        """``_tp_engine(*args, **kwargs)`` on a thread of its own: a tp
+        engine's rank spawns and its weights are drawn beside a drive."""
+        held = {}
+
+        def run():
+            t_b = time.perf_counter()
+            try:
+                held["engine"] = _tp_engine(*args, **kwargs)
+            except Exception:
+                held["error"] = traceback.format_exc()
+            held["built_s"] = time.perf_counter() - t_b
+
+        held["thread"] = threading.Thread(target=run, name=f"tp-build-{key}")
+        held["thread"].start()
+        return held
+
+    def built(held) -> object:
+        held["thread"].join(TP_WAIT_S)
+        if "engine" not in held:
+            raise AssertionError(f"a tp engine was not built: {held.get('error')}")
+        engines.append(held["engine"])
+        return held.pop("engine")
+
+    try:
+        # (a) float32 parity at full width, F32_LAYERS layers; the tp=2 engine
+        # is built while the tp=1 one drives, (b)'s while (a)'s tp=2 one does
+        cfg32 = dataclasses.replace(cfg, num_layers=F32_LAYERS, dtype="float32")
+        t0 = time.perf_counter()
+        runs = {}
+        tp2a = build("a", cfg32, TP_SIZE, TP_PAGES, graphs=False, tok=tok)
+        for tp in (1, TP_SIZE):
+            if tp == 1:  # on the path the tp=2 engine takes over gloo: eager, overlap on
+                eng = _tp_engine(cfg32, 1, TP_PAGES, graphs=False, tok=tok)
+                engines.append(eng)
+            else:
+                eng = built(tp2a)
+                pids += [r["pid"] for r in eng._leader.rank_reports()[1:]]
+                out["mesh_a"] = eng.loads(include_audit=False)["mesh"]
+                full = build("b", cfg, TP_SIZE, TP_BF16_PAGES, graphs=False, tok=tok,
+                             overlap=False)
+            logits: list = []
+            res, _steps, _timers, wall = drive_engine(eng, TP_NEW, logits, loop=True)
+            runs[tp] = dict(tokens={k: r.token_ids for k, r in res.items()}, logits=logits,
+                            wall_s=wall, audit=eng.audit())
+            if tp > 1:
+                eng.close()
+            engines.remove(eng)
+            del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        prober.join(TP_PROBE_S + 30)
+        out["nccl_probe"] = probe
+        print(f"  [{card}] NCCL with {TP_SIZE} ranks on {TP_DEVICE}: "
+              f"{'accepted' if probe.get('accepted') else 'refused'} "
+              f"({probe.get('error')}; {probe.get('seconds', 0):.1f} s)")
+        expect(not probe.get("accepted"),
+               f"NCCL accepted {TP_SIZE} ranks on one card: parallel/group.py's rule "
+               "should give them nccl (and decode graphs), not gloo")
+        a, b = runs[1], runs[TP_SIZE]
+        gaps = [float((x - y).abs().max()) for x, y in zip(a["logits"], b["logits"])]
+        out["parity"] = dict(
+            identical=a["tokens"] == b["tokens"], logit_calls=len(gaps),
+            logit_gap=max(gaps) if gaps else None, wall_s={1: a["wall_s"], TP_SIZE: b["wall_s"]},
+            seconds=time.perf_counter() - t0)
+        expect(a["tokens"] == b["tokens"] and all(len(t) == TP_NEW for t in a["tokens"].values()),
+               f"(a) tp={TP_SIZE} streams differ from tp=1's: "
+               f"{ {k: (a['tokens'][k][:6], b['tokens'].get(k, [])[:6]) for k in a['tokens']} }")
+        expect(len(a["logits"]) == len(b["logits"]) > 0 and max(gaps) <= F32_LOGIT_ATOL,
+               f"(a) first-token logits: {len(a['logits'])} vs {len(b['logits'])} calls, "
+               f"max gap {max(gaps) if gaps else None} (atol {F32_LOGIT_ATOL})")
+        expect(b["audit"]["clean"] and b["audit"]["quiescent"], f"(a) audit {b['audit']}")
+        print(f"  [{card}] (a) float32, {F32_LAYERS} layers: tp={TP_SIZE} streams identical "
+              f"to tp=1's: {out['parity']['identical']}; first-token logits max gap "
+              f"{out['parity']['logit_gap']:.3e} over {len(gaps)} prefill calls (atol "
+              f"{F32_LOGIT_ATOL}); drive {b['wall_s']:.2f} s against {a['wall_s']:.2f}")
+
+        # (b) full depth, bf16: TP_LANES lanes of TP_NEW tokens
+        eng = built(full)
+        built_s = full["built_s"]
+        before = eng._leader.rank_reports()
+        pids += [r["pid"] for r in before[1:]]
+        res, _steps, timers, wall = drive_engine(eng, TP_NEW, [], loop=False,
+                                                 requests=_lanes_requests(20))
+        after = eng._leader.rank_reports()
+        audit = eng.audit()
+        L = cfg.num_layers
+        per_rank = []
+        for r0, r1 in zip(before, after):
+            cols = r1["stats"]["decode_columns"] - r0["stats"]["decode_columns"]
+            calls = r1["stats"]["prefill_calls"] - r0["stats"]["prefill_calls"]
+            got = {k: r1["launches"][k] - r0["launches"][k] for k in r1["launches"]}
+            per_rank.append(dict(rank=r1["rank"], pid=r1["pid"], decode_columns=cols,
+                                 prefill_calls=calls, launches=got,
+                                 want={"decode_attention": L * cols,
+                                       "prefill_attention": L * calls},
+                                 resident_bytes=r1["allocated_bytes"]))
+        cols = per_rank[0]["decode_columns"]
+        out["full_depth"] = dict(
+            per_rank=per_rank, built_s=built_s, wall_s=wall,
+            ms_per_column=timers["decode_s"] * 1e3 / max(cols, 1),
+            tokens={k: len(r.token_ids) for k, r in res.items()}, audit_clean=audit["clean"])
+        out["launches_tp"] = {k: sum(r["launches"][k] for r in per_rank)
+                              for k in ("decode_attention", "prefill_attention")}
+        for r in per_rank:
+            expect(r["launches"] == r["want"] and min(r["want"].values()) > 0,
+                   f"(b) rank {r['rank']} launches {r['launches']} != {r['want']}")
+        expect(all(n == TP_NEW for n in out["full_depth"]["tokens"].values()),
+               f"(b) tokens {out['full_depth']['tokens']}")
+        expect(audit["clean"] and audit["quiescent"] and audit["leaked_pages"] == 0,
+               f"(b) audit {audit}")
+        eng.close()
+        engines.clear()
+        del eng
+        gc.collect()
+        # tp=1 on the same seed, the same eager path, in this process: both
+        # readings are taken beside whatever runs beside this phase
+        fd = out["full_depth"]
+        torch.cuda.empty_cache()
+        one = _tp_engine(cfg, 1, TP_BF16_PAGES, graphs=False, tok=tok, overlap=False)
+        fd["tp1_ms_per_column"] = tp1_column_ms(one)
+        del one
+        gc.collect()
+        print(f"  [{card}] (b) bf16, {L} layers, tp={TP_SIZE} over {backend}: "
+              f"{fd['ms_per_column']:.2f} ms a decode column of {TP_LANES} lanes (eager, "
+              f"synchronised) against tp=1's {fd['tp1_ms_per_column']:.2f} ms; resident per rank "
+              f"{[r['resident_bytes'] for r in per_rank]} bytes; launches per rank "
+              f"{[r['launches'] for r in per_rank]}; built in {built_s:.1f} s beside (a) "
+              f"(readings only, {card})")
+    finally:
+        for e in engines:
+            e.close()
+    refuser.join(200)
+    out["refusal"] = refusal
+    expect(refusal.get("code") not in (0, None) and TP_REFUSAL in refusal.get("stderr_tail", ""),
+           f"(c) serve --tp {TP_SIZE} without devices: {refusal}")
+    print(f"  [{card}] (c) serve --tp {TP_SIZE} without a device list: exit "
+          f"{refusal.get('code')}, {refusal.get('stderr_tail', '').strip().splitlines()[-1:]}")
+    # (d) no rank process outlives its engine
+    deadline = time.monotonic() + 10
+    while not all(_gone(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    stray = [p.name for p in multiprocessing.active_children()] + [
+        p for p in pids if not _gone(p)]
+    out["rank_pids"], out["stray"] = pids, stray
+    expect(len(pids) == 2 and not stray, f"(d) rank processes {pids}, left: {stray}")
+    out["failures"] = failures
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"  [{card}] (d) rank processes {pids} gone: {not stray}; phase 20's process "
+          f"{out['seconds']:.1f} s")
+    Path(spec["report"]).write_text(json.dumps(out, default=str))
+    return 1 if failures else 0
+
+
+class EarlyChild:
+    """One phase in a process of its own (this script with ``--<flag>``),
+    started ahead of its turn: it imports while the phases before it run
+    and touches the card only once ``run`` lets it (``await_go``), so no
+    phase before it loses memory to it or sees it in a KV sizing.  ``run``
+    waits for its exit and reads its report."""
+
+    def __init__(self, flag: str, spec: dict):
+        self.tmp = Path(tempfile.mkdtemp(prefix="smg_early_"))
+        self.report, self.go = self.tmp / "report.json", self.tmp / "go"
+        sys.stdout.flush()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", REPO / "chip_smoke.py", f"--{flag}",
+             json.dumps({**spec, "report": str(self.report), "go": str(self.go)})], cwd=REPO)
+
+    def run(self, timeout: float) -> tuple:
+        """Let it have the card; (its exit code, its report or {})."""
+        self.go.touch()
+        try:
+            code = self.proc.wait(timeout)
+            out = json.loads(self.report.read_text()) if self.report.exists() else {}
+        finally:
+            self.stop()
+        return code, out
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(10)
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def await_go(spec: dict) -> bool:
+    """In an ``EarlyChild``: wait until its parent lets it have the card
+    (False past ``HANG_S``)."""
+    go = spec.get("go")
+    deadline = time.monotonic() + HANG_S
+    while go and not Path(go).exists():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def phase_tp(dev, card: str, early: EarlyChild) -> dict:
+    """Phase 20: ``tp_worker_main`` (Llama-3-8B) in ``early``; its report
+    read, and its rank processes checked gone once it exited."""
+    import gc
+
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    code, out = early.run(TP_WAIT_S)
+    left = [p for p in out.get("rank_pids", []) if not _gone(p)]
+    if code != 0 or not out or out["failures"] or left:
+        raise AssertionError(f"phase 20's process exited {code}: {out.get('failures')}; "
+                             f"rank processes left {left}")
+    out["seconds_with_start"] = time.perf_counter() - t0
+    print(f"  phase 20 took {out['seconds_with_start']:.1f} s once let go ({card})")
+    return out
+
+
+def tp_spec(card: str) -> dict:
+    import dataclasses
+
+    from smg_tpu_torch.models.config import llama3_8b_config
+
+    return dict(card=card, config=dataclasses.asdict(llama3_8b_config()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     choices=("all", "kernels", "checkpoint", "moe", "api", "vision", "pd",
                              "transfer", "launch", "routing", "mesh", "responses", "messages",
-                             "realtime", "train", "breadth", "dp"),
+                             "realtime", "train", "breadth", "dp", "tp"),
                     default="all")
     # the gRPC worker processes of phases 13 and 14, and phase 18's process:
     # this script started by itself
     ap.add_argument("--pd-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--train-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     try:
         import torch
@@ -10406,6 +11048,8 @@ def main(argv=None) -> int:
         return train_worker_main(json.loads(args.train_worker))
     if args.dp_worker is not None:
         return dp_worker_main(json.loads(args.dp_worker))
+    if args.tp_worker is not None:
+        return tp_worker_main(json.loads(args.tp_worker))
     # a hang anywhere (the card, a lock, the profiler) ends the run with
     # every thread's stack on stderr and a non-zero exit, inside the
     # 1200 s a run may take
@@ -10417,6 +11061,14 @@ def main(argv=None) -> int:
     t_run = time.perf_counter()
     card = card_line()
     print(card)
+    # phase 13's worker CLI check beside the build (nvcc is host work): the
+    # worker sizes its KV from the empty card and exits before phase 2
+    worker_cli: dict = {}
+    if args.phases in ("all", "pd"):
+        cli_check = threading.Thread(
+            target=lambda: worker_cli.update(value=check_worker_cli(dev.type)),
+            name="worker-cli")
+        cli_check.start()
     try:
         from smg_tpu_torch.ops.cuda import build
 
@@ -10429,6 +11081,11 @@ def main(argv=None) -> int:
         print("phase 1 FAILED: kernels did not build")
         return 1
 
+    if args.phases in ("all", "pd"):
+        cli_check.join(LOOP_WAIT_S)
+    # the side worker's CUDA context exists before any phase sizes a KV
+    # cache from the free memory
+    side = SideWorker()
     kernels = {}
     print("phase 2: kernels vs plain versions (bf16)")
     try:
@@ -10443,8 +11100,12 @@ def main(argv=None) -> int:
                "api": "phase 10 alone, on Llama-3-8B",
                "pd": "phase 13 alone, on Llama-3-8B"}[args.phases])
         try:
-            engine = {"all": phase_engine, "checkpoint": phase_checkpoint_alone,
-                      "api": phase_api_alone, "pd": phase_pd_alone}[args.phases](dev, card)
+            engine = {"all": lambda dev, card: phase_engine(dev, card, side,
+                                                            worker_cli.get("value")),
+                      "checkpoint": phase_checkpoint_alone, "api": phase_api_alone,
+                      "pd": lambda dev, card: phase_pd_alone(dev, card,
+                                                             worker_cli.get("value"))
+                      }[args.phases](dev, card)
         except Exception:
             traceback.print_exc()
             failed.append("engine")
@@ -10452,7 +11113,7 @@ def main(argv=None) -> int:
     if args.phases in ("all", "moe") and not failed:
         print("phase 9: Qwen3-30B-A3B (full width, 48 layers, 128 experts)")
         try:
-            moe = phase_moe(dev, card)
+            moe = phase_moe(dev, card, side)
         except Exception:
             traceback.print_exc()
             failed.append("moe")
@@ -10492,6 +11153,11 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append(args.phases)
+    # phase 18's process imports while phases 15-17 run (``EarlyChild``); it
+    # waits for its turn
+    early: dict = {}
+    if args.phases in ("all", "train") and not failed:
+        early["train"] = EarlyChild("train-worker", {"card": card})
     responses = {}
     if args.phases in ("all", "responses", "messages", "realtime") and not failed:
         print({"all": "phases 15-17: the Responses API (SQLite storage, an MCP server, "
@@ -10512,26 +11178,53 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("responses")
+    # phase 20's process imports while phase 18 runs; it waits for its turn
+    if args.phases in ("all", "tp") and not failed:
+        early["tp"] = EarlyChild("tp-worker", tp_spec(card))
     train = {}
     if args.phases in ("all", "train") and not failed:
         print("phase 18: the training step in a process of its own (Llama-3-8B at full width: "
               "AdamW steps in bf16, forward_train against the serving kernels in float32 at "
               f"{F32_LAYERS} layers, a tiny step on the card against the CPU)")
         try:
-            train = phase_train(dev, card)
+            train = phase_train(dev, card, early["train"])
         except Exception:
             traceback.print_exc()
             failed.append("train")
-    dp = {}
-    if args.phases in ("all", "dp") and not failed:
-        print("phase 19: data-parallel replicas in one gRPC worker, in a process of its own "
-              f"(two Llama-3-8B engines at full width, {PD_LAYERS} layers, float32, behind "
-              "launch --dp-aware and --no-dp-aware)")
-        try:
-            dp = phase_dp(dev, card)
-        except Exception:
-            traceback.print_exc()
-            failed.append("dp")
+    # phases 19 and 20 side by side: each runs in a process of its own on KV
+    # pools sized by hand, together well inside the card
+    beside = {}
+    for name, want, title, fn in (
+            ("dp", ("all", "dp"), "phase 19: data-parallel replicas in one gRPC worker, in a "
+             f"process of its own (two Llama-3-8B engines at full width, {PD_LAYERS} layers, "
+             "float32, behind launch --dp-aware and --no-dp-aware)", phase_dp),
+            ("tp", ("all", "tp"), f"phase 20: tensor parallelism in a process of its own "
+             f"(Llama-3-8B at full width, tp={TP_SIZE} ranks on one card: the NCCL probe, "
+             f"float32 parity with tp=1 at {F32_LAYERS} layers, bf16 at 32 layers, serve "
+             f"--tp refused without devices, no rank process left)",
+             lambda dev, card: phase_tp(dev, card, early["tp"]))):
+        if args.phases in want and not failed:
+            print(title)
+            held = beside[name] = {}
+
+            def run(fn=fn, held=held):
+                try:
+                    held["value"] = fn(dev, card)
+                except Exception:
+                    held["error"] = traceback.format_exc()
+
+            held["thread"] = threading.Thread(target=run, name=f"phase-{name}")
+            held["thread"].start()
+    for name, held in beside.items():
+        held["thread"].join()
+        if "error" in held:
+            print(f"phase {name} raised:\n{held['error']}")
+            failed.append(name)
+    dp = beside.get("dp", {}).get("value", {})
+    tp = beside.get("tp", {}).get("value", {})
+    for child in early.values():
+        child.stop()  # whatever happened, its process is gone
+    side.close()
     if failed:
         print(f"FAILED phases: {failed}")
         return 1
@@ -10590,6 +11283,10 @@ def main(argv=None) -> int:
             # phase 19's three engines (two replicas and a lone one; float32,
             # 4 layers), in phase 19's own process
             launches_dp=dp["launches"][name],
+            # phase 20 (b)'s full-depth bf16 tp=2 drive, summed over the two
+            # rank processes (each held to 32 x its decode columns and
+            # prefill calls)
+            launches_tp=tp["launches_tp"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],
@@ -10597,7 +11294,8 @@ def main(argv=None) -> int:
             timed_case=r["timed_case"], timed_cases=r["timed_cases"],
         ))
     print(json.dumps({"engine": engine, "moe": moe, "vision": vision, "launch": launch,
-                      "responses": responses, "train": train, "dp": dp, "card": card}))
+                      "responses": responses, "train": train, "dp": dp, "tp": tp,
+                      "card": card}))
     print(f"the whole run took {time.perf_counter() - t_run:.1f} s ({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

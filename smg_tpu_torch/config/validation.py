@@ -6,11 +6,11 @@ Reference behavior: ``ConfigValidator``
 retry/circuit-breaker/compatibility): every ``launch``, ``serve`` and
 ``worker`` command line passes a cross-field check before anything binds a
 port or touches a device.  The issues, severities and messages are the
-reference's.  ``validate_engine_config`` is not ported: its rules read the
-reference engine's mesh axes and compile buckets, which the port's engine
-does not have.  The ``--mesh-shape`` rule stays (the port refuses the flag,
-the rule reads a namespace that holds it), over a copy of the reference's
-spec parser.
+reference's, ``validate_engine_config``'s included (parallel axes against
+the model, cache and scheduler coherence, speculative tiers, dtypes; its
+``dtype`` is the model's, where the reference's engine config has a field of
+its own).  The ``--mesh-shape`` rule parses through the port's
+``ParallelConfig.from_spec``.
 
 Two severities: ``error`` (raise ``ConfigError`` before startup) and
 ``warn`` (log and continue: legal but probably not what you want).
@@ -19,6 +19,8 @@ Two severities: ``error`` (raise ``ConfigError`` before startup) and
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from smg_tpu_torch.engine.config import ParallelConfig
 
 
 class ConfigError(ValueError):
@@ -46,6 +48,127 @@ def _err(field: str, message: str) -> ValidationIssue:
 
 def _warn(field: str, message: str) -> ValidationIssue:
     return ValidationIssue("warn", field, message)
+
+
+def validate_engine_config(cfg) -> list[ValidationIssue]:
+    """Validate an ``EngineConfig`` (model x parallel x cache x scheduler)."""
+    issues: list[ValidationIssue] = []
+    model = cfg.model
+    par = cfg.parallel
+    cache = cfg.cache
+    sched = cfg.scheduler
+
+    # ---- parallel x model divisibility
+    if model is not None:
+        if par.tp > 1:
+            if model.num_heads % par.tp != 0:
+                issues.append(_err(
+                    "parallel.tp",
+                    f"tp={par.tp} does not divide num_heads={model.num_heads}",
+                ))
+            kv_lanes = model.num_kv_heads * model.head_dim
+            if kv_lanes % par.tp != 0:
+                issues.append(_err(
+                    "parallel.tp",
+                    f"tp={par.tp} does not divide kv lanes "
+                    f"(num_kv_heads*head_dim={kv_lanes})",
+                ))
+            if model.intermediate_size % par.tp != 0:
+                issues.append(_err(
+                    "parallel.tp",
+                    f"tp={par.tp} does not divide intermediate_size="
+                    f"{model.intermediate_size}",
+                ))
+        if (model.attn_logit_softcap or model.sliding_window) and par.sp > 1:
+            issues.append(_err(
+                "parallel.sp",
+                "ring attention implements neither the Gemma-2 attention "
+                "softcap nor sliding windows; sp must be 1 for such models",
+            ))
+        if model.sliding_window and model.sliding_window_pattern > 0 and par.pp > 1:
+            issues.append(_err(
+                "parallel.pp",
+                "pipeline stages scan LOCAL layer indices, which would "
+                "invert the global/sliding alternation on later stages; "
+                "pp must be 1 for window-alternating models (every-layer "
+                "windows, pattern=0, are pp-safe)",
+            ))
+        if par.pp > 1 and model.num_layers % par.pp != 0:
+            issues.append(_err(
+                "parallel.pp",
+                f"pp={par.pp} does not divide num_layers={model.num_layers}",
+            ))
+        if par.ep > 1:
+            if model.num_experts == 0:
+                issues.append(_err(
+                    "parallel.ep", f"ep={par.ep} on a dense (non-MoE) model"
+                ))
+            elif model.num_experts % par.ep != 0:
+                issues.append(_err(
+                    "parallel.ep",
+                    f"ep={par.ep} does not divide num_experts={model.num_experts}",
+                ))
+    if par.sp > 1:
+        bad = [b for b in sched.prefill_token_buckets if b % par.sp != 0]
+        if bad:
+            issues.append(_warn(
+                "scheduler.prefill_token_buckets",
+                f"buckets {bad} not divisible by sp={par.sp}: those prefills "
+                f"fall back to the dense (non-ring) path",
+            ))
+
+    # ---- cache / scheduler coherence
+    if not cache.auto_size:
+        min_pages = sched.watermark_pages + 2  # garbage page + one working page
+        if cache.num_pages < min_pages:
+            issues.append(_err(
+                "cache.num_pages",
+                f"{cache.num_pages} pages cannot cover watermark_pages="
+                f"{sched.watermark_pages} plus the reserved garbage page",
+            ))
+        seq_pages = -(-sched.max_seq_len // cache.page_size)
+        if cache.num_pages - 1 < seq_pages:
+            issues.append(_err(
+                "cache.num_pages",
+                f"a single max_seq_len={sched.max_seq_len} sequence needs "
+                f"{seq_pages} pages but the pool has {cache.num_pages - 1}",
+            ))
+    if sched.max_seq_len % cache.page_size != 0:
+        issues.append(_warn(
+            "scheduler.max_seq_len",
+            f"not a multiple of page_size={cache.page_size}; the tail page "
+            f"of a full sequence is padded",
+        ))
+    if sched.decode_horizon > 1 and sched.decode_horizon > sched.max_seq_len:
+        issues.append(_err(
+            "scheduler.decode_horizon",
+            f"horizon {sched.decode_horizon} exceeds max_seq_len",
+        ))
+    if cache.dtype not in ("bfloat16", "float32", "float16"):
+        issues.append(_err("cache.dtype", f"unsupported KV dtype {cache.dtype!r}"))
+
+    # ---- speculative decoding tiers
+    if sched.speculative_tier == "draft" and cfg.draft_model is None:
+        issues.append(_err(
+            "scheduler.speculative_tier",
+            "tier 'draft' requires a configured draft model "
+            "(EngineConfig.draft_model / --draft-model-path)",
+        ))
+    if sched.speculative and par.pp > 1:
+        issues.append(_warn(
+            "scheduler.speculative",
+            "the fused verify block does not compose with pipeline "
+            "parallelism; pp engines decode non-speculatively",
+        ))
+
+    # ---- dtype coherence (the reference's message, TPU included)
+    if model is not None and model.dtype == "bfloat16" and cache.dtype == "float32":
+        issues.append(_warn(
+            "cache.dtype",
+            "float32 KV with bfloat16 compute doubles KV bandwidth for no "
+            "accuracy gain on TPU",
+        ))
+    return issues
 
 
 def validate_gateway_config(
@@ -283,7 +406,7 @@ def validate_cli_args(args) -> list[ValidationIssue]:
     # ---- parallel mesh shape (serve/worker mode)
     if g("mesh_shape"):
         try:
-            shaped = _mesh_axis_sizes(g("mesh_shape"))
+            shaped = ParallelConfig.from_spec(g("mesh_shape")).axis_sizes()
         except ValueError as e:
             shaped = None
             issues.append(_err("mesh_shape", str(e)))
@@ -313,34 +436,6 @@ def validate_cli_args(args) -> list[ValidationIssue]:
             "silently downgrade gossip to plaintext)",
         ))
     return issues
-
-
-def _mesh_axis_sizes(spec: str) -> dict[str, int]:
-    """Axis sizes of a ``--mesh-shape`` string ("tp=4", "dp=2,tp=4") over
-    all-ones: the reference's ``ParallelConfig.from_spec``, with its errors
-    (an unknown axis, a malformed entry, an axis named twice, a size below
-    1)."""
-    sizes = dict.fromkeys(("dp", "tp", "sp", "ep", "pp"), 1)
-    seen: set[str] = set()
-    for part in (p.strip() for p in spec.split(",") if p.strip()):
-        axis, sep, val = part.partition("=")
-        axis = axis.strip()
-        if not sep or axis not in sizes:
-            raise ValueError(
-                f"mesh-shape entry {part!r}: expected axis=N with axis "
-                f"in {sorted(sizes)}"
-            )
-        if axis in seen:
-            raise ValueError(f"mesh-shape names {axis!r} twice")
-        seen.add(axis)
-        try:
-            n = int(val)
-        except ValueError:
-            raise ValueError(f"mesh-shape entry {part!r}: size must be an int") from None
-        if n < 1:
-            raise ValueError(f"mesh-shape entry {part!r}: size must be >= 1")
-        sizes[axis] = n
-    return sizes
 
 
 def raise_on_errors(issues: list[ValidationIssue], logger=None) -> None:

@@ -1,14 +1,66 @@
 """Engine configuration — the port's own copy of the parts of
-``smg_tpu/engine/config.py`` this engine reads (cache layout, the
-continuous-batching scheduler knobs it implements, speculative decoding,
-engine identity and checkpoint paths, the LoRA bank, failure isolation and
-the flight ring)."""
+``smg_tpu/engine/config.py`` this engine reads (the parallel axes, cache
+layout, the continuous-batching scheduler knobs it implements, speculative
+decoding, engine identity and checkpoint paths, the LoRA bank, failure
+isolation and the flight ring)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 from smg_tpu_torch.models.config import ModelConfig
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Sizes of the named parallel axes (the reference's ``ParallelConfig``).
+
+    ``tp``: tensor parallel, one rank process per shard (``parallel/``);
+    ``dp``, ``sp``, ``ep`` and ``pp`` are parsed and validated as the
+    reference does, and an engine refuses them above 1 until their
+    ``ROADMAP.md`` items land."""
+
+    dp: int = 1
+    tp: int = 1
+    sp: int = 1
+    ep: int = 1
+    pp: int = 1
+
+    @property
+    def world_size(self) -> int:
+        return self.dp * self.tp * self.sp * self.ep * self.pp
+
+    def axis_sizes(self) -> dict[str, int]:
+        return {"dp": self.dp, "tp": self.tp, "sp": self.sp, "ep": self.ep, "pp": self.pp}
+
+    @classmethod
+    def from_spec(cls, spec: str, base: "ParallelConfig | None" = None) -> "ParallelConfig":
+        """Parse a ``--mesh-shape`` string ("tp=4", "dp=2,tp=4") over
+        ``base`` (axes not named keep the base's value).  Raises ValueError
+        on an unknown axis, a malformed entry, an axis named twice or a size
+        below 1."""
+        sizes = (base or cls()).axis_sizes()
+        seen: set[str] = set()
+        for part in (p.strip() for p in spec.split(",") if p.strip()):
+            axis, sep, val = part.partition("=")
+            axis = axis.strip()
+            if not sep or axis not in sizes:
+                raise ValueError(
+                    f"mesh-shape entry {part!r}: expected axis=N with axis "
+                    f"in {sorted(sizes)}"
+                )
+            if axis in seen:
+                # a repeated axis is a typo, not an override
+                raise ValueError(f"mesh-shape names {axis!r} twice")
+            seen.add(axis)
+            try:
+                n = int(val)
+            except ValueError:
+                raise ValueError(f"mesh-shape entry {part!r}: size must be an int") from None
+            if n < 1:
+                raise ValueError(f"mesh-shape entry {part!r}: size must be >= 1")
+            sizes[axis] = n
+        return cls(**sizes)
 
 
 @dataclass(frozen=True)
@@ -121,12 +173,16 @@ class SchedulerConfig:
 @dataclass
 class EngineConfig:
     model: ModelConfig = field(default_factory=ModelConfig)  # sets the weights' dtype
+    # tp > 1 shards the model over rank processes (parallel/); the rest
+    # of the axes are refused above 1
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     seed: int = 0  # random weights (when none are given) and the sampler
     # on the card, replay each decode megastep from a CUDA graph (captured
     # at first use per bucket); False launches every column eagerly.  The
-    # CPU always runs eagerly.
+    # CPU always runs eagerly.  A tp engine whose collectives go over gloo
+    # (parallel/group.py) cannot capture them and refuses True.
     decode_graphs: bool = True
     # speculative draft model (engine/draft.py): a smaller ModelConfig whose
     # greedy proposals replace n-gram lookup, with random weights from

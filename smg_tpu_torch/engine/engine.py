@@ -34,6 +34,7 @@ from __future__ import annotations
 import threading
 import time
 import uuid
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -49,6 +50,9 @@ from smg_tpu_torch.engine.request import EngineRequest, StepOutput
 from smg_tpu_torch.engine.runner import ModelRunner, resolve_device
 from smg_tpu_torch.engine.scheduler import Scheduler
 from smg_tpu_torch.models.llama import init_params
+from smg_tpu_torch.parallel.group import device_backend, resolve_devices
+from smg_tpu_torch.parallel.leader import refusal, start_ranks
+from smg_tpu_torch.parallel.sharding import check_tp
 from smg_tpu_torch.protocols.sampling import SamplingParams
 from smg_tpu_torch.utils import get_logger
 
@@ -87,17 +91,47 @@ class GenerationResult:
 class Engine:
     def __init__(self, config: EngineConfig, params: dict | None = None, device=None,
                  attention: str = "kernel", tokenizer=None, draft_params: dict | None = None,
-                 vision_params: dict | None = None):
+                 vision_params: dict | None = None, devices: list | None = None):
         """``draft_params`` gives the draft model (``config.draft_model``)
         its weights; without them they are random, from ``draft_seed``.
         ``vision_params`` gives a vision-language model's tower its weights
         (``models.weights.load_vision_params``); without them they are
-        random, from the seed (the reference's ``seed ^ 0x71510``)."""
+        random, from the seed (the reference's ``seed ^ 0x71510``).
+
+        ``config.parallel.tp`` > 1 runs one rank process per shard on
+        ``devices`` (the reference's ``Engine(cfg, devices=...)``; left out,
+        ``cuda:0 .. cuda:tp-1``; a list that repeats a CUDA device puts
+        ranks on one card, over gloo).  The engine raises when the machine
+        has fewer devices than the mesh, and ``close()`` stops the ranks;
+        ``parallel/group.py::TP_TIMEOUT_S`` bounds every collective and
+        rendezvous.  A tp engine refuses the other axes above 1, the expert
+        layer and the vision tower at construction, LoRA, embeddings and the
+        PD legs when called, each naming its ``ROADMAP.md`` item."""
         if config.scheduler.speculative_tier == "draft" and config.draft_model is None:
             raise ValueError("scheduler.speculative_tier 'draft' requires a configured "
                              "draft model (EngineConfig.draft_model)")
         self.config = config
         self.tokenizer = tokenizer
+        self._leader = None
+        par = config.parallel
+        for axis in ("dp", "pp", "sp", "ep"):
+            if getattr(par, axis) > 1:
+                raise refusal(axis)
+        if par.tp > 1:
+            if config.model.num_experts:
+                raise refusal("experts")
+            if config.model.vision is not None:
+                raise refusal("vision")
+            check_tp(config.model, par.tp)
+            devices = resolve_devices(par, devices)
+            if config.decode_graphs and device_backend(devices) == "gloo":
+                raise ValueError(
+                    "decode_graphs=True needs the nccl backend: gloo collectives "
+                    f"(ranks on {[str(d) for d in devices]}) cannot be captured in a "
+                    "CUDA graph; set EngineConfig.decode_graphs=False")
+            device = devices[0]
+        elif devices:
+            device = devices[0]
         self.events = KvEventPublisher()
         if config.draft_model is not None and draft_params is None:
             # the draft's weights go on the device before the runner sizes
@@ -118,13 +152,19 @@ class Engine:
                     config.model.vision,
                     torch.Generator(device=dev).manual_seed(config.seed ^ 0x71510), dev)
             self._vision_params = _tree_to(vision_params, dev)
-        self.runner = ModelRunner(config, params=params, device=device, attention=attention)
+        if par.tp > 1:
+            self.runner, self._leader = start_ranks(config, params, devices, attention)
+            # the ranks stop when the engine is dropped or the process exits
+            self._close_ranks = weakref.finalize(self, self._leader.close)
+        else:
+            self.runner = ModelRunner(config, params=params, device=device,
+                                      attention=attention)
         # the engine's own registry; the gateway also registers it into its
         # registry, so /metrics is one scrape
         self.metrics = EngineMetrics(
             window_secs=config.metrics_window_secs,
             device_sample_interval_secs=config.device_metrics_interval_secs)
-        self.metrics.set_mesh_devices(1)
+        self.metrics.set_mesh_devices(self.runner.mesh_devices)
         self.scheduler = Scheduler(self.runner, config, event_sink=self.events.publish,
                                    metrics=self.metrics)
         if config.draft_model is not None:
@@ -287,6 +327,7 @@ class Engine:
 
         from smg_tpu_torch.models import lora as lora_mod
 
+        self._refuse_under_tp("lora")
         if data is not None:
             weights = lora_mod.load_npz(data)
         elif path is None:
@@ -333,12 +374,14 @@ class Engine:
 
     @property
     def healthy(self) -> bool:
-        """False while the step watchdog sees a stall, or after
-        ``max_consecutive_step_failures`` failed steps in a row; the
-        gateway's health monitor and breakers route around it."""
+        """False while the step watchdog sees a stall, after
+        ``max_consecutive_step_failures`` failed steps in a row, or once a
+        tensor-parallel engine lost a rank; the gateway's health monitor and
+        breakers route around it."""
         return (not self._stalled
                 and self.scheduler.consec_step_failures
-                < self.config.max_consecutive_step_failures)
+                < self.config.max_consecutive_step_failures
+                and (self._leader is None or self._leader.alive))
 
     def loads(self, include_audit: bool = True) -> dict:
         """The scheduler's load counters, health and watchdog stalls;
@@ -408,6 +451,7 @@ class Engine:
         Runs under the engine lock, so never inside a step or a graph
         capture, and on the device's default stream, which the loop
         thread's launches use too: it runs after the work they enqueued."""
+        self._refuse_under_tp("embeddings")
         with self._lock:
             return self.runner.embed(batches)
 
@@ -470,6 +514,7 @@ class Engine:
         overlap frame may be in flight: see ``Scheduler.prefill_only``)."""
         from smg_tpu_torch.engine.kv_connector import get_connector
 
+        self._refuse_under_tp("pd")
         conn = get_connector(connector)
         with self._lock:
             tok, pages, seq_len = self.scheduler.prefill_only(
@@ -492,6 +537,7 @@ class Engine:
         does: that keeps it alive under pressure (a warning is logged)."""
         from smg_tpu_torch.engine.kv_connector import resolve_for_payload
 
+        self._refuse_under_tp("pd")
         rid = rid or f"req-{uuid.uuid4().hex[:16]}"
         req = EngineRequest(rid=rid, prompt_ids=list(prompt_ids), sampling=sampling)
         req.trace_id = trace_id
@@ -696,6 +742,17 @@ class Engine:
         if self._watchdog is not None:
             self._watchdog.join(timeout=5)
             self._watchdog = None
+
+    def close(self) -> None:
+        """``stop()``, then stop a tensor-parallel engine's rank processes:
+        none outlives the engine.  Idempotent."""
+        self.stop()
+        if self._leader is not None:
+            self._close_ranks()
+
+    def _refuse_under_tp(self, what: str) -> None:
+        if self._leader is not None:
+            raise refusal(what)
 
     def _watchdog_loop(self) -> None:
         """Flags the engine unhealthy when no step completes for

@@ -15,6 +15,7 @@ import torch
 from smg_tpu_torch.engine.config import CacheConfig, SchedulerConfig
 from smg_tpu_torch.models.config import ModelConfig
 from smg_tpu_torch.models.llama import moe_scratch_bytes, torch_dtype
+from smg_tpu_torch.parallel.sharding import rank_config
 
 
 class OutOfPagesError(RuntimeError):
@@ -95,7 +96,7 @@ def vision_reserve_bytes(model: ModelConfig) -> int:
 def plan_cache(model: ModelConfig, cache: CacheConfig,
                free_bytes: int | None = None,
                draft: ModelConfig | None = None,
-               reserve_bytes: int = 0) -> KvCacheSpec:
+               reserve_bytes: int = 0, tp: int = 1) -> KvCacheSpec:
     """Decide num_pages.  With ``auto_size`` and a known free device-memory
     figure (``torch.cuda.mem_get_info``, taken after the weights, the
     draft model's included, are resident), give ``hbm_utilization`` of it
@@ -106,7 +107,15 @@ def plan_cache(model: ModelConfig, cache: CacheConfig,
     leaves is about 2 GB, less than a prefill chunk's expert scratch and a
     graph pool together.  A ``draft`` model (``engine/draft.py``) keeps a
     cache of its own with a page for every page of the target's, so each
-    page costs both."""
+    page costs both.
+
+    ``tp`` > 1 plans one tensor-parallel rank's cache, as the reference
+    sizes KV per device from ``tp``: ``model`` is the whole model, the spec
+    holds the rank's KV heads (``parallel/sharding.py::rank_config``: a
+    share of them, or one replicated head), and ``free_bytes`` is the
+    rank's share of its device."""
+    if tp > 1:
+        model = rank_config(model, tp)
     spec = KvCacheSpec(
         num_layers=model.num_layers, num_pages=cache.num_pages,
         page_size=cache.page_size, num_kv_heads=model.num_kv_heads,

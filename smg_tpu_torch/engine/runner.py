@@ -70,6 +70,7 @@ from smg_tpu_torch.engine.sampling import apply_penalties, pick_sampler, spec_ac
 from smg_tpu_torch.models.llama import LlamaModel, init_params
 from smg_tpu_torch.models.lora import LoraBank, canonical_keys, validate_adapter
 from smg_tpu_torch.ops.cuda import decode_attention
+from smg_tpu_torch.parallel.sharding import param_sharder, rank_config, shard_params
 from smg_tpu_torch.utils import get_logger
 
 logger = get_logger("engine.runner")
@@ -179,31 +180,58 @@ class SpecLaunch:
 
 class ModelRunner:
     def __init__(self, config: EngineConfig, params: dict | None = None,
-                 device=None, attention: str = "kernel"):
+                 device=None, attention: str = "kernel", tp_rank: int = 0,
+                 groups=None):
+        """``groups`` (``parallel/group.py::RankGroups``) makes this rank
+        ``tp_rank`` of a tensor-parallel engine: it holds its shard of the
+        weights (``params`` the whole model, or None for weights from the
+        seed, drawn whole and sliced layer by layer), computes with the
+        rank's config (``model_cfg``) and sizes its KV cache by the rank's
+        KV heads, all ranks agreeing on the page count."""
         self.config = config
-        self.model_cfg = config.model
+        self.groups = groups
+        tp = config.parallel.tp if groups is not None else 1
+        self.model_cfg = config.model if tp == 1 else rank_config(config.model, tp)
         self.device = resolve_device(device)
+        shard = param_sharder(config.model, tp, tp_rank) if tp > 1 else None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
-            params = init_params(self.model_cfg, gen, self.device)
+            params = (init_params(config.model, gen, self.device) if shard is None
+                      else init_params(config.model, gen, self.device, shard=shard))
         else:
+            if shard is not None:
+                params = shard_params(params, config.model, tp, tp_rank)[1]
             params = _to_device(params, self.device)
-        self.model = LlamaModel(self.model_cfg, params, attention=attention)
+        self.model = LlamaModel(self.model_cfg, params, attention=attention, tp=groups)
         free = None
         if self.device.type == "cuda":
             # weights already resident; blocks the allocator caches but no
             # tensor holds (an earlier engine's, a widened dtype's) count as free
             torch.cuda.empty_cache()
+            if groups is not None:
+                groups.barrier()  # every rank's weights resident before the read
             free = torch.cuda.mem_get_info(self.device)[0]
+            if groups is not None:  # ranks sharing the card share its free memory
+                free //= groups.ranks_on_device
         self.free_bytes = free  # the free figure the KV plan read (None on the CPU)
         # the expert layer's scratch and the vision tower's peak at the
         # largest image are set aside before KV is sized
         self.reserve_bytes = (moe_reserve_bytes(self.model_cfg, config.scheduler)
                               + vision_reserve_bytes(self.model_cfg))
-        self.spec: KvCacheSpec = plan_cache(self.model_cfg, config.cache, free,
+        self.spec: KvCacheSpec = plan_cache(config.model, config.cache, free,
                                             draft=config.draft_model,
-                                            reserve_bytes=self.reserve_bytes)
+                                            reserve_bytes=self.reserve_bytes, tp=tp)
+        if groups is not None:  # every rank's cache holds the page pool rank 0 hands out
+            self.spec.num_pages = groups.min_int(self.spec.num_pages)
         self.k_cache, self.v_cache = create_kv_buffers(self.spec, self.device)
+        # mesh topology, fixed at construction: the device count the metrics
+        # gauge and the flight ring read, and the loads() snapshot
+        self.mesh_devices = tp
+        self._mesh_info = {
+            "devices": tp, "shape": config.parallel.axis_sizes(),
+            "platform": self.device.type,
+            "backend": groups.backend if groups is not None else None,
+        }
         self.max_pages_per_seq = math.ceil(
             config.scheduler.max_seq_len / config.cache.page_size)
         # the sampler's noise is a function of (seed, counter, row): the
@@ -230,6 +258,12 @@ class ModelRunner:
         # PD handoffs by leg and route (export_pages*/import_pages*)
         self.kv_handoffs = dict(export_host=0, export_device=0, import_host=0,
                                 import_device=0)
+
+    def mesh_info(self) -> dict:
+        """Mesh topology for ``loads()`` and ``/scheduler``: device count,
+        the five axes' sizes, the platform and the device group's backend
+        (None on one device); a copy."""
+        return {**self._mesh_info, "shape": dict(self._mesh_info["shape"])}
 
     # ---- graph families: audit and invalidation ----
 
@@ -753,10 +787,11 @@ class ModelRunner:
 
     @property
     def supports_kv_transfer(self) -> bool:
-        """True when this engine can serve and accept KV pulls: every port
-        engine is single-device (CUDA IPC on the card, shared memory on the
-        CPU)."""
-        return self.device.type in ("cuda", "cpu")
+        """True when this engine can serve and accept KV pulls: a
+        single-device engine (CUDA IPC on the card, shared memory on the
+        CPU); a tensor-parallel one refuses the PD legs, as the reference
+        turns ``transfer`` off on a mesh."""
+        return self.groups is None and self.device.type in ("cuda", "cpu")
 
     def export_pages_device(self, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
         """Gather KV pages into fresh tensors on this engine's device:

@@ -334,6 +334,8 @@ class Scheduler:
             "draining": self.draining,
             "dispatch_enqueue_seconds": self.dispatch_enqueue_s_total,
             "fetch_wait_seconds": self.fetch_wait_s_total,
+            # mesh topology: devices, the axes' sizes, platform, backend
+            "mesh": self.runner.mesh_info(),
             **self.runner.graphs.stats(),
         }
         if self.metrics is not None:
@@ -426,6 +428,7 @@ class Scheduler:
                     fetch_wait_s=self._step_fetch_s,
                     faults=self._step_fault_phases + (["loop"] if escaped else []),
                     horizon=self._step_horizon,
+                    mesh=self.runner.mesh_devices,
                     early_exits=self.num_megastep_early_exits - ee0,
                     wasted_decode_tokens=self.num_wasted_decode_tokens - we0,
                     spec_drafted=self._step_spec_drafted,

@@ -45,8 +45,19 @@ def build_engine_from_args(args):
     ``--dtype``, its tokenizer, ``model_id`` = the path), or a preset with
     random weights from ``seed``; a vision-language checkpoint's tower loads
     from the same directory.  A draft model comes from
-    ``--draft-model-path`` (its checkpoint) or ``--draft-model-preset``."""
-    from smg_tpu_torch.engine.config import CacheConfig, EngineConfig, SchedulerConfig
+    ``--draft-model-path`` (its checkpoint) or ``--draft-model-preset``.
+
+    ``--tp`` and ``--mesh-shape`` build the ``ParallelConfig`` as the
+    reference does; a mesh larger than the devices present exits with the
+    reference's message before anything loads.  Ranks whose collectives go
+    over gloo (the CPU, or ranks sharing a card) decode eagerly: the engine
+    is built with ``decode_graphs=False`` and the log says so."""
+    from smg_tpu_torch.engine.config import (
+        CacheConfig,
+        EngineConfig,
+        ParallelConfig,
+        SchedulerConfig,
+    )
     from smg_tpu_torch.engine.engine import Engine
     from smg_tpu_torch.models.config import PRESETS, ModelConfig
     from smg_tpu_torch.models.weights import load_params, load_vision_params
@@ -64,12 +75,32 @@ def build_engine_from_args(args):
                 model, vision=dataclasses.replace(model.vision, dtype=args.dtype))
     else:
         raise SystemExit("need --model-path or --model-preset")
+    parallel = ParallelConfig(tp=args.tp)
+    if args.mesh_shape:
+        # validate_cli_args already refused a conflict with --tp
+        parallel = ParallelConfig.from_spec(args.mesh_shape, base=parallel)
+    devices, graphs = None, True
+    if parallel.world_size > 1:
+        from smg_tpu_torch.parallel.group import device_backend, resolve_devices
+
+        named = [d for d in args.device.split(",") if d]
+        if named == ["cpu"]:
+            named = ["cpu"] * parallel.world_size
+        try:
+            devices = resolve_devices(parallel, None if named == ["cuda"] else named)
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from None
+        graphs = device_backend(devices) == "nccl"
+        logger.info("parallel mesh: %s over %s (%s collectives%s)", parallel.axis_sizes(),
+                    [str(d) for d in devices], "nccl" if graphs else "gloo",
+                    "" if graphs else "; decode megasteps run eagerly: gloo cannot be "
+                    "captured in a CUDA graph")
     draft_model = draft_params = None
     if args.draft_model_path:
         draft_model = ModelConfig.from_pretrained(args.draft_model_path, dtype=args.dtype)
         draft_params = load_params(EngineConfig(model=draft_model,
                                                 model_path=args.draft_model_path),
-                                   device=args.device)
+                                   device=str(devices[0]) if devices else args.device)
     elif args.draft_model_preset:
         if args.draft_model_preset not in PRESETS:
             raise SystemExit(f"unknown --draft-model-preset {args.draft_model_preset!r}; "
@@ -104,6 +135,8 @@ def build_engine_from_args(args):
             speculative_tier=args.speculative_tier,
         ),
         draft_model=draft_model,
+        parallel=parallel,
+        decode_graphs=graphs,
         model_id=args.model_path or args.model_preset,
         step_watchdog_secs=args.step_watchdog_secs,
         metrics_window_secs=args.metrics_window_secs,
@@ -115,7 +148,8 @@ def build_engine_from_args(args):
     )
     params = vision_params = None
     if args.model_path:
-        params = load_params(cfg, device=args.device)
+        # a tp engine's ranks each take their slice of the whole host copy
+        params = load_params(cfg, device="cpu" if devices is not None else args.device)
         if model.vision is not None:
             vision_params = load_vision_params(cfg, device=args.device)
     if cfg.tokenizer_path:
@@ -126,6 +160,9 @@ def build_engine_from_args(args):
             eos_token_id=(model.eos_token_ids or (0,))[0],
             bos_token_id=model.bos_token_id,
         )
+    if devices is not None:
+        return Engine(cfg, params=params, tokenizer=tokenizer, devices=devices,
+                      draft_params=draft_params, vision_params=vision_params)
     return Engine(cfg, params=params, tokenizer=tokenizer, device=args.device,
                   draft_params=draft_params, vision_params=vision_params)
 

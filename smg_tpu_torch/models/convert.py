@@ -10,6 +10,8 @@ vision tower's tree (``smg_tpu/models/vit.py::init_vision_params``) bridges
 through ``vision_params_from_jax`` with its nesting and layouts unchanged.
 A training state (``smg_tpu/train/step.py::TrainState``) bridges through
 ``train_state_from_jax``: the params and optax's AdamW moments folded alike.
+A tensor-parallel engine takes the whole bridged dict, and each rank keeps
+its slice (``parallel/sharding.py::shard_params``).
 """
 
 from __future__ import annotations

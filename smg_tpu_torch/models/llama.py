@@ -88,22 +88,29 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: torch.device | str) -> dict:
+                device: torch.device | str, shard=None) -> dict:
     """Random weights with the shapes and init scales of the JAX package's
     ``init_params`` (``smg_tpu/models/llama.py``).  The numbers differ (no
     threefry); tests that need identical weights bridge them with
-    ``models/convert.py::params_from_jax``."""
+    ``models/convert.py::params_from_jax``.  ``shard(name, t)`` (a tensor-
+    parallel rank's ``parallel/sharding.py::param_sharder``) keeps its slice
+    of each layer as it is drawn: the draws, and so the model, are those of
+    the whole one."""
     E, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     H, K, D, V = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size
     dtype = torch_dtype(cfg.dtype)
 
-    def normal(shape, scale):
+    def normal(shape, scale, name=None):
         if len(shape) == 2:
-            return (torch.randn(shape, generator=generator, device=device,
-                                dtype=torch.float32) * scale).to(dtype)
-        out = torch.empty(shape, dtype=dtype, device=device)
+            t = (torch.randn(shape, generator=generator, device=device,
+                             dtype=torch.float32) * scale).to(dtype)
+            return t if shard is None or name is None else shard(name, t)
+        out = None
         for i in range(shape[0]):  # layer by layer (expert by expert): bounded f32 scratch
-            out[i] = normal(shape[1:], scale)
+            part = normal(shape[1:], scale, name)
+            if out is None:
+                out = torch.empty((shape[0], *part.shape), dtype=dtype, device=device)
+            out[i] = part
         return out
 
     def const(shape, value):
@@ -112,10 +119,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     norm_one = 0.0 if cfg.rms_unit_offset else 1.0  # Gemma stores w as a delta
     layers = {
         "attn_norm": const((L, E), norm_one),
-        "wq": normal((L, E, H * D), 0.02),
-        "wk": normal((L, E, K * D), 0.02),
-        "wv": normal((L, E, K * D), 0.02),
-        "wo": normal((L, H * D, E), 0.02 / math.sqrt(2 * L)),
+        "wq": normal((L, E, H * D), 0.02, "wq"),
+        "wk": normal((L, E, K * D), 0.02, "wk"),
+        "wv": normal((L, E, K * D), 0.02, "wv"),
+        "wo": normal((L, H * D, E), 0.02 / math.sqrt(2 * L), "wo"),
         "mlp_norm": const((L, E), norm_one),
     }
     if cfg.num_experts:  # Qwen-MoE: the router and the stacked expert MLPs
@@ -125,9 +132,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers["w_up"] = normal((L, X, E, Fm), 0.02)
         layers["w_down"] = normal((L, X, Fm, E), 0.02 / math.sqrt(2 * L))
     else:
-        layers["w_gate"] = normal((L, E, Fd), 0.02)
-        layers["w_up"] = normal((L, E, Fd), 0.02)
-        layers["w_down"] = normal((L, Fd, E), 0.02 / math.sqrt(2 * L))
+        layers["w_gate"] = normal((L, E, Fd), 0.02, "w_gate")
+        layers["w_up"] = normal((L, E, Fd), 0.02, "w_up")
+        layers["w_down"] = normal((L, Fd, E), 0.02 / math.sqrt(2 * L), "w_down")
     if cfg.post_norms:
         layers["post_attn_norm"] = const((L, E), norm_one)
         layers["post_mlp_norm"] = const((L, E), norm_one)
@@ -135,12 +142,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers["q_norm"] = const((L, D), 1.0)
         layers["k_norm"] = const((L, D), 1.0)
     params = {
-        "embed": normal((V, E), 0.02),
+        "embed": normal((V, E), 0.02, "embed"),
         "layers": layers,
         "final_norm": const((E,), norm_one),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = normal((E, V), 0.02)
+        params["lm_head"] = normal((E, V), 0.02, "lm_head")
     return params
 
 
@@ -312,14 +319,29 @@ class LlamaModel(nn.Module):
     """The decoder.  Caches are ``[L, P, ps, K*D]`` (fused lanes,
     page 0 = garbage page) and are written in place.  Each value of
     ``params["layers"]`` is a stacked ``[L, ...]`` tensor, or (training) a
-    sequence of L per-layer tensors that require grad."""
+    sequence of L per-layer tensors that require grad.
 
-    def __init__(self, cfg: ModelConfig, params: dict, attention: str = "kernel"):
+    Tensor parallel: given ``tp`` (a rank's ``parallel/group.py::RankGroups``),
+    ``cfg`` is the rank's config (``parallel/sharding.py::rank_config``) and
+    ``params`` its shard.  The attention output projection and ``w_down``
+    give partial sums that are all-reduced before the post-norm (Gemma-2's
+    ``post_norms`` need the whole sum) and the residual add; a vocab-sharded
+    embedding is a masked lookup of the rank's rows, all-reduced; the
+    logits of the rank's vocab columns are all-gathered before the final
+    softcap.  Without ``tp`` nothing changes.  The attention calls are the
+    same either way, so the kernels run on every rank at its head counts."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, attention: str = "kernel", tp=None):
         super().__init__()
         if attention not in ATTENTION_IMPLS:
             raise ValueError(f"attention must be one of {ATTENTION_IMPLS}, got {attention!r}")
         self.cfg = cfg
         self.attention = attention
+        self.tp = tp
+        rows = params["embed"].shape[0]
+        # first vocab row of this rank's embedding slice (None: whole vocab)
+        self.vocab_start = (tp.rank * rows if tp is not None and rows != cfg.vocab_size
+                            else None)
         self.scale = cfg.query_scale or 1.0 / math.sqrt(cfg.head_dim)
         self.layers = nn.Module()  # the layer weights, one buffer (or sequence) each
         self.moe = "router" in params["layers"]
@@ -350,7 +372,13 @@ class LlamaModel(nn.Module):
         return rms_norm(x, w, self.cfg.rms_norm_eps, unit_offset=self.cfg.rms_unit_offset)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        h = self.embed[tokens.long()]
+        if self.vocab_start is None:
+            h = self.embed[tokens.long()]
+        else:  # the rank's rows; every other rank adds zeros
+            local = tokens.long() - self.vocab_start
+            mine = (local >= 0) & (local < self.embed.shape[0])
+            h = self.embed[torch.where(mine, local, 0)]
+            h = self.tp.all_reduce(torch.where(mine[..., None], h, 0))
         if self.embed_scale is not None:
             h = h * self.embed_scale
         return h
@@ -359,6 +387,8 @@ class LlamaModel(nn.Module):
         h = self._norm(h, self.final_norm)
         w = self.embed.t() if self.cfg.tie_word_embeddings else self.lm_head
         logits = torch.matmul(h, w).float()
+        if self.vocab_start is not None:
+            logits = self.tp.all_gather(logits)
         c = self.cfg.final_logit_softcap
         if c:
             logits = c * torch.tanh(logits / c)
@@ -388,6 +418,8 @@ class LlamaModel(nn.Module):
         o = torch.matmul(flat, self.layers.wo[l])
         if lora is not None:
             o = o + lora_delta(flat, lora["wo_a"][l], lora["wo_b"][l], gates)
+        if self.tp is not None:
+            o = self.tp.all_reduce(o)
         if self.cfg.post_norms:
             o = self._norm(o, self.layers.post_attn_norm[l])
         return h + o
@@ -406,6 +438,8 @@ class LlamaModel(nn.Module):
             else:
                 act = F.silu(gate)
             o = torch.matmul(act * up, ly.w_down[l])
+        if self.tp is not None:
+            o = self.tp.all_reduce(o)
         if self.cfg.post_norms:
             o = self._norm(o, ly.post_mlp_norm[l])
         return h + o

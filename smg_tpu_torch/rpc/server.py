@@ -503,7 +503,8 @@ async def serve_worker_async(engine, port: int, host: str = "0.0.0.0",
 
 
 def serve_worker(engine, port: int, host: str = "0.0.0.0") -> int:
-    """Serve until SIGTERM or SIGINT, then stop the engine."""
+    """Serve until SIGTERM or SIGINT, then close the engine (a tensor-
+    parallel engine's rank processes with it)."""
     async def _main():
         server = await serve_worker_async(engine, port, host)
         stop = asyncio.Event()
@@ -521,5 +522,5 @@ def serve_worker(engine, port: int, host: str = "0.0.0.0") -> int:
     try:
         asyncio.run(_main())
     finally:
-        engine.stop()
+        engine.close()
     return 0

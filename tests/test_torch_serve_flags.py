@@ -103,9 +103,11 @@ NEW_FLAGS = [
     # the HA mesh
     ("--mesh-port", "7946"), ("--mesh-seed", "h:1"), ("--mesh-tls-cert", "c"),
     ("--mesh-tls-key", "k"), ("--mesh-tls-ca", "a"),
+    # tensor parallelism
+    ("--tp", "2"), ("--tensor-parallel-size", "4"), ("--mesh-shape", "tp=2"),
 ]
 #: flags of modules not ported yet (ROADMAP Queue A lists them by item)
-REFUSED = [["--tp", "2"], ["--dp", "2"], ["--mesh-shape", "tp=2"]]
+REFUSED = [["--dp", "2"]]
 BASE = ["serve", "--model-preset", "tiny"]
 
 
