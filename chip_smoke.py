@@ -18,7 +18,7 @@
     python3 chip_smoke.py --phases train   # build + kernels + phase 18 only
     python3 chip_smoke.py --phases breadth   # build + kernels + phase 12 (d) only
     python3 chip_smoke.py --phases dp   # build + kernels + phase 19 only
-    python3 chip_smoke.py --phases tp   # build + kernels + phase 20 only
+    python3 chip_smoke.py --phases tp   # build + kernels + phases 20-21 only
 
 Phases (any failure makes the script exit non-zero and print no result):
 
@@ -479,19 +479,28 @@ Phases (any failure makes the script exit non-zero and print no result):
    ranks 0 and 1, through ``--no-dp-aware`` all -1; every page back on
    every engine and launches exact.  Readings: each replica's decode
    column on 4 lanes alone and with the other decoding;
-20. tensor parallelism, in a process of its own: first a probe of
+20-21. rank meshes, in a process of its own: first a probe of
    whether NCCL accepts two ranks on ``cuda:0`` (printed; refused, the
    ranks share the card over gloo collectives and decode eagerly).  (a)
    Llama-3-8B at full width, ``F32_LAYERS`` layers, float32, weights from
-   one seed: a tp=2 engine's greedy streams (phase 3's requests: a chunked
-   long prompt, a radix hit, horizon 4, the loop thread with overlap) equal
-   a tp=1 engine's and its first-token logits are within
-   ``F32_LOGIT_ATOL``; (b) all 32 layers in bf16, 4 lanes of 16 tokens
-   through the tp=2 engine: each rank's kernel launches equal 32 x its
-   decode columns and 32 x its prefill calls, audit clean.  Readings: ms a
-   decode column beside a tp=1 engine's on the same eager path, bytes
-   resident per rank.  (c) ``serve --tp 2`` with no device list exits
-   non-zero with "needs 2 devices, found 1"; (d) no rank process is left;
+   one seed, a prefill budget of 1024: tp=2, pp=2, pp=2 x tp=2 and sp=2
+   engines' greedy streams (phase 3's requests: a chunked long prompt, a
+   radix hit, horizon 4, the loop thread with overlap) equal a tp=1
+   engine's, their first-token logits are within ``F32_LOGIT_ATOL`` and
+   each rank's launches equal its layers x its schedule; sp=2 rings the
+   long prompt's cold 1024-token first chunk (the runner's prefill keys);
+   (b) all 32 layers in bf16, 4 lanes of 16 tokens through tp=2, then
+   pp=2: each rank's kernel launches equal its layers (32 a tp rank, 16 a
+   stage) x its decode columns and x its prefill calls, audit clean.
+   Readings: ms a decode column beside a tp=1 engine's on the same eager
+   path, bytes resident per rank and per stage.  (c) the ring over two sp
+   rank threads against the prefill kernel on one bf16 chunk of 1024
+   tokens, held with phase 2's tolerance.  (d) Qwen3-30B-A3B at full width:
+   ep=2 in float32 at ``F32_LAYERS`` layers equal to ep=1, then bf16 at
+   the greatest depth whose two ranks fit the free card (printed with the
+   bytes a rank), launches exact per rank.  (e) ``serve --tp 2`` and
+   ``serve --pp 2`` with no device list exit non-zero with "needs 2
+   devices, found 1"; (f) no rank process is left;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
@@ -503,7 +512,9 @@ Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    ``launches_realtime`` from phase 17, ``launches_train`` from phase 18
    (b), ``launches_breadth`` from phase 12 (d)'s family chats,
    ``launches_dp`` from phase 19's process, ``launches_tp`` from phase
-   20 (b)'s two rank processes, summed) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
+   20 (b)'s two rank processes, summed, ``launches_pp``, ``launches_sp`` and
+   ``launches_ep`` from phase 21 (b)'s stages, (a)'s sp ranks and (d)'s ep
+   ranks, each summed) and, last, ``{"ok": true, "device": ...}`` (``--phases kernels``,
    ``checkpoint``, ``moe``, ``api``, ``vision``, ``pd``, ``transfer``,
    ``launch``, ``routing``, ``mesh``, ``responses``, ``messages``,
    ``realtime``, ``train``, ``breadth``, ``dp`` and ``tp`` print neither).
@@ -7584,9 +7595,16 @@ def launch_routing(urls: dict, ports: dict, expect,
                    f"[routing/prefix_hash] family {fam}: workers and cached tokens {got}")
         out["prefix_hash"] = {f"family{f}": got for f, got in picks.items()}
         out["prefix_hash_s"] = time.perf_counter() - t0
-        # consistent_hashing: stable keys; a drained worker's keys alone move
+        # consistent_hashing: stable keys; a drained worker's keys alone move.
+        # The gateway may bind before its registration of the second worker
+        # (started late, retried with backoff) ends: the keys spread only
+        # once the ring holds both
         t0 = time.perf_counter()
         port = gateways["consistent_hashing"][1]
+        out["consistent_hashing_wait_s"] = _until(
+            lambda: len({w["worker_id"] for w in _http(port, "GET", "/workers")[1]["workers"]
+                         if w.get("healthy", True)}) == 2,
+            "[routing/consistent_hashing] both workers registered", timeout=LOOP_WAIT_S)
         prompts = [ids(40) for _ in range(12)]
         first = [_routed_chat(port, q)[1]["chosen"] for q in prompts]
         again = [_routed_chat(port, q)[1]["chosen"] for q in prompts]
@@ -10599,15 +10617,34 @@ def phase_dp(dev, card: str) -> dict:
     return out
 
 
-TP_SIZE = 2  # ranks of phase 20's engines, both on the one card
+TP_SIZE = 2  # ranks of phase 20's tp engines, both on the one card
 TP_PAGES = 512  # KV pages of (a)'s float32 engines (each rank's, pinned)
 TP_BF16_PAGES = 1024  # KV pages of (b)'s bf16 engines
-TP_NEW = 16  # new tokens of each of (a)'s requests and (b)'s lanes
-TP_LANES = 4  # (b)'s lanes
+TP_NEW = 16  # new tokens of each of (a)'s requests and (b)'s and (d)'s lanes
+TP_LANES = 4  # (b)'s and (d)'s lanes
 TP_PROBE_S = 90  # the NCCL probe's processes, start to exit
-TP_WAIT_S = 420  # the phase's process, start to exit
+TP_WAIT_S = 600  # the phase's process, start to exit
 TP_REFUSAL = f"needs {TP_SIZE} devices, found 1"
-TP_DEVICE = "cuda:0"  # the one card every rank of phase 20 shares
+TP_DEVICE = "cuda:0"  # the one card every rank of phases 20-21 shares
+# (a)'s float32 engines' prefill budget: phase 3's long prompt's cold first
+# chunk is then 1024 tokens, which sp=2 ring-attends (bucket 1024, even)
+MESH_PREFILL = 1024
+# (a)'s rank meshes beside tp=1, in the order they run
+MESH_F32 = {"tp2": dict(tp=2), "pp2": dict(pp=2), "pp2_tp2": dict(pp=2, tp=2),
+            "sp2": dict(sp=2)}
+EP_LANES = 2  # (d)'s bf16 lanes
+EP_PROMPT = 64  # (d)'s first lane's prompt (the second's 40 longer)
+EP_NEW = 8  # new tokens of each of (d)'s bf16 lanes
+EP_PAGES = 64  # KV pages of each ep rank of (d)'s bf16 engine
+# (d)'s room beside its ranks' weights: KV, the expert layer's scratch, the
+# two rank processes' CUDA contexts and cuBLAS workspaces, the allocator
+EP_MARGIN = 6 << 30
+# the device bytes phases 20-21's engines hold at once beside phase 19's
+# (~25 GB; the tensor-parallel checks alone peaked near 32 GB there), and the longest a
+# build waits for its bytes
+MESH_BUDGET = 44 << 30
+MESH_ROOM_S = 120
+RANK_OVERHEAD = 1 << 30  # a rank process's CUDA context, workspaces and allocator slack
 
 
 def nccl_probe_rank(rank: int, port: int, queue) -> None:
@@ -10673,13 +10710,13 @@ def nccl_probe() -> dict:
                 exit_codes=[p.exitcode for p in procs], seconds=time.perf_counter() - t0)
 
 
-def _tp_engine(cfg, tp: int, pages: int, graphs: bool, tok, overlap: bool = True):
-    """Phase 20's engine: phase 5's scheduler settings, ``pages`` KV pages
-    a rank, weights from seed 0 (a tp rank draws them whole and keeps its
-    slice); tp > 1 on ``cuda:0`` repeated (gloo collectives).  ``overlap``
+def _tp_engine(cfg, pages: int, tok, graphs: bool = False, overlap: bool = True,
+               prefill: int = 512, **axes):
+    """Phases 20-21's engine: phase 5's scheduler settings with a prefill
+    budget of ``prefill``, ``pages`` KV pages a rank, weights from seed 0 (a
+    rank draws them whole and keeps its part); a rank mesh of ``axes`` (tp,
+    pp, sp, ep) on ``cuda:0`` repeated (gloo collectives).  ``overlap``
     off: the eager synchronous path of phase 3's ``eager`` engine."""
-    import dataclasses
-
     from smg_tpu_torch.engine.config import (
         CacheConfig,
         EngineConfig,
@@ -10688,30 +10725,32 @@ def _tp_engine(cfg, tp: int, pages: int, graphs: bool, tok, overlap: bool = True
     )
     from smg_tpu_torch.engine.engine import Engine
 
+    par = ParallelConfig(**axes)
     ecfg = EngineConfig(
-        model=cfg, parallel=ParallelConfig(tp=tp),
+        model=cfg, parallel=par,
         cache=CacheConfig(page_size=PS, num_pages=pages, auto_size=False, dtype=cfg.dtype),
-        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096, max_prefill_tokens=512,
-                                  decode_horizon=4, overlap_schedule=overlap),
+        scheduler=SchedulerConfig(max_batch_size=8, max_seq_len=4096,
+                                  max_prefill_tokens=prefill, decode_horizon=4,
+                                  overlap_schedule=overlap),
         decode_graphs=graphs, model_id=SERVE_MODEL)
-    if tp == 1:
+    if par.world_size == 1:
         return Engine(ecfg, device=TP_DEVICE, tokenizer=tok)
-    return Engine(ecfg, devices=[TP_DEVICE] * tp, tokenizer=tok)
+    return Engine(ecfg, devices=[TP_DEVICE] * par.world_size, tokenizer=tok)
 
 
-def _lanes_requests(seed: int):
+def _lanes_requests(seed: int, lanes: int = TP_LANES, length: int = 200):
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    first = [(f"lane{i}", rng.integers(1000, 120000, 200 + 40 * i).tolist())
-             for i in range(TP_LANES)]
+    first = [(f"lane{i}", rng.integers(1000, 120000, length + 40 * i).tolist())
+             for i in range(lanes)]
     return lambda engine: (first, [], first[0][0])
 
 
 def tp1_column_ms(engine) -> float:
     """ms a decode column of phase 20 (b)'s lanes on a tp=1 engine of the same
     weights on the eager synchronous path (``drive_engine`` times each launch
-    and fetch with a sync), the reading beside (b)'s tp=2 one."""
+    and fetch with a sync), the reading beside (b)'s mesh ones."""
     stats = engine.runner.stats
     cols0 = stats["decode_columns"]
     _res, _steps, timers, _wall = drive_engine(engine, TP_NEW, [], loop=False,
@@ -10728,13 +10767,111 @@ def _gone(pid: int) -> bool:
         return True
 
 
+def _rank_launches(before: list, after: list, layers: list, rank0: dict) -> list:
+    """Each rank's schedule and kernel launches between two
+    ``rank_reports``, beside what its schedule implies: its ``layers[r]``
+    layers x its decode columns, and x its prefill calls less those that
+    ring-attended (no prefill kernel).  Rank 0 shares this process with
+    other engines' rank 0: its launches (``rank0``) are those of the thread
+    its steps ran on."""
+    out = []
+    for r0, r1, L in zip(before, after, layers):
+        d = {k: r1["stats"][k] - r0["stats"][k] for k in r1["stats"]}
+        out.append(dict(rank=r1["rank"], pid=r1["pid"], decode_columns=d["decode_columns"],
+                        prefill_calls=d["prefill_calls"], ring_calls=d["ring_calls"],
+                        launches=rank0 if r1["rank"] == 0 else
+                        {k: r1["launches"][k] - r0["launches"][k] for k in r1["launches"]},
+                        want={"decode_attention": L * d["decode_columns"],
+                              "prefill_attention": L * (d["prefill_calls"] - d["ring_calls"])},
+                        resident_bytes=r1["allocated_bytes"]))
+    return out
+
+
+def _stage_layers(eng) -> list:
+    """Each rank's layer count, in rank order (a pipeline stage's share)."""
+    par = eng.config.parallel
+    return [eng.config.model.num_layers // par.pp] * par.world_size
+
+
+def ring_vs_kernel(cfg, card: str) -> dict:
+    """(c): ring attention over two sp rank threads on ``cuda:0`` (gloo)
+    against the single-rank prefill kernel on the same bf16 chunk: the ring
+    chunk's shape (``MESH_PREFILL`` tokens, the model's heads), no prefix,
+    held with phase 2's bf16 tolerance."""
+    import threading
+
+    import torch
+
+    from smg_tpu_torch.ops.cuda.prefill_attention import paged_attention_prefill_batched
+    from smg_tpu_torch.parallel.group import RankGroups, connect_store, open_store
+    from smg_tpu_torch.parallel.ring_attention import ring_attention
+
+    T, H, K, D = MESH_PREFILL, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = torch.device(TP_DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn((1, T, n, D), generator=gen, device=dev).bfloat16()
+               for n in (H, K, K))
+    scale = 1.0 / math.sqrt(D)
+    mp = T // PS
+    kc = torch.zeros((1, mp + 1, PS, K * D), dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    kc[0, 1:] = k.reshape(mp, PS, K * D)
+    vc[0, 1:] = v.reshape(mp, PS, K * D)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    want = paged_attention_prefill_batched(
+        q, k.reshape(1, T, K * D), v.reshape(1, T, K * D), kc, vc, 0,
+        i32([list(range(1, mp + 1))]), i32([0]), i32([T]), scale)
+    store = open_store(2, 60)
+    outs, errors, secs = [None, None], [], [0.0, 0.0]
+
+    def rank(r):
+        try:
+            st = store if r == 0 else connect_store(store.port, 2, 60)
+            groups = RankGroups(st, r, [TP_DEVICE] * 2, 60, sizes={"sp": 2})
+            try:
+                t0 = time.perf_counter()
+                outs[r] = ring_attention(q, k, v, scale, groups.axis("sp"))
+                torch.cuda.synchronize()
+                secs[r] = time.perf_counter() - t0
+            finally:
+                groups.shutdown()
+        except Exception:  # noqa: BLE001 - raised below
+            errors.append(traceback.format_exc())
+
+    threads = [threading.Thread(target=rank, args=(r,), name=f"sp-ring-{r}") for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    if errors or any(o is None for o in outs):
+        raise AssertionError(f"(c) the ring threads failed: {errors}")
+    err = [check_close(f"(c) ring rank {r} vs the prefill kernel, T={T}, {H}/{K} heads",
+                       outs[r], want) for r in range(2)]
+    return dict(T=T, max_abs_err=max(err), ring_s=max(secs), card=card)
+
+
+def _tally(thread) -> dict:
+    """Kernel launches ``thread`` made so far (one engine's rank 0, when
+    its steps run on that thread)."""
+    from smg_tpu_torch.ops.cuda import decode_attention, prefill_attention
+
+    return {"decode_attention": decode_attention.launches_of(thread),
+            "prefill_attention": prefill_attention.launches_of(thread)}
+
+
 def tp_worker_main(spec: dict) -> int:
-    """Phase 20 in a process of its own (``--tp-worker``): the NCCL probe,
-    (a) float32 parity of a tp=2 engine with a tp=1 engine at full width and
-    ``F32_LAYERS`` layers, (b) a full-depth bf16 tp=2 engine serving
-    ``TP_LANES`` lanes with per-rank launch counts held to the schedule,
-    beside a tp=1 engine's reading, (c) ``serve --tp 2`` refused without a
-    device list, (d) no rank process left.  Readings to ``spec["report"]``."""
+    """Phases 20-21 in a process of its own (``--tp-worker``): the NCCL
+    probe; (a) float32 parity of tp=2, pp=2, pp=2 x tp=2 and sp=2 engines
+    with a tp=1 engine at full width and ``F32_LAYERS`` layers, sp=2's cold
+    1024-token chunk ringed; (b) full-depth bf16 tp=2 and pp=2 engines
+    serving ``TP_LANES`` lanes with per-rank launch counts held to the
+    schedule, beside a tp=1 engine's reading; (c) the ring against the
+    prefill kernel at that chunk; (d) Qwen3-30B-A3B at ep=2, float32 against
+    ep=1 and bf16 at the greatest depth that fits; (e) ``serve --tp 2`` and
+    ``serve --pp 2`` refused without a device list; (f) no rank process
+    left.  The float32 checks ((a), (c), (d)'s float32) run on a thread of
+    their own beside the bf16 readings ((b)), each engine's rank 0 counted
+    by the thread its steps ran on.  Readings to ``spec["report"]``."""
     import dataclasses
     import gc
     import multiprocessing
@@ -10744,10 +10881,12 @@ def tp_worker_main(spec: dict) -> int:
 
     from smg_tpu_torch.models.config import ModelConfig
     from smg_tpu_torch.ops.cuda import build
+    from smg_tpu_torch.parallel.leader import prestart
     from smg_tpu_torch.tokenizer import MockTokenizer
 
     from smg_tpu_torch.engine.engine import Engine  # noqa: F401 - imported before the wait
 
+    prestart()  # the rank processes' fork server imports the port meanwhile
     card = spec["card"]
     if not await_go(spec):  # the card is not ours yet
         return 3
@@ -10757,27 +10896,37 @@ def tp_worker_main(spec: dict) -> int:
     if torch.cuda.is_available():
         build.load()
     cfg = ModelConfig(**spec["config"])
+    qcfg = ModelConfig(**spec["moe_config"])
     tok = MockTokenizer(vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_ids[0],
                         bos_token_id=cfg.bos_token_id)
-    failures, out, pids = [], dict(card=card), []
+    qtok = MockTokenizer(vocab_size=qcfg.vocab_size, eos_token_id=qcfg.eos_token_ids[0],
+                         bos_token_id=qcfg.bos_token_id)
+    failures, out, pids, timeline = [], dict(card=card), [], []
+    lock = threading.Lock()
 
     def expect(cond, what):
         if not cond:
             failures.append(what)
-            print(f"  [tp] CHECK FAILED: {what}")
+            print(f"  [mesh] CHECK FAILED: {what}")
 
-    # (c) beside the rest: serve --tp 2 with no device list, on a one-card host
+    def mark(what):
+        with lock:
+            timeline.append((what, round(time.perf_counter() - t_start, 2)))
+
+    # (e) beside the rest: serve --tp 2 and --pp 2 with no device list, on a
+    # one-card host
     refusal = {}
 
     def refuse():
-        t0 = time.perf_counter()
-        r = subprocess.run([*CLI, "serve", "--model-preset", SERVE_MODEL, "--tp", str(TP_SIZE),
-                            "--host", "127.0.0.1", "--port", str(_free_port())],
-                           cwd=REPO, capture_output=True, text=True, timeout=180)
-        refusal.update(code=r.returncode, stderr_tail=r.stderr[-600:],
-                       seconds=time.perf_counter() - t0)
+        for axis in ("tp", "pp"):
+            t0 = time.perf_counter()
+            r = subprocess.run([*CLI, "serve", "--model-preset", SERVE_MODEL, f"--{axis}",
+                                str(TP_SIZE), "--host", "127.0.0.1", "--port", str(_free_port())],
+                               cwd=REPO, capture_output=True, text=True, timeout=180)
+            refusal[axis] = dict(code=r.returncode, stderr_tail=r.stderr[-600:],
+                                 seconds=time.perf_counter() - t0)
 
-    refuser = threading.Thread(target=refuse, name="tp-refusal")
+    refuser = threading.Thread(target=refuse, name="mesh-refusal")
     refuser.start()
     # the probe beside (a)'s tp=1 run.  Ranks that share a card take gloo
     # (parallel/group.py's rule) whatever it says; were NCCL to accept them,
@@ -10788,57 +10937,230 @@ def tp_worker_main(spec: dict) -> int:
     engines, backend = [], "gloo"
     out["backend"] = backend
 
-    def build(key, *args, **kwargs):
-        """``_tp_engine(*args, **kwargs)`` on a thread of its own: a tp
-        engine's rank spawns and its weights are drawn beside a drive."""
-        held = {}
+    # the device bytes the engines of this process (and their ranks) hold
+    # at once, claimed before each build and given back at each retirement:
+    # phase 19 sizes its pools beside these, so they stay within
+    # ``MESH_BUDGET``, and a build also waits for the card to have its bytes
+    # free
+    room, claimed, needs = threading.Condition(), [0], {}
+    dev = torch.device(TP_DEVICE)
+
+    def claim(key, need, budget: bool) -> None:
+        t0 = time.perf_counter()
+        with room:
+            while ((budget and claimed[0] + need > MESH_BUDGET)
+                   or torch.cuda.mem_get_info(dev)[0] < need):
+                if time.perf_counter() - t0 > MESH_ROOM_S:
+                    break  # build all the same: an out-of-memory error then says why
+                room.wait(0.25)
+            claimed[0] += need
+        if time.perf_counter() - t0 > 0.5:
+            mark(f"{key} waited {time.perf_counter() - t0:.1f} s for {need} bytes")
+
+    def release(need) -> None:
+        with room:
+            claimed[0] -= need
+            room.notify_all()
+
+    def build(key, cfg_, *args, sized: bool = False, **kwargs):
+        """``_tp_engine(cfg_, *args, **kwargs)`` on a thread of its own,
+        once its bytes fit (within ``MESH_BUDGET`` unless the caller
+        ``sized`` it to the free card): a mesh engine's ranks start and its
+        weights are drawn beside a drive."""
+        held = {"key": key}
+        need = engine_bytes(cfg_, **{a: kwargs.get(a, 1) for a in ("tp", "pp", "sp", "ep")})
 
         def run():
+            claim(key, need, budget=not sized)
             t_b = time.perf_counter()
             try:
-                held["engine"] = _tp_engine(*args, **kwargs)
+                held["engine"] = _tp_engine(cfg_, *args, **kwargs)
+                needs[id(held["engine"])] = need
             except Exception:
                 held["error"] = traceback.format_exc()
+                release(need)
             held["built_s"] = time.perf_counter() - t_b
 
-        held["thread"] = threading.Thread(target=run, name=f"tp-build-{key}")
+        held["thread"] = threading.Thread(target=run, name=f"mesh-build-{key}")
         held["thread"].start()
         return held
 
     def built(held) -> object:
         held["thread"].join(TP_WAIT_S)
         if "engine" not in held:
-            raise AssertionError(f"a tp engine was not built: {held.get('error')}")
-        engines.append(held["engine"])
-        return held.pop("engine")
+            raise AssertionError(f"engine {held['key']} was not built: {held.get('error')}")
+        eng = held.pop("engine")
+        with lock:
+            engines.append(eng)
+        mark(f"built {held['key']} ({held['built_s']:.1f} s)")
+        if eng._leader is not None:
+            pids.extend(r["pid"] for r in eng._leader.rank_reports()[1:])
+        return eng
 
-    try:
-        # (a) float32 parity at full width, F32_LAYERS layers; the tp=2 engine
-        # is built while the tp=1 one drives, (b)'s while (a)'s tp=2 one does
-        cfg32 = dataclasses.replace(cfg, num_layers=F32_LAYERS, dtype="float32")
-        t0 = time.perf_counter()
-        runs = {}
-        tp2a = build("a", cfg32, TP_SIZE, TP_PAGES, graphs=False, tok=tok)
-        for tp in (1, TP_SIZE):
-            if tp == 1:  # on the path the tp=2 engine takes over gloo: eager, overlap on
-                eng = _tp_engine(cfg32, 1, TP_PAGES, graphs=False, tok=tok)
-                engines.append(eng)
-            else:
-                eng = built(tp2a)
-                pids += [r["pid"] for r in eng._leader.rank_reports()[1:]]
-                out["mesh_a"] = eng.loads(include_audit=False)["mesh"]
-                full = build("b", cfg, TP_SIZE, TP_BF16_PAGES, graphs=False, tok=tok,
-                             overlap=False)
-            logits: list = []
-            res, _steps, _timers, wall = drive_engine(eng, TP_NEW, logits, loop=True)
-            runs[tp] = dict(tokens={k: r.token_ids for k, r in res.items()}, logits=logits,
-                            wall_s=wall, audit=eng.audit())
-            if tp > 1:
-                eng.close()
+    def retire(eng) -> int:
+        """Close ``eng``; its claimed bytes (``settle`` them once the caller
+        dropped the engine)."""
+        eng.close()
+        with lock:
             engines.remove(eng)
-            del eng
+        return needs.pop(id(eng))
+
+    def settle(need) -> None:
+        """Free a retired engine's memory and give its bytes back (every
+        engine here decodes eagerly: emptying the allocator's cache races no
+        capture)."""
         gc.collect()
         torch.cuda.empty_cache()
+        release(need)
+
+    def f32_run(eng) -> dict:
+        """(a)'s drive: phase 3's requests on the loop thread, the
+        first-token logits recorded, every rank's launches read around it
+        (rank 0's on the loop thread)."""
+        logits: list = []
+        before = eng._leader.rank_reports() if eng._leader is not None else None
+        loops, start = [], eng.start
+
+        def started(*a, **kw):
+            start(*a, **kw)
+            loops.append(eng._thread)
+
+        eng.start = started
+        res, _steps, _timers, wall = drive_engine(eng, TP_NEW, logits, loop=True)
+        run = dict(tokens={k: r.token_ids for k, r in res.items()}, logits=logits, wall_s=wall,
+                   audit=eng.audit(), keys=sorted(eng.runner.prefill_keys, key=str))
+        if before is not None:
+            run["per_rank"] = _rank_launches(before, eng._leader.rank_reports(),
+                                             _stage_layers(eng), _tally(loops[0]))
+        return run
+
+    def hold_parity(name, a, b) -> dict:
+        gaps = [float((x - y).abs().max()) for x, y in zip(a["logits"], b["logits"])]
+        got = dict(identical=a["tokens"] == b["tokens"], logit_calls=len(gaps),
+                   logit_gap=max(gaps) if gaps else None, wall_s=b["wall_s"])
+        expect(a["tokens"] == b["tokens"]
+               and all(len(t) == TP_NEW for t in a["tokens"].values()),
+               f"{name} streams differ from the single rank's: "
+               f"{ {k: (a['tokens'][k][:6], b['tokens'].get(k, [])[:6]) for k in a['tokens']} }")
+        expect(len(a["logits"]) == len(b["logits"]) > 0 and max(gaps) <= F32_LOGIT_ATOL,
+               f"{name} first-token logits: {len(a['logits'])} vs {len(b['logits'])} "
+               f"calls, max gap {got['logit_gap']} (atol {F32_LOGIT_ATOL})")
+        expect(b["audit"]["clean"] and b["audit"]["quiescent"], f"{name} audit {b['audit']}")
+        for r in b.get("per_rank", []):
+            expect(r["launches"] == r["want"] and r["want"]["decode_attention"] > 0,
+                   f"{name} rank {r['rank']} launches {r['launches']} != {r['want']}")
+        print(f"  [{card}] {name}, float32, {F32_LAYERS} layers: streams identical to "
+              f"the single rank's: {got['identical']}; first-token logits max gap "
+              f"{got['logit_gap']} over {len(gaps)} prefill calls (atol {F32_LOGIT_ATOL}); "
+              f"drive {b['wall_s']:.2f} s against {a['wall_s']:.2f}")
+        return got
+
+    def full_drive(name, eng, requests, new: int = TP_NEW) -> dict:
+        """A drive of ``requests`` (``new`` tokens each) on the eager
+        synchronous path from this thread: every rank's launches held to its
+        layers x its schedule."""
+        before = eng._leader.rank_reports()
+        me = threading.current_thread()
+        t0 = _tally(me)
+        res, _steps, timers, wall = drive_engine(eng, new, [], loop=False, requests=requests)
+        rank0 = {k: v - t0[k] for k, v in _tally(me).items()}
+        per_rank = _rank_launches(before, eng._leader.rank_reports(), _stage_layers(eng), rank0)
+        audit = eng.audit()
+        cols = per_rank[0]["decode_columns"]
+        fd = dict(per_rank=per_rank, wall_s=wall, layers=eng.config.model.num_layers,
+                  ms_per_column=timers["decode_s"] * 1e3 / max(cols, 1),
+                  tokens={k: len(r.token_ids) for k, r in res.items()},
+                  audit_clean=audit["clean"],
+                  launches={k: sum(r["launches"][k] for r in per_rank)
+                            for k in ("decode_attention", "prefill_attention")})
+        for r in per_rank:
+            expect(r["launches"] == r["want"] and min(r["want"].values()) > 0,
+                   f"{name} rank {r['rank']} launches {r['launches']} != {r['want']}")
+        expect(all(n == new for n in fd["tokens"].values()), f"{name} tokens {fd['tokens']}")
+        expect(audit["clean"] and audit["quiescent"] and audit["leaked_pages"] == 0,
+               f"{name} audit {audit}")
+        return fd
+
+    def float32_lane(held: dict) -> None:
+        """(a), (c) and (d)'s float32 parity, one engine built ahead of
+        the one that drives."""
+        cfg32 = dataclasses.replace(cfg, num_layers=F32_LAYERS, dtype="float32")
+        q32 = dataclasses.replace(qcfg, num_layers=F32_LAYERS, dtype="float32")
+        f32 = {name: (lambda name=name: build(name, cfg32, TP_PAGES, tok, prefill=MESH_PREFILL,
+                                              **MESH_F32[name])) for name in MESH_F32}
+        f32.update({f"ep{n}": (lambda n=n: build(f"ep{n}_f32", q32, TP_PAGES, qtok, ep=n))
+                    for n in (1, TP_SIZE)})
+        queue = [*MESH_F32, "ep1", f"ep{TP_SIZE}"]
+        one = built(build("tp1", cfg32, TP_PAGES, tok, prefill=MESH_PREFILL))
+        pending = {queue[0]: f32[queue[0]]()}
+        runs = held["runs"] = {"tp1": f32_run(one)}
+        need = retire(one)
+        del one
+        settle(need)
+        mark("(a) tp=1 driven")
+        for i, name in enumerate(queue):
+            eng = built(pending.pop(name))
+            if i + 1 < len(queue):
+                pending[queue[i + 1]] = f32[queue[i + 1]]()
+            if name == "tp2":
+                out["mesh_a"] = eng.loads(include_audit=False)["mesh"]
+            runs[name] = f32_run(eng)
+            need = retire(eng)
+            del eng
+            settle(need)
+            mark(f"(a) {name} driven")
+            if name == "sp2":  # (c) the ring against the prefill kernel at its chunk
+                held["ring_vs_kernel"] = ring_vs_kernel(cfg, card)
+                mark("(c) ring vs kernel")
+
+    lane, lane_thread = {"runs": {}}, None
+    try:
+        def run_lane():
+            try:
+                float32_lane(lane)
+            except Exception:  # noqa: BLE001 - raised on the main thread
+                lane["error"] = traceback.format_exc()
+
+        lane_thread = threading.Thread(target=run_lane, name="mesh-float32")
+        lane_thread.start()
+        # (b) full depth, bf16: TP_LANES lanes of TP_NEW tokens through
+        # tp=2, then pp=2, then a tp=1 engine on the same seed, the same
+        # eager path, in this process
+        L = cfg.num_layers
+        fd = out["full_depth"] = {}
+        for name, axes in (("tp", dict(tp=TP_SIZE)), ("pp", dict(pp=TP_SIZE))):
+            held = build(f"{name}2_bf16", cfg, TP_BF16_PAGES, tok, overlap=False, **axes)
+            eng = built(held)
+            got = full_drive(f"(b) {name}={TP_SIZE}", eng, _lanes_requests(20))
+            got["built_s"] = held["built_s"]
+            got["weight_bytes"] = [r["weight_bytes"] for r in eng._leader.rank_reports()]
+            fd[name] = got
+            out[f"launches_{name}"] = got["launches"]
+            need = retire(eng)
+            del eng
+            settle(need)
+            mark(f"(b) {name}={TP_SIZE} driven")
+        one = built(build("tp1_bf16", cfg, TP_BF16_PAGES, tok, overlap=False))
+        fd["tp1_ms_per_column"] = tp1_column_ms(one)
+        need = retire(one)
+        del one
+        settle(need)
+        mark("(b) tp=1 driven")
+        stages = fd["pp"]["weight_bytes"]
+        expect(max(stages) < 0.6 * sum(stages), f"(b) pp=2 stages hold {stages} weight bytes")
+        print(f"  [{card}] (b) bf16, {L} layers over {backend}, eager, synchronised, beside "
+              f"(a): a decode column of {TP_LANES} lanes {fd['tp']['ms_per_column']:.2f} ms at "
+              f"tp={TP_SIZE}, {fd['pp']['ms_per_column']:.2f} ms at pp={TP_SIZE}, "
+              f"{fd['tp1_ms_per_column']:.2f} ms at tp=1; weight bytes per tp rank "
+              f"{fd['tp']['weight_bytes']}, per stage {stages}; resident per rank "
+              f"{[r['resident_bytes'] for r in fd['tp']['per_rank']]} (tp), "
+              f"{[r['resident_bytes'] for r in fd['pp']['per_rank']]} (pp); launches per rank "
+              f"{[r['launches'] for r in fd['tp']['per_rank']]} (tp), per stage "
+              f"{[r['launches'] for r in fd['pp']['per_rank']]} (pp) (readings only, {card})")
+        lane_thread.join(TP_WAIT_S)
+        if "error" in lane:
+            raise AssertionError(f"the float32 checks failed: {lane['error']}")
+        runs = lane["runs"]
         prober.join(TP_PROBE_S + 30)
         out["nccl_probe"] = probe
         print(f"  [{card}] NCCL with {TP_SIZE} ranks on {TP_DEVICE}: "
@@ -10847,99 +11169,112 @@ def tp_worker_main(spec: dict) -> int:
         expect(not probe.get("accepted"),
                f"NCCL accepted {TP_SIZE} ranks on one card: parallel/group.py's rule "
                "should give them nccl (and decode graphs), not gloo")
-        a, b = runs[1], runs[TP_SIZE]
-        gaps = [float((x - y).abs().max()) for x, y in zip(a["logits"], b["logits"])]
-        out["parity"] = dict(
-            identical=a["tokens"] == b["tokens"], logit_calls=len(gaps),
-            logit_gap=max(gaps) if gaps else None, wall_s={1: a["wall_s"], TP_SIZE: b["wall_s"]},
-            seconds=time.perf_counter() - t0)
-        expect(a["tokens"] == b["tokens"] and all(len(t) == TP_NEW for t in a["tokens"].values()),
-               f"(a) tp={TP_SIZE} streams differ from tp=1's: "
-               f"{ {k: (a['tokens'][k][:6], b['tokens'].get(k, [])[:6]) for k in a['tokens']} }")
-        expect(len(a["logits"]) == len(b["logits"]) > 0 and max(gaps) <= F32_LOGIT_ATOL,
-               f"(a) first-token logits: {len(a['logits'])} vs {len(b['logits'])} calls, "
-               f"max gap {max(gaps) if gaps else None} (atol {F32_LOGIT_ATOL})")
-        expect(b["audit"]["clean"] and b["audit"]["quiescent"], f"(a) audit {b['audit']}")
-        print(f"  [{card}] (a) float32, {F32_LAYERS} layers: tp={TP_SIZE} streams identical "
-              f"to tp=1's: {out['parity']['identical']}; first-token logits max gap "
-              f"{out['parity']['logit_gap']:.3e} over {len(gaps)} prefill calls (atol "
-              f"{F32_LOGIT_ATOL}); drive {b['wall_s']:.2f} s against {a['wall_s']:.2f}")
-
-        # (b) full depth, bf16: TP_LANES lanes of TP_NEW tokens
-        eng = built(full)
-        built_s = full["built_s"]
-        before = eng._leader.rank_reports()
-        pids += [r["pid"] for r in before[1:]]
-        res, _steps, timers, wall = drive_engine(eng, TP_NEW, [], loop=False,
-                                                 requests=_lanes_requests(20))
-        after = eng._leader.rank_reports()
-        audit = eng.audit()
-        L = cfg.num_layers
-        per_rank = []
-        for r0, r1 in zip(before, after):
-            cols = r1["stats"]["decode_columns"] - r0["stats"]["decode_columns"]
-            calls = r1["stats"]["prefill_calls"] - r0["stats"]["prefill_calls"]
-            got = {k: r1["launches"][k] - r0["launches"][k] for k in r1["launches"]}
-            per_rank.append(dict(rank=r1["rank"], pid=r1["pid"], decode_columns=cols,
-                                 prefill_calls=calls, launches=got,
-                                 want={"decode_attention": L * cols,
-                                       "prefill_attention": L * calls},
-                                 resident_bytes=r1["allocated_bytes"]))
-        cols = per_rank[0]["decode_columns"]
-        out["full_depth"] = dict(
-            per_rank=per_rank, built_s=built_s, wall_s=wall,
-            ms_per_column=timers["decode_s"] * 1e3 / max(cols, 1),
-            tokens={k: len(r.token_ids) for k, r in res.items()}, audit_clean=audit["clean"])
-        out["launches_tp"] = {k: sum(r["launches"][k] for r in per_rank)
+        out["parity_mesh"] = {name: hold_parity(f"(a) {name}", runs["tp1"], runs[name])
+                              for name in MESH_F32}
+        out["parity"] = out["parity_mesh"]["tp2"]
+        # sp=2: phase 3's long prompt's cold first chunk (1024 tokens) rang
+        sp = runs["sp2"]
+        ring_keys = [k for k in sp["keys"] if k[0] == "prefill_extend" and k[5]]
+        expect(any(k[1] == MESH_PREFILL for k in ring_keys),
+               f"(a) sp=2 rang no cold {MESH_PREFILL}-token chunk: keys {sp['keys']}")
+        out["sp"] = dict(ring_keys=ring_keys, per_rank=sp["per_rank"],
+                         ring_calls=[r["ring_calls"] for r in sp["per_rank"]],
+                         ring_vs_kernel=lane["ring_vs_kernel"])
+        out["launches_sp"] = {k: sum(r["launches"][k] for r in sp["per_rank"])
                               for k in ("decode_attention", "prefill_attention")}
-        for r in per_rank:
-            expect(r["launches"] == r["want"] and min(r["want"].values()) > 0,
-                   f"(b) rank {r['rank']} launches {r['launches']} != {r['want']}")
-        expect(all(n == TP_NEW for n in out["full_depth"]["tokens"].values()),
-               f"(b) tokens {out['full_depth']['tokens']}")
-        expect(audit["clean"] and audit["quiescent"] and audit["leaked_pages"] == 0,
-               f"(b) audit {audit}")
-        eng.close()
-        engines.clear()
-        del eng
+        print(f"  [{card}] (a) sp=2 ring keys {ring_keys}; ring calls a rank "
+              f"{out['sp']['ring_calls']}; launches {out['launches_sp']}")
+        out["ep"] = dict(parity=hold_parity(f"(d) ep={TP_SIZE}", runs["ep1"],
+                                            runs[f"ep{TP_SIZE}"]))
+
+        # (d) Qwen3-30B-A3B at full width, ep=2, bf16 at the greatest depth
+        # that fits the card beside whatever runs then
         gc.collect()
-        # tp=1 on the same seed, the same eager path, in this process: both
-        # readings are taken beside whatever runs beside this phase
-        fd = out["full_depth"]
         torch.cuda.empty_cache()
-        one = _tp_engine(cfg, 1, TP_BF16_PAGES, graphs=False, tok=tok, overlap=False)
-        fd["tp1_ms_per_column"] = tp1_column_ms(one)
-        del one
-        gc.collect()
-        print(f"  [{card}] (b) bf16, {L} layers, tp={TP_SIZE} over {backend}: "
-              f"{fd['ms_per_column']:.2f} ms a decode column of {TP_LANES} lanes (eager, "
-              f"synchronised) against tp=1's {fd['tp1_ms_per_column']:.2f} ms; resident per rank "
-              f"{[r['resident_bytes'] for r in per_rank]} bytes; launches per rank "
-              f"{[r['launches'] for r in per_rank]}; built in {built_s:.1f} s beside (a) "
-              f"(readings only, {card})")
+        free = torch.cuda.mem_get_info(torch.device(TP_DEVICE))[0]
+        per_layer, fixed = moe_rank_bytes(qcfg)
+        depth = int(min(qcfg.num_layers, (free - EP_MARGIN - TP_SIZE * fixed) // per_layer))
+        expect(depth >= 1, f"(d) no bf16 layer fits beside {free} free bytes")
+        qd = dataclasses.replace(qcfg, num_layers=max(depth, 1))
+        held = build("ep2_bf16", qd, EP_PAGES, qtok, sized=True, overlap=False, ep=TP_SIZE)
+        eng = built(held)
+        fde = full_drive(f"(d) ep={TP_SIZE}", eng,
+                         _lanes_requests(22, lanes=EP_LANES, length=EP_PROMPT), new=EP_NEW)
+        fde["weight_bytes"] = [r["weight_bytes"] for r in eng._leader.rank_reports()]
+        need = retire(eng)
+        del eng
+        settle(need)
+        mark("(d) ep=2 bf16 driven")
+        out["ep"].update(full_depth=fde, depth=depth, free_before=free, per_layer_bytes=per_layer,
+                         fixed_bytes=fixed, built_s=held["built_s"])
+        out["launches_ep"] = fde["launches"]
+        print(f"  [{card}] (d) Qwen3-30B-A3B ep={TP_SIZE}: float32 streams identical to ep=1's: "
+              f"{out['ep']['parity']['identical']}; bf16 at {depth} of {qcfg.num_layers} layers "
+              f"({free} bytes free before it): weight bytes per rank {fde['weight_bytes']}, "
+              f"resident {[r['resident_bytes'] for r in fde['per_rank']]}, a decode column of "
+              f"{EP_LANES} lanes {fde['ms_per_column']:.2f} ms, launches per rank "
+              f"{[r['launches'] for r in fde['per_rank']]}")
     finally:
-        for e in engines:
+        if lane_thread is not None:
+            lane_thread.join(TP_WAIT_S)
+        for e in list(engines):
             e.close()
     refuser.join(200)
     out["refusal"] = refusal
-    expect(refusal.get("code") not in (0, None) and TP_REFUSAL in refusal.get("stderr_tail", ""),
-           f"(c) serve --tp {TP_SIZE} without devices: {refusal}")
-    print(f"  [{card}] (c) serve --tp {TP_SIZE} without a device list: exit "
-          f"{refusal.get('code')}, {refusal.get('stderr_tail', '').strip().splitlines()[-1:]}")
-    # (d) no rank process outlives its engine
+    for axis in ("tp", "pp"):
+        r = refusal.get(axis, {})
+        expect(r.get("code") not in (0, None) and TP_REFUSAL in r.get("stderr_tail", ""),
+               f"(e) serve --{axis} {TP_SIZE} without devices: {r}")
+        print(f"  [{card}] (e) serve --{axis} {TP_SIZE} without a device list: exit "
+              f"{r.get('code')}, {r.get('stderr_tail', '').strip().splitlines()[-1:]}")
+    # (f) no rank process outlives its engine
     deadline = time.monotonic() + 10
     while not all(_gone(p) for p in pids) and time.monotonic() < deadline:
         time.sleep(0.1)
     stray = [p.name for p in multiprocessing.active_children()] + [
         p for p in pids if not _gone(p)]
     out["rank_pids"], out["stray"] = pids, stray
-    expect(len(pids) == 2 and not stray, f"(d) rank processes {pids}, left: {stray}")
+    expect(pids and not stray, f"(f) rank processes {pids}, left: {stray}")
     out["failures"] = failures
+    out["timeline"] = timeline
     out["seconds"] = time.perf_counter() - t_start
-    print(f"  [{card}] (d) rank processes {pids} gone: {not stray}; phase 20's process "
-          f"{out['seconds']:.1f} s")
+    print(f"  [{card}] (f) {len(pids)} rank processes gone: {not stray}; phases 20-21's "
+          f"process {out['seconds']:.1f} s; timeline {timeline}")
     Path(spec["report"]).write_text(json.dumps(out, default=str))
     return 1 if failures else 0
+
+
+def engine_bytes(cfg, tp: int = 1, pp: int = 1, sp: int = 1, ep: int = 1) -> int:
+    """Device bytes an engine of ``cfg`` on a mesh of these axes holds,
+    bounded above: its weights in their dtype (tp and pp split them; each sp
+    rank holds them whole; each ep rank holds all but its share of the
+    experts) and ``RANK_OVERHEAD`` a rank.  The pinned KV pools of phases
+    20-21 fall inside the overhead."""
+    E, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = E * (H + 2 * K) * D + H * D * E + 2 * E
+    if cfg.num_experts:
+        Fm = cfg.moe_intermediate_size or cfg.intermediate_size
+        dense, experts = L * (attn + E * cfg.num_experts), L * 3 * cfg.num_experts * E * Fm
+    else:
+        dense, experts = L * (attn + 3 * E * cfg.intermediate_size), 0
+    dense += V * E * (1 if cfg.tie_word_embeddings else 2) + E
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    return (dense * ep + experts) * sp * item + tp * pp * sp * ep * RANK_OVERHEAD
+
+
+def moe_rank_bytes(cfg) -> tuple:
+    """(bytes of one layer summed over the ep ranks, bytes every ep rank
+    holds whole: the embedding, ``lm_head`` and the final norm) of ``cfg``
+    in its dtype."""
+    E, X = cfg.hidden_size, cfg.num_experts
+    Fm = cfg.moe_intermediate_size or cfg.intermediate_size
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    attn = E * (H + 2 * K) * D + H * D * E + 2 * E + (2 * D if cfg.qk_norm else 0)
+    layer = attn * TP_SIZE + E * X * TP_SIZE + 3 * X * E * Fm  # attention, router on each rank
+    fixed = cfg.vocab_size * E * (1 if cfg.tie_word_embeddings else 2) + E
+    return layer * item, fixed * item
 
 
 class EarlyChild:
@@ -10987,8 +11322,9 @@ def await_go(spec: dict) -> bool:
 
 
 def phase_tp(dev, card: str, early: EarlyChild) -> dict:
-    """Phase 20: ``tp_worker_main`` (Llama-3-8B) in ``early``; its report
-    read, and its rank processes checked gone once it exited."""
+    """Phases 20-21: ``tp_worker_main`` (Llama-3-8B, Qwen3-30B-A3B) in
+    ``early``; its report read, and its rank processes checked gone once it
+    exited."""
     import gc
 
     import torch
@@ -10999,19 +11335,20 @@ def phase_tp(dev, card: str, early: EarlyChild) -> dict:
     code, out = early.run(TP_WAIT_S)
     left = [p for p in out.get("rank_pids", []) if not _gone(p)]
     if code != 0 or not out or out["failures"] or left:
-        raise AssertionError(f"phase 20's process exited {code}: {out.get('failures')}; "
-                             f"rank processes left {left}")
+        raise AssertionError(f"phases 20-21's process exited {code}: "
+                             f"{out.get('failures')}; rank processes left {left}")
     out["seconds_with_start"] = time.perf_counter() - t0
-    print(f"  phase 20 took {out['seconds_with_start']:.1f} s once let go ({card})")
+    print(f"  phases 20-21 took {out['seconds_with_start']:.1f} s once let go ({card})")
     return out
 
 
 def tp_spec(card: str) -> dict:
     import dataclasses
 
-    from smg_tpu_torch.models.config import llama3_8b_config
+    from smg_tpu_torch.models.config import ModelConfig, llama3_8b_config
 
-    return dict(card=card, config=dataclasses.asdict(llama3_8b_config()))
+    return dict(card=card, config=dataclasses.asdict(llama3_8b_config()),
+                moe_config=dataclasses.asdict(ModelConfig.from_hf_config(QWEN3_30B_A3B)))
 
 
 def main(argv=None) -> int:
@@ -11158,6 +11495,11 @@ def main(argv=None) -> int:
     early: dict = {}
     if args.phases in ("all", "train") and not failed:
         early["train"] = EarlyChild("train-worker", {"card": card})
+    # phases 20-21's process, and its rank processes' fork server, import
+    # while phases 15-18 run (host work phase 18's step would feel); it waits
+    # for its turn
+    if args.phases in ("all", "tp") and not failed:
+        early["tp"] = EarlyChild("tp-worker", tp_spec(card))
     responses = {}
     if args.phases in ("all", "responses", "messages", "realtime") and not failed:
         print({"all": "phases 15-17: the Responses API (SQLite storage, an MCP server, "
@@ -11178,9 +11520,6 @@ def main(argv=None) -> int:
         except Exception:
             traceback.print_exc()
             failed.append("responses")
-    # phase 20's process imports while phase 18 runs; it waits for its turn
-    if args.phases in ("all", "tp") and not failed:
-        early["tp"] = EarlyChild("tp-worker", tp_spec(card))
     train = {}
     if args.phases in ("all", "train") and not failed:
         print("phase 18: the training step in a process of its own (Llama-3-8B at full width: "
@@ -11198,10 +11537,12 @@ def main(argv=None) -> int:
             ("dp", ("all", "dp"), "phase 19: data-parallel replicas in one gRPC worker, in a "
              f"process of its own (two Llama-3-8B engines at full width, {PD_LAYERS} layers, "
              "float32, behind launch --dp-aware and --no-dp-aware)", phase_dp),
-            ("tp", ("all", "tp"), f"phase 20: tensor parallelism in a process of its own "
-             f"(Llama-3-8B at full width, tp={TP_SIZE} ranks on one card: the NCCL probe, "
-             f"float32 parity with tp=1 at {F32_LAYERS} layers, bf16 at 32 layers, serve "
-             f"--tp refused without devices, no rank process left)",
+            ("tp", ("all", "tp"), f"phases 20-21: rank meshes in a process of its own "
+             f"(Llama-3-8B at full width, {TP_SIZE} ranks an axis on one card: the NCCL probe; "
+             f"float32 parity of tp, pp, pp x tp and sp with tp=1 at {F32_LAYERS} layers, the "
+             f"ring against the prefill kernel; tp and pp at 32 layers in bf16; Qwen3-30B-A3B "
+             f"at ep={TP_SIZE}, float32 and bf16; serve --tp and --pp refused without devices; "
+             f"no rank process left)",
              lambda dev, card: phase_tp(dev, card, early["tp"]))):
         if args.phases in want and not failed:
             print(title)
@@ -11287,6 +11628,15 @@ def main(argv=None) -> int:
             # rank processes (each held to 32 x its decode columns and
             # prefill calls)
             launches_tp=tp["launches_tp"][name],
+            # phase 21 (b)'s full-depth bf16 pp=2 drive, summed over the two
+            # stages (each held to 16 x its decode columns and prefill calls)
+            launches_pp=tp["launches_pp"][name],
+            # phase 21 (a)'s float32 sp=2 drive (phase 3's requests), summed
+            # over the two ranks; a ringed chunk launches no prefill kernel
+            launches_sp=tp["launches_sp"][name],
+            # phase 21 (d)'s bf16 ep=2 drive of Qwen3-30B-A3B, summed over the
+            # two ranks (each held to its depth x its schedule)
+            launches_ep=tp["launches_ep"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             max_err=r["max_abs_err"], kernel_ms=r["ms"], call_ms=r["call_ms"],

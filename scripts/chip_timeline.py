@@ -39,7 +39,7 @@ SEGMENTS = (
     ("phase 14", ("phase 14", 1), ("phases 15-17", 1)),
     ("phases 15-17", ("phases 15-17", 1), ("phase 18", 1)),
     ("phase 18", ("phase 18", 1), ("phase 19", 1)),
-    ("phase 19 (and 20)", ("phase 19", 1), ("end", 1)),
+    ("phase 19 (and 20-21)", ("phase 19", 1), ("end", 1)),
 )
 
 

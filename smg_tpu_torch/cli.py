@@ -26,11 +26,12 @@ and response; a hook that fails lets the request through unless
 ``--plugin-fail-closed``.  ``--mesh-port`` (with ``--mesh-seed`` and the
 three ``--mesh-tls-*`` files for mutual TLS) joins the gateway to an HA mesh
 of peer gateways that gossip their workers and cache-aware prefix trees.
-``--tp``/``--tensor-parallel-size`` and ``--mesh-shape`` (``serve`` and
-``worker``) shard the engine over rank processes (``parallel/``), one per
-device of ``--device``: a comma-separated list (``cuda:0,cuda:0`` puts two
-ranks on one card), ``cpu``, or by default ``cuda:0 .. cuda:N-1``; the other
-axes are refused until their ``ROADMAP.md`` items land.
+``--tp``/``--tensor-parallel-size``, ``--pp``, ``--sp``, ``--ep`` and
+``--mesh-shape`` (``serve`` and ``worker``) shard the engine over rank
+processes (``parallel/``), one per device of ``--device``: a comma-separated
+list (``cuda:0,cuda:0`` puts two ranks on one card), ``cpu``, or by default
+``cuda:0 .. cuda:N-1``; ``dp`` inside one engine is refused until its
+``ROADMAP.md`` item lands.
 """
 
 from __future__ import annotations
@@ -261,11 +262,20 @@ def _add_engine_args(p: argparse.ArgumentParser) -> None:
                    help="tokenizer dir (default: --model-path)")
     e.add_argument("--device", default="cuda",
                    help="torch device of the engine (cuda by default; the CPU "
-                        "only when asked for); under --tp a comma-separated "
-                        "device per rank")
+                        "only when asked for); under a rank mesh a "
+                        "comma-separated device per rank")
     e.add_argument("--tp", "--tensor-parallel-size", type=int, default=1, dest="tp",
                    help="tensor parallel size: heads, ffn and vocab sharded over "
                         "one rank process per device")
+    e.add_argument("--pp", type=int, default=1,
+                   help="pipeline parallel size: the layer stack and its KV split "
+                        "into stages, a rank process each")
+    e.add_argument("--sp", type=int, default=1,
+                   help="sequence parallel size: a cold prefill chunk ring-attends "
+                        "over the sp rank processes")
+    e.add_argument("--ep", type=int, default=1,
+                   help="expert parallel size (MoE): the experts split over rank "
+                        "processes")
     e.add_argument("--mesh-shape", default=None, dest="mesh_shape",
                    help="full mesh topology as axis=N pairs, e.g. 'tp=4' (axes: "
                         "dp/tp/sp/ep/pp; unnamed axes stay 1).  Conflicts with a "

@@ -15,10 +15,10 @@ from smg_tpu_torch.models.config import ModelConfig
 class ParallelConfig:
     """Sizes of the named parallel axes (the reference's ``ParallelConfig``).
 
-    ``tp``: tensor parallel, one rank process per shard (``parallel/``);
-    ``dp``, ``sp``, ``ep`` and ``pp`` are parsed and validated as the
-    reference does, and an engine refuses them above 1 until their
-    ``ROADMAP.md`` items land."""
+    ``tp``, ``pp``, ``sp`` and ``ep``: a rank mesh, one rank process per
+    rank of the grid (``parallel/``); ``dp`` is parsed and validated as the
+    reference does, and an engine refuses it above 1 until its
+    ``ROADMAP.md`` item lands."""
 
     dp: int = 1
     tp: int = 1
@@ -173,16 +173,16 @@ class SchedulerConfig:
 @dataclass
 class EngineConfig:
     model: ModelConfig = field(default_factory=ModelConfig)  # sets the weights' dtype
-    # tp > 1 shards the model over rank processes (parallel/); the rest
-    # of the axes are refused above 1
+    # tp, pp, sp or ep above 1 shard the model over rank processes
+    # (parallel/); dp is refused above 1
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
     cache: CacheConfig = field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     seed: int = 0  # random weights (when none are given) and the sampler
     # on the card, replay each decode megastep from a CUDA graph (captured
     # at first use per bucket); False launches every column eagerly.  The
-    # CPU always runs eagerly.  A tp engine whose collectives go over gloo
-    # (parallel/group.py) cannot capture them and refuses True.
+    # CPU always runs eagerly.  A rank-mesh engine whose collectives go over
+    # gloo (parallel/group.py) cannot capture them and refuses True.
     decode_graphs: bool = True
     # speculative draft model (engine/draft.py): a smaller ModelConfig whose
     # greedy proposals replace n-gram lookup, with random weights from

@@ -52,7 +52,7 @@ from smg_tpu_torch.engine.scheduler import Scheduler
 from smg_tpu_torch.models.llama import init_params
 from smg_tpu_torch.parallel.group import device_backend, resolve_devices
 from smg_tpu_torch.parallel.leader import refusal, start_ranks
-from smg_tpu_torch.parallel.sharding import check_tp
+from smg_tpu_torch.parallel.sharding import RankPlace, check_mesh
 from smg_tpu_torch.protocols.sampling import SamplingParams
 from smg_tpu_torch.utils import get_logger
 
@@ -98,15 +98,19 @@ class Engine:
         (``models.weights.load_vision_params``); without them they are
         random, from the seed (the reference's ``seed ^ 0x71510``).
 
-        ``config.parallel.tp`` > 1 runs one rank process per shard on
-        ``devices`` (the reference's ``Engine(cfg, devices=...)``; left out,
-        ``cuda:0 .. cuda:tp-1``; a list that repeats a CUDA device puts
-        ranks on one card, over gloo).  The engine raises when the machine
-        has fewer devices than the mesh, and ``close()`` stops the ranks;
+        A rank mesh (``config.parallel``'s tp, pp, sp or ep above 1) runs one
+        rank process per rank on ``devices`` (the reference's
+        ``Engine(cfg, devices=...)``; left out, ``cuda:0 .. cuda:N-1``; a list
+        that repeats a CUDA device puts ranks on one card, over gloo): tp
+        shards heads, FFN and vocab, pp the layer stack (a pipeline stage a
+        rank), sp runs a cold prefill chunk as ring attention, ep shards the
+        experts.  The engine raises when the machine has fewer devices than
+        the mesh, and ``close()`` stops the ranks;
         ``parallel/group.py::TP_TIMEOUT_S`` bounds every collective and
-        rendezvous.  A tp engine refuses the other axes above 1, the expert
-        layer and the vision tower at construction, LoRA, embeddings and the
-        PD legs when called, each naming its ``ROADMAP.md`` item."""
+        rendezvous.  A rank-mesh engine refuses dp above 1, the expert layer
+        under tp and the vision tower at construction, LoRA under tp,
+        embeddings and the PD legs when called, each naming its ``ROADMAP.md``
+        item."""
         if config.scheduler.speculative_tier == "draft" and config.draft_model is None:
             raise ValueError("scheduler.speculative_tier 'draft' requires a configured "
                              "draft model (EngineConfig.draft_model)")
@@ -114,15 +118,14 @@ class Engine:
         self.tokenizer = tokenizer
         self._leader = None
         par = config.parallel
-        for axis in ("dp", "pp", "sp", "ep"):
-            if getattr(par, axis) > 1:
-                raise refusal(axis)
-        if par.tp > 1:
-            if config.model.num_experts:
+        if par.dp > 1:
+            raise refusal("dp")
+        if par.world_size > 1:
+            if par.tp > 1 and config.model.num_experts:
                 raise refusal("experts")
             if config.model.vision is not None:
                 raise refusal("vision")
-            check_tp(config.model, par.tp)
+            check_mesh(config.model, RankPlace.of(par.axis_sizes(), {}))
             devices = resolve_devices(par, devices)
             if config.decode_graphs and device_backend(devices) == "gloo":
                 raise ValueError(
@@ -152,7 +155,7 @@ class Engine:
                     config.model.vision,
                     torch.Generator(device=dev).manual_seed(config.seed ^ 0x71510), dev)
             self._vision_params = _tree_to(vision_params, dev)
-        if par.tp > 1:
+        if par.world_size > 1:
             self.runner, self._leader = start_ranks(config, params, devices, attention)
             # the ranks stop when the engine is dropped or the process exits
             self._close_ranks = weakref.finalize(self, self._leader.close)
@@ -327,7 +330,7 @@ class Engine:
 
         from smg_tpu_torch.models import lora as lora_mod
 
-        self._refuse_under_tp("lora")
+        self._refuse_under_mesh("lora")
         if data is not None:
             weights = lora_mod.load_npz(data)
         elif path is None:
@@ -376,7 +379,7 @@ class Engine:
     def healthy(self) -> bool:
         """False while the step watchdog sees a stall, after
         ``max_consecutive_step_failures`` failed steps in a row, or once a
-        tensor-parallel engine lost a rank; the gateway's health monitor and
+        rank-mesh engine lost a rank; the gateway's health monitor and
         breakers route around it."""
         return (not self._stalled
                 and self.scheduler.consec_step_failures
@@ -451,7 +454,7 @@ class Engine:
         Runs under the engine lock, so never inside a step or a graph
         capture, and on the device's default stream, which the loop
         thread's launches use too: it runs after the work they enqueued."""
-        self._refuse_under_tp("embeddings")
+        self._refuse_under_mesh("embeddings")
         with self._lock:
             return self.runner.embed(batches)
 
@@ -514,7 +517,7 @@ class Engine:
         overlap frame may be in flight: see ``Scheduler.prefill_only``)."""
         from smg_tpu_torch.engine.kv_connector import get_connector
 
-        self._refuse_under_tp("pd")
+        self._refuse_under_mesh("pd")
         conn = get_connector(connector)
         with self._lock:
             tok, pages, seq_len = self.scheduler.prefill_only(
@@ -537,7 +540,7 @@ class Engine:
         does: that keeps it alive under pressure (a warning is logged)."""
         from smg_tpu_torch.engine.kv_connector import resolve_for_payload
 
-        self._refuse_under_tp("pd")
+        self._refuse_under_mesh("pd")
         rid = rid or f"req-{uuid.uuid4().hex[:16]}"
         req = EngineRequest(rid=rid, prompt_ids=list(prompt_ids), sampling=sampling)
         req.trace_id = trace_id
@@ -744,14 +747,15 @@ class Engine:
             self._watchdog = None
 
     def close(self) -> None:
-        """``stop()``, then stop a tensor-parallel engine's rank processes:
+        """``stop()``, then stop a rank-mesh engine's rank processes:
         none outlives the engine.  Idempotent."""
         self.stop()
         if self._leader is not None:
             self._close_ranks()
 
-    def _refuse_under_tp(self, what: str) -> None:
-        if self._leader is not None:
+    def _refuse_under_mesh(self, what: str) -> None:
+        """Refuse ``what`` on a rank-mesh engine (LoRA only under tp)."""
+        if self._leader is not None and (what != "lora" or self.config.parallel.tp > 1):
             raise refusal(what)
 
     def _watchdog_loop(self) -> None:

@@ -40,13 +40,15 @@ since a verify frame is rebuilt from the drafts of its step.  Per-lane
 draft counts ride a device tensor, so one graph serves every draft count.
 
 A graph captured on the card never falls back to eager launches: a failed
-warm-up or capture raises.  A tensor-parallel rank (``parallel/``) captures
-its megasteps the same way, each rank in its own process on its own card:
-the model's NCCL all-reduces and all-gather are issued inside ``body`` on
-the capture stream, so they are part of the graph, and every rank captures
-the same shapes in the same order (rank 0 mirrors its calls).  Gloo
-collectives go through host memory and cannot be captured: an engine whose
-ranks use them refuses ``decode_graphs=True`` at construction.
+warm-up or capture raises.  A rank of a rank mesh (``parallel/``: tp, pp,
+sp, ep) captures its megasteps the same way, each rank in its own process
+on its own card: the model's NCCL collectives (tp's all-reduces and
+all-gather, a pipeline stage's send, receive and logits broadcast, ep's
+all-reduce) are issued inside ``body`` on the capture stream, so they are
+part of the graph, and every rank captures the same shapes in the same
+order (rank 0 mirrors its calls).  Gloo collectives go through host memory
+and cannot be captured: an engine whose ranks use them refuses
+``decode_graphs=True`` at construction.
 
 Every shape is registered with the runner's ``ProgramAuditor``
 (``analysis/runtime_guards.py``) under its family and key (``("decode", B,

@@ -96,7 +96,7 @@ def vision_reserve_bytes(model: ModelConfig) -> int:
 def plan_cache(model: ModelConfig, cache: CacheConfig,
                free_bytes: int | None = None,
                draft: ModelConfig | None = None,
-               reserve_bytes: int = 0, tp: int = 1) -> KvCacheSpec:
+               reserve_bytes: int = 0, tp: int = 1, pp: int = 1) -> KvCacheSpec:
     """Decide num_pages.  With ``auto_size`` and a known free device-memory
     figure (``torch.cuda.mem_get_info``, taken after the weights, the
     draft model's included, are resident), give ``hbm_utilization`` of it
@@ -113,9 +113,11 @@ def plan_cache(model: ModelConfig, cache: CacheConfig,
     sizes KV per device from ``tp``: ``model`` is the whole model, the spec
     holds the rank's KV heads (``parallel/sharding.py::rank_config``: a
     share of them, or one replicated head), and ``free_bytes`` is the
-    rank's share of its device."""
-    if tp > 1:
-        model = rank_config(model, tp)
+    rank's share of its device.  ``pp`` > 1 plans one pipeline stage's
+    cache: its ``L / pp`` layers, the reference's KV sharded on its layer
+    axis over pp."""
+    if tp > 1 or pp > 1:
+        model = rank_config(model, tp, pp)
     spec = KvCacheSpec(
         num_layers=model.num_layers, num_pages=cache.num_pages,
         page_size=cache.page_size, num_kv_heads=model.num_kv_heads,

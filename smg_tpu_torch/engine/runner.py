@@ -70,7 +70,7 @@ from smg_tpu_torch.engine.sampling import apply_penalties, pick_sampler, spec_ac
 from smg_tpu_torch.models.llama import LlamaModel, init_params
 from smg_tpu_torch.models.lora import LoraBank, canonical_keys, validate_adapter
 from smg_tpu_torch.ops.cuda import decode_attention
-from smg_tpu_torch.parallel.sharding import param_sharder, rank_config, shard_params
+from smg_tpu_torch.parallel.sharding import RankPlace, Sharder, rank_config, shard_params
 from smg_tpu_torch.utils import get_logger
 
 logger = get_logger("engine.runner")
@@ -180,29 +180,37 @@ class SpecLaunch:
 
 class ModelRunner:
     def __init__(self, config: EngineConfig, params: dict | None = None,
-                 device=None, attention: str = "kernel", tp_rank: int = 0,
-                 groups=None):
-        """``groups`` (``parallel/group.py::RankGroups``) makes this rank
-        ``tp_rank`` of a tensor-parallel engine: it holds its shard of the
-        weights (``params`` the whole model, or None for weights from the
-        seed, drawn whole and sliced layer by layer), computes with the
-        rank's config (``model_cfg``) and sizes its KV cache by the rank's
-        KV heads, all ranks agreeing on the page count."""
+                 device=None, attention: str = "kernel", groups=None):
+        """``groups`` (``parallel/group.py::RankGroups``) makes this a rank
+        of a rank-mesh engine, at ``groups.coords`` on its grid: it holds its
+        shard of the weights (``params`` the whole model, or None for weights
+        from the seed, drawn whole and cut piece by piece; a pp stage's
+        layers, an ep rank's experts, a tp rank's heads and columns), computes
+        with the rank's config (``model_cfg``) and sizes its KV cache by the
+        rank's layers and KV heads, all ranks agreeing on the page count."""
         self.config = config
         self.groups = groups
-        tp = config.parallel.tp if groups is not None else 1
-        self.model_cfg = config.model if tp == 1 else rank_config(config.model, tp)
+        par = config.parallel
+        if groups is None:
+            self.place = RankPlace()
+        else:
+            self.place = RankPlace.of(par.axis_sizes(), groups.coords)
+        tp, pp, ep = self.place.tp, self.place.pp, self.place.ep
+        self.model_cfg = (config.model if groups is None
+                          else rank_config(config.model, tp, pp, ep))
         self.device = resolve_device(device)
-        shard = param_sharder(config.model, tp, tp_rank) if tp > 1 else None
+        shard = None if groups is None else Sharder(config.model, self.place)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             params = (init_params(config.model, gen, self.device) if shard is None
                       else init_params(config.model, gen, self.device, shard=shard))
         else:
             if shard is not None:
-                params = shard_params(params, config.model, tp, tp_rank)[1]
+                params = shard_params(params, config.model, place=self.place)[1]
             params = _to_device(params, self.device)
-        self.model = LlamaModel(self.model_cfg, params, attention=attention, tp=groups)
+        axis = (lambda name: None) if groups is None else groups.axis
+        self.model = LlamaModel(self.model_cfg, params, attention=attention, tp=axis("tp"),
+                                pp=axis("pp"), sp=axis("sp"), ep=axis("ep"))
         free = None
         if self.device.type == "cuda":
             # weights already resident; blocks the allocator caches but no
@@ -220,18 +228,25 @@ class ModelRunner:
                               + vision_reserve_bytes(self.model_cfg))
         self.spec: KvCacheSpec = plan_cache(config.model, config.cache, free,
                                             draft=config.draft_model,
-                                            reserve_bytes=self.reserve_bytes, tp=tp)
+                                            reserve_bytes=self.reserve_bytes, tp=tp, pp=pp)
         if groups is not None:  # every rank's cache holds the page pool rank 0 hands out
             self.spec.num_pages = groups.min_int(self.spec.num_pages)
         self.k_cache, self.v_cache = create_kv_buffers(self.spec, self.device)
         # mesh topology, fixed at construction: the device count the metrics
         # gauge and the flight ring read, and the loads() snapshot
-        self.mesh_devices = tp
+        self.mesh_devices = par.world_size if groups is not None else 1
         self._mesh_info = {
-            "devices": tp, "shape": config.parallel.axis_sizes(),
+            "devices": self.mesh_devices, "shape": par.axis_sizes(),
             "platform": self.device.type,
             "backend": groups.backend if groups is not None else None,
         }
+        # what each prefill call ran, by the reference's compile-key layout
+        # (``("prefill", T, mp, impl, use_pen, use_mask, use_lora, use_ring,
+        # use_embeds, use_mrope)``, ``("prefill_extend", T, mp, impl,
+        # use_lora, use_ring, use_embeds, use_mrope)``, T the chunk's prefill
+        # bucket); the port compiles nothing, the keys say which path each
+        # chunk took
+        self.prefill_keys: set[tuple] = set()
         self.max_pages_per_seq = math.ceil(
             config.scheduler.max_seq_len / config.cache.page_size)
         # the sampler's noise is a function of (seed, counter, row): the
@@ -251,13 +266,20 @@ class ModelRunner:
         self._lora_bank: LoraBank | None = None  # created at the first load
         self._lora_names: dict[str, int] = {}
         # what the schedule asked of the device: forward calls, rows and
-        # tokens of prefill; megastep launches and decode columns computed;
-        # verify blocks
-        self.stats = dict(prefill_calls=0, prefill_rows=0, prefill_tokens=0,
+        # tokens of prefill (and of those, the calls that ring-attended over
+        # sp, with no prefill kernel); megastep launches and decode columns
+        # computed; verify blocks
+        self.stats = dict(prefill_calls=0, prefill_rows=0, prefill_tokens=0, ring_calls=0,
                           decode_calls=0, decode_columns=0, verify_calls=0)
         # PD handoffs by leg and route (export_pages*/import_pages*)
         self.kv_handoffs = dict(export_host=0, export_device=0, import_host=0,
                                 import_device=0)
+
+    @property
+    def use_pp(self) -> bool:
+        """A pipeline stage: such an engine never speculates (the scheduler's
+        ``_partition_spec``), as in the reference."""
+        return self.place.pp > 1
 
     def mesh_info(self) -> dict:
         """Mesh topology for ``loads()`` and ``/scheduler``: device count,
@@ -360,10 +382,13 @@ class ModelRunner:
         """Install (or replace) an adapter in the bank; returns its slot.
         The first load creates the bank at its adapter's rank; a smaller
         rank is zero-padded, a larger one refused."""
+        if self.place.pp > 1:  # the stage's layers of each matrix, as its weights
+            a, b = self.place.layers(self.config.model)
+            weights = {k: (v[a:b] if k in canonical_keys() else v) for k, v in weights.items()}
         rank = validate_adapter(self.model_cfg, weights)
         if self._lora_bank is None:
             self._lora_bank = LoraBank(self.model_cfg, self.lora_slots, rank,
-                                       self.model.embed.dtype, self.device)
+                                       self.model.dtype, self.device)
         if rank > self._lora_bank.rank:
             raise ValueError(
                 f"adapter rank {rank} exceeds bank rank {self._lora_bank.rank} "
@@ -427,26 +452,49 @@ class ModelRunner:
         if pen is not None:
             counts, pmask, freq, pres, rep = pen
             pen = (counts[None], pmask[None], [freq], [pres], [rep])
-        toks, lps = self.prefill_batched(
+        ring = self._use_ring(len(token_ids), prefix_len, rope_pos)
+        toks, lps = self._prefill_rows(
             [(token_ids, prefix_len, page_table)], [temperature], [top_k],
             [top_p], [min_p], pen=pen, mask=None if mask is None else mask[None],
             lora_idx=[lora_idx], mm=None if mm is None else [mm],
-            rope=None if rope_pos is None else [rope_pos])
+            rope=None if rope_pos is None else [rope_pos], ring=ring)
         return int(toks[0]), float(lps[0])
+
+    def _use_ring(self, n: int, prefix_len: int, rope_pos) -> bool:
+        """The reference's sequence-parallel rule (``runner.py``
+        ``_prefill_chunk_prep``): an sp engine ring-attends a cold chunk (no
+        cached prefix: the chunk is the whole context) whose prefill bucket
+        sp divides, unless it is a pipeline stage or the chunk carries
+        M-RoPE ids.  Warm chunks, and decode, take the kernels on every
+        rank."""
+        sp = self.config.parallel.sp
+        return (self.groups is not None and sp > 1 and prefix_len == 0
+                and self.config.scheduler.prefill_bucket(n) % sp == 0
+                and not self.use_pp and rope_pos is None)
+
+    def _impl(self, ring: bool) -> str:
+        return "ring" if ring else self.model.attention
 
     def prefill_extend(self, token_ids: list[int], prefix_len: int,
                        page_table: np.ndarray, lora_idx: int = 0, mm: tuple | None = None,
                        rope_pos: np.ndarray | None = None) -> None:
         """Write one NON-final chunk's KV: nothing is sampled."""
-        self._check_chunk(len(token_ids), prefix_len, len(page_table))
+        n = len(token_ids)
+        self._check_chunk(n, prefix_len, len(page_table))
+        ring = self._use_ring(n, prefix_len, rope_pos)
+        lora = self._lora_args([lora_idx])
+        mm_args = self._mm_args(None if mm is None else [mm],
+                                None if rope_pos is None else [rope_pos],
+                                np.array([prefix_len]), n)
+        self.prefill_keys.add(("prefill_extend", self.config.scheduler.prefill_bucket(n),
+                               len(page_table), self._impl(ring),
+                               bool(lora), ring, "input_embeds" in mm_args,
+                               "rope_pos" in mm_args))
         self.model.forward_prefill_batched(
-            self._i32([token_ids]), self._i32([prefix_len]), self._i32([len(token_ids)]),
+            self._i32([token_ids]), self._i32([prefix_len]), self._i32([n]),
             self.k_cache, self.v_cache, self._i32([page_table]), compute_logits=False,
-            **self._lora_args([lora_idx]),
-            **self._mm_args(None if mm is None else [mm],
-                            None if rope_pos is None else [rope_pos],
-                            np.array([prefix_len]), len(token_ids)))
-        self._count_prefill(1, len(token_ids))
+            ring=ring, **lora, **mm_args)
+        self._count_prefill(1, n, ring)
 
     def _mm_args(self, mm, rope, prefix_lens: np.ndarray, T: int) -> dict:
         """The forward's multimodal arguments for per-row ``mm`` = (dense
@@ -489,6 +537,15 @@ class ModelRunner:
         ``lora_idx`` [G] the rows' adapter slots (None: no adapter); ``mm``
         and ``rope`` per row (dense [t, E], mask [t]) and [3, t] M-RoPE ids,
         None for a text row (both None: no row has any)."""
+        return self._prefill_rows(chunks, temps, topks, topps, minps, pen=pen, mask=mask,
+                                  lora_idx=lora_idx, mm=mm, rope=rope)
+
+    def _prefill_rows(self, chunks, temps, topks, topps, minps,
+                      pen: tuple | None = None, mask: np.ndarray | None = None,
+                      lora_idx=None, mm: list | None = None, rope: list | None = None,
+                      ring: bool = False) -> tuple[np.ndarray, np.ndarray]:
+        """``prefill_batched``'s body; ``ring``: the one chunk ring-attends
+        over the sp group (``prefill``'s rule, ``_use_ring``)."""
         G = len(chunks)
         T = max(len(c[0]) for c in chunks)
         mp = len(chunks[0][2])
@@ -502,10 +559,17 @@ class ModelRunner:
             prefix_lens[i] = pfx
             t_reals[i] = len(ids)
             page_tables[i] = row
+        lora = self._lora_args(lora_idx)
+        mm_args = self._mm_args(mm, rope, prefix_lens, T)
+        flags = (pen is not None, mask is not None, bool(lora))
+        extra = ("input_embeds" in mm_args, "rope_pos" in mm_args)
+        bucket = self.config.scheduler.prefill_bucket(T)
+        self.prefill_keys.add(("prefill", bucket, mp, self._impl(ring), *flags, ring, *extra)
+                              if G == 1 else
+                              ("prefill_batched", G, bucket, mp, self._impl(ring), *flags, *extra))
         logits = self.model.forward_prefill_batched(
             self._i32(tokens), self._i32(prefix_lens), self._i32(t_reals),
-            self.k_cache, self.v_cache, self._i32(page_tables), **self._lora_args(lora_idx),
-            **self._mm_args(mm, rope, prefix_lens, T))
+            self.k_cache, self.v_cache, self._i32(page_tables), ring=ring, **lora, **mm_args)
         if pen is not None:
             counts, pmask, freqs, pres, reps = pen
             logits = apply_penalties(
@@ -517,11 +581,12 @@ class ModelRunner:
         toks, lps = pick_sampler()(logits, self.sample_seed, self._next_counter(),
                                    self._f32(temps), self._i32(topks), self._f32(topps),
                                    self._f32(minps), mask=dmask)
-        self._count_prefill(G, int(t_reals.sum()))
+        self._count_prefill(G, int(t_reals.sum()), ring)
         return toks.cpu().numpy(), lps.cpu().numpy()  # the blocking fetch
 
-    def _count_prefill(self, rows: int, tokens: int) -> None:
+    def _count_prefill(self, rows: int, tokens: int, ring: bool = False) -> None:
         self.stats["prefill_calls"] += 1
+        self.stats["ring_calls"] += int(ring)
         self.stats["prefill_rows"] += rows
         self.stats["prefill_tokens"] += tokens
 
@@ -789,7 +854,7 @@ class ModelRunner:
     def supports_kv_transfer(self) -> bool:
         """True when this engine can serve and accept KV pulls: a
         single-device engine (CUDA IPC on the card, shared memory on the
-        CPU); a tensor-parallel one refuses the PD legs, as the reference
+        CPU); a rank-mesh one refuses the PD legs, as the reference
         turns ``transfer`` off on a mesh."""
         return self.groups is None and self.device.type in ("cuda", "cpu")
 

@@ -1477,9 +1477,11 @@ class Scheduler:
         unconstrained, penalty-free, no logprobs, no LoRA (the verify block
         scores the base model's distributions only), no stop strings (an
         engine-layer match would roll back a block's emissions; such lanes
-        stay on the K=1 megastep), with output.  The reference's
-        pipeline-parallel exclusion has nothing to exclude here.
-        Membership is static per request."""
+        stay on the K=1 megastep), with output.  A pipeline-parallel engine
+        never speculates, as in the reference: every lane takes the
+        megastep.  Membership is static per request."""
+        if self.runner.use_pp:
+            return [], active
         eligible, rest = [], []
         for slot, req in active:
             sp = req.sampling

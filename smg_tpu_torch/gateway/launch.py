@@ -47,7 +47,8 @@ def build_engine_from_args(args):
     from the same directory.  A draft model comes from
     ``--draft-model-path`` (its checkpoint) or ``--draft-model-preset``.
 
-    ``--tp`` and ``--mesh-shape`` build the ``ParallelConfig`` as the
+    ``--tp``, ``--pp``, ``--sp``, ``--ep`` and ``--mesh-shape`` build the
+    ``ParallelConfig`` as the
     reference does; a mesh larger than the devices present exits with the
     reference's message before anything loads.  Ranks whose collectives go
     over gloo (the CPU, or ranks sharing a card) decode eagerly: the engine
@@ -75,9 +76,9 @@ def build_engine_from_args(args):
                 model, vision=dataclasses.replace(model.vision, dtype=args.dtype))
     else:
         raise SystemExit("need --model-path or --model-preset")
-    parallel = ParallelConfig(tp=args.tp)
+    parallel = ParallelConfig(tp=args.tp, pp=args.pp, sp=args.sp, ep=args.ep)
     if args.mesh_shape:
-        # validate_cli_args already refused a conflict with --tp
+        # validate_cli_args already refused a conflict with a per-axis flag
         parallel = ParallelConfig.from_spec(args.mesh_shape, base=parallel)
     devices, graphs = None, True
     if parallel.world_size > 1:
@@ -148,7 +149,7 @@ def build_engine_from_args(args):
     )
     params = vision_params = None
     if args.model_path:
-        # a tp engine's ranks each take their slice of the whole host copy
+        # a rank-mesh engine's ranks each take their part of the whole host copy
         params = load_params(cfg, device="cpu" if devices is not None else args.device)
         if model.vision is not None:
             vision_params = load_vision_params(cfg, device=args.device)

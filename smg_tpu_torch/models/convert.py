@@ -10,8 +10,10 @@ vision tower's tree (``smg_tpu/models/vit.py::init_vision_params``) bridges
 through ``vision_params_from_jax`` with its nesting and layouts unchanged.
 A training state (``smg_tpu/train/step.py::TrainState``) bridges through
 ``train_state_from_jax``: the params and optax's AdamW moments folded alike.
-A tensor-parallel engine takes the whole bridged dict, and each rank keeps
-its slice (``parallel/sharding.py::shard_params``).
+A rank-mesh engine takes the whole bridged dict, and each rank keeps its
+part (``parallel/sharding.py::shard_params``); ``shards_from_jax`` gives
+every rank's part of a JAX tree at once: a pipeline stage's layers, an
+expert-parallel rank's experts, a tensor-parallel rank's slices.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from smg_tpu_torch.parallel.group import rank_coords
+from smg_tpu_torch.parallel.sharding import RankPlace, shard_params
 from smg_tpu_torch.train.step import AdamWState, TrainState
 
 # JAX key -> how its trailing axes fold: wq [L,E,H,D] -> [L,E,H*D], ...
@@ -58,6 +62,19 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu",
         if key in tree:
             out[key] = _tensor(tree[key], device, dtype)
     return out
+
+
+def shards_from_jax(tree: dict, cfg, parallel, device: torch.device | str = "cpu",
+                    dtype: torch.dtype | None = None) -> list[tuple]:
+    """Every rank's ``(rank_cfg, rank_params)`` of a JAX parameter tree
+    (numpy leaves) on the grid of ``parallel`` (an ``engine/config.py``
+    ``ParallelConfig``; ranks in ``parallel/group.py``'s order), ``cfg``
+    the whole model's port config: what each rank of an engine over that
+    grid holds."""
+    full = params_from_jax(tree, device, dtype)
+    sizes = parallel.axis_sizes()
+    return [shard_params(full, cfg, place=RankPlace.of(sizes, rank_coords(sizes, r)))
+            for r in range(parallel.world_size)]
 
 
 def vision_params_from_jax(tree: dict, device: torch.device | str = "cpu",

@@ -73,6 +73,8 @@ from smg_tpu_torch.ops.cuda.prefill_attention import (
 )
 from smg_tpu_torch.ops.norms import rms_norm
 from smg_tpu_torch.ops.rope import _rotate_half, apply_rope, mrope_angles, rope_frequencies
+from smg_tpu_torch.parallel import pp_serving
+from smg_tpu_torch.parallel.ring_attention import ring_attention
 
 ATTENTION_IMPLS = ("kernel", "plain")
 EMBED_TOKEN_TILE = 4096  # padded tokens of one row tile of forward_embed
@@ -92,62 +94,69 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights with the shapes and init scales of the JAX package's
     ``init_params`` (``smg_tpu/models/llama.py``).  The numbers differ (no
     threefry); tests that need identical weights bridge them with
-    ``models/convert.py::params_from_jax``.  ``shard(name, t)`` (a tensor-
-    parallel rank's ``parallel/sharding.py::param_sharder``) keeps its slice
-    of each layer as it is drawn: the draws, and so the model, are those of
-    the whole one."""
+    ``models/convert.py::params_from_jax``.  ``shard`` (a rank's
+    ``parallel/sharding.py::Sharder``) keeps the rank's part as each piece
+    is drawn: its layers and experts of each stacked weight, its tp slice of
+    each drawn piece, the top-level weights it holds.  Every piece is drawn
+    all the same, in the same order, so the draws, and the model, are those
+    of the whole one."""
     E, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     H, K, D, V = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size
     dtype = torch_dtype(cfg.dtype)
 
-    def normal(shape, scale, name=None):
+    def normal(shape, scale, name, depth=0):
         if len(shape) == 2:
             t = (torch.randn(shape, generator=generator, device=device,
                              dtype=torch.float32) * scale).to(dtype)
-            return t if shard is None or name is None else shard(name, t)
+            return t if shard is None else shard(name, t)
+        a, b = (0, shape[0]) if shard is None else shard.keep(name, depth, shape[0])
         out = None
         for i in range(shape[0]):  # layer by layer (expert by expert): bounded f32 scratch
-            part = normal(shape[1:], scale, name)
+            part = normal(shape[1:], scale, name, depth + 1)
+            if not a <= i < b:
+                continue  # drawn, not kept: the generator moves on as for the whole
             if out is None:
-                out = torch.empty((shape[0], *part.shape), dtype=dtype, device=device)
-            out[i] = part
+                out = torch.empty((b - a, *part.shape), dtype=dtype, device=device)
+            out[i - a] = part
         return out
+
+    lo, hi = (0, L) if shard is None else shard.keep("attn_norm", 0, L)
+    Lr = hi - lo  # the rank's layers (its pipeline stage's)
 
     def const(shape, value):
         return torch.full(shape, value, dtype=dtype, device=device)
 
     norm_one = 0.0 if cfg.rms_unit_offset else 1.0  # Gemma stores w as a delta
     layers = {
-        "attn_norm": const((L, E), norm_one),
+        "attn_norm": const((Lr, E), norm_one),
         "wq": normal((L, E, H * D), 0.02, "wq"),
         "wk": normal((L, E, K * D), 0.02, "wk"),
         "wv": normal((L, E, K * D), 0.02, "wv"),
         "wo": normal((L, H * D, E), 0.02 / math.sqrt(2 * L), "wo"),
-        "mlp_norm": const((L, E), norm_one),
+        "mlp_norm": const((Lr, E), norm_one),
     }
     if cfg.num_experts:  # Qwen-MoE: the router and the stacked expert MLPs
         X, Fm = cfg.num_experts, cfg.moe_intermediate_size or Fd
-        layers["router"] = normal((L, E, X), 0.02)
-        layers["w_gate"] = normal((L, X, E, Fm), 0.02)
-        layers["w_up"] = normal((L, X, E, Fm), 0.02)
-        layers["w_down"] = normal((L, X, Fm, E), 0.02 / math.sqrt(2 * L))
+        layers["router"] = normal((L, E, X), 0.02, "router")
+        layers["w_gate"] = normal((L, X, E, Fm), 0.02, "w_gate")
+        layers["w_up"] = normal((L, X, E, Fm), 0.02, "w_up")
+        layers["w_down"] = normal((L, X, Fm, E), 0.02 / math.sqrt(2 * L), "w_down")
     else:
         layers["w_gate"] = normal((L, E, Fd), 0.02, "w_gate")
         layers["w_up"] = normal((L, E, Fd), 0.02, "w_up")
         layers["w_down"] = normal((L, Fd, E), 0.02 / math.sqrt(2 * L), "w_down")
     if cfg.post_norms:
-        layers["post_attn_norm"] = const((L, E), norm_one)
-        layers["post_mlp_norm"] = const((L, E), norm_one)
+        layers["post_attn_norm"] = const((Lr, E), norm_one)
+        layers["post_mlp_norm"] = const((Lr, E), norm_one)
     if cfg.qk_norm:
-        layers["q_norm"] = const((L, D), 1.0)
-        layers["k_norm"] = const((L, D), 1.0)
-    params = {
-        "embed": normal((V, E), 0.02, "embed"),
-        "layers": layers,
-        "final_norm": const((E,), norm_one),
-    }
+        layers["q_norm"] = const((Lr, D), 1.0)
+        layers["k_norm"] = const((Lr, D), 1.0)
+    params = {"embed": normal((V, E), 0.02, "embed"), "layers": layers,
+              "final_norm": const((E,), norm_one)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal((E, V), 0.02, "lm_head")
+    if shard is not None:
+        params = {k: v for k, v in params.items() if k == "layers" or shard.holds(k)}
     return params
 
 
@@ -225,13 +234,21 @@ def moe_experts(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return torch.bmm(act, w_down)
 
 
-def moe_combine(y: torch.Tensor, idx: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+def moe_combine(y: torch.Tensor, idx: torch.Tensor, probs: torch.Tensor,
+                expert0: int | None = None) -> torch.Tensor:
     """The gated sum of the expert outputs in float32: y [X, T, E], the
     routing ``idx``/``probs`` [T, k].  The reference sums ``y * gates``
     over all X experts, where the gates are zero off the top k; those X - k
     terms are exact zeros, so summing the k gated rows alone is the same sum
-    and reads 1/(X/k) of ``y`` in float32.  Returns [T, E] float32."""
+    and reads 1/(X/k) of ``y`` in float32.  Under expert parallelism
+    (``expert0`` given) ``y`` holds the rank's experts ``[expert0, expert0 +
+    X)`` alone: a routed expert off the rank adds zero, and the caller sums
+    the ranks' partial results.  Returns [T, E] float32."""
     X, T, E = y.shape
+    if expert0 is not None:
+        local = idx - expert0
+        mine = (local >= 0) & (local < X)
+        idx, probs = local.clamp(0, X - 1), torch.where(mine, probs, 0.0)
     rows = idx * T + torch.arange(T, device=y.device)[:, None]  # [T, k] into y's [X*T]
     sel = y.reshape(X * T, E).index_select(0, rows.reshape(-1)).reshape(*idx.shape, E)
     return (sel.float() * probs[..., None]).sum(dim=-2)
@@ -239,7 +256,7 @@ def moe_combine(y: torch.Tensor, idx: torch.Tensor, probs: torch.Tensor) -> torc
 
 def moe_mlp(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, k: int,
-            tile: int = MOE_TOKEN_TILE) -> torch.Tensor:
+            tile: int = MOE_TOKEN_TILE, ep=None, expert0: int = 0) -> torch.Tensor:
     """Mixture-of-experts MLP of the Qwen-MoE family — the reference's
     ``_moe_mlp`` (``smg_tpu/models/llama.py``) with its order and dtypes:
     the router (``moe_route``), every expert on every token
@@ -251,7 +268,15 @@ def moe_mlp(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
     through in tiles of at most ``tile``, so the scratch is bounded by the
     tile, not by the prefill chunk; each token's result depends on that
     token alone.  Shapes depend only on the input's and no value goes to
-    the host, so a CUDA graph can capture it."""
+    the host, so a CUDA graph can capture it.
+
+    Expert parallelism (the reference's ``ep`` axis over the expert dim):
+    with ``ep`` (the rank's ``parallel/group.py::AxisGroup``) the expert
+    weights are the rank's ``[expert0, expert0 + X/ep)``; every rank routes
+    over all X experts with the whole router, computes its experts for
+    every token and combines them with their gates, and the float32 partial
+    combines are all-reduced over ep before the cast, as GSPMD sums the
+    reference's combine."""
     lead = x.shape[:-1]
     flat = x.reshape(-1, x.shape[-1])
     outs = []
@@ -259,9 +284,12 @@ def moe_mlp(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
         xt = flat[s:s + tile]
         idx, probs = moe_route(xt, router, k)
         y = moe_experts(xt, w_gate, w_up, w_down)
-        outs.append(moe_combine(y, idx, probs).to(x.dtype))
+        part = moe_combine(y, idx, probs, None if ep is None else expert0)
+        outs.append(part if ep is not None else part.to(x.dtype))
         del y  # gone before the next tile's products: one tile's scratch at a time
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    if ep is not None:
+        out = ep.all_reduce(out).to(x.dtype)
     return out.reshape(*lead, x.shape[-1])
 
 
@@ -321,25 +349,50 @@ class LlamaModel(nn.Module):
     ``params["layers"]`` is a stacked ``[L, ...]`` tensor, or (training) a
     sequence of L per-layer tensors that require grad.
 
-    Tensor parallel: given ``tp`` (a rank's ``parallel/group.py::RankGroups``),
-    ``cfg`` is the rank's config (``parallel/sharding.py::rank_config``) and
-    ``params`` its shard.  The attention output projection and ``w_down``
-    give partial sums that are all-reduced before the post-norm (Gemma-2's
-    ``post_norms`` need the whole sum) and the residual add; a vocab-sharded
-    embedding is a masked lookup of the rank's rows, all-reduced; the
-    logits of the rank's vocab columns are all-gathered before the final
-    softcap.  Without ``tp`` nothing changes.  The attention calls are the
-    same either way, so the kernels run on every rank at its head counts."""
+    Tensor parallel: given ``tp`` (a rank's ``parallel/group.py::AxisGroup``
+    for tp, or a tp-only ``RankGroups``), ``cfg`` is the rank's config
+    (``parallel/sharding.py::rank_config``) and ``params`` its shard.  The
+    attention output projection and ``w_down`` give partial sums that are
+    all-reduced before the post-norm (Gemma-2's ``post_norms`` need the
+    whole sum) and the residual add; a vocab-sharded embedding is a masked
+    lookup of the rank's rows, all-reduced; the logits of the rank's vocab
+    columns are all-gathered before the final softcap.
 
-    def __init__(self, cfg: ModelConfig, params: dict, attention: str = "kernel", tp=None):
+    Pipeline parallel: given ``pp`` (the pp group; ``parallel/pp_serving.py``)
+    the model holds stage ``pp.rank``'s ``cfg.num_layers`` layers, the
+    global layers from ``layer0``: the first stage embeds, every later one
+    receives ``h`` from the stage before it, and the last unembeds and
+    broadcasts the logits.  Windows follow the global layer index.
+
+    Sequence parallel: given ``sp`` (the sp group), a prefill asked to
+    ``ring`` attends through ``parallel/ring_attention.py`` over the sp
+    ranks, each of which holds the whole model and writes the chunk's whole
+    KV, as the reference replicates over sp.
+
+    Expert parallel: given ``ep`` (the ep group) the expert stacks hold the
+    rank's ``cfg.num_experts`` experts from ``expert0``, and ``moe_mlp``
+    all-reduces its combine over ep.
+
+    Without any group nothing changes.  The attention calls are the same
+    either way, so the kernels run on every rank at its head counts and
+    layers."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, attention: str = "kernel", tp=None,
+                 pp=None, sp=None, ep=None):
         super().__init__()
         if attention not in ATTENTION_IMPLS:
             raise ValueError(f"attention must be one of {ATTENTION_IMPLS}, got {attention!r}")
         self.cfg = cfg
         self.attention = attention
-        self.tp = tp
-        rows = params["embed"].shape[0]
-        # first vocab row of this rank's embedding slice (None: whole vocab)
+        self.tp, self.pp, self.sp, self.ep = tp, pp, sp, ep
+        self.first = pp is None or pp.rank == 0
+        self.last = pp is None or pp.rank == pp.size - 1
+        self.layer0 = 0 if pp is None else pp.rank * cfg.num_layers
+        self.expert0 = 0 if ep is None else ep.rank * cfg.num_experts
+        rows = (params["embed"].shape[0] if "embed" in params
+                else params["lm_head"].shape[-1] if "lm_head" in params else cfg.vocab_size)
+        # first vocab row of this rank's embedding or lm_head slice (None:
+        # whole vocab)
         self.vocab_start = (tp.rank * rows if tp is not None and rows != cfg.vocab_size
                             else None)
         self.scale = cfg.query_scale or 1.0 / math.sqrt(cfg.head_dim)
@@ -353,14 +406,15 @@ class LlamaModel(nn.Module):
         for name in ("embed", "final_norm", "lm_head"):
             if name in params:
                 self.register_buffer(name, params[name], persistent=False)
-        if not cfg.tie_word_embeddings and "lm_head" not in params:
+        if self.last and not cfg.tie_word_embeddings and "lm_head" not in params:
             raise ValueError("untied model needs an lm_head")
-        device = params["embed"].device
+        wq = params["layers"]["wq"]
+        wq = wq if isinstance(wq, torch.Tensor) else wq[0]
+        self.dtype, device = wq.dtype, wq.device
         # Gemma scales embeddings by sqrt(hidden), rounded to the weights'
         # dtype as the JAX package does; a Python float keeps every forward
         # free of host tensors (CUDA graph capture)
-        self.embed_scale = (float(torch.tensor(math.sqrt(cfg.hidden_size),
-                                               dtype=params["embed"].dtype))
+        self.embed_scale = (float(torch.tensor(math.sqrt(cfg.hidden_size), dtype=self.dtype))
                             if cfg.embed_scale else None)
         self.register_buffer("inv_freq", torch.from_numpy(
             rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)).to(device),
@@ -429,7 +483,8 @@ class LlamaModel(nn.Module):
         x = self._norm(h, ly.mlp_norm[l])
         if self.moe:  # Qwen-MoE: the expert layer, in every forward
             o = moe_mlp(x, ly.router[l], ly.w_gate[l], ly.w_up[l], ly.w_down[l],
-                        max(self.cfg.num_experts_per_tok, 1))
+                        max(self.cfg.num_experts_per_tok, 1), ep=self.ep,
+                        expert0=self.expert0)
         else:
             gate = torch.matmul(x, ly.w_gate[l])
             up = torch.matmul(x, ly.w_up[l])
@@ -450,6 +505,22 @@ class LlamaModel(nn.Module):
             return None
         return lora_gates(lora_idx, lora.slots, dtype)
 
+    def _enter(self, shape: tuple, embed) -> torch.Tensor:
+        """The input of this rank's layers: ``embed()`` on the first stage,
+        the stage before's ``h`` on a later one."""
+        if self.first:
+            return embed()
+        return pp_serving.receive(self.pp, shape, self.dtype, self.inv_freq.device)
+
+    def _leave(self, h: torch.Tensor, unembed, shape: tuple) -> torch.Tensor:
+        """Logits [*shape] float32 from the stack's output ``h``: this
+        rank's ``unembed()``, or under pp the last stage's on every stage
+        (``h`` handed on to the next stage first)."""
+        if self.pp is None:
+            return unembed()
+        pp_serving.hand_on(self.pp, h)
+        return pp_serving.logits_from_last(self.pp, unembed, shape, h.device)
+
     # ---- serving forwards ----
 
     def forward_prefill(self, tokens, prefix_len, t_real, k_cache, v_cache, page_table,
@@ -457,20 +528,21 @@ class LlamaModel(nn.Module):
                         lora_idx: torch.Tensor | None = None,
                         input_embeds: torch.Tensor | None = None,
                         embeds_mask: torch.Tensor | None = None,
-                        rope_pos: torch.Tensor | None = None):
+                        rope_pos: torch.Tensor | None = None, ring: bool = False):
         """Prefill one sequence chunk (``tokens`` [T], ``prefix_len`` and
         ``t_real`` [1] int32, ``page_table`` [mp] int32, all on the cache's
         device); writes its KV and returns the last token's logits [V] (None
         with ``compute_logits=False``: a non-final chunk).  ``lora`` is the
         adapter bank and ``lora_idx`` [1] the sequence's slot;
         ``input_embeds`` [T, E] and ``embeds_mask`` [T] bool the multimodal
-        splice, ``rope_pos`` [3, T] the M-RoPE position ids."""
+        splice, ``rope_pos`` [3, T] the M-RoPE position ids; ``ring`` as in
+        ``forward_prefill_batched``."""
         logits = self.forward_prefill_batched(
             tokens[None], prefix_len.reshape(1), t_real.reshape(1), k_cache, v_cache,
             page_table[None], compute_logits=compute_logits, lora=lora, lora_idx=lora_idx,
             input_embeds=None if input_embeds is None else input_embeds[None],
             embeds_mask=None if embeds_mask is None else embeds_mask[None],
-            rope_pos=None if rope_pos is None else rope_pos[None])
+            rope_pos=None if rope_pos is None else rope_pos[None], ring=ring)
         return None if logits is None else logits[0]
 
     def forward_prefill_batched(self, tokens, prefix_lens, t_reals, k_cache, v_cache,
@@ -479,7 +551,7 @@ class LlamaModel(nn.Module):
                                 lora_idx: torch.Tensor | None = None,
                                 input_embeds: torch.Tensor | None = None,
                                 embeds_mask: torch.Tensor | None = None,
-                                rope_pos: torch.Tensor | None = None):
+                                rope_pos: torch.Tensor | None = None, ring: bool = False):
         """Prefill several sequences in one call: ``tokens`` [G, T] (rows
         padded past ``t_reals``), ``prefix_lens``/``t_reals`` [G] int32,
         ``page_tables`` [G, mp] int32, ``lora_idx`` [G] each row's adapter
@@ -487,7 +559,10 @@ class LlamaModel(nn.Module):
         [G, T, E] replace the token embeddings where ``embeds_mask`` [G, T]
         is set (the multimodal splice); ``rope_pos`` [G, 3, T] are M-RoPE
         position ids (text rows: three copies of the sequential position).
-        Returns last-token logits [G, V]."""
+        ``ring`` (an sp rank, a cold chunk: the runner's rule) attends the
+        chunk by ring attention over the sp group instead of the prefill
+        kernel; the chunk's KV is written whole all the same.  Returns
+        last-token logits [G, V]."""
         cfg = self.cfg
         G_, T = tokens.shape
         K, D = cfg.num_kv_heads, cfg.head_dim
@@ -504,10 +579,14 @@ class LlamaModel(nn.Module):
         dest = torch.where(valid, page * ps + pos_c % ps, 0).reshape(-1)
         cd = k_cache.dtype
 
-        h = self.embed_tokens(tokens)  # [G, T, E]
-        if input_embeds is not None:
-            # multimodal splice: placeholder rows take the vision tower's output
-            h = torch.where(embeds_mask[..., None], input_embeds.to(h.dtype), h)
+        def embed():
+            h = self.embed_tokens(tokens)  # [G, T, E]
+            if input_embeds is not None:
+                # multimodal splice: placeholder rows take the vision tower's output
+                h = torch.where(embeds_mask[..., None], input_embeds.to(h.dtype), h)
+            return h
+
+        h = self._enter((G_, T, cfg.hidden_size), embed)
         gates = self._gates(lora, lora_idx, h.dtype)
         if gates is not None:
             gates = gates[:, None, :]  # every token of a row takes its slot
@@ -526,8 +605,10 @@ class LlamaModel(nn.Module):
                 k = apply_rope(k, pos, self.inv_freq)
             scatter_kv_pages_full(k_cache, v_cache, l, k.reshape(G_ * T, K, D),
                                   v.reshape(G_ * T, K, D), dest)
-            window = layer_window(cfg, l)
-            if self.attention == "kernel":
+            window = layer_window(cfg, self.layer0 + l)
+            if ring:
+                attn = ring_attention(q, k, v, self.scale, self.sp)
+            elif self.attention == "kernel":
                 attn = paged_attention_prefill_batched(
                     q.to(cd).contiguous(), k.reshape(G_, T, K * D).to(cd).contiguous(),
                     v.reshape(G_, T, K * D).to(cd).contiguous(), k_cache, v_cache, l,
@@ -540,9 +621,11 @@ class LlamaModel(nn.Module):
             h = self._attn_residual(l, h, attn.to(h.dtype), lora, gates)
             h = self._mlp_residual(l, h)
         if not compute_logits:
+            if self.pp is not None:
+                pp_serving.hand_on(self.pp, h)
             return None
-        last = h[torch.arange(G_, device=dev), (tr - 1).clamp(min=0)]
-        return self.unembed(last)
+        return self._leave(h, lambda: self.unembed(
+            h[torch.arange(G_, device=dev), (tr - 1).clamp(min=0)]), (G_, cfg.vocab_size))
 
     def forward_decode_horizon(self, tokens, positions, entry_positions, step_idx: int,
                                k_cache, v_cache, page_tables, hk_all, hv_all,
@@ -568,7 +651,7 @@ class LlamaModel(nn.Module):
         KD = cfg.num_kv_heads * cfg.head_dim
         cd = k_cache.dtype
         rope_positions = positions if rope_delta is None else positions + rope_delta
-        h = self.embed_tokens(tokens)  # [B, E]
+        h = self._enter((B, cfg.hidden_size), lambda: self.embed_tokens(tokens))  # [B, E]
         gates = self._gates(lora, lora_idx, h.dtype)
         for l in range(cfg.num_layers):
             q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]), lora, gates)
@@ -578,14 +661,14 @@ class LlamaModel(nn.Module):
             hv_all[l, :, step_idx] = v.reshape(B, KD).to(hv_all.dtype)
             args = (q.to(cd).contiguous(), k_cache, v_cache, hk_all[l], hv_all[l],
                     step_idx + 1, l, page_tables, entry_positions, self.scale)
-            kw = dict(softcap=cfg.attn_logit_softcap, window=layer_window(cfg, l))
+            kw = dict(softcap=cfg.attn_logit_softcap, window=layer_window(cfg, self.layer0 + l))
             if self.attention == "kernel":
                 attn = paged_attention_decode_cached(*args, **kw, counters=counters)
             else:
                 attn = attention_decode_cached(*args, **kw)
             h = self._attn_residual(l, h, attn.to(h.dtype), lora, gates)
             h = self._mlp_residual(l, h)
-        return self.unembed(h)
+        return self._leave(h, lambda: self.unembed(h), (B, cfg.vocab_size))
 
     def forward_verify_block(self, tokens, entry_positions, k_cache, v_cache, page_tables,
                              rope_delta: torch.Tensor | None = None):
@@ -616,7 +699,7 @@ class LlamaModel(nn.Module):
             bv[l] = v.reshape(B, W, KD).to(bv.dtype)
             attn = attention_verify_block(
                 q, k_cache, v_cache, bk[l], bv[l], l, page_tables, entry_positions,
-                self.scale, softcap=cfg.attn_logit_softcap, window=layer_window(cfg, l))
+                self.scale, softcap=cfg.attn_logit_softcap, window=layer_window(cfg, self.layer0 + l))
             h = self._attn_residual(l, h, attn.to(h.dtype))
             h = self._mlp_residual(l, h)
         return self.unembed(h), bk, bv
@@ -705,7 +788,7 @@ class LlamaModel(nn.Module):
             scatter_kv_pages_full(k_cache, v_cache, l, k, v, dest)
             attn = attention_decode(
                 q, k_cache[l], v_cache[l], page_tables, positions, self.scale,
-                softcap=cfg.attn_logit_softcap, window=layer_window(cfg, l))
+                softcap=cfg.attn_logit_softcap, window=layer_window(cfg, self.layer0 + l))
             h = self._attn_residual(l, h, attn.to(h.dtype))
             h = self._mlp_residual(l, h)
         return self.unembed(h)

@@ -29,7 +29,9 @@ runs only when the graph replays, so the code that captures and replays
 graphs keeps the count right (``engine/graphs.py``) through
 ``count_launches``; a capture reads its own thread's tally
 (``thread_launches``), since another engine's thread may launch or replay
-while it captures.
+while it captures.  ``launches_of(thread)`` is any thread's tally, read
+from another: the launches of one engine among several in a process, when
+its steps run on a thread of their own.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+import weakref
 
 import torch
 
@@ -66,6 +69,7 @@ MIN_SPLIT_KEYS = 64
 launches = 0  # kernel launches in this process (reset by the caller)
 _launches_lock = threading.Lock()  # engines on several threads launch
 _this_thread = threading.local()
+_by_thread: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # Thread -> launches
 # arrival counters per (device, stream handle), zero between launches
 _counters: dict[tuple[torch.device, int], torch.Tensor] = {}
 
@@ -74,14 +78,22 @@ def count_launches(n: int = 1) -> None:
     """Add ``n`` launches to ``launches`` and to the calling thread's
     tally."""
     global launches
+    me = threading.current_thread()
     with _launches_lock:
         launches += n
+        _by_thread[me] = _by_thread.get(me, 0) + n
     _this_thread.launches = thread_launches() + n
 
 
 def thread_launches() -> int:
     """The calling thread's launches so far."""
     return getattr(_this_thread, "launches", 0)
+
+
+def launches_of(thread: threading.Thread) -> int:
+    """``thread``'s launches so far."""
+    with _launches_lock:
+        return _by_thread.get(thread, 0)
 
 
 def num_splits(B: int, K: int, max_keys: int) -> int:

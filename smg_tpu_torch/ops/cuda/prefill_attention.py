@@ -10,6 +10,7 @@ callers scatter the chunk before attention, as the models do.
 from __future__ import annotations
 
 import threading
+import weakref
 
 import torch
 
@@ -26,6 +27,14 @@ MAX_GROUP = 64  # kernel bound: query heads per KV head
 MAX_HEAD_DIM = 256
 launches = 0  # kernel launches in this process (reset by the caller)
 _launches_lock = threading.Lock()  # engines on several threads launch
+_by_thread: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # Thread -> launches
+
+
+def launches_of(thread: threading.Thread) -> int:
+    """``thread``'s launches so far (one engine's, among several in a
+    process, when its steps run on a thread of their own)."""
+    with _launches_lock:
+        return _by_thread.get(thread, 0)
 
 
 def plain_prefill_batched(q, k_cache, v_cache, layer, page_tables, prefix_lens,
@@ -94,8 +103,10 @@ def paged_attention_prefill_batched(
     )
     raise_on_error(err, "prefill_attention")
     global launches
+    me = threading.current_thread()
     with _launches_lock:
         launches += 1
+        _by_thread[me] = _by_thread.get(me, 0) + 1
     return out
 
 

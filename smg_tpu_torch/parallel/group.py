@@ -1,25 +1,34 @@
-"""Rank processes, process groups and collectives of a tensor-parallel
-engine.  The reference has no counterpart: GSPMD places its shards and
-inserts its collectives inside one process.
+"""Rank processes, the rank grid, its process groups and collectives of a
+rank-mesh engine (tp, pp, sp and ep).  The reference has no counterpart:
+GSPMD places its shards and inserts its collectives inside one process, over
+a ``jax.sharding.Mesh`` whose axes it lays out in ``AXIS_ORDER``
+(``smg_tpu/parallel/mesh.py``).
 
 Every rank is a process with its own explicit device; rank 0 lives in the
-engine's process and the followers are started with the ``spawn`` method
-(``leader.py``), never by ``fork`` after CUDA has initialised.  Ranks meet
+engine's process and the followers fork from a fork server that holds no
+CUDA context (``leader.py``), never from a process after CUDA has
+initialised.  Ranks meet
 at a ``TCPStore`` on a port the OS picks (port 0), so engines and test
-workers side by side never collide on a fixed port.  Each rank joins two
-groups, built from the store without ``init_process_group`` (no process-wide
-default group, so one process may hold several engines):
+workers side by side never collide on a fixed port.  The ranks lie on a
+grid over ``AXIS_ORDER`` = (pp, dp, ep, sp, tp), the reference's order, tp
+innermost: rank r's coordinates are r's digits in that mixed radix
+(``rank_coords``).  Each rank joins, built from the store without
+``init_process_group`` (no process-wide default group, so one process may
+hold several engines):
 
-- the **control** group, gloo over CPU tensors: rank 0 broadcasts its
-  runner calls on it (``send``/``recv``), and the ranks agree on the KV
-  pages there (``min_int``);
-- the **device** group, for the collectives inside the forward
-  (``all_reduce``, ``all_gather``).  Its backend follows one rule
-  (``device_backend``): ``nccl`` when every rank has a CUDA device of its
-  own; ``gloo`` on the CPU, and when ranks share one CUDA device, which a
-  caller asks for by passing a device list that repeats it (NCCL refuses
-  two ranks of one communicator on one device).  Over gloo a CUDA tensor
-  goes through host memory, so the collective waits for the device.
+- the **control** group of every rank, gloo over CPU tensors: rank 0
+  broadcasts its runner calls on it (``send``/``recv``), and the ranks agree
+  on the KV pages there (``min_int``);
+- one **axis group** for each axis above 1 (``AxisGroup``, ``axis(name)``):
+  the ranks that differ from this one along that axis alone, for the
+  collectives inside the forward: tp's all-reduce and all-gather, pp's
+  hand-off and broadcast, sp's ring exchange and gather, ep's all-reduce.
+  The backend follows one rule (``device_backend``): ``nccl`` when every
+  rank has a CUDA device of its own; ``gloo`` on the CPU, and when ranks
+  share one CUDA device, which a caller asks for by passing a device list
+  that repeats it (NCCL refuses two ranks of one communicator on one
+  device).  Over gloo a CUDA tensor goes through host memory, so the
+  collective waits for the device.
 
 Every group has a ``timeout``: a collective or a receive that waits longer
 raises, so no rank waits forever for a peer that died."""
@@ -27,6 +36,7 @@ raises, so no rank waits forever for a peer that died."""
 from __future__ import annotations
 
 import datetime
+import math
 import pickle
 
 import numpy as np
@@ -102,49 +112,167 @@ def connect_store(port: int, world: int, timeout: float = TP_TIMEOUT_S) -> dist.
     return dist.TCPStore(LOCALHOST, port, world, False, timeout=_timeout(timeout))
 
 
+#: the grid's axes, outermost first (the reference's ``mesh.py::AXIS_ORDER``)
+AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
+
+
+def rank_coords(sizes: dict, rank: int) -> dict[str, int]:
+    """Rank ``rank``'s index along each axis of a grid of ``sizes`` (axis ->
+    size; absent axes are 1), laid out in ``AXIS_ORDER`` with tp
+    innermost."""
+    coords = {}
+    for axis in reversed(AXIS_ORDER):
+        n = sizes.get(axis, 1)
+        coords[axis] = rank % n
+        rank //= n
+    return coords
+
+
+def axis_members(sizes: dict, rank: int, axis: str) -> list[int]:
+    """The ranks that differ from ``rank`` along ``axis`` alone, in axis
+    order (index i holds the rank at coordinate i)."""
+    stride = 1
+    for a in reversed(AXIS_ORDER):
+        if a == axis:
+            break
+        stride *= sizes.get(a, 1)
+    here = rank_coords(sizes, rank)[axis]
+    return [rank + (i - here) * stride for i in range(sizes.get(axis, 1))]
+
+
+class AxisGroup:
+    """One axis of the grid as this rank sees it: its index ``rank`` among
+    the ``size`` ranks of the group (``members``, global ranks) and the
+    collectives over them."""
+
+    def __init__(self, name: str, pg, rank: int, members: list[int], backend: str):
+        self.name = name
+        self.pg = pg
+        self.rank = rank
+        self.size = len(members)
+        self.members = members
+        self.backend = backend
+
+    def _host(self, x: torch.Tensor) -> bool:
+        return self.backend == "gloo" and x.device.type != "cpu"
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the group (every rank gets the same bits)."""
+        if self._host(x):
+            h = x.cpu()
+            self.pg.allreduce([h]).wait()
+            return h.to(x.device)
+        x = x.contiguous()
+        self.pg.allreduce([x]).wait()
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim``, in rank order."""
+        src = x.cpu() if self._host(x) else x.contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        self.pg.allgather([parts], [src]).wait()
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """``x`` of the group's rank ``src`` on every rank (a new tensor on
+        the others; ``x`` is their buffer of its shape and dtype)."""
+        buf = x.cpu() if self._host(x) else x.contiguous()
+        opts = dist.BroadcastOptions()
+        opts.rootRank = src
+        self.pg.broadcast([buf], opts).wait()
+        return buf.to(x.device)
+
+    def send(self, x: torch.Tensor, dst: int) -> None:
+        """Send ``x`` to the group's rank ``dst`` (returns once sent)."""
+        self.pg.send([x.cpu() if self._host(x) else x.contiguous()], dst, 0).wait()
+
+    def recv(self, buf: torch.Tensor, src: int) -> torch.Tensor:
+        """The tensor the group's rank ``src`` sends, into ``buf``'s shape,
+        dtype and device."""
+        h = buf.cpu() if self._host(buf) else buf
+        self.pg.recv([h], src, 0).wait()
+        return h.to(buf.device)
+
+    def exchange(self, out: list[torch.Tensor], dst: int, src: int) -> list[torch.Tensor]:
+        """Send the tensors ``out`` to rank ``dst`` while receiving as many
+        of the same shapes from rank ``src`` (a ring's step), all posted
+        before any is waited on, as ``torch.distributed.batch_isend_irecv``
+        posts them; that function needs a registered group, and these are
+        built without a default one.  Even ranks post their sends first
+        and odd ranks their receives, so a backend that runs point-to-point
+        operations in order on one stream (NCCL between two ranks) never
+        waits on a pair posted after it."""
+        host = self._host(out[0])
+        sends = [t.cpu() if host else t.contiguous() for t in out]
+        bufs = [torch.empty_like(t) for t in sends]
+
+        def post_sends():
+            return [self.pg.send([t], dst, 0) for t in sends]
+
+        def post_recvs():
+            return [self.pg.recv([b], src, 0) for b in bufs]
+
+        if self.rank % 2 == 0:
+            works = post_sends() + post_recvs()
+        else:
+            works = post_recvs() + post_sends()
+        for w in works:
+            w.wait()
+        dev = out[0].device
+        return [b.to(dev) for b in bufs]
+
+
 class RankGroups:
     """One rank's view of the mesh: its rank, the world size, its device,
-    the two process groups and the collectives the model and the leader
-    use.  ``ranks_on_device`` counts the ranks that share this rank's
-    device (its share of the free memory)."""
+    its coordinates on the grid (``coords``), the control group, an
+    ``AxisGroup`` for each axis above 1 (``axes``) and the collectives the
+    model and the leader use.  ``sizes`` (axis -> size) defaults to a tp
+    grid of every rank.  ``all_reduce``/``all_gather`` act over the tp
+    group (the whole world when tp is the only axis).  ``ranks_on_device``
+    counts the ranks that share this rank's device (its share of the free
+    memory)."""
 
-    def __init__(self, store, rank: int, devices: list, timeout: float = TP_TIMEOUT_S):
+    def __init__(self, store, rank: int, devices: list, timeout: float = TP_TIMEOUT_S,
+                 sizes: dict | None = None):
         devs = [torch.device(d) for d in devices]
         self.rank = rank
         self.world = len(devs)
         self.devices = devs
         self.device = devs[rank]
         self.timeout = timeout
+        self.sizes = {a: n for a, n in (sizes or {"tp": self.world}).items() if n > 1}
+        if math.prod(self.sizes.values()) != self.world:
+            raise ValueError(f"grid {self.sizes} does not hold {self.world} ranks")
+        self.coords = rank_coords(self.sizes, rank)
         self.backend = device_backend(devs)
         self.ranks_on_device = sum(d == self.device for d in devs)
         self.control = _gloo(store, "control", rank, self.world, timeout)
         if self.backend == "nccl":
             torch.cuda.set_device(self.device)
-            self.group = _nccl(store, "device", rank, self.world, timeout)
-        else:
-            self.group = _gloo(store, "device", rank, self.world, timeout)
+        self.axes: dict[str, AxisGroup] = {}
+        for axis in AXIS_ORDER:  # every rank builds its groups in one order
+            if axis not in self.sizes:
+                continue
+            members = axis_members(self.sizes, rank, axis)
+            prefix = f"device/{axis}/{members[0]}"
+            make = _nccl if self.backend == "nccl" else _gloo
+            pg = make(store, prefix, self.coords[axis], len(members), timeout)
+            self.axes[axis] = AxisGroup(axis, pg, self.coords[axis], members, self.backend)
 
-    # ---- collectives inside the forward (the device group) ----
+    def axis(self, name: str) -> AxisGroup | None:
+        """This rank's group along ``name`` (None when the axis is 1)."""
+        return self.axes.get(name)
 
-    def _host(self, x: torch.Tensor) -> bool:
-        return self.backend == "gloo" and x.device.type != "cpu"
+    # ---- collectives inside the forward (the tp group) ----
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the ranks (every rank gets the same bits)."""
-        if self._host(x):
-            h = x.cpu()
-            self.group.allreduce([h]).wait()
-            return h.to(x.device)
-        x = x.contiguous()
-        self.group.allreduce([x]).wait()
-        return x
+        """The sum of ``x`` over the tp group."""
+        return self.axes["tp"].all_reduce(x)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``x`` concatenated along the last axis, in rank order."""
-        src = x.cpu() if self._host(x) else x.contiguous()
-        parts = [torch.empty_like(src) for _ in range(self.world)]
-        self.group.allgather([parts], [src]).wait()
-        return torch.cat(parts, dim=-1).to(x.device)
+        """The tp group's ``x`` concatenated along the last axis, in rank
+        order."""
+        return self.axes["tp"].all_gather(x)
 
     # ---- the control group ----
 
@@ -193,7 +321,7 @@ class RankGroups:
         return [pickle.loads(b[:int(k[0])].numpy().tobytes()) for b, k in zip(bufs, sizes)]
 
     def shutdown(self) -> None:
-        for pg in (self.group, self.control):
+        for pg in [g.pg for g in self.axes.values()] + [self.control]:
             try:
                 pg.shutdown()
             except Exception:  # noqa: BLE001 - a group already broken by a dead peer

@@ -1,4 +1,5 @@
-"""The leader (rank 0) and the followers' loop of a tensor-parallel engine.
+"""The leader (rank 0) and the followers' loop of a rank-mesh engine (tp,
+pp, sp and ep, ``parallel/group.py``).
 
 The scheduler, the radix cache and the page pool live on rank 0 only: the
 engine's process.  Rank 0's ``ModelRunner`` broadcasts each call that
@@ -6,10 +7,15 @@ touches the device (``MIRRORED``: its method name and host arguments, the
 page tables, positions, sampling arrays, grammar masks and penalty state)
 on the control group, then makes the same call itself; every follower runs
 the same method on its shard and drops the result.  Collectives inside the
-forward pair the ranks up; the sampler runs on every rank over the
-all-gathered logits with the same counter-hash noise, so every rank holds
-the same tokens with no broadcast, and ``rng_mark``/``rng_restore`` stay
-mirrored.
+forward pair the ranks up; the sampler runs on every rank over the same
+logits (all-gathered over tp, broadcast from the last pipeline stage) with
+the same counter-hash noise, so every rank holds the same tokens with no
+broadcast of them, and ``rng_mark``/``rng_restore`` stay mirrored.  Adapter
+loads are mirrored too: each pipeline stage keeps its layers of an
+adapter.
+
+Rank processes fork from a fork server that imported the port once
+(``_rank_context``); none is forked from a process holding CUDA.
 
 Calls reach rank 0's runner from several threads (the engine loop, the
 overlap pipeline's launch and fetch, aborts), so every broadcast-then-call
@@ -53,29 +59,31 @@ logger = get_logger("parallel.leader")
 #: runner methods that touch a rank's device state: broadcast, then called
 MIRRORED = ("prefill", "prefill_extend", "prefill_batched", "decode_multi_async",
             "decode_multi", "decode_spec_async", "sync_slot_penalty_state", "rng_restore",
-            "flush_cache_buffers", "invalidate_graphs")
+            "flush_cache_buffers", "invalidate_graphs", "load_lora", "unload_lora")
 #: mirrored calls with no collective inside: once the mesh is broken they
 #: still run on rank 0, so the scheduler's failure recovery (rewinding the
 #: sampling counter, resetting slot state) completes and fails the requests
 _LOCAL_WHEN_BROKEN = ("rng_restore", "sync_slot_penalty_state", "flush_cache_buffers",
                       "invalidate_graphs")
-#: what a tp engine refuses in this slice, and the ``ROADMAP.md`` Queue A
-#: item that brings it
+#: what a rank-mesh engine refuses in this slice: the ``ROADMAP.md`` Queue A
+#: item that brings it, and where it is refused
 REFUSED = {
-    "dp": "9g", "pp": "9c", "sp": "9d", "ep": "9e",
-    "lora": "9h", "experts": "9i", "vision": "9j", "embeddings": "9k", "pd": "9l",
+    "dp": ("the in-engine dp axis", "9g"),
+    "lora": ("LoRA under tensor parallelism (tp > 1)", "9h"),
+    "experts": ("the expert layer under tensor parallelism (tp > 1)", "9i"),
+    "vision": ("the vision tower under a rank mesh", "9j"),
+    "embeddings": ("embeddings under a rank mesh", "9k"),
+    "pd": ("the PD legs under a rank mesh", "9l"),
 }
-_REFUSED_RUNNER = {"load_lora": "lora", "unload_lora": "lora", "embed": "embeddings",
-                   "export_pages": "pd", "export_pages_device": "pd", "import_pages": "pd",
-                   "import_pages_device": "pd"}
+_REFUSED_RUNNER = {"embed": "embeddings", "export_pages": "pd", "export_pages_device": "pd",
+                   "import_pages": "pd", "import_pages_device": "pd"}
 #: follower launches kept for a lookahead to chain from
 _KEEP_LAUNCHES = 8
 
 
 def refusal(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} under tensor parallelism (tp > 1) is not ported yet: "
-        f"ROADMAP.md Queue A item {REFUSED[what]}")
+    text, item = REFUSED[what]
+    return NotImplementedError(f"{text} is not ported yet: ROADMAP.md Queue A item {item}")
 
 
 class _Chained:
@@ -124,7 +132,10 @@ class Leader:
         _tag_launches(runner)
         for name in MIRRORED:
             setattr(runner, name, self._mirror(name, getattr(runner, name)))
-        for name, what in _REFUSED_RUNNER.items():
+        refused = dict(_REFUSED_RUNNER)
+        if runner.config.parallel.tp > 1:
+            refused.update(load_lora="lora", unload_lora="lora")
+        for name, what in refused.items():
             setattr(runner, name, self._refuse(what))
         self._stop = threading.Event()  # set by close: the ping thread ends within 1 s
         self._pinger = threading.Thread(target=self._ping_loop, name="tp-ping", daemon=True)
@@ -138,14 +149,14 @@ class Leader:
 
     def _check(self) -> None:
         if self._closed:
-            raise RuntimeError("tensor-parallel engine is closed")
+            raise RuntimeError("rank-mesh engine is closed")
         if self._broken is None:
             dead = [p for p in self.procs if not p.is_alive()]
             if dead:
-                self._broken = (f"tp rank process {dead[0].name} exited "
+                self._broken = (f"rank process {dead[0].name} exited "
                                 f"(code {dead[0].exitcode})")
         if self._broken is not None:
-            raise RuntimeError(f"tensor-parallel mesh broken: {self._broken}")
+            raise RuntimeError(f"rank mesh broken: {self._broken}")
 
     @property
     def alive(self) -> bool:
@@ -235,7 +246,8 @@ class Leader:
 def rank_report(runner) -> dict:
     """What one rank's process can say of itself: its pid and device, its
     runner's schedule counters, the attention kernels' launches in the
-    process and, on the card, the bytes allocated there."""
+    process, the bytes of its weights and KV cache and, on the card, the
+    bytes allocated in the process."""
     from smg_tpu_torch.ops.cuda import decode_attention, prefill_attention
 
     dev = runner.device
@@ -243,6 +255,8 @@ def rank_report(runner) -> dict:
                 stats=dict(runner.stats),
                 launches={"decode_attention": decode_attention.launches,
                           "prefill_attention": prefill_attention.launches},
+                weight_bytes=sum(b.nbytes for b in runner.model.buffers()),
+                kv_bytes=runner.k_cache.nbytes + runner.v_cache.nbytes,
                 allocated_bytes=(torch.cuda.memory_allocated(dev) if dev.type == "cuda"
                                  else None))
 
@@ -275,17 +289,18 @@ def _unwire(obj, kept: dict):
 
 
 def start_ranks(config, params, devices: list, attention: str):
-    """Start a tp engine's ranks: the store, a follower process for each
-    rank but 0, then rank 0's own runner on ``devices[0]`` wrapped by its
-    ``Leader``.  ``params`` (the whole model, CPU tensors, or None for
-    weights from ``config.seed``) go to every rank, which keeps its shard.
-    Returns (runner, leader)."""
+    """Start a rank-mesh engine's ranks: the store, a follower process for
+    each rank but 0, then rank 0's own runner on ``devices[0]`` wrapped by
+    its ``Leader``.  Every rank builds the grid of ``config.parallel``
+    (``RankGroups``) and its shard of the weights: ``params`` (the whole
+    model, CPU tensors, or None for weights from ``config.seed``) go to
+    every rank, which keeps its part.  Returns (runner, leader)."""
     from smg_tpu_torch.engine.runner import ModelRunner
 
     world = len(devices)
     timeout = TP_TIMEOUT_S
     store = open_store(world, timeout)
-    ctx = multiprocessing.get_context("spawn")  # never fork a process that may hold CUDA
+    ctx = _rank_context()
     procs = []
     base = dict(port=store.port, devices=[str(d) for d in devices], config=config,
                 params=params, attention=attention, timeout=timeout,
@@ -297,16 +312,16 @@ def start_ranks(config, params, devices: list, attention: str):
         procs.append(p)
     try:
         _await_followers(store, procs, timeout)
-        groups = RankGroups(store, 0, devices, timeout)
+        groups = RankGroups(store, 0, devices, timeout, sizes=config.parallel.axis_sizes())
         runner = ModelRunner(config, params=params, device=devices[0], attention=attention,
-                             tp_rank=0, groups=groups)
+                             groups=groups)
     except BaseException:
         for p in procs:
             p.kill()
             p.join(5)
         dead = [f"{p.name} exit {p.exitcode}" for p in procs if p.exitcode]
         if dead:
-            logger.error("tp rank processes failed at start: %s", dead)
+            logger.error("rank processes failed at start: %s", dead)
         raise
     runner.tp_store = store  # the followers' rendezvous lives as long as the engine
     return runner, Leader(runner, groups, procs)
@@ -320,18 +335,56 @@ def _await_followers(store, procs: list, timeout: float) -> None:
     while not store.check(keys):
         dead = [p for p in procs if p.exitcode is not None]
         if dead:
-            raise RuntimeError(f"tp rank process {dead[0].name} exited with code "
+            raise RuntimeError(f"rank process {dead[0].name} exited with code "
                                f"{dead[0].exitcode} before joining the mesh")
         if time.monotonic() > deadline:
-            raise TimeoutError(f"tp rank processes did not start within {timeout} s")
+            raise TimeoutError(f"rank processes did not start within {timeout} s")
         time.sleep(0.05)
 
 
+#: what the fork server imports once, so each rank process it forks starts
+#: with the port loaded
+_PRELOAD = ["smg_tpu_torch.engine.runner", "smg_tpu_torch.parallel.leader"]
+
+
+def _rank_context():
+    """The multiprocessing context rank processes start from: a fork server
+    that imported the port once (``forkserver``, its modules preloaded), so
+    a rank process is forked from it in a fraction of a second instead of
+    starting an interpreter and importing torch (several seconds a rank).
+    The fork server holds no CUDA context, so nothing is forked after CUDA
+    initialised, as ``spawn`` guarantees too."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(_PRELOAD)
+    return ctx
+
+
+def prestart() -> None:
+    """Start the rank processes' fork server now, ahead of the first
+    rank-mesh engine: it imports the port while the caller does other work
+    (nothing of it touches a device)."""
+    from multiprocessing import forkserver
+
+    _rank_context()
+    forkserver.ensure_running()
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
 def _watch_parent(parent: int) -> None:
-    """Exit once the process that started this rank is gone."""
+    """Exit once the engine's process that started this rank is gone (the
+    fork server, not the engine, is this process's parent)."""
     while True:
         time.sleep(1.0)
-        if os.getppid() != parent:
+        if not _alive(parent):
             os._exit(3)
 
 
@@ -345,16 +398,17 @@ def follower_main(spec: dict) -> None:
     rank = spec["rank"]
     store = connect_store(spec["port"], len(spec["devices"]), spec["timeout"])
     store.set(f"up{rank}", "1")
-    groups = RankGroups(store, rank, spec["devices"], spec["timeout"])
+    groups = RankGroups(store, rank, spec["devices"], spec["timeout"],
+                        sizes=spec["config"].parallel.axis_sizes())
     runner = ModelRunner(spec["config"], params=spec["params"], device=groups.device,
-                         attention=spec["attention"], tp_rank=rank, groups=groups)
+                         attention=spec["attention"], groups=groups)
     del spec
     kept = _tag_launches(runner)
     while True:
         try:
             name, args, kwargs = groups.recv()
         except Exception as e:  # noqa: BLE001 - rank 0 is gone or silent past the timeout
-            logger.error("tp rank %d: no call from rank 0 (%r); exiting", rank, e)
+            logger.error("rank %d: no call from rank 0 (%r); exiting", rank, e)
             os._exit(4)
         if name == "close":
             break
@@ -366,7 +420,7 @@ def follower_main(spec: dict) -> None:
         try:
             getattr(runner, name)(*_unwire(args, kept), **_unwire(kwargs, kept))
         except Exception:  # noqa: BLE001 - out: rank 0's collectives fail at once
-            logger.error("tp rank %d: %s failed; exiting\n%s", rank, name,
+            logger.error("rank %d: %s failed; exiting\n%s", rank, name,
                          traceback.format_exc())
             sys.stderr.flush()
             os._exit(5)

@@ -1,19 +1,27 @@
-"""Tensor-parallel sharding of the Llama-family weights — the reference's
-``ShardingRules`` table (``smg_tpu/parallel/sharding.py``) as plain torch
-slicing.
+"""Sharding of the Llama-family weights over a rank mesh — the
+reference's ``ShardingRules`` table (``smg_tpu/parallel/sharding.py``) and
+its serving pipeline's layer split (``smg_tpu/parallel/pp_serving.py``) as
+plain torch slicing.
 
-The reference maps logical axes to the ``tp`` mesh axis and lets GSPMD
-place the pieces: ``q_heads``, ``kv_heads``, ``ffn`` and ``vocab`` shard
-over ``tp``; an axis that ``tp`` does not divide is replicated
-(``_divisible_axes``).  Here each rank process holds its own slice, and the
-model adds the collectives (``models/llama.py``, Megatron-style):
+The reference maps logical axes to mesh axes and lets GSPMD place the
+pieces: ``q_heads``, ``kv_heads``, ``ffn`` and ``vocab`` shard over ``tp``
+(an axis that ``tp`` does not divide is replicated, ``_divisible_axes``),
+``experts`` over ``ep``, the layer stack over ``pp`` and ``seq`` over
+``sp``.  Here each rank process holds its own slice (``RankPlace``: where
+the rank sits on the grid), and the model adds the collectives
+(``models/llama.py``, Megatron-style):
 
-- ``wq``, ``wk``, ``wv`` and ``w_gate``/``w_up`` by columns (the rank's
+- tp: ``wq``, ``wk``, ``wv`` and ``w_gate``/``w_up`` by columns (the rank's
   query heads, KV heads and FFN columns), ``wo`` and ``w_down`` by rows,
-  whose partial products the model sums with an all-reduce;
-- ``embed`` by vocab rows (a masked lookup, then an all-reduce) and
-  ``lm_head`` by vocab columns (the logits all-gathered);
-- norms replicated.
+  whose partial products the model sums with an all-reduce; ``embed`` by
+  vocab rows (a masked lookup, then an all-reduce) and ``lm_head`` by vocab
+  columns (the logits all-gathered); norms replicated;
+- pp: stage s of S holds layers ``[s*L/S, (s+1)*L/S)`` of every stacked
+  weight, the embedding on the first stage (on the last too when
+  ``lm_head`` is tied to it) and ``final_norm``/``lm_head`` on the last;
+- ep: rank r of ep holds experts ``[r*X/ep, (r+1)*X/ep)`` of
+  ``w_gate``/``w_up``/``w_down`` and the whole router;
+- sp: everything, as the reference replicates over ``sp``.
 
 KV heads: when ``tp`` divides ``num_kv_heads`` each rank keeps
 ``num_kv_heads / tp`` of them; otherwise, when ``tp`` is a multiple of
@@ -23,10 +31,10 @@ fallback for 2 KV heads at tp=4).  The vocab is replicated when ``tp`` does
 not divide it.
 
 Weights keep the port's folded layout (``wq [L, E, H*D]``, ...), and every
-slice here acts on the last two axes, so it serves a stacked ``[L, ...]``
+tp slice here acts on the last two axes, so it serves a stacked ``[L, ...]``
 tensor and one layer's ``[...]`` alike: ``init_params(..., shard=)`` draws
-each layer whole and keeps the rank's slice, so a tp engine and a
-single-device one hold the same model from the same seed."""
+each layer whole and keeps the rank's slice (``Sharder``), so a rank engine
+and a single-device one hold the same model from the same seed."""
 
 from __future__ import annotations
 
@@ -78,14 +86,78 @@ def shard_plan(cfg: ModelConfig, tp: int, rank: int) -> ShardPlan:
     return ShardPlan(tp, rank, (rank * h, rank * h + h), kv, (rank * f, rank * f + f), vocab)
 
 
-def rank_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+def rank_config(cfg: ModelConfig, tp: int, pp: int = 1, ep: int = 1) -> ModelConfig:
     """The model config one rank computes with: its query heads, KV heads
-    and FFN width (the vocabulary stays whole: logits are gathered)."""
-    plan = shard_plan(cfg, tp, 0)
-    return dataclasses.replace(
-        cfg, num_heads=plan.heads[1] - plan.heads[0],
-        num_kv_heads=plan.kv_heads[1] - plan.kv_heads[0],
-        intermediate_size=plan.ffn[1] - plan.ffn[0])
+    and FFN width under ``tp`` (the vocabulary stays whole: logits are
+    gathered), its stage's ``L / pp`` layers and its ``X / ep`` experts."""
+    if tp > 1:
+        plan = shard_plan(cfg, tp, 0)
+        cfg = dataclasses.replace(
+            cfg, num_heads=plan.heads[1] - plan.heads[0],
+            num_kv_heads=plan.kv_heads[1] - plan.kv_heads[0],
+            intermediate_size=plan.ffn[1] - plan.ffn[0])
+    return dataclasses.replace(cfg, num_layers=cfg.num_layers // pp,
+                               num_experts=cfg.num_experts // ep)
+
+
+@dataclass(frozen=True)
+class RankPlace:
+    """Where one rank sits on the grid: its index along tp, pp (its stage)
+    and ep, and those axes' sizes (sp and dp hold no slice of their own)."""
+
+    tp: int = 1
+    tp_rank: int = 0
+    pp: int = 1
+    stage: int = 0
+    ep: int = 1
+    ep_rank: int = 0
+
+    @classmethod
+    def of(cls, sizes: dict, coords: dict) -> "RankPlace":
+        """From a grid's axis sizes and a rank's coordinates on it
+        (``parallel/group.py``)."""
+        return cls(tp=sizes.get("tp", 1), tp_rank=coords.get("tp", 0),
+                   pp=sizes.get("pp", 1), stage=coords.get("pp", 0),
+                   ep=sizes.get("ep", 1), ep_rank=coords.get("ep", 0))
+
+    @property
+    def first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.pp - 1
+
+    def layers(self, cfg: ModelConfig) -> tuple[int, int]:
+        """The stage's layers, half-open."""
+        n = cfg.num_layers // self.pp
+        return self.stage * n, self.stage * n + n
+
+    def experts(self, cfg: ModelConfig) -> tuple[int, int]:
+        """The rank's experts, half-open."""
+        n = cfg.num_experts // self.ep
+        return self.ep_rank * n, self.ep_rank * n + n
+
+    def holds(self, cfg: ModelConfig, name: str) -> bool:
+        """Does the rank hold top-level weight ``name`` (``embed``,
+        ``final_norm``, ``lm_head``)?"""
+        if name == "embed":
+            return self.first or (self.last and cfg.tie_word_embeddings)
+        return self.last
+
+
+def check_mesh(cfg: ModelConfig, place: RankPlace) -> None:
+    """Raise ValueError when ``cfg`` cannot be split as ``place``'s grid
+    says: tp as ``check_tp``; pp must divide the layers; ep needs an expert
+    layer and must divide its experts."""
+    if place.tp > 1:
+        check_tp(cfg, place.tp)
+    if cfg.num_layers % place.pp:
+        raise ValueError(f"pp={place.pp} does not divide num_layers={cfg.num_layers}")
+    if place.ep > 1 and not cfg.num_experts:
+        raise ValueError(f"ep={place.ep} on a dense (non-MoE) model")
+    if place.ep > 1 and cfg.num_experts % place.ep:
+        raise ValueError(f"ep={place.ep} does not divide num_experts={cfg.num_experts}")
 
 
 def _cols(t: torch.Tensor, a: int, b: int) -> torch.Tensor:
@@ -121,23 +193,68 @@ def shard_tensor(name: str, t: torch.Tensor, plan: ShardPlan, head_dim: int) -> 
     return part.clone(memory_format=torch.contiguous_format)
 
 
-def shard_params(params: dict, cfg: ModelConfig, tp: int, rank: int
-                 ) -> tuple[ModelConfig, dict]:
-    """``(rank_cfg, rank_params)``: rank ``rank``'s slices of the port's
-    parameter dict (``models/llama.py::init_params`` layout) and the config
-    its model computes with."""
-    if cfg.num_experts:
+#: the stacked weights whose second axis is the expert axis
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def shard_params(params: dict, cfg: ModelConfig, tp: int = 1, rank: int = 0,
+                 place: RankPlace | None = None) -> tuple[ModelConfig, dict]:
+    """``(rank_cfg, rank_params)``: a rank's slices of the port's parameter
+    dict (``models/llama.py::init_params`` layout) and the config its model
+    computes with.  ``place`` gives the rank's spot on the grid; without it,
+    rank ``rank`` of ``tp``.  Every slice is a tensor of its own (the whole
+    can be freed)."""
+    place = place or RankPlace(tp=tp, tp_rank=rank)
+    check_mesh(cfg, place)
+    if cfg.num_experts and place.tp > 1:
         raise NotImplementedError("the expert layer under tp > 1 is ROADMAP.md Queue A item 9i")
-    plan = shard_plan(cfg, tp, rank)
-    out = {k: shard_tensor(k, v, plan, cfg.head_dim) for k, v in params.items()
-           if k != "layers"}
-    out["layers"] = {k: shard_tensor(k, v, plan, cfg.head_dim)
-                     for k, v in params["layers"].items()}
-    return rank_config(cfg, tp), out
+    cut = Sharder(cfg, place)
+    out = {k: cut.piece(k, v) for k, v in params.items()
+           if k != "layers" and place.holds(cfg, k)}
+    out["layers"] = {k: cut.piece(k, v) for k, v in params["layers"].items()}
+    return rank_config(cfg, place.tp, place.pp, place.ep), out
 
 
-def param_sharder(cfg: ModelConfig, tp: int, rank: int):
-    """``shard`` callback of ``init_params``: weight name, one drawn layer
-    (or ``embed``/``lm_head``) -> the rank's slice."""
-    plan = shard_plan(cfg, tp, rank)
-    return lambda name, t: shard_tensor(name, t, plan, cfg.head_dim)
+class Sharder:
+    """A rank's cut of the weights (``RankPlace``), for ``init_params``'s
+    ``shard`` and ``shard_params``: ``keep(name, depth, n)`` is the range
+    the rank keeps of a stacked weight's leading axis ``depth`` (layers at
+    0, experts at 1) of length ``n``; ``holds(name)`` whether it keeps a
+    top-level weight at all; calling it on one drawn ``[...]`` piece (a
+    layer's, an expert's, or ``embed``/``lm_head``) gives the rank's tp
+    slice."""
+
+    def __init__(self, cfg: ModelConfig, place: RankPlace):
+        self.cfg = cfg
+        self.place = place
+        self.plan = shard_plan(cfg, place.tp, place.tp_rank) if place.tp > 1 else None
+
+    def holds(self, name: str) -> bool:
+        return self.place.holds(self.cfg, name)
+
+    def keep(self, name: str, depth: int, n: int) -> tuple[int, int]:
+        if name in ("embed", "lm_head", "final_norm"):
+            return 0, n
+        if depth == 0:
+            return self.place.layers(self.cfg)
+        if depth == 1 and self.cfg.num_experts and name in _EXPERT_KEYS:
+            return self.place.experts(self.cfg)
+        return 0, n
+
+    def __call__(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        if self.plan is None:
+            return t
+        return shard_tensor(name, t, self.plan, self.cfg.head_dim)
+
+    def piece(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The rank's slice of a whole weight (stacked or top-level)."""
+        part = t
+        if name not in ("embed", "lm_head", "final_norm"):
+            for depth in range(2 if self.cfg.num_experts and name in _EXPERT_KEYS else 1):
+                a, b = self.keep(name, depth, t.shape[depth])
+                part = part.narrow(depth, a, b - a)
+        if self.plan is not None:
+            part = shard_tensor(name, part, self.plan, self.cfg.head_dim)
+        if part is t or (part._base is None and part.is_contiguous()):
+            return part  # whole, or already a tensor of its own
+        return part.clone(memory_format=torch.contiguous_format)

@@ -503,8 +503,8 @@ async def serve_worker_async(engine, port: int, host: str = "0.0.0.0",
 
 
 def serve_worker(engine, port: int, host: str = "0.0.0.0") -> int:
-    """Serve until SIGTERM or SIGINT, then close the engine (a tensor-
-    parallel engine's rank processes with it)."""
+    """Serve until SIGTERM or SIGINT, then close the engine (a rank-mesh
+    engine's rank processes with it: tp, pp, sp or ep)."""
     async def _main():
         server = await serve_worker_async(engine, port, host)
         stop = asyncio.Event()

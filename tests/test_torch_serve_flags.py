@@ -25,6 +25,7 @@ Float32, the tiny model with weights bridged from the JAX ``init_params``."""
 import asyncio
 import functools
 import json
+import time
 from pathlib import Path
 
 import jax
@@ -43,6 +44,7 @@ from smg_tpu.gateway import observability as jobs
 from smg_tpu.gateway import server as jserver
 from smg_tpu.gateway import worker_client as jwc
 from smg_tpu.gateway import workers as jworkers
+from smg_tpu.kv_index import native as jnative
 from smg_tpu.kv_index.positional import chain_hash as jchain_hash
 from smg_tpu.models.config import tiny_test_config
 from smg_tpu.models.registry import get_model
@@ -61,6 +63,7 @@ from smg_tpu_torch.gateway import server as tserver
 from smg_tpu_torch.gateway import worker_client as twc
 from smg_tpu_torch.gateway import workers as tworkers
 from smg_tpu_torch.gateway.launch import build_engine_from_args, gateway_options
+from smg_tpu_torch.kv_index import native as tnative
 from smg_tpu_torch.kv_index.positional import chain_hash as tchain_hash
 from smg_tpu_torch.models.config import tiny_test_config as port_tiny
 from smg_tpu_torch.models.convert import params_from_jax
@@ -105,6 +108,8 @@ NEW_FLAGS = [
     ("--mesh-tls-key", "k"), ("--mesh-tls-ca", "a"),
     # tensor parallelism
     ("--tp", "2"), ("--tensor-parallel-size", "4"), ("--mesh-shape", "tp=2"),
+    # pipeline, sequence and expert parallelism
+    ("--pp", "2"), ("--sp", "2"), ("--ep", "2"),
 ]
 #: flags of modules not ported yet (ROADMAP Queue A lists them by item)
 REFUSED = [["--dp", "2"]]
@@ -498,9 +503,28 @@ def test_route_observability_matches_reference(case):
 # ---- (d), (e) the debug and profile routes against the reference gateway ----
 
 
+NATIVE_WAIT_S = 120.0  # a concurrent build of a native radix library, at most
+
+
+def _await_native_trees():
+    """Both packages' native radix libraries loaded before either gateway
+    builds its cache-aware tree.  The reference builds
+    ``csrc/libsmg_native.so`` with ``make`` at its first load, and another
+    test process's first load may be writing it: a load of the file half
+    written fails ("file too short") and that tree falls back to the Python
+    tree, whose node and eviction counts the native one does not report.
+    Each loader retries at its next call, so wait for the build to end."""
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    while not (jnative.native_available() and tnative.native_available()):
+        assert time.monotonic() < deadline, "a native radix library did not load"
+        time.sleep(0.2)
+
+
 def _run_pair(fn):
     """``fn(client, side)`` on a reference gateway over the JAX engine and
-    on the port's over a port engine, in turn on one private loop."""
+    on the port's over a port engine, in turn on one private loop, both
+    cache-aware trees native."""
+    _await_native_trees()
     loop = asyncio.new_event_loop()
     out = {}
     try:
