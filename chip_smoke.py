@@ -15,7 +15,7 @@
     python3 chip_smoke.py --phases responses   # build + kernels + phase 15 only
     python3 chip_smoke.py --phases messages   # build + kernels + phase 15's gateway, phase 16
     python3 chip_smoke.py --phases realtime   # build + kernels + phase 15's gateway, phase 17
-    python3 chip_smoke.py --phases train   # build + kernels + phase 18 only
+    python3 chip_smoke.py --phases train   # build + kernels + phases 18 and 22 only
     python3 chip_smoke.py --phases breadth   # build + kernels + phase 12 (d) only
     python3 chip_smoke.py --phases dp   # build + kernels + phase 19 only
     python3 chip_smoke.py --phases tp   # build + kernels + phases 20-21 only
@@ -465,7 +465,7 @@ Phases (any failure makes the script exit non-zero and print no result):
    device's busy ms by kernel class against the step's ms.  (c) 3 float32 steps of the tiny
    config on the card and on the CPU from the same weights: loss and
    ``grad_norm`` within 1e-5 relative, parameters as in
-   ``tests/test_torch_train.py``;
+   ``tests/test_torch_train.py``.  Then, in the same process, phase 22;
 19. data-parallel replicas, in a process of its own: phase 13 (c)'s
    worker weights (4 layers, float32) shared by two engines served by one
    ``serve_worker_async(engines=[e0, e1])`` and a third served alone, each
@@ -501,6 +501,22 @@ Phases (any failure makes the script exit non-zero and print no result):
    bytes a rank), launches exact per rank.  (e) ``serve --tp 2`` and
    ``serve --pp 2`` with no device list exit non-zero with "needs 2
    devices, found 1"; (f) no rank process is left;
+22. the sharded training step, in phase 18's process once phase 18 is
+   done, every rank on ``cuda:0`` (gloo, and CUDA IPC for the sums); every
+   mesh's followers lent by one ``RankPool`` of three processes forked
+   from a fork server the process starts first.  (a) Llama-3-8B at full
+   width, ``MESH_TRAIN_LAYERS`` layers, float32, B=4, T=512, weights from
+   seed 0, a loss mask with holes: the one-device step, then dp=2, tp=2,
+   sp=2 (the training ring), pp=2 (4 microbatches) and dp=2 x tp=2, one
+   after another, ``MESH_TRAIN_STEPS`` steps each: loss and ``grad_norm``
+   within 1e-5 relative of the one device's at every step, every leaf's
+   ``mu`` and ``nu`` norm within 1e-4 (assembled from the ranks' sums of
+   squares); Qwen3-30B-A3B at full width, one layer: ep=2 against ep=1
+   alike.  (b) Llama-3-8B at 32 layers in bf16: tp=2 (B=1) and pp=2 (B=4,
+   4 microbatches), a warm-up step and a timed one: the two losses finite,
+   ms a step and each rank's peak device bytes, beside phase 18 (a)'s
+   one-device step (the pool retired to one process first).  (c) no rank
+   process left once the pool is closed;
 Last, print ``{"kernels": [...]}`` (``launches`` from phase 5's bf16 HTTP
    run, ``launches_spec`` from phase 7's, ``launches_ckpt`` from phase 8's,
    ``launches_moe`` from phase 9's, ``launches_throughput`` from phase
@@ -10212,15 +10228,21 @@ def train_tiny(dev) -> dict:
 def train_worker_main(spec: dict) -> int:
     """Phase 18 in a process of its own (``--train-worker``), so it starts on
     an empty card: phase 3's weights made from the seed, (b), then (a) on
-    the same weights, then (c); its readings written to ``spec["report"]``
-    as JSON."""
+    the same weights, then (c); then phase 22; the readings written to
+    ``spec["report"]`` as JSON."""
     import torch
 
     from smg_tpu_torch.models.config import llama3_8b_config
     from smg_tpu_torch.models.llama import init_params
     from smg_tpu_torch.ops.cuda import build
+    from smg_tpu_torch.parallel import leader
     from smg_tpu_torch.train import step  # noqa: F401 - imported before the wait
+    from smg_tpu_torch.train.leader import TRAIN_PRELOAD
 
+    leader.prestart(TRAIN_PRELOAD)  # phase 22's rank processes fork from it
+    # torch.optim imports torch._dynamo when it builds the first optimizer
+    # (seconds): here, before the wait, rather than inside (a)'s first step
+    import torch._dynamo  # noqa: F401
     if not await_go(spec):  # the card is not ours yet
         return 3
     dev = torch.device("cuda", 0)
@@ -10235,13 +10257,14 @@ def train_worker_main(spec: dict) -> int:
     out["step"] = train_full(cfg, params, dev, spec["card"])
     params.clear()
     out["tiny"] = train_tiny(dev)
+    out["mesh"] = phase_train_mesh(dev, spec["card"], out["step"])
     Path(spec["report"]).write_text(json.dumps(out))
     return 0
 
 
 def phase_train(dev, card: str, early: EarlyChild) -> dict:
-    """Phase 18: ``train_worker_main`` in ``early``, let go once this
-    process has given the card back; its report read."""
+    """Phases 18 and 22: ``train_worker_main`` in ``early``, let go once
+    this process has given the card back; its report read."""
     import gc
 
     import torch
@@ -10256,7 +10279,217 @@ def phase_train(dev, card: str, early: EarlyChild) -> dict:
     if code != 0 or not out:
         raise AssertionError(f"phase 18's process exited {code}")
     out["seconds"] = time.perf_counter() - t0
-    print(f"  phase 18 took {out['seconds']:.1f} s ({card})")
+    print(f"  phases 18 and 22 took {out['seconds']:.1f} s ({card})")
+    return out
+
+
+# ---- phase 22: the sharded training step ----
+
+MESH_TRAIN_LAYERS = 2  # (a)'s float32 depth at full width
+MESH_TRAIN_B, MESH_TRAIN_T = 4, 512  # (a)'s batch, and (b)'s pp batch
+MESH_TRAIN_STEPS = 2  # (a): steps of each mesh, each held to the one device's
+MESH_TRAIN_RTOL = 1e-5  # (a): loss and grad_norm against the one-device step
+MESH_TRAIN_NORM_RTOL = 1e-4  # (a): each leaf's mu and nu norm against it
+MESH_TRAIN_SEED = 22  # the batches' numpy seed
+#: (a)'s meshes of Llama-3-8B, every rank on the one card over gloo
+MESH_TRAIN_MESHES = {"dp2": dict(dp=2), "tp2": dict(tp=2), "sp2": dict(sp=2),
+                     "pp2": dict(pp=2), "dp2_tp2": dict(dp=2, tp=2)}
+#: (b)'s full-depth bf16 meshes: (axis sizes, B)
+MESH_TRAIN_FULL = {"tp2": (dict(tp=2), 1), "pp2": (dict(pp=2), MESH_TRAIN_B)}
+
+
+def mesh_train_batches(vocab: int, B: int, n: int) -> list:
+    """``n`` batches of [B, ``MESH_TRAIN_T``] tokens, pre-shifted targets
+    and a loss mask with holes (the loss divides by the whole batch's
+    count on every rank)."""
+    import numpy as np
+
+    rng = np.random.default_rng(MESH_TRAIN_SEED)
+    out = []
+    for _ in range(n):
+        seq = rng.integers(0, vocab, (B, MESH_TRAIN_T + 1))
+        out.append((seq[:, :-1], seq[:, 1:],
+                    (rng.random((B, MESH_TRAIN_T)) > 0.25).astype(np.int32)))
+    return out
+
+
+def mesh_train_run(cfg, sizes: dict, dev, batches: list, pool) -> dict:
+    """``make_train_step`` of ``cfg`` on ``sizes`` (every rank on ``dev``,
+    the followers lent by ``pool``; {} is one device) from seed 0: each
+    step's loss and ``grad_norm``, then every leaf's norm (assembled from
+    the ranks' sums of squares), each rank's peak bytes and the seconds at
+    each stage."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.train import leaf_norms, make_train_step
+
+    t0 = time.perf_counter()
+    n = math.prod(sizes.values()) if sizes else 1
+    init, step = make_train_step(cfg, device=dev, mesh=sizes or None,
+                                 devices=[dev] * n if n > 1 else None, ranks=pool)
+    marks = {"start": time.perf_counter() - t0}
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init(seed=0)
+        if n > 1:
+            step.trainer.rank_memory()  # the ranks' peaks count from here
+        marks["init"] = time.perf_counter() - t0
+        rows = []
+        for i, batch in enumerate(batches):
+            state, m = step(state, *batch)
+            rows.append({k: float(v) for k, v in m.items()})
+            marks[f"step{i + 1}"] = time.perf_counter() - t0
+        peaks = ([r["peak"] for r in step.trainer.rank_memory()] if n > 1
+                 else [torch.cuda.max_memory_allocated(dev)])
+        norms = leaf_norms(state)
+        marks["norms"] = time.perf_counter() - t0
+    finally:
+        step.close()
+    del state, init, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks["closed"] = time.perf_counter() - t0
+    return dict(metrics=rows, norms=norms, seconds=marks["closed"], marks=marks,
+                peak_bytes=peaks)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def mesh_train_parity(cfg, meshes: dict, dev, label: str, pool) -> dict:
+    """Phase 22 (a) for one model: the one-device step, then each mesh of
+    ``meshes`` in turn, ``MESH_TRAIN_STEPS`` float32 steps each on the same
+    batches; every mesh's loss and ``grad_norm`` within
+    ``MESH_TRAIN_RTOL`` of the one device's at every step, every leaf's
+    ``mu`` and ``nu`` norm within ``MESH_TRAIN_NORM_RTOL``."""
+    batches = mesh_train_batches(cfg.vocab_size, MESH_TRAIN_B, MESH_TRAIN_STEPS)
+    one = mesh_train_run(cfg, {}, dev, batches, pool)
+    print(f"  [train mesh (a) {label}] one device: " + "; ".join(
+        f"loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f}" for r in one["metrics"])
+        + f" ({one['seconds']:.1f} s)")
+    out, problems = {"one": one}, []
+    for name, sizes in meshes.items():
+        r = mesh_train_run(cfg, sizes, dev, batches, pool)
+        metric_err = max(_rel(g[k], w[k]) for g, w in zip(r["metrics"], one["metrics"])
+                         for k in ("loss", "grad_norm"))
+        moments = [k for k in one["norms"] if k.startswith(("mu.", "nu."))]
+        norm_err = {k: _rel(r["norms"][k], one["norms"][k]) for k in moments}
+        worst = max(norm_err, key=norm_err.get)
+        r.update(metric_rel_err=metric_err, moment_norm_rel_err=norm_err[worst],
+                 worst_leaf=worst, param_norm_rel_err=max(
+                     _rel(r["norms"][k], one["norms"][k]) for k in one["norms"]
+                     if k.startswith("params.")))
+        out[name] = r
+        print(f"  [train mesh (a) {label}] {name} {sizes}: loss and grad_norm max rel err "
+              f"{metric_err:.3e} (rtol {MESH_TRAIN_RTOL}), mu/nu leaf norms max rel err "
+              f"{norm_err[worst]:.3e} at {worst} (rtol {MESH_TRAIN_NORM_RTOL}; "
+              f"{len(moments)} leaves), params {r['param_norm_rel_err']:.3e}; peak bytes a "
+              f"rank {r['peak_bytes']}; s at " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in r["marks"].items()))
+        if not metric_err <= MESH_TRAIN_RTOL:
+            problems.append(f"{name}: loss or grad_norm {r['metrics']} against {one['metrics']}")
+        if not norm_err[worst] <= MESH_TRAIN_NORM_RTOL:
+            problems.append(f"{name}: {worst} norm rel err {norm_err[worst]}")
+        if set(r["norms"]) != set(one["norms"]):
+            problems.append(f"{name}: leaves {sorted(set(r['norms']) ^ set(one['norms']))}")
+    if problems:
+        raise AssertionError(f"phase 22 (a) {label}: {problems}")
+    return out
+
+
+def mesh_train_full(cfg, dev, card: str, phase18: dict | None, pool) -> dict:
+    """Phase 22 (b): Llama-3-8B at full depth in bf16 through each mesh of
+    ``MESH_TRAIN_FULL``: a warm-up step, then a step timed from the host
+    (every rank's device drained when a step returns); the two losses, the
+    peak device bytes of each rank over both steps, beside phase 18 (a)'s
+    one-device step."""
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.train import make_train_step
+
+    out = {}
+    for name, (sizes, B) in MESH_TRAIN_FULL.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        init, step = make_train_step(cfg, device=dev, mesh=sizes, devices=[dev, dev],
+                                     ranks=pool)
+        marks = {"start": time.perf_counter() - t0}
+        try:
+            state = init(seed=0)
+            step.trainer.rank_memory()  # the peaks count from here
+            marks["init"] = time.perf_counter() - t0
+            losses, walls = [], []
+            for batch in mesh_train_batches(cfg.vocab_size, B, 2):
+                t = time.perf_counter()
+                state, m = step(state, *batch)
+                walls.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(m["loss"]))
+            memory = step.trainer.rank_memory()
+            marks["steps"] = time.perf_counter() - t0
+        finally:
+            step.close()
+        del state, init, step
+        marks["closed"] = time.perf_counter() - t0
+        r = dict(sizes=sizes, B=B, T=MESH_TRAIN_T, losses=losses, warmup_ms=walls[0],
+                 ms=walls[1], peak_bytes=[m["peak"] for m in memory], marks=marks,
+                 seconds=marks["closed"])
+        out[name] = r
+        beside = (f"; phase 18 (a)'s one device at B=1: {phase18['ms_per_step']:.2f} ms"
+                  if phase18 else "")
+        print(f"  [{card}] train mesh (b) {name} {sizes}, 32 layers bf16, B={B} T={MESH_TRAIN_T}: "
+              f"losses {losses[0]:.4f}, {losses[1]:.4f}; {r['ms']:.2f} ms a step after a "
+              f"{r['warmup_ms']:.2f} ms warm-up{beside}; peak bytes a rank {r['peak_bytes']}; "
+              f"s at " + ", ".join(f"{k} {v:.2f}" for k, v in marks.items()))
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"phase 22 (b) {name}: {r}")
+    return out
+
+
+def phase_train_mesh(dev, card: str, phase18: dict | None = None) -> dict:
+    """Phase 22: (a) float32 parity of the meshes at Llama-3-8B's full
+    width and ``MESH_TRAIN_LAYERS`` layers, and of ep=2 against ep=1 at
+    Qwen3-30B-A3B's at one layer; (b) tp=2 and pp=2 at full depth in bf16;
+    every mesh's followers lent by one ``RankPool`` of 3 processes (forked,
+    their CUDA set up and their kernels loaded once for all meshes); (c) no
+    rank process left once the pool is closed."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from smg_tpu_torch.models.config import ModelConfig, llama3_8b_config
+    from smg_tpu_torch.train import RankPool
+
+    t0 = time.perf_counter()
+    gc.collect()  # phase 18's tensors
+    torch.cuda.empty_cache()
+    llama = llama3_8b_config()
+    pool = RankPool(3)
+    try:
+        out = {"parity": mesh_train_parity(
+            dataclasses.replace(llama, num_layers=MESH_TRAIN_LAYERS, dtype="float32"),
+            MESH_TRAIN_MESHES, dev, f"Llama-3-8B {MESH_TRAIN_LAYERS} layers f32", pool)}
+        moe = dataclasses.replace(ModelConfig.from_hf_config(QWEN3_30B_A3B), num_layers=1,
+                                  dtype="float32")
+        out["moe_parity"] = mesh_train_parity(moe, {"ep2": dict(ep=2)}, dev,
+                                              "Qwen3-30B-A3B 1 layer f32", pool)
+        pool.retire(1)  # (b)'s meshes have two ranks: the card for their bytes
+        out["full"] = mesh_train_full(llama, dev, card, phase18, pool)
+    finally:
+        pool.close()
+    out["rank_pids"] = pool.pids()
+    out["ranks_left"] = [p for p in out["rank_pids"] if not _gone(p)]
+    if out["ranks_left"]:
+        raise AssertionError(f"phase 22 (c): rank processes left {out['ranks_left']}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 22 took {out['seconds']:.1f} s ({card}); its {len(out['rank_pids'])} rank "
+          f"processes gone: {not out['ranks_left']}")
     return out
 
 
@@ -11522,9 +11755,11 @@ def main(argv=None) -> int:
             failed.append("responses")
     train = {}
     if args.phases in ("all", "train") and not failed:
-        print("phase 18: the training step in a process of its own (Llama-3-8B at full width: "
-              "AdamW steps in bf16, forward_train against the serving kernels in float32 at "
-              f"{F32_LAYERS} layers, a tiny step on the card against the CPU)")
+        print("phases 18 and 22: the training step in a process of its own (Llama-3-8B at full "
+              "width: AdamW steps in bf16, forward_train against the serving kernels in float32 "
+              f"at {F32_LAYERS} layers, a tiny step on the card against the CPU; then the "
+              "sharded step: dp, tp, sp, pp and dp x tp at 2 layers in float32 against one "
+              "device, Qwen3-30B-A3B's ep=2 against ep=1, tp=2 and pp=2 at 32 layers in bf16)")
         try:
             train = phase_train(dev, card, early["train"])
         except Exception:

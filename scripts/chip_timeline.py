@@ -38,9 +38,14 @@ SEGMENTS = (
     ("phase 12", ("phase 12", 1), ("phase 14", 1)),
     ("phase 14", ("phase 14", 1), ("phases 15-17", 1)),
     ("phases 15-17", ("phases 15-17", 1), ("phase 18", 1)),
-    ("phase 18", ("phase 18", 1), ("phase 19", 1)),
+    ("phase 18 (and 22)", ("phase 18", 1), ("phase 19", 1)),
     ("phase 19 (and 20-21)", ("phase 19", 1), ("end", 1)),
 )
+
+
+#: a header that names several phases (phase 18's process runs phase 22
+#: too), by the one the segments start at
+ALIASES = {"phases 18 and 22": "phase 18"}
 
 
 def read(path: str) -> tuple[dict, list, float | None]:
@@ -61,6 +66,7 @@ def read(path: str) -> tuple[dict, list, float | None]:
             if m and not text.startswith(" "):
                 name = m.group(1).split(" (")[0] if m.group(1).startswith("phases") else (
                     " ".join(m.group(1).split()[:2]))
+                name = ALIASES.get(name, name)
                 seen[name] += 1
                 heads[(name, seen[name])] = t - t0
                 listed.append((t - t0, text[:100]))

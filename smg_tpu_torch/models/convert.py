@@ -9,7 +9,8 @@ Qwen-MoE tree's ``router`` and expert stacks (``w_gate``/``w_up``
 vision tower's tree (``smg_tpu/models/vit.py::init_vision_params``) bridges
 through ``vision_params_from_jax`` with its nesting and layouts unchanged.
 A training state (``smg_tpu/train/step.py::TrainState``) bridges through
-``train_state_from_jax``: the params and optax's AdamW moments folded alike.
+``train_state_from_jax``: the params and optax's AdamW moments folded alike,
+onto one device or a training mesh's ranks.
 A rank-mesh engine takes the whole bridged dict, and each rank keeps its
 part (``parallel/sharding.py::shard_params``); ``shards_from_jax`` gives
 every rank's part of a JAX tree at once: a pipeline stage's layers, an
@@ -88,13 +89,21 @@ def vision_params_from_jax(tree: dict, device: torch.device | str = "cpu",
 
 
 def train_state_from_jax(state, device: torch.device | str = "cpu",
-                         dtype: torch.dtype | None = None) -> TrainState:
+                         dtype: torch.dtype | None = None, *, mesh=None):
     """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
     state)``) -> the port's (``smg_tpu_torch/train/step.py``): the params as
     ``params_from_jax`` folds them, the ``mu`` and ``nu`` of optax.adamw's
     ``ScaleByAdamState`` (the one entry of its chain state that has them)
     folded exactly as the params are, its ``count``, and the step.  The
-    port's step then continues the JAX run: the same next update."""
+    port's step then continues the JAX run: the same next update.
+
+    ``mesh``: the ``init_fn`` or ``step_fn`` of a sharded
+    ``make_train_step`` (or its ``MeshTrainer``): the state, a sharded JAX
+    run's gathered to the host, is cut onto that mesh's ranks, each keeping
+    its piece of the params and both moments, and its handle returned."""
+    if mesh is not None:
+        whole = train_state_from_jax(state, "cpu", dtype)
+        return getattr(mesh, "trainer", mesh).place(whole)
     adam = next(s for s in state.opt_state if hasattr(s, "mu"))
     return TrainState(
         params=params_from_jax(state.params, device, dtype),

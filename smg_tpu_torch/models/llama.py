@@ -48,7 +48,10 @@ same name) runs the same layer as the embeddings, ``decoder_layer_train``,
 over unpadded rows, differentiably: ``train/step.py`` builds the model over
 one leaf tensor a layer (``params["layers"]`` values given as sequences of
 L tensors), so each layer's gradient lands in its own tensor instead of a
-zero-filled copy of the whole stack.
+zero-filled copy of the whole stack.  On a training mesh the groups are
+``parallel/autograd.py::TrainGroup``s, whose sums and gathers carry
+gradients, and the model adds the conjugate ``copy_to`` where a replicated
+activation enters a product the axis splits (``_fan_out``).
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ from smg_tpu_torch.ops.cuda.prefill_attention import (
 from smg_tpu_torch.ops.norms import rms_norm
 from smg_tpu_torch.ops.rope import _rotate_half, apply_rope, mrope_angles, rope_frequencies
 from smg_tpu_torch.parallel import pp_serving
-from smg_tpu_torch.parallel.ring_attention import ring_attention
+from smg_tpu_torch.parallel.autograd import TrainGroup, gather_summed
+from smg_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_train
 
 ATTENTION_IMPLS = ("kernel", "plain")
 EMBED_TOKEN_TILE = 4096  # padded tokens of one row tile of forward_embed
@@ -295,31 +299,33 @@ def moe_mlp(x: torch.Tensor, router: torch.Tensor, w_gate: torch.Tensor,
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, scale: float, softcap: float | None = None,
-                     q_tile: int = EMBED_QUERY_TILE) -> torch.Tensor:
+                     q_tile: int = EMBED_QUERY_TILE, q0: int = 0) -> torch.Tensor:
     """Dense causal attention of right-padded rows, in float32 as the
-    reference's ``forward_embed`` computes it: ``q`` [B, T, H, D],
-    ``k``/``v`` [B, T, K, D], ``lengths`` [B]; key j is seen by query i when
-    j <= i and j < the row's length.  Queries go through in tiles of
-    ``q_tile``; a tile reads only the keys up to its last query (the rest
-    are masked for all of its queries), each softmax row over those keys
-    at once.  Returns [B, T, H, D] in ``q``'s dtype."""
-    B, T, H, D = q.shape
-    K = k.shape[2]
+    reference's ``forward_embed`` computes it: ``q`` [B, Tq, H, D] at
+    positions ``q0 .. q0+Tq-1``, ``k``/``v`` [B, T, K, D] at 0..T-1,
+    ``lengths`` [B]; key j is seen by query i when j <= q0 + i and j < the
+    row's length.  Queries go through in tiles of ``q_tile``; a tile reads
+    only the keys up to its last query (the rest are masked for all of its
+    queries), each softmax row over those keys at once.  Returns [B, Tq, H,
+    D] in ``q``'s dtype."""
+    B, Tq, H, D = q.shape
+    K, T = k.shape[2], k.shape[1]
     dev = q.device
     kf, vf = k.float(), v.float()
-    j = torch.arange(T, device=dev)
-    key_ok = j[None, :] < lengths.long()[:, None]  # [B, T]
+    j = torch.arange(max(T, q0 + Tq), device=dev)
+    key_ok = j[None, :T] < lengths.long()[:, None]  # [B, T]
     out = torch.empty_like(q)
-    for s in range(0, T, q_tile):
-        e = min(s + q_tile, T)
+    for s in range(0, Tq, q_tile):
+        e = min(s + q_tile, Tq)
+        ek = min(q0 + e, T)  # keys up to the tile's last query
         qf = q[:, s:e].float().reshape(B, e - s, K, H // K, D)
-        scores = torch.einsum("btkgd,bskd->bkgts", qf, kf[:, :e]) * scale
+        scores = torch.einsum("btkgd,bskd->bkgts", qf, kf[:, :ek]) * scale
         if softcap:
             scores = softcap * torch.tanh(scores / softcap)
-        seen = (j[None, :e] <= j[s:e, None])[None] & key_ok[:, None, :e]  # [B, tq, e]
+        seen = (j[None, :ek] <= j[q0 + s:q0 + e, None])[None] & key_ok[:, None, :ek]
         scores = torch.where(seen[:, None, None], scores, -1e30)
         probs = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bkgts,bskd->btkgd", probs, vf[:, :e])
+        o = torch.einsum("bkgts,bskd->btkgd", probs, vf[:, :ek])
         out[:, s:e] = o.reshape(B, e - s, H, D).to(q.dtype)
     return out
 
@@ -425,6 +431,13 @@ class LlamaModel(nn.Module):
     def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, w, self.cfg.rms_norm_eps, unit_offset=self.cfg.rms_unit_offset)
 
+    @staticmethod
+    def _fan_out(group, x: torch.Tensor) -> torch.Tensor:
+        """A replicated activation entering a product ``group`` splits: on a
+        training mesh its gradient is summed over the group (``copy_to``);
+        anywhere else it is ``x``."""
+        return group.copy_to(x) if isinstance(group, TrainGroup) else x
+
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         if self.vocab_start is None:
             h = self.embed[tokens.long()]
@@ -437,11 +450,15 @@ class LlamaModel(nn.Module):
             h = h * self.embed_scale
         return h
 
-    def unembed(self, h: torch.Tensor) -> torch.Tensor:
+    def unembed(self, h: torch.Tensor, gather: bool = True) -> torch.Tensor:
+        """Float32 logits of ``h``; under a vocab-sharded tp only this
+        rank's columns (from ``vocab_start``) unless ``gather``."""
         h = self._norm(h, self.final_norm)
+        if self.vocab_start is not None:
+            h = self._fan_out(self.tp, h)
         w = self.embed.t() if self.cfg.tie_word_embeddings else self.lm_head
         logits = torch.matmul(h, w).float()
-        if self.vocab_start is not None:
+        if self.vocab_start is not None and gather:
             logits = self.tp.all_gather(logits)
         c = self.cfg.final_logit_softcap
         if c:
@@ -480,7 +497,7 @@ class LlamaModel(nn.Module):
 
     def _mlp_residual(self, l: int, h: torch.Tensor) -> torch.Tensor:
         ly = self.layers
-        x = self._norm(h, ly.mlp_norm[l])
+        x = self._fan_out(self.ep if self.moe else self.tp, self._norm(h, ly.mlp_norm[l]))
         if self.moe:  # Qwen-MoE: the expert layer, in every forward
             o = moe_mlp(x, ly.router[l], ly.w_gate[l], ly.w_up[l], ly.w_down[l],
                         max(self.cfg.num_experts_per_tok, 1), ep=self.ep,
@@ -728,37 +745,58 @@ class LlamaModel(nn.Module):
         last = self._norm(last, self.final_norm).float()
         return last / last.norm(dim=-1, keepdim=True).clamp(min=1e-12)
 
-    def forward_train(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, tokens: torch.Tensor, ring: bool = False) -> torch.Tensor:
         """Dense causal forward for training and eval logprobs (the
         reference's ``forward_train``): ``tokens`` [B, T] -> float32 logits
         [B, T, V].  No KV cache, no kernel and no per-layer window: a
-        windowed model refuses a T past its window, as the reference does."""
+        windowed model refuses a T past its window, as the reference does.
+        On a training mesh with an sp group, ``tokens`` are the rank's
+        ``T`` positions of a ``T * sp`` sequence and the logits theirs;
+        ``ring`` attends through the training ring (the reference's
+        ``ring_mesh``), else over the keys and values gathered from every
+        sp rank."""
+        return self.unembed(self.layers_train(self.embed_tokens(tokens), ring))
+
+    def layers_train(self, h: torch.Tensor, ring: bool = False) -> torch.Tensor:
+        """This model's layers over ``h`` [B, T, E] as ``forward_train``
+        runs them (a pipeline stage's part of it)."""
         cfg = self.cfg
-        B, T = tokens.shape
-        if cfg.sliding_window and T > cfg.sliding_window:
+        B, T = h.shape[:2]
+        pos0 = 0 if self.sp is None else self.sp.rank * T
+        T_all = T if self.sp is None else T * self.sp.size
+        if cfg.sliding_window and T_all > cfg.sliding_window:
             raise ValueError(
                 f"training supports contexts <= sliding_window "
-                f"({cfg.sliding_window}); got {T}"
+                f"({cfg.sliding_window}); got {T_all}"
             )
-        lengths = torch.full((B,), T, device=tokens.device)
-        h = self.embed_tokens(tokens)
+        lengths = torch.full((B,), T_all, device=h.device)
         for l in range(cfg.num_layers):
-            h = self.decoder_layer_train(l, h, lengths)
-        return self.unembed(h)
+            h = self.decoder_layer_train(l, h, lengths, pos0=pos0, sp=self.sp, ring=ring)
+        return h
 
     def decoder_layer_train(self, l: int, h: torch.Tensor, lengths: torch.Tensor,
-                            q_tile: int = EMBED_QUERY_TILE) -> torch.Tensor:
+                            q_tile: int = EMBED_QUERY_TILE, pos0: int = 0, sp=None,
+                            ring: bool = False) -> torch.Tensor:
         """Layer ``l`` over ``h`` [B, T, E], dense and causal in float32
         (``causal_attention``: keys past a row's ``lengths`` unseen), rope at
-        positions 0..T-1: the reference's ``decoder_layer_train`` and the
-        layer of its ``forward_embed``."""
+        positions ``pos0 .. pos0+T-1``: the reference's
+        ``decoder_layer_train`` and the layer of its ``forward_embed``.
+        With ``sp`` (the rank's sp group; ``h`` its positions) the queries
+        attend over every sp rank's keys: round the training ring when
+        ``ring``, else gathered."""
         B, T = h.shape[:2]
-        pos = torch.arange(T, device=h.device)[None].expand(B, T)
-        q, k, v = self._qkv(l, self._norm(h, self.layers.attn_norm[l]))
+        pos = torch.arange(pos0, pos0 + T, device=h.device)[None].expand(B, T)
+        x = self._fan_out(self.tp, self._norm(h, self.layers.attn_norm[l]))
+        q, k, v = self._qkv(l, x)
         q = apply_rope(q, pos, self.inv_freq)
         k = apply_rope(k, pos, self.inv_freq)
-        attn = causal_attention(q, k, v, lengths, self.scale,
-                                softcap=self.cfg.attn_logit_softcap, q_tile=q_tile)
+        if sp is not None and ring:
+            attn = ring_attention_train(q, k, v, self.scale, sp)
+        else:
+            if sp is not None:
+                k, v = gather_summed(sp, k, dim=1), gather_summed(sp, v, dim=1)
+            attn = causal_attention(q, k, v, lengths, self.scale,
+                                    softcap=self.cfg.attn_logit_softcap, q_tile=q_tile, q0=pos0)
         h = self._attn_residual(l, h, attn.to(h.dtype))
         return self._mlp_residual(l, h)
 

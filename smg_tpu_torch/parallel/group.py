@@ -31,7 +31,13 @@ hold several engines):
   collective waits for the device.
 
 Every group has a ``timeout``: a collective or a receive that waits longer
-raises, so no rank waits forever for a peer that died."""
+raises, so no rank waits forever for a peer that died.
+
+Ranks that share one CUDA device over gloo sum on the device
+(``AxisGroup.all_reduce``, the serving forward's sums and the training
+mesh's alike): each rank's buffer is mapped by the others through CUDA IPC
+(``DeviceSum``), so a sum's data never goes through host memory or a
+socket; its other collectives go through host memory."""
 
 from __future__ import annotations
 
@@ -143,21 +149,35 @@ def axis_members(sizes: dict, rank: int, axis: str) -> list[int]:
 class AxisGroup:
     """One axis of the grid as this rank sees it: its index ``rank`` among
     the ``size`` ranks of the group (``members``, global ranks) and the
-    collectives over them."""
+    collectives over them.  ``device`` is set when every member computes on
+    that one CUDA device over gloo (a sum then goes through CUDA IPC)."""
 
-    def __init__(self, name: str, pg, rank: int, members: list[int], backend: str):
+    def __init__(self, name: str, pg, rank: int, members: list[int], backend: str,
+                 device: torch.device | None = None):
         self.name = name
         self.pg = pg
         self.rank = rank
         self.size = len(members)
         self.members = members
         self.backend = backend
+        self.device = device
+        self._device_sum: DeviceSum | None = None
 
     def _host(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.device.type != "cpu"
 
+    def _shared(self, x: torch.Tensor) -> bool:
+        return self.device is not None and x.device == self.device
+
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the group (every rank gets the same bits)."""
+        """The sum of ``x`` over the group (every rank gets the same bits):
+        on the device through CUDA IPC when every member shares ``x``'s card
+        over gloo (``DeviceSum``), through host memory on another CUDA
+        device over gloo, else in place."""
+        if self._shared(x):
+            if self._device_sum is None:
+                self._device_sum = DeviceSum(self)
+            return self._device_sum(x)
         if self._host(x):
             h = x.cpu()
             self.pg.allreduce([h]).wait()
@@ -165,6 +185,20 @@ class AxisGroup:
         x = x.contiguous()
         self.pg.allreduce([x]).wait()
         return x
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_reduce`` that leaves ``x`` as it is: a copy goes where the
+        sum would be made in place."""
+        if self._shared(x) or self._host(x):
+            return self.all_reduce(x)
+        return self.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    def barrier(self) -> None:
+        self.pg.allreduce([torch.zeros(1)]).wait()
+
+    def all_gather_objects(self, obj) -> list:
+        """Every member's picklable ``obj``, in rank order (host memory)."""
+        return _gather_objects(self.pg, self.size, obj)
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The ranks' ``x`` concatenated along ``dim``, in rank order."""
@@ -222,6 +256,70 @@ class AxisGroup:
         return [b.to(dev) for b in bufs]
 
 
+#: bytes of each member's buffer of a ``DeviceSum``: a larger sum goes
+#: through in pieces of this size
+DEVICE_SUM_BYTES = 64 << 20
+
+
+class DeviceSum:
+    """Sums over an ``AxisGroup`` whose members all compute on one CUDA
+    device over gloo, without host memory: each member holds a buffer of
+    ``DEVICE_SUM_BYTES`` that every other member maps through CUDA IPC
+    (``torch.multiprocessing``'s handles, exchanged once over the group).
+    A sum copies each member's piece into its own buffer, waits for the
+    device and meets the others at a barrier; then every member adds the
+    buffers in member order (the same bits on every rank) and meets them
+    again before a buffer is written anew."""
+
+    def __init__(self, group: AxisGroup):
+        from torch.multiprocessing.reductions import reduce_tensor
+
+        self.group = group
+        self.buf = torch.empty(DEVICE_SUM_BYTES, dtype=torch.uint8, device=group.device)
+        handles = group.all_gather_objects(reduce_tensor(self.buf)[1])
+        self.bufs = [self.buf if i == group.rank else _open_ipc(h)
+                     for i, h in enumerate(handles)]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.contiguous().view(-1)
+        out = torch.empty_like(flat)
+        per = DEVICE_SUM_BYTES // flat.element_size()
+        for a in range(0, flat.numel(), per):
+            part = flat[a:a + per]
+            views = [b[:part.nbytes].view(flat.dtype) for b in self.bufs]
+            views[self.group.rank].copy_(part)
+            torch.cuda.synchronize(self.group.device)
+            self.group.barrier()
+            acc = out[a:a + part.numel()]
+            acc.copy_(views[0])
+            for v in views[1:]:
+                acc.add_(v)
+            torch.cuda.synchronize(self.group.device)
+            self.group.barrier()
+        return out.view_as(x)
+
+
+def _gather_objects(pg, size: int, obj) -> list:
+    """Every member's picklable ``obj`` of the gloo group ``pg`` of ``size``
+    members, in rank order, on every member."""
+    data = torch.from_numpy(np.frombuffer(
+        pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL), np.uint8).copy())
+    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(size)]
+    pg.allgather([sizes], [torch.tensor([data.numel()])]).wait()
+    n = max(int(t[0]) for t in sizes)
+    padded = torch.zeros(n, dtype=torch.uint8)
+    padded[:data.numel()] = data
+    bufs = [torch.empty(n, dtype=torch.uint8) for _ in range(size)]
+    pg.allgather([bufs], [padded]).wait()
+    return [pickle.loads(b[:int(k[0])].numpy().tobytes()) for b, k in zip(bufs, sizes)]
+
+
+def _open_ipc(args: tuple) -> torch.Tensor:
+    from torch.multiprocessing.reductions import rebuild_cuda_tensor
+
+    return rebuild_cuda_tensor(*args)
+
+
 class RankGroups:
     """One rank's view of the mesh: its rank, the world size, its device,
     its coordinates on the grid (``coords``), the control group, an
@@ -257,7 +355,10 @@ class RankGroups:
             prefix = f"device/{axis}/{members[0]}"
             make = _nccl if self.backend == "nccl" else _gloo
             pg = make(store, prefix, self.coords[axis], len(members), timeout)
-            self.axes[axis] = AxisGroup(axis, pg, self.coords[axis], members, self.backend)
+            shared = (self.backend == "gloo" and self.device.type == "cuda"
+                      and all(devs[m] == self.device for m in members))
+            self.axes[axis] = AxisGroup(axis, pg, self.coords[axis], members, self.backend,
+                                        self.device if shared else None)
 
     def axis(self, name: str) -> AxisGroup | None:
         """This rank's group along ``name`` (None when the axis is 1)."""
@@ -309,18 +410,19 @@ class RankGroups:
 
     def gather(self, obj) -> list:
         """Every rank's picklable ``obj``, in rank order, on every rank."""
-        data = torch.from_numpy(np.frombuffer(
-            pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL), np.uint8).copy())
-        sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(self.world)]
-        self.control.allgather([sizes], [torch.tensor([data.numel()])]).wait()
-        n = max(int(t[0]) for t in sizes)
-        padded = torch.zeros(n, dtype=torch.uint8)
-        padded[:data.numel()] = data
-        bufs = [torch.empty(n, dtype=torch.uint8) for _ in range(self.world)]
-        self.control.allgather([bufs], [padded]).wait()
-        return [pickle.loads(b[:int(k[0])].numpy().tobytes()) for b, k in zip(bufs, sizes)]
+        return _gather_objects(self.control, self.world, obj)
+
+    def release_device(self) -> None:
+        """Drop the groups' ``DeviceSum`` buffers: unmap the peers' and, once
+        the peers unmapped this rank's, give its own back to the card."""
+        held = [g for g in self.axes.values() if g._device_sum is not None]
+        for g in held:
+            g._device_sum = None
+        if held:
+            torch.cuda.ipc_collect()
 
     def shutdown(self) -> None:
+        self.release_device()
         for pg in [g.pg for g in self.axes.values()] + [self.control]:
             try:
                 pg.shutdown()

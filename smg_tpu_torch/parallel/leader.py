@@ -1,5 +1,6 @@
-"""The leader (rank 0) and the followers' loop of a rank-mesh engine (tp,
-pp, sp and ep, ``parallel/group.py``).
+"""The leader (rank 0) and the followers' loop of a rank mesh (tp, pp, sp
+and ep, ``parallel/group.py``): a rank-mesh engine's here, and, with the
+training rank's calls mirrored, a training mesh's (``train/leader.py``).
 
 The scheduler, the radix cache and the page pool live on rank 0 only: the
 engine's process.  Rank 0's ``ModelRunner`` broadcasts each call that
@@ -116,47 +117,48 @@ def _tag_launches(runner) -> dict:
 
 
 class Leader:
-    """Rank 0's side: wraps ``runner``'s mirrored methods (instance
-    attributes over the class's), owns the follower processes and the ping
-    thread."""
+    """Rank 0's side of a rank mesh: wraps the methods of ``target`` (the
+    runner, or a training rank) named in ``mirrored`` (instance attributes
+    over the class's) so each broadcasts its call before it runs, makes the
+    ``gathered`` calls (name -> function of the target) whose results every
+    rank gets, owns the follower processes ``procs`` and the ping thread.
+    The followers run ``follow``.  ``local_when_broken`` are the mirrored
+    calls with no collective inside, which run on rank 0 alone once the
+    mesh is broken.  ``release(timeout)`` takes the followers back at
+    ``close`` (None: wait for them to exit, and kill any that linger);
+    ``name`` is the mesh's in errors."""
 
-    def __init__(self, runner, groups: RankGroups, procs: list):
-        self.runner = runner
+    def __init__(self, target, groups: RankGroups, procs: list, *, mirrored: tuple,
+                 gathered: dict, local_when_broken: tuple = (), release=None,
+                 name: str = "rank mesh"):
+        self.target = target
         self.groups = groups
         self.procs = procs
+        self.gathered = gathered
+        self.local_when_broken = local_when_broken
+        self.release = release
+        self.name = name
         self._lock = threading.RLock()
         self._local = threading.local()
         self._broken: str | None = None
         self._closed = False
         self._last_send = time.monotonic()
-        _tag_launches(runner)
-        for name in MIRRORED:
-            setattr(runner, name, self._mirror(name, getattr(runner, name)))
-        refused = dict(_REFUSED_RUNNER)
-        if runner.config.parallel.tp > 1:
-            refused.update(load_lora="lora", unload_lora="lora")
-        for name, what in refused.items():
-            setattr(runner, name, self._refuse(what))
+        for m in mirrored:
+            setattr(target, m, self._mirror(m, getattr(target, m)))
         self._stop = threading.Event()  # set by close: the ping thread ends within 1 s
-        self._pinger = threading.Thread(target=self._ping_loop, name="tp-ping", daemon=True)
+        self._pinger = threading.Thread(target=self._ping_loop, name="rank-ping", daemon=True)
         self._pinger.start()
-
-    @staticmethod
-    def _refuse(what: str):
-        def refused(*args, **kwargs):
-            raise refusal(what)
-        return refused
 
     def _check(self) -> None:
         if self._closed:
-            raise RuntimeError("rank-mesh engine is closed")
+            raise RuntimeError(f"{self.name} is closed")
         if self._broken is None:
             dead = [p for p in self.procs if not p.is_alive()]
             if dead:
                 self._broken = (f"rank process {dead[0].name} exited "
                                 f"(code {dead[0].exitcode})")
         if self._broken is not None:
-            raise RuntimeError(f"rank mesh broken: {self._broken}")
+            raise RuntimeError(f"{self.name} broken: {self._broken}")
 
     @property
     def alive(self) -> bool:
@@ -180,7 +182,7 @@ class Leader:
                 try:
                     self._check()
                 except RuntimeError:
-                    if self._closed or name not in _LOCAL_WHEN_BROKEN:
+                    if self._closed or name not in self.local_when_broken:
                         raise
                     return inner(*args, **kwargs)  # the mesh is gone; rank 0 alone
                 self._local.depth = 1
@@ -195,13 +197,21 @@ class Leader:
                     self._local.depth = 0
         return mirrored
 
-    def rank_reports(self) -> list[dict]:
-        """Every rank's ``rank_report``, in rank order (a collective on the
-        control group, under the lock)."""
+    def gather(self, name: str) -> list:
+        """Every rank's result of the ``gathered`` call ``name``, in rank
+        order (a collective on the control group, under the lock)."""
         with self._lock:
             self._check()
-            self._send(("report", (), {}))
-            return self.groups.gather(rank_report(self.runner))
+            try:
+                self._send((name, (), {}))
+                return self.groups.gather(self.gathered[name](self.target))
+            except Exception as e:
+                self._broken = f"{name} failed: {e!r}"
+                raise
+
+    def rank_reports(self) -> list[dict]:
+        """Every rank's ``rank_report`` (a serving mesh's)."""
+        return self.gather("report")
 
     def _ping_loop(self) -> None:
         period = self.groups.timeout / 4
@@ -222,7 +232,8 @@ class Leader:
                     return
 
     def close(self, timeout: float = 30.0) -> None:
-        """Stop the followers and wait for them; kill any that linger."""
+        """Stop the followers and wait for them (or hand them to
+        ``release``); kill any that linger."""
         with self._lock:
             if self._closed:
                 return
@@ -233,14 +244,54 @@ class Leader:
                     pass
             self._closed = True
             self._stop.set()
-        deadline = time.monotonic() + timeout
-        for p in self.procs:
-            p.join(max(deadline - time.monotonic(), 0.1))
-        for p in self.procs:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
+        if self.release is not None:
+            self.release(timeout)
+        else:
+            deadline = time.monotonic() + timeout
+            for p in self.procs:
+                p.join(max(deadline - time.monotonic(), 0.1))
+            for p in self.procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
         self.groups.shutdown()
+
+
+def follow(groups: RankGroups, target, gathered: dict, unwire=None) -> None:
+    """A follower's side of ``Leader``: make rank 0's calls on ``target``
+    (its arguments through ``unwire``) until it says close; a ``gathered``
+    call's result goes to every rank.  A call that fails ends the process
+    (code 5), and so does no call within the timeout (4: rank 0 is gone):
+    rank 0's collectives then fail at once."""
+    rank = groups.rank
+    while True:
+        try:
+            name, args, kwargs = groups.recv()
+        except Exception as e:  # noqa: BLE001 - rank 0 is gone or silent past the timeout
+            logger.error("rank %d: no call from rank 0 (%r); exiting", rank, e)
+            os._exit(4)
+        if name == "close":
+            return
+        if name == "ping":
+            continue
+        try:
+            if name in gathered:
+                groups.gather(gathered[name](target))
+            else:
+                if unwire is not None:
+                    args, kwargs = unwire(args), unwire(kwargs)
+                getattr(target, name)(*args, **kwargs)
+        except Exception:  # noqa: BLE001 - out: rank 0's collectives fail at once
+            logger.error("rank %d: %s failed; exiting\n%s", rank, name,
+                         traceback.format_exc())
+            sys.stderr.flush()
+            os._exit(5)
+
+
+def _refuse(what: str):
+    def refused(*args, **kwargs):
+        raise refusal(what)
+    return refused
 
 
 def rank_report(runner) -> dict:
@@ -324,7 +375,15 @@ def start_ranks(config, params, devices: list, attention: str):
             logger.error("rank processes failed at start: %s", dead)
         raise
     runner.tp_store = store  # the followers' rendezvous lives as long as the engine
-    return runner, Leader(runner, groups, procs)
+    _tag_launches(runner)
+    leader = Leader(runner, groups, procs, mirrored=MIRRORED, gathered={"report": rank_report},
+                    local_when_broken=_LOCAL_WHEN_BROKEN)
+    refused = dict(_REFUSED_RUNNER)
+    if config.parallel.tp > 1:
+        refused.update(load_lora="lora", unload_lora="lora")
+    for name, what in refused.items():
+        setattr(runner, name, _refuse(what))
+    return runner, leader
 
 
 def _await_followers(store, procs: list, timeout: float) -> None:
@@ -347,25 +406,27 @@ def _await_followers(store, procs: list, timeout: float) -> None:
 _PRELOAD = ["smg_tpu_torch.engine.runner", "smg_tpu_torch.parallel.leader"]
 
 
-def _rank_context():
+def _rank_context(preload: list | None = None):
     """The multiprocessing context rank processes start from: a fork server
-    that imported the port once (``forkserver``, its modules preloaded), so
-    a rank process is forked from it in a fraction of a second instead of
-    starting an interpreter and importing torch (several seconds a rank).
-    The fork server holds no CUDA context, so nothing is forked after CUDA
-    initialised, as ``spawn`` guarantees too."""
+    that imported the port once (``forkserver``, its modules preloaded:
+    ``preload``, by default ``_PRELOAD``; the first caller in a process
+    fixes them), so a rank process is forked from it in a fraction of a
+    second instead of starting an interpreter and importing torch (several
+    seconds a rank).  The fork server holds no CUDA context, so nothing is
+    forked after CUDA initialised, as ``spawn`` guarantees too."""
     ctx = multiprocessing.get_context("forkserver")
-    ctx.set_forkserver_preload(_PRELOAD)
+    ctx.set_forkserver_preload(_PRELOAD if preload is None else preload)
     return ctx
 
 
-def prestart() -> None:
+def prestart(preload: list | None = None) -> None:
     """Start the rank processes' fork server now, ahead of the first
-    rank-mesh engine: it imports the port while the caller does other work
-    (nothing of it touches a device)."""
+    rank-mesh engine (or training mesh, with its ``preload``): it imports
+    the port while the caller does other work (nothing of it touches a
+    device)."""
     from multiprocessing import forkserver
 
-    _rank_context()
+    _rank_context(preload)
     forkserver.ensure_running()
 
 
@@ -404,26 +465,8 @@ def follower_main(spec: dict) -> None:
                          attention=spec["attention"], groups=groups)
     del spec
     kept = _tag_launches(runner)
-    while True:
-        try:
-            name, args, kwargs = groups.recv()
-        except Exception as e:  # noqa: BLE001 - rank 0 is gone or silent past the timeout
-            logger.error("rank %d: no call from rank 0 (%r); exiting", rank, e)
-            os._exit(4)
-        if name == "close":
-            break
-        if name == "ping":
-            continue
-        if name == "report":
-            groups.gather(rank_report(runner))
-            continue
-        try:
-            getattr(runner, name)(*_unwire(args, kept), **_unwire(kwargs, kept))
-        except Exception:  # noqa: BLE001 - out: rank 0's collectives fail at once
-            logger.error("rank %d: %s failed; exiting\n%s", rank, name,
-                         traceback.format_exc())
-            sys.stderr.flush()
-            os._exit(5)
+    follow(groups, runner, {"report": rank_report}, lambda a: _unwire(a, kept))
+    groups.release_device()  # rank 0 frees its sum buffer once every peer unmapped it
     # straight out: the groups' native threads may not outlive their
     # destructors cleanly once a peer has gone
     sys.stdout.flush()

@@ -160,12 +160,26 @@ def check_mesh(cfg: ModelConfig, place: RankPlace) -> None:
         raise ValueError(f"ep={place.ep} does not divide num_experts={cfg.num_experts}")
 
 
-def _cols(t: torch.Tensor, a: int, b: int) -> torch.Tensor:
-    return t[..., a:b]
-
-
-def _rows(t: torch.Tensor, a: int, b: int) -> torch.Tensor:
-    return t[..., a:b, :]
+def tp_range(name: str, plan: ShardPlan, head_dim: int) -> tuple[int, int, int] | None:
+    """Where rank ``plan.rank``'s tp slice of weight ``name`` lies: (the
+    axis counted from the end, -1 or -2, and its half-open range), or None
+    when tp replicates the weight."""
+    D = head_dim
+    if name == "wq":
+        return -1, plan.heads[0] * D, plan.heads[1] * D
+    if name in ("wk", "wv"):
+        return -1, plan.kv_heads[0] * D, plan.kv_heads[1] * D
+    if name == "wo":
+        return -2, plan.heads[0] * D, plan.heads[1] * D
+    if name in ("w_gate", "w_up"):
+        return -1, *plan.ffn
+    if name == "w_down":
+        return -2, *plan.ffn
+    if name == "embed" and plan.vocab is not None:
+        return -2, *plan.vocab
+    if name == "lm_head" and plan.vocab is not None:
+        return -1, *plan.vocab
+    return None
 
 
 def shard_tensor(name: str, t: torch.Tensor, plan: ShardPlan, head_dim: int) -> torch.Tensor:
@@ -173,28 +187,17 @@ def shard_tensor(name: str, t: torch.Tensor, plan: ShardPlan, head_dim: int) -> 
     tensor or one layer of it, or ``embed``/``lm_head``), as a tensor of its
     own (the whole one can be freed).  Replicated weights come back as they
     are."""
-    D = head_dim
-    if name == "wq":
-        part = _cols(t, plan.heads[0] * D, plan.heads[1] * D)
-    elif name in ("wk", "wv"):
-        part = _cols(t, plan.kv_heads[0] * D, plan.kv_heads[1] * D)
-    elif name == "wo":
-        part = _rows(t, plan.heads[0] * D, plan.heads[1] * D)
-    elif name in ("w_gate", "w_up"):
-        part = _cols(t, *plan.ffn)
-    elif name == "w_down":
-        part = _rows(t, *plan.ffn)
-    elif name == "embed" and plan.vocab is not None:
-        part = _rows(t, *plan.vocab)
-    elif name == "lm_head" and plan.vocab is not None:
-        part = _cols(t, *plan.vocab)
-    else:
+    r = tp_range(name, plan, head_dim)
+    if r is None:
         return t
-    return part.clone(memory_format=torch.contiguous_format)
+    dim, a, b = r
+    return t.narrow(dim, a, b - a).clone(memory_format=torch.contiguous_format)
 
 
 #: the stacked weights whose second axis is the expert axis
 _EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+#: the weights outside the layer stack
+_TOP_KEYS = ("embed", "lm_head", "final_norm")
 
 
 def shard_params(params: dict, cfg: ModelConfig, tp: int = 1, rank: int = 0,
@@ -233,7 +236,7 @@ class Sharder:
         return self.place.holds(self.cfg, name)
 
     def keep(self, name: str, depth: int, n: int) -> tuple[int, int]:
-        if name in ("embed", "lm_head", "final_norm"):
+        if name in _TOP_KEYS:
             return 0, n
         if depth == 0:
             return self.place.layers(self.cfg)
@@ -246,15 +249,102 @@ class Sharder:
             return t
         return shard_tensor(name, t, self.plan, self.cfg.head_dim)
 
+    def region(self, name: str, shape: tuple) -> tuple[slice, ...]:
+        """Where the rank's slice of a whole weight ``name`` of ``shape``
+        (stacked or top-level) lies in it: a slice for each axis."""
+        idx = [slice(None)] * len(shape)
+        if name not in _TOP_KEYS:
+            for depth in range(2 if self.cfg.num_experts and name in _EXPERT_KEYS else 1):
+                idx[depth] = slice(*self.keep(name, depth, shape[depth]))
+        r = None if self.plan is None else tp_range(name, self.plan, self.cfg.head_dim)
+        if r is not None:
+            idx[len(shape) + r[0]] = slice(r[1], r[2])
+        return tuple(idx)
+
     def piece(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The rank's slice of a whole weight (stacked or top-level)."""
-        part = t
-        if name not in ("embed", "lm_head", "final_norm"):
-            for depth in range(2 if self.cfg.num_experts and name in _EXPERT_KEYS else 1):
-                a, b = self.keep(name, depth, t.shape[depth])
-                part = part.narrow(depth, a, b - a)
-        if self.plan is not None:
-            part = shard_tensor(name, part, self.plan, self.cfg.head_dim)
-        if part is t or (part._base is None and part.is_contiguous()):
-            return part  # whole, or already a tensor of its own
+        part = t[self.region(name, t.shape)]
+        if part.shape == t.shape:
+            return t  # whole
         return part.clone(memory_format=torch.contiguous_format)
+
+
+# ---- the training mesh (``train/step.py``) ----
+
+#: the reference's default ``ShardingRules`` table
+#: (``smg_tpu/parallel/sharding.py``), copied by value: the one table the
+#: port's ``Sharder`` lays out, with ``layers -> pp`` added under pp as the
+#: reference's ``make_train_step`` adds it
+DEFAULT_RULES = {
+    "vocab": "tp", "embed": None, "q_heads": "tp", "kv_heads": "tp", "kv_lanes": "tp",
+    "head_dim": None, "ffn": "tp", "experts": "ep", "layers": None,
+    "batch": "dp", "seq": "sp", "pages": None, "act_embed": None, "act_heads": "tp",
+}
+#: the norm weights: replicated over tp, after which the model places its
+#: ``copy_to`` (``models/llama.py::_fan_out``), so each tp rank's gradient of
+#: them is whole, except q_norm/k_norm, applied to the rank's own heads
+_NORM_KEYS = ("attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm", "final_norm")
+_HEAD_NORM_KEYS = ("q_norm", "k_norm")
+
+
+@dataclass(frozen=True)
+class LeafRule:
+    """How one weight (and its two moments) lies on the training grid, the
+    counterpart of the reference's ``_infer_opt_shardings``, which places
+    the moments like their params: ``replicated`` are the axes along which
+    ranks hold the same piece, ``summed`` those of them whose ranks each
+    compute a part of its gradient (the batch over dp, the sequence over sp,
+    a replicated weight whose use the axis splits), summed after the
+    backward.  Along tp a piece may be held by groups of ``tp_share`` ranks
+    (1: split, tp: replicated; KV heads fewer than tp are held by
+    ``tp / num_kv_heads`` ranks each)."""
+
+    replicated: tuple[str, ...]
+    summed: tuple[str, ...]
+    tp_share: int = 1
+
+    def owner(self, coords: dict) -> bool:
+        """Does the rank at ``coords`` count this piece (in a norm) for every
+        rank that holds it?"""
+        return all((coords.get(a, 0) % self.tp_share if a == "tp" else coords.get(a, 0)) == 0
+                   for a in self.replicated)
+
+
+def train_rules(cfg: ModelConfig, sizes: dict) -> dict[str, LeafRule]:
+    """The ``LeafRule`` of every weight of ``cfg`` on a grid of ``sizes``,
+    by name (``embed``, ``final_norm``, ``lm_head``, ``layers.<key>``)."""
+    tp, pp, ep = (sizes.get(a, 1) for a in ("tp", "pp", "ep"))
+    every = tuple(a for a in ("dp", "sp") if sizes.get(a, 1) > 1)
+    names = ["embed", "final_norm"] + ([] if cfg.tie_word_embeddings else ["lm_head"])
+    layer = ["attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down"]
+    if cfg.post_norms:
+        layer += ["post_attn_norm", "post_mlp_norm"]
+    if cfg.qk_norm:
+        layer += list(_HEAD_NORM_KEYS)
+    if cfg.num_experts:
+        layer.append("router")
+    names += [f"layers.{k}" for k in layer]
+    out = {}
+    for name in names:
+        key = name.removeprefix("layers.")
+        rep, summed, share = list(every), list(every), 1
+        if ep > 1 and not (cfg.num_experts and key in _EXPERT_KEYS):
+            rep.append("ep")
+            if key == "router":  # each ep rank's gates weigh only its experts
+                summed.append("ep")
+        if tp > 1:
+            vocab_whole = cfg.vocab_size % tp != 0
+            if key in _NORM_KEYS or key in _HEAD_NORM_KEYS or (
+                    key in ("embed", "lm_head") and vocab_whole):
+                share = tp
+            elif key in ("wk", "wv") and cfg.num_kv_heads % tp:
+                share = tp // cfg.num_kv_heads  # a KV head for each group of ranks
+            if share > 1:
+                rep.append("tp")
+            if key in _HEAD_NORM_KEYS or (key in ("wk", "wv") and share > 1):
+                summed.append("tp")  # each rank's heads use a part of it
+        if pp > 1 and key == "embed" and cfg.tie_word_embeddings:
+            rep.append("pp")  # on the first stage and the last
+            summed.append("pp")
+        out[name] = LeafRule(tuple(rep), tuple(summed), share)
+    return out

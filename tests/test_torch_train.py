@@ -236,8 +236,35 @@ def test_adamw_matches_optax(lr):
     {"num_microbatches": 2},
 ], ids=["dp", "tp", "sp", "pp", "rules", "ring", "microbatches"])
 def test_sharding_arguments_raise(kw):
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        make_train_step(port_config(tiny_test_config()), device="cpu", **kw)
+    """What the reference's mesh arguments do since the sharded step: an
+    axis outside the reference's ``AXIS_ORDER`` ("data", "tensor") raises
+    ValueError; a custom rules table raises naming its ROADMAP item (9m); a
+    mesh of two devices raises without a device list ("needs 2 devices")
+    and takes its step on two CPU ranks; ring attention and microbatches on
+    one device take the step (the same attention; one pipeline stage)."""
+    cfg = port_config(tiny_test_config())
+    mesh = kw.get("mesh", {})
+    if set(mesh) - {"sp", "pp"}:
+        with pytest.raises(ValueError, match="expected axis=N"):
+            make_train_step(cfg, device="cpu", **kw)
+        return
+    if "rules" in kw:
+        with pytest.raises(NotImplementedError, match="Queue A item 9m"):
+            make_train_step(cfg, device="cpu", **kw)
+        return
+    devices = None
+    if mesh:
+        with pytest.raises(RuntimeError, match="needs 2 devices, found 0"):
+            make_train_step(cfg, **kw)
+        devices = ["cpu", "cpu"]
+    init, step = make_train_step(cfg, device="cpu", devices=devices, **kw)
+    try:
+        # four rows: pp's default of 2 x pp microbatches
+        tokens, targets, mask = (np.concatenate([x, x]) for x in _batch(cfg.vocab_size, seed=9))
+        state, m = step(init(seed=0), tokens, targets, mask)
+        assert state.step == 1 and np.isfinite(float(m["loss"]))
+    finally:
+        step.close()
 
 
 def test_one_device_mesh_is_accepted():
